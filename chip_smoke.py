@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (nonzero exit) when it fails:
+
+1. device  — card name, count, torch/CUDA versions and the
+   ``nvidia-smi`` name and power limit; no card → exit 2.
+2. build   — nvcc builds the attention kernels from
+   ``comfyui_distributed_tpu_torch/ops/csrc`` into ``build/torch_kernels``
+   and prints ptxas's register / shared-memory / spill report.
+3. kernels — every attention kernel at the txt2img path's shapes (plus
+   ragged cases and the FLUX-width one-head case) against its plain
+   PyTorch version in bf16 (max-abs error ≤ 1e-2·max|plain|), then CUDA-
+   event times of the kernel, the plain version and one PyTorch library
+   call computing the same function (a yardstick only: the port never
+   calls it), beside the least time the card could take.
+4. path    — the SDXL preset at full width (random weights from seed 0)
+   runs ``workflows/distributed-txt2img.json`` through the port's
+   ``GraphExecutor`` as three requests (seed 7, 8, 7): images
+   [1,1024,1024,3], finite, in [0,1], PNGs written, the repeated seed
+   bitwise equal, the other seed different, and each kernel's launch
+   counter rising by exactly the count one request needs.
+5. reference — the same UNet at a 512² latent, once through the kernels
+   and once with its attention sites on the plain versions; the two eps
+   predictions agree within 5e-2·max|plain|.
+
+The second-to-last stdout line is the kernel table as JSON; the last is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PACKAGE = ROOT / "comfyui_distributed_tpu_torch"
+WORKFLOW = ROOT / "workflows" / "distributed-txt2img.json"
+OUTPUT_DIR = ROOT / "output" / "chip_smoke"
+
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12         # H100 SXM HBM3 rate
+KERNEL_TOL = 1e-2            # max-abs error / max|plain|, bf16 in and out
+REFERENCE_TOL = 5e-2         # whole-UNet eps, kernels vs plain attention
+SPIN_CLOCK_HZ = 2.0e9        # above the H100's top SM clock: spins run long
+CU_SOURCE = "comfyui_distributed_tpu_torch/ops/csrc/flash_attention.cu"
+TPU_SOURCE = "comfyui_distributed_tpu/ops/flash_attention.py"
+
+# The txt2img path at 1024² with CFG (batch 2): per UNet forward, 10
+# transformer blocks at 4096 tokens × 640 channels (10 heads) and 60 at
+# 1024 tokens × 1280 channels (20 heads); each block has one self- and
+# one cross-attention site (77 context tokens). The text encoder has 4
+# self-attention layers (77 tokens × 768, 12 heads) and runs once per
+# prompt, twice per request. All heads are 64 wide.
+STEPS = 30
+FUSED_SHAPES = [  # (B, N, C, H), launches per request
+    ((2, 4096, 640, 10), STEPS * 10),
+    ((2, 1024, 1280, 20), STEPS * 60),
+    ((1, 77, 768, 12), 2 * 4),
+]
+PACKED_SHAPES = [  # (B, Nq, Nk, H, D), launches per request
+    ((2, 4096, 77, 10, 64), STEPS * 10),
+    ((2, 1024, 77, 20, 64), STEPS * 60),
+]
+FLUX_BH_SHAPE = (1, 4608, 4608, 24, 128)   # joint attention, one launch
+RAGGED_FUSED = [(2, 4000, 640, 10), (1, 130, 256, 2)]
+RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
+EXPECTED_LAUNCHES = {
+    "fused_qkv_attention": sum(n for _, n in FUSED_SHAPES),       # 2108
+    "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),   # 2100
+    "flash_attention_bh": 0,
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# --- phase 1 -----------------------------------------------------------------
+
+
+def device_phase(torch) -> dict:
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    say(f"device: {name} x{count}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    first = smi.stdout.strip().splitlines()[0]
+    say(first)
+    return {"platform": "gpu", "kind": name, "count": count, "smi": first}
+
+
+# --- phase 2 -----------------------------------------------------------------
+
+
+def build_phase(fa) -> None:
+    t0 = time.perf_counter()
+    fa.KERNELS.load()
+    say(f"build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {fa.KERNELS.build_seconds:.2f} s)")
+    for line in fa.KERNELS.build_log.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "smem")):
+            say("  " + line.strip())
+
+
+# --- phase 3 -----------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds per call, from CUDA events around ``iters``
+    calls after ``warmup`` calls.
+
+    A short kernel (the 77-token cross-attention takes well under 0.1 ms)
+    runs faster than Python enqueues it, so events around back-to-back
+    calls would time the host. The card is therefore first held in a spin
+    at least twice as long as the host takes to enqueue every call: all
+    calls are queued before the first one runs, and the events time the
+    card alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_s = max(1e-3, 2.0 * enqueue_s * iters)
+    torch.cuda._sleep(int(spin_s * SPIN_CLOCK_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of operations over
+    the bf16 tensor-core peak and bytes over the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fused_work(B, N, C, H, D=64) -> tuple[float, float]:
+    flops = 3 * 2 * B * N * C * H * D + 4 * B * H * N * N * D
+    nbytes = 2 * (B * N * C + 3 * H * D * C + B * N * H * D)
+    return flops, nbytes
+
+
+def core_work(B, Nq, Nk, H, D) -> tuple[float, float]:
+    flops = 4 * B * H * Nq * Nk * D
+    nbytes = 2 * (2 * B * Nq * H * D + 2 * B * Nk * H * D)
+    return flops, nbytes
+
+
+def compare(torch, name: str, out, ref) -> float:
+    torch.cuda.synchronize()
+    require(tuple(out.shape) == tuple(ref.shape),
+            f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = err <= KERNEL_TOL * scale
+    say(f"  {name}: max_abs_err {err:.6g} (max|plain| {scale:.6g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    require(ok, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+
+    def fused_inputs(B, N, C, H, D=64):
+        x = randn(B, N, C)
+        ws = [randn(H * D, C, scale=C ** -0.5) for _ in range(3)]
+        return x, ws
+
+    def core_inputs(B, Nq, Nk, H, D):
+        return randn(B, Nq, H, D), randn(B, Nk, H, D), randn(B, Nk, H, D)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ).transpose(1, 2)
+
+    say("kernels: correctness (bf16; tolerance max_abs_err <= "
+        f"{KERNEL_TOL}*max|plain|)")
+    errs = {k: 0.0 for k in EXPECTED_LAUNCHES}
+    for shape in [s for s, _ in FUSED_SHAPES] + RAGGED_FUSED:
+        B, N, C, H = shape
+        x, (wq, wk, wv) = fused_inputs(*shape)
+        err = compare(torch, f"fused_qkv_attention {shape}",
+                      fa.fused_qkv_attention(x, wq, wk, wv, H),
+                      fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
+        errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
+    core_cases = [s for s, _ in PACKED_SHAPES] + RAGGED_CORE + [FLUX_BH_SHAPE]
+    for shape in core_cases:
+        q, k, v = core_inputs(*shape)
+        ref = fa.flash_attention_plain(q, k, v)
+        for layout in ("packed", "bh"):
+            key = f"flash_attention_{layout}"
+            err = compare(torch, f"{key} {shape}",
+                          fa.flash_attention(q, k, v, layout=layout), ref)
+            errs[key] = max(errs[key], err)
+        del ref
+
+    say("kernels: timing (CUDA events; ms per launch)")
+    rows = []
+
+    def time_row(kernel, shape, launches, work, run, plain, library):
+        ms = cuda_ms(torch, run)
+        plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+        lib_ms = cuda_ms(torch, library)
+        b, by = bound_ms(*work)
+        say(f"  {kernel} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"library {lib_ms:.4f}, bound {b:.4f} by {by}; "
+            f"{b / ms:.1%} of bound); {launches} launches/request")
+        rows.append({"kernel": kernel, "shape": shape, "launches": launches,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b, "bound_by": by,
+                     "flops": work[0], "bytes": work[1]})
+
+    for shape, n in FUSED_SHAPES:
+        B, N, C, H = shape
+        x, (wq, wk, wv) = fused_inputs(*shape)
+
+        def library(x=x, wq=wq, wk=wk, wv=wv, B=B, N=N, H=H):
+            q, k, v = (torch.matmul(x, w.t()).view(B, N, H, 64)
+                       for w in (wq, wk, wv))
+            return sdpa(q, k, v)
+
+        time_row("fused_qkv_attention", shape, n, fused_work(*shape),
+                 lambda: fa.fused_qkv_attention(x, wq, wk, wv, H),
+                 lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, H),
+                 library)
+    for shape, n in PACKED_SHAPES:
+        q, k, v = core_inputs(*shape)
+        time_row("flash_attention_packed", shape, n, core_work(*shape),
+                 lambda: fa.flash_attention(q, k, v, layout="packed"),
+                 lambda: fa.flash_attention_plain(q, k, v),
+                 lambda: sdpa(q, k, v))
+    q, k, v = core_inputs(*FLUX_BH_SHAPE)
+    time_row("flash_attention_bh", FLUX_BH_SHAPE, 1, core_work(*FLUX_BH_SHAPE),
+             lambda: fa.flash_attention(q, k, v, layout="bh"),
+             lambda: fa.flash_attention_plain(q, k, v),
+             lambda: sdpa(q, k, v))
+    return rows, errs
+
+
+def kernel_table(rows: list[dict], errs: dict, launches: dict) -> list[dict]:
+    """One entry per kernel. K1/K2: launch-weighted sums over one request's
+    shapes (ms per request). K3 (not on the path): one FLUX-width launch."""
+    replaces = {"fused_qkv_attention": f"{TPU_SOURCE}:227",
+                "flash_attention_packed": f"{TPU_SOURCE}:197",
+                "flash_attention_bh": f"{TPU_SOURCE}:99"}
+    out = []
+    for name in EXPECTED_LAUNCHES:
+        mine = [r for r in rows if r["kernel"] == name]
+        tot = {key: sum(r[key] * r["launches"] for r in mine)
+               for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+        b, by = bound_ms(tot["flops"], tot["bytes"])
+        out.append({
+            "name": name, "route": "cuda", "source": CU_SOURCE,
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": tot["library_ms"],
+            "per": "one FLUX-width launch" if name == "flash_attention_bh"
+                   else "one request",
+        })
+    return out
+
+
+# --- phase 4 -----------------------------------------------------------------
+
+
+def png_size(path: Path) -> tuple[int, int]:
+    data = path.read_bytes()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return (int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big"))
+
+
+def path_phase(torch, fa) -> tuple[dict, dict]:
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    workflow = strip_meta(json.loads(WORKFLOW.read_text()))
+    sampler = workflow["5"]["inputs"]
+    require(sampler["steps"] == STEPS,
+            "the workflow's step count changed; update STEPS")
+    hw = (int(sampler["height"]), int(sampler["width"]))
+    registry = ModelRegistry("cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = registry.get(workflow["1"]["inputs"]["ckpt_name"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in bundle.pipeline.unet.parameters())
+    say(f"path: {bundle.preset.name} bundle built in {time.perf_counter() - t0:.2f} s "
+        f"(UNet {n_params / 1e9:.3f} B params)")
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OUTPUT_DIR)})
+    png = OUTPUT_DIR / "txt2img_00000.png"
+    images, counts = [], []
+    fa.reset_launches()
+    for seed in (7, 8, 7):
+        prompt = json.loads(json.dumps(workflow))
+        prompt["4"]["inputs"]["seed"] = seed
+        png.unlink(missing_ok=True)
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        out = executor.execute(prompt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts.append({k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES})
+        img = out["6"][0]
+        timings = bundle.pipeline.timings
+        say(f"  request seed {seed}: {secs:.3f} s; sampling "
+            f"{timings['sample_s']:.3f} s = "
+            f"{timings['sample_s'] / timings['steps']:.4f} s/step over "
+            f"{timings['steps']} steps; decode {timings['decode_s']:.3f} s; "
+            f"launches {counts[-1]}")
+        require(tuple(img.shape) == (1, *hw, 3),
+                f"image shape {tuple(img.shape)}")
+        require(bool(torch.isfinite(img).all()), "non-finite image")
+        require(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+                "image outside [0, 1]")
+        require(png.is_file() and png_size(png) == hw[::-1],
+                f"{png} missing or not {hw[1]}x{hw[0]}")
+        images.append(img)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
+    for i, c in enumerate(counts):
+        require(c == EXPECTED_LAUNCHES,
+                f"request {i}: launches {c} != expected {EXPECTED_LAUNCHES}")
+    require(torch.equal(images[0], images[2]),
+            "seed 7 twice gave different images")
+    require(not torch.equal(images[0], images[1]),
+            "seeds 7 and 8 gave the same image")
+    say("  launch counts as expected; seed 7 repeatable; seed 8 differs")
+    first = {k: counts[0][k] for k in EXPECTED_LAUNCHES}
+    return bundle, first
+
+
+# --- phase 5 -----------------------------------------------------------------
+
+
+def reference_phase(torch, fa, bundle) -> None:
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import layers
+
+    unet = bundle.pipeline.unet
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = unet.config
+    x = torch.randn(2, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device=dev)
+    y = torch.randn(2, cfg.adm_in_channels, generator=gen, device=dev)
+    with torch.no_grad():
+        eps = unet(x, t, ctx, y)
+        with mock.patch.object(layers, "self_attention",
+                               fa.fused_qkv_attention_plain), \
+                mock.patch.object(layers, "full_attention",
+                                  fa.flash_attention_plain):
+            ref = unet(x, t, ctx, y)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(eps).all()), "reference: non-finite eps")
+    err = (eps - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    say(f"reference: UNet eps at 512² with kernels vs plain attention: "
+        f"max_abs_err {err:.6g} (max|plain| {scale:.6g}; tolerance "
+        f"{REFERENCE_TOL}*max|plain|)")
+    require(err <= REFERENCE_TOL * scale, "reference: UNet eps disagree")
+
+
+def main() -> int:
+    if not (PACKAGE / "ops" / "csrc" / "flash_attention.cu").is_file():
+        print(f"chip_smoke: {PACKAGE} not found beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from comfyui_distributed_tpu_torch.ops import flash_attention as fa
+
+    # fp32 products in the comparisons are full fp32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    try:
+        device = device_phase(torch)
+        build_phase(fa)
+        rows, errs = kernel_phase(torch, fa)
+        bundle, launches = path_phase(torch, fa)
+        reference_phase(torch, fa, bundle)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    say(f"total {time.perf_counter() - t_start:.1f} s on {device['smi']}")
+    say(json.dumps({"kernels": kernel_table(rows, errs, launches)}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

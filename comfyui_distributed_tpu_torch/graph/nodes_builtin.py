@@ -1,0 +1,190 @@
+"""The port's node set: exactly the nodes of the txt2img workflow
+(``workflows/distributed-txt2img.json``), with the JAX package's names
+and contracts.
+
+Graph value conventions, as in the JAX package: IMAGE = float32
+[B,H,W,C] in [0,1]; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]};
+MODEL = ModelBundle. Tensors stay on the bundle's device until
+``SaveImage`` copies them to the host.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.exceptions import ValidationError
+from ..utils.logging import log
+from .node import NodeDef, register_node
+
+
+@register_node("DistributedSeed")
+class DistributedSeed(NodeDef):
+    """Master passes ``seed`` through; worker N yields ``seed + N + 1``."""
+
+    INPUTS = {"seed": "INT"}
+    HIDDEN = {"is_worker": "BOOLEAN", "worker_id": "STRING", "worker_index": "INT"}
+    RETURNS = ("INT",)
+
+    def execute(self, seed: int, is_worker: bool = False, worker_id: str = "",
+                worker_index: int = 0, **_):
+        if not is_worker:
+            return (int(seed),)
+        return (int(seed) + int(worker_index) + 1,)
+
+
+@register_node("DistributedValue")
+class DistributedValue(NodeDef):
+    """Per-worker override with typed coercion and default fallback:
+    ``worker_values`` is a JSON map of 1-indexed worker number → value."""
+
+    INPUTS = {"default_value": "*"}
+    OPTIONAL = {"worker_values": "STRING", "value_type": "STRING"}
+    HIDDEN = {"is_worker": "BOOLEAN", "worker_id": "STRING", "worker_index": "INT"}
+    RETURNS = ("*",)
+
+    _COERCERS = {
+        "INT": lambda v: int(float(v)),
+        "FLOAT": float,
+        "STRING": str,
+        "COMBO": str,
+    }
+
+    def _coerce(self, value: Any, value_type: str) -> Any:
+        fn = self._COERCERS.get(value_type.upper())
+        if fn is None:
+            return value
+        try:
+            return fn(value)
+        except (TypeError, ValueError):
+            raise ValidationError(
+                f"cannot coerce {value!r} to {value_type}", field="worker_values")
+
+    def execute(self, default_value, worker_values: str = "", value_type: str = "",
+                is_worker: bool = False, worker_id: str = "", worker_index: int = 0,
+                **_):
+        if not is_worker or not worker_values:
+            return (default_value,)
+        try:
+            mapping = json.loads(worker_values)
+        except json.JSONDecodeError:
+            return (default_value,)
+        key = str(int(worker_index) + 1)
+        if key not in mapping:
+            return (default_value,)
+        vtype = value_type or mapping.get("_type", "")
+        return (self._coerce(mapping[key], vtype) if vtype else mapping[key],)
+
+
+@register_node("DistributedCollector")
+class DistributedCollector(NodeDef):
+    """Result gather point. With one controller and no cross-host bridge it
+    is the identity."""
+
+    INPUTS = {"images": "IMAGE"}
+    OPTIONAL = {"audio": "AUDIO"}
+    RETURNS = ("IMAGE", "AUDIO")
+
+    def execute(self, images, audio=None, **_):
+        return (images, audio)
+
+
+@register_node("CheckpointLoader")
+class CheckpointLoader(NodeDef):
+    INPUTS = {"ckpt_name": "STRING"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("MODEL", "CLIP", "VAE")
+
+    def execute(self, ckpt_name: str, model_registry=None, **_):
+        if model_registry is None:
+            from ..models.registry import ModelRegistry
+            model_registry = ModelRegistry()
+        bundle = model_registry.get(ckpt_name)
+        return (bundle, bundle.text_encoder, bundle.pipeline.vae)
+
+
+@register_node("CLIPTextEncode")
+class CLIPTextEncode(NodeDef):
+    INPUTS = {"text": "STRING", "clip": "CLIP"}
+    RETURNS = ("CONDITIONING",)
+
+    def execute(self, text: str, clip, **_):
+        ctx, pooled = clip.encode([str(text)])
+        return ({"context": ctx, "pooled": pooled},)
+
+
+def _adm_from_cond(cond: dict, adm_channels: int,
+                   device: torch.device) -> torch.Tensor:
+    """The ADM vector: pooled text zero-padded (or cut) to the UNet's
+    ``adm_in_channels``."""
+    pooled = cond.get("pooled")
+    if pooled is None:
+        return torch.zeros((1, adm_channels), device=device)
+    pooled = pooled.float()
+    pad = adm_channels - pooled.shape[-1]
+    if pad > 0:
+        return F.pad(pooled, (0, pad))
+    return pooled[:, :adm_channels]
+
+
+@register_node("TPUTxt2Img")
+class TPUTxt2Img(NodeDef):
+    """The sampler node (name kept for workflow compatibility): noise,
+    euler over the sigma ladder with CFG, VAE decode, on the bundle's
+    device."""
+
+    INPUTS = {
+        "model": "MODEL", "positive": "CONDITIONING", "negative": "CONDITIONING",
+        "seed": "INT", "steps": "INT", "cfg": "FLOAT",
+        "width": "INT", "height": "INT",
+    }
+    OPTIONAL = {
+        "sampler_name": "STRING", "scheduler": "STRING", "batch_per_device": "INT",
+    }
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, positive, negative, seed: int, steps: int,
+                cfg: float, width: int, height: int,
+                sampler_name: str = "euler", scheduler: str = "karras",
+                batch_per_device: int = 1, **_):
+        from ..diffusion.pipeline import GenerationSpec
+
+        spec = GenerationSpec(
+            height=int(height), width=int(width), steps=int(steps),
+            sampler=sampler_name, scheduler=scheduler,
+            guidance_scale=float(cfg), per_device_batch=int(batch_per_device),
+        )
+        pipeline = model.pipeline
+        adm = pipeline.unet.config.adm_in_channels
+        y = _adm_from_cond(positive, adm, pipeline.device) if adm else None
+        uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
+        images = pipeline.generate(spec, int(seed), positive["context"],
+                                   negative["context"], y, uy)
+        return (images,)
+
+
+@register_node("SaveImage")
+class SaveImage(NodeDef):
+    INPUTS = {"images": "IMAGE"}
+    OPTIONAL = {"filename_prefix": "STRING"}
+    HIDDEN = {"output_dir": "STRING"}
+    RETURNS = ()
+
+    def execute(self, images, filename_prefix: str = "output",
+                output_dir: str = "", **_):
+        from ..utils.image import encode_png, to_uint8
+
+        out_dir = Path(output_dir or "output")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        arr = to_uint8(images)
+        paths = []
+        for i in range(arr.shape[0]):
+            p = out_dir / f"{filename_prefix}_{i:05d}.png"
+            p.write_bytes(encode_png(arr[i]))
+            paths.append(str(p))
+        log(f"saved {len(paths)} images to {out_dir}")
+        return ()

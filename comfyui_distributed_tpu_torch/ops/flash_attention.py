@@ -1,0 +1,349 @@
+"""Attention kernels for Hopper, their plain PyTorch versions, and the
+loader that builds them.
+
+Counterpart of ``comfyui_distributed_tpu/ops/flash_attention.py``. The
+three Pallas kernels there map onto two CUDA kernels in
+``csrc/flash_attention.cu``:
+
+- ``fused_qkv_attention`` (``_flash_kernel_fused``): self-attention
+  straight from the block input ``x`` and the three projection weights —
+  q/k/v never reach device memory.
+- ``flash_attention(layout="packed")`` (``_flash_kernel_packed``):
+  attention over q/k/v in the projection's own ``[B, N, H·D]`` layout.
+- ``flash_attention(layout="bh")`` (``_flash_kernel``): the same core
+  over pre-transposed ``[B·H, N, D]`` — the packed kernel with one head.
+
+Each wrapper runs its kernel's plain version for a tensor on the CPU and
+launches the kernel for a tensor on a CUDA device; anything else raises.
+There is no fallback from a CUDA tensor to the plain version. Weights use
+the ``nn.Linear`` layout ``[H·D, C]`` (the transpose of the JAX
+function's ``[C, H·D]``); activations keep the JAX layouts.
+
+The library is compiled with ``nvcc`` at first use into
+``build/torch_kernels/`` at the repository root and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30      # large-but-finite: -inf breaks the running max
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEAD_DIMS = (64, 128)
+
+# launches per wrapper, counted where each kernel is launched
+LAUNCHES = {"fused_qkv_attention": 0, "flash_attention_packed": 0,
+            "flash_attention_bh": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """The CUDA runtime refused a launch."""
+
+
+def find_nvcc() -> Optional[str]:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [str(Path(home) / "bin" / "nvcc")] if home else []
+    candidates += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for cand in candidates:
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    return None
+
+
+class KernelLibrary:
+    """The compiled kernel library: built once per source content, loaded
+    once per process. ``build_log`` keeps nvcc's ``-Xptxas -v`` report of
+    the build this process made (empty when an existing build was
+    loaded)."""
+
+    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR,
+                 nvcc: Optional[str] = None):
+        self.source = Path(source)
+        self.build_dir = Path(build_dir)
+        self.nvcc = nvcc
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return self.build_dir / f"libcdt_attention_{digest[:16]}.so"
+
+    def build(self) -> Path:
+        out = self.path()
+        if out.is_file():
+            return out
+        nvcc = self.nvcc or find_nvcc()
+        if nvcc is None:
+            raise KernelBuildError(
+                "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+                "and PATH): the CUDA kernels cannot be built")
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+        except OSError as e:
+            raise KernelBuildError(f"cannot run {nvcc}: {e}") from e
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0 or not tmp.is_file():
+            raise KernelBuildError(
+                f"nvcc failed (exit {proc.returncode}):\n{self.build_log}")
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(self.build_log)
+        return out
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_float)
+                lib.cdt_flash_attention.argtypes = [
+                    p, p, p, p, i, i, i, i, i,
+                    ll, ll, ll, ll, ll, ll, ll, ll, f, p]
+                lib.cdt_flash_attention.restype = i
+                lib.cdt_fused_qkv_attention.argtypes = [
+                    p, p, p, p, p, i, i, i, i, i, f, p]
+                lib.cdt_fused_qkv_attention.restype = i
+                lib.cdt_error_string.argtypes = [i]
+                lib.cdt_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def check(self, code: int, what: str) -> None:
+        if code != 0:
+            msg = self.load().cdt_error_string(code).decode()
+            raise KernelLaunchError(f"{what}: CUDA error {code} ({msg})")
+
+
+KERNELS = KernelLibrary()
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Exact attention over ``[B, N, H, D]`` in fp32: softmax(q·kᵀ/√D)·v,
+    the 1/√D scale applied to the fp32 logits. Returns ``q.dtype``."""
+    D = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x · wᵀ`` accumulated in fp32 and rounded to the operand dtype —
+    the fused kernel's projection epilogue (``w`` in nn.Linear layout)."""
+    return torch.matmul(x.float(), w.float().t()).to(x.dtype)
+
+
+def fused_qkv_attention_plain(x: torch.Tensor, wq: torch.Tensor,
+                              wk: torch.Tensor, wv: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """Projection then exact attention; ``[B, N, C]`` → ``[B, N, H, D]``."""
+    B, N, _ = x.shape
+    D = wq.shape[0] // num_heads
+
+    def heads(w):
+        return project(x, w).reshape(B, N, num_heads, D)
+
+    return flash_attention_plain(heads(wq), heads(wk), heads(wv))
+
+
+def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, block_q: int = 128,
+                             block_k: int = 64) -> torch.Tensor:
+    """The kernels' streamed schedule in plain ops over ``[B·H, N, D]``
+    (the counterpart of the JAX ``_flash_emulated``): K tiles of
+    ``block_k`` keys, NEG_INF tail masking, fp32 running max/denominator/
+    accumulator, probabilities rounded to the operand dtype before P·V,
+    rows with a zero denominator written as 0."""
+    BH, Nq, D = q.shape
+    Nk = k.shape[1]
+    scale = D ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, Nq, block_q):
+        qb = q[:, q0:q0 + block_q]
+        m = torch.full((BH, qb.shape[1], 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((BH, qb.shape[1], D), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Nk, block_k):
+            kb = k[:, k0:k0 + block_k].float()
+            vb = v[:, k0:k0 + block_k]
+            s = torch.matmul(qb.float(), kb.transpose(1, 2)) * scale
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        out[:, q0:q0 + block_q] = (acc / l).to(q.dtype)
+    return out
+
+
+def fused_qkv_attention_emulated(x: torch.Tensor, wq: torch.Tensor,
+                                 wk: torch.Tensor, wv: torch.Tensor,
+                                 num_heads: int, block_q: int = 128,
+                                 block_k: int = 64) -> torch.Tensor:
+    """Fused tier's schedule in plain ops (counterpart of the JAX
+    ``_fused_emulated``): projections rounded to the operand dtype, then
+    the streamed schedule per head."""
+    B, N, _ = x.shape
+    D = wq.shape[0] // num_heads
+
+    def to_bh(w):
+        return (project(x, w).reshape(B, N, num_heads, D)
+                .transpose(1, 2).reshape(B * num_heads, N, D))
+
+    out = flash_attention_emulated(to_bh(wq), to_bh(wk), to_bh(wv),
+                                   block_q, block_k)
+    return out.reshape(B, num_heads, N, D).transpose(1, 2)
+
+
+# --- wrappers ----------------------------------------------------------------
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on anything
+    else or on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"attention kernels take tensors on one CUDA device (or the CPU "
+            f"for the plain version); got {sorted(str(t.device) for t in tensors)}")
+    return True
+
+
+def _check_kernel_operand(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                        wv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Self-attention from ``x`` ``[B, N, C]`` and bias-free projection
+    weights ``[H·D, C]``; returns ``[B, N, H, D]``."""
+    B, N, C = x.shape
+    HD = wq.shape[0]
+    if any(tuple(w.shape) != (HD, C) for w in (wq, wk, wv)):
+        raise ValueError(
+            f"fused qkv attention needs three [H·D, C] weights with C={C}; got "
+            f"{tuple(wq.shape)}, {tuple(wk.shape)}, {tuple(wv.shape)}")
+    if HD % num_heads:
+        raise ValueError(f"width {HD} not divisible by num_heads={num_heads}")
+    D = HD // num_heads
+    if not _on_cuda(x, wq, wk, wv):
+        return fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
+    if D not in HEAD_DIMS or C % 8:
+        raise ValueError(
+            f"fused kernel takes D in {HEAD_DIMS} and C % 8 == 0; got D={D}, C={C}")
+    for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _check_kernel_operand(name, t)
+    lib = KERNELS.load()
+    out = torch.empty((B, N, HD), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.cdt_fused_qkv_attention(
+            x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+            out.data_ptr(), B, num_heads, N, C, D, D ** -0.5, _stream(x))
+    KERNELS.check(rc, "fused_qkv_attention")
+    LAUNCHES["fused_qkv_attention"] += 1
+    return out.view(B, N, num_heads, D)
+
+
+def _launch_core(q, k, v, out, batch, heads, nq, nk, D, counter):
+    """q/k/v/out: ``[batch, rows, heads·D]`` views with unit stride inside a
+    row's ``heads·D`` span."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_kernel_operand(name, t)
+        if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+            raise ValueError(
+                f"{name}: rows must be contiguous with strides a multiple of "
+                f"8 elements; got strides {t.stride()}")
+    lib = KERNELS.load()
+    with torch.cuda.device(q.device):
+        rc = lib.cdt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            batch, heads, nq, nk, D,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            D ** -0.5, _stream(q))
+    KERNELS.check(rc, counter)
+    LAUNCHES[counter] += 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    layout: str = "packed") -> torch.Tensor:
+    """Exact attention over ``[B, N, H, D]`` (q ``[B, Nq, H, D]``, k/v
+    ``[B, Nk, H, D]``). ``layout="packed"`` reads heads in place from the
+    ``[B, N, H·D]`` rows; ``"bh"`` transposes to ``[B·H, N, D]`` first and
+    runs the one-head core."""
+    if layout not in ("packed", "bh"):
+        raise ValueError(f"layout must be 'packed' or 'bh', got {layout!r}")
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if tuple(k.shape) != (B, Nk, H, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if not _on_cuda(q, k, v):
+        return flash_attention_plain(q, k, v)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    if layout == "bh":
+        def to_bh(t, n):
+            return t.transpose(1, 2).reshape(B * H, n, D)
+
+        out = torch.empty((B * H, Nq, D), dtype=q.dtype, device=q.device)
+        _launch_core(to_bh(q, Nq), to_bh(k, Nk), to_bh(v, Nk), out,
+                     B * H, 1, Nq, Nk, D, "flash_attention_bh")
+        return out.view(B, H, Nq, D).transpose(1, 2)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or t.stride(2) != D:
+            raise ValueError(f"{name}: packed layout needs each row's heads "
+                             f"side by side; got strides {t.stride()}")
+    out = torch.empty((B, Nq, H * D), dtype=q.dtype, device=q.device)
+    _launch_core(q.flatten(2), k.flatten(2), v.flatten(2), out,
+                 B, H, Nq, Nk, D, "flash_attention_packed")
+    return out.view(B, Nq, H, D)

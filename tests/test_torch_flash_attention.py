@@ -1,0 +1,169 @@
+"""The port's attention kernels (``comfyui_distributed_tpu_torch.ops``)
+against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+side runs the Pallas kernels in interpret mode. Inputs come from a numpy
+seed and reach both sides as numpy. fp32 throughout, at the repo's kernel
+tolerance (2e-5, as ``tests/test_flash_attention.py``). The CUDA kernels
+themselves are tested on a card by ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from comfyui_distributed_tpu.ops import flash_attention as jfa
+from comfyui_distributed_tpu_torch.ops import attention as tattn
+from comfyui_distributed_tpu_torch.ops import flash_attention as tfa
+
+TOL = 2e-5
+
+
+def _qkv(seed, B, Nq, Nk, H, D):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, Nq, H, D), (B, Nk, H, D), (B, Nk, H, D)))
+
+
+def _fused_inputs(seed, B, N, C, H, D):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    ws = [(rng.standard_normal((C, H * D)) * C ** -0.5).astype(np.float32)
+          for _ in range(3)]
+    return x, ws
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+@pytest.mark.parametrize("B,Nq,Nk,H,D", [
+    (1, 100, 77, 2, 64),       # ragged q, cross-attention context length
+    (2, 64, 77, 1, 128),       # FLUX head width
+    (1, 130, 300, 2, 64),      # K spans several kernel tiles
+])
+def test_flash_attention_matches_pallas(layout, B, Nq, Nk, H, D):
+    q, k, v = _qkv(0, B, Nq, Nk, H, D)
+    ref = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), layout=layout,
+                                         interpret=True))
+    out = tfa.flash_attention(_t(q), _t(k), _t(v), layout=layout)
+    assert out.shape == (B, Nq, H, D) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("B,N,C,H,D", [
+    (1, 100, 96, 2, 64),       # ragged N, C not a multiple of the chunk
+    (2, 77, 64, 1, 128),
+])
+def test_fused_qkv_attention_matches_pallas(B, N, C, H, D):
+    x, (wq, wk, wv) = _fused_inputs(1, B, N, C, H, D)
+    ref = np.asarray(jfa.fused_qkv_attention(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv),
+        H, interpret=True))
+    # the port takes weights in nn.Linear layout [H·D, C]
+    out = tfa.fused_qkv_attention(_t(x), _t(wq.T), _t(wk.T), _t(wv.T), H)
+    assert out.shape == (B, N, H, D)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("block_k", [32, 64])
+def test_streamed_emulation_matches_jax_emulation(block_k):
+    """The port's streamed schedule and the JAX ``_flash_emulated``: the
+    same K tiling, tail masking and fp32 running statistics."""
+    q, k, v = _qkv(2, 1, 100, 77, 2, 64)
+
+    def to_bh(a):
+        return a.transpose(0, 2, 1, 3).reshape(2, a.shape[1], 64)
+
+    ref = np.asarray(jfa._flash_emulated(
+        jnp.asarray(to_bh(q)), jnp.asarray(to_bh(k)), jnp.asarray(to_bh(v)),
+        block_q=64, block_k=block_k))
+    out = tfa.flash_attention_emulated(_t(to_bh(q)), _t(to_bh(k)),
+                                       _t(to_bh(v)), 64, block_k)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_fused_emulation_matches_jax_emulation():
+    x, (wq, wk, wv) = _fused_inputs(3, 2, 90, 64, 2, 64)
+    ref = np.asarray(jfa._fused_emulated(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv),
+        2, block_q=64, block_k=64))
+    out = tfa.fused_qkv_attention_emulated(_t(x), _t(wq.T), _t(wk.T),
+                                           _t(wv.T), 2, 64, 64)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_fully_masked_rows_write_zero():
+    """A row whose every logit is NEG_INF has a zero denominator and
+    writes 0, as the Pallas kernels do; a row of equal logits averages."""
+    q = torch.zeros(1, 1, 8)
+    k = torch.zeros(1, 0, 8)
+    v = torch.zeros(1, 0, 8)
+    assert torch.equal(tfa.flash_attention_emulated(q, k, v),
+                       torch.zeros(1, 1, 8))
+    v = torch.arange(16.0).reshape(1, 2, 8)
+    out = tfa.flash_attention_emulated(q, torch.zeros(1, 2, 8), v)
+    assert torch.allclose(out, v.mean(dim=1, keepdim=True))
+
+
+def test_cpu_dispatch_takes_plain_versions():
+    assert tattn.select_kernel(torch.device("cpu"), True) == "plain"
+    assert tattn.select_kernel(torch.device("cuda"), True) == "fused"
+    assert tattn.select_kernel(torch.device("cuda"), False) == "packed"
+    q, k, v = (_t(a) for a in _qkv(4, 1, 20, 9, 2, 64))
+    before = dict(tfa.LAUNCHES)
+    assert torch.equal(tattn.full_attention(q, k, v),
+                       tfa.flash_attention_plain(q, k, v))
+    assert tfa.LAUNCHES == before          # no kernel ran
+
+
+def test_wrappers_reject_devices_without_a_kernel():
+    q = torch.zeros(1, 8, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 64, device="meta")
+    w = torch.zeros(64, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.fused_qkv_attention(x, w, w, w, 1)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        tattn.select_kernel(torch.device("meta"), True)
+
+
+@pytest.mark.parametrize("nvcc", ["missing", "/nonexistent/nvcc", "/bin/false"])
+def test_cuda_path_build_failure_raises(nvcc, tmp_path, monkeypatch):
+    """A CUDA-path call whose kernels cannot be built raises; it never
+    falls back to the plain version."""
+    lib = tfa.KernelLibrary(build_dir=tmp_path,
+                            nvcc=None if nvcc == "missing" else nvcc)
+    monkeypatch.setattr(tfa, "find_nvcc", lambda: None)
+    monkeypatch.setattr(tfa, "KERNELS", lib)
+    monkeypatch.setattr(tfa, "_on_cuda", lambda *tensors: True)
+    x = torch.zeros(1, 16, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    q = torch.zeros(1, 16, 1, 64, dtype=torch.bfloat16)
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(tfa.KernelBuildError):
+        tfa.fused_qkv_attention(x, w, w, w, 1)
+    with pytest.raises(tfa.KernelBuildError):
+        tfa.flash_attention(q, q, q, layout="packed")
+    assert tfa.LAUNCHES == before
+
+
+def test_kernel_operand_checks(monkeypatch):
+    """On the CUDA path the wrapper refuses what the kernel cannot take
+    before it loads anything."""
+    monkeypatch.setattr(tfa, "_on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(tfa.KERNELS, "load", lambda: pytest.fail("loaded"))
+    x = torch.zeros(1, 16, 64)
+    w = torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.fused_qkv_attention(x, w, w, w, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        q = torch.zeros(1, 16, 2, 32, dtype=torch.bfloat16)
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="side by side"):
+        q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16).transpose(1, 2)
+        tfa.flash_attention(q, q, q, layout="packed")
