@@ -10,24 +10,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 2. build   — nvcc builds the attention kernels from
    ``comfyui_distributed_tpu_torch/ops/csrc`` into ``build/torch_kernels``
    and prints ptxas's register / shared-memory / spill report.
-3. kernels — every attention kernel at the txt2img path's shapes (plus
-   ragged cases and the FLUX-width one-head case) against its plain
-   PyTorch version in bf16 (max-abs error ≤ 1e-2·max|plain|), then CUDA-
-   event times of the kernel, the plain version and one PyTorch library
-   call computing the same function (a yardstick only: the port never
-   calls it), beside the least time the card could take.
-4. path    — the SDXL preset at full width (random weights from seed 0)
-   runs ``workflows/distributed-txt2img.json`` through the port's
+3. kernels — every attention kernel at its path's shapes (plus ragged
+   cases) against its plain PyTorch version in bf16 (max-abs error ≤
+   1e-2·max|plain|), then CUDA-event times of the kernel, the plain
+   version and one PyTorch library call computing the same function (a
+   yardstick only: the port never calls it), beside the least time the
+   card could take.
+4. sdxl path — the SDXL preset at full width (random weights from seed
+   0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
    [1,1024,1024,3], finite, in [0,1], PNGs written, the repeated seed
    bitwise equal, the other seed different, and each kernel's launch
    counter rising by exactly the count one request needs.
-5. reference — the same UNet at a 512² latent, once through the kernels
-   and once with its attention sites on the plain versions; the two eps
-   predictions agree within 5e-2·max|plain|.
+5. sdxl reference — the same UNet at a 512² latent, once through the
+   kernels and once with its attention sites on the plain versions; the
+   two eps predictions agree within 5e-2·max|plain|.
+6. flux path — the FLUX preset at full width (11.9 B parameters, random
+   weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
+   three requests (seed 1234, 1235, 1234) with the same checks; every
+   joint-attention site takes the one-head kernel.
+7. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+   once through the kernels and once with its attention sites on the
+   plain version; the velocities are non-zero and agree within
+   5e-2·max|plain|.
 
-The second-to-last stdout line is the kernel table as JSON; the last is
-``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each path and read just
+after it. The second-to-last stdout line is the kernel table as JSON; the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,44 +47,77 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "comfyui_distributed_tpu_torch"
-WORKFLOW = ROOT / "workflows" / "distributed-txt2img.json"
 OUTPUT_DIR = ROOT / "output" / "chip_smoke"
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 rate
 KERNEL_TOL = 1e-2            # max-abs error / max|plain|, bf16 in and out
-REFERENCE_TOL = 5e-2         # whole-UNet eps, kernels vs plain attention
+REFERENCE_TOL = 5e-2         # whole-model output, kernels vs plain attention
 SPIN_CLOCK_HZ = 2.0e9        # above the H100's top SM clock: spins run long
 CU_SOURCE = "comfyui_distributed_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_SOURCE = "comfyui_distributed_tpu/ops/flash_attention.py"
 
-# The txt2img path at 1024² with CFG (batch 2): per UNet forward, 10
+# The SDXL txt2img path at 1024² with CFG (batch 2): per UNet forward, 10
 # transformer blocks at 4096 tokens × 640 channels (10 heads) and 60 at
 # 1024 tokens × 1280 channels (20 heads); each block has one self- and
 # one cross-attention site (77 context tokens). The text encoder has 4
 # self-attention layers (77 tokens × 768, 12 heads) and runs once per
 # prompt, twice per request. All heads are 64 wide.
 STEPS = 30
-FUSED_SHAPES = [  # (B, N, C, H), launches per request
+FUSED_SHAPES = [  # (B, N, C, H), launches per SDXL request
     ((2, 4096, 640, 10), STEPS * 10),
     ((2, 1024, 1280, 20), STEPS * 60),
     ((1, 77, 768, 12), 2 * 4),
 ]
-PACKED_SHAPES = [  # (B, Nq, Nk, H, D), launches per request
+PACKED_SHAPES = [  # (B, Nq, Nk, H, D), launches per SDXL request
     ((2, 4096, 77, 10, 64), STEPS * 10),
     ((2, 1024, 77, 20, 64), STEPS * 60),
 ]
-FLUX_BH_SHAPE = (1, 4608, 4608, 24, 128)   # joint attention, one launch
+# The FLUX path at 1024², batch 1, no CFG: 77 text tokens + (1024/16)²
+# image tokens = 4173 in every joint attention (24 heads of 128; H·D =
+# 3072 is past the packed layout's widest row), 19 double + 38 single
+# blocks per forward, 28 forwards per request. Its text encoder (one
+# prompt) adds 4 fused launches at [1, 77, 768].
+FLUX_STEPS = 28
+FLUX_TOKENS = 77 + (1024 // 16) ** 2
+BH_SHAPES = [  # (B, Nq, Nk, H, D), launches per FLUX request
+    ((1, FLUX_TOKENS, FLUX_TOKENS, 24, 128), FLUX_STEPS * (19 + 38)),
+]
 RAGGED_FUSED = [(2, 4000, 640, 10), (1, 130, 256, 2)]
 RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
-EXPECTED_LAUNCHES = {
-    "fused_qkv_attention": sum(n for _, n in FUSED_SHAPES),       # 2108
-    "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),   # 2100
-    "flash_attention_bh": 0,
-}
+KERNEL_NAMES = ("fused_qkv_attention", "flash_attention_packed",
+                "flash_attention_bh")
+
+
+class PathSpec(NamedTuple):
+    """One workflow the script drives: its node ids, its seeds and the
+    kernel launches one request must make."""
+    name: str
+    workflow: str
+    steps: int
+    seed_node: str
+    sampler_node: str
+    image_node: str
+    png: str
+    seeds: tuple
+    expected: dict
+
+
+SDXL_PATH = PathSpec(
+    "sdxl", "distributed-txt2img.json", STEPS, "4", "5", "6",
+    "txt2img_00000.png", (7, 8, 7),
+    {"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES),       # 2108
+     "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),   # 2100
+     "flash_attention_bh": 0})
+FLUX_PATH = PathSpec(
+    "flux", "flux-txt2img.json", FLUX_STEPS, "3", "4", "5",
+    "flux_00000.png", (1234, 1235, 1234),
+    {"fused_qkv_attention": 4, "flash_attention_packed": 0,
+     "flash_attention_bh": sum(n for _, n in BH_SHAPES)})          # 1596
 
 
 class SmokeFailure(RuntimeError):
@@ -213,7 +255,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
 
     say("kernels: correctness (bf16; tolerance max_abs_err <= "
         f"{KERNEL_TOL}*max|plain|)")
-    errs = {k: 0.0 for k in EXPECTED_LAUNCHES}
+    errs = {k: 0.0 for k in KERNEL_NAMES}
     for shape in [s for s, _ in FUSED_SHAPES] + RAGGED_FUSED:
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
@@ -221,7 +263,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                       fa.fused_qkv_attention(x, wq, wk, wv, H),
                       fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
-    core_cases = [s for s, _ in PACKED_SHAPES] + RAGGED_CORE + [FLUX_BH_SHAPE]
+    core_cases = [s for s, _ in PACKED_SHAPES + BH_SHAPES] + RAGGED_CORE
     for shape in core_cases:
         q, k, v = core_inputs(*shape)
         ref = fa.flash_attention_plain(q, k, v)
@@ -261,40 +303,40 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                  lambda: fa.fused_qkv_attention(x, wq, wk, wv, H),
                  lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, H),
                  library)
-    for shape, n in PACKED_SHAPES:
-        q, k, v = core_inputs(*shape)
-        time_row("flash_attention_packed", shape, n, core_work(*shape),
-                 lambda: fa.flash_attention(q, k, v, layout="packed"),
-                 lambda: fa.flash_attention_plain(q, k, v),
-                 lambda: sdpa(q, k, v))
-    q, k, v = core_inputs(*FLUX_BH_SHAPE)
-    time_row("flash_attention_bh", FLUX_BH_SHAPE, 1, core_work(*FLUX_BH_SHAPE),
-             lambda: fa.flash_attention(q, k, v, layout="bh"),
-             lambda: fa.flash_attention_plain(q, k, v),
-             lambda: sdpa(q, k, v))
+    for layout, shapes in (("packed", PACKED_SHAPES), ("bh", BH_SHAPES)):
+        for shape, n in shapes:
+            q, k, v = core_inputs(*shape)
+            time_row(f"flash_attention_{layout}", shape, n, core_work(*shape),
+                     lambda: fa.flash_attention(q, k, v, layout=layout),
+                     lambda: fa.flash_attention_plain(q, k, v),
+                     lambda: sdpa(q, k, v))
     return rows, errs
 
 
-def kernel_table(rows: list[dict], errs: dict, launches: dict) -> list[dict]:
-    """One entry per kernel. K1/K2: launch-weighted sums over one request's
-    shapes (ms per request). K3 (not on the path): one FLUX-width launch."""
+def kernel_table(rows: list[dict], errs: dict,
+                 path_launches: dict[str, dict]) -> list[dict]:
+    """One entry per kernel: launch-weighted sums over one request's
+    shapes on the path that carries the kernel (ms per request; K1 per
+    SDXL request), and its launches summed over every path's run."""
     replaces = {"fused_qkv_attention": f"{TPU_SOURCE}:227",
                 "flash_attention_packed": f"{TPU_SOURCE}:197",
                 "flash_attention_bh": f"{TPU_SOURCE}:99"}
     out = []
-    for name in EXPECTED_LAUNCHES:
+    for name in KERNEL_NAMES:
         mine = [r for r in rows if r["kernel"] == name]
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
         out.append({
             "name": name, "route": "cuda", "source": CU_SOURCE,
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(c[name] for c in path_launches.values()),
             "max_abs_err": errs[name], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": tot["library_ms"],
-            "per": "one FLUX-width launch" if name == "flash_attention_bh"
-                   else "one request",
+            "per": ("one flux request" if name == "flash_attention_bh"
+                    else "one sdxl request"),
+            "launches_by_path": {p: c[name] for p, c in path_launches.items()},
         })
     return out
 
@@ -308,32 +350,37 @@ def png_size(path: Path) -> tuple[int, int]:
     return (int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big"))
 
 
-def path_phase(torch, fa) -> tuple[dict, dict]:
+def path_phase(torch, fa, spec: PathSpec):
+    """Build the workflow's preset at full width on the card and run the
+    workflow as three requests; returns (bundle, launches in the run,
+    timings of the last request)."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 
-    workflow = strip_meta(json.loads(WORKFLOW.read_text()))
-    sampler = workflow["5"]["inputs"]
-    require(sampler["steps"] == STEPS,
-            "the workflow's step count changed; update STEPS")
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / spec.workflow).read_text()))
+    sampler = workflow[spec.sampler_node]["inputs"]
+    require(sampler["steps"] == spec.steps,
+            f"{spec.workflow}: the step count changed; update the script")
     hw = (int(sampler["height"]), int(sampler["width"]))
     registry = ModelRegistry("cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     bundle = registry.get(workflow["1"]["inputs"]["ckpt_name"])
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in bundle.pipeline.unet.parameters())
-    say(f"path: {bundle.preset.name} bundle built in {time.perf_counter() - t0:.2f} s "
-        f"(UNet {n_params / 1e9:.3f} B params)")
+    n_params = sum(p.numel() for p in bundle.core.parameters())
+    say(f"{spec.name} path: {bundle.preset.name} bundle built in "
+        f"{time.perf_counter() - t0:.2f} s ({type(bundle.core).__name__} "
+        f"{n_params / 1e9:.3f} B params, {n_params} exactly)")
     executor = GraphExecutor({"model_registry": registry,
                               "output_dir": str(OUTPUT_DIR)})
-    png = OUTPUT_DIR / "txt2img_00000.png"
+    png = OUTPUT_DIR / spec.png
     images, counts = [], []
     fa.reset_launches()
-    for seed in (7, 8, 7):
+    for seed in spec.seeds:
         prompt = json.loads(json.dumps(workflow))
-        prompt["4"]["inputs"]["seed"] = seed
+        prompt[spec.seed_node]["inputs"]["seed"] = seed
         png.unlink(missing_ok=True)
         before = dict(fa.LAUNCHES)
         t0 = time.perf_counter()
@@ -341,8 +388,8 @@ def path_phase(torch, fa) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts.append({k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES})
-        img = out["6"][0]
-        timings = bundle.pipeline.timings
+        img = out[spec.image_node][0]
+        timings = dict(bundle.pipeline.timings)
         say(f"  request seed {seed}: {secs:.3f} s; sampling "
             f"{timings['sample_s']:.3f} s = "
             f"{timings['sample_s'] / timings['steps']:.4f} s/step over "
@@ -360,18 +407,26 @@ def path_phase(torch, fa) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     say(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
     for i, c in enumerate(counts):
-        require(c == EXPECTED_LAUNCHES,
-                f"request {i}: launches {c} != expected {EXPECTED_LAUNCHES}")
+        require(c == spec.expected,
+                f"{spec.name} request {i}: launches {c} != expected "
+                f"{spec.expected}")
+    a, b, _ = spec.seeds
     require(torch.equal(images[0], images[2]),
-            "seed 7 twice gave different images")
+            f"seed {a} twice gave different images")
     require(not torch.equal(images[0], images[1]),
-            "seeds 7 and 8 gave the same image")
-    say("  launch counts as expected; seed 7 repeatable; seed 8 differs")
-    first = {k: counts[0][k] for k in EXPECTED_LAUNCHES}
-    return bundle, first
+            f"seeds {a} and {b} gave the same image")
+    say(f"  launch counts as expected; seed {a} repeatable; seed {b} differs")
+    return bundle, launches, timings
 
 
-# --- phase 5 -----------------------------------------------------------------
+def compare_whole(torch, what: str, out, ref) -> None:
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    say(f"{what} with kernels vs plain attention: max_abs_err {err:.6g} "
+        f"(max|plain| {scale:.6g}; tolerance {REFERENCE_TOL}*max|plain|)")
+    require(err <= REFERENCE_TOL * scale, f"{what}: outputs disagree")
 
 
 def reference_phase(torch, fa, bundle) -> None:
@@ -394,14 +449,36 @@ def reference_phase(torch, fa, bundle) -> None:
                 mock.patch.object(layers, "full_attention",
                                   fa.flash_attention_plain):
             ref = unet(x, t, ctx, y)
-    torch.cuda.synchronize()
-    require(bool(torch.isfinite(eps).all()), "reference: non-finite eps")
-    err = (eps - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    say(f"reference: UNet eps at 512² with kernels vs plain attention: "
-        f"max_abs_err {err:.6g} (max|plain| {scale:.6g}; tolerance "
-        f"{REFERENCE_TOL}*max|plain|)")
-    require(err <= REFERENCE_TOL * scale, "reference: UNet eps disagree")
+    compare_whole(torch, "reference: UNet eps at 512²", eps, ref)
+
+
+def flux_reference_phase(torch, fa, bundle) -> None:
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import dit as dit_module
+
+    model = bundle.pipeline.dit
+    cfg = model.config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(1, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([0.5], device=dev)
+    ctx = torch.randn(1, 77, cfg.context_dim, generator=gen, device=dev)
+    pooled = torch.randn(1, cfg.pooled_dim, generator=gen, device=dev)
+    g = torch.tensor([3.5], device=dev)
+    before = fa.LAUNCHES["flash_attention_bh"]
+    with torch.no_grad():
+        v = model(x, t, ctx, pooled, g)
+        sites = fa.LAUNCHES["flash_attention_bh"] - before
+        with mock.patch.object(dit_module, "full_attention",
+                               fa.flash_attention_plain):
+            ref = model(x, t, ctx, pooled, g)
+    require(sites == cfg.depth_double + cfg.depth_single,
+            f"flux reference: {sites} one-head launches per forward")
+    require(ref.abs().max().item() > 1e-3,
+            "flux reference: the velocity is zero (gates at zero?)")
+    compare_whole(torch, "flux reference: DiT velocity at 512² (1101 tokens)",
+                  v, ref)
 
 
 def main() -> int:
@@ -425,13 +502,24 @@ def main() -> int:
         device = device_phase(torch)
         build_phase(fa)
         rows, errs = kernel_phase(torch, fa)
-        bundle, launches = path_phase(torch, fa)
+        path_launches = {}
+        bundle, path_launches["sdxl"], _ = path_phase(torch, fa, SDXL_PATH)
         reference_phase(torch, fa, bundle)
+        del bundle
+        torch.cuda.empty_cache()
+        bundle, path_launches["flux"], timings = path_phase(
+            torch, fa, FLUX_PATH)
+        flux_reference_phase(torch, fa, bundle)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    table = kernel_table(rows, errs, path_launches)
+    k3 = next(k for k in table if k["name"] == "flash_attention_bh")
+    say(f"flux: K3 {k3['ms'] / 1e3:.3f} s per request of "
+        f"{timings['sample_s']:.3f} s sampling "
+        f"({k3['ms'] / 1e3 / timings['sample_s']:.1%})")
     say(f"total {time.perf_counter() - t_start:.1f} s on {device['smi']}")
-    say(json.dumps({"kernels": kernel_table(rows, errs, launches)}))
+    say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
     return 0

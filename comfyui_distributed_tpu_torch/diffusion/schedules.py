@@ -168,3 +168,12 @@ def sigmas_linear_quadratic(n: int, threshold_noise: float = 0.025,
     inv = torch.where(i < ls, linear, quad)
     inv[-1] = 1.0
     return (1.0 - inv) * sigma_max
+
+
+def sigmas_flow(n: int, shift: float = 1.0) -> torch.Tensor:
+    """Rectified-flow ladder: σ from 1 to 0 with the resolution shift
+    σ' = shift·σ / (1 + (shift−1)·σ) (FLUX/SD3 convention). [n+1]."""
+    sigmas = torch.linspace(1.0, 0.0, n + 1, dtype=torch.float32)
+    if shift != 1.0:
+        sigmas = shift * sigmas / (1.0 + (shift - 1.0) * sigmas)
+    return sigmas

@@ -1,6 +1,6 @@
-"""The port's node set: exactly the nodes of the txt2img workflow
-(``workflows/distributed-txt2img.json``), with the JAX package's names
-and contracts.
+"""The port's node set: exactly the nodes of the txt2img workflows
+(``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``),
+with the JAX package's names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
 [B,H,W,C] in [0,1]; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]};
@@ -164,6 +164,45 @@ class TPUTxt2Img(NodeDef):
         uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
         images = pipeline.generate(spec, int(seed), positive["context"],
                                    negative["context"], y, uy)
+        return (images,)
+
+
+@register_node("TPUFlowTxt2Img")
+class TPUFlowTxt2Img(NodeDef):
+    """The rectified-flow sampler node (FLUX-class DiT bundles; name kept
+    for workflow compatibility). ``mode="dp"`` runs on the bundle's
+    device; the multi-device modes are not ported yet."""
+
+    INPUTS = {
+        "model": "MODEL", "positive": "CONDITIONING",
+        "seed": "INT", "steps": "INT", "width": "INT", "height": "INT",
+    }
+    OPTIONAL = {
+        "negative": "CONDITIONING", "cfg": "FLOAT",
+        "guidance": "FLOAT", "shift": "FLOAT", "mode": "STRING",
+        "batch_per_device": "INT",
+    }
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, positive, seed: int, steps: int, width: int,
+                height: int, cfg: float = 1.0, guidance: float = 3.5,
+                shift: float = 3.0, mode: str = "dp",
+                batch_per_device: int = 1, **_):
+        from ..diffusion.pipeline_flow import FlowSpec
+
+        if mode != "dp":
+            raise NotImplementedError(
+                f"mode={mode!r} is not yet ported; the port runs mode='dp' "
+                "on one device")
+        spec = FlowSpec(height=int(height), width=int(width), steps=int(steps),
+                        shift=float(shift), guidance=float(guidance),
+                        cfg=float(cfg), per_device_batch=int(batch_per_device))
+        pipeline = model.pipeline
+        pooled = positive.get("pooled")
+        if pooled is None:
+            pooled = torch.zeros((1, pipeline.dit.config.pooled_dim),
+                                 device=pipeline.device)
+        images = pipeline.generate(spec, int(seed), positive["context"], pooled)
         return (images,)
 
 

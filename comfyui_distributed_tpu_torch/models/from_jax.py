@@ -7,7 +7,9 @@ layout rules:
 - Dense ``kernel`` ``[in, out]`` → Linear ``weight`` ``[out, in]``;
 - Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW;
 - LayerNorm/GroupNorm ``scale`` → ``weight``; Embed ``embedding`` →
-  ``weight``; ``bias`` and bare parameters (``pos_emb``) keep their name.
+  ``weight``; ``bias`` and bare parameters (``pos_emb``, the DiT's fp32
+  ``q_scale``/``k_scale``) keep their name. The DiT's parameter-free
+  LayerNorms have no leaf on either side.
 
 The tree is a nested mapping whose leaves are numpy arrays (or anything
 with ``.shape`` for the shape-only check, e.g. ``jax.ShapeDtypeStruct``);

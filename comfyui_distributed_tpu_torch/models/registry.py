@@ -5,22 +5,31 @@ The port has no checkpoint loading yet: every bundle is random-initialised
 from a seed, drawn on its device in the preset's dtype with flax's default
 distributions (``layers.flax_init_``), or filled from a JAX parameter
 tree with ``ModelBundle.load_from_jax``.
+
+One departure from flax is deliberate: the JAX DiT zero-initialises its
+adaLN ``mod`` kernels and ``img_out``, so a randomly initialised JAX DiT
+has every gate at 0, every block is the identity and the velocity is
+exactly 0. The port draws those Linears lecun-normal like every other,
+so that a random-init FLUX image depends on every block and on its
+attention kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..diffusion.pipeline import Txt2ImgPipeline
+from ..diffusion.pipeline_flow import FlowPipeline
 from ..parallel.rng import seed_generator
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.exceptions import ValidationError
 from ..utils.logging import log
+from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
 from .layers import flax_init_
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
@@ -31,9 +40,14 @@ from .vae import AutoencoderKL, VAEConfig
 @dataclasses.dataclass(frozen=True)
 class ModelPreset:
     name: str
-    unet: UNetConfig
+    unet: Optional[UNetConfig]
     vae: VAEConfig
     text: TextEncoderConfig
+    dit: Optional[DiTConfig] = None       # flow (FLUX-class) models
+
+    @property
+    def kind(self) -> str:
+        return "dit" if self.dit is not None else "unet"
 
 
 PRESETS: dict[str, ModelPreset] = {
@@ -41,6 +55,16 @@ PRESETS: dict[str, ModelPreset] = {
                         TextEncoderConfig()),
     "tiny": ModelPreset("tiny", UNetConfig.tiny(), VAEConfig.tiny(),
                         TextEncoderConfig.tiny()),
+    # FLUX.1 at full width with the hash-tokenised text encoder at T5's
+    # width (4096) and CLIP-L's pooled width (768); 16-channel VAE
+    "flux": ModelPreset(
+        "flux", None,
+        VAEConfig(latent_channels=16, scaling_factor=0.3611,
+                  shift_factor=0.1159),
+        TextEncoderConfig(output_dim=4096, pooled_dim=768),
+        dit=DiTConfig.flux()),
+    "flux-tiny": ModelPreset("flux-tiny", None, VAEConfig.tiny(),
+                             TextEncoderConfig.tiny(), dit=DiTConfig.tiny()),
 }
 
 
@@ -56,7 +80,8 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
 
 
 class ModelBundle:
-    """Loaded stack: txt2img pipeline (UNet + VAE decoder) and text encoder."""
+    """Loaded stack: the pipeline (UNet or DiT, and the VAE decoder) and
+    the text encoder."""
 
     def __init__(self, preset: ModelPreset, device: DeviceLike = None,
                  seed: int = 0):
@@ -65,15 +90,23 @@ class ModelBundle:
         gen = seed_generator(seed, self.device)
         self.text_encoder = TextEncoder(
             _random(lambda: TextTransformer(preset.text), self.device, gen))
-        unet = _random(lambda: UNet2D(preset.unet), self.device, gen)
+        flow = preset.kind == "dit"
+        core = _random(lambda: DiT(preset.dit) if flow else UNet2D(preset.unet),
+                       self.device, gen)
         vae = _random(lambda: AutoencoderKL(preset.vae), self.device, gen)
-        self.pipeline = Txt2ImgPipeline(unet, vae)
+        self.pipeline = (FlowPipeline if flow else Txt2ImgPipeline)(core, vae)
 
-    def load_from_jax(self, unet: Mapping, vae_dec: Mapping,
+    @property
+    def core(self) -> nn.Module:
+        """The denoiser: the UNet, or the DiT of a flow model."""
+        return (self.pipeline.dit if self.preset.kind == "dit"
+                else self.pipeline.unet)
+
+    def load_from_jax(self, core: Mapping, vae_dec: Mapping,
                       text: Mapping) -> "ModelBundle":
-        """Replace the weights with the JAX package's trees (UNet params,
-        VAE decoder params, text-encoder params)."""
-        load_from_jax(self.pipeline.unet, unet)
+        """Replace the weights with the JAX package's trees (UNet or DiT
+        params, VAE decoder params, text-encoder params)."""
+        load_from_jax(self.core, core)
         load_from_jax(self.pipeline.vae.decoder, vae_dec)
         load_from_jax(self.text_encoder.module, text)
         return self

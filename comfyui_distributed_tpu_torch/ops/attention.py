@@ -1,11 +1,20 @@
 """Attention dispatch of the port (counterpart of the JAX ``select_kernel``
 / ``full_attention`` in ``ops/attention.py``).
 
-On a CUDA device every site goes to a hand-written kernel: a
-self-attention site (``context is None``) to the fused QKV kernel, a
-cross-attention site to the packed kernel. On the CPU the plain versions
-run. No tuning table or engagement floor applies: those were measured on
-a TPU. PyTorch's fused attention is never called.
+On a CUDA device every site goes to a hand-written kernel:
+
+- a self-attention site (``self_attention``: block input and projection
+  weights) to the fused QKV kernel;
+- a site over projected q/k/v (``full_attention``) to the packed kernel
+  where the packed-heads layout is legal for its geometry
+  (``packed_legal``: SDXL's cross-attention, H·D = 640 or 1280), and to
+  the one-head ``[B·H, N, D]`` kernel everywhere else (FLUX's joint
+  attention, H·D = 3072).
+
+The layout rule is the JAX package's geometric legality predicate
+(``_packed_legal``), copied here. No tuning table or engagement floor
+applies: those were measured on a TPU. On the CPU the plain versions run.
+PyTorch's fused attention is never called.
 """
 
 from __future__ import annotations
@@ -14,21 +23,36 @@ import torch
 
 from . import flash_attention as fa
 
+LANES = 128              # packed row width must be a multiple of this
+PACKED_MAX_HD = 2048     # widest packed row (H·D) the layout takes
 
-def select_kernel(device: torch.device, self_attention: bool) -> str:
-    """``"fused"`` / ``"packed"`` on CUDA, ``"plain"`` on the CPU."""
+
+def packed_legal(num_heads: int, head_dim: int) -> bool:
+    """Whether the packed-heads layout takes this geometry."""
+    hd = num_heads * head_dim
+    return (hd % LANES == 0 and num_heads <= LANES and hd <= PACKED_MAX_HD
+            and head_dim % 64 == 0)
+
+
+def select_kernel(device: torch.device, self_attention: bool,
+                  num_heads: int, head_dim: int) -> str:
+    """``"fused"`` / ``"packed"`` / ``"bh"`` on CUDA, ``"plain"`` on the
+    CPU."""
     if device.type == "cpu":
         return "plain"
     if device.type != "cuda":
         raise ValueError(f"no attention kernel for device {device}")
-    return "fused" if self_attention else "packed"
+    if self_attention:
+        return "fused"
+    return "packed" if packed_legal(num_heads, head_dim) else "bh"
 
 
 def self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                    wv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Self-attention from the block input: ``[B, N, C]`` and ``[H·D, C]``
     weights → ``[B, N, H, D]``."""
-    if select_kernel(x.device, self_attention=True) == "plain":
+    kind = select_kernel(x.device, True, num_heads, wq.shape[0] // num_heads)
+    if kind == "plain":
         return fa.fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
     return fa.fused_qkv_attention(x, wq, wk, wv, num_heads)
 
@@ -36,6 +60,8 @@ def self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 def full_attention(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Attention over projected ``[B, N, H, D]`` operands."""
-    if select_kernel(q.device, self_attention=False) == "plain":
+    _, _, H, D = q.shape
+    kind = select_kernel(q.device, False, H, D)
+    if kind == "plain":
         return fa.flash_attention_plain(q, k, v)
-    return fa.flash_attention(q, k, v, layout="packed")
+    return fa.flash_attention(q, k, v, layout=kind)

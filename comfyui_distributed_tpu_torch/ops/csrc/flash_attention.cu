@@ -8,8 +8,8 @@
 //
 // What bounds them on an H100. Self-attention at the UNet's shapes (N =
 // 1024 or 4096, D = 64) does ~N/2 flops per byte moved, far above the
-// card's ~295 flop/byte ridge, so the fused kernel (and the core at FLUX's
-// N = 4608) is bound by tensor-core operations. Cross-attention over 77
+// card's ~295 flop/byte ridge, so the fused kernel (and the one-head core
+// at FLUX's 4173 joint tokens, D = 128) is bound by tensor-core operations. Cross-attention over 77
 // text tokens does ~77/2 flops per byte: the core there is bound by bytes
 // (reading q, writing out). The fused kernel also re-projects each head's
 // K/V once per 128-row q block (the TPU schedule): per SDXL UNet forward at

@@ -9,9 +9,12 @@ three Pallas kernels there map onto two CUDA kernels in
   straight from the block input ``x`` and the three projection weights —
   q/k/v never reach device memory.
 - ``flash_attention(layout="packed")`` (``_flash_kernel_packed``):
-  attention over q/k/v in the projection's own ``[B, N, H·D]`` layout.
+  attention over q/k/v in the projection's own ``[B, N, H·D]`` layout
+  (SDXL's cross-attention).
 - ``flash_attention(layout="bh")`` (``_flash_kernel``): the same core
-  over pre-transposed ``[B·H, N, D]`` — the packed kernel with one head.
+  over pre-transposed ``[B·H, N, D]`` — the packed kernel with one head
+  (FLUX's joint attention, whose H·D = 3072 the packed layout does not
+  take; ``ops/attention.py`` chooses).
 
 Each wrapper runs its kernel's plain version for a tensor on the CPU and
 launches the kernel for a tensor on a CUDA device; anything else raises.

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the PyTorch port's FLUX denoising step on one
+NVIDIA card.
+
+    python3 scripts/profile_torch_flux.py [--forwards 2] [--trace PATH]
+
+Builds the full-width ``flux`` preset (random weights from seed 0), runs
+the DiT forward at the shape of ``workflows/flux-txt2img.json`` (1024²:
+4096 image + 77 text tokens, batch 1), warms up, then traces
+``--forwards`` forwards with ``torch.profiler`` and prints, per forward:
+
+- wall seconds (host clock around forwards ending in a synchronise);
+- device busy seconds (the union of kernel intervals in the trace) and
+  the device's idle share of the wall time;
+- device seconds by kernel class: the one-head attention kernel (K3),
+  the fused QKV kernel (K1), matrix products (cuBLAS / CUTLASS kernels),
+  and everything else (norms, modulation, RoPE, GELU, copies);
+- the kernels with the most device time.
+
+The Chrome trace is written to ``--trace``. Exits nonzero without a card
+or when the trace holds no kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "nvjet", "xmma", "cublas")
+
+
+def kernel_class(name: str) -> str:
+    if "flash_core_kernel" in name:
+        return "K3 one-head attention"
+    if "fused_qkv_kernel" in name:
+        return "K1 fused QKV attention"
+    if any(m in name for m in GEMM_MARKS):
+        return "matrix products"
+    return "other (norms, modulation, RoPE, GELU, copies)"
+
+
+def busy_us(spans: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--forwards", type=int, default=2)
+    ap.add_argument("--trace", default=str(ROOT / "chiprun_out" /
+                                           "flux_forward_trace.json"))
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_flux: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    workflow = json.loads((ROOT / "workflows" / "flux-txt2img.json").read_text())
+    sampler = workflow["4"]["inputs"]
+    bundle = ModelRegistry("cuda", seed=0).get("flux")
+    dit = bundle.pipeline.dit
+    ctx, pooled = bundle.text_encoder.encode([workflow["2"]["inputs"]["text"]])
+    ds = bundle.pipeline.vae.config.downscale
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, sampler["height"] // ds, sampler["width"] // ds,
+                    dit.config.in_channels, generator=gen, device="cuda")
+    t = torch.tensor([0.5], device="cuda")
+    g = torch.tensor([float(sampler["guidance"])], device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            dit(x, t, ctx, pooled, g)
+
+    for _ in range(2):
+        forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.forwards):
+            forward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.forwards
+    Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    events = json.loads(Path(args.trace).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        print("profile_torch_flux: the trace holds no kernel", file=sys.stderr)
+        return 1
+    n = args.forwards
+    busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1e6 / n
+    by_class: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        cls = kernel_class(e["name"])
+        by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1e6 / n
+        rec = by_name.setdefault(e["name"], [0.0, 0])
+        rec[0] += e["dur"] / 1e6 / n
+        rec[1] += 1
+    print(f"flux forward at {sampler['height']}x{sampler['width']} "
+          f"({x.shape[1] * x.shape[2] // 4} image + {ctx.shape[1]} text tokens), "
+          f"{n} traced forwards")
+    print(f"  wall {wall:.4f} s/forward; device busy {busy:.4f} s/forward; "
+          f"idle share {1 - busy / wall:.1%}; {len(kernels) / n:.0f} kernels/forward")
+    for cls, secs in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls}: {secs:.4f} s/forward ({secs / busy:.1%} of busy)")
+    print("  top kernels (s/forward, launches/forward):")
+    for name, (secs, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {secs:.4f}  {count // n:5d}  {name[:110]}")
+    print(json.dumps({"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+                      "by_class_s": by_class, "device": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

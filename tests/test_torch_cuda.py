@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card, against their plain PyTorch versions
 in bf16 (max-abs error ≤ 1e-2·max|plain|: bf16 in and out, fp32
-accumulation in a different order), and the UNet's attention sites
-going through them.
+accumulation in a different order), and the UNet's and the DiT's
+attention sites going through them.
 
 Every test here is marked ``cuda`` and skips without a card; the card's
 presence is decided in a fixture. Run on the card with
@@ -14,7 +14,8 @@ from unittest import mock
 import pytest
 import torch
 
-from comfyui_distributed_tpu_torch.models import layers
+from comfyui_distributed_tpu_torch.models import dit, layers
+from comfyui_distributed_tpu_torch.models.dit import DiT, DiTConfig
 from comfyui_distributed_tpu_torch.models.layers import flax_init_
 from comfyui_distributed_tpu_torch.models.unet import UNet2D, UNetConfig
 from comfyui_distributed_tpu_torch.ops import flash_attention as tfa
@@ -102,3 +103,32 @@ def test_unet_attention_sites_take_the_kernels(cuda_device):
                                   tfa.flash_attention_plain):
             ref = unet(x, t, ctx, y)
     _close(eps, ref, tol=5e-2)
+
+
+def test_dit_attention_sites_take_the_one_head_kernel(cuda_device):
+    """A small rope DiT with 128-wide heads on the card. 17 heads make
+    H·D = 2176, past the packed layout's widest row (2048), so every
+    joint-attention site takes the one-head ``[B·H, N, D]`` kernel, as
+    FLUX's 24 heads do; the velocity agrees with the same DiT on the
+    plain version (5e-2·max|plain|)."""
+    cfg = DiTConfig.tiny(pos_embed="rope", hidden=17 * 128, heads=17,
+                         in_channels=16, context_dim=64, pooled_dim=32,
+                         depth_double=1, depth_single=1)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    with torch.device("meta"):
+        model = DiT(cfg)
+    model = flax_init_(model.to_empty(device=cuda_device), gen).eval()
+    x = torch.randn(1, 16, 20, 16, generator=gen, device=cuda_device)
+    t = torch.tensor([0.7], device=cuda_device)
+    ctx = torch.randn(1, 13, 64, generator=gen, device=cuda_device)
+    pooled = torch.randn(1, 32, generator=gen, device=cuda_device)
+    tfa.reset_launches()
+    with torch.no_grad():
+        v = model(x, t, ctx, pooled)
+        assert tfa.LAUNCHES == {"fused_qkv_attention": 0,
+                                "flash_attention_packed": 0,
+                                "flash_attention_bh": 2}
+        with mock.patch.object(dit, "full_attention", tfa.flash_attention_plain):
+            ref = model(x, t, ctx, pooled)
+    assert v.abs().max() > 1e-2
+    _close(v, ref, tol=5e-2)

@@ -110,14 +110,33 @@ def test_fully_masked_rows_write_zero():
 
 
 def test_cpu_dispatch_takes_plain_versions():
-    assert tattn.select_kernel(torch.device("cpu"), True) == "plain"
-    assert tattn.select_kernel(torch.device("cuda"), True) == "fused"
-    assert tattn.select_kernel(torch.device("cuda"), False) == "packed"
+    assert tattn.select_kernel(torch.device("cpu"), True, 10, 64) == "plain"
+    assert tattn.select_kernel(torch.device("cpu"), False, 24, 128) == "plain"
+    assert tattn.select_kernel(torch.device("cuda"), True, 10, 64) == "fused"
+    assert tattn.select_kernel(torch.device("cuda"), False, 10, 64) == "packed"
     q, k, v = (_t(a) for a in _qkv(4, 1, 20, 9, 2, 64))
     before = dict(tfa.LAUNCHES)
     assert torch.equal(tattn.full_attention(q, k, v),
                        tfa.flash_attention_plain(q, k, v))
     assert tfa.LAUNCHES == before          # no kernel ran
+
+
+@pytest.mark.parametrize("H,D,layout", [
+    (10, 64, "packed"),        # SDXL cross-attention, level 1
+    (20, 64, "packed"),        # SDXL cross-attention, level 2
+    (24, 128, "bh"),           # FLUX joint attention: H·D = 3072 > 2048
+    (16, 128, "packed"),       # H·D = 2048, the widest packed row
+    (17, 128, "bh"),
+    (3, 64, "bh"),             # H·D = 192, not a multiple of 128
+    (4, 32, "bh"),             # D not a multiple of 64
+])
+def test_layout_choice_matches_jax_packed_legal(H, D, layout):
+    """Sites over projected q/k/v take the packed kernel exactly where the
+    JAX package's geometric rule allows the packed layout, the one-head
+    kernel everywhere else."""
+    assert jfa._packed_legal(H, D) == (layout == "packed")
+    assert tattn.packed_legal(H, D) == (layout == "packed")
+    assert tattn.select_kernel(torch.device("cuda"), False, H, D) == layout
 
 
 def test_wrappers_reject_devices_without_a_kernel():
@@ -129,7 +148,7 @@ def test_wrappers_reject_devices_without_a_kernel():
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.fused_qkv_attention(x, w, w, w, 1)
     with pytest.raises(ValueError, match="no attention kernel"):
-        tattn.select_kernel(torch.device("meta"), True)
+        tattn.select_kernel(torch.device("meta"), True, 1, 64)
 
 
 @pytest.mark.parametrize("nvcc", ["missing", "/nonexistent/nvcc", "/bin/false"])

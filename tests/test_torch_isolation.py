@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
-    assert "comfyui_distributed_tpu_torch.graph.nodes_builtin" in modules
+    assert {"comfyui_distributed_tpu_torch.graph.nodes_builtin",
+            "comfyui_distributed_tpu_torch.models.dit",
+            "comfyui_distributed_tpu_torch.diffusion.pipeline_flow"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
@@ -64,10 +66,10 @@ def test_entry_points_refuse_without_card(no_card, tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry()
-    prompt = strip_meta(json.loads(
-        (ROOT / "workflows" / "distributed-txt2img.json").read_text()))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        GraphExecutor({"output_dir": str(tmp_path)}).execute(prompt)
+    for workflow in ("distributed-txt2img.json", "flux-txt2img.json"):
+        prompt = strip_meta(json.loads((ROOT / "workflows" / workflow).read_text()))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GraphExecutor({"output_dir": str(tmp_path)}).execute(prompt)
     assert list(tmp_path.iterdir()) == []
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -1,8 +1,9 @@
 """The weight carry (``comfyui_distributed_tpu_torch.models.from_jax``):
 every leaf of the JAX trees lands on exactly one port parameter of the
-right shape — for the tiny presets and for the full SDXL UNet, VAE decoder
-and text encoder, whose trees are built abstractly (shapes only) and whose
-port modules live on the meta device."""
+right shape — for the tiny presets, for the full SDXL UNet, VAE decoder
+and text encoder and for the full FLUX DiT, whose trees are built
+abstractly (shapes only) and whose port modules live on the meta
+device."""
 
 import dataclasses
 
@@ -16,9 +17,11 @@ import torch
 # machine), only the card tests of tests/test_torch_cuda.py run.
 pytest.importorskip("flax")
 
+from comfyui_distributed_tpu.models import dit as jdit  # noqa: E402
 from comfyui_distributed_tpu.models import text as jtext  # noqa: E402
 from comfyui_distributed_tpu.models import unet as junet  # noqa: E402
 from comfyui_distributed_tpu.models import vae as jvae  # noqa: E402
+from comfyui_distributed_tpu_torch.models import dit as tdit  # noqa: E402
 from comfyui_distributed_tpu_torch.models import text as ttext  # noqa: E402
 from comfyui_distributed_tpu_torch.models import unet as tunet  # noqa: E402
 from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
@@ -64,6 +67,32 @@ def test_carry_covers_every_leaf(name):
         n_jax = sum(int(np.prod(leaf.shape))
                     for leaf in jax.tree_util.tree_leaves(tree))
         assert n_jax == sum(p.numel() for p in params.values())
+
+
+@pytest.mark.parametrize("name", ["tiny", "flux"])
+def test_dit_carry_covers_every_leaf(name):
+    """The DiT tree, built abstractly for ``flux`` (11.9 B parameters),
+    against the port's DiT on the meta device: dense kernels transposed,
+    fp32 qk-norm scales carried by name, the parameter-free LayerNorms
+    absent on both sides."""
+    jcfg = getattr(jdit.DiTConfig, name)()
+    _, tree = jdit.init_dit(jcfg, jax.random.key(0), sample_hw=(8, 8),
+                            context_len=16, abstract=True)
+    with torch.device("meta"):
+        module = tdit.DiT(getattr(tdit.DiTConfig, name)())
+    plan = carry_plan(tree, module)
+    params = dict(module.named_parameters())
+    assert len(plan) == _n_leaves(tree) == len(params)
+    n_jax = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(tree))
+    assert n_jax == sum(p.numel() for p in params.values())
+    assert plan["double_0.img_mod.mod.weight"] == (
+        ("double_0", "img_mod", "mod", "kernel"), "t")
+    assert plan["single_0.qkv.q_scale"] == (("single_0", "qkv", "q_scale"), "")
+    assert params["single_0.qkv.q_scale"].dtype == torch.float32
+    assert params["img_out.weight"].dtype == torch.float32
+    if name == "flux":
+        assert 11.8e9 < n_jax < 12.0e9
+        assert params["double_0.img_qkv.qkv.weight"].dtype == torch.bfloat16
 
 
 def test_sdxl_unet_size():
@@ -147,3 +176,26 @@ def test_bundle_carries_jax_tiny_weights():
     np.testing.assert_array_equal(
         bundle.pipeline.unet.conv_in.weight.numpy(), conv)
     assert bundle.text_encoder.module.tok_emb.weight.dtype == torch.bfloat16
+
+
+def test_bundle_carries_jax_flux_tiny_weights():
+    """``ModelBundle.load_from_jax`` fills a flow bundle's DiT by path."""
+    from comfyui_distributed_tpu_torch.models.registry import PRESETS, ModelBundle
+
+    bundle = ModelBundle(PRESETS["flux-tiny"], device="cpu", seed=3)
+    key = jax.random.key(6)
+    _, dit = jdit.init_dit(jdit.DiTConfig.tiny(), key, sample_hw=(8, 8),
+                           context_len=16)
+    dec = jax.jit(jvae.AutoencoderKL(jvae.VAEConfig.tiny()).decoder.init)(
+        key, jnp.zeros((1, 8, 8, 4)))
+    text = jtext.TextEncoder(jtext.TextEncoderConfig.tiny()).init(key).params
+    bundle.load_from_jax(*(jax.tree_util.tree_map(np.asarray, t)
+                           for t in (dit, dec, text)))
+    port = bundle.pipeline.dit
+    ref = np.array(dit["params"]["single_1"]["qkv"]["qkv"]["kernel"]).T
+    np.testing.assert_array_equal(
+        port.single_1.qkv.qkv.weight.float().numpy(),
+        torch.from_numpy(ref).to(torch.bfloat16).float().numpy())
+    # flax's zero init carried as it is
+    assert not port.final_mod.mod.weight.any() and not port.img_out.weight.any()
+    assert port.img_out.weight.dtype == torch.float32
