@@ -9,13 +9,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``nvidia-smi`` name and power limit; no card → exit 2.
 2. build   — nvcc builds the attention kernels from
    ``comfyui_distributed_tpu_torch/ops/csrc`` into ``build/torch_kernels``
-   and prints ptxas's register / shared-memory / spill report.
-3. kernels — every attention kernel at its path's shapes (plus ragged
-   cases) against its plain PyTorch version in bf16 (max-abs error ≤
-   1e-2·max|plain|), then CUDA-event times of the kernel, the plain
+   and prints ptxas's register / stack / spill report per kernel; a
+   spill fails the run.
+3. kernels — every attention kernel at its path's shapes, at ragged
+   shapes and at the core's tile edges (keys 1, 77, 128, 129; q rows 1,
+   64, 4173; D 64 and 128), and K1's projection GEMM alone, against
+   their plain PyTorch versions in bf16 (max-abs error ≤
+   1e-2·max|plain|); then CUDA-event times of the kernel, the plain
    version and one PyTorch library call computing the same function (a
    yardstick only: the port never calls it), beside the least time the
-   card could take.
+   card could take. K1 is also timed as its two launches (projection,
+   core).
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
@@ -89,6 +93,12 @@ BH_SHAPES = [  # (B, Nq, Nk, H, D), launches per FLUX request
 ]
 RAGGED_FUSED = [(2, 4000, 640, 10), (1, 130, 256, 2)]
 RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
+# the core's 128-row q / 128-key tiles: (B, Nq, Nk, H, D), both layouts
+EDGE_CORE = [(2, nq, nk, 2, d) for d in (64, 128) for nq in (1, 64, 4173)
+             for nk in (1, 77, 128, 129)]
+# K1 at the text encoder's 77 rows with C = 192 (H·D = 192: a 128-column
+# projection tile half outside the weight)
+EDGE_FUSED = [(1, 77, 192, 3), (2, 200, 192, 3)]
 KERNEL_NAMES = ("fused_qkv_attention", "flash_attention_packed",
                 "flash_attention_bh")
 
@@ -158,10 +168,15 @@ def build_phase(fa) -> None:
     fa.KERNELS.load()
     say(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {fa.KERNELS.build_seconds:.2f} s)")
-    for line in fa.KERNELS.build_log.splitlines():
+    log = fa.KERNELS.build_log
+    for line in log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
-                                   "smem")):
+                                   "smem", "warning")):
             say("  " + line.strip())
+    spills = [line.strip() for line in log.splitlines()
+              if "spill" in line and not line.strip().startswith(
+                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+    require(not spills, f"ptxas reports spills: {spills}")
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -256,14 +271,18 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     say("kernels: correctness (bf16; tolerance max_abs_err <= "
         f"{KERNEL_TOL}*max|plain|)")
     errs = {k: 0.0 for k in KERNEL_NAMES}
-    for shape in [s for s, _ in FUSED_SHAPES] + RAGGED_FUSED:
+    for shape in [s for s, _ in FUSED_SHAPES] + RAGGED_FUSED + EDGE_FUSED:
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
+        compare(torch, f"qkv_projection {shape}",
+                fa.qkv_projection(x, wq, wk, wv),
+                fa.qkv_projection_plain(x, wq, wk, wv))
         err = compare(torch, f"fused_qkv_attention {shape}",
                       fa.fused_qkv_attention(x, wq, wk, wv, H),
                       fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
-    core_cases = [s for s, _ in PACKED_SHAPES + BH_SHAPES] + RAGGED_CORE
+    core_cases = ([s for s, _ in PACKED_SHAPES + BH_SHAPES] + RAGGED_CORE
+                  + EDGE_CORE)
     for shape in core_cases:
         q, k, v = core_inputs(*shape)
         ref = fa.flash_attention_plain(q, k, v)
@@ -277,7 +296,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     say("kernels: timing (CUDA events; ms per launch)")
     rows = []
 
-    def time_row(kernel, shape, launches, work, run, plain, library):
+    def time_row(kernel, shape, launches, work, run, plain, library,
+                 **extra):
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
         lib_ms = cuda_ms(torch, library)
@@ -288,7 +308,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         rows.append({"kernel": kernel, "shape": shape, "launches": launches,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": b, "bound_by": by,
-                     "flops": work[0], "bytes": work[1]})
+                     "flops": work[0], "bytes": work[1], **extra})
 
     for shape, n in FUSED_SHAPES:
         B, N, C, H = shape
@@ -299,10 +319,21 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                        for w in (wq, wk, wv))
             return sdpa(q, k, v)
 
+        # K1's two launches on their own
+        q, k, v = fa.qkv_projection(x, wq, wk, wv).view(3, B, N, H, 64)
+        proj_ms = cuda_ms(torch, lambda: fa.qkv_projection(x, wq, wk, wv))
+        core_ms = cuda_ms(
+            torch, lambda: fa.flash_attention(q, k, v, layout="packed"))
+        pb, pby = bound_ms(2 * 3 * B * N * C * H * 64,
+                           2 * (B * N * C + 3 * H * 64 * C + 3 * B * N * H * 64))
+        cb, cby = bound_ms(*core_work(B, N, N, H, 64))
+        say(f"  fused_qkv_attention {shape} split: projection {proj_ms:.4f} "
+            f"ms (bound {pb:.4f} by {pby}; {pb / proj_ms:.1%}), core "
+            f"{core_ms:.4f} ms (bound {cb:.4f} by {cby}; {cb / core_ms:.1%})")
         time_row("fused_qkv_attention", shape, n, fused_work(*shape),
                  lambda: fa.fused_qkv_attention(x, wq, wk, wv, H),
                  lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, H),
-                 library)
+                 library, projection_ms=proj_ms, core_ms=core_ms)
     for layout, shapes in (("packed", PACKED_SHAPES), ("bh", BH_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
@@ -327,6 +358,11 @@ def kernel_table(rows: list[dict], errs: dict,
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
+        split = {}
+        if name == "fused_qkv_attention":
+            split = {"split_ms": {
+                part: sum(r[f"{part}_ms"] * r["launches"] for r in mine)
+                for part in ("projection", "core")}}
         out.append({
             "name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": replaces[name],
@@ -337,6 +373,7 @@ def kernel_table(rows: list[dict], errs: dict,
             "per": ("one flux request" if name == "flash_attention_bh"
                     else "one sdxl request"),
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+            **split,
         })
     return out
 

@@ -82,9 +82,9 @@ class Attention(nn.Module):
     """Multi-head attention over [B, N, C] with optional cross context.
 
     A self-attention site hands the block input and the three projection
-    weights to the fused kernel (q/k/v never reach device memory); a
-    cross-attention site projects q/k/v and takes the packed kernel. On
-    the CPU both run their plain versions."""
+    weights to the fused tier (one projection GEMM, then the attention
+    core over its output); a cross-attention site projects q/k/v and takes
+    the packed kernel. On the CPU both run their plain versions."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, context_dim: Optional[int] = None):

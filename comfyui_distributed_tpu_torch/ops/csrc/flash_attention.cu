@@ -1,37 +1,59 @@
-// Hand-written Hopper attention kernels (sm_90a; mma.sync bf16 -> fp32).
+// Hand-written Hopper kernels for the port's attention (sm_90a: TMA,
+// mbarrier, wgmma, setmaxnreg).
 //
 // Replaces the Pallas kernels of comfyui_distributed_tpu/ops/flash_attention.py:
-//   cdt_flash_attention      <- _flash_kernel_packed (:197) over [B, N, H*D],
-//                               and _flash_kernel (:99) as the same core with
-//                               H = 1 over the pre-transposed [B*H, N, D]
-//   cdt_fused_qkv_attention  <- _flash_kernel_fused (:227)
+//   cdt_flash_attention   <- _flash_kernel (:99) and _flash_kernel_packed
+//                            (:197): one strided attention core
+//   cdt_qkv_projection    <- the in-kernel projection of _flash_kernel_fused
+//   + cdt_flash_attention    (:227); the wrapper launches the two in turn
 //
 // What bounds them on an H100. Self-attention at the UNet's shapes (N =
-// 1024 or 4096, D = 64) does ~N/2 flops per byte moved, far above the
-// card's ~295 flop/byte ridge, so the fused kernel (and the one-head core
-// at FLUX's 4173 joint tokens, D = 128) is bound by tensor-core operations. Cross-attention over 77
-// text tokens does ~77/2 flops per byte: the core there is bound by bytes
-// (reading q, writing out). The fused kernel also re-projects each head's
-// K/V once per 128-row q block (the TPU schedule): per SDXL UNet forward at
-// 1024^2 it does ~12.7 TFLOP where the function needs ~2.9.
+// 1024 or 4096, D = 64) and FLUX's joint attention (4173 tokens, D = 128)
+// do ~N/2 flops per byte moved, far above the card's ~295 flop/byte ridge:
+// the core is bound by tensor-core operations there. Cross-attention over 77
+// text tokens does ~77/2 flops per byte and is bound by bytes (reading q,
+// writing out). The projection GEMM (8192 x 1920 x 640 at SDXL's level 2)
+// is bound by operations.
 //
-// Design. One CTA per (q block of 128 rows, head, batch), 8 warps of 16 q
-// rows each. The TPU's sequential K grid axis becomes a loop inside the CTA
-// over 64-key tiles staged in shared memory; m/l/acc stay in fp32 registers
-// (online softmax as in the Pallas kernel, NEG_INF = -1e30 masking, rows
-// with l == 0 write 0). Products use mma.sync m16n8k16 with fp32
-// accumulation; the S accumulator fragment is re-packed in registers as the
-// A operand of P.V (no shared-memory round trip for P). The fused kernel
-// streams x and each head's [D, C] weight slice through shared memory in
-// 64-channel chunks (the Pallas design keeps all three [C, H*D] weights
-// resident, which does not fit 227 KB); q is projected once per CTA and
-// kept in registers, k/v tiles are projected per K tile straight into the
-// shared-memory tiles the attention step reads, so q/k/v never reach device
-// memory. Projections accumulate in fp32 and are rounded to bf16 before
-// Q.K^T, like the Pallas kernel. No cp.async/TMA pipelining and no wgmma:
-// loads overlap products only across the CTAs that share an SM, which a
-// later version should fix.
+// Design.
+// - The TPU kernel projected each head's K/V again for every q block (it
+//   bought a way around XLA's custom-call boundary); that is 4.4x the work
+//   the function needs. Here K1 projects once: qkv_projection_kernel writes
+//   q, k and v as three [B, N, H*D] bf16 buffers (31.5 MB at SDXL's level
+//   2, which L2 largely holds), and the core reads them with packed strides.
+// - Both kernels are warp-specialised: warpgroup 0 is the producer (one
+//   thread keeps TMA loads in flight through a ring of shared-memory stages
+//   with full/empty mbarriers), warpgroups 1 and 2 are consumers of 64 rows
+//   each that run wgmma with fp32 accumulators in registers. In the core the
+//   producer hands its registers to the consumers with setmaxnreg (D = 128
+//   needs ~200 a consumer thread: S and O are 64 floats each).
+// - Tiles arrive by TMA in 128-byte-swizzled boxes of 64 bf16 columns
+//   (one swizzle row); D = 128 rows are two boxes. The wgmma descriptors
+//   read the same swizzle, so nothing is re-laid out in shared memory: K
+//   and the projection's operands are K-major, V is the MN-major
+//   (transposed) B operand of P.V.
+// - The core: S = Q.K^T with both operands in shared memory, online
+//   softmax in fp32 registers (scale 1/sqrt(D) on the fp32 logits, log2(e)
+//   folded into the exp2 constant, keys at or past nk set to NEG_INF since
+//   TMA fills them with zeros, rows with l == 0 written as 0), P rounded to
+//   bf16 in registers as the A operand of O += P.V. Addresses come from
+//   4-D tensor maps {D, rows, heads, batch} built on the host from batch,
+//   head and row strides, so one kernel takes the packed [B, N, H*D] rows
+//   (K1's second half, K2) and per-head strided rows (K3). Each consumer
+//   runs S, softmax and P.V in turn: the two consumer warpgroups already
+//   overlap one's softmax with the other's products, and issuing tile
+//   j+1's S before tile j's P.V (FlashAttention-3's in-warpgroup overlap)
+//   measured slower on the H100 at D = 64 and 128 (and spilled at 128).
+// - The projection: x [M, C] times each nn.Linear weight [H*D, C] (K-major,
+//   the layout wgmma's B operand wants) through a 4-stage ring; each
+//   output-column tile picks its weight by blockIdx.z; fp32 accumulation
+//   rounded to bf16, as the Pallas kernel's projection epilogue. A version
+//   with one producer warp and two CTAs an SM measured no faster.
+// Tensor maps are encoded per call in this library through
+// cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
+// library does not link libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,378 +62,539 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 128;           // q rows per CTA
-constexpr int BK = 64;            // keys per K tile
-constexpr int KC = 64;            // channels per projection chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;            // bf16 padding per shared-memory row
+constexpr int THREADS = 384;      // warpgroup 0 produces, 1 and 2 consume
+constexpr int BOX = 64;           // bf16 columns per TMA box: one swizzle row
+constexpr int BOX_BYTES = 128 * BOX * 2;   // a [128 rows][64] box: 16 KB
+constexpr int BQ = 128;           // q rows per CTA (64 per consumer)
+constexpr int BK = 128;           // keys per K/V tile
+constexpr int GEMM_BM = 128, GEMM_BN = 128, GEMM_BK = 64, GEMM_STAGES = 4;
+constexpr int GEMM_STAGE_BYTES = 2 * BOX_BYTES;   // x box + weight box
+constexpr int CONSUMER_WARPS = 8;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// codes beside cudaError_t for failures before a launch
+constexpr int ERR_NO_ENCODER = 20001;
+constexpr int ERR_TENSOR_MAP = 20002;
+
+// --- device helpers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type 1)
+// whose 1024-byte swizzle atoms start at 1024-aligned addresses. Byte
+// offsets: `lbo` between 64-column blocks of an MN-major operand (unused for
+// K-major), `sbo` between 8-row groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (the asm above does not name the registers).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define CDT_F8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define CDT_F32 CDT_F8(0), CDT_F8(8), CDT_F8(16), CDT_F8(24)
+#define CDT_F64 CDT_F32, CDT_F8(32), CDT_F8(40), CDT_F8(48), CDT_F8(56)
+#define CDT_REGS32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define CDT_REGS64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " CDT_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CDT_F64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) . B[16 x 128] (MN-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " CDT_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : CDT_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (MN-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CDT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : CDT_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c += a * b for one 16x8x16 tile (A row-major 16x16, B "col" 16x8).
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Copy a ROWS x COLS bf16 tile from global (row stride `stride`) into shared
-// memory (row stride `ld`), 16 bytes per thread per step; rows >= n_rows and
-// columns >= n_cols read as zero (n_cols is a multiple of 8).
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int n_rows,
-                                          int n_cols) {
-  constexpr int PER_ROW = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows && c < n_cols)
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Same copy, stored transposed: dst[c][r] = src[r][c].
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile_t(bf16* dst, int ld, const bf16* src,
-                                            long long stride, int n_rows) {
-  constexpr int PER_ROW = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * ld + r] = e[j];
-  }
-}
+// --- attention core ------------------------------------------------------------
 
-// A fragments of a warp's 16 rows x D columns from shared memory.
+// Shared memory of the core at head width D: the CTA's Q tile, then STAGES
+// stages of [K tile | V tile], each tile D / 64 boxes of [128 rows][64].
 template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             const bf16* s, int ld, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p = s + g * ld + kk * 16 + 2 * t;
-    f[kk][0] = ld32(p);
-    f[kk][1] = ld32(p + 8 * ld);
-    f[kk][2] = ld32(p + 8);
-    f[kk][3] = ld32(p + 8 * ld + 8);
-  }
-}
+struct CoreLayout {
+  static constexpr int BOXES = D / BOX;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int TILE_BYTES = BOXES * BOX_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr int BYTES =
+      TILE_BYTES * (1 + 2 * STAGES) + BARRIERS * 8 + 1024;   // + alignment
+};
 
-// acc[16 rows x D] += xs[16 rows x KC] . ws[D x KC]^T (one channel chunk).
+// A 64-row warpgroup's D/2 accumulator floats: O += P . V over one K tile.
 template <int D>
-__device__ __forceinline__ void proj_chunk(float (&acc)[D / 8][4],
-                                           const bf16* xs, const bf16* ws,
-                                           int lane) {
-  constexpr int LD = KC + PAD;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < KC / 16; ++kk) {
-    uint32_t a[4];
-    const bf16* ap = xs + g * LD + kk * 16 + 2 * t;
-    a[0] = ld32(ap);
-    a[1] = ld32(ap + 8 * LD);
-    a[2] = ld32(ap + 8);
-    a[3] = ld32(ap + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const bf16* bp = ws + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-      mma16816(acc[nt], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// One K tile of online-softmax attention for a warp's 16 q rows.
-// Ks: [BK][D + PAD] keys; Vt: [D][BK + PAD] values transposed.
-template <int D>
-__device__ __forceinline__ void attend_tile(const uint32_t (&qf)[D / 16][4],
-                                            const bf16* Ks, const bf16* Vt,
-                                            int valid, float scale,
-                                            float (&m)[2], float (&l)[2],
-                                            float (&o)[D / 8][4], int lane) {
-  constexpr int KLD = D + PAD, VLD = BK + PAD;
-  const int g = lane >> 2, t = lane & 3;
-  float s[BK / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const bf16* kp = Ks + (nt * 8 + g) * KLD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma16816(s[nt], qf[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
-  }
-  float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bool ok = nt * 8 + 2 * t + j < valid;
-      s[nt][j] = ok ? s[nt][j] * scale : NEG_INF;
-      s[nt][2 + j] = ok ? s[nt][2 + j] * scale : NEG_INF;
-      mx0 = fmaxf(mx0, s[nt][j]);
-      mx1 = fmaxf(mx1, s[nt][2 + j]);
-    }
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
-  const float c0 = expf(m[0] - mn0), c1 = expf(m[1] - mn1);
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    s[nt][0] = expf(s[nt][0] - mn0);
-    s[nt][1] = expf(s[nt][1] - mn0);
-    s[nt][2] = expf(s[nt][2] - mn1);
-    s[nt][3] = expf(s[nt][3] - mn1);
-    rs0 += s[nt][0] + s[nt][1];
-    rs1 += s[nt][2] + s[nt][3];
-  }
-  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-  l[0] = l[0] * c0 + rs0;
-  l[1] = l[1] * c1 + rs1;
-  m[0] = mn0;
-  m[1] = mn1;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    o[nt][0] *= c0;
-    o[nt][1] *= c0;
-    o[nt][2] *= c1;
-    o[nt][3] *= c1;
-  }
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&p)[BK / 16][4],
+                                           uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const bf16* vp = Vt + (nt * 8 + g) * VLD + kk * 16 + 2 * t;
-      mma16816(o[nt], a, ld32(vp), ld32(vp + 8));
+    // keys 16kk..16kk+15: two 8-row groups of 1024 bytes
+    const uint64_t db = sw128_desc(v_addr + kk * 2048, BOX_BYTES, 1024);
+    if constexpr (D == 64)
+      wgmma_m64n64_rs(o, p[kk], db);
+    else
+      wgmma_m64n128_rs(o, p[kk], db);
+  }
+}
+
+// One CTA per (128-row q block, head, batch). q/k/v rows are read through
+// 4-D tensor maps {D, rows, heads, batch}; out rows are written at
+// out + b * o_bs + h * o_hs + row * o_rs (elements).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           bf16* __restrict__ out, long long o_bs,
+                           long long o_hs, long long o_rs, int nq, int nk,
+                           float scale_log2) {
+  using L = CoreLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_tile = align_1024(smem_raw);
+  uint8_t* kv_tiles = q_tile + L::TILE_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      kv_tiles + 2 * L::STAGES * L::TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (nk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-// Normalise and write a warp's 16 rows (row0 relative to `out`).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long row_stride,
-                                           int row0, int n_rows,
-                                           const float (&o)[D / 8][4],
-                                           const float (&l)[2], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float l0 = l[0] == 0.f ? 1.f : l[0];
-  const float l1 = l[1] == 0.f ? 1.f : l[1];
-  const int r0 = row0 + g, r1 = row0 + g + 8;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int d = nt * 8 + 2 * t;
-    if (r0 < n_rows)
-      *reinterpret_cast<uint32_t*>(out + r0 * row_stride + d) =
-          pack_bf16(o[nt][0] / l0, o[nt][1] / l0);
-    if (r1 < n_rows)
-      *reinterpret_cast<uint32_t*>(out + r1 * row_stride + d) =
-          pack_bf16(o[nt][2] / l1, o[nt][3] / l1);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void init_state(float (&m)[2], float (&l)[2],
-                                           float (&o)[D / 8][4]) {
-  m[0] = m[1] = NEG_INF;
-  l[0] = l[1] = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-}
-
-// q/k/v/out rows hold heads side by side: head h of row r of batch b starts
-// at ptr + b * batch_stride + r * row_stride + h * D.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_core_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int nq,
-                  int nk, long long q_bs, long long q_rs, long long k_bs,
-                  long long k_rs, long long v_bs, long long v_rs,
-                  long long o_bs, long long o_rs, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D + PAD]
-  bf16* Ks = Qs + BQ * (D + PAD);                 // [BK][D + PAD]
-  bf16* Vt = Ks + BK * (D + PAD);                 // [D][BK + PAD]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * BQ;
-
-  load_tile<BQ, D>(Qs, D + PAD, q + b * q_bs + q0 * q_rs + h * D, q_rs,
-                   nq - q0, D);
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_a_frags<D>(qf, Qs + warp * 16 * (D + PAD), D + PAD, lane);
 
-  float m[2], l[2], o[D / 8][4];
-  init_state<D>(m, l, o);
-  const bf16* kb = k + b * k_bs + h * D;
-  const bf16* vb = v + b * v_bs + h * D;
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();
-    load_tile<BK, D>(Ks, D + PAD, kb + k0 * k_rs, k_rs, nk - k0, D);
-    load_tile_t<BK, D>(Vt, BK + PAD, vb + k0 * v_rs, v_rs, nk - k0);
-    __syncthreads();
-    attend_tile<D>(qf, Ks, Vt, min(BK, nk - k0), scale, m, l, o, lane);
-  }
-  store_rows<D>(out + b * o_bs + q0 * o_rs + h * D, o_rs, warp * 16, nq - q0,
-                o, l, lane);
-}
-
-// x [B, n, c]; wq/wk/wv [H*D, c] (nn.Linear layout); out [B, n, H*D].
-// At D = 64 the kernel is held to 128 registers so that two CTAs share an
-// SM and hide each other's chunk loads (146 registers left one CTA per SM
-// and ran 1.5x slower on the H100); at D = 128 that cap spills.
-template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
-fused_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
-                 const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                 bf16* __restrict__ out, int n, int c, int hd, float scale) {
-  constexpr int XLD = KC + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][KC + PAD]
-  bf16* Wa = Xs + BQ * XLD;                        // [D][KC + PAD]
-  bf16* Wb = Wa + D * XLD;                         // [D][KC + PAD]
-  bf16* Ks = Wb + D * XLD;                         // [BK][D + PAD]
-  bf16* Vt = Ks + BK * (D + PAD);                  // [D][BK + PAD]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const bf16* xb = x + (long long)b * n * c;
-  const long long wrow = (long long)h * D * c;
-
-  // q = x[q rows] . wq[head]^T, fp32 accumulation, rounded to bf16
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int c0 = 0; c0 < c; c0 += KC) {
-    __syncthreads();
-    load_tile<BQ, KC>(Xs, XLD, xb + (long long)q0 * c + c0, c, n - q0, c - c0);
-    load_tile<D, KC>(Wa, XLD, wq + wrow + c0, c, D, c - c0);
-    __syncthreads();
-    proj_chunk<D>(acc, Xs + warp * 16 * XLD, Wa, lane);
-  }
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-    qf[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-    qf[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    qf[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-  }
-
-  float m[2], l[2], o[D / 8][4];
-  init_state<D>(m, l, o);
-  const int slab = warp & 3;          // warps 0-3 project k, 4-7 project v
-  for (int k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    for (int c0 = 0; c0 < c; c0 += KC) {
-      __syncthreads();
-      load_tile<BK, KC>(Xs, XLD, xb + (long long)k0 * c + c0, c, n - k0, c - c0);
-      load_tile<D, KC>(Wa, XLD, wk + wrow + c0, c, D, c - c0);
-      load_tile<D, KC>(Wb, XLD, wv + wrow + c0, c, D, c - c0);
-      __syncthreads();
-      proj_chunk<D>(acc, Xs + slab * 16 * XLD, warp < 4 ? Wa : Wb, lane);
-    }
-    __syncthreads();
-    const int r0 = slab * 16 + g;
-    if (warp < 4) {
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const int d = nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(Ks + r0 * (D + PAD) + d) =
-            pack_bf16(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<uint32_t*>(Ks + (r0 + 8) * (D + PAD) + d) =
-            pack_bf16(acc[nt][2], acc[nt][3]);
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const int d = nt * 8 + 2 * t;
-        Vt[d * (BK + PAD) + r0] = __float2bfloat16(acc[nt][0]);
-        Vt[(d + 1) * (BK + PAD) + r0] = __float2bfloat16(acc[nt][1]);
-        Vt[d * (BK + PAD) + r0 + 8] = __float2bfloat16(acc[nt][2]);
-        Vt[(d + 1) * (BK + PAD) + r0 + 8] = __float2bfloat16(acc[nt][3]);
+  // Registers: 168 a thread at entry (384 threads); the producer keeps 24
+  // and the consumers take 232 (a pool of at most 128 * 24 + 256 * 232).
+  if (threadIdx.x < 128) {
+    // producer: Q once, then K/V tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::TILE_BYTES);
+      for (int bx = 0; bx < L::BOXES; ++bx)
+        tma_load_4d(q_tile + bx * BOX_BYTES, &q_map, q_full, bx * BOX, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % L::STAGES;
+        mbar_wait(&empty[s], ((j / L::STAGES) & 1) ^ 1);
+        uint8_t* kt = kv_tiles + 2 * s * L::TILE_BYTES;
+        mbar_expect_tx(&full[s], 2 * L::TILE_BYTES);
+        for (int bx = 0; bx < L::BOXES; ++bx) {
+          tma_load_4d(kt + bx * BOX_BYTES, &k_map, &full[s], bx * BOX, j * BK, h, b);
+          tma_load_4d(kt + L::TILE_BYTES + bx * BOX_BYTES, &v_map, &full[s],
+                      bx * BOX, j * BK, h, b);
+        }
       }
     }
-    __syncthreads();
-    attend_tile<D>(qf, Ks, Vt, min(BK, n - k0), scale, m, l, o, lane);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128;
+    const int cwg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int t = lane % 4;
+    // this warpgroup's 64 q rows inside each Q box
+    const uint32_t q_addr = smem_addr(q_tile) + cwg * 64 * 128;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s_acc[i] = 0.f;
+    // rows g and g + 8 of the warp's 16: running max (of raw logits) and
+    // this thread's share of the denominator
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::STAGES;
+      mbar_wait(&full[s], (j / L::STAGES) & 1);
+      const uint32_t k_addr = smem_addr(kv_tiles + 2 * s * L::TILE_BYTES);
+      const uint32_t v_addr = k_addr + L::TILE_BYTES;
+
+      // S = Q . K^T over D: 16 columns (32 bytes) per step inside a box
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+        wgmma_m64n128_ss(s_acc, sw128_desc(q_addr + off, 16, 1024),
+                         sw128_desc(k_addr + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+
+      // s_acc[4c + e]: row g (e < 2) or g + 8, key 8c + 2t + (e & 1)
+      const int valid = nk - j * BK;
+      if (valid < BK) {
+#pragma unroll
+        for (int c = 0; c < BK / 8; ++c) {
+          const int key = c * 8 + 2 * t;
+          if (key >= valid) s_acc[4 * c] = s_acc[4 * c + 2] = NEG_INF;
+          if (key + 1 >= valid) s_acc[4 * c + 1] = s_acc[4 * c + 3] = NEG_INF;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c) {
+        mx0 = fmaxf(mx0, fmaxf(s_acc[4 * c], s_acc[4 * c + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s_acc[4 * c + 2], s_acc[4 * c + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      // exp(scale * (s - m)) = exp2(s * scale_log2 - m * scale_log2)
+      const float corr0 = ex2((m0 - mx0) * scale_log2);
+      const float corr1 = ex2((m1 - mx1) * scale_log2);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c) {
+        s_acc[4 * c] = ex2(fmaf(s_acc[4 * c], scale_log2, -mb0));
+        s_acc[4 * c + 1] = ex2(fmaf(s_acc[4 * c + 1], scale_log2, -mb0));
+        s_acc[4 * c + 2] = ex2(fmaf(s_acc[4 * c + 2], scale_log2, -mb1));
+        s_acc[4 * c + 3] = ex2(fmaf(s_acc[4 * c + 3], scale_log2, -mb1));
+        rs0 += s_acc[4 * c] + s_acc[4 * c + 1];
+        rs1 += s_acc[4 * c + 2] + s_acc[4 * c + 3];
+      }
+      l0 = l0 * corr0 + rs0;
+      l1 = l1 * corr1 + rs1;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c] *= corr0;
+        o[4 * c + 1] *= corr0;
+        o[4 * c + 2] *= corr1;
+        o[4 * c + 3] *= corr1;
+      }
+      // P in bf16 as wgmma A fragments: keys 16kk..16kk+15 are chunks 2kk, 2kk+1
+      uint32_t p[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        p[kk][0] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
+      }
+      wgmma_fence();
+      pv_product<D>(o, p, v_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;   // fully masked rows -> 0
+    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const int r0 = q0 + cwg * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
+    bf16* base = out + b * o_bs + h * o_hs;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int d = c * 8 + 2 * t;
+      if (r0 < nq)
+        *reinterpret_cast<uint32_t*>(base + r0 * o_rs + d) =
+            pack_bf16(o[4 * c] * inv0, o[4 * c + 1] * inv0);
+      if (r1 < nq)
+        *reinterpret_cast<uint32_t*>(base + r1 * o_rs + d) =
+            pack_bf16(o[4 * c + 2] * inv1, o[4 * c + 3] * inv1);
+    }
   }
-  store_rows<D>(out + (long long)b * n * hd + (long long)q0 * hd + h * D, hd,
-                warp * 16, n - q0, o, l, lane);
+}
+
+// --- q/k/v projection ------------------------------------------------------------
+
+// out[z] = x . w_z^T for z = 0, 1, 2 (wq, wk, wv): x [m, c], w_z [hd, c]
+// (nn.Linear layout), out [3, m, hd] bf16. One CTA per (128-row block,
+// 128-column block, z).
+__global__ void __launch_bounds__(THREADS, 1)
+    qkv_projection_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap wq_map,
+                          const __grid_constant__ CUtensorMap wk_map,
+                          const __grid_constant__ CUtensorMap wv_map,
+                          bf16* __restrict__ out, int m, int hd, int c) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = align_1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stages + GEMM_STAGES * GEMM_STAGE_BYTES);
+  uint64_t* empty = full + GEMM_STAGES;
+
+  const int m0 = blockIdx.x * GEMM_BM, n0 = blockIdx.y * GEMM_BN;
+  const int z = blockIdx.z;
+  const int k_tiles = (c + GEMM_BK - 1) / GEMM_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {
+      const CUtensorMap* w_map = z == 0 ? &wq_map : (z == 1 ? &wk_map : &wv_map);
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % GEMM_STAGES;
+        mbar_wait(&empty[s], ((kt / GEMM_STAGES) & 1) ^ 1);
+        uint8_t* st = stages + s * GEMM_STAGE_BYTES;
+        mbar_expect_tx(&full[s], GEMM_STAGE_BYTES);
+        tma_load_2d(st, &x_map, &full[s], kt * GEMM_BK, m0);
+        tma_load_2d(st + BOX_BYTES, w_map, &full[s], kt * GEMM_BK, n0);
+      }
+    }
+  } else {
+    const int ct = threadIdx.x - 128;
+    const int cwg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % GEMM_STAGES;
+      mbar_wait(&full[s], (kt / GEMM_STAGES) & 1);
+      const uint32_t xa = smem_addr(stages + s * GEMM_STAGE_BYTES) + cwg * 64 * 128;
+      const uint32_t wa = smem_addr(stages + s * GEMM_STAGE_BYTES + BOX_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GEMM_BK / 16; ++kk)
+        wgmma_m64n128_ss(d, sw128_desc(xa + kk * 32, 16, 1024),
+                         sw128_desc(wa + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      // the previous tile's products are done: hand its stage back
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % GEMM_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+
+    bf16* dst = out + static_cast<long long>(z) * m * hd;
+    const int r0 = m0 + cwg * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
+#pragma unroll
+    for (int j = 0; j < GEMM_BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * (lane % 4);
+      if (col < hd) {
+        if (r0 < m)
+          *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(r0) * hd + col) =
+              pack_bf16(d[4 * j], d[4 * j + 1]);
+        if (r1 < m)
+          *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(r1) * hd + col) =
+              pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// --- host side ----------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      return nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions (dims[0] contiguous; strides in
+// elements for dims 1..rank-1), read in 128-byte-swizzled boxes of
+// [box_rows][64]; out-of-bounds elements read as zero.
+int encode(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+           const long long* strides, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t box[4], elem[4];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? BOX : (i == 1 ? box_rows : 1);
+    elem[i] = 1;
+    if (i > 0) gstride[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * sizeof(bf16);
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), gdim, gstride, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
 }
 
 template <int D>
-constexpr size_t core_smem() {
-  return sizeof(bf16) * (BQ * (D + PAD) + BK * (D + PAD) + D * (BK + PAD));
-}
-
-template <int D>
-constexpr size_t fused_smem() {
-  return sizeof(bf16) *
-         (BQ * (KC + PAD) + 2 * D * (KC + PAD) + BK * (D + PAD) + D * (BK + PAD));
-}
-
-template <int D>
-cudaError_t launch_core(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                        int batch, int heads, int nq, int nk, long long q_bs,
-                        long long q_rs, long long k_bs, long long k_rs,
-                        long long v_bs, long long v_rs, long long o_bs,
-                        long long o_rs, float scale, cudaStream_t stream) {
-  const size_t smem = core_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_core_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+int launch_attention(const void* q, const void* k, const void* v, bf16* out,
+                     int batch, int heads, int nq, int nk, const long long* qs,
+                     const long long* ks, const long long* vs,
+                     const long long* os, float scale, cudaStream_t stream) {
+  using L = CoreLayout<D>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const long long* strides[3] = {qs, ks, vs};
+  for (int i = 0; i < 3; ++i) {
+    // strides arrive as (batch, head, row); the map takes (row, head, batch)
+    const long long dims[4] = {D, i == 0 ? nq : nk, heads, batch};
+    const long long st[3] = {strides[i][2], strides[i][1], strides[i][0]};
+    const int rc = encode(&maps[i], ptrs[i], 4, dims, st, i == 0 ? BQ : BK);
+    if (rc) return rc;
+  }
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       L::BYTES);
   if (e != cudaSuccess) return e;
   dim3 grid((nq + BQ - 1) / BQ, heads, batch);
-  flash_core_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, nq, nk, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,
-      scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_fused(const bf16* x, const bf16* wq, const bf16* wk,
-                         const bf16* wv, bf16* out, int batch, int heads,
-                         int n, int c, float scale, cudaStream_t stream) {
-  const size_t smem = fused_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_qkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((n + BQ - 1) / BQ, heads, batch);
-  fused_qkv_kernel<D><<<grid, THREADS, smem, stream>>>(x, wq, wk, wv, out, n,
-                                                      c, heads * D, scale);
+  flash_attention_kernel<D><<<grid, THREADS, L::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], out, os[0], os[1], os[2], nq, nk,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -419,49 +602,58 @@ cudaError_t launch_fused(const bf16* x, const bf16* wq, const bf16* wk,
 
 extern "C" {
 
-// Attention over q [batch, nq, heads*D] and k/v [batch, nk, heads*D] given
-// by batch and row strides in elements (head h at offset h*D inside a row).
-// Returns a cudaError_t; 0 means the kernel was launched.
+// Attention over q [batch, nq, heads, D] and k/v [batch, nk, heads, D]
+// given by (batch, head, row) strides in elements for each of q, k, v and
+// out (unit stride inside a head's D). Returns 0 when the kernel was
+// launched, else a cudaError_t or one of the codes above.
 int cdt_flash_attention(const void* q, const void* k, const void* v, void* out,
                         int batch, int heads, int nq, int nk, int head_dim,
-                        long long q_bs, long long q_rs, long long k_bs,
-                        long long k_rs, long long v_bs, long long v_rs,
-                        long long o_bs, long long o_rs, float scale,
-                        void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
+                        long long q_bs, long long q_hs, long long q_rs,
+                        long long k_bs, long long k_hs, long long k_rs,
+                        long long v_bs, long long v_hs, long long v_rs,
+                        long long o_bs, long long o_hs, long long o_rs,
+                        float scale, void* stream) {
+  const long long qs[3] = {q_bs, q_hs, q_rs}, ks[3] = {k_bs, k_hs, k_rs};
+  const long long vs[3] = {v_bs, v_hs, v_rs}, os[3] = {o_bs, o_hs, o_rs};
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return launch_core<64>(qp, kp, vp, op, batch, heads, nq, nk, q_bs, q_rs,
-                           k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
+    return launch_attention<64>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
+                                os, scale, s);
   if (head_dim == 128)
-    return launch_core<128>(qp, kp, vp, op, batch, heads, nq, nk, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale, s);
+    return launch_attention<128>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
+                                 os, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// Self-attention of x [batch, n, c] projected in-kernel by wq/wk/wv
-// [heads*D, c]; writes out [batch, n, heads*D].
-int cdt_fused_qkv_attention(const void* x, const void* wq, const void* wk,
-                            const void* wv, void* out, int batch, int heads,
-                            int n, int c, int head_dim, float scale,
-                            void* stream) {
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* qp = static_cast<const bf16*>(wq);
-  const bf16* kp = static_cast<const bf16*>(wk);
-  const bf16* vp = static_cast<const bf16*>(wv);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch_fused<64>(xp, qp, kp, vp, op, batch, heads, n, c, scale, s);
-  if (head_dim == 128)
-    return launch_fused<128>(xp, qp, kp, vp, op, batch, heads, n, c, scale, s);
-  return cudaErrorInvalidValue;
+// out [3, m, hd] = x [m, c] times wq, wk, wv [hd, c] transposed, in bf16
+// with fp32 accumulation. x and the weights are contiguous.
+int cdt_qkv_projection(const void* x, const void* wq, const void* wk,
+                       const void* wv, void* out, int m, int c, int hd,
+                       void* stream) {
+  CUtensorMap maps[4];
+  const long long x_dims[2] = {c, m}, w_dims[2] = {c, hd}, stride[1] = {c};
+  int rc = encode(&maps[0], x, 2, x_dims, stride, GEMM_BM);
+  const void* ws[3] = {wq, wk, wv};
+  for (int i = 0; i < 3 && rc == 0; ++i)
+    rc = encode(&maps[1 + i], ws[i], 2, w_dims, stride, GEMM_BN);
+  if (rc) return rc;
+  const int smem = GEMM_STAGES * GEMM_STAGE_BYTES + 2 * GEMM_STAGES * 8 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      qkv_projection_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((m + GEMM_BM - 1) / GEMM_BM, (hd + GEMM_BN - 1) / GEMM_BN, 3);
+  qkv_projection_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(out), m, hd, c);
+  return cudaGetLastError();
 }
 
 const char* cdt_error_string(int code) {
+  if (code == ERR_NO_ENCODER)
+    return "cuTensorMapEncodeTiled is not available from the driver";
+  if (code == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (alignment, strides "
+           "or sizes)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

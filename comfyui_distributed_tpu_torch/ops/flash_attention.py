@@ -3,18 +3,30 @@ loader that builds them.
 
 Counterpart of ``comfyui_distributed_tpu/ops/flash_attention.py``. The
 three Pallas kernels there map onto two CUDA kernels in
-``csrc/flash_attention.cu``:
+``csrc/flash_attention.cu`` (TMA loads through an mbarrier ring, ``wgmma``
+products, warp-specialised producer and consumers):
 
-- ``fused_qkv_attention`` (``_flash_kernel_fused``): self-attention
-  straight from the block input ``x`` and the three projection weights —
-  q/k/v never reach device memory.
+- ``fused_qkv_attention`` (``_flash_kernel_fused``): self-attention from
+  the block input ``x`` and the three projection weights, as two launches:
+  the projection GEMM writes q/k/v once as ``[B, N, H·D]`` bf16 buffers,
+  then the attention core reads them in place. The TPU kernel projected
+  each head's K/V again for every q block, which bought it a way around
+  XLA's custom-call boundary; eager PyTorch on the card has no such
+  boundary, and the recompute was 4.4× the work the function needs. q/k/v
+  of a level-2 SDXL site are 31.5 MB, which the card's 50 MB L2 largely
+  holds between the two launches.
 - ``flash_attention(layout="packed")`` (``_flash_kernel_packed``):
   attention over q/k/v in the projection's own ``[B, N, H·D]`` layout
   (SDXL's cross-attention).
-- ``flash_attention(layout="bh")`` (``_flash_kernel``): the same core
-  over pre-transposed ``[B·H, N, D]`` — the packed kernel with one head
-  (FLUX's joint attention, whose H·D = 3072 the packed layout does not
-  take; ``ops/attention.py`` chooses).
+- ``flash_attention(layout="bh")`` (``_flash_kernel``): the same core with
+  each (batch, head) pair addressed through its own strides, so any
+  ``[B, N, H, D]`` view with unit stride along D is read in place (FLUX's
+  joint attention, whose H·D = 3072 the packed layout does not take;
+  ``ops/attention.py`` chooses).
+
+The core is bound by tensor-core operations at self-attention lengths and
+by bytes over 77 keys; the projection by operations. Both run at the
+shapes of the main paths; ``PERF.md`` holds their times against the bound.
 
 Each wrapper runs its kernel's plain version for a tensor on the CPU and
 launches the kernel for a tensor on a CUDA device; anything else raises.
@@ -41,14 +53,18 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30      # large-but-finite: -inf breaks the running max
+BLOCK_Q = 128        # q rows per CTA of the core
+BLOCK_K = 128        # keys per K/V tile of the core
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (64, 128)
+STRIDE_MULTIPLE = 8  # elements: TMA takes strides in multiples of 16 bytes
 
 # launches per wrapper, counted where each kernel is launched
+# (fused_qkv_attention counts once per call: projection and core together)
 LAUNCHES = {"fused_qkv_attention": 0, "flash_attention_packed": 0,
             "flash_attention_bh": 0}
 
@@ -63,7 +79,8 @@ class KernelBuildError(RuntimeError):
 
 
 class KernelLaunchError(RuntimeError):
-    """The CUDA runtime refused a launch."""
+    """The CUDA runtime refused a launch, or a tensor map could not be
+    encoded."""
 
 
 def find_nvcc() -> Optional[str]:
@@ -131,12 +148,11 @@ class KernelLibrary:
                 p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_float)
                 lib.cdt_flash_attention.argtypes = [
-                    p, p, p, p, i, i, i, i, i,
-                    ll, ll, ll, ll, ll, ll, ll, ll, f, p]
+                    p, p, p, p, i, i, i, i, i, *([ll] * 12), f, p]
                 lib.cdt_flash_attention.restype = i
-                lib.cdt_fused_qkv_attention.argtypes = [
-                    p, p, p, p, p, i, i, i, i, i, f, p]
-                lib.cdt_fused_qkv_attention.restype = i
+                lib.cdt_qkv_projection.argtypes = [
+                    p, p, p, p, p, i, i, i, p]
+                lib.cdt_qkv_projection.restype = i
                 lib.cdt_error_string.argtypes = [i]
                 lib.cdt_error_string.restype = ctypes.c_char_p
                 self._lib = lib
@@ -166,8 +182,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x · wᵀ`` accumulated in fp32 and rounded to the operand dtype —
-    the fused kernel's projection epilogue (``w`` in nn.Linear layout)."""
+    the projection epilogue of the fused tier (``w`` in nn.Linear
+    layout)."""
     return torch.matmul(x.float(), w.float().t()).to(x.dtype)
+
+
+def qkv_projection_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                         wv: torch.Tensor) -> torch.Tensor:
+    """The three projections of ``x`` ``[B, N, C]``: ``[3, B, N, H·D]``."""
+    return torch.stack([project(x, w) for w in (wq, wk, wv)])
 
 
 def fused_qkv_attention_plain(x: torch.Tensor, wq: torch.Tensor,
@@ -184,8 +207,8 @@ def fused_qkv_attention_plain(x: torch.Tensor, wq: torch.Tensor,
 
 
 def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, block_q: int = 128,
-                             block_k: int = 64) -> torch.Tensor:
+                             v: torch.Tensor, block_q: int = BLOCK_Q,
+                             block_k: int = BLOCK_K) -> torch.Tensor:
     """The kernels' streamed schedule in plain ops over ``[B·H, N, D]``
     (the counterpart of the JAX ``_flash_emulated``): K tiles of
     ``block_k`` keys, NEG_INF tail masking, fp32 running max/denominator/
@@ -219,8 +242,8 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
 
 def fused_qkv_attention_emulated(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
-                                 num_heads: int, block_q: int = 128,
-                                 block_k: int = 64) -> torch.Tensor:
+                                 num_heads: int, block_q: int = BLOCK_Q,
+                                 block_k: int = BLOCK_K) -> torch.Tensor:
     """Fused tier's schedule in plain ops (counterpart of the JAX
     ``_fused_emulated``): projections rounded to the operand dtype, then
     the streamed schedule per head."""
@@ -263,66 +286,117 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-                        wv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Self-attention from ``x`` ``[B, N, C]`` and bias-free projection
-    weights ``[H·D, C]``; returns ``[B, N, H, D]``."""
-    B, N, C = x.shape
+def core_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, head, row) strides in elements of a ``[B, N, H, D]`` view:
+    the addressing of the core's tensor maps ``{D, rows, heads, batch}``
+    (D has unit stride). A dimension of size 1 is never stepped, so its
+    stride is replaced by ``STRIDE_MULTIPLE``, which TMA always takes."""
+    B, N, H, _ = t.shape
+
+    def stride(dim: int, size: int) -> int:
+        return t.stride(dim) if size > 1 else STRIDE_MULTIPLE
+
+    return stride(0, B), stride(2, H), stride(1, N)
+
+
+def _check_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                      wv: torch.Tensor) -> None:
+    C = x.shape[-1]
     HD = wq.shape[0]
     if any(tuple(w.shape) != (HD, C) for w in (wq, wk, wv)):
         raise ValueError(
-            f"fused qkv attention needs three [H·D, C] weights with C={C}; got "
+            f"qkv projection needs three [H·D, C] weights with C={C}; got "
             f"{tuple(wq.shape)}, {tuple(wk.shape)}, {tuple(wv.shape)}")
-    if HD % num_heads:
-        raise ValueError(f"width {HD} not divisible by num_heads={num_heads}")
-    D = HD // num_heads
-    if not _on_cuda(x, wq, wk, wv):
-        return fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
-    if D not in HEAD_DIMS or C % 8:
-        raise ValueError(
-            f"fused kernel takes D in {HEAD_DIMS} and C % 8 == 0; got D={D}, C={C}")
+
+
+def _launch_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                       wv: torch.Tensor) -> torch.Tensor:
+    """K1's first launch: ``[3, B, N, H·D]`` from the projection GEMM."""
+    B, N, C = x.shape
+    HD = wq.shape[0]
+    if C % STRIDE_MULTIPLE or HD % STRIDE_MULTIPLE:
+        raise ValueError(f"projection kernel takes C and H·D in multiples of "
+                         f"{STRIDE_MULTIPLE}; got C={C}, H·D={HD}")
     for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         _check_kernel_operand(name, t)
     lib = KERNELS.load()
-    out = torch.empty((B, N, HD), dtype=x.dtype, device=x.device)
+    out = torch.empty((3, B, N, HD), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.cdt_fused_qkv_attention(
+        rc = lib.cdt_qkv_projection(
             x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-            out.data_ptr(), B, num_heads, N, C, D, D ** -0.5, _stream(x))
-    KERNELS.check(rc, "fused_qkv_attention")
-    LAUNCHES["fused_qkv_attention"] += 1
-    return out.view(B, N, num_heads, D)
+            out.data_ptr(), B * N, C, HD, _stream(x))
+    KERNELS.check(rc, "qkv_projection")
+    return out
 
 
-def _launch_core(q, k, v, out, batch, heads, nq, nk, D, counter):
-    """q/k/v/out: ``[batch, rows, heads·D]`` views with unit stride inside a
-    row's ``heads·D`` span."""
+def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 what: str) -> torch.Tensor:
+    """The attention core over ``[B, N, H, D]`` views with unit stride
+    along D; returns ``[B, Nq, H, D]`` (contiguous)."""
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if Nk == 0:
+        raise ValueError(f"{what}: the kernel needs at least one key")
+    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+    strides = []
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_kernel_operand(name, t)
-        if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+        s = core_strides(t)
+        if t.stride(3) != 1 or any(x % STRIDE_MULTIPLE for x in s):
             raise ValueError(
                 f"{name}: rows must be contiguous with strides a multiple of "
-                f"8 elements; got strides {t.stride()}")
+                f"{STRIDE_MULTIPLE} elements; got strides {t.stride()}")
+        strides += s
     lib = KERNELS.load()
     with torch.cuda.device(q.device):
         rc = lib.cdt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, heads, nq, nk, D,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            D ** -0.5, _stream(q))
-    KERNELS.check(rc, counter)
-    LAUNCHES[counter] += 1
+            B, H, Nq, Nk, D, *strides, D ** -0.5, _stream(q))
+    KERNELS.check(rc, what)
+    return out
+
+
+def qkv_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                   wv: torch.Tensor) -> torch.Tensor:
+    """``x`` ``[B, N, C]`` times each bias-free ``[H·D, C]`` weight:
+    ``[3, B, N, H·D]``, fp32 accumulation rounded to the operand dtype.
+    The first launch of ``fused_qkv_attention`` (which counts it); a
+    direct call is not counted."""
+    _check_projection(x, wq, wk, wv)
+    if not _on_cuda(x, wq, wk, wv):
+        return qkv_projection_plain(x, wq, wk, wv)
+    return _launch_projection(x, wq, wk, wv)
+
+
+def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                        wv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Self-attention from ``x`` ``[B, N, C]`` and bias-free projection
+    weights ``[H·D, C]``; returns ``[B, N, H, D]``."""
+    B, N, C = x.shape
+    _check_projection(x, wq, wk, wv)
+    HD = wq.shape[0]
+    if HD % num_heads:
+        raise ValueError(f"width {HD} not divisible by num_heads={num_heads}")
+    D = HD // num_heads
+    if not _on_cuda(x, wq, wk, wv):
+        return fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"fused kernel takes D in {HEAD_DIMS}; got D={D}")
+    q, k, v = _launch_projection(x, wq, wk, wv).view(3, B, N, num_heads, D)
+    out = _launch_core(q, k, v, "fused_qkv_attention")
+    LAUNCHES["fused_qkv_attention"] += 1
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     layout: str = "packed") -> torch.Tensor:
     """Exact attention over ``[B, N, H, D]`` (q ``[B, Nq, H, D]``, k/v
-    ``[B, Nk, H, D]``). ``layout="packed"`` reads heads in place from the
-    ``[B, N, H·D]`` rows; ``"bh"`` transposes to ``[B·H, N, D]`` first and
-    runs the one-head core."""
+    ``[B, Nk, H, D]``). ``layout="packed"`` takes the ``[B, N, H·D]`` rows
+    with each row's heads side by side; ``"bh"`` takes any per-head
+    strides (one attention problem per batch and head). Both read the
+    operands in place and return ``[B, Nq, H, D]``."""
     if layout not in ("packed", "bh"):
         raise ValueError(f"layout must be 'packed' or 'bh', got {layout!r}")
     B, Nq, H, D = q.shape
@@ -334,19 +408,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    if layout == "bh":
-        def to_bh(t, n):
-            return t.transpose(1, 2).reshape(B * H, n, D)
-
-        out = torch.empty((B * H, Nq, D), dtype=q.dtype, device=q.device)
-        _launch_core(to_bh(q, Nq), to_bh(k, Nk), to_bh(v, Nk), out,
-                     B * H, 1, Nq, Nk, D, "flash_attention_bh")
-        return out.view(B, H, Nq, D).transpose(1, 2)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.stride(2) != D:
-            raise ValueError(f"{name}: packed layout needs each row's heads "
-                             f"side by side; got strides {t.stride()}")
-    out = torch.empty((B, Nq, H * D), dtype=q.dtype, device=q.device)
-    _launch_core(q.flatten(2), k.flatten(2), v.flatten(2), out,
-                 B, H, Nq, Nk, D, "flash_attention_packed")
-    return out.view(B, Nq, H, D)
+    if layout == "packed":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1 or t.stride(2) != D:
+                raise ValueError(f"{name}: packed layout needs each row's heads "
+                                 f"side by side; got strides {t.stride()}")
+    counter = f"flash_attention_{layout}"
+    out = _launch_core(q, k, v, counter)
+    LAUNCHES[counter] += 1
+    return out

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the PyTorch port's FLUX denoising step on one
-NVIDIA card.
+"""Device-time breakdown of one denoising forward of the PyTorch port on
+one NVIDIA card: FLUX's DiT or SDXL's UNet.
 
-    python3 scripts/profile_torch_flux.py [--forwards 2] [--trace PATH]
+    python3 scripts/profile_torch_flux.py [--model flux|sdxl] [--forwards 2] [--trace PATH]
 
-Builds the full-width ``flux`` preset (random weights from seed 0), runs
-the DiT forward at the shape of ``workflows/flux-txt2img.json`` (1024²:
-4096 image + 77 text tokens, batch 1), warms up, then traces
-``--forwards`` forwards with ``torch.profiler`` and prints, per forward:
+Builds the full-width ``flux`` or ``sdxl`` preset (random weights from
+seed 0) and runs one model forward at the shape of the model's workflow:
+FLUX at 1024² (4096 image + 77 text tokens, batch 1,
+``workflows/flux-txt2img.json``), SDXL at 1024² with CFG (a 128² latent,
+batch 2, ``workflows/distributed-txt2img.json``). It warms up, times
+``--forwards`` forwards untraced, then traces as many with
+``torch.profiler`` (device activity only: tracing every host-side op
+slows the host enough to starve the card) and prints, per forward:
 
-- wall seconds (host clock around forwards ending in a synchronise);
+- wall seconds, untraced and traced (host clock around forwards ending
+  in a synchronise);
 - device busy seconds (the union of kernel intervals in the trace) and
-  the device's idle share of the wall time;
-- device seconds by kernel class: the one-head attention kernel (K3),
-  the fused QKV kernel (K1), matrix products (cuBLAS / CUTLASS kernels),
-  and everything else (norms, modulation, RoPE, GELU, copies);
+  the device's idle share of the untraced wall time;
+- device seconds by kernel class: the attention core (FLUX: every joint
+  attention, K3; SDXL: K1's second launch and K2), K1's projection GEMM,
+  convolutions (cuDNN), other matrix products (cuBLAS / CUTLASS
+  kernels), and everything else (norms, modulation, RoPE, GELU, copies);
 - the kernels with the most device time.
 
 The Chrome trace is written to ``--trace``. Exits nonzero without a card
@@ -32,13 +38,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "nvjet", "xmma", "cublas")
+CONV_MARKS = ("fprop", "dgrad", "wgrad", "conv", "Conv")
 
 
 def kernel_class(name: str) -> str:
-    if "flash_core_kernel" in name:
-        return "K3 one-head attention"
-    if "fused_qkv_kernel" in name:
-        return "K1 fused QKV attention"
+    if "flash_attention_kernel" in name:
+        return "attention core (K1 second launch, K2, K3)"
+    if "qkv_projection_kernel" in name:
+        return "K1 projection GEMM"
+    if any(m in name for m in CONV_MARKS):
+        return "convolutions"
     if any(m in name for m in GEMM_MARKS):
         return "matrix products"
     return "other (norms, modulation, RoPE, GELU, copies)"
@@ -57,28 +66,11 @@ def busy_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--forwards", type=int, default=2)
-    ap.add_argument("--trace", default=str(ROOT / "chiprun_out" /
-                                           "flux_forward_trace.json"))
-    args = ap.parse_args()
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        print("profile_torch_flux: no CUDA device is available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+def flux_forward(torch, registry):
+    """One DiT forward of the FLUX workflow; returns (forward, label)."""
     workflow = json.loads((ROOT / "workflows" / "flux-txt2img.json").read_text())
     sampler = workflow["4"]["inputs"]
-    bundle = ModelRegistry("cuda", seed=0).get("flux")
+    bundle = registry.get("flux")
     dit = bundle.pipeline.dit
     ctx, pooled = bundle.text_encoder.encode([workflow["2"]["inputs"]["text"]])
     ds = bundle.pipeline.vae.config.downscale
@@ -92,18 +84,80 @@ def main() -> int:
         with torch.no_grad():
             dit(x, t, ctx, pooled, g)
 
-    for _ in range(2):
-        forward()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    label = (f"flux forward at {sampler['height']}x{sampler['width']} "
+             f"({x.shape[1] * x.shape[2] // 4} image + {ctx.shape[1]} text "
+             f"tokens)")
+    return forward, label
+
+
+def sdxl_forward(torch, registry):
+    """One UNet forward of the SDXL workflow with CFG (the doubled batch);
+    returns (forward, label)."""
+    workflow = json.loads(
+        (ROOT / "workflows" / "distributed-txt2img.json").read_text())
+    sampler = workflow["5"]["inputs"]
+    bundle = registry.get("sdxl")
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    ds = bundle.pipeline.vae.config.downscale
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, sampler["height"] // ds, sampler["width"] // ds,
+                    cfg.in_channels, generator=gen, device="cuda")
+    t = torch.tensor([500.0, 500.0], device="cuda")
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device="cuda")
+    y = torch.randn(2, cfg.adm_in_channels, generator=gen, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            unet(x, t, ctx, y)
+
+    label = (f"sdxl UNet forward at {sampler['height']}x{sampler['width']} "
+             f"with CFG (latent {tuple(x.shape)})")
+    return forward, label
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("flux", "sdxl"), default="flux")
+    ap.add_argument("--forwards", type=int, default=2)
+    ap.add_argument("--trace", default=None,
+                    help="Chrome trace path (default output/profiles/"
+                         "<model>_forward_trace.json)")
+    args = ap.parse_args()
+    trace = Path(args.trace or ROOT / "output" / "profiles" /
+                 f"{args.model}_forward_trace.json")
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_flux: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    build = flux_forward if args.model == "flux" else sdxl_forward
+    forward, label = build(torch, ModelRegistry("cuda", seed=0))
+
+    def timed() -> float:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.forwards):
             forward()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.forwards
-    Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    events = json.loads(Path(args.trace).read_text())["traceEvents"]
+        return (time.perf_counter() - t0) / args.forwards
+
+    for _ in range(2):
+        forward()
+    wall = timed()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_wall = timed()
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         print("profile_torch_flux: the trace holds no kernel", file=sys.stderr)
@@ -118,18 +172,19 @@ def main() -> int:
         rec = by_name.setdefault(e["name"], [0.0, 0])
         rec[0] += e["dur"] / 1e6 / n
         rec[1] += 1
-    print(f"flux forward at {sampler['height']}x{sampler['width']} "
-          f"({x.shape[1] * x.shape[2] // 4} image + {ctx.shape[1]} text tokens), "
-          f"{n} traced forwards")
-    print(f"  wall {wall:.4f} s/forward; device busy {busy:.4f} s/forward; "
-          f"idle share {1 - busy / wall:.1%}; {len(kernels) / n:.0f} kernels/forward")
+    print(f"{label}, {n} traced forwards")
+    print(f"  wall {wall:.4f} s/forward untraced, {traced_wall:.4f} traced; "
+          f"device busy {busy:.4f} s/forward; idle share {1 - busy / wall:.1%}; "
+          f"{len(kernels) / n:.0f} kernels/forward")
     for cls, secs in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {secs:.4f} s/forward ({secs / busy:.1%} of busy)")
     print("  top kernels (s/forward, launches/forward):")
     for name, (secs, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {secs:.4f}  {count // n:5d}  {name[:110]}")
-    print(json.dumps({"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
-                      "by_class_s": by_class, "device": smi}))
+    print(json.dumps({"model": args.model, "wall_s": wall,
+                      "traced_wall_s": traced_wall, "busy_s": busy,
+                      "idle_share": 1 - busy / wall, "by_class_s": by_class,
+                      "device": smi}))
     return 0
 
 

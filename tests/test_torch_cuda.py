@@ -68,6 +68,52 @@ def test_fused_kernel_matches_plain(cuda_device, B, N, C, H, D):
     _close(out, tfa.fused_qkv_attention_plain(x, wq, wk, wv, H))
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Nq", [1, 64, 4173])
+@pytest.mark.parametrize("Nk", [1, 77, 128, 129])
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+def test_flash_kernel_at_tile_edges(cuda_device, layout, Nk, Nq, D):
+    """The core's 128-row q and 128-key tiles: a lone key, the 77-key
+    cross-attention tile, one full tile and one key past it; one q row,
+    half a q tile, and FLUX's 32·128 + 77 rows. Two batches, so the bh
+    layout's per-head strides cross a batch."""
+    q = _bf16(10, 2, Nq, 2, D)
+    k = _bf16(11, 2, Nk, 2, D)
+    v = _bf16(12, 2, Nk, 2, D)
+    _close(tfa.flash_attention(q, k, v, layout=layout),
+           tfa.flash_attention_plain(q, k, v))
+
+
+def test_flash_kernel_reads_strided_heads_in_place(cuda_device):
+    """FLUX's single-block v is a slice of the [B, N, 3, H, D] projection:
+    the one-head kernel reads it with its own row stride."""
+    qkv = _bf16(13, 2, 300, 3, 3, 128)
+    q, k, v = qkv.unbind(2)
+    _close(tfa.flash_attention(q, k, v, layout="bh"),
+           tfa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("B,N,C,HD", [(1, 77, 192, 192), (2, 200, 192, 192),
+                                      (1, 77, 768, 768), (2, 130, 256, 256),
+                                      (1, 300, 1280, 1280)])
+def test_projection_kernel_matches_plain(cuda_device, B, N, C, HD):
+    """The GEMM of K1's first launch: 77 rows (the text encoder), C not a
+    multiple of its 64-channel tile's ring depth, H·D = 192 (a 128-column
+    tile that is half outside the weight)."""
+    x = _bf16(14, B, N, C)
+    wq, wk, wv = (_bf16(15 + i, HD, C, scale=C ** -0.5) for i in range(3))
+    _close(tfa.qkv_projection(x, wq, wk, wv),
+           tfa.qkv_projection_plain(x, wq, wk, wv))
+
+
+def test_fused_kernel_at_text_encoder_edge(cuda_device):
+    """M = 77 rows and C = 192 through both of K1's launches."""
+    x = _bf16(18, 1, 77, 192)
+    wq, wk, wv = (_bf16(19 + i, 192, 192, scale=192 ** -0.5) for i in range(3))
+    _close(tfa.fused_qkv_attention(x, wq, wk, wv, 3),
+           tfa.fused_qkv_attention_plain(x, wq, wk, wv, 3))
+
+
 def test_kernel_refuses_fp32_on_card(cuda_device):
     q = torch.zeros(1, 16, 1, 64, device=cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):

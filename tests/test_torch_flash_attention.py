@@ -8,6 +8,9 @@ tolerance (2e-5, as ``tests/test_flash_attention.py``). The CUDA kernels
 themselves are tested on a card by ``tests/test_torch_cuda.py``.
 """
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,7 +72,7 @@ def test_fused_qkv_attention_matches_pallas(B, N, C, H, D):
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("block_k", [32, 64])
+@pytest.mark.parametrize("block_k", [32, 64, 128])
 def test_streamed_emulation_matches_jax_emulation(block_k):
     """The port's streamed schedule and the JAX ``_flash_emulated``: the
     same K tiling, tail masking and fp32 running statistics."""
@@ -87,13 +90,167 @@ def test_streamed_emulation_matches_jax_emulation(block_k):
 
 
 def test_fused_emulation_matches_jax_emulation():
-    x, (wq, wk, wv) = _fused_inputs(3, 2, 90, 64, 2, 64)
-    ref = np.asarray(jfa._fused_emulated(
-        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(wv),
-        2, block_q=64, block_k=64))
-    out = tfa.fused_qkv_attention_emulated(_t(x), _t(wq.T), _t(wk.T),
-                                           _t(wv.T), 2, 64, 64)
+    """Also at the CUDA core's 128-key tile: 150 tokens make a full tile
+    and a 22-key tail."""
+    for N, block_k in ((90, 64), (150, 128)):
+        x, (wq, wk, wv) = _fused_inputs(3, 2, N, 64, 2, 64)
+        ref = np.asarray(jfa._fused_emulated(
+            jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wk),
+            jnp.asarray(wv), 2, block_q=64, block_k=block_k))
+        out = tfa.fused_qkv_attention_emulated(_t(x), _t(wq.T), _t(wk.T),
+                                               _t(wv.T), 2, 64, block_k)
+        np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_emulation_defaults_follow_the_kernel_tiles():
+    q, k, v = (_t(a[0].transpose(1, 0, 2)) for a in _qkv(5, 1, 200, 150, 2, 64))
+    assert torch.equal(tfa.flash_attention_emulated(q, k, v),
+                       tfa.flash_attention_emulated(q, k, v, tfa.BLOCK_Q,
+                                                    tfa.BLOCK_K))
+    assert (tfa.BLOCK_Q, tfa.BLOCK_K) == (128, 128)
+
+
+@pytest.mark.parametrize("B,N,C,HD", [(2, 77, 192, 192), (1, 130, 96, 256)])
+def test_qkv_projection_plain_matches_jax_projection(B, N, C, HD):
+    """The projection the CUDA GEMM is held against, and the JAX fused
+    tier's projection numerics: fp32 accumulation cast back to the operand
+    dtype (fp32 here, at the kernel tolerance)."""
+    x, ws = _fused_inputs(6, B, N, C, 1, HD)
+    ref = np.stack([np.asarray(jax.lax.dot_general(
+        jnp.asarray(x), jnp.asarray(w), (((2,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32).astype(jnp.float32)) for w in ws])
+    out = tfa.qkv_projection_plain(_t(x), *(_t(w.T) for w in ws))
+    assert out.shape == (3, B, N, HD)
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+    cpu = tfa.qkv_projection(_t(x), *(_t(w.T) for w in ws))
+    assert torch.equal(cpu, out)
+
+
+def test_qkv_projection_plain_rounds_once_in_bf16():
+    """In bf16 both sides accumulate in fp32 and round once: they agree to
+    one bf16 rounding step (2^-8 relative; the fp32 sums are taken in
+    different orders)."""
+    x, ws = _fused_inputs(7, 1, 40, 128, 2, 64)
+    xb = jnp.asarray(x, dtype=jnp.bfloat16)
+    ref = np.stack([np.asarray(jax.lax.dot_general(
+        xb, jnp.asarray(w, dtype=jnp.bfloat16), (((2,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32).astype(jnp.bfloat16),
+        dtype=np.float32) for w in ws])
+    out = tfa.qkv_projection_plain(
+        _t(x).to(torch.bfloat16),
+        *(_t(w.T).to(torch.bfloat16) for w in ws))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2.0 ** -8,
+                               atol=1e-6)
+
+
+def _strided_operand(layout, B, N=5, H=3, D=8):
+    """A [B, N, H, D] view in the memory order of one of the port's
+    call sites."""
+    n = B * N * H * D
+    if layout == "packed":            # projection output / cross-attention
+        return torch.arange(n).reshape(B, N, H * D).view(B, N, H, D)
+    if layout == "bh":                # heads outermost, [B·H, N, D] order
+        return torch.arange(n).reshape(B, H, N, D).transpose(1, 2)
+    # FLUX's single-block v: one slice of a [B, N, 3, H, D] projection
+    return torch.arange(3 * n).reshape(B, N, 3, H, D).unbind(2)[2]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("layout", ["packed", "bh", "qkv_slice"])
+def test_core_strides_address_the_same_elements(layout, B):
+    """The (batch, head, row) strides the tensor maps are built from
+    address exactly the elements torch indexing gives."""
+    t = _strided_operand(layout, B)
+    B_, N, H, D = t.shape
+    bs, hs, rs = tfa.core_strides(t)
+    seen = t.as_strided((B_, H, N, D), (bs, hs, rs, 1), t.storage_offset())
+    assert torch.equal(seen, t.permute(0, 2, 1, 3))
+    assert all(s % tfa.STRIDE_MULTIPLE == 0 for s in (bs, hs, rs))
+
+
+def test_core_strides_of_size_one_dimensions_are_legal():
+    """A dimension of size 1 is never stepped; its stride is replaced by
+    one TMA takes (torch may report any stride there)."""
+    t = torch.zeros(1, 1, 4, 8).as_strided((1, 1, 4, 8), (3, 5, 8, 1))
+    assert tfa.core_strides(t) == (tfa.STRIDE_MULTIPLE, 8, tfa.STRIDE_MULTIPLE)
+
+
+class _FakeLibrary:
+    """Stands in for the compiled library: records each C call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cdt_qkv_projection(self, *args):
+        self.calls.append(("projection", args))
+        return 0
+
+    def cdt_flash_attention(self, *args):
+        self.calls.append(("attention", args))
+        return 0
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """The CUDA path of the wrappers on CPU tensors, down to the C call."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(tfa, "_on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(tfa.KERNELS, "load", lambda: lib)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tfa.torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    return lib
+
+
+def test_fused_wrapper_projects_once_then_reads_packed_rows(fake_cuda):
+    """K1 is two launches: the GEMM writes [3, B, N, H·D], then the core
+    reads q, k and v from it with packed (batch, head, row) strides."""
+    B, N, C, H, D = 2, 100, 192, 3, 64
+    x = torch.zeros(B, N, C, dtype=torch.bfloat16)
+    w = torch.zeros(H * D, C, dtype=torch.bfloat16)
+    before = dict(tfa.LAUNCHES)
+    out = tfa.fused_qkv_attention(x, w, w.clone(), w.clone(), H)
+    assert out.shape == (B, N, H, D) and out.is_contiguous()
+    assert tfa.LAUNCHES["fused_qkv_attention"] == before["fused_qkv_attention"] + 1
+    (kind1, proj), (kind2, attn) = fake_cuda.calls
+    assert (kind1, kind2) == ("projection", "attention")
+    assert proj[0] == x.data_ptr() and proj[5:8] == (B * N, C, H * D)
+    qkv = proj[4]
+    step = B * N * H * D * 2                       # bytes per q/k/v buffer
+    assert attn[:3] == (qkv, qkv + step, qkv + 2 * step)
+    assert attn[3] == out.data_ptr()
+    assert attn[4:9] == (B, H, N, N, D)
+    packed = (N * H * D, D, H * D)
+    assert attn[9:21] == packed * 4
+    assert attn[21] == pytest.approx(D ** -0.5)
+
+
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+def test_core_wrapper_passes_operands_in_place(fake_cuda, layout):
+    """The core reads each operand where it lies: FLUX's single-block v
+    (a slice of the [B, N, 3, H, D] projection) is not copied."""
+    B, N, H, D = 2, 70, 3, 64
+    qkv = torch.zeros(B, N, 3, H, D, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out = tfa.flash_attention(q, k, v, layout=layout)
+    ((_, args),) = fake_cuda.calls
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[9:18] == (N * 3 * H * D, D, 3 * H * D) * 3
+    assert args[18:21] == (N * H * D, D, H * D)
+    assert out.shape == (B, N, H, D)
+    assert tfa.LAUNCHES[f"flash_attention_{layout}"] >= 1
+
+
+def test_core_wrapper_refuses_strides_tma_cannot_take(fake_cuda):
+    q = torch.zeros(1, 16, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_attention(q, q, q, layout="bh")
+    k = torch.zeros(1, 0, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at least one key"):
+        tfa.flash_attention(torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16),
+                            k, k, layout="bh")
+    assert fake_cuda.calls == []
 
 
 def test_fully_masked_rows_write_zero():
