@@ -9,23 +9,32 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``nvidia-smi`` name and power limit; no card → exit 2.
 2. build   — nvcc builds the attention kernels from
    ``comfyui_distributed_tpu_torch/ops/csrc`` into ``build/torch_kernels``
-   and prints ptxas's register / stack / spill report per kernel; a
-   spill fails the run.
+   and prints ptxas's register / stack / spill report per kernel and the
+   short-key kernel's dynamic shared memory per key tile; a spill, a
+   missing short-key instantiation, or a kernel that hands registers
+   over with ``setmaxnreg`` but does not hold 168 at entry fails the run.
 3. kernels — every attention kernel at its path's shapes, at ragged
-   shapes and at the core's tile edges (keys 1, 77, 128, 129; q rows 1,
-   64, 4173; D 64 and 128), and K1's projection GEMM alone, against
-   their plain PyTorch versions in bf16 (max-abs error ≤
-   1e-2·max|plain|); then CUDA-event times of the kernel, the plain
-   version and one PyTorch library call computing the same function (a
-   yardstick only: the port never calls it), beside the least time the
-   card could take. K1 is also timed as its two launches (projection,
-   core).
+   shapes, at the streamed core's tile edges (keys 1, 77, 128, 129; q
+   rows 1, 64, 4173; D 64 and 128) and at the short-key kernel's (keys
+   1, 16, 17, 77, 80, 128; q rows 1, 64, 128, 129, 4173; D 64 and 128;
+   B 1 and 2; one work item; an item count that is not a multiple of
+   the grid), and K1's projection GEMM alone, against their plain
+   PyTorch versions in bf16 (max-abs error ≤ 1e-2·max|plain|); each
+   compared attention call follows a call at the same shape on other
+   inputs, so a tile the kernel skipped shows stale numbers. Then
+   CUDA-event times of the kernel, the plain version and one PyTorch
+   library call computing the same function (a yardstick only: the
+   port never calls it), beside the least time the card could take, and
+   the host's enqueue time per call. K1 is also timed as its two
+   launches (projection, core), K2 also on the streamed core (the
+   kernel that takes more than 128 keys) at the same shapes.
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
    [1,1024,1024,3], finite, in [0,1], PNGs written, the repeated seed
-   bitwise equal, the other seed different, and each kernel's launch
-   counter rising by exactly the count one request needs.
+   bitwise equal, the other seed different, and each wrapper's launch
+   counter and each CUDA kernel's rising by exactly the count one
+   request needs.
 5. sdxl reference — the same UNet at a 512² latent, once through the
    kernels and once with its attention sites on the plain versions; the
    two eps predictions agree within 5e-2·max|plain|.
@@ -47,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,11 +106,42 @@ RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
 # the core's 128-row q / 128-key tiles: (B, Nq, Nk, H, D), both layouts
 EDGE_CORE = [(2, nq, nk, 2, d) for d in (64, 128) for nq in (1, 64, 4173)
              for nk in (1, 77, 128, 129)]
+# the short-key kernel (at most 128 keys): its key tiles' edges, q tiles
+# of 128 rows stored as two 64-row boxes; (B, Nq, Nk, H, D), both layouts
+SHORT_KV_EDGES = [(b, nq, nk, 2, d) for d in (64, 128) for b in (1, 2)
+                  for nq in (1, 64, 128, 129, 4173)
+                  for nk in (1, 16, 17, 77, 80, 128)]
+SHORT_KV_SCHEDULES = [
+    (1, 64, 77, 1, 64),       # one work item: fewer than the SMs
+    (1, 1000, 77, 37, 64),    # 296 items: 3 a CTA on 132 SMs, the last 2
+]
 # K1 at the text encoder's 77 rows with C = 192 (H·D = 192: a 128-column
 # projection tile half outside the weight)
 EDGE_FUSED = [(1, 77, 192, 3), (2, 200, 192, 3)]
 KERNEL_NAMES = ("fused_qkv_attention", "flash_attention_packed",
                 "flash_attention_bh")
+SHORT_KV_MAX_KEYS = 128      # the wrapper's threshold, checked in phase 2
+# the CUDA kernels behind each wrapper at the paths' shapes
+HOPPER_KERNELS = {
+    "fused_qkv_attention": ["qkv_projection_kernel", "flash_attention_kernel<64>",
+                            "short_kv_attention_kernel<64,80> (77 text tokens)"],
+    "flash_attention_packed": ["short_kv_attention_kernel<64,80>"],
+    "flash_attention_bh": ["flash_attention_kernel<128>"],
+}
+
+
+def cuda_counts(fused: list, cores: list) -> dict:
+    """Launches per CUDA kernel for (shape, launches) lists of K1 (B, N,
+    C, H) and of K2/K3 (B, Nq, Nk, H, D): K1 is the projection then an
+    attention launch over N keys; an attention launch over at most 128
+    keys takes the short-key kernel, over more the streamed core."""
+    counts = {"qkv_projection": sum(n for _, n in fused),
+              "flash_attention_core": 0, "short_kv_attention": 0}
+    for nk, n in [(s[1], n) for s, n in fused] + [(s[2], n) for s, n in cores]:
+        kernel = ("short_kv_attention" if nk <= SHORT_KV_MAX_KEYS
+                  else "flash_attention_core")
+        counts[kernel] += n
+    return counts
 
 
 class PathSpec(NamedTuple):
@@ -115,6 +156,7 @@ class PathSpec(NamedTuple):
     png: str
     seeds: tuple
     expected: dict
+    expected_cuda: dict
 
 
 SDXL_PATH = PathSpec(
@@ -122,12 +164,16 @@ SDXL_PATH = PathSpec(
     "txt2img_00000.png", (7, 8, 7),
     {"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES),       # 2108
      "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),   # 2100
-     "flash_attention_bh": 0})
+     "flash_attention_bh": 0},
+    # projection 2108, streamed core 2100, short-key 2108
+    cuda_counts(FUSED_SHAPES, PACKED_SHAPES))
 FLUX_PATH = PathSpec(
     "flux", "flux-txt2img.json", FLUX_STEPS, "3", "4", "5",
     "flux_00000.png", (1234, 1235, 1234),
     {"fused_qkv_attention": 4, "flash_attention_packed": 0,
-     "flash_attention_bh": sum(n for _, n in BH_SHAPES)})          # 1596
+     "flash_attention_bh": sum(n for _, n in BH_SHAPES)},          # 1596
+    # projection 4, streamed core 1596, short-key 4
+    cuda_counts([(FUSED_SHAPES[2][0], 4)], BH_SHAPES))
 
 
 class SmokeFailure(RuntimeError):
@@ -163,12 +209,28 @@ def device_phase(torch) -> dict:
 # --- phase 2 -----------------------------------------------------------------
 
 
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Registers per compiled entry function (mangled name) in ptxas's
+    ``-v`` report."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs[entry] = int(m.group(1))
+    return regs
+
+
 def build_phase(fa) -> None:
     t0 = time.perf_counter()
     fa.KERNELS.load()
     say(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {fa.KERNELS.build_seconds:.2f} s)")
-    log = fa.KERNELS.build_log
+    # an existing build was loaded: its report lies beside it
+    log = (fa.KERNELS.build_log
+           or fa.KERNELS.path().with_suffix(".log").read_text())
     for line in log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "smem", "warning")):
@@ -177,6 +239,23 @@ def build_phase(fa) -> None:
               if "spill" in line and not line.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
     require(not spills, f"ptxas reports spills: {spills}")
+    require(fa.SHORT_KV_MAX_KEYS == SHORT_KV_MAX_KEYS,
+            f"the wrapper's short-key threshold is {fa.SHORT_KV_MAX_KEYS}")
+    regs = ptxas_registers(log)
+    short = {e: n for e, n in regs.items() if "short_kv_attention_kernel" in e}
+    require(len(short) == 2 * len(fa.SHORT_KV_TILES),
+            f"ptxas compiled {len(short)} short-key kernels, expected "
+            f"{2 * len(fa.SHORT_KV_TILES)} (D 64 and 128 by each key tile)")
+    # setmaxnreg moves registers within the block's allocation: 24 for the
+    # producer and 232 for each consumer thread need 168 at entry
+    handing = {e: n for e, n in regs.items() if "attention_kernel" in e}
+    require(all(n == 168 for n in handing.values()),
+            f"attention kernels not at 168 registers at entry: {handing}")
+    for d in fa.HEAD_DIMS:
+        for kw in fa.SHORT_KV_TILES:
+            smem, stages = fa.KERNELS.short_kv_layout(d, kw)
+            say(f"  short_kv_attention_kernel<{d},{kw}>: {smem} B dynamic "
+                f"shared memory, {stages} Q stages")
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -209,6 +288,24 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def enqueue_us(torch, fn, iters: int = 50) -> float:
+    """Mean host microseconds to enqueue one call: the calls are made
+    while the card is held in a spin, so none waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(max(1e-3, 4.0 * one_s * iters) * SPIN_CLOCK_HZ))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e6
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -246,6 +343,8 @@ def compare(torch, name: str, out, ref) -> float:
 
 
 def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
+    from unittest import mock
+
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -282,12 +381,16 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                       fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
     core_cases = ([s for s, _ in PACKED_SHAPES + BH_SHAPES] + RAGGED_CORE
-                  + EDGE_CORE)
+                  + EDGE_CORE + SHORT_KV_EDGES + SHORT_KV_SCHEDULES)
     for shape in core_cases:
         q, k, v = core_inputs(*shape)
         ref = fa.flash_attention_plain(q, k, v)
         for layout in ("packed", "bh"):
             key = f"flash_attention_{layout}"
+            # a call on other inputs first: the compared call's output
+            # likely reuses a block it freed, so a skipped tile holds
+            # numbers of another attention
+            fa.flash_attention(*core_inputs(*shape), layout=layout)
             err = compare(torch, f"{key} {shape}",
                           fa.flash_attention(q, k, v, layout=layout), ref)
             errs[key] = max(errs[key], err)
@@ -301,13 +404,15 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
         lib_ms = cuda_ms(torch, library)
+        host_us = enqueue_us(torch, run)
         b, by = bound_ms(*work)
         say(f"  {kernel} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, "
             f"library {lib_ms:.4f}, bound {b:.4f} by {by}; "
-            f"{b / ms:.1%} of bound); {launches} launches/request")
+            f"{b / ms:.1%} of bound; {ms / lib_ms:.2f}x library); host "
+            f"{host_us:.1f} us to enqueue; {launches} launches/request")
         rows.append({"kernel": kernel, "shape": shape, "launches": launches,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": b, "bound_by": by,
+                     "bound_ms": b, "bound_by": by, "enqueue_us": host_us,
                      "flops": work[0], "bytes": work[1], **extra})
 
     for shape, n in FUSED_SHAPES:
@@ -324,12 +429,16 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         proj_ms = cuda_ms(torch, lambda: fa.qkv_projection(x, wq, wk, wv))
         core_ms = cuda_ms(
             torch, lambda: fa.flash_attention(q, k, v, layout="packed"))
+        proj_us = enqueue_us(torch, lambda: fa.qkv_projection(x, wq, wk, wv))
+        core_us = enqueue_us(
+            torch, lambda: fa.flash_attention(q, k, v, layout="packed"))
         pb, pby = bound_ms(2 * 3 * B * N * C * H * 64,
                            2 * (B * N * C + 3 * H * 64 * C + 3 * B * N * H * 64))
         cb, cby = bound_ms(*core_work(B, N, N, H, 64))
         say(f"  fused_qkv_attention {shape} split: projection {proj_ms:.4f} "
-            f"ms (bound {pb:.4f} by {pby}; {pb / proj_ms:.1%}), core "
-            f"{core_ms:.4f} ms (bound {cb:.4f} by {cby}; {cb / core_ms:.1%})")
+            f"ms (bound {pb:.4f} by {pby}; {pb / proj_ms:.1%}; host "
+            f"{proj_us:.1f} us), core {core_ms:.4f} ms (bound {cb:.4f} by "
+            f"{cby}; {cb / core_ms:.1%}; host {core_us:.1f} us)")
         time_row("fused_qkv_attention", shape, n, fused_work(*shape),
                  lambda: fa.fused_qkv_attention(x, wq, wk, wv, H),
                  lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, H),
@@ -337,10 +446,18 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     for layout, shapes in (("packed", PACKED_SHAPES), ("bh", BH_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
+            extra = {}
+            if shape[2] <= fa.SHORT_KV_MAX_KEYS:
+                # the streamed core (the kernel past 128 keys) at this shape
+                with mock.patch.object(fa, "SHORT_KV_MAX_KEYS", 0):
+                    extra["streamed_core_ms"] = cuda_ms(
+                        torch, lambda: fa.flash_attention(q, k, v, layout=layout))
+                say(f"  {layout} {shape} on the streamed core: "
+                    f"{extra['streamed_core_ms']:.4f} ms")
             time_row(f"flash_attention_{layout}", shape, n, core_work(*shape),
                      lambda: fa.flash_attention(q, k, v, layout=layout),
                      lambda: fa.flash_attention_plain(q, k, v),
-                     lambda: sdpa(q, k, v))
+                     lambda: sdpa(q, k, v), **extra)
     return rows, errs
 
 
@@ -358,11 +475,15 @@ def kernel_table(rows: list[dict], errs: dict,
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
+        n = sum(r["launches"] for r in mine)
         split = {}
         if name == "fused_qkv_attention":
             split = {"split_ms": {
                 part: sum(r[f"{part}_ms"] * r["launches"] for r in mine)
                 for part in ("projection", "core")}}
+        if all("streamed_core_ms" in r for r in mine):
+            split = {"streamed_core_ms": sum(
+                r["streamed_core_ms"] * r["launches"] for r in mine)}
         out.append({
             "name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": replaces[name],
@@ -372,6 +493,8 @@ def kernel_table(rows: list[dict], errs: dict,
             "library_ms": tot["library_ms"],
             "per": ("one flux request" if name == "flash_attention_bh"
                     else "one sdxl request"),
+            "hopper_kernels": HOPPER_KERNELS[name],
+            "enqueue_us": sum(r["enqueue_us"] * r["launches"] for r in mine) / n,
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
             **split,
         })
@@ -413,25 +536,28 @@ def path_phase(torch, fa, spec: PathSpec):
     executor = GraphExecutor({"model_registry": registry,
                               "output_dir": str(OUTPUT_DIR)})
     png = OUTPUT_DIR / spec.png
-    images, counts = [], []
+    images, counts, kernel_counts = [], [], []
     fa.reset_launches()
     for seed in spec.seeds:
         prompt = json.loads(json.dumps(workflow))
         prompt[spec.seed_node]["inputs"]["seed"] = seed
         png.unlink(missing_ok=True)
         before = dict(fa.LAUNCHES)
+        cuda_before = dict(fa.CUDA_LAUNCHES)
         t0 = time.perf_counter()
         out = executor.execute(prompt)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts.append({k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES})
+        kernel_counts.append({k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                            for k in fa.CUDA_LAUNCHES})
         img = out[spec.image_node][0]
         timings = dict(bundle.pipeline.timings)
         say(f"  request seed {seed}: {secs:.3f} s; sampling "
             f"{timings['sample_s']:.3f} s = "
             f"{timings['sample_s'] / timings['steps']:.4f} s/step over "
             f"{timings['steps']} steps; decode {timings['decode_s']:.3f} s; "
-            f"launches {counts[-1]}")
+            f"launches {counts[-1]}; CUDA kernels {kernel_counts[-1]}")
         require(tuple(img.shape) == (1, *hw, 3),
                 f"image shape {tuple(img.shape)}")
         require(bool(torch.isfinite(img).all()), "non-finite image")
@@ -443,10 +569,13 @@ def path_phase(torch, fa, spec: PathSpec):
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     say(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
-    for i, c in enumerate(counts):
+    for i, (c, cc) in enumerate(zip(counts, kernel_counts)):
         require(c == spec.expected,
                 f"{spec.name} request {i}: launches {c} != expected "
                 f"{spec.expected}")
+        require(cc == spec.expected_cuda,
+                f"{spec.name} request {i}: CUDA kernel launches {cc} != "
+                f"expected {spec.expected_cuda}")
     a, b, _ = spec.seeds
     require(torch.equal(images[0], images[2]),
             f"seed {a} twice gave different images")

@@ -2,14 +2,14 @@
 loader that builds them.
 
 Counterpart of ``comfyui_distributed_tpu/ops/flash_attention.py``. The
-three Pallas kernels there map onto two CUDA kernels in
-``csrc/flash_attention.cu`` (TMA loads through an mbarrier ring, ``wgmma``
+three Pallas kernels there map onto three CUDA kernels in
+``csrc/flash_attention.cu`` (TMA loads through mbarrier rings, ``wgmma``
 products, warp-specialised producer and consumers):
 
 - ``fused_qkv_attention`` (``_flash_kernel_fused``): self-attention from
   the block input ``x`` and the three projection weights, as two launches:
   the projection GEMM writes q/k/v once as ``[B, N, H·D]`` bf16 buffers,
-  then the attention core reads them in place. The TPU kernel projected
+  then an attention kernel reads them in place. The TPU kernel projected
   each head's K/V again for every q block, which bought it a way around
   XLA's custom-call boundary; eager PyTorch on the card has no such
   boundary, and the recompute was 4.4× the work the function needs. q/k/v
@@ -17,22 +17,32 @@ products, warp-specialised producer and consumers):
   holds between the two launches.
 - ``flash_attention(layout="packed")`` (``_flash_kernel_packed``):
   attention over q/k/v in the projection's own ``[B, N, H·D]`` layout
-  (SDXL's cross-attention).
-- ``flash_attention(layout="bh")`` (``_flash_kernel``): the same core with
+  (SDXL's cross-attention over 77 text tokens).
+- ``flash_attention(layout="bh")`` (``_flash_kernel``): the same with
   each (batch, head) pair addressed through its own strides, so any
   ``[B, N, H, D]`` view with unit stride along D is read in place (FLUX's
   joint attention, whose H·D = 3072 the packed layout does not take;
   ``ops/attention.py`` chooses).
 
-The core is bound by tensor-core operations at self-attention lengths and
-by bytes over 77 keys; the projection by operations. Both run at the
-shapes of the main paths; ``PERF.md`` holds their times against the bound.
+Every attention launch goes by key count, whatever the layout or the
+caller: at most ``SHORT_KV_MAX_KEYS`` (128) keys take the short-key
+kernel, more the streamed core. Attention over 77 keys is bound by bytes
+(reading q, writing out) and, at these sizes, by latency: the short-key
+kernel is persistent, keeps each head's K/V resident in shared memory
+while it streams that head's q tiles, sizes its key tile to the keys (80
+for 77), takes a one-pass softmax and writes its output through TMA
+stores that overlap the next tile. The streamed core (K/V tiles of 128
+keys, online softmax) is bound by tensor-core operations at
+self-attention lengths, the projection GEMM by operations. ``PERF.md``
+holds their times against the bound at the shapes of the main paths.
 
 Each wrapper runs its kernel's plain version for a tensor on the CPU and
 launches the kernel for a tensor on a CUDA device; anything else raises.
 There is no fallback from a CUDA tensor to the plain version. Weights use
 the ``nn.Linear`` layout ``[H·D, C]`` (the transpose of the JAX
 function's ``[C, H·D]``); activations keep the JAX layouts.
+``LAUNCHES`` counts launches per wrapper (one per TPU kernel),
+``CUDA_LAUNCHES`` per CUDA kernel.
 
 The library is compiled with ``nvcc`` at first use into
 ``build/torch_kernels/`` at the repository root and loaded with ctypes.
@@ -55,6 +65,8 @@ import torch
 NEG_INF = -1e30      # large-but-finite: -inf breaks the running max
 BLOCK_Q = 128        # q rows per CTA of the core
 BLOCK_K = 128        # keys per K/V tile of the core
+SHORT_KV_MAX_KEYS = 128          # at most this many keys: the short-key kernel
+SHORT_KV_TILES = (80, 128)       # its key tiles (80 holds 77 text tokens)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -63,15 +75,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HEAD_DIMS = (64, 128)
 STRIDE_MULTIPLE = 8  # elements: TMA takes strides in multiples of 16 bytes
 
-# launches per wrapper, counted where each kernel is launched
-# (fused_qkv_attention counts once per call: projection and core together)
+# launches per wrapper (one per TPU kernel it replaces), counted where each
+# kernel is launched (fused_qkv_attention counts once per call: projection
+# and core together)
 LAUNCHES = {"fused_qkv_attention": 0, "flash_attention_packed": 0,
             "flash_attention_bh": 0}
+# launches per CUDA kernel of csrc/flash_attention.cu, counted where each
+# is launched: which kernel each wrapper call took
+CUDA_LAUNCHES = {"qkv_projection": 0, "flash_attention_core": 0,
+                 "short_kv_attention": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CUDA_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -147,9 +165,13 @@ class KernelLibrary:
                 lib = ctypes.CDLL(str(self.build()))
                 p, i, ll, f = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_float)
-                lib.cdt_flash_attention.argtypes = [
-                    p, p, p, p, i, i, i, i, i, *([ll] * 12), f, p]
-                lib.cdt_flash_attention.restype = i
+                for attention in (lib.cdt_flash_attention,
+                                  lib.cdt_short_kv_attention):
+                    attention.argtypes = [p, p, p, p, i, i, i, i, i,
+                                          *([ll] * 12), f, p]
+                    attention.restype = i
+                lib.cdt_short_kv_layout.argtypes = [i, i, p]
+                lib.cdt_short_kv_layout.restype = i
                 lib.cdt_qkv_projection.argtypes = [
                     p, p, p, p, p, i, i, i, p]
                 lib.cdt_qkv_projection.restype = i
@@ -157,6 +179,14 @@ class KernelLibrary:
                 lib.cdt_error_string.restype = ctypes.c_char_p
                 self._lib = lib
             return self._lib
+
+    def short_kv_layout(self, head_dim: int, nk: int) -> tuple[int, int]:
+        """The short-key kernel that ``nk`` keys select at ``head_dim``:
+        its dynamic shared memory in bytes and its number of Q stages."""
+        stages = ctypes.c_int()
+        smem = self.load().cdt_short_kv_layout(head_dim, nk,
+                                               ctypes.byref(stages))
+        return smem, stages.value
 
     def check(self, code: int, what: str) -> None:
         if code != 0:
@@ -240,6 +270,38 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def short_kv_tile(nk: int) -> int:
+    """The short-key kernel's key tile for ``nk`` keys."""
+    for width in SHORT_KV_TILES:
+        if 1 <= nk <= width:
+            return width
+    raise ValueError(f"the short-key kernel takes 1 to {SHORT_KV_MAX_KEYS} "
+                     f"keys, got {nk}")
+
+
+def short_kv_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """The short-key kernel's schedule in plain ops over ``[B·H, N, D]``:
+    keys zero-padded to its key tile (``short_kv_tile``), keys at or past
+    ``Nk`` set to NEG_INF, a one-pass softmax in fp32 (row max,
+    exponentials, sum: no running statistics), probabilities rounded to
+    the operand dtype before P·V, rows with a zero denominator written as
+    0."""
+    D = q.shape[-1]
+    Nk = k.shape[1]
+    pad = short_kv_tile(Nk) - Nk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad)).float()
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    s = torch.matmul(q.float(), kp.transpose(1, 2)) * D ** -0.5
+    keys = torch.arange(s.shape[-1], device=q.device)
+    s = s.masked_fill(keys >= Nk, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), vp.float())
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).to(q.dtype)
+
+
 def fused_qkv_attention_emulated(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  num_heads: int, block_q: int = BLOCK_Q,
@@ -292,11 +354,9 @@ def core_strides(t: torch.Tensor) -> tuple[int, int, int]:
     (D has unit stride). A dimension of size 1 is never stepped, so its
     stride is replaced by ``STRIDE_MULTIPLE``, which TMA always takes."""
     B, N, H, _ = t.shape
-
-    def stride(dim: int, size: int) -> int:
-        return t.stride(dim) if size > 1 else STRIDE_MULTIPLE
-
-    return stride(0, B), stride(2, H), stride(1, N)
+    bs, rs, hs, _ = t.stride()
+    return (bs if B > 1 else STRIDE_MULTIPLE, hs if H > 1 else STRIDE_MULTIPLE,
+            rs if N > 1 else STRIDE_MULTIPLE)
 
 
 def _check_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -328,13 +388,16 @@ def _launch_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
             x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
             out.data_ptr(), B * N, C, HD, _stream(x))
     KERNELS.check(rc, "qkv_projection")
+    CUDA_LAUNCHES["qkv_projection"] += 1
     return out
 
 
 def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  what: str) -> torch.Tensor:
-    """The attention core over ``[B, N, H, D]`` views with unit stride
-    along D; returns ``[B, Nq, H, D]`` (contiguous)."""
+    """Attention over ``[B, N, H, D]`` views with unit stride along D;
+    returns ``[B, Nq, H, D]`` (contiguous). At most ``SHORT_KV_MAX_KEYS``
+    keys take the short-key kernel (K/V resident, q tiles streamed), more
+    the streamed core; both read the same strides."""
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
     if Nk == 0:
@@ -344,17 +407,20 @@ def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_kernel_operand(name, t)
         s = core_strides(t)
-        if t.stride(3) != 1 or any(x % STRIDE_MULTIPLE for x in s):
+        if (t.stride(3) != 1 or s[0] % STRIDE_MULTIPLE or s[1] % STRIDE_MULTIPLE
+                or s[2] % STRIDE_MULTIPLE):
             raise ValueError(
                 f"{name}: rows must be contiguous with strides a multiple of "
                 f"{STRIDE_MULTIPLE} elements; got strides {t.stride()}")
         strides += s
     lib = KERNELS.load()
+    short = Nk <= SHORT_KV_MAX_KEYS
+    entry = lib.cdt_short_kv_attention if short else lib.cdt_flash_attention
     with torch.cuda.device(q.device):
-        rc = lib.cdt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Nq, Nk, D, *strides, D ** -0.5, _stream(q))
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   B, H, Nq, Nk, D, *strides, D ** -0.5, _stream(q))
     KERNELS.check(rc, what)
+    CUDA_LAUNCHES["short_kv_attention" if short else "flash_attention_core"] += 1
     return out
 
 
@@ -362,8 +428,8 @@ def qkv_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                    wv: torch.Tensor) -> torch.Tensor:
     """``x`` ``[B, N, C]`` times each bias-free ``[H·D, C]`` weight:
     ``[3, B, N, H·D]``, fp32 accumulation rounded to the operand dtype.
-    The first launch of ``fused_qkv_attention`` (which counts it); a
-    direct call is not counted."""
+    The first launch of ``fused_qkv_attention`` (which counts it in
+    ``LAUNCHES``); a direct call counts in ``CUDA_LAUNCHES`` only."""
     _check_projection(x, wq, wk, wv)
     if not _on_cuda(x, wq, wk, wv):
         return qkv_projection_plain(x, wq, wk, wv)

@@ -17,8 +17,10 @@ slows the host enough to starve the card) and prints, per forward:
   in a synchronise);
 - device busy seconds (the union of kernel intervals in the trace) and
   the device's idle share of the untraced wall time;
-- device seconds by kernel class: the attention core (FLUX: every joint
-  attention, K3; SDXL: K1's second launch and K2), K1's projection GEMM,
+- device seconds by kernel class: the streamed attention core (FLUX:
+  every joint attention, K3; SDXL: K1's second launch), the short-key
+  attention kernel (SDXL: K2; both: the text encoder's K1 core), K1's
+  projection GEMM,
   convolutions (cuDNN), other matrix products (cuBLAS / CUTLASS
   kernels), and everything else (norms, modulation, RoPE, GELU, copies);
 - the kernels with the most device time.
@@ -42,8 +44,10 @@ CONV_MARKS = ("fprop", "dgrad", "wgrad", "conv", "Conv")
 
 
 def kernel_class(name: str) -> str:
+    if "short_kv_attention_kernel" in name:
+        return "short-key attention (K2, text-encoder K1 core)"
     if "flash_attention_kernel" in name:
-        return "attention core (K1 second launch, K2, K3)"
+        return "streamed attention core (K1 second launch, K3)"
     if "qkv_projection_kernel" in name:
         return "K1 projection GEMM"
     if any(m in name for m in CONV_MARKS):

@@ -84,6 +84,57 @@ def test_flash_kernel_at_tile_edges(cuda_device, layout, Nk, Nq, D):
            tfa.flash_attention_plain(q, k, v))
 
 
+def _poisoned_then_compared(layout, B, Nq, Nk, H, D, seed):
+    """Run the kernel once at the shape on other inputs and drop the
+    result, so that the compared call's ``torch.empty`` output reuses that
+    block: a tile the schedule skipped then holds stale numbers."""
+    q = _bf16(seed, B, Nq, H, D)
+    k = _bf16(seed + 1, B, Nk, H, D)
+    v = _bf16(seed + 2, B, Nk, H, D)
+    poison = (_bf16(seed + 3, B, Nq, H, D, scale=4.0),
+              _bf16(seed + 4, B, Nk, H, D), _bf16(seed + 5, B, Nk, H, D, scale=8.0))
+    tfa.flash_attention(*poison, layout=layout)
+    _close(tfa.flash_attention(q, k, v, layout=layout),
+           tfa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Nq", [1, 64, 128, 129, 4173])
+@pytest.mark.parametrize("Nk", [1, 16, 17, 77, 80, 128])
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+def test_short_kv_kernel_at_its_edges(cuda_device, layout, Nk, Nq, D, B):
+    """The short-key kernel's key tiles (80, 128) at their edges, q
+    tiles of 128 rows stored as two 64-row boxes, both layouts, one and
+    two batches; each compared call follows a poisoning call."""
+    before = tfa.CUDA_LAUNCHES["short_kv_attention"]
+    _poisoned_then_compared(layout, B, Nq, Nk, 2, D, seed=30)
+    assert tfa.CUDA_LAUNCHES["short_kv_attention"] == before + 2
+
+
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+@pytest.mark.parametrize("B,Nq,Nk,H,D", [
+    (1, 64, 77, 1, 64),        # one work item: fewer than the SMs
+    (1, 1000, 77, 37, 64),     # 296 items: 3 a CTA on 132 SMs, the last 2
+    (2, 4096, 77, 10, 64),     # SDXL cross-attention, level 2
+    (2, 1024, 77, 20, 64),     # SDXL cross-attention, level 3
+])
+def test_short_kv_kernel_schedules(cuda_device, layout, B, Nq, Nk, H, D):
+    _poisoned_then_compared(layout, B, Nq, Nk, H, D, seed=40)
+
+
+def test_key_count_picks_the_cuda_kernel(cuda_device):
+    q = _bf16(50, 1, 200, 2, 64)
+    for nk, kernel in ((128, "short_kv_attention"), (129, "flash_attention_core")):
+        k = _bf16(51, 1, nk, 2, 64)
+        tfa.reset_launches()
+        _close(tfa.flash_attention(q, k, k, layout="bh"),
+               tfa.flash_attention_plain(q, k, k))
+        assert tfa.CUDA_LAUNCHES == {"qkv_projection": 0,
+                                     "flash_attention_core": 0,
+                                     "short_kv_attention": 0, kernel: 1}
+
+
 def test_flash_kernel_reads_strided_heads_in_place(cuda_device):
     """FLUX's single-block v is a slice of the [B, N, 3, H, D] projection:
     the one-head kernel reads it with its own row stride."""
@@ -149,6 +200,32 @@ def test_unet_attention_sites_take_the_kernels(cuda_device):
                                   tfa.flash_attention_plain):
             ref = unet(x, t, ctx, y)
     _close(eps, ref, tol=5e-2)
+
+
+def test_unet_forward_takes_each_cuda_kernel(cuda_device):
+    """One forward of a small UNet whose attention level holds 256 tokens:
+    each self-attention site launches the projection and the streamed core
+    (256 keys), each cross-attention site the short-key kernel (77)."""
+    cfg = UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                     transformer_depth=(0, 1), context_dim=64, head_dim=64,
+                     adm_in_channels=8)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    with torch.device("meta"):
+        unet = UNet2D(cfg)
+    unet = flax_init_(unet.to_empty(device=cuda_device), gen).eval()
+    x = torch.randn(2, 32, 32, 4, generator=gen, device=cuda_device)
+    t = torch.tensor([10.0, 500.0], device=cuda_device)
+    ctx = torch.randn(2, 77, 64, generator=gen, device=cuda_device)
+    y = torch.randn(2, 8, generator=gen, device=cuda_device)
+    sites = sum(1 for n, _ in unet.named_modules() if n.endswith("attn1"))
+    tfa.reset_launches()
+    with torch.no_grad():
+        eps = unet(x, t, ctx, y)
+    torch.cuda.synchronize()
+    assert torch.isfinite(eps).all()
+    assert tfa.CUDA_LAUNCHES == {"qkv_projection": sites,
+                                 "flash_attention_core": sites,
+                                 "short_kv_attention": sites}
 
 
 def test_dit_attention_sites_take_the_one_head_kernel(cuda_device):

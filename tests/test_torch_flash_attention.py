@@ -46,6 +46,7 @@ def _t(a):
     (1, 100, 77, 2, 64),       # ragged q, cross-attention context length
     (2, 64, 77, 1, 128),       # FLUX head width
     (1, 130, 300, 2, 64),      # K spans several kernel tiles
+    (2, 100, 128, 2, 64),      # the short-key kernel's widest key tile
 ])
 def test_flash_attention_matches_pallas(layout, B, Nq, Nk, H, D):
     q, k, v = _qkv(0, B, Nq, Nk, H, D)
@@ -100,6 +101,42 @@ def test_fused_emulation_matches_jax_emulation():
         out = tfa.fused_qkv_attention_emulated(_t(x), _t(wq.T), _t(wk.T),
                                                _t(wv.T), 2, 64, block_k)
         np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("nk", [1, 17, 77, 128])
+def test_short_kv_emulation_matches_jax_emulation(nk):
+    """The short-key kernel's one-tile schedule (keys padded to its key
+    tile, NEG_INF masks, one-pass softmax) against the JAX
+    ``_flash_emulated`` with one K block holding every key."""
+    q, k, v = _qkv(8, 2, 130, nk, 2, 64)
+
+    def to_bh(a):
+        return a.transpose(0, 2, 1, 3).reshape(4, a.shape[1], 64)
+
+    ref = np.asarray(jfa._flash_emulated(
+        jnp.asarray(to_bh(q)), jnp.asarray(to_bh(k)), jnp.asarray(to_bh(v)),
+        block_q=64, block_k=tfa.short_kv_tile(nk)))
+    out = tfa.short_kv_attention_emulated(_t(to_bh(q)), _t(to_bh(k)),
+                                          _t(to_bh(v)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_short_kv_emulation_rounds_p_to_the_operand_dtype():
+    """In bf16 the probabilities are rounded before P·V, as the streamed
+    schedule rounds them: one tile of 77 keys gives the same numbers."""
+    q, k, v = (_t(a[0].transpose(1, 0, 2)).to(torch.bfloat16)
+               for a in _qkv(9, 1, 70, 77, 2, 64))
+    assert torch.equal(tfa.short_kv_attention_emulated(q, k, v),
+                       tfa.flash_attention_emulated(q, k, v))
+
+
+def test_short_kv_tiles():
+    assert [tfa.short_kv_tile(n) for n in (1, 16, 17, 77, 80, 81,
+                                           128)] == [80] * 5 + [128] * 2
+    assert tfa.SHORT_KV_TILES[-1] == tfa.SHORT_KV_MAX_KEYS == tfa.BLOCK_K
+    for nk in (0, 129):
+        with pytest.raises(ValueError, match="1 to 128 keys"):
+            tfa.short_kv_tile(nk)
 
 
 def test_emulation_defaults_follow_the_kernel_tiles():
@@ -190,6 +227,10 @@ class _FakeLibrary:
         self.calls.append(("attention", args))
         return 0
 
+    def cdt_short_kv_attention(self, *args):
+        self.calls.append(("short_kv", args))
+        return 0
+
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
@@ -214,7 +255,8 @@ def test_fused_wrapper_projects_once_then_reads_packed_rows(fake_cuda):
     assert out.shape == (B, N, H, D) and out.is_contiguous()
     assert tfa.LAUNCHES["fused_qkv_attention"] == before["fused_qkv_attention"] + 1
     (kind1, proj), (kind2, attn) = fake_cuda.calls
-    assert (kind1, kind2) == ("projection", "attention")
+    # 100 keys: the core launch takes the short-key kernel
+    assert (kind1, kind2) == ("projection", "short_kv")
     assert proj[0] == x.data_ptr() and proj[5:8] == (B * N, C, H * D)
     qkv = proj[4]
     step = B * N * H * D * 2                       # bytes per q/k/v buffer
@@ -240,6 +282,47 @@ def test_core_wrapper_passes_operands_in_place(fake_cuda, layout):
     assert args[18:21] == (N * H * D, D, H * D)
     assert out.shape == (B, N, H, D)
     assert tfa.LAUNCHES[f"flash_attention_{layout}"] >= 1
+
+
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+@pytest.mark.parametrize("nk,entry", [(1, "short_kv"), (77, "short_kv"),
+                                      (128, "short_kv"), (129, "attention")])
+def test_core_wrapper_chooses_the_kernel_by_key_count(fake_cuda, layout, nk,
+                                                      entry):
+    """At most 128 keys take the short-key kernel, more the streamed core,
+    in either layout, with the same arguments: operands in place, their
+    (batch, head, row) strides, the 1/√D scale. Each launch counts once
+    for its wrapper and once for the CUDA kernel it took."""
+    B, Nq, H, D = 2, 70, 3, 64
+    q = torch.zeros(B, Nq, H, D, dtype=torch.bfloat16)
+    kv = torch.zeros(B, nk, 2, H, D, dtype=torch.bfloat16)
+    k, v = kv.unbind(2)
+    before = dict(tfa.LAUNCHES)
+    cuda_before = dict(tfa.CUDA_LAUNCHES)
+    out = tfa.flash_attention(q, k, v, layout=layout)
+    ((kind, args),) = fake_cuda.calls
+    assert kind == entry
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[4:9] == (B, H, Nq, nk, D)
+    assert args[9:12] == (Nq * H * D, D, H * D)
+    row = 2 * H * D if nk > 1 else tfa.STRIDE_MULTIPLE   # never stepped
+    assert args[12:18] == (nk * 2 * H * D, D, row) * 2
+    assert args[18:21] == (Nq * H * D, D, H * D)
+    assert args[21] == pytest.approx(D ** -0.5)
+    key = f"flash_attention_{layout}"
+    assert tfa.LAUNCHES[key] == before[key] + 1
+    cuda = "short_kv_attention" if entry == "short_kv" else "flash_attention_core"
+    assert tfa.CUDA_LAUNCHES == {**cuda_before, cuda: cuda_before[cuda] + 1}
+
+
+def test_reset_launches_clears_both_counters(fake_cuda):
+    x = torch.zeros(1, 200, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    tfa.fused_qkv_attention(x, w, w, w, 1)
+    assert tfa.CUDA_LAUNCHES["qkv_projection"] >= 1
+    assert tfa.CUDA_LAUNCHES["flash_attention_core"] >= 1
+    tfa.reset_launches()
+    assert set(tfa.LAUNCHES.values()) == set(tfa.CUDA_LAUNCHES.values()) == {0}
 
 
 def test_core_wrapper_refuses_strides_tma_cannot_take(fake_cuda):
