@@ -38,11 +38,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 5. sdxl reference — the same UNet at a 512² latent, once through the
    kernels and once with its attention sites on the plain versions; the
    two eps predictions agree within 5e-2·max|plain|.
-6. flux path — the FLUX preset at full width (11.9 B parameters, random
+6. serve — the SDXL workflow served through the HTTP control plane: a
+   worker controller started as ``python -m comfyui_distributed_tpu_torch
+   serve`` (a subprocess, on the card) and a master ``Controller`` in this
+   process (its own event-loop thread, the sdxl path's registry) answer
+   two ``POST /distributed/queue`` requests (seed 7), each polled on
+   ``/distributed/history`` until final: one worker dispatched, success,
+   two 1024² PNGs from the master's ``SaveImage``, PNG 0 bitwise equal to
+   the sdxl path's seed-7 image and PNG 1 within one level of its seed-8
+   image (the worker's seed is 7 + index 0 + 1), and the master's launch
+   counters rising by exactly one request's. Prints seconds per served
+   request beside the direct request's, and the frame bytes the worker's
+   image put on the wire. Once the master has shut down and the sdxl
+   path's record is dropped, the SDXL bundle must be freed without the
+   cycle collector: the card's allocated memory falls back to within
+   1 GiB of what it was before the sdxl path.
+7. flux path — the FLUX preset at full width (11.9 B parameters, random
    weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
    three requests (seed 1234, 1235, 1234) with the same checks; every
    joint-attention site takes the one-head kernel.
-7. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+8. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
@@ -510,10 +525,19 @@ def png_size(path: Path) -> tuple[int, int]:
     return (int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big"))
 
 
-def path_phase(torch, fa, spec: PathSpec):
+class PathRun(NamedTuple):
+    """What a path phase leaves for the phases after it."""
+    registry: object
+    bundle: object
+    launches: dict          # per wrapper, over the path's run
+    timings: dict           # the pipeline's, of the last request
+    images: dict            # seed → image of its first request
+    seconds: list           # per request, in order
+
+
+def path_phase(torch, fa, spec: PathSpec) -> PathRun:
     """Build the workflow's preset at full width on the card and run the
-    workflow as three requests; returns (bundle, launches in the run,
-    timings of the last request)."""
+    workflow as three requests."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
@@ -536,7 +560,7 @@ def path_phase(torch, fa, spec: PathSpec):
     executor = GraphExecutor({"model_registry": registry,
                               "output_dir": str(OUTPUT_DIR)})
     png = OUTPUT_DIR / spec.png
-    images, counts, kernel_counts = [], [], []
+    images, counts, kernel_counts, seconds = [], [], [], []
     fa.reset_launches()
     for seed in spec.seeds:
         prompt = json.loads(json.dumps(workflow))
@@ -548,6 +572,7 @@ def path_phase(torch, fa, spec: PathSpec):
         out = executor.execute(prompt)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        seconds.append(secs)
         counts.append({k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES})
         kernel_counts.append({k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
                             for k in fa.CUDA_LAUNCHES})
@@ -582,7 +607,193 @@ def path_phase(torch, fa, spec: PathSpec):
     require(not torch.equal(images[0], images[1]),
             f"seeds {a} and {b} gave the same image")
     say(f"  launch counts as expected; seed {a} repeatable; seed {b} differs")
-    return bundle, launches, timings
+    return PathRun(registry, bundle, launches, timings,
+                   {a: images[0], b: images[1]}, seconds)
+
+
+# --- phase 6 -----------------------------------------------------------------
+
+SERVE_DIR = OUTPUT_DIR / "serve"
+SERVE_BOOT_S = 180.0         # the worker's process start, up to /health
+SERVE_REQUEST_S = 600.0      # one served request (the first builds a bundle)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(url: str, payload=None, timeout: float = 30.0) -> tuple[int, dict]:
+    """One call as a user makes it: JSON in, JSON out, on urllib."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, json.loads(e.read() or b"{}")
+
+
+def start_worker(port: int, log_path: Path):
+    """``serve`` through the CLI as a worker on the card; returns the
+    process once ``/distributed/health`` answers."""
+    (SERVE_DIR / "worker.json").write_text("{}")
+    env = {**os.environ, "CDT_IS_WORKER": "1", "CDT_WORKER_ID": "w0",
+           "CDT_CONFIG_PATH": str(SERVE_DIR / "worker.json"),
+           "CDT_OUTPUT_DIR": str(SERVE_DIR / "worker_out")}
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "comfyui_distributed_tpu_torch", "serve",
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < SERVE_BOOT_S:
+        require(proc.poll() is None,
+                f"worker exited with {proc.returncode} before answering")
+        try:
+            status, health = http_json(
+                f"http://127.0.0.1:{port}/distributed/health", timeout=5)
+            if status == 200 and health.get("role") == "worker":
+                say(f"  worker up in {time.perf_counter() - t0:.2f} s "
+                    f"(pid {proc.pid}, port {port})")
+                return proc
+        except OSError:
+            pass
+        time.sleep(0.25)
+    proc.kill()
+    raise SmokeFailure(f"worker did not answer /distributed/health in "
+                       f"{SERVE_BOOT_S} s")
+
+
+def serve_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Serve the SDXL workflow twice through ``POST /distributed/queue``
+    to a master in this process and a worker subprocess; returns the
+    master's launches in the phase."""
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.utils.frames import pack_frame
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    seed = SDXL_PATH.seeds[0]
+    worker_seed = seed + 0 + 1          # seed + worker index + 1
+    require(worker_seed in sdxl.images, "the sdxl path has no seed-8 image")
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    master_out = SERVE_DIR / "master_out"
+    master_port, worker_port = free_port(), free_port()
+    (SERVE_DIR / "master.json").write_text(json.dumps({
+        "master": {"host": "127.0.0.1", "port": master_port},
+        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
+                   "type": "local", "enabled": True}]}))
+    prompt = strip_meta(json.loads(
+        (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+    prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
+    want = {s: to_uint8(sdxl.images[s])[0] for s in (seed, worker_seed)}
+    log_path = SERVE_DIR / "worker.log"
+    worker = server = None
+    ok = False
+    try:
+        worker = start_worker(worker_port, log_path)
+        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
+        try:
+            master = Controller(SERVE_DIR / "master.json", device="cuda",
+                                model_registry=sdxl.registry)
+        finally:
+            del os.environ["CDT_OUTPUT_DIR"]
+        server = ServerThread(master, port=master_port)
+        base = f"http://127.0.0.1:{master_port}"
+        fa.reset_launches()
+        for i in range(2):
+            for png in master_out.glob("*.png"):
+                png.unlink()
+            before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+            t0 = time.perf_counter()
+            status, answer = http_json(base + "/distributed/queue",
+                                       {"prompt": prompt}, timeout=120)
+            require(status == 200 and answer.get("prompt_id"),
+                    f"queue answered {status}: {answer}")
+            require(answer.get("worker_count") == 1,
+                    f"worker_count {answer.get('worker_count')} != 1: {answer}")
+            while True:
+                status, entry = http_json(
+                    f"{base}/distributed/history/{answer['prompt_id']}")
+                if status == 200 and entry.get("status") in (
+                        "success", "error", "interrupted"):
+                    break
+                require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                        f"request {i} not final after {SERVE_REQUEST_S} s")
+                time.sleep(0.05)
+            secs = time.perf_counter() - t0
+            require(entry["status"] == "success", f"request {i}: {entry}")
+            counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+            kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                            for k in fa.CUDA_LAUNCHES}
+            require(counts == SDXL_PATH.expected,
+                    f"served request {i}: master launches {counts} != "
+                    f"{SDXL_PATH.expected}")
+            require(kernel_counts == SDXL_PATH.expected_cuda,
+                    f"served request {i}: master CUDA kernel launches "
+                    f"{kernel_counts} != {SDXL_PATH.expected_cuda}")
+            pngs = sorted(master_out.glob("*.png"))
+            require(len(pngs) == 2, f"request {i}: {len(pngs)} PNGs, expected 2")
+            got = []
+            for png in pngs:
+                require(png_size(png) == (1024, 1024), f"{png} not 1024x1024")
+                got.append(to_uint8(decode_png(png.read_bytes()))[0])
+            require(np_equal(got[0], want[seed]),
+                    f"request {i}: the master's PNG differs from the direct "
+                    f"seed-{seed} image")
+            diff = np_absdiff(got[1], want[worker_seed])
+            bitwise = diff.max() == 0
+            say(f"  served request {i}: {secs:.3f} s (POST to final history; "
+                f"direct request {sdxl.seconds[i]:.3f} s); worker_count 1; "
+                f"master launches {counts}; PNG 0 bitwise equal to direct "
+                f"seed {seed}; PNG 1 {'bitwise equal' if bitwise else 'NOT bitwise equal'}"
+                f" to direct seed {worker_seed} (max level difference "
+                f"{int(diff.max())}, {int((diff.max(axis=-1) > 0).sum())} "
+                f"pixels differ)")
+            require(diff.max() <= 1, f"request {i}: the worker's PNG is more "
+                    f"than one level from the direct seed-{worker_seed} image")
+        frame = pack_frame(got[1], level=1)
+        say(f"  the worker's image on the wire: {len(frame)} frame bytes "
+            f"(CDTF, zlib level 1) of {got[1].nbytes} raw")
+        ok = True
+        return dict(fa.LAUNCHES)
+    finally:
+        if server is not None:
+            server.stop()
+        if worker is not None:
+            worker.terminate()
+            try:
+                worker.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait(timeout=30)
+        if not ok and log_path.is_file():
+            tail = log_path.read_text(errors="replace").splitlines()[-40:]
+            print("chip_smoke: worker log tail:\n" + "\n".join(tail),
+                  file=sys.stderr)
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def np_absdiff(a, b):
+    require(a.shape == b.shape, f"image shapes {a.shape} != {b.shape}")
+    return abs(a.astype("int16") - b.astype("int16"))
+
+
+# --- phases 5 and 8 ----------------------------------------------------------
 
 
 def compare_whole(torch, what: str, out, ref) -> None:
@@ -659,23 +870,31 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from comfyui_distributed_tpu_torch.ops import flash_attention as fa
+    from comfyui_distributed_tpu_torch.utils.device import use_full_fp32
 
-    # fp32 products in the comparisons are full fp32 (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the direct paths and the comparisons build models without a
+    # Controller: give them the precision a controller sets on the card
+    use_full_fp32()
     t_start = time.perf_counter()
     try:
         device = device_phase(torch)
         build_phase(fa)
         rows, errs = kernel_phase(torch, fa)
         path_launches = {}
-        bundle, path_launches["sdxl"], _ = path_phase(torch, fa, SDXL_PATH)
-        reference_phase(torch, fa, bundle)
-        del bundle
+        allocated = torch.cuda.memory_allocated()
+        sdxl = path_phase(torch, fa, SDXL_PATH)
+        path_launches["sdxl"] = sdxl.launches
+        reference_phase(torch, fa, sdxl.bundle)
+        path_launches["serve"] = serve_phase(torch, fa, sdxl)
+        del sdxl
+        left = torch.cuda.memory_allocated() - allocated
+        say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
+            f"master's shutdown and the sdxl path's end")
+        require(left < 2**30, "the SDXL bundle outlived the master's shutdown")
         torch.cuda.empty_cache()
-        bundle, path_launches["flux"], timings = path_phase(
-            torch, fa, FLUX_PATH)
-        flux_reference_phase(torch, fa, bundle)
+        flux = path_phase(torch, fa, FLUX_PATH)
+        path_launches["flux"], timings = flux.launches, flux.timings
+        flux_reference_phase(torch, fa, flux.bundle)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

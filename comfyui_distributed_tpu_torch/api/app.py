@@ -1,0 +1,422 @@
+"""The HTTP control plane on the standard library: ``asyncio.start_server``
+and a small HTTP/1.1 handler (request line, headers, a ``Content-Length``
+body; no chunked bodies; one request per connection; JSON answers).
+
+Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
+
+- ``GET /distributed/health``, ``GET /distributed/system_info``
+- ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
+- ``GET /distributed/history/{prompt_id}`` (tensors summarised as shapes)
+- ``POST /distributed/queue`` (orchestrate over the configured hosts)
+- ``POST /distributed/job_complete`` (base64-PNG envelope),
+  ``POST /distributed/job_complete_frames`` (multipart CDTF frames),
+  ``POST /distributed/prepare_job``
+- ``POST /distributed/clear_memory``
+
+Errors are JSON ``{"error": ..., "status": ...}``: 400 for a validation
+error or a malformed request, 404 unknown path, 405 wrong method, 413
+body over ``CDT_MAX_PAYLOAD_SIZE``, 415 a POST that is neither JSON nor
+a peer's multipart (``X-CDT-Client``), 500 anything else.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import http
+import json
+import re
+import threading
+import traceback
+import urllib.parse
+from typing import Any, Awaitable, Callable
+
+from ..cluster.controller import Controller
+from ..utils import constants
+from ..utils.exceptions import DistributedError, ValidationError
+from ..utils.frames import unpack_frame
+from ..utils.logging import log
+from ..utils.multipart import parse_multipart
+from .queue_request import parse_queue_request_payload
+
+# header cluster peers send on multipart POSTs (a browser form cannot
+# attach it without a preflight)
+CLIENT_HEADER = "x-cdt-client"
+MAX_HEADERS = 100
+READ_TIMEOUT_S = 120.0
+THREAD_TIMEOUT_S = 60.0      # ServerThread: start, stop, join
+
+
+class HTTPError(Exception):
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+@dataclasses.dataclass
+class Request:
+    method: str
+    path: str
+    headers: dict[str, str]          # names in lower case
+    body: bytes = b""
+    match: dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def json(self) -> Any:
+        try:
+            return json.loads(self.body)
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            raise ValidationError("body must be valid JSON") from None
+
+
+@dataclasses.dataclass
+class Response:
+    status: int
+    payload: Any
+
+
+def json_error(message: str, status: int = 400) -> Response:
+    return Response(status, {"error": message, "status": status})
+
+
+Handler = Callable[[Request], Awaitable[Response]]
+
+
+def _post_content_type_ok(request: Request) -> bool:
+    ctype = request.headers.get("content-type", "").lower()
+    if ctype.startswith("application/json"):
+        return True
+    if ctype.startswith("multipart/form-data"):
+        return CLIENT_HEADER in request.headers
+    return False
+
+
+def _summarize(v):
+    """History outputs: tensors and arrays as their shape and dtype."""
+    if getattr(v, "shape", None) is not None and not isinstance(v, (int, float, bool)):
+        return {"shape": list(v.shape), "dtype": str(getattr(v, "dtype", ""))}
+    if isinstance(v, (dict, list, tuple)):
+        return str(type(v).__name__)
+    return v if isinstance(v, (int, float, str, bool, type(None))) else str(v)
+
+
+class App:
+    """Route table and handlers over one controller."""
+
+    def __init__(self, controller: Controller):
+        self.controller = controller
+        self._routes: list[tuple[str, re.Pattern, Handler]] = []
+        c = controller
+
+        async def health(request):
+            return Response(200, c.health())
+
+        async def system_info(request):
+            return Response(200, c.system_info())
+
+        async def prompt_get(request):
+            return Response(200, {"exec_info": {
+                "queue_remaining": c.queue.queue_remaining}})
+
+        async def prompt_post(request):
+            body = request.json()
+            prompt = body.get("prompt") if isinstance(body, dict) else None
+            if not isinstance(prompt, dict) or not prompt:
+                raise ValidationError("'prompt' must be a non-empty object")
+            prompt_id, errors = c.queue.enqueue(
+                prompt, body.get("client_id", ""), body.get("trace_id"))
+            if errors:
+                return Response(400, {"error": "validation failed",
+                                      "node_errors": errors})
+            return Response(200, {"prompt_id": prompt_id, "node_errors": {}})
+
+        async def history(request):
+            pid = request.match["prompt_id"]
+            entry = c.queue.history.get(pid)
+            if entry is None:
+                return json_error(f"no finished prompt {pid!r}", 404)
+            return Response(200, {
+                "prompt_id": pid,
+                "status": entry.get("status"),
+                "error": entry.get("error"),
+                "duration": entry.get("duration"),
+                "outputs": {
+                    node: [_summarize(v) for v in (
+                        outs if isinstance(outs, (list, tuple)) else [outs])]
+                    for node, outs in (entry.get("outputs") or {}).items()
+                },
+            })
+
+        async def distributed_queue(request):
+            payload = parse_queue_request_payload(request.json())
+            result = await c.orchestrator.orchestrate(
+                payload.prompt,
+                client_id=payload.client_id,
+                enabled_ids=payload.enabled_worker_ids,
+                delegate_master=payload.delegate_master,
+                load_balance=payload.load_balance,
+                trace_id=payload.trace_id,
+            )
+            return Response(200, {
+                "prompt_id": result.prompt_id,
+                "number": 0,
+                "node_errors": result.node_errors,
+                "worker_count": result.worker_count,
+                "trace_id": result.trace_id,
+            })
+
+        def require_ids(meta: Any) -> None:
+            if not isinstance(meta, dict):
+                raise ValidationError("payload must be a JSON object")
+            for field in ("job_id", "worker_id"):
+                if not isinstance(meta.get(field), str) or not meta[field]:
+                    raise ValidationError(f"missing or invalid {field!r}",
+                                          field=field)
+
+        async def job_complete(request):
+            body = request.json()
+            require_ids(body)
+            if "is_last" not in body:
+                raise ValidationError("missing 'is_last'", field="is_last")
+            await c.store.put_collector_result(body["job_id"], body)
+            return Response(200, {"status": "received"})
+
+        async def job_complete_frames(request):
+            parts = parse_multipart(request.body,
+                                    request.headers.get("content-type", ""))
+            meta, blobs = None, {}
+            for part in parts:
+                if part.name == "metadata":
+                    try:
+                        meta = json.loads(part.data)
+                    except (json.JSONDecodeError, UnicodeDecodeError):
+                        raise ValidationError("metadata must be valid JSON") from None
+                elif part.name.startswith("frame_"):
+                    try:
+                        blobs[int(part.name[len("frame_"):])] = part.data
+                    except ValueError:
+                        raise ValidationError(
+                            f"bad frame part name {part.name!r}") from None
+            if meta is None:
+                raise ValidationError("missing metadata part")
+            require_ids(meta)
+            try:
+                count = int(meta.get("count", len(blobs)))
+            except (TypeError, ValueError):
+                raise ValidationError("'count' must be an integer") from None
+            if count and sorted(blobs) != list(range(count)):
+                raise ValidationError(
+                    f"expected frames 0..{count - 1}, got {sorted(blobs)}")
+
+            def unpack_all():
+                # inflate and crc of multi-MB frames: off the event loop
+                out = {}
+                for i, blob in blobs.items():
+                    try:
+                        out[i] = unpack_frame(blob)
+                    except ValueError as e:
+                        raise ValidationError(f"frame {i}: {e}") from None
+                return out
+
+            frames = await asyncio.get_running_loop().run_in_executor(
+                None, unpack_all)
+            for i in range(count):
+                await c.store.put_collector_result(meta["job_id"], {
+                    "job_id": meta["job_id"], "worker_id": meta["worker_id"],
+                    "batch_idx": i, "image_arr": frames[i],
+                    "is_last": i == count - 1,
+                })
+            if count == 0:
+                await c.store.put_collector_result(meta["job_id"], {
+                    "job_id": meta["job_id"], "worker_id": meta["worker_id"],
+                    "batch_idx": -1, "is_last": True,
+                })
+            return Response(200, {"status": "received", "frames": count})
+
+        async def prepare_job(request):
+            body = request.json()
+            job_id = body.get("job_id") if isinstance(body, dict) else None
+            if not isinstance(job_id, str) or not job_id:
+                raise ValidationError("missing 'job_id'", field="job_id")
+            await c.store.prepare_collector_job(
+                job_id, tuple(body.get("expected_workers", ())))
+            return Response(200, {"status": "prepared"})
+
+        async def clear_memory(request):
+            return Response(200, c.clear_memory())
+
+        self.add("GET", "/distributed/health", health)
+        self.add("GET", "/distributed/system_info", system_info)
+        self.add("GET", "/prompt", prompt_get)
+        self.add("POST", "/prompt", prompt_post)
+        self.add("GET", "/distributed/history/{prompt_id}", history)
+        self.add("POST", "/distributed/queue", distributed_queue)
+        self.add("POST", "/distributed/job_complete", job_complete)
+        self.add("POST", "/distributed/job_complete_frames", job_complete_frames)
+        self.add("POST", "/distributed/prepare_job", prepare_job)
+        self.add("POST", "/distributed/clear_memory", clear_memory)
+
+    def add(self, method: str, template: str, handler: Handler) -> None:
+        pattern = re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)", re.escape(template))
+        self._routes.append((method, re.compile(pattern), handler))
+
+    async def dispatch(self, request: Request) -> Response:
+        handler, path_known = None, False
+        for method, pattern, fn in self._routes:
+            m = pattern.fullmatch(request.path)
+            if m is None:
+                continue
+            path_known = True
+            if method == request.method:
+                handler, request.match = fn, m.groupdict()
+                break
+        if handler is None:
+            return (json_error(f"method {request.method} not allowed", 405)
+                    if path_known else json_error(f"no route {request.path}", 404))
+        if request.method == "POST" and not _post_content_type_ok(request):
+            return json_error("unsupported media type", 415)
+        try:
+            return await handler(request)
+        except ValidationError as e:
+            return json_error(str(e), 400)
+        except DistributedError as e:
+            return json_error(str(e), 500)
+        except Exception as e:  # noqa: BLE001 — the server outlives a handler
+            log(f"{request.method} {request.path} failed: {e!r}\n"
+                f"{traceback.format_exc()}")
+            return json_error(f"internal error: {e}", 500)
+
+
+async def read_request(reader: asyncio.StreamReader) -> Request:
+    """One HTTP/1.1 request; raises ``HTTPError`` for what it refuses."""
+    try:
+        line = (await reader.readline()).decode("latin-1").rstrip("\r\n")
+        parts = line.split(" ")
+        if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
+            raise HTTPError(400, f"malformed request line {line[:100]!r}")
+        method, target, _ = parts
+        headers: dict[str, str] = {}
+        while True:
+            raw = (await reader.readline()).decode("latin-1").rstrip("\r\n")
+            if not raw:
+                break
+            if len(headers) >= MAX_HEADERS or ":" not in raw:
+                raise HTTPError(400, "malformed or too many headers")
+            name, _, value = raw.partition(":")
+            headers[name.strip().lower()] = value.strip()
+    except (ValueError, asyncio.LimitOverrunError):
+        raise HTTPError(400, "request line or header too long") from None
+    if "transfer-encoding" in headers:
+        raise HTTPError(400, "chunked bodies are not supported; "
+                             "send Content-Length")
+    try:
+        length = int(headers.get("content-length", "0"))
+    except ValueError:
+        raise HTTPError(400, "bad Content-Length") from None
+    if length < 0:
+        raise HTTPError(400, "bad Content-Length")
+    if length > constants.max_payload_size():
+        raise HTTPError(413, f"payload too large ({length} bytes, limit "
+                             f"{constants.max_payload_size()})")
+    body = await reader.readexactly(length) if length else b""
+    path = urllib.parse.unquote(urllib.parse.urlsplit(target).path)
+    return Request(method.upper(), path, headers, body)
+
+
+def _encode_response(response: Response) -> bytes:
+    body = json.dumps(response.payload, default=str).encode()
+    reason = http.HTTPStatus(response.status).phrase
+    head = (f"HTTP/1.1 {response.status} {reason}\r\n"
+            "Content-Type: application/json\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            "Connection: close\r\n\r\n")
+    return head.encode("latin-1") + body
+
+
+class Server:
+    """The control plane of one controller on one listening socket."""
+
+    def __init__(self, controller: Controller, host: str, port: int):
+        self.controller = controller
+        self.app = App(controller)
+        self.host = host
+        self.port = port
+        self._server: asyncio.AbstractServer | None = None
+
+    async def start(self) -> None:
+        await self.controller.startup()
+        self._server = await asyncio.start_server(self._handle, self.host,
+                                                  self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        log(f"control plane listening on {self.host}:{self.port}")
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None
+        await self.controller.shutdown()
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        try:
+            try:
+                request = await asyncio.wait_for(read_request(reader),
+                                                 READ_TIMEOUT_S)
+                response = await self.app.dispatch(request)
+            except HTTPError as e:
+                response = json_error(str(e), e.status)
+            writer.write(_encode_response(response))
+            await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError,
+                asyncio.TimeoutError):
+            pass                  # the peer went away or stalled: drop it
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except ConnectionError:
+                pass
+
+
+async def run_app(controller: Controller, host: str = "0.0.0.0",
+                  port: int | None = None) -> Server:
+    """Start the control plane; ``port`` defaults to the config's
+    ``master.port``."""
+    if port is None:
+        port = controller.load_config().get("master", {}).get("port", 8288)
+    server = Server(controller, host, port)
+    await server.start()
+    return server
+
+
+class ServerThread:
+    """A controller's control plane on an event loop of its own thread,
+    for a process that does other work on its main thread (an embedding
+    program, a test)."""
+
+    def __init__(self, controller: Controller, host: str = "127.0.0.1",
+                 port: int = 0):
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever,
+                                        name="control-plane", daemon=True)
+        self._thread.start()
+        try:
+            self.server = asyncio.run_coroutine_threadsafe(
+                run_app(controller, host, port), self.loop).result(THREAD_TIMEOUT_S)
+        except BaseException:
+            self._close_loop()
+            raise
+        self.port = self.server.port
+
+    def stop(self) -> None:
+        try:
+            asyncio.run_coroutine_threadsafe(
+                self.server.stop(), self.loop).result(THREAD_TIMEOUT_S)
+        finally:
+            self._close_loop()
+
+    def _close_loop(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(THREAD_TIMEOUT_S)
+        if not self._thread.is_alive():
+            self.loop.close()

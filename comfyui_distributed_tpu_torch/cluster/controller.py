@@ -1,0 +1,153 @@
+"""The host controller: one per process, owning that process's card.
+
+Its role comes from ``CDT_IS_WORKER``: a master orchestrates and
+collects, a worker executes dispatched prompts and sends its results
+back. Both run the same code and the same HTTP app (``api/app.py``).
+The cache, preemption, stages, the front door, warmup, the elastic
+fleet and the progress tracker of the JAX package's controller are not
+ported.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import gc
+import os
+import platform
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from ..utils import constants
+from ..utils.config import ensure_config_exists, load_config
+from ..utils.device import DeviceLike, resolve_device, use_full_fp32
+from ..utils.logging import log
+from ..workers.detection import get_machine_id
+from .collector_bridge import CollectorBridge
+from .job_store import JobStore
+from .orchestration import Orchestrator
+from .runtime import PromptQueue
+
+
+class Controller:
+    """``device`` is where the models run (``cuda`` unless the caller asks
+    for the CPU; without a card this raises). ``model_registry`` is built
+    on first use as ``ModelRegistry(device, seed=0)`` unless one is
+    given. On the card the controller sets the process's fp32 precision
+    (``use_full_fp32``), so every controller computes the same bits."""
+
+    def __init__(self, config_path: Optional[Path] = None,
+                 device: DeviceLike = None, model_registry=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            use_full_fp32()
+        ensure_config_exists(config_path)
+        self.config_path = config_path
+        self.is_worker = constants.is_worker()
+        self.worker_id = constants.worker_id()
+        self.worker_index = constants.worker_index()
+        self.output_dir = constants.output_dir()
+        self.input_dir = constants.input_dir()
+        self.store = JobStore()
+        self.queue = PromptQueue(context_factory=self._execution_context)
+        self.orchestrator = Orchestrator(self.store, self.queue,
+                                         config_loader=self.load_config)
+        self.loop: Optional[asyncio.AbstractEventLoop] = None
+        self.bridge: Optional[CollectorBridge] = None
+        self._registry = model_registry
+
+    def load_config(self) -> dict:
+        return load_config(self.config_path)
+
+    def host_by_id(self, host_id: str) -> Optional[dict]:
+        """Config host entry for a worker id (the busy-probe resolver)."""
+        for h in self.load_config().get("hosts", []):
+            if str(h.get("id")) == str(host_id):
+                return h
+        return None
+
+    @property
+    def model_registry(self):
+        if self._registry is None:
+            from ..models.registry import ModelRegistry
+
+            self._registry = ModelRegistry(self.device, seed=0)
+        return self._registry
+
+    def _execution_context(self) -> dict[str, Any]:
+        ctx: dict[str, Any] = {
+            "model_registry": self.model_registry,
+            "output_dir": self.output_dir,
+            "input_dir": self.input_dir,
+            "is_worker": self.is_worker,
+            "worker_id": self.worker_id,
+            "worker_index": self.worker_index,
+        }
+        if self.bridge is not None:
+            ctx["collector_bridge"] = self.bridge
+        return ctx
+
+    # --- lifecycle ----------------------------------------------------------
+
+    async def startup(self) -> None:
+        self.loop = asyncio.get_running_loop()
+        self.bridge = CollectorBridge(self.store, self.loop,
+                                      host_resolver=self.host_by_id)
+        self.queue.start()
+        role = "worker" if self.is_worker else "master"
+        log(f"controller up as {role} on {self.device} "
+            f"(machine {get_machine_id()})")
+
+    async def shutdown(self) -> None:
+        await self.queue.stop()
+        # the queue's context factory, the orchestrator and the bridge hold
+        # bound methods of this controller, so it lives until the cycle
+        # collector runs: let go of the card's bundles now
+        self._registry = None
+
+    # --- health and info ----------------------------------------------------
+
+    def health(self) -> dict:
+        return {
+            "status": "ok",
+            "role": "worker" if self.is_worker else "master",
+            "queue_remaining": self.queue.queue_remaining,
+            "executing": self.queue.executing,
+            "machine_id": get_machine_id(),
+            "device": str(self.device),
+        }
+
+    def system_info(self) -> dict:
+        """Host facts and a census of the CUDA devices."""
+        info = {
+            "machine_id": get_machine_id(),
+            "platform": platform.system().lower(),
+            "path_separator": os.sep,
+            "python": platform.python_version(),
+            "is_docker": Path("/.dockerenv").exists(),
+            "torch": torch.__version__,
+            "device": str(self.device),
+            "devices": [],
+        }
+        if torch.cuda.is_available():
+            info["cuda"] = torch.version.cuda
+            for i in range(torch.cuda.device_count()):
+                props = torch.cuda.get_device_properties(i)
+                info["devices"].append({
+                    "index": i, "name": torch.cuda.get_device_name(i),
+                    "total_memory": props.total_memory,
+                    "memory_allocated": torch.cuda.memory_allocated(i),
+                    "memory_reserved": torch.cuda.memory_reserved(i),
+                })
+        return info
+
+    def clear_memory(self) -> dict:
+        """Drop the model registry (its bundles go with it) and return the
+        card's cached blocks to CUDA. The next prompt builds its
+        bundles again."""
+        self._registry = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"status": "cleared"}

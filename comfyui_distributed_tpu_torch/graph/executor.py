@@ -28,11 +28,19 @@ class NodeError:
         return {"node_id": self.node_id, "message": self.message}
 
 
+def _is_meta(key: str, value) -> bool:
+    return key.startswith("_") and not (isinstance(value, dict)
+                                        and "class_type" in value)
+
+
 def strip_meta(prompt: Prompt) -> Prompt:
-    """Drop underscore-prefixed keys (``_meta`` workflow headers etc.) —
-    shipped workflow files carry documentation alongside the nodes."""
-    if isinstance(prompt, dict) and any(k.startswith("_") for k in prompt):
-        return {k: v for k, v in prompt.items() if not k.startswith("_")}
+    """Drop underscore-prefixed entries that are not nodes (``_meta``
+    workflow headers etc.): shipped workflow files carry documentation
+    alongside the nodes. Nodes the control plane injects under such ids
+    (``_delegate_empty``, ``_preview_1``) stay; the JAX package drops
+    them too, which leaves a delegate master's collector without input."""
+    if isinstance(prompt, dict) and any(_is_meta(k, v) for k, v in prompt.items()):
+        return {k: v for k, v in prompt.items() if not _is_meta(k, v)}
     return prompt
 
 

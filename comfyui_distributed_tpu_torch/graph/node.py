@@ -33,6 +33,7 @@ class NodeDef:
     OPTIONAL: dict[str, str] = {}
     HIDDEN: dict[str, str] = {}
     RETURNS: tuple[str, ...] = ()
+    OUTPUT_NODE = False      # terminal node: its outputs go into history
 
     def execute(self, **inputs) -> tuple:
         raise NotImplementedError

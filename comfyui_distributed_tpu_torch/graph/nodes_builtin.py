@@ -1,6 +1,7 @@
-"""The port's node set: exactly the nodes of the txt2img workflows
-(``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``),
-with the JAX package's names and contracts.
+"""The port's node set: the nodes of the txt2img workflows
+(``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``)
+and the two the control plane injects (``DistributedEmptyImage``,
+``PreviewImage``), with the JAX package's names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
 [B,H,W,C] in [0,1]; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]};
@@ -17,6 +18,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
 from ..utils.exceptions import ValidationError
 from ..utils.logging import log
 from .node import NodeDef, register_node
@@ -80,16 +82,57 @@ class DistributedValue(NodeDef):
         return (self._coerce(mapping[key], vtype) if vtype else mapping[key],)
 
 
+@register_node("DistributedEmptyImage")
+class DistributedEmptyImage(NodeDef):
+    """0-batch IMAGE placeholder for delegate-only masters, on the
+    registry's device so the worker images it is joined with meet it
+    there."""
+
+    INPUTS = {"height": "INT", "width": "INT"}
+    OPTIONAL = {"channels": "INT"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, height: int = 64, width: int = 64, channels: int = 3,
+                model_registry=None, **_):
+        device = (model_registry.device if model_registry is not None
+                  else resolve_device())
+        return (torch.zeros((0, int(height), int(width), int(channels)),
+                            device=device),)
+
+
 @register_node("DistributedCollector")
 class DistributedCollector(NodeDef):
-    """Result gather point. With one controller and no cross-host bridge it
-    is the identity."""
+    """Result gather point. Across controllers the execution context
+    provides a ``collector_bridge``: a worker sends its batch to the
+    master, the master waits for every worker and joins the batches
+    master first (``cluster/collector_bridge.py``). Without a bridge or
+    job id, and with ``pass_through``, it is the identity. Audio passes
+    through: no audio node is ported."""
 
     INPUTS = {"images": "IMAGE"}
     OPTIONAL = {"audio": "AUDIO"}
+    HIDDEN = {
+        "multi_job_id": "STRING", "is_worker": "BOOLEAN", "worker_id": "STRING",
+        "master_url": "STRING", "enabled_worker_ids": "*",
+        "delegate_only": "BOOLEAN", "pass_through": "BOOLEAN",
+        "collector_bridge": "*",
+    }
     RETURNS = ("IMAGE", "AUDIO")
 
-    def execute(self, images, audio=None, **_):
+    def execute(self, images, audio=None, multi_job_id: str = "",
+                is_worker: bool = False, worker_id: str = "",
+                master_url: str = "", enabled_worker_ids=(),
+                delegate_only: bool = False, pass_through: bool = False,
+                collector_bridge=None, **_):
+        if pass_through or not multi_job_id or collector_bridge is None:
+            return (images, audio)
+        if is_worker:
+            collector_bridge.send(multi_job_id, worker_id, images, master_url)
+            return (images, audio)
+        images = collector_bridge.collect(
+            multi_job_id, images, enabled_worker_ids=tuple(enabled_worker_ids),
+            delegate_only=delegate_only)
         return (images, audio)
 
 
@@ -212,6 +255,7 @@ class SaveImage(NodeDef):
     OPTIONAL = {"filename_prefix": "STRING"}
     HIDDEN = {"output_dir": "STRING"}
     RETURNS = ()
+    OUTPUT_NODE = True
 
     def execute(self, images, filename_prefix: str = "output",
                 output_dir: str = "", **_):
@@ -226,4 +270,17 @@ class SaveImage(NodeDef):
             p.write_bytes(encode_png(arr[i]))
             paths.append(str(p))
         log(f"saved {len(paths)} images to {out_dir}")
+        return ()
+
+
+@register_node("PreviewImage")
+class PreviewImage(NodeDef):
+    """Terminal node a worker's pruned prompt ends in where its
+    ``SaveImage`` was cut (``graph/transform.py``)."""
+
+    INPUTS = {"images": "IMAGE"}
+    RETURNS = ()
+    OUTPUT_NODE = True
+
+    def execute(self, images, **_):
         return ()

@@ -3,6 +3,9 @@
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do). With no card and no explicit CPU
 request they raise: nothing falls back to the CPU.
+
+Resolving a device has no side effect. The precision of fp32 layers is
+set once by the owner of a process's models (``use_full_fp32``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def use_full_fp32() -> None:
+    """Compute fp32 layers (the UNet's ``conv_out``, the VAE's fp32
+    convolutions and attention, the text projections) in full fp32 on
+    the card: TF32 off in cuBLAS and cuDNN for the whole process.
+
+    PyTorch leaves TF32 on for cuDNN by default, so two processes of which
+    one turned it off compute different bits: a worker's image would then
+    differ from a direct run of the same seed.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def torch_dtype(name: str) -> torch.dtype:

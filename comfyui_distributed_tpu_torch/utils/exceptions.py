@@ -10,6 +10,26 @@ class DistributedError(Exception):
     """Base class for all framework errors."""
 
 
+class ConfigError(DistributedError):
+    """Invalid or unwritable configuration."""
+
+
+class WorkerError(DistributedError):
+    """A worker host misbehaved or could not be reached."""
+
+    def __init__(self, message: str, worker_id: str | None = None):
+        super().__init__(message)
+        self.worker_id = worker_id
+
+
+class JobQueueError(DistributedError):
+    """Job store misuse: a result for a job that never existed."""
+
+    def __init__(self, message: str, job_id: str | None = None):
+        super().__init__(message)
+        self.job_id = job_id
+
+
 class ValidationError(DistributedError):
     """Request/prompt payload failed validation (reference api/schemas.py)."""
 

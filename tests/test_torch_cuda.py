@@ -255,3 +255,18 @@ def test_dit_attention_sites_take_the_one_head_kernel(cuda_device):
             ref = model(x, t, ctx, pooled)
     assert v.abs().max() > 1e-2
     _close(v, ref, tol=5e-2)
+
+
+def test_cuda_device_computes_fp32_in_full_fp32(cuda_device, monkeypatch,
+                                                 tmp_path):
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device() == cuda_device
+    assert torch.backends.cudnn.allow_tf32        # resolving sets nothing
+    # the controller, which owns the process's models, sets the precision
+    Controller(tmp_path / "config.json", device="cuda")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

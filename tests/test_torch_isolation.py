@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing any of its modules loads
-neither JAX, flax nor the JAX package, and its entry points refuse to run
+neither JAX, flax nor the JAX package, nor a package the card's machine
+is not promised (aiohttp, Pillow), and its entry points refuse to run
 without a card unless the caller asks for the CPU."""
 
 import json
+import os
 import pkgutil
 import shutil
 import subprocess
@@ -15,7 +17,7 @@ import torch
 import comfyui_distributed_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL")
 
 
 def _port_modules():
@@ -27,7 +29,9 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     assert {"comfyui_distributed_tpu_torch.graph.nodes_builtin",
             "comfyui_distributed_tpu_torch.models.dit",
-            "comfyui_distributed_tpu_torch.diffusion.pipeline_flow"} <= set(modules)
+            "comfyui_distributed_tpu_torch.diffusion.pipeline_flow",
+            "comfyui_distributed_tpu_torch.api.app",
+            "comfyui_distributed_tpu_torch.__main__"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
@@ -74,6 +78,18 @@ def test_entry_points_refuse_without_card(no_card, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_serve_refuses_without_card(tmp_path):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "CDT_CONFIG_PATH": str(tmp_path / "cfg.json")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "comfyui_distributed_tpu_torch", "serve",
+         "--port", "0"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
+    assert not (tmp_path / "cfg.json").exists()
 
 
 def _smoke(cwd):
