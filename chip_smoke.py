@@ -38,7 +38,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 5. sdxl reference — the same UNet at a 512² latent, once through the
    kernels and once with its attention sites on the plain versions; the
    two eps predictions agree within 5e-2·max|plain|.
-6. serve — the SDXL workflow served through the HTTP control plane: a
+6. upscale path — ``workflows/distributed-upscale.json`` unchanged on
+   the sdxl path's registry: a seeded 1024² RGB ``input.png`` (written by
+   the port's ``encode_png``) → ``esrgan-x4`` (RRDBNet, 23 blocks, random
+   init from seed 0) to 4096² → USDU at ``upscale_by`` 1.0 with 1024²
+   tiles and padding 32 (16 crops of 1088², 4 a chunk, 7 euler steps of
+   the 20-step karras ladder at denoise 0.35, CFG 6) → a 4096² PNG, run
+   twice: the two images bitwise equal, [1,4096,4096,3], finite, in
+   [0,1], and exactly 1968 K1 and 1960 K2 launches a request. Prints the
+   seconds of the ESRGAN upscale, of each chunk's encode, sampling and
+   decode, of the composite, and the peak memory; and the host seconds
+   of ``decode_png`` on a 1024² PNG under the Average and Paeth filters.
+7. upscale reference — one 4-tile chunk of that upscale through
+   ``TileUpscaler`` with the kernels, each of its 7 UNet forwards also
+   run on the same inputs with the attention sites on the plain
+   versions: every eps within 5e-2·max|plain|. The whole chunk on the
+   plain versions (same noise) is printed beside it, not bounded, with
+   the plain chunk's difference from itself in chunks of 2 (the
+   round-off floor).
+8. serve — the SDXL workflow served through the HTTP control plane: a
    worker controller started as ``python -m comfyui_distributed_tpu_torch
    serve`` (a subprocess, on the card) and a master ``Controller`` in this
    process (its own event-loop thread, the sdxl path's registry) answer
@@ -53,11 +71,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    path's record is dropped, the SDXL bundle must be freed without the
    cycle collector: the card's allocated memory falls back to within
    1 GiB of what it was before the sdxl path.
-7. flux path — the FLUX preset at full width (11.9 B parameters, random
+   After the two txt2img requests the pair serves
+   ``workflows/distributed-upscale.json`` once, both controllers reading the upscale path's input directory
+   (``CDT_INPUT_DIR``, as a ``local`` host shares the filesystem) and the
+   master holding back (``CDT_TILE_MASTER_HOLDBACK_S``) until the
+   worker's first pull: the master's PNG must be bitwise equal to the
+   direct upscale, the worker must have submitted at least one of the 4
+   tile tasks over ``/distributed/submit_tiles``, and the master's
+   launches must be the text encoder's 8 plus 490 K1 and 490 K2 (70 × 7
+   steps) per chunk it ran itself. Prints both processes' peak memory.
+9. flux path — the FLUX preset at full width (11.9 B parameters, random
    weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
    three requests (seed 1234, 1235, 1234) with the same checks; every
    joint-attention site takes the one-head kernel.
-8. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+10. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
@@ -116,6 +143,22 @@ FLUX_TOKENS = 77 + (1024 // 16) ** 2
 BH_SHAPES = [  # (B, Nq, Nk, H, D), launches per FLUX request
     ((1, FLUX_TOKENS, FLUX_TOKENS, 24, 128), FLUX_STEPS * (19 + 38)),
 ]
+# The upscale path at the workflow's size: 16 tiles of 1088² (latents
+# 136²), 4 a chunk, CFG (batch 8), 7 steps: 28 UNet forwards of 10 blocks
+# at 68² = 4624 tokens × 640 channels and 60 at 34² = 1156 × 1280; the
+# text encoder as in the sdxl path (8 launches at [1, 77, 768]).
+UPSCALE_STEPS = 7
+UPSCALE_TILES, UPSCALE_CHUNK = 16, 4
+UPSCALE_FORWARDS = UPSCALE_TILES // UPSCALE_CHUNK * UPSCALE_STEPS
+TILE_FUSED = [  # (B, N, C, H), launches per upscale request
+    ((8, 4624, 640, 10), UPSCALE_FORWARDS * 10),
+    ((8, 1156, 1280, 20), UPSCALE_FORWARDS * 60),
+]
+TILE_PACKED = [  # (B, Nq, Nk, H, D), launches per upscale request
+    ((8, 4624, 77, 10, 64), UPSCALE_FORWARDS * 10),
+    ((8, 1156, 77, 20, 64), UPSCALE_FORWARDS * 60),
+]
+TEXT_SHAPE = FUSED_SHAPES[2][0]
 RAGGED_FUSED = [(2, 4000, 640, 10), (1, 130, 256, 2)]
 RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
 # the core's 128-row q / 128-key tiles: (B, Nq, Nk, H, D), both layouts
@@ -182,6 +225,13 @@ SDXL_PATH = PathSpec(
      "flash_attention_bh": 0},
     # projection 2108, streamed core 2100, short-key 2108
     cuda_counts(FUSED_SHAPES, PACKED_SHAPES))
+# per upscale request: K1 8 + 1960, K2 1960
+UPSCALE_EXPECTED = {
+    "fused_qkv_attention": 8 + sum(n for _, n in TILE_FUSED),
+    "flash_attention_packed": sum(n for _, n in TILE_PACKED),
+    "flash_attention_bh": 0}
+# projection 1968, streamed core 1960, short-key 1968
+UPSCALE_EXPECTED_CUDA = cuda_counts(TILE_FUSED + [(TEXT_SHAPE, 8)], TILE_PACKED)
 FLUX_PATH = PathSpec(
     "flux", "flux-txt2img.json", FLUX_STEPS, "3", "4", "5",
     "flux_00000.png", (1234, 1235, 1234),
@@ -385,18 +435,23 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     say("kernels: correctness (bf16; tolerance max_abs_err <= "
         f"{KERNEL_TOL}*max|plain|)")
     errs = {k: 0.0 for k in KERNEL_NAMES}
-    for shape in [s for s, _ in FUSED_SHAPES] + RAGGED_FUSED + EDGE_FUSED:
+    for shape in ([s for s, _ in FUSED_SHAPES + TILE_FUSED] + RAGGED_FUSED
+                  + EDGE_FUSED):
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
         compare(torch, f"qkv_projection {shape}",
                 fa.qkv_projection(x, wq, wk, wv),
                 fa.qkv_projection_plain(x, wq, wk, wv))
+        # a call on other inputs first, as for the attention cores below
+        fa.fused_qkv_attention(fused_inputs(*shape)[0], wq, wk, wv, H)
         err = compare(torch, f"fused_qkv_attention {shape}",
                       fa.fused_qkv_attention(x, wq, wk, wv, H),
                       fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
-    core_cases = ([s for s, _ in PACKED_SHAPES + BH_SHAPES] + RAGGED_CORE
-                  + EDGE_CORE + SHORT_KV_EDGES + SHORT_KV_SCHEDULES)
+        del x
+    core_cases = ([s for s, _ in PACKED_SHAPES + TILE_PACKED + BH_SHAPES]
+                  + RAGGED_CORE + EDGE_CORE + SHORT_KV_EDGES
+                  + SHORT_KV_SCHEDULES)
     for shape in core_cases:
         q, k, v = core_inputs(*shape)
         ref = fa.flash_attention_plain(q, k, v)
@@ -415,7 +470,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     rows = []
 
     def time_row(kernel, shape, launches, work, run, plain, library,
-                 **extra):
+                 path, **extra):
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
         lib_ms = cuda_ms(torch, library)
@@ -424,13 +479,16 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         say(f"  {kernel} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, "
             f"library {lib_ms:.4f}, bound {b:.4f} by {by}; "
             f"{b / ms:.1%} of bound; {ms / lib_ms:.2f}x library); host "
-            f"{host_us:.1f} us to enqueue; {launches} launches/request")
-        rows.append({"kernel": kernel, "shape": shape, "launches": launches,
+            f"{host_us:.1f} us to enqueue; {launches} launches per {path} "
+            "request")
+        rows.append({"kernel": kernel, "shape": shape, "path": path,
+                     "launches": launches,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": b, "bound_by": by, "enqueue_us": host_us,
                      "flops": work[0], "bytes": work[1], **extra})
 
-    for shape, n in FUSED_SHAPES:
+    for path, shape, n in ([("sdxl", sh, n) for sh, n in FUSED_SHAPES]
+                           + [("upscale", sh, n) for sh, n in TILE_FUSED]):
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
 
@@ -457,8 +515,11 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         time_row("fused_qkv_attention", shape, n, fused_work(*shape),
                  lambda: fa.fused_qkv_attention(x, wq, wk, wv, H),
                  lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, H),
-                 library, projection_ms=proj_ms, core_ms=core_ms)
-    for layout, shapes in (("packed", PACKED_SHAPES), ("bh", BH_SHAPES)):
+                 library, path, projection_ms=proj_ms, core_ms=core_ms)
+        del x, q, k, v
+    for layout, path, shapes in (("packed", "sdxl", PACKED_SHAPES),
+                                 ("packed", "upscale", TILE_PACKED),
+                                 ("bh", "flux", BH_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             extra = {}
@@ -472,7 +533,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
             time_row(f"flash_attention_{layout}", shape, n, core_work(*shape),
                      lambda: fa.flash_attention(q, k, v, layout=layout),
                      lambda: fa.flash_attention_plain(q, k, v),
-                     lambda: sdpa(q, k, v), **extra)
+                     lambda: sdpa(q, k, v), path, **extra)
     return rows, errs
 
 
@@ -485,12 +546,27 @@ def kernel_table(rows: list[dict], errs: dict,
                 "flash_attention_packed": f"{TPU_SOURCE}:197",
                 "flash_attention_bh": f"{TPU_SOURCE}:99"}
     out = []
+
+    def per_request(mine):
+        tot = {key: sum(r[key] * r["launches"] for r in mine)
+               for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+        b, by = bound_ms(tot["flops"], tot["bytes"])
+        return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b,
+                "bound_by": by, "library_ms": tot["library_ms"],
+                "launches": sum(r["launches"] for r in mine)}
+
     for name in KERNEL_NAMES:
-        mine = [r for r in rows if r["kernel"] == name]
+        every = [r for r in rows if r["kernel"] == name]
+        mine = [r for r in every if r["path"] != "upscale"]
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
         n = sum(r["launches"] for r in mine)
+        # one upscale request: its tile rows and the text encoder's
+        upscale = [r for r in every if r["path"] == "upscale"]
+        split_upscale = ({"per_upscale_request": per_request(
+            upscale + [r for r in every if r["shape"] == TEXT_SHAPE])}
+            if upscale else {})
         split = {}
         if name == "fused_qkv_attention":
             split = {"split_ms": {
@@ -511,7 +587,7 @@ def kernel_table(rows: list[dict], errs: dict,
             "hopper_kernels": HOPPER_KERNELS[name],
             "enqueue_us": sum(r["enqueue_us"] * r["launches"] for r in mine) / n,
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
-            **split,
+            **split, **split_upscale,
         })
     return out
 
@@ -611,7 +687,212 @@ def path_phase(torch, fa, spec: PathSpec) -> PathRun:
                    {a: images[0], b: images[1]}, seconds)
 
 
-# --- phase 6 -----------------------------------------------------------------
+# --- phases 6 and 7 ----------------------------------------------------------
+
+UPSCALE_DIR = OUTPUT_DIR / "upscale"
+UPSCALE_WORKFLOW = "distributed-upscale.json"
+UPSCALE_INPUT_HW = 1024
+UPSCALE_OUT_HW = 4096
+UPSCALE_PNG = "upscaled_00000.png"
+
+
+def write_upscale_input(torch) -> Path:
+    """The workflow's ``input.png``: a seeded 1024² RGB image, by the
+    port's own PNG writer; and the host seconds of ``decode_png`` on the
+    same image under the Average and Paeth filters (decoded byte by byte
+    in Python)."""
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, encode_png
+
+    input_dir = UPSCALE_DIR / "input"
+    input_dir.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand(UPSCALE_INPUT_HW, UPSCALE_INPUT_HW, 3, generator=gen)
+    (input_dir / "input.png").write_bytes(encode_png(img.numpy()))
+    for kind, name in ((3, "Average"), (4, "Paeth")):
+        data = encode_png(img.numpy(), filter_type=kind)
+        t0 = time.perf_counter()
+        decoded = decode_png(data)
+        secs = time.perf_counter() - t0
+        require(decoded.shape == (UPSCALE_INPUT_HW, UPSCALE_INPUT_HW, 3),
+                f"decode_png under {name}: shape {decoded.shape}")
+        say(f"  decode_png of a 1024² RGB PNG under the {name} filter: "
+            f"{secs:.3f} s on the host")
+    return input_dir
+
+
+def upscale_workflow() -> dict:
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / UPSCALE_WORKFLOW).read_text()))
+    usdu = workflow["5"]["inputs"]
+    require((usdu["steps"], usdu["denoise"], usdu["upscale_by"],
+             usdu["tile_width"], usdu["tile_padding"], usdu["cfg"])
+            == (20, 0.35, 1.0, 1024, 32, 6.0)
+            and workflow["8"]["inputs"]["model_name"] == "esrgan-x4",
+            f"{UPSCALE_WORKFLOW} changed; update the script")
+    return workflow
+
+
+class UpscaleRun(NamedTuple):
+    launches: dict
+    image: object           # the first request's [1,4096,4096,3] on the card
+    image_u8: object        # the same as uint8 numpy
+    input_dir: Path
+    seconds: list
+
+
+def upscale_phase(torch, fa, sdxl: PathRun) -> UpscaleRun:
+    """The upscale workflow, twice, on the sdxl path's registry."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    say("upscale path:")
+    input_dir = write_upscale_input(torch)
+    workflow = upscale_workflow()
+    out_dir = UPSCALE_DIR / "out"
+    png = out_dir / UPSCALE_PNG
+    executor = GraphExecutor({"model_registry": sdxl.registry,
+                              "input_dir": str(input_dir),
+                              "output_dir": str(out_dir)})
+    pipeline = sdxl.bundle.pipeline
+    torch.cuda.reset_peak_memory_stats()
+    images, seconds = [], []
+    fa.reset_launches()
+    for i in range(2):
+        png.unlink(missing_ok=True)
+        before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+        t0 = time.perf_counter()
+        out = executor.execute(workflow)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seconds.append(secs)
+        counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                         for k in fa.CUDA_LAUNCHES}
+        esrgan = sdxl.registry.get_upscaler("esrgan-x4").timings
+        chunks = pipeline.timings["tile_chunks"]
+        say(f"  request {i}: {secs:.3f} s; esrgan-x4 {esrgan['seconds']:.3f} s "
+            f"({esrgan['tiles']} tiles of 544², {esrgan['tile_batch']} a call); "
+            f"composite {pipeline.timings['composite_s']:.3f} s; "
+            f"launches {counts}; CUDA kernels {kernel_counts}")
+        for j, c in enumerate(chunks):
+            say(f"    chunk {j}: {c['tiles']} tiles; encode {c['encode_s']:.3f} s, "
+                f"sampling {c['sample_s']:.3f} s ({c['sample_s'] / UPSCALE_STEPS:.4f}"
+                f" s/step), decode {c['decode_s']:.3f} s")
+        img = out["5"][0]
+        hw = (UPSCALE_OUT_HW, UPSCALE_OUT_HW)
+        require(len(chunks) == UPSCALE_TILES // UPSCALE_CHUNK
+                and all(c["tiles"] == UPSCALE_CHUNK for c in chunks),
+                f"upscale request {i}: chunks {[c['tiles'] for c in chunks]}")
+        require(tuple(img.shape) == (1, *hw, 3), f"image shape {tuple(img.shape)}")
+        require(bool(torch.isfinite(img).all()), "non-finite image")
+        require(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+                "image outside [0, 1]")
+        require(png.is_file() and png_size(png) == hw,
+                f"{png} missing or not {hw[1]}x{hw[0]}")
+        require(counts == UPSCALE_EXPECTED,
+                f"upscale request {i}: launches {counts} != {UPSCALE_EXPECTED}")
+        require(kernel_counts == UPSCALE_EXPECTED_CUDA,
+                f"upscale request {i}: CUDA kernel launches {kernel_counts} != "
+                f"{UPSCALE_EXPECTED_CUDA}")
+        images.append(img)
+    peak = torch.cuda.max_memory_allocated()
+    esrgan = sdxl.registry.get_upscaler("esrgan-x4").model
+    say(f"  esrgan-x4: {sum(p.numel() for p in esrgan.parameters())} "
+        "parameters (RRDBNet, 23 blocks, 64 features)")
+    require(torch.equal(images[0], images[1]),
+            "the upscale workflow twice gave different images")
+    say(f"  launch counts as expected; repeat bitwise equal; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    return UpscaleRun(dict(fa.LAUNCHES), images[0], to_uint8(images[0])[0],
+                      input_dir, seconds)
+
+
+def upscale_reference_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> None:
+    """One 4-tile chunk of the upscale with the kernels, each of its 7
+    UNet forwards (batch 8: 4 tiles × CFG) also run on the same inputs
+    with the attention sites on the plain versions: every forward's eps
+    within 5e-2·max|plain|. Then the whole chunk once more on the plain
+    versions, on the same noise: its difference from the kernels' chunk
+    after 7 steps, CFG 6 and the VAE is printed, not held to a bound
+    (random weights amplify round-off along the trajectory)."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.graph.nodes_builtin import _adm_from_cond
+    from comfyui_distributed_tpu_torch.models import layers
+    from comfyui_distributed_tpu_torch.tiles.engine import TileUpscaler, UpscaleSpec
+
+    def plain_attention():
+        return (mock.patch.object(layers, "self_attention",
+                                  fa.fused_qkv_attention_plain),
+                mock.patch.object(layers, "full_attention",
+                                  fa.flash_attention_plain))
+
+    workflow = upscale_workflow()
+    bundle = sdxl.bundle
+    pipeline = bundle.pipeline
+    adm = pipeline.unet.config.adm_in_channels
+    conds = []
+    for node in ("2", "3"):
+        ctx, pooled = bundle.text_encoder.encode([workflow[node]["inputs"]["text"]])
+        conds.append((ctx, _adm_from_cond({"pooled": pooled}, adm, pipeline.device)))
+    (ctx, y), (unc, uy) = conds
+    spec = UpscaleSpec(scale=1.0, tile_w=1024, tile_h=1024, padding=32,
+                       steps=20, denoise=0.35, guidance_scale=6.0)
+    ups = TileUpscaler(pipeline)
+    plan = ups.range_plan(up.image[0], spec, 42, ctx, unc, y, uy)
+    require(plan.chunk == UPSCALE_CHUNK and plan.num_tiles == UPSCALE_TILES,
+            f"upscale reference: chunk {plan.chunk}, {plan.num_tiles} tiles")
+    unet = pipeline.unet
+    forward = unet.forward
+    errs = []
+
+    def checked(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        sa, fu = plain_attention()
+        with sa, fu:
+            ref = forward(*args, **kwargs)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out).all()), "upscale reference: non-finite eps")
+        errs.append(((out.float() - ref.float()).abs().max().item(),
+                     ref.float().abs().max().item(), tuple(out.shape)))
+        return out
+
+    before = dict(fa.LAUNCHES)
+    with mock.patch.object(unet, "forward", checked):
+        tiles = plan.run_range(0, UPSCALE_CHUNK)
+    sites = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    require(sites["fused_qkv_attention"] == 70 * UPSCALE_STEPS
+            and sites["flash_attention_packed"] == 70 * UPSCALE_STEPS
+            and len(errs) == UPSCALE_STEPS,
+            f"upscale reference: launches {sites}, {len(errs)} forwards")
+    worst = max(e / m for e, m, _ in errs)
+    say("upscale reference: the chunk's UNet forwards (eps "
+        f"{errs[0][2]}) with kernels vs plain attention on the same inputs: "
+        "max_abs_err / max|plain| per step "
+        f"{[round(e / m, 5) for e, m, _ in errs]} (tolerance {REFERENCE_TOL})")
+    require(worst <= REFERENCE_TOL,
+            "upscale reference: a UNet forward of the chunk disagrees")
+    # the round-off floor: the same plain chain in chunks of 2 tiles, whose
+    # products cuBLAS and cuDNN compute in another order
+    halves = ups.range_plan(up.image[0], spec, 42, ctx, unc, y, uy,
+                            tiles_per_device=2)
+    sa, fu = plain_attention()
+    with sa, fu:
+        ref = plan.run_range(0, UPSCALE_CHUNK)
+        floor = halves.run_range(0, UPSCALE_CHUNK)
+    for what, a, b in (("kernels vs plain", tiles, ref),
+                       ("plain in chunks of 4 vs of 2 (round-off floor)",
+                        ref, floor)):
+        diff = abs(a - b)
+        say(f"  the whole chunk, {what}, each on its own trajectory from the "
+            f"same noise: decoded tiles differ by max {diff.max():.6g}, mean "
+            f"{diff.mean():.6g}; {(diff > 1 / 255).mean():.4%} of values by "
+            "more than one 8-bit level (not bounded)")
+
+
+# --- phase 8 -----------------------------------------------------------------
 
 SERVE_DIR = OUTPUT_DIR / "serve"
 SERVE_BOOT_S = 180.0         # the worker's process start, up to /health
@@ -643,13 +924,14 @@ def http_json(url: str, payload=None, timeout: float = 30.0) -> tuple[int, dict]
             return e.code, json.loads(e.read() or b"{}")
 
 
-def start_worker(port: int, log_path: Path):
+def start_worker(port: int, log_path: Path, input_dir: Path):
     """``serve`` through the CLI as a worker on the card; returns the
     process once ``/distributed/health`` answers."""
     (SERVE_DIR / "worker.json").write_text("{}")
     env = {**os.environ, "CDT_IS_WORKER": "1", "CDT_WORKER_ID": "w0",
            "CDT_CONFIG_PATH": str(SERVE_DIR / "worker.json"),
-           "CDT_OUTPUT_DIR": str(SERVE_DIR / "worker_out")}
+           "CDT_OUTPUT_DIR": str(SERVE_DIR / "worker_out"),
+           "CDT_INPUT_DIR": str(input_dir)}
     with open(log_path, "wb") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "comfyui_distributed_tpu_torch", "serve",
@@ -674,10 +956,21 @@ def start_worker(port: int, log_path: Path):
                        f"{SERVE_BOOT_S} s")
 
 
-def serve_phase(torch, fa, sdxl: PathRun) -> dict:
-    """Serve the SDXL workflow twice through ``POST /distributed/queue``
-    to a master in this process and a worker subprocess; returns the
-    master's launches in the phase."""
+def wait_history(base: str, prompt_id: str, t0: float, what: str) -> dict:
+    while True:
+        status, entry = http_json(f"{base}/distributed/history/{prompt_id}")
+        if status == 200 and entry.get("status") in (
+                "success", "error", "interrupted"):
+            return entry
+        require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                f"{what} not final after {SERVE_REQUEST_S} s")
+        time.sleep(0.05)
+
+
+def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
+    """Serve the SDXL workflow twice, then the upscale workflow once,
+    through ``POST /distributed/queue`` to a master in this process and a
+    worker subprocess; returns the master's launches in the phase."""
     from comfyui_distributed_tpu_torch.api.app import ServerThread
     from comfyui_distributed_tpu_torch.cluster.controller import Controller
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
@@ -702,13 +995,14 @@ def serve_phase(torch, fa, sdxl: PathRun) -> dict:
     worker = server = None
     ok = False
     try:
-        worker = start_worker(worker_port, log_path)
+        worker = start_worker(worker_port, log_path, up.input_dir)
         os.environ["CDT_OUTPUT_DIR"] = str(master_out)
+        os.environ["CDT_INPUT_DIR"] = str(up.input_dir)
         try:
             master = Controller(SERVE_DIR / "master.json", device="cuda",
                                 model_registry=sdxl.registry)
         finally:
-            del os.environ["CDT_OUTPUT_DIR"]
+            del os.environ["CDT_OUTPUT_DIR"], os.environ["CDT_INPUT_DIR"]
         server = ServerThread(master, port=master_port)
         base = f"http://127.0.0.1:{master_port}"
         fa.reset_launches()
@@ -723,15 +1017,7 @@ def serve_phase(torch, fa, sdxl: PathRun) -> dict:
                     f"queue answered {status}: {answer}")
             require(answer.get("worker_count") == 1,
                     f"worker_count {answer.get('worker_count')} != 1: {answer}")
-            while True:
-                status, entry = http_json(
-                    f"{base}/distributed/history/{answer['prompt_id']}")
-                if status == 200 and entry.get("status") in (
-                        "success", "error", "interrupted"):
-                    break
-                require(time.perf_counter() - t0 < SERVE_REQUEST_S,
-                        f"request {i} not final after {SERVE_REQUEST_S} s")
-                time.sleep(0.05)
+            entry = wait_history(base, answer["prompt_id"], t0, f"request {i}")
             secs = time.perf_counter() - t0
             require(entry["status"] == "success", f"request {i}: {entry}")
             counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
@@ -766,6 +1052,7 @@ def serve_phase(torch, fa, sdxl: PathRun) -> dict:
         frame = pack_frame(got[1], level=1)
         say(f"  the worker's image on the wire: {len(frame)} frame bytes "
             f"(CDTF, zlib level 1) of {got[1].nbytes} raw")
+        serve_upscale(torch, fa, base, worker_port, master_out, up)
         ok = True
         return dict(fa.LAUNCHES)
     finally:
@@ -784,6 +1071,75 @@ def serve_phase(torch, fa, sdxl: PathRun) -> dict:
                   file=sys.stderr)
 
 
+UPSCALE_HOLDBACK_S = 120.0   # the master waits this long for the worker's pull
+
+
+def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
+                  up: UpscaleRun) -> None:
+    """The upscale workflow through ``POST /distributed/queue``: the tiles
+    are pulled over HTTP from the master's queue by the master and the
+    worker."""
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    for png in master_out.glob("*.png"):
+        png.unlink()
+    torch.cuda.reset_peak_memory_stats()
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    os.environ["CDT_TILE_MASTER_HOLDBACK_S"] = str(UPSCALE_HOLDBACK_S)
+    try:
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": upscale_workflow()}, timeout=120)
+        require(status == 200 and answer.get("worker_count") == 1,
+                f"upscale queue answered {status}: {answer}")
+        entry = wait_history(base, answer["prompt_id"], t0, "upscale request")
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["CDT_TILE_MASTER_HOLDBACK_S"]
+    require(entry["status"] == "success", f"upscale request: {entry}")
+    master_peak = torch.cuda.max_memory_allocated()
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    status, summary = http_json(
+        f"{base}/distributed/queue_status/{answer['trace_id']}_5")
+    require(status == 200 and summary.get("finished"),
+            f"upscale tile job status {status}: {summary}")
+    owners = summary["completed_by"]
+    mine = sum(1 for w in owners.values() if w == "master")
+    theirs = sum(1 for w in owners.values() if w == "w0")
+    require(len(owners) == UPSCALE_TILES // UPSCALE_CHUNK and mine + theirs
+            == len(owners) and not summary["dead_letter"],
+            f"upscale tile tasks: {summary}")
+    require(theirs >= 1, "the worker submitted none of the upscale's tile "
+            f"tasks over /distributed/submit_tiles: {owners}")
+    per_chunk = 70 * UPSCALE_STEPS
+    want = {"fused_qkv_attention": 8 + per_chunk * mine,
+            "flash_attention_packed": per_chunk * mine,
+            "flash_attention_bh": 0}
+    require(counts == want, f"served upscale: master launches {counts} != {want}")
+    want_cuda = {"qkv_projection": 8 + per_chunk * mine,
+                 "flash_attention_core": per_chunk * mine,
+                 "short_kv_attention": 8 + per_chunk * mine}
+    require(kernel_counts == want_cuda,
+            f"served upscale: master CUDA kernel launches {kernel_counts} != "
+            f"{want_cuda}")
+    pngs = sorted(master_out.glob("upscaled_*.png"))
+    require(len(pngs) == 1, f"served upscale: {len(pngs)} PNGs, expected 1")
+    got = to_uint8(decode_png(pngs[0].read_bytes()))[0]
+    require(np_equal(got, up.image_u8),
+            "the served upscale differs from the direct upscale")
+    status, info = http_json(f"http://127.0.0.1:{worker_port}/distributed/system_info")
+    worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
+                   if status == 200 and info.get("devices") else 0)
+    say(f"  served upscale: {secs:.3f} s (POST to final history; direct "
+        f"{up.seconds[0]:.3f} / {up.seconds[1]:.3f} s); tile tasks "
+        f"{dict(sorted(owners.items()))} (master {mine}, worker {theirs}); "
+        f"master launches {counts}; PNG bitwise equal to the direct upscale; "
+        f"peak memory master {master_peak / 2**30:.3f} GiB (this request), "
+        f"worker {worker_peak / 2**30:.3f} GiB (its process)")
+
+
 def np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -793,7 +1149,7 @@ def np_absdiff(a, b):
     return abs(a.astype("int16") - b.astype("int16"))
 
 
-# --- phases 5 and 8 ----------------------------------------------------------
+# --- phases 5 and 10 ---------------------------------------------------------
 
 
 def compare_whole(torch, what: str, out, ref) -> None:
@@ -885,8 +1241,12 @@ def main() -> int:
         sdxl = path_phase(torch, fa, SDXL_PATH)
         path_launches["sdxl"] = sdxl.launches
         reference_phase(torch, fa, sdxl.bundle)
-        path_launches["serve"] = serve_phase(torch, fa, sdxl)
-        del sdxl
+        up = upscale_phase(torch, fa, sdxl)
+        path_launches["upscale"] = up.launches
+        upscale_reference_phase(torch, fa, sdxl, up)
+        up = up._replace(image=None)
+        path_launches["serve"] = serve_phase(torch, fa, sdxl, up)
+        del sdxl, up
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
             f"master's shutdown and the sdxl path's end")

@@ -12,6 +12,9 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
   ``POST /distributed/job_complete_frames`` (multipart CDTF frames),
   ``POST /distributed/prepare_job``
 - ``POST /distributed/clear_memory``
+- the tile farm's routes (``api/usdu_routes.py``): ``heartbeat``,
+  ``request_image``, ``submit_tiles``, ``submit_image``, ``handback``,
+  ``job_status`` and ``queue_status/{job_id}`` under ``/distributed/``
 
 Errors are JSON ``{"error": ..., "status": ...}``: 400 for a validation
 error or a malformed request, 404 unknown path, 405 wrong method, 413
@@ -37,6 +40,7 @@ from ..utils.exceptions import DistributedError, ValidationError
 from ..utils.frames import unpack_frame
 from ..utils.logging import log
 from ..utils.multipart import parse_multipart
+from . import usdu_routes
 from .queue_request import parse_queue_request_payload
 
 # header cluster peers send on multipart POSTs (a browser form cannot
@@ -60,6 +64,7 @@ class Request:
     headers: dict[str, str]          # names in lower case
     body: bytes = b""
     match: dict[str, str] = dataclasses.field(default_factory=dict)
+    query: dict[str, str] = dataclasses.field(default_factory=dict)
 
     def json(self) -> Any:
         try:
@@ -254,6 +259,7 @@ class App:
         self.add("POST", "/distributed/job_complete_frames", job_complete_frames)
         self.add("POST", "/distributed/prepare_job", prepare_job)
         self.add("POST", "/distributed/clear_memory", clear_memory)
+        usdu_routes.register(self, controller)
 
     def add(self, method: str, template: str, handler: Handler) -> None:
         pattern = re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)", re.escape(template))
@@ -318,8 +324,10 @@ async def read_request(reader: asyncio.StreamReader) -> Request:
         raise HTTPError(413, f"payload too large ({length} bytes, limit "
                              f"{constants.max_payload_size()})")
     body = await reader.readexactly(length) if length else b""
-    path = urllib.parse.unquote(urllib.parse.urlsplit(target).path)
-    return Request(method.upper(), path, headers, body)
+    parts = urllib.parse.urlsplit(target)
+    query = dict(urllib.parse.parse_qsl(parts.query))
+    return Request(method.upper(), urllib.parse.unquote(parts.path), headers,
+                   body, query=query)
 
 
 def _encode_response(response: Response) -> bytes:

@@ -3,9 +3,11 @@
 Its role comes from ``CDT_IS_WORKER``: a master orchestrates and
 collects, a worker executes dispatched prompts and sends its results
 back. Both run the same code and the same HTTP app (``api/app.py``).
-The cache, preemption, stages, the front door, warmup, the elastic
-fleet and the progress tracker of the JAX package's controller are not
-ported.
+Besides the collector bridge it owns the tile farm of the upscale
+workflow (``cluster/tile_farm.py``), both bound to the server's loop at
+startup. The cache, preemption, stages, the front door, warmup, the
+elastic fleet and the progress tracker of the JAX package's controller
+are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .collector_bridge import CollectorBridge
 from .job_store import JobStore
 from .orchestration import Orchestrator
 from .runtime import PromptQueue
+from .tile_farm import TileFarm
 
 
 class Controller:
@@ -55,6 +58,7 @@ class Controller:
                                          config_loader=self.load_config)
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
+        self.tile_farm: Optional[TileFarm] = None
         self._registry = model_registry
 
     def load_config(self) -> dict:
@@ -86,6 +90,8 @@ class Controller:
         }
         if self.bridge is not None:
             ctx["collector_bridge"] = self.bridge
+        if self.tile_farm is not None:
+            ctx["tile_farm"] = self.tile_farm
         return ctx
 
     # --- lifecycle ----------------------------------------------------------
@@ -94,6 +100,7 @@ class Controller:
         self.loop = asyncio.get_running_loop()
         self.bridge = CollectorBridge(self.store, self.loop,
                                       host_resolver=self.host_by_id)
+        self.tile_farm = TileFarm(self.store, self.loop)
         self.queue.start()
         role = "worker" if self.is_worker else "master"
         log(f"controller up as {role} on {self.device} "
@@ -138,6 +145,7 @@ class Controller:
                     "index": i, "name": torch.cuda.get_device_name(i),
                     "total_memory": props.total_memory,
                     "memory_allocated": torch.cuda.memory_allocated(i),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(i),
                     "memory_reserved": torch.cuda.memory_reserved(i),
                 })
         return info

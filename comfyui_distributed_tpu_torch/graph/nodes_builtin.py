@@ -1,7 +1,10 @@
 """The port's node set: the nodes of the txt2img workflows
-(``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``)
-and the two the control plane injects (``DistributedEmptyImage``,
-``PreviewImage``), with the JAX package's names and contracts.
+(``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``),
+of the upscale workflow (``workflows/distributed-upscale.json``:
+``LoadImage``, ``UpscaleModelLoader``, ``ImageUpscaleWithModel``,
+``UltimateSDUpscaleDistributed``) and the two the control plane injects
+(``DistributedEmptyImage``, ``PreviewImage``), with the JAX package's
+names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
 [B,H,W,C] in [0,1]; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]};
@@ -11,13 +14,16 @@ MODEL = ModelBundle. Tensors stay on the bundle's device until
 
 from __future__ import annotations
 
+import hashlib
 import json
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import constants
 from ..utils.device import resolve_device
 from ..utils.exceptions import ValidationError
 from ..utils.logging import log
@@ -284,3 +290,213 @@ class PreviewImage(NodeDef):
 
     def execute(self, images, **_):
         return ()
+
+
+@register_node("LoadImage")
+class LoadImage(NodeDef):
+    """A PNG from the controller's input directory (``CDT_INPUT_DIR``) as a
+    [1,H,W,C] image on the registry's device; any PNG the JAX package's
+    Pillow decode accepts (``utils/image.decode_png``)."""
+
+    INPUTS = {"image": "STRING"}
+    HIDDEN = {"input_dir": "STRING", "model_registry": "*"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, image: str, input_dir: str = "", model_registry=None,
+                **_):
+        from ..utils.image import decode_png
+
+        root = Path(input_dir or "input")
+        path = root / image
+        if root.resolve() not in path.resolve().parents:
+            raise ValidationError(f"image path {image!r} leaves the input "
+                                  "directory", field="image")
+        if not path.is_file():
+            raise ValidationError(f"image file not found: {path}", field="image")
+        device = (model_registry.device if model_registry is not None
+                  else resolve_device())
+        return (torch.from_numpy(decode_png(path.read_bytes()))[None].to(device),)
+
+
+@register_node("UpscaleModelLoader")
+class UpscaleModelLoader(NodeDef):
+    """An RRDBNet upscaler by preset name (``esrgan-x4``,
+    ``realesrgan-x2``, ``tiny-x2``, ``tiny-x4``), random-initialised from
+    the registry's seed on its device and kept by the registry. A
+    published ``.safetensors`` under ``CDT_UPSCALE_MODEL_DIR`` is refused:
+    loading one is not ported yet."""
+
+    INPUTS = {"model_name": "STRING"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("UPSCALE_MODEL",)
+
+    def execute(self, model_name: str, model_registry=None, **_):
+        name = str(model_name)
+        root = constants.upscale_model_dir()
+        if root:
+            fname = name if name.endswith(".safetensors") else f"{name}.safetensors"
+            if (Path(root) / fname).is_file():
+                raise NotImplementedError(
+                    f"upscale model {fname} found under {root}, but loading "
+                    ".safetensors checkpoints is not ported yet (ROADMAP.md, "
+                    "item A.7: LDM loading); remove it to use the "
+                    "random-init preset")
+        if model_registry is None:
+            from ..models.registry import ModelRegistry
+            model_registry = ModelRegistry()
+        return (model_registry.get_upscaler(name),)
+
+
+@register_node("ImageUpscaleWithModel")
+class ImageUpscaleWithModel(NodeDef):
+    """The learned upscale, tiled (``tiles/model_upscale.py``)."""
+
+    INPUTS = {"upscale_model": "UPSCALE_MODEL", "image": "IMAGE"}
+    OPTIONAL = {"tile": "INT", "tile_padding": "INT"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, upscale_model, image, tile: int = 256,
+                tile_padding: int = 16, **_):
+        from ..tiles.model_upscale import tiled_model_upscale
+
+        images = torch.as_tensor(image).float()
+        if images.ndim == 3:
+            images = images[None]
+        tile = min(int(tile), images.shape[1], images.shape[2])
+        return (tiled_model_upscale(upscale_model, images, tile=tile,
+                                    padding=int(tile_padding)),)
+
+
+def _journal_key(images, spec, seed: int, index: int = 0, chunk: int = 1,
+                 total: int = 0) -> str:
+    """Crash-resume key from the job's content (input pixels, spec, seed)
+    and its task layout (chunk, total): a re-submitted workflow gets a
+    new job id, and a restart with another chunk must not restore ranges
+    of another size."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(
+        torch.as_tensor(images).detach().float().cpu().numpy()).tobytes())
+    h.update(repr((spec, int(seed), int(index), int(chunk), int(total))).encode())
+    return f"usdu_{h.hexdigest()[:20]}"
+
+
+@register_node("UltimateSDUpscaleDistributed")
+class UltimateSDUpscaleDistributed(NodeDef):
+    """Tiled img2img upscale (``tiles/engine.py``).
+
+    Without a tile farm, job id or workers it runs the engine directly.
+    Farmed, one tile job per image goes through the pull queue of
+    ``cluster/tile_farm.py``: the master runs tasks and composites, a
+    worker runs tasks and returns a plain resize of its input (the
+    master owns the composite; the worker's graph stays shape-correct).
+    A batch of at least ``dynamic_threshold`` images (≥ 2) is farmed by
+    image instead, each task one whole upscale seeded ``seed + i``.
+
+    ``spatial_cond`` and ControlNet conditioning are not ported yet."""
+
+    INPUTS = {
+        "image": "IMAGE", "model": "MODEL",
+        "positive": "CONDITIONING", "negative": "CONDITIONING",
+        "seed": "INT", "steps": "INT", "denoise": "FLOAT",
+        "upscale_by": "FLOAT",
+    }
+    OPTIONAL = {
+        "tile_width": "INT", "tile_height": "INT", "tile_padding": "INT",
+        "cfg": "FLOAT", "sampler_name": "STRING", "scheduler": "STRING",
+        "spatial_cond": "MASK", "dynamic_threshold": "INT",
+    }
+    HIDDEN = {
+        "multi_job_id": "STRING", "is_worker": "BOOLEAN",
+        "worker_id": "STRING", "master_url": "STRING",
+        "enabled_worker_ids": "*", "delegate_only": "BOOLEAN",
+        "tile_farm": "*",
+    }
+    RETURNS = ("IMAGE",)
+
+    def execute(self, image, model, positive, negative, seed: int, steps: int,
+                denoise: float, upscale_by: float, tile_width: int = 512,
+                tile_height: int = 512, tile_padding: int = 32,
+                cfg: float = 5.0, sampler_name: str = "euler",
+                scheduler: str = "karras", spatial_cond=None,
+                dynamic_threshold: int = 8, multi_job_id: str = "",
+                is_worker: bool = False, worker_id: str = "",
+                master_url: str = "", enabled_worker_ids=(), tile_farm=None,
+                **_):
+        from ..cluster.tile_farm import assemble_tiles
+        from ..ops.resize import upscale_image
+        from ..tiles.engine import TileUpscaler, UpscaleSpec
+
+        if spatial_cond is not None or (isinstance(positive, dict)
+                                        and positive.get("control")):
+            raise NotImplementedError(
+                "spatial_cond and ControlNet conditioning of "
+                "UltimateSDUpscaleDistributed are not ported yet (ROADMAP.md, "
+                "item A.4: ControlNet)")
+        spec = UpscaleSpec(
+            scale=float(upscale_by), tile_w=int(tile_width),
+            tile_h=int(tile_height), padding=int(tile_padding),
+            steps=int(steps), denoise=float(denoise), sampler=sampler_name,
+            scheduler=scheduler, guidance_scale=float(cfg))
+        pipeline = model.pipeline
+        upscaler = TileUpscaler(pipeline)
+        adm = pipeline.unet.config.adm_in_channels
+        y = _adm_from_cond(positive, adm, pipeline.device) if adm else None
+        uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
+        ctx, unc = positive["context"], negative["context"]
+        images = torch.as_tensor(image).float().to(pipeline.device)
+        if images.ndim == 3:
+            images = images[None]
+        B = images.shape[0]
+        journal_dir = constants.tile_journal_dir()
+
+        farm_active = (tile_farm is not None and multi_job_id
+                       and (is_worker or enabled_worker_ids))
+        if not farm_active:
+            return (upscaler.upscale(images, spec, int(seed), ctx, unc, y, uy),)
+
+        if B >= max(2, int(dynamic_threshold)):
+            def process_images(start: int, end: int) -> np.ndarray:
+                return np.concatenate([
+                    upscaler.upscale(images[i:i + 1], spec, int(seed) + i, ctx,
+                                     unc, y, uy).cpu().numpy()
+                    for i in range(start, end)])
+
+            def plain_resize(start: int, end: int) -> np.ndarray:
+                # degraded fill of a dead-lettered image: no diffusion
+                return upscale_image(images[start:end], spec.scale,
+                                     spec.resize_method).cpu().numpy()
+
+            if is_worker:
+                tile_farm.worker_run(multi_job_id, worker_id, master_url,
+                                     process_images)
+                return (upscale_image(images, spec.scale, spec.resize_method),)
+            results = tile_farm.master_run(
+                multi_job_id, B, process_images, chunk=1,
+                journal_dir=journal_dir or None,
+                journal_key=_journal_key(images, spec, seed, 0, 1, B)
+                if journal_dir else None)
+            full = assemble_tiles(results, B, 1, fallback_fn=plain_resize)
+            return (torch.from_numpy(full).to(pipeline.device),)
+
+        outs = []
+        for b in range(B):
+            T = upscaler.grid_for(images.shape[1], images.shape[2], spec).num_tiles
+            plan = upscaler.range_plan(images[b], spec, int(seed), ctx, unc, y,
+                                       uy, first_index=b * T)
+            job_id = f"{multi_job_id}_b{b}" if B > 1 else multi_job_id
+            if is_worker:
+                tile_farm.worker_run(job_id, worker_id, master_url,
+                                     plan.run_range)
+                outs.append(upscale_image(images[b][None], spec.scale,
+                                          spec.resize_method)[0])
+                continue
+            results = tile_farm.master_run(
+                job_id, plan.num_tiles, plan.run_range, chunk=plan.chunk,
+                journal_dir=journal_dir or None,
+                journal_key=_journal_key(images[b], spec, seed, b, plan.chunk,
+                                         plan.num_tiles)
+                if journal_dir else None)
+            tiles = assemble_tiles(results, plan.num_tiles, plan.chunk,
+                                   fallback_fn=plan.source_range)
+            outs.append(upscaler.composite(tiles, plan))
+        return (torch.stack(outs),)

@@ -34,6 +34,8 @@ from .from_jax import load_from_jax
 from .layers import flax_init_
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
 from .unet import UNet2D, UNetConfig
+from .upscaler import PRESETS as UPSCALER_PRESETS
+from .upscaler import RRDBNet, UpscalerBundle
 from .vae import AutoencoderKL, VAEConfig
 
 
@@ -80,8 +82,9 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
 
 
 class ModelBundle:
-    """Loaded stack: the pipeline (UNet or DiT, and the VAE decoder) and
-    the text encoder."""
+    """Loaded stack: the pipeline (UNet or DiT, and the VAE) and the text
+    encoder. A UNet bundle's VAE has its encoder too (the tile img2img
+    engine encodes); a DiT bundle's has the decoder only."""
 
     def __init__(self, preset: ModelPreset, device: DeviceLike = None,
                  seed: int = 0):
@@ -93,7 +96,8 @@ class ModelBundle:
         flow = preset.kind == "dit"
         core = _random(lambda: DiT(preset.dit) if flow else UNet2D(preset.unet),
                        self.device, gen)
-        vae = _random(lambda: AutoencoderKL(preset.vae), self.device, gen)
+        vae = _random(lambda: AutoencoderKL(preset.vae, encoder=not flow),
+                      self.device, gen)
         self.pipeline = (FlowPipeline if flow else Txt2ImgPipeline)(core, vae)
 
     @property
@@ -103,23 +107,50 @@ class ModelBundle:
                 else self.pipeline.unet)
 
     def load_from_jax(self, core: Mapping, vae_dec: Mapping,
-                      text: Mapping) -> "ModelBundle":
+                      text: Mapping,
+                      vae_enc: Optional[Mapping] = None) -> "ModelBundle":
         """Replace the weights with the JAX package's trees (UNet or DiT
-        params, VAE decoder params, text-encoder params)."""
+        params, VAE decoder params, text-encoder params and, where given,
+        the VAE encoder params; without them an encoder keeps its
+        weights)."""
         load_from_jax(self.core, core)
         load_from_jax(self.pipeline.vae.decoder, vae_dec)
         load_from_jax(self.text_encoder.module, text)
+        if vae_enc is not None:
+            if self.pipeline.vae.encoder is None:
+                raise ValueError(f"the {self.preset.name} bundle has no "
+                                 "VAE encoder to carry vae_enc into")
+            load_from_jax(self.pipeline.vae.encoder, vae_enc)
         return self
 
 
 class ModelRegistry:
-    """Bundles by preset name, built on first use on one device."""
+    """Bundles by preset name, built on first use on one device; the
+    upscalers beside them (``get_upscaler``), drawn from the same seed,
+    so that every controller of a cluster builds the same weights."""
 
     def __init__(self, device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
         self.seed = int(seed)
         self._cache: dict[str, ModelBundle] = {}
+        self._upscalers: dict[str, UpscalerBundle] = {}
         self._lock = threading.Lock()
+
+    def get_upscaler(self, name: str) -> UpscalerBundle:
+        """The RRDBNet preset ``name``, random-initialised on first use."""
+        with self._lock:
+            if name not in self._upscalers:
+                config = UPSCALER_PRESETS.get(name)
+                if config is None:
+                    raise ValidationError(
+                        f"unknown upscale model {name!r}; have "
+                        f"{sorted(UPSCALER_PRESETS)}", field="model_name")
+                model = _random(lambda: RRDBNet(config), self.device,
+                                seed_generator(self.seed, self.device))
+                self._upscalers[name] = UpscalerBundle(model, name)
+                log(f"built upscaler {name} on {self.device} (random init, "
+                    f"seed {self.seed})")
+            return self._upscalers[name]
 
     def available(self) -> list[str]:
         return sorted(PRESETS)

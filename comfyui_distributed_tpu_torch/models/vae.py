@@ -1,8 +1,9 @@
-"""AutoencoderKL decoder (counterpart of the JAX ``models/vae.py``).
+"""AutoencoderKL (counterpart of the JAX ``models/vae.py``): the decoder
+of the txt2img paths and the encoder of the tile img2img engine.
 
-Only the decode half is ported: the txt2img path never encodes. The
-decoder's single-head mid attention is a plain matmul+softmax, as in the
-JAX model (no Pallas kernel there). NHWC at the public boundary.
+The single-head mid attention of both halves is a plain matmul+softmax,
+as in the JAX model (XLA runs it there; no Pallas kernel). NHWC at the
+public boundary.
 """
 
 from __future__ import annotations
@@ -107,6 +108,49 @@ class _MidBlock(nn.Module):
         return self.res2(x)
 
 
+class Encoder(nn.Module):
+    """Pixels [B,H,W,3] in ~[-1,1] → moments [B,h,w,2·C_lat] (mean ⊕
+    logvar)."""
+
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        self.config = cfg = config
+        dt = cfg.torch_dtype
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.base_channels, 3,
+                                 padding=1, dtype=dt)
+        ch = cfg.base_channels
+        for level, mult in enumerate(cfg.channel_mult):
+            out = cfg.base_channels * mult
+            for i in range(cfg.num_res_blocks):
+                self.add_module(f"down_{level}_res_{i}",
+                                _VAEResBlock(ch, out, dt))
+                ch = out
+            if level < len(cfg.channel_mult) - 1:
+                self.add_module(f"down_{level}_ds",
+                                nn.Conv2d(ch, ch, 3, stride=2, dtype=dt))
+        self.mid = _MidBlock(ch, dt)
+        self.norm_out = GroupNorm32(ch, epsilon=_VAE_EPS)
+        # fp32 compute sites, as in the JAX model
+        self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1,
+                                  dtype=torch.float32)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
+                                    2 * cfg.latent_channels, 1,
+                                    dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = self.conv_in(x.permute(0, 3, 1, 2).to(cfg.torch_dtype))
+        for level in range(len(cfg.channel_mult)):
+            for i in range(cfg.num_res_blocks):
+                h = getattr(self, f"down_{level}_res_{i}")(h)
+            if level < len(cfg.channel_mult) - 1:
+                # LDM's asymmetric (0, 1) padding before the stride-2 conv
+                h = getattr(self, f"down_{level}_ds")(F.pad(h, (0, 1, 0, 1)))
+        h = F.silu(self.norm_out(self.mid(h)))
+        h = self.quant_conv(self.conv_out(h.float()))
+        return h.permute(0, 2, 3, 1)
+
+
 class Decoder(nn.Module):
     """Scaled-back latent z [B,h,w,C_lat] → pixels [B,H,W,3] in ~[-1,1]."""
 
@@ -150,13 +194,25 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decoder with the scaling-factor handling: ``decode`` maps scaled
-    latents back to [-1, 1] pixels."""
+    """Decoder, and with ``encoder=True`` the encoder, with the
+    scaling-factor handling: ``encode`` maps [-1, 1] pixels to scaled
+    latents (the posterior's mean: inference never samples it),
+    ``decode`` maps scaled latents back to [-1, 1] pixels.
 
-    def __init__(self, config: VAEConfig):
+    The encoder is registered after the decoder, so a seeded random
+    init draws the decoder's weights whether or not it builds one."""
+
+    def __init__(self, config: VAEConfig, encoder: bool = False):
         super().__init__()
         self.config = config
         self.decoder = Decoder(config)
+        self.encoder = Encoder(config) if encoder else None
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        if self.encoder is None:
+            raise RuntimeError("this AutoencoderKL was built without an encoder")
+        mean = self.encoder(images)[..., :self.config.latent_channels]
+        return (mean - self.config.shift_factor) * self.config.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         return self.decoder(latents / self.config.scaling_factor

@@ -1,0 +1,264 @@
+"""The tile engine: Ultimate SD Upscale on one device (counterpart of the
+JAX ``tiles/engine.py``).
+
+resize → extract every crop (static origins) → img2img the crops in
+fixed-size chunks, the last one padded with zero tiles → feathered,
+weight-normalised composite. The JAX package runs the chunks as one
+SPMD program over a mesh; here one device runs them one after another.
+
+One plan serves both ways of running it (``range_plan``): ``upscale``
+runs the whole tile range locally, and the cross-host farm
+(``cluster/tile_farm.py``) hands ranges of the same plan to any host.
+Two things make a farmed image bitwise equal to a direct one:
+
+- the UNet always sees a chunk of the same size, so cuBLAS and cuDNN
+  pick the same algorithms on every host;
+- each tile's noise comes from a generator seeded from (seed, global
+  tile index) (``parallel/rng.tile_seed``), so no host, chunk or requeue
+  changes it. The JAX package folds the index into a threefry key
+  instead, so the numbers differ (a documented divergence): the parity
+  tests hand JAX's noise over (``noise=``).
+
+The VAE encodes and decodes one tile at a time inside a chunk, on every
+host alike: its single-head mid attention materialises an
+[N, N] fp32 score matrix (N = 18 496 tokens for a 1088² crop, 1.37 GB).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..diffusion.guidance import cfg_denoiser
+from ..diffusion.pipeline import GenerationSpec, make_sigma_ladder
+from ..diffusion.samplers import sample
+from ..ops.blend import composite_tiles, extract_tiles, feather_mask
+from ..ops.resize import upscale_image
+from ..parallel.rng import seed_generator, tile_seed
+from ..utils import constants
+from .grid import TileGrid, compute_tile_grid
+
+
+@dataclasses.dataclass(frozen=True)
+class UpscaleSpec:
+    scale: float = 2.0
+    tile_w: int = 512
+    tile_h: int = 512
+    padding: int = 32
+    feather: Optional[int] = None     # None → padding
+    steps: int = 20
+    denoise: float = 0.3
+    sampler: str = "euler"
+    scheduler: str = "karras"
+    guidance_scale: float = 5.0
+    resize_method: str = "lanczos3"
+
+    def generation_spec(self) -> GenerationSpec:
+        return GenerationSpec(steps=self.steps, denoise=self.denoise,
+                              sampler=self.sampler, scheduler=self.scheduler,
+                              guidance_scale=self.guidance_scale)
+
+
+@dataclasses.dataclass
+class TileRangePlan:
+    """What the farm drivers use: the tile geometry and the fixed-chunk
+    range processor."""
+
+    grid: TileGrid
+    chunk: int
+    run_range: Callable[[int, int], np.ndarray]
+    feather: Optional[int]
+    # degraded fill for dead-lettered farm tasks: the plain-resized
+    # source crops, no diffusion (cluster/tile_farm.assemble_tiles)
+    source_range: Optional[Callable[[int, int], np.ndarray]] = None
+
+    @property
+    def num_tiles(self) -> int:
+        return self.grid.num_tiles
+
+
+class TileUpscaler:
+    """Drives a ``Txt2ImgPipeline``'s UNet and VAE over a tile axis.
+
+    ``timings`` lists, per chunk this upscaler ran, the seconds of
+    encode, sampling and decode (host clock around work that ends in a
+    device synchronise). The pipeline's ``timings`` (its last run's)
+    become ``{"tile_chunks": <that list>, "composite_s": …}``."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.timings: list[dict[str, float]] = []
+        pipeline.timings = {"tile_chunks": self.timings}
+
+    @property
+    def device(self) -> torch.device:
+        return self.pipeline.device
+
+    def grid_for(self, image_h: int, image_w: int, spec: UpscaleSpec) -> TileGrid:
+        out_h = int(round(image_h * spec.scale))
+        out_w = int(round(image_w * spec.scale))
+        return compute_tile_grid(out_w, out_h, spec.tile_w, spec.tile_h,
+                                 spec.padding)
+
+    @torch.no_grad()
+    def _img2img_tiles(self, tiles: torch.Tensor, noise: torch.Tensor,
+                       context: torch.Tensor, uncond_context: torch.Tensor,
+                       y: Optional[torch.Tensor], uncond_y: Optional[torch.Tensor],
+                       spec: UpscaleSpec, sigmas: torch.Tensor) -> torch.Tensor:
+        """img2img a [n, ch, cw, C] tile chunk with its [n, h, w, C_lat]
+        unit noise → [n, ch, cw, C] in [0, 1]."""
+        pipe = self.pipeline
+        vae = pipe.vae
+        n = tiles.shape[0]
+        t0 = time.perf_counter()
+        latents = torch.cat([vae.encode(t[None] * 2.0 - 1.0) for t in tiles])
+        pipe._sync()
+        t1 = time.perf_counter()
+        noised = latents + noise * sigmas[0]
+
+        def rows(t):
+            return t.to(pipe.device).expand(n, *t.shape[1:])
+
+        gspec = spec.generation_spec()
+        y_b = None if y is None else rows(y)
+        uy_b = None if uncond_y is None else rows(uncond_y)
+        if gspec.guidance_scale != 1.0:
+            denoise = cfg_denoiser(pipe._denoiser, rows(context),
+                                   rows(uncond_context), gspec.guidance_scale,
+                                   y_b, uy_b)
+        else:
+            denoise = pipe._denoiser(rows(context), y_b)
+        x0 = sample(gspec.sampler, denoise, noised, sigmas)
+        pipe._sync()
+        t2 = time.perf_counter()
+        out = torch.cat([vae.decode(x[None]) for x in x0])
+        out = torch.clamp(out / 2.0 + 0.5, 0.0, 1.0)
+        pipe._sync()
+        self.timings.append({"encode_s": t1 - t0, "sample_s": t2 - t1,
+                             "decode_s": time.perf_counter() - t2,
+                             "tiles": n})
+        return out
+
+    def tiles_per_device_default(self, tile_w: int, tile_h: int) -> int:
+        """Tiles per chunk: ``CDT_TILES_PER_DEVICE`` when set; 1 on the
+        CPU (tests and tiny stacks); on the card 8 up to 512² tiles, 4
+        up to 1024², else 1 (activations grow with the tile area)."""
+        env = constants.tiles_per_device()
+        if env > 0:
+            return env
+        if self.device.type == "cpu":
+            return 1
+        area = tile_w * tile_h
+        if area <= 512 * 512:
+            return 8
+        if area <= 1024 * 1024:
+            return 4
+        return 1
+
+    def _conditioning(self, y, uncond_y):
+        """The ADM vectors the UNet takes (zeros where none is given), or
+        None for a UNet without ADM."""
+        adm = self.pipeline.unet.config.adm_in_channels
+        if not adm:
+            return None, None
+        zeros = torch.zeros((1, adm), device=self.device)
+        return (zeros if y is None else y.float(),
+                zeros if uncond_y is None else uncond_y.float())
+
+    def range_plan(self, image: torch.Tensor, spec: UpscaleSpec, seed: int,
+                   context: torch.Tensor, uncond_context: torch.Tensor,
+                   y: Optional[torch.Tensor] = None,
+                   uncond_y: Optional[torch.Tensor] = None,
+                   tiles_per_device: Optional[int] = None,
+                   first_index: int = 0,
+                   noise: Optional[torch.Tensor] = None) -> TileRangePlan:
+        """Resize one [H, W, C] image and cut its crops once; the plan's
+        ``run_range(start, end)`` img2imgs tiles [start, end) in chunks
+        of ``chunk`` and returns them as fp32 numpy [end − start, ch, cw, C].
+
+        Tile i's noise is drawn from ``tile_seed(seed, first_index + i)``
+        (``upscale`` numbers the tiles of a batch across its images), or
+        taken from ``noise[i]`` ([T, h, w, C_lat]) where given. A range
+        wider than the chunk loops over sub-chunks, so a task sized by
+        another host's chunk still runs; only the padding differs."""
+        dev = self.device
+        H, W, _ = image.shape
+        grid = self.grid_for(H, W, spec)
+        T = grid.num_tiles
+        if tiles_per_device is None:
+            tiles_per_device = self.tiles_per_device_default(spec.tile_w,
+                                                             spec.tile_h)
+        chunk = max(1, min(tiles_per_device, T))
+        sigmas = make_sigma_ladder(spec.generation_spec(),
+                                   self.pipeline.schedule).to(dev)
+        y, uncond_y = self._conditioning(y, uncond_y)
+        up = upscale_image(image[None].to(dev), spec.scale,
+                           spec.resize_method)[0]
+        all_tiles = extract_tiles(up, grid)              # [T, ch, cw, C]
+        ds = self.pipeline.vae.config.downscale
+        latent_shape = (grid.crop_h // ds, grid.crop_w // ds,
+                        self.pipeline.latent_channels)
+
+        def tile_noise(i: int) -> torch.Tensor:
+            if noise is not None and i < T:
+                return noise[i].to(dev, torch.float32)
+            gen = seed_generator(tile_seed(seed, first_index + i), dev)
+            return torch.randn(latent_shape, generator=gen,
+                               dtype=torch.float32, device=dev)
+
+        def run_one(start: int, end: int) -> np.ndarray:
+            seg = all_tiles[start:end]
+            if seg.shape[0] < chunk:
+                seg = torch.cat([seg, seg.new_zeros(
+                    (chunk - seg.shape[0],) + seg.shape[1:])])
+            nz = torch.stack([tile_noise(i) for i in range(start, start + chunk)])
+            out = self._img2img_tiles(seg, nz, context, uncond_context, y,
+                                      uncond_y, spec, sigmas)
+            return out[:end - start].float().cpu().numpy()
+
+        def run_range(start: int, end: int) -> np.ndarray:
+            if start >= end:
+                return np.zeros((0,) + tuple(all_tiles.shape[1:]), np.float32)
+            return np.concatenate([run_one(s, min(s + chunk, end))
+                                   for s in range(start, end, chunk)])
+
+        def source_range(start: int, end: int) -> np.ndarray:
+            return all_tiles[start:end].float().cpu().numpy()
+
+        return TileRangePlan(grid=grid, chunk=chunk, run_range=run_range,
+                             feather=spec.feather, source_range=source_range)
+
+    def composite(self, tiles, plan: TileRangePlan) -> torch.Tensor:
+        """Blend a complete [T, ch, cw, C] tile set into the [H, W, C]
+        output image on the device."""
+        t0 = time.perf_counter()
+        tiles = torch.as_tensor(np.asarray(tiles, np.float32)).to(self.device)
+        masks = feather_mask(plan.grid, plan.feather, device=self.device)
+        out = composite_tiles(tiles, masks, plan.grid)
+        self.pipeline._sync()
+        self.pipeline.timings["composite_s"] = time.perf_counter() - t0
+        return out
+
+    def upscale(self, images: torch.Tensor, spec: UpscaleSpec, seed: int,
+                context: torch.Tensor, uncond_context: torch.Tensor,
+                y: Optional[torch.Tensor] = None,
+                uncond_y: Optional[torch.Tensor] = None,
+                tiles_per_device: Optional[int] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, H, W, C] → [B, H·s, W·s, C] in [0, 1] on the device: each
+        image's plan run over its whole range, then composited. Tiles are
+        numbered across the batch (image b's first is b·T), as in the JAX
+        package's single program. ``noise``: [B·T, h, w, C_lat]."""
+        outs = []
+        for b in range(images.shape[0]):
+            T = self.grid_for(images.shape[1], images.shape[2], spec).num_tiles
+            plan = self.range_plan(
+                images[b], spec, seed, context, uncond_context, y, uncond_y,
+                tiles_per_device=tiles_per_device, first_index=b * T,
+                noise=None if noise is None else noise[b * T:(b + 1) * T])
+            outs.append(self.composite(plan.run_range(0, plan.num_tiles), plan))
+        return torch.stack(outs)

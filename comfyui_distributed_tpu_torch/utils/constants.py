@@ -43,13 +43,18 @@ def _bool(raw: str) -> bool:
     raise ValueError(f"expected one of {_TRUE + _FALSE}")
 
 
-def _read(name: str, default: T, parse: Callable[[str], T]) -> T:
+def _read(name: str, default: T, parse: Callable[[str], T],
+          lenient: bool = False) -> T:
+    """``lenient``: a value that does not parse reads as the default (the
+    JAX package's ``on_garbage="default"`` knobs)."""
     raw = os.environ.get(name)
     if raw is None or not raw.strip():
         return default
     try:
         return parse(raw.strip())
     except ValueError as e:
+        if lenient:
+            return default
         raise KnobError(f"{name}={raw!r} does not parse: {e}") from None
 
 
@@ -80,6 +85,16 @@ def input_dir() -> str:
     return _read("CDT_INPUT_DIR", "input", str)
 
 
+def upscale_model_dir() -> Optional[str]:
+    """Directory of RRDBNet upscaler ``.safetensors`` files."""
+    return _read("CDT_UPSCALE_MODEL_DIR", None, str)
+
+
+def tile_journal_dir() -> str:
+    """Crash-resume journal of completed tile tasks ("" = off)."""
+    return _read("CDT_TILE_JOURNAL_DIR", "", str)
+
+
 # --- payload caps --------------------------------------------------------------
 
 
@@ -106,6 +121,21 @@ def dispatch_timeout() -> float:
 
 def heartbeat_timeout() -> float:
     return _read("CDT_HEARTBEAT_TIMEOUT", 60.0, float)
+
+
+def heartbeat_interval() -> float:
+    """How often the tile master checks its workers' heartbeats."""
+    return _read("CDT_HEARTBEAT_INTERVAL", 10.0, float)
+
+
+def max_batch() -> int:
+    """Result items per flush from a worker host."""
+    return _read("CDT_MAX_BATCH", 20, int)
+
+
+def work_request_budget() -> float:
+    """Wall-clock window of a worker's 404-tolerant work-request loop."""
+    return _read("CDT_WORK_REQUEST_BUDGET", 30.0, float)
 
 
 def collect_poll_timeout() -> float:
@@ -143,3 +173,40 @@ def send_backoff_base() -> float:
 
 def retry_cap_s() -> float:
     return _read("CDT_RETRY_CAP_S", 5.0, float)
+
+
+# --- resilience ----------------------------------------------------------------
+
+
+def breaker_fail_threshold() -> int:
+    """Consecutive failures that open a worker's circuit breaker."""
+    return _read("CDT_BREAKER_FAIL_THRESHOLD", 3, int)
+
+
+def breaker_recovery_s() -> float:
+    """Seconds an open breaker waits before one half-open trial."""
+    return _read("CDT_BREAKER_RECOVERY_S", 30.0, float)
+
+
+def max_tile_requeues() -> int:
+    """Requeues of one tile task before it dead-letters."""
+    return _read("CDT_MAX_TILE_REQUEUES", 3, int)
+
+
+# --- tiles ---------------------------------------------------------------------
+
+
+def tiles_per_device() -> int:
+    """Tiles per dispatch of the tile engine (0 = computed)."""
+    return _read("CDT_TILES_PER_DEVICE", 0, int, lenient=True)
+
+
+def tile_master_holdback_s() -> float:
+    """Seconds the tile master leaves the queue to workers before it
+    competes for tasks itself (0 = off)."""
+    return _read("CDT_TILE_MASTER_HOLDBACK_S", 0.0, float)
+
+
+def tile_ready_polls() -> int:
+    """Polls (one a second) while a worker waits for a tile job."""
+    return _read("CDT_TILE_READY_POLLS", 120, int, lenient=True)

@@ -30,6 +30,10 @@ class JobQueueError(DistributedError):
         self.job_id = job_id
 
 
+class TileCollectionError(DistributedError):
+    """Tile/shard result collection failed or timed out."""
+
+
 class ValidationError(DistributedError):
     """Request/prompt payload failed validation (reference api/schemas.py)."""
 

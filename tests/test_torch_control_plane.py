@@ -336,9 +336,17 @@ def test_decode_png_of_both_encoders(channels, level):
 
 
 def test_decode_png_refuses_what_it_does_not_read():
-    gray = timage.encode_png(np.zeros((4, 4, 1), np.float32))
+    # grayscale is read now, as Pillow reads it: replicated to RGB
+    gray = timage.encode_png(np.full((4, 4, 1), 0.5, np.float32))
+    np.testing.assert_array_equal(timage.decode_png(gray),
+                                  np.full((4, 4, 3), 128 / 255, np.float32))
+    # a bit depth the color type does not allow (RGB at 4 bits) is not
+    header = struct.pack(">IIBBBBB", 4, 4, 4, 2, 0, 0, 0)
+    bad = (gray[:12] + b"IHDR" + header
+           + struct.pack(">I", zlib.crc32(b"IHDR" + header) & 0xFFFFFFFF)
+           + gray[33:])
     with pytest.raises(texc.ValidationError, match="not supported"):
-        timage.decode_png(gray)
+        timage.decode_png(bad)
     good = timage.encode_png(np.zeros((4, 4, 3), np.float32))
     for blob in (b"nope", good[:-5], good[:20] + b"\1" + good[21:]):
         with pytest.raises(texc.ValidationError):

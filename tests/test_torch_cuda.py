@@ -270,3 +270,71 @@ def test_cuda_device_computes_fp32_in_full_fp32(cuda_device, monkeypatch,
     Controller(tmp_path / "config.json", device="cuda")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# --- the upscale workflow's tile shapes -------------------------------------------
+# SDXL tile img2img of 1088² crops (latents 136²), 4 tiles a chunk, CFG:
+# batch 8 at 4624 tokens × 640 (10 heads) and 1156 × 1280 (20 heads)
+
+TILE_FUSED = [(8, 4624, 640, 10), (8, 1156, 1280, 20)]
+
+
+@pytest.mark.parametrize("B,N,C,H", TILE_FUSED)
+def test_fused_kernel_at_tile_shapes(cuda_device, B, N, C, H):
+    """Token counts that are not multiples of the 128-row q tile, at the
+    largest batch the kernels run; a call on other inputs first, so a
+    skipped tile would show stale numbers."""
+    wq, wk, wv = (_bf16(40 + i, H * 64, C, scale=C ** -0.5) for i in range(3))
+    tfa.fused_qkv_attention(_bf16(39, B, N, C), wq, wk, wv, H)
+    x = _bf16(38, B, N, C)
+    _close(tfa.fused_qkv_attention(x, wq, wk, wv, H),
+           tfa.fused_qkv_attention_plain(x, wq, wk, wv, H))
+
+
+@pytest.mark.parametrize("layout", ["packed", "bh"])
+@pytest.mark.parametrize("B,Nq,H", [(8, 4624, 10), (8, 1156, 20)])
+def test_short_kv_kernel_at_tile_shapes(cuda_device, layout, B, Nq, H):
+    k, v = _bf16(51, B, 77, H, 64), _bf16(52, B, 77, H, 64)
+    tfa.flash_attention(_bf16(53, B, Nq, H, 64), k, v, layout=layout)
+    q = _bf16(50, B, Nq, H, 64)
+    _close(tfa.flash_attention(q, k, v, layout=layout),
+           tfa.flash_attention_plain(q, k, v))
+
+
+def test_tile_engine_chunk_on_the_card(cuda_device):
+    """A tile chunk through a small UNet with 64-wide heads and a small
+    bf16 VAE on the card: every UNet forward takes the kernels, a chunk
+    run twice is bitwise equal, and a tile's pixels do not depend on the
+    chunk that carried it (the noise follows the global tile index;
+    5e-2 for the batch shape's round-off in bf16, compounded over the
+    steps, as the whole-model reference phases allow)."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline import Txt2ImgPipeline
+    from comfyui_distributed_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from comfyui_distributed_tpu_torch.tiles.engine import TileUpscaler, UpscaleSpec
+
+    cfg = UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                     transformer_depth=(0, 1), context_dim=64, head_dim=64,
+                     adm_in_channels=8)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    with torch.device("meta"):
+        unet, vae = UNet2D(cfg), AutoencoderKL(VAEConfig.tiny(), encoder=True)
+    unet = flax_init_(unet.to_empty(device=cuda_device), gen).eval()
+    vae = flax_init_(vae.to_empty(device=cuda_device), gen).eval()
+    ups = TileUpscaler(Txt2ImgPipeline(unet, vae))
+    image = torch.rand(64, 48, 3, generator=gen, device=cuda_device)
+    ctx = torch.randn(1, 77, 64, generator=gen, device=cuda_device)
+    spec = UpscaleSpec(scale=1.0, tile_w=32, tile_h=32, padding=8, steps=4,
+                       denoise=0.5, guidance_scale=6.0)
+    plan = ups.range_plan(image, spec, 3, ctx, ctx, tiles_per_device=4)
+    assert plan.num_tiles == 4 and plan.chunk == 4
+    sites = sum(1 for n, _ in unet.named_modules() if n.endswith("attn1"))
+    tfa.reset_launches()
+    a = plan.run_range(0, 4)
+    steps = 2                                # denoise 0.5 of 4 steps
+    assert tfa.LAUNCHES["fused_qkv_attention"] == steps * sites
+    assert tfa.LAUNCHES["flash_attention_packed"] == steps * sites
+    b = plan.run_range(0, 4)
+    assert (a == b).all()
+    narrow = ups.range_plan(image, spec, 3, ctx, ctx, tiles_per_device=1)
+    c = narrow.run_range(0, 4)
+    assert abs(c - a).max() <= 5e-2
