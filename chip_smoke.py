@@ -88,6 +88,27 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
+11. flux serve — the direct FLUX bundle is dropped (the card's
+   allocated memory is printed), then ``workflows/flux-txt2img.json`` is
+   served: a master ``Controller`` in this process and a fresh worker
+   subprocess each build ``flux``, both under one ``CDT_AUTH_TOKEN``, the
+   master with ``settings.websocket_orchestration`` and the fault plan
+   ``dispatch@1-9:http500`` (only the first dispatch call, the
+   WebSocket connect, is left unharmed, so an HTTP fallback would fail).
+   A ``POST /distributed/queue`` without the token must answer 401; with
+   it, seed 1234, twice (a fresh plan each time), polled on
+   ``/distributed/progress/{id}`` every 50 ms: the step count rises
+   monotonically to 28 of 28, one
+   ``/distributed/preview/{id}`` PNG decodes to 128×128×3, the plan saw
+   exactly one dispatch call and injected nothing, the master's PNG is
+   bitwise equal to the direct seed-1234 image and the worker's to the
+   direct seed-1235 image, and the master ran exactly 1596 K3 and 4 K1
+   launches. Then the workflow is queued on the master alone
+   (``POST /prompt``) and ``POST /distributed/interrupt`` is sent while
+   it samples: history must say ``interrupted`` and no PNG be written.
+   Prints the served seconds beside the direct ones, the master's
+   prompt, sampling and decode seconds and the worker's prompt seconds
+   (from its log), and each process's peak memory.
 
 The launch counters are set to 0 just before each path and read just
 after it. The second-to-last stdout line is the kernel table as JSON; the
@@ -96,6 +117,7 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -907,26 +929,37 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http_json(url: str, payload=None, timeout: float = 30.0) -> tuple[int, dict]:
-    """One call as a user makes it: JSON in, JSON out, on urllib."""
+def http_raw(url: str, payload=None, timeout: float = 30.0,
+             token: str | None = None) -> tuple[int, bytes]:
+    """One call as a user makes it (JSON in, the body out) on urllib;
+    ``token`` goes in ``X-CDT-Auth``."""
     import urllib.error
     import urllib.request
 
     data = json.dumps(payload).encode() if payload is not None else None
-    req = urllib.request.Request(url, data=data,
-                                 headers={"Content-Type": "application/json"})
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["X-CDT-Auth"] = token
+    req = urllib.request.Request(url, data=data, headers=headers)
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     try:
         with opener.open(req, timeout=timeout) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, resp.read()
     except urllib.error.HTTPError as e:
         with e:
-            return e.code, json.loads(e.read() or b"{}")
+            return e.code, e.read()
+
+
+def http_json(url: str, payload=None, timeout: float = 30.0,
+              token: str | None = None) -> tuple[int, dict]:
+    status, body = http_raw(url, payload, timeout, token)
+    return status, json.loads(body or b"{}")
 
 
 def start_worker(port: int, log_path: Path, input_dir: Path):
-    """``serve`` through the CLI as a worker on the card; returns the
-    process once ``/distributed/health`` answers."""
+    """``serve`` through the CLI as a worker on the card (in this process's
+    environment: a ``CDT_AUTH_TOKEN`` set here is the worker's); returns
+    the process once ``/distributed/health`` answers."""
     (SERVE_DIR / "worker.json").write_text("{}")
     env = {**os.environ, "CDT_IS_WORKER": "1", "CDT_WORKER_ID": "w0",
            "CDT_CONFIG_PATH": str(SERVE_DIR / "worker.json"),
@@ -1059,12 +1092,7 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
         if server is not None:
             server.stop()
         if worker is not None:
-            worker.terminate()
-            try:
-                worker.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                worker.kill()
-                worker.wait(timeout=30)
+            stop_worker(worker)
         if not ok and log_path.is_file():
             tail = log_path.read_text(errors="replace").splitlines()[-40:]
             print("chip_smoke: worker log tail:\n" + "\n".join(tail),
@@ -1138,6 +1166,221 @@ def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
         f"master launches {counts}; PNG bitwise equal to the direct upscale; "
         f"peak memory master {master_peak / 2**30:.3f} GiB (this request), "
         f"worker {worker_peak / 2**30:.3f} GiB (its process)")
+
+
+# --- phase 11 ----------------------------------------------------------------
+
+FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
+FLUX_FAULTS = "dispatch@1-9:http500"
+FLUX_PREVIEW_HW = (1024 // 8, 1024 // 8)     # the 16-channel latent's grid
+POLL_S = 0.05
+
+
+def stop_worker(worker) -> None:
+    worker.terminate()
+    try:
+        worker.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        worker.kill()
+        worker.wait(timeout=30)
+
+
+def poll_progress(base: str, prompt_id: str, t0: float, what: str,
+                  until_step: int | None = None) -> tuple[list, bytes | None, dict]:
+    """Poll ``/distributed/progress/{id}`` every 50 ms until the history is
+    final (or, with ``until_step``, until that step is reached); returns
+    the steps seen, one preview PNG taken while sampling, and the final
+    history entry (or {})."""
+    steps, preview = [], None
+    while True:
+        status, snap = http_json(f"{base}/distributed/progress/{prompt_id}")
+        if status == 200:
+            steps.append(snap["step"])
+            require(snap["total"] == FLUX_STEPS,
+                    f"{what}: progress total {snap['total']} != {FLUX_STEPS}")
+            if preview is None and 0 < snap["step"] < FLUX_STEPS:
+                code, body = http_raw(f"{base}/distributed/preview/{prompt_id}")
+                if code == 200:
+                    preview = body
+            if until_step is not None and snap["step"] >= until_step:
+                return steps, preview, {}
+        else:
+            require(status == 404, f"{what}: progress answered {status}")
+        status, entry = http_json(f"{base}/distributed/history/{prompt_id}")
+        if status == 200 and entry.get("status") in (
+                "success", "error", "interrupted"):
+            return steps, preview, entry
+        require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                f"{what} not final after {SERVE_REQUEST_S} s")
+        time.sleep(POLL_S)
+
+
+def serve_flux_request(torch, fa, i: int, base: str, prompt: dict, token: str,
+                       master, master_out: Path, log_path: Path, want: dict,
+                       direct_seconds: list) -> dict:
+    """One served FLUX request under a fresh fault plan (its first
+    dispatch call, the WebSocket connect, is index 0); returns the
+    master's launches over it."""
+    from comfyui_distributed_tpu_torch.cluster import faults
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    seed = FLUX_PATH.seeds[0]
+    worker_seed = seed + 0 + 1          # seed + worker index + 1
+    for png in master_out.glob("*.png"):
+        png.unlink()
+    plan = faults.activate(faults.FaultPlan.parse(FLUX_FAULTS))
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    status, answer = http_json(base + "/distributed/queue",
+                               {"prompt": prompt}, timeout=120, token=token)
+    require(status == 200 and answer.get("prompt_id"),
+            f"flux queue answered {status}: {answer}")
+    require(answer.get("worker_count") == 1,
+            f"worker_count {answer.get('worker_count')} != 1: {answer}")
+    steps, preview, entry = poll_progress(base, answer["prompt_id"], t0,
+                                          f"served flux {i}")
+    secs = time.perf_counter() - t0
+    served = dict(fa.LAUNCHES)
+    served_cuda = dict(fa.CUDA_LAUNCHES)
+    faults.deactivate()
+    require(entry["status"] == "success", f"served flux {i}: {entry}")
+    require(plan.calls.get("dispatch") == 1 and plan.injected == [],
+            f"the fault plan saw calls {plan.calls}, injected "
+            f"{plan.injected}: the prompt did not go over the WebSocket")
+    require(steps and steps == sorted(steps) and steps[-1] == FLUX_STEPS,
+            f"progress steps not rising to {FLUX_STEPS}: {steps}")
+    require(preview is not None, "no preview PNG while sampling")
+    shape = to_uint8(decode_png(preview))[0].shape
+    require(shape == (*FLUX_PREVIEW_HW, 3), f"preview shape {shape}")
+    require(served == FLUX_PATH.expected,
+            f"served flux {i}: master launches {served} != {FLUX_PATH.expected}")
+    require(served_cuda == FLUX_PATH.expected_cuda,
+            f"served flux {i}: master CUDA kernel launches {served_cuda} != "
+            f"{FLUX_PATH.expected_cuda}")
+    pngs = sorted(master_out.glob("*.png"))
+    require(len(pngs) == 2, f"served flux {i}: {len(pngs)} PNGs, expected 2")
+    got = [to_uint8(decode_png(p.read_bytes()))[0] for p in pngs]
+    require(np_equal(got[0], want[seed]), f"served flux {i}: the master's PNG "
+            f"differs from the direct seed-{seed} image")
+    require(np_equal(got[1], want[worker_seed]), f"served flux {i}: the "
+            f"worker's PNG differs from the direct seed-{worker_seed} image")
+    timings = master.model_registry.get("flux").pipeline.timings
+    worker_log = log_path.read_text(errors="replace")
+    done = re.findall(r"prompt \S+ done in ([\d.]+)s", worker_log)
+    built = re.findall(r"built flux on cuda in ([\d.]+) s", worker_log)
+    say(f"  served flux request {i}: {secs:.3f} s (POST to final history; "
+        f"direct request {direct_seconds[i]:.3f} s); master prompt "
+        f"{entry['duration']:.3f} s, its sampling {timings['sample_s']:.3f} s "
+        f"({timings['sample_s'] / timings['steps']:.4f} s/step), decode "
+        f"{timings['decode_s']:.3f} s; worker prompt "
+        f"{done[-1] if done else 'not logged'} s (its FLUX bundle built in "
+        f"{built[0] if built else 'not logged'} s); worker_count 1 over the "
+        f"WebSocket (plan {FLUX_FAULTS}: calls {plan.calls}, injected "
+        f"{plan.injected}); {len(steps)} progress polls, steps "
+        f"{sorted(set(steps))}; preview {shape}; master launches {served}; "
+        f"PNG 0 bitwise equal to direct seed {seed}, PNG 1 to direct seed "
+        f"{worker_seed}")
+    return served
+
+
+def flux_serve_phase(torch, fa, images: dict, direct_seconds: list) -> dict:
+    """Serve the FLUX workflow through ``POST /distributed/queue`` over the
+    worker's WebSocket, with progress, previews, the auth token and a
+    fault plan that blocks the HTTP dispatch, twice; then interrupt a
+    prompt mid-sampling. Returns the master's launches over the two
+    served requests."""
+    import secrets
+
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster import faults
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    seed = FLUX_PATH.seeds[0]
+    want = {s: to_uint8(images[s])[0] for s in (seed, seed + 1)}
+    FLUX_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    master_out = FLUX_SERVE_DIR / "master_out"
+    master_port, worker_port = free_port(), free_port()
+    (FLUX_SERVE_DIR / "master.json").write_text(json.dumps({
+        "master": {"host": "127.0.0.1", "port": master_port},
+        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
+                   "type": "local", "enabled": True}],
+        "settings": {"websocket_orchestration": True}}))
+    prompt = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    prompt[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
+    token = secrets.token_urlsafe(24)
+    log_path = FLUX_SERVE_DIR / "worker.log"
+    base = f"http://127.0.0.1:{master_port}"
+    worker = server = None
+    ok = False
+    os.environ["CDT_AUTH_TOKEN"] = token
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        worker = start_worker(worker_port, log_path, UPSCALE_DIR / "input")
+        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
+        try:
+            master = Controller(FLUX_SERVE_DIR / "master.json", device="cuda")
+        finally:
+            del os.environ["CDT_OUTPUT_DIR"]
+        server = ServerThread(master, port=master_port)
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": prompt})
+        require(status == 401, f"queue without the token answered {status}: "
+                               f"{answer}")
+        served: dict = {}
+        for i in range(2):
+            one = serve_flux_request(torch, fa, i, base, prompt, token,
+                                     master, master_out, log_path, want,
+                                     direct_seconds)
+            served = {k: served.get(k, 0) + n for k, n in one.items()}
+        master_peak = torch.cuda.max_memory_allocated()
+        status, info = http_json(
+            f"http://127.0.0.1:{worker_port}/distributed/system_info")
+        worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
+                       if status == 200 and info.get("devices") else 0)
+        say(f"  served flux: 401 without the token; peak memory master "
+            f"{master_peak / 2**30:.3f} GiB, worker "
+            f"{worker_peak / 2**30:.3f} GiB (each process, both requests)")
+
+        for png in master_out.glob("*.png"):
+            png.unlink()
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/prompt", {"prompt": prompt},
+                                   token=token)
+        require(status == 200 and answer.get("prompt_id"),
+                f"/prompt answered {status}: {answer}")
+        pid = answer["prompt_id"]
+        steps, _, entry = poll_progress(base, pid, t0, "interrupted flux",
+                                        until_step=1)
+        require(not entry, f"the prompt ended before it was interrupted: {entry}")
+        status, answer = http_json(base + "/distributed/interrupt", {},
+                                   token=token)
+        require(status == 200 and answer.get("status") == "interrupted",
+                f"interrupt answered {status}: {answer}")
+        at = steps[-1]
+        entry = wait_history(base, pid, t0, "interrupted flux")
+        require(entry["status"] == "interrupted",
+                f"interrupted flux ended {entry}")
+        pngs = list(master_out.glob("*.png"))
+        require(not pngs, f"an interrupted prompt wrote {pngs}")
+        say(f"  interrupt: POST /distributed/interrupt at step {at} of "
+            f"{FLUX_STEPS} ({answer}); history interrupted after "
+            f"{time.perf_counter() - t0:.3f} s, no PNG written")
+        ok = True
+        return served
+    finally:
+        faults.deactivate()
+        del os.environ["CDT_AUTH_TOKEN"]
+        if server is not None:
+            server.stop()
+        if worker is not None:
+            stop_worker(worker)
+        if not ok and log_path.is_file():
+            tail = log_path.read_text(errors="replace").splitlines()[-40:]
+            print("chip_smoke: flux worker log tail:\n" + "\n".join(tail),
+                  file=sys.stderr)
 
 
 def np_equal(a, b) -> bool:
@@ -1255,6 +1498,15 @@ def main() -> int:
         flux = path_phase(torch, fa, FLUX_PATH)
         path_launches["flux"], timings = flux.launches, flux.timings
         flux_reference_phase(torch, fa, flux.bundle)
+        images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
+        seconds = flux.seconds
+        del flux
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"flux serve: the direct bundle dropped, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        path_launches["serve_flux"] = flux_serve_phase(torch, fa, images,
+                                                       seconds)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

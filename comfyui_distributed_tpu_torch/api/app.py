@@ -1,6 +1,8 @@
 """The HTTP control plane on the standard library: ``asyncio.start_server``
 and a small HTTP/1.1 handler (request line, headers, a ``Content-Length``
-body; no chunked bodies; one request per connection; JSON answers).
+body; no chunked bodies; one request per connection; JSON answers, a PNG
+for the preview), with an RFC 6455 upgrade for the dispatch WebSocket
+(``utils/websocket.py``).
 
 Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
 
@@ -8,6 +10,13 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
 - ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
 - ``GET /distributed/history/{prompt_id}`` (tensors summarised as shapes)
 - ``POST /distributed/queue`` (orchestrate over the configured hosts)
+- ``POST /distributed/interrupt`` (drop pending prompts, stop the
+  running one before its next node)
+- ``GET /distributed/progress/{prompt_id}``,
+  ``GET /distributed/preview/{prompt_id}?shard=`` (sampling progress and
+  the latest latent preview; 404 until the first step)
+- ``GET /distributed/worker_ws`` (WebSocket: ``dispatch_prompt`` in,
+  ``dispatch_ack`` out)
 - ``POST /distributed/job_complete`` (base64-PNG envelope),
   ``POST /distributed/job_complete_frames`` (multipart CDTF frames),
   ``POST /distributed/prepare_job``
@@ -16,10 +25,15 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
   ``request_image``, ``submit_tiles``, ``submit_image``, ``handback``,
   ``job_status`` and ``queue_status/{job_id}`` under ``/distributed/``
 
-Errors are JSON ``{"error": ..., "status": ...}``: 400 for a validation
-error or a malformed request, 404 unknown path, 405 wrong method, 413
-body over ``CDT_MAX_PAYLOAD_SIZE``, 415 a POST that is neither JSON nor
-a peer's multipart (``X-CDT-Client``), 500 anything else.
+Each request passes the JAX package's middleware in its order: an
+``OPTIONS`` preflight answers 200; a POST that is neither JSON nor a
+peer's multipart (``X-CDT-Client``) answers 415; with a cluster token
+configured (``utils/auth.py``) a mutating or gated route answers 401
+without it. Only the read-only probe routes carry CORS headers, unless
+``settings.permissive_cors`` is set. Errors are JSON ``{"error": ...,
+"status": ...}``: 400 for a validation error or a malformed request, 404
+unknown path, 405 wrong method, 413 body over ``CDT_MAX_PAYLOAD_SIZE``,
+500 anything else.
 """
 
 from __future__ import annotations
@@ -35,17 +49,34 @@ import urllib.parse
 from typing import Any, Awaitable, Callable
 
 from ..cluster.controller import Controller
-from ..utils import constants
+from ..utils import auth, constants
+from ..utils.config import peek_setting
 from ..utils.exceptions import DistributedError, ValidationError
 from ..utils.frames import unpack_frame
 from ..utils.logging import log
 from ..utils.multipart import parse_multipart
+from ..utils.websocket import WebSocket, WebSocketError, server_handshake
 from . import usdu_routes
 from .queue_request import parse_queue_request_payload
 
 # header cluster peers send on multipart POSTs (a browser form cannot
 # attach it without a preflight)
 CLIENT_HEADER = "x-cdt-client"
+
+# The read-only probe surface a dashboard reads on other hosts (the JAX
+# package's, less its routes not ported). Mutating routes carry no CORS
+# header: with a public tunnel up, a permissive `*` there would let any
+# web page drive the cluster.
+_CORS_SAFE_PATHS = frozenset({
+    "/distributed/health",
+    "/distributed/system_info",
+    "/prompt",
+})
+_CORS_HEADERS = {
+    "Access-Control-Allow-Origin": "*",
+    "Access-Control-Allow-Methods": "GET, POST, OPTIONS",
+    "Access-Control-Allow-Headers": "Content-Type, " + auth.AUTH_HEADER,
+}
 MAX_HEADERS = 100
 READ_TIMEOUT_S = 120.0
 THREAD_TIMEOUT_S = 60.0      # ServerThread: start, stop, join
@@ -75,8 +106,19 @@ class Request:
 
 @dataclasses.dataclass
 class Response:
+    """``payload``: JSON, or ``bytes`` sent as they are under
+    ``content_type``."""
     status: int
     payload: Any
+    headers: dict[str, str] = dataclasses.field(default_factory=dict)
+    content_type: str = "application/json"
+
+
+@dataclasses.dataclass
+class Upgrade(Response):
+    """A 101 answer: the connection becomes a WebSocket that ``session``
+    serves until it closes."""
+    session: Callable[[WebSocket], Awaitable[None]] | None = None
 
 
 def json_error(message: str, status: int = 400) -> Response:
@@ -249,6 +291,63 @@ class App:
         async def clear_memory(request):
             return Response(200, c.clear_memory())
 
+        async def interrupt(request):
+            dropped = c.queue.interrupt()
+            return Response(200, {"status": "interrupted", "dropped": dropped})
+
+        async def sampling_progress(request):
+            snap = c.progress.snapshot(request.match["prompt_id"])
+            if snap is None:
+                return json_error("unknown prompt", 404)
+            return Response(200, snap)
+
+        async def sampling_preview(request):
+            try:
+                shard = int(request.query.get("shard", "0"))
+            except ValueError:
+                shard = 0
+            png = c.progress.preview_png(request.match["prompt_id"], shard)
+            if png is None:
+                return json_error("no preview yet", 404)
+            return Response(200, png, content_type="image/png")
+
+        async def worker_ws(request):
+            try:
+                headers = server_handshake(request.headers)
+            except WebSocketError as e:
+                raise ValidationError(str(e)) from None
+
+            async def session(ws: WebSocket) -> None:
+                """``dispatch_prompt`` in: queue it here and answer
+                ``dispatch_ack`` with the prompt id and the validation
+                errors."""
+                async for msg in ws:
+                    if msg.kind != "text":
+                        continue
+                    try:
+                        data = json.loads(msg.data)
+                    except json.JSONDecodeError:
+                        await ws.send_str(json.dumps(
+                            {"type": "error", "error": "invalid JSON"}))
+                        continue
+                    kind = data.get("type") if isinstance(data, dict) else None
+                    if kind != "dispatch_prompt":
+                        await ws.send_str(json.dumps(
+                            {"type": "error", "error": f"unknown type {kind!r}"}))
+                        continue
+                    prompt_id, node_errors = c.queue.enqueue(
+                        data.get("prompt") or {}, data.get("client_id", ""),
+                        data.get("trace_id"))
+                    await ws.send_str(json.dumps({
+                        "type": "dispatch_ack",
+                        "request_id": data.get("request_id"),
+                        "prompt_id": prompt_id,
+                        "node_errors": node_errors,
+                        "ok": not node_errors,
+                    }))
+
+            return Upgrade(101, None, headers, session=session)
+
         self.add("GET", "/distributed/health", health)
         self.add("GET", "/distributed/system_info", system_info)
         self.add("GET", "/prompt", prompt_get)
@@ -259,6 +358,10 @@ class App:
         self.add("POST", "/distributed/job_complete_frames", job_complete_frames)
         self.add("POST", "/distributed/prepare_job", prepare_job)
         self.add("POST", "/distributed/clear_memory", clear_memory)
+        self.add("POST", "/distributed/interrupt", interrupt)
+        self.add("GET", "/distributed/progress/{prompt_id}", sampling_progress)
+        self.add("GET", "/distributed/preview/{prompt_id}", sampling_preview)
+        self.add("GET", "/distributed/worker_ws", worker_ws)
         usdu_routes.register(self, controller)
 
     def add(self, method: str, template: str, handler: Handler) -> None:
@@ -266,6 +369,25 @@ class App:
         self._routes.append((method, re.compile(pattern), handler))
 
     async def dispatch(self, request: Request) -> Response:
+        response = await self._respond(request)
+        permissive = bool(peek_setting("permissive_cors", False,
+                                       self.controller.config_path))
+        safe = (request.method in ("GET", "OPTIONS")
+                and (request.path in _CORS_SAFE_PATHS
+                     or request.path.startswith("/distributed/queue_status")))
+        if permissive or safe:
+            response.headers.update(_CORS_HEADERS)
+        return response
+
+    async def _respond(self, request: Request) -> Response:
+        if request.method == "OPTIONS":
+            return Response(200, b"", content_type="text/plain")
+        if request.method == "POST" and not _post_content_type_ok(request):
+            return json_error("unsupported media type", 415)
+        if auth.requires_auth(request.method, request.path):
+            token = auth.resolve_token(self.controller.config_path)
+            if token and not auth.token_matches(request.headers, token):
+                return json_error("missing or invalid auth token", 401)
         handler, path_known = None, False
         for method, pattern, fn in self._routes:
             m = pattern.fullmatch(request.path)
@@ -278,8 +400,6 @@ class App:
         if handler is None:
             return (json_error(f"method {request.method} not allowed", 405)
                     if path_known else json_error(f"no route {request.path}", 404))
-        if request.method == "POST" and not _post_content_type_ok(request):
-            return json_error("unsupported media type", 415)
         try:
             return await handler(request)
         except ValidationError as e:
@@ -331,12 +451,16 @@ async def read_request(reader: asyncio.StreamReader) -> Request:
 
 
 def _encode_response(response: Response) -> bytes:
-    body = json.dumps(response.payload, default=str).encode()
     reason = http.HTTPStatus(response.status).phrase
+    extra = "".join(f"{k}: {v}\r\n" for k, v in response.headers.items())
+    if isinstance(response, Upgrade):
+        return f"HTTP/1.1 101 {reason}\r\n{extra}\r\n".encode("latin-1")
+    body = (response.payload if isinstance(response.payload, bytes)
+            else json.dumps(response.payload, default=str).encode())
     head = (f"HTTP/1.1 {response.status} {reason}\r\n"
-            "Content-Type: application/json\r\n"
+            f"Content-Type: {response.content_type}\r\n"
             f"Content-Length: {len(body)}\r\n"
-            "Connection: close\r\n\r\n")
+            f"{extra}Connection: close\r\n\r\n")
     return head.encode("latin-1") + body
 
 
@@ -375,6 +499,13 @@ class Server:
                 response = json_error(str(e), e.status)
             writer.write(_encode_response(response))
             await writer.drain()
+            if isinstance(response, Upgrade):
+                ws = WebSocket(reader, writer, client=False,
+                               heartbeat=constants.heartbeat_interval())
+                try:
+                    await response.session(ws)
+                finally:
+                    await ws.close()
         except (ConnectionError, asyncio.IncompleteReadError,
                 asyncio.TimeoutError):
             pass                  # the peer went away or stalled: drop it

@@ -32,8 +32,8 @@ from ..utils.image import decode_image_b64, encode_image_b64, from_uint8, to_uin
 from ..utils.logging import log
 from ..utils.multipart import Part, build_multipart
 from ..utils.network import http_request_async, normalize_host_url, probe_host
-from .dispatch import run_with_retries
 from .job_store import JobStore
+from .resilience import send_policy
 
 
 class CollectorBridge:
@@ -122,8 +122,9 @@ class CollectorBridge:
                 raise WorkerError(f"{status}: {answer[:200]!r}")
 
         try:
-            await run_with_retries(attempt, constants.send_max_retries(),
-                                   retryable=lambda e: True)
+            await send_policy().run(
+                attempt, op="collect",
+                retryable=lambda e: isinstance(e, Exception))
         except (OSError, WorkerError) as e:
             raise WorkerError(f"send to {url} failed after retries: {e}") from e
 

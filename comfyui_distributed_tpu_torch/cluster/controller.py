@@ -5,9 +5,9 @@ collects, a worker executes dispatched prompts and sends its results
 back. Both run the same code and the same HTTP app (``api/app.py``).
 Besides the collector bridge it owns the tile farm of the upscale
 workflow (``cluster/tile_farm.py``), both bound to the server's loop at
-startup. The cache, preemption, stages, the front door, warmup, the
-elastic fleet and the progress tracker of the JAX package's controller
-are not ported.
+startup, and the sampling-progress tracker (``cluster/progress.py``).
+The cache, preemption, stages, the front door, warmup and the elastic
+fleet of the JAX package's controller are not ported.
 """
 
 from __future__ import annotations
@@ -25,10 +25,12 @@ from ..utils import constants
 from ..utils.config import ensure_config_exists, load_config
 from ..utils.device import DeviceLike, resolve_device, use_full_fp32
 from ..utils.logging import log
+from ..utils.network import set_auth_config_path
 from ..workers.detection import get_machine_id
 from .collector_bridge import CollectorBridge
 from .job_store import JobStore
 from .orchestration import Orchestrator
+from .progress import ProgressTracker
 from .runtime import PromptQueue
 from .tile_farm import TileFarm
 
@@ -47,12 +49,16 @@ class Controller:
             use_full_fp32()
         ensure_config_exists(config_path)
         self.config_path = config_path
+        if config_path is not None:
+            # outbound peer calls carry the token of this config
+            set_auth_config_path(config_path)
         self.is_worker = constants.is_worker()
         self.worker_id = constants.worker_id()
         self.worker_index = constants.worker_index()
         self.output_dir = constants.output_dir()
         self.input_dir = constants.input_dir()
         self.store = JobStore()
+        self.progress = ProgressTracker()
         self.queue = PromptQueue(context_factory=self._execution_context)
         self.orchestrator = Orchestrator(self.store, self.queue,
                                          config_loader=self.load_config)
@@ -87,6 +93,7 @@ class Controller:
             "is_worker": self.is_worker,
             "worker_id": self.worker_id,
             "worker_index": self.worker_index,
+            "progress_tracker": self.progress,
         }
         if self.bridge is not None:
             ctx["collector_bridge"] = self.bridge
@@ -108,6 +115,7 @@ class Controller:
 
     async def shutdown(self) -> None:
         await self.queue.stop()
+        self.progress.close()       # release the process-wide progress sink
         # the queue's context factory, the orchestrator and the bridge hold
         # bound methods of this controller, so it lives until the cycle
         # collector runs: let go of the card's bundles now

@@ -4,7 +4,9 @@ probe them (bounded) → optionally keep the least busy one → job-id map →
 create the collector queues → prepare and dispatch each worker's prompt
 (bounded) → queue the master's own prompt.
 
-A delegate-only master computes after all when no worker is online, or
+Dispatch goes over each worker's WebSocket when
+``settings.websocket_orchestration`` is on (``cluster/dispatch.py``). A
+delegate-only master computes after all when no worker is online, or
 when every dispatch failed. A worker whose dispatch failed is dropped
 from the collector's expected set, so the master never waits on it.
 """
@@ -152,9 +154,10 @@ class Orchestrator:
                         return wid, ("media sync is not ported: the prompt "
                                      f"references {[r.value for r in refs]}")
                 try:
-                    await dispatch_prompt(host, wprompt, client_id,
-                                          extra={"trace_id": trace_id},
-                                          trace_id=trace_id)
+                    await dispatch_prompt(
+                        host, wprompt, client_id,
+                        extra={"trace_id": trace_id}, trace_id=trace_id,
+                        via_ws=bool(settings.get("websocket_orchestration")))
                     return wid, None
                 except WorkerError as e:
                     return wid, str(e)

@@ -7,13 +7,14 @@ JAX package's ``cluster/resilience.py``).
   ``retry_safe=False`` is never retried (a prompt that may already sit
   in a worker's queue must not be sent twice).
 - :class:`CircuitBreaker` / :class:`BreakerRegistry` — per-worker
-  closed→open→half-open state. A heartbeat eviction of the tile farm
-  trips a worker's breaker (``cluster/job_timeout.py``); after
-  ``recovery_s`` one half-open trial decides re-admission.
+  closed→open→half-open state. Probe and dispatch outcomes feed it and
+  an open breaker keeps a host out of selection (``cluster/dispatch.py``);
+  a heartbeat eviction of the tile farm trips it
+  (``cluster/job_timeout.py``); after ``recovery_s`` one half-open trial
+  decides re-admission.
 
-The JAX package also gates worker selection and dispatch on the
-breakers and exports their state as metrics; neither the wiring into
-the port's dispatch nor telemetry is ported yet.
+The JAX package also exports the breakers' state as metrics; telemetry
+is not ported yet.
 """
 
 from __future__ import annotations

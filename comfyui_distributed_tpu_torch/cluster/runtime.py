@@ -1,7 +1,7 @@
 """The controller's prompt queue: validate, enqueue, execute one prompt
 at a time in one execution thread (the solo path of the JAX package's
-``cluster/runtime.py``; groups, stages, preemption, deadlines and the
-sweep are not ported).
+``cluster/runtime.py``, with its interrupt; groups, stages, preemption,
+deadlines and the sweep are not ported).
 
 The graph runs in the queue's one-thread pool, never on the event loop:
 a node that talks to the control plane (the collector) hops back onto
@@ -80,6 +80,23 @@ class PromptQueue:
                                            trace_id))
         self.start()
         return prompt_id, []
+
+    def interrupt(self) -> int:
+        """Drop the pending prompts into history as ``interrupted`` and
+        flag the running one, which stops before its next node (a node
+        already running finishes). Returns the number dropped."""
+        dropped = 0
+        while True:
+            try:
+                job = self._pending.get_nowait()
+            except asyncio.QueueEmpty:
+                break
+            self.history[job.prompt_id] = {"status": "interrupted",
+                                           "duration": 0.0}
+            dropped += 1
+        if self._executing:
+            self._interrupt.set()
+        return dropped
 
     @property
     def queue_remaining(self) -> int:

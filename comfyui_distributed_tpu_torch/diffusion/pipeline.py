@@ -21,6 +21,7 @@ from ..models.unet import UNet2D
 from ..models.vae import AutoencoderKL
 from ..parallel.rng import seed_generator
 from .guidance import cfg_denoiser, eps_denoiser
+from .progress import wrap_denoiser
 from .samplers import sample
 from .schedules import (NoiseSchedule, sigmas_beta, sigmas_exponential,
                         sigmas_karras, sigmas_linear_quadratic, sigmas_normal,
@@ -115,9 +116,12 @@ class Txt2ImgPipeline:
     def sample_and_decode(self, noise: torch.Tensor, spec: GenerationSpec,
                           context: torch.Tensor, uncond_context: torch.Tensor,
                           y: Optional[torch.Tensor] = None,
-                          uncond_y: Optional[torch.Tensor] = None
+                          uncond_y: Optional[torch.Tensor] = None,
+                          progress_token: Optional[int] = None
                           ) -> torch.Tensor:
-        """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32)."""
+        """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
+        ``progress_token`` (a ``ProgressTracker.start`` token) streams
+        each step's x0 to the progress sinks."""
         dev = self.device
         sigmas = make_sigma_ladder(spec, self.schedule).to(dev)
         batch = noise.shape[0]
@@ -137,6 +141,8 @@ class Txt2ImgPipeline:
                                    spec.guidance_scale, y_b, uy_b)
         else:
             denoise = self._denoiser(ctx, y_b)
+        if progress_token is not None:
+            denoise = wrap_denoiser(denoise, progress_token)
         t0 = time.perf_counter()
         x0 = sample(spec.sampler, denoise, noise.to(dev) * sigmas[0], sigmas)
         self._sync()
@@ -152,7 +158,8 @@ class Txt2ImgPipeline:
     def generate(self, spec: GenerationSpec, seed: int,
                  context: torch.Tensor, uncond_context: torch.Tensor,
                  y: Optional[torch.Tensor] = None,
-                 uncond_y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 uncond_y: Optional[torch.Tensor] = None,
+                 progress_token: Optional[int] = None) -> torch.Tensor:
         noise = self.initial_noise(spec, seed_generator(seed, self.device))
         return self.sample_and_decode(noise, spec, context, uncond_context,
-                                      y, uncond_y)
+                                      y, uncond_y, progress_token)

@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 from ..models.dit import DiT
 from ..models.vae import AutoencoderKL
 from ..parallel.rng import seed_generator
+from .progress import wrap_denoiser
 from .samplers import Denoiser, sample
 from .schedules import sigmas_flow
 
@@ -76,9 +78,12 @@ class FlowPipeline:
 
     @torch.no_grad()
     def sample_and_decode(self, noise: torch.Tensor, spec: FlowSpec,
-                          context: torch.Tensor,
-                          pooled: torch.Tensor) -> torch.Tensor:
-        """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32)."""
+                          context: torch.Tensor, pooled: torch.Tensor,
+                          progress_token: Optional[int] = None
+                          ) -> torch.Tensor:
+        """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
+        ``progress_token`` (a ``ProgressTracker.start`` token) streams
+        each step's x0 to the progress sinks."""
         if spec.cfg != 1.0:
             raise NotImplementedError(
                 f"true CFG (cfg={spec.cfg}) is not yet ported; FLUX-dev "
@@ -96,6 +101,8 @@ class FlowPipeline:
             return t.expand(batch, *t.shape[1:])
 
         denoise = self._denoiser(rows(context), rows(pooled), spec.guidance)
+        if progress_token is not None:
+            denoise = wrap_denoiser(denoise, progress_token)
         t0 = time.perf_counter()
         x0 = sample(spec.sampler, denoise, noise.to(dev), sigmas)
         self._sync()
@@ -109,6 +116,8 @@ class FlowPipeline:
         return images
 
     def generate(self, spec: FlowSpec, seed: int, context: torch.Tensor,
-                 pooled: torch.Tensor) -> torch.Tensor:
+                 pooled: torch.Tensor,
+                 progress_token: Optional[int] = None) -> torch.Tensor:
         noise = self.initial_noise(spec, seed_generator(seed, self.device))
-        return self.sample_and_decode(noise, spec, context, pooled)
+        return self.sample_and_decode(noise, spec, context, pooled,
+                                      progress_token)

@@ -136,7 +136,8 @@ def node_kwargs(prompt: Prompt, nid: str, cache: dict[str, tuple],
 class GraphExecutor:
     """Execute a validated prompt. ``context`` is shared state (the model
     registry, the output directory) that nodes may request via their
-    HIDDEN declaration names.
+    HIDDEN declaration names. An ``interrupt_event`` in it, once set,
+    stops the prompt before its next node with ``InterruptedError``.
     """
 
     def __init__(self, context: dict[str, Any] | None = None):
@@ -151,7 +152,11 @@ class GraphExecutor:
                 "; ".join(f"{e.node_id}: {e.message}" for e in errs)
             )
         cache: dict[str, tuple] = {}
+        interrupt = self.context.get("interrupt_event")
         for nid in topo_order(prompt):
+            if interrupt is not None and interrupt.is_set():
+                # checked between nodes: a node already running finishes
+                raise InterruptedError(f"execution interrupted before {nid}")
             cls = get_node(prompt[nid]["class_type"])
             kwargs = node_kwargs(prompt, nid, cache, self.context)
             cache[nid] = tuple(cls().execute(**kwargs))

@@ -180,6 +180,34 @@ def _adm_from_cond(cond: dict, adm_channels: int,
     return pooled[:, :adm_channels]
 
 
+class _ProgressScope:
+    """Progress lifecycle shared by the sampler nodes: allocates a token
+    on entry; ``complete()`` counts the run's queued step events once, at
+    its end, before exit marks the run done. Any other exit marks it
+    failed, freezing progress where it stopped instead of reporting
+    100%. Without a tracker or a prompt id the token is None and the
+    pipelines run as they do without progress."""
+
+    def __init__(self, tracker, prompt_id: str, total_calls: int):
+        self.tracker, self.prompt_id = tracker, prompt_id
+        self.token = (tracker.start(prompt_id, total_calls)
+                      if tracker is not None and prompt_id else None)
+        self._ok = False
+
+    def complete(self) -> None:
+        if self.token is not None:
+            self.tracker.complete(self.token)
+        self._ok = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.token is not None:
+            self.tracker.finish(self.prompt_id, failed=not self._ok)
+        return False
+
+
 @register_node("TPUTxt2Img")
 class TPUTxt2Img(NodeDef):
     """The sampler node (name kept for workflow compatibility): noise,
@@ -194,13 +222,16 @@ class TPUTxt2Img(NodeDef):
     OPTIONAL = {
         "sampler_name": "STRING", "scheduler": "STRING", "batch_per_device": "INT",
     }
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, negative, seed: int, steps: int,
                 cfg: float, width: int, height: int,
                 sampler_name: str = "euler", scheduler: str = "karras",
-                batch_per_device: int = 1, **_):
+                batch_per_device: int = 1, prompt_id: str = "",
+                progress_tracker=None, **_):
         from ..diffusion.pipeline import GenerationSpec
+        from ..diffusion.progress import total_calls
 
         spec = GenerationSpec(
             height=int(height), width=int(width), steps=int(steps),
@@ -211,8 +242,12 @@ class TPUTxt2Img(NodeDef):
         adm = pipeline.unet.config.adm_in_channels
         y = _adm_from_cond(positive, adm, pipeline.device) if adm else None
         uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
-        images = pipeline.generate(spec, int(seed), positive["context"],
-                                   negative["context"], y, uy)
+        with _ProgressScope(progress_tracker, prompt_id,
+                            total_calls(sampler_name, spec.steps)) as ps:
+            images = pipeline.generate(spec, int(seed), positive["context"],
+                                       negative["context"], y, uy,
+                                       progress_token=ps.token)
+            ps.complete()
         return (images,)
 
 
@@ -231,13 +266,16 @@ class TPUFlowTxt2Img(NodeDef):
         "guidance": "FLOAT", "shift": "FLOAT", "mode": "STRING",
         "batch_per_device": "INT",
     }
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, steps: int, width: int,
                 height: int, cfg: float = 1.0, guidance: float = 3.5,
                 shift: float = 3.0, mode: str = "dp",
-                batch_per_device: int = 1, **_):
+                batch_per_device: int = 1, prompt_id: str = "",
+                progress_tracker=None, **_):
         from ..diffusion.pipeline_flow import FlowSpec
+        from ..diffusion.progress import total_calls
 
         if mode != "dp":
             raise NotImplementedError(
@@ -251,7 +289,13 @@ class TPUFlowTxt2Img(NodeDef):
         if pooled is None:
             pooled = torch.zeros((1, pipeline.dit.config.pooled_dim),
                                  device=pipeline.device)
-        images = pipeline.generate(spec, int(seed), positive["context"], pooled)
+        # as in the JAX package's dp branch, no should_stop: an interrupt
+        # takes effect before the next node
+        with _ProgressScope(progress_tracker, prompt_id,
+                            total_calls(spec.sampler, spec.steps)) as ps:
+            images = pipeline.generate(spec, int(seed), positive["context"],
+                                       pooled, progress_token=ps.token)
+            ps.complete()
         return (images,)
 
 

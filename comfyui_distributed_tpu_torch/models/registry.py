@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -162,7 +163,11 @@ class ModelRegistry:
                 if preset is None:
                     raise ValidationError(
                         f"unknown model {name!r}; have {self.available()}")
+                t0 = time.perf_counter()
                 self._cache[name] = ModelBundle(preset, self.device, self.seed)
-                log(f"built {name} on {self.device} (random init, "
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                log(f"built {name} on {self.device} in "
+                    f"{time.perf_counter() - t0:.2f} s (random init, "
                     f"seed {self.seed})")
             return self._cache[name]

@@ -61,6 +61,12 @@ def _read(name: str, default: T, parse: Callable[[str], T],
 # --- identity and paths --------------------------------------------------------
 
 
+def auth_token() -> Optional[str]:
+    """The cluster's shared secret (``utils/auth.py``); it wins over the
+    config's ``settings.auth_token``."""
+    return _read("CDT_AUTH_TOKEN", None, str)
+
+
 def is_worker() -> bool:
     return _read("CDT_IS_WORKER", False, _bool)
 
@@ -124,7 +130,8 @@ def heartbeat_timeout() -> float:
 
 
 def heartbeat_interval() -> float:
-    """How often the tile master checks its workers' heartbeats."""
+    """How often the tile master checks its workers' heartbeats, and the
+    ping interval of a worker's dispatch WebSocket."""
     return _read("CDT_HEARTBEAT_INTERVAL", 10.0, float)
 
 
@@ -186,6 +193,12 @@ def breaker_fail_threshold() -> int:
 def breaker_recovery_s() -> float:
     """Seconds an open breaker waits before one half-open trial."""
     return _read("CDT_BREAKER_RECOVERY_S", 30.0, float)
+
+
+def faults() -> str:
+    """A seeded fault plan for the control plane's outbound calls
+    (``cluster/faults.py`` grammar; "" = off)."""
+    return _read("CDT_FAULTS", "", str)
 
 
 def max_tile_requeues() -> int:

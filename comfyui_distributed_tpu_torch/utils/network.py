@@ -1,9 +1,12 @@
 """HTTP client on the standard library: URL helpers, one blocking call
-and its asyncio form, host probing.
+and its asyncio form, the WebSocket connect, host probing.
 
 Every call goes through an opener without proxy handling (a cluster's
 peers are addressed directly) and carries a timeout. ``urllib`` blocks,
-so coroutines run it in the loop's default executor.
+so coroutines run it in the loop's default executor. Every outbound peer
+call carries the cluster token when one is configured (``utils/auth.py``),
+and consults the active fault plan (``cluster/faults.py``) when there is
+one.
 """
 
 from __future__ import annotations
@@ -11,16 +14,37 @@ from __future__ import annotations
 import asyncio
 import functools
 import json
+import time
 import urllib.error
 import urllib.request
 from typing import Any, Optional
 
-from . import constants
+from ..cluster.faults import active_plan, op_for_url
+from . import constants, websocket
+from .auth import AUTH_HEADER, resolve_token
 
 # Domains that imply TLS whatever scheme is given
 _HTTPS_DOMAINS = ("trycloudflare.com", "ngrok.io", "ngrok-free.app", "proxy.runpod.net")
 
 _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+# Config the outbound token is read from. A Controller built with an
+# explicit config path registers it, so inbound checks and outbound
+# credentials read the same config.
+_auth_config_path = None
+
+
+def set_auth_config_path(path) -> None:
+    global _auth_config_path
+    _auth_config_path = path
+
+
+def _with_token(headers: dict[str, str] | None) -> dict[str, str]:
+    headers = dict(headers or {})
+    token = resolve_token(_auth_config_path)
+    if token:
+        headers.setdefault(AUTH_HEADER, token)
+    return headers
 
 
 def normalize_host_url(address: str) -> str:
@@ -59,7 +83,23 @@ def http_request(url: str, data: bytes | None = None,
     """One blocking call (POST when ``data`` is given, else GET) →
     (status, body). A 4xx/5xx answer is returned, not raised; a transport
     failure raises ``URLError`` or ``OSError``."""
-    req = urllib.request.Request(url, data=data, headers=headers or {})
+    headers = _with_token(headers)
+    plan = active_plan()
+    fault = plan.next_fault(op_for_url(url)) if plan is not None else None
+    if fault is not None:
+        if fault.kind == "drop":
+            raise urllib.error.URLError(
+                ConnectionRefusedError(f"injected drop ({url})"))
+        if fault.kind == "silence":
+            return 200, b'{"status": "ok"}'
+        if fault.kind == "http500":
+            return int(fault.value) or 500, b'{"error": "injected fault"}'
+        if fault.kind == "latency":
+            time.sleep(fault.value or 0.05)
+        elif data is not None:                  # corrupt, truncate
+            data = plan.mutate_body(fault, data,
+                                    headers.get("Content-Type", ""))
+    req = urllib.request.Request(url, data=data, headers=headers)
     try:
         with _OPENER.open(req, timeout=timeout or constants.dispatch_timeout()) as resp:
             return resp.status, resp.read()
@@ -74,6 +114,20 @@ async def http_request_async(url: str, data: bytes | None = None,
     """``http_request`` in the running loop's default executor."""
     return await asyncio.get_running_loop().run_in_executor(
         None, functools.partial(http_request, url, data, headers, timeout))
+
+
+async def ws_connect(url: str) -> "websocket.WebSocket":
+    """Open a WebSocket to a peer (``utils/websocket.connect``) with the
+    cluster token; a fault plan may drop or delay the connect."""
+    plan = active_plan()
+    fault = plan.next_fault(op_for_url(url)) if plan is not None else None
+    if fault is not None:
+        if fault.kind == "drop":
+            raise ConnectionRefusedError(f"injected ws drop ({url})")
+        if fault.kind == "latency":
+            await asyncio.sleep(fault.value or 0.05)
+    return await websocket.connect(url, _with_token(None),
+                                   constants.dispatch_timeout())
 
 
 def never_sent(e: BaseException) -> bool:

@@ -50,6 +50,19 @@ MASTER_URL = "http://127.0.0.1:8288"
 
 
 @pytest.fixture(autouse=True)
+def _fresh_resilience():
+    """The port's breakers and fault plan are process-global: a worker id
+    another test failed must not start quarantined here."""
+    from comfyui_distributed_tpu_torch.cluster import faults, resilience
+
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+    yield
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+
+
+@pytest.fixture(autouse=True)
 def jax_settings(monkeypatch):
     for knob in ("CDT_FRONTDOOR", "CDT_CACHE", "CDT_PREEMPT", "CDT_STAGES"):
         monkeypatch.setenv(knob, "0")
@@ -481,7 +494,8 @@ def test_failed_dispatch_drops_the_worker_everywhere(monkeypatch):
     async def probe(host, timeout=None):
         return {"queue_remaining": 0}
 
-    async def dispatch(host, wprompt, client_id="", extra=None, trace_id=None):
+    async def dispatch(host, wprompt, client_id="", extra=None, trace_id=None,
+                       via_ws=False):
         if host["id"] == "w2":
             raise WorkerError("refused", worker_id="w2")
         return {}
@@ -507,7 +521,8 @@ def test_remote_host_with_media_is_a_failed_dispatch(monkeypatch):
 
     sent = []
 
-    async def dispatch(host, wprompt, client_id="", extra=None, trace_id=None):
+    async def dispatch(host, wprompt, client_id="", extra=None, trace_id=None,
+                       via_ws=False):
         sent.append(host["id"])
         return {}
 
@@ -612,3 +627,181 @@ def test_job_store_collector_half():
         assert store.collector_jobs == {}
 
     asyncio.run(body())
+
+
+# --- interrupt ---------------------------------------------------------------------
+
+
+def _held_graph(monkeypatch):
+    """A two-node prompt whose first node blocks until released; returns
+    (prompt, started, release, ran)."""
+    import threading
+
+    from comfyui_distributed_tpu_torch.graph import nodes_builtin
+
+    started, release, ran = threading.Event(), threading.Event(), []
+
+    def held(self, height=64, width=64, channels=3, **_):
+        ran.append("empty")
+        started.set()
+        release.wait(60)
+        return (torch.zeros((0, int(height), int(width), int(channels))),)
+
+    def preview(self, images, **_):
+        ran.append("preview")
+        return ()
+
+    monkeypatch.setattr(nodes_builtin.DistributedEmptyImage, "execute", held)
+    monkeypatch.setattr(nodes_builtin.PreviewImage, "execute", preview)
+    prompt = {"1": {"class_type": "DistributedEmptyImage",
+                    "inputs": {"height": 8, "width": 8}},
+              "2": {"class_type": "PreviewImage", "inputs": {"images": ["1", 0]}}}
+    return prompt, started, release, ran
+
+
+def test_interrupt_drops_pending_and_stops_the_running_prompt(tmp_path,
+                                                               monkeypatch):
+    """``POST /distributed/interrupt``: the pending prompts go to history as
+    interrupted, the running one stops before its next node, and the
+    answer counts the dropped jobs (the JAX ``PromptQueue.interrupt``)."""
+    import time
+    import urllib.request
+
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+
+    prompt, started, release, ran = _held_graph(monkeypatch)
+    (tmp_path / "config.json").write_text("{}")
+    controller = Controller(tmp_path / "config.json", device="cpu")
+    server = ServerThread(controller)
+
+    def post(path, payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}{path}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        ids = [post("/prompt", {"prompt": prompt})["prompt_id"] for _ in range(3)]
+        assert started.wait(60)
+        answer = post("/distributed/interrupt", {})
+        assert answer == {"status": "interrupted", "dropped": 2}
+        release.set()
+        deadline = time.monotonic() + 60
+        while ids[0] not in controller.queue.history and time.monotonic() < deadline:
+            time.sleep(0.02)
+        history = controller.queue.history
+        assert history[ids[0]]["status"] == "interrupted"
+        assert [history[i] for i in ids[1:]] == \
+            [{"status": "interrupted", "duration": 0.0}] * 2
+        assert ran == ["empty"]                  # no node after the flag
+        # nothing left to drop or stop; the next prompt runs whole
+        assert post("/distributed/interrupt", {})["dropped"] == 0
+        pid = post("/prompt", {"prompt": prompt})["prompt_id"]
+        deadline = time.monotonic() + 60
+        while pid not in controller.queue.history and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert controller.queue.history[pid]["status"] == "success"
+        assert ran == ["empty", "empty", "preview"]
+    finally:
+        release.set()
+        server.stop()
+
+
+def test_executor_checks_the_interrupt_between_nodes():
+    import threading
+    import types
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    flag = threading.Event()
+    prompt = {"1": {"class_type": "DistributedEmptyImage",
+                    "inputs": {"height": 8, "width": 8}}}
+    ctx = {"interrupt_event": flag,
+           "model_registry": types.SimpleNamespace(device=torch.device("cpu"))}
+    assert GraphExecutor(ctx).execute(prompt)["1"][0].shape == (0, 8, 8, 3)
+    flag.set()
+    with pytest.raises(InterruptedError, match="before 1"):
+        GraphExecutor(ctx).execute(prompt)
+
+
+# --- breakers in host selection and dispatch --------------------------------------
+
+
+def selection(pkg, monkeypatch, hosts, trip=()):
+    """One package's probe round with its breakers tripped for ``trip``:
+    → (online ids, offline ids with their breaker mark, probed ids)."""
+    dispatch_mod, breakers = pkg
+    probed = []
+
+    async def probe(host, timeout=None):
+        probed.append(host["id"])
+        return {"queue_remaining": 0}
+
+    monkeypatch.setattr(dispatch_mod, "probe_host", probe)
+    for wid in trip:
+        breakers.trip(wid)
+    online, offline = asyncio.run(dispatch_mod.select_active_hosts(hosts))
+    return ([h["id"] for h in online],
+            [(h["id"], h.get("_breaker")) for h in offline], sorted(probed))
+
+
+def test_an_open_breaker_quarantines_a_host_without_a_probe(monkeypatch):
+    from comfyui_distributed_tpu.cluster import resilience as jres
+    from comfyui_distributed_tpu_torch.cluster import resilience as tres
+
+    hosts = CONFIG["hosts"]
+    ours = selection((tdispatch, tres.BREAKERS), monkeypatch, hosts, ["w1"])
+    theirs = selection((jdispatch, jres.BREAKERS), monkeypatch, hosts, ["w1"])
+    assert ours == theirs == (["w0", "w2"], [("w1", "open")], ["w0", "w2"])
+
+
+def test_probe_failures_open_the_breaker_and_a_trial_closes_it(monkeypatch):
+    from comfyui_distributed_tpu_torch.cluster import resilience as tres
+
+    answers = {"w0": None}
+
+    async def probe(host, timeout=None):
+        answers.setdefault("probed", []).append(host["id"])
+        return answers["w0"]
+
+    monkeypatch.setattr(tdispatch, "probe_host", probe)
+    host = [{"id": "w0", "address": "http://127.0.0.1:9"}]
+    for _ in range(tres.BREAKERS.get("w0").failure_threshold):
+        asyncio.run(tdispatch.select_active_hosts(host))
+    assert tres.BREAKERS.state("w0") == tres.OPEN
+    online, offline = asyncio.run(tdispatch.select_active_hosts(host))
+    assert offline[0]["_breaker"] == "open" and len(answers["probed"]) == 3
+    # after the recovery window one half-open trial decides
+    tres.BREAKERS.get("w0").recovery_s = 0.0
+    answers["w0"] = {"queue_remaining": 0}
+    online, _ = asyncio.run(tdispatch.select_active_hosts(host))
+    assert [h["id"] for h in online] == ["w0"]
+    assert tres.BREAKERS.state("w0") == tres.CLOSED
+
+
+@pytest.mark.parametrize("status,closed", [(400, True), (404, True),
+                                           (500, False), (503, False)])
+def test_a_4xx_feeds_the_breaker_as_success(status, closed, monkeypatch):
+    """A validation rejection is the worker healthily answering; a 5xx is
+    the worker failing. Neither is sent twice."""
+    from comfyui_distributed_tpu_torch.cluster import resilience as tres
+    from comfyui_distributed_tpu_torch.utils.exceptions import WorkerError
+
+    calls = []
+
+    async def answer(url, data=None, headers=None, timeout=None):
+        calls.append(url)
+        return status, b'{"error": "x"}'
+
+    monkeypatch.setattr(tdispatch, "http_request_async", answer)
+    host = {"id": "w0", "address": "http://127.0.0.1:9"}
+    threshold = tres.BREAKERS.get("w0").failure_threshold
+    for _ in range(threshold):
+        with pytest.raises(WorkerError, match=str(status)) as info:
+            asyncio.run(tdispatch.dispatch_prompt(host, {"1": {}}))
+        assert info.value.client_rejected is closed
+    assert len(calls) == threshold
+    assert tres.BREAKERS.state("w0") == (tres.CLOSED if closed else tres.OPEN)

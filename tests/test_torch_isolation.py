@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing any of its modules loads
 neither JAX, flax nor the JAX package, nor a package the card's machine
-is not promised (aiohttp, Pillow), and its entry points refuse to run
-without a card unless the caller asks for the CPU."""
+is not promised (aiohttp, Pillow, websockets), and its entry points
+refuse to run without a card unless the caller asks for the CPU."""
 
 import json
 import os
@@ -17,7 +17,8 @@ import torch
 import comfyui_distributed_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL",
+             "websockets")
 
 
 def _port_modules():
@@ -31,7 +32,12 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.models.dit",
             "comfyui_distributed_tpu_torch.diffusion.pipeline_flow",
             "comfyui_distributed_tpu_torch.api.app",
-            "comfyui_distributed_tpu_torch.__main__"} <= set(modules)
+            "comfyui_distributed_tpu_torch.__main__",
+            "comfyui_distributed_tpu_torch.cluster.faults",
+            "comfyui_distributed_tpu_torch.cluster.progress",
+            "comfyui_distributed_tpu_torch.diffusion.progress",
+            "comfyui_distributed_tpu_torch.utils.auth",
+            "comfyui_distributed_tpu_torch.utils.websocket"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
@@ -47,7 +53,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_port_sources_name_no_jax_package():
-    for path in Path(port.__path__[0]).rglob("*.py"):
+    for path in [*Path(port.__path__[0]).rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

@@ -34,6 +34,19 @@ SEED = 7
 WAIT_S = 60.0
 
 
+@pytest.fixture(autouse=True)
+def _fresh_resilience():
+    """The port's breakers and fault plan are process-global: a worker id
+    another test failed must not start quarantined here."""
+    from comfyui_distributed_tpu_torch.cluster import faults, resilience
+
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+    yield
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

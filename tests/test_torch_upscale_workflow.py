@@ -36,6 +36,19 @@ SPEC = UpscaleSpec(scale=1.0, tile_w=16, tile_h=16, padding=4, steps=4,
                    denoise=0.35, guidance_scale=6.0)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_resilience():
+    """The port's breakers and fault plan are process-global: a worker id
+    another test failed must not start quarantined here."""
+    from comfyui_distributed_tpu_torch.cluster import faults, resilience
+
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+    yield
+    resilience.BREAKERS.reset()
+    faults.deactivate()
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
