@@ -56,39 +56,73 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    plain versions (same noise) is printed beside it, not bounded, with
    the plain chunk's difference from itself in chunks of 2 (the
    round-off floor).
-8. serve — the SDXL workflow served through the HTTP control plane: a
+8. img2img + ControlNet — on the sdxl path's registry, a graph of
+   ``LoadImage`` (the upscale path's 1024² input), ``ControlNetLoader
+   sdxl`` (a copy of SDXL's encoder and middle, random init from seed 0),
+   ``ControlNetApply`` (strength 0.8, the input as hint) and ``TPUImg2Img``
+   (30 steps at denoise 0.6: 18 UNet + ControlNet forwards, CFG 5) at
+   seeds 21, 22, 21: images [1,1024,1024,3], the repeat bitwise equal,
+   the seeds different, exactly 18·104 + 8 = 1880 K1 and 1872 K2
+   launches a request; the same graph without ``ControlNetApply`` (1268
+   K1, 1260 K2) gives another image. Then one UNet + ControlNet forward
+   at a 512² latent through the kernels and with the attention sites on
+   the plain versions: within 5e-2·max|plain|.
+9. inpaint — ``TPUInpaint`` on the same input with a mask PNG whose
+   left half is white (channel 0 is the mask), same spec, no ControlNet:
+   the right half bitwise the source, the left half not, 1268 K1 and
+   1260 K2 launches.
+10. USDU with ControlNet and ``spatial_cond`` — ``ImageScaleBy`` 2.0
+   (lanczos) of the input to 2048², then ``UltimateSDUpscaleDistributed``
+   at ``upscale_by`` 1.0 with 1024² tiles and padding 32 (4 crops of
+   1088², one chunk: UNet batch 8 at 4624 and 1156 tokens), 7 of 20
+   steps (denoise 0.35), CFG 6, the positive carrying the ControlNet
+   (hint: the 1024² input, resized per image to 2048² and cropped per
+   tile) and a ``spatial_cond`` whose top half is 1: twice bitwise equal,
+   exactly 7·104 + 8 = 736 K1 and 728 K2 launches, the bottom half the
+   scaled source (within 1e-5), and another image without the
+   ControlNet (498 K1, 490 K2).
+11. serve — the SDXL workflow served through the HTTP control plane: a
    worker controller started as ``python -m comfyui_distributed_tpu_torch
-   serve`` (a subprocess, on the card) and a master ``Controller`` in this
-   process (its own event-loop thread, the sdxl path's registry) answer
-   two ``POST /distributed/queue`` requests (seed 7), each polled on
-   ``/distributed/history`` until final: one worker dispatched, success,
-   two 1024² PNGs from the master's ``SaveImage``, PNG 0 bitwise equal to
-   the sdxl path's seed-7 image and PNG 1 within one level of its seed-8
-   image (the worker's seed is 7 + index 0 + 1), and the master's launch
-   counters rising by exactly one request's. Prints seconds per served
-   request beside the direct request's, and the frame bytes the worker's
-   image put on the wire. Once the master has shut down and the sdxl
-   path's record is dropped, the SDXL bundle must be freed without the
-   cycle collector: the card's allocated memory falls back to within
-   1 GiB of what it was before the sdxl path.
+   serve`` (a subprocess, on the card, with an empty ``CDT_INPUT_DIR`` of
+   its own, declared ``remote`` in the master's config) and a master
+   ``Controller`` in this process (its own event-loop thread, the sdxl
+   path's registry) answer two ``POST /distributed/queue`` requests (seed
+   7), each polled on ``/distributed/history`` until final: one worker
+   dispatched, success, two 1024² PNGs from the master's ``SaveImage``,
+   PNG 0 bitwise equal to the sdxl path's seed-7 image and PNG 1 within
+   one level of its seed-8 image (the worker's seed is 7 + index 0 + 1),
+   and the master's launch counters rising by exactly one request's.
+   Prints seconds per served request beside the direct request's, and
+   the frame bytes the worker's image put on the wire. Once the master
+   has shut down and the sdxl path's record is dropped, the SDXL bundle
+   (and its ControlNet) must be freed without the cycle collector: the
+   card's allocated memory falls back to within 1 GiB of what it was
+   before the sdxl path.
    After the two txt2img requests the pair serves
-   ``workflows/distributed-upscale.json`` once, both controllers reading the upscale path's input directory
-   (``CDT_INPUT_DIR``, as a ``local`` host shares the filesystem) and the
-   master holding back (``CDT_TILE_MASTER_HOLDBACK_S``) until the
-   worker's first pull: the master's PNG must be bitwise equal to the
-   direct upscale, the worker must have submitted at least one of the 4
-   tile tasks over ``/distributed/submit_tiles``, and the master's
-   launches must be the text encoder's 8 plus 490 K1 and 490 K2 (70 × 7
-   steps) per chunk it ran itself. Prints both processes' peak memory.
-9. flux path — the FLUX preset at full width (11.9 B parameters, random
+   ``workflows/distributed-upscale.json`` once: the master syncs
+   ``input.png`` to the worker first (``/distributed/check_file`` and
+   ``/upload/image``; the worker's copy must be byte-identical and the
+   sync report say 1 uploaded), and holds back
+   (``CDT_TILE_MASTER_HOLDBACK_S``) until the worker's first pull: the
+   master's PNG must be bitwise equal to the direct upscale, the worker
+   must have submitted at least one of the 4 tile tasks over
+   ``/distributed/submit_tiles``, and the master's launches must be the
+   text encoder's 8 plus 490 K1 and 490 K2 (70 × 7 steps) per chunk it
+   ran itself. Prints both processes' peak memory. Then the img2img +
+   ControlNet graph of phase 8 is served once (seed 21, with
+   ``DistributedSeed`` and ``DistributedCollector``): the sync report
+   says 1 skipped, the master's PNG is bitwise equal to the direct
+   seed-21 image and the worker's to the direct seed-22 image, and the
+   master ran exactly 1880 K1 and 1872 K2 launches.
+12. flux path — the FLUX preset at full width (11.9 B parameters, random
    weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
    three requests (seed 1234, 1235, 1234) with the same checks; every
    joint-attention site takes the one-head kernel.
-10. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+13. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
-11. flux serve — the direct FLUX bundle is dropped (the card's
+14. flux serve — the direct FLUX bundle is dropped (the card's
    allocated memory is printed), then ``workflows/flux-txt2img.json`` is
    served: a master ``Controller`` in this process and a fresh worker
    subprocess each build ``flux``, both under one ``CDT_AUTH_TOKEN``, the
@@ -181,6 +215,13 @@ TILE_PACKED = [  # (B, Nq, Nk, H, D), launches per upscale request
     ((8, 1156, 77, 20, 64), UPSCALE_FORWARDS * 60),
 ]
 TEXT_SHAPE = FUSED_SHAPES[2][0]
+# Transformer blocks per UNet forward at level 2 and level 3 (4096 and
+# 1024 tokens at 1024²): the UNet's, and with a ControlNet (a copy of
+# the encoder and middle: 4 more at level 2, 20 + 10 in the middle).
+UNET_BLOCKS = (10, 60)
+CONTROL_BLOCKS = (10 + 4, 60 + 30)
+I2I_STEPS, I2I_DENOISE = 30, 0.6
+I2I_FORWARDS = round(I2I_STEPS * I2I_DENOISE)              # 18
 RAGGED_FUSED = [(2, 4000, 640, 10), (1, 130, 256, 2)]
 RAGGED_CORE = [(2, 4000, 77, 10, 64), (1, 300, 1000, 2, 128)]
 # the core's 128-row q / 128-key tiles: (B, Nq, Nk, H, D), both layouts
@@ -254,6 +295,30 @@ UPSCALE_EXPECTED = {
     "flash_attention_bh": 0}
 # projection 1968, streamed core 1960, short-key 1968
 UPSCALE_EXPECTED_CUDA = cuda_counts(TILE_FUSED + [(TEXT_SHAPE, 8)], TILE_PACKED)
+
+
+def unet_counts(forwards: int, blocks: tuple, level_shapes) -> tuple:
+    """(launches per wrapper, per CUDA kernel, K1 and K2 shapes) of a
+    request of ``forwards`` UNet forwards with ``blocks`` transformer
+    blocks at the two attention levels, ``level_shapes`` their (B, N, C,
+    H), plus the text encoder's 8 K1 launches."""
+    fused = [(shape, forwards * n) for shape, n in zip(level_shapes, blocks)]
+    packed = [((B, N, 77, H, C // H), n) for (B, N, C, H), n in fused]
+    fused.append((TEXT_SHAPE, 8))
+    expected = {"fused_qkv_attention": sum(n for _, n in fused),
+                "flash_attention_packed": sum(n for _, n in packed),
+                "flash_attention_bh": 0}
+    return expected, cuda_counts(fused, packed), fused + packed
+
+
+SDXL_LEVELS = [FUSED_SHAPES[0][0], FUSED_SHAPES[1][0]]
+TILE_LEVELS = [TILE_FUSED[0][0], TILE_FUSED[1][0]]
+# img2img at 1024²: 1880 K1 / 1872 K2 with the ControlNet, 1268 / 1260 without
+I2I_CN = unet_counts(I2I_FORWARDS, CONTROL_BLOCKS, SDXL_LEVELS)
+I2I_PLAIN = unet_counts(I2I_FORWARDS, UNET_BLOCKS, SDXL_LEVELS)
+# USDU of 4 tiles (one chunk, batch 8), 7 steps: 736 / 728 and 498 / 490
+USDU_CN = unet_counts(UPSCALE_STEPS, CONTROL_BLOCKS, TILE_LEVELS)
+USDU_PLAIN = unet_counts(UPSCALE_STEPS, UNET_BLOCKS, TILE_LEVELS)
 FLUX_PATH = PathSpec(
     "flux", "flux-txt2img.json", FLUX_STEPS, "3", "4", "5",
     "flux_00000.png", (1234, 1235, 1234),
@@ -577,6 +642,13 @@ def kernel_table(rows: list[dict], errs: dict,
                 "bound_by": by, "library_ms": tot["library_ms"],
                 "launches": sum(r["launches"] for r in mine)}
 
+    def at(name, shape_launches) -> dict:
+        """Per request of a path whose launches of ``name`` at each shape
+        are ``shape_launches``, from the timed rows at those shapes."""
+        mine = [{**r, "launches": n} for shape, n in shape_launches
+                for r in rows if r["kernel"] == name and r["shape"] == shape]
+        return per_request(mine) if mine else None
+
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] != "upscale"]
@@ -610,6 +682,10 @@ def kernel_table(rows: list[dict], errs: dict,
             "enqueue_us": sum(r["enqueue_us"] * r["launches"] for r in mine) / n,
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
             **split, **split_upscale,
+            **{key: value for key, value in (
+                ("per_img2img_controlnet_request", at(name, I2I_CN[2])),
+                ("per_usdu_controlnet_request", at(name, USDU_CN[2])))
+               if value is not None},
         })
     return out
 
@@ -914,7 +990,286 @@ def upscale_reference_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> None:
             "more than one 8-bit level (not bounded)")
 
 
-# --- phase 8 -----------------------------------------------------------------
+# --- phases 8 to 10 ----------------------------------------------------------
+
+CONTROL_DIR = OUTPUT_DIR / "control"
+CONTROL_PRESET = "sdxl"          # the checkpoint and the ControlNet
+I2I_SEEDS = (21, 22, 21)
+CN_STRENGTH = 0.8
+USDU_SEED = 42
+USDU_OUT_HW = 2 * UPSCALE_INPUT_HW
+USDU_TILE, USDU_PADDING = 1024, 32
+
+
+def i2i_workflow(control: bool = True, inpaint: bool = False) -> dict:
+    """The img2img graph on the upscale path's ``input.png``: a ControlNet
+    fed the input itself as hint, seed through ``DistributedSeed`` and the
+    image through ``DistributedCollector`` (both the identity when run
+    directly), so that the same graph is served in phase 11. With
+    ``inpaint``: ``TPUInpaint`` with ``mask.png``."""
+    prompt = {
+        "1": {"class_type": "CheckpointLoader",
+              "inputs": {"ckpt_name": CONTROL_PRESET}},
+        "2": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "a harbour at dawn, watercolor", "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "blurry, low quality", "clip": ["1", 1]}},
+        "4": {"class_type": "LoadImage", "inputs": {"image": "input.png"}},
+        "5": {"class_type": "DistributedSeed", "inputs": {"seed": I2I_SEEDS[0]}},
+        "6": {"class_type": "TPUImg2Img", "inputs": {
+            "model": ["1", 0], "image": ["4", 0], "positive": ["2", 0],
+            "negative": ["3", 0], "seed": ["5", 0], "steps": I2I_STEPS,
+            "cfg": 5.0, "denoise": I2I_DENOISE, "sampler_name": "euler",
+            "scheduler": "karras"}},
+        "7": {"class_type": "DistributedCollector", "inputs": {"images": ["6", 0]}},
+        "8": {"class_type": "SaveImage", "inputs": {
+            "images": ["7", 0], "filename_prefix": "img2img"}},
+    }
+    if control:
+        prompt["9"] = {"class_type": "ControlNetLoader",
+                       "inputs": {"control_net_name": CONTROL_PRESET}}
+        prompt["10"] = {"class_type": "ControlNetApply", "inputs": {
+            "conditioning": ["2", 0], "control_net": ["9", 0],
+            "image": ["4", 0], "strength": CN_STRENGTH}}
+        prompt["6"]["inputs"]["positive"] = ["10", 0]
+    if inpaint:
+        prompt["11"] = {"class_type": "LoadImage", "inputs": {"image": "mask.png"}}
+        prompt["6"]["class_type"] = "TPUInpaint"
+        prompt["6"]["inputs"]["mask"] = ["11", 0]
+        prompt["8"]["inputs"]["filename_prefix"] = "inpaint"
+    return prompt
+
+
+def usdu_workflow(spatial, control: bool = True) -> dict:
+    """``ImageScaleBy`` 2.0 of the input, then USDU at ``upscale_by`` 1.0 in
+    four 1024² tiles with ``spatial_cond`` and a ControlNet whose hint is
+    the 1024² input (resized to 2048² by the engine)."""
+    prompt = {
+        "1": {"class_type": "CheckpointLoader",
+              "inputs": {"ckpt_name": CONTROL_PRESET}},
+        "2": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "a harbour at dawn, watercolor, detailed", "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "blurry, low quality", "clip": ["1", 1]}},
+        "4": {"class_type": "LoadImage", "inputs": {"image": "input.png"}},
+        "5": {"class_type": "ImageScaleBy", "inputs": {
+            "image": ["4", 0], "scale_by": 2.0, "upscale_method": "lanczos"}},
+        "6": {"class_type": "UltimateSDUpscaleDistributed", "inputs": {
+            "image": ["5", 0], "model": ["1", 0], "positive": ["2", 0],
+            "negative": ["3", 0], "seed": USDU_SEED, "steps": 20,
+            "denoise": 0.35, "upscale_by": 1.0, "tile_width": USDU_TILE,
+            "tile_height": USDU_TILE, "tile_padding": USDU_PADDING, "cfg": 6.0,
+            "sampler_name": "euler", "scheduler": "karras",
+            "spatial_cond": spatial}},
+        "7": {"class_type": "SaveImage", "inputs": {
+            "images": ["6", 0], "filename_prefix": "usdu_controlnet"}},
+    }
+    if control:
+        prompt["8"] = {"class_type": "ControlNetLoader",
+                       "inputs": {"control_net_name": CONTROL_PRESET}}
+        prompt["9"] = {"class_type": "ControlNetApply", "inputs": {
+            "conditioning": ["2", 0], "control_net": ["8", 0],
+            "image": ["4", 0], "strength": CN_STRENGTH}}
+        prompt["6"]["inputs"]["positive"] = ["9", 0]
+    return prompt
+
+
+def run_counted(torch, fa, executor, prompt: dict, node: str, want: tuple,
+                what: str, hw: tuple):
+    """One request: the image of ``node`` (checked: shape [1, *hw, 3],
+    finite, in [0, 1]), its seconds, and its launches per wrapper and per
+    CUDA kernel, which must be ``want``'s."""
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    t0 = time.perf_counter()
+    out = executor.execute(prompt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    img = out[node][0]
+    require(tuple(img.shape) == (1, *hw, 3), f"{what}: image shape "
+            f"{tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{what}: non-finite image")
+    require(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+            f"{what}: image outside [0, 1]")
+    require(counts == want[0], f"{what}: launches {counts} != {want[0]}")
+    require(kernel_counts == want[1],
+            f"{what}: CUDA kernel launches {kernel_counts} != {want[1]}")
+    return img, secs, out
+
+
+class ControlRun(NamedTuple):
+    launches: dict          # path → launches per wrapper over its run
+    images: dict            # seed → uint8 image of the img2img + ControlNet graph
+    seconds: list           # per img2img + ControlNet request
+
+
+def write_mask(input_dir: Path) -> None:
+    """``mask.png``: the input's size, left half white."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.image import encode_png
+
+    mask = np.zeros((UPSCALE_INPUT_HW, UPSCALE_INPUT_HW, 3), np.float32)
+    mask[:, :UPSCALE_INPUT_HW // 2] = 1.0
+    (input_dir / "mask.png").write_bytes(encode_png(mask))
+
+
+def control_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> ControlRun:
+    """Phases 8 to 10 on the sdxl path's registry and the upscale path's
+    input."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    say("img2img + ControlNet path:")
+    write_mask(up.input_dir)
+    executor = GraphExecutor({"model_registry": sdxl.registry,
+                              "input_dir": str(up.input_dir),
+                              "output_dir": str(CONTROL_DIR)})
+    hw = (UPSCALE_INPUT_HW, UPSCALE_INPUT_HW)
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cn = sdxl.registry.get_controlnet(CONTROL_PRESET)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in cn.model.parameters())
+    say(f"  controlnet {CONTROL_PRESET} built in {time.perf_counter() - t0:.2f} s "
+        f"({n_params / 1e9:.3f} B params, {n_params} exactly; "
+        f"{sum(1 for m in cn.model.modules() if type(m).__name__ == 'TransformerBlock')}"
+        " transformer blocks)")
+    clone = sdxl.bundle.pipeline.with_control(cn, CN_STRENGTH)
+    fa.reset_launches()
+    images, seconds = [], []
+    for seed in I2I_SEEDS:
+        prompt = i2i_workflow()
+        prompt["5"]["inputs"]["seed"] = seed
+        img, secs, _ = run_counted(torch, fa, executor, prompt, "6", I2I_CN,
+                                   f"img2img + ControlNet seed {seed}", hw)
+        t = clone.timings
+        say(f"  request seed {seed}: {secs:.3f} s; encode {t['encode_s']:.3f} s, "
+            f"sampling {t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} "
+            f"s/step over {t['steps']} steps, decode {t['decode_s']:.3f} s")
+        images.append(img)
+        seconds.append(secs)
+    launches["img2img_controlnet"] = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(torch.equal(images[0], images[2]),
+            f"img2img + ControlNet: seed {I2I_SEEDS[0]} twice gave different images")
+    require(not torch.equal(images[0], images[1]),
+            "img2img + ControlNet: two seeds gave the same image")
+    plain, secs, _ = run_counted(torch, fa, executor, i2i_workflow(control=False),
+                                 "6", I2I_PLAIN, "img2img without ControlNet", hw)
+    diff = (plain - images[0]).abs()
+    require(diff.max().item() > 0, "the ControlNet did not change the image")
+    say(f"  launches {I2I_CN[0]} a request as expected; seed {I2I_SEEDS[0]} "
+        f"repeatable, seed {I2I_SEEDS[1]} differs; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; without ControlNetApply {secs:.3f} s, "
+        f"{I2I_PLAIN[0]['fused_qkv_attention']} K1 launches, differs by max "
+        f"{diff.max().item():.4f}, mean {diff.mean().item():.4f}")
+    control_reference_phase(torch, fa, sdxl.bundle, cn)
+
+    say("inpaint path:")
+    fa.reset_launches()
+    out_img, secs, out = run_counted(
+        torch, fa, executor, i2i_workflow(control=False, inpaint=True), "6",
+        I2I_PLAIN, "inpaint", hw)
+    launches["inpaint"] = dict(fa.LAUNCHES)
+    src = out["4"][0]
+    half = UPSCALE_INPUT_HW // 2
+    require(torch.equal(out_img[:, :, half:], src[:, :, half:]),
+            "inpaint: the unmasked right half is not the source")
+    left = (out_img[:, :, :half] - src[:, :, :half]).abs()
+    require(left.max().item() > 0, "inpaint: the masked left half is the source")
+    say(f"  request: {secs:.3f} s; right half bitwise the source, left half "
+        f"differs by max {left.max().item():.4f}; launches {I2I_PLAIN[0]}")
+
+    say("USDU with ControlNet and spatial_cond path:")
+    spatial = torch.zeros(1, USDU_OUT_HW, USDU_OUT_HW, device=cn.device)
+    spatial[:, :USDU_OUT_HW // 2] = 1.0
+    usdu_hw = (USDU_OUT_HW, USDU_OUT_HW)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    runs = []
+    for i in range(2):
+        img, secs, out = run_counted(torch, fa, executor, usdu_workflow(spatial),
+                                     "6", USDU_CN, f"USDU + ControlNet {i}", usdu_hw)
+        chunks = clone.timings["tile_chunks"]
+        require(len(chunks) == 1 and chunks[0]["tiles"] == UPSCALE_CHUNK,
+                f"USDU + ControlNet: chunks {[c['tiles'] for c in chunks]}")
+        c = chunks[0]
+        say(f"  request {i}: {secs:.3f} s; 4 tiles in one chunk: encode "
+            f"{c['encode_s']:.3f} s, sampling {c['sample_s']:.3f} s "
+            f"({c['sample_s'] / UPSCALE_STEPS:.4f} s/step), decode "
+            f"{c['decode_s']:.3f} s; composite {clone.timings['composite_s']:.3f} s")
+        runs.append((img, secs))
+    launches["usdu_controlnet"] = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    scaled = out["5"][0]
+    require(tuple(scaled.shape) == (1, *usdu_hw, 3), "ImageScaleBy shape")
+    require(torch.equal(runs[0][0], runs[1][0]),
+            "USDU + ControlNet twice gave different images")
+    kept = (runs[0][0] - scaled)[:, USDU_OUT_HW // 2:].abs().max().item()
+    moved = (runs[0][0] - scaled)[:, :USDU_OUT_HW // 2].abs().max().item()
+    require(kept <= 1e-5, f"USDU spatial_cond: the bottom half moved by {kept}")
+    require(moved > 0, "USDU spatial_cond: the top half was not denoised")
+    plain, secs, _ = run_counted(torch, fa, executor,
+                                 usdu_workflow(spatial, control=False), "6",
+                                 USDU_PLAIN, "USDU without ControlNet", usdu_hw)
+    diff = (plain - runs[0][0]).abs().max().item()
+    require(diff > 0, "USDU: the ControlNet did not change the image")
+    say(f"  launches {USDU_CN[0]} a request as expected; repeat bitwise "
+        f"equal; bottom half (spatial_cond 0) the scaled source within "
+        f"{kept:.3g}, top half moved by max {moved:.4f}; without ControlNet "
+        f"{secs:.3f} s ({USDU_PLAIN[0]['fused_qkv_attention']} K1 launches), "
+        f"differs by max {diff:.4f}; max_memory_allocated {peak / 2**30:.3f} GiB")
+    return ControlRun(launches, {s: to_uint8(img)[0] for s, img in
+                                 zip(I2I_SEEDS[:2], images[:2])}, seconds)
+
+
+def control_reference_phase(torch, fa, bundle, cn) -> None:
+    """One UNet + ControlNet forward at a 512² latent (batch 2) through
+    the kernels and with every attention site on the plain versions."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import layers
+
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    dev = cn.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device=dev)
+    y = torch.randn(2, cfg.adm_in_channels, generator=gen, device=dev)
+    hint = torch.rand(2, 512, 512, 3, generator=gen, device=dev)
+
+    def forward():
+        down, mid = cn.model(x, t, ctx, y, hint)
+        return unet(x, t, ctx, y, control=([d * CN_STRENGTH for d in down],
+                                           mid * CN_STRENGTH))
+
+    with torch.no_grad():
+        before = dict(fa.LAUNCHES)
+        eps = forward()
+        sites = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        base = unet(x, t, ctx, y)
+        with mock.patch.object(layers, "self_attention",
+                               fa.fused_qkv_attention_plain), \
+                mock.patch.object(layers, "full_attention",
+                                  fa.flash_attention_plain):
+            ref = forward()
+    n = sum(CONTROL_BLOCKS)
+    require(sites["fused_qkv_attention"] == n
+            and sites["flash_attention_packed"] == n,
+            f"control reference: launches {sites} per forward, expected {n}")
+    require((eps - base).abs().max().item() > 0,
+            "control reference: the residuals changed nothing")
+    compare_whole(torch, "control reference: UNet + ControlNet eps at 512²",
+                  eps, ref)
+
+
+# --- phase 11 ----------------------------------------------------------------
 
 SERVE_DIR = OUTPUT_DIR / "serve"
 SERVE_BOOT_S = 180.0         # the worker's process start, up to /health
@@ -1000,11 +1355,18 @@ def wait_history(base: str, prompt_id: str, t0: float, what: str) -> dict:
         time.sleep(0.05)
 
 
-def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
-    """Serve the SDXL workflow twice, then the upscale workflow once,
-    through ``POST /distributed/queue`` to a master in this process and a
-    worker subprocess; returns the master's launches in the phase."""
+def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
+                control: ControlRun) -> dict:
+    """Serve the SDXL workflow twice, then the upscale workflow and the
+    img2img + ControlNet graph once each, through ``POST
+    /distributed/queue`` to a master in this process and a ``remote``
+    worker subprocess with an input directory of its own; returns the
+    master's launches in the phase."""
+    import shutil
+    from unittest import mock
+
     from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster import orchestration
     from comfyui_distributed_tpu_torch.cluster.controller import Controller
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.utils.frames import pack_frame
@@ -1016,19 +1378,34 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
     master_out = SERVE_DIR / "master_out"
     master_port, worker_port = free_port(), free_port()
+    # the worker shares no files with the master: its input directory
+    # starts empty and the master syncs what a prompt reads
     (SERVE_DIR / "master.json").write_text(json.dumps({
         "master": {"host": "127.0.0.1", "port": master_port},
         "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
-                   "type": "local", "enabled": True}]}))
+                   "type": "remote", "enabled": True}]}))
+    worker_in = SERVE_DIR / "worker_in"
+    shutil.rmtree(worker_in, ignore_errors=True)
+    worker_in.mkdir(parents=True)
     prompt = strip_meta(json.loads(
         (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
     prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
     want = {s: to_uint8(sdxl.images[s])[0] for s in (seed, worker_seed)}
     log_path = SERVE_DIR / "worker.log"
+    reports = []
+    sync = orchestration.sync_host_media
+
+    async def recording_sync(*args, **kwargs):
+        out = await sync(*args, **kwargs)
+        reports.append(out[1])
+        return out
+
     worker = server = None
     ok = False
+    patch = mock.patch.object(orchestration, "sync_host_media", recording_sync)
+    patch.start()
     try:
-        worker = start_worker(worker_port, log_path, up.input_dir)
+        worker = start_worker(worker_port, log_path, worker_in)
         os.environ["CDT_OUTPUT_DIR"] = str(master_out)
         os.environ["CDT_INPUT_DIR"] = str(up.input_dir)
         try:
@@ -1050,6 +1427,8 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
                     f"queue answered {status}: {answer}")
             require(answer.get("worker_count") == 1,
                     f"worker_count {answer.get('worker_count')} != 1: {answer}")
+            require(reports and reports[-1].checked == 0,
+                    f"request {i}: media synced for a prompt without media")
             entry = wait_history(base, answer["prompt_id"], t0, f"request {i}")
             secs = time.perf_counter() - t0
             require(entry["status"] == "success", f"request {i}: {entry}")
@@ -1086,9 +1465,21 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> dict:
         say(f"  the worker's image on the wire: {len(frame)} frame bytes "
             f"(CDTF, zlib level 1) of {got[1].nbytes} raw")
         serve_upscale(torch, fa, base, worker_port, master_out, up)
+        report = reports[-1]
+        require((report.checked, report.uploaded, report.failed) == (1, 1, []),
+                f"served upscale: media sync {report}, expected 1 uploaded")
+        require((worker_in / "input.png").read_bytes()
+                == (up.input_dir / "input.png").read_bytes(),
+                "the worker's input.png differs from the master's")
+        say(f"  media sync before the served upscale: {report}; the "
+            "worker's input.png byte-identical to the master's")
+        launches = dict(fa.LAUNCHES)
+        fa.reset_launches()
+        serve_img2img(torch, fa, base, master_out, control, reports)
         ok = True
-        return dict(fa.LAUNCHES)
+        return {k: launches[k] + fa.LAUNCHES[k] for k in launches}
     finally:
+        patch.stop()
         if server is not None:
             server.stop()
         if worker is not None:
@@ -1168,7 +1559,54 @@ def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
         f"worker {worker_peak / 2**30:.3f} GiB (its process)")
 
 
-# --- phase 11 ----------------------------------------------------------------
+def serve_img2img(torch, fa, base: str, master_out: Path,
+                  control: ControlRun, reports: list) -> None:
+    """The img2img + ControlNet graph of phase 8 through ``POST
+    /distributed/queue``: ``input.png`` is already on the worker."""
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    for png in master_out.glob("*.png"):
+        png.unlink()
+    seed, worker_seed = I2I_SEEDS[0], I2I_SEEDS[0] + 0 + 1
+    prompt = i2i_workflow()
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    t0 = time.perf_counter()
+    status, answer = http_json(base + "/distributed/queue",
+                               {"prompt": prompt}, timeout=120)
+    require(status == 200 and answer.get("worker_count") == 1,
+            f"img2img queue answered {status}: {answer}")
+    report = reports[-1]
+    require((report.checked, report.skipped, report.uploaded, report.failed)
+            == (1, 1, 0, []),
+            f"served img2img: media sync {report}, expected 1 skipped")
+    entry = wait_history(base, answer["prompt_id"], t0, "served img2img")
+    secs = time.perf_counter() - t0
+    require(entry["status"] == "success", f"served img2img: {entry}")
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    require(counts == I2I_CN[0],
+            f"served img2img: master launches {counts} != {I2I_CN[0]}")
+    require(kernel_counts == I2I_CN[1],
+            f"served img2img: master CUDA kernel launches {kernel_counts} "
+            f"!= {I2I_CN[1]}")
+    pngs = sorted(master_out.glob("img2img_*.png"))
+    require(len(pngs) == 2, f"served img2img: {len(pngs)} PNGs, expected 2")
+    got = [to_uint8(decode_png(p.read_bytes()))[0] for p in pngs]
+    require(np_equal(got[0], control.images[seed]),
+            f"served img2img: the master's PNG differs from the direct "
+            f"seed-{seed} image")
+    require(np_equal(got[1], control.images[worker_seed]),
+            f"served img2img: the worker's PNG differs from the direct "
+            f"seed-{worker_seed} image")
+    say(f"  served img2img + ControlNet: {secs:.3f} s (POST to final "
+        f"history; direct {control.seconds[0]:.3f} / {control.seconds[1]:.3f}"
+        f" s); media sync {report}; master launches {counts}; PNG 0 "
+        f"bitwise equal to direct seed {seed}, PNG 1 to direct seed "
+        f"{worker_seed}")
+
+
+# --- phase 14 ----------------------------------------------------------------
 
 FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
 FLUX_FAULTS = "dispatch@1-9:http500"
@@ -1392,7 +1830,7 @@ def np_absdiff(a, b):
     return abs(a.astype("int16") - b.astype("int16"))
 
 
-# --- phases 5 and 10 ---------------------------------------------------------
+# --- phases 5 and 13 ---------------------------------------------------------
 
 
 def compare_whole(torch, what: str, out, ref) -> None:
@@ -1488,8 +1926,10 @@ def main() -> int:
         path_launches["upscale"] = up.launches
         upscale_reference_phase(torch, fa, sdxl, up)
         up = up._replace(image=None)
-        path_launches["serve"] = serve_phase(torch, fa, sdxl, up)
-        del sdxl, up
+        control = control_phase(torch, fa, sdxl, up)
+        path_launches.update(control.launches)
+        path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control)
+        del sdxl, up, control
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
             f"master's shutdown and the sdxl path's end")

@@ -21,6 +21,10 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
   ``POST /distributed/job_complete_frames`` (multipart CDTF frames),
   ``POST /distributed/prepare_job``
 - ``POST /distributed/clear_memory``
+- media sync: ``POST /distributed/check_file`` (exists, md5, matches),
+  ``POST /distributed/load_image`` (a base64 data URL and its md5),
+  ``POST /upload/image`` (multipart, field ``image``), all within the
+  controller's input directory
 - the tile farm's routes (``api/usdu_routes.py``): ``heartbeat``,
   ``request_image``, ``submit_tiles``, ``submit_image``, ``handback``,
   ``job_status`` and ``queue_status/{job_id}`` under ``/distributed/``
@@ -39,13 +43,16 @@ unknown path, 405 wrong method, 413 body over ``CDT_MAX_PAYLOAD_SIZE``,
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
+import hashlib
 import http
 import json
 import re
 import threading
 import traceback
 import urllib.parse
+from pathlib import Path
 from typing import Any, Awaitable, Callable
 
 from ..cluster.controller import Controller
@@ -348,6 +355,74 @@ class App:
 
             return Upgrade(101, None, headers, session=session)
 
+        def safe_media_path(rel: Any) -> Path:
+            """``rel`` inside the controller's input directory. Departure
+            from the JAX package, whose string-prefix test lets
+            ``../<sibling whose name starts with the directory's>/x``
+            through: containment is tested on the resolved paths."""
+            if not isinstance(rel, str) or not rel:
+                raise ValidationError("missing 'path'", field="path")
+            base = Path(c.input_dir).resolve()
+            p = (base / rel).resolve()
+            if not p.is_relative_to(base):
+                raise ValidationError("path escapes input directory",
+                                      field="path")
+            return p
+
+        def json_object(request: Request) -> dict:
+            body = request.json()
+            if not isinstance(body, dict):
+                raise ValidationError("body must be a JSON object")
+            return body
+
+        async def check_file(request):
+            body = json_object(request)
+            p = safe_media_path(body.get("path"))
+            if not p.is_file():
+                return Response(200, {"exists": False})
+            # media are megabytes: read and hash off the event loop
+            md5 = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: hashlib.md5(p.read_bytes()).hexdigest())
+            matches = body.get("md5") is None or body["md5"] == md5
+            return Response(200, {"exists": True, "md5": md5,
+                                  "matches": matches})
+
+        async def load_image(request):
+            body = json_object(request)
+            rel = body.get("path")
+            p = safe_media_path(rel)
+            if not p.is_file():
+                return json_error(f"file not found: {rel}", 404)
+
+            def read_encode_hash():
+                raw = p.read_bytes()
+                return (base64.b64encode(raw).decode(),
+                        hashlib.md5(raw).hexdigest())
+
+            b64, md5 = await asyncio.get_running_loop().run_in_executor(
+                None, read_encode_hash)
+            return Response(200, {"image": "data:image/png;base64," + b64,
+                                  "md5": md5})
+
+        async def upload_image(request):
+            parts = parse_multipart(request.body,
+                                    request.headers.get("content-type", ""))
+            loop = asyncio.get_running_loop()
+            saved = []
+            for part in parts:
+                if part.name != "image":
+                    continue
+                rel = part.filename or "upload.png"
+                p = safe_media_path(rel)
+
+                def write(p=p, data=part.data):
+                    p.parent.mkdir(parents=True, exist_ok=True)
+                    p.write_bytes(data)
+
+                await loop.run_in_executor(None, write)
+                saved.append(rel)
+            return Response(200, {"saved": saved})
+
         self.add("GET", "/distributed/health", health)
         self.add("GET", "/distributed/system_info", system_info)
         self.add("GET", "/prompt", prompt_get)
@@ -362,6 +437,9 @@ class App:
         self.add("GET", "/distributed/progress/{prompt_id}", sampling_progress)
         self.add("GET", "/distributed/preview/{prompt_id}", sampling_preview)
         self.add("GET", "/distributed/worker_ws", worker_ws)
+        self.add("POST", "/distributed/check_file", check_file)
+        self.add("POST", "/distributed/load_image", load_image)
+        self.add("POST", "/upload/image", upload_image)
         usdu_routes.register(self, controller)
 
     def add(self, method: str, template: str, handler: Handler) -> None:

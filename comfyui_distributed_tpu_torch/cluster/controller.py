@@ -61,7 +61,8 @@ class Controller:
         self.progress = ProgressTracker()
         self.queue = PromptQueue(context_factory=self._execution_context)
         self.orchestrator = Orchestrator(self.store, self.queue,
-                                         config_loader=self.load_config)
+                                         config_loader=self.load_config,
+                                         input_dir=Path(self.input_dir))
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None

@@ -4,8 +4,11 @@ probe them (bounded) → optionally keep the least busy one → job-id map →
 create the collector queues → prepare and dispatch each worker's prompt
 (bounded) → queue the master's own prompt.
 
-Dispatch goes over each worker's WebSocket when
-``settings.websocket_orchestration`` is on (``cluster/dispatch.py``). A
+Before a ``remote`` host's dispatch, the media files its prompt reads
+are synced to it (``cluster/media_sync.py``): a failed upload fails that
+host's dispatch, a file missing here is left to the host. Dispatch goes
+over each worker's WebSocket when ``settings.websocket_orchestration``
+is on (``cluster/dispatch.py``). A
 delegate-only master computes after all when no worker is online, or
 when every dispatch failed. A worker whose dispatch failed is dropped
 from the collector's expected set, so the master never waits on it.
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+from pathlib import Path
 from typing import Optional, Sequence
 
 from ..graph.executor import strip_meta
@@ -31,7 +35,7 @@ from ..utils.logging import new_trace_id, trace_info
 from ..utils.network import build_master_callback_url
 from .dispatch import dispatch_prompt, select_active_hosts, select_least_busy_host
 from .job_store import JobStore
-from .media_sync import find_media_refs
+from .media_sync import sync_host_media
 from .runtime import PromptQueue
 
 
@@ -48,11 +52,16 @@ class OrchestrationResult:
 
 
 class Orchestrator:
+    """``input_dir`` is where the media a prompt names are read from for
+    the sync to remote hosts (the controller's ``CDT_INPUT_DIR``)."""
+
     def __init__(self, store: JobStore, queue: PromptQueue,
-                 config_loader=load_config):
+                 config_loader=load_config,
+                 input_dir: Optional[Path] = None):
         self.store = store
         self.queue = queue
         self.load_config = config_loader
+        self.input_dir = input_dir
 
     @staticmethod
     def _normalized_hosts(config: dict) -> list[dict]:
@@ -146,13 +155,20 @@ class Orchestrator:
                     worker_index=stable_index[wid],
                 )
                 if host_type == "remote":
-                    refs = find_media_refs(wprompt)
-                    if refs:
-                        # the host does not share this filesystem, and
-                        # without the files the collector would wait on
-                        # it for nothing
-                        return wid, ("media sync is not ported: the prompt "
-                                     f"references {[r.value for r in refs]}")
+                    # the host does not share this filesystem
+                    wprompt, report = await sync_host_media(
+                        host, wprompt, input_dir=self.input_dir,
+                        concurrency=settings.get(
+                            "media_sync_concurrency",
+                            constants.media_sync_concurrency()),
+                        timeout=settings.get(
+                            "media_sync_timeout_seconds",
+                            constants.media_sync_timeout()),
+                        trace_id=trace_id)
+                    if report.failed:
+                        # without its inputs the host would fail, and the
+                        # collector would wait on it for nothing
+                        return wid, f"media sync failed for {report.failed}"
                 try:
                     await dispatch_prompt(
                         host, wprompt, client_id,

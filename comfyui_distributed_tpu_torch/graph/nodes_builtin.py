@@ -2,12 +2,16 @@
 (``workflows/distributed-txt2img.json``, ``workflows/flux-txt2img.json``),
 of the upscale workflow (``workflows/distributed-upscale.json``:
 ``LoadImage``, ``UpscaleModelLoader``, ``ImageUpscaleWithModel``,
-``UltimateSDUpscaleDistributed``) and the two the control plane injects
-(``DistributedEmptyImage``, ``PreviewImage``), with the JAX package's
-names and contracts.
+``UltimateSDUpscaleDistributed``), img2img, inpainting and ControlNet
+(``TPUImg2Img``, ``TPUInpaint``, ``ControlNetLoader``, ``ControlNetApply``)
+with the image, mask and latent nodes around them, and the two the
+control plane injects (``DistributedEmptyImage``, ``PreviewImage``), with
+the JAX package's names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
-[B,H,W,C] in [0,1]; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]};
+[B,H,W,C] in [0,1]; MASK = float32 [B,H,W]; LATENT = {"samples":
+[B,h,w,C]}; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]}, with a
+ControlNet under ``"control"``: {"model", "hint" [B,H,W,C], "strength"};
 MODEL = ModelBundle. Tensors stay on the bundle's device until
 ``SaveImage`` copies them to the host.
 """
@@ -88,6 +92,35 @@ class DistributedValue(NodeDef):
         return (self._coerce(mapping[key], vtype) if vtype else mapping[key],)
 
 
+@register_node("ImageFromBatch")
+class ImageFromBatch(NodeDef):
+    """Slice [batch_index : batch_index + length] out of an IMAGE batch;
+    index and length clamp to the batch."""
+
+    INPUTS = {"image": "IMAGE", "batch_index": "INT", "length": "INT"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, image, batch_index: int, length: int, **_):
+        arr = torch.as_tensor(image)
+        start = min(max(int(batch_index), 0), max(arr.shape[0] - 1, 0))
+        count = min(max(int(length), 1), arr.shape[0] - start)
+        return (arr[start:start + count],)
+
+
+@register_node("SolidMask")
+class SolidMask(NodeDef):
+    """Constant-value MASK [1, height, width] (on the host; the nodes that
+    take a mask move it to their device)."""
+
+    INPUTS = {"value": "FLOAT", "width": "INT", "height": "INT"}
+    RETURNS = ("MASK",)
+
+    def execute(self, value: float = 1.0, width: int = 64, height: int = 64,
+                **_):
+        return (torch.full((1, int(height), int(width)), float(value),
+                           dtype=torch.float32),)
+
+
 @register_node("DistributedEmptyImage")
 class DistributedEmptyImage(NodeDef):
     """0-batch IMAGE placeholder for delegate-only masters, on the
@@ -142,6 +175,13 @@ class DistributedCollector(NodeDef):
         return (images, audio)
 
 
+def _registry(model_registry):
+    if model_registry is None:
+        from ..models.registry import ModelRegistry
+        model_registry = ModelRegistry()
+    return model_registry
+
+
 @register_node("CheckpointLoader")
 class CheckpointLoader(NodeDef):
     INPUTS = {"ckpt_name": "STRING"}
@@ -149,10 +189,7 @@ class CheckpointLoader(NodeDef):
     RETURNS = ("MODEL", "CLIP", "VAE")
 
     def execute(self, ckpt_name: str, model_registry=None, **_):
-        if model_registry is None:
-            from ..models.registry import ModelRegistry
-            model_registry = ModelRegistry()
-        bundle = model_registry.get(ckpt_name)
+        bundle = _registry(model_registry).get(ckpt_name)
         return (bundle, bundle.text_encoder, bundle.pipeline.vae)
 
 
@@ -178,6 +215,204 @@ def _adm_from_cond(cond: dict, adm_channels: int,
     if pad > 0:
         return F.pad(pooled, (0, pad))
     return pooled[:, :adm_channels]
+
+
+@register_node("EmptyLatentImage")
+class EmptyLatentImage(NodeDef):
+    """Zero latents [B, height/ds, width/ds, C], the geometry of the
+    preset's VAE (8× and 4 channels without a preset), on the registry's
+    device."""
+
+    INPUTS = {"width": "INT", "height": "INT"}
+    OPTIONAL = {"batch_size": "INT", "ckpt_name": "STRING"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("LATENT",)
+
+    def execute(self, width: int, height: int, batch_size: int = 1,
+                ckpt_name: str = "", model_registry=None, **_):
+        from ..models.registry import PRESETS
+
+        downscale, channels = 8, 4
+        preset = PRESETS.get(str(ckpt_name)) if ckpt_name else None
+        if preset is not None:
+            downscale = preset.vae.downscale
+            channels = preset.vae.latent_channels
+        device = (model_registry.device if model_registry is not None
+                  else resolve_device())
+        return ({"samples": torch.zeros(
+                    (int(batch_size), int(height) // downscale,
+                     int(width) // downscale, channels), device=device),
+                 "height": int(height), "width": int(width)},)
+
+
+def _vae_device(vae) -> torch.device:
+    return next(vae.parameters()).device
+
+
+@register_node("VAEEncode")
+class VAEEncode(NodeDef):
+    INPUTS = {"pixels": "IMAGE", "vae": "VAE"}
+    RETURNS = ("LATENT",)
+
+    @torch.no_grad()
+    def execute(self, pixels, vae, **_):
+        x = torch.as_tensor(pixels).float().to(_vae_device(vae))
+        return ({"samples": vae.encode(x * 2.0 - 1.0)},)
+
+
+@register_node("VAEDecode")
+class VAEDecode(NodeDef):
+    INPUTS = {"samples": "LATENT", "vae": "VAE"}
+    RETURNS = ("IMAGE",)
+
+    @torch.no_grad()
+    def execute(self, samples, vae, **_):
+        out = vae.decode(samples["samples"].to(_vae_device(vae)))
+        return (torch.clamp(out / 2.0 + 0.5, 0.0, 1.0),)
+
+
+def _method(method: str) -> str:
+    from ..ops.resize import normalize_method
+
+    try:
+        return normalize_method(method)
+    except ValueError as e:
+        raise ValidationError(str(e), field="upscale_method") from None
+
+
+def _image_batch(image) -> torch.Tensor:
+    images = torch.as_tensor(image).float()
+    return images[None] if images.ndim == 3 else images
+
+
+@register_node("ImageScale")
+class ImageScale(NodeDef):
+    """Resize to (width, height) with ``jax.image.resize``'s kernels
+    (``ops/resize.py``). ComfyUI's ``upscale_method`` names are taken; a
+    width or height of 0 keeps the aspect; ``crop="center"`` cuts the
+    source to the target aspect first."""
+
+    INPUTS = {"image": "IMAGE", "width": "INT", "height": "INT"}
+    OPTIONAL = {"method": "STRING", "upscale_method": "STRING",
+                "crop": "STRING"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, image, width: int, height: int,
+                method: str = "lanczos3", upscale_method: str = "",
+                crop: str = "disabled", **_):
+        from ..ops.resize import resize_to
+
+        method = _method(upscale_method or method)
+        if crop not in ("disabled", "center"):
+            raise ValidationError(
+                f"unknown crop mode {crop!r}; have disabled|center",
+                field="crop")
+        images = _image_batch(image)
+        _, H, W, _ = images.shape
+        width, height = int(width), int(height)
+        if width < 0 or height < 0:
+            raise ValidationError(
+                "width/height must be >= 0 (0 keeps aspect)", field="width")
+        if width == 0 and height == 0:
+            raise ValidationError("width and height cannot both be 0",
+                                  field="width")
+        if width == 0:
+            width = max(1, round(W * height / H))
+        if height == 0:
+            height = max(1, round(H * width / W))
+        if crop == "center" and H * width != W * height:
+            if W * height > H * width:            # too wide
+                new_w = max(1, round(H * width / height))
+                x0 = (W - new_w) // 2
+                images = images[:, :, x0:x0 + new_w, :]
+            else:                                  # too tall
+                new_h = max(1, round(W * height / width))
+                y0 = (H - new_h) // 2
+                images = images[:, y0:y0 + new_h, :, :]
+        return (resize_to(images, height, width, method),)
+
+
+@register_node("ImageScaleBy")
+class ImageScaleBy(NodeDef):
+    INPUTS = {"image": "IMAGE", "scale_by": "FLOAT"}
+    OPTIONAL = {"method": "STRING", "upscale_method": "STRING"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, image, scale_by: float, method: str = "lanczos3",
+                upscale_method: str = "", **_):
+        from ..ops.resize import upscale_image
+
+        method = _method(upscale_method or method)
+        if float(scale_by) <= 0:
+            raise ValidationError("scale_by must be > 0", field="scale_by")
+        return (upscale_image(_image_batch(image), float(scale_by), method),)
+
+
+@register_node("ControlNetLoader")
+class ControlNetLoader(NodeDef):
+    """A ControlNet by preset name (``tiny``, ``sdxl``), random-initialised
+    from the registry's seed on its device and kept by the registry. The
+    JAX package's ``sd15`` preset and loading a published ``.safetensors``
+    under ``CDT_CONTROLNET_DIR`` are not ported yet."""
+
+    INPUTS = {"control_net_name": "STRING"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("CONTROL_NET",)
+
+    def execute(self, control_net_name: str, model_registry=None, **_):
+        name = str(control_net_name)
+        root = constants.controlnet_dir()
+        if root:
+            fname = name if name.endswith(".safetensors") else f"{name}.safetensors"
+            if (Path(root) / fname).is_file():
+                raise NotImplementedError(
+                    f"control net {fname} found under {root}, but loading "
+                    ".safetensors checkpoints is not ported yet (ROADMAP.md, "
+                    "item A.7: LDM loading); remove it to use the "
+                    "random-init preset")
+        if name == "sd15":
+            raise NotImplementedError(
+                "the sd15 control net needs UNetConfig.sd15, which is not "
+                "ported yet (ROADMAP.md, item A.6)")
+        return (_registry(model_registry).get_controlnet(name),)
+
+
+@register_node("ControlNetApply")
+class ControlNetApply(NodeDef):
+    """Attach a control hint to a conditioning (ComfyUI semantics): the
+    sampler nodes read ``conditioning["control"]`` and feed the hint to
+    every denoise step, under CFG to both passes."""
+
+    INPUTS = {"conditioning": "CONDITIONING", "control_net": "CONTROL_NET",
+              "image": "IMAGE"}
+    OPTIONAL = {"strength": "FLOAT"}
+    RETURNS = ("CONDITIONING",)
+
+    def execute(self, conditioning, control_net, image,
+                strength: float = 1.0, **_):
+        return ({**conditioning,
+                 "control": {"model": control_net, "hint": _image_batch(image),
+                             "strength": float(strength)}},)
+
+
+def _control_from_cond(pipeline, cond: dict, height: int, width: int):
+    """The conditioning's ControlNet on a pipeline clone, and the hint
+    shaped for its stem: latent resolution × 8 (the image size for the
+    SD VAEs), resized bilinear where it differs. Returns (pipeline,
+    hint); (pipeline, None) without a ControlNet."""
+    from ..models.controlnet import HINT_DOWNSCALE
+    from ..ops.resize import resize_to
+
+    control = cond.get("control") if isinstance(cond, dict) else None
+    if not control:
+        return pipeline, None
+    hint = torch.as_tensor(control["hint"]).float().to(pipeline.device)
+    ds = pipeline.vae.config.downscale
+    target = (height // ds * HINT_DOWNSCALE, width // ds * HINT_DOWNSCALE)
+    if tuple(hint.shape[1:3]) != target:
+        hint = resize_to(hint, *target, "bilinear")
+    return (pipeline.with_control(control["model"],
+                                  control.get("strength", 1.0)), hint)
 
 
 class _ProgressScope:
@@ -238,17 +473,109 @@ class TPUTxt2Img(NodeDef):
             sampler=sampler_name, scheduler=scheduler,
             guidance_scale=float(cfg), per_device_batch=int(batch_per_device),
         )
-        pipeline = model.pipeline
-        adm = pipeline.unet.config.adm_in_channels
-        y = _adm_from_cond(positive, adm, pipeline.device) if adm else None
-        uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
+        adm = model.pipeline.unet.config.adm_in_channels
+        device = model.pipeline.device
+        y = _adm_from_cond(positive, adm, device) if adm else None
+        uy = _adm_from_cond(negative, adm, device) if adm else None
+        pipeline, hint = _control_from_cond(model.pipeline, positive,
+                                            spec.height, spec.width)
         with _ProgressScope(progress_tracker, prompt_id,
                             total_calls(sampler_name, spec.steps)) as ps:
             images = pipeline.generate(spec, int(seed), positive["context"],
                                        negative["context"], y, uy,
-                                       progress_token=ps.token)
+                                       progress_token=ps.token, hint=hint)
             ps.complete()
         return (images,)
+
+
+def _i2i_setup(model, image, positive, negative, steps, cfg, denoise,
+               sampler_name, scheduler):
+    """The img2img and inpaint nodes' prelude: the image batch on the
+    bundle's device, the spec (batch and size from the image), the ADM
+    vectors and the ControlNet clone with its hint."""
+    from ..diffusion.pipeline import GenerationSpec
+
+    images = _image_batch(image).to(model.pipeline.device)
+    B, H, W, _ = images.shape
+    spec = GenerationSpec(height=int(H), width=int(W), steps=int(steps),
+                          sampler=sampler_name, scheduler=scheduler,
+                          guidance_scale=float(cfg), per_device_batch=B,
+                          denoise=float(denoise))
+    adm = model.pipeline.unet.config.adm_in_channels
+    device = model.pipeline.device
+    y = _adm_from_cond(positive, adm, device) if adm else None
+    uy = _adm_from_cond(negative, adm, device) if adm else None
+    pipeline, hint = _control_from_cond(model.pipeline, positive, H, W)
+    return images, spec, y, uy, pipeline, hint
+
+
+@register_node("TPUImg2Img")
+class TPUImg2Img(NodeDef):
+    """img2img (name kept for workflow compatibility): the source batch is
+    encoded, noised at the head of the partial ladder (``denoise`` sets
+    the fraction, as KSampler's denoise does), sampled and decoded. As in
+    the JAX package it reports no sampling progress."""
+
+    INPUTS = {
+        "model": "MODEL", "image": "IMAGE",
+        "positive": "CONDITIONING", "negative": "CONDITIONING",
+        "seed": "INT", "steps": "INT", "cfg": "FLOAT", "denoise": "FLOAT",
+    }
+    OPTIONAL = {"sampler_name": "STRING", "scheduler": "STRING"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, image, positive, negative, seed: int,
+                steps: int, cfg: float, denoise: float,
+                sampler_name: str = "euler", scheduler: str = "karras", **_):
+        images, spec, y, uy, pipeline, hint = _i2i_setup(
+            model, image, positive, negative, steps, cfg, denoise,
+            sampler_name, scheduler)
+        return (pipeline.img2img(spec, int(seed), images, positive["context"],
+                                 negative["context"], y, uy, hint=hint),)
+
+
+@register_node("TPUInpaint")
+class TPUInpaint(NodeDef):
+    """Inpainting: img2img with a repaint mask (1 = repaint, 0 = keep),
+    ComfyUI ``KSamplerX0Inpaint`` semantics on every model call
+    (``diffusion/pipeline.inpaint_denoiser``), then the unmasked pixels
+    taken from the source. The mask is a MASK [H,W] or [B,H,W] or an IMAGE
+    (channel 0), broadcast over the batch, resized bilinear to the image
+    and clipped to [0, 1]."""
+
+    INPUTS = {
+        "model": "MODEL", "image": "IMAGE", "mask": "MASK",
+        "positive": "CONDITIONING", "negative": "CONDITIONING",
+        "seed": "INT", "steps": "INT", "cfg": "FLOAT", "denoise": "FLOAT",
+    }
+    OPTIONAL = {"sampler_name": "STRING", "scheduler": "STRING"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, image, mask, positive, negative, seed: int,
+                steps: int, cfg: float, denoise: float,
+                sampler_name: str = "euler", scheduler: str = "karras", **_):
+        from ..ops.resize import resize_to
+
+        images, spec, y, uy, pipeline, hint = _i2i_setup(
+            model, image, positive, negative, steps, cfg, denoise,
+            sampler_name, scheduler)
+        B, H, W, _ = images.shape
+        m = torch.as_tensor(mask).float().to(images.device)
+        if m.ndim == 2:
+            m = m[None]
+        if m.ndim == 3:
+            m = m[..., None]
+        if m.shape[-1] > 1:      # an IMAGE wired as mask: take channel 0
+            m = m[..., :1]
+        if m.shape[0] != B:
+            m = m.expand(B, *m.shape[1:])
+        if tuple(m.shape[1:3]) != (H, W):
+            m = resize_to(m, H, W, "bilinear")
+        # both composites assume a convex blend
+        m = torch.clamp(m, 0.0, 1.0)
+        return (pipeline.img2img(spec, int(seed), images, positive["context"],
+                                 negative["context"], y, uy, hint=hint,
+                                 mask=m),)
 
 
 @register_node("TPUFlowTxt2Img")
@@ -385,10 +712,7 @@ class UpscaleModelLoader(NodeDef):
                     ".safetensors checkpoints is not ported yet (ROADMAP.md, "
                     "item A.7: LDM loading); remove it to use the "
                     "random-init preset")
-        if model_registry is None:
-            from ..models.registry import ModelRegistry
-            model_registry = ModelRegistry()
-        return (model_registry.get_upscaler(name),)
+        return (_registry(model_registry).get_upscaler(name),)
 
 
 @register_node("ImageUpscaleWithModel")
@@ -403,9 +727,7 @@ class ImageUpscaleWithModel(NodeDef):
                 tile_padding: int = 16, **_):
         from ..tiles.model_upscale import tiled_model_upscale
 
-        images = torch.as_tensor(image).float()
-        if images.ndim == 3:
-            images = images[None]
+        images = _image_batch(image)
         tile = min(int(tile), images.shape[1], images.shape[2])
         return (tiled_model_upscale(upscale_model, images, tile=tile,
                                     padding=int(tile_padding)),)
@@ -436,7 +758,11 @@ class UltimateSDUpscaleDistributed(NodeDef):
     A batch of at least ``dynamic_threshold`` images (≥ 2) is farmed by
     image instead, each task one whole upscale seeded ``seed + i``.
 
-    ``spatial_cond`` and ControlNet conditioning are not ported yet."""
+    A ControlNet on the positive conditioning runs on every tile with its
+    hint cropped per tile, and ``spatial_cond`` (MASK, 1 = denoise) is
+    cropped per tile like the image (``tiles/engine.py``). As in the JAX
+    package, tiles farmed by range carry no hint: their tasks run on the
+    ControlNet clone without control, on whichever host pulls them."""
 
     INPUTS = {
         "image": "IMAGE", "model": "MODEL",
@@ -470,39 +796,58 @@ class UltimateSDUpscaleDistributed(NodeDef):
         from ..ops.resize import upscale_image
         from ..tiles.engine import TileUpscaler, UpscaleSpec
 
-        if spatial_cond is not None or (isinstance(positive, dict)
-                                        and positive.get("control")):
-            raise NotImplementedError(
-                "spatial_cond and ControlNet conditioning of "
-                "UltimateSDUpscaleDistributed are not ported yet (ROADMAP.md, "
-                "item A.4: ControlNet)")
         spec = UpscaleSpec(
             scale=float(upscale_by), tile_w=int(tile_width),
             tile_h=int(tile_height), padding=int(tile_padding),
             steps=int(steps), denoise=float(denoise), sampler=sampler_name,
             scheduler=scheduler, guidance_scale=float(cfg))
+        # the ControlNet rides the positive conditioning; its hint is
+        # cropped per tile in the engine
+        control = positive.get("control") if isinstance(positive, dict) else None
         pipeline = model.pipeline
+        device = pipeline.device
+        control_hint = None
+        if control:
+            pipeline = pipeline.with_control(control["model"],
+                                             control.get("strength", 1.0))
+            control_hint = torch.as_tensor(control["hint"]).float().to(device)
         upscaler = TileUpscaler(pipeline)
         adm = pipeline.unet.config.adm_in_channels
-        y = _adm_from_cond(positive, adm, pipeline.device) if adm else None
-        uy = _adm_from_cond(negative, adm, pipeline.device) if adm else None
+        y = _adm_from_cond(positive, adm, device) if adm else None
+        uy = _adm_from_cond(negative, adm, device) if adm else None
         ctx, unc = positive["context"], negative["context"]
-        images = torch.as_tensor(image).float().to(pipeline.device)
-        if images.ndim == 3:
-            images = images[None]
+        images = _image_batch(image).to(device)
         B = images.shape[0]
         journal_dir = constants.tile_journal_dir()
+        smap = None
+        if spatial_cond is not None:
+            # MASK [B,H,W] → [B,H,W,1]
+            smap = torch.as_tensor(spatial_cond).float().to(device)
+            if smap.ndim == 3:
+                smap = smap[..., None]
 
         farm_active = (tile_farm is not None and multi_job_id
                        and (is_worker or enabled_worker_ids))
         if not farm_active:
-            return (upscaler.upscale(images, spec, int(seed), ctx, unc, y, uy),)
+            return (upscaler.upscale(images, spec, int(seed), ctx, unc, y, uy,
+                                     spatial_cond=smap,
+                                     control_hint=control_hint),)
+        if control_hint is not None:
+            log("USDU farm mode: ControlNet hints apply to locally processed "
+                "work only; cross-host STATIC tile tasks run without control "
+                "this round")
+
+        def per_image(t, i: int):
+            return t if t is None or t.shape[0] != B else t[i:i + 1]
 
         if B >= max(2, int(dynamic_threshold)):
             def process_images(start: int, end: int) -> np.ndarray:
                 return np.concatenate([
                     upscaler.upscale(images[i:i + 1], spec, int(seed) + i, ctx,
-                                     unc, y, uy).cpu().numpy()
+                                     unc, y, uy,
+                                     spatial_cond=per_image(smap, i),
+                                     control_hint=per_image(control_hint, i)
+                                     ).cpu().numpy()
                     for i in range(start, end)])
 
             def plain_resize(start: int, end: int) -> np.ndarray:
@@ -525,8 +870,9 @@ class UltimateSDUpscaleDistributed(NodeDef):
         outs = []
         for b in range(B):
             T = upscaler.grid_for(images.shape[1], images.shape[2], spec).num_tiles
-            plan = upscaler.range_plan(images[b], spec, int(seed), ctx, unc, y,
-                                       uy, first_index=b * T)
+            plan = upscaler.range_plan(
+                images[b], spec, int(seed), ctx, unc, y, uy, first_index=b * T,
+                spatial_cond=None if smap is None else per_image(smap, b)[0])
             job_id = f"{multi_job_id}_b{b}" if B > 1 else multi_job_id
             if is_worker:
                 tile_farm.worker_run(job_id, worker_id, master_url,

@@ -30,6 +30,8 @@ from ..parallel.rng import seed_generator
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.exceptions import ValidationError
 from ..utils.logging import log
+from .controlnet import PRESETS as CONTROLNET_PRESETS
+from .controlnet import ControlNetBundle, init_controlnet
 from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
 from .layers import flax_init_
@@ -127,14 +129,18 @@ class ModelBundle:
 
 class ModelRegistry:
     """Bundles by preset name, built on first use on one device; the
-    upscalers beside them (``get_upscaler``), drawn from the same seed,
-    so that every controller of a cluster builds the same weights."""
+    upscalers (``get_upscaler``) and ControlNets (``get_controlnet``)
+    beside them, drawn from the same seed, so that every controller of a
+    cluster builds the same weights."""
+
+    CONTROLNETS_KEPT = 4
 
     def __init__(self, device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
         self.seed = int(seed)
         self._cache: dict[str, ModelBundle] = {}
         self._upscalers: dict[str, UpscalerBundle] = {}
+        self._controlnets: dict[str, ControlNetBundle] = {}
         self._lock = threading.Lock()
 
     def get_upscaler(self, name: str) -> UpscalerBundle:
@@ -152,6 +158,30 @@ class ModelRegistry:
                 log(f"built upscaler {name} on {self.device} (random init, "
                     f"seed {self.seed})")
             return self._upscalers[name]
+
+    def get_controlnet(self, name: str) -> ControlNetBundle:
+        """The ControlNet preset ``name`` (``tiny``, ``sdxl``),
+        random-initialised on first use; the registry keeps at most
+        ``CONTROLNETS_KEPT``, dropping the oldest."""
+        with self._lock:
+            if name not in self._controlnets:
+                config = CONTROLNET_PRESETS.get(name)
+                if config is None:
+                    raise ValidationError(
+                        f"unknown control net {name!r}; have "
+                        f"{sorted(CONTROLNET_PRESETS)}",
+                        field="control_net_name")
+                if len(self._controlnets) >= self.CONTROLNETS_KEPT:
+                    self._controlnets.pop(next(iter(self._controlnets)))
+                t0 = time.perf_counter()
+                self._controlnets[name] = init_controlnet(
+                    config, self.device, self.seed, name=name)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                log(f"built controlnet {name} on {self.device} in "
+                    f"{time.perf_counter() - t0:.2f} s (random init, "
+                    f"seed {self.seed})")
+            return self._controlnets[name]
 
     def available(self) -> list[str]:
         return sorted(PRESETS)

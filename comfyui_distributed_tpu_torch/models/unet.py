@@ -3,7 +3,8 @@
 ``UNetConfig.sdxl()`` is SDXL-base's shape (320·[1,2,4], transformer
 depths [0,2,10], ctx 2048, adm 2816); ``UNetConfig.tiny()`` a 2-level toy
 for tests. The public forward takes and returns NHWC like the JAX model;
-inside it runs NCHW. The ControlNet residual hook is not ported yet.
+inside it runs NCHW. ``forward(..., control=)`` takes a ControlNet's
+residuals (``models/controlnet.py``) in that NCHW layout.
 """
 
 from __future__ import annotations
@@ -114,7 +115,13 @@ class UNet2D(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                control: Optional[tuple] = None) -> torch.Tensor:
+        """``control``: optional ``(down_residuals, mid_residual)`` from a
+        ControlNet, one residual per skip in push order plus one for the
+        middle state (LDM ``cldm`` semantics), each NCHW like the skips:
+        the only NHWC↔NCHW transposes are this forward's first and last,
+        and the ControlNet's hint and ``x`` on entry."""
         cfg = self.config
         dt = cfg.torch_dtype
         emb = self.time_1(timestep_embedding(t, cfg.model_channels).to(dt))
@@ -146,6 +153,13 @@ class UNet2D(nn.Module):
         if cfg.transformer_depth[-1]:
             h = self.mid_attn(h, context)
         h = self.mid_res_2(h, emb)
+        if control is not None:
+            down_res, mid_res = control
+            assert len(down_res) == len(skips), (
+                f"control carries {len(down_res)} skip residuals, "
+                f"UNet has {len(skips)}")
+            h = h + mid_res.to(h.dtype)
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_res)]
         for level in reversed(range(len(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
                 h = torch.cat([h, skips.pop()], dim=1)

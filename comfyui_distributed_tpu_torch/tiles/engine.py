@@ -22,6 +22,12 @@ Two things make a farmed image bitwise equal to a direct one:
 The VAE encodes and decodes one tile at a time inside a chunk, on every
 host alike: its single-head mid attention materialises an
 [N, N] fp32 score matrix (N = 18 496 tokens for a 1088² crop, 1.37 GB).
+
+Two maps are cropped per tile like the image (the reference's per-tile
+conditioning crop): a spatial map (``spatial_cond``: 1 = denoise, 0 =
+keep the source pixels), and a ControlNet hint for a ``with_control``
+pipeline, which lives in the hint stem's space (latent resolution × 8),
+so its grid is the image's scaled by ``8 // vae.downscale``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ import torch
 from ..diffusion.guidance import cfg_denoiser
 from ..diffusion.pipeline import GenerationSpec, make_sigma_ladder
 from ..diffusion.samplers import sample
+from ..models.controlnet import HINT_DOWNSCALE
 from ..ops.blend import composite_tiles, extract_tiles, feather_mask
-from ..ops.resize import upscale_image
+from ..ops.resize import resize_to, upscale_image
 from ..parallel.rng import seed_generator, tile_seed
 from ..utils import constants
 from .grid import TileGrid, compute_tile_grid
@@ -108,9 +115,14 @@ class TileUpscaler:
     def _img2img_tiles(self, tiles: torch.Tensor, noise: torch.Tensor,
                        context: torch.Tensor, uncond_context: torch.Tensor,
                        y: Optional[torch.Tensor], uncond_y: Optional[torch.Tensor],
-                       spec: UpscaleSpec, sigmas: torch.Tensor) -> torch.Tensor:
+                       spec: UpscaleSpec, sigmas: torch.Tensor,
+                       tile_masks: Optional[torch.Tensor] = None,
+                       hint_tiles: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """img2img a [n, ch, cw, C] tile chunk with its [n, h, w, C_lat]
-        unit noise → [n, ch, cw, C] in [0, 1]."""
+        unit noise → [n, ch, cw, C] in [0, 1]. ``tile_masks`` [n, ch, cw,
+        1] blend the result with the source tiles (1 = denoise);
+        ``hint_tiles`` feed the pipeline's ControlNet."""
         pipe = self.pipeline
         vae = pipe.vae
         n = tiles.shape[0]
@@ -127,16 +139,19 @@ class TileUpscaler:
         y_b = None if y is None else rows(y)
         uy_b = None if uncond_y is None else rows(uncond_y)
         if gspec.guidance_scale != 1.0:
-            denoise = cfg_denoiser(pipe._denoiser, rows(context),
-                                   rows(uncond_context), gspec.guidance_scale,
-                                   y_b, uy_b)
+            denoise = cfg_denoiser(
+                lambda c, yy: pipe._denoiser(c, yy, hint=hint_tiles),
+                rows(context), rows(uncond_context), gspec.guidance_scale,
+                y_b, uy_b)
         else:
-            denoise = pipe._denoiser(rows(context), y_b)
+            denoise = pipe._denoiser(rows(context), y_b, hint=hint_tiles)
         x0 = sample(gspec.sampler, denoise, noised, sigmas)
         pipe._sync()
         t2 = time.perf_counter()
         out = torch.cat([vae.decode(x[None]) for x in x0])
         out = torch.clamp(out / 2.0 + 0.5, 0.0, 1.0)
+        if tile_masks is not None:
+            out = tiles * (1.0 - tile_masks) + out * tile_masks
         pipe._sync()
         self.timings.append({"encode_s": t1 - t0, "sample_s": t2 - t1,
                              "decode_s": time.perf_counter() - t2,
@@ -175,7 +190,10 @@ class TileUpscaler:
                    uncond_y: Optional[torch.Tensor] = None,
                    tiles_per_device: Optional[int] = None,
                    first_index: int = 0,
-                   noise: Optional[torch.Tensor] = None) -> TileRangePlan:
+                   noise: Optional[torch.Tensor] = None,
+                   spatial_cond: Optional[torch.Tensor] = None,
+                   control_hint: Optional[torch.Tensor] = None
+                   ) -> TileRangePlan:
         """Resize one [H, W, C] image and cut its crops once; the plan's
         ``run_range(start, end)`` img2imgs tiles [start, end) in chunks
         of ``chunk`` and returns them as fp32 numpy [end − start, ch, cw, C].
@@ -184,7 +202,15 @@ class TileUpscaler:
         (``upscale`` numbers the tiles of a batch across its images), or
         taken from ``noise[i]`` ([T, h, w, C_lat]) where given. A range
         wider than the chunk loops over sub-chunks, so a task sized by
-        another host's chunk still runs; only the padding differs."""
+        another host's chunk still runs; only the padding differs.
+
+        ``spatial_cond`` [H', W'] or [H', W', 1] (1 = denoise) is resized
+        to the output grid (bilinear) and cropped per tile like the
+        image; padded tiles get ones. ``control_hint`` [h, w, C] is this
+        image's hint, already at the output size × ``8 // vae.downscale``
+        (``upscale`` resizes it), cropped with the scaled grid; padded
+        tiles get zeros. The farm passes no hint, as the JAX package's
+        does."""
         dev = self.device
         H, W, _ = image.shape
         grid = self.grid_for(H, W, spec)
@@ -199,6 +225,18 @@ class TileUpscaler:
         up = upscale_image(image[None].to(dev), spec.scale,
                            spec.resize_method)[0]
         all_tiles = extract_tiles(up, grid)              # [T, ch, cw, C]
+        all_stiles = all_htiles = None
+        if spatial_cond is not None:
+            smap = spatial_cond.to(dev).float()
+            if smap.ndim == 2:
+                smap = smap[..., None]
+            if tuple(smap.shape[:2]) != (grid.image_h, grid.image_w):
+                smap = resize_to(smap[None], grid.image_h, grid.image_w,
+                                 "bilinear")[0]
+            all_stiles = extract_tiles(smap, grid)
+        if control_hint is not None:
+            all_htiles = extract_tiles(control_hint.to(dev).float(),
+                                       self.hint_grid(grid))
         ds = self.pipeline.vae.config.downscale
         latent_shape = (grid.crop_h // ds, grid.crop_w // ds,
                         self.pipeline.latent_channels)
@@ -210,14 +248,23 @@ class TileUpscaler:
             return torch.randn(latent_shape, generator=gen,
                                dtype=torch.float32, device=dev)
 
-        def run_one(start: int, end: int) -> np.ndarray:
-            seg = all_tiles[start:end]
+        def padded(tiles: Optional[torch.Tensor], start: int, end: int,
+                   fill: float) -> Optional[torch.Tensor]:
+            if tiles is None:
+                return None
+            seg = tiles[start:end]
             if seg.shape[0] < chunk:
-                seg = torch.cat([seg, seg.new_zeros(
-                    (chunk - seg.shape[0],) + seg.shape[1:])])
+                seg = torch.cat([seg, seg.new_full(
+                    (chunk - seg.shape[0],) + seg.shape[1:], fill)])
+            return seg
+
+        def run_one(start: int, end: int) -> np.ndarray:
             nz = torch.stack([tile_noise(i) for i in range(start, start + chunk)])
-            out = self._img2img_tiles(seg, nz, context, uncond_context, y,
-                                      uncond_y, spec, sigmas)
+            out = self._img2img_tiles(
+                padded(all_tiles, start, end, 0.0), nz, context,
+                uncond_context, y, uncond_y, spec, sigmas,
+                tile_masks=padded(all_stiles, start, end, 1.0),
+                hint_tiles=padded(all_htiles, start, end, 0.0))
             return out[:end - start].float().cpu().numpy()
 
         def run_range(start: int, end: int) -> np.ndarray:
@@ -231,6 +278,14 @@ class TileUpscaler:
 
         return TileRangePlan(grid=grid, chunk=chunk, run_range=run_range,
                              feather=spec.feather, source_range=source_range)
+
+    def hint_grid(self, grid: TileGrid) -> TileGrid:
+        """The image grid in the hint stem's space (latent resolution ×
+        8), so that each hint crop aligns with its image crop."""
+        hf = HINT_DOWNSCALE // self.pipeline.vae.config.downscale
+        return compute_tile_grid(grid.image_w * hf, grid.image_h * hf,
+                                 grid.tile_w * hf, grid.tile_h * hf,
+                                 grid.padding * hf)
 
     def composite(self, tiles, plan: TileRangePlan) -> torch.Tensor:
         """Blend a complete [T, ch, cw, C] tile set into the [H, W, C]
@@ -248,17 +303,44 @@ class TileUpscaler:
                 y: Optional[torch.Tensor] = None,
                 uncond_y: Optional[torch.Tensor] = None,
                 tiles_per_device: Optional[int] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                noise: Optional[torch.Tensor] = None,
+                spatial_cond: Optional[torch.Tensor] = None,
+                control_hint: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, H, W, C] → [B, H·s, W·s, C] in [0, 1] on the device: each
         image's plan run over its whole range, then composited. Tiles are
         numbered across the batch (image b's first is b·T), as in the JAX
-        package's single program. ``noise``: [B·T, h, w, C_lat]."""
+        package's single program. ``noise``: [B·T, h, w, C_lat].
+        ``spatial_cond``: [B, H, W, 1] (input size) or [B, H·s, W·s, 1]
+        (output size) region mask. ``control_hint``: [1 or B, h, w, C]
+        control map for a ``with_control`` pipeline's ControlNet, resized
+        (bilinear, per image) to the output size × ``8 // vae.downscale``;
+        without a ControlNet it is ignored, as in the JAX package."""
+        B, H, W, _ = images.shape
+        grid = self.grid_for(H, W, spec)
+        T = grid.num_tiles
+        if spatial_cond is not None:
+            spatial_cond = spatial_cond.to(self.device).float()
+            spatial_cond = spatial_cond.expand(B, *spatial_cond.shape[1:])
+        if control_hint is not None and self.pipeline._control is not None:
+            hb = control_hint.shape[0]
+            if hb not in (1, B):
+                raise ValueError(f"control hint batch {hb} incompatible with "
+                                 f"image batch {B} (must be 1 or {B})")
+            hg = self.hint_grid(grid)
+            control_hint = control_hint.to(self.device).float()
+            if tuple(control_hint.shape[1:3]) != (hg.image_h, hg.image_w):
+                control_hint = resize_to(control_hint, hg.image_h, hg.image_w,
+                                         "bilinear")
+            control_hint = control_hint.expand(B, *control_hint.shape[1:])
+        else:
+            control_hint = None
         outs = []
-        for b in range(images.shape[0]):
-            T = self.grid_for(images.shape[1], images.shape[2], spec).num_tiles
+        for b in range(B):
             plan = self.range_plan(
                 images[b], spec, seed, context, uncond_context, y, uncond_y,
                 tiles_per_device=tiles_per_device, first_index=b * T,
-                noise=None if noise is None else noise[b * T:(b + 1) * T])
+                noise=None if noise is None else noise[b * T:(b + 1) * T],
+                spatial_cond=None if spatial_cond is None else spatial_cond[b],
+                control_hint=None if control_hint is None else control_hint[b])
             outs.append(self.composite(plan.run_range(0, plan.num_tiles), plan))
         return torch.stack(outs)

@@ -96,6 +96,11 @@ def upscale_model_dir() -> Optional[str]:
     return _read("CDT_UPSCALE_MODEL_DIR", None, str)
 
 
+def controlnet_dir() -> Optional[str]:
+    """Directory of ControlNet ``.safetensors`` files."""
+    return _read("CDT_CONTROLNET_DIR", None, str)
+
+
 def tile_journal_dir() -> str:
     """Crash-resume journal of completed tile tasks ("" = off)."""
     return _read("CDT_TILE_JOURNAL_DIR", "", str)
@@ -123,6 +128,18 @@ def probe_timeout() -> float:
 
 def dispatch_timeout() -> float:
     return _read("CDT_DISPATCH_TIMEOUT", 30.0, float)
+
+
+def media_sync_concurrency() -> int:
+    """Concurrent media-sync transfers to one host (fallback of the
+    config's ``settings.media_sync_concurrency``)."""
+    return _read("CDT_MEDIA_SYNC_CONCURRENCY", 4, int)
+
+
+def media_sync_timeout() -> float:
+    """Timeout of one media-sync call, seconds (fallback of
+    ``settings.media_sync_timeout_seconds``)."""
+    return _read("CDT_MEDIA_SYNC_TIMEOUT", 120.0, float)
 
 
 def heartbeat_timeout() -> float:

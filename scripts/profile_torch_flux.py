@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Device-time breakdown of one denoising forward of the PyTorch port on
-one NVIDIA card: FLUX's DiT or SDXL's UNet.
+one NVIDIA card: FLUX's DiT, SDXL's UNet, or SDXL's UNet with a
+ControlNet.
 
-    python3 scripts/profile_torch_flux.py [--model flux|sdxl] [--forwards 2] [--trace PATH]
+    python3 scripts/profile_torch_flux.py [--model flux|sdxl|sdxl-controlnet] [--forwards 2] [--trace PATH]
 
 Builds the full-width ``flux`` or ``sdxl`` preset (random weights from
 seed 0) and runs one model forward at the shape of the model's workflow:
 FLUX at 1024² (4096 image + 77 text tokens, batch 1,
 ``workflows/flux-txt2img.json``), SDXL at 1024² with CFG (a 128² latent,
-batch 2, ``workflows/distributed-txt2img.json``). It warms up, times
+batch 2, ``workflows/distributed-txt2img.json``); ``sdxl-controlnet``
+runs the ``sdxl`` ControlNet (hint 1024², strength 0.8) before the
+UNet, as each step of ``chip_smoke.py``'s img2img + ControlNet graph
+does. It warms up, times
 ``--forwards`` forwards untraced, then traces as many with
 ``torch.profiler`` (device activity only: tracing every host-side op
 slows the host enough to starve the card) and prints, per forward:
@@ -94,9 +98,10 @@ def flux_forward(torch, registry):
     return forward, label
 
 
-def sdxl_forward(torch, registry):
-    """One UNet forward of the SDXL workflow with CFG (the doubled batch);
-    returns (forward, label)."""
+def sdxl_forward(torch, registry, control: bool = False):
+    """One UNet forward of the SDXL workflow with CFG (the doubled batch),
+    with ``control`` the ControlNet's forward before it; returns
+    (forward, label)."""
     workflow = json.loads(
         (ROOT / "workflows" / "distributed-txt2img.json").read_text())
     sampler = workflow["5"]["inputs"]
@@ -111,18 +116,28 @@ def sdxl_forward(torch, registry):
     ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device="cuda")
     y = torch.randn(2, cfg.adm_in_channels, generator=gen, device="cuda")
 
+    cn = registry.get_controlnet("sdxl") if control else None
+    hint = torch.rand(2, sampler["height"], sampler["width"], 3,
+                      generator=gen, device="cuda")
+
     def forward():
         with torch.no_grad():
-            unet(x, t, ctx, y)
+            residuals = None
+            if cn is not None:
+                down, mid = cn.model(x, t, ctx, y, hint)
+                residuals = ([d * 0.8 for d in down], mid * 0.8)
+            unet(x, t, ctx, y, control=residuals)
 
-    label = (f"sdxl UNet forward at {sampler['height']}x{sampler['width']} "
-             f"with CFG (latent {tuple(x.shape)})")
+    label = (f"sdxl UNet{' + ControlNet' if control else ''} forward at "
+             f"{sampler['height']}x{sampler['width']} with CFG (latent "
+             f"{tuple(x.shape)})")
     return forward, label
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("flux", "sdxl"), default="flux")
+    ap.add_argument("--model", choices=("flux", "sdxl", "sdxl-controlnet"),
+                    default="flux")
     ap.add_argument("--forwards", type=int, default=2)
     ap.add_argument("--trace", default=None,
                     help="Chrome trace path (default output/profiles/"
@@ -143,8 +158,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    build = flux_forward if args.model == "flux" else sdxl_forward
-    forward, label = build(torch, ModelRegistry("cuda", seed=0))
+    registry = ModelRegistry("cuda", seed=0)
+    if args.model == "flux":
+        forward, label = flux_forward(torch, registry)
+    else:
+        forward, label = sdxl_forward(torch, registry,
+                                      control=args.model == "sdxl-controlnet")
 
     def timed() -> float:
         torch.cuda.synchronize()

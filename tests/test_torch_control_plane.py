@@ -516,6 +516,12 @@ def test_failed_dispatch_drops_the_worker_everywhere(monkeypatch):
 
 
 def test_remote_host_with_media_is_a_failed_dispatch(monkeypatch):
+    """The JAX package's semantics: a remote host's media are synced
+    before its dispatch; a failed upload fails that host's dispatch (the
+    collector no longer waits on it), a file missing here still
+    dispatches, with the prompt the sync returned."""
+    from comfyui_distributed_tpu_torch.cluster.media_sync import SyncReport
+
     async def probe(host, timeout=None):
         return {"queue_remaining": 0}
 
@@ -523,20 +529,46 @@ def test_remote_host_with_media_is_a_failed_dispatch(monkeypatch):
 
     async def dispatch(host, wprompt, client_id="", extra=None, trace_id=None,
                        via_ws=False):
-        sent.append(host["id"])
+        sent.append((host["id"], wprompt["1"]["inputs"]["image"]))
         return {}
+
+    synced = []
+
+    def syncing(report):
+        async def sync(host, wprompt, input_dir=None, concurrency=None,
+                       timeout=None, trace_id=""):
+            synced.append((host["id"], concurrency, timeout))
+            out = json.loads(json.dumps(wprompt))
+            out["1"]["inputs"]["image"] = "converted.png"
+            return out, report
+        return sync
 
     monkeypatch.setattr(tdispatch, "probe_host", probe)
     monkeypatch.setattr(torch_orch, "dispatch_prompt", dispatch)
     config = {"master": {"port": 8288},
               "hosts": [{"id": "r0", "address": "http://127.0.0.1:9",
-                         "type": "remote", "enabled": True}]}
+                         "type": "remote", "enabled": True},
+                        {"id": "l0", "address": "http://127.0.0.1:10",
+                         "type": "local", "enabled": True}],
+              "settings": {"media_sync_concurrency": 2}}
     prompt = {"1": {"class_type": "LoadImage", "inputs": {"image": "cat.png"}},
               "2": {"class_type": "DistributedCollector",
                     "inputs": {"images": ["1", 0]}}}
-    orch = torch_orch.Orchestrator(TStore(), SpyQueue(), config_loader=lambda: config)
-    result = asyncio.run(orch.orchestrate(prompt, trace_id=TRACE))
-    assert result.worker_count == 0 and sent == []
+    for report, dispatched in ((SyncReport(checked=1, failed=["cat.png"]),
+                                [("l0", "cat.png")]),
+                               (SyncReport(checked=1, missing=1),
+                                [("r0", "converted.png"), ("l0", "cat.png")])):
+        sent.clear()
+        synced.clear()
+        monkeypatch.setattr(torch_orch, "sync_host_media", syncing(report))
+        queue, store = SpyQueue(), TStore()
+        orch = torch_orch.Orchestrator(store, queue, config_loader=lambda: config)
+        result = asyncio.run(orch.orchestrate(prompt, trace_id=TRACE))
+        assert sorted(sent) == sorted(dispatched)
+        assert synced == [("r0", 2, 120)]            # local hosts share files
+        assert result.worker_count == len(dispatched)
+        assert sorted(queue.enqueued[0]["2"]["inputs"]["enabled_worker_ids"]) == \
+            sorted(h for h, _ in dispatched)
 
 
 def test_dispatch_retries_only_a_refused_connection(monkeypatch):

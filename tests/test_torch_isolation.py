@@ -37,7 +37,10 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.cluster.progress",
             "comfyui_distributed_tpu_torch.diffusion.progress",
             "comfyui_distributed_tpu_torch.utils.auth",
-            "comfyui_distributed_tpu_torch.utils.websocket"} <= set(modules)
+            "comfyui_distributed_tpu_torch.utils.websocket",
+            "comfyui_distributed_tpu_torch.models.controlnet",
+            "comfyui_distributed_tpu_torch.cluster.media_sync",
+            "comfyui_distributed_tpu_torch.tiles.engine"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
@@ -76,6 +79,14 @@ def test_entry_points_refuse_without_card(no_card, tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry()
+    from comfyui_distributed_tpu_torch.graph.node import get_node
+    from comfyui_distributed_tpu_torch.models.controlnet import init_controlnet
+    from comfyui_distributed_tpu_torch.models.unet import UNetConfig
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_controlnet(UNetConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_node("ControlNetLoader")().execute("tiny")
     for workflow in ("distributed-txt2img.json", "flux-txt2img.json"):
         prompt = strip_meta(json.loads((ROOT / "workflows" / workflow).read_text()))
         with pytest.raises(RuntimeError, match="no CUDA device"):

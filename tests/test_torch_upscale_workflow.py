@@ -243,10 +243,37 @@ def test_dynamic_mode_farms_images(cluster, direct):
 
 
 def test_spatial_cond_is_refused(direct):
+    """``spatial_cond`` is no longer refused: cropped per tile like the
+    image (1 = denoise, 0 = keep the source), as the JAX package does. A
+    map of ones is the run without one, bitwise; a map of zeros gives
+    back the resized source, which matches ``jax.image.resize``; a half
+    map keeps the source where its tiles see only zeros."""
+    from comfyui_distributed_tpu_torch.ops.resize import upscale_image
+
     bundle = direct["registry"].get("tiny")
     ctx, pooled = bundle.text_encoder.encode([""])
     cond = {"context": ctx, "pooled": pooled}
-    with pytest.raises(NotImplementedError, match="A.4"):
-        get_node("UltimateSDUpscaleDistributed")().execute(
-            torch.zeros(1, 16, 16, 3), bundle, cond, cond, 1, 2, 0.3, 1.0,
-            spatial_cond=torch.ones(1, 16, 16))
+    img = torch.from_numpy(np.random.default_rng(5).random(
+        (1, 16, 16, 3)).astype(np.float32))
+    node = get_node("UltimateSDUpscaleDistributed")()
+
+    def run(spatial_cond=None):
+        return node.execute(img, bundle, cond, cond, 1, 2, 0.3, 2.0,
+                            tile_width=16, tile_height=16, tile_padding=4,
+                            spatial_cond=spatial_cond)[0]
+
+    plain = run()
+    assert torch.equal(run(torch.ones(1, 16, 16)), plain)
+    source = upscale_image(img, 2.0, "lanczos3")
+    zeros = run(torch.zeros(1, 8, 8))          # input-size maps are resized
+    torch.testing.assert_close(zeros, source, atol=1e-6, rtol=1e-6)
+    half = torch.zeros(1, 32, 32)
+    half[:, :16] = 1.0
+    out = run(half)
+    # tiles of rows 16..31 (padding 4) see only zeros below row 20
+    torch.testing.assert_close(out[:, 24:], source[:, 24:], atol=1e-6, rtol=1e-6)
+    assert (out[:, :8] - source[:, :8]).abs().max() > 1e-3
+    jimage = pytest.importorskip("jax.image")
+    ref = np.asarray(jimage.resize(img.numpy(), (1, 32, 32, 3), "lanczos3"))
+    np.testing.assert_allclose(zeros.numpy(), np.clip(ref, 0.0, 1.0),
+                               atol=2e-4, rtol=2e-4)
