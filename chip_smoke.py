@@ -10,9 +10,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 2. build   — nvcc builds the attention kernels from
    ``comfyui_distributed_tpu_torch/ops/csrc`` into ``build/torch_kernels``
    and prints ptxas's register / stack / spill report per kernel and the
-   short-key kernel's dynamic shared memory per key tile; a spill, a
-   missing short-key instantiation, or a kernel that hands registers
-   over with ``setmaxnreg`` but does not hold 168 at entry fails the run.
+   short-key kernel's dynamic shared memory per (head width, key tile); a
+   spill, a missing instantiation (a streamed core for each of D 40, 64,
+   80, 128, 160, a short-key kernel for each key tile the wrapper selects
+   there: 80 and 128, only 80 at D = 160), or a kernel that hands
+   registers over with ``setmaxnreg`` but does not hold 168 at entry fails
+   the run.
 3. kernels — every attention kernel at its path's shapes, at ragged
    shapes, at the streamed core's tile edges (keys 1, 77, 128, 129; q
    rows 1, 64, 4173; D 64 and 128) and at the short-key kernel's (keys
@@ -27,7 +30,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    port never calls it), beside the least time the card could take, and
    the host's enqueue time per call. K1 is also timed as its two
    launches (projection, core), K2 also on the streamed core (the
-   kernel that takes more than 128 keys) at the same shapes.
+   kernel that takes more than 128 keys) at the same shapes. Then K3 at
+   SD 1.5's head widths 40, 80 and 160 (one-head layout only; the packed
+   layout takes D 64 and 128): the sd15 path's shapes (batch 2 at 512²:
+   4096, 1024 and 256 tokens, self and against 77 keys), the ControlNet
+   tile upscale's (batch 8: 10816, 2704 and 676 tokens) and the tile
+   edges (keys 1, 77, 128, 129; q rows 1, 64, 4173; B 1 and 2), each
+   compared call after a poisoning call, the plain version taken one
+   batch row at a time; timed beside the plain version and
+   ``scaled_dot_product_attention``, the bound counted at the true D.
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
@@ -81,7 +92,29 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    exactly 7·104 + 8 = 736 K1 and 728 K2 launches, the bottom half the
    scaled source (within 1e-5), and another image without the
    ControlNet (498 K1, 490 K2).
-11. serve — the SDXL workflow served through the HTTP control plane: a
+11. sd15 samplers — on the sdxl path's registry, ``CheckpointLoader
+   sd15`` (SD 1.5's UNet at its published widths, random init from seed
+   0: 320·[1,2,4,4], 8 heads, one transformer block a level at the first
+   three levels, none in the middle, as the JAX preset; the parameter
+   counts are printed) → two ``CLIPTextEncode`` → ``TPUTxt2Img`` at 512²,
+   karras, CFG 7 → ``SaveImage``, once for each of the 14 sampler names
+   at 8 steps: [1,512,512,3], finite, in [0,1], a PNG, and exactly 8 K1
+   launches and ``total_calls(name, 8)`` × 30 K3 launches (15 on the
+   streamed core, 15 on the short-key kernel a UNet call); the stochastic
+   names again at the same seed (bitwise equal) and at another (a
+   different image). Then one timed request with dpmpp_2m at 20 steps.
+12. sd15 reference — one sd15 UNet forward at a 64² latent (batch 2):
+   30 K3 launches, within 5e-2·max|plain| of the plain versions.
+13. ControlNet tile upscale — ``workflows/controlnet-tile-upscale.json``
+   unchanged on the 1024² input (``ControlNetLoader sd15``, strength 0.8,
+   the input as hint; USDU at ``upscale_by`` 2.0 with 768² tiles and
+   padding 32: 9 crops of 832², 4 a chunk, 7 euler steps at denoise 0.4,
+   CFG 6) twice: [1,2048,2048,3], finite, in [0,1], bitwise equal, exactly
+   8 K1 and 21·42 = 882 K3 launches a request; seconds with the encode,
+   sampling and decode split, and the peak memory. Then one UNet +
+   ControlNet forward at a tile's shape (104² latent, 832² hint, batch 2)
+   within 5e-2·max|plain| of the plain versions.
+14. serve — the SDXL workflow served through the HTTP control plane: a
    worker controller started as ``python -m comfyui_distributed_tpu_torch
    serve`` (a subprocess, on the card, with an empty ``CDT_INPUT_DIR`` of
    its own, declared ``remote`` in the master's config) and a master
@@ -113,16 +146,24 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``DistributedSeed`` and ``DistributedCollector``): the sync report
    says 1 skipped, the master's PNG is bitwise equal to the direct
    seed-21 image and the worker's to the direct seed-22 image, and the
-   master ran exactly 1880 K1 and 1872 K2 launches.
-12. flux path — the FLUX preset at full width (11.9 B parameters, random
+   master ran exactly 1880 K1 and 1872 K2 launches. Last the ControlNet
+   tile upscale of phase 13 is served once (media sync 1 skipped; master
+   holdback until the worker's first pull): the worker must have
+   submitted at least one of the 3 tile tasks, every host building the
+   hint from its own graph, the master's PNG must be bitwise equal to the
+   direct image, and the master's launches must be the text encoder's 8
+   K1 plus 294 K3 per chunk it ran itself.
+15. flux path — the FLUX preset at full width (11.9 B parameters, random
    weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
    three requests (seed 1234, 1235, 1234) with the same checks; every
-   joint-attention site takes the one-head kernel.
-13. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+   joint-attention site takes the one-head kernel. Then one direct
+   request at 1024² with dpmpp_2m at 8 steps: finite, in [0,1], exactly 4
+   K1 and 8 × 57 K3 launches.
+16. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
-14. flux serve — the direct FLUX bundle is dropped (the card's
+17. flux serve — the direct FLUX bundle is dropped (the card's
    allocated memory is printed), then ``workflows/flux-txt2img.json`` is
    served: a master ``Controller`` in this process and a fresh worker
    subprocess each build ``flux``, both under one ``CDT_AUTH_TOKEN``, the
@@ -242,27 +283,98 @@ EDGE_FUSED = [(1, 77, 192, 3), (2, 200, 192, 3)]
 KERNEL_NAMES = ("fused_qkv_attention", "flash_attention_packed",
                 "flash_attention_bh")
 SHORT_KV_MAX_KEYS = 128      # the wrapper's threshold, checked in phase 2
+# The sd15 path at 512² with CFG (batch 2): per UNet forward 15
+# transformer blocks (6 down, 9 up, none in the middle), 5 at each of
+# 4096 tokens × 320 channels, 1024 × 640 and 256 × 1280, 8 heads
+# everywhere (head widths 40, 80, 160). Each block has one self- and one
+# cross-attention site (77 keys); none is fusable (D % 64 ≠ 0), so all 30
+# take the one-head kernel (K3): the streamed core for self-attention, the
+# short-key kernel for cross-attention. The sd15 ControlNet copies the
+# encoder: 2 blocks a level. The text encoder (768 wide, 12 heads of 64)
+# takes K1: 4 layers, two prompts.
+SD15_HEADS = 8
+SD15_LEVELS = ((4096, 320), (1024, 640), (256, 1280))   # tokens, channels
+SD15_UNET_BLOCKS, SD15_CONTROL_BLOCKS = 5, 2            # a level, a forward
+SD15_STEPS, SD15_TIMED_STEPS = 8, 20
+SD15_HW = 512
+# workflows/controlnet-tile-upscale.json on the 1024² input: upscale_by
+# 2.0 to 2048², 768² tiles with padding 32: 9 crops of 832² (latents 104²:
+# 10816, 2704 and 676 tokens at the three levels), 4 a chunk (3 chunks,
+# the last padded), CFG (batch 8), 7 steps of the 18-step ladder at
+# denoise 0.4: 21 UNet + ControlNet forwards.
+CN_TILE_TILES, CN_TILE_CHUNK, CN_TILE_STEPS = 9, 4, 7
+CN_TILE_CHUNKS = -(-CN_TILE_TILES // CN_TILE_CHUNK)
+CN_TILE_FORWARDS = CN_TILE_CHUNKS * CN_TILE_STEPS
+CN_TILE_LEVELS = ((10816, 320), (2704, 640), (676, 1280))
+FLUX_DPMPP_STEPS = 8
+
+
+def sd15_shapes(batch: int, levels, launches_a_level: int) -> list:
+    """(B, Nq, Nk, H, D) of K3's self- and cross-attention launches at an
+    sd15 UNet's three attention levels, each with ``launches_a_level``."""
+    out = []
+    for tokens, channels in levels:
+        D = channels // SD15_HEADS
+        out.append(((batch, tokens, tokens, SD15_HEADS, D), launches_a_level))
+        out.append(((batch, tokens, 77, SD15_HEADS, D), launches_a_level))
+    return out
+
+
+# per UNet call of an sd15 txt2img request (CFG batch 2)
+SD15_SHAPES = sd15_shapes(2, SD15_LEVELS, SD15_UNET_BLOCKS)
+# per workflow request: 21 forwards of the UNet and the ControlNet
+CN_TILE_SHAPES = sd15_shapes(8, CN_TILE_LEVELS, CN_TILE_FORWARDS * (
+    SD15_UNET_BLOCKS + SD15_CONTROL_BLOCKS))
+# the one-head kernel's tile edges at the new widths: keys 1, 77, 128,
+# 129 (at D = 160 the short-key kernel takes at most 80); q rows 1, 64,
+# 4173; B 1 and 2
+SD15_EDGES = [(b, nq, nk, 2, d) for d in (40, 80, 160) for b in (1, 2)
+              for nq in (1, 64, 4173) for nk in (1, 77, 128, 129)]
 # the CUDA kernels behind each wrapper at the paths' shapes
 HOPPER_KERNELS = {
     "fused_qkv_attention": ["qkv_projection_kernel", "flash_attention_kernel<64>",
                             "short_kv_attention_kernel<64,80> (77 text tokens)"],
     "flash_attention_packed": ["short_kv_attention_kernel<64,80>"],
-    "flash_attention_bh": ["flash_attention_kernel<128>"],
+    "flash_attention_bh": ["flash_attention_kernel<128> (flux)",
+                           "flash_attention_kernel<40>, <80>, <160> (sd15 "
+                           "self-attention)",
+                           "short_kv_attention_kernel<40,80>, <80,80>, "
+                           "<160,80> (sd15 cross-attention)"],
 }
+
+
+def short_kv_max_keys(head_dim: int) -> int:
+    """The most keys the short-key kernel takes (the wrapper's rule,
+    checked in phase 2): 128, or 80 at D = 160."""
+    return SHORT_KV_MAX_KEYS if head_dim <= 128 else 80
 
 
 def cuda_counts(fused: list, cores: list) -> dict:
     """Launches per CUDA kernel for (shape, launches) lists of K1 (B, N,
     C, H) and of K2/K3 (B, Nq, Nk, H, D): K1 is the projection then an
-    attention launch over N keys; an attention launch over at most 128
-    keys takes the short-key kernel, over more the streamed core."""
+    attention launch over N keys (D = 64); an attention launch over at
+    most ``short_kv_max_keys(D)`` keys takes the short-key kernel, over
+    more the streamed core."""
     counts = {"qkv_projection": sum(n for _, n in fused),
               "flash_attention_core": 0, "short_kv_attention": 0}
-    for nk, n in [(s[1], n) for s, n in fused] + [(s[2], n) for s, n in cores]:
-        kernel = ("short_kv_attention" if nk <= SHORT_KV_MAX_KEYS
+    for nk, d, n in ([(s[1], 64, n) for s, n in fused]
+                     + [(s[2], s[4], n) for s, n in cores]):
+        kernel = ("short_kv_attention" if nk <= short_kv_max_keys(d)
                   else "flash_attention_core")
         counts[kernel] += n
     return counts
+
+
+def k3_counts(calls: int, shapes: list, text_prompts: int = 2) -> tuple:
+    """(launches per wrapper, per CUDA kernel) of ``calls`` passes over
+    K3 ``shapes`` (launches per pass) plus the text encoder's 4 K1
+    launches a prompt."""
+    cores = [(shape, calls * n) for shape, n in shapes]
+    fused = [(TEXT_SHAPE, 4 * text_prompts)]
+    return ({"fused_qkv_attention": 4 * text_prompts,
+             "flash_attention_packed": 0,
+             "flash_attention_bh": sum(n for _, n in cores)},
+            cuda_counts(fused, cores))
 
 
 class PathSpec(NamedTuple):
@@ -391,21 +503,35 @@ def build_phase(fa) -> None:
               if "spill" in line and not line.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
     require(not spills, f"ptxas reports spills: {spills}")
-    require(fa.SHORT_KV_MAX_KEYS == SHORT_KV_MAX_KEYS,
-            f"the wrapper's short-key threshold is {fa.SHORT_KV_MAX_KEYS}")
+    require(fa.SHORT_KV_MAX_KEYS == SHORT_KV_MAX_KEYS
+            and all(fa.short_kv_max_keys(d) == short_kv_max_keys(d)
+                    for d in fa.HEAD_DIMS),
+            f"the wrapper's short-key thresholds are "
+            f"{[fa.short_kv_max_keys(d) for d in fa.HEAD_DIMS]}")
     regs = ptxas_registers(log)
+    # a short-key kernel for every (D, key tile) the wrapper can select, a
+    # streamed core for every D
+    tiles = {d: [kw for kw in fa.SHORT_KV_TILES
+                 if kw <= fa.short_kv_tile(fa.short_kv_max_keys(d), d)]
+             for d in fa.HEAD_DIMS}
     short = {e: n for e, n in regs.items() if "short_kv_attention_kernel" in e}
-    require(len(short) == 2 * len(fa.SHORT_KV_TILES),
-            f"ptxas compiled {len(short)} short-key kernels, expected "
-            f"{2 * len(fa.SHORT_KV_TILES)} (D 64 and 128 by each key tile)")
+    want = sum(len(t) for t in tiles.values())
+    require(len(short) == want,
+            f"ptxas compiled {len(short)} short-key kernels, expected {want} "
+            f"({tiles})")
+    cores = [e for e in regs if "flash_attention_kernel" in e]
+    require(len(cores) == len(fa.HEAD_DIMS),
+            f"ptxas compiled {len(cores)} streamed cores, expected one for "
+            f"each D in {fa.HEAD_DIMS}")
     # setmaxnreg moves registers within the block's allocation: 24 for the
     # producer and 232 for each consumer thread need 168 at entry
     handing = {e: n for e, n in regs.items() if "attention_kernel" in e}
     require(all(n == 168 for n in handing.values()),
             f"attention kernels not at 168 registers at entry: {handing}")
-    for d in fa.HEAD_DIMS:
-        for kw in fa.SHORT_KV_TILES:
+    for d, kws in tiles.items():
+        for kw in kws:
             smem, stages = fa.KERNELS.short_kv_layout(d, kw)
+            require(smem > 0, f"no short-key layout at D={d}, {kw} keys")
             say(f"  short_kv_attention_kernel<{d},{kw}>: {smem} B dynamic "
                 f"shared memory, {stages} Q stages")
 
@@ -552,6 +678,16 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                           fa.flash_attention(q, k, v, layout=layout), ref)
             errs[key] = max(errs[key], err)
         del ref
+    # the one-head kernel at SD 1.5's head widths (the packed layout takes
+    # D 64 and 128 only): the paths' shapes, then the tile edges
+    for shape in ([s for s, _ in SD15_SHAPES + CN_TILE_SHAPES] + SD15_EDGES):
+        q, k, v = core_inputs(*shape)
+        ref = plain_by_row(fa, q, k, v)
+        fa.flash_attention(*core_inputs(*shape), layout="bh")
+        err = compare(torch, f"flash_attention_bh {shape}",
+                      fa.flash_attention(q, k, v, layout="bh"), ref)
+        errs["flash_attention_bh"] = max(errs["flash_attention_bh"], err)
+        del q, k, v, ref
 
     say("kernels: timing (CUDA events; ms per launch)")
     rows = []
@@ -621,7 +757,28 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                      lambda: fa.flash_attention(q, k, v, layout=layout),
                      lambda: fa.flash_attention_plain(q, k, v),
                      lambda: sdpa(q, k, v), path, **extra)
+    # K3 at SD 1.5's widths; the bound counts the true D (the padding to
+    # whole 64-column boxes is the kernel's waste, not the function's work)
+    for path, shapes in (("sd15", SD15_SHAPES), ("cn_upscale", CN_TILE_SHAPES)):
+        for shape, n in shapes:
+            q, k, v = core_inputs(*shape)
+            time_row("flash_attention_bh", shape, n, core_work(*shape),
+                     lambda: fa.flash_attention(q, k, v, layout="bh"),
+                     lambda: plain_by_row(fa, q, k, v),
+                     lambda: sdpa(q, k, v), path)
+            del q, k, v
     return rows, errs
+
+
+def plain_by_row(fa, q, k, v):
+    """The plain attention one batch row at a time: the same function,
+    with the fp32 score matrix of one row resident at a time (8 heads of
+    10816² keys are 3.7 GB a row)."""
+    import torch
+
+    return torch.cat([fa.flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                               v[i:i + 1])
+                      for i in range(q.shape[0])])
 
 
 def kernel_table(rows: list[dict], errs: dict,
@@ -649,9 +806,11 @@ def kernel_table(rows: list[dict], errs: dict,
                 for r in rows if r["kernel"] == name and r["shape"] == shape]
         return per_request(mine) if mine else None
 
+    sd15_request = [(shape, SD15_TIMED_STEPS * n) for shape, n in SD15_SHAPES]
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
-        mine = [r for r in every if r["path"] != "upscale"]
+        mine = [r for r in every
+                if r["path"] not in ("upscale", "sd15", "cn_upscale")]
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
@@ -684,8 +843,16 @@ def kernel_table(rows: list[dict], errs: dict,
             **split, **split_upscale,
             **{key: value for key, value in (
                 ("per_img2img_controlnet_request", at(name, I2I_CN[2])),
-                ("per_usdu_controlnet_request", at(name, USDU_CN[2])))
+                ("per_usdu_controlnet_request", at(name, USDU_CN[2])),
+                ("per_sd15_request", at(name, sd15_request)),
+                ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)))
                if value is not None},
+            **({"sd15_rows": [
+                {key: r[key] for key in ("path", "shape", "launches", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+                for r in every if r["path"] in ("sd15", "cn_upscale")]}
+               if name == "flash_attention_bh" else {}),
         })
     return out
 
@@ -1005,7 +1172,7 @@ def i2i_workflow(control: bool = True, inpaint: bool = False) -> dict:
     """The img2img graph on the upscale path's ``input.png``: a ControlNet
     fed the input itself as hint, seed through ``DistributedSeed`` and the
     image through ``DistributedCollector`` (both the identity when run
-    directly), so that the same graph is served in phase 11. With
+    directly), so that the same graph is served in phase 14. With
     ``inpaint``: ``TPUInpaint`` with ``mask.png``."""
     prompt = {
         "1": {"class_type": "CheckpointLoader",
@@ -1269,7 +1436,252 @@ def control_reference_phase(torch, fa, bundle, cn) -> None:
                   eps, ref)
 
 
-# --- phase 11 ----------------------------------------------------------------
+# --- phases 11 to 13 ---------------------------------------------------------
+
+SD15_DIR = OUTPUT_DIR / "sd15"
+SD15_SEEDS = (5, 6)
+CN_TILE_WORKFLOW = "controlnet-tile-upscale.json"
+CN_TILE_DIR = OUTPUT_DIR / "cn_tile"
+CN_TILE_OUT_HW = 2 * UPSCALE_INPUT_HW
+CN_TILE_PNG = "cn_upscaled_00000.png"
+
+
+def sd15_workflow(sampler: str, seed: int, steps: int = SD15_STEPS) -> dict:
+    """``CheckpointLoader sd15`` → two ``CLIPTextEncode`` → ``TPUTxt2Img``
+    at 512², karras, CFG 7 → ``SaveImage``."""
+    return {
+        "1": {"class_type": "CheckpointLoader", "inputs": {"ckpt_name": "sd15"}},
+        "2": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "a lighthouse on a cliff at dusk, oil painting",
+            "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "blurry, low quality", "clip": ["1", 1]}},
+        "4": {"class_type": "TPUTxt2Img", "inputs": {
+            "model": ["1", 0], "positive": ["2", 0], "negative": ["3", 0],
+            "seed": seed, "steps": steps, "cfg": 7.0, "width": SD15_HW,
+            "height": SD15_HW, "sampler_name": sampler, "scheduler": "karras"}},
+        "5": {"class_type": "SaveImage", "inputs": {
+            "images": ["4", 0], "filename_prefix": f"sd15_{sampler}"}},
+    }
+
+
+def sd15_phase(torch, fa, registry) -> dict:
+    """Phase 11: the sd15 txt2img graph once for each of the 14 sampler
+    names at 8 steps (the stochastic ones also repeated and at another
+    seed), then one timed request at 20 steps with dpmpp_2m; returns the
+    launches over the phase."""
+    from comfyui_distributed_tpu_torch.diffusion.progress import total_calls
+    from comfyui_distributed_tpu_torch.diffusion.samplers import (SAMPLERS,
+                                                                  STOCHASTIC)
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    say("sd15 path:")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = registry.get("sd15")
+    torch.cuda.synchronize()
+    counts = {part: sum(p.numel() for p in module.parameters()) for part, module
+              in (("unet", bundle.pipeline.unet), ("vae", bundle.pipeline.vae),
+                  ("text", bundle.text_encoder.module))}
+    say(f"  sd15 bundle built in {time.perf_counter() - t0:.2f} s (UNet "
+        f"{counts['unet'] / 1e9:.3f} B params, {counts['unet']} exactly; VAE "
+        f"{counts['vae']}; text encoder {counts['text']}); UNet "
+        f"{bundle.pipeline.unet.config}")
+    require(len(SAMPLERS) == 14, f"{len(SAMPLERS)} samplers")
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(SD15_DIR)})
+    hw = (SD15_HW, SD15_HW)
+    fa.reset_launches()
+    for name in SAMPLERS:
+        calls = total_calls(name, SD15_STEPS)
+        want = k3_counts(calls, SD15_SHAPES)
+        png = SD15_DIR / f"sd15_{name}_00000.png"
+        png.unlink(missing_ok=True)
+        img, secs, _ = run_counted(torch, fa, executor,
+                                   sd15_workflow(name, SD15_SEEDS[0]), "4",
+                                   want, f"sd15 {name}", hw)
+        require(png.is_file() and png_size(png) == hw,
+                f"{png} missing or not {hw[1]}x{hw[0]}")
+        line = (f"  {name}: {secs:.3f} s; {calls} UNet calls; launches "
+                f"{want[0]}, CUDA kernels {want[1]}")
+        if name in STOCHASTIC:
+            again, _, _ = run_counted(torch, fa, executor,
+                                      sd15_workflow(name, SD15_SEEDS[0]), "4",
+                                      want, f"sd15 {name} again", hw)
+            other, _, _ = run_counted(torch, fa, executor,
+                                      sd15_workflow(name, SD15_SEEDS[1]), "4",
+                                      want, f"sd15 {name} seed {SD15_SEEDS[1]}",
+                                      hw)
+            require(torch.equal(img, again),
+                    f"sd15 {name}: seed {SD15_SEEDS[0]} twice differs")
+            require(not torch.equal(img, other),
+                    f"sd15 {name}: seeds {SD15_SEEDS} gave one image")
+            line += (f"; seed {SD15_SEEDS[0]} repeat bitwise equal, seed "
+                     f"{SD15_SEEDS[1]} differs")
+        say(line)
+    want = k3_counts(total_calls("dpmpp_2m", SD15_TIMED_STEPS), SD15_SHAPES)
+    _, secs, _ = run_counted(
+        torch, fa, executor,
+        sd15_workflow("dpmpp_2m", SD15_SEEDS[0], SD15_TIMED_STEPS), "4", want,
+        "sd15 dpmpp_2m at 20 steps", hw)
+    t = bundle.pipeline.timings
+    say(f"  timed request (dpmpp_2m, {SD15_TIMED_STEPS} steps): {secs:.3f} s; "
+        f"sampling {t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} "
+        f"s/step, decode {t['decode_s']:.3f} s; launches {want[0]}; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return dict(fa.LAUNCHES)
+
+
+def plain_attention_patches(fa):
+    """Every attention site of the UNet blocks on its plain version (one
+    batch row at a time for the one-head sites)."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import layers
+
+    return (mock.patch.object(layers, "self_attention",
+                              fa.fused_qkv_attention_plain),
+            mock.patch.object(layers, "full_attention",
+                              lambda q, k, v: plain_by_row(fa, q, k, v)))
+
+
+def sd15_reference_phase(torch, fa, bundle) -> None:
+    """Phase 12: one sd15 UNet forward at a 64² latent (batch 2) through
+    the kernels and with the attention sites on the plain versions."""
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(2, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device=dev)
+    with torch.no_grad():
+        before = dict(fa.LAUNCHES)
+        eps = unet(x, t, ctx)
+        sites = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        sa, fu = plain_attention_patches(fa)
+        with sa, fu:
+            ref = unet(x, t, ctx)
+    n = 3 * SD15_UNET_BLOCKS * 2
+    require(sites == {"fused_qkv_attention": 0, "flash_attention_packed": 0,
+                      "flash_attention_bh": n},
+            f"sd15 reference: launches {sites} per forward, expected {n} K3")
+    compare_whole(torch, "sd15 reference: UNet eps at 512²", eps, ref)
+
+
+def cn_tile_workflow() -> dict:
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / CN_TILE_WORKFLOW).read_text()))
+    usdu = workflow["5"]["inputs"]
+    require((usdu["steps"], usdu["denoise"], usdu["upscale_by"],
+             usdu["tile_width"], usdu["tile_height"], usdu["tile_padding"],
+             usdu["cfg"], usdu.get("sampler_name", "euler"))
+            == (18, 0.4, 2.0, 768, 768, 32, 6.0, "euler")
+            and workflow["1"]["inputs"]["ckpt_name"] == "sd15"
+            and workflow["8"]["inputs"]["control_net_name"] == "sd15"
+            and workflow["4"]["inputs"]["image"] == "input.png",
+            f"{CN_TILE_WORKFLOW} changed; update the script")
+    return workflow
+
+
+class CnTileRun(NamedTuple):
+    launches: dict
+    image_u8: object        # the first request's image as uint8 numpy
+    seconds: list
+
+
+def cn_tile_phase(torch, fa, registry, input_dir: Path) -> CnTileRun:
+    """Phase 13: ``workflows/controlnet-tile-upscale.json`` unchanged on
+    the 1024² input, twice; then one UNet + ControlNet forward at a
+    tile's shape against plain attention."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    say("ControlNet tile upscale path:")
+    workflow = cn_tile_workflow()
+    strength = workflow["9"]["inputs"]["strength"]
+    executor = GraphExecutor({"model_registry": registry,
+                              "input_dir": str(input_dir),
+                              "output_dir": str(CN_TILE_DIR)})
+    t0 = time.perf_counter()
+    cn = registry.get_controlnet("sd15")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in cn.model.parameters())
+    say(f"  controlnet sd15 built in {time.perf_counter() - t0:.2f} s "
+        f"({n_params / 1e9:.3f} B params, {n_params} exactly)")
+    bundle = registry.get("sd15")
+    clone = bundle.pipeline.with_control(cn, strength)
+    want = k3_counts(1, CN_TILE_SHAPES)
+    hw = (CN_TILE_OUT_HW, CN_TILE_OUT_HW)
+    png = CN_TILE_DIR / CN_TILE_PNG
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    images, seconds = [], []
+    for i in range(2):
+        png.unlink(missing_ok=True)
+        img, secs, _ = run_counted(torch, fa, executor, workflow, "5", want,
+                                   f"ControlNet tile upscale {i}", hw)
+        require(png.is_file() and png_size(png) == hw,
+                f"{png} missing or not {hw[1]}x{hw[0]}")
+        chunks = clone.timings["tile_chunks"]
+        require(len(chunks) == CN_TILE_CHUNKS
+                and all(c["tiles"] == CN_TILE_CHUNK for c in chunks),
+                f"ControlNet tile upscale: chunks {[c['tiles'] for c in chunks]}")
+        split = {part: sum(c[f"{part}_s"] for c in chunks)
+                 for part in ("encode", "sample", "decode")}
+        say(f"  request {i}: {secs:.3f} s; {CN_TILE_TILES} tiles of 832² in "
+            f"{CN_TILE_CHUNKS} chunks of {CN_TILE_CHUNK}: encode "
+            f"{split['encode']:.3f} s, sampling {split['sample']:.3f} s "
+            f"({split['sample'] / CN_TILE_FORWARDS:.4f} s a step of a chunk), "
+            f"decode {split['decode']:.3f} s; composite "
+            f"{clone.timings['composite_s']:.3f} s; launches {want[0]}, CUDA "
+            f"kernels {want[1]}")
+        images.append(img)
+        seconds.append(secs)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(torch.equal(images[0], images[1]),
+            "the ControlNet tile upscale twice gave different images")
+    say(f"  repeat bitwise equal; max_memory_allocated {peak / 2**30:.3f} GiB")
+    cn_tile_reference_phase(torch, fa, bundle, cn, strength)
+    return CnTileRun(launches, to_uint8(images[0])[0], seconds)
+
+
+def cn_tile_reference_phase(torch, fa, bundle, cn, strength: float) -> None:
+    """One UNet + ControlNet forward at a tile's shape (a 104² latent, an
+    832² hint, batch 2) through the kernels and on the plain versions."""
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    dev = cn.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(2, 104, 104, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([300.0, 300.0], device=dev)
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device=dev)
+    hint = torch.rand(2, 832, 832, 3, generator=gen, device=dev)
+
+    def forward():
+        down, mid = cn.model(x, t, ctx, None, hint)
+        return unet(x, t, ctx, control=([d * strength for d in down],
+                                        mid * strength))
+
+    with torch.no_grad():
+        before = dict(fa.LAUNCHES)
+        eps = forward()
+        sites = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        sa, fu = plain_attention_patches(fa)
+        with sa, fu:
+            ref = forward()
+    n = 3 * (SD15_UNET_BLOCKS + SD15_CONTROL_BLOCKS) * 2
+    require(sites["flash_attention_bh"] == n and sites["fused_qkv_attention"] == 0,
+            f"ControlNet tile reference: launches {sites}, expected {n} K3")
+    compare_whole(torch, "ControlNet tile reference: UNet + ControlNet eps "
+                  "at a 832² tile", eps, ref)
+
+
+# --- phase 14 ----------------------------------------------------------------
 
 SERVE_DIR = OUTPUT_DIR / "serve"
 SERVE_BOOT_S = 180.0         # the worker's process start, up to /health
@@ -1356,12 +1768,12 @@ def wait_history(base: str, prompt_id: str, t0: float, what: str) -> dict:
 
 
 def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
-                control: ControlRun) -> dict:
-    """Serve the SDXL workflow twice, then the upscale workflow and the
-    img2img + ControlNet graph once each, through ``POST
-    /distributed/queue`` to a master in this process and a ``remote``
-    worker subprocess with an input directory of its own; returns the
-    master's launches in the phase."""
+                control: ControlRun, cn_tile: CnTileRun) -> dict:
+    """Serve the SDXL workflow twice, then the upscale workflow, the
+    img2img + ControlNet graph and the ControlNet tile upscale once each,
+    through ``POST /distributed/queue`` to a master in this process and a
+    ``remote`` worker subprocess with an input directory of its own;
+    returns the master's launches in the phase."""
     import shutil
     from unittest import mock
 
@@ -1476,6 +1888,9 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         launches = dict(fa.LAUNCHES)
         fa.reset_launches()
         serve_img2img(torch, fa, base, master_out, control, reports)
+        launches = {k: launches[k] + fa.LAUNCHES[k] for k in launches}
+        fa.reset_launches()
+        serve_cn_tile(torch, fa, base, master_out, cn_tile, reports)
         ok = True
         return {k: launches[k] + fa.LAUNCHES[k] for k in launches}
     finally:
@@ -1606,7 +2021,70 @@ def serve_img2img(torch, fa, base: str, master_out: Path,
         f"{worker_seed}")
 
 
-# --- phase 14 ----------------------------------------------------------------
+def serve_cn_tile(torch, fa, base: str, master_out: Path, cn_tile: CnTileRun,
+                  reports: list) -> None:
+    """The ControlNet tile upscale through ``POST /distributed/queue``:
+    ``input.png`` is already on the worker; the tiles are pulled from the
+    master's queue by both, each building the hint from its own graph."""
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    for png in master_out.glob("*.png"):
+        png.unlink()
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    os.environ["CDT_TILE_MASTER_HOLDBACK_S"] = str(UPSCALE_HOLDBACK_S)
+    try:
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": cn_tile_workflow()}, timeout=120)
+        require(status == 200 and answer.get("worker_count") == 1,
+                f"ControlNet tile queue answered {status}: {answer}")
+        report = reports[-1]
+        require((report.checked, report.skipped, report.uploaded, report.failed)
+                == (1, 1, 0, []),
+                f"served ControlNet tile: media sync {report}, expected 1 "
+                "skipped")
+        entry = wait_history(base, answer["prompt_id"], t0,
+                             "served ControlNet tile upscale")
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["CDT_TILE_MASTER_HOLDBACK_S"]
+    require(entry["status"] == "success", f"served ControlNet tile: {entry}")
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    status, summary = http_json(
+        f"{base}/distributed/queue_status/{answer['trace_id']}_5")
+    require(status == 200 and summary.get("finished"),
+            f"ControlNet tile job status {status}: {summary}")
+    owners = summary["completed_by"]
+    mine = sum(1 for w in owners.values() if w == "master")
+    theirs = sum(1 for w in owners.values() if w == "w0")
+    require(len(owners) == CN_TILE_CHUNKS and mine + theirs == len(owners)
+            and not summary["dead_letter"],
+            f"ControlNet tile tasks: {summary}")
+    require(theirs >= 1, "the worker submitted none of the ControlNet tile "
+            f"upscale's tasks over /distributed/submit_tiles: {owners}")
+    want = k3_counts(CN_TILE_STEPS * mine, [
+        (shape, n // CN_TILE_FORWARDS) for shape, n in CN_TILE_SHAPES])
+    require(counts == want[0],
+            f"served ControlNet tile: master launches {counts} != {want[0]}")
+    require(kernel_counts == want[1],
+            f"served ControlNet tile: master CUDA kernel launches "
+            f"{kernel_counts} != {want[1]}")
+    pngs = sorted(master_out.glob("cn_upscaled_*.png"))
+    require(len(pngs) == 1, f"served ControlNet tile: {len(pngs)} PNGs, "
+            "expected 1")
+    got = to_uint8(decode_png(pngs[0].read_bytes()))[0]
+    require(np_equal(got, cn_tile.image_u8),
+            "the served ControlNet tile upscale differs from the direct one")
+    say(f"  served ControlNet tile upscale: {secs:.3f} s (POST to final "
+        f"history; direct {cn_tile.seconds[0]:.3f} / {cn_tile.seconds[1]:.3f} "
+        f"s); media sync {report}; tile tasks {dict(sorted(owners.items()))} "
+        f"(master {mine}, worker {theirs}); master launches {counts}; PNG "
+        "bitwise equal to the direct run")
+
+
+# --- phase 17 ----------------------------------------------------------------
 
 FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
 FLUX_FAULTS = "dispatch@1-9:http500"
@@ -1830,7 +2308,7 @@ def np_absdiff(a, b):
     return abs(a.astype("int16") - b.astype("int16"))
 
 
-# --- phases 5 and 13 ---------------------------------------------------------
+# --- phases 5 and 16 ---------------------------------------------------------
 
 
 def compare_whole(torch, what: str, out, ref) -> None:
@@ -1864,6 +2342,37 @@ def reference_phase(torch, fa, bundle) -> None:
                                   fa.flash_attention_plain):
             ref = unet(x, t, ctx, y)
     compare_whole(torch, "reference: UNet eps at 512²", eps, ref)
+
+
+def flux_sampler_phase(torch, fa, bundle) -> dict:
+    """One direct FLUX request at full width with dpmpp_2m at 8 steps (one
+    DiT call a step); returns its launches."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_flow import FlowSpec
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    ctx, pooled = bundle.text_encoder.encode(["a red fox in fresh snow, photograph"])
+    spec = FlowSpec(height=1024, width=1024, steps=FLUX_DPMPP_STEPS,
+                    sampler="dpmpp_2m")
+    img = bundle.pipeline.generate(spec, FLUX_PATH.seeds[0], ctx, pooled)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    cfg = bundle.pipeline.dit.config
+    want = {"fused_qkv_attention": 4, "flash_attention_packed": 0,
+            "flash_attention_bh": FLUX_DPMPP_STEPS * (cfg.depth_double
+                                                      + cfg.depth_single)}
+    require(tuple(img.shape) == (1, 1024, 1024, 3),
+            f"flux dpmpp_2m: image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), "flux dpmpp_2m: non-finite image")
+    require(img.min().item() >= 0.0 and img.max().item() <= 1.0,
+            "flux dpmpp_2m: image outside [0, 1]")
+    require(launches == want, f"flux dpmpp_2m: launches {launches} != {want}")
+    t = bundle.pipeline.timings
+    say(f"flux dpmpp_2m: {secs:.3f} s for {FLUX_DPMPP_STEPS} steps at 1024²; "
+        f"sampling {t['sample_s']:.3f} s, decode {t['decode_s']:.3f} s; "
+        f"launches {launches}")
+    return launches
 
 
 def flux_reference_phase(torch, fa, bundle) -> None:
@@ -1928,8 +2437,13 @@ def main() -> int:
         up = up._replace(image=None)
         control = control_phase(torch, fa, sdxl, up)
         path_launches.update(control.launches)
-        path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control)
-        del sdxl, up, control
+        path_launches["sd15"] = sd15_phase(torch, fa, sdxl.registry)
+        sd15_reference_phase(torch, fa, sdxl.registry.get("sd15"))
+        cn_tile = cn_tile_phase(torch, fa, sdxl.registry, up.input_dir)
+        path_launches["cn_upscale"] = cn_tile.launches
+        path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
+                                             cn_tile)
+        del sdxl, up, control, cn_tile
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
             f"master's shutdown and the sdxl path's end")
@@ -1937,6 +2451,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         flux = path_phase(torch, fa, FLUX_PATH)
         path_launches["flux"], timings = flux.launches, flux.timings
+        path_launches["flux_dpmpp_2m"] = flux_sampler_phase(torch, fa,
+                                                            flux.bundle)
         flux_reference_phase(torch, fa, flux.bundle)
         images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
         seconds = flux.seconds

@@ -2,10 +2,12 @@
 JAX ``diffusion/pipeline.py``'s ``Txt2ImgPipeline``).
 
 The JAX package runs the whole generation as one SPMD program over a
-mesh; here one device runs it eagerly: noise → euler over the karras
-ladder with a doubled-batch CFG denoiser → VAE decode → clip to [0, 1].
-The noise draw (``initial_noise``) is split from the rest
-(``sample_and_decode``) so a caller can supply its own noise.
+mesh; here one device runs it eagerly: noise → the spec's sampler over
+its sigma ladder with a doubled-batch CFG denoiser → VAE decode → clip
+to [0, 1]. The noise draw (``initial_noise``) is split from the rest
+(``sample_and_decode``) so a caller can supply its own noise; a
+stochastic sampler's draws come from a noise source
+(``parallel/rng.step_noise`` of the run's seed, or the caller's).
 
 ``img2img`` encodes a source, noises it at the head of the partial
 ladder (``spec.denoise``) and samples the tail; with a mask it inpaints
@@ -27,10 +29,10 @@ from ..models.layers import timestep_embedding
 from ..models.unet import UNet2D
 from ..models.vae import AutoencoderKL
 from ..ops.resize import resize_to
-from ..parallel.rng import seed_generator
+from ..parallel.rng import seed_generator, step_noise
 from .guidance import cfg_denoiser, eps_denoiser
 from .progress import wrap_denoiser
-from .samplers import Denoiser, sample
+from .samplers import Denoiser, NoiseSource, sample
 from .schedules import (NoiseSchedule, sigmas_beta, sigmas_exponential,
                         sigmas_karras, sigmas_linear_quadratic, sigmas_normal,
                         sigmas_sgm_uniform, vp_schedule)
@@ -88,7 +90,10 @@ def inpaint_denoiser(base: Denoiser, src: torch.Tensor, noise: torch.Tensor,
     """ComfyUI ``KSamplerX0Inpaint`` semantics (mask: 1 = regenerate):
     the sampler's input is recomposited with the source latent re-noised
     at the current sigma, using the run's own initial noise draw, and
-    the denoised output is pinned to the source where the mask is 0."""
+    the denoised output is pinned to the source where the mask is 0. The
+    input side keeps ancestral and SDE samplers on the source's
+    trajectory at the mask's edge; pinning the output alone would only
+    hide their drift where the mask is 0."""
 
     def denoise(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
         x = x * mask + (src + noise * sigma) * (1.0 - mask)
@@ -192,9 +197,12 @@ class Txt2ImgPipeline:
                           progress_token: Optional[int] = None,
                           hint: Optional[torch.Tensor] = None,
                           init_latent: Optional[torch.Tensor] = None,
-                          inpaint_mask: Optional[torch.Tensor] = None
+                          inpaint_mask: Optional[torch.Tensor] = None,
+                          sampler_noise: Optional[NoiseSource] = None
                           ) -> torch.Tensor:
         """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
+        ``sampler_noise`` is the stochastic samplers' noise source
+        (``samplers.sample``).
         ``progress_token`` (a ``ProgressTracker.start`` token) streams
         each step's x0 to the progress sinks. ``hint`` feeds a
         ``with_control`` clone's ControlNet. ``init_latent`` switches to
@@ -232,7 +240,7 @@ class Txt2ImgPipeline:
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
         t0 = time.perf_counter()
-        x0 = sample(spec.sampler, denoise, x, sigmas)
+        x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise)
         self._sync()
         t1 = time.perf_counter()
         images = self.vae.decode(x0)
@@ -251,8 +259,9 @@ class Txt2ImgPipeline:
                  hint: Optional[torch.Tensor] = None) -> torch.Tensor:
         self._require_hint(hint)
         noise = self.initial_noise(spec, seed_generator(seed, self.device))
-        return self.sample_and_decode(noise, spec, context, uncond_context,
-                                      y, uncond_y, progress_token, hint=hint)
+        return self.sample_and_decode(
+            noise, spec, context, uncond_context, y, uncond_y, progress_token,
+            hint=hint, sampler_noise=step_noise(seed, self.device))
 
     @torch.no_grad()
     def img2img(self, spec: GenerationSpec, seed: int, images: torch.Tensor,
@@ -261,11 +270,13 @@ class Txt2ImgPipeline:
                 uncond_y: Optional[torch.Tensor] = None,
                 hint: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                noise: Optional[torch.Tensor] = None,
+                sampler_noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """images [B,H,W,3] in [0, 1] → [B,H,W,3]: VAE encode, noise from
         ``seed`` (or ``noise`` [B,h,w,C] from the caller) at the head of
-        the partial ladder, sample its tail, decode. ``mask`` [B,H,W,1]
-        or [B,H,W] (1 = repaint) switches to inpainting: it is resized to
+        the partial ladder, sample its tail (a stochastic sampler's draws
+        from ``step_noise(seed)`` or ``sampler_noise``), decode. ``mask``
+        [B,H,W,1] or [B,H,W] (1 = repaint) switches to inpainting: it is resized to
         the latent grid with ``jax.image.resize``'s bilinear weights
         (``ops/resize.py``, antialiased on this 8× shrink) for
         ``inpaint_denoiser``, and the decoded image is composited with
@@ -288,9 +299,12 @@ class Txt2ImgPipeline:
         if noise is None:
             noise = torch.randn(lat.shape, generator=seed_generator(seed, dev),
                                 dtype=torch.float32, device=dev)
+        if sampler_noise is None:
+            sampler_noise = step_noise(seed, dev)
         out = self.sample_and_decode(noise, spec, context, uncond_context, y,
                                      uncond_y, hint=hint, init_latent=lat,
-                                     inpaint_mask=m)
+                                     inpaint_mask=m,
+                                     sampler_noise=sampler_noise)
         if mask is not None:
             # the latent pinning keeps seams coherent, but the decoder's
             # mid attention bleeds repainted content everywhere: unmasked

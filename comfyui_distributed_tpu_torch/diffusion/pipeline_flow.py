@@ -2,12 +2,13 @@
 ``diffusion/pipeline_flow.py``'s ``FlowPipeline`` in its ``dp`` mode with
 one participant).
 
-noise → euler over the shifted flow ladder with the velocity denoiser
-``x − σ·v`` (distilled guidance as a model input, no CFG batch) → VAE
-decode → clip to [0, 1]. As in the JAX pipeline the noise is not scaled
+noise → the spec's sampler over the shifted flow ladder with the velocity
+denoiser ``x − σ·v`` (distilled guidance as a model input, no CFG batch)
+→ VAE decode → clip to [0, 1]. As in the JAX pipeline the noise is not scaled
 by the first sigma (it is 1). ``initial_noise`` is split from
-``sample_and_decode`` so a caller can supply its own noise. True CFG
-(``cfg != 1``, the SD3 family) and samplers other than euler are not
+``sample_and_decode`` so a caller can supply its own noise; a stochastic
+sampler draws from ``parallel/rng.step_noise`` of the run's seed or the
+caller's noise source. True CFG (``cfg != 1``, the SD3 family) is not
 ported yet.
 """
 
@@ -21,9 +22,9 @@ import torch
 
 from ..models.dit import DiT
 from ..models.vae import AutoencoderKL
-from ..parallel.rng import seed_generator
+from ..parallel.rng import seed_generator, step_noise
 from .progress import wrap_denoiser
-from .samplers import Denoiser, sample
+from .samplers import Denoiser, NoiseSource, sample
 from .schedules import sigmas_flow
 
 
@@ -79,19 +80,17 @@ class FlowPipeline:
     @torch.no_grad()
     def sample_and_decode(self, noise: torch.Tensor, spec: FlowSpec,
                           context: torch.Tensor, pooled: torch.Tensor,
-                          progress_token: Optional[int] = None
+                          progress_token: Optional[int] = None,
+                          sampler_noise: Optional[NoiseSource] = None
                           ) -> torch.Tensor:
         """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
         ``progress_token`` (a ``ProgressTracker.start`` token) streams
-        each step's x0 to the progress sinks."""
+        each step's x0 to the progress sinks; ``sampler_noise`` is the
+        stochastic samplers' noise source."""
         if spec.cfg != 1.0:
             raise NotImplementedError(
                 f"true CFG (cfg={spec.cfg}) is not yet ported; FLUX-dev "
                 "takes cfg=1.0 with the distilled 'guidance' input")
-        if spec.sampler != "euler":
-            raise NotImplementedError(
-                f"sampler {spec.sampler!r} is not yet ported for flow "
-                "models; have ['euler']")
         dev = self.device
         sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
         batch = noise.shape[0]
@@ -104,7 +103,8 @@ class FlowPipeline:
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
         t0 = time.perf_counter()
-        x0 = sample(spec.sampler, denoise, noise.to(dev), sigmas)
+        x0 = sample(spec.sampler, denoise, noise.to(dev), sigmas,
+                    sampler_noise)
         self._sync()
         t1 = time.perf_counter()
         images = self.vae.decode(x0)
@@ -120,4 +120,5 @@ class FlowPipeline:
                  progress_token: Optional[int] = None) -> torch.Tensor:
         noise = self.initial_noise(spec, seed_generator(seed, self.device))
         return self.sample_and_decode(noise, spec, context, pooled,
-                                      progress_token)
+                                      progress_token,
+                                      step_noise(seed, self.device))

@@ -350,10 +350,10 @@ class ImageScaleBy(NodeDef):
 
 @register_node("ControlNetLoader")
 class ControlNetLoader(NodeDef):
-    """A ControlNet by preset name (``tiny``, ``sdxl``), random-initialised
-    from the registry's seed on its device and kept by the registry. The
-    JAX package's ``sd15`` preset and loading a published ``.safetensors``
-    under ``CDT_CONTROLNET_DIR`` are not ported yet."""
+    """A ControlNet by preset name (``tiny``, ``sd15``, ``sdxl``),
+    random-initialised from the registry's seed on its device and kept by
+    the registry. Loading a published ``.safetensors`` under
+    ``CDT_CONTROLNET_DIR`` is not ported yet."""
 
     INPUTS = {"control_net_name": "STRING"}
     HIDDEN = {"model_registry": "*"}
@@ -370,10 +370,6 @@ class ControlNetLoader(NodeDef):
                     ".safetensors checkpoints is not ported yet (ROADMAP.md, "
                     "item A.7: LDM loading); remove it to use the "
                     "random-init preset")
-        if name == "sd15":
-            raise NotImplementedError(
-                "the sd15 control net needs UNetConfig.sd15, which is not "
-                "ported yet (ROADMAP.md, item A.6)")
         return (_registry(model_registry).get_controlnet(name),)
 
 
@@ -446,8 +442,8 @@ class _ProgressScope:
 @register_node("TPUTxt2Img")
 class TPUTxt2Img(NodeDef):
     """The sampler node (name kept for workflow compatibility): noise,
-    euler over the sigma ladder with CFG, VAE decode, on the bundle's
-    device."""
+    ``sampler_name`` over the sigma ladder with CFG, VAE decode, on the
+    bundle's device."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING", "negative": "CONDITIONING",
@@ -760,9 +756,10 @@ class UltimateSDUpscaleDistributed(NodeDef):
 
     A ControlNet on the positive conditioning runs on every tile with its
     hint cropped per tile, and ``spatial_cond`` (MASK, 1 = denoise) is
-    cropped per tile like the image (``tiles/engine.py``). As in the JAX
-    package, tiles farmed by range carry no hint: their tasks run on the
-    ControlNet clone without control, on whichever host pulls them."""
+    cropped per tile like the image (``tiles/engine.py``), farmed or not:
+    every host runs the same graph, so each builds the same hint from its
+    own conditioning, and a farmed image equals a direct one. (The JAX
+    package runs tiles farmed by range without a hint.)"""
 
     INPUTS = {
         "image": "IMAGE", "model": "MODEL",
@@ -832,11 +829,6 @@ class UltimateSDUpscaleDistributed(NodeDef):
             return (upscaler.upscale(images, spec, int(seed), ctx, unc, y, uy,
                                      spatial_cond=smap,
                                      control_hint=control_hint),)
-        if control_hint is not None:
-            log("USDU farm mode: ControlNet hints apply to locally processed "
-                "work only; cross-host STATIC tile tasks run without control "
-                "this round")
-
         def per_image(t, i: int):
             return t if t is None or t.shape[0] != B else t[i:i + 1]
 
@@ -868,11 +860,14 @@ class UltimateSDUpscaleDistributed(NodeDef):
             return (torch.from_numpy(full).to(pipeline.device),)
 
         outs = []
+        grid = upscaler.grid_for(images.shape[1], images.shape[2], spec)
+        T = grid.num_tiles
+        hints = upscaler.tile_hints(control_hint, grid, B)
         for b in range(B):
-            T = upscaler.grid_for(images.shape[1], images.shape[2], spec).num_tiles
             plan = upscaler.range_plan(
                 images[b], spec, int(seed), ctx, unc, y, uy, first_index=b * T,
-                spatial_cond=None if smap is None else per_image(smap, b)[0])
+                spatial_cond=None if smap is None else per_image(smap, b)[0],
+                control_hint=None if hints is None else hints[b])
             job_id = f"{multi_job_id}_b{b}" if B > 1 else multi_job_id
             if is_worker:
                 tile_farm.worker_run(job_id, worker_id, master_url,

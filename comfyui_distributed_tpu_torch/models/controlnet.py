@@ -7,8 +7,9 @@ convs), one 1×1 conv per skip connection (``zero_{i}``) and one on the
 middle state (``mid_out``). It returns residuals the UNet adds to its
 skips and middle state (``UNet2D.forward(..., control=)``), NCHW like the
 UNet's skips. The attention sites are the UNet's own blocks, so they go
-through the same ``ops/attention.py`` dispatch (K1 for self-attention,
-K2 for cross-attention on the card).
+through the same ``ops/attention.py`` dispatch (on the card, K1 for
+SDXL's self-attention and K2 for its cross-attention; the one-head
+kernel for every SD 1.5 site).
 
 Attribute names follow the JAX parameter tree (``time_1``, ``hint_{j}``,
 ``conv_in``, ``zero_{i}``, ``down_{l}_res_{i}``, ``mid_out``, …), so
@@ -48,9 +49,9 @@ HINT_DOWNSCALE = 8          # three stride-2 convs
 # scale of the lecun-normal draw of the zero convs and mid_out
 ZERO_CONV_SCALE = 0.1
 
-# random-init presets (the JAX package's ``sd15`` waits for the port's
-# ``UNetConfig.sd15``)
-PRESETS = {"tiny": UNetConfig.tiny(), "sdxl": UNetConfig.sdxl()}
+# random-init presets
+PRESETS = {"tiny": UNetConfig.tiny(), "sd15": UNetConfig.sd15(),
+           "sdxl": UNetConfig.sdxl()}
 
 
 class ZeroConv(nn.Conv2d):

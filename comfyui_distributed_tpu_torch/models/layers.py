@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import full_attention, self_attention
+from ..ops.attention import fused_feasible, full_attention, self_attention
 
 LN_EPS = 1e-6       # flax nn.LayerNorm default
 
@@ -81,10 +81,13 @@ class ResBlock(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention over [B, N, C] with optional cross context.
 
-    A self-attention site hands the block input and the three projection
-    weights to the fused tier (one projection GEMM, then the attention
-    core over its output); a cross-attention site projects q/k/v and takes
-    the packed kernel. On the CPU both run their plain versions."""
+    A self-attention site whose geometry the fused tier takes
+    (``ops/attention.fused_feasible``) hands the block input and the three
+    projection weights to it (one projection GEMM, then the attention
+    core over its output), as the JAX ``Attention`` does; every other site
+    projects q/k/v with its own ``to_q``/``to_k``/``to_v`` and takes
+    ``full_attention`` (the packed or the one-head kernel). On the CPU a
+    fusable site runs the fused tier's plain version."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, context_dim: Optional[int] = None):
@@ -99,16 +102,17 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, N, _ = x.shape
+        B, N, C = x.shape
         H, D = self.num_heads, self.head_dim
-        if context is None:
+        if context is None and fused_feasible(C, H, D):
             out = self_attention(x, self.to_q.weight, self.to_k.weight,
                                  self.to_v.weight, H)
         else:
-            M = context.shape[1]
+            ctx = x if context is None else context
+            M = ctx.shape[1]
             out = full_attention(self.to_q(x).view(B, N, H, D),
-                                 self.to_k(context).view(B, M, H, D),
-                                 self.to_v(context).view(B, M, H, D))
+                                 self.to_k(ctx).view(B, M, H, D),
+                                 self.to_v(ctx).view(B, M, H, D))
         return self.to_out(out.reshape(B, N, H * D))
 
 

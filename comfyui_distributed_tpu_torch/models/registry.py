@@ -58,6 +58,11 @@ class ModelPreset:
 PRESETS: dict[str, ModelPreset] = {
     "sdxl": ModelPreset("sdxl", UNetConfig.sdxl(), VAEConfig.sdxl(),
                         TextEncoderConfig()),
+    # SD 1.5 at its published widths, with the hash-tokenised text encoder
+    # at CLIP-L's width (768); no ADM
+    "sd15": ModelPreset("sd15", UNetConfig.sd15(),
+                        VAEConfig(scaling_factor=0.18215),
+                        TextEncoderConfig(output_dim=768, pooled_dim=768)),
     "tiny": ModelPreset("tiny", UNetConfig.tiny(), VAEConfig.tiny(),
                         TextEncoderConfig.tiny()),
     # FLUX.1 at full width with the hash-tokenised text encoder at T5's

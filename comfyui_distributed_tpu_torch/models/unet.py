@@ -1,9 +1,12 @@
 """SDXL-class latent UNet (counterpart of the JAX ``models/unet.py``).
 
 ``UNetConfig.sdxl()`` is SDXL-base's shape (320·[1,2,4], transformer
-depths [0,2,10], ctx 2048, adm 2816); ``UNetConfig.tiny()`` a 2-level toy
-for tests. The public forward takes and returns NHWC like the JAX model;
-inside it runs NCHW. ``forward(..., control=)`` takes a ControlNet's
+depths [0,2,10], ctx 2048, adm 2816); ``UNetConfig.sd15()`` SD 1.5's
+(320·[1,2,4,4], one transformer block at each of the first three levels,
+8 heads, ctx 768, no adm) as the JAX package's preset gives it: a
+conv-only fourth level and no middle transformer, where the published SD
+1.5 has one; ``UNetConfig.tiny()`` a 2-level toy for tests. The public
+forward takes and returns NHWC like the JAX model; inside it runs NCHW. ``forward(..., control=)`` takes a ControlNet's
 residuals (``models/controlnet.py``) in that NCHW layout.
 """
 
@@ -38,6 +41,12 @@ class UNetConfig:
     @classmethod
     def sdxl(cls) -> "UNetConfig":
         return cls(adm_in_channels=2816)
+
+    @classmethod
+    def sd15(cls) -> "UNetConfig":
+        """8 heads everywhere: head widths 40, 80 and 160."""
+        return cls(channel_mult=(1, 2, 4, 4), transformer_depth=(1, 1, 1, 0),
+                   context_dim=768, head_dim=-1, num_heads=8)
 
     @classmethod
     def tiny(cls, dtype: str = "bfloat16") -> "UNetConfig":

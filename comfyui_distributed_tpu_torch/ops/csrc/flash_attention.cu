@@ -74,6 +74,20 @@
 //   output-column tile picks its weight by blockIdx.z; fp32 accumulation
 //   rounded to bf16, as the Pallas kernel's projection epilogue. A version
 //   with one producer warp and two CTAs an SM measured no faster.
+// - Head widths 40, 80 and 160 (SD 1.5's 8 heads at 320, 640 and 1280
+//   channels) are read as whole boxes too: a row of D columns takes
+//   ceil(D / 64) boxes in shared memory (64, 128 or 192 columns), and
+//   only there. The tensor maps carry the true D as their innermost
+//   dimension, so TMA fills the columns past D with zeros (never the next
+//   head's) and a TMA store is clipped at D. S = Q.K^T runs over
+//   ceil(D / 16) k-steps (the zero columns add nothing); P.V computes the
+//   padding columns, which are never stored. The 1/sqrt(D) scale comes
+//   from the true D. At D = 160 the streamed core takes 64-key tiles (a
+//   192-column Q tile and two 128-key K/V stages would need 240 KB of
+//   shared memory; three 64-key stages need 192 KB, and S, P and O stay at
+//   32 + 16 + 96 registers a thread), and the short-key kernel keeps one
+//   K/V stage and takes at most 80 keys (its 128-key tile does not fit
+//   beside two Q stages and the output tile).
 // Tensor maps are encoded per call in this library through
 // cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so the
 // library does not link libcuda; each kernel's shared-memory limit is
@@ -94,7 +108,6 @@ constexpr int THREADS = 384;      // warpgroup 0 produces, 1 and 2 consume
 constexpr int BOX = 64;           // bf16 columns per TMA box: one swizzle row
 constexpr int BOX_BYTES = 128 * BOX * 2;   // a [128 rows][64] box: 16 KB
 constexpr int BQ = 128;           // q rows per CTA (64 per consumer)
-constexpr int BK = 128;           // keys per K/V tile
 constexpr int GEMM_BM = 128, GEMM_BN = 128, GEMM_BK = 64, GEMM_STAGES = 4;
 constexpr int GEMM_STAGE_BYTES = 2 * BOX_BYTES;   // x box + weight box
 constexpr int CONSUMER_WARPS = 8;
@@ -239,6 +252,8 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 #define CDT_F32 CDT_F8(0), CDT_F8(8), CDT_F8(16), CDT_F8(24)
 #define CDT_F40 CDT_F32, CDT_F8(32)
 #define CDT_F64 CDT_F32, CDT_F8(32), CDT_F8(40), CDT_F8(48), CDT_F8(56)
+#define CDT_F96 \
+  CDT_F64, CDT_F8(64), CDT_F8(72), CDT_F8(80), CDT_F8(88)
 #define CDT_REGS32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -253,6 +268,14 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define CDT_REGS96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 // d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
@@ -276,11 +299,25 @@ __device__ __forceinline__ void wgmma_m64n80_ss(float (&d)[40], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CDT_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CDT_F32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // S tile of N keys: d[64 x N] (+)= A[64 x 16] . B[N x 16]^T.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  if constexpr (N == 80)
+  static_assert(N == 64 || N == 80 || N == 128, "key tile");
+  if constexpr (N == 64)
+    wgmma_m64n64_ss(d, da, db, accumulate);
+  else if constexpr (N == 80)
     wgmma_m64n80_ss(d, da, db, accumulate);
   else
     wgmma_m64n128_ss(d, da, db, accumulate);
@@ -310,6 +347,18 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] (registers) . B[16 x 192] (MN-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n192_rs(float (&d)[96],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " CDT_REGS96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : CDT_F96
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -333,32 +382,52 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // --- attention core ------------------------------------------------------------
 
-// Shared memory of the core at head width D: the CTA's Q tile, then STAGES
-// stages of [K tile | V tile], each tile D / 64 boxes of [128 rows][64].
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may use
+
+// A head width D in shared memory: BOXES boxes of 64 columns (DP columns,
+// zero past D), and the k16 steps of S = Q.K^T that cover D.
 template <int D>
-struct CoreLayout {
-  static constexpr int BOXES = D / BOX;
-  static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int TILE_BYTES = BOXES * BOX_BYTES;
-  static constexpr int BARRIERS = 1 + 2 * STAGES;
-  static constexpr int BYTES =
-      TILE_BYTES * (1 + 2 * STAGES) + BARRIERS * 8 + 1024;   // + alignment
+struct Width {
+  static_assert(D % 8 == 0 && D >= 8 && D <= 192, "head width");
+  static constexpr int BOXES = (D + BOX - 1) / BOX;
+  static constexpr int DP = BOXES * BOX;
+  static constexpr int KSTEPS = (D + 15) / 16;
 };
 
-// A 64-row warpgroup's D/2 accumulator floats: O += P . V over one tile of
-// KW keys whose 64-column boxes lie `box_bytes` apart.
-template <int D, int KW>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+// Shared memory of the core at head width D: the CTA's Q tile (BOXES
+// boxes of [128 rows][64]), then STAGES stages of [K tile | V tile], each
+// BOXES boxes of [KW rows][64]. KW is 128 keys, 64 past two boxes.
+template <int D>
+struct CoreLayout {
+  static constexpr int BOXES = Width<D>::BOXES;
+  static constexpr int KW = BOXES > 2 ? 64 : 128;
+  static constexpr int STAGES = BOXES == 2 ? 2 : 3;
+  static constexpr int Q_BYTES = BOXES * BOX_BYTES;
+  static constexpr int KV_BOX_BYTES = KW * 128;
+  static constexpr int KV_TILE_BYTES = BOXES * KV_BOX_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_TILE_BYTES +
+                               BARRIERS * 8 + 1024;   // + alignment
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+
+// A 64-row warpgroup's DP/2 accumulator floats: O += P . V over one tile
+// of KW keys whose 64-column boxes lie `box_bytes` apart.
+template <int DP, int KW>
+__device__ __forceinline__ void pv_product(float (&o)[DP / 2],
                                            const uint32_t (&p)[KW / 16][4],
                                            uint32_t v_addr, uint32_t box_bytes) {
+  static_assert(DP == 64 || DP == 128 || DP == 192, "padded head width");
 #pragma unroll
   for (int kk = 0; kk < KW / 16; ++kk) {
     // keys 16kk..16kk+15: two 8-row groups of 1024 bytes
     const uint64_t db = sw128_desc(v_addr + kk * 2048, box_bytes, 1024);
-    if constexpr (D == 64)
+    if constexpr (DP == 64)
       wgmma_m64n64_rs(o, p[kk], db);
-    else
+    else if constexpr (DP == 128)
       wgmma_m64n128_rs(o, p[kk], db);
+    else
+      wgmma_m64n192_rs(o, p[kk], db);
   }
 }
 
@@ -374,16 +443,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                            long long o_hs, long long o_rs, int nq, int nk,
                            float scale_log2) {
   using L = CoreLayout<D>;
+  constexpr int KW = L::KW, DP = Width<D>::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_tile = align_1024(smem_raw);
-  uint8_t* kv_tiles = q_tile + L::TILE_BYTES;
+  uint8_t* kv_tiles = q_tile + L::Q_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(
-      kv_tiles + 2 * L::STAGES * L::TILE_BYTES);
+      kv_tiles + 2 * L::STAGES * L::KV_TILE_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + L::STAGES;
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (nk + BK - 1) / BK;
+  const int n_tiles = (nk + KW - 1) / KW;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -401,18 +471,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     // producer: Q once, then K/V tiles through the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::TILE_BYTES);
+      mbar_expect_tx(q_full, L::Q_BYTES);
       for (int bx = 0; bx < L::BOXES; ++bx)
         tma_load_4d(q_tile + bx * BOX_BYTES, &q_map, q_full, bx * BOX, q0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % L::STAGES;
         mbar_wait(&empty[s], ((j / L::STAGES) & 1) ^ 1);
-        uint8_t* kt = kv_tiles + 2 * s * L::TILE_BYTES;
-        mbar_expect_tx(&full[s], 2 * L::TILE_BYTES);
+        uint8_t* kt = kv_tiles + 2 * s * L::KV_TILE_BYTES;
+        mbar_expect_tx(&full[s], 2 * L::KV_TILE_BYTES);
         for (int bx = 0; bx < L::BOXES; ++bx) {
-          tma_load_4d(kt + bx * BOX_BYTES, &k_map, &full[s], bx * BOX, j * BK, h, b);
-          tma_load_4d(kt + L::TILE_BYTES + bx * BOX_BYTES, &v_map, &full[s],
-                      bx * BOX, j * BK, h, b);
+          tma_load_4d(kt + bx * L::KV_BOX_BYTES, &k_map, &full[s], bx * BOX,
+                      j * KW, h, b);
+          tma_load_4d(kt + L::KV_TILE_BYTES + bx * L::KV_BOX_BYTES, &v_map,
+                      &full[s], bx * BOX, j * KW, h, b);
         }
       }
     }
@@ -424,12 +495,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     // this warpgroup's 64 q rows inside each Q box
     const uint32_t q_addr = smem_addr(q_tile) + cwg * 64 * 128;
 
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float s_acc[64];
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float s_acc[KW / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s_acc[i] = 0.f;
+    for (int i = 0; i < KW / 2; ++i) s_acc[i] = 0.f;
     // rows g and g + 8 of the warp's 16: running max (of raw logits) and
     // this thread's share of the denominator
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
@@ -438,26 +509,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % L::STAGES;
       mbar_wait(&full[s], (j / L::STAGES) & 1);
-      const uint32_t k_addr = smem_addr(kv_tiles + 2 * s * L::TILE_BYTES);
-      const uint32_t v_addr = k_addr + L::TILE_BYTES;
+      const uint32_t k_addr = smem_addr(kv_tiles + 2 * s * L::KV_TILE_BYTES);
+      const uint32_t v_addr = k_addr + L::KV_TILE_BYTES;
 
       // S = Q . K^T over D: 16 columns (32 bytes) per step inside a box
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-        wgmma_m64n128_ss(s_acc, sw128_desc(q_addr + off, 16, 1024),
-                         sw128_desc(k_addr + off, 16, 1024), kk > 0);
+      for (int kk = 0; kk < Width<D>::KSTEPS; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;
+        wgmma_ss<KW>(s_acc,
+                     sw128_desc(q_addr + (kk / 4) * BOX_BYTES + in_box, 16, 1024),
+                     sw128_desc(k_addr + (kk / 4) * L::KV_BOX_BYTES + in_box,
+                                16, 1024),
+                     kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s_acc);
 
       // s_acc[4c + e]: row g (e < 2) or g + 8, key 8c + 2t + (e & 1)
-      const int valid = nk - j * BK;
-      if (valid < BK) {
+      const int valid = nk - j * KW;
+      if (valid < KW) {
 #pragma unroll
-        for (int c = 0; c < BK / 8; ++c) {
+        for (int c = 0; c < KW / 8; ++c) {
           const int key = c * 8 + 2 * t;
           if (key >= valid) s_acc[4 * c] = s_acc[4 * c + 2] = NEG_INF;
           if (key + 1 >= valid) s_acc[4 * c + 1] = s_acc[4 * c + 3] = NEG_INF;
@@ -465,7 +539,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int c = 0; c < BK / 8; ++c) {
+      for (int c = 0; c < KW / 8; ++c) {
         mx0 = fmaxf(mx0, fmaxf(s_acc[4 * c], s_acc[4 * c + 1]));
         mx1 = fmaxf(mx1, fmaxf(s_acc[4 * c + 2], s_acc[4 * c + 3]));
       }
@@ -479,7 +553,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int c = 0; c < BK / 8; ++c) {
+      for (int c = 0; c < KW / 8; ++c) {
         s_acc[4 * c] = ex2(fmaf(s_acc[4 * c], scale_log2, -mb0));
         s_acc[4 * c + 1] = ex2(fmaf(s_acc[4 * c + 1], scale_log2, -mb0));
         s_acc[4 * c + 2] = ex2(fmaf(s_acc[4 * c + 2], scale_log2, -mb1));
@@ -490,23 +564,23 @@ __global__ void __launch_bounds__(THREADS, 1)
       l0 = l0 * corr0 + rs0;
       l1 = l1 * corr1 + rs1;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < DP / 8; ++c) {
         o[4 * c] *= corr0;
         o[4 * c + 1] *= corr0;
         o[4 * c + 2] *= corr1;
         o[4 * c + 3] *= corr1;
       }
       // P in bf16 as wgmma A fragments: keys 16kk..16kk+15 are chunks 2kk, 2kk+1
-      uint32_t p[BK / 16][4];
+      uint32_t p[KW / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
+      for (int kk = 0; kk < KW / 16; ++kk) {
         p[kk][0] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
         p[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
         p[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
         p[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
       }
       wgmma_fence();
-      pv_product<D, BK>(o, p, v_addr, BOX_BYTES);
+      pv_product<DP, KW>(o, p, v_addr, L::KV_BOX_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -519,6 +593,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
     const int r0 = q0 + cwg * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
     bf16* base = out + b * o_bs + h * o_hs;
+    // columns past D are padding: never stored
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int d = c * 8 + 2 * t;
@@ -536,21 +611,22 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 constexpr int SHORT_MAX_KEYS = 128;
 constexpr int OUT_ROWS = 64;          // rows of a consumer's TMA store box
-constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may use
 
 // Shared memory of the short-key kernel at head width D and key tile KW:
-// KV_STAGES stages of [K tile | V tile] (D / 64 boxes of [KW rows][64]
+// KV_STAGES stages of [K tile | V tile] (BOXES boxes of [KW rows][64]
 // each), Q_STAGES stages of the 128-row Q tile, and each consumer's
-// [64 rows][D] output tile; as many Q stages as fit, at most 6.
+// [64 rows][BOXES * 64] output tile; two K/V stages where they fit beside
+// two Q stages, else one; as many Q stages as fit, at most 6.
 template <int D, int KW>
 struct ShortLayout {
-  static constexpr int BOXES = D / BOX;
+  static constexpr int BOXES = Width<D>::BOXES;
   static constexpr int KV_BOX_BYTES = KW * 128;
   static constexpr int KV_BYTES = 2 * BOXES * KV_BOX_BYTES;
-  static constexpr int KV_STAGES = 2;
   static constexpr int Q_BYTES = BOXES * BOX_BYTES;
   static constexpr int OUT_BOX_BYTES = OUT_ROWS * 128;
   static constexpr int OUT_BYTES = 2 * BOXES * OUT_BOX_BYTES;
+  static constexpr int KV_STAGES =
+      2 * KV_BYTES + OUT_BYTES + 2 * Q_BYTES + 1024 + 128 <= SMEM_LIMIT ? 2 : 1;
   static constexpr int FIXED = KV_STAGES * KV_BYTES + OUT_BYTES + 1024 + 128;
   static constexpr int Q_STAGES =
       (SMEM_LIMIT - FIXED) / Q_BYTES < 6 ? (SMEM_LIMIT - FIXED) / Q_BYTES : 6;
@@ -576,6 +652,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               int nq, int nk, int heads, int items,
                               int per_cta, float scale_log2) {
   using L = ShortLayout<D, KW>;
+  constexpr int DP = Width<D>::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* kv_tiles = align_1024(smem_raw);
   uint8_t* q_tiles = kv_tiles + L::KV_STAGES * L::KV_BYTES;
@@ -665,7 +742,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < KW / 2; ++i) s_acc[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < Width<D>::KSTEPS; ++kk) {
         const uint32_t in_box = (kk % 4) * 32;
         wgmma_ss<KW>(s_acc,
                      sw128_desc(q_addr + (kk / 4) * BOX_BYTES + in_box, 16, 1024),
@@ -714,11 +791,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         p[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
         p[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
       }
-      float o[D / 2];
+      float o[DP / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
       wgmma_fence();
-      pv_product<D, KW>(o, p, v_addr, L::KV_BOX_BYTES);
+      pv_product<DP, KW>(o, p, v_addr, L::KV_BOX_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -731,7 +808,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (leader) bulk_wait_read();
       named_barrier(1 + cwg, 128);
       // rows r and r + 8 of this warp's 16, in the 128-byte swizzle the
-      // store map reads: 16-byte chunk c of row r lies at chunk c ^ (r % 8)
+      // store map reads: 16-byte chunk c of row r lies at chunk c ^ (r % 8);
+      // columns past D are padding, which the store map clips
       const int r0 = warp * 16 + g;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
@@ -938,7 +1016,8 @@ int launch_attention(const void* q, const void* k, const void* v, bf16* out,
                      const long long* os, float scale, cudaStream_t stream) {
   using L = CoreLayout<D>;
   CUtensorMap maps[3];
-  const int rc = encode_qkv<D>(maps, q, k, v, batch, heads, nq, nk, qs, ks, vs, BK);
+  const int rc =
+      encode_qkv<D>(maps, q, k, v, batch, heads, nq, nk, qs, ks, vs, L::KW);
   if (rc) return rc;
   static std::atomic<uint32_t> smem_set{0};
   const cudaError_t e = allow_smem(flash_attention_kernel<D>, L::BYTES, &smem_set);
@@ -979,11 +1058,20 @@ int launch_short_kv(const void* q, const void* k, const void* v, bf16* out,
   return cudaGetLastError();
 }
 
-// The short-key kernel's key tile for nk keys: 80 (SDXL's 77 text tokens)
-// or 128; 0 past SHORT_MAX_KEYS.
+// The short-key kernel's key tile for nk keys at head width D: 80 (77
+// text tokens) or 128; 0 past SHORT_MAX_KEYS, and past 80 keys at D = 160
+// (its 128-key tile does not fit).
+template <int D>
 int key_tile(int nk) {
-  if (nk < 1 || nk > SHORT_MAX_KEYS) return 0;
+  const int max_keys = Width<D>::BOXES > 2 ? 80 : SHORT_MAX_KEYS;
+  if (nk < 1 || nk > max_keys) return 0;
   return nk <= 80 ? 80 : 128;
+}
+
+// Only the short-key kernels that key_tile selects are instantiated.
+template <int D, int KW>
+constexpr bool has_short_kv() {
+  return KW == 80 || Width<D>::BOXES <= 2;
 }
 
 template <typename L>
@@ -994,11 +1082,13 @@ int layout_report(int* q_stages) {
 
 template <int D>
 int short_kv_layout(int nk, int* q_stages) {
-  switch (key_tile(nk)) {
+  switch (key_tile<D>(nk)) {
     case 80:
       return layout_report<ShortLayout<D, 80>>(q_stages);
     case 128:
-      return layout_report<ShortLayout<D, 128>>(q_stages);
+      if constexpr (has_short_kv<D, 128>())
+        return layout_report<ShortLayout<D, 128>>(q_stages);
+      return 0;
     default:
       return 0;
   }
@@ -1009,13 +1099,15 @@ int launch_short_kv_d(const void* q, const void* k, const void* v, bf16* out,
                       int batch, int heads, int nq, int nk, const long long* qs,
                       const long long* ks, const long long* vs,
                       const long long* os, float scale, cudaStream_t stream) {
-  switch (key_tile(nk)) {
+  switch (key_tile<D>(nk)) {
     case 80:
       return launch_short_kv<D, 80>(q, k, v, out, batch, heads, nq, nk, qs, ks,
                                     vs, os, scale, stream);
     case 128:
-      return launch_short_kv<D, 128>(q, k, v, out, batch, heads, nq, nk, qs, ks,
-                                     vs, os, scale, stream);
+      if constexpr (has_short_kv<D, 128>())
+        return launch_short_kv<D, 128>(q, k, v, out, batch, heads, nq, nk, qs,
+                                       ks, vs, os, scale, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -1040,13 +1132,25 @@ int cdt_flash_attention(const void* q, const void* k, const void* v, void* out,
   const long long vs[3] = {v_bs, v_hs, v_rs}, os[3] = {o_bs, o_hs, o_rs};
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch_attention<64>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
-                                os, scale, s);
-  if (head_dim == 128)
-    return launch_attention<128>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
-                                 os, scale, s);
-  return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 40:
+      return launch_attention<40>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                  vs, os, scale, s);
+    case 64:
+      return launch_attention<64>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                  vs, os, scale, s);
+    case 80:
+      return launch_attention<80>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                  vs, os, scale, s);
+    case 128:
+      return launch_attention<128>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                   vs, os, scale, s);
+    case 160:
+      return launch_attention<160>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                   vs, os, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The same attention and arguments as cdt_flash_attention, for 1 <= nk <=
@@ -1062,13 +1166,25 @@ int cdt_short_kv_attention(const void* q, const void* k, const void* v,
   const long long vs[3] = {v_bs, v_hs, v_rs}, os[3] = {o_bs, o_hs, o_rs};
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch_short_kv_d<64>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
-                                 os, scale, s);
-  if (head_dim == 128)
-    return launch_short_kv_d<128>(q, k, v, op, batch, heads, nq, nk, qs, ks, vs,
-                                  os, scale, s);
-  return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 40:
+      return launch_short_kv_d<40>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                   vs, os, scale, s);
+    case 64:
+      return launch_short_kv_d<64>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                   vs, os, scale, s);
+    case 80:
+      return launch_short_kv_d<80>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                   vs, os, scale, s);
+    case 128:
+      return launch_short_kv_d<128>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                    vs, os, scale, s);
+    case 160:
+      return launch_short_kv_d<160>(q, k, v, op, batch, heads, nq, nk, qs, ks,
+                                    vs, os, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The short-key kernel that nk keys at head_dim select, for build
@@ -1076,9 +1192,20 @@ int cdt_short_kv_attention(const void* q, const void* k, const void* v,
 // is selected) and sets its number of Q stages.
 int cdt_short_kv_layout(int head_dim, int nk, int* q_stages) {
   *q_stages = 0;
-  if (head_dim == 64) return short_kv_layout<64>(nk, q_stages);
-  if (head_dim == 128) return short_kv_layout<128>(nk, q_stages);
-  return 0;
+  switch (head_dim) {
+    case 40:
+      return short_kv_layout<40>(nk, q_stages);
+    case 64:
+      return short_kv_layout<64>(nk, q_stages);
+    case 80:
+      return short_kv_layout<80>(nk, q_stages);
+    case 128:
+      return short_kv_layout<128>(nk, q_stages);
+    case 160:
+      return short_kv_layout<160>(nk, q_stages);
+    default:
+      return 0;
+  }
 }
 
 // out [3, m, hd] = x [m, c] times wq, wk, wv [hd, c] transposed, in bf16

@@ -21,12 +21,12 @@ products, warp-specialised producer and consumers):
 - ``flash_attention(layout="bh")`` (``_flash_kernel``): the same with
   each (batch, head) pair addressed through its own strides, so any
   ``[B, N, H, D]`` view with unit stride along D is read in place (FLUX's
-  joint attention, whose H·D = 3072 the packed layout does not take;
-  ``ops/attention.py`` chooses).
+  joint attention, whose H·D = 3072 the packed layout does not take, and
+  every SD 1.5 site; ``ops/attention.py`` chooses).
 
 Every attention launch goes by key count, whatever the layout or the
-caller: at most ``SHORT_KV_MAX_KEYS`` (128) keys take the short-key
-kernel, more the streamed core. Attention over 77 keys is bound by bytes
+caller: at most ``SHORT_KV_MAX_KEYS`` (128; 80 at D = 160) keys take the
+short-key kernel, more the streamed core. Attention over 77 keys is bound by bytes
 (reading q, writing out) and, at these sizes, by latency: the short-key
 kernel is persistent, keeps each head's K/V resident in shared memory
 while it streams that head's q tiles, sizes its key tile to the keys (80
@@ -43,6 +43,15 @@ the ``nn.Linear`` layout ``[H·D, C]`` (the transpose of the JAX
 function's ``[C, H·D]``); activations keep the JAX layouts.
 ``LAUNCHES`` counts launches per wrapper (one per TPU kernel),
 ``CUDA_LAUNCHES`` per CUDA kernel.
+
+Head widths: the attention kernels take D in ``HEAD_DIMS`` (40, 80 and
+160 are SD 1.5's 8 heads at 320, 640 and 1280 channels). A row is read as
+``padded_width(D)`` columns (whole 64-column boxes) in shared memory
+only: the tensor maps carry the true D, so TMA fills the padding with
+zeros and clips the stores at D, and the 1/√D scale comes from the true D.
+At D = 160 the streamed core takes 64-key tiles and the short-key kernel
+at most 80 keys (``core_key_tile``, ``short_kv_max_keys``), for shared
+memory. The fused tier and the packed layout stay at D = 64 and 128.
 
 The library is compiled with ``nvcc`` at first use into
 ``build/torch_kernels/`` at the repository root and loaded with ctypes.
@@ -72,7 +81,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (40, 64, 80, 128, 160)   # the attention kernels
+PACKED_HEAD_DIMS = (64, 128)         # the fused tier and the packed layout
+BOX = 64             # columns of a TMA box: a row is read as whole boxes
 STRIDE_MULTIPLE = 8  # elements: TMA takes strides in multiples of 16 bytes
 
 # launches per wrapper (one per TPU kernel it replaces), counted where each
@@ -236,24 +247,58 @@ def fused_qkv_attention_plain(x: torch.Tensor, wq: torch.Tensor,
     return flash_attention_plain(heads(wq), heads(wk), heads(wv))
 
 
+def padded_width(head_dim: int) -> int:
+    """The columns a row of ``head_dim`` takes in the kernels' shared
+    memory: whole 64-column boxes."""
+    return -(-head_dim // BOX) * BOX
+
+
+def core_key_tile(head_dim: int) -> int:
+    """The streamed core's key tile: 128 keys, 64 past two boxes a row
+    (D = 160), where two 128-key K/V stages beside the Q tile do not fit
+    in shared memory."""
+    return BLOCK_K if padded_width(head_dim) <= 2 * BOX else BLOCK_K // 2
+
+
+def short_kv_max_keys(head_dim: int) -> int:
+    """The most keys the short-key kernel takes at ``head_dim``: 128, or
+    80 past two boxes a row (its 128-key tile does not fit beside two Q
+    stages and the output tile)."""
+    return (SHORT_KV_MAX_KEYS if padded_width(head_dim) <= 2 * BOX
+            else SHORT_KV_TILES[0])
+
+
+def _pad_head(t: torch.Tensor) -> torch.Tensor:
+    """``[.., D]`` zero-padded to ``padded_width(D)``, as TMA fills a
+    box past the tensor's D."""
+    D = t.shape[-1]
+    return torch.nn.functional.pad(t, (0, padded_width(D) - D))
+
+
 def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, block_q: int = BLOCK_Q,
-                             block_k: int = BLOCK_K) -> torch.Tensor:
+                             block_k: Optional[int] = None) -> torch.Tensor:
     """The kernels' streamed schedule in plain ops over ``[B·H, N, D]``
-    (the counterpart of the JAX ``_flash_emulated``): K tiles of
-    ``block_k`` keys, NEG_INF tail masking, fp32 running max/denominator/
-    accumulator, probabilities rounded to the operand dtype before P·V,
-    rows with a zero denominator written as 0."""
+    (the counterpart of the JAX ``_flash_emulated``): rows zero-padded to
+    ``padded_width(D)``, K tiles of ``block_k`` keys (default: the
+    core's, ``core_key_tile``), NEG_INF tail masking, fp32 running
+    max/denominator/accumulator, probabilities rounded to the operand
+    dtype before P·V, rows with a zero denominator written as 0, the
+    padding columns dropped. The scale is the true D's."""
     BH, Nq, D = q.shape
     Nk = k.shape[1]
     scale = D ** -0.5
+    if block_k is None:
+        block_k = core_key_tile(D)
+    q, k, v = _pad_head(q), _pad_head(k), _pad_head(v)
+    DP = q.shape[-1]
     out = torch.empty_like(q)
     for q0 in range(0, Nq, block_q):
         qb = q[:, q0:q0 + block_q]
         m = torch.full((BH, qb.shape[1], 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((BH, qb.shape[1], D), dtype=torch.float32,
+        acc = torch.zeros((BH, qb.shape[1], DP), dtype=torch.float32,
                           device=q.device)
         for k0 in range(0, Nk, block_k):
             kb = k[:, k0:k0 + block_k].float()
@@ -267,45 +312,47 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         out[:, q0:q0 + block_q] = (acc / l).to(q.dtype)
-    return out
+    return out[..., :D]
 
 
-def short_kv_tile(nk: int) -> int:
-    """The short-key kernel's key tile for ``nk`` keys."""
+def short_kv_tile(nk: int, head_dim: int = 64) -> int:
+    """The short-key kernel's key tile for ``nk`` keys at ``head_dim``."""
+    most = short_kv_max_keys(head_dim)
     for width in SHORT_KV_TILES:
-        if 1 <= nk <= width:
+        if 1 <= nk <= min(width, most):
             return width
-    raise ValueError(f"the short-key kernel takes 1 to {SHORT_KV_MAX_KEYS} "
-                     f"keys, got {nk}")
+    raise ValueError(f"the short-key kernel takes 1 to {most} keys at "
+                     f"D={head_dim}, got {nk}")
 
 
 def short_kv_attention_emulated(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor) -> torch.Tensor:
     """The short-key kernel's schedule in plain ops over ``[B·H, N, D]``:
-    keys zero-padded to its key tile (``short_kv_tile``), keys at or past
-    ``Nk`` set to NEG_INF, a one-pass softmax in fp32 (row max,
-    exponentials, sum: no running statistics), probabilities rounded to
-    the operand dtype before P·V, rows with a zero denominator written as
-    0."""
+    rows zero-padded to ``padded_width(D)``, keys zero-padded to its key
+    tile (``short_kv_tile``), keys at or past ``Nk`` set to NEG_INF, a
+    one-pass softmax in fp32 (row max, exponentials, sum: no running
+    statistics), probabilities rounded to the operand dtype before P·V,
+    rows with a zero denominator written as 0, the padding columns
+    dropped. The scale is the true D's."""
     D = q.shape[-1]
     Nk = k.shape[1]
-    pad = short_kv_tile(Nk) - Nk
-    kp = torch.nn.functional.pad(k, (0, 0, 0, pad)).float()
-    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    s = torch.matmul(q.float(), kp.transpose(1, 2)) * D ** -0.5
+    pad = short_kv_tile(Nk, D) - Nk
+    kp = torch.nn.functional.pad(_pad_head(k), (0, 0, 0, pad)).float()
+    vp = torch.nn.functional.pad(_pad_head(v), (0, 0, 0, pad))
+    s = torch.matmul(_pad_head(q).float(), kp.transpose(1, 2)) * D ** -0.5
     keys = torch.arange(s.shape[-1], device=q.device)
     s = s.masked_fill(keys >= Nk, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), vp.float())
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l).to(q.dtype)
+    return (acc / l).to(q.dtype)[..., :D]
 
 
 def fused_qkv_attention_emulated(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  num_heads: int, block_q: int = BLOCK_Q,
-                                 block_k: int = BLOCK_K) -> torch.Tensor:
+                                 block_k: Optional[int] = None) -> torch.Tensor:
     """Fused tier's schedule in plain ops (counterpart of the JAX
     ``_fused_emulated``): projections rounded to the operand dtype, then
     the streamed schedule per head."""
@@ -395,13 +442,17 @@ def _launch_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  what: str) -> torch.Tensor:
     """Attention over ``[B, N, H, D]`` views with unit stride along D;
-    returns ``[B, Nq, H, D]`` (contiguous). At most ``SHORT_KV_MAX_KEYS``
-    keys take the short-key kernel (K/V resident, q tiles streamed), more
-    the streamed core; both read the same strides."""
+    returns ``[B, Nq, H, D]`` (contiguous). At most
+    ``short_kv_max_keys(D)`` keys take the short-key kernel (K/V
+    resident, q tiles streamed), more the streamed core; both read the
+    same strides."""
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
     if Nk == 0:
         raise ValueError(f"{what}: the kernel needs at least one key")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -414,7 +465,7 @@ def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{STRIDE_MULTIPLE} elements; got strides {t.stride()}")
         strides += s
     lib = KERNELS.load()
-    short = Nk <= SHORT_KV_MAX_KEYS
+    short = Nk <= short_kv_max_keys(D)
     entry = lib.cdt_short_kv_attention if short else lib.cdt_flash_attention
     with torch.cuda.device(q.device):
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -448,8 +499,9 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     D = HD // num_heads
     if not _on_cuda(x, wq, wk, wv):
         return fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"fused kernel takes D in {HEAD_DIMS}; got D={D}")
+    if D not in PACKED_HEAD_DIMS:
+        raise ValueError(f"fused kernel takes D in {PACKED_HEAD_DIMS}; "
+                         f"got D={D}")
     q, k, v = _launch_projection(x, wq, wk, wv).view(3, B, N, num_heads, D)
     out = _launch_core(q, k, v, "fused_qkv_attention")
     LAUNCHES["fused_qkv_attention"] += 1
@@ -472,9 +524,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if not _on_cuda(q, k, v):
         return flash_attention_plain(q, k, v)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {D}")
     if layout == "packed":
+        if D not in PACKED_HEAD_DIMS:
+            raise ValueError(f"packed layout takes head_dim in "
+                             f"{PACKED_HEAD_DIMS}, got {D}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(3) != 1 or t.stride(2) != D:
                 raise ValueError(f"{name}: packed layout needs each row's heads "

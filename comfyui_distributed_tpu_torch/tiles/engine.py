@@ -14,10 +14,13 @@ Two things make a farmed image bitwise equal to a direct one:
 - the UNet always sees a chunk of the same size, so cuBLAS and cuDNN
   pick the same algorithms on every host;
 - each tile's noise comes from a generator seeded from (seed, global
-  tile index) (``parallel/rng.tile_seed``), so no host, chunk or requeue
-  changes it. The JAX package folds the index into a threefry key
-  instead, so the numbers differ (a documented divergence): the parity
-  tests hand JAX's noise over (``noise=``).
+  tile index) (``parallel/rng.tile_seed``), and so does each of its
+  stochastic sampler's draws (``step_noise`` of that tile seed, stacked
+  over the chunk), so no host, chunk or requeue changes it. The JAX
+  package folds the index into a threefry key instead, and gives a
+  whole chunk one sampler key, so its sampler draws depend on how the
+  tiles are grouped (a documented divergence): the parity tests hand
+  JAX's noise over (``noise=``, ``step_noise=``).
 
 The VAE encodes and decodes one tile at a time inside a chunk, on every
 host alike: its single-head mid attention materialises an
@@ -45,7 +48,7 @@ from ..diffusion.samplers import sample
 from ..models.controlnet import HINT_DOWNSCALE
 from ..ops.blend import composite_tiles, extract_tiles, feather_mask
 from ..ops.resize import resize_to, upscale_image
-from ..parallel.rng import seed_generator, tile_seed
+from ..parallel.rng import seed_generator, stacked_step_noise, tile_seed
 from ..utils import constants
 from .grid import TileGrid, compute_tile_grid
 
@@ -117,12 +120,13 @@ class TileUpscaler:
                        y: Optional[torch.Tensor], uncond_y: Optional[torch.Tensor],
                        spec: UpscaleSpec, sigmas: torch.Tensor,
                        tile_masks: Optional[torch.Tensor] = None,
-                       hint_tiles: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       hint_tiles: Optional[torch.Tensor] = None,
+                       sampler_noise=None) -> torch.Tensor:
         """img2img a [n, ch, cw, C] tile chunk with its [n, h, w, C_lat]
         unit noise → [n, ch, cw, C] in [0, 1]. ``tile_masks`` [n, ch, cw,
         1] blend the result with the source tiles (1 = denoise);
-        ``hint_tiles`` feed the pipeline's ControlNet."""
+        ``hint_tiles`` feed the pipeline's ControlNet; ``sampler_noise``
+        is the chunk's noise source for a stochastic sampler."""
         pipe = self.pipeline
         vae = pipe.vae
         n = tiles.shape[0]
@@ -145,7 +149,7 @@ class TileUpscaler:
                 y_b, uy_b)
         else:
             denoise = pipe._denoiser(rows(context), y_b, hint=hint_tiles)
-        x0 = sample(gspec.sampler, denoise, noised, sigmas)
+        x0 = sample(gspec.sampler, denoise, noised, sigmas, sampler_noise)
         pipe._sync()
         t2 = time.perf_counter()
         out = torch.cat([vae.decode(x[None]) for x in x0])
@@ -192,7 +196,8 @@ class TileUpscaler:
                    first_index: int = 0,
                    noise: Optional[torch.Tensor] = None,
                    spatial_cond: Optional[torch.Tensor] = None,
-                   control_hint: Optional[torch.Tensor] = None
+                   control_hint: Optional[torch.Tensor] = None,
+                   step_noise: Optional[Callable[[int], torch.Tensor]] = None
                    ) -> TileRangePlan:
         """Resize one [H, W, C] image and cut its crops once; the plan's
         ``run_range(start, end)`` img2imgs tiles [start, end) in chunks
@@ -200,7 +205,9 @@ class TileUpscaler:
 
         Tile i's noise is drawn from ``tile_seed(seed, first_index + i)``
         (``upscale`` numbers the tiles of a batch across its images), or
-        taken from ``noise[i]`` ([T, h, w, C_lat]) where given. A range
+        taken from ``noise[i]`` ([T, h, w, C_lat]) where given; so is
+        draw j of a stochastic sampler (``step_noise`` of that tile seed),
+        or row i of ``step_noise(j)`` ([T, h, w, C_lat]) where given. A range
         wider than the chunk loops over sub-chunks, so a task sized by
         another host's chunk still runs; only the padding differs.
 
@@ -258,13 +265,27 @@ class TileUpscaler:
                     (chunk - seg.shape[0],) + seg.shape[1:], fill)])
             return seg
 
+        def chunk_step_noise(start: int, end: int):
+            if step_noise is None:
+                return stacked_step_noise(
+                    [tile_seed(seed, first_index + i)
+                     for i in range(start, start + chunk)], dev)
+
+            def draw(j: int, shape: tuple) -> torch.Tensor:
+                rows = step_noise(j)[start:end].to(dev, torch.float32)
+                return torch.cat([rows, rows.new_zeros(
+                    (shape[0] - rows.shape[0],) + rows.shape[1:])])
+
+            return draw
+
         def run_one(start: int, end: int) -> np.ndarray:
             nz = torch.stack([tile_noise(i) for i in range(start, start + chunk)])
             out = self._img2img_tiles(
                 padded(all_tiles, start, end, 0.0), nz, context,
                 uncond_context, y, uncond_y, spec, sigmas,
                 tile_masks=padded(all_stiles, start, end, 1.0),
-                hint_tiles=padded(all_htiles, start, end, 0.0))
+                hint_tiles=padded(all_htiles, start, end, 0.0),
+                sampler_noise=chunk_step_noise(start, end))
             return out[:end - start].float().cpu().numpy()
 
         def run_range(start: int, end: int) -> np.ndarray:
@@ -287,6 +308,26 @@ class TileUpscaler:
                                  grid.tile_w * hf, grid.tile_h * hf,
                                  grid.padding * hf)
 
+    def tile_hints(self, control_hint: Optional[torch.Tensor], grid: TileGrid,
+                   batch: int) -> Optional[torch.Tensor]:
+        """A [1 or B, h, w, C] control map resized (bilinear, per image)
+        to the output size × ``8 // vae.downscale`` and expanded to the
+        batch, for ``range_plan``; None without a hint or without a
+        ControlNet on the pipeline (the hint is then ignored, as in the
+        JAX package)."""
+        if control_hint is None or self.pipeline._control is None:
+            return None
+        hb = control_hint.shape[0]
+        if hb not in (1, batch):
+            raise ValueError(f"control hint batch {hb} incompatible with "
+                             f"image batch {batch} (must be 1 or {batch})")
+        hg = self.hint_grid(grid)
+        control_hint = control_hint.to(self.device).float()
+        if tuple(control_hint.shape[1:3]) != (hg.image_h, hg.image_w):
+            control_hint = resize_to(control_hint, hg.image_h, hg.image_w,
+                                     "bilinear")
+        return control_hint.expand(batch, *control_hint.shape[1:])
+
     def composite(self, tiles, plan: TileRangePlan) -> torch.Tensor:
         """Blend a complete [T, ch, cw, C] tile set into the [H, W, C]
         output image on the device."""
@@ -305,11 +346,14 @@ class TileUpscaler:
                 tiles_per_device: Optional[int] = None,
                 noise: Optional[torch.Tensor] = None,
                 spatial_cond: Optional[torch.Tensor] = None,
-                control_hint: Optional[torch.Tensor] = None) -> torch.Tensor:
+                control_hint: Optional[torch.Tensor] = None,
+                step_noise: Optional[Callable[[int], torch.Tensor]] = None
+                ) -> torch.Tensor:
         """[B, H, W, C] → [B, H·s, W·s, C] in [0, 1] on the device: each
         image's plan run over its whole range, then composited. Tiles are
         numbered across the batch (image b's first is b·T), as in the JAX
-        package's single program. ``noise``: [B·T, h, w, C_lat].
+        package's single program. ``noise``: [B·T, h, w, C_lat];
+        ``step_noise(j)``: the sampler's draw j, [B·T, h, w, C_lat].
         ``spatial_cond``: [B, H, W, 1] (input size) or [B, H·s, W·s, 1]
         (output size) region mask. ``control_hint``: [1 or B, h, w, C]
         control map for a ``with_control`` pipeline's ControlNet, resized
@@ -321,19 +365,7 @@ class TileUpscaler:
         if spatial_cond is not None:
             spatial_cond = spatial_cond.to(self.device).float()
             spatial_cond = spatial_cond.expand(B, *spatial_cond.shape[1:])
-        if control_hint is not None and self.pipeline._control is not None:
-            hb = control_hint.shape[0]
-            if hb not in (1, B):
-                raise ValueError(f"control hint batch {hb} incompatible with "
-                                 f"image batch {B} (must be 1 or {B})")
-            hg = self.hint_grid(grid)
-            control_hint = control_hint.to(self.device).float()
-            if tuple(control_hint.shape[1:3]) != (hg.image_h, hg.image_w):
-                control_hint = resize_to(control_hint, hg.image_h, hg.image_w,
-                                         "bilinear")
-            control_hint = control_hint.expand(B, *control_hint.shape[1:])
-        else:
-            control_hint = None
+        control_hint = self.tile_hints(control_hint, grid, B)
         outs = []
         for b in range(B):
             plan = self.range_plan(
@@ -341,6 +373,8 @@ class TileUpscaler:
                 tiles_per_device=tiles_per_device, first_index=b * T,
                 noise=None if noise is None else noise[b * T:(b + 1) * T],
                 spatial_cond=None if spatial_cond is None else spatial_cond[b],
-                control_hint=None if control_hint is None else control_hint[b])
+                control_hint=None if control_hint is None else control_hint[b],
+                step_noise=None if step_noise is None else (
+                    lambda j, b=b: step_noise(j)[b * T:(b + 1) * T]))
             outs.append(self.composite(plan.run_range(0, plan.num_tiles), plan))
         return torch.stack(outs)

@@ -228,6 +228,51 @@ def test_unet_forward_takes_each_cuda_kernel(cuda_device):
                                  "short_kv_attention": sites}
 
 
+@pytest.mark.parametrize("D", [40, 80, 160])
+@pytest.mark.parametrize("Nq", [1, 64, 4173])
+@pytest.mark.parametrize("Nk", [1, 77, 80, 81, 128, 129])
+def test_one_head_kernel_at_sd15_widths(cuda_device, Nk, Nq, D):
+    """SD 1.5's head widths on the one-head kernel, heads side by side as
+    the projections write them: rows read as whole 64-column boxes with
+    zeros past D, stores clipped at D; at D = 160 the short-key kernel
+    takes at most 80 keys. Each compared call follows a poisoning one."""
+    _poisoned_then_compared("bh", 2, Nq, Nk, 8, D, seed=60)
+
+
+def test_sd15_shaped_unet_sites_take_the_one_head_kernel(cuda_device):
+    """A narrow SD 1.5-shaped UNet (4 heads at 160/320/640 channels: head
+    widths 40, 80, 160) on the card: no site is fusable, so each block
+    launches the one-head kernel twice, over 1024, 256 and 64 keys and
+    over 77; the eps agrees with the plain versions (5e-2·max|plain|)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(UNetConfig.sd15(), model_channels=160,
+                              num_heads=4, num_res_blocks=1, context_dim=64)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    with torch.device("meta"):
+        unet = UNet2D(cfg)
+    unet = flax_init_(unet.to_empty(device=cuda_device), gen).eval()
+    x = torch.randn(2, 32, 32, 4, generator=gen, device=cuda_device)
+    t = torch.tensor([10.0, 500.0], device=cuda_device)
+    ctx = torch.randn(2, 77, 64, generator=gen, device=cuda_device)
+    sites = sum(1 for n, _ in unet.named_modules() if n.endswith("attn1"))
+    tfa.reset_launches()
+    with torch.no_grad():
+        eps = unet(x, t, ctx)
+        assert tfa.LAUNCHES == {"fused_qkv_attention": 0,
+                                "flash_attention_packed": 0,
+                                "flash_attention_bh": 2 * sites}
+        # every cross-attention and the self-attention over 64 keys at
+        # D = 160 (a third of the blocks) take the short-key kernel
+        short = sites + sites // 3
+        assert tfa.CUDA_LAUNCHES["short_kv_attention"] == short
+        assert tfa.CUDA_LAUNCHES["flash_attention_core"] == 2 * sites - short
+        with mock.patch.object(layers, "full_attention",
+                               tfa.flash_attention_plain):
+            ref = unet(x, t, ctx)
+    _close(eps, ref, tol=5e-2)
+
+
 def test_dit_attention_sites_take_the_one_head_kernel(cuda_device):
     """A small rope DiT with 128-wide heads on the card. 17 heads make
     H·D = 2176, past the packed layout's widest row (2048), so every

@@ -426,3 +426,185 @@ def test_kernel_operand_checks(monkeypatch):
     with pytest.raises(ValueError, match="side by side"):
         q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16).transpose(1, 2)
         tfa.flash_attention(q, q, q, layout="packed")
+
+
+# --- head widths 40, 80 and 160 (SD 1.5's 8 heads) ---------------------------
+
+SD15_WIDTHS = [40, 80, 160]
+
+
+@pytest.mark.parametrize("D", SD15_WIDTHS)
+@pytest.mark.parametrize("B,Nq,Nk,H", [
+    (2, 300, 300, 2),          # self-attention over several key tiles
+    (1, 100, 77, 3),           # cross-attention over 77 text tokens
+    (2, 130, 129, 1),          # ragged: one key past a 128-key tile
+    (1, 1, 1, 2),              # one row, one key
+])
+def test_new_widths_match_pallas_bh(D, B, Nq, Nk, H):
+    """The one-head tier at SD 1.5's head widths against the JAX
+    ``_flash_mha`` in interpret mode (the bh call every SD 1.5 site
+    takes): the plain version, and the kernels' padded tilings."""
+    q, k, v = _qkv(10, B, Nq, Nk, H, D)
+
+    def to_bh(a):
+        return a.transpose(0, 2, 1, 3).reshape(B * H, a.shape[1], D)
+
+    ref = np.asarray(jfa._flash_mha(
+        jnp.asarray(to_bh(q)), jnp.asarray(to_bh(k)), jnp.asarray(to_bh(v)),
+        block_q=128, block_k=128, interpret=True))
+    out = tfa.flash_attention(_t(q), _t(k), _t(v), layout="bh")
+    assert out.shape == (B, Nq, H, D)
+    np.testing.assert_allclose(to_bh(out.numpy()), ref, atol=TOL, rtol=TOL)
+    tq, tk, tv = _t(to_bh(q)), _t(to_bh(k)), _t(to_bh(v))
+    streamed = tfa.flash_attention_emulated(tq, tk, tv)
+    assert streamed.shape == (B * H, Nq, D)
+    np.testing.assert_allclose(streamed.numpy(), ref, atol=TOL, rtol=TOL)
+    if Nk <= tfa.short_kv_max_keys(D):
+        short = tfa.short_kv_attention_emulated(tq, tk, tv)
+        np.testing.assert_allclose(short.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D", SD15_WIDTHS)
+def test_padded_tilings_match_jax_emulation(D):
+    """The streamed schedule at the core's key tile for D and the
+    short-key schedule, each over rows zero-padded to whole 64-column
+    boxes, against the JAX ``_flash_emulated`` over the true D: the
+    padding adds nothing and the scale is the true D's."""
+    q, k, v = _qkv(11, 1, 150, 200, 2, D)
+
+    def to_bh(a):
+        return a.transpose(0, 2, 1, 3).reshape(2, a.shape[1], D)
+
+    ref = np.asarray(jfa._flash_emulated(
+        jnp.asarray(to_bh(q)), jnp.asarray(to_bh(k)), jnp.asarray(to_bh(v)),
+        block_q=128, block_k=tfa.core_key_tile(D)))
+    out = tfa.flash_attention_emulated(_t(to_bh(q)), _t(to_bh(k)),
+                                       _t(to_bh(v)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+    short_k, short_v = to_bh(k)[:, :77], to_bh(v)[:, :77]
+    ref = np.asarray(jfa._flash_emulated(
+        jnp.asarray(to_bh(q)), jnp.asarray(short_k), jnp.asarray(short_v),
+        block_q=128, block_k=tfa.short_kv_tile(77, D)))
+    out = tfa.short_kv_attention_emulated(_t(to_bh(q)), _t(short_k),
+                                          _t(short_v))
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_padded_widths_and_tiles():
+    assert [tfa.padded_width(d) for d in (40, 64, 80, 128, 160)] == \
+        [64, 64, 128, 128, 192]
+    assert [tfa.core_key_tile(d) for d in (40, 64, 80, 128, 160)] == \
+        [128, 128, 128, 128, 64]
+    assert [tfa.short_kv_max_keys(d) for d in (40, 64, 80, 128, 160)] == \
+        [128, 128, 128, 128, 80]
+    assert tfa.short_kv_tile(81, 80) == 128
+    with pytest.raises(ValueError, match="1 to 80 keys at D=160"):
+        tfa.short_kv_tile(81, 160)
+    assert tfa.HEAD_DIMS == (40, 64, 80, 128, 160)
+    assert tfa.PACKED_HEAD_DIMS == (64, 128)
+
+
+@pytest.mark.parametrize("D,nk,entry", [
+    (40, 77, "short_kv"), (40, 129, "attention"), (80, 128, "short_kv"),
+    (160, 77, "short_kv"), (160, 80, "short_kv"), (160, 81, "attention")])
+def test_new_widths_go_by_key_count_with_the_true_scale(fake_cuda, D, nk,
+                                                        entry):
+    """The wrapper hands the kernels the true D and its 1/√D; at D = 160
+    the short-key kernel takes at most 80 keys."""
+    B, Nq, H = 2, 70, 8
+    q = torch.zeros(B, Nq, H * D, dtype=torch.bfloat16).view(B, Nq, H, D)
+    kv = torch.zeros(2, B, nk, H * D, dtype=torch.bfloat16)
+    k, v = (t.view(B, nk, H, D) for t in kv)
+    tfa.flash_attention(q, k, v, layout="bh")
+    ((kind, args),) = fake_cuda.calls
+    assert kind == entry
+    assert args[4:9] == (B, H, Nq, nk, D)
+    assert args[9:12] == (Nq * H * D, D, H * D)
+    assert args[21] == pytest.approx(D ** -0.5)
+
+
+def test_packed_and_fused_tiers_stay_at_64_and_128(fake_cuda):
+    q = torch.zeros(1, 16, 8, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="packed layout takes head_dim"):
+        tfa.flash_attention(q, q, q, layout="packed")
+    x = torch.zeros(1, 16, 320, dtype=torch.bfloat16)
+    w = torch.zeros(320, 320, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fused kernel takes D"):
+        tfa.fused_qkv_attention(x, w, w, w, 8)
+    q = torch.zeros(1, 16, 2, 48, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim in"):
+        tfa.flash_attention(q, q, q, layout="bh")
+    assert fake_cuda.calls == []
+
+
+# --- the tier predicate -------------------------------------------------------
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+
+@settings(max_examples=300, deadline=None)
+@given(C=st.integers(1, 4096), H=st.integers(1, 160),
+       D=st.sampled_from([8, 16, 32, 40, 48, 64, 80, 96, 128, 160, 192, 256]))
+def test_tier_predicate_matches_jax_geometry(C, H, D):
+    """``fused_feasible`` is the JAX ``_fused_feasible`` without its VMEM
+    budget (it returns blocks or None; the budget only shrinks blocks
+    here, so None means the geometry failed), and ``select_kernel``
+    sends a CUDA self-attention site to the fused tier only there, every
+    other site by ``_packed_legal``."""
+    jax_fused = jfa._fused_feasible(C, H, D, 128, 128, 2)
+    geometric = (H * D % 128 == 0 and H <= 128 and D % 64 == 0
+                 and C % 128 == 0)
+    assert tattn.fused_feasible(C, H, D) == geometric
+    if jax_fused is not None:
+        assert geometric
+    packed = jfa._packed_legal(H, D)
+    assert tattn.packed_legal(H, D) == packed
+    cuda = torch.device("cuda")
+    kind = tattn.select_kernel(cuda, True, H, D, C)
+    assert kind == ("fused" if geometric else "packed" if packed else "bh")
+    assert tattn.select_kernel(cuda, False, H, D, C) == (
+        "packed" if packed else "bh")
+
+
+@pytest.mark.parametrize("C,H,D,kind", [
+    (320, 8, 40, "bh"),        # SD 1.5, level 1
+    (640, 8, 80, "bh"),        # SD 1.5, level 2
+    (1280, 8, 160, "bh"),      # SD 1.5, level 3
+    (640, 10, 64, "fused"),    # SDXL, level 2
+    (1280, 20, 64, "fused"),   # SDXL, level 3
+    (768, 12, 64, "fused"),    # the text encoder
+    (32, 2, 16, "bh"),         # the tiny preset
+])
+def test_self_attention_sites_of_the_presets(C, H, D, kind):
+    jax_fused = jfa._fused_feasible(C, H, D, 128, 128, 2) is not None
+    assert tattn.fused_feasible(C, H, D) == (kind == "fused")
+    if kind == "fused":
+        assert jax_fused
+    assert tattn.select_kernel(torch.device("cuda"), True, H, D, C) == kind
+
+
+def test_unfusable_self_attention_projects_and_takes_full_attention(
+        monkeypatch):
+    """An SD 1.5 self-attention site projects q/k/v with its own Linears
+    and calls ``full_attention`` (as the JAX ``Attention`` takes ``Dense``
+    then ``full_attention``); a fusable one hands the weights over."""
+    from comfyui_distributed_tpu_torch.models import layers
+
+    calls = []
+    monkeypatch.setattr(layers, "full_attention",
+                        lambda q, k, v: calls.append(("full", q.shape)) or
+                        tfa.flash_attention_plain(q, k, v))
+    monkeypatch.setattr(layers, "self_attention",
+                        lambda x, wq, wk, wv, h: calls.append(("fused", x.shape))
+                        or tfa.fused_qkv_attention_plain(x, wq, wk, wv, h))
+    x = torch.randn(1, 6, 320)
+    attn = layers.Attention(320, 8, 40, torch.float32)
+    out = attn(x)
+    assert calls == [("full", (1, 6, 8, 40))]
+    ref = tfa.flash_attention_plain(*(lin(x).view(1, 6, 8, 40) for lin in (
+        attn.to_q, attn.to_k, attn.to_v)))
+    assert torch.allclose(out, attn.to_out(ref.reshape(1, 6, 320)), atol=1e-6)
+    calls.clear()
+    layers.Attention(640, 10, 64, torch.float32)(torch.randn(1, 6, 640))
+    assert calls == [("fused", (1, 6, 640))]

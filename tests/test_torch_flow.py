@@ -26,6 +26,7 @@ from comfyui_distributed_tpu.models import text as jtext  # noqa: E402
 from comfyui_distributed_tpu.models import vae as jvae  # noqa: E402
 from comfyui_distributed_tpu.parallel import build_mesh  # noqa: E402
 from comfyui_distributed_tpu_torch.diffusion import pipeline_flow as tflow  # noqa: E402
+from comfyui_distributed_tpu_torch.diffusion import samplers as tsamp  # noqa: E402
 from comfyui_distributed_tpu_torch.diffusion import schedules as tsched  # noqa: E402
 from comfyui_distributed_tpu_torch.models import dit as tdit  # noqa: E402
 from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
@@ -112,13 +113,47 @@ def test_flux_tiny_generate_is_seeded(tiny_flow_pair):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
+@pytest.mark.parametrize("sampler", sorted(tsamp.PROGRAMS))
+def test_flux_tiny_pipeline_matches_jax_with_every_sampler(tiny_flow_pair,
+                                                           sampler):
+    """Each of the 14 samplers through both flow pipelines: the JAX dp
+    path draws the initial noise and the sampler's draws from one key
+    (``normal(key)``, ``normal(fold_in(key, j))``), both handed to the
+    port."""
+    jp, tp, ctx, pooled = tiny_flow_pair
+    spec = dict(height=16, width=16, steps=3, shift=3.0, sampler=sampler)
+    seed = 6
+    ref = np.asarray(jp.generate(build_mesh({"dp": 1}), jflow.FlowSpec(**spec),
+                                 seed, ctx, pooled))
+    key = jax.random.fold_in(jax.random.key(seed), 0)
+    noise = np.array(jax.random.normal(key, (1, 8, 8, 4), jnp.float32))
+
+    def draws(j, shape):
+        return torch.from_numpy(np.array(jax.random.normal(
+            jax.random.fold_in(key, j), tuple(shape), jnp.float32)))
+
+    out = tp.sample_and_decode(torch.from_numpy(noise), tflow.FlowSpec(**spec),
+                               torch.from_numpy(ctx), torch.from_numpy(pooled),
+                               sampler_noise=draws)
+    assert out.shape == ref.shape == (1, 16, 16, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("spec,match", [
     (dict(cfg=4.0), "CFG"), (dict(sampler="heun"), "heun")])
 def test_flow_pipeline_rejects_unported(tiny_flow_pair, spec, match):
+    """True CFG is refused; heun, refused before the port's samplers,
+    runs."""
     _, tp, ctx, pooled = tiny_flow_pair
-    with pytest.raises(NotImplementedError, match=match):
-        tp.generate(tflow.FlowSpec(height=16, width=16, steps=1, **spec), 0,
-                    torch.from_numpy(ctx), torch.from_numpy(pooled))
+    fspec = tflow.FlowSpec(height=16, width=16, steps=2, **spec)
+    args = (0, torch.from_numpy(ctx), torch.from_numpy(pooled))
+    if match == "CFG":
+        with pytest.raises(NotImplementedError, match=match):
+            tp.generate(fspec, *args)
+        return
+    images = tp.generate(fspec, *args)
+    assert tuple(images.shape) == (1, 16, 16, 3)
+    assert torch.isfinite(images).all()
 
 
 def _workflow(**sampler):

@@ -67,8 +67,12 @@ def test_unknown_scheduler_and_sampler_raise():
     with pytest.raises(ValueError, match="scheduler"):
         tpipe.make_sigma_ladder(tpipe.GenerationSpec(scheduler="bogus"),
                                 tsched.vp_schedule())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsamp.sample("heun", lambda x, s: x, torch.zeros(1), torch.ones(2))
+    # heun is ported now: it runs; an unknown name raises ValueError
+    out = tsamp.sample("heun", lambda x, s: x * 0.5, torch.ones(1),
+                       torch.tensor([2.0, 1.0, 0.0]))
+    assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown sampler 'bogus'"):
+        tsamp.sample("bogus", lambda x, s: x, torch.zeros(1), torch.ones(2))
 
 
 def test_sdxl_adm_matches_jax():
@@ -202,8 +206,15 @@ def test_workflow_rejects_unported_sampler(tmp_path):
 
     ex = GraphExecutor({"model_registry": ModelRegistry("cpu"),
                         "output_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ex.execute(_workflow(width=16, height=16, steps=1, sampler_name="heun"))
+    # heun, refused before the samplers were ported, runs; a name no
+    # sampler has fails the prompt
+    images = ex.execute(_workflow(width=16, height=16, steps=2,
+                                  sampler_name="heun"))["6"][0]
+    assert tuple(images.shape) == (1, 16, 16, 3)
+    assert torch.isfinite(images).all()
+    with pytest.raises(Exception, match="unknown sampler 'bogus'"):
+        ex.execute(_workflow(width=16, height=16, steps=1,
+                             sampler_name="bogus"))
 
 
 def test_adm_vector_is_padded_pooled_text():
