@@ -153,17 +153,57 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    hint from its own graph, the master's PNG must be bitwise equal to the
    direct image, and the master's launches must be the text encoder's 8
    K1 plus 294 K3 per chunk it ran itself.
-15. flux path — the FLUX preset at full width (11.9 B parameters, random
+15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
+   size (49 408 entries, ``<|endoftext|>`` 49 407) under
+   ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
+   published CLIP stack (``build_clip_stack``: CLIP-L 123 M, OpenCLIP-G
+   695 M parameters), random from seed 11 and rounded through fp16 once;
+   ``sdxl.safetensors`` in F16 in the LDM single-file layout
+   (``model.diffusion_model.*``, ``first_stage_model.*``,
+   ``conditioner.embedders.0.transformer.text_model.*``,
+   ``conditioner.embedders.1.model.*``) from the converter's own walks
+   inverted. Prints the bytes and seconds. The source bundle's seed-7
+   request of ``workflows/distributed-txt2img.json`` is kept.
+16. checkpoint sdxl: run from the file — the source released, a fresh
+   ``ModelRegistry`` with ``checkpoint_root`` converts the file on its
+   first ``get("sdxl")`` (seconds and peak memory printed); every
+   converted parameter bitwise equal to the source's; the workflow
+   unchanged at seeds 7, 8, 7: the seed-7 image bitwise equal to the
+   source bundle's, the repeat equal, seed 8 different, tokenizer mode
+   ``bpe``, exactly 2100 K1 and 2100 K2 launches a request (the CLIP stack
+   launches none).
+17. LoRA — a synthetic kohya SDXL LoRA (rank 8, alpha 8) over every UNet
+   attention projection, ``ff`` and ``proj_in``/``proj_out`` and every
+   CLIP-L/G attention and MLP Linear (``lora_te1_``/``lora_te2_``), under
+   ``CDT_LORA_DIR``; ``CheckpointLoader`` → ``LoraLoader`` → two
+   ``CLIPTextEncode`` → ``TPUTxt2Img`` at 1024²: 722 UNet and 264
+   text-encoder tensors merged, none unmatched; the image differs from
+   the base, its repeat is equal, strength 0/0 gives the base image, the
+   base bundle's next image is the base image, 2100/2100 launches a
+   request; one merged UNet forward at a 512² latent within
+   5e-2·max|plain| of the plain attention versions.
+18. checkpoint sd15 — an ``sd15`` source bundle (seed 11, CLIP-L under
+   ``cond_stage_model.transformer.``) written in F16, converted by
+   ``python -m comfyui_distributed_tpu_torch convert --preset sd15`` in a
+   subprocess on the card, restored through a registry whose
+   ``checkpoint_root`` holds the output (manifest ``arch`` checked):
+   parameters bitwise equal to the source's, one request (euler, 8 steps,
+   512²) bitwise equal to the source's, 0 K1 and 240 K3 launches.
+19. checkpoint files — an ``esrgan-x4`` RRDBNet file and an ``sd15``
+   ControlNet file (F16) through ``UpscaleModelLoader`` and
+   ``ControlNetLoader``: parameters bitwise equal to the source modules',
+   one forward of each bitwise equal to theirs.
+20. flux path — the FLUX preset at full width (11.9 B parameters, random
    weights from seed 0) runs ``workflows/flux-txt2img.json`` unchanged as
    three requests (seed 1234, 1235, 1234) with the same checks; every
    joint-attention site takes the one-head kernel. Then one direct
    request at 1024² with dpmpp_2m at 8 steps: finite, in [0,1], exactly 4
    K1 and 8 × 57 K3 launches.
-16. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
+21. flux reference — the same DiT at a 512² image (1024 + 77 tokens),
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
-17. flux serve — the direct FLUX bundle is dropped (the card's
+22. flux serve — the direct FLUX bundle is dropped (the card's
    allocated memory is printed), then ``workflows/flux-txt2img.json`` is
    served: a master ``Controller`` in this process and a fresh worker
    subprocess each build ``flux``, both under one ``CDT_AUTH_TOKEN``, the
@@ -196,8 +236,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -2084,7 +2126,450 @@ def serve_cn_tile(torch, fa, base: str, master_out: Path, cn_tile: CnTileRun,
         "bitwise equal to the direct run")
 
 
-# --- phase 17 ----------------------------------------------------------------
+# --- phases 15 to 19 ---------------------------------------------------------
+
+DEVICE = "cuda"
+CKPT_SEED = 11               # the source bundles' seed (not the registry's 0)
+CKPT_HW = 1024               # the txt2img workflow's size
+VOCAB_SIZE = 49408           # CLIP's: <|startoftext|> 49406, <|endoftext|> 49407
+LORA_NAME = "synthetic-sdxl"
+LORA_RANK, LORA_ALPHA = 8, 8.0
+LORA_UP_STD = 0.1 / LORA_RANK ** 0.5   # ΔW about a tenth of W
+# per SDXL request from a checkpoint: the CLIP stack launches nothing, so
+# K1 and K2 are the UNet's 70 sites × 30 calls (60 at 1024 tokens)
+CKPT_SDXL = ({"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES[:2]),
+              "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),
+              "flash_attention_bh": 0},
+             cuda_counts(FUSED_SHAPES[:2], PACKED_SHAPES))
+# 70 transformer blocks × (attn1, attn2: 4 each; ff: 2) + 11 × proj_in/out
+LORA_UNET_TENSORS = 70 * 10 + 11 * 2
+LORA_TE_TENSORS = (12 + 32) * 6      # q/k/v/out_proj, fc1, fc2 a layer
+CKPT_SD15_SEED = 5
+CKPT_SD15 = k3_counts(SD15_STEPS, SD15_SHAPES, text_prompts=0)
+
+
+def source_bundle(torch, preset: str):
+    """A ``preset`` bundle at full width with its CLIP stack, random from
+    ``CKPT_SEED`` and rounded through fp16 once (so an F16 file holds it
+    exactly); returns (bundle, host copy of every parameter)."""
+    from comfyui_distributed_tpu_torch.models.registry import (PRESETS,
+                                                               ModelBundle)
+
+    bundle = ModelBundle(PRESETS[preset], DEVICE, seed=CKPT_SEED)
+    bundle.build_clip_stack()
+    return bundle, round_fp16(torch, {
+        f"{entry}.{name}": p for entry, module in bundle._state_entries().items()
+        for name, p in module.named_parameters()})
+
+
+def round_fp16(torch, params: dict) -> dict:
+    """Round each parameter through fp16 in place; its host copy."""
+    with torch.no_grad():
+        for p in params.values():
+            p.copy_(p.to(torch.float16).to(p.dtype))
+    return {k: p.detach().cpu() for k, p in params.items()}
+
+
+def require_params_equal(torch, what: str, params: dict, host: dict) -> None:
+    require(set(params) == set(host),
+            f"{what}: parameter names differ: {sorted(set(params) ^ set(host))[:4]}")
+    bad = [k for k, p in params.items() if not torch.equal(p.detach().cpu(), host[k])]
+    require(not bad, f"{what}: {len(bad)} parameters differ, e.g. {bad[:4]}")
+    say(f"  {what}: all {len(params)} parameters "
+        f"({sum(t.numel() for t in host.values())} values) bitwise equal to "
+        f"the source's")
+
+
+def bundle_params(bundle) -> dict:
+    return {f"{entry}.{name}": p
+            for entry, module in bundle._state_entries().items()
+            for name, p in module.named_parameters()}
+
+
+def write_vocab(directory: Path) -> None:
+    """A synthetic CLIP BPE vocabulary at CLIP's size: the 512 byte units
+    (bare and with ``</w>``), merges that build the workflows' words,
+    filler merges up to 49 406 entries, then the two specials."""
+    from comfyui_distributed_tpu_torch.models.tokenizer import (
+        EOT, SOT, bytes_to_unicode)
+
+    units = list(bytes_to_unicode().values())
+    vocab = {u: i for i, u in enumerate(units + [u + "</w>" for u in units])}
+    merges = []
+
+    def add(a: str, b: str) -> None:
+        if a + b not in vocab and len(vocab) < VOCAB_SIZE - 2:
+            merges.append((a, b))
+            vocab[a + b] = len(vocab)
+
+    words = ("a cinematic photo of lighthouse at dawn crashing waves blurry low "
+             "quality watermark on cliff dusk oil painting").split()
+    for w in words:
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            add(parts[0], parts[1])
+            parts = [parts[0] + parts[1]] + parts[2:]
+    for a in units:
+        for b in units:
+            add(a, b + "</w>")
+    vocab[SOT], vocab[EOT] = VOCAB_SIZE - 2, VOCAB_SIZE - 1
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "vocab.json").write_text(json.dumps(vocab))
+    (directory / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_checkpoint(torch, bundle, path: Path) -> float:
+    """``bundle`` in the published single-file layout, F16; seconds."""
+    from comfyui_distributed_tpu_torch.models.convert import export_checkpoint
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    t0 = time.perf_counter()
+    nbytes = save_file(export_checkpoint(bundle), path, dtype=torch.float16)
+    secs = time.perf_counter() - t0
+    say(f"  wrote {path.name}: {nbytes / 1e9:.3f} GB in {secs:.2f} s "
+        f"({nbytes / 1e9 / secs:.2f} GB/s)")
+    return secs
+
+
+class CkptRun(NamedTuple):
+    registry: object        # file-backed, holding the converted sdxl bundle
+    image: object           # the seed-7 image from the file
+    launches: dict
+
+
+def adopt(registry, name: str, bundle) -> None:
+    """Serve ``bundle`` under ``name`` from ``registry`` (the source
+    bundles of these phases are built outside any registry)."""
+    registry._cache[name] = bundle
+
+
+def ckpt_sdxl_phase(torch, fa, tmp: Path) -> CkptRun:
+    """Phases 15 and 16: write ``sdxl.safetensors`` from a source bundle and
+    a CLIP vocabulary, then run ``workflows/distributed-txt2img.json`` from
+    the file on a fresh registry."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    say("checkpoint sdxl: write")
+    t0 = time.perf_counter()
+    write_vocab(tmp / "tokenizer")
+    os.environ["CDT_TOKENIZER_DIR"] = str(tmp / "tokenizer")
+    say(f"  vocabulary: {VOCAB_SIZE} entries in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    source, host = source_bundle(torch, "sdxl")
+    torch.cuda.synchronize()
+    parts = {entry: sum(p.numel() for p in m.parameters())
+             for entry, m in source._state_entries().items()}
+    say(f"  source bundle (seed {CKPT_SEED}) built and rounded through fp16 "
+        f"in {time.perf_counter() - t0:.2f} s: {parts}")
+    write_checkpoint(torch, source, tmp / "sdxl.safetensors")
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+    hw = (CKPT_HW, CKPT_HW)
+
+    def request(executor, seed: int, what: str):
+        prompt = json.loads(json.dumps(workflow))
+        prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
+        return run_counted(torch, fa, executor, prompt, SDXL_PATH.image_node,
+                           CKPT_SDXL, what, hw)
+
+    src_registry = ModelRegistry(DEVICE, seed=0)
+    adopt(src_registry, "sdxl", source)
+    require(source.text_encoder.tokenization_mode == "bpe",
+            "the source stack did not load the vocabulary")
+    # (the request's node outputs, which hold the bundle, are dropped)
+    ref, secs = request(GraphExecutor({"model_registry": src_registry,
+                                       "output_dir": str(tmp / "out")}),
+                        7, "sdxl source seed 7")[:2]
+    say(f"  source seed-7 request: {secs:.3f} s")
+    ref = ref.cpu()
+    del source, src_registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  source released: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        "allocated")
+
+    say("checkpoint sdxl: convert and run from the file")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=tmp)
+    t0 = time.perf_counter()
+    bundle = registry.get("sdxl")
+    torch.cuda.synchronize()
+    say(f"  converted sdxl.safetensors in {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB ({(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB "
+        f"held)")
+    require_params_equal(torch, "converted sdxl", bundle_params(bundle), host)
+    del host
+    mode = bundle.text_encoder.tokenization_mode
+    require(mode == "bpe", f"tokenization mode {mode}")
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OUTPUT_DIR / "ckpt")})
+    fa.reset_launches()
+    images, seconds = [], []
+    for seed in SDXL_PATH.seeds:
+        img, secs, _ = request(executor, seed, f"sdxl from file seed {seed}")
+        images.append(img)
+        seconds.append(secs)
+    launches = dict(fa.LAUNCHES)
+    require(torch.equal(images[0].cpu(), ref),
+            "the seed-7 image from the file differs from the source's")
+    require(torch.equal(images[0], images[2]), "seed 7 twice differs")
+    require(not torch.equal(images[0], images[1]), "seeds 7 and 8 gave one image")
+    say(f"  requests {[round(s, 3) for s in seconds]} s; launches "
+        f"{CKPT_SDXL[0]} a request (CUDA {CKPT_SDXL[1]}); tokenizer {mode}; "
+        f"seed 7 bitwise equal to the source bundle's, repeatable; seed 8 "
+        f"differs; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return CkptRun(registry, images[0], launches)
+
+
+def write_lora(torch, bundle, path: Path) -> None:
+    """A kohya SDXL LoRA (rank 8, alpha 8) over every UNet attention
+    projection, ``ff`` and ``proj_in``/``proj_out``, and every CLIP-L and
+    CLIP-G attention and MLP Linear (``lora_te1_``/``lora_te2_``), written
+    from the converter's own records."""
+    from comfyui_distributed_tpu_torch.models.convert import linear_proj_of
+    from comfyui_distributed_tpu_torch.models.lora import (clip_hf_records,
+                                                           unet_records)
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    dev = bundle.device
+    gen = torch.Generator(device=dev).manual_seed(CKPT_SEED)
+    cfg = bundle.preset.unet
+    sites = [(r, "lora_unet_", "model.diffusion_model.", bundle.core)
+             for r in unet_records(cfg, linear_proj_of(cfg))
+             if r[0].endswith(".weight") and any(
+                 s in r[0] for s in (".to_q.", ".to_k.", ".to_v.",
+                                     ".to_out.0.", ".ff.net.", ".proj_in.",
+                                     ".proj_out."))]
+    for prefix, enc in (("lora_te1_", bundle.clip_stack.clip_l),
+                        ("lora_te2_", bundle.clip_stack.clip_g)):
+        sites += [(r, prefix + "text_model_", "text_model.", enc)
+                  for r in clip_hf_records(enc.config)
+                  if r[0].endswith(".weight") and ("_proj." in r[0]
+                                                   or ".mlp." in r[0])]
+    out = {}
+    for (src, dst, _), prefix, conv_prefix, module in sites:
+        w = module.get_parameter(dst)
+        n_out, n_in = w.shape[0], w[0].numel()
+        key = prefix + src[len(conv_prefix):-len(".weight")].replace(".", "_")
+        out[f"{key}.lora_down.weight"] = torch.randn(
+            LORA_RANK, n_in, generator=gen, device=dev) / n_in ** 0.5
+        out[f"{key}.lora_up.weight"] = torch.randn(
+            n_out, LORA_RANK, generator=gen, device=dev) * LORA_UP_STD
+        out[f"{key}.alpha"] = torch.tensor(LORA_ALPHA)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_file(out, path, dtype=torch.float16)
+    say(f"  wrote {path.name}: {len(sites)} LoRA pairs "
+        f"({path.stat().st_size / 1e6:.1f} MB)")
+
+
+def lora_workflow(seed: int, strength_model: float, strength_clip: float,
+                  lora: bool = True) -> dict:
+    """``CheckpointLoader sdxl`` → ``LoraLoader`` → two ``CLIPTextEncode``
+    → ``TPUTxt2Img`` at 1024² (the txt2img workflow's spec)."""
+    model, clip = (["9", 0], ["9", 1]) if lora else (["1", 0], ["1", 1])
+    prompt = {
+        "1": {"class_type": "CheckpointLoader", "inputs": {"ckpt_name": "sdxl"}},
+        "2": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "a cinematic photo of a lighthouse at dawn, crashing waves",
+            "clip": clip}},
+        "3": {"class_type": "CLIPTextEncode", "inputs": {
+            "text": "blurry, low quality, watermark", "clip": clip}},
+        "5": {"class_type": "TPUTxt2Img", "inputs": {
+            "model": model, "positive": ["2", 0], "negative": ["3", 0],
+            "seed": seed, "steps": STEPS, "cfg": 6.0, "width": CKPT_HW,
+            "height": CKPT_HW, "sampler_name": "euler", "scheduler": "karras"}},
+    }
+    if lora:
+        prompt["9"] = {"class_type": "LoraLoader", "inputs": {
+            "model": ["1", 0], "clip": ["1", 1], "lora_name": LORA_NAME,
+            "strength_model": strength_model, "strength_clip": strength_clip}}
+    return prompt
+
+
+def ckpt_lora_phase(torch, fa, ckpt: CkptRun, tmp: Path) -> dict:
+    """Phase 17: a synthetic LoRA through ``LoraLoader`` on the converted
+    bundle: it changes the image, strength 0/0 is the base image, the
+    base bundle is untouched, the launches are the base request's, and a
+    merged UNet forward holds against the plain attention versions."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.node import get_node
+
+    say("checkpoint sdxl: LoRA")
+    bundle = ckpt.registry.get("sdxl")
+    write_lora(torch, bundle, tmp / "loras" / f"{LORA_NAME}.safetensors")
+    os.environ["CDT_LORA_DIR"] = str(tmp / "loras")
+    base_params = {k: p for k, p in bundle_params(bundle).items()}
+    executor = GraphExecutor({"model_registry": ckpt.registry,
+                              "output_dir": str(OUTPUT_DIR / "ckpt")})
+    hw = (CKPT_HW, CKPT_HW)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    lora_img, secs, out = run_counted(torch, fa, executor,
+                                      lora_workflow(7, 1.0, 1.0), "5",
+                                      CKPT_SDXL, "LoRA at 1/1", hw)
+    patched = out["9"][0]
+    say(f"  LoRA request (merge included): {secs:.3f} s; merged "
+        f"{patched.lora_merged} (UNet, text-encoder tensors, keys unmatched)")
+    require(patched.lora_merged == (LORA_UNET_TENSORS, LORA_TE_TENSORS, 0),
+            f"merged {patched.lora_merged}, expected "
+            f"{(LORA_UNET_TENSORS, LORA_TE_TENSORS, 0)}")
+    require(not torch.equal(lora_img, ckpt.image), "the LoRA changed nothing")
+    again, secs2, _ = run_counted(torch, fa, executor,
+                                  lora_workflow(7, 1.0, 1.0), "5", CKPT_SDXL,
+                                  "LoRA at 1/1 again (cached merge)", hw)
+    require(torch.equal(again, lora_img), "the LoRA image is not repeatable")
+    zero, _, out0 = run_counted(torch, fa, executor, lora_workflow(7, 0.0, 0.0),
+                                "5", CKPT_SDXL, "LoRA at 0/0", hw)
+    require(out0["9"][0] is bundle, "strength 0/0 did not return the base model")
+    require(torch.equal(zero, ckpt.image), "strength 0/0 changed the image")
+    base, _, _ = run_counted(torch, fa, executor,
+                             lora_workflow(7, 1.0, 1.0, lora=False), "5",
+                             CKPT_SDXL, "base after the LoRA", hw)
+    require(torch.equal(base, ckpt.image),
+            "the base bundle's image changed after the LoRA")
+    require(all(p is base_params[k] for k, p in bundle_params(bundle).items()),
+            "the base bundle's parameters were replaced")
+    say(f"  LoRA image differs from the base; cached repeat {secs2:.3f} s, "
+        f"bitwise equal; strength 0/0 and the base bundle's next image "
+        f"bitwise the base image; launches {CKPT_SDXL[0]} a request")
+    launches = dict(fa.LAUNCHES)
+    # one merged UNet forward at a 512² latent, kernels vs plain attention
+    unet = patched.pipeline.unet
+    cfg = unet.config
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(2, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    ctx, pooled = patched.text_encoder.encode(["a lighthouse", ""])
+    y = torch.nn.functional.pad(pooled, (0, cfg.adm_in_channels - pooled.shape[-1]))
+    with torch.no_grad():
+        eps = unet(x, t, ctx, y)
+        sa, fu = plain_attention_patches(fa)
+        with sa, fu:
+            ref = unet(x, t, ctx, y)
+    compare_whole(torch, "LoRA-merged UNet eps at 512²", eps, ref)
+    get_node("LoraLoader")._cache.clear()
+    return launches
+
+
+def ckpt_sd15_phase(torch, fa, tmp: Path) -> dict:
+    """Phase 18: an sd15 file converted by ``python -m
+    comfyui_distributed_tpu_torch convert`` in a subprocess on the card,
+    restored through a registry and run."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import (MANIFEST,
+                                                               ModelRegistry)
+
+    say("checkpoint sd15: write, convert, restore")
+    source, host = source_bundle(torch, "sd15")
+    write_checkpoint(torch, source, tmp / "sd15.safetensors")
+    src_registry = ModelRegistry(DEVICE, seed=0)
+    adopt(src_registry, "sd15", source)
+    hw = (SD15_HW, SD15_HW)
+    workflow = sd15_workflow("euler", CKPT_SD15_SEED)
+    ref = run_counted(
+        torch, fa, GraphExecutor({"model_registry": src_registry,
+                                  "output_dir": str(tmp / "out")}),
+        workflow, "4", CKPT_SD15, "sd15 source", hw)[0].cpu()
+    del source, src_registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  source released: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        "allocated")
+    out_dir = tmp / "root15" / "sd15"
+    cmd = [sys.executable, "-m", "comfyui_distributed_tpu_torch", "convert",
+           "--preset", "sd15", "--checkpoint", str(tmp / "sd15.safetensors"),
+           "--out", str(out_dir), "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"convert exited {proc.returncode}")
+    say(f"  convert subprocess: {secs:.2f} s (process start included); "
+        f"{proc.stdout.strip().splitlines()[-1]}")
+    manifest = json.loads((out_dir / MANIFEST).read_text())
+    require(manifest["arch"] == {"kind": "unet"} and manifest["format"] == "torch",
+            f"manifest {manifest}")
+    registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=out_dir.parent)
+    t0 = time.perf_counter()
+    bundle = registry.get("sd15")
+    torch.cuda.synchronize()
+    say(f"  restored {out_dir} in {time.perf_counter() - t0:.2f} s "
+        f"({(out_dir / 'state.pt').stat().st_size / 1e9:.3f} GB); manifest "
+        f"{manifest}")
+    require_params_equal(torch, "restored sd15", bundle_params(bundle), host)
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OUTPUT_DIR / "ckpt")})
+    fa.reset_launches()
+    img, secs, _ = run_counted(torch, fa, executor, workflow, "4", CKPT_SD15,
+                               "sd15 restored", hw)
+    require(torch.equal(img.cpu(), ref),
+            "the restored sd15 image differs from the source's")
+    say(f"  restored request: {secs:.3f} s, bitwise equal to the source's; "
+        f"launches {CKPT_SD15[0]} (CUDA {CKPT_SD15[1]})")
+    return dict(fa.LAUNCHES)
+
+
+def ckpt_models_phase(torch, tmp: Path) -> None:
+    """Phase 19: an ``esrgan-x4`` RRDBNet file and an sd15 ControlNet file
+    through ``UpscaleModelLoader`` and ``ControlNetLoader``."""
+    from comfyui_distributed_tpu_torch.graph.node import get_node
+    from comfyui_distributed_tpu_torch.models.controlnet import init_controlnet
+    from comfyui_distributed_tpu_torch.models.convert import (
+        export_controlnet, export_upscaler)
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+    from comfyui_distributed_tpu_torch.models.unet import UNetConfig
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    say("checkpoint files: upscaler and ControlNet")
+    dev = torch.device(DEVICE)
+    esrgan = ModelRegistry(dev, seed=CKPT_SEED).get_upscaler("esrgan-x4").model
+    cn = init_controlnet(UNetConfig.sd15(), dev, CKPT_SEED, name="src").model
+    hosts = {}
+    for what, module, export, sub in (
+            ("upscaler", esrgan, export_upscaler, "upscalers"),
+            ("controlnet", cn, export_controlnet, "controlnet")):
+        hosts[what] = round_fp16(torch, dict(module.named_parameters()))
+        (tmp / sub).mkdir(parents=True, exist_ok=True)
+        save_file(export(module), tmp / sub / "synthetic.safetensors",
+                  dtype=torch.float16)
+    registry = ModelRegistry(dev, seed=0, checkpoint_root=tmp)
+    (up,) = get_node("UpscaleModelLoader")().execute(
+        "synthetic", model_registry=registry)
+    (cnb,) = get_node("ControlNetLoader")().execute(
+        "synthetic", model_registry=registry)
+    require_params_equal(torch, "upscaler from file",
+                         dict(up.model.named_parameters()), hosts["upscaler"])
+    require_params_equal(torch, "controlnet from file",
+                         dict(cnb.model.named_parameters()), hosts["controlnet"])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    image = torch.rand(1, 64, 64, 3, generator=gen, device=dev)
+    x = torch.randn(2, 64, 64, 4, generator=gen, device=dev)
+    t = torch.tensor([300.0, 300.0], device=dev)
+    ctx = torch.randn(2, 77, 768, generator=gen, device=dev)
+    hint = torch.rand(2, 512, 512, 3, generator=gen, device=dev)
+    with torch.no_grad():
+        require(torch.equal(up.model(image), esrgan(image)),
+                "the upscaler from the file computes other values")
+        down, mid = cnb.model(x, t, ctx, None, hint)
+        sdown, smid = cn(x, t, ctx, None, hint)
+    require(all(torch.equal(a, b) for a, b in zip(down + [mid], sdown + [smid])),
+            "the ControlNet from the file computes other residuals")
+    say(f"  upscaler x{up.scale} and ControlNet ({cnb.model.config.context_dim}"
+        f"-ctx) forwards bitwise equal to the source modules'")
+
+
+# --- phase 22 ----------------------------------------------------------------
 
 FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
 FLUX_FAULTS = "dispatch@1-9:http500"
@@ -2308,7 +2793,7 @@ def np_absdiff(a, b):
     return abs(a.astype("int16") - b.astype("int16"))
 
 
-# --- phases 5 and 16 ---------------------------------------------------------
+# --- phases 5 and 21 ---------------------------------------------------------
 
 
 def compare_whole(torch, what: str, out, ref) -> None:
@@ -2404,6 +2889,35 @@ def flux_reference_phase(torch, fa, bundle) -> None:
                   v, ref)
 
 
+def checkpoint_phases(torch, fa) -> dict:
+    """Phases 15 to 19 in one temporary directory, removed at the end;
+    returns their launches by path."""
+    tmp = Path(tempfile.mkdtemp(prefix="cdt_ckpt_"))
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        ckpt = ckpt_sdxl_phase(torch, fa, tmp)
+        launches["ckpt_sdxl"] = ckpt.launches
+        launches["ckpt_lora"] = ckpt_lora_phase(torch, fa, ckpt, tmp)
+        del ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+        (tmp / "sdxl.safetensors").unlink()
+        launches["ckpt_sd15"] = ckpt_sd15_phase(torch, fa, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt_models_phase(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for var in ("CDT_TOKENIZER_DIR", "CDT_LORA_DIR"):
+            os.environ.pop(var, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"checkpoint phases: {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return launches
+
+
 def main() -> int:
     if not (PACKAGE / "ops" / "csrc" / "flash_attention.cu").is_file():
         print(f"chip_smoke: {PACKAGE} not found beside this script",
@@ -2449,6 +2963,7 @@ def main() -> int:
             f"master's shutdown and the sdxl path's end")
         require(left < 2**30, "the SDXL bundle outlived the master's shutdown")
         torch.cuda.empty_cache()
+        path_launches.update(checkpoint_phases(torch, fa))
         flux = path_phase(torch, fa, FLUX_PATH)
         path_launches["flux"], timings = flux.launches, flux.timings
         path_launches["flux_dpmpp_2m"] = flux_sampler_phase(torch, fa,

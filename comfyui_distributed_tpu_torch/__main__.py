@@ -1,4 +1,4 @@
-"""CLI: ``python -m comfyui_distributed_tpu_torch serve``.
+"""CLI: ``python -m comfyui_distributed_tpu_torch serve|convert``.
 
     python -m comfyui_distributed_tpu_torch serve [--host H] [--port P]
         [--device cuda|cpu]
@@ -8,12 +8,21 @@ SIGTERM. The role comes from the environment (``CDT_IS_WORKER``,
 ``CDT_WORKER_ID``, ``CDT_CONFIG_PATH``, ``CDT_OUTPUT_DIR``). The models
 run on the CUDA card; without one, ``serve`` exits with status 2 unless
 it is given ``--device cpu``.
+
+    python -m comfyui_distributed_tpu_torch convert --preset sdxl|sd15
+        --checkpoint FILE.safetensors --out DIR [--vae FILE] [--device D]
+
+Converts a published single-file checkpoint (and optionally a standalone
+VAE) into the port's bundle format, ``DIR/state.pt`` and
+``DIR/cdt_manifest.json``; with ``DIR`` at ``<CDT_CHECKPOINT_ROOT>/<preset>``
+every controller restores it. Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import signal
 import sys
 
@@ -44,6 +53,40 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_convert(args: argparse.Namespace) -> int:
+    from pathlib import Path
+
+    from .models.registry import PRESETS, ModelBundle
+
+    flux = ("--t5 and --clip-l (FLUX's text encoders) are not ported yet "
+            "(ROADMAP.md, item A.7b)")
+    refused = {"t5": flux, "clip_l": flux,
+               "checkpoint_low": "--checkpoint-low (WAN 2.2's dual experts) "
+                                 "is not ported yet (ROADMAP.md, item 15)"}
+    for field, why in refused.items():
+        if getattr(args, field):
+            print(f"convert: {why}", file=sys.stderr)
+            return 2
+    preset = PRESETS.get(args.preset)
+    if preset is None or preset.clip is None:
+        have = sorted(k for k, p in PRESETS.items() if p.clip is not None)
+        print(f"convert: preset {args.preset!r} has no single-file "
+              f"checkpoint layout; have {have}", file=sys.stderr)
+        return 2
+    try:
+        bundle = ModelBundle(preset, device=args.device, empty_core=True)
+    except RuntimeError as e:          # no card and no --device cpu
+        print(f"convert: {e}", file=sys.stderr)
+        return 2
+    bundle.load_safetensors_checkpoint(Path(args.checkpoint))
+    if args.vae:
+        bundle.load_vae_file(Path(args.vae))
+    bundle.save_checkpoint(Path(args.out))
+    print(json.dumps({"preset": args.preset, "out": str(args.out),
+                      "entries": sorted(bundle._state_entries())}))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="comfyui_distributed_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -54,6 +97,24 @@ def main(argv: list[str] | None = None) -> int:
     serve.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="where the models run (default: cuda)")
     serve.set_defaults(fn=cmd_serve)
+    conv = sub.add_parser(
+        "convert", help="convert a single-file .safetensors checkpoint")
+    conv.add_argument("--checkpoint", required=True)
+    conv.add_argument("--preset", default="sdxl")
+    conv.add_argument("--out", required=True)
+    conv.add_argument("--vae", default=None,
+                      help="standalone VAE .safetensors (LDM-embedded, SD "
+                           "VAE or BFL ae layouts)")
+    conv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                      help="where the conversion runs (default: cuda)")
+    conv.add_argument("--t5", default=None,
+                      help="FLUX's T5 file: not ported yet (item A.7b)")
+    conv.add_argument("--clip-l", dest="clip_l", default=None,
+                      help="FLUX's CLIP-L file: not ported yet (item A.7b)")
+    conv.add_argument("--checkpoint-low", dest="checkpoint_low", default=None,
+                      help="WAN 2.2's low-noise expert: not ported yet "
+                           "(item 15)")
+    conv.set_defaults(fn=cmd_convert)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -4,7 +4,7 @@ of the upscale workflow (``workflows/distributed-upscale.json``:
 ``LoadImage``, ``UpscaleModelLoader``, ``ImageUpscaleWithModel``,
 ``UltimateSDUpscaleDistributed``), img2img, inpainting and ControlNet
 (``TPUImg2Img``, ``TPUInpaint``, ``ControlNetLoader``, ``ControlNetApply``)
-with the image, mask and latent nodes around them, and the two the
+with the image, mask and latent nodes around them, ``LoraLoader``, and the two the
 control plane injects (``DistributedEmptyImage``, ``PreviewImage``), with
 the JAX package's names and contracts.
 
@@ -182,8 +182,30 @@ def _registry(model_registry):
     return model_registry
 
 
+def _resolve_model_file(env_root, subdir: str, name: str,
+                        model_registry=None):
+    """A model file for a loader node: ``<env_root>/<name>.safetensors``
+    (``.safetensors`` appended unless given), where ``env_root`` is the
+    node's directory knob, falling back to ``<checkpoint root>/<subdir>``
+    (the registry's, else ``CDT_CHECKPOINT_ROOT``). Returns (path or
+    None, the directory searched)."""
+    ckpt_root = (model_registry.checkpoint_root if model_registry is not None
+                 else constants.checkpoint_root())
+    root = env_root or (str(Path(ckpt_root) / subdir) if ckpt_root else "")
+    if not root:
+        return None, ""
+    fname = name if name.endswith(".safetensors") else f"{name}.safetensors"
+    path = Path(root) / fname
+    return (path if path.is_file() else None), root
+
+
 @register_node("CheckpointLoader")
 class CheckpointLoader(NodeDef):
+    """A bundle by preset name from the registry: converted from
+    ``<checkpoint root>/<name>.safetensors`` or ``<name>/`` where one is
+    there, with the preset's CLIP stack as CLIP, else random-initialised
+    with the hash-tokenised text encoder."""
+
     INPUTS = {"ckpt_name": "STRING"}
     HIDDEN = {"model_registry": "*"}
     RETURNS = ("MODEL", "CLIP", "VAE")
@@ -201,6 +223,52 @@ class CLIPTextEncode(NodeDef):
     def execute(self, text: str, clip, **_):
         ctx, pooled = clip.encode([str(text)])
         return ({"context": ctx, "pooled": pooled},)
+
+
+@register_node("LoraLoader")
+class LoraLoader(NodeDef):
+    """Merge a kohya LoRA into copies of the model and its CLIP stack
+    (``models/lora.py``); the registry's bundle is never changed.
+    ``lora_name`` resolves under ``CDT_LORA_DIR`` (or ``<checkpoint
+    root>/loras``). The last 4 merges are kept, per (name, file, mtime,
+    strengths) and base model."""
+
+    INPUTS = {"model": "MODEL", "clip": "CLIP", "lora_name": "STRING"}
+    OPTIONAL = {"strength_model": "FLOAT", "strength_clip": "FLOAT"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = ("MODEL", "CLIP")
+
+    KEPT = 4
+    _cache: dict = {}
+
+    def execute(self, model, clip, lora_name: str,
+                strength_model: float = 1.0, strength_clip: float = 1.0,
+                model_registry=None, **_):
+        from ..models.lora import apply_lora, load_lora_file
+
+        if not strength_model and not strength_clip:
+            return (model, clip)
+        name = str(lora_name)
+        path, root = _resolve_model_file(constants.lora_dir(), "loras", name,
+                                         model_registry)
+        if path is None:
+            raise ValidationError(
+                f"LoRA {name!r} not found under {root or '$CDT_LORA_DIR'}",
+                field="lora_name")
+        key = (name, str(path), path.stat().st_mtime_ns,
+               float(strength_model), float(strength_clip))
+        cached = self._cache.get(key)
+        # a cached entry pins its base model and clip, so identity is safe
+        if cached is not None and cached[0] is model and cached[1] is clip:
+            return cached[2]
+        patched, conditioner = apply_lora(
+            model, load_lora_file(path), strength_model=float(strength_model),
+            strength_clip=float(strength_clip), name=name)
+        result = (patched, conditioner if conditioner is not None else clip)
+        if len(self._cache) >= self.KEPT:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[key] = (model, clip, result)
+        return result
 
 
 def _adm_from_cond(cond: dict, adm_channels: int,
@@ -350,27 +418,22 @@ class ImageScaleBy(NodeDef):
 
 @register_node("ControlNetLoader")
 class ControlNetLoader(NodeDef):
-    """A ControlNet by preset name (``tiny``, ``sd15``, ``sdxl``),
-    random-initialised from the registry's seed on its device and kept by
-    the registry. Loading a published ``.safetensors`` under
-    ``CDT_CONTROLNET_DIR`` is not ported yet."""
+    """A ControlNet: a published ``.safetensors`` under
+    ``CDT_CONTROLNET_DIR`` (or ``<checkpoint root>/controlnet``), its base
+    architecture (sd15 or sdxl) read from the file, or else a preset
+    name (``tiny``, ``sd15``, ``sdxl``) random-initialised from the
+    registry's seed; kept by the registry on its device."""
 
     INPUTS = {"control_net_name": "STRING"}
     HIDDEN = {"model_registry": "*"}
     RETURNS = ("CONTROL_NET",)
 
     def execute(self, control_net_name: str, model_registry=None, **_):
+        registry = _registry(model_registry)
         name = str(control_net_name)
-        root = constants.controlnet_dir()
-        if root:
-            fname = name if name.endswith(".safetensors") else f"{name}.safetensors"
-            if (Path(root) / fname).is_file():
-                raise NotImplementedError(
-                    f"control net {fname} found under {root}, but loading "
-                    ".safetensors checkpoints is not ported yet (ROADMAP.md, "
-                    "item A.7: LDM loading); remove it to use the "
-                    "random-init preset")
-        return (_registry(model_registry).get_controlnet(name),)
+        path, _ = _resolve_model_file(constants.controlnet_dir(),
+                                      "controlnet", name, registry)
+        return (registry.get_controlnet(name, path),)
 
 
 @register_node("ControlNetApply")
@@ -687,28 +750,22 @@ class LoadImage(NodeDef):
 
 @register_node("UpscaleModelLoader")
 class UpscaleModelLoader(NodeDef):
-    """An RRDBNet upscaler by preset name (``esrgan-x4``,
-    ``realesrgan-x2``, ``tiny-x2``, ``tiny-x4``), random-initialised from
-    the registry's seed on its device and kept by the registry. A
-    published ``.safetensors`` under ``CDT_UPSCALE_MODEL_DIR`` is refused:
-    loading one is not ported yet."""
+    """An RRDBNet upscaler: a published ``.safetensors`` under
+    ``CDT_UPSCALE_MODEL_DIR`` (or ``<checkpoint root>/upscalers``), either
+    ESRGAN layout, or else a preset name (``esrgan-x4``,
+    ``realesrgan-x2``, ``tiny-x2``, ``tiny-x4``) random-initialised from
+    the registry's seed; kept by the registry on its device."""
 
     INPUTS = {"model_name": "STRING"}
     HIDDEN = {"model_registry": "*"}
     RETURNS = ("UPSCALE_MODEL",)
 
     def execute(self, model_name: str, model_registry=None, **_):
+        registry = _registry(model_registry)
         name = str(model_name)
-        root = constants.upscale_model_dir()
-        if root:
-            fname = name if name.endswith(".safetensors") else f"{name}.safetensors"
-            if (Path(root) / fname).is_file():
-                raise NotImplementedError(
-                    f"upscale model {fname} found under {root}, but loading "
-                    ".safetensors checkpoints is not ported yet (ROADMAP.md, "
-                    "item A.7: LDM loading); remove it to use the "
-                    "random-init preset")
-        return (_registry(model_registry).get_upscaler(name),)
+        path, _ = _resolve_model_file(constants.upscale_model_dir(),
+                                      "upscalers", name, registry)
+        return (registry.get_upscaler(name, path),)
 
 
 @register_node("ImageUpscaleWithModel")

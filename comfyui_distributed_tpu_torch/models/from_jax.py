@@ -11,6 +11,11 @@ layout rules:
   ``q_scale``/``k_scale``) keep their name. The DiT's parameter-free
   LayerNorms have no leaf on either side.
 
+The CLIP towers of ``models/clip.py`` carry by the same rules
+(``tok_emb/embedding``, ``pos_emb``, ``layer_{i}/attn/q_proj/kernel``,
+``text_projection/kernel``; ``ModelBundle.load_from_jax(clip_l=,
+clip_g=)``).
+
 The tree is a nested mapping whose leaves are numpy arrays (or anything
 with ``.shape`` for the shape-only check, e.g. ``jax.ShapeDtypeStruct``);
 a top-level ``{"params": ...}`` wrapper is accepted. The carry raises on

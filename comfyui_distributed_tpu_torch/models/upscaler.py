@@ -5,8 +5,9 @@ The standard RRDBNet topology that published ESRGAN and Real-ESRGAN
 checkpoints map onto. Convolutions run in the config's dtype (bf16 for
 the presets) and the last one in fp32, as in the JAX model. ×2 and ×1
 checkpoints put a pixel-unshuffle stem (torch's channel order) in front
-of the 4× trunk. NHWC at the public boundary, NCHW inside. Random init
-only: loading published ``.safetensors`` weights is not ported yet.
+of the 4× trunk. NHWC at the public boundary, NCHW inside. Published
+``.safetensors`` weights (both ESRGAN layouts) load through
+``models/convert.load_upscaler_checkpoint``.
 """
 
 from __future__ import annotations

@@ -91,14 +91,34 @@ def input_dir() -> str:
     return _read("CDT_INPUT_DIR", "input", str)
 
 
+def checkpoint_root() -> Optional[str]:
+    """Root of model checkpoints: ``<root>/<name>.safetensors`` (an LDM
+    single file, converted on first load) or ``<root>/<name>/`` (a
+    converted bundle) for preset ``name``."""
+    return _read("CDT_CHECKPOINT_ROOT", None, str)
+
+
 def upscale_model_dir() -> Optional[str]:
-    """Directory of RRDBNet upscaler ``.safetensors`` files."""
+    """Directory of RRDBNet upscaler ``.safetensors`` files (falls back to
+    ``CDT_CHECKPOINT_ROOT/upscalers``)."""
     return _read("CDT_UPSCALE_MODEL_DIR", None, str)
 
 
 def controlnet_dir() -> Optional[str]:
-    """Directory of ControlNet ``.safetensors`` files."""
+    """Directory of ControlNet ``.safetensors`` files (falls back to
+    ``CDT_CHECKPOINT_ROOT/controlnet``)."""
     return _read("CDT_CONTROLNET_DIR", None, str)
+
+
+def lora_dir() -> Optional[str]:
+    """Directory of kohya LoRA ``.safetensors`` files (falls back to
+    ``CDT_CHECKPOINT_ROOT/loras``)."""
+    return _read("CDT_LORA_DIR", None, str)
+
+
+def tokenizer_dir() -> Optional[str]:
+    """CLIP BPE vocabulary directory (``vocab.json`` + ``merges.txt``)."""
+    return _read("CDT_TOKENIZER_DIR", None, str)
 
 
 def tile_journal_dir() -> str:

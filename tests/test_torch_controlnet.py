@@ -280,14 +280,17 @@ def test_controlnet_loader_presets(tmp_path, monkeypatch):
     assert w.dtype == torch.float32 and float(w.abs().max()) > 0
     std = float(w.float().std()) * (w[0].numel() ** 0.5)
     assert 0.5 * tcn.ZERO_CONV_SCALE < std < 1.5 * tcn.ZERO_CONV_SCALE
-    # sd15 builds now (UNetConfig.sd15 is ported); A.7 still raises below
     (sd,) = node.execute("sd15", model_registry=registry)
     assert sd.name == "sd15" and sd.model.config == tunet.UNetConfig.sd15()
     with pytest.raises(Exception, match="unknown control net"):
         node.execute("nope", model_registry=registry)
+    # a file found under CDT_CONTROLNET_DIR is loaded (a broken one
+    # raises), never silently replaced by the random-init preset
+    from comfyui_distributed_tpu_torch.utils.safetensors import SafetensorsError
+
     monkeypatch.setenv("CDT_CONTROLNET_DIR", str(tmp_path))
     (tmp_path / "tiny.safetensors").write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(SafetensorsError):
         node.execute("tiny", model_registry=registry)
 
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing any of its modules loads
 neither JAX, flax nor the JAX package, nor a package the card's machine
-is not promised (aiohttp, Pillow, websockets), and its entry points
+is not promised (aiohttp, Pillow, websockets, safetensors, transformers,
+regex), and its entry points
 refuse to run without a card unless the caller asks for the CPU."""
 
 import json
@@ -18,7 +19,7 @@ import comfyui_distributed_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL",
-             "websockets")
+             "websockets", "safetensors", "transformers", "regex")
 
 
 def _port_modules():
@@ -40,7 +41,12 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.utils.websocket",
             "comfyui_distributed_tpu_torch.models.controlnet",
             "comfyui_distributed_tpu_torch.cluster.media_sync",
-            "comfyui_distributed_tpu_torch.tiles.engine"} <= set(modules)
+            "comfyui_distributed_tpu_torch.tiles.engine",
+            "comfyui_distributed_tpu_torch.utils.safetensors",
+            "comfyui_distributed_tpu_torch.models.tokenizer",
+            "comfyui_distributed_tpu_torch.models.clip",
+            "comfyui_distributed_tpu_torch.models.convert",
+            "comfyui_distributed_tpu_torch.models.lora"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"

@@ -205,10 +205,13 @@ def test_upscale_loader_and_apply_nodes(monkeypatch, tmp_path):
     assert tuple(out.shape) == (1, 32, 32, 3)
     with pytest.raises(ValidationError, match="unknown upscale model"):
         loader.execute("nope-x9", model_registry=reg)
-    # a checkpoint file is refused, not silently replaced by random init
+    # a checkpoint file is loaded (a broken one raises), not silently
+    # replaced by random init
+    from comfyui_distributed_tpu_torch.utils.safetensors import SafetensorsError
+
     monkeypatch.setenv("CDT_UPSCALE_MODEL_DIR", str(tmp_path))
     (tmp_path / "tiny-x2.safetensors").write_bytes(b"\0" * 8)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(SafetensorsError):
         loader.execute("tiny-x2", model_registry=reg)
 
 
