@@ -33,12 +33,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    kernel that takes more than 128 keys) at the same shapes. Then K3 at
    SD 1.5's head widths 40, 80 and 160 (one-head layout only; the packed
    layout takes D 64 and 128): the sd15 path's shapes (batch 2 at 512²:
-   4096, 1024 and 256 tokens, self and against 77 keys), the ControlNet
+   4096, 1024 and 256 tokens, self and against 77 keys; a published
+   file's middle transformer at 64 tokens, D 160), the ControlNet
    tile upscale's (batch 8: 10816, 2704 and 676 tokens) and the tile
    edges (keys 1, 77, 128, 129; q rows 1, 64, 4173; B 1 and 2), each
    compared call after a poisoning call, the plain version taken one
    batch row at a time; timed beside the plain version and
    ``scaled_dot_product_attention``, the bound counted at the true D.
+   FLUX from its files (4608 tokens: T5's 512 context tokens) is compared
+   and timed beside the random-init FLUX shape (4173).
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
@@ -182,13 +185,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    base bundle's next image is the base image, 2100/2100 launches a
    request; one merged UNet forward at a 512² latent within
    5e-2·max|plain| of the plain attention versions.
-18. checkpoint sd15 — an ``sd15`` source bundle (seed 11, CLIP-L under
-   ``cond_stage_model.transformer.``) written in F16, converted by
-   ``python -m comfyui_distributed_tpu_torch convert --preset sd15`` in a
-   subprocess on the card, restored through a registry whose
-   ``checkpoint_root`` holds the output (manifest ``arch`` checked):
-   parameters bitwise equal to the source's, one request (euler, 8 steps,
-   512²) bitwise equal to the source's, 0 K1 and 240 K3 launches.
+18. checkpoint sd15 — an ``sd15`` source bundle in the published layout
+   (seed 11, CLIP-L under ``cond_stage_model.transformer.``, and the
+   middle transformer the preset lacks: 1280 channels, 8 heads of 160)
+   written in F16, converted by ``python -m comfyui_distributed_tpu_torch
+   convert --preset sd15`` in a subprocess on the card (the middle depth
+   read from the file), restored through a registry whose
+   ``checkpoint_root`` holds the output (manifest ``arch`` with
+   ``middle_depth`` 1 checked): parameters bitwise equal to the source's,
+   one request (euler, 8 steps, 512²) bitwise equal to the source's, 0 K1
+   and 8 × 32 = 256 K3 launches (the middle adds 2 a UNet call at
+   [2·8, 64, 160]).
 19. checkpoint files — an ``esrgan-x4`` RRDBNet file and an ``sd15``
    ControlNet file (F16) through ``UpscaleModelLoader`` and
    ``ControlNetLoader``: parameters bitwise equal to the source modules',
@@ -203,7 +210,39 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
-22. flux serve — the direct FLUX bundle is dropped (the card's
+22. flux files: write — a synthetic T5 ``tokenizer.json`` at t5-v1_1's
+   size (32 100 pieces, a ``Precompiled`` charsmap from the port's
+   encoder) under ``CDT_T5_TOKENIZER_DIR`` and the CLIP vocabulary under
+   ``CDT_TOKENIZER_DIR``; the direct FLUX bundle as the BFL files hold it
+   (rounded through e4m3, the final gate third zero, the identity
+   post-quant conv), a T5-XXL (4.76 B parameters, fp32, rounded through
+   e4m3) and a CLIP-L drawn on the card; the source's T5 context [1, 512,
+   4096] and pooled vector for the workflow's prompt, its velocity at a
+   fixed 1024² latent (4096 + 512 = 4608 tokens) and a digest of every
+   parameter's bytes recorded; then, from the converter's walks
+   inverted, ``flux.safetensors`` and ``t5xxl`` in F8_E4M3 (11.9 and
+   4.9 GB), ``clip_l`` (F16, HF ``text_model.*``), ``ae`` (F32, an
+   encoder drawn beside the bundle's decoder), and the transformer and
+   T5 files cut to 2 double + 4 single blocks and 2 layers (BF16 and
+   F8_E4M3); the sources dropped.
+23. flux files: convert — ``python -m comfyui_distributed_tpu_torch
+   convert --preset flux --checkpoint … --t5 … --clip-l … --vae …`` on
+   the cut files in a subprocess on the card (its seconds, peak card
+   memory, ``state.pt`` bytes; the manifest's depths checked), the
+   ``state.pt`` restored by a fresh ``ModelRegistry`` (every parameter's
+   digest the source's, tokenization ``real``) and the workflow run once
+   from it (6 × 28 = 168 K3).
+24. flux files: run — the full-depth files loaded into a ``flux``
+   bundle by the calls ``convert`` makes (seconds, peak memory): every
+   parameter's digest the source's, tokenization ``real``, the context,
+   the pooled vector and the velocity bitwise the source's;
+   ``workflows/flux-txt2img.json`` unchanged at seeds 1234, 1235, 1234:
+   images [1,1024,1024,3], finite, in [0,1], the repeat bitwise equal,
+   the seeds different, exactly 0 K1 and 57 × 28 = 1596 K3 launches a
+   request (at [24, 4608, 128]); one DiT forward at 512² with the T5
+   context (1024 + 512 tokens) through the kernels and on the plain
+   version within 5e-2·max|plain|.
+25. flux serve — the direct FLUX bundle is dropped (the card's
    allocated memory is printed), then ``workflows/flux-txt2img.json`` is
    served: a master ``Controller`` in this process and a fresh worker
    subprocess each build ``flux``, both under one ``CDT_AUTH_TOKEN``, the
@@ -349,6 +388,18 @@ CN_TILE_CHUNKS = -(-CN_TILE_TILES // CN_TILE_CHUNK)
 CN_TILE_FORWARDS = CN_TILE_CHUNKS * CN_TILE_STEPS
 CN_TILE_LEVELS = ((10816, 320), (2704, 640), (676, 1280))
 FLUX_DPMPP_STEPS = 8
+# FLUX from its files (phases 22 to 24): T5's 512 context tokens + the
+# 4096 image tokens of 1024² in every joint attention, 57 blocks a
+# forward, 28 forwards a request; T5 and CLIP-L are plain fp32 (no K1)
+FLUX_T5_TOKENS = 512
+FLUX_FILE_TOKENS = FLUX_T5_TOKENS + (1024 // 16) ** 2              # 4608
+FILE_BH_SHAPES = [  # (B, Nq, Nk, H, D), launches per FLUX request from a file
+    ((1, FLUX_FILE_TOKENS, FLUX_FILE_TOKENS, 24, 128), FLUX_STEPS * (19 + 38)),
+]
+# a published SD 1.5 file's middle transformer (phase 18): 1280 channels,
+# 8 heads of 160, at 8² = 64 tokens of 512², self- and cross-attention
+SD15_MID_SHAPES = [((2, 64, 64, SD15_HEADS, 160), 1),
+                   ((2, 64, 77, SD15_HEADS, 160), 1)]
 
 
 def sd15_shapes(batch: int, levels, launches_a_level: int) -> list:
@@ -704,7 +755,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                       fa.fused_qkv_attention_plain(x, wq, wk, wv, H))
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
         del x
-    core_cases = ([s for s, _ in PACKED_SHAPES + TILE_PACKED + BH_SHAPES]
+    core_cases = ([s for s, _ in PACKED_SHAPES + TILE_PACKED + BH_SHAPES
+                   + FILE_BH_SHAPES]
                   + RAGGED_CORE + EDGE_CORE + SHORT_KV_EDGES
                   + SHORT_KV_SCHEDULES)
     for shape in core_cases:
@@ -722,7 +774,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         del ref
     # the one-head kernel at SD 1.5's head widths (the packed layout takes
     # D 64 and 128 only): the paths' shapes, then the tile edges
-    for shape in ([s for s, _ in SD15_SHAPES + CN_TILE_SHAPES] + SD15_EDGES):
+    for shape in ([s for s, _ in SD15_SHAPES + SD15_MID_SHAPES
+                   + CN_TILE_SHAPES] + SD15_EDGES):
         q, k, v = core_inputs(*shape)
         ref = plain_by_row(fa, q, k, v)
         fa.flash_attention(*core_inputs(*shape), layout="bh")
@@ -784,7 +837,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         del x, q, k, v
     for layout, path, shapes in (("packed", "sdxl", PACKED_SHAPES),
                                  ("packed", "upscale", TILE_PACKED),
-                                 ("bh", "flux", BH_SHAPES)):
+                                 ("bh", "flux", BH_SHAPES),
+                                 ("bh", "flux_file", FILE_BH_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             extra = {}
@@ -801,7 +855,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                      lambda: sdpa(q, k, v), path, **extra)
     # K3 at SD 1.5's widths; the bound counts the true D (the padding to
     # whole 64-column boxes is the kernel's waste, not the function's work)
-    for path, shapes in (("sd15", SD15_SHAPES), ("cn_upscale", CN_TILE_SHAPES)):
+    for path, shapes in (("sd15", SD15_SHAPES), ("sd15_file", SD15_MID_SHAPES),
+                         ("cn_upscale", CN_TILE_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             time_row("flash_attention_bh", shape, n, core_work(*shape),
@@ -849,10 +904,12 @@ def kernel_table(rows: list[dict], errs: dict,
         return per_request(mine) if mine else None
 
     sd15_request = [(shape, SD15_TIMED_STEPS * n) for shape, n in SD15_SHAPES]
+    sd15_file_request = [(shape, SD15_STEPS * n)
+                         for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
+    others = ("upscale", "sd15", "sd15_file", "cn_upscale", "flux_file")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
-        mine = [r for r in every
-                if r["path"] not in ("upscale", "sd15", "cn_upscale")]
+        mine = [r for r in every if r["path"] not in others]
         tot = {key: sum(r[key] * r["launches"] for r in mine)
                for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
         b, by = bound_ms(tot["flops"], tot["bytes"])
@@ -887,13 +944,15 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_img2img_controlnet_request", at(name, I2I_CN[2])),
                 ("per_usdu_controlnet_request", at(name, USDU_CN[2])),
                 ("per_sd15_request", at(name, sd15_request)),
-                ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)))
+                ("per_sd15_file_request", at(name, sd15_file_request)),
+                ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)),
+                ("per_flux_file_request", at(name, FILE_BH_SHAPES)))
                if value is not None},
-            **({"sd15_rows": [
+            **({"k3_rows": [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}
-                for r in every if r["path"] in ("sd15", "cn_upscale")]}
+                for r in every if r["path"] in others]}
                if name == "flash_attention_bh" else {}),
         })
     return out
@@ -2145,17 +2204,26 @@ CKPT_SDXL = ({"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES[:2]),
 LORA_UNET_TENSORS = 70 * 10 + 11 * 2
 LORA_TE_TENSORS = (12 + 32) * 6      # q/k/v/out_proj, fc1, fc2 a layer
 CKPT_SD15_SEED = 5
-CKPT_SD15 = k3_counts(SD15_STEPS, SD15_SHAPES, text_prompts=0)
+# a published SD 1.5 file: 30 K3 a UNet call and the middle's 2: 8 × 32
+CKPT_SD15 = k3_counts(SD15_STEPS, SD15_SHAPES + SD15_MID_SHAPES,
+                      text_prompts=0)
 
 
-def source_bundle(torch, preset: str):
-    """A ``preset`` bundle at full width with its CLIP stack, random from
+def source_bundle(torch, preset: str, middle_depth: int = -1):
+    """A ``preset`` bundle at full width with its CLIP stack (and the
+    UNet middle depth ``middle_depth`` where it is set), random from
     ``CKPT_SEED`` and rounded through fp16 once (so an F16 file holds it
     exactly); returns (bundle, host copy of every parameter)."""
+    import dataclasses
+
     from comfyui_distributed_tpu_torch.models.registry import (PRESETS,
                                                                ModelBundle)
 
-    bundle = ModelBundle(PRESETS[preset], DEVICE, seed=CKPT_SEED)
+    preset = PRESETS[preset]
+    if middle_depth >= 0:
+        preset = dataclasses.replace(preset, unet=dataclasses.replace(
+            preset.unet, middle_depth=middle_depth))
+    bundle = ModelBundle(preset, DEVICE, seed=CKPT_SEED)
     bundle.build_clip_stack()
     return bundle, round_fp16(torch, {
         f"{entry}.{name}": p for entry, module in bundle._state_entries().items()
@@ -2469,7 +2537,8 @@ def ckpt_sd15_phase(torch, fa, tmp: Path) -> dict:
                                                                ModelRegistry)
 
     say("checkpoint sd15: write, convert, restore")
-    source, host = source_bundle(torch, "sd15")
+    # the published layout: a middle transformer the sd15 preset lacks
+    source, host = source_bundle(torch, "sd15", middle_depth=1)
     write_checkpoint(torch, source, tmp / "sd15.safetensors")
     src_registry = ModelRegistry(DEVICE, seed=0)
     adopt(src_registry, "sd15", source)
@@ -2498,8 +2567,8 @@ def ckpt_sd15_phase(torch, fa, tmp: Path) -> dict:
     say(f"  convert subprocess: {secs:.2f} s (process start included); "
         f"{proc.stdout.strip().splitlines()[-1]}")
     manifest = json.loads((out_dir / MANIFEST).read_text())
-    require(manifest["arch"] == {"kind": "unet"} and manifest["format"] == "torch",
-            f"manifest {manifest}")
+    require(manifest["arch"] == {"kind": "unet", "middle_depth": 1}
+            and manifest["format"] == "torch", f"manifest {manifest}")
     registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=out_dir.parent)
     t0 = time.perf_counter()
     bundle = registry.get("sd15")
@@ -2507,6 +2576,8 @@ def ckpt_sd15_phase(torch, fa, tmp: Path) -> dict:
     say(f"  restored {out_dir} in {time.perf_counter() - t0:.2f} s "
         f"({(out_dir / 'state.pt').stat().st_size / 1e9:.3f} GB); manifest "
         f"{manifest}")
+    require(bundle.core.config.mid_depth == 1,
+            "the restored sd15 core has no middle transformer")
     require_params_equal(torch, "restored sd15", bundle_params(bundle), host)
     executor = GraphExecutor({"model_registry": registry,
                               "output_dir": str(OUTPUT_DIR / "ckpt")})
@@ -2569,7 +2640,460 @@ def ckpt_models_phase(torch, tmp: Path) -> None:
         f"-ctx) forwards bitwise equal to the source modules'")
 
 
-# --- phase 22 ----------------------------------------------------------------
+# --- phases 22 to 24 ---------------------------------------------------------
+
+T5_PIECES = 32100            # t5-v1_1: <pad> 0, </s> 1, <unk> 2, 100 <extra_id_N>
+T5_SEED = 13                 # the T5-XXL and CLIP-L drawn for the files
+FLUX_FILE_DIR = OUTPUT_DIR / "flux_file"
+FLUX_FILE = ({"fused_qkv_attention": 0, "flash_attention_packed": 0,
+              "flash_attention_bh": sum(n for _, n in FILE_BH_SHAPES)},  # 1596
+             # projection 0, streamed core 1596, short-key 0
+             cuda_counts([], FILE_BH_SHAPES))
+# The whole run keeps its disk writes (deleted files included) under
+# 45 GiB, ~13 GB of them before these phases. So the full-depth files go
+# in F8_E4M3 (11.9 + 4.9 GB) and are loaded with the calls `convert`
+# makes, and `convert` itself and the restore of its state.pt run on
+# files cut in depth (2 double + 4 single blocks, 2 T5 layers: 3.3 GB of
+# files, a 5.4 GB state.pt). Full depth, its state.pt alone is 43.6 GB.
+FLUX_CUT = (2, 4)
+T5_CUT = 2
+FLUX_CUT_SHAPES = [(FILE_BH_SHAPES[0][0], FLUX_STEPS * sum(FLUX_CUT))]
+FLUX_CUT_COUNTS = ({"fused_qkv_attention": 0, "flash_attention_packed": 0,
+                    "flash_attention_bh": FLUX_STEPS * sum(FLUX_CUT)},   # 168
+                   cuda_counts([], FLUX_CUT_SHAPES))
+FLUX_FILE_DISK = 30e9        # the files and the state.pt, with room to spare
+
+
+def write_t5_tokenizer(directory: Path, words) -> None:
+    """A synthetic T5 ``tokenizer.json`` at t5-v1_1's size: 32 100 pieces
+    (the three specials, ``▁``, the characters and ``▁word`` pieces of
+    ``words``, filler pieces, then ``<extra_id_99>`` … ``<extra_id_0>``
+    as added tokens), seeded scores, a ``Precompiled`` charsmap written by
+    the port's ``encode_charsmap`` (fullwidth ASCII and NBSP), the
+    ``Replace(" {2,}", " ")`` normalizer, ``Metaspace`` and ``$A </s>``."""
+    import base64
+    import random
+
+    from comfyui_distributed_tpu_torch.models.t5_tokenizer import encode_charsmap
+
+    rng = random.Random(T5_SEED)
+    pieces = ["▁"] + sorted(set("".join(words))) + [f"▁{w}" for w in words]
+    pieces += [f"▁p{i}" for i in range(T5_PIECES - 100 - 3 - len(pieces))]
+    extra = [f"<extra_id_{i}>" for i in range(99, -1, -1)]
+    vocab = ([["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+             + [[p, -rng.uniform(1.0, 15.0)] for p in pieces]
+             + [[e, 0.0] for e in extra])
+    assert len(vocab) == T5_PIECES
+    added = [{"id": i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, c in [(0, "<pad>"), (1, "</s>"), (2, "<unk>")]
+             + [(T5_PIECES - 100 + j, e) for j, e in enumerate(extra)]]
+    charsmap = {chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}
+    charsmap["\u00a0"] = " "
+    spec = {
+        "version": "1.0", "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                encode_charsmap(charsmap)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                        "tokens": ["</s>"]}}},
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False},
+    }
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "tokenizer.json").write_text(json.dumps(spec),
+                                              encoding="utf-8")
+
+
+def param_digests(torch, params: dict) -> dict:
+    """A digest of each parameter's bytes, computed on the card: its
+    dtype, shape, and two 64-bit sums of its 8/16/32-bit words (plain,
+    and weighted by a hash of the word's position)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    sums = []
+    for p in params.values():
+        w = p.detach().reshape(-1).view(ints[p.element_size()])
+        plain = torch.zeros((), dtype=torch.int64, device=w.device)
+        mixed = torch.zeros((), dtype=torch.int64, device=w.device)
+        for start in range(0, w.numel(), 1 << 26):
+            chunk = w[start:start + (1 << 26)].long()
+            pos = torch.arange(start, start + chunk.numel(), device=w.device)
+            plain += chunk.sum()
+            mixed += (chunk * ((pos * 2654435761) % 2147483647 + 1)).sum()
+        sums.append(torch.stack([plain, mixed]))
+    values = torch.stack(sums).tolist()
+    return {k: (str(p.dtype), tuple(p.shape), tuple(v))
+            for (k, p), v in zip(params.items(), values)}
+
+
+def as_published_flux(torch, bundle) -> None:
+    """What the BFL files hold of a random-init FLUX bundle: the DiT
+    rounded through BF16 (its fp32 ``img_out`` and qk-norm scales too),
+    the final adaLN's gate third zero (the layout has none; the final
+    layer never reads it), the VAE's post-quant conv the identity."""
+    dit, dec = bundle.core, bundle.pipeline.vae.decoder
+    h, z = dit.config.hidden, bundle.pipeline.vae.config.latent_channels
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.copy_(p.to(torch.bfloat16))
+        dit.final_mod.mod.weight[2 * h:].zero_()
+        dit.final_mod.mod.bias[2 * h:].zero_()
+        dec.post_quant_conv.weight.copy_(
+            torch.eye(z, device=dec.post_quant_conv.weight.device)[:, :, None, None])
+        dec.post_quant_conv.bias.zero_()
+
+
+class FluxSource(NamedTuple):
+    """What phase 22 records of the source before dropping it."""
+    digests: dict           # "<entry>.<parameter>" → digest
+    context: object         # T5 context of the prompt, on the host
+    pooled: object          # CLIP-L pooled vector of the prompt, on the host
+    x: object               # the fixed latent, on the host
+    velocity: object        # the source DiT's velocity there, on the host
+    prompt: str
+
+
+def _cut(key: str) -> bool:
+    """Whether a FLUX or T5 file key survives the cut in depth."""
+    m = re.match(r"(double_blocks|single_blocks|encoder\.block)\.(\d+)\.", key)
+    if m is None:
+        return True
+    keep = {"double_blocks": FLUX_CUT[0], "single_blocks": FLUX_CUT[1],
+            "encoder.block": T5_CUT}[m.group(1)]
+    return int(m.group(2)) < keep
+
+
+def flux_write_phase(torch, fa, holder: dict, tmp: Path) -> FluxSource:
+    """Phase 22: FLUX's published files from the direct FLUX bundle and a
+    T5-XXL + CLIP-L drawn on the card (``holder["bundle"]`` is taken and
+    dropped): at full depth, and cut in depth for ``convert``."""
+    from comfyui_distributed_tpu_torch.models.clip import CLIPTextTransformer
+    from comfyui_distributed_tpu_torch.models.convert import (
+        export_clip_hf, export_flux, export_t5, export_vae)
+    from comfyui_distributed_tpu_torch.models.registry import _random
+    from comfyui_distributed_tpu_torch.models.t5 import FluxTextStack, T5Encoder
+    from comfyui_distributed_tpu_torch.models.vae import AutoencoderKL
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    say("flux files: write")
+    dev = torch.device(DEVICE)
+    workflow = json.loads((ROOT / "workflows" / FLUX_PATH.workflow).read_text())
+    prompt = workflow["2"]["inputs"]["text"]
+    write_t5_tokenizer(tmp / "t5_tokenizer", prompt.split())
+    write_vocab(tmp / "tokenizer")
+    os.environ["CDT_T5_TOKENIZER_DIR"] = str(tmp / "t5_tokenizer")
+    os.environ["CDT_TOKENIZER_DIR"] = str(tmp / "tokenizer")
+    free = shutil.disk_usage(tmp).free
+    require(free >= FLUX_FILE_DISK, f"{free / 1e9:.1f} GB free under {tmp}; "
+            f"the files need {FLUX_FILE_DISK / 1e9:.0f} GB")
+    bundle = holder.pop("bundle")
+    t0 = time.perf_counter()
+    as_published_flux(torch, bundle)
+    with torch.no_grad():                 # held exactly by an e4m3 file
+        for p in bundle.core.parameters():
+            p.copy_(p.to(torch.float8_e4m3fn))
+    gen = torch.Generator(device=dev).manual_seed(T5_SEED)
+    cfg_t5, cfg_l = FluxTextStack.configs()
+    t5 = _random(lambda: T5Encoder(cfg_t5), dev, gen)
+    clip_l = _random(lambda: CLIPTextTransformer(cfg_l), dev, gen)
+    round_fp16(torch, dict(clip_l.named_parameters()))
+    with torch.no_grad():
+        for p in t5.parameters():
+            p.copy_(p.to(torch.float8_e4m3fn))
+    vae = _random(lambda: AutoencoderKL(bundle.pipeline.vae.config,
+                                        encoder=True), dev, gen)
+    vae.decoder.load_state_dict(bundle.pipeline.vae.decoder.state_dict())
+    stack = FluxTextStack(t5, clip_l).eval()
+    torch.cuda.synchronize()
+    say(f"  sources ready in {time.perf_counter() - t0:.2f} s ({free / 1e9:.1f}"
+        f" GB free): DiT {sum(p.numel() for p in bundle.core.parameters())} "
+        f"parameters (rounded through e4m3), T5-XXL "
+        f"{sum(p.numel() for p in t5.parameters())} (fp32, rounded through "
+        f"e4m3), CLIP-L {sum(p.numel() for p in clip_l.parameters())}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    require(stack.tokenization_mode == "real",
+            f"source stack tokenization {stack.tokenization_mode}")
+    params = {**{f"core.{k}": p for k, p in bundle.core.named_parameters()},
+              **{f"vae_dec.{k}": p
+                 for k, p in bundle.pipeline.vae.decoder.named_parameters()},
+              **{f"t5.{k}": p for k, p in t5.named_parameters()},
+              **{f"clip_l.{k}": p for k, p in clip_l.named_parameters()}}
+    t0 = time.perf_counter()
+    digests = param_digests(torch, params)
+    say(f"  {len(digests)} parameter digests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    dcfg = bundle.core.config
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        context, pooled = stack.encode([prompt])
+        torch.cuda.synchronize()
+        say(f"  source T5 + CLIP-L encode: {time.perf_counter() - t0:.3f} s "
+            f"(first call); context {tuple(context.shape)}, pooled "
+            f"{tuple(pooled.shape)}")
+        x = torch.randn(1, 1024 // 8, 1024 // 8, dcfg.in_channels,
+                        generator=gen, device=dev)
+        before = fa.LAUNCHES["flash_attention_bh"]
+        v = bundle.core(x, torch.tensor([0.5], device=dev), context, pooled,
+                        torch.tensor([3.5], device=dev))
+        sites = fa.LAUNCHES["flash_attention_bh"] - before
+    require(context.shape == (1, cfg_t5.max_len, dcfg.context_dim)
+            and pooled.shape == (1, dcfg.pooled_dim),
+            f"source conditioning shapes {tuple(context.shape)}, "
+            f"{tuple(pooled.shape)}")
+    require(sites == dcfg.depth_double + dcfg.depth_single
+            and v.abs().max().item() > 1e-3,
+            f"source velocity: {sites} K3 launches")
+    source = FluxSource(digests, context.cpu(), pooled.cpu(), x.cpu(),
+                        v.cpu(), prompt)
+    flux_sd, t5_sd = export_flux(bundle.core), export_t5(t5)
+    files = {
+        "flux.safetensors": (flux_sd, torch.float8_e4m3fn),
+        "t5xxl.safetensors": (t5_sd, torch.float8_e4m3fn),
+        "clip_l.safetensors": (export_clip_hf(clip_l), torch.float16),
+        "ae.safetensors": (export_vae(vae, quant_convs=False), torch.float32),
+        # cut in depth, in the published dtypes, for convert
+        "flux_cut.safetensors": ({k: t for k, t in flux_sd.items() if _cut(k)},
+                                 torch.bfloat16),
+        "t5xxl_cut.safetensors": ({k: t for k, t in t5_sd.items() if _cut(k)},
+                                  torch.float8_e4m3fn)}
+    total = 0
+    for name, (tensors, dtype) in files.items():
+        t0 = time.perf_counter()
+        nbytes = save_file(tensors, tmp / name, dtype=dtype)
+        total += nbytes
+        secs = time.perf_counter() - t0
+        say(f"  wrote {name}: {len(tensors)} tensors, {nbytes / 1e9:.3f} GB "
+            f"{str(dtype).split('.')[-1]} in {secs:.2f} s "
+            f"({nbytes / 1e9 / secs:.2f} GB/s)")
+    del files, tensors, flux_sd, t5_sd, stack, t5, clip_l, vae, bundle, params
+    del context, pooled, x, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    say(f"  {total / 1e9:.3f} GB written; the sources dropped, "
+        f"{left / 2**30:.3f} GiB allocated")
+    require(left < 4 * 2**30, "the FLUX sources outlived their phase")
+    return source
+
+
+def require_digests(what: str, got: dict, source: FluxSource,
+                    every: bool = True) -> None:
+    """Each digest in ``got`` is the source parameter's (and, where
+    ``every``, every source parameter is there)."""
+    names = set(got) if not every else set(got) | set(source.digests)
+    missing = sorted(n for n in names if n not in got or n not in source.digests)
+    require(not missing, f"{what}: parameter names differ: {missing[:4]}")
+    bad = [k for k in got if got[k] != source.digests[k]]
+    require(not bad, f"{what}: {len(bad)} parameters differ from the "
+            f"source's, e.g. {bad[:4]}")
+    say(f"  {what}: all {len(got)} parameters bitwise equal to the source's "
+        "(digests)")
+
+
+def flux_convert_phase(torch, fa, source: FluxSource, tmp: Path) -> dict:
+    """Phase 23: ``python -m comfyui_distributed_tpu_torch convert --preset
+    flux`` on the files cut in depth, in a subprocess on the card, then
+    their ``state.pt`` restored by a fresh registry and run once; returns
+    that request's launches."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    out_dir = tmp / "root" / "flux"
+    cmd = [sys.executable, "-m", "comfyui_distributed_tpu_torch", "convert",
+           "--preset", "flux", "--checkpoint", str(tmp / "flux_cut.safetensors"),
+           "--t5", str(tmp / "t5xxl_cut.safetensors"),
+           "--clip-l", str(tmp / "clip_l.safetensors"),
+           "--vae", str(tmp / "ae.safetensors"),
+           "--out", str(out_dir), "--device", DEVICE]
+    say(f"flux files: convert (cut to {FLUX_CUT[0]} double + {FLUX_CUT[1]} "
+        f"single blocks, {T5_CUT} T5 layers)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"convert exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    manifest = json.loads((out_dir / "cdt_manifest.json").read_text())
+    say(f"  convert subprocess: {secs:.2f} s (process start included); "
+        f"entries {line['entries']}; max_memory_allocated "
+        f"{line.get('max_memory_allocated', 0) / 2**30:.3f} GiB; state.pt "
+        f"{(out_dir / 'state.pt').stat().st_size / 1e9:.3f} GB; manifest "
+        f"depth {manifest.get('depth')}, t5_layers {manifest.get('t5_layers')}")
+    require(line["entries"] == ["clip_l", "core", "t5", "vae_dec"]
+            and manifest.get("depth") == {"double": FLUX_CUT[0],
+                                          "single": FLUX_CUT[1]}
+            and manifest.get("t5_layers") == T5_CUT,
+            f"converted entries {line['entries']}, manifest {manifest}")
+    for name in ("flux_cut.safetensors", "t5xxl_cut.safetensors"):
+        (tmp / name).unlink()
+    torch.cuda.reset_peak_memory_stats()
+    registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=out_dir.parent)
+    t0 = time.perf_counter()
+    bundle = registry.get("flux")
+    torch.cuda.synchronize()
+    say(f"  restored {out_dir} in {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        "GiB")
+    require_digests("restored (cut in depth)",
+                    param_digests(torch, bundle_params(bundle)), source,
+                    every=False)
+    mode = bundle.text_encoder.tokenization_mode
+    require(mode == "real", f"tokenization mode {mode}")
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    sampler = workflow[FLUX_PATH.sampler_node]["inputs"]
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(FLUX_FILE_DIR)})
+    fa.reset_launches()
+    _, secs, _ = run_counted(torch, fa, executor, workflow,
+                             FLUX_PATH.image_node, FLUX_CUT_COUNTS,
+                             "flux restored (cut in depth)",
+                             (int(sampler["height"]), int(sampler["width"])))
+    say(f"  one request from the restored state: {secs:.3f} s; tokenization "
+        f"{mode}; launches {FLUX_CUT_COUNTS[0]}")
+    return dict(fa.LAUNCHES)
+
+
+def flux_file_phase(torch, fa, source: FluxSource, tmp: Path,
+                    random_seconds: list) -> dict:
+    """Phase 24: ``flux`` at full depth loaded from its files with the
+    calls ``convert`` makes (without its state.pt), checked against the
+    source and run; returns the launches of its three requests."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.models import dit as dit_module
+    from comfyui_distributed_tpu_torch.models.registry import (
+        PRESETS, ModelBundle, ModelRegistry)
+
+    say("flux files: load at full depth and run")
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = ModelBundle(PRESETS["flux"], DEVICE, empty_core=True)
+    bundle.load_safetensors_checkpoint(tmp / "flux.safetensors")
+    bundle.load_text_encoder_files(t5=tmp / "t5xxl.safetensors",
+                                   clip_l=tmp / "clip_l.safetensors")
+    bundle.load_vae_file(tmp / "ae.safetensors")
+    torch.cuda.synchronize()
+    say(f"  loaded the four files in {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB ({torch.cuda.memory_allocated() / 2**30:.3f} held)")
+    registry = ModelRegistry(DEVICE, seed=0)
+    adopt(registry, "flux", bundle)
+    require_digests("loaded", param_digests(torch, bundle_params(bundle)),
+                    source)
+    stack = bundle.text_encoder
+    mode = stack.tokenization_mode
+    require(mode == "real", f"tokenization mode {mode}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        context, pooled = stack.encode([source.prompt])
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stack.encode([source.prompt])
+        torch.cuda.synchronize()
+        encode2_s = time.perf_counter() - t0
+        v = bundle.core(source.x.to(dev), torch.tensor([0.5], device=dev),
+                        context, pooled, torch.tensor([3.5], device=dev))
+    require(torch.equal(context.cpu(), source.context)
+            and torch.equal(pooled.cpu(), source.pooled),
+            "the T5 context or the pooled vector differs from the source's")
+    require(torch.equal(v.cpu(), source.velocity),
+            "the velocity at 4608 tokens differs from the source's")
+    say(f"  tokenization {mode}; T5 + CLIP-L encode {encode_s:.3f} s first, "
+        f"{encode2_s:.3f} s again; context, pooled vector and the velocity "
+        f"at {context.shape[1] + source.x.shape[1] * source.x.shape[2] // 4} "
+        "tokens bitwise the source's")
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    sampler = workflow[FLUX_PATH.sampler_node]["inputs"]
+    hw = (int(sampler["height"]), int(sampler["width"]))
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(FLUX_FILE_DIR)})
+    fa.reset_launches()
+    images, seconds = [], []
+    for seed in FLUX_PATH.seeds:
+        prompt = json.loads(json.dumps(workflow))
+        prompt[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
+        img, secs, _ = run_counted(torch, fa, executor, prompt,
+                                   FLUX_PATH.image_node, FLUX_FILE,
+                                   f"flux from its files seed {seed}", hw)
+        t = bundle.pipeline.timings
+        say(f"  request seed {seed}: {secs:.3f} s; sampling {t['sample_s']:.3f}"
+            f" s = {t['sample_s'] / t['steps']:.4f} s/step; decode "
+            f"{t['decode_s']:.3f} s")
+        images.append(img)
+        seconds.append(secs)
+    launches = dict(fa.LAUNCHES)
+    a, b, _ = FLUX_PATH.seeds
+    require(torch.equal(images[0], images[2]), f"seed {a} twice differs")
+    require(not torch.equal(images[0], images[1]),
+            f"seeds {a} and {b} gave one image")
+    say(f"  requests {[round(s, 3) for s in seconds]} s from the files against "
+        f"{[round(s, 3) for s in random_seconds]} s at random init (77 hash "
+        f"tokens); launches {FLUX_FILE[0]} a request (CUDA {FLUX_FILE[1]}); "
+        f"seed {a} repeatable, seed {b} differs; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    # one forward at 512² with the T5 context: 1024 + 512 tokens
+    model = bundle.core
+    cfg = model.config
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1, 64, 64, cfg.in_channels, generator=gen, device=dev)
+    with torch.no_grad():
+        before = fa.LAUNCHES["flash_attention_bh"]
+        v = model(x, torch.tensor([0.5], device=dev), context, pooled,
+                  torch.tensor([3.5], device=dev))
+        sites = fa.LAUNCHES["flash_attention_bh"] - before
+        with mock.patch.object(dit_module, "full_attention",
+                               fa.flash_attention_plain):
+            ref = model(x, torch.tensor([0.5], device=dev), context, pooled,
+                        torch.tensor([3.5], device=dev))
+    require(sites == cfg.depth_double + cfg.depth_single,
+            f"flux file reference: {sites} K3 launches")
+    compare_whole(torch, "flux file reference: DiT velocity at 512² "
+                  f"({32 * 32 + context.shape[1]} tokens)", v, ref)
+    return launches
+
+
+def flux_file_phases(torch, fa, holder: dict, random_seconds: list) -> dict:
+    """Phases 22 to 24 in one temporary directory, removed at the end;
+    returns their launches by path."""
+    tmp = Path(tempfile.mkdtemp(prefix="cdt_flux_"))
+    t0 = time.perf_counter()
+    launches = {}
+    try:
+        source = flux_write_phase(torch, fa, holder, tmp)
+        launches["flux_cut"] = flux_convert_phase(torch, fa, source, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["flux_file"] = flux_file_phase(torch, fa, source, tmp,
+                                                random_seconds)
+    finally:
+        holder.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        for var in ("CDT_T5_TOKENIZER_DIR", "CDT_TOKENIZER_DIR"):
+            os.environ.pop(var, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"flux file phases: {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return launches
+
+
+# --- phase 25 ----------------------------------------------------------------
 
 FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
 FLUX_FAULTS = "dispatch@1-9:http500"
@@ -2971,7 +3495,10 @@ def main() -> int:
         flux_reference_phase(torch, fa, flux.bundle)
         images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
         seconds = flux.seconds
+        holder = {"bundle": flux.bundle}
         del flux
+        gc.collect()
+        path_launches.update(flux_file_phases(torch, fa, holder, seconds))
         gc.collect()
         torch.cuda.empty_cache()
         say(f"flux serve: the direct bundle dropped, "

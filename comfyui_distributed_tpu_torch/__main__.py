@@ -9,13 +9,17 @@ SIGTERM. The role comes from the environment (``CDT_IS_WORKER``,
 run on the CUDA card; without one, ``serve`` exits with status 2 unless
 it is given ``--device cpu``.
 
-    python -m comfyui_distributed_tpu_torch convert --preset sdxl|sd15
-        --checkpoint FILE.safetensors --out DIR [--vae FILE] [--device D]
+    python -m comfyui_distributed_tpu_torch convert --preset sdxl|sd15|flux
+        --checkpoint FILE.safetensors --out DIR [--vae FILE]
+        [--t5 FILE --clip-l FILE] [--device D]
 
-Converts a published single-file checkpoint (and optionally a standalone
-VAE) into the port's bundle format, ``DIR/state.pt`` and
+Converts a published single-file checkpoint (for ``flux`` the BFL
+transformer, with its T5-XXL and CLIP-L files; optionally a standalone
+VAE, BFL's ``ae.safetensors`` for ``flux``) into the port's bundle
+format, ``DIR/state.pt`` and
 ``DIR/cdt_manifest.json``; with ``DIR`` at ``<CDT_CHECKPOINT_ROOT>/<preset>``
-every controller restores it. Prints one JSON line.
+every controller restores it. Prints one JSON line (with the card's peak
+allocated bytes when it ran there).
 """
 
 from __future__ import annotations
@@ -56,34 +60,52 @@ def cmd_serve(args: argparse.Namespace) -> int:
 def cmd_convert(args: argparse.Namespace) -> int:
     from pathlib import Path
 
-    from .models.registry import PRESETS, ModelBundle
+    from .models.registry import PRESETS, ModelBundle, preset_for_checkpoint
 
-    flux = ("--t5 and --clip-l (FLUX's text encoders) are not ported yet "
-            "(ROADMAP.md, item A.7b)")
-    refused = {"t5": flux, "clip_l": flux,
-               "checkpoint_low": "--checkpoint-low (WAN 2.2's dual experts) "
-                                 "is not ported yet (ROADMAP.md, item 15)"}
-    for field, why in refused.items():
-        if getattr(args, field):
-            print(f"convert: {why}", file=sys.stderr)
-            return 2
+    def refuse(why: str) -> int:
+        print(f"convert: {why}", file=sys.stderr)
+        return 2
+
+    if args.checkpoint_low:
+        return refuse("--checkpoint-low (WAN 2.2's dual experts) is not "
+                      "ported yet (ROADMAP.md, item 15)")
     preset = PRESETS.get(args.preset)
-    if preset is None or preset.clip is None:
-        have = sorted(k for k, p in PRESETS.items() if p.clip is not None)
-        print(f"convert: preset {args.preset!r} has no single-file "
-              f"checkpoint layout; have {have}", file=sys.stderr)
-        return 2
+    if preset is None or (preset.clip is None and preset.kind != "dit"):
+        have = sorted(k for k, p in PRESETS.items()
+                      if p.clip is not None or p.kind == "dit")
+        return refuse(f"preset {args.preset!r} has no single-file "
+                      f"checkpoint layout; have {have}")
+    if (args.t5 or args.clip_l) and preset.clip != "flux":
+        return refuse("--t5 and --clip-l are FLUX's text-encoder files; "
+                      f"preset {args.preset!r} bundles its encoders in its "
+                      "single file")
+    files = [Path(f) for f in (args.checkpoint, args.t5, args.clip_l,
+                               args.vae) if f]
+    missing = [str(f) for f in files if not f.is_file()]
+    if missing:
+        return refuse(f"no such file: {missing}")
     try:
-        bundle = ModelBundle(preset, device=args.device, empty_core=True)
+        bundle = ModelBundle(
+            preset_for_checkpoint(preset, Path(args.checkpoint)),
+            device=args.device, empty_core=True)
     except RuntimeError as e:          # no card and no --device cpu
-        print(f"convert: {e}", file=sys.stderr)
-        return 2
+        return refuse(str(e))
     bundle.load_safetensors_checkpoint(Path(args.checkpoint))
+    if args.t5 or args.clip_l:
+        bundle.load_text_encoder_files(
+            t5=Path(args.t5) if args.t5 else None,
+            clip_l=Path(args.clip_l) if args.clip_l else None)
     if args.vae:
         bundle.load_vae_file(Path(args.vae))
     bundle.save_checkpoint(Path(args.out))
-    print(json.dumps({"preset": args.preset, "out": str(args.out),
-                      "entries": sorted(bundle._state_entries())}))
+    line = {"preset": args.preset, "out": str(args.out),
+            "entries": sorted(bundle._state_entries())}
+    if bundle.device.type == "cuda":
+        import torch
+
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            bundle.device)
+    print(json.dumps(line))
     return 0
 
 
@@ -108,9 +130,9 @@ def main(argv: list[str] | None = None) -> int:
     conv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                       help="where the conversion runs (default: cuda)")
     conv.add_argument("--t5", default=None,
-                      help="FLUX's T5 file: not ported yet (item A.7b)")
+                      help="FLUX's T5-XXL file (HF T5EncoderModel layout)")
     conv.add_argument("--clip-l", dest="clip_l", default=None,
-                      help="FLUX's CLIP-L file: not ported yet (item A.7b)")
+                      help="FLUX's CLIP-L file (HF text_model.* layout)")
     conv.add_argument("--checkpoint-low", dest="checkpoint_low", default=None,
                       help="WAN 2.2's low-noise expert: not ported yet "
                            "(item 15)")

@@ -120,7 +120,7 @@ class Controller:
         # the queue's context factory, the orchestrator and the bridge hold
         # bound methods of this controller, so it lives until the cycle
         # collector runs: let go of the card's bundles now
-        self._registry = None
+        self._drop_models()
 
     # --- health and info ----------------------------------------------------
 
@@ -159,11 +159,20 @@ class Controller:
                 })
         return info
 
-    def clear_memory(self) -> dict:
-        """Drop the model registry (its bundles go with it) and return the
-        card's cached blocks to CUDA. The next prompt builds its
-        bundles again."""
+    def _drop_models(self) -> None:
+        """Let go of the registry and of the ``LoraLoader`` merges, which
+        pin their base bundles (a class-level cache, shared by every
+        controller of the process)."""
+        from ..graph.nodes_builtin import LoraLoader
+
         self._registry = None
+        LoraLoader._cache.clear()
+
+    def clear_memory(self) -> dict:
+        """Drop the model registry (its bundles go with it) and the
+        LoRA merges, and return the card's cached blocks to CUDA. The
+        next prompt builds its bundles again."""
+        self._drop_models()
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

@@ -120,8 +120,8 @@ class ControlNet(nn.Module):
                 zi += 1
         mid = mc * cfg.channel_mult[-1]
         self.mid_res_1 = ResBlock(cur, mid, time_dim, dt)
-        if cfg.transformer_depth[-1]:
-            self.mid_attn = attn(mid, cfg.transformer_depth[-1])
+        if cfg.mid_depth:
+            self.mid_attn = attn(mid, cfg.mid_depth)
         self.mid_res_2 = ResBlock(mid, mid, time_dim, dt)
         self.mid_out = ZeroConv(mid)
 
@@ -167,7 +167,7 @@ class ControlNet(nn.Module):
                 outs.append(block(f"zero_{zi}")(h))
                 zi += 1
         h = self.mid_res_1(h, emb)
-        if cfg.transformer_depth[-1]:
+        if cfg.mid_depth:
             h = self.mid_attn(h, context)
         h = self.mid_res_2(h, emb)
         return outs, self.mid_out(h)

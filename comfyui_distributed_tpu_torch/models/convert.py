@@ -11,14 +11,21 @@ Source layouts (key prefixes of the standard single-file
 - CLIP-G: ``conditioner.embedders.1.model.*`` (SDXL), OpenCLIP layout
   with a fused ``in_proj_weight``;
 - RRDBNet upscalers (both ESRGAN layouts) and LDM ControlNets
-  (``control_model.*``) in files of their own.
+  (``control_model.*``) in files of their own;
+- FLUX's files: the BFL transformer (``double_blocks.*``,
+  ``single_blocks.*``, bare or under ``model.diffusion_model.``), T5 in
+  the HF ``T5EncoderModel`` layout (``encoder.block.*``, ``shared``),
+  CLIP-L as bare ``text_model.*`` and BFL's ``ae.safetensors``.
 
 The port's parameters are already in torch layout (``[out, in]``
 Linears, OIHW convolutions), so most of a walk is renaming. The real
 transforms: OpenCLIP's fused ``in_proj`` split into q/k/v, OpenCLIP's
 ``text_projection`` (``[in, out]``) transposed into a Linear, and the 1×1
 convolutions the port runs as Linears (SD 1.5's ``proj_in``/``proj_out``,
-the VAE's mid attention) squeezed.
+the VAE's mid attention) squeezed, FLUX's patch-feature order permuted
+(``img_in``'s columns, ``final_layer.linear``'s rows), its single
+blocks' ``linear1`` split by rows and its final adaLN padded with a zero
+gate third.
 
 Every walk is one function over an abstract ``put`` with three users:
 ``_Filler`` copies each source tensor into its parameter (cast to the
@@ -29,12 +36,13 @@ transform), the LoRA key map of ``models/lora.py``; ``_Exporter`` inverts
 each transform to write a module back in the published layout (the
 tests and ``chip_smoke.py`` write synthetic checkpoints with it).
 
-FLUX, SD3 and WAN files are detected and refused, each naming the item
-that ports it.
+SD3 and WAN files are detected and refused, each naming the item that
+ports it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Callable, Iterator, Mapping, Optional
 
@@ -74,9 +82,11 @@ class _PutHelpers:
     def put(self, src_key: str, dst: str, tx: _Tx = ID) -> None:
         raise NotImplementedError
 
-    def fused(self, src_key: str, dsts: tuple) -> None:
-        """Rows of ``src_key`` split evenly over the parameters ``dsts``
-        (OpenCLIP's ``in_proj_weight``/``in_proj_bias`` → q, k, v)."""
+    def fused(self, src_key: str, dsts: tuple,
+              rows: Optional[tuple] = None) -> None:
+        """Rows of ``src_key`` split over the parameters ``dsts``: evenly
+        (OpenCLIP's ``in_proj_weight``/``in_proj_bias`` → q, k, v), or
+        ``rows[j]`` rows each (FLUX's ``linear1`` → qkv, mlp_up)."""
         raise NotImplementedError
 
     def ignore(self, keys) -> None:
@@ -108,8 +118,9 @@ class _Filler(_PutHelpers):
         self.used.add(src_key)
         return self.sd[src_key]
 
-    @torch.no_grad()
-    def put_raw(self, value: torch.Tensor, dst: str, src_key: str = "") -> None:
+    def _checked(self, value: torch.Tensor, dst: str,
+                 src_key: str) -> torch.Tensor:
+        """The parameter ``dst``, once ``value`` is known to fit it."""
         param = self.params.get(dst)
         if param is None:
             raise ConversionError(f"no parameter {dst!r}")
@@ -117,21 +128,29 @@ class _Filler(_PutHelpers):
             raise ConversionError(
                 f"{src_key} -> {dst}: shape {tuple(value.shape)} != "
                 f"parameter {tuple(param.shape)}")
-        param.copy_(value)
         self.filled.add(dst)
+        return param
+
+    @torch.no_grad()
+    def put_raw(self, value: torch.Tensor, dst: str, src_key: str = "") -> None:
+        self._checked(value, dst, src_key).copy_(value)
 
     def put(self, src_key: str, dst: str, tx: _Tx = ID) -> None:
         self.put_raw(tx.fwd(self._take(src_key)), dst, src_key)
 
-    def fused(self, src_key: str, dsts: tuple) -> None:
+    def fused(self, src_key: str, dsts: tuple,
+              rows: Optional[tuple] = None) -> None:
         value = self._take(src_key)
-        rows = value.shape[0] // len(dsts)
-        if value.shape[0] % len(dsts):
+        if rows is None:
+            rows = (value.shape[0] // len(dsts),) * len(dsts)
+        if sum(rows) != value.shape[0]:
             raise ConversionError(
                 f"{src_key}: shape {tuple(value.shape)} does not split into "
-                f"{len(dsts)}")
-        for j, dst in enumerate(dsts):
-            self.put_raw(value[j * rows:(j + 1) * rows], dst, src_key)
+                f"{len(dsts)} parts of {rows} rows")
+        start = 0
+        for dst, n in zip(dsts, rows):
+            self.put_raw(value[start:start + n], dst, src_key)
+            start += n
 
     def ignore(self, keys) -> None:
         self.used.update(keys)
@@ -162,7 +181,8 @@ class _Recorder(_PutHelpers):
     def put(self, src_key: str, dst: str, tx: _Tx = ID) -> None:
         self.records.append((src_key, dst, tx))
 
-    def fused(self, src_key: str, dsts: tuple) -> None:
+    def fused(self, src_key: str, dsts: tuple,
+              rows: Optional[tuple] = None) -> None:
         self.fused_records.append((src_key, dsts))
 
 
@@ -179,7 +199,8 @@ class _Exporter(_PutHelpers):
     def put(self, src_key: str, dst: str, tx: _Tx = ID) -> None:
         self.out[self.prefix + src_key] = tx.inv(self.params[dst].detach())
 
-    def fused(self, src_key: str, dsts: tuple) -> None:
+    def fused(self, src_key: str, dsts: tuple,
+              rows: Optional[tuple] = None) -> None:
         self.out[self.prefix + src_key] = torch.cat(
             [self.params[d].detach() for d in dsts])
 
@@ -335,14 +356,13 @@ def _unet_down_layout(f, cfg, p: str, linear_proj: bool) -> int:
 
 
 def _unet_mid_layout(f, cfg, p: str, linear_proj: bool) -> None:
-    """The middle block by the preset's config. The ``sd15`` preset has no
-    middle transformer (as the JAX preset), so a published SD 1.5 file,
-    whose ``middle_block.1`` is one, fails here on
-    ``middle_block.1.in_layers``."""
+    """The middle block by the config's ``mid_depth``: res, transformer,
+    res (``middle_block.0-2``), or two res blocks (``middle_block.0-1``)
+    where it is 0."""
     _res_block(f, f"{p}middle_block.0", "mid_res_1", has_skip=False)
-    if cfg.transformer_depth[-1]:
+    if cfg.mid_depth:
         _spatial_transformer(f, f"{p}middle_block.1", "mid_attn",
-                             cfg.transformer_depth[-1], linear_proj)
+                             cfg.mid_depth, linear_proj)
         _res_block(f, f"{p}middle_block.2", "mid_res_2", has_skip=False)
     else:
         _res_block(f, f"{p}middle_block.1", "mid_res_2", has_skip=False)
@@ -368,6 +388,34 @@ def _unet_layout(f, cfg, p: str, linear_proj: bool) -> None:
             idx += 1
     f.norm(f"{p}out.0", "norm_out.GroupNorm_0")
     f.conv(f"{p}out.2", "conv_out")
+
+
+def middle_depth_of(sd, prefix: str = "model.diffusion_model.") -> Optional[int]:
+    """The middle transformer's depth in a UNet state dict (the blocks of
+    ``middle_block.1.transformer_blocks`` where ``middle_block.2`` exists,
+    else 0), or None where the file has no middle block. Reads key names
+    only, so a file's header is enough."""
+    mid = f"{prefix}middle_block."
+    keys = [k for k in sd if k.startswith(mid)]
+    if not keys:
+        return None
+    if not any(k.startswith(mid + "2.") for k in keys):
+        return 0
+    blocks = mid + "1.transformer_blocks."
+    return len({k[len(blocks):].split(".", 1)[0] for k in keys
+                if k.startswith(blocks)})
+
+
+def with_middle_of(config, sd, prefix: str = "model.diffusion_model."):
+    """``config`` with the middle depth of the file ``sd`` where the file
+    has a middle block and its depth differs (a published SD 1.5 file
+    for the ``sd15`` preset)."""
+    depth = middle_depth_of(sd, prefix)
+    if depth is None or depth == config.mid_depth:
+        return config
+    log(f"the file's middle block has {depth} transformer block(s); the "
+        f"config has {config.mid_depth}: building the file's")
+    return dataclasses.replace(config, middle_depth=depth)
 
 
 def linear_proj_of(config) -> bool:
@@ -463,23 +511,246 @@ def _identity_conv(channels: int) -> torch.Tensor:
     return torch.eye(channels)[:, :, None, None]
 
 
+class _ShapeChecker(_Filler):
+    """A ``_Filler`` that checks each source tensor's shape against a
+    module (one on the ``meta`` device will do) and copies nothing."""
+
+    def put_raw(self, value: torch.Tensor, dst: str, src_key: str = "") -> None:
+        self._checked(value, dst, src_key)
+
+
 def convert_vae(sd: Mapping[str, torch.Tensor], vae: nn.Module,
                 prefix: str = "first_stage_model.",
                 quant_convs: bool = True) -> None:
-    """LDM ``AutoencoderKL`` → ``vae.AutoencoderKL`` with its encoder (a
-    UNet bundle's). ``quant_convs=False`` takes the BFL ``ae.safetensors``
-    layout, which has none: identity 1×1 convolutions are put in."""
+    """LDM ``AutoencoderKL`` → ``vae.AutoencoderKL``. ``quant_convs=False``
+    takes the BFL ``ae.safetensors`` layout, which has none: identity 1×1
+    convolutions are put in. A VAE built without its encoder (a FLUX
+    bundle decodes only) takes the decoder; the file's encoder keys are
+    shape-checked against an encoder on the ``meta`` device and dropped."""
     cfg = vae.config
     f = _Filler(sd, vae)
-    _vae_layout(f, cfg, prefix, quant_convs)
+    z = cfg.latent_channels
+    if vae.encoder is None:
+        from .vae import AutoencoderKL
+
+        with torch.device("meta"):
+            ghost = AutoencoderKL(cfg, encoder=True)
+        check = _ShapeChecker(sd, ghost)
+        _vae_encoder_layout(check, cfg, prefix, quant_convs)
+        f.used |= check.used
+        _vae_decoder_layout(f, cfg, prefix, quant_convs)
+    else:
+        _vae_layout(f, cfg, prefix, quant_convs)
+        if not quant_convs:
+            f.put_raw(_identity_conv(2 * z), "encoder.quant_conv.weight")
+            f.put_raw(torch.zeros(2 * z), "encoder.quant_conv.bias")
     if not quant_convs:
-        z = cfg.latent_channels
-        f.put_raw(_identity_conv(2 * z), "encoder.quant_conv.weight")
-        f.put_raw(torch.zeros(2 * z), "encoder.quant_conv.bias")
         f.put_raw(_identity_conv(z), "decoder.post_quant_conv.weight")
         f.put_raw(torch.zeros(z), "decoder.post_quant_conv.bias")
     f.finish(expect_prefix=prefix,
              skip=lambda k: "loss" in k or "model_ema" in k)
+
+
+def export_vae(vae: nn.Module, prefix: str = "",
+               quant_convs: bool = True) -> dict:
+    """A VAE with its encoder in the LDM layout (``quant_convs=False``:
+    BFL's ``ae.safetensors``, whose identity quant convs are left out)."""
+    e = _Exporter(vae, prefix)
+    _vae_layout(e, vae.config, "", quant_convs)
+    return e.out
+
+
+# ---------------------------------------------------------------------------
+# T5 (HF T5EncoderModel / UMT5EncoderModel layout)
+# ---------------------------------------------------------------------------
+
+T5_TIED = "encoder.embed_tokens.weight"     # the tied copy HF also emits
+
+
+def _t5_layout(f, cfg) -> None:
+    f.put("shared.weight", "shared.weight")
+    for i in range(cfg.num_layers):
+        blk = f"encoder.block.{i}.layer"
+        for proj in ("q", "k", "v", "o"):
+            f.put(f"{blk}.0.SelfAttention.{proj}.weight",
+                  f"attn_{i}.{proj}.weight")
+        f.put(f"{blk}.0.layer_norm.weight", f"ln_attn_{i}.weight")
+        bias_key = f"{blk}.0.SelfAttention.relative_attention_bias.weight"
+        if cfg.per_layer_rel_bias:
+            f.put(bias_key, f"rel_bias_{i}.weight")
+        elif i == 0:
+            f.put(bias_key, "rel_bias.weight")
+        for proj in ("wi_0", "wi_1", "wo"):
+            f.put(f"{blk}.1.DenseReluDense.{proj}.weight",
+                  f"ff_{i}.{proj}.weight")
+        f.put(f"{blk}.1.layer_norm.weight", f"ln_ff_{i}.weight")
+    f.put("encoder.final_layer_norm.weight", "final_ln.weight")
+
+
+def convert_t5(sd: Mapping[str, torch.Tensor], module: nn.Module) -> None:
+    """HF ``T5EncoderModel``/``UMT5EncoderModel`` state dict →
+    ``t5.T5Encoder``, in place (the layouts agree: renaming only). The
+    tied ``encoder.embed_tokens.weight`` is consumed; any other key left
+    over raises."""
+    f = _Filler(sd, module)
+    _t5_layout(f, module.config)
+    if T5_TIED in sd:
+        f.ignore([T5_TIED])
+    f.finish(expect_prefix="")
+
+
+def export_t5(module: nn.Module) -> dict:
+    """A ``T5Encoder`` in the HF layout, with the tied embedding copy HF
+    writes."""
+    e = _Exporter(module)
+    _t5_layout(e, module.config)
+    e.out[T5_TIED] = e.out["shared.weight"]
+    return e.out
+
+
+def export_clip_hf(module: nn.Module, root: str = "") -> dict:
+    """A CLIP tower in the HF ``CLIPTextModel`` layout under ``root``
+    (FLUX's ``clip_l.safetensors``: bare ``text_model.*``), with the
+    ``position_ids`` a published file carries."""
+    e = _Exporter(module, root)
+    _clip_hf_layout(e, module.config, "text_model.")
+    e.out[root + "text_model.embeddings.position_ids"] = torch.arange(
+        module.config.max_len)[None]
+    return e.out
+
+
+# ---------------------------------------------------------------------------
+# FLUX transformer (BFL layout)
+# ---------------------------------------------------------------------------
+
+FLUX_PREFIXED = "model.diffusion_model."         # ComfyUI single-file repack
+
+
+def _flux_patch_perm(p: int, c: int) -> torch.Tensor:
+    """Patch-token feature order, BFL → the port. BFL patchifies
+    ``(c, ph, pw)``-major, ``dit.patchify`` flattens ``(ph, pw, c)``:
+    ``perm[j]`` is the BFL feature that holds the port's feature ``j``."""
+    return torch.arange(c * p * p).reshape(c, p, p).permute(1, 2, 0).reshape(-1)
+
+
+def _flux_txs(cfg) -> tuple[_Tx, _Tx, _Tx]:
+    """(img_in's columns, final_layer.linear's rows: both permuted by
+    ``_flux_patch_perm``; the final adaLN's [shift | scale] rows padded
+    with a zero gate third, which the final layer never reads)."""
+    perm = _flux_patch_perm(cfg.patch_size, cfg.in_channels)
+    inv = torch.argsort(perm)
+
+    def gate0(w: torch.Tensor) -> torch.Tensor:
+        return torch.cat([w, w.new_zeros((w.shape[0] // 2, *w.shape[1:]))])
+
+    return (_Tx("cols", lambda w: w[:, perm.to(w.device)],
+                lambda w: w[:, inv.to(w.device)]),
+            _Tx("rows", lambda w: w[perm.to(w.device)],
+                lambda w: w[inv.to(w.device)]),
+            _Tx("gate0", gate0, lambda w: w[: w.shape[0] * 2 // 3]))
+
+
+def _flux_layout(f, cfg, p: str) -> None:
+    """The BFL walk: ``img_in``, ``txt_in``, the embedders, double blocks
+    (``{img,txt}_{mod.lin,attn.qkv,attn.norm,attn.proj,mlp.0,mlp.2}``),
+    single blocks (``linear1``'s rows ``[3h | 4h]`` → qkv, mlp_up),
+    ``final_layer``."""
+    cols, rows, gate0 = _flux_txs(cfg)
+    h = cfg.hidden
+    f.put(f"{p}img_in.weight", "img_in.weight", cols)
+    f.put(f"{p}img_in.bias", "img_in.bias")
+    f.linear(f"{p}txt_in", "txt_in")
+    embedders = ["time_in", "vector_in"]
+    if cfg.guidance_embed:
+        embedders.append("guidance_in")
+    for name in embedders:
+        f.linear(f"{p}{name}.in_layer", f"{name}.in_layer")
+        f.linear(f"{p}{name}.out_layer", f"{name}.out_layer")
+    for i in range(cfg.depth_double):
+        src, dst = f"{p}double_blocks.{i}", f"double_{i}"
+        for s in ("img", "txt"):
+            f.linear(f"{src}.{s}_mod.lin", f"{dst}.{s}_mod.mod")
+            f.linear(f"{src}.{s}_attn.qkv", f"{dst}.{s}_qkv.qkv")
+            f.put(f"{src}.{s}_attn.norm.query_norm.scale",
+                  f"{dst}.{s}_qkv.q_scale")
+            f.put(f"{src}.{s}_attn.norm.key_norm.scale",
+                  f"{dst}.{s}_qkv.k_scale")
+            f.linear(f"{src}.{s}_attn.proj", f"{dst}.{s}_proj")
+            f.linear(f"{src}.{s}_mlp.0", f"{dst}.{s}_mlp_up")
+            f.linear(f"{src}.{s}_mlp.2", f"{dst}.{s}_mlp_down")
+    for i in range(cfg.depth_single):
+        src, dst = f"{p}single_blocks.{i}", f"single_{i}"
+        for part in ("weight", "bias"):
+            f.fused(f"{src}.linear1.{part}",
+                    (f"{dst}.qkv.qkv.{part}", f"{dst}.mlp_up.{part}"),
+                    rows=(3 * h, 4 * h))
+        f.put(f"{src}.norm.query_norm.scale", f"{dst}.qkv.q_scale")
+        f.put(f"{src}.norm.key_norm.scale", f"{dst}.qkv.k_scale")
+        f.linear(f"{src}.linear2", f"{dst}.out")
+        f.linear(f"{src}.modulation.lin", f"{dst}.mod.mod")
+    for part in ("weight", "bias"):
+        f.put(f"{p}final_layer.adaLN_modulation.1.{part}",
+              f"final_mod.mod.{part}", gate0)
+    f.put(f"{p}final_layer.linear.weight", "img_out.weight", rows)
+    f.put(f"{p}final_layer.linear.bias", "img_out.bias", rows)
+
+
+def _blocks_under(sd, head: str) -> int:
+    """The number of distinct ``{head}{N}.`` block indices among the keys."""
+    return len({k[len(head):].split(".", 1)[0] for k in sd
+                if k.startswith(head)})
+
+
+def with_flux_depth_of(config, sd, prefix: str = ""):
+    """``config`` with the double and single block counts of the FLUX file
+    ``sd`` where they differ (a lighter published variant, or a file cut
+    in depth); widths are never read from the file."""
+    double = _blocks_under(sd, f"{prefix}double_blocks.")
+    single = _blocks_under(sd, f"{prefix}single_blocks.")
+    if (double, single) == (config.depth_double, config.depth_single):
+        return config
+    log(f"the FLUX file has {double} double and {single} single blocks; "
+        f"the config has {config.depth_double} and {config.depth_single}: "
+        "building the file's")
+    return dataclasses.replace(config, depth_double=double,
+                               depth_single=single)
+
+
+def t5_layers_of(sd) -> int:
+    """The encoder blocks of a T5 file (HF ``encoder.block.N``)."""
+    return _blocks_under(sd, "encoder.block.")
+
+
+def flux_prefix_of(sd: Mapping[str, torch.Tensor]) -> str:
+    """``model.diffusion_model.`` for a single-file repack, else bare."""
+    return (FLUX_PREFIXED if any(k.startswith(FLUX_PREFIXED) for k in sd)
+            else "")
+
+
+def convert_flux(sd: Mapping[str, torch.Tensor], module: nn.Module,
+                 prefix: str = "") -> None:
+    """BFL FLUX transformer (the published ``flux1-dev``/``flux1-schnell``
+    keys, bare or under ``model.diffusion_model.``) → ``dit.DiT``, in
+    place. A preset with distilled guidance refuses a file without
+    ``guidance_in.*`` (schnell)."""
+    cfg = module.config
+    if cfg.guidance_embed and f"{prefix}guidance_in.in_layer.weight" not in sd:
+        raise ConversionError(
+            "preset expects distilled guidance (guidance_embed=True) but "
+            "the checkpoint has no guidance_in.* keys: use a schnell-style "
+            "preset with guidance_embed=False")
+    f = _Filler(sd, module)
+    _flux_layout(f, cfg, prefix)
+    f.finish(expect_prefix=prefix)
+
+
+def export_flux(module: nn.Module, prefix: str = "") -> dict:
+    """A ``DiT`` in the BFL layout (views of the parameters, except the
+    permuted ``img_in``/``final_layer.linear`` and the concatenated
+    ``linear1``)."""
+    e = _Exporter(module, prefix)
+    _flux_layout(e, module.config, "")
+    return e.out
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +769,6 @@ SD15_CLIP_PREFIX = SD15_CLIP_ROOT + "text_model."
 FLUX_DIFFUSERS_HINT = "transformer_blocks."
 FLUX_SINGLE_DIFFUSERS_HINT = "single_transformer_blocks."
 _NOT_PORTED = {
-    "flux": "FLUX transformer files are not ported yet (ROADMAP.md, item "
-            "A.7b: T5, FluxTextStack, convert_flux)",
     "sd3": "SD3 MMDiT files are not ported yet (ROADMAP.md, item 13: SD3 "
            "presets)",
     "wan": "WAN transformer files are not ported yet (ROADMAP.md, item 15: "
@@ -535,14 +804,26 @@ def detect_layout(sd: Mapping[str, torch.Tensor]) -> str:
 
 
 def convert_checkpoint(path: Path, bundle) -> None:
-    """Fill a UNet ``ModelBundle`` (preset ``sdxl``/``sd15`` or one of
-    their shape) from a single-file checkpoint, in place; each tensor is
-    shape-checked against the live module and copied onto its device."""
+    """Fill a ``ModelBundle`` from a single-file checkpoint, in place: a
+    UNet bundle (preset ``sdxl``/``sd15`` or one of their shape) with its
+    VAE and CLIP stack, or a DiT bundle's transformer from a FLUX file;
+    each tensor is shape-checked against the live module and copied onto
+    its device."""
     with SafetensorsFile(path) as sd:
         layout = detect_layout(sd)
         log(f"converting {path} (layout: {layout})")
         if layout in _NOT_PORTED:
             raise ConversionError(_NOT_PORTED[layout])
+        if layout == "flux":
+            if bundle.kind != "dit":
+                raise ConversionError(
+                    "a FLUX transformer checkpoint needs a dit preset; "
+                    f"{bundle.preset.name!r} is {bundle.kind!r}")
+            convert_flux(sd, bundle.core, flux_prefix_of(sd))
+            log("FLUX transformer converted; the VAE and the text encoders "
+                "ship in files of their own (load_vae_file, "
+                "load_text_encoder_files)")
+            return
         if bundle.kind != "unet":
             raise ConversionError(
                 f"a {layout} checkpoint needs a unet preset; "
@@ -594,11 +875,7 @@ def export_checkpoint(bundle) -> dict[str, torch.Tensor]:
         raise ConversionError(f"preset {preset.name!r} has no CLIP stack to "
                               "export")
     for root, enc in roots:
-        e = _Exporter(enc, root)
-        _clip_hf_layout(e, enc.config, "text_model.")
-        out.update(e.out)
-        out[root + "text_model.embeddings.position_ids"] = torch.arange(
-            enc.config.max_len)[None]
+        out.update(export_clip_hf(enc, root))
     return out
 
 
@@ -743,7 +1020,8 @@ def load_controlnet_checkpoint(path: Path, device, config=None):
     from .controlnet import ControlNet, ControlNetBundle
 
     with SafetensorsFile(path) as sd:
-        cfg = config or controlnet_config_of(sd)
+        cfg = config or with_middle_of(controlnet_config_of(sd), sd,
+                                       CONTROLNET_PREFIX)
         with torch.device("meta"):
             model = ControlNet(cfg)
         model = model.to_empty(device=device)

@@ -14,7 +14,11 @@ layout rules:
 The CLIP towers of ``models/clip.py`` carry by the same rules
 (``tok_emb/embedding``, ``pos_emb``, ``layer_{i}/attn/q_proj/kernel``,
 ``text_projection/kernel``; ``ModelBundle.load_from_jax(clip_l=,
-clip_g=)``).
+clip_g=)``), and so does T5 (``models/t5.py``: ``shared/embedding``,
+``rel_bias/embedding`` or ``rel_bias_{i}/embedding``,
+``attn_{i}/{q,k,v,o}/kernel``, the RMS norms' ``weight``); a FLUX
+bundle's ``FluxTextStack`` takes both towers
+(``ModelBundle.load_from_jax(t5=, clip_l=)``).
 
 The tree is a nested mapping whose leaves are numpy arrays (or anything
 with ``.shape`` for the shape-only check, e.g. ``jax.ShapeDtypeStruct``);

@@ -10,7 +10,24 @@ A name maps to an architecture preset and, under the registry's
   architecture facts it was saved with);
 - ``<root>/<name>.safetensors``: a published single-file LDM checkpoint,
   converted on first load (``models/convert.py``) together with the
-  preset's published CLIP stack (``models/clip.py``).
+  preset's published CLIP stack (``models/clip.py``); for ``flux``, the
+  BFL transformer alone.
+
+FLUX's other files (T5-XXL, CLIP-L, ``ae.safetensors``) are converted by
+``load_text_encoder_files`` and ``load_vae_file``, in practice once, by
+``python -m comfyui_distributed_tpu_torch convert --preset flux
+--checkpoint … --t5 … --clip-l … --vae …`` into ``<root>/flux/``. The
+``flux`` preset's text stack (``models/t5.py``, T5-XXL + CLIP-L, fp32)
+is built only to be filled: from a file or a converted bundle, never
+drawn at full width (4.76 B T5 parameters, 19 GB); without one the
+bundle encodes with the hash-tokenised ``TextEncoder``.
+
+A file's depths decide the core's, read before it is built
+(``preset_for_checkpoint``): a UNet's middle depth (a published SD 1.5
+file has a middle transformer the JAX ``sd15`` preset lacks), a FLUX
+transformer's double and single block counts and T5's layers (a lighter
+variant, or a file cut in depth); a converted bundle's manifest records
+them. The JAX package builds the preset's depths and refuses such files.
 
 A bundle about to be filled from a checkpoint builds its denoiser on the
 ``meta`` device and then allocates it without drawing (``to_empty``), as
@@ -53,6 +70,7 @@ from .controlnet import PRESETS as CONTROLNET_PRESETS
 from .controlnet import ControlNetBundle, init_controlnet
 from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
+from .t5 import FluxTextStack, T5Encoder
 from .layers import flax_init_
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
 from .unet import UNet2D, UNetConfig
@@ -71,7 +89,8 @@ class ModelPreset:
     vae: VAEConfig
     text: TextEncoderConfig
     dit: Optional[DiTConfig] = None       # flow (FLUX-class) models
-    clip: Optional[str] = None            # published text stack: "sdxl" | "clip-l"
+    # published text stack: "sdxl" | "clip-l" | "flux" (T5-XXL + CLIP-L)
+    clip: Optional[str] = None
 
     @property
     def kind(self) -> str:
@@ -89,14 +108,15 @@ PRESETS: dict[str, ModelPreset] = {
                         clip="clip-l"),
     "tiny": ModelPreset("tiny", UNetConfig.tiny(), VAEConfig.tiny(),
                         TextEncoderConfig.tiny()),
-    # FLUX.1 at full width with the hash-tokenised text encoder at T5's
-    # width (4096) and CLIP-L's pooled width (768); 16-channel VAE
+    # FLUX.1 at full width, its T5-XXL + CLIP-L stack from files; at
+    # random init the hash-tokenised text encoder at T5's width (4096) and
+    # CLIP-L's pooled width (768); 16-channel VAE
     "flux": ModelPreset(
         "flux", None,
         VAEConfig(latent_channels=16, scaling_factor=0.3611,
                   shift_factor=0.1159),
         TextEncoderConfig(output_dim=4096, pooled_dim=768),
-        dit=DiTConfig.flux()),
+        dit=DiTConfig.flux(), clip="flux"),
     "flux-tiny": ModelPreset("flux-tiny", None, VAEConfig.tiny(),
                              TextEncoderConfig.tiny(), dit=DiTConfig.tiny()),
 }
@@ -117,6 +137,43 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
     module = _empty(build, device)
     flax_init_(module, generator)
     return module
+
+
+def preset_for_checkpoint(preset: ModelPreset,
+                          ckpt: Optional[Path]) -> ModelPreset:
+    """``preset`` with the depths of ``ckpt``, read before anything is
+    built: a UNet's middle depth, a DiT's double and single block counts.
+    From a converted bundle's manifest (``arch.middle_depth``,
+    ``depth``) or a single file's header (``convert.with_middle_of``,
+    ``convert.with_flux_depth_of``). Widths always come from the
+    preset."""
+    if ckpt is None:
+        return preset
+    from ..utils.safetensors import SafetensorsFile
+    from .convert import (detect_layout, flux_prefix_of, with_flux_depth_of,
+                          with_middle_of)
+
+    ckpt = Path(ckpt)
+    unet, dit = preset.unet, preset.dit
+    if ckpt.is_dir():
+        manifest = (json.loads((ckpt / MANIFEST).read_text())
+                    if (ckpt / MANIFEST).is_file() else {})
+        middle = manifest.get("arch", {}).get("middle_depth")
+        if unet is not None and middle is not None:
+            unet = dataclasses.replace(unet, middle_depth=middle)
+        depth = manifest.get("depth")
+        if dit is not None and depth:
+            dit = dataclasses.replace(dit, depth_double=depth["double"],
+                                      depth_single=depth["single"])
+    else:
+        with SafetensorsFile(ckpt) as sd:
+            if unet is not None:
+                unet = with_middle_of(unet, sd)
+            elif detect_layout(sd) == "flux":
+                dit = with_flux_depth_of(dit, sd, flux_prefix_of(sd))
+    if (unet, dit) == (preset.unet, preset.dit):
+        return preset
+    return dataclasses.replace(preset, unet=unet, dit=dit)
 
 
 def _weights_tag(source: Optional[Path], seed: int = 0) -> str:
@@ -184,12 +241,18 @@ class ModelBundle:
         """Provenance of the denoiser's weights, for result-cache keys."""
         return f"{self.preset.name}/{_weights_tag(self._weights_source, self.seed)}"
 
-    def build_clip_stack(self, tiny: Optional[bool] = None) -> nn.Module:
-        """The preset's published text stack (CLIP-L, or CLIP-L + CLIP-G
-        for ``sdxl``), random-initialised from the bundle's seed; the
-        bundle's text encoder becomes its ``CLIPConditioner``. ``tiny``
-        (default: the preset's text encoder is under 256 wide) takes the
-        test-size towers."""
+    def build_clip_stack(self, tiny: Optional[bool] = None,
+                         empty: bool = False,
+                         empty_t5: Optional[bool] = None,
+                         t5_layers: Optional[int] = None) -> nn.Module:
+        """The preset's published text stack (CLIP-L, CLIP-L + CLIP-G for
+        ``sdxl``, T5 + CLIP-L for ``flux``), random-initialised from the
+        bundle's seed, or allocated without drawing (``empty``; for T5
+        alone ``empty_t5``) for weights about to be loaded; the bundle's
+        text encoder becomes its ``CLIPConditioner`` (the
+        ``FluxTextStack`` itself for ``flux``). ``tiny`` (default: the
+        preset's text encoder is under 256 wide) takes the test-size
+        towers; ``t5_layers`` sets T5's depth (a file's)."""
         if self.clip_stack is not None:
             return self.clip_stack
         kind = self.preset.clip
@@ -198,11 +261,25 @@ class ModelBundle:
                 f"preset {self.preset.name!r} has no published CLIP stack")
         if tiny is None:
             tiny = self.preset.text.width < 256
-        cfg_l, cfg_g = SDXLTextStack.configs(tiny)
         gen = seed_generator(self.seed + 1, self.device)
 
+        def make(build, blank: bool) -> nn.Module:
+            return (_empty(build, self.device) if blank
+                    else _random(build, self.device, gen))
+
         def tower(cfg):
-            return _random(lambda: CLIPTextTransformer(cfg), self.device, gen)
+            return make(lambda: CLIPTextTransformer(cfg), empty)
+        if kind == "flux":
+            cfg_t5, cfg_l = FluxTextStack.configs(tiny)
+            if t5_layers is not None:
+                cfg_t5 = dataclasses.replace(cfg_t5, num_layers=t5_layers)
+            t5 = make(lambda: T5Encoder(cfg_t5),
+                      empty if empty_t5 is None else empty_t5)
+            self.clip_stack = FluxTextStack(t5, tower(cfg_l)).eval()
+            self.text_encoder = self.clip_stack
+            self._stamp_text_encoder()
+            return self.clip_stack
+        cfg_l, cfg_g = SDXLTextStack.configs(tiny)
         if kind == "sdxl":
             self.clip_stack = SDXLTextStack(tower(cfg_l), tower(cfg_g)).eval()
         else:
@@ -222,6 +299,9 @@ class ModelBundle:
         elif self.preset.clip == "sdxl":
             state["clip_l"] = self.clip_stack.clip_l
             state["clip_g"] = self.clip_stack.clip_g
+        elif self.preset.clip == "flux":
+            state["clip_l"] = self.clip_stack.clip_l
+            state["t5"] = self.clip_stack.t5
         else:
             state["clip_l"] = self.clip_stack
         return state
@@ -236,6 +316,8 @@ class ModelBundle:
             if hasattr(core, field):
                 v = getattr(core, field)
                 fp[field] = list(v) if isinstance(v, tuple) else v
+        if getattr(core, "middle_depth", -1) >= 0:
+            fp["middle_depth"] = core.middle_depth
         return fp
 
     def save_checkpoint(self, ckpt: Path) -> None:
@@ -248,10 +330,15 @@ class ModelBundle:
                    ckpt / STATE_FILE)
         tiny_clip = (self.clip_stack is not None
                      and entries["clip_l"].config.width < 256)
-        (ckpt / MANIFEST).write_text(json.dumps(
-            {"preset": self.preset.name, "format": "torch",
-             "entries": sorted(entries), "tiny_clip": tiny_clip,
-             "arch": self._arch_fingerprint()}))
+        manifest = {"preset": self.preset.name, "format": "torch",
+                    "entries": sorted(entries), "tiny_clip": tiny_clip,
+                    "arch": self._arch_fingerprint()}
+        if self.preset.dit is not None:
+            manifest["depth"] = {"double": self.preset.dit.depth_double,
+                                 "single": self.preset.dit.depth_single}
+        if "t5" in entries:
+            manifest["t5_layers"] = entries["t5"].config.num_layers
+        (ckpt / MANIFEST).write_text(json.dumps(manifest))
         log(f"saved checkpoint {ckpt}")
 
     @torch.no_grad()
@@ -281,7 +368,9 @@ class ModelBundle:
                 f"but the preset resolves to {self._arch_fingerprint()}: "
                 "re-convert the checkpoint for this preset")
         if "clip_l" in manifest.get("entries", ()):
-            self.build_clip_stack(tiny=bool(manifest.get("tiny_clip")))
+            self.build_clip_stack(tiny=bool(manifest.get("tiny_clip")),
+                                  empty=True,
+                                  t5_layers=manifest.get("t5_layers"))
         targets = self._state_entries()
         state = torch.load(state_file, map_location="cpu", mmap=True,
                            weights_only=True)
@@ -297,21 +386,55 @@ class ModelBundle:
 
     def load_safetensors_checkpoint(self, path: Path) -> None:
         """Convert a published single-file checkpoint (SDXL or SD 1.5 LDM
-        layout) into this bundle in place, with the preset's CLIP
-        stack."""
+        layout, with the preset's CLIP stack; or a FLUX transformer) into
+        this bundle in place. A FLUX file carries no text encoder: its
+        stack is built by ``load_text_encoder_files`` only."""
         from .convert import convert_checkpoint
 
-        if self.preset.clip is not None:
+        if self.preset.clip not in (None, "flux"):
             self.build_clip_stack()
         self._weights_source = Path(path)
         convert_checkpoint(path, self)
+        self._stamp_text_encoder()
+
+    def load_text_encoder_files(self, t5: Optional[Path] = None,
+                                clip_l: Optional[Path] = None) -> None:
+        """Convert the text-encoder files a FLUX distribution ships
+        (``t5xxl_*.safetensors`` in the HF T5 layout, ``clip_l.safetensors``
+        as HF ``text_model.*``) into this bundle's ``FluxTextStack``,
+        built first where there is none (each tower given a file is
+        allocated without drawing)."""
+        from ..utils.safetensors import SafetensorsFile
+        from .convert import convert_clip_hf, convert_t5, t5_layers_of
+
+        if self.preset.clip != "flux":
+            raise ValidationError(
+                "separate text-encoder files are a flux-stack feature; "
+                f"preset {self.preset.name!r} bundles its encoders in the "
+                "single-file checkpoint")
+        if self.clip_stack is None:
+            layers = None
+            if t5 is not None:
+                with SafetensorsFile(t5) as sd:
+                    layers = t5_layers_of(sd)
+            self.build_clip_stack(empty=clip_l is not None,
+                                  empty_t5=t5 is not None, t5_layers=layers)
+        if t5 is not None:
+            with SafetensorsFile(t5) as sd:
+                convert_t5(sd, self.clip_stack.t5)
+            if self._weights_source is None:
+                self._weights_source = Path(t5)
+        if clip_l is not None:
+            with SafetensorsFile(clip_l) as sd:
+                convert_clip_hf(sd, self.clip_stack.clip_l)
         self._stamp_text_encoder()
 
     def load_vae_file(self, path: Path) -> None:
         """Convert a standalone VAE ``.safetensors``: LDM-embedded
         (``first_stage_model.*``), the SD VAE (bare keys with
         ``quant_conv``) or BFL's ``ae.safetensors`` (bare, no quant
-        convs)."""
+        convs). A DiT bundle's VAE decodes only: the file's encoder is
+        shape-checked and dropped (``convert.convert_vae``)."""
         from ..utils.safetensors import SafetensorsFile
         from .convert import convert_vae
 
@@ -328,11 +451,12 @@ class ModelBundle:
                       text: Optional[Mapping] = None,
                       vae_enc: Optional[Mapping] = None,
                       clip_l: Optional[Mapping] = None,
-                      clip_g: Optional[Mapping] = None) -> "ModelBundle":
+                      clip_g: Optional[Mapping] = None,
+                      t5: Optional[Mapping] = None) -> "ModelBundle":
         """Replace the weights with the JAX package's trees (UNet or DiT
         params, VAE decoder params, and where given the hash text
-        encoder's, the VAE encoder's and the CLIP towers' params; a part
-        without a tree keeps its weights)."""
+        encoder's, the VAE encoder's, the CLIP towers' and FLUX's T5
+        params; a part without a tree keeps its weights)."""
         load_from_jax(self.core, core)
         load_from_jax(self.pipeline.vae.decoder, vae_dec)
         if text is not None:
@@ -345,9 +469,14 @@ class ModelBundle:
                 raise ValueError(f"the {self.preset.name} bundle has no "
                                  "VAE encoder to carry vae_enc into")
             load_from_jax(self.pipeline.vae.encoder, vae_enc)
-        if clip_l is not None or clip_g is not None:
+        if clip_l is not None or clip_g is not None or t5 is not None:
             stack = self.build_clip_stack()
-            if self.preset.clip == "sdxl":
+            if self.preset.clip == "flux":
+                if t5 is not None:
+                    load_from_jax(stack.t5, t5)
+                if clip_l is not None:
+                    load_from_jax(stack.clip_l, clip_l)
+            elif self.preset.clip == "sdxl":
                 load_from_jax(stack.clip_l, clip_l)
                 load_from_jax(stack.clip_g, clip_g)
             else:
@@ -476,6 +605,7 @@ class ModelRegistry:
                         f"unknown model {name!r}; have {self.available()}")
                 t0 = time.perf_counter()
                 ckpt = self.checkpoint_for(name)
+                preset = preset_for_checkpoint(preset, ckpt)
                 bundle = ModelBundle(preset, self.device, self.seed,
                                      empty_core=ckpt is not None)
                 if ckpt is not None and ckpt.is_dir():

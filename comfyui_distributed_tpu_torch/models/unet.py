@@ -4,8 +4,15 @@
 depths [0,2,10], ctx 2048, adm 2816); ``UNetConfig.sd15()`` SD 1.5's
 (320·[1,2,4,4], one transformer block at each of the first three levels,
 8 heads, ctx 768, no adm) as the JAX package's preset gives it: a
-conv-only fourth level and no middle transformer, where the published SD
-1.5 has one; ``UNetConfig.tiny()`` a 2-level toy for tests. The public
+conv-only fourth level and no middle transformer; ``UNetConfig.tiny()``
+a 2-level toy for tests.
+
+The middle transformer's depth is ``middle_depth`` where it is set, else
+JAX's rule, the last level's ``transformer_depth``. A published SD 1.5
+file has a middle transformer of depth 1 (1280 channels, 8 heads of
+160) under the conv-only fourth level: the registry reads it from the
+file (``convert.middle_depth_of``) and builds that core, a departure
+from the JAX preset, which cannot load such a file. The public
 forward takes and returns NHWC like the JAX model; inside it runs NCHW. ``forward(..., control=)`` takes a ControlNet's
 residuals (``models/controlnet.py``) in that NCHW layout.
 """
@@ -37,6 +44,7 @@ class UNetConfig:
     context_dim: int = 2048
     adm_in_channels: int = 0       # SDXL: 2816 (pooled text + size conds)
     dtype: str = "bfloat16"
+    middle_depth: int = -1         # -1: transformer_depth[-1] (JAX's rule)
 
     @classmethod
     def sdxl(cls) -> "UNetConfig":
@@ -57,6 +65,12 @@ class UNetConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
+
+    @property
+    def mid_depth(self) -> int:
+        """Transformer blocks in the middle block (0: two res blocks)."""
+        return (self.transformer_depth[-1] if self.middle_depth < 0
+                else self.middle_depth)
 
     def heads_for(self, channels: int) -> int:
         if self.num_heads > 0:
@@ -102,8 +116,8 @@ class UNet2D(nn.Module):
                 skips.append(ch)
         mid = mc * cfg.channel_mult[-1]
         self.mid_res_1 = ResBlock(cur, mid, time_dim, dt)
-        if cfg.transformer_depth[-1]:
-            self.mid_attn = attn(mid, cfg.transformer_depth[-1])
+        if cfg.mid_depth:
+            self.mid_attn = attn(mid, cfg.mid_depth)
         self.mid_res_2 = ResBlock(mid, mid, time_dim, dt)
         cur = mid
         for level in reversed(range(len(cfg.channel_mult))):
@@ -159,7 +173,7 @@ class UNet2D(nn.Module):
                 h = block(f"down_{level}_ds")(h)
                 skips.append(h)
         h = self.mid_res_1(h, emb)
-        if cfg.transformer_depth[-1]:
+        if cfg.mid_depth:
             h = self.mid_attn(h, context)
         h = self.mid_res_2(h, emb)
         if control is not None:

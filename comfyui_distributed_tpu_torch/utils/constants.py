@@ -121,6 +121,11 @@ def tokenizer_dir() -> Optional[str]:
     return _read("CDT_TOKENIZER_DIR", None, str)
 
 
+def t5_tokenizer_dir() -> Optional[str]:
+    """T5 tokenizer directory (its ``tokenizer.json``; FLUX's text stack)."""
+    return _read("CDT_T5_TOKENIZER_DIR", None, str)
+
+
 def tile_journal_dir() -> str:
     """Crash-resume journal of completed tile tasks ("" = off)."""
     return _read("CDT_TILE_JOURNAL_DIR", "", str)

@@ -12,8 +12,14 @@ whole file. A caller copies each tensor where it belongs (a parameter's
 ``copy_``, which casts to that parameter's dtype and device) and drops
 it. A tensor whose bytes are not aligned to its element size is copied
 once into an aligned buffer. ``save_file`` computes every offset from
-the shapes first, writes the header, then streams each tensor (moved
-to the host and cast one at a time).
+the shapes first, writes the header, then streams each tensor (cast
+where it lies, then moved to the host, one at a time).
+
+The dtypes are those of the published checkpoints: F64/F32/F16/BF16,
+the two fp8 formats (``F8_E4M3`` → ``torch.float8_e4m3fn``, ``F8_E5M2``
+→ ``torch.float8_e5m2``; FLUX and T5 files are often published in
+e4m3), I64/I32/I16/I8, U8 and BOOL. A reader never computes in fp8: the
+parameter's ``copy_`` casts.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch
 
 DTYPES = {"F16": torch.float16, "BF16": torch.bfloat16,
           "F32": torch.float32, "F64": torch.float64,
-          "I64": torch.int64, "I32": torch.int32}
+          "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
+          "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+          "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 NAMES = {v: k for k, v in DTYPES.items()}
 MAX_HEADER = 100 * 1024 * 1024      # bytes of JSON a header may take
 ALIGN = 8                           # the writer pads the header to this
@@ -182,6 +190,7 @@ def save_file(tensors: Mapping[str, torch.Tensor], path: Union[str, Path],
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for name, t in tensors.items():
-            host = t.detach().to("cpu", dtype_of(t)).contiguous()
+            # cast where the tensor lies (on the card: fewer bytes to move)
+            host = t.detach().to(dtype_of(t)).to("cpu").contiguous()
             f.write(memoryview(host.view(-1).view(torch.uint8).numpy()))
     return 8 + len(raw) + offset

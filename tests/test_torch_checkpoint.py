@@ -193,10 +193,15 @@ def test_convert_cli_then_restore_matches_jax(env, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--t5", "t5.safetensors"], "A.7b"),
-    (["--clip-l", "l.safetensors"], "A.7b"),
+    # FLUX's text-encoder files are ported: on a preset whose single file
+    # bundles its encoders they are refused (ids kept from when they
+    # named item A.7b), and a missing file is refused before any work
+    pytest.param(["--t5", "t5.safetensors"], "FLUX's text-encoder files",
+                 id="args0-A.7b"),
+    pytest.param(["--preset", "flux", "--clip-l", "l.safetensors"],
+                 "no such file", id="args1-A.7b"),
     (["--checkpoint-low", "low.safetensors"], "item 15"),
-    (["--preset", "flux"], "no single-file checkpoint layout"),
+    (["--preset", "tiny"], "no single-file checkpoint layout"),
 ])
 def test_convert_cli_refusals(args, match, tmp_path, capsys):
     argv = ["convert", "--checkpoint", "x.safetensors", "--out",

@@ -15,6 +15,7 @@ raise ``ConversionError``; so do a published SD 1.5 middle block and the
 FLUX, SD3 and WAN layouts."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -436,31 +437,92 @@ def test_unfilled_parameter_raises(tiny_unet_sd):
         f.finish()
 
 
-def test_published_sd15_middle_block_is_refused(tiny_unet_sd):
+def _narrow_sd15(middle_depth=-1):
+    """SD 1.5's shape (4 levels, the fourth conv-only, 8 heads, context
+    768, 1×1-conv projections) at 32·[1,2,4,4] channels."""
+    return dataclasses.replace(tunet.UNetConfig.sd15(), model_channels=32,
+                               dtype="float32", middle_depth=middle_depth)
+
+
+def test_published_sd15_middle_block_is_refused(tmp_path, monkeypatch):
     """A published SD 1.5 file has a middle transformer at
-    ``middle_block.1`` and the second res block at ``middle_block.2``; the
-    sd15 preset (both packages') has none, so both converters fail on the
-    res block they expect at ``middle_block.1``."""
-    cfg, sd = tiny_unet_sd
-    p = "model.diffusion_model.middle_block."
-    published = {k.replace(p + "1.", p + "2."): v for k, v in sd.items()}
-    for part in ("norm.weight", "norm.bias", "proj_in.weight", "proj_in.bias"):
-        published[p + "1." + part] = torch.zeros(64)
-    mid_cfg = dataclasses.replace(cfg, transformer_depth=(0, 0))
-    with pytest.raises(ConversionError,
-                       match=r"missing source key .*middle_block\.1\.in_layers"):
-        tconvert.convert_unet(published, _fresh_unet(mid_cfg))
-    jcfg = dataclasses.replace(junet.UNetConfig.tiny(**F32), transformer_depth=(0, 0))
+    ``middle_block.1`` and the second res block at ``middle_block.2``,
+    which the ``sd15`` preset (both packages') lacks. The JAX converter
+    still refuses such a file; the port (the test keeps its name from when
+    it refused too) reads the middle depth from the file's keys, builds
+    that core, converts every tensor, and its middle transformer matches
+    the JAX ``SpatialTransformer`` whose weights the file carries. The
+    converted bundle's manifest records the depth, so its restore builds
+    the same core."""
+    from comfyui_distributed_tpu.models import layers as jlayers
+
+    cfg = _narrow_sd15()
+    assert cfg.mid_depth == 0 and not hasattr(_fresh_unet(cfg), "mid_attn")
+    src = treg._random(lambda: tunet.UNet2D(_narrow_sd15(1)),
+                       torch.device("cpu"), torch.Generator().manual_seed(3))
+    # the middle transformer (128 channels, 8 heads of 16) from JAX
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 2, 2, 128)).astype(np.float32)
+    ctx = rng.standard_normal((2, 77, 768)).astype(np.float32)
+    jmid = jlayers.SpatialTransformer(num_heads=8, depth=1, dtype=jnp.float32)
+    jparams = perturbed(jmid.init(jax.random.key(5), x, ctx), 6)
+    load_from_jax(src.mid_attn, jparams)
+    e = tconvert._Exporter(src, tconvert.UNET_PREFIX)
+    tconvert._unet_layout(e, src.config, "", False)
+    sd = {k: v.detach().clone() for k, v in e.out.items()}
+    assert "model.diffusion_model.middle_block.2.in_layers.0.weight" in sd
+    assert tconvert.middle_depth_of(sd) == 1
+    # the JAX preset's converter refuses it
+    jcfg = dataclasses.replace(junet.UNetConfig.sd15(), model_channels=32,
+                               dtype="float32")
     template = junet.init_unet(jcfg, jax.random.key(0), sample_shape=(8, 8, 4),
-                               context_len=16, abstract=True)[1]
+                               context_len=77, abstract=True)[1]
     with pytest.raises(jconvert.ConversionError,
                        match=r"missing source key .*middle_block\.1\.in_layers"):
-        jconvert.convert_unet({k: v.numpy() for k, v in published.items()},
+        jconvert.convert_unet({k: v.numpy() for k, v in sd.items()},
                               template, jcfg)
+    # the port converts it through the registry, from the file
+    preset = treg.ModelPreset("sd15-narrow", cfg, tvae.VAEConfig.tiny(**F32),
+                              treg.TextEncoderConfig.tiny())
+    monkeypatch.setitem(treg.PRESETS, preset.name, preset)
+    st_numpy.save_file({k: v.numpy() for k, v in sd.items()},
+                       str(tmp_path / "sd15-narrow.safetensors"))
+    bundle = treg.ModelRegistry("cpu", checkpoint_root=tmp_path).get(preset.name)
+    core = bundle.core
+    assert core.config.mid_depth == 1 and bundle.preset.unet.middle_depth == 1
+    for name, p in src.named_parameters():
+        assert torch.equal(core.get_parameter(name), p), name
+    with torch.no_grad():
+        out = core.mid_attn(torch.from_numpy(x).permute(0, 3, 1, 2),
+                            torch.from_numpy(ctx))
+    ref = np.asarray(jmid.apply(jparams, x, ctx))
+    assert np.abs(ref - x).max() > 1e-2
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=2e-5, rtol=2e-5)
+    # saved and restored: the manifest carries the depth
+    bundle.save_checkpoint(tmp_path / "root" / preset.name)
+    manifest = json.loads((tmp_path / "root" / preset.name / treg.MANIFEST)
+                          .read_text())
+    assert manifest["arch"] == {"kind": "unet", "middle_depth": 1}
+    restored = treg.ModelRegistry("cpu", checkpoint_root=tmp_path / "root"
+                                  ).get(preset.name)
+    assert restored.core.config.mid_depth == 1
+    assert torch.equal(restored.core.mid_attn.proj_in.weight,
+                       core.mid_attn.proj_in.weight)
+    # a published sd15 ControlNet's middle, from its keys alone
+    cn_cfg = dataclasses.replace(tunet.UNetConfig.sd15(), middle_depth=1)
+    keys = {k: 0 for k, _, _ in tconvert.records(
+        tconvert._controlnet_layout, cn_cfg, tconvert.CONTROLNET_PREFIX, False)}
+    got = tconvert.with_middle_of(tconvert.controlnet_config_of(keys), keys,
+                                  tconvert.CONTROLNET_PREFIX)
+    assert got.mid_depth == 1 and got == cn_cfg
 
 
 @pytest.mark.parametrize("key,item", [
-    ("double_blocks.0.img_attn.qkv.weight", "A.7b"),
+    # FLUX is ported: a FLUX file on a UNet preset is refused for the
+    # preset (the case keeps its id from when it named item A.7b)
+    pytest.param("double_blocks.0.img_attn.qkv.weight", "needs a dit preset",
+                 id="double_blocks.0.img_attn.qkv.weight-A.7b"),
     ("model.diffusion_model.joint_blocks.0.x_block.attn.qkv.weight", "item 13"),
     ("blocks.0.self_attn.norm_q.weight", "item 15"),
 ])

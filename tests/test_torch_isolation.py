@@ -19,7 +19,8 @@ import comfyui_distributed_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL",
-             "websockets", "safetensors", "transformers", "regex")
+             "websockets", "safetensors", "transformers", "regex",
+             "tokenizers", "sentencepiece")
 
 
 def _port_modules():

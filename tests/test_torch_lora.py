@@ -217,3 +217,41 @@ def test_lora_loader_node(tmp_path, monkeypatch):
         node.execute(tb, clip, "style", strength, 0.0, model_registry=registry)
     assert len(node._cache) == node.KEPT
     node._cache.clear()
+
+
+def test_clear_memory_releases_the_lora_base_bundle(tmp_path, monkeypatch):
+    """``LoraLoader`` keeps its last merges in a class-level cache, each
+    pinning its base bundle: ``Controller.clear_memory`` drops them with
+    the registry, so the base bundle is collectable afterwards."""
+    import gc
+    import weakref
+
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.models.convert import linear_proj_of
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    monkeypatch.delenv("CDT_IS_WORKER", raising=False)
+    controller = Controller(tmp_path / "config.json", device="cpu")
+    bundle = controller.model_registry.get("tiny")
+    cfg = bundle.preset.unet
+    gen = torch.Generator().manual_seed(0)
+    lora = {}
+    for src, dst, _ in tlora.unet_records(cfg, linear_proj_of(cfg)):
+        if ".to_q." in src:
+            n_out, n_in = bundle.core.get_parameter(dst).shape
+            key = "lora_unet_" + src[len("model.diffusion_model."):
+                                     -len(".weight")].replace(".", "_")
+            lora[f"{key}.lora_down.weight"] = torch.randn(2, n_in, generator=gen)
+            lora[f"{key}.lora_up.weight"] = torch.randn(n_out, 2, generator=gen)
+    save_file(lora, tmp_path / "tiny-lora.safetensors")
+    monkeypatch.setenv("CDT_LORA_DIR", str(tmp_path))
+    node = get_node("LoraLoader")()
+    patched, _ = node.execute(bundle, bundle.text_encoder, "tiny-lora",
+                              model_registry=controller.model_registry)
+    assert patched.lora_merged[0] == len(lora) // 2 > 0
+    assert len(node._cache) == 1
+    base = weakref.ref(bundle)
+    del bundle, patched
+    controller.clear_memory()
+    gc.collect()
+    assert not node._cache and base() is None

@@ -2,7 +2,9 @@
 (``comfyui_distributed_tpu_torch.utils.safetensors``) against the
 ``safetensors`` package: F16, BF16, F32, F64, I64 and I32 tensors read
 bitwise as the package writes them and written as it reads them; bad
-headers raise ``SafetensorsError``."""
+headers raise ``SafetensorsError``. The fp8 formats, I16, I8, U8 and
+BOOL (published FLUX and T5 files) read as the JAX package's
+``load_safetensors`` reads them, and the writer writes F8_E4M3."""
 
 import json
 import struct
@@ -55,6 +57,63 @@ def test_reader_matches_safetensors_torch_bf16(tmp_path):
     loaded = load_file(path)
     for k, t in tensors.items():
         assert loaded[k].dtype == t.dtype and torch.equal(loaded[k], t)
+
+
+_PUBLISHED = {
+    "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+
+def _published_tensor(dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    if dtype.is_floating_point:
+        return (torch.randn(5, 7, generator=gen) * 3).to(dtype)
+    if dtype == torch.bool:
+        return torch.randn(4, 9, generator=gen) > 0
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max, (3, 11), generator=gen,
+                         dtype=torch.int64).to(dtype)
+
+
+@pytest.mark.parametrize("name", sorted(_PUBLISHED))
+def test_published_dtypes_read_as_jax_reads_them(name, tmp_path):
+    """A file written by ``safetensors.torch`` in each dtype: the port
+    reads it bitwise, in that dtype, and equal to the JAX package's
+    ``load_safetensors`` (which widens what numpy lacks to fp32)."""
+    pytest.importorskip("flax")
+    from comfyui_distributed_tpu.models.convert import load_safetensors
+
+    t = _published_tensor(_PUBLISHED[name])
+    path = tmp_path / f"{name}.safetensors"
+    st_torch.save_file({"x": t, "y": t[:1].clone()}, str(path))
+    header = json.loads(path.read_bytes()[8:8 + struct.unpack(
+        "<Q", path.read_bytes()[:8])[0]])
+    assert header["x"]["dtype"] == name
+    with SafetensorsFile(path) as f:
+        got = f["x"]
+        assert got.dtype == t.dtype and tuple(got.shape) == tuple(t.shape)
+        assert torch.equal(got.view(torch.uint8), t.view(torch.uint8))
+        ref = np.asarray(load_safetensors(path)["x"])
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      ref.astype(np.float32))
+
+
+def test_writer_writes_f8_e4m3(tmp_path):
+    gen = torch.Generator().manual_seed(4)
+    src = torch.randn(6, 5, generator=gen) * 2
+    path = tmp_path / "fp8.safetensors"
+    save_file({"w": src, "ids": torch.arange(3)}, path,
+              dtype=torch.float8_e4m3fn)
+    back = st_torch.load_file(str(path))
+    assert back["w"].dtype == torch.float8_e4m3fn and back["ids"].dtype == torch.int64
+    assert torch.equal(back["w"].view(torch.uint8),
+                       src.to(torch.float8_e4m3fn).view(torch.uint8))
+    # read back into an fp32 parameter by copy_, as the converters do
+    param = torch.empty(6, 5)
+    with SafetensorsFile(path) as f:
+        param.copy_(f["w"])
+    assert torch.equal(param, src.to(torch.float8_e4m3fn).float())
 
 
 def test_writer_is_read_by_safetensors(tmp_path):
@@ -126,7 +185,7 @@ def test_corrupt_files_raise_named_errors(tmp_path, case, match):
     elif case == "json":
         _write_raw(path, b"{not json", b"\0" * 8)
     elif case == "dtype":
-        _write_raw(path, {"x": {**ok, "dtype": "F8_E4M3"}}, b"\0" * 8)
+        _write_raw(path, {"x": {**ok, "dtype": "C64"}}, b"\0" * 8)
     elif case == "offsets":
         _write_raw(path, {"x": {**ok, "data_offsets": [0, 16]}}, b"\0" * 8)
     elif case == "size":

@@ -81,8 +81,13 @@ def _perturbed(params, seed=5, scale=0.05):
 
 
 def _fields(cfg) -> dict:
+    """The config's fields, less JAX's ``remat`` and the port's
+    ``middle_depth``, which must be -1: JAX's rule, the last level's
+    transformer depth."""
+    if hasattr(cfg, "middle_depth"):
+        assert cfg.middle_depth == -1 and cfg.mid_depth == cfg.transformer_depth[-1]
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name != "remat"}
+            if f.name not in ("remat", "middle_depth")}
 
 
 # --- the preset -----------------------------------------------------------------
