@@ -40,6 +40,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    compared call after a poisoning call, the plain version taken one
    batch row at a time; timed beside the plain version and
    ``scaled_dot_product_attention``, the bound counted at the true D.
+   The video upscale's tile shapes the ControlNet tile upscale does not
+   give (batch 8: 10404 tokens at D 40, 2601 at D 80, self and over 77
+   keys) are compared and timed the same way.
    FLUX from its files (4608 tokens: T5's 512 context tokens) is compared
    and timed beside the random-init FLUX shape (4173).
 4. sdxl path — the SDXL preset at full width (random weights from seed
@@ -117,6 +120,27 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    sampling and decode split, and the peak memory. Then one UNet +
    ControlNet forward at a tile's shape (104² latent, 832² hint, batch 2)
    within 5e-2·max|plain| of the plain versions.
+13a. audio — ``clip.wav`` (60 s of seeded stereo at 48 kHz, 16-bit,
+   11.5 MB) and ``input.avi`` (24 seeded frames of 960×540 at 24 fps, a
+   1 s stereo track at 48 kHz, written by the port's muxer and JPEG
+   encoder: seconds a frame printed) are written to the upscale input
+   directory; ``workflows/distributed-audio.json`` runs unchanged:
+   ``chunk_a``/``chunk_b`` must be the two halves of the clip, bitwise as
+   the 16-bit codec writes them, and no kernel launches.
+13b. video — ``workflows/video-upscale.json`` with node 4 reading
+   ``input.avi`` (whether ``import cv2`` works is printed; where it does,
+   the workflow also runs on an ``input.mp4`` of the first 8 frames
+   written through OpenCV, 8 K1 and 1440 K3):
+   ``realesrgan-x2`` to 1920×1080, USDU at ``upscale_by`` 1.0 with 768²
+   tiles and padding 24 (6 crops of 816² a frame, latents 102², 4 a
+   chunk: 48 chunks), res_2m on beta for 3 of 12 steps (denoise 0.25),
+   CFG 5: frames [24,1080,1920,3], finite, in [0,1], exactly 8 K1 and
+   144 · 30 = 4320 K3 launches, the seconds of each stage (decode,
+   ESRGAN, USDU, encode) and of JPEG a frame; ``video_up_00000.avi``
+   read back by ``load_video`` as 24 frames of 1920×1080 at 24 fps with
+   the source's track bitwise as the muxer writes it. Then one tile
+   chunk's UNet forward (batch 8 at a 102² latent) through the kernels
+   and on the plain versions, within 5e-2·max|plain|.
 14. serve — the SDXL workflow served through the HTTP control plane: a
    worker controller started as ``python -m comfyui_distributed_tpu_torch
    serve`` (a subprocess, on the card, with an empty ``CDT_INPUT_DIR`` of
@@ -155,7 +179,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    submitted at least one of the 3 tile tasks, every host building the
    hint from its own graph, the master's PNG must be bitwise equal to the
    direct image, and the master's launches must be the text encoder's 8
-   K1 plus 294 K3 per chunk it ran itself.
+   K1 plus 294 K3 per chunk it ran itself. Then the audio workflow is
+   served (media sync uploads ``clip.wav``; the worker's clip reaches
+   the master on its count-0 envelope, whose JSON bytes are printed;
+   ``chunk_a`` bitwise the master's clip and ``chunk_b`` the worker's;
+   no launch), and again cut after the collector, whose joined AUDIO
+   ``/distributed/history`` summarises as [1, 2, 5 760 000] at 48 kHz.
+   Last the video upscale is served on its first 8 frames
+   (``frame_load_cap``; media sync uploads ``input.avi``; master
+   holdback): a batch of 8 is farmed frame by frame (the dynamic mode),
+   the worker must have run at least one frame, the master's launches
+   must be 8 K1 plus 180 K3 per frame it ran, every frame of the
+   master's USDU must be bitwise that frame upscaled alone at seed 7 +
+   its index, and the AVI read back holds 8 frames at 24 fps with
+   16 000 samples of the track.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -418,6 +455,24 @@ SD15_SHAPES = sd15_shapes(2, SD15_LEVELS, SD15_UNET_BLOCKS)
 # per workflow request: 21 forwards of the UNet and the ControlNet
 CN_TILE_SHAPES = sd15_shapes(8, CN_TILE_LEVELS, CN_TILE_FORWARDS * (
     SD15_UNET_BLOCKS + SD15_CONTROL_BLOCKS))
+# workflows/video-upscale.json on a 540p clip (phase 13b): realesrgan-x2
+# to 1080p, then USDU at upscale_by 1.0 with 768² tiles and padding 24: 3
+# × 2 = 6 crops of 816² a frame (latents 102²: 10404, 2601 and 676 tokens
+# at the three levels), 4 a chunk (2 chunks a frame, the second padded),
+# CFG (batch 8), res_2m (one UNet call a step) for 3 of the 12 steps
+# (denoise 0.25): 24 · 2 · 3 = 144 UNet forwards a request.
+VIDEO_FRAMES, VIDEO_FPS = 24, 24.0
+VIDEO_IN_HW, VIDEO_OUT_HW = (540, 960), (1080, 1920)
+VIDEO_TILE, VIDEO_PADDING = 768, 24
+VIDEO_TILES_A_FRAME, VIDEO_CHUNK, VIDEO_STEPS = 6, 4, 3
+VIDEO_CHUNKS_A_FRAME = -(-VIDEO_TILES_A_FRAME // VIDEO_CHUNK)
+VIDEO_FORWARDS = VIDEO_FRAMES * VIDEO_CHUNKS_A_FRAME * VIDEO_STEPS
+VIDEO_LEVELS = ((10404, 320), (2601, 640), (676, 1280))
+VIDEO_FORWARD_SHAPES = sd15_shapes(8, VIDEO_LEVELS, SD15_UNET_BLOCKS)
+VIDEO_SHAPES = sd15_shapes(8, VIDEO_LEVELS, VIDEO_FORWARDS * SD15_UNET_BLOCKS)
+# the shapes the ControlNet tile upscale does not already give K3 (its
+# third level is the same 676 tokens at D = 160)
+VIDEO_NEW_SHAPES = VIDEO_SHAPES[:4]
 # the one-head kernel's tile edges at the new widths: keys 1, 77, 128,
 # 129 (at D = 160 the short-key kernel takes at most 80); q rows 1, 64,
 # 4173; B 1 and 2
@@ -775,7 +830,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     # the one-head kernel at SD 1.5's head widths (the packed layout takes
     # D 64 and 128 only): the paths' shapes, then the tile edges
     for shape in ([s for s, _ in SD15_SHAPES + SD15_MID_SHAPES
-                   + CN_TILE_SHAPES] + SD15_EDGES):
+                   + CN_TILE_SHAPES + VIDEO_NEW_SHAPES] + SD15_EDGES):
         q, k, v = core_inputs(*shape)
         ref = plain_by_row(fa, q, k, v)
         fa.flash_attention(*core_inputs(*shape), layout="bh")
@@ -856,7 +911,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     # K3 at SD 1.5's widths; the bound counts the true D (the padding to
     # whole 64-column boxes is the kernel's waste, not the function's work)
     for path, shapes in (("sd15", SD15_SHAPES), ("sd15_file", SD15_MID_SHAPES),
-                         ("cn_upscale", CN_TILE_SHAPES)):
+                         ("cn_upscale", CN_TILE_SHAPES),
+                         ("video", VIDEO_NEW_SHAPES)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             time_row("flash_attention_bh", shape, n, core_work(*shape),
@@ -906,7 +962,8 @@ def kernel_table(rows: list[dict], errs: dict,
     sd15_request = [(shape, SD15_TIMED_STEPS * n) for shape, n in SD15_SHAPES]
     sd15_file_request = [(shape, SD15_STEPS * n)
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
-    others = ("upscale", "sd15", "sd15_file", "cn_upscale", "flux_file")
+    others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
+              "flux_file")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -946,6 +1003,7 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_sd15_request", at(name, sd15_request)),
                 ("per_sd15_file_request", at(name, sd15_file_request)),
                 ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)),
+                ("per_video_request", at(name, VIDEO_SHAPES)),
                 ("per_flux_file_request", at(name, FILE_BH_SHAPES)))
                if value is not None},
             **({"k3_rows": [
@@ -1782,6 +1840,353 @@ def cn_tile_reference_phase(torch, fa, bundle, cn, strength: float) -> None:
                   "at a 832² tile", eps, ref)
 
 
+# --- phases 13a and 13b: audio and video --------------------------------------
+
+AUDIO_DIR = OUTPUT_DIR / "audio"
+VIDEO_DIR = OUTPUT_DIR / "video"
+AUDIO_WORKFLOW = "distributed-audio.json"
+VIDEO_WORKFLOW = "video-upscale.json"
+AUDIO_SECONDS, AUDIO_RATE, AUDIO_CHANNELS = 60, 48000, 2
+VIDEO_SEED = 7                          # the workflow's USDU seed
+VIDEO_SERVED_FRAMES = 8                 # frame_load_cap of the served run
+CHUNK_WAVS = ("chunk_a_00000.wav", "chunk_b_00000.wav")
+VIDEO_AVI = "video_up_00000.avi"
+
+
+def audio_workflow() -> dict:
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / AUDIO_WORKFLOW).read_text()))
+    require(workflow["1"]["inputs"]["audio"] == "clip.wav"
+            and workflow["4"]["inputs"]["divide_by"] == 2
+            and [workflow[n]["inputs"]["filename_prefix"] for n in ("5", "6")]
+            == ["chunk_a", "chunk_b"],
+            f"{AUDIO_WORKFLOW} changed; update the script")
+    return workflow
+
+
+def video_workflow(frame_cap: int = 0) -> dict:
+    """``workflows/video-upscale.json`` with node 4 reading ``input.avi``
+    (and ``frame_load_cap`` when given)."""
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / VIDEO_WORKFLOW).read_text()))
+    usdu = workflow["5"]["inputs"]
+    require((usdu["steps"], usdu["denoise"], usdu["upscale_by"],
+             usdu["tile_width"], usdu["tile_height"], usdu["tile_padding"],
+             usdu["cfg"], usdu["sampler_name"], usdu["scheduler"],
+             usdu["seed"])
+            == (12, 0.25, 1.0, VIDEO_TILE, VIDEO_TILE, VIDEO_PADDING, 5.0,
+                "res_2m", "beta", VIDEO_SEED)
+            and workflow["1"]["inputs"]["ckpt_name"] == "sd15"
+            and workflow["8"]["inputs"]["model_name"] == "realesrgan-x2"
+            and workflow["7"]["inputs"]["format"] == "avi"
+            and workflow["4"]["inputs"]["video"] == "input.mp4",
+            f"{VIDEO_WORKFLOW} changed; update the script")
+    workflow["4"]["inputs"]["video"] = "input.avi"
+    if frame_cap:
+        workflow["4"]["inputs"]["frame_load_cap"] = frame_cap
+    return workflow
+
+
+def video_counts(frames: int) -> tuple:
+    """K1 and K3 launches of ``frames`` frames' USDU (and the text)."""
+    return k3_counts(frames * VIDEO_CHUNKS_A_FRAME * VIDEO_STEPS,
+                     VIDEO_FORWARD_SHAPES)
+
+
+def video_spec():
+    """The workflow's USDU settings as the engine's spec."""
+    from comfyui_distributed_tpu_torch.tiles.engine import UpscaleSpec
+
+    return UpscaleSpec(scale=1.0, tile_w=VIDEO_TILE, tile_h=VIDEO_TILE,
+                       padding=VIDEO_PADDING, steps=12, denoise=0.25,
+                       sampler="res_2m", scheduler="beta", guidance_scale=5.0)
+
+
+def stage_timer(torch, classes: tuple):
+    """A context in which each named node class's ``execute`` adds its
+    seconds (the card synchronised at its end) to the returned dict."""
+    import contextlib
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.graph.node import NODE_REGISTRY
+
+    seconds: dict[str, float] = {}
+    stack = contextlib.ExitStack()
+    for name in classes:
+        cls = NODE_REGISTRY[name]
+        inner = cls.execute
+
+        def timed(self, *a, _inner=inner, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _inner(self, *a, **kw)
+            torch.cuda.synchronize()
+            seconds[_name] = seconds.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        stack.enter_context(mock.patch.object(cls, "execute", timed))
+    return stack, seconds
+
+
+def write_av_inputs(input_dir: Path) -> dict:
+    """``clip.wav`` (60 s of seeded stereo at 48 kHz, 16-bit) and
+    ``input.avi`` (24 seeded frames of 960×540 at 24 fps with a 1 s stereo
+    track at 48 kHz, written by the port's muxer) in the input directory;
+    returns the encode's seconds a frame."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.audio_payload import wav_bytes
+    from comfyui_distributed_tpu_torch.utils.video_io import save_video
+
+    rng = np.random.default_rng(12)
+    n = AUDIO_SECONDS * AUDIO_RATE
+    t = np.arange(n, dtype=np.float32) / AUDIO_RATE
+    clip = np.stack([0.3 * np.sin(2 * np.pi * f * t) for f in (220.0, 331.0)])
+    clip += 0.05 * rng.standard_normal(clip.shape).astype(np.float32)
+    (input_dir / "clip.wav").write_bytes(wav_bytes(clip, AUDIO_RATE))
+    wav_size = (input_dir / "clip.wav").stat().st_size
+
+    H, W = VIDEO_IN_HW
+    y = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None, None]
+    x = np.linspace(0.0, 1.0, W, dtype=np.float32)[None, :, None]
+    phase = np.array([0.0, 2.1, 4.2], np.float32)
+    frames = np.stack([
+        np.clip(0.5 + 0.35 * np.sin(6 * x + 4 * y + 0.3 * i + phase)
+                + 0.03 * rng.standard_normal((H, W, 3)), 0.0, 1.0)
+        for i in range(VIDEO_FRAMES)]).astype(np.float32)
+    s = int(AUDIO_RATE * VIDEO_FRAMES / VIDEO_FPS)
+    track = {"waveform": np.clip(
+        0.4 * np.sin(2 * np.pi * 440.0 * t[None, None, :s])
+        + 0.02 * rng.standard_normal((1, AUDIO_CHANNELS, s)), -1, 1
+    ).astype(np.float32), "sample_rate": AUDIO_RATE}
+    t0 = time.perf_counter()
+    save_video(input_dir / "input.avi", frames, fps=VIDEO_FPS, audio=track)
+    enc_s = (time.perf_counter() - t0) / VIDEO_FRAMES
+    say(f"  inputs: clip.wav {wav_size} bytes ({AUDIO_SECONDS} s, "
+        f"{AUDIO_CHANNELS} channels at {AUDIO_RATE} Hz, 16-bit); input.avi "
+        f"{(input_dir / 'input.avi').stat().st_size} bytes ({VIDEO_FRAMES} "
+        f"frames of {W}x{H} at {VIDEO_FPS:g} fps, {s} samples of stereo); "
+        f"JPEG encode {enc_s:.3f} s a {W}x{H} frame on the host")
+    return {"encode_540p_s": enc_s}
+
+
+def expected_chunks(input_dir: Path) -> list[bytes]:
+    """The two WAVs ``SaveAudio`` must write for the direct run: the
+    halves of ``clip.wav`` as the codec reads and writes them (the JAX
+    package's 16-bit codec reads p / 32768 and writes trunc(x · 32767), so
+    each nonzero sample moves one level toward 0)."""
+    from comfyui_distributed_tpu_torch.utils.audio_payload import (wav_bytes,
+                                                                   wav_decode)
+
+    wf = wav_decode((input_dir / "clip.wav").read_bytes())["waveform"][0]
+    half = wf.shape[-1] // 2
+    return [wav_bytes(wf[:, :half], AUDIO_RATE),
+            wav_bytes(wf[:, half:], AUDIO_RATE)]
+
+
+def audio_phase(torch, fa, input_dir: Path) -> dict:
+    """Phase 13a: ``workflows/distributed-audio.json`` unchanged on
+    ``clip.wav``; returns its launches (none)."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    say("audio path:")
+    workflow = audio_workflow()
+    want = expected_chunks(input_dir)
+    shutil.rmtree(AUDIO_DIR, ignore_errors=True)
+    executor = GraphExecutor({"input_dir": str(input_dir),
+                              "output_dir": str(AUDIO_DIR)})
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = executor.execute(workflow)
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    require(not any(launches.values()), f"audio path: launches {launches}")
+    half = AUDIO_SECONDS * AUDIO_RATE // 2
+    require(tuple(out["4"][0]["waveform"].shape) == (1, AUDIO_CHANNELS, half),
+            f"audio path: chunk shape {tuple(out['4'][0]['waveform'].shape)}")
+    got = [(AUDIO_DIR / name).read_bytes() for name in CHUNK_WAVS]
+    require(got == want, "audio path: chunk_a/chunk_b are not the halves of "
+            "clip.wav as the codec writes them")
+    src = np.frombuffer((input_dir / "clip.wav").read_bytes()[44:], "<i2")
+    chunks = np.concatenate([np.frombuffer(g[44:], "<i2") for g in got])
+    say(f"  distributed-audio.json: {secs:.3f} s; chunk_a and chunk_b "
+        f"bitwise the halves of clip.wav through the 16-bit codec "
+        f"({int((chunks != src).sum())} of {src.size} samples one level "
+        f"toward 0, the rest equal); launches {launches}")
+    return launches
+
+
+class VideoRun(NamedTuple):
+    launches: dict
+    seconds: float
+    upscaled: object        # the ESRGAN frames of the served run's span
+
+
+def video_phase(torch, fa, registry, input_dir: Path, encode_540p_s: float
+                ) -> VideoRun:
+    """Phase 13b: ``workflows/video-upscale.json`` on ``input.avi``: the
+    stage seconds, the launches, the file read back; then one tile
+    chunk's UNet forward against plain attention."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.tiles.engine import TileUpscaler
+    from comfyui_distributed_tpu_torch.utils.video_io import (load_video,
+                                                              read_avi_mjpg)
+
+    say("video path:")
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    say(f"  import cv2 on this machine: {'works' if has_cv2 else 'fails'}"
+        + ("" if has_cv2 else " (the AVI path needs none; mp4 is skipped)"))
+    workflow = video_workflow()
+    bundle = registry.get("sd15")
+    # the engine's own geometry for a 1080p frame
+    upscaler = TileUpscaler(bundle.pipeline)
+    grid = upscaler.grid_for(*VIDEO_OUT_HW, video_spec())
+    chunk = upscaler.tiles_per_device_default(VIDEO_TILE, VIDEO_TILE)
+    require((grid.num_tiles, chunk) == (VIDEO_TILES_A_FRAME, VIDEO_CHUNK),
+            f"video path: {grid.num_tiles} tiles a frame in chunks of {chunk}")
+    want = video_counts(VIDEO_FRAMES)
+    shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    executor = GraphExecutor({"model_registry": registry,
+                              "input_dir": str(input_dir),
+                              "output_dir": str(VIDEO_DIR)})
+    stages = ("LoadVideo", "ImageUpscaleWithModel",
+              "UltimateSDUpscaleDistributed", "SaveVideo")
+    timer, seconds = stage_timer(torch, stages)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    cuda_before = dict(fa.CUDA_LAUNCHES)
+    t0 = time.perf_counter()
+    with timer:
+        out = executor.execute(workflow)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    require(launches == want[0], f"video path: launches {launches} != {want[0]}")
+    require(kernel_counts == want[1],
+            f"video path: CUDA kernel launches {kernel_counts} != {want[1]}")
+    frames = out["5"][0]
+    require(tuple(frames.shape) == (VIDEO_FRAMES, *VIDEO_OUT_HW, 3),
+            f"video path: frames {tuple(frames.shape)}")
+    require(bool(torch.isfinite(frames).all())
+            and frames.min().item() >= 0.0 and frames.max().item() <= 1.0,
+            "video path: frames non-finite or outside [0, 1]")
+    path = Path(out["7"][0])
+    require(path == VIDEO_DIR / VIDEO_AVI and path.is_file(),
+            f"video path: wrote {path}")
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    back = load_video(path)
+    dec_s = (time.perf_counter() - t1) / VIDEO_FRAMES
+    require(back["frames"].shape == (VIDEO_FRAMES, *VIDEO_OUT_HW, 3)
+            and back["fps"] == VIDEO_FPS,
+            f"video path: read back {back['frames'].shape} at {back['fps']}")
+    src = read_avi_mjpg(input_dir / "input.avi", cap=1)["audio"]
+    pcm = (np.clip(src["waveform"][0].numpy(), -1, 1) * 32767.0).astype(np.int16)
+    track = torch.from_numpy((pcm.astype(np.float32) / 32768.0)[None])
+    require(back["audio"] is not None
+            and back["audio"]["sample_rate"] == AUDIO_RATE
+            and torch.equal(back["audio"]["waveform"], track),
+            "video path: the audio read back is not the source's track as the "
+            "muxer writes it")
+    jpeg_err = np.abs(back["frames"] - frames.cpu().numpy()).mean() * 255
+    say(f"  video-upscale.json: {secs:.3f} s for {VIDEO_FRAMES} frames of "
+        f"{VIDEO_IN_HW[1]}x{VIDEO_IN_HW[0]} → {VIDEO_OUT_HW[1]}x"
+        f"{VIDEO_OUT_HW[0]}: decode {seconds['LoadVideo']:.3f} s "
+        f"({seconds['LoadVideo'] / VIDEO_FRAMES:.3f} s a 540p frame), ESRGAN "
+        f"{seconds['ImageUpscaleWithModel']:.3f} s, USDU "
+        f"{seconds['UltimateSDUpscaleDistributed']:.3f} s ({VIDEO_FORWARDS} "
+        f"UNet forwards), encode {seconds['SaveVideo']:.3f} s "
+        f"({seconds['SaveVideo'] / VIDEO_FRAMES:.3f} s a 1080p frame); "
+        f"launches {launches}, CUDA kernels {kernel_counts}; peak "
+        f"{peak / 2**30:.3f} GiB")
+    say(f"  {VIDEO_AVI}: {path.stat().st_size} bytes, read back as "
+        f"{VIDEO_FRAMES} frames of 1920x1080 at {back['fps']:g} fps in "
+        f"{dec_s:.3f} s a frame (JPEG decode on the host; mean error "
+        f"{jpeg_err:.3f} levels against the frames), the audio bitwise the "
+        f"source's track as the muxer writes it; JPEG per frame: encode "
+        f"{encode_540p_s:.3f} s at 540p, {seconds['SaveVideo'] / VIDEO_FRAMES:.3f}"
+        f" s at 1080p; decode {seconds['LoadVideo'] / VIDEO_FRAMES:.3f} s at "
+        f"540p, {dec_s:.3f} s at 1080p")
+    upscaled = out["9"][0][:VIDEO_SERVED_FRAMES].clone()
+    ctx = (out["2"][0]["context"], out["3"][0]["context"])
+    del out, frames, back
+    video_reference_phase(torch, fa, bundle, ctx)
+    if has_cv2:
+        video_mp4_phase(torch, fa, registry, input_dir)
+    return VideoRun(launches, secs, upscaled)
+
+
+def video_mp4_phase(torch, fa, registry, input_dir: Path) -> None:
+    """Where OpenCV imports: the workflow unchanged on ``input.mp4``,
+    written through OpenCV from the AVI's first 8 frames (a shorter clip
+    than the AVI's, to keep the run's time)."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.utils.video_io import (load_video,
+                                                              save_video)
+
+    frames = VIDEO_SERVED_FRAMES
+    clip = load_video(input_dir / "input.avi", frame_load_cap=frames)
+    save_video(input_dir / "input.mp4", clip["frames"], fps=clip["fps"],
+               audio=clip["audio"])
+    workflow = video_workflow()
+    workflow["4"]["inputs"]["video"] = "input.mp4"
+    executor = GraphExecutor({"model_registry": registry,
+                              "input_dir": str(input_dir),
+                              "output_dir": str(VIDEO_DIR / "mp4")})
+    want = video_counts(frames)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = executor.execute(workflow)
+    torch.cuda.synchronize()
+    require(dict(fa.LAUNCHES) == want[0],
+            f"video path (mp4): launches {dict(fa.LAUNCHES)} != {want[0]}")
+    require(tuple(out["5"][0].shape) == (frames, *VIDEO_OUT_HW, 3),
+            f"video path (mp4): frames {tuple(out['5'][0].shape)}")
+    say(f"  video-upscale.json on a {frames}-frame input.mp4: "
+        f"{time.perf_counter() - t0:.3f} s ({out['4'][2]:g} fps as OpenCV "
+        f"reads it); launches {want[0]}")
+
+
+def video_reference_phase(torch, fa, bundle, ctx) -> None:
+    """One tile chunk's UNet forward (4 tiles with CFG: batch 8 at a 102²
+    latent, the workflow's prompts) through the kernels and on the plain
+    versions."""
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lat = (VIDEO_TILE + 2 * VIDEO_PADDING) // 8
+    x = torch.randn(8, lat, lat, cfg.in_channels, generator=gen, device=dev)
+    t = torch.full((8,), 250.0, device=dev)
+    context = torch.cat([ctx[0].expand(4, -1, -1), ctx[1].expand(4, -1, -1)])
+    with torch.no_grad():
+        before = dict(fa.LAUNCHES)
+        eps = unet(x, t, context)
+        sites = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        sa, fu = plain_attention_patches(fa)
+        with sa, fu:
+            ref = unet(x, t, context)
+    n = 3 * SD15_UNET_BLOCKS * 2
+    require(sites == {"fused_qkv_attention": 0, "flash_attention_packed": 0,
+                      "flash_attention_bh": n},
+            f"video reference: launches {sites} per forward, expected {n} K3")
+    compare_whole(torch, f"video reference: UNet eps of a tile chunk "
+                  f"(batch 8 at {lat}²)", eps, ref)
+
+
 # --- phase 14 ----------------------------------------------------------------
 
 SERVE_DIR = OUTPUT_DIR / "serve"
@@ -1869,9 +2274,11 @@ def wait_history(base: str, prompt_id: str, t0: float, what: str) -> dict:
 
 
 def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
-                control: ControlRun, cn_tile: CnTileRun) -> dict:
+                control: ControlRun, cn_tile: CnTileRun,
+                video: VideoRun) -> dict:
     """Serve the SDXL workflow twice, then the upscale workflow, the
-    img2img + ControlNet graph and the ControlNet tile upscale once each,
+    img2img + ControlNet graph, the ControlNet tile upscale, the audio
+    workflow and the video upscale once each,
     through ``POST /distributed/queue`` to a master in this process and a
     ``remote`` worker subprocess with an input directory of its own;
     returns the master's launches in the phase."""
@@ -1992,8 +2399,16 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         launches = {k: launches[k] + fa.LAUNCHES[k] for k in launches}
         fa.reset_launches()
         serve_cn_tile(torch, fa, base, master_out, cn_tile, reports)
+        launches = {k: launches[k] + fa.LAUNCHES[k] for k in launches}
+        fa.reset_launches()
+        serve_audio(torch, fa, base, master, master_out, up.input_dir, reports)
+        require(not any(fa.LAUNCHES.values()),
+                f"served audio: master launches {dict(fa.LAUNCHES)}")
+        fa.reset_launches()
+        video_launches = serve_video(torch, fa, base, master_out, video,
+                                     reports)
         ok = True
-        return {k: launches[k] + fa.LAUNCHES[k] for k in launches}
+        return {k: launches[k] + video_launches[k] for k in launches}
     finally:
         patch.stop()
         if server is not None:
@@ -2183,6 +2598,174 @@ def serve_cn_tile(torch, fa, base: str, master_out: Path, cn_tile: CnTileRun,
         f"s); media sync {report}; tile tasks {dict(sorted(owners.items()))} "
         f"(master {mine}, worker {theirs}); master launches {counts}; PNG "
         "bitwise equal to the direct run")
+
+
+def serve_audio(torch, fa, base: str, master, master_out: Path,
+                input_dir: Path, reports: list) -> None:
+    """``workflows/distributed-audio.json`` through ``POST
+    /distributed/queue``: ``clip.wav`` is synced to the worker, whose clip
+    comes back on the count-0 envelope (``DistributedEmptyImage`` feeds
+    its images) and is joined after the master's; then the workflow cut
+    after the collector, whose joined AUDIO the history summarises."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.utils.audio_payload import (wav_bytes,
+                                                                   wav_decode)
+
+    samples = AUDIO_SECONDS * AUDIO_RATE
+    # the joined clip is the master's then the worker's: its halves are
+    # each whole clip.wav through the codec
+    clip = wav_decode((input_dir / "clip.wav").read_bytes())["waveform"][0]
+    want = wav_bytes(clip, AUDIO_RATE)
+    envelopes = []
+    put = master.store.put_collector_result
+
+    async def recording_put(job_id, envelope, *a, **kw):
+        envelopes.append((envelope.get("worker_id"), envelope.get("batch_idx"),
+                          len(json.dumps(envelope)) if envelope.get("audio")
+                          else 0))
+        return await put(job_id, envelope, *a, **kw)
+
+    for wav in master_out.glob("*.wav"):
+        wav.unlink()
+    with mock.patch.object(master.store, "put_collector_result", recording_put):
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": audio_workflow()}, timeout=120)
+        require(status == 200 and answer.get("worker_count") == 1,
+                f"audio queue answered {status}: {answer}")
+        report = reports[-1]
+        require((report.checked, report.uploaded, report.failed) == (1, 1, []),
+                f"served audio: media sync {report}, expected 1 uploaded")
+        entry = wait_history(base, answer["prompt_id"], t0, "served audio")
+        secs = time.perf_counter() - t0
+        require(entry["status"] == "success", f"served audio: {entry}")
+        got = [(master_out / name).read_bytes() for name in CHUNK_WAVS]
+        require(got == [want, want], "served audio: chunk_a is not the "
+                "master's clip or chunk_b not the worker's")
+        require([e[:2] for e in envelopes] == [("w0", -1)] and envelopes[0][2],
+                f"served audio: the master received {envelopes}, expected one "
+                "count-0 envelope from w0 with its audio")
+        say(f"  served distributed-audio.json: {secs:.3f} s (POST to final "
+            f"history); media sync {report}; the worker's clip on its count-0 "
+            f"envelope, {envelopes[0][2]} bytes of JSON; chunk_a bitwise the "
+            f"master's clip and chunk_b the worker's ({samples} samples each)")
+        cut = {k: v for k, v in audio_workflow().items() if k in ("1", "2", "3")}
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": cut}, timeout=120)
+        require(status == 200 and answer.get("worker_count") == 1,
+                f"audio (cut) queue answered {status}: {answer}")
+        entry = wait_history(base, answer["prompt_id"], t0, "served audio (cut)")
+    require(entry["status"] == "success", f"served audio (cut): {entry}")
+    summary = entry["outputs"]["3"][1]
+    require(summary == {"audio": {"shape": [1, AUDIO_CHANNELS, 2 * samples],
+                                  "sample_rate": AUDIO_RATE}},
+            f"served audio: history summarises the joined clip as {summary}")
+    say(f"  served audio cut after the collector: {time.perf_counter() - t0:.3f}"
+        f" s; /distributed/history summarises the joined clip as {summary}; "
+        f"media sync {reports[-1]}")
+
+
+def serve_video(torch, fa, base: str, master_out: Path, video: VideoRun,
+                reports: list) -> dict:
+    """``workflows/video-upscale.json`` on the first 8 frames through
+    ``POST /distributed/queue``: ``input.avi`` is synced to the worker; a
+    batch of 8 frames is farmed frame by frame (the dynamic mode), each
+    task one frame's USDU seeded seed + its index; the master's frames
+    must equal each of its input frames upscaled alone that way. Returns
+    the master's launches."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.graph.node import NODE_REGISTRY
+    from comfyui_distributed_tpu_torch.tiles.engine import TileUpscaler
+    from comfyui_distributed_tpu_torch.utils.video_io import load_video
+
+    usdu = NODE_REGISTRY["UltimateSDUpscaleDistributed"]
+    inner = usdu.execute
+    seen = {}
+
+    def capturing(self, image, model, positive, negative, *a, **kw):
+        out = inner(self, image, model, positive, negative, *a, **kw)
+        if not kw.get("is_worker"):
+            seen.update(image=image, model=model, positive=positive,
+                        negative=negative, out=out[0])
+        return out
+
+    for avi in master_out.glob("*.avi"):
+        avi.unlink()
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    os.environ["CDT_TILE_MASTER_HOLDBACK_S"] = str(UPSCALE_HOLDBACK_S)
+    try:
+        with mock.patch.object(usdu, "execute", capturing):
+            t0 = time.perf_counter()
+            status, answer = http_json(
+                base + "/distributed/queue",
+                {"prompt": video_workflow(VIDEO_SERVED_FRAMES)}, timeout=120)
+            require(status == 200 and answer.get("worker_count") == 1,
+                    f"video queue answered {status}: {answer}")
+            report = reports[-1]
+            require((report.checked, report.uploaded, report.failed)
+                    == (1, 1, []),
+                    f"served video: media sync {report}, expected 1 uploaded")
+            entry = wait_history(base, answer["prompt_id"], t0, "served video")
+            secs = time.perf_counter() - t0
+    finally:
+        del os.environ["CDT_TILE_MASTER_HOLDBACK_S"]
+    require(entry["status"] == "success", f"served video: {entry}")
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k]
+                     for k in fa.CUDA_LAUNCHES}
+    status, summary = http_json(
+        f"{base}/distributed/queue_status/{answer['trace_id']}_5")
+    require(status == 200 and summary.get("finished"),
+            f"video frame job status {status}: {summary}")
+    owners = summary["completed_by"]
+    mine = sum(1 for w in owners.values() if w == "master")
+    theirs = sum(1 for w in owners.values() if w == "w0")
+    require(len(owners) == VIDEO_SERVED_FRAMES and mine + theirs == len(owners)
+            and not summary["dead_letter"], f"video frame tasks: {summary}")
+    require(theirs >= 1, f"the worker ran none of the video's frames: {owners}")
+    want = video_counts(mine)
+    require(counts == want[0],
+            f"served video: master launches {counts} != {want[0]}")
+    require(kernel_counts == want[1],
+            f"served video: master CUDA kernel launches {kernel_counts} != "
+            f"{want[1]}")
+    launches = counts
+    # each frame as one upscale of its own at seed + index (its launches
+    # are not the served request's)
+    frames, images = seen["out"], seen["image"]
+    require(tuple(frames.shape) == (VIDEO_SERVED_FRAMES, *VIDEO_OUT_HW, 3),
+            f"served video: the master's frames {tuple(frames.shape)}")
+    upscaler = TileUpscaler(seen["model"].pipeline)
+    ctx, unc = seen["positive"]["context"], seen["negative"]["context"]
+    for i in range(VIDEO_SERVED_FRAMES):
+        alone = upscaler.upscale(images[i:i + 1], video_spec(), VIDEO_SEED + i,
+                                 ctx, unc)
+        require(torch.equal(frames[i:i + 1], alone),
+                f"served video: frame {i} differs from its own upscale at "
+                f"seed {VIDEO_SEED + i}")
+    esr = (images - video.upscaled).abs().max().item()
+    path = master_out / VIDEO_AVI
+    back = load_video(path)
+    span = round(VIDEO_SERVED_FRAMES / VIDEO_FPS * AUDIO_RATE)
+    require(back["frames"].shape == (VIDEO_SERVED_FRAMES, *VIDEO_OUT_HW, 3)
+            and back["fps"] == VIDEO_FPS and back["audio"] is not None
+            and tuple(back["audio"]["waveform"].shape) == (1, AUDIO_CHANNELS,
+                                                            span),
+            f"served video: {path} read back as {back['frames'].shape} at "
+            f"{back['fps']} fps")
+    say(f"  served video-upscale.json ({VIDEO_SERVED_FRAMES} frames, "
+        f"frame_load_cap): {secs:.3f} s (POST to final history; the direct "
+        f"run of {VIDEO_FRAMES} frames {video.seconds:.3f} s); media sync "
+        f"{report}; frame tasks {dict(sorted(owners.items()))} (master {mine}, "
+        f"worker {theirs}); master launches {counts}; every master frame "
+        f"bitwise its own upscale at seed {VIDEO_SEED} + index; the master's "
+        f"ESRGAN frames within {esr:.3g} of the direct run's (batch 8 vs 24); "
+        f"{VIDEO_AVI} read back as {VIDEO_SERVED_FRAMES} frames at "
+        f"{back['fps']:g} fps with {span} samples of audio")
+    return launches
 
 
 # --- phases 15 to 19 ---------------------------------------------------------
@@ -3479,9 +4062,15 @@ def main() -> int:
         sd15_reference_phase(torch, fa, sdxl.registry.get("sd15"))
         cn_tile = cn_tile_phase(torch, fa, sdxl.registry, up.input_dir)
         path_launches["cn_upscale"] = cn_tile.launches
+        say("audio and video inputs:")
+        av = write_av_inputs(up.input_dir)
+        path_launches["audio"] = audio_phase(torch, fa, up.input_dir)
+        video = video_phase(torch, fa, sdxl.registry, up.input_dir,
+                            av["encode_540p_s"])
+        path_launches["video"] = video.launches
         path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
-                                             cn_tile)
-        del sdxl, up, control, cn_tile
+                                             cn_tile, video)
+        del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
             f"master's shutdown and the sdxl path's end")

@@ -18,7 +18,8 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
 - ``GET /distributed/worker_ws`` (WebSocket: ``dispatch_prompt`` in,
   ``dispatch_ack`` out)
 - ``POST /distributed/job_complete`` (base64-PNG envelope),
-  ``POST /distributed/job_complete_frames`` (multipart CDTF frames),
+  ``POST /distributed/job_complete_frames`` (multipart CDTF frames), each
+  with the worker's AUDIO envelope on its last result,
   ``POST /distributed/prepare_job``
 - ``POST /distributed/clear_memory``
 - media sync: ``POST /distributed/check_file`` (exists, md5, matches),
@@ -145,9 +146,14 @@ def _post_content_type_ok(request: Request) -> bool:
 
 
 def _summarize(v):
-    """History outputs: tensors and arrays as their shape and dtype."""
+    """History outputs: tensors and arrays as their shape and dtype, AUDIO
+    as its waveform's shape and its rate."""
     if getattr(v, "shape", None) is not None and not isinstance(v, (int, float, bool)):
         return {"shape": list(v.shape), "dtype": str(getattr(v, "dtype", ""))}
+    if isinstance(v, dict) and "waveform" in v:
+        shape = getattr(v["waveform"], "shape", None)
+        return {"audio": {"shape": list(shape) if shape is not None else [],
+                          "sample_rate": int(v.get("sample_rate", 0))}}
     if isinstance(v, (dict, list, tuple)):
         return str(type(v).__name__)
     return v if isinstance(v, (int, float, str, bool, type(None))) else str(v)
@@ -273,16 +279,19 @@ class App:
 
             frames = await asyncio.get_running_loop().run_in_executor(
                 None, unpack_all)
+            # the worker's AUDIO envelope rides on its last result
+            audio = {"audio": meta["audio"]} if meta.get("audio") else {}
             for i in range(count):
                 await c.store.put_collector_result(meta["job_id"], {
                     "job_id": meta["job_id"], "worker_id": meta["worker_id"],
                     "batch_idx": i, "image_arr": frames[i],
                     "is_last": i == count - 1,
+                    **(audio if i == count - 1 else {}),
                 })
             if count == 0:
                 await c.store.put_collector_result(meta["job_id"], {
                     "job_id": meta["job_id"], "worker_id": meta["worker_id"],
-                    "batch_idx": -1, "is_last": True,
+                    "batch_idx": -1, "is_last": True, **audio,
                 })
             return Response(200, {"status": "received", "frames": count})
 

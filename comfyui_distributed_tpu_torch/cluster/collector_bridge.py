@@ -1,14 +1,19 @@
 """Cross-controller collector transport (the JAX package's
-``cluster/collector_bridge.py``, images only: no audio node is ported).
+``cluster/collector_bridge.py``).
 
 - worker: one multipart POST of CDTF frames (``utils/frames.py``) to the
-  master's ``/distributed/job_complete_frames``; if the master refuses
+  master's ``/distributed/job_complete_frames``, its AUDIO envelope
+  (``utils/audio_payload.py``) in the metadata; if the master refuses
   it, one base64-PNG envelope per image to ``/distributed/job_complete``,
-  each retried with backoff;
+  each retried with backoff, the audio on the last. A worker with no
+  image (``DistributedEmptyImage`` feeding the collector) sends one
+  envelope with ``batch_idx`` -1 that carries its audio;
 - master: drain the job's queue until every expected worker's
   ``is_last`` envelope is consumed, giving a silent worker more time
   while its health probe says it is busy, then join the batches master
-  first, workers in enabled order, each worker's in batch order.
+  first, workers in enabled order, each worker's in batch order, and the
+  clips along their samples in the same order, cut to the fewest
+  channels.
 
 Node code calls ``send`` and ``collect`` from the execution thread; they
 run their coroutines on the controller's loop.
@@ -26,6 +31,7 @@ import torch
 
 from ..utils import constants
 from ..utils.async_helpers import run_in_loop
+from ..utils.audio_payload import decode_audio, encode_audio
 from ..utils.exceptions import WorkerError
 from ..utils.frames import pack_frame
 from ..utils.image import decode_image_b64, encode_image_b64, from_uint8, to_uint8
@@ -51,40 +57,51 @@ class CollectorBridge:
 
     # --- worker role -------------------------------------------------------
 
-    def send(self, job_id: str, worker_id: str, images,
+    def send(self, job_id: str, worker_id: str, images, audio,
              master_url: str) -> None:
-        run_in_loop(self.send_async(job_id, worker_id, images, master_url),
-                    self.loop, timeout=constants.dispatch_timeout() * 4)
+        run_in_loop(
+            self.send_async(job_id, worker_id, images, audio, master_url),
+            self.loop, timeout=constants.dispatch_timeout() * 4)
 
-    async def send_async(self, job_id: str, worker_id: str, images,
+    async def send_async(self, job_id: str, worker_id: str, images, audio,
                          master_url: str) -> None:
         loop = asyncio.get_running_loop()
         arr = (await loop.run_in_executor(None, to_uint8, images)
                if images is not None else np.zeros((0, 1, 1, 3), np.uint8))
+        audio_env = (await loop.run_in_executor(None, encode_audio, audio)
+                     if audio is not None else None)
         n = arr.shape[0]
         base = normalize_host_url(master_url)
-        if n and await self._send_frames(base, job_id, worker_id, arr):
+        if n and await self._send_frames(base, job_id, worker_id, arr,
+                                         audio_env):
             return
         url = base + "/distributed/job_complete"
         for i in range(n):
             image_b64 = await loop.run_in_executor(None, encode_image_b64, arr[i])
-            await self._post_with_retry(url, {
+            envelope = {
                 "job_id": job_id, "worker_id": worker_id, "batch_idx": i,
                 "image": image_b64, "is_last": i == n - 1,
-            })
+            }
+            if i == n - 1 and audio_env is not None:
+                envelope["audio"] = audio_env
+            await self._post_with_retry(url, envelope)
         if n == 0:
-            # a worker with nothing to send still completes its share
-            await self._post_with_retry(url, {
-                "job_id": job_id, "worker_id": worker_id, "batch_idx": -1,
-                "image": "", "is_last": True,
-            })
+            # a worker with no image still completes its share, and its
+            # clip rides on the completion envelope
+            envelope = {"job_id": job_id, "worker_id": worker_id,
+                        "batch_idx": -1, "image": "", "is_last": True}
+            if audio_env is not None:
+                envelope["audio"] = audio_env
+            await self._post_with_retry(url, envelope)
 
     async def _send_frames(self, base_url: str, job_id: str, worker_id: str,
-                           arr: np.ndarray) -> bool:
+                           arr: np.ndarray, audio_env: dict | None) -> bool:
         """One multipart POST of crc-checked frames. False when the master
         refused it: the caller falls back to the envelopes, which retry."""
         meta = {"job_id": job_id, "worker_id": worker_id,
                 "count": int(arr.shape[0])}
+        if audio_env is not None:
+            meta["audio"] = audio_env
 
         def encode() -> tuple[bytes, str]:
             # zlib and crc of multi-MB frames stay off the event loop
@@ -113,7 +130,9 @@ class CollectorBridge:
         """Bounded retries: the master keys envelopes by (worker_id,
         batch_idx) and a repeated ``is_last`` changes nothing, so a
         re-send is safe."""
-        body = json.dumps(payload).encode()
+        # an envelope with a clip is tens of MB of JSON: off the loop
+        body = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: json.dumps(payload).encode())
 
         async def attempt() -> None:
             status, answer = await http_request_async(
@@ -130,15 +149,16 @@ class CollectorBridge:
 
     # --- master role -------------------------------------------------------
 
-    def collect(self, job_id: str, local_images,
+    def collect(self, job_id: str, local_images, local_audio=None,
                 enabled_worker_ids: Sequence[str] = (),
                 delegate_only: bool = False, timeout: float | None = None):
+        """The joined ``(images, audio)``."""
         return run_in_loop(
-            self.collect_async(job_id, local_images, enabled_worker_ids,
-                               delegate_only, timeout),
+            self.collect_async(job_id, local_images, local_audio,
+                               enabled_worker_ids, delegate_only, timeout),
             self.loop, timeout=None)
 
-    async def collect_async(self, job_id: str, local_images,
+    async def collect_async(self, job_id: str, local_images, local_audio=None,
                             enabled_worker_ids: Sequence[str] = (),
                             delegate_only: bool = False,
                             timeout: float | None = None):
@@ -147,6 +167,7 @@ class CollectorBridge:
         deadline = time.monotonic() + (timeout or constants.heartbeat_timeout() * 4)
         per_worker: dict[str, dict[int, np.ndarray]] = {
             w: {} for w in job.expected_workers}
+        audio_parts: dict[str, dict] = {}
         # completion is judged on envelopes consumed here, never on
         # arrival flags, so nothing is left in the queue
         drained_done: set[str] = set()
@@ -179,13 +200,18 @@ class CollectorBridge:
             elif envelope.get("image"):
                 per_worker.setdefault(w, {})[idx] = await loop.run_in_executor(
                     None, decode_image_b64, envelope["image"])
+            if envelope.get("audio"):
+                audio_parts[w] = await loop.run_in_executor(
+                    None, decode_audio, envelope["audio"])
             if envelope.get("is_last"):
                 drained_done.add(w)
 
         images = self._combine_images(local_images, per_worker,
                                       job.expected_workers, delegate_only)
+        audio = self._combine_audio(local_audio, audio_parts,
+                                    job.expected_workers)
         await self.store.cleanup_job(job_id)
-        return images
+        return images, audio
 
     async def _probe_busy(self, missing: Sequence[str]) -> list[str]:
         """Silent workers with work still queued or running. A dead host
@@ -226,3 +252,19 @@ class CollectorBridge:
         if len(kept) != len(batches):
             log(f"collector: dropping {len(batches) - len(kept)} mismatched-size results")
         return torch.cat(kept, dim=0)
+
+    @staticmethod
+    def _combine_audio(local_audio, audio_parts: dict[str, dict],
+                       expected: Sequence[str]):
+        """The master's clip, then each worker's in ``expected`` order,
+        joined along the samples and cut to the fewest channels (a
+        delegate-only master's clip counts too, as in the JAX package).
+        CPU tensors; None when nobody sent audio."""
+        parts = [local_audio] if local_audio is not None else []
+        parts += [audio_parts[w] for w in expected if w in audio_parts]
+        if not parts:
+            return None
+        wfs = [torch.as_tensor(p["waveform"]).float().cpu() for p in parts]
+        ch = min(w.shape[1] for w in wfs)
+        return {"waveform": torch.cat([w[:, :ch] for w in wfs], dim=-1),
+                "sample_rate": parts[0]["sample_rate"]}

@@ -4,16 +4,22 @@ of the upscale workflow (``workflows/distributed-upscale.json``:
 ``LoadImage``, ``UpscaleModelLoader``, ``ImageUpscaleWithModel``,
 ``UltimateSDUpscaleDistributed``), img2img, inpainting and ControlNet
 (``TPUImg2Img``, ``TPUInpaint``, ``ControlNetLoader``, ``ControlNetApply``)
-with the image, mask and latent nodes around them, ``LoraLoader``, and the two the
-control plane injects (``DistributedEmptyImage``, ``PreviewImage``), with
-the JAX package's names and contracts.
+with the image, mask and latent nodes around them, ``LoraLoader``, the
+audio and video nodes (``LoadAudio``, ``SaveAudio``, ``AudioBatchDivider``,
+``LoadVideo``, ``SaveVideo`` and their VHS aliases), the primitives, the
+remaining distributed nodes (``DistributedModelName``,
+``ImageBatchDivider``), and the two the control plane injects
+(``DistributedEmptyImage``, ``PreviewImage``), with the JAX package's
+names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
 [B,H,W,C] in [0,1]; MASK = float32 [B,H,W]; LATENT = {"samples":
 [B,h,w,C]}; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]}, with a
 ControlNet under ``"control"``: {"model", "hint" [B,H,W,C], "strength"};
-MODEL = ModelBundle. Tensors stay on the bundle's device until
-``SaveImage`` copies them to the host.
+MODEL = ModelBundle; AUDIO = {"waveform": float32 [B,C,S] on the CPU,
+"sample_rate": int} (``utils/audio_payload.py`` says why it stays on
+the host). Tensors stay on the bundle's device until ``SaveImage`` or
+``SaveVideo`` copies them to the host.
 """
 
 from __future__ import annotations
@@ -31,7 +37,25 @@ from ..utils import constants
 from ..utils.device import resolve_device
 from ..utils.exceptions import ValidationError
 from ..utils.logging import log
-from .node import NodeDef, register_node
+from .node import NODE_REGISTRY, NodeDef, register_node
+
+
+def _chunk_bounds(total: int, parts: int) -> list[tuple[int, int]]:
+    """Contiguous chunk bounds, sizes differing by at most 1, the larger
+    chunks first."""
+    parts = max(1, min(parts, total)) if total > 0 else 1
+    base, extra = divmod(total, parts)
+    bounds, start = [], 0
+    for i in range(parts):
+        size = base + (1 if i < extra else 0)
+        bounds.append((start, start + size))
+        start += size
+    return bounds
+
+
+def _device(model_registry):
+    return (model_registry.device if model_registry is not None
+            else resolve_device())
 
 
 @register_node("DistributedSeed")
@@ -92,6 +116,55 @@ class DistributedValue(NodeDef):
         return (self._coerce(mapping[key], vtype) if vtype else mapping[key],)
 
 
+@register_node("DistributedModelName")
+class DistributedModelName(NodeDef):
+    """Output node passing a model name through as a string, so that a
+    delegate-mode worker can load a model the master lacks."""
+
+    INPUTS = {"model_name": "*"}
+    HIDDEN = {"is_worker": "BOOLEAN", "worker_id": "STRING"}
+    RETURNS = ("STRING",)
+    OUTPUT_NODE = True
+
+    def execute(self, model_name, **_):
+        return (str(model_name),)
+
+
+@register_node("ImageBatchDivider")
+class ImageBatchDivider(NodeDef):
+    """Split an IMAGE batch into up to 10 contiguous chunks on the
+    registry's device; the outputs past the chunks are the empty batch."""
+
+    INPUTS = {"images": "IMAGE", "divide_by": "INT"}
+    HIDDEN = {"model_registry": "*"}
+    RETURNS = tuple(["IMAGE"] * 10)
+
+    def execute(self, images, divide_by: int = 2, model_registry=None, **_):
+        divide_by = max(1, min(int(divide_by), 10))
+        arr = torch.as_tensor(images).to(_device(model_registry))
+        chunks = [arr[s:e] for s, e in _chunk_bounds(arr.shape[0], divide_by)]
+        chunks += [arr[:0]] * (10 - len(chunks))
+        return tuple(chunks)
+
+
+@register_node("AudioBatchDivider")
+class AudioBatchDivider(NodeDef):
+    """Split AUDIO along its samples into up to 10 contiguous clips; the
+    outputs past the clips are the empty clip."""
+
+    INPUTS = {"audio": "AUDIO", "divide_by": "INT"}
+    RETURNS = tuple(["AUDIO"] * 10)
+
+    def execute(self, audio, divide_by: int = 2, **_):
+        divide_by = max(1, min(int(divide_by), 10))
+        wf = torch.as_tensor(audio["waveform"])
+        sr = int(audio.get("sample_rate", 44100))
+        chunks = [{"waveform": wf[..., s:e], "sample_rate": sr}
+                  for s, e in _chunk_bounds(wf.shape[-1], divide_by)]
+        chunks += [{"waveform": wf[..., :0], "sample_rate": sr}] * (10 - len(chunks))
+        return tuple(chunks)
+
+
 @register_node("ImageFromBatch")
 class ImageFromBatch(NodeDef):
     """Slice [batch_index : batch_index + length] out of an IMAGE batch;
@@ -134,10 +207,8 @@ class DistributedEmptyImage(NodeDef):
 
     def execute(self, height: int = 64, width: int = 64, channels: int = 3,
                 model_registry=None, **_):
-        device = (model_registry.device if model_registry is not None
-                  else resolve_device())
         return (torch.zeros((0, int(height), int(width), int(channels)),
-                            device=device),)
+                            device=_device(model_registry)),)
 
 
 @register_node("DistributedCollector")
@@ -146,8 +217,9 @@ class DistributedCollector(NodeDef):
     provides a ``collector_bridge``: a worker sends its batch to the
     master, the master waits for every worker and joins the batches
     master first (``cluster/collector_bridge.py``). Without a bridge or
-    job id, and with ``pass_through``, it is the identity. Audio passes
-    through: no audio node is ported."""
+    job id, and with ``pass_through``, it is the identity. AUDIO rides
+    along: a worker sends its clip with its images, and the master joins
+    the clips along their samples, master first."""
 
     INPUTS = {"images": "IMAGE"}
     OPTIONAL = {"audio": "AUDIO"}
@@ -167,12 +239,16 @@ class DistributedCollector(NodeDef):
         if pass_through or not multi_job_id or collector_bridge is None:
             return (images, audio)
         if is_worker:
-            collector_bridge.send(multi_job_id, worker_id, images, master_url)
+            collector_bridge.send(multi_job_id, worker_id, images, audio,
+                                  master_url)
             return (images, audio)
-        images = collector_bridge.collect(
-            multi_job_id, images, enabled_worker_ids=tuple(enabled_worker_ids),
+        # a delegate-only master's collector is fed the empty image on
+        # every input (graph/transform.py), so it has no clip of its own
+        # (the JAX package joins that image as a clip and fails)
+        return collector_bridge.collect(
+            multi_job_id, images, None if delegate_only else audio,
+            enabled_worker_ids=tuple(enabled_worker_ids),
             delegate_only=delegate_only)
-        return (images, audio)
 
 
 def _registry(model_registry):
@@ -305,11 +381,10 @@ class EmptyLatentImage(NodeDef):
         if preset is not None:
             downscale = preset.vae.downscale
             channels = preset.vae.latent_channels
-        device = (model_registry.device if model_registry is not None
-                  else resolve_device())
         return ({"samples": torch.zeros(
                     (int(batch_size), int(height) // downscale,
-                     int(width) // downscale, channels), device=device),
+                     int(width) // downscale, channels),
+                    device=_device(model_registry)),
                  "height": int(height), "width": int(width)},)
 
 
@@ -736,16 +811,173 @@ class LoadImage(NodeDef):
                 **_):
         from ..utils.image import decode_png
 
-        root = Path(input_dir or "input")
-        path = root / image
-        if root.resolve() not in path.resolve().parents:
-            raise ValidationError(f"image path {image!r} leaves the input "
-                                  "directory", field="image")
-        if not path.is_file():
-            raise ValidationError(f"image file not found: {path}", field="image")
-        device = (model_registry.device if model_registry is not None
-                  else resolve_device())
-        return (torch.from_numpy(decode_png(path.read_bytes()))[None].to(device),)
+        path = _input_file(input_dir, image, "image")
+        return (torch.from_numpy(decode_png(path.read_bytes()))[None]
+                .to(_device(model_registry)),)
+
+
+def _input_file(input_dir: str, name: str, field: str) -> Path:
+    """``name`` inside the controller's input directory; a path that
+    leaves it is refused (the JAX package's loaders do not check)."""
+    root = Path(input_dir or "input")
+    path = root / name
+    if root.resolve() not in path.resolve().parents:
+        raise ValidationError(f"{field} path {name!r} leaves the input "
+                              "directory", field=field)
+    if not path.is_file():
+        raise ValidationError(f"{field} file not found: {path}", field=field)
+    return path
+
+
+@register_node("LoadAudio")
+class LoadAudio(NodeDef):
+    """A PCM WAV from the input directory as AUDIO
+    ``{"waveform": [1,C,S] on the CPU, "sample_rate"}``."""
+
+    INPUTS = {"audio": "STRING"}
+    HIDDEN = {"input_dir": "STRING"}
+    RETURNS = ("AUDIO",)
+
+    def execute(self, audio: str, input_dir: str = "", **_):
+        from ..utils.audio_payload import wav_decode
+
+        return (wav_decode(_input_file(input_dir, audio, "audio").read_bytes()),)
+
+
+@register_node("SaveAudio")
+class SaveAudio(NodeDef):
+    """AUDIO → one 16-bit PCM WAV per clip of the batch."""
+
+    INPUTS = {"audio": "AUDIO"}
+    OPTIONAL = {"filename_prefix": "STRING"}
+    HIDDEN = {"output_dir": "STRING"}
+    RETURNS = ()
+    OUTPUT_NODE = True
+
+    def execute(self, audio, filename_prefix: str = "audio",
+                output_dir: str = "", **_):
+        from ..utils.audio_payload import wav_bytes
+
+        wf = torch.as_tensor(audio["waveform"])
+        if wf.ndim == 2:               # tolerate [C,S]
+            wf = wf[None]
+        sr = int(audio.get("sample_rate", 44100))
+        out_dir = Path(output_dir or "output")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths = []
+        for i in range(wf.shape[0]):
+            p = out_dir / f"{filename_prefix}_{i:05d}.wav"
+            p.write_bytes(wav_bytes(wf[i], sr))
+            paths.append(str(p))
+        log(f"saved {len(paths)} audio clips to {out_dir}")
+        return ()
+
+
+@register_node("LoadVideo")
+class LoadVideo(NodeDef):
+    """A video container from the input directory → IMAGE frames
+    [T,H,W,3] on the registry's device, AUDIO, fps and frame count
+    (``utils/video_io.py``: the port's MJPG + PCM AVI, or mp4/webm through
+    OpenCV). ``frame_load_cap``, ``skip_first_frames`` and
+    ``select_every_nth`` are VHS_LoadVideo's. A silent clip gives a
+    zero-length AUDIO, so an AUDIO consumer downstream does nothing."""
+
+    INPUTS = {"video": "STRING"}
+    OPTIONAL = {"frame_load_cap": "INT", "skip_first_frames": "INT",
+                "select_every_nth": "INT"}
+    HIDDEN = {"input_dir": "STRING", "model_registry": "*"}
+    RETURNS = ("IMAGE", "AUDIO", "FLOAT", "INT")
+
+    def execute(self, video: str, frame_load_cap: int = 0,
+                skip_first_frames: int = 0, select_every_nth: int = 1,
+                input_dir: str = "", model_registry=None, **_):
+        from ..utils.video_io import load_video
+
+        clip = load_video(_input_file(input_dir, video, "video"),
+                          frame_load_cap=int(frame_load_cap),
+                          skip_first_frames=int(skip_first_frames),
+                          select_every_nth=int(select_every_nth))
+        audio = clip["audio"] or {
+            "waveform": torch.zeros((1, 1, 0)), "sample_rate": 44100}
+        frames = torch.from_numpy(clip["frames"]).to(_device(model_registry))
+        return (frames, audio, float(clip["fps"]), int(clip["frame_count"]))
+
+
+@register_node("SaveVideo")
+class SaveVideo(NodeDef):
+    """IMAGE frames (and AUDIO) → a video container in the output
+    directory, VHS_VideoCombine's surface. ``avi`` muxes the audio into
+    the file; ``mp4``/``webm`` go through OpenCV with the audio as a
+    sidecar ``.wav`` that ``LoadVideo`` attaches again. VHS format
+    strings (``video/h264-mp4``) name their container. The file name
+    skips an index whose container or ``.wav`` is taken, so that no save
+    overwrites another's audio. Returns the container's path."""
+
+    INPUTS = {"images": "IMAGE", "frame_rate": "FLOAT"}
+    OPTIONAL = {"audio": "AUDIO", "format": "STRING",
+                "filename_prefix": "STRING", "quality": "INT"}
+    HIDDEN = {"output_dir": "STRING"}
+    RETURNS = ("STRING",)
+    OUTPUT_NODE = True
+
+    _FORMATS = ("mp4", "webm", "avi")
+
+    def execute(self, images, frame_rate: float = 8.0, audio=None,
+                format: str = "mp4", filename_prefix: str = "video",
+                quality: int = 95, output_dir: str = "", **_):
+        from ..utils.video_io import save_video
+
+        fmt = str(format).lower()
+        fmt = next((f for f in self._FORMATS if f in fmt), fmt)
+        if fmt not in self._FORMATS:
+            raise ValidationError(
+                f"unsupported video format {format!r} "
+                f"(supported: {list(self._FORMATS)})", field="format")
+        out_dir = Path(output_dir or "output")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        i = 0
+        while True:
+            stem = out_dir / f"{filename_prefix}_{i:05d}.{fmt}"
+            if not stem.exists() and not stem.with_suffix(".wav").exists():
+                break
+            i += 1
+        written = save_video(stem, images, fps=float(frame_rate),
+                             audio=audio, quality=int(quality))
+        log(f"saved video {written[0]}"
+            + (f" (+ sidecar {written[1]})" if len(written) > 1 else ""))
+        return (written[0],)
+
+
+# VideoHelperSuite's names, so workflows that use them run unchanged
+NODE_REGISTRY["VHS_LoadVideo"] = LoadVideo
+NODE_REGISTRY["VHS_VideoCombine"] = SaveVideo
+
+
+@register_node("PrimitiveInt")
+class PrimitiveInt(NodeDef):
+    INPUTS = {"value": "INT"}
+    RETURNS = ("INT",)
+
+    def execute(self, value, **_):
+        return (int(value),)
+
+
+@register_node("PrimitiveFloat")
+class PrimitiveFloat(NodeDef):
+    INPUTS = {"value": "FLOAT"}
+    RETURNS = ("FLOAT",)
+
+    def execute(self, value, **_):
+        return (float(value),)
+
+
+@register_node("PrimitiveString")
+class PrimitiveString(NodeDef):
+    INPUTS = {"value": "STRING"}
+    RETURNS = ("STRING",)
+
+    def execute(self, value, **_):
+        return (str(value),)
 
 
 @register_node("UpscaleModelLoader")

@@ -184,7 +184,8 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest 2× upsampling, then a 3×3 conv."""
+    """Nearest 2× upsampling (or nearest to ``size``, the skip it meets:
+    a side that was odd before its downsampling), then a 3×3 conv."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype):
@@ -192,8 +193,10 @@ class Upsample(nn.Module):
         self.Conv_0 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
                                 dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_0(F.interpolate(x, scale_factor=2, mode="nearest"))
+    def forward(self, x: torch.Tensor, size=None) -> torch.Tensor:
+        if size is None:
+            return self.Conv_0(F.interpolate(x, scale_factor=2, mode="nearest"))
+        return self.Conv_0(F.interpolate(x, size=tuple(size), mode="nearest"))
 
 
 _TRUNC = 0.87962566103423978    # std of a unit normal truncated to [-2, 2]

@@ -15,6 +15,11 @@ file (``convert.middle_depth_of``) and builds that core, a departure
 from the JAX preset, which cannot load such a file. The public
 forward takes and returns NHWC like the JAX model; inside it runs NCHW. ``forward(..., control=)`` takes a ControlNet's
 residuals (``models/controlnet.py``) in that NCHW layout.
+
+A latent side need not be a multiple of 2 per downsampling: each
+upsampling goes to the size of the skip it meets, as ComfyUI's UNet
+does, so a 816² tile (latent 102: 51 and 26 below) runs. The JAX UNet
+upsamples 2× and its concatenation fails there (26 → 52 against 51).
 """
 
 from __future__ import annotations
@@ -190,6 +195,9 @@ class UNet2D(nn.Module):
                 if cfg.transformer_depth[level]:
                     h = block(f"up_{level}_attn_{i}")(h, context)
             if level > 0:
-                h = block(f"up_{level}_us")(h)
+                # to the size of the skip it meets next, as ComfyUI's UNet
+                # does: a latent side that is not a multiple of 8 (a
+                # 816² tile: 102 → 51 → 26) comes back as 26 → 51
+                h = block(f"up_{level}_us")(h, skips[-1].shape[-2:])
         h = F.silu(self.norm_out(h))
         return self.conv_out(h.float()).permute(0, 2, 3, 1)

@@ -144,6 +144,11 @@ def max_frame_raw_bytes() -> int:
     return _read("CDT_MAX_FRAME_RAW_BYTES", 1 << 30, int)
 
 
+def max_audio_payload_bytes() -> int:
+    """Cap on an audio envelope's float32 waveform (bytes)."""
+    return _read("CDT_MAX_AUDIO_PAYLOAD_BYTES", 256 * 1024 * 1024, int)
+
+
 # --- orchestration concurrency and timeouts ------------------------------------
 
 
