@@ -193,6 +193,34 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    master's USDU must be bitwise that frame upscaled alone at seed 7 +
    its index, and the AVI read back holds 8 frames at 24 fps with
    16 000 samples of the track.
+14b. managed worker — after phase 14's worker is stopped, a master in
+   this process (config: one ``local`` host ``w0``,
+   ``stop_workers_on_master_exit``, a cluster token) answers ``/``, the
+   ``/web/*`` files ``index.html`` names and ``/distributed/config``
+   (401 without the token), then launches its worker with ``POST
+   /distributed/launch_worker``: ``serve --device cuda`` under
+   ``worker_monitor.py``, ``launching`` until its ready report (seconds
+   printed). The txt2img workflow is served twice at 1024², 30 steps
+   (the master's PNG bitwise the direct seed-7 image, the worker's the
+   direct seed-8 image, exactly 2108 K1 and 2100 K2 master launches a
+   request); the second request's sampling starts held until
+   ``POST /distributed/profile/start`` has answered, so the exported
+   ``torch.profiler`` trace counts exactly the master's K1 launches in
+   its window as ``qkv_projection_kernel`` events (and shows
+   ``flash_attention_kernel`` and ``short_kv_attention_kernel``). Then
+   ``/distributed/metrics`` on both hosts (``cdt_prompts_total`` and
+   ``cdt_sampler_step_seconds`` count 2 each), the master's trace tree of
+   the second request (its ``orchestrate`` span and the worker's
+   ``prompt.execute`` under the dispatch span), ``memory_stats``,
+   ``step_times``, the worker's log, ``tunnel/status`` and
+   ``tunnel/start`` (503: no binary, no download); one direct request
+   with telemetry on and one off, each under ``torch.profiler`` (CUDA
+   activity): the same count of synchronising calls
+   (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``, device-to-host
+   copies); ``POST /distributed/stop_worker``: the monitor and the worker
+   exit and the card's free memory comes back within 1 GiB of its value
+   before the launch; last ``python -m comfyui_distributed_tpu_torch
+   info`` names the card.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -2768,6 +2796,395 @@ def serve_video(torch, fa, base: str, master_out: Path, video: VideoRun,
     return launches
 
 
+# --- phase 14b: a worker the master launches --------------------------------
+
+MANAGED_DIR = OUTPUT_DIR / "managed"
+MANAGED_STOP_S = 30.0        # the worker's exit and its memory coming back
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+K1_EVENT = "qkv_projection_kernel"
+
+
+def proc_children(pid: int) -> list[int]:
+    out = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(") ", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(stat.parent.name))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(") ", 1)[1][:1]
+    except (OSError, IndexError):
+        return False
+    return state != "Z"
+
+
+def prometheus_samples(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def sync_counts(prof) -> tuple[int, int]:
+    """(synchronising calls, device-to-host copies) of a profile."""
+    syncs = copies = 0
+    for e in prof.key_averages():
+        if e.key in SYNC_CALLS:
+            syncs += e.count
+        elif e.key.startswith("Memcpy DtoH"):
+            copies += e.count
+    return syncs, copies
+
+
+def direct_sdxl(torch, fa, registry, seed: int) -> float:
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    prompt = strip_meta(json.loads(
+        (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+    prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
+    before = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    GraphExecutor({"model_registry": registry,
+                   "output_dir": str(MANAGED_DIR / "direct")}).execute(prompt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    require(counts == SDXL_PATH.expected, f"direct request: {counts}")
+    return secs
+
+
+def managed_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Launch, serve through, observe and stop a worker the master starts
+    itself; returns the master's launches in the phase."""
+    import re
+    import secrets
+    import shutil
+    import threading
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch import telemetry
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.diffusion import pipeline as pipemod
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    shutil.rmtree(MANAGED_DIR, ignore_errors=True)
+    MANAGED_DIR.mkdir(parents=True)
+    seed = SDXL_PATH.seeds[0]
+    want = {s: to_uint8(sdxl.images[s])[0] for s in (seed, seed + 1)}
+    token = secrets.token_hex(16)
+    auth = {"token": token}
+    master_port, worker_port = free_port(), free_port()
+    cfg_path = MANAGED_DIR / "master.json"
+    cfg_path.write_text(json.dumps({
+        "master": {"host": "127.0.0.1", "port": master_port},
+        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
+                   "type": "local", "enabled": True}],
+        "settings": {"stop_workers_on_master_exit": True,
+                     "auth_token": token}}))
+    master_out = MANAGED_DIR / "master_out"
+    env = {"CDT_LOG_DIR": str(MANAGED_DIR / "logs"),
+           "CDT_PROFILE_DIR": str(MANAGED_DIR / "profiles"),
+           "CDT_CLOUDFLARED_AUTO_DOWNLOAD": "0",
+           "CDT_OUTPUT_DIR": str(master_out)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    telemetry.REGISTRY.reset()
+    telemetry.SPAN_STORE.reset()
+    prompt = strip_meta(json.loads(
+        (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+    prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
+    # the master's sampling waits here while armed (the profile window
+    # then opens on a drained card, before its first UNet launch)
+    reached, go, armed = threading.Event(), threading.Event(), [False]
+    sample_and_decode = pipemod.Txt2ImgPipeline.sample_and_decode
+
+    def held(self, *args, **kwargs):
+        if armed[0]:
+            armed[0] = False
+            torch.cuda.synchronize()
+            reached.set()
+            require(go.wait(SERVE_REQUEST_S), "the profile window never opened")
+        return sample_and_decode(self, *args, **kwargs)
+
+    patch = mock.patch.object(pipemod.Txt2ImgPipeline, "sample_and_decode",
+                              held)
+    master = server = monitor = None
+    log_path = None
+    ok = False
+    launches = {k: 0 for k in fa.LAUNCHES}
+    try:
+        patch.start()
+        master = Controller(cfg_path, device=DEVICE,
+                            model_registry=sdxl.registry)
+        server = ServerThread(master, port=master_port)
+        base = f"http://127.0.0.1:{master_port}"
+
+        # 1. the dashboard, the config, the launch and the ready report
+        status, index = http_raw(base + "/")
+        require(status == 200 and b"CUDA Distributed" in index,
+                f"/ answered {status}")
+        assets = sorted(set(re.findall(rb'"/web/([\w.-]+)"', index)))
+        for name in assets:
+            status, _ = http_raw(f"{base}/web/{name.decode()}")
+            require(status == 200, f"/web/{name.decode()} answered {status}")
+        require(http_json(base + "/distributed/config")[0] == 401,
+                "/distributed/config answered without the token")
+        status, cfg = http_json(base + "/distributed/config", **auth)
+        require(status == 200 and cfg["hosts"][0]["id"] == "w0",
+                f"/distributed/config: {status}")
+        # the master's cache returned first, here and after the stop, so
+        # the two readings differ by what the worker held
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info()[0]
+        os.environ["CDT_OUTPUT_DIR"] = str(MANAGED_DIR / "worker_out")
+        t0 = time.perf_counter()
+        status, launched = http_json(base + "/distributed/launch_worker",
+                                     {"worker_id": "w0"}, **auth)
+        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
+        require(status == 200, f"launch_worker answered {status}: {launched}")
+        monitor, log_path = launched["pid"], Path(launched["log"])
+        seen_launching = False
+        while True:
+            status, managed = http_json(base + "/distributed/managed_workers")
+            entry = managed["workers"].get("w0")
+            require(entry is not None, "the launched worker died while booting")
+            if not entry["launching"]:
+                break
+            seen_launching = True
+            require(time.perf_counter() - t0 < SERVE_BOOT_S,
+                    f"no ready report in {SERVE_BOOT_S} s")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t0
+        require(seen_launching, "the worker was never seen launching")
+        cmdline = Path(f"/proc/{monitor}/cmdline").read_bytes().split(b"\0")
+        require(any(a.endswith(b"worker_monitor.py") for a in cmdline),
+                f"the managed process is not the monitor: {cmdline[:3]}")
+        (worker,) = proc_children(monitor)
+        wargs = Path(f"/proc/{worker}/cmdline").read_bytes().split(b"\0")
+        require(b"--device" in wargs and wargs[wargs.index(b"--device") + 1]
+                == DEVICE.encode(), f"the worker's argv: {wargs}")
+        say(f"  launch_worker → ready report in {ready_s:.3f} s (monitor pid "
+            f"{monitor}, worker pid {worker}, port {worker_port}); /, "
+            f"{len(assets)} /web files and /distributed/config (token) answer")
+
+        # 2 and 3. two served requests, the second under the profiler
+        prompt_ids, served = [], []
+        for i in range(2):
+            for png in master_out.glob("*.png"):
+                png.unlink()
+            before = dict(fa.LAUNCHES)
+            if i == 1:
+                armed[0] = True
+            t0 = time.perf_counter()
+            status, answer = http_json(base + "/distributed/queue",
+                                       {"prompt": prompt}, timeout=120, **auth)
+            require(status == 200 and answer.get("worker_count") == 1,
+                    f"queue answered {status}: {answer}")
+            if i == 1:
+                require(reached.wait(SERVE_REQUEST_S),
+                        "the master never reached its sampling")
+                k1_start = fa.LAUNCHES["fused_qkv_attention"]
+                status, started = http_json(base + "/distributed/profile/start",
+                                            {"out": "served"}, **auth)
+                require(status == 200 and started["status"] == "tracing",
+                        f"profile/start answered {status}: {started}")
+                go.set()
+            entry = wait_history(base, answer["prompt_id"], t0,
+                                 f"managed request {i}")
+            secs = time.perf_counter() - t0
+            require(entry["status"] == "success", f"managed request {i}: {entry}")
+            if i == 1:
+                k1_window = fa.LAUNCHES["fused_qkv_attention"] - k1_start
+                t_stop = time.perf_counter()
+                status, stopped = http_json(base + "/distributed/profile/stop",
+                                            {}, timeout=600, **auth)
+                require(status == 200, f"profile/stop answered {status}")
+                stop_s = time.perf_counter() - t_stop
+            counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+            require(counts == SDXL_PATH.expected,
+                    f"managed request {i}: master launches {counts}")
+            launches = {k: launches[k] + counts[k] for k in launches}
+            pngs = sorted(master_out.glob("*.png"))
+            require(len(pngs) == 2, f"managed request {i}: {len(pngs)} PNGs")
+            got = [to_uint8(decode_png(p.read_bytes()))[0] for p in pngs]
+            require(np_equal(got[0], want[seed]),
+                    f"managed request {i}: the master's PNG differs from the "
+                    f"direct seed-{seed} image")
+            require(np_equal(got[1], want[seed + 1]),
+                    f"managed request {i}: the worker's PNG differs from the "
+                    f"direct seed-{seed + 1} image")
+            prompt_ids.append(answer["prompt_id"])
+            served.append(secs)
+            say(f"  managed request {i}: {secs:.3f} s (direct "
+                f"{sdxl.seconds[i]:.3f} s); master launches {counts}; both "
+                f"PNGs bitwise the direct seed {seed} and {seed + 1} images")
+        t_parse = time.perf_counter()
+        events = json.loads(Path(stopped["trace"]).read_text())["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                for name in (K1_EVENT, "flash_attention_kernel",
+                             "short_kv_attention_kernel"):
+                    if name in e.get("name", ""):
+                        kernels[name] = kernels.get(name, 0) + 1
+        size = Path(stopped["trace"]).stat().st_size
+        say(f"  profile of request 1: {len(events)} events, {size} bytes, "
+            f"stop and export {stop_s:.2f} s, parse "
+            f"{time.perf_counter() - t_parse:.2f} s; kernels {kernels}; K1 "
+            f"launches in the window {k1_window}")
+        require(kernels.get(K1_EVENT) == k1_window,
+                f"{K1_EVENT} events {kernels.get(K1_EVENT)} != the K1 "
+                f"launch delta {k1_window}")
+        require(kernels.get("flash_attention_kernel", 0) > 0
+                and kernels.get("short_kv_attention_kernel", 0) > 0,
+                f"attention kernels missing from the trace: {kernels}")
+
+        # the rest of 3: metrics, the trace tree, memory, step times, log
+        for where, port in (("master", master_port), ("worker", worker_port)):
+            status, text = http_raw(f"http://127.0.0.1:{port}/distributed/metrics")
+            require(status == 200, f"{where} metrics answered {status}")
+            m = prometheus_samples(text.decode())
+            got = (m.get('cdt_prompts_total{status="success"}'),
+                   m.get('cdt_sampler_step_seconds_count{pipeline="txt2img"}'))
+            require(got == (2, 2), f"{where} metrics: prompts and step "
+                    f"observations {got}, expected (2, 2)")
+            step = (m['cdt_sampler_step_seconds_sum{pipeline="txt2img"}'] / 2)
+            say(f"  {where} /distributed/metrics: {len(m)} samples; "
+                f"cdt_prompts_total 2, cdt_sampler_step_seconds count 2, mean "
+                f"{step:.4f} s a step")
+        status, trace = http_json(f"{base}/distributed/trace/{prompt_ids[1]}")
+        require(status == 200, f"trace answered {status}")
+        spans = {s["span_id"]: s for s in trace["spans"]}
+        orchestrate = [s for s in spans.values() if s["name"] == "orchestrate"]
+        remote = [s for s in spans.values() if s["name"] == "prompt.execute"
+                  and s["attrs"].get("prompt_id") != prompt_ids[1]]
+        require(len(orchestrate) == 1 and len(remote) == 1,
+                f"trace spans {sorted(s['name'] for s in spans.values())}")
+        require(spans.get(remote[0]["parent_id"], {}).get("name") == "dispatch",
+                "the worker's execution span is not under the dispatch span")
+        require(trace["tree"][0]["name"] == "orchestrate",
+                f"trace tree roots {[r['name'] for r in trace['tree']]}")
+        worker_calls = [s for s in spans.values() if s["name"] == "pipeline_call"
+                        and s["parent_id"] == remote[0]["span_id"]]
+        require(len(worker_calls) == 1, "no worker pipeline_call span")
+        say(f"  trace {trace['trace_id']}: {len(spans)} spans, master "
+            f"orchestrate {orchestrate[0]['duration_s']:.3f} s, worker "
+            f"prompt.execute {remote[0]['duration_s']:.3f} s under dispatch, "
+            f"worker pipeline_call {worker_calls[0]['duration_s']:.3f} s "
+            f"(attn {worker_calls[0]['attrs'].get('attn_kernels')})")
+        status, mem = http_json(base + "/distributed/memory_stats")
+        stats = mem["devices"][0]["stats"]
+        require(all(stats.get(k, 0) > 0 for k in (
+            "allocated_bytes", "reserved_bytes", "free_bytes", "total_bytes")),
+            f"memory_stats: {mem}")
+        say(f"  memory_stats: allocated {stats['allocated_bytes'] / 2**30:.3f}, "
+            f"reserved {stats['reserved_bytes'] / 2**30:.3f}, free "
+            f"{stats['free_bytes'] / 2**30:.3f} of "
+            f"{stats['total_bytes'] / 2**30:.3f} GiB")
+        status, steps = http_json(base + "/distributed/step_times")
+        listed = [p["prompt_id"] for p in steps["prompts"]]
+        require(set(prompt_ids) <= set(listed), f"step_times: {listed}")
+        status, wlog = http_json(base + "/distributed/worker_log/w0", **auth)
+        require(status == 200 and f"controller up as worker on {DEVICE}"
+                in wlog.get("log", ""), "the worker's log does not show it up")
+        status, tun = http_json(base + "/distributed/tunnel/status")
+        require(status == 200 and tun["running"] is False,
+                f"tunnel/status: {status} {tun}")
+        t0 = time.perf_counter()
+        status, tun = http_json(base + "/distributed/tunnel/start", {}, **auth)
+        tunnel_s = time.perf_counter() - t0
+        require(status == 503 and tunnel_s < 1.0,
+                f"tunnel/start answered {status} in {tunnel_s:.2f} s: {tun}")
+        say(f"  step_times lists both prompts; worker log tailed "
+            f"({len(wlog['log'])} chars); tunnel/start 503 in "
+            f"{tunnel_s:.3f} s: {tun['error']}")
+
+        # 4. telemetry on and off: the same synchronisations
+        cost = {}
+        activity = (torch.profiler.ProfilerActivity.CUDA if DEVICE == "cuda"
+                    else torch.profiler.ProfilerActivity.CPU)
+        for on in (True, False):
+            telemetry.set_enabled(on)
+            try:
+                with torch.profiler.profile(activities=[activity]) as prof:
+                    secs = direct_sdxl(torch, fa, sdxl.registry, seed)
+            finally:
+                telemetry.set_enabled(True)
+            cost[on] = (secs, *sync_counts(prof))
+        say(f"  telemetry on: {cost[True][0]:.3f} s, {cost[True][1]} sync "
+            f"calls, {cost[True][2]} device-to-host copies; off: "
+            f"{cost[False][0]:.3f} s, {cost[False][1]} sync calls, "
+            f"{cost[False][2]} device-to-host copies")
+        require(cost[True][1:] == cost[False][1:],
+                "telemetry changed the synchronising calls")
+        require(cost[True][1] > 0, "the profile recorded no synchronisation")
+
+        # 5. stop: the monitor and the worker exit, the memory comes back
+        t0 = time.perf_counter()
+        status, stopped = http_json(base + "/distributed/stop_worker",
+                                    {"worker_id": "w0"}, **auth)
+        stop_s = time.perf_counter() - t0
+        require(status == 200, f"stop_worker answered {status}: {stopped}")
+        require(http_json(base + "/distributed/managed_workers")[1]
+                == {"workers": {}}, "managed_workers not empty after stop")
+        require(not pid_alive(monitor) and not pid_alive(worker),
+                "the monitor or the worker outlived stop_worker")
+        while True:
+            torch.cuda.empty_cache()
+            free_after = torch.cuda.mem_get_info()[0]
+            if free_before - free_after < 2**30:
+                break
+            require(time.perf_counter() - t0 < MANAGED_STOP_S,
+                    f"free memory {free_after / 2**30:.3f} GiB did not come "
+                    f"back to {free_before / 2**30:.3f} GiB")
+            time.sleep(0.25)
+        say(f"  stop_worker in {stop_s:.3f} s: monitor and worker gone; free "
+            f"card memory {free_before / 2**30:.3f} GiB before the launch, "
+            f"{free_after / 2**30:.3f} GiB after the stop")
+
+        # 6. info
+        proc = subprocess.run(
+            [sys.executable, "-m", "comfyui_distributed_tpu_torch", "info"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "CDT_CONFIG_PATH": str(MANAGED_DIR / "info.json")})
+        require(proc.returncode == 0, f"info exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        info = json.loads(proc.stdout)
+        require(info["devices"][0]["name"] == torch.cuda.get_device_name(0),
+                f"info devices: {info['devices']}")
+        say(f"  info: {info['devices'][0]['name']}, torch {info['torch']}, "
+            f"CUDA {info.get('cuda')}")
+        ok = True
+        return launches
+    finally:
+        patch.stop()
+        go.set()
+        if master is not None:
+            master.worker_manager.cleanup_all()
+        if server is not None:
+            server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if not ok and log_path is not None and log_path.is_file():
+            tail = log_path.read_text(errors="replace").splitlines()[-40:]
+            print("chip_smoke: managed worker log tail:\n" + "\n".join(tail),
+                  file=sys.stderr)
+
+
 # --- phases 15 to 19 ---------------------------------------------------------
 
 DEVICE = "cuda"
@@ -4070,6 +4487,8 @@ def main() -> int:
         path_launches["video"] = video.launches
         path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
                                              cn_tile, video)
+        say("managed worker (phase 14b):")
+        path_launches["managed"] = managed_phase(torch, fa, sdxl)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "

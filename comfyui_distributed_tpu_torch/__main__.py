@@ -1,4 +1,4 @@
-"""CLI: ``python -m comfyui_distributed_tpu_torch serve|convert``.
+"""CLI: ``python -m comfyui_distributed_tpu_torch serve|info|convert``.
 
     python -m comfyui_distributed_tpu_torch serve [--host H] [--port P]
         [--device cuda|cpu]
@@ -7,7 +7,16 @@ Runs one host controller with its HTTP control plane until SIGINT or
 SIGTERM. The role comes from the environment (``CDT_IS_WORKER``,
 ``CDT_WORKER_ID``, ``CDT_CONFIG_PATH``, ``CDT_OUTPUT_DIR``). The models
 run on the CUDA card; without one, ``serve`` exits with status 2 unless
-it is given ``--device cpu``.
+it is given ``--device cpu``. A master fills its host list on its first
+launch (``workers/detection.auto_populate_hosts``: one ``local`` worker
+per other card), launches the enabled ``local`` hosts when
+``settings.auto_launch_workers`` is on, and stops the workers it
+launched when it exits.
+
+    python -m comfyui_distributed_tpu_torch info [--device cuda|cpu]
+
+Prints the controller's ``system_info`` (host facts and the card census)
+as JSON.
 
     python -m comfyui_distributed_tpu_torch convert --preset sdxl|sd15|flux
         --checkpoint FILE.safetensors --out DIR [--vae FILE]
@@ -31,29 +40,60 @@ import signal
 import sys
 
 
-def cmd_serve(args: argparse.Namespace) -> int:
-    from .api.app import run_app
+def _controller(args: argparse.Namespace):
+    """The controller on ``--device``, or None (and a message) when the
+    card is missing."""
     from .cluster.controller import Controller
-    from .utils.logging import log
 
     try:
-        controller = Controller(device=args.device)
+        return Controller(device=args.device)
     except RuntimeError as e:          # no card and no --device cpu
-        print(f"serve: {e} (serve --device cpu runs the models on the CPU)",
-              file=sys.stderr)
+        print(f"{args.command}: {e} ({args.command} --device cpu runs on "
+              "the CPU)", file=sys.stderr)
+        return None
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    import atexit
+
+    from .api.app import run_app
+    from .utils.config import update_config
+    from .utils.logging import log
+    from .workers.detection import auto_populate_hosts
+    from .workers.process_manager import delayed_auto_launch
+
+    controller = _controller(args)
+    if controller is None:
         return 2
+    if not controller.is_worker and not controller.load_config().get(
+            "settings", {}).get("has_auto_populated_workers"):
+        update_config(auto_populate_hosts, controller.config_path)
 
     async def main() -> None:
         server = await run_app(controller, host=args.host, port=args.port)
+        if not controller.is_worker:
+            manager = controller.worker_manager
+            launch = asyncio.ensure_future(delayed_auto_launch(manager))
+            atexit.register(manager.cleanup_all)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
         await stop.wait()
         log("shutting down")
+        if not controller.is_worker:
+            launch.cancel()
         await server.stop()
 
     asyncio.run(main())
+    return 0
+
+
+def cmd_info(args: argparse.Namespace) -> int:
+    controller = _controller(args)
+    if controller is None:
+        return 2
+    print(json.dumps(controller.system_info(), indent=2, default=str))
     return 0
 
 
@@ -119,6 +159,10 @@ def main(argv: list[str] | None = None) -> int:
     serve.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="where the models run (default: cuda)")
     serve.set_defaults(fn=cmd_serve)
+    info = sub.add_parser("info", help="print the host's system info")
+    info.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                      help="the controller's device (default: cuda)")
+    info.set_defaults(fn=cmd_info)
     conv = sub.add_parser(
         "convert", help="convert a single-file .safetensors checkpoint")
     conv.add_argument("--checkpoint", required=True)

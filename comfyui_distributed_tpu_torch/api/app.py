@@ -29,6 +29,12 @@ Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
 - the tile farm's routes (``api/usdu_routes.py``): ``heartbeat``,
   ``request_image``, ``submit_tiles``, ``submit_image``, ``handback``,
   ``job_status`` and ``queue_status/{job_id}`` under ``/distributed/``
+- information, profiling and telemetry (``api/info_routes.py``), the
+  config (``api/config_routes.py``), the tunnel
+  (``api/tunnel_routes.py``) and the worker processes
+  (``api/worker_routes.py``)
+- the dashboard: ``GET /`` and ``GET /web/{file}`` (the package's
+  ``web/``)
 
 Each request passes the JAX package's middleware in its order: an
 ``OPTIONS`` preflight answers 200; a POST that is neither JSON nor a
@@ -38,7 +44,10 @@ without it. Only the read-only probe routes carry CORS headers, unless
 ``settings.permissive_cors`` is set. Errors are JSON ``{"error": ...,
 "status": ...}``: 400 for a validation error or a malformed request, 404
 unknown path, 405 wrong method, 413 body over ``CDT_MAX_PAYLOAD_SIZE``,
-500 anything else.
+500 anything else. With telemetry on, a request's ``X-CDT-Trace`` header
+is adopted for its handler (a dispatched prompt joins the master's
+trace) and every request counts in ``cdt_http_requests_total`` under its
+route template.
 """
 
 from __future__ import annotations
@@ -56,7 +65,9 @@ import urllib.parse
 from pathlib import Path
 from typing import Any, Awaitable, Callable
 
+from .. import telemetry
 from ..cluster.controller import Controller
+from ..telemetry import metrics as _tm
 from ..utils import auth, constants
 from ..utils.config import peek_setting
 from ..utils.exceptions import DistributedError, ValidationError
@@ -64,7 +75,8 @@ from ..utils.frames import unpack_frame
 from ..utils.logging import log
 from ..utils.multipart import parse_multipart
 from ..utils.websocket import WebSocket, WebSocketError, server_handshake
-from . import usdu_routes
+from . import (config_routes, info_routes, tunnel_routes, usdu_routes,
+               worker_routes)
 from .queue_request import parse_queue_request_payload
 
 # header cluster peers send on multipart POSTs (a browser form cannot
@@ -72,14 +84,22 @@ from .queue_request import parse_queue_request_payload
 CLIENT_HEADER = "x-cdt-client"
 
 # The read-only probe surface a dashboard reads on other hosts (the JAX
-# package's, less its routes not ported). Mutating routes carry no CORS
-# header: with a public tunnel up, a permissive `*` there would let any
-# web page drive the cluster.
+# package's, less the front door, cache and stages routes, not ported).
+# Mutating routes carry no CORS header: with a public tunnel up, a
+# permissive `*` there would let any web page drive the cluster.
 _CORS_SAFE_PATHS = frozenset({
     "/distributed/health",
     "/distributed/system_info",
+    "/distributed/network_info",
+    "/distributed/metrics",
+    "/distributed/metrics.json",
     "/prompt",
 })
+WEB_DIR = Path(__file__).resolve().parent.parent / "web"
+_STATIC_TYPES = {".js": "text/javascript; charset=utf-8",
+                 ".css": "text/css; charset=utf-8",
+                 ".html": "text/html; charset=utf-8",
+                 ".json": "application/json"}
 _CORS_HEADERS = {
     "Access-Control-Allow-Origin": "*",
     "Access-Control-Allow-Methods": "GET, POST, OPTIONS",
@@ -104,6 +124,8 @@ class Request:
     body: bytes = b""
     match: dict[str, str] = dataclasses.field(default_factory=dict)
     query: dict[str, str] = dataclasses.field(default_factory=dict)
+    route: str | None = None                 # the matched template
+    trace: tuple[str, str | None] | None = None   # parsed X-CDT-Trace
 
     def json(self) -> Any:
         try:
@@ -164,7 +186,7 @@ class App:
 
     def __init__(self, controller: Controller):
         self.controller = controller
-        self._routes: list[tuple[str, re.Pattern, Handler]] = []
+        self._routes: list[tuple[str, re.Pattern, str, Handler]] = []
         c = controller
 
         async def health(request):
@@ -182,8 +204,14 @@ class App:
             prompt = body.get("prompt") if isinstance(body, dict) else None
             if not isinstance(prompt, dict) or not prompt:
                 raise ValidationError("'prompt' must be a non-empty object")
+            # the X-CDT-Trace header wins over the body's trace_id: the
+            # execution span then joins the dispatching master's trace,
+            # under its dispatch span
+            hdr = request.trace
             prompt_id, errors = c.queue.enqueue(
-                prompt, body.get("client_id", ""), body.get("trace_id"))
+                prompt, body.get("client_id", ""),
+                hdr[0] if hdr else body.get("trace_id"),
+                parent_span_id=hdr[1] if hdr else None)
             if errors:
                 return Response(400, {"error": "validation failed",
                                       "node_errors": errors})
@@ -332,6 +360,7 @@ class App:
                 headers = server_handshake(request.headers)
             except WebSocketError as e:
                 raise ValidationError(str(e)) from None
+            hdr = request.trace           # the connect's X-CDT-Trace
 
             async def session(ws: WebSocket) -> None:
                 """``dispatch_prompt`` in: queue it here and answer
@@ -353,7 +382,8 @@ class App:
                         continue
                     prompt_id, node_errors = c.queue.enqueue(
                         data.get("prompt") or {}, data.get("client_id", ""),
-                        data.get("trace_id"))
+                        hdr[0] if hdr else data.get("trace_id"),
+                        parent_span_id=hdr[1] if hdr else None)
                     await ws.send_str(json.dumps({
                         "type": "dispatch_ack",
                         "request_id": data.get("request_id"),
@@ -448,15 +478,38 @@ class App:
         self.add("GET", "/distributed/worker_ws", worker_ws)
         self.add("POST", "/distributed/check_file", check_file)
         self.add("POST", "/distributed/load_image", load_image)
+        async def index(request):
+            return Response(200, (WEB_DIR / "index.html").read_bytes(),
+                            content_type=_STATIC_TYPES[".html"])
+
+        async def web_file(request):
+            """A file of the dashboard; the resolved path must stay in
+            ``web/``."""
+            base = WEB_DIR.resolve()
+            p = (base / request.match["file"]).resolve()
+            if not p.is_relative_to(base) or not p.is_file():
+                return json_error(f"no file {request.match['file']!r}", 404)
+            return Response(200, p.read_bytes(), content_type=_STATIC_TYPES.get(
+                p.suffix, "application/octet-stream"))
+
         self.add("POST", "/upload/image", upload_image)
+        self.add("GET", "/", index)
+        self.add("GET", "/web/{file}", web_file)
         usdu_routes.register(self, controller)
+        info_routes.register(self, controller)
+        config_routes.register(self, controller)
+        tunnel_routes.register(self, controller)
+        worker_routes.register(self, controller)
 
     def add(self, method: str, template: str, handler: Handler) -> None:
         pattern = re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)", re.escape(template))
-        self._routes.append((method, re.compile(pattern), handler))
+        self._routes.append((method, re.compile(pattern), template, handler))
 
     async def dispatch(self, request: Request) -> Response:
-        response = await self._respond(request)
+        if telemetry.enabled():
+            response = await self._traced(request)
+        else:
+            response = await self._respond(request)
         permissive = bool(peek_setting("permissive_cors", False,
                                        self.controller.config_path))
         safe = (request.method in ("GET", "OPTIONS")
@@ -464,6 +517,22 @@ class App:
                      or request.path.startswith("/distributed/queue_status")))
         if permissive or safe:
             response.headers.update(_CORS_HEADERS)
+        return response
+
+    async def _traced(self, request: Request) -> Response:
+        """Adopt the request's ``X-CDT-Trace`` for its handler and count
+        it under its route template (raw paths are peer-controlled and
+        would blow the label cardinality)."""
+        request.trace = telemetry.parse_trace_header(
+            request.headers.get(telemetry.TRACE_HEADER.lower(), ""))
+        if request.trace is not None:
+            with telemetry.use_trace(*request.trace):
+                response = await self._respond(request)
+        else:
+            response = await self._respond(request)
+        _tm.HTTP_REQUESTS.labels(method=request.method,
+                                 path=request.route or "<unmatched>",
+                                 status=str(response.status)).inc()
         return response
 
     async def _respond(self, request: Request) -> Response:
@@ -476,13 +545,14 @@ class App:
             if token and not auth.token_matches(request.headers, token):
                 return json_error("missing or invalid auth token", 401)
         handler, path_known = None, False
-        for method, pattern, fn in self._routes:
+        for method, pattern, template, fn in self._routes:
             m = pattern.fullmatch(request.path)
             if m is None:
                 continue
             path_known = True
             if method == request.method:
                 handler, request.match = fn, m.groupdict()
+                request.route = template
                 break
         if handler is None:
             return (json_error(f"method {request.method} not allowed", 405)

@@ -1,5 +1,5 @@
-"""Field validation of ``POST /distributed/queue`` (the JAX package's
-``api/schemas.py``, the validators the queue route uses)."""
+"""Field validation of the routes (the JAX package's ``api/schemas.py``,
+the validators the port's routes use)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,21 @@ from ..utils import constants
 from ..utils.exceptions import ValidationError
 
 MAX_TENANT_LEN = 64
+MAX_WORKER_ID_LEN = 128
+
+
+def require_fields(payload: Any, *fields: str) -> None:
+    if not isinstance(payload, dict):
+        raise ValidationError("payload must be a JSON object")
+    for f in fields:
+        if f not in payload or payload[f] in (None, ""):
+            raise ValidationError(f"missing required field {f!r}", field=f)
+
+
+def validate_worker_id(value: Any) -> str:
+    if not isinstance(value, str) or not value or len(value) > MAX_WORKER_ID_LEN:
+        raise ValidationError(f"invalid worker id {value!r}", field="worker_id")
+    return value
 
 
 def validate_tenant(value: Any) -> str:

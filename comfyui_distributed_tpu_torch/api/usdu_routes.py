@@ -31,23 +31,9 @@ from ..utils.exceptions import ValidationError
 from ..utils.frames import unpack_frame
 from ..utils.image import decode_image_b64, decode_png
 from ..utils.multipart import parse_multipart
+from .schemas import require_fields, validate_worker_id
 
 MAX_FRAME_PARTS = 64
-MAX_WORKER_ID_LEN = 128
-
-
-def require_fields(payload: Any, *fields: str) -> None:
-    if not isinstance(payload, dict):
-        raise ValidationError("payload must be a JSON object")
-    for f in fields:
-        if f not in payload or payload[f] in (None, ""):
-            raise ValidationError(f"missing required field {f!r}", field=f)
-
-
-def validate_worker_id(value: Any) -> str:
-    if not isinstance(value, str) or not value or len(value) > MAX_WORKER_ID_LEN:
-        raise ValidationError(f"invalid worker id {value!r}", field="worker_id")
-    return value
 
 
 def parse_index(value: Any, field: str) -> int:

@@ -5,7 +5,10 @@ collects, a worker executes dispatched prompts and sends its results
 back. Both run the same code and the same HTTP app (``api/app.py``).
 Besides the collector bridge it owns the tile farm of the upscale
 workflow (``cluster/tile_farm.py``), both bound to the server's loop at
-startup, and the sampling-progress tracker (``cluster/progress.py``).
+startup, the sampling-progress tracker (``cluster/progress.py``) and, on
+a master, the manager of the worker processes it launches
+(``workers/process_manager.py``). A launched worker reports ready to its
+master's ``CDT_MASTER_PORT`` once its control plane is up.
 The cache, preemption, stages, the front door, warmup and the elastic
 fleet of the JAX package's controller are not ported.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import asyncio
 import gc
+import json
 import os
 import platform
 from pathlib import Path
@@ -22,10 +26,10 @@ from typing import Any, Optional
 import torch
 
 from ..utils import constants
-from ..utils.config import ensure_config_exists, load_config
+from ..utils.config import ensure_config_exists, load_config, peek_setting
 from ..utils.device import DeviceLike, resolve_device, use_full_fp32
-from ..utils.logging import log
-from ..utils.network import set_auth_config_path
+from ..utils.logging import log, set_debug_source
+from ..utils.network import http_request_async, set_auth_config_path
 from ..workers.detection import get_machine_id
 from .collector_bridge import CollectorBridge
 from .job_store import JobStore
@@ -67,6 +71,11 @@ class Controller:
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
         self._registry = model_registry
+        self._worker_manager = None
+        self._ready_task: Optional[asyncio.Future] = None
+        # the config's settings.debug turns debug_log on (CDT_DEBUG too)
+        set_debug_source(lambda: bool(peek_setting("debug", False,
+                                                   config_path)))
 
     def load_config(self) -> dict:
         return load_config(self.config_path)
@@ -77,6 +86,18 @@ class Controller:
             if str(h.get("id")) == str(host_id):
                 return h
         return None
+
+    @property
+    def worker_manager(self):
+        """The manager of the worker processes this controller launches,
+        on its device (made at first use: it restores the live PIDs the
+        config persists)."""
+        if self._worker_manager is None:
+            from ..workers.process_manager import WorkerProcessManager
+
+            self._worker_manager = WorkerProcessManager(self.config_path,
+                                                        self.device.type)
+        return self._worker_manager
 
     @property
     def model_registry(self):
@@ -113,6 +134,24 @@ class Controller:
         role = "worker" if self.is_worker else "master"
         log(f"controller up as {role} on {self.device} "
             f"(machine {get_machine_id()})")
+        if self.is_worker and self.worker_id:
+            self._ready_task = asyncio.ensure_future(self._report_ready())
+
+    async def _report_ready(self) -> None:
+        """Tell the master that launched this worker that it is up: the
+        master clears the worker's ``launching`` flag. A worker started by
+        hand (no ``CDT_MASTER_PORT``) reports nothing."""
+        port = constants.master_port()
+        if not port:
+            return
+        url = f"http://127.0.0.1:{port}/distributed/worker/clear_launching"
+        try:
+            await http_request_async(
+                url, json.dumps({"worker_id": self.worker_id}).encode(),
+                {"Content-Type": "application/json"},
+                timeout=constants.probe_timeout())
+        except OSError:
+            pass                      # the master is gone
 
     async def shutdown(self) -> None:
         await self.queue.stop()
@@ -150,8 +189,9 @@ class Controller:
             info["cuda"] = torch.version.cuda
             for i in range(torch.cuda.device_count()):
                 props = torch.cuda.get_device_properties(i)
+                name = torch.cuda.get_device_name(i)
                 info["devices"].append({
-                    "index": i, "name": torch.cuda.get_device_name(i),
+                    "index": i, "name": name, "kind": name,
                     "total_memory": props.total_memory,
                     "memory_allocated": torch.cuda.memory_allocated(i),
                     "max_memory_allocated": torch.cuda.max_memory_allocated(i),

@@ -1,6 +1,5 @@
 """Host probing, selection, and prompt dispatch (the JAX package's
-``cluster/dispatch.py`` without drain states, warmup preference and
-telemetry).
+``cluster/dispatch.py`` without drain states and warmup preference).
 
 - ``select_active_hosts``: probe every candidate concurrently, at most
   ``probe_concurrency`` at a time → (online, offline). A host whose
@@ -15,7 +14,10 @@ telemetry).
   to HTTP (WebSocket): after the request went out the worker may hold
   the prompt already, and a second send would run the job twice. The
   outcome feeds the host's breaker; a validation rejection (4xx, nack)
-  counts as the host answering, for it.
+  counts as the host answering, for it. Each dispatch runs under a
+  ``dispatch`` (or ``dispatch.ws``) span whose id rides the
+  ``X-CDT-Trace`` header, so the worker's execution span parents onto
+  it; its payload bytes and each attempt's latency are recorded.
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ from __future__ import annotations
 import asyncio
 import itertools
 import json
+import time
 from typing import Any, Optional, Sequence
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.exceptions import WorkerError
 from ..utils.logging import log, trace_info
@@ -76,6 +81,12 @@ async def select_active_hosts(
         else:
             online.append({**host, "_probe": health})
     quarantined = sum(1 for _, _, q in results if q)
+    if telemetry.enabled() and results:
+        _tm.WORKER_PROBES.labels(outcome="online").inc(len(online))
+        _tm.WORKER_PROBES.labels(outcome="offline").inc(
+            len(offline) - quarantined)
+        if quarantined:
+            _tm.WORKER_PROBES.labels(outcome="quarantined").inc(quarantined)
     trace_info(trace_id, f"probe: {len(online)} online, "
                          f"{len(offline) - quarantined} offline, "
                          f"{quarantined} quarantined (breaker open)")
@@ -108,20 +119,38 @@ async def dispatch_prompt_ws(
     ``dispatch_ack``. A connection that never opened raises
     ``WorkerError`` with ``ws_undelivered``; a lost ack raises without
     it (the prompt may be queued); a nack with ``client_rejected``."""
+    with telemetry.span("dispatch.ws", trace_id=trace_id,
+                        host=str(host.get("id"))):
+        t0 = time.perf_counter()
+        outcome = "error"
+        try:
+            ack = await _dispatch_ws(host, prompt, client_id, extra, trace_id)
+            outcome = "ok"
+            return ack
+        finally:
+            if telemetry.enabled():
+                _tm.DISPATCH_SECONDS.labels(transport="ws", outcome=outcome
+                                            ).observe(time.perf_counter() - t0)
+
+
+async def _dispatch_ws(host: dict[str, Any], prompt: dict, client_id: str,
+                       extra: dict | None, trace_id: str | None) -> dict:
     wid = host.get("id")
     url = build_host_url(host, "/distributed/worker_ws")
     try:
-        ws = await ws_connect(url)
+        ws = await ws_connect(url, telemetry.trace_headers())
     except (OSError, asyncio.TimeoutError, WebSocketError) as e:
         err = WorkerError(f"ws dispatch to {wid} unreachable: {e}",
                           worker_id=wid)
         err.ws_undelivered = True
         raise err from e
     try:
-        await ws.send_str(json.dumps({"type": "dispatch_prompt",
-                                      "prompt": prompt,
-                                      "client_id": client_id,
-                                      **(extra or {})}))
+        payload = json.dumps({"type": "dispatch_prompt", "prompt": prompt,
+                              "client_id": client_id, **(extra or {})})
+        if telemetry.enabled():
+            _tm.DISPATCH_PAYLOAD_BYTES.labels(transport="ws").observe(
+                len(payload.encode()))
+        await ws.send_str(payload)
         msg = await ws.receive(timeout=constants.dispatch_timeout())
         if msg.kind != "text":
             raise WorkerError(f"ws dispatch to {wid}: connection closed "
@@ -186,32 +215,51 @@ async def _dispatch_prompt_once(host: dict[str, Any], prompt: dict,
                 raise        # the prompt may sit in the worker's queue
             log(f"ws connect to {wid} failed ({e}); falling back to HTTP")
 
+    with telemetry.span("dispatch", trace_id=trace_id, host=str(wid)):
+        return await _dispatch_http(host, prompt, client_id, extra, trace_id)
+
+
+async def _dispatch_http(host: dict[str, Any], prompt: dict, client_id: str,
+                         extra: dict | None, trace_id: str | None) -> dict:
+    wid = host.get("id")
     url = build_host_url(host, "/prompt")
     body = json.dumps({"prompt": prompt, "client_id": client_id,
                        **(extra or {})}).encode()
+    if telemetry.enabled():
+        _tm.DISPATCH_PAYLOAD_BYTES.labels(transport="http").observe(len(body))
+    # read here: the call runs in the loop's executor, out of this context
+    headers = {"Content-Type": "application/json", **telemetry.trace_headers()}
 
     async def attempt() -> dict:
+        t0 = time.perf_counter()
+        outcome = "error"
         try:
-            status, raw = await http_request_async(
-                url, body, {"Content-Type": "application/json"},
-                timeout=constants.dispatch_timeout())
-        except OSError as e:          # URLError, refused, reset, timeout
-            err = WorkerError(f"dispatch to {wid} unreachable: {e}",
-                              worker_id=wid)
-            err.retry_safe = never_sent(e)
-            raise err from e
-        try:
-            answer = json.loads(raw)
-        except ValueError:
-            answer = {"body": raw[:200].decode("utf-8", "replace")}
-        if status >= 400:
-            err = WorkerError(f"dispatch to {wid} failed ({status}): {answer}",
-                              worker_id=wid)
-            # 4xx: the host is up and refuses the prompt; 5xx: it fails
-            err.client_rejected = status < 500
-            raise err
-        trace_info(trace_id, f"dispatched to {wid}")
-        return answer
+            try:
+                status, raw = await http_request_async(
+                    url, body, headers, timeout=constants.dispatch_timeout())
+            except OSError as e:          # URLError, refused, reset, timeout
+                err = WorkerError(f"dispatch to {wid} unreachable: {e}",
+                                  worker_id=wid)
+                err.retry_safe = never_sent(e)
+                raise err from e
+            try:
+                answer = json.loads(raw)
+            except ValueError:
+                answer = {"body": raw[:200].decode("utf-8", "replace")}
+            if status >= 400:
+                err = WorkerError(
+                    f"dispatch to {wid} failed ({status}): {answer}",
+                    worker_id=wid)
+                # 4xx: the host is up and refuses the prompt; 5xx: it fails
+                err.client_rejected = status < 500
+                raise err
+            trace_info(trace_id, f"dispatched to {wid}")
+            outcome = "ok"
+            return answer
+        finally:
+            if telemetry.enabled():
+                _tm.DISPATCH_SECONDS.labels(transport="http", outcome=outcome
+                                            ).observe(time.perf_counter() - t0)
 
     policy = RetryPolicy(max_attempts=constants.dispatch_max_retries(),
                          base=constants.send_backoff_base(),

@@ -33,8 +33,8 @@ Spec grammar (``CDT_FAULTS`` or a test)::
     sel     := "*" | int ("," int)* | int "-" int | "%" float
 
 Operations are classified by URL path (``op_for_url``). Inactive unless a
-plan is active (one ``is None`` check per call). The JAX module's
-telemetry counters are not ported (telemetry is not).
+plan is active (one ``is None`` check per call). Each injected fault
+counts in ``cdt_faults_injected_total{op, kind}``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ import re
 import threading
 from typing import Optional
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils.logging import log
 
 FAULTS_ENV = "CDT_FAULTS"
@@ -186,6 +188,8 @@ class FaultPlan:
             for f in self.faults:
                 if f.matches(op, index, self.rng):
                     self.injected.append((op, index, f.kind))
+                    if telemetry.enabled():
+                        _tm.FAULTS_INJECTED.labels(op=op, kind=f.kind).inc()
                     return f
         return None
 

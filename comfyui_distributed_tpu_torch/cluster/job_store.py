@@ -13,6 +13,8 @@ import asyncio
 import time
 from typing import Any, Optional
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.exceptions import JobQueueError
 from ..utils.logging import log
@@ -29,6 +31,16 @@ class JobStore:
         self.collector_jobs: dict[str, CollectorJob] = {}
         self.tile_jobs: dict[str, TileJob] = {}
         self.finished: dict[str, dict] = {}
+
+    def _record_tiles(self, event: str | None = None, n: int = 1) -> None:
+        """``n`` tile lifecycle ``event``s, and the pending depth across
+        live jobs (call under ``self.lock``)."""
+        if not telemetry.enabled():
+            return
+        if event is not None and n > 0:
+            _tm.TILE_EVENTS.labels(event=event).inc(n)
+        _tm.TILE_QUEUE_DEPTH.set(
+            sum(len(j.pending) for j in self.tile_jobs.values()))
 
     async def prepare_collector_job(
         self, job_id: str, expected_workers: tuple[str, ...] = ()
@@ -95,6 +107,7 @@ class JobStore:
                           tasks={t.task_id: t for t in tasks},
                           pending=list(tasks))
             self.tile_jobs[job_id] = job
+            self._record_tiles("seeded", len(tasks))
             return job
 
     async def request_work(self, job_id: str, worker_id: str) -> Optional[dict]:
@@ -109,6 +122,7 @@ class JobStore:
                 return None
             task = job.pending.pop(0)
             job.assigned[task.task_id] = worker_id
+            self._record_tiles("assigned")
             return {**task.as_dict(), "job_id": job_id,
                     "estimated_remaining": len(job.pending)}
 
@@ -132,6 +146,7 @@ class JobStore:
             job.completed[task_id] = payload
             job.completed_by[task_id] = worker_id
             job.assigned.pop(task_id, None)
+            self._record_tiles("completed")
         await job.results.put((task_id, payload))
         return True
 
@@ -150,6 +165,7 @@ class JobStore:
             job.completed_by[task_id] = "journal"
             job.pending = [t for t in job.pending if t.task_id != task_id]
             job.assigned.pop(task_id, None)
+            self._record_tiles("restored")
             return True
 
     async def heartbeat(self, job_id: str, worker_id: str) -> bool:
@@ -191,6 +207,7 @@ class JobStore:
         }
         job.assigned.pop(task_id, None)
         job.pending = [t for t in job.pending if t.task_id != task_id]
+        self._record_tiles("dead_letter")
 
     async def requeue_worker_tasks(self, job_id: str, worker_id: str,
                                    max_requeues: int | None = None,
@@ -226,6 +243,7 @@ class JobStore:
                         continue
                 requeued.append(task_id)
             job.pending[:0] = [job.tasks[tid] for tid in requeued]
+            self._record_tiles("requeued", len(requeued))
             if poisoned:
                 log(f"tile job {job_id}: dead-lettered poison tasks "
                     f"{poisoned} from {worker_id}")
@@ -251,6 +269,7 @@ class JobStore:
                 return False
             if all(t.task_id != task_id for t in job.pending):
                 job.pending.append(job.tasks[task_id])
+            self._record_tiles("requeued")
             return True
 
     # --- lifecycle ---------------------------------------------------------------
@@ -272,6 +291,7 @@ class JobStore:
                 }
                 while len(self.finished) > self.MAX_FINISHED:
                     self.finished.pop(next(iter(self.finished)))
+                self._record_tiles()
 
     async def prune_stale(self, max_age: float = 3600.0) -> list[str]:
         """Drop jobs older than ``max_age`` seconds (abandoned jobs)."""

@@ -17,6 +17,8 @@ from __future__ import annotations
 import time
 from typing import Awaitable, Callable, Optional
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.logging import log
 from .job_store import JobStore
@@ -72,12 +74,18 @@ async def check_and_requeue_timed_out_workers(
         if w in spared:
             await store.heartbeat(job_id, w)
             log(f"worker {w} silent but busy: heartbeat refreshed (grace)")
+            if telemetry.enabled():
+                _tm.TILE_WORKER_EVICTIONS.labels(outcome="spared").inc()
             continue
         requeued = await store.requeue_worker_tasks(
             job_id, w, max_requeues=max_requeues)
         if requeued:
             log(f"worker {w} timed out; requeued tasks {requeued}")
         evicted[w] = requeued
+        if telemetry.enabled():
+            _tm.TILE_WORKER_EVICTIONS.labels(outcome="evicted").inc()
+            if requeued:
+                _tm.TILE_EVENTS.labels(event="timed_out").inc(len(requeued))
         if w != "master":
             # eviction-grade evidence: open the breaker at once
             BREAKERS.trip(w)

@@ -14,8 +14,9 @@ call carries the cluster token and passes the fault plan (operation
 JAX package streams the file from disk. The receiving server reads at
 most ``CDT_MAX_PAYLOAD_SIZE`` bytes (50 MiB by default) and answers a
 larger body 413, so a larger media file fails its upload, and with it
-that host's dispatch, until the limit is raised on the host. The JAX
-package's media-sync telemetry counters are not ported.
+that host's dispatch, until the limit is raised on the host. Each
+file's outcome goes to ``cdt_media_sync_files_total`` and the uploaded
+bytes to ``cdt_media_sync_bytes_total``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import json
 from pathlib import Path
 from typing import Any, Optional
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.exceptions import WorkerError
 from ..utils.logging import log, trace_info
@@ -198,6 +201,12 @@ async def sync_host_media(
     sem = asyncio.Semaphore(max(1, int(concurrency)))
     loop = asyncio.get_running_loop()
 
+    def count(outcome: str, nbytes: int = 0) -> None:
+        if telemetry.enabled():
+            _tm.MEDIA_SYNC_FILES.labels(outcome=outcome).inc()
+            if nbytes:
+                _tm.MEDIA_SYNC_BYTES.inc(nbytes)
+
     async def sync_one(ref: MediaRef) -> None:
         async with sem:
             report.checked += 1
@@ -205,15 +214,19 @@ async def sync_host_media(
             local = base / rel
             if not local.is_file():
                 report.missing += 1
+                count("missing")
                 log(f"media sync: {local} absent locally; skipping")
                 return
             md5 = await loop.run_in_executor(None, _md5_file, local)
             if await _check_remote_file(host, rel, md5, timeout):
                 report.skipped += 1
+                count("skipped")
             elif await _upload_file(host, rel, local, timeout):
                 report.uploaded += 1
+                count("uploaded", local.stat().st_size)
             else:
                 report.failed.append(rel)
+                count("failed")
 
     await asyncio.gather(*(sync_one(r) for r in refs))
     if trace_id:

@@ -21,6 +21,7 @@ import dataclasses
 from pathlib import Path
 from typing import Optional, Sequence
 
+from .. import telemetry
 from ..graph.executor import strip_meta
 from ..graph.transform import (
     apply_participant_overrides,
@@ -103,6 +104,18 @@ class Orchestrator:
     ) -> OrchestrationResult:
         prompt = strip_meta(prompt)
         trace_id = trace_id or new_trace_id()
+        # the orchestration id is the trace id: probe and dispatch spans
+        # open under this one, and the workers join it by X-CDT-Trace
+        with telemetry.span("orchestrate", trace_id=trace_id, job_id=trace_id):
+            return await self._orchestrate(prompt, client_id, enabled_ids,
+                                           delegate_master, load_balance,
+                                           trace_id)
+
+    async def _orchestrate(self, prompt: dict, client_id: str,
+                           enabled_ids: Optional[Sequence[str]],
+                           delegate_master: Optional[bool],
+                           load_balance: bool,
+                           trace_id: str) -> OrchestrationResult:
         config = self.load_config()
         settings = config.get("settings", {})
         all_hosts = self._normalized_hosts(config)

@@ -13,8 +13,9 @@ JAX package's ``cluster/resilience.py``).
   (``cluster/job_timeout.py``); after ``recovery_s`` one half-open trial
   decides re-admission.
 
-The JAX package also exports the breakers' state as metrics; telemetry
-is not ported yet.
+Breaker states, transitions and retries go to
+``cdt_worker_breaker_state``, ``cdt_worker_breaker_transitions_total``
+and ``cdt_retry_attempts_total``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import threading
 import time
 from typing import Any, Awaitable, Callable, Iterable, Optional
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.logging import log
 
@@ -112,6 +115,8 @@ class RetryPolicy:
             if self.max_attempts is not None and \
                     attempt >= self.max_attempts - 1:
                 break
+            if telemetry.enabled():
+                _tm.RETRY_ATTEMPTS.labels(op=op).inc()
             log(f"retry[{op}] attempt {attempt + 1} failed "
                 f"({last}); backing off {d:.2f}s")
             await sleep(d)
@@ -142,6 +147,7 @@ def work_request_policy() -> RetryPolicy:
 # ---------------------------------------------------------------------------
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
+_STATE_VALUE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}      # the gauge's values
 
 
 class CircuitBreaker:
@@ -257,10 +263,20 @@ class BreakerRegistry:
             b = self._breakers.get(wid)
             if b is None:
                 b = self._breakers[wid] = CircuitBreaker(**self._breaker_kw)
+                self._export(wid, b)
             return b
 
+    @staticmethod
+    def _export(worker_id: str, breaker: CircuitBreaker) -> None:
+        if telemetry.enabled():
+            _tm.BREAKER_STATE.labels(worker=worker_id).set(
+                _STATE_VALUE[breaker.state])
+
     def allow(self, worker_id: str) -> bool:
-        return self.get(worker_id).allow()
+        b = self.get(worker_id)
+        ok = b.allow()
+        self._export(worker_id, b)
+        return ok
 
     def record(self, worker_id: str, ok: bool) -> None:
         b = self.get(worker_id)
@@ -280,8 +296,11 @@ class BreakerRegistry:
     def _transitioned(self, worker_id: str, b: CircuitBreaker,
                       before: str) -> None:
         after = b.state
+        self._export(worker_id, b)
         if after != before:
             log(f"breaker[{worker_id}] {before} -> {after}")
+            if telemetry.enabled():
+                _tm.BREAKER_TRANSITIONS.labels(to=after).inc()
 
     def state(self, worker_id: str) -> str:
         return self.get(worker_id).state

@@ -6,11 +6,21 @@ deadlines and the sweep are not ported).
 The graph runs in the queue's one-thread pool, never on the event loop:
 a node that talks to the control plane (the collector) hops back onto
 the loop with ``run_in_loop`` while the loop goes on serving.
+
+Each prompt runs under a ``prompt.execute`` span in its job's trace (the
+orchestration's ``exec_…`` id; on a worker, the master's, under the
+master's dispatch span from ``X-CDT-Trace``). ``run_in_executor`` does
+not carry ``contextvars`` into the pool thread, so the prompt's context
+is copied in: the spans its nodes open (``pipeline_call``) join the
+trace. Terminal statuses, durations and the queue depth go to
+``cdt_prompts_total``, ``cdt_prompt_duration_seconds`` and
+``cdt_prompt_queue_depth``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import secrets
 import threading
@@ -19,7 +29,9 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
+from .. import telemetry
 from ..graph.executor import GraphExecutor, strip_meta, validate_prompt
+from ..telemetry import metrics as _tm
 from ..graph.node import NODE_REGISTRY, is_link
 from ..utils.logging import log, trace_info
 
@@ -30,6 +42,8 @@ class PromptJob:
     prompt: dict
     client_id: str = ""
     trace_id: str | None = None
+    # the master's dispatch span (X-CDT-Trace): the execution span's parent
+    parent_span_id: str | None = None
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
 
 
@@ -68,7 +82,8 @@ class PromptQueue:
     # --- producer ----------------------------------------------------------
 
     def enqueue(self, prompt: dict, client_id: str = "",
-                trace_id: str | None = None) -> tuple[str, list]:
+                trace_id: str | None = None,
+                parent_span_id: str | None = None) -> tuple[str, list]:
         """Validate and enqueue; returns (prompt_id, node_errors). An
         invalid prompt never reaches the queue."""
         prompt = strip_meta(prompt)
@@ -77,8 +92,10 @@ class PromptQueue:
             return "", [e.as_dict() for e in errors]
         prompt_id = f"p_{int(time.time()*1000)}_{secrets.token_hex(3)}"
         self._pending.put_nowait(PromptJob(prompt_id, prompt, client_id,
-                                           trace_id))
+                                           trace_id, parent_span_id))
         self.start()
+        if telemetry.enabled():
+            _tm.PROMPT_QUEUE_DEPTH.set(self.queue_remaining)
         return prompt_id, []
 
     def interrupt(self) -> int:
@@ -114,18 +131,30 @@ class PromptQueue:
             job = await self._pending.get()
             self._executing = job.prompt_id
             self._interrupt.clear()
+            started = time.monotonic()
+            status = None            # stays None when the queue is stopped
             try:
-                await self._run_solo(loop, job, time.monotonic())
+                status = await self._run_solo(loop, job, started)
             finally:
                 self._executing = None
+                if telemetry.enabled():
+                    if status is not None:
+                        _tm.PROMPTS_TOTAL.labels(status=status).inc()
+                        _tm.PROMPT_SECONDS.observe(time.monotonic() - started)
+                    _tm.PROMPT_QUEUE_DEPTH.set(self.queue_remaining)
 
     async def _run_solo(self, loop, job: PromptJob, started: float) -> str:
         try:
             context = dict(self._context_factory())
             context["interrupt_event"] = self._interrupt
             context["prompt_id"] = job.prompt_id
-            outputs = await loop.run_in_executor(
-                self._pool, GraphExecutor(context).execute, job.prompt)
+            with telemetry.span("prompt.execute", trace_id=job.trace_id,
+                                parent_id=job.parent_span_id,
+                                prompt_id=job.prompt_id):
+                ctx = contextvars.copy_context()
+                outputs = await loop.run_in_executor(
+                    self._pool, ctx.run, GraphExecutor(context).execute,
+                    job.prompt)
             self.history[job.prompt_id] = {
                 "status": "success",
                 "duration": time.monotonic() - started,

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .. import telemetry
 from ..utils import constants
 from ..utils.async_helpers import run_in_loop
 from ..utils.exceptions import TileCollectionError, WorkerError
@@ -136,7 +137,17 @@ class TileFarm:
 
     # --- master role -----------------------------------------------------------
 
-    async def master_run_async(
+    async def master_run_async(self, job_id: str, total: int,
+                               process_fn: ProcessFn, chunk: int = 1,
+                               **kw) -> dict[int, np.ndarray]:
+        """``_master_run`` under a ``tile_job.master`` span, so
+        ``/distributed/trace/{job_id}`` shows where the job's time went."""
+        with telemetry.span("tile_job.master", job_id=job_id, tiles=total,
+                            chunk=chunk):
+            return await self._master_run(job_id, total, process_fn, chunk,
+                                          **kw)
+
+    async def _master_run(
         self, job_id: str, total: int, process_fn: ProcessFn, chunk: int = 1,
         heartbeat_interval: float | None = None,
         worker_timeout: float | None = None,
@@ -240,6 +251,13 @@ class TileFarm:
 
     async def worker_run_async(self, job_id: str, worker_id: str,
                                master_url: str, process_fn: ProcessFn) -> int:
+        with telemetry.span("tile_job.worker", job_id=job_id,
+                            worker_id=worker_id):
+            return await self._worker_run(job_id, worker_id, master_url,
+                                          process_fn)
+
+    async def _worker_run(self, job_id: str, worker_id: str,
+                          master_url: str, process_fn: ProcessFn) -> int:
         """Pull, process, submit until the queue is drained; returns the
         number of tasks this worker completed. ``CDT_TILE_READY_POLLS``
         polls (one a second) cover a master that reaches the tile node

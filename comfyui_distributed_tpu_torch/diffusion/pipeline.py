@@ -14,6 +14,14 @@ ladder (``spec.denoise``) and samples the tail; with a mask it inpaints
 (``inpaint_denoiser``). ``with_control`` returns a clone that runs a
 ControlNet (``models/controlnet.py``) beside the UNet on every model
 call, fed a hint.
+
+Each call's sampling and decode run under a ``pipeline_call`` span; its
+wall-clock lands in
+``cdt_pipeline_compile_seconds`` (a pipeline's first call) or
+``cdt_pipeline_execute_seconds``, and the synchronised sampling time
+per ladder step in ``cdt_sampler_step_seconds``. Both clocks are read
+where the call synchronises for its own timings anyway: telemetry adds
+no synchronisation.
 """
 
 from __future__ import annotations
@@ -21,11 +29,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import Optional
+from contextlib import contextmanager
+from typing import Callable, Optional
 
 import torch
 
+from .. import telemetry
 from ..models.layers import timestep_embedding
+from ..telemetry import metrics as _tm
 from ..models.unet import UNet2D
 from ..models.vae import AutoencoderKL
 from ..ops.resize import resize_to
@@ -36,6 +47,41 @@ from .samplers import Denoiser, NoiseSource, sample
 from .schedules import (NoiseSchedule, sigmas_beta, sigmas_exponential,
                         sigmas_karras, sigmas_linear_quadratic, sigmas_normal,
                         sigmas_sgm_uniform, vp_schedule)
+
+
+class _AttnKernelSummary:
+    """A span attribute read when the span closes: the attention tiers
+    chosen by then (``ops/attention.selection_summary``)."""
+
+    def __str__(self) -> str:
+        from ..ops.attention import selection_summary
+
+        return selection_summary() or "none"
+
+
+@contextmanager
+def pipeline_call(owner, label: str, timings: Callable[[], dict]):
+    """Time one pipeline call of ``owner`` under a ``pipeline_call`` span
+    and record it (first call or later, by ``owner`` and ``label``), with
+    ``timings()["sample_s"] / timings()["steps"]`` as the step time. Off
+    with telemetry: nothing but one boolean read."""
+    if not telemetry.enabled():
+        yield
+        return
+    t0 = time.perf_counter()
+    with telemetry.span("pipeline_call", pipeline=label,
+                        attn_kernels=_AttnKernelSummary()):
+        yield
+    dt = time.perf_counter() - t0
+    seen = owner.__dict__.setdefault("_telemetry_labels", set())
+    family = (_tm.PIPELINE_EXECUTE_SECONDS if label in seen
+              else _tm.PIPELINE_COMPILE_SECONDS)
+    seen.add(label)
+    family.labels(pipeline=label).observe(dt)
+    t = timings()
+    if t.get("steps"):
+        _tm.SAMPLER_STEP_SECONDS.labels(pipeline=label).observe(
+            t["sample_s"] / t["steps"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,16 +285,18 @@ class Txt2ImgPipeline:
                                            inpaint_mask)
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
-        t0 = time.perf_counter()
-        x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise)
-        self._sync()
-        t1 = time.perf_counter()
-        images = self.vae.decode(x0)
-        images = torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
-        self._sync()
-        self.timings = {"sample_s": t1 - t0,
-                        "decode_s": time.perf_counter() - t1,
-                        "steps": len(sigmas) - 1}
+        label = "txt2img" if init_latent is None else "img2img"
+        with pipeline_call(self, label, lambda: self.timings):
+            t0 = time.perf_counter()
+            x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise)
+            self._sync()
+            t1 = time.perf_counter()
+            images = self.vae.decode(x0)
+            images = torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
+            self._sync()
+            self.timings = {"sample_s": t1 - t0,
+                            "decode_s": time.perf_counter() - t1,
+                            "steps": len(sigmas) - 1}
         return images
 
     def generate(self, spec: GenerationSpec, seed: int,

@@ -23,6 +23,7 @@ import torch
 from ..models.dit import DiT
 from ..models.vae import AutoencoderKL
 from ..parallel.rng import seed_generator, step_noise
+from .pipeline import pipeline_call
 from .progress import wrap_denoiser
 from .samplers import Denoiser, NoiseSource, sample
 from .schedules import sigmas_flow
@@ -102,17 +103,18 @@ class FlowPipeline:
         denoise = self._denoiser(rows(context), rows(pooled), spec.guidance)
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
-        t0 = time.perf_counter()
-        x0 = sample(spec.sampler, denoise, noise.to(dev), sigmas,
-                    sampler_noise)
-        self._sync()
-        t1 = time.perf_counter()
-        images = self.vae.decode(x0)
-        images = torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
-        self._sync()
-        self.timings = {"sample_s": t1 - t0,
-                        "decode_s": time.perf_counter() - t1,
-                        "steps": len(sigmas) - 1}
+        with pipeline_call(self, "flow_dp", lambda: self.timings):
+            t0 = time.perf_counter()
+            x0 = sample(spec.sampler, denoise, noise.to(dev), sigmas,
+                        sampler_noise)
+            self._sync()
+            t1 = time.perf_counter()
+            images = self.vae.decode(x0)
+            images = torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
+            self._sync()
+            self.timings = {"sample_s": t1 - t0,
+                            "decode_s": time.perf_counter() - t1,
+                            "steps": len(sigmas) - 1}
         return images
 
     def generate(self, spec: FlowSpec, seed: int, context: torch.Tensor,

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.logging import log
+from .text import count_hash_tokenization
 from .tokenizer import CLIPBPETokenizer, load_sd_tokenizers
 
 NEG_INF = -1e9
@@ -289,6 +290,9 @@ class CLIPConditioner:
     def encode(self, texts) -> tuple[torch.Tensor, torch.Tensor]:
         texts = [str(t) for t in texts]
         device = self.stack.device
+        for name, (tok, _, _) in zip(("clip_l", "clip_g"), self._towers()):
+            if tok is None:
+                count_hash_tokenization(name)
         ids = [tokenize_ids(texts, tok, cfg, pad).to(device)
                for tok, cfg, pad in self._towers()]
         if self.kind == "sdxl":

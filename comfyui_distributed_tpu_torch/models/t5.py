@@ -40,6 +40,7 @@ from ..utils.logging import log
 from .clip import (NEG_INF, CLIPTextConfig, CLIPTextTransformer,
                    tokenize_ids, validate_tokenizer_vocab)
 from .t5_tokenizer import T5Tokenizer, load_t5_tokenizer
+from .text import count_hash_tokenization
 from .tokenizer import load_sd_tokenizers
 
 
@@ -278,6 +279,10 @@ class FluxTextStack(nn.Module):
     @torch.no_grad()
     def encode(self, texts) -> tuple[torch.Tensor, torch.Tensor]:
         dev = self.device
+        if self.t5_tok is None:
+            count_hash_tokenization("t5")
+        if self.clip_tok is None:
+            count_hash_tokenization("clip_l")
         ids, mask, toks = self._ids([str(t) for t in texts])
         context = self.t5(ids.to(dev), mask.to(dev))
         return context, self.clip_l(toks.to(dev))["pooled"]

@@ -98,6 +98,17 @@ class TextTransformer(nn.Module):
         return context, self.pool_proj(pooled_src.float())
 
 
+def count_hash_tokenization(tower: str) -> None:
+    """Count one encode on hash tokens in
+    ``cdt_hash_tokenization_total{tower}``: nonzero on a production worker
+    means its conditioning does not reflect the prompt."""
+    from .. import telemetry
+    from ..telemetry import metrics as _tm
+
+    if telemetry.enabled():
+        _tm.HASH_TOKENIZATION.labels(tower=tower).inc()
+
+
 class TextEncoder:
     """Host-facing wrapper: strings → (context [B,N,D], pooled [B,P])."""
 
@@ -113,4 +124,5 @@ class TextEncoder:
 
     @torch.no_grad()
     def encode(self, texts: Sequence[str]):
+        count_hash_tokenization("text")
         return self.module(self.tokenize(texts))

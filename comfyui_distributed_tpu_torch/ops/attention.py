@@ -22,18 +22,79 @@ the port's projection GEMM streams x and the weights through shared
 memory with no such limit. No tuning table or engagement floor applies:
 those were measured on a TPU. On the CPU the plain versions run.
 PyTorch's fused attention is never called.
+
+Each tier a process selects on the card for a geometry is logged once
+and counted once in ``cdt_attn_kernel_selected{tier, geometry}``, the
+geometry keyed as the JAX package keys it (``hH.dD.qN.kvN.dtype``, the
+sequence lengths bucketed to powers of two from 128).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
+from .. import telemetry
+from ..telemetry import metrics as _tm
+from ..utils.logging import log
 from . import flash_attention as fa
 
 LANES = 128              # packed row width must be a multiple of this
 PACKED_MAX_HD = 2048     # widest packed row (H·D) the layout takes
+
+
+_SEEN: set[tuple] = set()                  # raw (tier, H, D, Nq, Nk, dtype)
+_SELECTIONS: set[tuple[str, str]] = set()  # (geometry, tier)
+_SELECTIONS_LOCK = threading.Lock()
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16",
+                torch.float32: "f32"}
+
+
+def seq_bucket(n: int) -> int:
+    """Next power of two ≥ n, floored at 128 (one label for a resolution
+    family)."""
+    b = 128
+    while b < n:
+        b *= 2
+    return b
+
+
+def geometry_key(num_heads: int, head_dim: int, q_len: int, kv_len: int,
+                 dtype: torch.dtype) -> str:
+    return (f"h{num_heads}.d{head_dim}.q{seq_bucket(q_len)}"
+            f".kv{seq_bucket(kv_len)}.{_DTYPE_NAMES.get(dtype, str(dtype))}")
+
+
+def _note_selection(tier: str, num_heads: int, head_dim: int, q_len: int,
+                    kv_len: int, dtype: torch.dtype) -> None:
+    raw = (tier, num_heads, head_dim, q_len, kv_len, dtype)
+    if raw in _SEEN:                # the steady state: one set lookup
+        return
+    geometry = geometry_key(num_heads, head_dim, q_len, kv_len, dtype)
+    with _SELECTIONS_LOCK:
+        _SEEN.add(raw)
+        if (geometry, tier) in _SELECTIONS:
+            return
+        _SELECTIONS.add((geometry, tier))
+    log(f"attention: {geometry} → {tier}")
+    if telemetry.enabled():
+        _tm.ATTN_KERNEL_SELECTED.labels(tier=tier, geometry=geometry).inc()
+
+
+def selection_summary() -> str:
+    """'geometry=tier' of every kernel choice this process has made on
+    the card (the ``attn_kernels`` attribute of a ``pipeline_call``
+    span)."""
+    with _SELECTIONS_LOCK:
+        return ",".join(sorted(f"{g}={t}" for g, t in _SELECTIONS))
+
+
+def reset_selections() -> None:
+    with _SELECTIONS_LOCK:
+        _SEEN.clear()
+        _SELECTIONS.clear()
 
 
 def packed_legal(num_heads: int, head_dim: int) -> bool:
@@ -54,10 +115,13 @@ def fused_feasible(channels: int, num_heads: int, head_dim: int) -> bool:
 
 def select_kernel(device: torch.device, self_attention: bool,
                   num_heads: int, head_dim: int,
-                  channels: Optional[int] = None) -> str:
+                  channels: Optional[int] = None,
+                  q_len: Optional[int] = None, kv_len: Optional[int] = None,
+                  dtype: torch.dtype = torch.bfloat16) -> str:
     """``"fused"`` / ``"packed"`` / ``"bh"`` on CUDA, ``"plain"`` on the
     CPU. ``channels`` is a self-attention site's model width (default
-    H·D, as every preset has)."""
+    H·D, as every preset has). With the sequence lengths given, a CUDA
+    choice is noted (logged and counted once per geometry)."""
     if device.type == "cpu":
         return "plain"
     if device.type != "cuda":
@@ -65,8 +129,13 @@ def select_kernel(device: torch.device, self_attention: bool,
     if channels is None:
         channels = num_heads * head_dim
     if self_attention and fused_feasible(channels, num_heads, head_dim):
-        return "fused"
-    return "packed" if packed_legal(num_heads, head_dim) else "bh"
+        tier = "fused"
+    else:
+        tier = "packed" if packed_legal(num_heads, head_dim) else "bh"
+    if q_len is not None:
+        _note_selection(tier, num_heads, head_dim, q_len,
+                        q_len if kv_len is None else kv_len, dtype)
+    return tier
 
 
 def self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -75,7 +144,8 @@ def self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     C]`` and ``[H·D, C]`` weights → ``[B, N, H, D]``. A CUDA site must be
     ``fused_feasible``; the caller projects the others itself."""
     D = wq.shape[0] // num_heads
-    kind = select_kernel(x.device, True, num_heads, D, x.shape[-1])
+    kind = select_kernel(x.device, True, num_heads, D, x.shape[-1],
+                         q_len=x.shape[1], dtype=x.dtype)
     if kind == "plain":
         return fa.fused_qkv_attention_plain(x, wq, wk, wv, num_heads)
     if kind != "fused":
@@ -88,8 +158,9 @@ def self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 def full_attention(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Attention over projected ``[B, N, H, D]`` operands."""
-    _, _, H, D = q.shape
-    kind = select_kernel(q.device, False, H, D)
+    _, Nq, H, D = q.shape
+    kind = select_kernel(q.device, False, H, D, q_len=Nq, kv_len=k.shape[1],
+                         dtype=q.dtype)
     if kind == "plain":
         return fa.flash_attention_plain(q, k, v)
     return fa.flash_attention(q, k, v, layout=kind)

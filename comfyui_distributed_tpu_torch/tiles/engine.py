@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..diffusion.guidance import cfg_denoiser
-from ..diffusion.pipeline import GenerationSpec, make_sigma_ladder
+from ..diffusion.pipeline import GenerationSpec, make_sigma_ladder, pipeline_call
 from ..diffusion.samplers import sample
 from ..models.controlnet import HINT_DOWNSCALE
 from ..ops.blend import composite_tiles, extract_tiles, feather_mask
@@ -127,6 +127,13 @@ class TileUpscaler:
         1] blend the result with the source tiles (1 = denoise);
         ``hint_tiles`` feed the pipeline's ControlNet; ``sampler_noise``
         is the chunk's noise source for a stochastic sampler."""
+        with pipeline_call(self, "tile_img2img", lambda: self.timings[-1]):
+            return self._run_tiles(tiles, noise, context, uncond_context, y,
+                                   uncond_y, spec, sigmas, tile_masks,
+                                   hint_tiles, sampler_noise)
+
+    def _run_tiles(self, tiles, noise, context, uncond_context, y, uncond_y,
+                   spec, sigmas, tile_masks, hint_tiles, sampler_noise):
         pipe = self.pipeline
         vae = pipe.vae
         n = tiles.shape[0]
@@ -159,7 +166,7 @@ class TileUpscaler:
         pipe._sync()
         self.timings.append({"encode_s": t1 - t0, "sample_s": t2 - t1,
                              "decode_s": time.perf_counter() - t2,
-                             "tiles": n})
+                             "tiles": n, "steps": len(sigmas) - 1})
         return out
 
     def tiles_per_device_default(self, tile_w: int, tile_h: int) -> int:

@@ -16,10 +16,27 @@ the JAX package leaves it open because its opening request is a GET.
 from __future__ import annotations
 
 import hmac
-from typing import Mapping, Optional
+import secrets
+from typing import Any, Mapping, Optional
 
 AUTH_HEADER = "X-CDT-Auth"
 AUTH_ENV = "CDT_AUTH_TOKEN"      # knob: constants.auth_token
+
+
+def configured_token(cfg: Optional[dict[str, Any]] = None) -> Optional[str]:
+    """The cluster token, if any: the environment wins over the config's
+    ``settings.auth_token``."""
+    from .constants import auth_token
+
+    env = auth_token()
+    if env:
+        return env
+    tok = (cfg or {}).get("settings", {}).get("auth_token")
+    return str(tok) if tok else None
+
+
+def generate_token() -> str:
+    return secrets.token_urlsafe(24)
 
 
 def resolve_token(config_path=None) -> Optional[str]:

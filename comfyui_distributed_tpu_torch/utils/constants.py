@@ -83,6 +83,12 @@ def config_path() -> Optional[str]:
     return _read("CDT_CONFIG_PATH", None, str)
 
 
+def debug() -> bool:
+    """Verbose debug logging (the config's ``settings.debug`` can only
+    add to it)."""
+    return _read("CDT_DEBUG", False, _bool)
+
+
 def output_dir() -> str:
     return _read("CDT_OUTPUT_DIR", "output", str)
 
@@ -270,3 +276,79 @@ def tile_master_holdback_s() -> float:
 def tile_ready_polls() -> int:
     """Polls (one a second) while a worker waits for a tile job."""
     return _read("CDT_TILE_READY_POLLS", 120, int, lenient=True)
+
+
+# --- worker processes (workers/, the launcher's environment) -------------------
+# The standalone watchdog (workers/worker_monitor.py) reads CDT_MASTER_PID
+# (default 0: no master to watch), CDT_MONITOR_POLL (2.0 s) and
+# CDT_PID_FILE from its environment itself.
+
+
+def master_port() -> str:
+    """Master control-plane port a launched worker reports ready to."""
+    return _read("CDT_MASTER_PORT", "", str)
+
+
+def log_dir() -> str:
+    """Directory of the per-worker log files."""
+    return _read("CDT_LOG_DIR", "logs", str)
+
+
+def log_file() -> str:
+    """This process's log file (set by the launcher; ``local_log`` tails
+    it)."""
+    return _read("CDT_LOG_FILE", "", str)
+
+
+# --- observability and the dashboard ---------------------------------------------
+
+
+def profile_dir() -> str:
+    """Where ``/distributed/profile`` traces are written (default
+    ``cdt_profile`` in the temporary directory: ``/tmp/cdt_profile``
+    unless ``TMPDIR`` says otherwise)."""
+    import tempfile
+
+    return _read("CDT_PROFILE_DIR",
+                 os.path.join(tempfile.gettempdir(), "cdt_profile"), str)
+
+
+def workflows_dir() -> Optional[str]:
+    """Override of the shipped ``workflows/`` directory."""
+    return _read("CDT_WORKFLOWS_DIR", None, str)
+
+
+def telemetry() -> bool:
+    """Kill switch of the telemetry subsystem, read once when it is
+    imported. Unset: on; an empty value is off (the shell ``CDT_TELEMETRY=``
+    idiom)."""
+    raw = os.environ.get("CDT_TELEMETRY")
+    if raw is None:
+        return True
+    if not raw.strip():
+        return False
+    return _read("CDT_TELEMETRY", True, _bool)
+
+
+# --- tunnel (utils/tunnel.py) --------------------------------------------------
+
+
+def tunnel_start_timeout() -> float:
+    """Seconds to wait for cloudflared to print its URL."""
+    return _read("CDT_TUNNEL_START_TIMEOUT", 30.0, float)
+
+
+def cloudflared_version() -> Optional[str]:
+    """cloudflared release to download ('latest' or a version; default:
+    the pinned version)."""
+    return _read("CDT_CLOUDFLARED_VERSION", None, str)
+
+
+def cloudflared_sha256() -> Optional[str]:
+    """Expected sha256 of the cloudflared download."""
+    return _read("CDT_CLOUDFLARED_SHA256", None, str)
+
+
+def cloudflared_auto_download() -> bool:
+    """Allow downloading cloudflared when no binary is found."""
+    return _read("CDT_CLOUDFLARED_AUTO_DOWNLOAD", True, _bool)

@@ -40,3 +40,11 @@ class ValidationError(DistributedError):
     def __init__(self, message: str, field: str | None = None):
         super().__init__(message)
         self.field = field
+
+
+class ProcessError(DistributedError):
+    """A managed worker process could not be launched or stopped."""
+
+
+class TunnelError(DistributedError):
+    """The cloudflared tunnel could not be started."""

@@ -116,9 +116,11 @@ async def http_request_async(url: str, data: bytes | None = None,
         None, functools.partial(http_request, url, data, headers, timeout))
 
 
-async def ws_connect(url: str) -> "websocket.WebSocket":
+async def ws_connect(url: str, headers: dict[str, str] | None = None
+                     ) -> "websocket.WebSocket":
     """Open a WebSocket to a peer (``utils/websocket.connect``) with the
-    cluster token; a fault plan may drop or delay the connect."""
+    cluster token and ``headers``; a fault plan may drop or delay the
+    connect."""
     plan = active_plan()
     fault = plan.next_fault(op_for_url(url)) if plan is not None else None
     if fault is not None:
@@ -126,7 +128,7 @@ async def ws_connect(url: str) -> "websocket.WebSocket":
             raise ConnectionRefusedError(f"injected ws drop ({url})")
         if fault.kind == "latency":
             await asyncio.sleep(fault.value or 0.05)
-    return await websocket.connect(url, _with_token(None),
+    return await websocket.connect(url, _with_token(headers),
                                    constants.dispatch_timeout())
 
 

@@ -148,9 +148,9 @@ def test_mutating_200_with_header_or_bearer(served):
                 {"X-CDT-Auth": "secret-token"})[0] == 200
     assert call(port, "/distributed/clear_memory", {},
                 {"Authorization": "Bearer secret-token"})[0] == 200
-    # past the gate, an unported route is what it was
+    # past the gate, the gated read answers
     assert call(port, "/distributed/config", None,
-                {"Authorization": "Bearer secret-token"})[0] == 404
+                {"Authorization": "Bearer secret-token"})[0] == 200
 
 
 def test_probes_and_reads_stay_open(served):

@@ -51,7 +51,25 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.models.lora",
             "comfyui_distributed_tpu_torch.utils.jpeg",
             "comfyui_distributed_tpu_torch.utils.video_io",
-            "comfyui_distributed_tpu_torch.utils.audio_payload"} <= set(modules)
+            "comfyui_distributed_tpu_torch.utils.audio_payload",
+            "comfyui_distributed_tpu_torch.telemetry",
+            "comfyui_distributed_tpu_torch.telemetry.registry",
+            "comfyui_distributed_tpu_torch.telemetry.spans",
+            "comfyui_distributed_tpu_torch.telemetry.export",
+            "comfyui_distributed_tpu_torch.telemetry.metrics",
+            "comfyui_distributed_tpu_torch.utils.names",
+            "comfyui_distributed_tpu_torch.utils.process",
+            "comfyui_distributed_tpu_torch.utils.deadline",
+            "comfyui_distributed_tpu_torch.utils.tunnel",
+            "comfyui_distributed_tpu_torch.api.info_routes",
+            "comfyui_distributed_tpu_torch.api.config_routes",
+            "comfyui_distributed_tpu_torch.api.tunnel_routes",
+            "comfyui_distributed_tpu_torch.api.worker_routes",
+            "comfyui_distributed_tpu_torch.workers.launch_builder",
+            "comfyui_distributed_tpu_torch.workers.lifecycle",
+            "comfyui_distributed_tpu_torch.workers.worker_monitor",
+            "comfyui_distributed_tpu_torch.workers.process_manager",
+            "comfyui_distributed_tpu_torch.workers.detection"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
@@ -80,6 +98,34 @@ def test_port_sources_name_no_jax_package():
                 if top == "cv2" and path in LAZY_CV2 and line.startswith(" "):
                     continue
                 assert top not in FORBIDDEN, f"{path}: {line}"
+
+
+MONITOR = Path(port.__path__[0]) / "workers" / "worker_monitor.py"
+
+
+def test_worker_monitor_runs_from_its_bare_path(tmp_path):
+    """Outside the repo and without the package on the path the monitor
+    runs its worker and returns its status; with the package importable
+    it loads the port's telemetry, and neither torch nor the JAX
+    package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(CDT_MASTER_PID=str(os.getpid()), CDT_MONITOR_POLL="0.1")
+    proc = subprocess.run([sys.executable, str(MONITOR), sys.executable,
+                           "-c", "exit(7)"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 7, proc.stderr
+    code = ("import json, runpy, sys\n"
+            f"ns = runpy.run_path({str(MONITOR)!r}, run_name='monitor')\n"
+            "print(json.dumps([ns['_tm'] is not None, sorted(sys.modules)]))\n")
+    for path, wants_telemetry in ((str(ROOT), True), ("", False)):
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                              env={**env, "PYTHONPATH": path},
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr
+        has_tm, loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert has_tm is wants_telemetry
+        assert ("comfyui_distributed_tpu_torch.telemetry" in loaded) is wants_telemetry
+        assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN + ("torch",)]
 
 
 @pytest.fixture

@@ -5,6 +5,8 @@ merged by both packages into tiny fp32 SDXL and SD 1.5 bundles (and a
 2e-4 of JAX's, the same tensor counts merged, the base bundle unchanged
 and sharing every unpatched parameter; and the ``LoraLoader`` node."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -85,7 +87,10 @@ def _source_shape(jb, lprefix, dst, tx):
     return tuple(shape)
 
 
+@functools.cache
 def _pair(clip, context_dim=0, seed=1):
+    """One JAX bundle and its port twin per preset, shared by the tests
+    (each checks that a merge leaves the base bundle untouched)."""
     jp, tp = presets(clip, context_dim)
     jb = jax_bundle(jp, seed=seed)
     return jb, port_from_jax(tp, jb)
