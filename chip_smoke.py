@@ -44,7 +44,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    give (batch 8: 10404 tokens at D 40, 2601 at D 80, self and over 77
    keys) are compared and timed the same way.
    FLUX from its files (4608 tokens: T5's 512 context tokens) is compared
-   and timed beside the random-init FLUX shape (4173).
+   and timed beside the random-init FLUX shape (4173). Then WAN's K3 rows
+   at D 128 (batch 2, 40 heads): self-attention at 14 040 tokens (the
+   streamed core), cross-attention over 77 hash tokens (the short-key
+   kernel at D 128) and over UMT5's 512 (the streamed core, Nq ≠ Nk), and
+   video-mmdit's joint attention at 7877 tokens, the plain version a batch
+   row and 8 heads at a time.
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
@@ -329,6 +334,55 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    prompt, sampling and decode seconds and the worker's prompt seconds
    (from its log), and each process's peak memory.
 
+26. wan t2v — ``workflows/wan-t2v.json`` unchanged on the ``wan`` preset
+   (WAN 14B at full width and depth, 14.3 B parameters, the WAN 3D causal
+   VAE; random init from seed 0): 33 frames of 832×480, 20 steps, CFG 5,
+   shift 3, ``dp``, through ``GraphExecutor``: exactly 4 K1, 0 K2 and
+   1600 K3 launches (800 on the streamed core at 14 040 tokens, 800 on
+   the short-key kernel over 77 keys), the collected batch [33, 480, 832,
+   3], finite, in [0, 1], ``wan_v0_00000.mp4`` and ``wan_v1_00000.mp4``
+   read back as the divider's 17 and 16 frames at 16 fps; the sampling,
+   tiled decode and request seconds and the peak memory. Then the same
+   graph at 4 steps at seeds 99 and 100 (320 K3 a request), kept as 8-bit
+   frames for phase 28.
+27. wan reference — one WanModel velocity at full width and depth at 9
+   frames (3 latent frames, 4680 tokens; cut from 33 so that the plain
+   attention fits), through the kernels and with both attention sites on
+   the plain version: within 5e-2·max|plain|.
+28. wan served — the t2v workflow at 4 steps through ``POST
+   /distributed/queue`` to a master in this process (phase 26's bundle)
+   and a ``remote`` worker subprocess that builds its own WAN 14B (two
+   processes, 57 GB of weights on the card): the collected batch of 66
+   frames holds the master's video bitwise the direct seed-99 video and
+   the worker's the direct seed-100 video (8-bit frames), both mp4s 33
+   frames; the master's launches 4 K1 + 320 K3, the worker's kernels
+   counted from a ``torch.profiler`` trace of its request (its
+   ``/distributed/profile/start|stop``): 320 K3 and 4 K1.
+29. wan i2v — ``workflows/wan-i2v.json`` unchanged on ``wan-i2v``
+   (in_channels 36) with a seeded 832×480 ``start_frame.png`` the script
+   writes: the same launch counts as phase 26, 33 frames of 480×832, the
+   start frame's VAE encode seconds.
+30. wan 2.2 — the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts, 57.2
+   GB) at 4 steps, twice: each expert's model calls equal the split (2
+   high-noise steps of 4 at shift 3), 320 K3 a request, the repeat bitwise
+   equal, the peak memory.
+31. wan files — synthetic files at full width cut in depth: a WAN 14B t2v
+   file of 2 of 40 blocks under ``model.diffusion_model.``, a
+   ``.high``/``.low`` pair of 2 blocks, UMT5-XXL of 2 of 24 layers in the
+   HF ``encoder.*`` layout (all BF16) and a synthetic ``tokenizer.json``;
+   ``convert --preset wan --checkpoint … --t5 …`` and ``--preset
+   wan-2.2-t2v --checkpoint … --checkpoint-low …`` (the CLI's ``main``,
+   in this process), ``state.pt`` and a restore: every parameter's digest
+   its source's; one 2-step request of the converted ``wan`` bundle with
+   UMT5's 512-token context: 0 K1 and 8 K3, all on the streamed core.
+32. video-mmdit — at full width (hidden 5120, 40 heads of 128) cut to 1
+   double + 1 single block, the t2v graph at 5 frames of 832×480 (the
+   image VAE per frame: 7800 + 77 tokens) and 2 steps: 4 K1 and 4 K3.
+
+Each phase prints its seconds and the card's peak allocated memory; every
+bundle is dropped before the WAN phases, and each WAN bundle before the
+next is built.
+
 The launch counters are set to 0 just before each path and read just
 after it. The second-to-last stdout line is the kernel table as JSON; the
 last is ``{"ok": true, "device": {...}}``.
@@ -511,7 +565,10 @@ HOPPER_KERNELS = {
     "fused_qkv_attention": ["qkv_projection_kernel", "flash_attention_kernel<64>",
                             "short_kv_attention_kernel<64,80> (77 text tokens)"],
     "flash_attention_packed": ["short_kv_attention_kernel<64,80>"],
-    "flash_attention_bh": ["flash_attention_kernel<128> (flux)",
+    "flash_attention_bh": ["flash_attention_kernel<128> (flux, wan, "
+                           "video-mmdit)",
+                           "short_kv_attention_kernel<128,80> (wan "
+                           "cross-attention over 77 tokens)",
                            "flash_attention_kernel<40>, <80>, <160> (sd15 "
                            "self-attention)",
                            "short_kv_attention_kernel<40,80>, <80,80>, "
@@ -552,6 +609,49 @@ def k3_counts(calls: int, shapes: list, text_prompts: int = 2) -> tuple:
              "flash_attention_bh": sum(n for _, n in cores)},
             cuda_counts(fused, cores))
 
+
+# WAN (phases 26 to 32): workflows/wan-t2v.json and wan-i2v.json at
+# 832×480, 33 frames: 9 latent frames of 60×104 (the 3D VAE: 4× in time,
+# 8× in space), patch 2×2: 9·30·52 = 14 040 tokens. WAN 14B has 40 blocks
+# of 40 heads of 128 (H·D 5120: not packed-legal, so both sites take K3),
+# CFG doubles the batch; a forward launches 40 self-attentions (the
+# streamed core) and 40 cross-attentions over the hash encoder's 77 tokens
+# (the short-key kernel at D 128), one forward a step; the hash encoder
+# adds 4 K1 launches (one prompt).
+WAN_STEPS, WAN_FRAMES, WAN_HW = 20, 33, (480, 832)
+WAN_LAYERS, WAN_HEADS = 40, 40
+WAN_TOKENS = 9 * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)              # 14040
+WAN_FORWARD_SHAPES = [((2, WAN_TOKENS, WAN_TOKENS, WAN_HEADS, 128), WAN_LAYERS),
+                      ((2, WAN_TOKENS, 77, WAN_HEADS, 128), WAN_LAYERS)]
+WAN_SHAPES = [(s, WAN_STEPS * n) for s, n in WAN_FORWARD_SHAPES]   # 800 + 800
+WAN_REQUEST = k3_counts(WAN_STEPS, WAN_FORWARD_SHAPES, text_prompts=1)
+WAN_SERVED_STEPS = 4         # the served and the two-expert requests
+WAN_SERVED = k3_counts(WAN_SERVED_STEPS, WAN_FORWARD_SHAPES, text_prompts=1)
+# phase 31: WAN and UMT5 files cut to 2 blocks and 2 layers; a request of
+# 2 steps from them: the cross-attention over UMT5's 512 tokens takes the
+# streamed core; UMT5 is plain fp32 (no K1)
+WAN_FILE_BLOCKS, WAN_FILE_STEPS, WAN_UMT5_TOKENS = 2, 2, 512
+WAN_UMT5_SHAPE = (2, WAN_TOKENS, WAN_UMT5_TOKENS, WAN_HEADS, 128)
+WAN_FILE_FORWARD = [(WAN_FORWARD_SHAPES[0][0], WAN_FILE_BLOCKS),
+                    (WAN_UMT5_SHAPE, WAN_FILE_BLOCKS)]
+WAN_FILE_COUNTS = ({"fused_qkv_attention": 0, "flash_attention_packed": 0,
+                    "flash_attention_bh": WAN_FILE_STEPS * 2 * WAN_FILE_BLOCKS},
+                   cuda_counts([], [(s, WAN_FILE_STEPS * n)
+                                    for s, n in WAN_FILE_FORWARD]))
+# phase 32: video-mmdit at hidden 5120 (40 heads of 128) cut to 1 double +
+# 1 single block, 5 frames of 832×480 through the image VAE per frame:
+# 5·30·52 = 7800 video tokens + 77 text tokens in each joint attention, 2
+# steps
+MMDIT_CUT, MMDIT_FRAMES, MMDIT_STEPS = (1, 1), 5, 2
+MMDIT_TOKENS = 77 + MMDIT_FRAMES * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)
+MMDIT_FORWARD_SHAPES = [((2, MMDIT_TOKENS, MMDIT_TOKENS, WAN_HEADS, 128),
+                         sum(MMDIT_CUT))]
+MMDIT_COUNTS = k3_counts(MMDIT_STEPS, MMDIT_FORWARD_SHAPES, text_prompts=1)
+# the kernel phase's WAN rows: (path, shape, launches per request)
+WAN_K3_ROWS = ([("wan", s, n) for s, n in WAN_SHAPES]
+               + [("wan_file", WAN_UMT5_SHAPE, WAN_STEPS * WAN_LAYERS),
+                  ("video_mmdit", MMDIT_FORWARD_SHAPES[0][0],
+                   MMDIT_STEPS * sum(MMDIT_CUT))])
 
 class PathSpec(NamedTuple):
     """One workflow the script drives: its node ids, its seeds and the
@@ -866,6 +966,19 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                       fa.flash_attention(q, k, v, layout="bh"), ref)
         errs["flash_attention_bh"] = max(errs["flash_attention_bh"], err)
         del q, k, v, ref
+    # WAN's shapes at D 128 (H·D 5120: one-head layout only): self-attention
+    # at 14 040 tokens, cross-attention over 77 hash tokens (the short-key
+    # kernel) and over UMT5's 512 (the streamed core, Nq != Nk), and
+    # video-mmdit's joint attention; the plain version a batch row and 8
+    # heads at a time
+    for _, shape, _ in WAN_K3_ROWS:
+        q, k, v = core_inputs(*shape)
+        ref = plain_by_row(fa, q, k, v)
+        fa.flash_attention(*core_inputs(*shape), layout="bh")
+        err = compare(torch, f"flash_attention_bh {shape}",
+                      fa.flash_attention(q, k, v, layout="bh"), ref)
+        errs["flash_attention_bh"] = max(errs["flash_attention_bh"], err)
+        del q, k, v, ref
 
     say("kernels: timing (CUDA events; ms per launch)")
     rows = []
@@ -948,18 +1061,29 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                      lambda: plain_by_row(fa, q, k, v),
                      lambda: sdpa(q, k, v), path)
             del q, k, v
+    for path, shape, n in WAN_K3_ROWS:
+        q, k, v = core_inputs(*shape)
+        time_row("flash_attention_bh", shape, n, core_work(*shape),
+                 lambda: fa.flash_attention(q, k, v, layout="bh"),
+                 lambda: plain_by_row(fa, q, k, v),
+                 lambda: sdpa(q, k, v), path)
+        del q, k, v
     return rows, errs
 
 
-def plain_by_row(fa, q, k, v):
-    """The plain attention one batch row at a time: the same function,
-    with the fp32 score matrix of one row resident at a time (8 heads of
-    10816² keys are 3.7 GB a row)."""
+def plain_by_row(fa, q, k, v, heads: int = 8):
+    """The plain attention one batch row and at most ``heads`` heads at a
+    time: the same function, with the fp32 scores of 8 heads resident at a
+    time (8 heads of 10816² keys are 3.7 GB; a row of WAN's 40 heads at
+    14 040 tokens would be 31.5 GB)."""
     import torch
 
-    return torch.cat([fa.flash_attention_plain(q[i:i + 1], k[i:i + 1],
-                                               v[i:i + 1])
-                      for i in range(q.shape[0])])
+    return torch.cat([
+        torch.cat([fa.flash_attention_plain(q[i:i + 1, :, h:h + heads],
+                                            k[i:i + 1, :, h:h + heads],
+                                            v[i:i + 1, :, h:h + heads])
+                   for h in range(0, q.shape[2], heads)], dim=2)
+        for i in range(q.shape[0])])
 
 
 def kernel_table(rows: list[dict], errs: dict,
@@ -991,7 +1115,7 @@ def kernel_table(rows: list[dict], errs: dict,
     sd15_file_request = [(shape, SD15_STEPS * n)
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
-              "flux_file")
+              "flux_file", "wan", "wan_file", "video_mmdit")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1032,7 +1156,8 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_sd15_file_request", at(name, sd15_file_request)),
                 ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)),
                 ("per_video_request", at(name, VIDEO_SHAPES)),
-                ("per_flux_file_request", at(name, FILE_BH_SHAPES)))
+                ("per_flux_file_request", at(name, FILE_BH_SHAPES)),
+                ("per_wan_request", at(name, WAN_SHAPES)))
                if value is not None},
             **({"k3_rows": [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
@@ -1077,7 +1202,7 @@ def path_phase(torch, fa, spec: PathSpec) -> PathRun:
             f"{spec.workflow}: the step count changed; update the script")
     hw = (int(sampler["height"]), int(sampler["width"]))
     registry = ModelRegistry("cuda", seed=0)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     t0 = time.perf_counter()
     bundle = registry.get(workflow["1"]["inputs"]["ckpt_name"])
     torch.cuda.synchronize()
@@ -1208,7 +1333,7 @@ def upscale_phase(torch, fa, sdxl: PathRun) -> UpscaleRun:
                               "input_dir": str(input_dir),
                               "output_dir": str(out_dir)})
     pipeline = sdxl.bundle.pipeline
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     images, seconds = [], []
     fa.reset_launches()
     for i in range(2):
@@ -1483,7 +1608,7 @@ def control_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> ControlRun:
                               "output_dir": str(CONTROL_DIR)})
     hw = (UPSCALE_INPUT_HW, UPSCALE_INPUT_HW)
     launches = {}
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     t0 = time.perf_counter()
     cn = sdxl.registry.get_controlnet(CONTROL_PRESET)
     torch.cuda.synchronize()
@@ -1542,7 +1667,7 @@ def control_phase(torch, fa, sdxl: PathRun, up: UpscaleRun) -> ControlRun:
     spatial = torch.zeros(1, USDU_OUT_HW, USDU_OUT_HW, device=cn.device)
     spatial[:, :USDU_OUT_HW // 2] = 1.0
     usdu_hw = (USDU_OUT_HW, USDU_OUT_HW)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launches()
     runs = []
     for i in range(2):
@@ -1663,7 +1788,7 @@ def sd15_phase(torch, fa, registry) -> dict:
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
 
     say("sd15 path:")
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     t0 = time.perf_counter()
     bundle = registry.get("sd15")
     torch.cuda.synchronize()
@@ -1804,7 +1929,7 @@ def cn_tile_phase(torch, fa, registry, input_dir: Path) -> CnTileRun:
     want = k3_counts(1, CN_TILE_SHAPES)
     hw = (CN_TILE_OUT_HW, CN_TILE_OUT_HW)
     png = CN_TILE_DIR / CN_TILE_PNG
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launches()
     images, seconds = [], []
     for i in range(2):
@@ -2091,7 +2216,7 @@ def video_phase(torch, fa, registry, input_dir: Path, encode_540p_s: float
     stages = ("LoadVideo", "ImageUpscaleWithModel",
               "UltimateSDUpscaleDistributed", "SaveVideo")
     timer, seconds = stage_timer(torch, stages)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     fa.reset_launches()
     cuda_before = dict(fa.CUDA_LAUNCHES)
     t0 = time.perf_counter()
@@ -2461,7 +2586,7 @@ def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
 
     for png in master_out.glob("*.png"):
         png.unlink()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
     os.environ["CDT_TILE_MASTER_HOLDBACK_S"] = str(UPSCALE_HOLDBACK_S)
     try:
@@ -2804,6 +2929,20 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 K1_EVENT = "qkv_projection_kernel"
 
 
+def count_kernel_events(trace: str) -> tuple[dict, int]:
+    """A ``torch.profiler`` trace's K1 and attention kernel events, counted
+    by kernel name, and the trace's number of events."""
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    kernels: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in (K1_EVENT, "flash_attention_kernel",
+                         "short_kv_attention_kernel"):
+                if name in e.get("name", ""):
+                    kernels[name] = kernels.get(name, 0) + 1
+    return kernels, len(events)
+
+
 def proc_children(pid: int) -> list[int]:
     out = []
     for stat in Path("/proc").glob("[0-9]*/stat"):
@@ -3030,16 +3169,9 @@ def managed_phase(torch, fa, sdxl: PathRun) -> dict:
                 f"{sdxl.seconds[i]:.3f} s); master launches {counts}; both "
                 f"PNGs bitwise the direct seed {seed} and {seed + 1} images")
         t_parse = time.perf_counter()
-        events = json.loads(Path(stopped["trace"]).read_text())["traceEvents"]
-        kernels = {}
-        for e in events:
-            if e.get("cat") == "kernel":
-                for name in (K1_EVENT, "flash_attention_kernel",
-                             "short_kv_attention_kernel"):
-                    if name in e.get("name", ""):
-                        kernels[name] = kernels.get(name, 0) + 1
+        kernels, events = count_kernel_events(stopped["trace"])
         size = Path(stopped["trace"]).stat().st_size
-        say(f"  profile of request 1: {len(events)} events, {size} bytes, "
+        say(f"  profile of request 1: {events} events, {size} bytes, "
             f"stop and export {stop_s:.2f} s, parse "
             f"{time.perf_counter() - t_parse:.2f} s; kernels {kernels}; K1 "
             f"launches in the window {k1_window}")
@@ -3362,7 +3494,7 @@ def ckpt_sdxl_phase(torch, fa, tmp: Path) -> CkptRun:
         "allocated")
 
     say("checkpoint sdxl: convert and run from the file")
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     before = torch.cuda.memory_allocated()
     registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=tmp)
     t0 = time.perf_counter()
@@ -3936,7 +4068,7 @@ def flux_convert_phase(torch, fa, source: FluxSource, tmp: Path) -> dict:
             f"converted entries {line['entries']}, manifest {manifest}")
     for name in ("flux_cut.safetensors", "t5xxl_cut.safetensors"):
         (tmp / name).unlink()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=out_dir.parent)
     t0 = time.perf_counter()
     bundle = registry.get("flux")
@@ -3979,7 +4111,7 @@ def flux_file_phase(torch, fa, source: FluxSource, tmp: Path,
 
     say("flux files: load at full depth and run")
     dev = torch.device(DEVICE)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     t0 = time.perf_counter()
     bundle = ModelBundle(PRESETS["flux"], DEVICE, empty_core=True)
     bundle.load_safetensors_checkpoint(tmp / "flux.safetensors")
@@ -4242,7 +4374,7 @@ def flux_serve_phase(torch, fa, images: dict, direct_seconds: list) -> dict:
     ok = False
     os.environ["CDT_AUTH_TOKEN"] = token
     try:
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         worker = start_worker(worker_port, log_path, UPSCALE_DIR / "input")
         os.environ["CDT_OUTPUT_DIR"] = str(master_out)
         try:
@@ -4442,6 +4574,666 @@ def checkpoint_phases(torch, fa) -> dict:
     return launches
 
 
+# --- phases 26 to 32: WAN video ----------------------------------------------
+
+WAN_DIR = OUTPUT_DIR / "wan"
+WAN_SERVE_DIR = OUTPUT_DIR / "serve_wan"
+WAN_T2V, WAN_I2V = "wan-t2v.json", "wan-i2v.json"
+WAN_FPS = 16.0
+WAN_SEED = 99                # the t2v workflow's seed (the worker's is 100)
+WAN_SPLIT = 2                # of WAN_SERVED_STEPS at shift 3: sigma >= 0.875
+WAN_REF_FRAMES = 9           # phase 27: 3 latent frames, 4680 tokens
+# ImageBatchDivider(divide_by=2) of one video: 17 and 16 frames
+WAN_HALVES = ((WAN_FRAMES + 1) // 2, WAN_FRAMES // 2)
+WAN_FILE_SEEDS = {"wan": 21, "high": 22, "low": 23, "umt5": 24}
+
+
+def wan_workflow(name: str, **sampler) -> dict:
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    prompt = strip_meta(json.loads((ROOT / "workflows" / name).read_text()))
+    node = "4" if name == WAN_T2V else "5"
+    prompt[node]["inputs"].update(sampler)
+    return prompt
+
+
+def wan_request(torch, fa, executor, prompt: dict, what: str, want: tuple,
+                node: str = "5", frames: int = 0) -> tuple:
+    """Run ``prompt``; its launches per wrapper and per CUDA kernel must be
+    ``want``, the collected batch [frames (default the workflow's), 480,
+    832, 3], finite, in [0, 1]. Returns (the batch, the seconds, the
+    launches)."""
+    frames, hw = frames or WAN_FRAMES, WAN_HW
+    before, cuda_before = dict(fa.LAUNCHES), dict(fa.CUDA_LAUNCHES)
+    t0 = time.perf_counter()
+    out = executor.execute(prompt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    cuda = {k: fa.CUDA_LAUNCHES[k] - cuda_before[k] for k in fa.CUDA_LAUNCHES}
+    batch = out[node][0]
+    require(counts == want[0], f"{what}: launches {counts} != {want[0]}")
+    require(cuda == want[1],
+            f"{what}: CUDA kernel launches {cuda} != {want[1]}")
+    require(tuple(batch.shape) == (frames, *hw, 3),
+            f"{what}: batch shape {tuple(batch.shape)}")
+    require(bool(torch.isfinite(batch).all()), f"{what}: non-finite frames")
+    require(batch.min().item() >= 0.0 and batch.max().item() <= 1.0,
+            f"{what}: frames outside [0, 1]")
+    return batch, secs, counts
+
+
+def check_mp4s(out_dir: Path, prefix: str, counts: tuple) -> None:
+    """``<prefix>_v<k>_00000.mp4`` read back with ``counts[k]`` frames of
+    832×480 at 16 fps."""
+    from comfyui_distributed_tpu_torch.utils.video_io import load_video
+
+    hw = WAN_HW
+
+    for k, count in enumerate(counts):
+        path = out_dir / f"{prefix}_v{k}_00000.mp4"
+        require(path.is_file(), f"{path} was not written")
+        clip = load_video(path)
+        require(clip["frame_count"] == count and clip["fps"] == WAN_FPS
+                and clip["frames"].shape[1:3] == hw,
+                f"{path}: {clip['frame_count']} frames of "
+                f"{clip['frames'].shape[1:3]} at {clip['fps']} fps, expected "
+                f"{count} of {hw} at {WAN_FPS}")
+
+
+def wan_bundle(torch, registry, name: str):
+    t0 = time.perf_counter()
+    bundle = registry.get(name)
+    torch.cuda.synchronize()
+    cores = [bundle.core] + ([bundle.pipeline.dit_low]
+                             if bundle.pipeline.dit_low is not None else [])
+    n = [sum(p.numel() for p in c.parameters()) for c in cores]
+    say(f"  {name} bundle built in {time.perf_counter() - t0:.2f} s "
+        f"({' + '.join(f'{k / 1e9:.3f} B' for k in n)} transformer params; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated)")
+    return bundle
+
+
+class WanRun(NamedTuple):
+    registry: object        # holding the wan bundle
+    frames: dict            # seed → uint8 frames of its direct 4-step video
+    seconds: float          # the workflow's request
+    launches: dict
+
+
+def wan_t2v_phase(torch, fa) -> WanRun:
+    """Phase 26: ``workflows/wan-t2v.json`` unchanged on the full-width
+    ``wan`` preset, then the same graph at 4 steps at seeds 99 and 100 (the
+    served phase's references)."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    prompt = wan_workflow(WAN_T2V)
+    node = prompt["4"]["inputs"]
+    require((node["frames"], node["steps"], node["height"], node["width"],
+             node["cfg"], node["shift"], node["mode"],
+             prompt["1"]["inputs"]["ckpt_name"], prompt["3"]["inputs"]["seed"])
+            == (WAN_FRAMES, WAN_STEPS, *WAN_HW, 5.0, 3.0, "dp", "wan",
+                WAN_SEED),
+            f"{WAN_T2V} changed; update the script")
+    registry = ModelRegistry(DEVICE, seed=0)
+    bundle = wan_bundle(torch, registry, "wan")
+    out_dir = WAN_DIR / "t2v"
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(out_dir)})
+    reset_peak(torch)
+    fa.reset_launches()
+    batch, secs, _ = wan_request(torch, fa, executor, prompt, "wan t2v",
+                                 WAN_REQUEST)
+    t = bundle.pipeline.timings
+    peak = torch.cuda.max_memory_allocated()
+    check_mp4s(out_dir, "wan", WAN_HALVES)
+    say(f"  wan-t2v.json: {secs:.3f} s for {WAN_FRAMES} frames of "
+        f"{WAN_HW[1]}x{WAN_HW[0]}; sampling {t['sample_s']:.3f} s = "
+        f"{t['sample_s'] / t['steps']:.4f} s/step over {t['steps']} steps; "
+        f"tiled VAE decode {t['decode_s']:.3f} s; launches "
+        f"{WAN_REQUEST[0]}, CUDA kernels {WAN_REQUEST[1]}; batch "
+        f"{tuple(batch.shape)}; wan_v0/wan_v1 mp4 read back as "
+        f"{WAN_HALVES[0]} and {WAN_HALVES[1]} frames at {WAN_FPS:g} fps; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    launches = dict(fa.LAUNCHES)
+    del batch
+    frames = {}
+    for seed in (WAN_SEED, WAN_SEED + 1):
+        p = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
+        p["3"]["inputs"]["seed"] = seed
+        fa.reset_launches()
+        batch, s, _ = wan_request(torch, fa, executor, p,
+                                  f"wan t2v {WAN_SERVED_STEPS} steps",
+                                  WAN_SERVED)
+        frames[seed] = to_uint8(batch)
+        say(f"  direct seed {seed} at {WAN_SERVED_STEPS} steps: {s:.3f} s "
+            f"(sampling {bundle.pipeline.timings['sample_s']:.3f} s, decode "
+            f"{bundle.pipeline.timings['decode_s']:.3f} s)")
+    require(not np_equal(frames[WAN_SEED], frames[WAN_SEED + 1]),
+            "seeds 99 and 100 gave the same video")
+    return WanRun(registry, frames, secs, launches)
+
+
+def wan_reference_phase(torch, fa, bundle) -> None:
+    """Phase 27: one full-depth WanModel velocity at 9 frames (3 latent
+    frames: 4680 tokens, batch 1) through the kernels and with its
+    attention sites on the plain version."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import wan as wan_module
+
+    model = bundle.core
+    cfg = model.config
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f = (WAN_REF_FRAMES - 1) // 4 + 1
+    x = torch.randn(1, f, WAN_HW[0] // 8, WAN_HW[1] // 8, cfg.in_channels,
+                    generator=gen, device=dev)
+    t = torch.tensor([0.5], device=dev)
+    ctx = torch.randn(1, 77, cfg.text_dim, generator=gen, device=dev)
+    before = fa.LAUNCHES["flash_attention_bh"]
+    with torch.no_grad():
+        v = model(x, t, ctx)
+        sites = fa.LAUNCHES["flash_attention_bh"] - before
+        with mock.patch.object(wan_module, "full_attention",
+                               fa.flash_attention_plain):
+            ref = model(x, t, ctx)
+    require(sites == 2 * cfg.num_layers,
+            f"wan reference: {sites} one-head launches per forward")
+    require(ref.abs().max().item() > 1e-3, "wan reference: the velocity is 0")
+    tokens = f * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)
+    compare_whole(torch, f"wan reference: WanModel velocity at "
+                  f"{WAN_REF_FRAMES} frames ({tokens} tokens, full depth)",
+                  v, ref)
+
+
+def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
+    """Phase 28: ``workflows/wan-t2v.json`` at 4 steps through ``POST
+    /distributed/queue`` to a master in this process (the t2v phase's
+    bundle) and a ``remote`` worker subprocess that builds its own; the
+    worker's kernels counted from a ``torch.profiler`` trace of its
+    request (``/distributed/profile/start|stop`` on the worker)."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.graph import nodes_builtin
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    WAN_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    master_out = WAN_SERVE_DIR / "master_out"
+    master_port, worker_port = free_port(), free_port()
+    (WAN_SERVE_DIR / "master.json").write_text(json.dumps({
+        "master": {"host": "127.0.0.1", "port": master_port},
+        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
+                   "type": "remote", "enabled": True}]}))
+    prompt = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
+    log_path = WAN_SERVE_DIR / "worker.log"
+    worker_base = f"http://127.0.0.1:{worker_port}"
+    seen = []
+    divide = nodes_builtin.ImageBatchDivider.execute
+
+    def recording(self, images, *a, **kw):
+        seen.append(images)
+        return divide(self, images, *a, **kw)
+
+    worker = server = None
+    ok = False
+    os.environ["CDT_PROFILE_DIR"] = str(WAN_SERVE_DIR / "profiles")
+    try:
+        reset_peak(torch)
+        worker = start_worker(worker_port, log_path,
+                              WAN_SERVE_DIR / "worker_in")
+        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
+        try:
+            master = Controller(WAN_SERVE_DIR / "master.json", device=DEVICE,
+                                model_registry=t2v.registry)
+        finally:
+            del os.environ["CDT_OUTPUT_DIR"]
+        server = ServerThread(master, port=master_port)
+        stop_trace = trace_kernels(worker_base, "wan_served")
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        with mock.patch.object(nodes_builtin.ImageBatchDivider, "execute",
+                               recording):
+            status, answer = http_json(f"http://127.0.0.1:{master_port}"
+                                       "/distributed/queue", {"prompt": prompt},
+                                       timeout=120)
+            require(status == 200 and answer.get("worker_count") == 1,
+                    f"queue answered {status}: {answer}")
+            entry = wait_history(f"http://127.0.0.1:{master_port}",
+                                 answer["prompt_id"], t0, "served wan")
+        secs = time.perf_counter() - t0
+        require(entry["status"] == "success", f"served wan: {entry}")
+        counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        kernels = stop_trace()
+        master_peak = torch.cuda.max_memory_allocated()
+        status, info = http_json(worker_base + "/distributed/system_info")
+        worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
+                       if status == 200 and info.get("devices") else 0)
+        want_cuda = WAN_SERVED[1]
+        worker_k3 = (kernels.get("flash_attention_kernel", 0)
+                     + kernels.get("short_kv_attention_kernel", 0)
+                     - kernels.get(K1_EVENT, 0))
+        say(f"  served wan-t2v.json at {WAN_SERVED_STEPS} steps: {secs:.3f} s "
+            f"(POST to final history; direct {t2v.seconds:.3f} s at "
+            f"{WAN_STEPS} steps); master launches {counts}; worker kernels "
+            f"(profiled) {kernels}; peak memory master "
+            f"{master_peak / 2**30:.3f} GiB, worker {worker_peak / 2**30:.3f} "
+            "GiB")
+        require(counts == WAN_SERVED[0],
+                f"served wan: master launches {counts} != {WAN_SERVED[0]}")
+        require(kernels.get(K1_EVENT) == want_cuda["qkv_projection"]
+                and kernels.get("flash_attention_kernel")
+                == want_cuda["flash_attention_core"]
+                and kernels.get("short_kv_attention_kernel")
+                == want_cuda["short_kv_attention"]
+                and worker_k3 == WAN_SERVED[0]["flash_attention_bh"],
+                f"served wan: the worker's kernels {kernels} != {want_cuda}")
+        batch = next((s for s in seen if s.shape[0] == 2 * WAN_FRAMES), None)
+        require(batch is not None,
+                "served wan: no collected batch of two videos")
+        require(np_equal(to_uint8(batch[:WAN_FRAMES]), t2v.frames[WAN_SEED]),
+                "served wan: the master's video differs from the direct "
+                f"seed-{WAN_SEED} video")
+        require(np_equal(to_uint8(batch[WAN_FRAMES:]),
+                         t2v.frames[WAN_SEED + 1]),
+                "served wan: the worker's video differs from the direct "
+                f"seed-{WAN_SEED + 1} video")
+        check_mp4s(master_out, "wan", (WAN_FRAMES, WAN_FRAMES))
+        say(f"  wan_v0 bitwise the direct seed-{WAN_SEED} video, wan_v1 the "
+            f"seed-{WAN_SEED + 1} video (8-bit frames); the worker ran "
+            f"{worker_k3} K3 launches; both mp4s {WAN_FRAMES} frames")
+        ok = True
+        return counts
+    finally:
+        os.environ.pop("CDT_PROFILE_DIR", None)
+        if server is not None:
+            server.stop()
+        if worker is not None:
+            stop_worker(worker)
+        if not ok and log_path.is_file():
+            tail = log_path.read_text(errors="replace").splitlines()[-40:]
+            print("chip_smoke: wan worker log tail:\n" + "\n".join(tail),
+                  file=sys.stderr)
+
+
+def trace_kernels(base: str, out: str):
+    """Start ``torch.profiler`` on the controller at ``base``
+    (``/distributed/profile/start``); returns a function that stops it and
+    counts the trace's attention kernel events by kernel name."""
+    status, started = http_json(base + "/distributed/profile/start",
+                                {"out": out})
+    require(status == 200 and started.get("status") == "tracing",
+            f"{base} profile/start answered {status}: {started}")
+
+    def stop() -> dict:
+        status, stopped = http_json(base + "/distributed/profile/stop", {},
+                                    timeout=600)
+        require(status == 200 and stopped.get("trace"),
+                f"{base} profile/stop answered {status}: {stopped}")
+        return count_kernel_events(stopped["trace"])[0]
+
+    return stop
+
+
+def write_start_frame(directory: Path) -> None:
+    """A seeded 832×480 ``start_frame.png``: a colour gradient with noise."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.image import encode_png
+
+    h, w = WAN_HW
+    rng = np.random.default_rng(5)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.stack(np.broadcast_arrays(y * x, 1.0 - y,
+                                       0.5 + 0.5 * x * (1.0 - y)), axis=-1)
+    img = np.clip(img + 0.05 * rng.standard_normal(img.shape), 0.0, 1.0)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "start_frame.png").write_bytes(
+        encode_png((img * 255.0 + 0.5).astype(np.uint8)))
+
+
+def wan_i2v_phase(torch, fa) -> dict:
+    """Phase 29: ``workflows/wan-i2v.json`` unchanged (``wan-i2v``:
+    in_channels 36) on a seeded 832×480 start frame."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    prompt = wan_workflow(WAN_I2V)
+    node = prompt["5"]["inputs"]
+    require((node["frames"], node["steps"], prompt["1"]["inputs"]["ckpt_name"])
+            == (WAN_FRAMES, WAN_STEPS, "wan-i2v"),
+            f"{WAN_I2V} changed; update the script")
+    input_dir = WAN_DIR / "i2v_input"
+    write_start_frame(input_dir)
+    registry = ModelRegistry(DEVICE, seed=0)
+    bundle = wan_bundle(torch, registry, "wan-i2v")
+    out_dir = WAN_DIR / "i2v"
+    executor = GraphExecutor({"model_registry": registry,
+                              "input_dir": str(input_dir),
+                              "output_dir": str(out_dir)})
+    reset_peak(torch)
+    fa.reset_launches()
+    batch, secs, _ = wan_request(torch, fa, executor, prompt, "wan i2v",
+                                 WAN_REQUEST, node="6")
+    t = bundle.pipeline.timings
+    peak = torch.cuda.max_memory_allocated()
+    check_mp4s(out_dir, "wan_i2v", WAN_HALVES)
+    say(f"  wan-i2v.json: {secs:.3f} s for {WAN_FRAMES} frames; start frame "
+        f"VAE encode {t['encode_s']:.3f} s, sampling {t['sample_s']:.3f} s = "
+        f"{t['sample_s'] / t['steps']:.4f} s/step, tiled decode "
+        f"{t['decode_s']:.3f} s; launches {WAN_REQUEST[0]}; batch "
+        f"{tuple(batch.shape)}; max_memory_allocated {peak / 2**30:.3f} GiB")
+    return dict(fa.LAUNCHES)
+
+
+def wan22_phase(torch, fa) -> dict:
+    """Phase 30: the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts) at 4
+    steps, twice: each expert's model calls equal the split, the repeat is
+    bitwise equal."""
+    from comfyui_distributed_tpu_torch.diffusion.schedules import sigmas_flow
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    registry = ModelRegistry(DEVICE, seed=0)
+    bundle = wan_bundle(torch, registry, "wan-2.2-t2v")
+    pipeline = bundle.pipeline
+    split = pipeline._expert_split(sigmas_flow(WAN_SERVED_STEPS, 3.0))
+    require(split == WAN_SPLIT, f"wan 2.2: expert split {split} != {WAN_SPLIT}")
+    prompt = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
+    prompt["1"]["inputs"]["ckpt_name"] = "wan-2.2-t2v"
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(WAN_DIR / "wan22")})
+    reset_peak(torch)
+    fa.reset_launches()
+    batches, seconds = [], []
+    for i in range(2):
+        batch, secs, _ = wan_request(torch, fa, executor, prompt,
+                                     f"wan 2.2 request {i}", WAN_SERVED)
+        calls = pipeline.timings["calls"]
+        want = {"high": split, "low": WAN_SERVED_STEPS - split}
+        require(calls == want, f"wan 2.2: expert calls {calls} != {want}")
+        batches.append(batch)
+        seconds.append(secs)
+    require(torch.equal(batches[0], batches[1]),
+            "wan 2.2: the repeated request differs")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  wan-2.2-t2v at {WAN_SERVED_STEPS} steps: requests "
+        f"{[round(s, 3) for s in seconds]} s; expert calls {calls} (split "
+        f"{split}); repeat bitwise equal; launches {WAN_SERVED[0]} a request; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    return dict(fa.LAUNCHES)
+
+
+def as_published_wan(torch, module) -> None:
+    """What a BF16 file holds of ``module``: every parameter (the fp32
+    norms, modulations and head too) rounded through BF16."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(p.to(torch.bfloat16))
+
+
+def wan_file_phases(torch, fa) -> dict:
+    """Phase 31: synthetic WAN files at full width, cut in depth (a WAN 14B
+    t2v file under ``model.diffusion_model.``, a ``.high``/``.low`` pair,
+    UMT5-XXL in the HF layout, BF16, and a ``tokenizer.json``) through
+    ``convert`` (the CLI's ``main``), ``state.pt`` and a restore: every
+    parameter's digest the source's; one request from the converted
+    ``wan`` bundle with UMT5's 512-token context."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from comfyui_distributed_tpu_torch.__main__ import main as cli
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.convert import (WAN_PREFIXED,
+                                                              export_t5,
+                                                              export_wan)
+    from comfyui_distributed_tpu_torch.models.registry import (ModelRegistry,
+                                                               _random)
+    from comfyui_distributed_tpu_torch.models.t5 import (T5Encoder,
+                                                         UMT5Conditioner)
+    from comfyui_distributed_tpu_torch.models.wan import WanConfig, WanModel
+    from comfyui_distributed_tpu_torch.parallel.rng import seed_generator
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    dev = torch.device(DEVICE)
+    tmp = Path(tempfile.mkdtemp(prefix="cdt_wan_"))
+    launches = {}
+    try:
+        cfg = dataclasses.replace(WanConfig.wan_14b(),
+                                  num_layers=WAN_FILE_BLOCKS)
+        digests, wrote = {}, []
+        t0 = time.perf_counter()
+        for name, path, prefix in (
+                ("wan", tmp / "wan.safetensors", WAN_PREFIXED),
+                ("high", tmp / "wan-2.2-t2v.high.safetensors", ""),
+                ("low", tmp / "wan-2.2-t2v.low.safetensors", "")):
+            model = _random(lambda: WanModel(cfg), dev,
+                            seed_generator(WAN_FILE_SEEDS[name], dev))
+            as_published_wan(torch, model)
+            digests[name] = param_digests(torch, dict(model.named_parameters()))
+            wrote.append((path.name, save_file(export_wan(model, prefix), path,
+                                               dtype=torch.bfloat16)))
+            del model
+        t5_cfg = dataclasses.replace(UMT5Conditioner.config(),
+                                     num_layers=WAN_FILE_BLOCKS)
+        t5 = _random(lambda: T5Encoder(t5_cfg), dev,
+                     seed_generator(WAN_FILE_SEEDS["umt5"], dev))
+        as_published_wan(torch, t5)
+        digests["t5"] = param_digests(torch, dict(t5.named_parameters()))
+        wrote.append(("umt5.safetensors", save_file(
+            export_t5(t5), tmp / "umt5.safetensors", dtype=torch.bfloat16)))
+        del t5
+        prompt = wan_workflow(WAN_T2V, steps=WAN_FILE_STEPS)
+        words = prompt["2"]["inputs"]["text"].replace(",", "").split()
+        write_t5_tokenizer(tmp / "umt5_tok", words)
+        os.environ["CDT_T5_TOKENIZER_DIR"] = str(tmp / "umt5_tok")
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"  wrote {', '.join(f'{n} {b / 1e9:.3f} GB' for n, b in wrote)} "
+            f"(BF16; {WAN_FILE_BLOCKS} of 40 blocks, {WAN_FILE_BLOCKS} of 24 "
+            f"UMT5 layers) in {time.perf_counter() - t0:.2f} s")
+
+        root = tmp / "root"
+        for preset, args in (
+                ("wan", ["--checkpoint", str(tmp / "wan.safetensors"),
+                         "--t5", str(tmp / "umt5.safetensors")]),
+                ("wan-2.2-t2v",
+                 ["--checkpoint", str(tmp / "wan-2.2-t2v.high.safetensors"),
+                  "--checkpoint-low",
+                  str(tmp / "wan-2.2-t2v.low.safetensors")])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            reset_peak(torch)
+            with contextlib.redirect_stdout(buf):
+                rc = cli(["convert", "--preset", preset, *args, "--out",
+                          str(root / preset), "--device", DEVICE])
+            require(rc == 0, f"convert --preset {preset} exited {rc}")
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            out = root / preset
+            manifest = json.loads((out / "cdt_manifest.json").read_text())
+            require(manifest.get("wan_layers") == WAN_FILE_BLOCKS,
+                    f"{preset} manifest: {manifest}")
+            peak = line.get("max_memory_allocated", 0) / 2**30
+            say(f"  convert --preset {preset}: "
+                f"{time.perf_counter() - t0:.2f} s in this process; entries "
+                f"{line['entries']}; max_memory_allocated {peak:.3f} GiB; "
+                f"state.pt {(out / 'state.pt').stat().st_size / 1e9:.3f} GB")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=root)
+        t0 = time.perf_counter()
+        bundle = registry.get("wan")
+        torch.cuda.synchronize()
+        say(f"  restored {root / 'wan'} in {time.perf_counter() - t0:.2f} s")
+        require_digests_equal("wan core", param_digests(
+            torch, dict(bundle.core.named_parameters())), digests["wan"])
+        t5_params = dict(bundle.clip_stack.t5.named_parameters())
+        require_digests_equal("umt5", param_digests(torch, t5_params),
+                              digests["t5"])
+        del t5_params
+        require(bundle.text_encoder.tokenization_mode == "sp",
+                f"umt5 tokenization {bundle.text_encoder.tokenization_mode}")
+        executor = GraphExecutor({"model_registry": registry,
+                                  "output_dir": str(WAN_DIR / "files")})
+        fa.reset_launches()
+        _, secs, _ = wan_request(torch, fa, executor, prompt,
+                                 "wan from its files", WAN_FILE_COUNTS)
+        launches["wan_file"] = dict(fa.LAUNCHES)
+        say(f"  wan from its files ({WAN_FILE_BLOCKS} blocks, UMT5 context "
+            f"[1, {WAN_UMT5_TOKENS}, 4096]): {secs:.3f} s at "
+            f"{WAN_FILE_STEPS} steps; launches {WAN_FILE_COUNTS[0]}, CUDA "
+            f"kernels {WAN_FILE_COUNTS[1]} (the cross-attention over "
+            f"{WAN_UMT5_TOKENS} keys on the streamed core)")
+        registry._cache.clear()
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pair = registry.get("wan-2.2-t2v")
+        torch.cuda.synchronize()
+        say(f"  restored {root / 'wan-2.2-t2v'} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        require_digests_equal("wan 2.2 high expert", param_digests(
+            torch, dict(pair.core.named_parameters())), digests["high"])
+        require_digests_equal("wan 2.2 low expert", param_digests(
+            torch, dict(pair.pipeline.dit_low.named_parameters())),
+            digests["low"])
+        say("  every converted parameter's digest equals its source's (wan, "
+            "umt5, the high and the low expert)")
+        registry._cache.clear()
+        del pair
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("CDT_T5_TOKENIZER_DIR", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def require_digests_equal(what: str, got: dict, want: dict) -> None:
+    require(set(got) == set(want),
+            f"{what}: parameters {sorted(set(got) ^ set(want))[:8]}")
+    bad = [k for k in want if got[k] != want[k]]
+    require(not bad, f"{what}: parameters differ from the source: {bad[:8]}")
+
+
+def video_mmdit_phase(torch, fa) -> dict:
+    """Phase 32: ``video-mmdit`` at full width (hidden 5120, 40 heads), cut to
+    1 double + 1 single block, through the t2v graph at 5 frames of 832×480
+    (the image VAE per frame: 7800 video tokens + 77 text tokens), 2
+    steps."""
+    import dataclasses
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import (PRESETS,
+                                                               ModelBundle,
+                                                               ModelRegistry)
+
+    preset = PRESETS["video-mmdit"]
+    preset = dataclasses.replace(preset, video=dataclasses.replace(
+        preset.video, depth_double=MMDIT_CUT[0], depth_single=MMDIT_CUT[1]))
+    registry = ModelRegistry(DEVICE, seed=0)
+    t0 = time.perf_counter()
+    adopt(registry, "video-mmdit", ModelBundle(preset, DEVICE, seed=0))
+    bundle = wan_bundle(torch, registry, "video-mmdit")
+    say(f"  video-mmdit cut to {MMDIT_CUT[0]} double + {MMDIT_CUT[1]} single "
+        f"blocks, built in {time.perf_counter() - t0:.2f} s")
+    prompt = wan_workflow(WAN_T2V, frames=MMDIT_FRAMES, steps=MMDIT_STEPS)
+    prompt["1"]["inputs"]["ckpt_name"] = "video-mmdit"
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(WAN_DIR / "mmdit")})
+    reset_peak(torch)
+    fa.reset_launches()
+    _, secs, _ = wan_request(torch, fa, executor, prompt, "video-mmdit",
+                             MMDIT_COUNTS, frames=MMDIT_FRAMES)
+    t = bundle.pipeline.timings
+    say(f"  video-mmdit: {secs:.3f} s for {MMDIT_FRAMES} frames at "
+        f"{MMDIT_STEPS} steps ({MMDIT_TOKENS} joint tokens); sampling "
+        f"{t['sample_s']:.3f} s, per-frame decode {t['decode_s']:.3f} s; "
+        f"launches {MMDIT_COUNTS[0]}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return dict(fa.LAUNCHES)
+
+
+def wan_phases(torch, fa) -> dict:
+    """Phases 26 to 32, each bundle dropped before the next is built;
+    returns their launches by path."""
+    launches = {}
+    with phase(torch, "26 wan t2v"):
+        t2v = wan_t2v_phase(torch, fa)
+        launches["wan_t2v"] = t2v.launches
+    with phase(torch, "27 wan reference"):
+        wan_reference_phase(torch, fa, t2v.registry.get("wan"))
+    with phase(torch, "28 wan served"):
+        launches["wan_serve"] = wan_serve_phase(torch, fa, t2v)
+    del t2v
+    free_card(torch)
+    with phase(torch, "29 wan i2v"):
+        launches["wan_i2v"] = wan_i2v_phase(torch, fa)
+    free_card(torch)
+    with phase(torch, "30 wan 2.2"):
+        launches["wan22"] = wan22_phase(torch, fa)
+    free_card(torch)
+    with phase(torch, "31 wan files"):
+        launches.update(wan_file_phases(torch, fa))
+    free_card(torch)
+    with phase(torch, "32 video-mmdit"):
+        launches["video_mmdit"] = video_mmdit_phase(torch, fa)
+    free_card(torch)
+    return launches
+
+
+# --- phase clock -------------------------------------------------------------
+
+
+# the running phase's peak allocated bytes before the last reset_peak
+PHASE_PEAK = {"bytes": 0}
+
+
+def reset_peak(torch) -> None:
+    """Reset the card's peak-memory counter for a request's own reading,
+    keeping the peak so far for the running phase's."""
+    PHASE_PEAK["bytes"] = max(PHASE_PEAK["bytes"],
+                              torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+class phase:
+    """Prints a phase's seconds and the card's peak allocated memory in it,
+    over every reset_peak inside it."""
+
+    def __init__(self, torch, name: str):
+        self.torch, self.name = torch, name
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        PHASE_PEAK["bytes"] = 0
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, *_):
+        self.torch.cuda.synchronize()
+        peak = max(PHASE_PEAK["bytes"], self.torch.cuda.max_memory_allocated())
+        say(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s, peak "
+            f"{peak / 2**30:.3f} GiB" + ("" if kind is None else " (failed)"))
+        return False
+
+
+def free_card(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+
+
 def main() -> int:
     if not (PACKAGE / "ops" / "csrc" / "flash_attention.cu").is_file():
         print(f"chip_smoke: {PACKAGE} not found beside this script",
@@ -4462,57 +5254,72 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         device = device_phase(torch)
-        build_phase(fa)
-        rows, errs = kernel_phase(torch, fa)
+        with phase(torch, "2 build"):
+            build_phase(fa)
+        with phase(torch, "3 kernels"):
+            rows, errs = kernel_phase(torch, fa)
         path_launches = {}
         allocated = torch.cuda.memory_allocated()
-        sdxl = path_phase(torch, fa, SDXL_PATH)
-        path_launches["sdxl"] = sdxl.launches
-        reference_phase(torch, fa, sdxl.bundle)
-        up = upscale_phase(torch, fa, sdxl)
-        path_launches["upscale"] = up.launches
-        upscale_reference_phase(torch, fa, sdxl, up)
-        up = up._replace(image=None)
-        control = control_phase(torch, fa, sdxl, up)
-        path_launches.update(control.launches)
-        path_launches["sd15"] = sd15_phase(torch, fa, sdxl.registry)
-        sd15_reference_phase(torch, fa, sdxl.registry.get("sd15"))
-        cn_tile = cn_tile_phase(torch, fa, sdxl.registry, up.input_dir)
-        path_launches["cn_upscale"] = cn_tile.launches
-        say("audio and video inputs:")
-        av = write_av_inputs(up.input_dir)
-        path_launches["audio"] = audio_phase(torch, fa, up.input_dir)
-        video = video_phase(torch, fa, sdxl.registry, up.input_dir,
-                            av["encode_540p_s"])
-        path_launches["video"] = video.launches
-        path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
-                                             cn_tile, video)
-        say("managed worker (phase 14b):")
-        path_launches["managed"] = managed_phase(torch, fa, sdxl)
+        with phase(torch, "4-5 sdxl"):
+            sdxl = path_phase(torch, fa, SDXL_PATH)
+            path_launches["sdxl"] = sdxl.launches
+            reference_phase(torch, fa, sdxl.bundle)
+        with phase(torch, "6-7 upscale"):
+            up = upscale_phase(torch, fa, sdxl)
+            path_launches["upscale"] = up.launches
+            upscale_reference_phase(torch, fa, sdxl, up)
+            up = up._replace(image=None)
+        with phase(torch, "8-10 img2img, inpaint, usdu + controlnet"):
+            control = control_phase(torch, fa, sdxl, up)
+            path_launches.update(control.launches)
+        with phase(torch, "11-12 sd15"):
+            path_launches["sd15"] = sd15_phase(torch, fa, sdxl.registry)
+            sd15_reference_phase(torch, fa, sdxl.registry.get("sd15"))
+        with phase(torch, "13 controlnet tile upscale"):
+            cn_tile = cn_tile_phase(torch, fa, sdxl.registry, up.input_dir)
+            path_launches["cn_upscale"] = cn_tile.launches
+        with phase(torch, "13a-13b audio and video"):
+            say("audio and video inputs:")
+            av = write_av_inputs(up.input_dir)
+            path_launches["audio"] = audio_phase(torch, fa, up.input_dir)
+            video = video_phase(torch, fa, sdxl.registry, up.input_dir,
+                                av["encode_540p_s"])
+            path_launches["video"] = video.launches
+        with phase(torch, "14 serve"):
+            path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
+                                                 cn_tile, video)
+        with phase(torch, "14b managed worker"):
+            path_launches["managed"] = managed_phase(torch, fa, sdxl)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
             f"master's shutdown and the sdxl path's end")
         require(left < 2**30, "the SDXL bundle outlived the master's shutdown")
         torch.cuda.empty_cache()
-        path_launches.update(checkpoint_phases(torch, fa))
-        flux = path_phase(torch, fa, FLUX_PATH)
-        path_launches["flux"], timings = flux.launches, flux.timings
-        path_launches["flux_dpmpp_2m"] = flux_sampler_phase(torch, fa,
-                                                            flux.bundle)
-        flux_reference_phase(torch, fa, flux.bundle)
-        images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
-        seconds = flux.seconds
-        holder = {"bundle": flux.bundle}
-        del flux
-        gc.collect()
-        path_launches.update(flux_file_phases(torch, fa, holder, seconds))
+        with phase(torch, "15-19 checkpoints"):
+            path_launches.update(checkpoint_phases(torch, fa))
+        with phase(torch, "20-21 flux"):
+            flux = path_phase(torch, fa, FLUX_PATH)
+            path_launches["flux"], timings = flux.launches, flux.timings
+            path_launches["flux_dpmpp_2m"] = flux_sampler_phase(torch, fa,
+                                                                flux.bundle)
+            flux_reference_phase(torch, fa, flux.bundle)
+            images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
+            seconds = flux.seconds
+            holder = {"bundle": flux.bundle}
+            del flux
+            gc.collect()
+        with phase(torch, "22-24 flux files"):
+            path_launches.update(flux_file_phases(torch, fa, holder, seconds))
         gc.collect()
         torch.cuda.empty_cache()
         say(f"flux serve: the direct bundle dropped, "
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
-        path_launches["serve_flux"] = flux_serve_phase(torch, fa, images,
-                                                       seconds)
+        with phase(torch, "25 flux serve"):
+            path_launches["serve_flux"] = flux_serve_phase(torch, fa, images,
+                                                           seconds)
+        free_card(torch)
+        path_launches.update(wan_phases(torch, fa))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4521,6 +5328,10 @@ def main() -> int:
     say(f"flux: K3 {k3['ms'] / 1e3:.3f} s per request of "
         f"{timings['sample_s']:.3f} s sampling "
         f"({k3['ms'] / 1e3 / timings['sample_s']:.1%})")
+    wan = k3["per_wan_request"]
+    say(f"wan: K3 {wan['ms'] / 1e3:.3f} s per t2v request (bound "
+        f"{wan['bound_ms'] / 1e3:.3f} s, library {wan['library_ms'] / 1e3:.3f} "
+        f"s, {wan['launches']} launches)")
     say(f"total {time.perf_counter() - t_start:.1f} s on {device['smi']}")
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

@@ -18,14 +18,17 @@ launched when it exits.
 Prints the controller's ``system_info`` (host facts and the card census)
 as JSON.
 
-    python -m comfyui_distributed_tpu_torch convert --preset sdxl|sd15|flux
+    python -m comfyui_distributed_tpu_torch convert
+        --preset sdxl|sd15|flux|wan|wan-i2v|wan-2.2-t2v
         --checkpoint FILE.safetensors --out DIR [--vae FILE]
-        [--t5 FILE --clip-l FILE] [--device D]
+        [--t5 FILE --clip-l FILE] [--checkpoint-low FILE] [--device D]
 
 Converts a published single-file checkpoint (for ``flux`` the BFL
-transformer, with its T5-XXL and CLIP-L files; optionally a standalone
-VAE, BFL's ``ae.safetensors`` for ``flux``) into the port's bundle
-format, ``DIR/state.pt`` and
+transformer, with its T5-XXL and CLIP-L files; for ``wan`` the WAN
+transformer with its UMT5-XXL file; for ``wan-2.2-t2v`` the high-noise
+expert, with the low-noise one as ``--checkpoint-low``; optionally a
+standalone VAE, BFL's ``ae.safetensors`` for ``flux``) into the port's
+bundle format, ``DIR/state.pt`` and
 ``DIR/cdt_manifest.json``; with ``DIR`` at ``<CDT_CHECKPOINT_ROOT>/<preset>``
 every controller restores it. Prints one JSON line (with the card's peak
 allocated bytes when it ran there).
@@ -106,21 +109,26 @@ def cmd_convert(args: argparse.Namespace) -> int:
         print(f"convert: {why}", file=sys.stderr)
         return 2
 
-    if args.checkpoint_low:
-        return refuse("--checkpoint-low (WAN 2.2's dual experts) is not "
-                      "ported yet (ROADMAP.md, item 15)")
     preset = PRESETS.get(args.preset)
-    if preset is None or (preset.clip is None and preset.kind != "dit"):
+    if preset is None or (preset.clip is None and preset.kind == "unet"):
         have = sorted(k for k, p in PRESETS.items()
-                      if p.clip is not None or p.kind == "dit")
+                      if p.clip is not None or p.kind != "unet")
         return refuse(f"preset {args.preset!r} has no single-file "
                       f"checkpoint layout; have {have}")
-    if (args.t5 or args.clip_l) and preset.clip != "flux":
-        return refuse("--t5 and --clip-l are FLUX's text-encoder files; "
-                      f"preset {args.preset!r} bundles its encoders in its "
-                      "single file")
-    files = [Path(f) for f in (args.checkpoint, args.t5, args.clip_l,
-                               args.vae) if f]
+    if preset.moe_boundary is not None and not args.checkpoint_low:
+        # before converting 28 GB: the low expert would stay unfilled
+        return refuse(f"preset {args.preset!r} is a dual-expert model: pass "
+                      "the low-noise transformer with --checkpoint-low")
+    if args.checkpoint_low and preset.moe_boundary is None:
+        return refuse(f"--checkpoint-low is for a dual-expert preset; "
+                      f"{args.preset!r} has one transformer")
+    if ((args.t5 and preset.clip not in ("flux", "umt5"))
+            or (args.clip_l and preset.clip != "flux")):
+        return refuse("--t5 and --clip-l are FLUX's text-encoder files "
+                      "(--t5 also WAN's UMT5-XXL); preset "
+                      f"{args.preset!r} takes no such file")
+    files = [Path(f) for f in (args.checkpoint, args.checkpoint_low, args.t5,
+                               args.clip_l, args.vae) if f]
     missing = [str(f) for f in files if not f.is_file()]
     if missing:
         return refuse(f"no such file: {missing}")
@@ -130,7 +138,11 @@ def cmd_convert(args: argparse.Namespace) -> int:
             device=args.device, empty_core=True)
     except RuntimeError as e:          # no card and no --device cpu
         return refuse(str(e))
-    bundle.load_safetensors_checkpoint(Path(args.checkpoint))
+    if args.checkpoint_low:
+        bundle.load_safetensors_moe(Path(args.checkpoint),
+                                    Path(args.checkpoint_low))
+    else:
+        bundle.load_safetensors_checkpoint(Path(args.checkpoint))
     if args.t5 or args.clip_l:
         bundle.load_text_encoder_files(
             t5=Path(args.t5) if args.t5 else None,
@@ -174,12 +186,13 @@ def main(argv: list[str] | None = None) -> int:
     conv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                       help="where the conversion runs (default: cuda)")
     conv.add_argument("--t5", default=None,
-                      help="FLUX's T5-XXL file (HF T5EncoderModel layout)")
+                      help="FLUX's T5-XXL or WAN's UMT5-XXL file (HF "
+                           "T5EncoderModel/UMT5EncoderModel layout)")
     conv.add_argument("--clip-l", dest="clip_l", default=None,
                       help="FLUX's CLIP-L file (HF text_model.* layout)")
     conv.add_argument("--checkpoint-low", dest="checkpoint_low", default=None,
-                      help="WAN 2.2's low-noise expert: not ported yet "
-                           "(item 15)")
+                      help="WAN 2.2's low-noise expert (--checkpoint is the "
+                           "high-noise one)")
     conv.set_defaults(fn=cmd_convert)
     args = p.parse_args(argv)
     return args.fn(args)

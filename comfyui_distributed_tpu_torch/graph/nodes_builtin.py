@@ -9,7 +9,9 @@ audio and video nodes (``LoadAudio``, ``SaveAudio``, ``AudioBatchDivider``,
 ``LoadVideo``, ``SaveVideo`` and their VHS aliases), the primitives, the
 remaining distributed nodes (``DistributedModelName``,
 ``ImageBatchDivider``), and the two the control plane injects
-(``DistributedEmptyImage``, ``PreviewImage``), with the JAX package's
+(``DistributedEmptyImage``, ``PreviewImage``), and the video samplers
+(``TPUTxt2Video``, ``TPUImg2Video``: WAN t2v and i2v, one video on the
+bundle's device, its frames as one IMAGE batch), with the JAX package's
 names and contracts.
 
 Graph value conventions, as in the JAX package: IMAGE = float32
@@ -758,6 +760,121 @@ class TPUFlowTxt2Img(NodeDef):
                                        pooled, progress_token=ps.token)
             ps.complete()
         return (images,)
+
+
+def _video_pooled_default(model, positive) -> torch.Tensor:
+    """The conditioning's pooled vector, else zeros of the transformer's
+    pooled width (WAN ignores it; any width satisfies its signature)."""
+    pooled = positive.get("pooled")
+    if pooled is None:
+        pipeline = model.pipeline
+        pooled = torch.zeros(
+            (1, getattr(pipeline.dit.config, "pooled_dim", 768)),
+            device=pipeline.device)
+    return pooled
+
+
+def _flatten_video_batch(videos: torch.Tensor) -> torch.Tensor:
+    """[B, F, H, W, 3] → the IMAGE batch [B·F, H, W, 3]
+    (``ImageBatchDivider`` splits it back per video)."""
+    return videos.reshape(-1, *videos.shape[2:])
+
+
+def _video_mode(mode: str) -> None:
+    """The JAX node's modes other than ``dp`` are refused, naming the
+    ROADMAP item that ports each."""
+    if mode == "sp":
+        raise ValidationError(
+            "mode='sp' (one video's frame blocks over several cards) is not "
+            "ported yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
+    if mode == "offload":
+        raise ValidationError(
+            "mode='offload' (fp8-resident experts) is not ported yet "
+            "(ROADMAP.md, item A.5: offload, 14)", field="mode")
+
+
+@register_node("TPUTxt2Video")
+class TPUTxt2Video(NodeDef):
+    """The text→video sampler node (WAN-class bundles; name kept for
+    workflow compatibility): one seeded video on the bundle's device
+    (``mode="dp"``), flattened into an IMAGE batch of its frames. The
+    frame count pads to 4n+1."""
+
+    INPUTS = {
+        "model": "MODEL", "positive": "CONDITIONING",
+        "seed": "INT", "frames": "INT", "steps": "INT",
+        "width": "INT", "height": "INT",
+    }
+    OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, positive, seed: int, frames: int, steps: int,
+                width: int, height: int, cfg: float = 1.0, shift=None,
+                mode: str = "dp", prompt_id: str = "",
+                progress_tracker=None, **_):
+        from ..diffusion.pipeline_video import VideoSpec
+        from ..diffusion.progress import total_calls
+
+        _video_mode(mode)
+        spec = VideoSpec(frames=int(frames), height=int(height),
+                         width=int(width), steps=int(steps),
+                         shift=3.0 if shift is None else float(shift),
+                         guidance_scale=float(cfg))
+        pooled = _video_pooled_default(model, positive)
+        with _ProgressScope(progress_tracker, prompt_id,
+                            total_calls(spec.sampler, spec.steps)) as ps:
+            videos = model.pipeline.generate(spec, int(seed),
+                                             positive["context"], pooled,
+                                             progress_token=ps.token)
+            ps.complete()
+        return (_flatten_video_batch(videos),)
+
+
+@register_node("TPUImg2Video")
+class TPUImg2Video(NodeDef):
+    """The image→video sampler node: the start image conditions every
+    model call through the causal VAE's latents and a first-frame mask
+    (WAN 2.2's latent concat), one seeded video on the bundle's device. A
+    t2v architecture (in_channels == out_channels) is refused."""
+
+    INPUTS = {
+        "model": "MODEL", "positive": "CONDITIONING", "image": "IMAGE",
+        "seed": "INT", "frames": "INT", "steps": "INT",
+    }
+    OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    RETURNS = ("IMAGE",)
+
+    def execute(self, model, positive, image, seed: int, frames: int,
+                steps: int, cfg: float = 1.0, shift=None, mode: str = "dp",
+                prompt_id: str = "", progress_tracker=None, **_):
+        from ..diffusion.pipeline_video import VideoSpec
+        from ..diffusion.progress import total_calls
+
+        image = torch.as_tensor(image)
+        if image.ndim == 3:
+            image = image[None]
+        dcfg = model.pipeline.dit.config
+        din = dcfg.in_channels
+        if din == getattr(dcfg, "out_channels", din):
+            raise ValidationError(
+                f"model {model.preset.name!r} is a t2v architecture "
+                "(in_channels == out_channels): i2v needs a preset with "
+                "latent-concat conditioning channels, e.g. 'wan-i2v'")
+        _video_mode(mode)
+        spec = VideoSpec(frames=int(frames), height=int(image.shape[1]),
+                         width=int(image.shape[2]), steps=int(steps),
+                         shift=3.0 if shift is None else float(shift),
+                         guidance_scale=float(cfg))
+        pooled = _video_pooled_default(model, positive)
+        with _ProgressScope(progress_tracker, prompt_id,
+                            total_calls(spec.sampler, spec.steps)) as ps:
+            videos = model.pipeline.generate_i2v(
+                spec, int(seed), image[:1], positive["context"], pooled,
+                progress_token=ps.token)
+            ps.complete()
+        return (_flatten_video_batch(videos),)
 
 
 @register_node("SaveImage")

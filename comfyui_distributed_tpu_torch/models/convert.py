@@ -15,7 +15,11 @@ Source layouts (key prefixes of the standard single-file
 - FLUX's files: the BFL transformer (``double_blocks.*``,
   ``single_blocks.*``, bare or under ``model.diffusion_model.``), T5 in
   the HF ``T5EncoderModel`` layout (``encoder.block.*``, ``shared``),
-  CLIP-L as bare ``text_model.*`` and BFL's ``ae.safetensors``.
+  CLIP-L as bare ``text_model.*`` and BFL's ``ae.safetensors``;
+- WAN's files: the official WAN t2v transformer (``blocks.N.*``, bare or
+  under ``model.diffusion_model.``; WAN 2.2's two experts one file
+  each) and UMT5-XXL in the HF ``UMT5EncoderModel`` layout (T5's walk
+  with a bias table per layer).
 
 The port's parameters are already in torch layout (``[out, in]``
 Linears, OIHW convolutions), so most of a walk is renaming. The real
@@ -36,8 +40,9 @@ transform), the LoRA key map of ``models/lora.py``; ``_Exporter`` inverts
 each transform to write a module back in the published layout (the
 tests and ``chip_smoke.py`` write synthetic checkpoints with it).
 
-SD3 and WAN files are detected and refused, each naming the item that
-ports it.
+SD3 files are detected and refused, naming the item that ports them;
+so is a WAN i2v file with image cross-attention (``k_img``, ``img_emb``),
+which neither package reads.
 """
 
 from __future__ import annotations
@@ -754,6 +759,81 @@ def export_flux(module: nn.Module, prefix: str = "") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# WAN transformer (official Wan2.x layout)
+# ---------------------------------------------------------------------------
+
+WAN_PREFIXED = "model.diffusion_model."          # ComfyUI single-file repack
+
+
+def _wan_layout(f, cfg, p: str) -> None:
+    """The official walk: ``patch_embedding``, ``{text,time}_embedding.{0,2}``,
+    ``time_projection.1``, ``blocks.N.{self_attn,cross_attn}.{q,k,v,o}``
+    with their full-width ``norm_q``/``norm_k``, ``blocks.N.norm3``,
+    ``blocks.N.ffn.{0,2}``, ``blocks.N.modulation``, ``head.head`` and
+    ``head.modulation``. The layouts agree: renaming only."""
+    f.linear(f"{p}patch_embedding", "patch_embedding")
+    f.linear(f"{p}text_embedding.0", "text_emb_0")
+    f.linear(f"{p}text_embedding.2", "text_emb_2")
+    f.linear(f"{p}time_embedding.0", "time_emb_0")
+    f.linear(f"{p}time_embedding.2", "time_emb_2")
+    f.linear(f"{p}time_projection.1", "time_proj_1")
+    for i in range(cfg.num_layers):
+        src, dst = f"{p}blocks.{i}", f"block_{i}"
+        f.put(f"{src}.modulation", f"{dst}.modulation")
+        for attn in ("self_attn", "cross_attn"):
+            for proj in ("q", "k", "v", "o"):
+                f.linear(f"{src}.{attn}.{proj}", f"{dst}.{attn}.{proj}")
+            for norm in ("norm_q", "norm_k"):
+                f.put(f"{src}.{attn}.{norm}.weight",
+                      f"{dst}.{attn}.{norm}.weight")
+        if cfg.cross_attn_norm:
+            f.norm(f"{src}.norm3", f"{dst}.norm3")
+        f.linear(f"{src}.ffn.0", f"{dst}.ffn_0")
+        f.linear(f"{src}.ffn.2", f"{dst}.ffn_2")
+    f.linear(f"{p}head.head", "head")
+    f.put(f"{p}head.modulation", "head_modulation")
+
+
+def wan_prefix_of(sd: Mapping[str, torch.Tensor]) -> str:
+    """``model.diffusion_model.`` for a single-file repack, else bare."""
+    return (WAN_PREFIXED if any(k.startswith(WAN_PREFIXED) for k in sd)
+            else "")
+
+
+def with_wan_depth_of(config, sd, prefix: str = ""):
+    """``config`` with the block count of the WAN file ``sd`` where it
+    differs (a file cut in depth); widths are never read from the file."""
+    layers = _blocks_under(sd, f"{prefix}blocks.")
+    if layers == config.num_layers:
+        return config
+    log(f"the WAN file has {layers} blocks; the config has "
+        f"{config.num_layers}: building the file's")
+    return dataclasses.replace(config, num_layers=layers)
+
+
+def convert_wan(sd: Mapping[str, torch.Tensor], module: nn.Module,
+                prefix: str = "") -> None:
+    """Official WAN t2v state dict (bare or under ``prefix``) →
+    ``wan.WanModel``, in place. An i2v file's image cross-attention
+    (``k_img``/``img_emb``) raises a targeted error; any key left over
+    under the prefix raises."""
+    if any(".k_img." in k or k.startswith(f"{prefix}img_emb.") for k in sd):
+        raise ConversionError(
+            "WAN i2v checkpoint (image-conditioned cross-attention) is not "
+            "yet supported: use a t2v checkpoint")
+    f = _Filler(sd, module)
+    _wan_layout(f, module.config, prefix)
+    f.finish(expect_prefix=prefix)
+
+
+def export_wan(module: nn.Module, prefix: str = "") -> dict:
+    """A ``WanModel`` in the official layout (views of its parameters)."""
+    e = _Exporter(module, prefix)
+    _wan_layout(e, module.config, "")
+    return e.out
+
+
+# ---------------------------------------------------------------------------
 # single-file checkpoint assembly
 # ---------------------------------------------------------------------------
 
@@ -771,8 +851,6 @@ FLUX_SINGLE_DIFFUSERS_HINT = "single_transformer_blocks."
 _NOT_PORTED = {
     "sd3": "SD3 MMDiT files are not ported yet (ROADMAP.md, item 13: SD3 "
            "presets)",
-    "wan": "WAN transformer files are not ported yet (ROADMAP.md, item 15: "
-           "video)",
 }
 
 
@@ -803,17 +881,31 @@ def detect_layout(sd: Mapping[str, torch.Tensor]) -> str:
     raise ConversionError("unrecognized checkpoint layout")
 
 
-def convert_checkpoint(path: Path, bundle) -> None:
+def convert_checkpoint(path: Path, bundle, expert: str = "high") -> None:
     """Fill a ``ModelBundle`` from a single-file checkpoint, in place: a
     UNet bundle (preset ``sdxl``/``sd15`` or one of their shape) with its
-    VAE and CLIP stack, or a DiT bundle's transformer from a FLUX file;
-    each tensor is shape-checked against the live module and copied onto
-    its device."""
+    VAE and CLIP stack, a DiT bundle's transformer from a FLUX file, or a
+    WAN bundle's transformer (``expert="low"``: a dual-expert bundle's
+    low-noise one) from a WAN file; each tensor is shape-checked against
+    the live module and copied onto its device."""
     with SafetensorsFile(path) as sd:
         layout = detect_layout(sd)
         log(f"converting {path} (layout: {layout})")
         if layout in _NOT_PORTED:
             raise ConversionError(_NOT_PORTED[layout])
+        if layout == "wan":
+            from .wan import WanConfig
+
+            if not isinstance(bundle.preset.video, WanConfig):
+                raise ConversionError(
+                    "a WAN transformer checkpoint needs a wan video preset; "
+                    f"{bundle.preset.name!r} is {bundle.kind!r}")
+            module = (bundle.pipeline.dit_low if expert == "low"
+                      else bundle.core)
+            convert_wan(sd, module, wan_prefix_of(sd))
+            log("WAN transformer converted; the VAE and the text encoder "
+                "keep their weights (load_text_encoder_files)")
+            return
         if layout == "flux":
             if bundle.kind != "dit":
                 raise ConversionError(

@@ -5,7 +5,8 @@ so each flax leaf maps to one PyTorch parameter by path, with these
 layout rules:
 
 - Dense ``kernel`` ``[in, out]`` → Linear ``weight`` ``[out, in]``;
-- Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW;
+- Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW, DHWIO → Conv3d
+  ``weight`` OIDHW;
 - LayerNorm/GroupNorm ``scale`` → ``weight``; Embed ``embedding`` →
   ``weight``; ``bias`` and bare parameters (``pos_emb``, the DiT's fp32
   ``q_scale``/``k_scale``) keep their name. The DiT's parameter-free
@@ -61,6 +62,9 @@ def _target(path: tuple, shape: tuple) -> tuple[str, tuple, str]:
     if name == "kernel" and len(shape) == 4:
         kh, kw, i, o = shape
         return ".".join(mods + ["weight"]), (o, i, kh, kw), "hwio"
+    if name == "kernel" and len(shape) == 5:
+        kd, kh, kw, i, o = shape
+        return ".".join(mods + ["weight"]), (o, i, kd, kh, kw), "dhwio"
     if name in ("scale", "embedding"):
         return ".".join(mods + ["weight"]), tuple(shape), ""
     return ".".join(mods + [name]), tuple(shape), ""
@@ -108,5 +112,7 @@ def load_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
             value = value.T
         elif transform == "hwio":
             value = value.transpose(3, 2, 0, 1)
+        elif transform == "dhwio":
+            value = value.transpose(4, 3, 0, 1, 2)
         params[name].copy_(torch.tensor(value))
     return module

@@ -205,12 +205,12 @@ _TRUNC = 0.87962566103423978    # std of a unit normal truncated to [-2, 2]
 @torch.no_grad()
 def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter in place with flax's default
-    distributions: lecun-normal (truncated at ±2σ) kernels of Linear and
-    Conv2d, zero biases, normal(1/√width) embeddings, unit/zero norms.
+    distributions: lecun-normal (truncated at ±2σ) kernels of Linear,
+    Conv2d and Conv3d, zero biases, normal(1/√width) embeddings, unit/zero norms.
     Parameters this function does not know (e.g. ``pos_emb``) are left to
     their module's own ``reset_parameters``-style hook ``flax_init``."""
     for sub in module.modules():
-        if isinstance(sub, (nn.Linear, nn.Conv2d)):
+        if isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             fan_in = sub.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC
             w = torch.empty(sub.weight.shape, dtype=torch.float32,

@@ -11,23 +11,39 @@ A name maps to an architecture preset and, under the registry's
 - ``<root>/<name>.safetensors``: a published single-file LDM checkpoint,
   converted on first load (``models/convert.py``) together with the
   preset's published CLIP stack (``models/clip.py``); for ``flux``, the
-  BFL transformer alone.
+  BFL transformer alone; for ``wan``/``wan-i2v``, the WAN transformer
+  alone (bare or under ``model.diffusion_model.``);
+- ``<root>/<name>.high.safetensors`` and ``<name>.low.safetensors``: the
+  two experts of a dual-expert preset (``wan-2.2-t2v``), both or
+  neither (one alone raises).
 
-FLUX's other files (T5-XXL, CLIP-L, ``ae.safetensors``) are converted by
-``load_text_encoder_files`` and ``load_vae_file``, in practice once, by
-``python -m comfyui_distributed_tpu_torch convert --preset flux
---checkpoint … --t5 … --clip-l … --vae …`` into ``<root>/flux/``. The
-``flux`` preset's text stack (``models/t5.py``, T5-XXL + CLIP-L, fp32)
-is built only to be filled: from a file or a converted bundle, never
-drawn at full width (4.76 B T5 parameters, 19 GB); without one the
-bundle encodes with the hash-tokenised ``TextEncoder``.
+FLUX's other files (T5-XXL, CLIP-L, ``ae.safetensors``) and WAN's UMT5-XXL
+are converted by ``load_text_encoder_files`` and ``load_vae_file``, in
+practice once, by ``python -m comfyui_distributed_tpu_torch convert
+--preset flux --checkpoint … --t5 … --clip-l … --vae …`` (``--preset wan
+--checkpoint … --t5 …``; ``--preset wan-2.2-t2v --checkpoint …
+--checkpoint-low …``) into ``<root>/<name>/``. The T5 stacks
+(``models/t5.py``, fp32) are built only to be filled: from a file or a
+converted bundle, never drawn at full width (T5-XXL 4.76 B parameters,
+UMT5-XXL 5.7 B); without one the bundle encodes with the hash-tokenised
+``TextEncoder``. WAN's 3D VAE has no published layout either package
+reads (``load_vae_file`` refuses it).
+
+Presets: ``sdxl``, ``sd15``, ``tiny``; ``flux``, ``flux-tiny``; the
+video presets ``wan`` (WAN 14B t2v, the 3D causal VAE), ``wan-i2v``
+(in_channels 36: noise, a 4-channel mask, the start image's latents),
+``wan-2.2-t2v`` (two WAN 14B experts split at sigma 0.875),
+``video-mmdit`` (the MMDiT over frames, hidden 5120, with the 16-channel
+image VAE per frame) and their test sizes ``wan-tiny`` (image VAE),
+``wan-tiny-3d``, ``wan-i2v-tiny`` and ``wan-2.2-tiny``.
 
 A file's depths decide the core's, read before it is built
 (``preset_for_checkpoint``): a UNet's middle depth (a published SD 1.5
 file has a middle transformer the JAX ``sd15`` preset lacks), a FLUX
-transformer's double and single block counts and T5's layers (a lighter
-variant, or a file cut in depth); a converted bundle's manifest records
-them. The JAX package builds the preset's depths and refuses such files.
+transformer's double and single block counts, a WAN transformer's blocks
+and T5's or UMT5's layers (a lighter variant, or a file cut in depth); a
+converted bundle's manifest records them. The JAX package builds the
+preset's depths and refuses such files.
 
 A bundle about to be filled from a checkpoint builds its denoiser on the
 ``meta`` device and then allocates it without drawing (``to_empty``), as
@@ -38,12 +54,14 @@ preset's dtype with flax's default distributions
 ``ModelBundle.load_from_jax``; its text encoder is then the
 hash-tokenised ``TextEncoder``.
 
-One departure from flax is deliberate: the JAX DiT zero-initialises its
-adaLN ``mod`` kernels and ``img_out``, so a randomly initialised JAX DiT
-has every gate at 0, every block is the identity and the velocity is
-exactly 0. The port draws those Linears lecun-normal like every other,
-so that a random-init FLUX image depends on every block and on its
-attention kernel.
+One departure from flax is deliberate: the JAX DiT (and ``VideoDiT``)
+zero-initialises its adaLN ``mod`` kernels and ``img_out``, so a
+randomly initialised JAX DiT has every gate at 0, every block is the
+identity and the velocity is exactly 0. The port draws those Linears
+lecun-normal like every other, so that a random-init FLUX image depends
+on every block and on its attention kernel. WAN zero-initialises
+nothing; a dual-expert bundle draws its low expert from a generator of
+its own (``parallel/rng.expert_seed``).
 """
 
 from __future__ import annotations
@@ -60,7 +78,8 @@ from torch import nn
 
 from ..diffusion.pipeline import Txt2ImgPipeline
 from ..diffusion.pipeline_flow import FlowPipeline
-from ..parallel.rng import seed_generator
+from ..diffusion.pipeline_video import VideoPipeline
+from ..parallel.rng import expert_seed, seed_generator
 from ..utils import constants
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.exceptions import ValidationError
@@ -70,13 +89,16 @@ from .controlnet import PRESETS as CONTROLNET_PRESETS
 from .controlnet import ControlNetBundle, init_controlnet
 from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
-from .t5 import FluxTextStack, T5Encoder
+from .t5 import FluxTextStack, T5Encoder, UMT5Conditioner
 from .layers import flax_init_
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
 from .unet import UNet2D, UNetConfig
 from .upscaler import PRESETS as UPSCALER_PRESETS
 from .upscaler import RRDBNet, UpscalerBundle
 from .vae import AutoencoderKL, VAEConfig
+from .video_dit import VideoDiT, VideoDiTConfig
+from .wan import WanConfig, WanModel
+from .wan_vae import WanVAE3D, WanVAEConfig
 
 STATE_FILE = "state.pt"
 MANIFEST = "cdt_manifest.json"
@@ -86,15 +108,26 @@ MANIFEST = "cdt_manifest.json"
 class ModelPreset:
     name: str
     unet: Optional[UNetConfig]
-    vae: VAEConfig
+    vae: Union[VAEConfig, WanVAEConfig]
     text: TextEncoderConfig
     dit: Optional[DiTConfig] = None       # flow (FLUX-class) models
-    # published text stack: "sdxl" | "clip-l" | "flux" (T5-XXL + CLIP-L)
+    # published text stack: "sdxl" | "clip-l" | "flux" (T5-XXL + CLIP-L) |
+    # "umt5" (WAN's UMT5-XXL)
     clip: Optional[str] = None
+    video: Union[WanConfig, VideoDiTConfig, None] = None   # t2v/i2v models
+    # WAN 2.2's dual experts: the sigma at which the high-noise expert
+    # hands over to the low-noise one (t2v 0.875); None = one expert
+    moe_boundary: Optional[float] = None
 
     @property
     def kind(self) -> str:
+        if self.video is not None:
+            return "video"
         return "dit" if self.dit is not None else "unet"
+
+
+# WAN's conditioning width: UMT5-XXL's 4096 (the hash encoder at random init)
+_WAN_TEXT = TextEncoderConfig(output_dim=4096, pooled_dim=768)
 
 
 PRESETS: dict[str, ModelPreset] = {
@@ -119,6 +152,36 @@ PRESETS: dict[str, ModelPreset] = {
         dit=DiTConfig.flux(), clip="flux"),
     "flux-tiny": ModelPreset("flux-tiny", None, VAEConfig.tiny(),
                              TextEncoderConfig.tiny(), dit=DiTConfig.tiny()),
+    # WAN t2v: 16-channel video latents from the 3D causal VAE (4× in time)
+    "wan": ModelPreset("wan", None, WanVAEConfig.wan(), _WAN_TEXT,
+                       video=WanConfig.wan_14b(), clip="umt5"),
+    "wan-tiny": ModelPreset("wan-tiny", None, VAEConfig.tiny(),
+                            TextEncoderConfig.tiny(), video=WanConfig.tiny()),
+    "wan-tiny-3d": ModelPreset("wan-tiny-3d", None, WanVAEConfig.tiny(),
+                               TextEncoderConfig.tiny(),
+                               video=WanConfig.tiny()),
+    # WAN i2v: in_channels 36 = 16 noise + 4 mask (one per compressed
+    # pixel frame) + 16 latents of the start image
+    "wan-i2v": ModelPreset(
+        "wan-i2v", None, WanVAEConfig.wan(), _WAN_TEXT,
+        video=dataclasses.replace(WanConfig.wan_14b(), in_channels=36),
+        clip="umt5"),
+    # 4 noise + 2 mask (2× temporal VAE) + 4 latents
+    "wan-i2v-tiny": ModelPreset("wan-i2v-tiny", None, WanVAEConfig.tiny(),
+                                TextEncoderConfig.tiny(),
+                                video=WanConfig.tiny(in_channels=10)),
+    # WAN 2.2 14B t2v: two WAN 14B experts, switched at sigma 0.875
+    "wan-2.2-t2v": ModelPreset("wan-2.2-t2v", None, WanVAEConfig.wan(),
+                               _WAN_TEXT, video=WanConfig.wan_14b(),
+                               clip="umt5", moe_boundary=0.875),
+    "wan-2.2-tiny": ModelPreset("wan-2.2-tiny", None, VAEConfig.tiny(),
+                                TextEncoderConfig.tiny(),
+                                video=WanConfig.tiny(), moe_boundary=0.875),
+    # the generic MMDiT over frames, with the image VAE per frame
+    "video-mmdit": ModelPreset(
+        "video-mmdit", None,
+        VAEConfig(latent_channels=16, scaling_factor=0.3611), _WAN_TEXT,
+        video=VideoDiTConfig.wan()),
 }
 
 
@@ -142,19 +205,22 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
 def preset_for_checkpoint(preset: ModelPreset,
                           ckpt: Optional[Path]) -> ModelPreset:
     """``preset`` with the depths of ``ckpt``, read before anything is
-    built: a UNet's middle depth, a DiT's double and single block counts.
-    From a converted bundle's manifest (``arch.middle_depth``,
-    ``depth``) or a single file's header (``convert.with_middle_of``,
-    ``convert.with_flux_depth_of``). Widths always come from the
-    preset."""
+    built: a UNet's middle depth, a DiT's double and single block counts,
+    a WAN transformer's blocks (a dual-expert pair: the high file's).
+    From a converted bundle's manifest (``arch.middle_depth``, ``depth``,
+    ``wan_layers``) or a single file's header (``convert.with_middle_of``,
+    ``convert.with_flux_depth_of``, ``convert.with_wan_depth_of``).
+    Widths always come from the preset."""
     if ckpt is None:
         return preset
     from ..utils.safetensors import SafetensorsFile
-    from .convert import (detect_layout, flux_prefix_of, with_flux_depth_of,
-                          with_middle_of)
+    from .convert import (detect_layout, flux_prefix_of, wan_prefix_of,
+                          with_flux_depth_of, with_middle_of,
+                          with_wan_depth_of)
 
     ckpt = Path(ckpt)
-    unet, dit = preset.unet, preset.dit
+    unet, dit, video = preset.unet, preset.dit, preset.video
+    wan = isinstance(video, WanConfig)
     if ckpt.is_dir():
         manifest = (json.loads((ckpt / MANIFEST).read_text())
                     if (ckpt / MANIFEST).is_file() else {})
@@ -165,15 +231,22 @@ def preset_for_checkpoint(preset: ModelPreset,
         if dit is not None and depth:
             dit = dataclasses.replace(dit, depth_double=depth["double"],
                                       depth_single=depth["single"])
+        if wan and manifest.get("wan_layers"):
+            video = dataclasses.replace(video,
+                                        num_layers=manifest["wan_layers"])
     else:
         with SafetensorsFile(ckpt) as sd:
             if unet is not None:
                 unet = with_middle_of(unet, sd)
-            elif detect_layout(sd) == "flux":
-                dit = with_flux_depth_of(dit, sd, flux_prefix_of(sd))
-    if (unet, dit) == (preset.unet, preset.dit):
+            else:
+                layout = detect_layout(sd)
+                if layout == "flux" and dit is not None:
+                    dit = with_flux_depth_of(dit, sd, flux_prefix_of(sd))
+                elif layout == "wan" and wan:
+                    video = with_wan_depth_of(video, sd, wan_prefix_of(sd))
+    if (unet, dit, video) == (preset.unet, preset.dit, preset.video):
         return preset
-    return dataclasses.replace(preset, unet=unet, dit=dit)
+    return dataclasses.replace(preset, unet=unet, dit=dit, video=video)
 
 
 def _weights_tag(source: Optional[Path], seed: int = 0) -> str:
@@ -189,9 +262,12 @@ def _weights_tag(source: Optional[Path], seed: int = 0) -> str:
 
 
 class ModelBundle:
-    """Loaded stack: the pipeline (UNet or DiT, and the VAE) and the text
-    encoder. A UNet bundle's VAE has its encoder too (the tile img2img
-    engine encodes); a DiT bundle's has the decoder only.
+    """Loaded stack: the pipeline (UNet, DiT or video transformer, and the
+    VAE) and the text encoder. A UNet bundle's VAE has its encoder too
+    (the tile img2img engine encodes), and so has the WAN 3D VAE (i2v
+    encodes the start image); a DiT bundle's and an image-VAE video
+    bundle's have the decoder only. A dual-expert bundle holds its low
+    expert beside the core (``pipeline.dit_low``).
 
     ``empty_core=True`` allocates the denoiser without drawing it, for a
     caller about to fill every parameter from a checkpoint."""
@@ -206,15 +282,34 @@ class ModelBundle:
         gen = seed_generator(seed, self.device)
         self.text_encoder = TextEncoder(
             _random(lambda: TextTransformer(preset.text), self.device, gen))
-        flow = preset.kind == "dit"
+        kind = preset.kind
 
         def build_core():
-            return DiT(preset.dit) if flow else UNet2D(preset.unet)
-        core = (_empty(build_core, self.device) if empty_core
-                else _random(build_core, self.device, gen))
-        vae = _random(lambda: AutoencoderKL(preset.vae, encoder=not flow),
-                      self.device, gen)
-        self.pipeline = (FlowPipeline if flow else Txt2ImgPipeline)(core, vae)
+            if kind == "video":
+                return (WanModel(preset.video)
+                        if isinstance(preset.video, WanConfig)
+                        else VideoDiT(preset.video))
+            return DiT(preset.dit) if kind == "dit" else UNet2D(preset.unet)
+
+        def core_from(generator: torch.Generator) -> nn.Module:
+            return (_empty(build_core, self.device) if empty_core
+                    else _random(build_core, self.device, generator))
+        core = core_from(gen)
+        if isinstance(preset.vae, WanVAEConfig):
+            vae = _random(lambda: WanVAE3D(preset.vae), self.device, gen)
+        else:
+            vae = _random(lambda: AutoencoderKL(preset.vae,
+                                                encoder=kind == "unet"),
+                          self.device, gen)
+        if kind == "video":
+            low = None
+            if preset.moe_boundary is not None:
+                low = core_from(seed_generator(expert_seed(seed, 1),
+                                               self.device))
+            self.pipeline = VideoPipeline(core, vae, low, preset.moe_boundary)
+        else:
+            self.pipeline = (FlowPipeline if kind == "dit"
+                             else Txt2ImgPipeline)(core, vae)
         self._stamp_text_encoder()
 
     @property
@@ -223,9 +318,10 @@ class ModelBundle:
 
     @property
     def core(self) -> nn.Module:
-        """The denoiser: the UNet, or the DiT of a flow model."""
-        return (self.pipeline.dit if self.preset.kind == "dit"
-                else self.pipeline.unet)
+        """The denoiser: the UNet, the DiT of a flow model, or the video
+        transformer (a dual-expert bundle's high-noise expert)."""
+        return (self.pipeline.unet if self.preset.kind == "unet"
+                else self.pipeline.dit)
 
     def _stamp_text_encoder(self) -> None:
         """The text encoder's identity (preset, stack, weights' provenance),
@@ -246,13 +342,14 @@ class ModelBundle:
                          empty_t5: Optional[bool] = None,
                          t5_layers: Optional[int] = None) -> nn.Module:
         """The preset's published text stack (CLIP-L, CLIP-L + CLIP-G for
-        ``sdxl``, T5 + CLIP-L for ``flux``), random-initialised from the
-        bundle's seed, or allocated without drawing (``empty``; for T5
-        alone ``empty_t5``) for weights about to be loaded; the bundle's
-        text encoder becomes its ``CLIPConditioner`` (the
-        ``FluxTextStack`` itself for ``flux``). ``tiny`` (default: the
-        preset's text encoder is under 256 wide) takes the test-size
-        towers; ``t5_layers`` sets T5's depth (a file's)."""
+        ``sdxl``, T5 + CLIP-L for ``flux``, UMT5 for ``umt5``),
+        random-initialised from the bundle's seed, or allocated without
+        drawing (``empty``; for T5 alone ``empty_t5``) for weights about to
+        be loaded; the bundle's text encoder becomes its
+        ``CLIPConditioner`` (the ``FluxTextStack`` or ``UMT5Conditioner``
+        itself for ``flux`` and ``umt5``). ``tiny`` (default: the preset's
+        text encoder is under 256 wide) takes the test-size towers;
+        ``t5_layers`` sets T5's depth (a file's)."""
         if self.clip_stack is not None:
             return self.clip_stack
         kind = self.preset.clip
@@ -269,6 +366,16 @@ class ModelBundle:
 
         def tower(cfg):
             return make(lambda: CLIPTextTransformer(cfg), empty)
+        if kind == "umt5":
+            cfg_t5 = UMT5Conditioner.config(tiny)
+            if t5_layers is not None:
+                cfg_t5 = dataclasses.replace(cfg_t5, num_layers=t5_layers)
+            t5 = make(lambda: T5Encoder(cfg_t5),
+                      empty if empty_t5 is None else empty_t5)
+            self.clip_stack = UMT5Conditioner(t5).eval()
+            self.text_encoder = self.clip_stack
+            self._stamp_text_encoder()
+            return self.clip_stack
         if kind == "flux":
             cfg_t5, cfg_l = FluxTextStack.configs(tiny)
             if t5_layers is not None:
@@ -294,6 +401,8 @@ class ModelBundle:
         state = {"core": self.core, "vae_dec": vae.decoder}
         if vae.encoder is not None:
             state["vae_enc"] = vae.encoder
+        if getattr(self.pipeline, "dit_low", None) is not None:
+            state["core_low"] = self.pipeline.dit_low
         if self.clip_stack is None:
             state["text"] = self.text_encoder.module
         elif self.preset.clip == "sdxl":
@@ -301,6 +410,8 @@ class ModelBundle:
             state["clip_g"] = self.clip_stack.clip_g
         elif self.preset.clip == "flux":
             state["clip_l"] = self.clip_stack.clip_l
+            state["t5"] = self.clip_stack.t5
+        elif self.preset.clip == "umt5":
             state["t5"] = self.clip_stack.t5
         else:
             state["clip_l"] = self.clip_stack
@@ -310,7 +421,7 @@ class ModelBundle:
         """Architecture facts that change what weights mean without
         changing their shapes (a RoPE ↔ sincos flip); saved with a bundle
         and checked when it is restored."""
-        core = self.preset.dit or self.preset.unet
+        core = self.preset.dit or self.preset.video or self.preset.unet
         fp: dict = {"kind": self.kind}
         for field in ("pos_embed", "rope_theta", "rope_axes_dim"):
             if hasattr(core, field):
@@ -328,14 +439,20 @@ class ModelBundle:
         entries = self._state_entries()
         torch.save({k: m.state_dict() for k, m in entries.items()},
                    ckpt / STATE_FILE)
-        tiny_clip = (self.clip_stack is not None
-                     and entries["clip_l"].config.width < 256)
+        if self.clip_stack is None:
+            tiny_clip = False
+        elif self.preset.clip == "umt5":
+            tiny_clip = entries["t5"].config.d_model < 256
+        else:
+            tiny_clip = entries["clip_l"].config.width < 256
         manifest = {"preset": self.preset.name, "format": "torch",
                     "entries": sorted(entries), "tiny_clip": tiny_clip,
                     "arch": self._arch_fingerprint()}
         if self.preset.dit is not None:
             manifest["depth"] = {"double": self.preset.dit.depth_double,
                                  "single": self.preset.dit.depth_single}
+        if isinstance(self.preset.video, WanConfig):
+            manifest["wan_layers"] = self.preset.video.num_layers
         if "t5" in entries:
             manifest["t5_layers"] = entries["t5"].config.num_layers
         (ckpt / MANIFEST).write_text(json.dumps(manifest))
@@ -367,7 +484,7 @@ class ModelBundle:
                 f"checkpoint {ckpt} was saved with architecture {saved_arch} "
                 f"but the preset resolves to {self._arch_fingerprint()}: "
                 "re-convert the checkpoint for this preset")
-        if "clip_l" in manifest.get("entries", ()):
+        if {"clip_l", "t5"} & set(manifest.get("entries", ())):
             self.build_clip_stack(tiny=bool(manifest.get("tiny_clip")),
                                   empty=True,
                                   t5_layers=manifest.get("t5_layers"))
@@ -386,32 +503,51 @@ class ModelBundle:
 
     def load_safetensors_checkpoint(self, path: Path) -> None:
         """Convert a published single-file checkpoint (SDXL or SD 1.5 LDM
-        layout, with the preset's CLIP stack; or a FLUX transformer) into
-        this bundle in place. A FLUX file carries no text encoder: its
-        stack is built by ``load_text_encoder_files`` only."""
+        layout, with the preset's CLIP stack; or a FLUX or WAN
+        transformer) into this bundle in place. A FLUX or WAN file carries
+        no text encoder: its stack is built by ``load_text_encoder_files``
+        only."""
         from .convert import convert_checkpoint
 
-        if self.preset.clip not in (None, "flux"):
+        if self.preset.clip not in (None, "flux", "umt5"):
             self.build_clip_stack()
         self._weights_source = Path(path)
         convert_checkpoint(path, self)
         self._stamp_text_encoder()
 
+    def load_safetensors_moe(self, high: Path, low: Path) -> None:
+        """Convert a WAN 2.2 dual-expert release: the high-noise
+        transformer file into the core, the low-noise one into
+        ``pipeline.dit_low`` (each shape-checked against the preset)."""
+        from .convert import convert_checkpoint
+
+        if self.preset.moe_boundary is None:
+            raise ValidationError(
+                f"preset {self.preset.name!r} is not a dual-expert model; "
+                "use load_safetensors_checkpoint for single-transformer "
+                "releases")
+        self._weights_source = Path(high)
+        convert_checkpoint(Path(high), self)
+        convert_checkpoint(Path(low), self, expert="low")
+        self._stamp_text_encoder()
+
     def load_text_encoder_files(self, t5: Optional[Path] = None,
                                 clip_l: Optional[Path] = None) -> None:
-        """Convert the text-encoder files a FLUX distribution ships
-        (``t5xxl_*.safetensors`` in the HF T5 layout, ``clip_l.safetensors``
-        as HF ``text_model.*``) into this bundle's ``FluxTextStack``,
-        built first where there is none (each tower given a file is
-        allocated without drawing)."""
+        """Convert the text-encoder files a FLUX or WAN distribution ships
+        (``t5xxl_*.safetensors`` or UMT5-XXL in the HF T5 layout,
+        ``clip_l.safetensors`` as HF ``text_model.*``) into this bundle's
+        ``FluxTextStack`` or ``UMT5Conditioner``, built first where there
+        is none (each tower given a file is allocated without drawing)."""
         from ..utils.safetensors import SafetensorsFile
         from .convert import convert_clip_hf, convert_t5, t5_layers_of
 
-        if self.preset.clip != "flux":
+        if self.preset.clip not in ("flux", "umt5"):
             raise ValidationError(
-                "separate text-encoder files are a flux-stack feature; "
-                f"preset {self.preset.name!r} bundles its encoders in the "
-                "single-file checkpoint")
+                "separate text-encoder files are a flux-stack feature (and "
+                f"the wan presets' UMT5); preset {self.preset.name!r} bundles "
+                "its encoders in the single-file checkpoint")
+        if clip_l is not None and self.preset.clip != "flux":
+            raise ValidationError("clip_l is part of the flux stack only")
         if self.clip_stack is None:
             layers = None
             if t5 is not None:
@@ -436,8 +572,12 @@ class ModelBundle:
         convs). A DiT bundle's VAE decodes only: the file's encoder is
         shape-checked and dropped (``convert.convert_vae``)."""
         from ..utils.safetensors import SafetensorsFile
-        from .convert import convert_vae
+        from .convert import ConversionError, convert_vae
 
+        if isinstance(self.preset.vae, WanVAEConfig):
+            raise ConversionError(
+                "WAN 3D-causal-VAE weights are not read (models/wan_vae.py); "
+                "--vae applies to image-VAE presets only")
         with SafetensorsFile(path) as sd:
             if any(k.startswith("first_stage_model.") for k in sd):
                 prefix, qc = "first_stage_model.", True
@@ -583,15 +723,30 @@ class ModelRegistry:
     def available(self) -> list[str]:
         return sorted(PRESETS)
 
-    def checkpoint_for(self, name: str) -> Optional[Path]:
-        """``<root>/<name>/`` (converted) or ``<root>/<name>.safetensors``,
-        whichever exists first, else None."""
+    def checkpoint_for(self, name: str) -> Union[Path, tuple, None]:
+        """``<root>/<name>/`` (converted), a dual-expert preset's
+        ``(<name>.high.safetensors, <name>.low.safetensors)`` or
+        ``<root>/<name>.safetensors``, whichever exists first, else None.
+        One expert's file without the other raises."""
         if self.checkpoint_root is None:
             return None
-        converted = self.checkpoint_root / name
-        single = self.checkpoint_root / f"{name}.safetensors"
+        root = self.checkpoint_root
+        converted = root / name
+        # not with_suffix: a dotted name ("wan-2.2-t2v") has no suffix
+        single = root / f"{name}.safetensors"
         if converted.is_dir():
             return converted
+        preset = PRESETS.get(name)
+        if preset is not None and preset.moe_boundary is not None:
+            hi = root / f"{name}.high.safetensors"
+            lo = root / f"{name}.low.safetensors"
+            if hi.is_file() and lo.is_file():
+                return hi, lo
+            if hi.is_file() or lo.is_file():
+                missing = lo if hi.is_file() else hi
+                raise ValidationError(
+                    f"dual-expert checkpoint incomplete: {missing} not found "
+                    "(need both .high.safetensors and .low.safetensors)")
         if single.is_file():
             return single
         return None
@@ -605,10 +760,14 @@ class ModelRegistry:
                         f"unknown model {name!r}; have {self.available()}")
                 t0 = time.perf_counter()
                 ckpt = self.checkpoint_for(name)
-                preset = preset_for_checkpoint(preset, ckpt)
+                pair = ckpt if isinstance(ckpt, tuple) else None
+                preset = preset_for_checkpoint(
+                    preset, pair[0] if pair else ckpt)
                 bundle = ModelBundle(preset, self.device, self.seed,
                                      empty_core=ckpt is not None)
-                if ckpt is not None and ckpt.is_dir():
+                if pair:
+                    bundle.load_safetensors_moe(*pair)
+                elif ckpt is not None and ckpt.is_dir():
                     bundle.load_checkpoint(ckpt)
                 elif ckpt is not None:
                     bundle.load_safetensors_checkpoint(ckpt)

@@ -14,6 +14,10 @@
   (``models/clip.py`` with the BPE tokenizer of ``models/tokenizer.py``),
   with ``encode``, ``token_signature`` and ``tokenization_mode`` like
   the other conditioners.
+- ``UMT5Conditioner``: WAN's conditioning, UMT5-XXL's last hidden states
+  (``T5Config.umt5_xxl``: 256 384 pieces, a bias table per layer, 512
+  tokens) and a zero pooled vector (WAN has no pooled input; the zeros
+  keep the conditioners' interface).
 
 Everything runs in fp32, as the JAX config's ``dtype`` says. T5's
 attention is an XLA einsum in the JAX package, not a Pallas kernel, so it
@@ -21,8 +25,8 @@ is plain PyTorch here (no kernel is owed). Attribute names follow the JAX
 parameter tree (``shared``, ``rel_bias``/``rel_bias_{i}``,
 ``ln_attn_{i}/weight``, ``attn_{i}/{q,k,v,o}``, ``ln_ff_{i}/weight``,
 ``ff_{i}/{wi_0,wi_1,wo}``, ``final_ln/weight``), so that
-``models/from_jax.py`` carries a JAX tree. ``UMT5Conditioner`` and
-``SD3TextStack`` are not ported (ROADMAP items 15b and 13).
+``models/from_jax.py`` carries a JAX tree. ``SD3TextStack`` is not
+ported (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -286,3 +290,53 @@ class FluxTextStack(nn.Module):
         ids, mask, toks = self._ids([str(t) for t in texts])
         context = self.t5(ids.to(dev), mask.to(dev))
         return context, self.clip_l(toks.to(dev))["pooled"]
+
+
+class UMT5Conditioner(nn.Module):
+    """WAN's conditioning: ``encode(texts)`` → (UMT5 last hidden states
+    [B, max_len, d_model], a zero pooled vector [B, ``pooled_dim``]) on
+    the encoder's device. The tokenizer comes from
+    ``CDT_T5_TOKENIZER_DIR``; without one the text is hash-tokenised and
+    a warning says so."""
+
+    def __init__(self, t5: T5Encoder, tok: Optional[T5Tokenizer] = None,
+                 pooled_dim: int = 768):
+        super().__init__()
+        self.t5 = t5
+        self.pooled_dim = pooled_dim
+        self.tok = tok if tok is not None else load_t5_tokenizer()
+        if self.tok is None:
+            log("WARNING: no T5 tokenizer (CDT_T5_TOKENIZER_DIR): the UMT5 "
+                "text is hash-tokenized; conditioning will not reflect the "
+                "prompt")
+
+    @staticmethod
+    def config(tiny: bool = False) -> T5Config:
+        return (T5Config.tiny(per_layer_rel_bias=True) if tiny
+                else T5Config.umt5_xxl())
+
+    @property
+    def device(self) -> torch.device:
+        return self.t5.device
+
+    def token_signature(self, texts) -> tuple[list, str]:
+        """(UMT5 ids and mask; the real-vs-hash mode)."""
+        ids, mask = t5_token_ids(self.t5.config, self.tok,
+                                 [str(t) for t in texts])
+        return ([ids.tolist(), mask.tolist()],
+                f"t5={'sp' if self.tok is not None else 'hash'}")
+
+    @property
+    def tokenization_mode(self) -> str:
+        return "sp" if self.tok is not None else "hash"
+
+    @torch.no_grad()
+    def encode(self, texts) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.tok is None:
+            count_hash_tokenization("t5")
+        texts = [str(t) for t in texts]
+        ids, mask = t5_token_ids(self.t5.config, self.tok, texts)
+        dev = self.device
+        context = self.t5(ids.to(dev), mask.to(dev))
+        return context, torch.zeros((len(texts), self.pooled_dim),
+                                    dtype=context.dtype, device=dev)

@@ -39,6 +39,13 @@ def tile_seed(seed: int, index: int) -> int:
     return _hash_seed("tile", seed, index)
 
 
+def expert_seed(seed: int, expert: int) -> int:
+    """The seed of a dual-expert bundle's expert ``expert`` (1: the
+    low-noise one) drawn at random init from ``seed`` (JAX folds 1 into
+    the model key)."""
+    return _hash_seed("expert", seed, expert)
+
+
 def step_seed(seed: int, draw: int) -> int:
     """The seed of a stochastic sampler's draw ``draw`` in a run seeded
     ``seed`` (a hash of both, unrelated to ``seed``'s own generator)."""

@@ -278,6 +278,25 @@ def tile_ready_polls() -> int:
     return _read("CDT_TILE_READY_POLLS", 120, int, lenient=True)
 
 
+# --- video VAE decode ------------------------------------------------------------
+
+
+def vae_tile_threshold() -> int:
+    """Latent frame area (h·w) past which a 3D VAE decode tiles spatially
+    (0 = always whole-frame)."""
+    return _read("CDT_VAE_TILE_THRESHOLD", 48 * 48, int)
+
+
+def vae_tile() -> int:
+    """Tile edge of the tiled VAE decode, in latent pixels."""
+    return _read("CDT_VAE_TILE", 32, int)
+
+
+def vae_tile_overlap() -> int:
+    """Overlap of neighbouring decode tiles, in latent pixels."""
+    return _read("CDT_VAE_TILE_OVERLAP", 8, int)
+
+
 # --- worker processes (workers/, the launcher's environment) -------------------
 # The standalone watchdog (workers/worker_monitor.py) reads CDT_MASTER_PID
 # (default 0: no master to watch), CDT_MONITOR_POLL (2.0 s) and

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device-time breakdown of one denoising forward of the PyTorch port on
-one NVIDIA card: FLUX's DiT, SDXL's UNet, or SDXL's UNet with a
-ControlNet.
+one NVIDIA card: FLUX's DiT, SDXL's UNet, SDXL's UNet with a ControlNet,
+or WAN 14B's transformer.
 
-    python3 scripts/profile_torch_flux.py [--model flux|sdxl|sdxl-controlnet] [--forwards 2] [--trace PATH]
+    python3 scripts/profile_torch_flux.py [--model flux|sdxl|sdxl-controlnet|wan] [--forwards 2] [--trace PATH]
 
 Builds the full-width ``flux`` or ``sdxl`` preset (random weights from
 seed 0) and runs one model forward at the shape of the model's workflow:
@@ -12,7 +12,9 @@ FLUX at 1024² (4096 image + 77 text tokens, batch 1,
 batch 2, ``workflows/distributed-txt2img.json``); ``sdxl-controlnet``
 runs the ``sdxl`` ControlNet (hint 1024², strength 0.8) before the
 UNet, as each step of ``chip_smoke.py``'s img2img + ControlNet graph
-does. It warms up, times
+does; ``wan`` runs WAN 14B at ``workflows/wan-t2v.json``'s shape with
+CFG (33 frames of 832×480: 9 latent frames of 60×104, 14 040 tokens,
+batch 2, the hash encoder's 77 context tokens). It warms up, times
 ``--forwards`` forwards untraced, then traces as many with
 ``torch.profiler`` (device activity only: tracing every host-side op
 slows the host enough to starve the card) and prints, per forward:
@@ -22,8 +24,9 @@ slows the host enough to starve the card) and prints, per forward:
 - device busy seconds (the union of kernel intervals in the trace) and
   the device's idle share of the untraced wall time;
 - device seconds by kernel class: the streamed attention core (FLUX:
-  every joint attention, K3; SDXL: K1's second launch), the short-key
-  attention kernel (SDXL: K2; both: the text encoder's K1 core), K1's
+  every joint attention, K3; SDXL: K1's second launch; WAN: the
+  self-attention, K3), the short-key attention kernel (SDXL: K2; WAN:
+  the cross-attention, K3; all: the text encoder's K1 core), K1's
   projection GEMM,
   convolutions (cuDNN), other matrix products (cuBLAS / CUTLASS
   kernels), and everything else (norms, modulation, RoPE, GELU, copies);
@@ -134,9 +137,39 @@ def sdxl_forward(torch, registry, control: bool = False):
     return forward, label
 
 
+def wan_forward(torch, registry):
+    """One WanModel forward of the WAN t2v workflow with CFG (the doubled
+    batch against a zero context); returns (forward, label)."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_video import VideoSpec
+
+    workflow = json.loads((ROOT / "workflows" / "wan-t2v.json").read_text())
+    node = workflow["4"]["inputs"]
+    bundle = registry.get("wan")
+    model = bundle.pipeline.dit
+    ctx, _ = bundle.text_encoder.encode([workflow["2"]["inputs"]["text"]])
+    ctx = torch.cat([ctx, torch.zeros_like(ctx)])
+    spec = VideoSpec(frames=node["frames"], height=node["height"],
+                     width=node["width"])
+    shape = bundle.pipeline.latent_shape(spec)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, *shape[1:], generator=gen, device="cuda")
+    t = torch.tensor([0.5, 0.5], device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model(x, t, ctx)
+
+    f, h, w = shape[1:4]
+    label = (f"wan forward at {node['frames']} frames of {node['width']}x"
+             f"{node['height']} with CFG (latent {tuple(x.shape)}: "
+             f"{f * h * w // 4} tokens, {ctx.shape[1]} text tokens)")
+    return forward, label
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("flux", "sdxl", "sdxl-controlnet"),
+    ap.add_argument("--model",
+                    choices=("flux", "sdxl", "sdxl-controlnet", "wan"),
                     default="flux")
     ap.add_argument("--forwards", type=int, default=2)
     ap.add_argument("--trace", default=None,
@@ -161,6 +194,8 @@ def main() -> int:
     registry = ModelRegistry("cuda", seed=0)
     if args.model == "flux":
         forward, label = flux_forward(torch, registry)
+    elif args.model == "wan":
+        forward, label = wan_forward(torch, registry)
     else:
         forward, label = sdxl_forward(torch, registry,
                                       control=args.model == "sdxl-controlnet")

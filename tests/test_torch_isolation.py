@@ -33,6 +33,10 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     assert {"comfyui_distributed_tpu_torch.graph.nodes_builtin",
             "comfyui_distributed_tpu_torch.models.dit",
+            "comfyui_distributed_tpu_torch.models.wan",
+            "comfyui_distributed_tpu_torch.models.wan_vae",
+            "comfyui_distributed_tpu_torch.models.video_dit",
+            "comfyui_distributed_tpu_torch.diffusion.pipeline_video",
             "comfyui_distributed_tpu_torch.diffusion.pipeline_flow",
             "comfyui_distributed_tpu_torch.api.app",
             "comfyui_distributed_tpu_torch.__main__",
