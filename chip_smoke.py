@@ -49,7 +49,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    streamed core), cross-attention over 77 hash tokens (the short-key
    kernel at D 128) and over UMT5's 512 (the streamed core, Nq ≠ Nk), and
    video-mmdit's joint attention at 7877 tokens, the plain version a batch
-   row and 8 heads at a time.
+   row and 8 heads at a time. Then SD3's joint attention at D 64 (batch
+   2): sd3-medium's on the packed layout (24 heads, H·D 1536) at 4173
+   tokens and at 4685 (T5's context from files), sd35-large's on the
+   one-head layout (38 heads, H·D 2432) at 4173, and at 4685 (a shape no
+   driven path gives: sd35-large from its files).
 4. sdxl path — the SDXL preset at full width (random weights from seed
    0) runs ``workflows/distributed-txt2img.json`` through the port's
    ``GraphExecutor`` as three requests (seed 7, 8, 7): images
@@ -379,9 +383,47 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    double + 1 single block, the t2v graph at 5 frames of 832×480 (the
    image VAE per frame: 7800 + 77 tokens) and 2 steps: 4 K1 and 4 K3.
 
+33. sd3-medium — the SD3 graph (no workflow file ships it):
+   ``CheckpointLoader`` → positive and negative ``CLIPTextEncode`` →
+   ``ModelSamplingSD3`` (shift 3.0) → ``TPUFlowTxt2Img`` (``dp``, 1024²,
+   28 euler steps, CFG 4.5 with the negative wired: cond and uncond in one
+   DiT call of batch 2 a step) → ``DistributedCollector`` → ``SaveImage``
+   on ``sd3-medium`` at full width and depth (2.0 B DiT, random init from
+   seed 0, the hash encoder at 4096/2048) at seeds 31, 32, 31: images
+   [1,1024,1024,3], finite, in [0,1], PNGs written, the repeat bitwise,
+   the seeds different, exactly 8 K1 and 24 × 28 = 672 K2 launches a
+   request, all K2 on the streamed core at [2, 4173, 24·64], and no call
+   of ``scaled_dot_product_attention``.
+34. sd3-medium reference — one DiT velocity at the path's shape (batch
+   2, 4173 tokens, full depth) through the kernels and with its attention
+   sites on the plain version: within 5e-2·max|plain|.
+35. sd35-large — the same graph on ``sd35-large`` (8.1 B, RMS qk-norm)
+   at seed 31 twice: exactly 8 K1 and 38 × 28 = 1064 K3 at [2·38, 4173,
+   64] a request, the repeat bitwise; then its reference velocity as in
+   phase 34 (K3's sites on the plain version).
+36. sd3 served — the graph on ``sd3-medium`` through ``POST
+   /distributed/queue`` to a master in this process (phase 33's bundle)
+   and a ``remote`` worker subprocess that builds its own: the master's
+   PNG bitwise the direct seed-31 image, the worker's the seed-32 one; the
+   master's launches 8 K1 + 672 K2, the worker's kernels counted from a
+   ``torch.profiler`` trace of its request.
+37. sd3 files — phase 33's DiT rounded through BF16 and made pre-only as
+   an SAI file holds it (``sd3_medium.safetensors`` at full depth, BF16,
+   under ``model.diffusion_model.``), CLIP-L (with its 768-wide
+   projection) and CLIP-G drawn on the card and written as F16
+   ``text_model.*``, T5-XXL cut to 2 layers as F8_E4M3, the CLIP
+   vocabulary and T5 ``tokenizer.json``; ``convert --preset sd3-medium
+   --checkpoint … --t5 … --clip-l …`` (the CLI's ``main`` in this
+   process) → ``state.pt`` → a fresh registry's restore, CLIP-G through
+   ``load_text_encoder_files(clip_g=…)`` (the CLI has no ``--clip-g``,
+   as JAX's): every parameter's digest the source's; the context [1,
+   589, 4096], pooled vector [1, 2048] and a velocity at 4685 tokens
+   bitwise the source's; one request from it: exactly 0 K1 and 672 K2 at
+   [2, 4685, 24·64].
+
 Each phase prints its seconds and the card's peak allocated memory; every
-bundle is dropped before the WAN phases, and each WAN bundle before the
-next is built.
+bundle is dropped before the WAN phases, each WAN bundle before the
+next is built, and every WAN bundle before the SD3 phases.
 
 The launch counters are set to 0 just before each path and read just
 after it. The second-to-last stdout line is the kernel table as JSON; the
@@ -390,6 +432,8 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -564,9 +608,13 @@ SD15_EDGES = [(b, nq, nk, 2, d) for d in (40, 80, 160) for b in (1, 2)
 HOPPER_KERNELS = {
     "fused_qkv_attention": ["qkv_projection_kernel", "flash_attention_kernel<64>",
                             "short_kv_attention_kernel<64,80> (77 text tokens)"],
-    "flash_attention_packed": ["short_kv_attention_kernel<64,80>"],
+    "flash_attention_packed": ["short_kv_attention_kernel<64,80>",
+                               "flash_attention_kernel<64> at packed strides "
+                               "(sd3-medium joint attention)"],
     "flash_attention_bh": ["flash_attention_kernel<128> (flux, wan, "
                            "video-mmdit)",
+                           "flash_attention_kernel<64> (sd35-large joint "
+                           "attention)",
                            "short_kv_attention_kernel<128,80> (wan "
                            "cross-attention over 77 tokens)",
                            "flash_attention_kernel<40>, <80>, <160> (sd15 "
@@ -652,6 +700,40 @@ WAN_K3_ROWS = ([("wan", s, n) for s, n in WAN_SHAPES]
                + [("wan_file", WAN_UMT5_SHAPE, WAN_STEPS * WAN_LAYERS),
                   ("video_mmdit", MMDIT_FORWARD_SHAPES[0][0],
                    MMDIT_STEPS * sum(MMDIT_CUT))])
+
+# SD3 (phases 33 to 37): the SD3 graph at 1024², 28 euler steps, true CFG
+# 4.5 (cond and uncond in one batch of 2), shift 3: 77 hash tokens + 4096
+# image tokens = 4173 in every joint attention, one DiT call a step.
+# sd3-medium: 24 joint blocks of 24 heads of 64 (H·D 1536, packed-legal:
+# K2 on the streamed core); sd35-large: 38 of 38 heads of 64 (H·D 2432,
+# past the packed layout's widest row: K3 at D 64). The hash encoder adds
+# 8 K1 a request (two prompts); from files T5's 512 tokens make the
+# context 77 + 512 (4685 tokens) and the towers are plain fp32 (no K1).
+SD3_STEPS, SD3_HW, SD3_CFG, SD3_SHIFT = 28, 1024, 4.5, 3.0
+SD3_TOKENS = 77 + (SD3_HW // 16) ** 2                             # 4173
+SD3_T5_TOKENS = 512
+SD3_FILE_TOKENS = SD3_TOKENS + SD3_T5_TOKENS                      # 4685
+SD3_K2_SHAPES = [((2, SD3_TOKENS, SD3_TOKENS, 24, 64), SD3_STEPS * 24)]
+SD35_K3_SHAPES = [((2, SD3_TOKENS, SD3_TOKENS, 38, 64), SD3_STEPS * 38)]
+SD3_FILE_SHAPES = [((2, SD3_FILE_TOKENS, SD3_FILE_TOKENS, 24, 64),
+                    SD3_STEPS * 24)]
+SD3_REQUEST = ({"fused_qkv_attention": 8, "flash_attention_packed": 672,
+                "flash_attention_bh": 0},
+               cuda_counts([(TEXT_SHAPE, 8)], SD3_K2_SHAPES))
+SD35_REQUEST = ({"fused_qkv_attention": 8, "flash_attention_packed": 0,
+                 "flash_attention_bh": 1064},
+                cuda_counts([(TEXT_SHAPE, 8)], SD35_K3_SHAPES))
+SD3_FILE_REQUEST = ({"fused_qkv_attention": 0, "flash_attention_packed": 672,
+                     "flash_attention_bh": 0},
+                    cuda_counts([], SD3_FILE_SHAPES))
+# the kernel phase's SD3 rows: (path, layout, shape, launches per request);
+# no phase drives sd35-large from its files, so its row times the shape
+# and counts no launch (a request from files would make 38 × 28)
+SD3_ROWS = [("sd3", "packed", *SD3_K2_SHAPES[0]),
+            ("sd3_file", "packed", *SD3_FILE_SHAPES[0]),
+            ("sd35", "bh", *SD35_K3_SHAPES[0]),
+            ("sd35_file", "bh", (2, SD3_FILE_TOKENS, SD3_FILE_TOKENS, 38, 64),
+             0)]
 
 class PathSpec(NamedTuple):
     """One workflow the script drives: its node ids, its seeds and the
@@ -979,6 +1061,18 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                       fa.flash_attention(q, k, v, layout="bh"), ref)
         errs["flash_attention_bh"] = max(errs["flash_attention_bh"], err)
         del q, k, v, ref
+    # SD3's joint attention at D 64: sd3-medium's on the packed layout
+    # (H·D 1536) past 128 keys, sd35-large's on the one-head layout (H·D
+    # 2432), at 4173 tokens and at 4685 (T5's context from files)
+    for _, layout, shape, _ in SD3_ROWS:
+        q, k, v = core_inputs(*shape)
+        ref = plain_by_row(fa, q, k, v)
+        key = f"flash_attention_{layout}"
+        fa.flash_attention(*core_inputs(*shape), layout=layout)
+        err = compare(torch, f"{key} {shape}",
+                      fa.flash_attention(q, k, v, layout=layout), ref)
+        errs[key] = max(errs[key], err)
+        del q, k, v, ref
 
     say("kernels: timing (CUDA events; ms per launch)")
     rows = []
@@ -1068,6 +1162,13 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                  lambda: plain_by_row(fa, q, k, v),
                  lambda: sdpa(q, k, v), path)
         del q, k, v
+    for path, layout, shape, n in SD3_ROWS:
+        q, k, v = core_inputs(*shape)
+        time_row(f"flash_attention_{layout}", shape, n, core_work(*shape),
+                 lambda: fa.flash_attention(q, k, v, layout=layout),
+                 lambda: plain_by_row(fa, q, k, v),
+                 lambda: sdpa(q, k, v), path)
+        del q, k, v
     return rows, errs
 
 
@@ -1115,7 +1216,8 @@ def kernel_table(rows: list[dict], errs: dict,
     sd15_file_request = [(shape, SD15_STEPS * n)
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
-              "flux_file", "wan", "wan_file", "video_mmdit")
+              "flux_file", "wan", "wan_file", "video_mmdit", "sd3", "sd3_file",
+              "sd35", "sd35_file")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1157,14 +1259,18 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_cn_upscale_request", at(name, CN_TILE_SHAPES)),
                 ("per_video_request", at(name, VIDEO_SHAPES)),
                 ("per_flux_file_request", at(name, FILE_BH_SHAPES)),
-                ("per_wan_request", at(name, WAN_SHAPES)))
+                ("per_wan_request", at(name, WAN_SHAPES)),
+                ("per_sd3_request", at(name, SD3_K2_SHAPES)),
+                ("per_sd3_file_request", at(name, SD3_FILE_SHAPES)),
+                ("per_sd35_request", at(name, SD35_K3_SHAPES)))
                if value is not None},
-            **({"k3_rows": [
+            **({{"flash_attention_bh": "k3_rows",
+                 "flash_attention_packed": "k2_rows"}[name]: [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}
-                for r in every if r["path"] in others]}
-               if name == "flash_attention_bh" else {}),
+                for r in every if r["path"] in others and r["path"] != "upscale"]}
+               if name != "fused_qkv_attention" else {}),
         })
     return out
 
@@ -2426,6 +2532,99 @@ def wait_history(base: str, prompt_id: str, t0: float, what: str) -> dict:
         time.sleep(0.05)
 
 
+class Served(NamedTuple):
+    """A master and its worker, as ``served_pair`` started them."""
+    master: object          # the master's Controller
+    base: str               # the master's URL
+    worker_base: str        # the worker's URL
+    worker_port: int
+    master_out: Path        # the master's output directory
+    log_path: Path          # the worker's log
+
+
+@contextlib.contextmanager
+def served_pair(torch, serve_dir: Path, what: str, worker_in: Path,
+                registry=None, master_env: dict | None = None,
+                worker_type: str = "remote", settings: dict | None = None):
+    """A worker subprocess (``start_worker``, input directory ``worker_in``,
+    its ``torch.profiler`` traces under ``serve_dir / "profiles"``) and a
+    master ``Controller`` in this process behind a ``ServerThread`` (its
+    outputs in ``serve_dir / "master_out"``, ``master_env`` set while it
+    is built) that lists the worker as ``worker_type``; yields a
+    ``Served``, then stops both and, if the block failed, prints the tail
+    of the worker's log."""
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)     # start_worker's config
+    serve_dir.mkdir(parents=True, exist_ok=True)
+    master_out = serve_dir / "master_out"
+    master_port, worker_port = free_port(), free_port()
+    (serve_dir / "master.json").write_text(json.dumps({
+        "master": {"host": "127.0.0.1", "port": master_port},
+        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
+                   "type": worker_type, "enabled": True}],
+        **({"settings": settings} if settings else {})}))
+    log_path = serve_dir / "worker.log"
+    worker = server = None
+    ok = False
+    os.environ["CDT_PROFILE_DIR"] = str(serve_dir / "profiles")
+    try:
+        reset_peak(torch)
+        worker = start_worker(worker_port, log_path, worker_in)
+        env = {"CDT_OUTPUT_DIR": str(master_out), **(master_env or {})}
+        os.environ.update(env)
+        try:
+            master = Controller(serve_dir / "master.json", device=DEVICE,
+                                model_registry=registry)
+        finally:
+            for key in env:
+                del os.environ[key]
+        server = ServerThread(master, port=master_port)
+        yield Served(master, f"http://127.0.0.1:{master_port}",
+                     f"http://127.0.0.1:{worker_port}", worker_port,
+                     master_out, log_path)
+        ok = True
+    finally:
+        os.environ.pop("CDT_PROFILE_DIR", None)
+        if server is not None:
+            server.stop()
+        if worker is not None:
+            stop_worker(worker)
+        if not ok and log_path.is_file():
+            tail = log_path.read_text(errors="replace").splitlines()[-40:]
+            print(f"chip_smoke: {what} worker log tail:\n" + "\n".join(tail),
+                  file=sys.stderr)
+
+
+def worker_peak(worker_base: str) -> int:
+    """The worker's peak device memory (``/distributed/system_info``), 0
+    when it does not say."""
+    status, info = http_json(worker_base + "/distributed/system_info")
+    return (info["devices"][0].get("max_memory_allocated", 0)
+            if status == 200 and info.get("devices") else 0)
+
+
+def served_request(fa, served: Served, prompt: dict,
+                   what: str) -> tuple[float, dict, dict]:
+    """``prompt`` through the master's ``POST /distributed/queue`` to one
+    worker, the worker traced (``trace_kernels``); returns the seconds
+    from the POST to the final history, the master's launches and the
+    worker's kernel events by name."""
+    stop_trace = trace_kernels(served.worker_base, what.replace(" ", "_"))
+    before = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    status, answer = http_json(served.base + "/distributed/queue",
+                               {"prompt": prompt}, timeout=120)
+    require(status == 200 and answer.get("worker_count") == 1,
+            f"{what}: queue answered {status}: {answer}")
+    entry = wait_history(served.base, answer["prompt_id"], t0, what)
+    secs = time.perf_counter() - t0
+    require(entry["status"] == "success", f"{what}: {entry}")
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    return secs, counts, stop_trace()
+
+
 def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
                 control: ControlRun, cn_tile: CnTileRun,
                 video: VideoRun) -> dict:
@@ -2438,9 +2637,7 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
     import shutil
     from unittest import mock
 
-    from comfyui_distributed_tpu_torch.api.app import ServerThread
     from comfyui_distributed_tpu_torch.cluster import orchestration
-    from comfyui_distributed_tpu_torch.cluster.controller import Controller
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.utils.frames import pack_frame
     from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
@@ -2448,15 +2645,8 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
     seed = SDXL_PATH.seeds[0]
     worker_seed = seed + 0 + 1          # seed + worker index + 1
     require(worker_seed in sdxl.images, "the sdxl path has no seed-8 image")
-    SERVE_DIR.mkdir(parents=True, exist_ok=True)
-    master_out = SERVE_DIR / "master_out"
-    master_port, worker_port = free_port(), free_port()
     # the worker shares no files with the master: its input directory
     # starts empty and the master syncs what a prompt reads
-    (SERVE_DIR / "master.json").write_text(json.dumps({
-        "master": {"host": "127.0.0.1", "port": master_port},
-        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
-                   "type": "remote", "enabled": True}]}))
     worker_in = SERVE_DIR / "worker_in"
     shutil.rmtree(worker_in, ignore_errors=True)
     worker_in.mkdir(parents=True)
@@ -2464,7 +2654,6 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
     prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
     want = {s: to_uint8(sdxl.images[s])[0] for s in (seed, worker_seed)}
-    log_path = SERVE_DIR / "worker.log"
     reports = []
     sync = orchestration.sync_host_media
 
@@ -2473,21 +2662,11 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         reports.append(out[1])
         return out
 
-    worker = server = None
-    ok = False
-    patch = mock.patch.object(orchestration, "sync_host_media", recording_sync)
-    patch.start()
-    try:
-        worker = start_worker(worker_port, log_path, worker_in)
-        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
-        os.environ["CDT_INPUT_DIR"] = str(up.input_dir)
-        try:
-            master = Controller(SERVE_DIR / "master.json", device="cuda",
-                                model_registry=sdxl.registry)
-        finally:
-            del os.environ["CDT_OUTPUT_DIR"], os.environ["CDT_INPUT_DIR"]
-        server = ServerThread(master, port=master_port)
-        base = f"http://127.0.0.1:{master_port}"
+    with mock.patch.object(orchestration, "sync_host_media", recording_sync), \
+            served_pair(torch, SERVE_DIR, "sdxl", worker_in,
+                        registry=sdxl.registry,
+                        master_env={"CDT_INPUT_DIR": str(up.input_dir)}) as served:
+        base, master, master_out = served.base, served.master, served.master_out
         fa.reset_launches()
         for i in range(2):
             for png in master_out.glob("*.png"):
@@ -2537,7 +2716,7 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         frame = pack_frame(got[1], level=1)
         say(f"  the worker's image on the wire: {len(frame)} frame bytes "
             f"(CDTF, zlib level 1) of {got[1].nbytes} raw")
-        serve_upscale(torch, fa, base, worker_port, master_out, up)
+        serve_upscale(torch, fa, base, served.worker_port, master_out, up)
         report = reports[-1]
         require((report.checked, report.uploaded, report.failed) == (1, 1, []),
                 f"served upscale: media sync {report}, expected 1 uploaded")
@@ -2560,18 +2739,7 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         fa.reset_launches()
         video_launches = serve_video(torch, fa, base, master_out, video,
                                      reports)
-        ok = True
-        return {k: launches[k] + video_launches[k] for k in launches}
-    finally:
-        patch.stop()
-        if server is not None:
-            server.stop()
-        if worker is not None:
-            stop_worker(worker)
-        if not ok and log_path.is_file():
-            tail = log_path.read_text(errors="replace").splitlines()[-40:]
-            print("chip_smoke: worker log tail:\n" + "\n".join(tail),
-                  file=sys.stderr)
+    return {k: launches[k] + video_launches[k] for k in launches}
 
 
 UPSCALE_HOLDBACK_S = 120.0   # the master waits this long for the worker's pull
@@ -2632,15 +2800,13 @@ def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
     got = to_uint8(decode_png(pngs[0].read_bytes()))[0]
     require(np_equal(got, up.image_u8),
             "the served upscale differs from the direct upscale")
-    status, info = http_json(f"http://127.0.0.1:{worker_port}/distributed/system_info")
-    worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
-                   if status == 200 and info.get("devices") else 0)
+    peak = worker_peak(f"http://127.0.0.1:{worker_port}")
     say(f"  served upscale: {secs:.3f} s (POST to final history; direct "
         f"{up.seconds[0]:.3f} / {up.seconds[1]:.3f} s); tile tasks "
         f"{dict(sorted(owners.items()))} (master {mine}, worker {theirs}); "
         f"master launches {counts}; PNG bitwise equal to the direct upscale; "
         f"peak memory master {master_peak / 2**30:.3f} GiB (this request), "
-        f"worker {worker_peak / 2**30:.3f} GiB (its process)")
+        f"worker {peak / 2**30:.3f} GiB (its process)")
 
 
 def serve_img2img(torch, fa, base: str, master_out: Path,
@@ -4348,96 +4514,68 @@ def flux_serve_phase(torch, fa, images: dict, direct_seconds: list) -> dict:
     served requests."""
     import secrets
 
-    from comfyui_distributed_tpu_torch.api.app import ServerThread
     from comfyui_distributed_tpu_torch.cluster import faults
-    from comfyui_distributed_tpu_torch.cluster.controller import Controller
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.utils.image import to_uint8
 
     seed = FLUX_PATH.seeds[0]
     want = {s: to_uint8(images[s])[0] for s in (seed, seed + 1)}
-    FLUX_SERVE_DIR.mkdir(parents=True, exist_ok=True)
-    master_out = FLUX_SERVE_DIR / "master_out"
-    master_port, worker_port = free_port(), free_port()
-    (FLUX_SERVE_DIR / "master.json").write_text(json.dumps({
-        "master": {"host": "127.0.0.1", "port": master_port},
-        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
-                   "type": "local", "enabled": True}],
-        "settings": {"websocket_orchestration": True}}))
     prompt = strip_meta(json.loads(
         (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
     prompt[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
     token = secrets.token_urlsafe(24)
-    log_path = FLUX_SERVE_DIR / "worker.log"
-    base = f"http://127.0.0.1:{master_port}"
-    worker = server = None
-    ok = False
     os.environ["CDT_AUTH_TOKEN"] = token
     try:
-        reset_peak(torch)
-        worker = start_worker(worker_port, log_path, UPSCALE_DIR / "input")
-        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
-        try:
-            master = Controller(FLUX_SERVE_DIR / "master.json", device="cuda")
-        finally:
-            del os.environ["CDT_OUTPUT_DIR"]
-        server = ServerThread(master, port=master_port)
-        status, answer = http_json(base + "/distributed/queue",
-                                   {"prompt": prompt})
-        require(status == 401, f"queue without the token answered {status}: "
-                               f"{answer}")
-        served: dict = {}
-        for i in range(2):
-            one = serve_flux_request(torch, fa, i, base, prompt, token,
-                                     master, master_out, log_path, want,
-                                     direct_seconds)
-            served = {k: served.get(k, 0) + n for k, n in one.items()}
-        master_peak = torch.cuda.max_memory_allocated()
-        status, info = http_json(
-            f"http://127.0.0.1:{worker_port}/distributed/system_info")
-        worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
-                       if status == 200 and info.get("devices") else 0)
-        say(f"  served flux: 401 without the token; peak memory master "
-            f"{master_peak / 2**30:.3f} GiB, worker "
-            f"{worker_peak / 2**30:.3f} GiB (each process, both requests)")
+        with served_pair(torch, FLUX_SERVE_DIR, "flux", UPSCALE_DIR / "input",
+                         worker_type="local",
+                         settings={"websocket_orchestration": True}) as served:
+            base, master_out = served.base, served.master_out
+            status, answer = http_json(base + "/distributed/queue",
+                                       {"prompt": prompt})
+            require(status == 401, f"queue without the token answered "
+                                   f"{status}: {answer}")
+            served_counts: dict = {}
+            for i in range(2):
+                one = serve_flux_request(torch, fa, i, base, prompt, token,
+                                         served.master, master_out,
+                                         served.log_path, want, direct_seconds)
+                served_counts = {k: served_counts.get(k, 0) + n
+                                 for k, n in one.items()}
+            master_peak = torch.cuda.max_memory_allocated()
+            peak = worker_peak(served.worker_base)
+            say(f"  served flux: 401 without the token; peak memory master "
+                f"{master_peak / 2**30:.3f} GiB, worker {peak / 2**30:.3f} "
+                "GiB (each process, both requests)")
 
-        for png in master_out.glob("*.png"):
-            png.unlink()
-        t0 = time.perf_counter()
-        status, answer = http_json(base + "/prompt", {"prompt": prompt},
-                                   token=token)
-        require(status == 200 and answer.get("prompt_id"),
-                f"/prompt answered {status}: {answer}")
-        pid = answer["prompt_id"]
-        steps, _, entry = poll_progress(base, pid, t0, "interrupted flux",
-                                        until_step=1)
-        require(not entry, f"the prompt ended before it was interrupted: {entry}")
-        status, answer = http_json(base + "/distributed/interrupt", {},
-                                   token=token)
-        require(status == 200 and answer.get("status") == "interrupted",
-                f"interrupt answered {status}: {answer}")
-        at = steps[-1]
-        entry = wait_history(base, pid, t0, "interrupted flux")
-        require(entry["status"] == "interrupted",
-                f"interrupted flux ended {entry}")
-        pngs = list(master_out.glob("*.png"))
-        require(not pngs, f"an interrupted prompt wrote {pngs}")
-        say(f"  interrupt: POST /distributed/interrupt at step {at} of "
-            f"{FLUX_STEPS} ({answer}); history interrupted after "
-            f"{time.perf_counter() - t0:.3f} s, no PNG written")
-        ok = True
-        return served
+            for png in master_out.glob("*.png"):
+                png.unlink()
+            t0 = time.perf_counter()
+            status, answer = http_json(base + "/prompt", {"prompt": prompt},
+                                       token=token)
+            require(status == 200 and answer.get("prompt_id"),
+                    f"/prompt answered {status}: {answer}")
+            pid = answer["prompt_id"]
+            steps, _, entry = poll_progress(base, pid, t0, "interrupted flux",
+                                            until_step=1)
+            require(not entry,
+                    f"the prompt ended before it was interrupted: {entry}")
+            status, answer = http_json(base + "/distributed/interrupt", {},
+                                       token=token)
+            require(status == 200 and answer.get("status") == "interrupted",
+                    f"interrupt answered {status}: {answer}")
+            at = steps[-1]
+            entry = wait_history(base, pid, t0, "interrupted flux")
+            require(entry["status"] == "interrupted",
+                    f"interrupted flux ended {entry}")
+            pngs = list(master_out.glob("*.png"))
+            require(not pngs, f"an interrupted prompt wrote {pngs}")
+            say(f"  interrupt: POST /distributed/interrupt at step {at} of "
+                f"{FLUX_STEPS} ({answer}); history interrupted after "
+                f"{time.perf_counter() - t0:.3f} s, no PNG written")
+        return served_counts
     finally:
         faults.deactivate()
         del os.environ["CDT_AUTH_TOKEN"]
-        if server is not None:
-            server.stop()
-        if worker is not None:
-            stop_worker(worker)
-        if not ok and log_path.is_file():
-            tail = log_path.read_text(errors="replace").splitlines()[-40:]
-            print("chip_smoke: flux worker log tail:\n" + "\n".join(tail),
-                  file=sys.stderr)
 
 
 def np_equal(a, b) -> bool:
@@ -4757,22 +4895,10 @@ def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
     request (``/distributed/profile/start|stop`` on the worker)."""
     from unittest import mock
 
-    from comfyui_distributed_tpu_torch.api.app import ServerThread
-    from comfyui_distributed_tpu_torch.cluster.controller import Controller
     from comfyui_distributed_tpu_torch.graph import nodes_builtin
     from comfyui_distributed_tpu_torch.utils.image import to_uint8
 
-    SERVE_DIR.mkdir(parents=True, exist_ok=True)
-    WAN_SERVE_DIR.mkdir(parents=True, exist_ok=True)
-    master_out = WAN_SERVE_DIR / "master_out"
-    master_port, worker_port = free_port(), free_port()
-    (WAN_SERVE_DIR / "master.json").write_text(json.dumps({
-        "master": {"host": "127.0.0.1", "port": master_port},
-        "hosts": [{"id": "w0", "address": f"http://127.0.0.1:{worker_port}",
-                   "type": "remote", "enabled": True}]}))
     prompt = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
-    log_path = WAN_SERVE_DIR / "worker.log"
-    worker_base = f"http://127.0.0.1:{worker_port}"
     seen = []
     divide = nodes_builtin.ImageBatchDivider.execute
 
@@ -4780,40 +4906,14 @@ def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
         seen.append(images)
         return divide(self, images, *a, **kw)
 
-    worker = server = None
-    ok = False
-    os.environ["CDT_PROFILE_DIR"] = str(WAN_SERVE_DIR / "profiles")
-    try:
-        reset_peak(torch)
-        worker = start_worker(worker_port, log_path,
-                              WAN_SERVE_DIR / "worker_in")
-        os.environ["CDT_OUTPUT_DIR"] = str(master_out)
-        try:
-            master = Controller(WAN_SERVE_DIR / "master.json", device=DEVICE,
-                                model_registry=t2v.registry)
-        finally:
-            del os.environ["CDT_OUTPUT_DIR"]
-        server = ServerThread(master, port=master_port)
-        stop_trace = trace_kernels(worker_base, "wan_served")
-        before = dict(fa.LAUNCHES)
-        t0 = time.perf_counter()
+    with served_pair(torch, WAN_SERVE_DIR, "wan", WAN_SERVE_DIR / "worker_in",
+                     registry=t2v.registry) as served:
         with mock.patch.object(nodes_builtin.ImageBatchDivider, "execute",
                                recording):
-            status, answer = http_json(f"http://127.0.0.1:{master_port}"
-                                       "/distributed/queue", {"prompt": prompt},
-                                       timeout=120)
-            require(status == 200 and answer.get("worker_count") == 1,
-                    f"queue answered {status}: {answer}")
-            entry = wait_history(f"http://127.0.0.1:{master_port}",
-                                 answer["prompt_id"], t0, "served wan")
-        secs = time.perf_counter() - t0
-        require(entry["status"] == "success", f"served wan: {entry}")
-        counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
-        kernels = stop_trace()
+            secs, counts, kernels = served_request(fa, served, prompt,
+                                                   "served wan")
         master_peak = torch.cuda.max_memory_allocated()
-        status, info = http_json(worker_base + "/distributed/system_info")
-        worker_peak = (info["devices"][0].get("max_memory_allocated", 0)
-                       if status == 200 and info.get("devices") else 0)
+        peak = worker_peak(served.worker_base)
         want_cuda = WAN_SERVED[1]
         worker_k3 = (kernels.get("flash_attention_kernel", 0)
                      + kernels.get("short_kv_attention_kernel", 0)
@@ -4822,8 +4922,7 @@ def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
             f"(POST to final history; direct {t2v.seconds:.3f} s at "
             f"{WAN_STEPS} steps); master launches {counts}; worker kernels "
             f"(profiled) {kernels}; peak memory master "
-            f"{master_peak / 2**30:.3f} GiB, worker {worker_peak / 2**30:.3f} "
-            "GiB")
+            f"{master_peak / 2**30:.3f} GiB, worker {peak / 2**30:.3f} GiB")
         require(counts == WAN_SERVED[0],
                 f"served wan: master launches {counts} != {WAN_SERVED[0]}")
         require(kernels.get(K1_EVENT) == want_cuda["qkv_projection"]
@@ -4843,22 +4942,11 @@ def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
                          t2v.frames[WAN_SEED + 1]),
                 "served wan: the worker's video differs from the direct "
                 f"seed-{WAN_SEED + 1} video")
-        check_mp4s(master_out, "wan", (WAN_FRAMES, WAN_FRAMES))
+        check_mp4s(served.master_out, "wan", (WAN_FRAMES, WAN_FRAMES))
         say(f"  wan_v0 bitwise the direct seed-{WAN_SEED} video, wan_v1 the "
             f"seed-{WAN_SEED + 1} video (8-bit frames); the worker ran "
             f"{worker_k3} K3 launches; both mp4s {WAN_FRAMES} frames")
-        ok = True
-        return counts
-    finally:
-        os.environ.pop("CDT_PROFILE_DIR", None)
-        if server is not None:
-            server.stop()
-        if worker is not None:
-            stop_worker(worker)
-        if not ok and log_path.is_file():
-            tail = log_path.read_text(errors="replace").splitlines()[-40:]
-            print("chip_smoke: wan worker log tail:\n" + "\n".join(tail),
-                  file=sys.stderr)
+    return counts
 
 
 def trace_kernels(base: str, out: str):
@@ -5191,6 +5279,408 @@ def wan_phases(torch, fa) -> dict:
     return launches
 
 
+# --- phases 33 to 37: SD3 ----------------------------------------------------
+
+SD3_DIR = OUTPUT_DIR / "sd3"
+SD3_SERVE_DIR = OUTPUT_DIR / "serve_sd3"
+SD3_SEED = 31                # the graph's seed (the served worker's is 32)
+SD3_FILE_SEED = 33           # the CLIP-L, CLIP-G and T5 drawn for the files
+SD3_T5_CUT = 2               # T5-XXL layers in the files (the write cap)
+SD3_POSITIVE = "a cinematic photo of a lighthouse at dawn, crashing waves"
+SD3_NEGATIVE = "blurry, low quality, watermark"
+
+
+def sd3_workflow(ckpt: str, seed: int = SD3_SEED) -> dict:
+    """The SD3 txt2img graph (no workflow file ships it): ``CheckpointLoader``
+    → positive and negative ``CLIPTextEncode`` → ``ModelSamplingSD3`` (shift
+    3.0) → ``TPUFlowTxt2Img`` (``dp``, 1024², 28 euler steps, CFG 4.5, the
+    negative wired; the seed through ``DistributedSeed``) →
+    ``DistributedCollector`` → ``SaveImage``."""
+    sampler = {"model": ["4", 0], "positive": ["2", 0], "negative": ["3", 0],
+               "seed": ["5", 0], "steps": SD3_STEPS, "width": SD3_HW,
+               "height": SD3_HW, "cfg": SD3_CFG, "mode": "dp"}
+    return {
+        "1": {"class_type": "CheckpointLoader", "inputs": {"ckpt_name": ckpt}},
+        "2": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": SD3_POSITIVE, "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": SD3_NEGATIVE, "clip": ["1", 1]}},
+        "4": {"class_type": "ModelSamplingSD3",
+              "inputs": {"model": ["1", 0], "shift": SD3_SHIFT}},
+        "5": {"class_type": "DistributedSeed", "inputs": {"seed": seed}},
+        "6": {"class_type": "TPUFlowTxt2Img", "inputs": sampler},
+        "7": {"class_type": "DistributedCollector", "inputs": {"images": ["6", 0]}},
+        "8": {"class_type": "SaveImage",
+              "inputs": {"images": ["7", 0], "filename_prefix": "sd3"}},
+    }
+
+
+def sd3_bundle(torch, registry, name: str):
+    t0 = time.perf_counter()
+    bundle = registry.get(name)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in bundle.core.parameters())
+    say(f"  {name} bundle built in {time.perf_counter() - t0:.2f} s ({n / 1e9:.3f}"
+        f" B DiT params, {n} exactly; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated)")
+    return bundle
+
+
+def sd3_requests(torch, fa, registry, name: str, seeds: tuple, want: tuple,
+                 out_dir: Path) -> tuple:
+    """The SD3 graph on ``name`` once per seed: each request's launches per
+    wrapper and per CUDA kernel must be ``want``; returns (the images, the
+    PNG bytes, the seconds, the launches of the run)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(out_dir)})
+    bundle = registry.get(name)
+    fa.reset_launches()
+    images, pngs, seconds = [], [], []
+    sdpa = mock.Mock(wraps=F.scaled_dot_product_attention)
+    for seed in seeds:
+        png = out_dir / "sd3_00000.png"
+        png.unlink(missing_ok=True)
+        reset_peak(torch)
+        with mock.patch.object(F, "scaled_dot_product_attention", sdpa):
+            img, secs, _ = run_counted(torch, fa, executor,
+                                       sd3_workflow(name, seed), "6", want,
+                                       f"{name} seed {seed}", (SD3_HW, SD3_HW))
+        require(sdpa.call_count == 0,
+                f"{name}: {sdpa.call_count} scaled_dot_product_attention calls")
+        t = bundle.pipeline.timings
+        require(png.is_file() and png_size(png) == (SD3_HW, SD3_HW),
+                f"{png} missing or not {SD3_HW}x{SD3_HW}")
+        say(f"  {name} seed {seed}: {secs:.3f} s; sampling {t['sample_s']:.3f} "
+            f"s = {t['sample_s'] / t['steps']:.4f} s/step over {t['steps']} "
+            f"steps (CFG batch 2); decode {t['decode_s']:.3f} s; launches "
+            f"{want[0]}, CUDA kernels {want[1]}, SDPA calls 0; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        images.append(img)
+        pngs.append(png.read_bytes())
+        seconds.append(secs)
+    return images, pngs, seconds, dict(fa.LAUNCHES)
+
+
+class Sd3Run(NamedTuple):
+    registry: object        # holding sd3-medium
+    pngs: dict              # seed → PNG bytes of its direct request
+    seconds: list
+
+
+def sd3_medium_phase(torch, fa) -> tuple:
+    """Phase 33: the SD3 graph on ``sd3-medium`` at full width and depth
+    (random init from seed 0) at seeds 31, 32, 31: 8 K1 (the hash encoder,
+    two prompts) and 24 × 28 = 672 K2 on the streamed core at [2, 4173,
+    24·64] a request; the repeat bitwise, the seeds different."""
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    registry = ModelRegistry(DEVICE, seed=0)
+    sd3_bundle(torch, registry, "sd3-medium")
+    seeds = (SD3_SEED, SD3_SEED + 1, SD3_SEED)
+    images, pngs, seconds, launches = sd3_requests(
+        torch, fa, registry, "sd3-medium", seeds, SD3_REQUEST, SD3_DIR / "medium")
+    require(torch.equal(images[0], images[2]),
+            f"sd3-medium: seed {SD3_SEED} twice gave different images")
+    require(not torch.equal(images[0], images[1]),
+            f"sd3-medium: seeds {SD3_SEED} and {SD3_SEED + 1} gave one image")
+    say(f"  sd3-medium: seed {SD3_SEED} repeatable, seed {SD3_SEED + 1} differs")
+    return Sd3Run(registry, {SD3_SEED: pngs[0], SD3_SEED + 1: pngs[1]},
+                  seconds), launches
+
+
+def sd3_reference(torch, fa, bundle, what: str, wrapper: str) -> None:
+    """One DiT velocity at the path's shape (1024², CFG batch 2, 77 context
+    tokens: 4173 in each joint attention) through the kernels and with
+    its attention sites on the plain version."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.models import dit as dit_module
+
+    model = bundle.core
+    cfg = model.config
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, SD3_HW // 8, SD3_HW // 8, cfg.in_channels,
+                    generator=gen, device=dev)
+    t = torch.tensor([0.6, 0.6], device=dev)
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=gen, device=dev)
+    pooled = torch.randn(2, cfg.pooled_dim, generator=gen, device=dev)
+    before = fa.LAUNCHES[wrapper]
+    with torch.no_grad():
+        v = model(x, t, ctx, pooled)
+        sites = fa.LAUNCHES[wrapper] - before
+        with mock.patch.object(dit_module, "full_attention",
+                               fa.flash_attention_plain):
+            ref = model(x, t, ctx, pooled)
+    require(sites == cfg.depth_double,
+            f"{what} reference: {sites} {wrapper} launches per forward")
+    require(ref.abs().max().item() > 1e-3, f"{what} reference: the velocity is 0")
+    compare_whole(torch, f"{what} reference: DiT velocity at {SD3_HW}² "
+                  f"({SD3_TOKENS} tokens, batch 2, full depth)", v, ref)
+
+
+def sd35_phase(torch, fa) -> dict:
+    """Phase 35: the SD3 graph on ``sd35-large`` (38 joint blocks of 38
+    heads of 64: H·D 2432, past the packed layout's widest row) at seed 31
+    twice: 8 K1 and 38 × 28 = 1064 K3 at [2·38, 4173, 64] a request, the
+    repeat bitwise; then its reference forward."""
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    registry = ModelRegistry(DEVICE, seed=0)
+    bundle = sd3_bundle(torch, registry, "sd35-large")
+    images, _, seconds, launches = sd3_requests(
+        torch, fa, registry, "sd35-large", (SD3_SEED, SD3_SEED), SD35_REQUEST,
+        SD3_DIR / "large")
+    require(torch.equal(images[0], images[1]),
+            f"sd35-large: seed {SD3_SEED} twice gave different images")
+    say(f"  sd35-large: seed {SD3_SEED} repeatable; requests "
+        f"{[round(s, 3) for s in seconds]} s")
+    sd3_reference(torch, fa, bundle, "sd35-large", "flash_attention_bh")
+    return launches
+
+
+def sd3_serve_phase(torch, fa, run: Sd3Run) -> dict:
+    """Phase 36: the SD3 graph on ``sd3-medium`` through ``POST
+    /distributed/queue`` to a master in this process (phase 33's bundle)
+    and a ``remote`` worker subprocess that builds its own: the master's
+    PNG bitwise the direct seed-31 image, the worker's the seed-32 one;
+    the master's launches 8 K1 + 672 K2, the worker's kernels counted from
+    a ``torch.profiler`` trace of its request."""
+    with served_pair(torch, SD3_SERVE_DIR, "sd3", SD3_SERVE_DIR / "worker_in",
+                     registry=run.registry) as served:
+        secs, counts, kernels = served_request(
+            fa, served, sd3_workflow("sd3-medium"), "served sd3")
+        want = SD3_REQUEST[1]
+        say(f"  served sd3-medium: {secs:.3f} s (POST to final history; direct "
+            f"{[round(s, 3) for s in run.seconds]} s); master launches "
+            f"{counts}; worker kernels (profiled) {kernels}; peak memory "
+            f"master {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+            f"worker {worker_peak(served.worker_base) / 2**30:.3f} GiB")
+        require(counts == SD3_REQUEST[0],
+                f"served sd3: master launches {counts} != {SD3_REQUEST[0]}")
+        require(kernels.get(K1_EVENT) == want["qkv_projection"]
+                and kernels.get("flash_attention_kernel")
+                == want["flash_attention_core"]
+                and kernels.get("short_kv_attention_kernel")
+                == want["short_kv_attention"],
+                f"served sd3: the worker's kernels {kernels} != {want}")
+        for k, seed in enumerate((SD3_SEED, SD3_SEED + 1)):
+            png = served.master_out / f"sd3_0000{k}.png"
+            require(png.is_file() and png.read_bytes() == run.pngs[seed],
+                    f"served sd3: {png.name} is not the direct seed-{seed} "
+                    "image")
+        say(f"  sd3_00000.png bitwise the direct seed-{SD3_SEED} image, "
+            f"sd3_00001.png the seed-{SD3_SEED + 1} image; the worker ran "
+            f"{want['flash_attention_core']} K2 launches")
+    return counts
+
+
+def as_published_sd3(torch, dit) -> None:
+    """What a BF16 SAI file holds of a DiT: every parameter rounded
+    through BF16, the last context block pre-only (its gates, second
+    shift/scale and text outputs zero) and the final adaLN without its
+    gate third."""
+    h, last = dit.config.hidden, dit.config.depth_double - 1
+    blk = getattr(dit, f"double_{last}")
+    with torch.no_grad():
+        for p in dit.parameters():        # the fp32 table and img_out too
+            p.copy_(p.to(torch.bfloat16))
+        for p in (blk.txt_mod.mod.weight, blk.txt_mod.mod.bias,
+                  dit.final_mod.mod.weight, dit.final_mod.mod.bias):
+            p[2 * h:].zero_()
+        for m in (blk.txt_proj, blk.txt_mlp_up, blk.txt_mlp_down):
+            m.weight.zero_()
+            m.bias.zero_()
+
+
+def sd3_file_phase(torch, fa, run: Sd3Run) -> dict:
+    """Phase 37: SD3's files at full width (the sd3-medium bundle of phase
+    33 as an SAI file at full depth, BF16; CLIP-L with its projection and
+    CLIP-G as F16 ``text_model.*``; T5-XXL cut to 2 layers, F8_E4M3; the
+    CLIP vocabulary and T5 ``tokenizer.json``), ``convert --preset
+    sd3-medium --t5 --clip-l`` (the CLI's ``main`` in this process) →
+    ``state.pt`` → a fresh registry's restore, CLIP-G through
+    ``load_text_encoder_files`` (the CLI has no ``--clip-g``, as JAX's):
+    every parameter's digest the source's, the context ([1, 589, 4096]),
+    pooled vector and a velocity at 4685 tokens bitwise the source's; one
+    request from it: 0 K1 and 672 K2 at [2, 4685, 24·64]."""
+    import contextlib
+    import io
+
+    from comfyui_distributed_tpu_torch.__main__ import main as cli
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.clip import CLIPTextTransformer
+    from comfyui_distributed_tpu_torch.models.convert import (
+        FLUX_PREFIXED, export_clip_hf, export_mmdit_sd3, export_t5)
+    from comfyui_distributed_tpu_torch.models.registry import (ModelRegistry,
+                                                               _random)
+    from comfyui_distributed_tpu_torch.models.t5 import SD3TextStack, T5Encoder
+    from comfyui_distributed_tpu_torch.utils.safetensors import save_file
+
+    dev = torch.device(DEVICE)
+    tmp = Path(tempfile.mkdtemp(prefix="cdt_sd3_"))
+    try:
+        write_vocab(tmp / "tokenizer")
+        write_t5_tokenizer(tmp / "t5_tokenizer", sorted(set(
+            (SD3_POSITIVE + " " + SD3_NEGATIVE).replace(",", "").split())))
+        os.environ["CDT_TOKENIZER_DIR"] = str(tmp / "tokenizer")
+        os.environ["CDT_T5_TOKENIZER_DIR"] = str(tmp / "t5_tokenizer")
+        t0 = time.perf_counter()
+        dit = run.registry.get("sd3-medium").core
+        as_published_sd3(torch, dit)
+        gen = torch.Generator(device=dev).manual_seed(SD3_FILE_SEED)
+        cfg_l, cfg_g, cfg_t5 = SD3TextStack.configs()
+        cfg_t5 = dataclasses.replace(cfg_t5, num_layers=SD3_T5_CUT)
+        clip_l = _random(lambda: CLIPTextTransformer(cfg_l), dev, gen)
+        clip_g = _random(lambda: CLIPTextTransformer(cfg_g), dev, gen)
+        t5 = _random(lambda: T5Encoder(cfg_t5), dev, gen)
+        for tower in (clip_l, clip_g):
+            round_fp16(torch, dict(tower.named_parameters()))
+        with torch.no_grad():             # held exactly by an e4m3 file
+            for p in t5.parameters():
+                p.copy_(p.to(torch.float8_e4m3fn))
+        stack = SD3TextStack(clip_l, clip_g, t5).eval()
+        require(stack.tokenization_mode == "real",
+                f"source stack tokenization {stack.tokenization_mode}")
+        towers = {"core": dit, "clip_l": clip_l, "clip_g": clip_g, "t5": t5}
+        digests = param_digests(torch, {f"{e}.{k}": p for e, m in towers.items()
+                                        for k, p in m.named_parameters()})
+        with torch.no_grad():
+            context, pooled = stack.encode([SD3_POSITIVE])
+            x = torch.randn(1, SD3_HW // 8, SD3_HW // 8, dit.config.in_channels,
+                            generator=gen, device=dev)
+            v = dit(x, torch.tensor([0.6], device=dev), context, pooled)
+        dcfg = dit.config
+        require(tuple(context.shape) == (1, 77 + SD3_T5_TOKENS, dcfg.context_dim)
+                and tuple(pooled.shape) == (1, dcfg.pooled_dim),
+                f"source conditioning {tuple(context.shape)}, "
+                f"{tuple(pooled.shape)}")
+        source = (context.cpu(), pooled.cpu(), x, v.cpu())
+        files = {"sd3_medium.safetensors": (export_mmdit_sd3(dit, FLUX_PREFIXED),
+                                            torch.bfloat16),
+                 "clip_l.safetensors": (export_clip_hf(clip_l), torch.float16),
+                 "clip_g.safetensors": (export_clip_hf(clip_g), torch.float16),
+                 "t5xxl_cut.safetensors": (export_t5(t5), torch.float8_e4m3fn)}
+        wrote = []
+        for name, (tensors, dtype) in files.items():
+            wrote.append(f"{name} {save_file(tensors, tmp / name, dtype=dtype) / 1e9:.3f}"
+                         f" GB {str(dtype).split('.')[-1]}")
+        del files, tensors, towers, stack, clip_l, clip_g, t5, dit, context, pooled
+        run.registry._cache.pop("sd3-medium")
+        gc.collect()
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        say(f"  sd3 files: wrote {', '.join(wrote)} in {write_s:.2f} s (sources "
+            f"and digests included); the sources dropped, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+
+        root = tmp / "root"
+        buf = io.StringIO()
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["convert", "--preset", "sd3-medium", "--checkpoint",
+                      str(tmp / "sd3_medium.safetensors"),
+                      "--t5", str(tmp / "t5xxl_cut.safetensors"),
+                      "--clip-l", str(tmp / "clip_l.safetensors"),
+                      "--out", str(root / "sd3-medium"), "--device", DEVICE])
+        convert_s = time.perf_counter() - t0
+        require(rc == 0, f"convert --preset sd3-medium exited {rc}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        manifest = json.loads((root / "sd3-medium" / "cdt_manifest.json").read_text())
+        state = root / "sd3-medium" / "state.pt"
+        require(line["entries"] == ["clip_g", "clip_l", "core", "t5", "vae_dec"]
+                and manifest.get("t5_layers") == SD3_T5_CUT
+                and manifest.get("depth") == {"double": dcfg.depth_double,
+                                              "single": 0},
+                f"converted entries {line['entries']}, manifest {manifest}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=root)
+        bundle = registry.get("sd3-medium")
+        bundle.load_text_encoder_files(clip_g=tmp / "clip_g.safetensors")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = param_digests(torch, {k: p for k, p in bundle_params(bundle).items()
+                                    if not k.startswith("vae_dec.")})
+        require(set(got) == set(digests),
+                f"restored parameter names differ: "
+                f"{sorted(set(got) ^ set(digests))[:4]}")
+        bad = [k for k in got if got[k] != digests[k]]
+        require(not bad, f"restored sd3: {len(bad)} parameters differ from the "
+                f"source's, e.g. {bad[:4]}")
+        stack = bundle.text_encoder
+        require(stack.tokenization_mode == "real",
+                f"tokenization mode {stack.tokenization_mode}")
+        with torch.no_grad():
+            context, pooled = stack.encode([SD3_POSITIVE])
+            v = bundle.core(source[2], torch.tensor([0.6], device=dev), context,
+                            pooled)
+        require(torch.equal(context.cpu(), source[0])
+                and torch.equal(pooled.cpu(), source[1]),
+                "the restored context or pooled vector differs from the source's")
+        require(torch.equal(v.cpu(), source[3]),
+                f"the velocity at {SD3_FILE_TOKENS} tokens differs from the "
+                "source's")
+        say(f"  convert {convert_s:.2f} s (peak "
+            f"{line.get('max_memory_allocated', 0) / 2**30:.3f} GiB; state.pt "
+            f"{state.stat().st_size / 1e9:.3f} GB), restore + CLIP-G "
+            f"{restore_s:.2f} s; all {len(got)} parameters bitwise the "
+            f"source's (digests); tokenization real; context "
+            f"{tuple(context.shape)}, pooled vector and the velocity at "
+            f"{SD3_FILE_TOKENS} tokens bitwise the source's")
+        executor = GraphExecutor({"model_registry": registry,
+                                  "output_dir": str(SD3_DIR / "file")})
+        fa.reset_launches()
+        reset_peak(torch)
+        _, secs, _ = run_counted(torch, fa, executor,
+                                 sd3_workflow("sd3-medium"), "6",
+                                 SD3_FILE_REQUEST, "sd3-medium from its files",
+                                 (SD3_HW, SD3_HW))
+        t = bundle.pipeline.timings
+        say(f"  one request from the restored files: {secs:.3f} s; sampling "
+            f"{t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} s/step; "
+            f"launches {SD3_FILE_REQUEST[0]}, CUDA kernels "
+            f"{SD3_FILE_REQUEST[1]}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        return dict(fa.LAUNCHES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for var in ("CDT_TOKENIZER_DIR", "CDT_T5_TOKENIZER_DIR"):
+            os.environ.pop(var, None)
+
+
+def sd3_phases(torch, fa) -> dict:
+    """Phases 33 to 37, sd3-medium's bundle kept for the served and file
+    phases, sd35-large's dropped after its own; returns their launches by
+    path."""
+    launches = {}
+    with phase(torch, "33 sd3-medium"):
+        run, launches["sd3"] = sd3_medium_phase(torch, fa)
+    with phase(torch, "34 sd3-medium reference"):
+        sd3_reference(torch, fa, run.registry.get("sd3-medium"), "sd3-medium",
+                      "flash_attention_packed")
+    with phase(torch, "35 sd35-large"):
+        launches["sd35"] = sd35_phase(torch, fa)
+    free_card(torch)
+    with phase(torch, "36 sd3 served"):
+        launches["sd3_serve"] = sd3_serve_phase(torch, fa, run)
+    with phase(torch, "37 sd3 files"):
+        launches["sd3_file"] = sd3_file_phase(torch, fa, run)
+    del run
+    free_card(torch)
+    return launches
+
+
+
 # --- phase clock -------------------------------------------------------------
 
 
@@ -5320,6 +5810,7 @@ def main() -> int:
                                                            seconds)
         free_card(torch)
         path_launches.update(wan_phases(torch, fa))
+        path_launches.update(sd3_phases(torch, fa))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5332,6 +5823,15 @@ def main() -> int:
     say(f"wan: K3 {wan['ms'] / 1e3:.3f} s per t2v request (bound "
         f"{wan['bound_ms'] / 1e3:.3f} s, library {wan['library_ms'] / 1e3:.3f} "
         f"s, {wan['launches']} launches)")
+    k2 = next(k for k in table if k["name"] == "flash_attention_packed")
+    for what, entry in (("sd3-medium: K2", k2["per_sd3_request"]),
+                        ("sd3-medium from its files: K2",
+                         k2["per_sd3_file_request"]),
+                        ("sd35-large: K3", k3["per_sd35_request"])):
+        say(f"{what} {entry['ms'] / 1e3:.3f} s per request (bound "
+            f"{entry['bound_ms'] / 1e3:.3f} s, plain {entry['plain_ms'] / 1e3:.3f}"
+            f" s, library {entry['library_ms'] / 1e3:.3f} s, "
+            f"{entry['launches']} launches)")
     say(f"total {time.perf_counter() - t_start:.1f} s on {device['smi']}")
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

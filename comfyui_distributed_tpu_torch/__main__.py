@@ -19,12 +19,16 @@ Prints the controller's ``system_info`` (host facts and the card census)
 as JSON.
 
     python -m comfyui_distributed_tpu_torch convert
-        --preset sdxl|sd15|flux|wan|wan-i2v|wan-2.2-t2v
+        --preset sdxl|sd15|flux|sd3-medium|sd35-large|wan|wan-i2v|wan-2.2-t2v
         --checkpoint FILE.safetensors --out DIR [--vae FILE]
         [--t5 FILE --clip-l FILE] [--checkpoint-low FILE] [--device D]
 
 Converts a published single-file checkpoint (for ``flux`` the BFL
-transformer, with its T5-XXL and CLIP-L files; for ``wan`` the WAN
+transformer, with its T5-XXL and CLIP-L files; for ``sd3-medium`` and
+``sd35-large`` the SAI MMDiT with its T5-XXL and CLIP-L files: as in the
+JAX CLI there is no ``--clip-g``, the bundle's CLIP-G is drawn from the
+seed and a file of it is loaded with ``load_text_encoder_files(clip_g=)``;
+for ``wan`` the WAN
 transformer with its UMT5-XXL file; for ``wan-2.2-t2v`` the high-noise
 expert, with the low-noise one as ``--checkpoint-low``; optionally a
 standalone VAE, BFL's ``ae.safetensors`` for ``flux``) into the port's
@@ -122,10 +126,10 @@ def cmd_convert(args: argparse.Namespace) -> int:
     if args.checkpoint_low and preset.moe_boundary is None:
         return refuse(f"--checkpoint-low is for a dual-expert preset; "
                       f"{args.preset!r} has one transformer")
-    if ((args.t5 and preset.clip not in ("flux", "umt5"))
-            or (args.clip_l and preset.clip != "flux")):
+    if ((args.t5 and preset.clip not in ("flux", "sd3", "umt5"))
+            or (args.clip_l and preset.clip not in ("flux", "sd3"))):
         return refuse("--t5 and --clip-l are FLUX's text-encoder files "
-                      "(--t5 also WAN's UMT5-XXL); preset "
+                      "(and SD3's; --t5 also WAN's UMT5-XXL); preset "
                       f"{args.preset!r} takes no such file")
     files = [Path(f) for f in (args.checkpoint, args.checkpoint_low, args.t5,
                                args.clip_l, args.vae) if f]
@@ -186,10 +190,11 @@ def main(argv: list[str] | None = None) -> int:
     conv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                       help="where the conversion runs (default: cuda)")
     conv.add_argument("--t5", default=None,
-                      help="FLUX's T5-XXL or WAN's UMT5-XXL file (HF "
-                           "T5EncoderModel/UMT5EncoderModel layout)")
+                      help="FLUX's or SD3's T5-XXL or WAN's UMT5-XXL file "
+                           "(HF T5EncoderModel/UMT5EncoderModel layout)")
     conv.add_argument("--clip-l", dest="clip_l", default=None,
-                      help="FLUX's CLIP-L file (HF text_model.* layout)")
+                      help="FLUX's or SD3's CLIP-L file (HF text_model.* "
+                           "layout)")
     conv.add_argument("--checkpoint-low", dest="checkpoint_low", default=None,
                       help="WAN 2.2's low-noise expert (--checkpoint is the "
                            "high-noise one)")

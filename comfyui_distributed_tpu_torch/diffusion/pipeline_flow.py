@@ -3,13 +3,15 @@
 one participant).
 
 noise → the spec's sampler over the shifted flow ladder with the velocity
-denoiser ``x − σ·v`` (distilled guidance as a model input, no CFG batch)
-→ VAE decode → clip to [0, 1]. As in the JAX pipeline the noise is not scaled
-by the first sigma (it is 1). ``initial_noise`` is split from
-``sample_and_decode`` so a caller can supply its own noise; a stochastic
-sampler draws from ``parallel/rng.step_noise`` of the run's seed or the
-caller's noise source. True CFG (``cfg != 1``, the SD3 family) is not
-ported yet.
+denoiser ``x − σ·v`` → VAE decode → clip to [0, 1]. FLUX-dev takes
+``cfg == 1`` and its distilled guidance as a model input; the SD3 family
+takes true CFG (``cfg != 1``): cond and uncond doubled into one batch, one
+DiT call a step (``guidance.cfg_denoiser``), the negative conditioning
+required. As in the JAX pipeline the noise is not scaled by the first
+sigma (it is 1). ``initial_noise`` is split from ``sample_and_decode`` so
+a caller can supply its own noise; a stochastic sampler draws from
+``parallel/rng.step_noise`` of the run's seed or the caller's noise
+source.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..models.dit import DiT
 from ..models.vae import AutoencoderKL
 from ..parallel.rng import seed_generator, step_noise
+from .guidance import cfg_denoiser
 from .pipeline import pipeline_call
 from .progress import wrap_denoiser
 from .samplers import Denoiser, NoiseSource, sample
@@ -66,13 +69,33 @@ class FlowPipeline:
                            device=self.device)
 
     def _denoiser(self, context: torch.Tensor, pooled: torch.Tensor,
-                  guidance: float) -> Denoiser:
-        def denoise(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-            t = sigma.expand(x.shape[0])
-            g = torch.full((x.shape[0],), guidance, device=x.device)
-            return x - sigma * self.dit(x, t, context, pooled, g)
+                  guidance: float, cfg: float = 1.0,
+                  uncond_context: Optional[torch.Tensor] = None,
+                  uncond_pooled: Optional[torch.Tensor] = None) -> Denoiser:
+        """``cfg != 1`` batches the cond and uncond passes into one
+        doubled-batch DiT call; ``cfg == 1`` is the plain velocity
+        denoiser."""
+        def make(ctx, pl):
+            def denoise(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+                t = sigma.expand(x.shape[0])
+                g = torch.full((x.shape[0],), guidance, device=x.device)
+                return x - sigma * self.dit(x, t, ctx, pl, g)
 
-        return denoise
+            return denoise
+
+        if cfg == 1.0:
+            return make(context, pooled)
+        if uncond_context is None:
+            # sampling without the guidance the caller asked for would
+            # quietly give another image
+            raise ValueError(
+                f"cfg={cfg} requires negative conditioning: pass "
+                "uncond_context (and uncond_pooled) through generate, or "
+                "wire the FlowSampler node's 'negative' input; FLUX-dev "
+                "distilled guidance wants cfg=1.0 with the 'guidance' "
+                "field instead")
+        return cfg_denoiser(make, context, uncond_context, cfg, y=pooled,
+                            uncond_y=uncond_pooled)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -82,25 +105,30 @@ class FlowPipeline:
     def sample_and_decode(self, noise: torch.Tensor, spec: FlowSpec,
                           context: torch.Tensor, pooled: torch.Tensor,
                           progress_token: Optional[int] = None,
-                          sampler_noise: Optional[NoiseSource] = None
+                          sampler_noise: Optional[NoiseSource] = None,
+                          uncond_context: Optional[torch.Tensor] = None,
+                          uncond_pooled: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
         """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
         ``progress_token`` (a ``ProgressTracker.start`` token) streams
         each step's x0 to the progress sinks; ``sampler_noise`` is the
-        stochastic samplers' noise source."""
-        if spec.cfg != 1.0:
-            raise NotImplementedError(
-                f"true CFG (cfg={spec.cfg}) is not yet ported; FLUX-dev "
-                "takes cfg=1.0 with the distilled 'guidance' input")
+        stochastic samplers' noise source; ``uncond_context`` and
+        ``uncond_pooled`` are the negative conditioning of ``spec.cfg !=
+        1`` (``uncond_context`` required then, ``uncond_pooled`` zeros
+        when omitted), ignored otherwise."""
         dev = self.device
         sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
         batch = noise.shape[0]
 
         def rows(t):
+            if t is None:
+                return None
             t = t.to(dev)
             return t.expand(batch, *t.shape[1:])
 
-        denoise = self._denoiser(rows(context), rows(pooled), spec.guidance)
+        denoise = self._denoiser(rows(context), rows(pooled), spec.guidance,
+                                 spec.cfg, rows(uncond_context),
+                                 rows(uncond_pooled))
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
         with pipeline_call(self, "flow_dp", lambda: self.timings):
@@ -119,8 +147,14 @@ class FlowPipeline:
 
     def generate(self, spec: FlowSpec, seed: int, context: torch.Tensor,
                  pooled: torch.Tensor,
-                 progress_token: Optional[int] = None) -> torch.Tensor:
+                 progress_token: Optional[int] = None,
+                 uncond_context: Optional[torch.Tensor] = None,
+                 uncond_pooled: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """One seeded image batch; ``uncond_context``/``uncond_pooled``
+        carry the negative conditioning, as in ``sample_and_decode``."""
         noise = self.initial_noise(spec, seed_generator(seed, self.device))
         return self.sample_and_decode(noise, spec, context, pooled,
                                       progress_token,
-                                      step_noise(seed, self.device))
+                                      step_noise(seed, self.device),
+                                      uncond_context, uncond_pooled)

@@ -4,7 +4,9 @@ of the upscale workflow (``workflows/distributed-upscale.json``:
 ``LoadImage``, ``UpscaleModelLoader``, ``ImageUpscaleWithModel``,
 ``UltimateSDUpscaleDistributed``), img2img, inpainting and ControlNet
 (``TPUImg2Img``, ``TPUInpaint``, ``ControlNetLoader``, ``ControlNetApply``)
-with the image, mask and latent nodes around them, ``LoraLoader``, the
+with the image, mask and latent nodes around them, ``LoraLoader``,
+``ModelSamplingSD3`` (the flow shift the flow and video samplers read
+when their own ``shift`` is not wired), the
 audio and video nodes (``LoadAudio``, ``SaveAudio``, ``AudioBatchDivider``,
 ``LoadVideo``, ``SaveVideo`` and their VHS aliases), the primitives, the
 remaining distributed nodes (``DistributedModelName``,
@@ -18,7 +20,7 @@ Graph value conventions, as in the JAX package: IMAGE = float32
 [B,H,W,C] in [0,1]; MASK = float32 [B,H,W]; LATENT = {"samples":
 [B,h,w,C]}; CONDITIONING = {"context": [1,N,D], "pooled": [1,P]}, with a
 ControlNet under ``"control"``: {"model", "hint" [B,H,W,C], "strength"};
-MODEL = ModelBundle; AUDIO = {"waveform": float32 [B,C,S] on the CPU,
+MODEL = ModelBundle (or a proxy of one); AUDIO = {"waveform": float32 [B,C,S] on the CPU,
 "sample_rate": int} (``utils/audio_payload.py`` says why it stays on
 the host). Tensors stay on the bundle's device until ``SaveImage`` or
 ``SaveVideo`` copies them to the host.
@@ -291,6 +293,39 @@ class CheckpointLoader(NodeDef):
     def execute(self, ckpt_name: str, model_registry=None, **_):
         bundle = _registry(model_registry).get(ckpt_name)
         return (bundle, bundle.text_encoder, bundle.pipeline.vae)
+
+
+class _ShiftedModel:
+    """A MODEL carrying a sampling-shift override; every other attribute
+    is the wrapped bundle's (ComfyUI's patched-model clone, without
+    copying weights)."""
+
+    def __init__(self, base, shift: float):
+        self._base = base
+        self.sampling_shift = float(shift)
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+
+@register_node("ModelSamplingSD3")
+class ModelSamplingSD3(NodeDef):
+    """The flow shift of a MODEL: the ladder becomes σ' = shift·σ / (1 +
+    (shift − 1)·σ) in every flow or video sampler node whose own
+    ``shift`` is not wired."""
+
+    INPUTS = {"model": "MODEL", "shift": "FLOAT"}
+    RETURNS = ("MODEL",)
+
+    def execute(self, model, shift: float, **_):
+        return (_ShiftedModel(model, shift),)
+
+
+def _shift(model, shift) -> float:
+    """A wired ``shift``, else a ``ModelSamplingSD3`` override on the
+    model, else the FLUX convention's 3.0."""
+    return float(getattr(model, "sampling_shift", 3.0) if shift is None
+                 else shift)
 
 
 @register_node("CLIPTextEncode")
@@ -716,9 +751,10 @@ class TPUInpaint(NodeDef):
 
 @register_node("TPUFlowTxt2Img")
 class TPUFlowTxt2Img(NodeDef):
-    """The rectified-flow sampler node (FLUX-class DiT bundles; name kept
-    for workflow compatibility). ``mode="dp"`` runs on the bundle's
-    device; the multi-device modes are not ported yet."""
+    """The rectified-flow sampler node (FLUX- and SD3-class DiT bundles;
+    name kept for workflow compatibility). ``mode="dp"`` runs on the
+    bundle's device; the multi-device modes are not ported yet. ``cfg !=
+    1`` (SD3's true CFG) needs the ``negative`` conditioning."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING",
@@ -733,8 +769,8 @@ class TPUFlowTxt2Img(NodeDef):
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, steps: int, width: int,
-                height: int, cfg: float = 1.0, guidance: float = 3.5,
-                shift: float = 3.0, mode: str = "dp",
+                height: int, negative=None, cfg: float = 1.0,
+                guidance: float = 3.5, shift=None, mode: str = "dp",
                 batch_per_device: int = 1, prompt_id: str = "",
                 progress_tracker=None, **_):
         from ..diffusion.pipeline_flow import FlowSpec
@@ -745,19 +781,29 @@ class TPUFlowTxt2Img(NodeDef):
                 f"mode={mode!r} is not yet ported; the port runs mode='dp' "
                 "on one device")
         spec = FlowSpec(height=int(height), width=int(width), steps=int(steps),
-                        shift=float(shift), guidance=float(guidance),
+                        shift=_shift(model, shift), guidance=float(guidance),
                         cfg=float(cfg), per_device_batch=int(batch_per_device))
         pipeline = model.pipeline
         pooled = positive.get("pooled")
         if pooled is None:
             pooled = torch.zeros((1, pipeline.dit.config.pooled_dim),
                                  device=pipeline.device)
+        uncond = {}
+        if negative is not None:
+            uncond = {"uncond_context": negative["context"],
+                      "uncond_pooled": negative.get("pooled")}
+        if spec.cfg != 1.0 and not uncond:
+            raise ValidationError(
+                f"cfg={spec.cfg} needs the 'negative' conditioning input "
+                "(true CFG); FLUX-dev distilled guidance uses cfg=1.0 "
+                "with 'guidance'", field="negative")
         # as in the JAX package's dp branch, no should_stop: an interrupt
         # takes effect before the next node
         with _ProgressScope(progress_tracker, prompt_id,
                             total_calls(spec.sampler, spec.steps)) as ps:
             images = pipeline.generate(spec, int(seed), positive["context"],
-                                       pooled, progress_token=ps.token)
+                                       pooled, progress_token=ps.token,
+                                       **uncond)
             ps.complete()
         return (images,)
 
@@ -819,7 +865,7 @@ class TPUTxt2Video(NodeDef):
         _video_mode(mode)
         spec = VideoSpec(frames=int(frames), height=int(height),
                          width=int(width), steps=int(steps),
-                         shift=3.0 if shift is None else float(shift),
+                         shift=_shift(model, shift),
                          guidance_scale=float(cfg))
         pooled = _video_pooled_default(model, positive)
         with _ProgressScope(progress_tracker, prompt_id,
@@ -865,7 +911,7 @@ class TPUImg2Video(NodeDef):
         _video_mode(mode)
         spec = VideoSpec(frames=int(frames), height=int(image.shape[1]),
                          width=int(image.shape[2]), steps=int(steps),
-                         shift=3.0 if shift is None else float(shift),
+                         shift=_shift(model, shift),
                          guidance_scale=float(cfg))
         pooled = _video_pooled_default(model, positive)
         with _ProgressScope(progress_tracker, prompt_id,

@@ -16,6 +16,10 @@ Source layouts (key prefixes of the standard single-file
   ``single_blocks.*``, bare or under ``model.diffusion_model.``), T5 in
   the HF ``T5EncoderModel`` layout (``encoder.block.*``, ``shared``),
   CLIP-L as bare ``text_model.*`` and BFL's ``ae.safetensors``;
+- SD3's files: the SAI MMDiT (``x_embedder``, ``pos_embed``,
+  ``joint_blocks.*``, ``final_layer``, bare or under
+  ``model.diffusion_model.``), T5 as FLUX's, CLIP-L and CLIP-G as bare
+  ``text_model.*`` with their ``text_projection``;
 - WAN's files: the official WAN t2v transformer (``blocks.N.*``, bare or
   under ``model.diffusion_model.``; WAN 2.2's two experts one file
   each) and UMT5-XXL in the HF ``UMT5EncoderModel`` layout (T5's walk
@@ -29,7 +33,10 @@ convolutions the port runs as Linears (SD 1.5's ``proj_in``/``proj_out``,
 the VAE's mid attention) squeezed, FLUX's patch-feature order permuted
 (``img_in``'s columns, ``final_layer.linear``'s rows), its single
 blocks' ``linear1`` split by rows and its final adaLN padded with a zero
-gate third.
+gate third; SD3's patch-embedding convolution flattened into a Linear,
+its position table reshaped, its final adaLN padded as FLUX's and the
+pre-only last context block's 2h-row adaLN padded to 6h rows, its text
+outputs filled with zeros.
 
 Every walk is one function over an abstract ``put`` with three users:
 ``_Filler`` copies each source tensor into its parameter (cast to the
@@ -40,9 +47,9 @@ transform), the LoRA key map of ``models/lora.py``; ``_Exporter`` inverts
 each transform to write a module back in the published layout (the
 tests and ``chip_smoke.py`` write synthetic checkpoints with it).
 
-SD3 files are detected and refused, naming the item that ports them;
-so is a WAN i2v file with image cross-attention (``k_img``, ``img_emb``),
-which neither package reads.
+A WAN i2v file with image cross-attention (``k_img``, ``img_emb``), which
+neither package reads, is refused by name; so are the diffusers repacks
+of FLUX and SD3.
 """
 
 from __future__ import annotations
@@ -96,6 +103,10 @@ class _PutHelpers:
 
     def ignore(self, keys) -> None:
         """Source keys that carry nothing the port uses."""
+
+    def zeros(self, dst: str) -> None:
+        """A parameter the layout does not carry, filled with zeros (SD3's
+        pre-only text outputs)."""
 
     def linear(self, src: str, dst: str, bias: bool = True,
                tx: _Tx = ID) -> None:
@@ -159,6 +170,13 @@ class _Filler(_PutHelpers):
 
     def ignore(self, keys) -> None:
         self.used.update(keys)
+
+    @torch.no_grad()
+    def zeros(self, dst: str) -> None:
+        if dst not in self.params:
+            raise ConversionError(f"no parameter {dst!r}")
+        self.filled.add(dst)
+        self.params[dst].zero_()
 
     def finish(self, expect_prefix: str = "",
                skip: Callable[[str], bool] = lambda k: False) -> None:
@@ -759,6 +777,125 @@ def export_flux(module: nn.Module, prefix: str = "") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# SD3 / SD3.5 MMDiT (SAI single-file layout)
+# ---------------------------------------------------------------------------
+
+def _sd3_txs(cfg) -> tuple[_Tx, _Tx]:
+    """(``x_embedder.proj``'s stride-p OIHW kernel flattened into
+    ``img_in``'s ``(row, col, channel)`` columns — SD3 unpatchifies in the
+    same order, so ``final_layer.linear`` needs no permutation;
+    ``pos_embed``'s ``[1, m², h]`` as the ``[m², h]`` table)."""
+    p, c = cfg.patch_size, cfg.in_channels
+    return (_Tx("patch_conv",
+                lambda w: w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
+                lambda w: w.reshape(w.shape[0], p, p, c).permute(0, 3, 1, 2)),
+            _Tx("table", lambda w: w.reshape(-1, w.shape[-1]),
+                lambda w: w[None]))
+
+
+def _pre_only(src: str, h: int) -> _Tx:
+    """The last context block's pre-only adaLN (rows [shift | scale]) as
+    the first third of ``txt_mod``: four zero rows-blocks of ``h`` below
+    it, so its gates are 0 and its text outputs never count."""
+    def fwd(w: torch.Tensor) -> torch.Tensor:
+        if w.shape[0] != 2 * h:
+            raise ConversionError(
+                f"{src}: expected pre-only 2h-row adaLN in the last context "
+                f"block, got {w.shape[0]} rows")
+        return torch.cat([w, w.new_zeros((4 * h, *w.shape[1:]))])
+
+    return _Tx("pre_only", fwd, lambda w: w[: 2 * h])
+
+
+def _sd3_layout(f, cfg, p: str) -> None:
+    """The SAI walk: ``x_embedder.proj``, ``pos_embed``,
+    ``context_embedder``, ``{t,y}_embedder.mlp.{0,2}``,
+    ``joint_blocks.i.{x_block,context_block}.{adaLN_modulation.1,
+    attn.qkv, attn.ln_q, attn.ln_k, attn.proj, mlp.fc1, mlp.fc2}`` →
+    ``double_i.{img,txt}_*`` (the qk-norm scales where ``cfg.qk_norm``;
+    the last context block pre-only), ``final_layer``."""
+    conv, table = _sd3_txs(cfg)
+    gate0 = _flux_txs(cfg)[2]
+    h = cfg.hidden
+    f.put(f"{p}x_embedder.proj.weight", "img_in.weight", conv)
+    f.put(f"{p}x_embedder.proj.bias", "img_in.bias")
+    f.put(f"{p}pos_embed", "pos_emb", table)
+    f.linear(f"{p}context_embedder", "txt_in")
+    for src, dst in (("t_embedder", "time_in"), ("y_embedder", "vector_in")):
+        f.linear(f"{p}{src}.mlp.0", f"{dst}.in_layer")
+        f.linear(f"{p}{src}.mlp.2", f"{dst}.out_layer")
+    last = cfg.depth_double - 1
+    for i in range(cfg.depth_double):
+        dst = f"double_{i}"
+        for tag, ours in (("x_block", "img"), ("context_block", "txt")):
+            src = f"{p}joint_blocks.{i}.{tag}"
+            pre_only = tag == "context_block" and i == last
+            mod = f"{src}.adaLN_modulation.1"
+            tx = _pre_only(mod, h) if pre_only else ID
+            for part in ("weight", "bias"):
+                f.put(f"{mod}.{part}", f"{dst}.{ours}_mod.mod.{part}", tx)
+            f.linear(f"{src}.attn.qkv", f"{dst}.{ours}_qkv.qkv")
+            if cfg.qk_norm:
+                f.put(f"{src}.attn.ln_q.weight", f"{dst}.{ours}_qkv.q_scale")
+                f.put(f"{src}.attn.ln_k.weight", f"{dst}.{ours}_qkv.k_scale")
+            if pre_only:
+                for part in ("proj", "mlp_up", "mlp_down"):
+                    for leaf in ("weight", "bias"):
+                        f.zeros(f"{dst}.txt_{part}.{leaf}")
+            else:
+                f.linear(f"{src}.attn.proj", f"{dst}.{ours}_proj")
+                f.linear(f"{src}.mlp.fc1", f"{dst}.{ours}_mlp_up")
+                f.linear(f"{src}.mlp.fc2", f"{dst}.{ours}_mlp_down")
+    for part in ("weight", "bias"):
+        f.put(f"{p}final_layer.adaLN_modulation.1.{part}",
+              f"final_mod.mod.{part}", gate0)
+    f.linear(f"{p}final_layer.linear", "img_out")
+
+
+def with_sd3_depth_of(config, sd, prefix: str = ""):
+    """``config`` with the joint-block count of the SD3 file ``sd`` where
+    it differs (a file cut in depth); widths are never read from the
+    file."""
+    depth = _blocks_under(sd, f"{prefix}joint_blocks.")
+    if depth == config.depth_double:
+        return config
+    log(f"the SD3 file has {depth} joint blocks; the config has "
+        f"{config.depth_double}: building the file's")
+    return dataclasses.replace(config, depth_double=depth)
+
+
+def convert_mmdit_sd3(sd: Mapping[str, torch.Tensor], module: nn.Module,
+                      prefix: str = "") -> None:
+    """SAI SD3/SD3.5 MMDiT (bare or under ``model.diffusion_model.``) →
+    ``dit.DiT``, in place. The qk-norm scales (``attn.ln_q``/``ln_k``)
+    must be in the file exactly when the preset has ``qk_norm``; any key
+    left over under the prefix raises."""
+    cfg = module.config
+    qk_keys = f"{prefix}joint_blocks.0.x_block.attn.ln_q.weight" in sd
+    if cfg.qk_norm and not qk_keys:
+        raise ConversionError(
+            "preset expects RMS qk-norm (SD3.5-class) but the checkpoint "
+            "has no attn.ln_q/ln_k keys: use an SD3-medium-class preset "
+            "with qk_norm=False")
+    if qk_keys and not cfg.qk_norm:
+        raise ConversionError(
+            "checkpoint carries attn.ln_q/ln_k qk-norm scales but the "
+            "preset has qk_norm=False: use an SD3.5-class preset")
+    f = _Filler(sd, module)
+    _sd3_layout(f, cfg, prefix)
+    f.finish(expect_prefix=prefix)
+
+
+def export_mmdit_sd3(module: nn.Module, prefix: str = "") -> dict:
+    """An SD3 ``DiT`` in the SAI layout (views of the parameters, except
+    the patch convolution, the table and the cut adaLNs); the pre-only
+    block's zero text outputs are not written."""
+    e = _Exporter(module, prefix)
+    _sd3_layout(e, module.config, "")
+    return e.out
+
+
+# ---------------------------------------------------------------------------
 # WAN transformer (official Wan2.x layout)
 # ---------------------------------------------------------------------------
 
@@ -848,12 +985,6 @@ SD15_CLIP_PREFIX = SD15_CLIP_ROOT + "text_model."
 
 FLUX_DIFFUSERS_HINT = "transformer_blocks."
 FLUX_SINGLE_DIFFUSERS_HINT = "single_transformer_blocks."
-_NOT_PORTED = {
-    "sd3": "SD3 MMDiT files are not ported yet (ROADMAP.md, item 13: SD3 "
-           "presets)",
-}
-
-
 def detect_layout(sd: Mapping[str, torch.Tensor]) -> str:
     if any(k.endswith("double_blocks.0.img_attn.qkv.weight") for k in sd):
         return "flux"
@@ -884,15 +1015,13 @@ def detect_layout(sd: Mapping[str, torch.Tensor]) -> str:
 def convert_checkpoint(path: Path, bundle, expert: str = "high") -> None:
     """Fill a ``ModelBundle`` from a single-file checkpoint, in place: a
     UNet bundle (preset ``sdxl``/``sd15`` or one of their shape) with its
-    VAE and CLIP stack, a DiT bundle's transformer from a FLUX file, or a
-    WAN bundle's transformer (``expert="low"``: a dual-expert bundle's
-    low-noise one) from a WAN file; each tensor is shape-checked against
-    the live module and copied onto its device."""
+    VAE and CLIP stack, a DiT bundle's transformer from a FLUX or SD3
+    file, or a WAN bundle's transformer (``expert="low"``: a dual-expert
+    bundle's low-noise one) from a WAN file; each tensor is shape-checked
+    against the live module and copied onto its device."""
     with SafetensorsFile(path) as sd:
         layout = detect_layout(sd)
         log(f"converting {path} (layout: {layout})")
-        if layout in _NOT_PORTED:
-            raise ConversionError(_NOT_PORTED[layout])
         if layout == "wan":
             from .wan import WanConfig
 
@@ -915,6 +1044,15 @@ def convert_checkpoint(path: Path, bundle, expert: str = "high") -> None:
             log("FLUX transformer converted; the VAE and the text encoders "
                 "ship in files of their own (load_vae_file, "
                 "load_text_encoder_files)")
+            return
+        if layout == "sd3":
+            if bundle.kind != "dit":
+                raise ConversionError(
+                    "an SD3 MMDiT checkpoint needs a dit preset; "
+                    f"{bundle.preset.name!r} is {bundle.kind!r}")
+            convert_mmdit_sd3(sd, bundle.core, flux_prefix_of(sd))
+            log("SD3 MMDiT converted; the VAE and the text encoders keep "
+                "their weights (load_text_encoder_files)")
             return
         if bundle.kind != "unet":
             raise ConversionError(

@@ -1,24 +1,30 @@
-"""FLUX-class rectified-flow MMDiT (counterpart of the JAX ``models/dit.py``).
+"""FLUX- and SD3-class rectified-flow MMDiT (counterpart of the JAX
+``models/dit.py``).
 
 Double-stream blocks (separate image and text weights, one joint
 attention over ``[txt, img]``) followed by single-stream blocks over the
-merged sequence, adaLN modulation from (timestep, pooled text, distilled
-guidance), patchified latents in, velocity out. ``DiTConfig.flux()`` is
+merged sequence, adaLN modulation from (timestep, pooled text[, distilled
+guidance]), patchified latents in, velocity out. ``DiTConfig.flux()`` is
 FLUX.1's shape (19 double + 38 single blocks, hidden 3072, 24 heads of
-128, 3-axis RoPE); ``DiTConfig.tiny()`` a toy for tests.
+128, 3-axis RoPE); ``sd3_medium()`` (24 joint blocks, 24 heads of 64, no
+qk-norm) and ``sd35_large()`` (38 joint blocks, 38 heads of 64, RMS
+qk-norm) are SD3's: joint blocks only, a learned ``m²``-entry position
+table centre-cropped to the patch grid, no guidance embedder;
+``tiny()`` and ``sd3_tiny()`` are toys for tests.
 
 Attribute names follow the JAX parameter tree (``double_{i}.img_mod.mod``,
-``single_{i}.qkv.qkv``, ``final_mod``, ...) so that
+``single_{i}.qkv.qkv``, ``final_mod``, ``pos_emb``, ...) so that
 ``models/from_jax.py`` carries weights by path. Every joint-attention
-site calls ``ops.attention.full_attention``; at FLUX's width (H·D = 3072)
-that is the one-head ``[B·H, N, D]`` kernel.
+site calls ``ops.attention.full_attention``: at FLUX's width (H·D = 3072)
+and SD3.5-large's (2432) that is the one-head ``[B·H, N, D]`` kernel, at
+SD3-medium's (1536) the packed kernel.
 
 Numerics kept from the JAX module: parameter-free LayerNorm (eps 1e-6,
 statistics in fp32, output in the model dtype); tanh GELU in the MLPs;
 RMS qk-norm whose fp32 inverse root is cast to the operand dtype before
-the multiply; RoPE over interleaved pairs in fp32; ``img_out`` in fp32.
-The SD3 presets (learned position table, no qk-norm) and the
-sequence-parallel (ring) branches are not ported.
+the multiply; RoPE over interleaved pairs in fp32; the learned position
+table in fp32, cast to the model dtype where it is added; ``img_out`` in
+fp32. The sequence-parallel (ring) branches are not ported.
 """
 
 from __future__ import annotations
@@ -50,20 +56,38 @@ class DiTConfig:
     pooled_dim: int = 768            # CLIP pooled
     guidance_embed: bool = True      # FLUX-dev distilled guidance input
     dtype: str = "bfloat16"
-    pos_embed: str = "sincos"        # "sincos" | "rope"
+    pos_embed: str = "sincos"        # "sincos" | "rope" | "learned"
+    pos_embed_max_size: int = 0      # "learned": side of the square table
+    qk_norm: bool = True             # RMS qk-norm (FLUX, SD3.5; SD3-medium
+                                     # checkpoints have no norm scales)
     rope_theta: float = 10000.0
     rope_axes_dim: Optional[tuple[int, int, int]] = None   # None → derived
 
     def __post_init__(self):
-        if self.pos_embed not in ("sincos", "rope"):
-            raise NotImplementedError(
-                f"pos_embed={self.pos_embed!r} is not yet ported; have "
-                "'sincos' and 'rope'")
+        if self.pos_embed not in ("sincos", "rope", "learned"):
+            raise ValueError(f"unknown pos_embed {self.pos_embed!r}; have "
+                             "'sincos', 'rope' and 'learned'")
 
     @classmethod
     def flux(cls) -> "DiTConfig":
         # FLUX.1: head_dim 128 = 16 (txt/time axis) + 56 (row) + 56 (col)
         return cls(pos_embed="rope", rope_axes_dim=(16, 56, 56))
+
+    @classmethod
+    def sd3_medium(cls) -> "DiTConfig":
+        """SD3-medium (2B): 24 joint blocks, width 1536, no qk-norm."""
+        return cls(hidden=1536, depth_double=24, depth_single=0, heads=24,
+                   context_dim=4096, pooled_dim=2048, guidance_embed=False,
+                   pos_embed="learned", pos_embed_max_size=192,
+                   qk_norm=False)
+
+    @classmethod
+    def sd35_large(cls) -> "DiTConfig":
+        """SD3.5-large (8B): 38 joint blocks, width 2432, RMS qk-norm."""
+        return cls(hidden=2432, depth_double=38, depth_single=0, heads=38,
+                   context_dim=4096, pooled_dim=2048, guidance_embed=False,
+                   pos_embed="learned", pos_embed_max_size=192,
+                   qk_norm=True)
 
     @classmethod
     def tiny(cls, pos_embed: str = "sincos", **kw) -> "DiTConfig":
@@ -72,6 +96,15 @@ class DiTConfig:
                     pos_embed=pos_embed)
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def sd3_tiny(cls, **kw) -> "DiTConfig":
+        """SD3-shaped tiny: joint-only depth, a learned 12×12 table, no
+        qk-norm (``tiny()``'s guidance embedder kept, as in JAX's)."""
+        base = dict(pos_embed_max_size=12, depth_double=2, depth_single=0,
+                    qk_norm=False)
+        base.update(kw)
+        return cls.tiny(pos_embed="learned", **base)
 
     @property
     def head_dim(self) -> int:
@@ -206,28 +239,34 @@ class Modulation(nn.Module):
 
 
 class _QKV(nn.Module):
-    """One Linear to q|k|v, heads split, RMS qk-norm with fp32 scales."""
+    """One Linear to q|k|v, heads split, RMS qk-norm with fp32 scales
+    (none without ``qk_norm``: SD3-medium's raw q/k)."""
 
-    def __init__(self, hidden: int, heads: int, dtype: torch.dtype):
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
+                 qk_norm: bool = True):
         super().__init__()
         self.heads = heads
         self.qkv = nn.Linear(hidden, hidden * 3, dtype=dtype)
-        self.q_scale = nn.Parameter(torch.ones(hidden // heads,
-                                               dtype=torch.float32))
-        self.k_scale = nn.Parameter(torch.ones(hidden // heads,
-                                               dtype=torch.float32))
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.q_scale = nn.Parameter(torch.ones(hidden // heads,
+                                                   dtype=torch.float32))
+            self.k_scale = nn.Parameter(torch.ones(hidden // heads,
+                                                   dtype=torch.float32))
 
     @torch.no_grad()
     def flax_init(self, generator: torch.Generator) -> None:
         """``q_scale``/``k_scale`` start at one, as the flax parameters."""
-        self.q_scale.fill_(1.0)
-        self.k_scale.fill_(1.0)
+        if self.qk_norm:
+            self.q_scale.fill_(1.0)
+            self.k_scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor):
         B, N, _ = x.shape
         q, k, v = self.qkv(x).view(B, N, 3, self.heads, -1).unbind(2)
-        q = _rms(q) * self.q_scale.to(x.dtype)
-        k = _rms(k) * self.k_scale.to(x.dtype)
+        if self.qk_norm:
+            q = _rms(q) * self.q_scale.to(x.dtype)
+            k = _rms(k) * self.k_scale.to(x.dtype)
         return q, k, v
 
 
@@ -239,7 +278,8 @@ class DoubleBlock(nn.Module):
         dt, H = config.torch_dtype, config.hidden
         for s in ("img", "txt"):
             self.add_module(f"{s}_mod", Modulation(2, H, dt))
-            self.add_module(f"{s}_qkv", _QKV(H, config.heads, dt))
+            self.add_module(f"{s}_qkv", _QKV(H, config.heads, dt,
+                                             config.qk_norm))
             self.add_module(f"{s}_proj", nn.Linear(H, H, dtype=dt))
             self.add_module(f"{s}_mlp_up", nn.Linear(H, 4 * H, dtype=dt))
             self.add_module(f"{s}_mlp_down", nn.Linear(4 * H, H, dtype=dt))
@@ -276,7 +316,7 @@ class SingleBlock(nn.Module):
         super().__init__()
         dt, H = config.torch_dtype, config.hidden
         self.mod = Modulation(1, H, dt)
-        self.qkv = _QKV(H, config.heads, dt)
+        self.qkv = _QKV(H, config.heads, dt, config.qk_norm)
         self.mlp_up = nn.Linear(H, 4 * H, dtype=dt)
         self.out = nn.Linear(5 * H, H, dtype=dt)
 
@@ -310,9 +350,31 @@ class DiT(nn.Module):
         for i in range(cfg.depth_single):
             self.add_module(f"single_{i}", SingleBlock(cfg))
         self.final_mod = Modulation(1, H, dt)
+        if cfg.pos_embed == "learned":
+            m = cfg.pos_embed_max_size
+            self.pos_emb = nn.Parameter(torch.zeros(m * m, H))
         # fp32 compute site, as in the JAX model
         self.img_out = nn.Linear(H, p * p * cfg.in_channels,
                                  dtype=torch.float32)
+
+    @torch.no_grad()
+    def flax_init(self, generator: torch.Generator) -> None:
+        """``pos_emb`` ~ normal(0.01), as the flax parameter."""
+        if self.config.pos_embed == "learned":
+            self.pos_emb.normal_(0.0, 0.01, generator=generator)
+
+    def learned_positions(self, hp: int, wp: int) -> torch.Tensor:
+        """SD3's table centre-cropped to an ``hp × wp`` patch grid:
+        [hp·wp, hidden] in fp32."""
+        m = self.config.pos_embed_max_size
+        if hp > m or wp > m:
+            raise ValueError(
+                f"sample grid {hp}×{wp} exceeds the learned position "
+                f"table ({m}×{m}): SD3-family models cannot sample "
+                "beyond pos_embed_max_size patches per side")
+        top, left = (m - hp) // 2, (m - wp) // 2
+        table = self.pos_emb.view(m, m, -1)
+        return table[top:top + hp, left:left + wp].reshape(hp * wp, -1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, pooled: torch.Tensor,
@@ -331,6 +393,8 @@ class DiT(nn.Module):
             pe_txt = rope_freqs(ids_txt, cfg.axes_dim, cfg.rope_theta)
             pe_full = (torch.cat([pe_txt[0], pe_img[0]], dim=0),
                        torch.cat([pe_txt[1], pe_img[1]], dim=0))
+        elif cfg.pos_embed == "learned":
+            img = img + self.learned_positions(H // p, W // p)[None].to(dt)
         else:
             img = img + sincos_2d(H // p, W // p, cfg.hidden, dev)[None].to(dt)
         txt = self.txt_in(context.to(dt))

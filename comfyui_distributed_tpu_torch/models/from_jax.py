@@ -8,9 +8,10 @@ layout rules:
 - Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW, DHWIO → Conv3d
   ``weight`` OIDHW;
 - LayerNorm/GroupNorm ``scale`` → ``weight``; Embed ``embedding`` →
-  ``weight``; ``bias`` and bare parameters (``pos_emb``, the DiT's fp32
-  ``q_scale``/``k_scale``) keep their name. The DiT's parameter-free
-  LayerNorms have no leaf on either side.
+  ``weight``; ``bias`` and bare parameters (``pos_emb``: CLIP's and SD3's
+  learned tables, the DiT's fp32 ``q_scale``/``k_scale``) keep their
+  name. The DiT's parameter-free LayerNorms have no leaf on either side,
+  nor have an SD3-medium DiT's qk-norm scales (``qk_norm`` off).
 
 The CLIP towers of ``models/clip.py`` carry by the same rules
 (``tok_emb/embedding``, ``pos_emb``, ``layer_{i}/attn/q_proj/kernel``,
@@ -19,7 +20,8 @@ clip_g=)``), and so does T5 (``models/t5.py``: ``shared/embedding``,
 ``rel_bias/embedding`` or ``rel_bias_{i}/embedding``,
 ``attn_{i}/{q,k,v,o}/kernel``, the RMS norms' ``weight``); a FLUX
 bundle's ``FluxTextStack`` takes both towers
-(``ModelBundle.load_from_jax(t5=, clip_l=)``).
+(``ModelBundle.load_from_jax(t5=, clip_l=)``), an SD3 bundle's
+``SD3TextStack`` all three (``t5=, clip_l=, clip_g=``).
 
 The tree is a nested mapping whose leaves are numpy arrays (or anything
 with ``.shape`` for the shape-only check, e.g. ``jax.ShapeDtypeStruct``);

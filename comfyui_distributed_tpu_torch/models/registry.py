@@ -11,25 +11,32 @@ A name maps to an architecture preset and, under the registry's
 - ``<root>/<name>.safetensors``: a published single-file LDM checkpoint,
   converted on first load (``models/convert.py``) together with the
   preset's published CLIP stack (``models/clip.py``); for ``flux``, the
-  BFL transformer alone; for ``wan``/``wan-i2v``, the WAN transformer
-  alone (bare or under ``model.diffusion_model.``);
+  BFL transformer alone; for ``sd3-medium``/``sd35-large``, the SAI MMDiT
+  alone; for ``wan``/``wan-i2v``, the WAN transformer alone (each bare or
+  under ``model.diffusion_model.``);
 - ``<root>/<name>.high.safetensors`` and ``<name>.low.safetensors``: the
   two experts of a dual-expert preset (``wan-2.2-t2v``), both or
   neither (one alone raises).
 
-FLUX's other files (T5-XXL, CLIP-L, ``ae.safetensors``) and WAN's UMT5-XXL
-are converted by ``load_text_encoder_files`` and ``load_vae_file``, in
-practice once, by ``python -m comfyui_distributed_tpu_torch convert
---preset flux --checkpoint … --t5 … --clip-l … --vae …`` (``--preset wan
---checkpoint … --t5 …``; ``--preset wan-2.2-t2v --checkpoint …
---checkpoint-low …``) into ``<root>/<name>/``. The T5 stacks
+FLUX's other files (T5-XXL, CLIP-L, ``ae.safetensors``), SD3's (T5-XXL,
+CLIP-L, CLIP-G) and WAN's UMT5-XXL are converted by
+``load_text_encoder_files`` and ``load_vae_file``, in practice once, by
+``python -m comfyui_distributed_tpu_torch convert --preset flux
+--checkpoint … --t5 … --clip-l … --vae …`` (``--preset sd3-medium
+--checkpoint … --t5 … --clip-l …``; ``--preset wan --checkpoint … --t5
+…``; ``--preset wan-2.2-t2v --checkpoint … --checkpoint-low …``) into
+``<root>/<name>/``; the CLI has no ``--clip-g`` (nor has JAX's), so SD3's
+CLIP-G comes through ``load_text_encoder_files(clip_g=…)``. The T5 stacks
 (``models/t5.py``, fp32) are built only to be filled: from a file or a
 converted bundle, never drawn at full width (T5-XXL 4.76 B parameters,
 UMT5-XXL 5.7 B); without one the bundle encodes with the hash-tokenised
 ``TextEncoder``. WAN's 3D VAE has no published layout either package
 reads (``load_vae_file`` refuses it).
 
-Presets: ``sdxl``, ``sd15``, ``tiny``; ``flux``, ``flux-tiny``; the
+Presets: ``sdxl``, ``sd15``, ``tiny``; ``flux``, ``flux-tiny``;
+``sd3-medium``, ``sd35-large`` (SD3's 16-channel VAE, scaling 1.5305 and
+shift 0.0609; the hash encoder at 4096/2048 at random init) and
+``sd3-tiny``; the
 video presets ``wan`` (WAN 14B t2v, the 3D causal VAE), ``wan-i2v``
 (in_channels 36: noise, a 4-channel mask, the start image's latents),
 ``wan-2.2-t2v`` (two WAN 14B experts split at sigma 0.875),
@@ -40,7 +47,8 @@ image VAE per frame) and their test sizes ``wan-tiny`` (image VAE),
 A file's depths decide the core's, read before it is built
 (``preset_for_checkpoint``): a UNet's middle depth (a published SD 1.5
 file has a middle transformer the JAX ``sd15`` preset lacks), a FLUX
-transformer's double and single block counts, a WAN transformer's blocks
+transformer's double and single block counts, an SD3 MMDiT's joint
+blocks, a WAN transformer's blocks
 and T5's or UMT5's layers (a lighter variant, or a file cut in depth); a
 converted bundle's manifest records them. The JAX package builds the
 preset's depths and refuses such files.
@@ -89,7 +97,7 @@ from .controlnet import PRESETS as CONTROLNET_PRESETS
 from .controlnet import ControlNetBundle, init_controlnet
 from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
-from .t5 import FluxTextStack, T5Encoder, UMT5Conditioner
+from .t5 import FluxTextStack, SD3TextStack, T5Encoder, UMT5Conditioner
 from .layers import flax_init_
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
 from .unet import UNet2D, UNetConfig
@@ -112,7 +120,7 @@ class ModelPreset:
     text: TextEncoderConfig
     dit: Optional[DiTConfig] = None       # flow (FLUX-class) models
     # published text stack: "sdxl" | "clip-l" | "flux" (T5-XXL + CLIP-L) |
-    # "umt5" (WAN's UMT5-XXL)
+    # "sd3" (CLIP-L + CLIP-G + T5-XXL) | "umt5" (WAN's UMT5-XXL)
     clip: Optional[str] = None
     video: Union[WanConfig, VideoDiTConfig, None] = None   # t2v/i2v models
     # WAN 2.2's dual experts: the sigma at which the high-noise expert
@@ -128,6 +136,10 @@ class ModelPreset:
 
 # WAN's conditioning width: UMT5-XXL's 4096 (the hash encoder at random init)
 _WAN_TEXT = TextEncoderConfig(output_dim=4096, pooled_dim=768)
+# SD3's: T5-XXL's 4096 and the CLIP-L + CLIP-G projections' 768 + 1280
+_SD3_TEXT = TextEncoderConfig(output_dim=4096, pooled_dim=2048)
+_SD3_VAE = VAEConfig(latent_channels=16, scaling_factor=1.5305,
+                     shift_factor=0.0609)
 
 
 PRESETS: dict[str, ModelPreset] = {
@@ -152,6 +164,15 @@ PRESETS: dict[str, ModelPreset] = {
         dit=DiTConfig.flux(), clip="flux"),
     "flux-tiny": ModelPreset("flux-tiny", None, VAEConfig.tiny(),
                              TextEncoderConfig.tiny(), dit=DiTConfig.tiny()),
+    # SD3: the 16-channel VAE of its own scaling; CLIP-L + CLIP-G + T5-XXL
+    # from files (kind "sd3"), the hash encoder at 4096/2048 at random init
+    "sd3-medium": ModelPreset("sd3-medium", None, _SD3_VAE, _SD3_TEXT,
+                              dit=DiTConfig.sd3_medium(), clip="sd3"),
+    "sd35-large": ModelPreset("sd35-large", None, _SD3_VAE, _SD3_TEXT,
+                              dit=DiTConfig.sd35_large(), clip="sd3"),
+    "sd3-tiny": ModelPreset("sd3-tiny", None, VAEConfig.tiny(),
+                            TextEncoderConfig.tiny(),
+                            dit=DiTConfig.sd3_tiny(), clip="sd3"),
     # WAN t2v: 16-channel video latents from the 3D causal VAE (4× in time)
     "wan": ModelPreset("wan", None, WanVAEConfig.wan(), _WAN_TEXT,
                        video=WanConfig.wan_14b(), clip="umt5"),
@@ -205,18 +226,19 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
 def preset_for_checkpoint(preset: ModelPreset,
                           ckpt: Optional[Path]) -> ModelPreset:
     """``preset`` with the depths of ``ckpt``, read before anything is
-    built: a UNet's middle depth, a DiT's double and single block counts,
-    a WAN transformer's blocks (a dual-expert pair: the high file's).
-    From a converted bundle's manifest (``arch.middle_depth``, ``depth``,
-    ``wan_layers``) or a single file's header (``convert.with_middle_of``,
-    ``convert.with_flux_depth_of``, ``convert.with_wan_depth_of``).
+    built: a UNet's middle depth, a DiT's double and single block counts
+    (an SD3 file's joint blocks), a WAN transformer's blocks (a
+    dual-expert pair: the high file's). From a converted bundle's manifest
+    (``arch.middle_depth``, ``depth``, ``wan_layers``) or a single file's
+    header (``convert.with_middle_of``, ``convert.with_flux_depth_of``,
+    ``convert.with_sd3_depth_of``, ``convert.with_wan_depth_of``).
     Widths always come from the preset."""
     if ckpt is None:
         return preset
     from ..utils.safetensors import SafetensorsFile
     from .convert import (detect_layout, flux_prefix_of, wan_prefix_of,
                           with_flux_depth_of, with_middle_of,
-                          with_wan_depth_of)
+                          with_sd3_depth_of, with_wan_depth_of)
 
     ckpt = Path(ckpt)
     unet, dit, video = preset.unet, preset.dit, preset.video
@@ -242,6 +264,8 @@ def preset_for_checkpoint(preset: ModelPreset,
                 layout = detect_layout(sd)
                 if layout == "flux" and dit is not None:
                     dit = with_flux_depth_of(dit, sd, flux_prefix_of(sd))
+                elif layout == "sd3" and dit is not None:
+                    dit = with_sd3_depth_of(dit, sd, flux_prefix_of(sd))
                 elif layout == "wan" and wan:
                     video = with_wan_depth_of(video, sd, wan_prefix_of(sd))
     if (unet, dit, video) == (preset.unet, preset.dit, preset.video):
@@ -340,16 +364,19 @@ class ModelBundle:
     def build_clip_stack(self, tiny: Optional[bool] = None,
                          empty: bool = False,
                          empty_t5: Optional[bool] = None,
-                         t5_layers: Optional[int] = None) -> nn.Module:
+                         t5_layers: Optional[int] = None,
+                         empty_g: Optional[bool] = None) -> nn.Module:
         """The preset's published text stack (CLIP-L, CLIP-L + CLIP-G for
-        ``sdxl``, T5 + CLIP-L for ``flux``, UMT5 for ``umt5``),
-        random-initialised from the bundle's seed, or allocated without
-        drawing (``empty``; for T5 alone ``empty_t5``) for weights about to
-        be loaded; the bundle's text encoder becomes its
-        ``CLIPConditioner`` (the ``FluxTextStack`` or ``UMT5Conditioner``
-        itself for ``flux`` and ``umt5``). ``tiny`` (default: the preset's
-        text encoder is under 256 wide) takes the test-size towers;
-        ``t5_layers`` sets T5's depth (a file's)."""
+        ``sdxl``, T5 + CLIP-L for ``flux``, CLIP-L + CLIP-G + T5 for
+        ``sd3``, UMT5 for ``umt5``), random-initialised from the bundle's
+        seed, or allocated without drawing (``empty``; for T5 alone
+        ``empty_t5``, for SD3's CLIP-G alone ``empty_g``) for weights about
+        to be loaded; the bundle's text encoder becomes its
+        ``CLIPConditioner`` (the ``FluxTextStack``, ``SD3TextStack`` or
+        ``UMT5Conditioner`` itself for ``flux``, ``sd3`` and ``umt5``).
+        ``tiny`` (default: the preset's text encoder is under 256 wide)
+        takes the test-size towers; ``t5_layers`` sets T5's depth (a
+        file's)."""
         if self.clip_stack is not None:
             return self.clip_stack
         kind = self.preset.clip
@@ -364,28 +391,32 @@ class ModelBundle:
             return (_empty(build, self.device) if blank
                     else _random(build, self.device, gen))
 
-        def tower(cfg):
-            return make(lambda: CLIPTextTransformer(cfg), empty)
-        if kind == "umt5":
-            cfg_t5 = UMT5Conditioner.config(tiny)
-            if t5_layers is not None:
-                cfg_t5 = dataclasses.replace(cfg_t5, num_layers=t5_layers)
-            t5 = make(lambda: T5Encoder(cfg_t5),
-                      empty if empty_t5 is None else empty_t5)
-            self.clip_stack = UMT5Conditioner(t5).eval()
+        def tower(cfg, blank: bool = empty):
+            return make(lambda: CLIPTextTransformer(cfg), blank)
+
+        def adopt_stack(stack: nn.Module) -> nn.Module:
+            self.clip_stack = stack.eval()
             self.text_encoder = self.clip_stack
             self._stamp_text_encoder()
             return self.clip_stack
+
+        def t5_tower(cfg_t5):
+            if t5_layers is not None:
+                cfg_t5 = dataclasses.replace(cfg_t5, num_layers=t5_layers)
+            return make(lambda: T5Encoder(cfg_t5),
+                        empty if empty_t5 is None else empty_t5)
+        if kind == "umt5":
+            return adopt_stack(UMT5Conditioner(
+                t5_tower(UMT5Conditioner.config(tiny))))
         if kind == "flux":
             cfg_t5, cfg_l = FluxTextStack.configs(tiny)
-            if t5_layers is not None:
-                cfg_t5 = dataclasses.replace(cfg_t5, num_layers=t5_layers)
-            t5 = make(lambda: T5Encoder(cfg_t5),
-                      empty if empty_t5 is None else empty_t5)
-            self.clip_stack = FluxTextStack(t5, tower(cfg_l)).eval()
-            self.text_encoder = self.clip_stack
-            self._stamp_text_encoder()
-            return self.clip_stack
+            t5 = t5_tower(cfg_t5)
+            return adopt_stack(FluxTextStack(t5, tower(cfg_l)))
+        if kind == "sd3":
+            cfg_l, cfg_g, cfg_t5 = SD3TextStack.configs(tiny)
+            clip_l = tower(cfg_l)
+            clip_g = tower(cfg_g, empty if empty_g is None else empty_g)
+            return adopt_stack(SD3TextStack(clip_l, clip_g, t5_tower(cfg_t5)))
         cfg_l, cfg_g = SDXLTextStack.configs(tiny)
         if kind == "sdxl":
             self.clip_stack = SDXLTextStack(tower(cfg_l), tower(cfg_g)).eval()
@@ -410,6 +441,10 @@ class ModelBundle:
             state["clip_g"] = self.clip_stack.clip_g
         elif self.preset.clip == "flux":
             state["clip_l"] = self.clip_stack.clip_l
+            state["t5"] = self.clip_stack.t5
+        elif self.preset.clip == "sd3":
+            state["clip_l"] = self.clip_stack.clip_l
+            state["clip_g"] = self.clip_stack.clip_g
             state["t5"] = self.clip_stack.t5
         elif self.preset.clip == "umt5":
             state["t5"] = self.clip_stack.t5
@@ -503,13 +538,13 @@ class ModelBundle:
 
     def load_safetensors_checkpoint(self, path: Path) -> None:
         """Convert a published single-file checkpoint (SDXL or SD 1.5 LDM
-        layout, with the preset's CLIP stack; or a FLUX or WAN
-        transformer) into this bundle in place. A FLUX or WAN file carries
-        no text encoder: its stack is built by ``load_text_encoder_files``
-        only."""
+        layout, with the preset's CLIP stack; or a FLUX, SD3 or WAN
+        transformer) into this bundle in place. A FLUX, SD3 or WAN file
+        carries no text encoder: its stack is built by
+        ``load_text_encoder_files`` only."""
         from .convert import convert_checkpoint
 
-        if self.preset.clip not in (None, "flux", "umt5"):
+        if self.preset.clip not in (None, "flux", "sd3", "umt5"):
             self.build_clip_stack()
         self._weights_source = Path(path)
         convert_checkpoint(path, self)
@@ -532,37 +567,47 @@ class ModelBundle:
         self._stamp_text_encoder()
 
     def load_text_encoder_files(self, t5: Optional[Path] = None,
-                                clip_l: Optional[Path] = None) -> None:
-        """Convert the text-encoder files a FLUX or WAN distribution ships
-        (``t5xxl_*.safetensors`` or UMT5-XXL in the HF T5 layout,
-        ``clip_l.safetensors`` as HF ``text_model.*``) into this bundle's
-        ``FluxTextStack`` or ``UMT5Conditioner``, built first where there
-        is none (each tower given a file is allocated without drawing)."""
+                                clip_l: Optional[Path] = None,
+                                clip_g: Optional[Path] = None) -> None:
+        """Convert the text-encoder files a FLUX, SD3 or WAN distribution
+        ships (``t5xxl_*.safetensors`` or UMT5-XXL in the HF T5 layout,
+        ``clip_l.safetensors``/``clip_g.safetensors`` as HF
+        ``text_model.*``, SD3's with their ``text_projection``) into this
+        bundle's ``FluxTextStack``, ``SD3TextStack`` or
+        ``UMT5Conditioner``, built first where there is none: each tower
+        given a file is allocated without drawing, the others drawn from
+        the bundle's seed."""
         from ..utils.safetensors import SafetensorsFile
         from .convert import convert_clip_hf, convert_t5, t5_layers_of
 
-        if self.preset.clip not in ("flux", "umt5"):
+        if self.preset.clip not in ("flux", "sd3", "umt5"):
             raise ValidationError(
                 "separate text-encoder files are a flux-stack feature (and "
-                f"the wan presets' UMT5); preset {self.preset.name!r} bundles "
-                "its encoders in the single-file checkpoint")
-        if clip_l is not None and self.preset.clip != "flux":
-            raise ValidationError("clip_l is part of the flux stack only")
+                "the sd3 presets', and the wan presets' UMT5); preset "
+                f"{self.preset.name!r} bundles its encoders in the "
+                "single-file checkpoint")
+        if clip_l is not None and self.preset.clip not in ("flux", "sd3"):
+            raise ValidationError("clip_l is part of the flux stack only "
+                                  "(and of the sd3 stack)")
+        if clip_g is not None and self.preset.clip != "sd3":
+            raise ValidationError("clip_g is part of the sd3 stack only")
         if self.clip_stack is None:
             layers = None
             if t5 is not None:
                 with SafetensorsFile(t5) as sd:
                     layers = t5_layers_of(sd)
             self.build_clip_stack(empty=clip_l is not None,
-                                  empty_t5=t5 is not None, t5_layers=layers)
+                                  empty_t5=t5 is not None, t5_layers=layers,
+                                  empty_g=clip_g is not None)
         if t5 is not None:
             with SafetensorsFile(t5) as sd:
                 convert_t5(sd, self.clip_stack.t5)
             if self._weights_source is None:
                 self._weights_source = Path(t5)
-        if clip_l is not None:
-            with SafetensorsFile(clip_l) as sd:
-                convert_clip_hf(sd, self.clip_stack.clip_l)
+        for path, tower in ((clip_l, "clip_l"), (clip_g, "clip_g")):
+            if path is not None:
+                with SafetensorsFile(path) as sd:
+                    convert_clip_hf(sd, getattr(self.clip_stack, tower))
         self._stamp_text_encoder()
 
     def load_vae_file(self, path: Path) -> None:
@@ -595,8 +640,8 @@ class ModelBundle:
                       t5: Optional[Mapping] = None) -> "ModelBundle":
         """Replace the weights with the JAX package's trees (UNet or DiT
         params, VAE decoder params, and where given the hash text
-        encoder's, the VAE encoder's, the CLIP towers' and FLUX's T5
-        params; a part without a tree keeps its weights)."""
+        encoder's, the VAE encoder's, the CLIP towers' and FLUX's or SD3's
+        T5 params; a part without a tree keeps its weights)."""
         load_from_jax(self.core, core)
         load_from_jax(self.pipeline.vae.decoder, vae_dec)
         if text is not None:
@@ -611,11 +656,11 @@ class ModelBundle:
             load_from_jax(self.pipeline.vae.encoder, vae_enc)
         if clip_l is not None or clip_g is not None or t5 is not None:
             stack = self.build_clip_stack()
-            if self.preset.clip == "flux":
-                if t5 is not None:
-                    load_from_jax(stack.t5, t5)
-                if clip_l is not None:
-                    load_from_jax(stack.clip_l, clip_l)
+            if self.preset.clip in ("flux", "sd3"):
+                for tree, tower in ((t5, "t5"), (clip_l, "clip_l"),
+                                    (clip_g, "clip_g")):
+                    if tree is not None:
+                        load_from_jax(getattr(stack, tower), tree)
             elif self.preset.clip == "sdxl":
                 load_from_jax(stack.clip_l, clip_l)
                 load_from_jax(stack.clip_g, clip_g)

@@ -18,6 +18,11 @@
   (``T5Config.umt5_xxl``: 256 384 pieces, a bias table per layer, 512
   tokens) and a zero pooled vector (WAN has no pooled input; the zeros
   keep the conditioners' interface).
+- ``SD3TextStack``: SD3's three towers, CLIP-L (with its 768-wide
+  projection), CLIP-G and T5-XXL: the context is the two CLIP
+  penultimates side by side, zero-padded to T5's width, followed by T5's
+  last hidden states (``[B, 77 + 512, 4096]``); the pooled vector the two
+  projections side by side (``[B, 2048]``).
 
 Everything runs in fp32, as the JAX config's ``dtype`` says. T5's
 attention is an XLA einsum in the JAX package, not a Pallas kernel, so it
@@ -25,8 +30,7 @@ is plain PyTorch here (no kernel is owed). Attribute names follow the JAX
 parameter tree (``shared``, ``rel_bias``/``rel_bias_{i}``,
 ``ln_attn_{i}/weight``, ``attn_{i}/{q,k,v,o}``, ``ln_ff_{i}/weight``,
 ``ff_{i}/{wi_0,wi_1,wo}``, ``final_ln/weight``), so that
-``models/from_jax.py`` carries a JAX tree. ``SD3TextStack`` is not
-ported (ROADMAP item 13).
+``models/from_jax.py`` carries a JAX tree.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from .clip import (NEG_INF, CLIPTextConfig, CLIPTextTransformer,
                    tokenize_ids, validate_tokenizer_vocab)
 from .t5_tokenizer import T5Tokenizer, load_t5_tokenizer
 from .text import count_hash_tokenization
-from .tokenizer import load_sd_tokenizers
+from .tokenizer import CLIPBPETokenizer, load_sd_tokenizers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,3 +344,113 @@ class UMT5Conditioner(nn.Module):
         context = self.t5(ids.to(dev), mask.to(dev))
         return context, torch.zeros((len(texts), self.pooled_dim),
                                     dtype=context.dtype, device=dev)
+
+
+class SD3TextStack(nn.Module):
+    """SD3's conditioning over CLIP-L, CLIP-G and T5-XXL: ``encode(texts)``
+    → (context = [pad(concat(L.penultimate, G.penultimate), d_t5),
+    T5 last hidden states] along the sequence, pooled = concat(L.projected,
+    G.projected)) on the stack's device, a drop-in for the other text
+    encoders of the graph nodes. CLIP-L pads with EOT, CLIP-G with 0. The
+    CLIP vocabulary comes from ``CDT_TOKENIZER_DIR`` (both towers or
+    neither), the T5 tokenizer from ``CDT_T5_TOKENIZER_DIR``; without one a
+    tower hash-tokenises and a warning says so."""
+
+    def __init__(self, clip_l: CLIPTextTransformer,
+                 clip_g: CLIPTextTransformer, t5: T5Encoder,
+                 t5_tok: Optional[T5Tokenizer] = None,
+                 tok_l: Optional[CLIPBPETokenizer] = None,
+                 tok_g: Optional[CLIPBPETokenizer] = None):
+        super().__init__()
+        self.clip_l = clip_l
+        self.clip_g = clip_g
+        self.t5 = t5
+        self.t5_tok = t5_tok if t5_tok is not None else load_t5_tokenizer()
+        if (tok_l is None) != (tok_g is None):
+            raise ValueError(
+                "SD3TextStack needs both tok_l and tok_g (or neither, to "
+                "auto-load from CDT_TOKENIZER_DIR); got only "
+                f"{'tok_l' if tok_g is None else 'tok_g'}")
+        if tok_l is None:
+            # each tower's own context length: its position table covers
+            # only config.max_len
+            tok_l, _ = load_sd_tokenizers(max_len=clip_l.config.max_len)
+            if tok_l is not None:
+                tok_g = CLIPBPETokenizer.from_env(
+                    max_len=clip_g.config.max_len, pad_token_id=0)
+        self.tok_l, self.tok_g = tok_l, tok_g
+        if tok_l is not None:
+            validate_tokenizer_vocab(tok_l, clip_l.config, "clip_l")
+            if tok_g is None:
+                log("WARNING: no tokenizer for the clip_g tower; it falls "
+                    "back to hash tokenization")
+            else:
+                validate_tokenizer_vocab(tok_g, clip_g.config, "clip_g")
+        else:
+            log("WARNING: no CLIP vocab at CDT_TOKENIZER_DIR: text is "
+                "hash-tokenized; conditioning will not reflect the prompt")
+        if self.t5_tok is None:
+            log("WARNING: no T5 tokenizer (CDT_T5_TOKENIZER_DIR): the T5 "
+                "context block is hash-tokenized")
+
+    @staticmethod
+    def configs(tiny: bool = False
+                ) -> tuple[CLIPTextConfig, CLIPTextConfig, T5Config]:
+        """(CLIP-L, CLIP-G, T5). Tiny: the CLIP widths 16 + 16 are T5's
+        d_model, the projections 8 + 8 the ``sd3-tiny`` pooled width."""
+        if tiny:
+            return (CLIPTextConfig.tiny(width=16, heads=2, projection_dim=8),
+                    CLIPTextConfig.tiny(width=16, heads=2, act="gelu",
+                                        projection_dim=8),
+                    T5Config.tiny())
+        return (dataclasses.replace(CLIPTextConfig.clip_l(),
+                                    projection_dim=768),
+                CLIPTextConfig.clip_g(), T5Config.xxl())
+
+    @property
+    def device(self) -> torch.device:
+        return self.t5.device
+
+    def _ids(self, texts: list[str]):
+        cfg_l, cfg_g = self.clip_l.config, self.clip_g.config
+        ids, mask = t5_token_ids(self.t5.config, self.t5_tok, texts)
+        return (tokenize_ids(texts, self.tok_l, cfg_l, cfg_l.eot_token_id),
+                tokenize_ids(texts, self.tok_g, cfg_g, 0), ids, mask)
+
+    def token_signature(self, texts) -> tuple[list, str]:
+        """(CLIP-L ids, CLIP-G ids, T5 ids and mask; the real-vs-hash mode
+        of each tower)."""
+        sig = [t.tolist() for t in self._ids([str(t) for t in texts])]
+        mode = (f"l={'bpe' if self.tok_l is not None else 'hash'},"
+                f"g={'bpe' if self.tok_g is not None else 'hash'},"
+                f"t5={'sp' if self.t5_tok is not None else 'hash'}")
+        return sig, mode
+
+    @property
+    def tokenization_mode(self) -> str:
+        """"real" when every tower has its tokenizer, else "hash"."""
+        return ("real" if None not in (self.tok_l, self.tok_g, self.t5_tok)
+                else "hash")
+
+    @torch.no_grad()
+    def encode(self, texts) -> tuple[torch.Tensor, torch.Tensor]:
+        dev = self.device
+        for name, tok in (("clip_l", self.tok_l), ("clip_g", self.tok_g),
+                          ("t5", self.t5_tok)):
+            if tok is None:
+                count_hash_tokenization(name)
+        toks_l, toks_g, ids, mask = self._ids([str(t) for t in texts])
+        out_l = self.clip_l(toks_l.to(dev))
+        out_g = self.clip_g(toks_g.to(dev))
+        clip_ctx = torch.cat([out_l["penultimate"], out_g["penultimate"]],
+                             dim=-1)
+        d = self.t5.config.d_model
+        if clip_ctx.shape[-1] > d:
+            raise ValueError(
+                f"CLIP concat width {clip_ctx.shape[-1]} exceeds the T5 "
+                f"d_model {d}: the stack's towers are mismatched")
+        clip_ctx = F.pad(clip_ctx, (0, d - clip_ctx.shape[-1]))
+        t5_ctx = self.t5(ids.to(dev), mask.to(dev))
+        context = torch.cat([clip_ctx, t5_ctx.to(clip_ctx.dtype)], dim=1)
+        pooled = torch.cat([out_l["projected"], out_g["projected"]], dim=-1)
+        return context, pooled

@@ -12,7 +12,7 @@ layouts, RRDBNet (both ESRGAN layouts) and ControlNet. At full SDXL and
 SD 1.5 width the (source key, shape) sets of both walks are equal
 (``meta`` modules, JAX shape trees). Missing, extra and mis-shaped keys
 raise ``ConversionError``; so do a published SD 1.5 middle block and the
-FLUX, SD3 and WAN layouts."""
+FLUX, SD3 and WAN layouts on a UNet preset."""
 
 import dataclasses
 import json
@@ -523,7 +523,12 @@ def test_published_sd15_middle_block_is_refused(tmp_path, monkeypatch):
     # preset (the case keeps its id from when it named item A.7b)
     pytest.param("double_blocks.0.img_attn.qkv.weight", "needs a dit preset",
                  id="double_blocks.0.img_attn.qkv.weight-A.7b"),
-    ("model.diffusion_model.joint_blocks.0.x_block.attn.qkv.weight", "item 13"),
+    # SD3 is ported: an SD3 file on a UNet preset is refused for the preset
+    # (the case keeps its id from when it named item 13;
+    # tests/test_torch_sd3.py asserts the load)
+    pytest.param("model.diffusion_model.joint_blocks.0.x_block.attn.qkv.weight",
+                 "needs a dit preset",
+                 id="model.diffusion_model.joint_blocks.0.x_block.attn.qkv.weight-item 13"),
     # WAN is ported: a WAN file on a UNet preset is refused for the preset
     # (the case keeps its id from when it named item 15)
     pytest.param("blocks.0.self_attn.norm_q.weight",

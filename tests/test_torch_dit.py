@@ -72,8 +72,15 @@ def test_dit_configs_match_jax():
     flux = tdit.DiTConfig.flux()
     assert (flux.hidden, flux.heads, flux.head_dim, sum(flux.axes_dim)) \
         == (3072, 24, 128, 128)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdit.DiTConfig.tiny(pos_embed="learned")
+    # SD3's learned table is ported (tests/test_torch_sd3.py); an unknown
+    # scheme is refused
+    learned = tdit.DiTConfig.tiny(pos_embed="learned", pos_embed_max_size=12)
+    assert dataclasses.asdict(learned) == {
+        k: v for k, v in dataclasses.asdict(jdit.DiTConfig.tiny(
+            pos_embed="learned", pos_embed_max_size=12)).items()
+        if k in dataclasses.asdict(learned)}
+    with pytest.raises(ValueError, match="unknown pos_embed"):
+        tdit.DiTConfig.tiny(pos_embed="alibi")
 
 
 @pytest.mark.parametrize("h,w,dim", [(4, 6, 64), (3, 5, 30)])

@@ -142,14 +142,20 @@ def test_flux_tiny_pipeline_matches_jax_with_every_sampler(tiny_flow_pair,
 @pytest.mark.parametrize("spec,match", [
     (dict(cfg=4.0), "CFG"), (dict(sampler="heun"), "heun")])
 def test_flow_pipeline_rejects_unported(tiny_flow_pair, spec, match):
-    """True CFG is refused; heun, refused before the port's samplers,
-    runs."""
+    """True CFG (ported since the SD3 slice; ``tests/test_torch_sd3.py``
+    holds it to JAX's) needs its negative conditioning and runs with one;
+    heun, refused before the port's samplers, runs."""
     _, tp, ctx, pooled = tiny_flow_pair
     fspec = tflow.FlowSpec(height=16, width=16, steps=2, **spec)
     args = (0, torch.from_numpy(ctx), torch.from_numpy(pooled))
     if match == "CFG":
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="requires negative conditioning"):
             tp.generate(fspec, *args)
+        images = tp.generate(fspec, *args,
+                             uncond_context=torch.zeros_like(args[1]))
+        assert tuple(images.shape) == (1, 16, 16, 3)
+        assert not torch.equal(images, tp.generate(
+            dataclasses.replace(fspec, cfg=1.0), *args))
         return
     images = tp.generate(fspec, *args)
     assert tuple(images.shape) == (1, 16, 16, 3)

@@ -33,6 +33,10 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     assert {"comfyui_distributed_tpu_torch.graph.nodes_builtin",
             "comfyui_distributed_tpu_torch.models.dit",
+            "comfyui_distributed_tpu_torch.models.t5",
+            "comfyui_distributed_tpu_torch.models.registry",
+            "comfyui_distributed_tpu_torch.models.from_jax",
+            "comfyui_distributed_tpu_torch.diffusion.guidance",
             "comfyui_distributed_tpu_torch.models.wan",
             "comfyui_distributed_tpu_torch.models.wan_vae",
             "comfyui_distributed_tpu_torch.models.video_dit",
@@ -153,6 +157,10 @@ def test_entry_points_refuse_without_card(no_card, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_controlnet(UNetConfig.tiny())
+    from comfyui_distributed_tpu_torch.models.registry import PRESETS, ModelBundle
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelBundle(PRESETS["sd3-tiny"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_node("ControlNetLoader")().execute("tiny")
     for workflow in ("distributed-txt2img.json", "flux-txt2img.json"):
