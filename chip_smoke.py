@@ -230,6 +230,37 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    exit and the card's free memory comes back within 1 GiB of its value
    before the launch; last ``python -m comfyui_distributed_tpu_torch
    info`` names the card.
+14c. front door — with the defaults of the front door and the content
+   cache (the served phases before it run with ``CDT_CACHE=0``, so that
+   their launch gates count every text encode; phase 36 and the file
+   request of phase 37 run with the cache too), a master in this process (no
+   workers, ``CDT_FD_WINDOW_MS`` 1500, its own empty cache directory)
+   takes four concurrent ``POST /distributed/queue`` requests of the
+   batchable graph (``CheckpointLoader sdxl`` → positive and negative
+   ``CLIPTextEncode`` → ``TPUTxt2Img`` 1024², 30 euler karras steps, CFG
+   5 → ``SaveImage``; seeds 41–44, four positives, one shared negative,
+   two ``interactive`` and two ``batch``) and a byte-identical twin of the
+   first while it runs: the four answer ``batched`` and run as one group
+   (history ``batch_size`` 4, ``cdt_batch_size`` one observation of 4),
+   each PNG bitwise its own solo ``GraphExecutor`` run without
+   ``content_cache``; the twin answers ``coalesced``, copies its leader's
+   history; the group launches exactly the four solo
+   runs' K1 and K2 less the 12 text-encoder K1 launches the conditioning
+   tier saved (8420 K1, 8400 K2); the conditioning tier counts 5 misses
+   and at least 3 hits. Member 1 again is served by the result tier
+   (history ``cache`` "hit", no launch, the PNG bitwise); member 2 with
+   ``cache: "bypass"`` runs (2100 K1, 2100 K2: its encodes hit the
+   conditioning tier). ``workflows/distributed-txt2img.json`` (a
+   collector) answers ``batched: false`` and runs through the
+   orchestrator (2104 K1, 2100 K2: its negative prompt, the members'
+   shared one, is a conditioning hit). ``/distributed/system_info`` carries
+   ``environment`` with the card's name and the driver's version. A second master with
+   ``CDT_FD_SHED_DEPTH`` 2 takes a burst of 6 requests (512², 4 steps):
+   at least one 429 with ``Retry-After``, every admitted one succeeds.
+   Printed: the group's seconds against the four solo runs', the queue
+   wait by priority, and one SDXL UNet forward of 4 stacked requests
+   (batch 8) against 4 at batch 2 (max abs difference, bitwise or not,
+   the time ratio).
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -401,12 +432,14 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    at seed 31 twice: exactly 8 K1 and 38 × 28 = 1064 K3 at [2·38, 4173,
    64] a request, the repeat bitwise; then its reference velocity as in
    phase 34 (K3's sites on the plain version).
-36. sd3 served — the graph on ``sd3-medium`` through ``POST
-   /distributed/queue`` to a master in this process (phase 33's bundle)
-   and a ``remote`` worker subprocess that builds its own: the master's
-   PNG bitwise the direct seed-31 image, the worker's the seed-32 one; the
-   master's launches 8 K1 + 672 K2, the worker's kernels counted from a
-   ``torch.profiler`` trace of its request.
+36. sd3 served — with the content cache's defaults, master and worker:
+   the graph on ``sd3-medium`` through ``POST /distributed/queue`` to a
+   master in this process (phase 33's bundle) and a ``remote`` worker
+   subprocess that builds its own: the master's PNG bitwise the direct
+   seed-31 image, the worker's the seed-32 one; the master's launches 8
+   K1 + 672 K2, the worker's kernels counted from a ``torch.profiler``
+   trace of its request; each host's conditioning tier 2 misses, and the
+   master's 2 entries persisted.
 37. sd3 files — phase 33's DiT rounded through BF16 and made pre-only as
    an SAI file holds it (``sd3_medium.safetensors`` at full depth, BF16,
    under ``model.diffusion_model.``), CLIP-L (with its 768-wide
@@ -418,8 +451,15 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``load_text_encoder_files(clip_g=…)`` (the CLI has no ``--clip-g``,
    as JAX's): every parameter's digest the source's; the context [1,
    589, 4096], pooled vector [1, 2048] and a velocity at 4685 tokens
-   bitwise the source's; one request from it: exactly 0 K1 and 672 K2 at
-   [2, 4685, 24·64].
+   bitwise the source's; three requests from it at seed 31, each exactly
+   0 K1 and 672 K2 at [2, 4685, 24·64], through ``CLIPTextEncode``'s
+   conditioning tier (the ``content_cache`` a controller gives its
+   executor, over a persisted directory): the first encodes both prompts
+   on the three towers (2 misses, both entries persisted), the second
+   encodes nothing (2 memory hits), the third, with a new cache over the
+   same directory, encodes nothing (2 hits from the persisted tier, copied
+   back to the card); the second's and third's images and PNGs bitwise
+   the first's.
 
 Each phase prints its seconds and the card's peak allocated memory; every
 bundle is dropped before the WAN phases, each WAN bundle before the
@@ -5451,7 +5491,17 @@ def sd3_serve_phase(torch, fa, run: Sd3Run) -> dict:
     and a ``remote`` worker subprocess that builds its own: the master's
     PNG bitwise the direct seed-31 image, the worker's the seed-32 one;
     the master's launches 8 K1 + 672 K2, the worker's kernels counted from
-    a ``torch.profiler`` trace of its request."""
+    a ``torch.profiler`` trace of its request. Both hosts run the content
+    cache's defaults: each encodes both prompts once (2 misses)."""
+    cache_off = os.environ.pop("CDT_CACHE", None)
+    try:
+        return sd3_served(torch, fa, run)
+    finally:
+        if cache_off is not None:
+            os.environ["CDT_CACHE"] = cache_off
+
+
+def sd3_served(torch, fa, run: Sd3Run) -> dict:
     with served_pair(torch, SD3_SERVE_DIR, "sd3", SD3_SERVE_DIR / "worker_in",
                      registry=run.registry) as served:
         secs, counts, kernels = served_request(
@@ -5478,6 +5528,16 @@ def sd3_serve_phase(torch, fa, run: Sd3Run) -> dict:
         say(f"  sd3_00000.png bitwise the direct seed-{SD3_SEED} image, "
             f"sd3_00001.png the seed-{SD3_SEED + 1} image; the worker ran "
             f"{want['flash_attention_core']} K2 launches")
+        master_cond = served.master.cache.conditioning.stats()
+        status, worker_cache = http_json(served.worker_base + "/distributed/cache")
+        worker_cond = worker_cache.get("conditioning", {})
+        say(f"  conditioning tier: master {master_cond}, worker {worker_cond}")
+        require(master_cond["miss"] == 2 and master_cond["hit"] == 0
+                and master_cond["persisted"] == 2,
+                f"served sd3: the master's conditioning tier {master_cond}")
+        require(status == 200 and worker_cond.get("miss") == 2,
+                f"served sd3: the worker's cache answered {status}: "
+                f"{worker_cache}")
     return counts
 
 
@@ -5637,25 +5697,75 @@ def sd3_file_phase(torch, fa, run: Sd3Run) -> dict:
             f"source's (digests); tokenization real; context "
             f"{tuple(context.shape)}, pooled vector and the velocity at "
             f"{SD3_FILE_TOKENS} tokens bitwise the source's")
-        executor = GraphExecutor({"model_registry": registry,
-                                  "output_dir": str(SD3_DIR / "file")})
+        del context, pooled, v
         fa.reset_launches()
-        reset_peak(torch)
-        _, secs, _ = run_counted(torch, fa, executor,
-                                 sd3_workflow("sd3-medium"), "6",
-                                 SD3_FILE_REQUEST, "sd3-medium from its files",
-                                 (SD3_HW, SD3_HW))
-        t = bundle.pipeline.timings
-        say(f"  one request from the restored files: {secs:.3f} s; sampling "
-            f"{t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} s/step; "
-            f"launches {SD3_FILE_REQUEST[0]}, CUDA kernels "
-            f"{SD3_FILE_REQUEST[1]}; max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        sd3_file_requests(torch, fa, registry, stack, tmp / "cache")
         return dict(fa.LAUNCHES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for var in ("CDT_TOKENIZER_DIR", "CDT_T5_TOKENIZER_DIR"):
             os.environ.pop(var, None)
+
+
+def sd3_file_requests(torch, fa, registry, stack, cache_dir: Path) -> None:
+    """Phase 37's requests from the restored files at seed 31, through
+    ``CLIPTextEncode``'s conditioning tier on the three real towers:
+    a miss that encodes and persists, a memory hit, and a hit from the
+    persisted tier under a new cache; each 0 K1 and 672 K2, the hits'
+    images and PNGs bitwise the first's."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.cluster.cache import CacheManager
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    out_dir = SD3_DIR / "file"
+    png = out_dir / "sd3_00000.png"
+    encode = type(stack).encode
+    encodes = []
+
+    def counted(self, texts):
+        encodes.append(list(texts))
+        return encode(self, texts)
+
+    cache = CacheManager(directory=cache_dir)
+    runs = (("from its files", cache, 2, {"miss": 2, "persisted": 2}),
+            ("again (conditioning from memory)", cache, 2, {"hit": 2}),
+            ("with a new cache over the persisted tier",
+             CacheManager(directory=cache_dir), 2, {"disk_hit": 2}))
+    first = None
+    for what, manager, want_encodes, want_counts in runs:
+        executor = GraphExecutor({"model_registry": registry,
+                                  "output_dir": str(out_dir),
+                                  "content_cache": manager})
+        png.unlink(missing_ok=True)
+        reset_peak(torch)
+        with mock.patch.object(type(stack), "encode", counted):
+            img, secs, _ = run_counted(torch, fa, executor,
+                                       sd3_workflow("sd3-medium"), "6",
+                                       SD3_FILE_REQUEST,
+                                       f"sd3-medium {what}", (SD3_HW, SD3_HW))
+        cond = manager.conditioning.counts
+        require(len(encodes) == want_encodes
+                and all(cond[k] == n for k, n in want_counts.items()),
+                f"sd3-medium {what}: {len(encodes)} encodes in all, "
+                f"conditioning tier {cond}, wanted {want_encodes} and "
+                f"{want_counts}")
+        require(png.is_file() and png_size(png) == (SD3_HW, SD3_HW),
+                f"{png} missing or not {SD3_HW}x{SD3_HW}")
+        if first is None:
+            first = (img, png.read_bytes())
+        else:
+            require(torch.equal(img, first[0]) and png.read_bytes() == first[1],
+                    f"sd3-medium {what}: the image is not the first request's")
+        t = registry.get("sd3-medium").pipeline.timings
+        say(f"  one request {what}: {secs:.3f} s; sampling "
+            f"{t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} s/step; "
+            f"launches {SD3_FILE_REQUEST[0]}, CUDA kernels "
+            f"{SD3_FILE_REQUEST[1]}; text encodes {len(encodes)} in all; "
+            f"conditioning {dict(cond)}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    say("  the memory and persisted conditioning hits gave the first "
+        "request's image and PNG bitwise")
 
 
 def sd3_phases(torch, fa) -> dict:
@@ -5685,6 +5795,368 @@ def sd3_phases(torch, fa) -> dict:
 
 
 # the running phase's peak allocated bytes before the last reset_peak
+# --- phase 14c: the serving front door ----------------------------------------
+
+FD_DIR = OUTPUT_DIR / "frontdoor"
+FD_WINDOW_MS = "1500"        # the coalescing window: concurrent posts meet
+FD_SEEDS = (41, 42, 43, 44)
+FD_PRIORITIES = ("interactive", "interactive", "batch", "batch")
+FD_NEGATIVE = "blurry, low quality, watermark"
+FD_SHED_DEPTH = "2"          # the second master sheds from the third request
+FD_BURST = 6
+FD_BURST_HW, FD_BURST_STEPS = 512, 4
+FD_TEXT_K1 = 4               # K1 launches of one text encode (4 layers)
+FD_UNET = {"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES[:2]),  # 2100
+           "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),  # 2100
+           "flash_attention_bh": 0}
+
+
+def fd_prompt(seed: int, positive: str, prefix: str, hw: int = 1024,
+              steps: int = STEPS) -> dict:
+    """The batchable graph: ``CheckpointLoader("sdxl")`` → positive and
+    negative ``CLIPTextEncode`` → ``TPUTxt2Img`` (euler, karras, CFG 5) →
+    ``SaveImage``; no collector, so the front door can group it."""
+    return {
+        "1": {"class_type": "CheckpointLoader",
+              "inputs": {"ckpt_name": "sdxl"}},
+        "2": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": positive, "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": FD_NEGATIVE, "clip": ["1", 1]}},
+        "4": {"class_type": "TPUTxt2Img", "inputs": {
+            "model": ["1", 0], "positive": ["2", 0], "negative": ["3", 0],
+            "seed": seed, "steps": steps, "cfg": 5.0, "width": hw,
+            "height": hw, "sampler_name": "euler", "scheduler": "karras"}},
+        "5": {"class_type": "SaveImage",
+              "inputs": {"images": ["4", 0], "filename_prefix": prefix}},
+    }
+
+
+def fd_positive(i: int) -> str:
+    return f"a lighthouse on a cliff at dusk, oil painting, variant {i}"
+
+
+def fd_counts(text_encodes: int, requests: int) -> dict:
+    """Launches of ``requests`` SDXL UNet runs and ``text_encodes``
+    encodes of the hash text encoder."""
+    return {k: v * requests + (FD_TEXT_K1 * text_encodes
+                               if k == "fused_qkv_attention" else 0)
+            for k, v in FD_UNET.items()}
+
+
+@contextlib.contextmanager
+def fd_master(torch, name: str, registry, env: dict):
+    """A master ``Controller`` on the card with no workers, behind a
+    ``ServerThread``, built under ``env`` with the defaults of the front
+    door and the cache (its own cache directory, empty); yields (master,
+    base URL, output directory)."""
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+
+    home = FD_DIR / name
+    home.mkdir(parents=True)
+    (home / "master.json").write_text("{}")
+    full = {"CDT_OUTPUT_DIR": str(home / "out"),
+            "CDT_CACHE_DIR": str(home / "cache"), "CDT_CACHE": "1",
+            "CDT_FRONTDOOR": "1", **env}
+    saved = {k: os.environ.get(k) for k in full}
+    os.environ.update(full)
+    try:
+        master = Controller(home / "master.json", device=DEVICE,
+                            model_registry=registry)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(master.frontdoor is not None and master.cache is not None,
+            f"{name}: the front door or the cache is off by default")
+    server = ServerThread(master, port=free_port())
+    try:
+        yield master, f"http://127.0.0.1:{server.port}", home / "out"
+    finally:
+        server.stop()
+
+
+def http_with_headers(url: str, payload: dict) -> tuple[int, dict, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=30) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+
+def wait_final(master, prompt_id: str, what: str) -> dict:
+    """The history entry of ``prompt_id`` once terminal (the front door
+    adds ``expired``)."""
+    t0 = time.perf_counter()
+    while True:
+        entry = master.queue.history.get(prompt_id)
+        if entry is not None and entry.get("status") in (
+                "success", "error", "interrupted", "expired"):
+            return entry
+        require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                f"{what} not final after {SERVE_REQUEST_S} s")
+        time.sleep(0.02)
+
+
+def histogram(snap: dict, name: str) -> dict:
+    """label tuple → (count, sum) of a histogram in a registry snapshot."""
+    return {tuple(sorted(s["labels"].items())): (s["count"], s["sum"])
+            for s in snap.get(name, {}).get("series", [])}
+
+
+def frontdoor_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Phase 14c: concurrent SDXL txt2img requests through a master's
+    front door with its defaults; returns the master's launches."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from comfyui_distributed_tpu_torch import telemetry
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    shutil.rmtree(FD_DIR, ignore_errors=True)
+    FD_DIR.mkdir(parents=True)
+    telemetry.set_enabled(True)
+    registry = sdxl.registry
+    # each member alone, content_cache absent: the reference bytes
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(FD_DIR / "solo")})
+    solo_png, solo_s = {}, []
+    for i, seed in enumerate(FD_SEEDS):
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        executor.execute(fd_prompt(seed, fd_positive(i), f"fd{i}"))
+        torch.cuda.synchronize()
+        solo_s.append(time.perf_counter() - t0)
+        counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        require(counts == fd_counts(2, 1),
+                f"front door: solo request {i}: launches {counts}")
+        solo_png[i] = (FD_DIR / "solo" / f"fd{i}_00000.png").read_bytes()
+    say(f"  four solo requests: {sum(solo_s):.3f} s "
+        f"({', '.join(f'{s:.3f}' for s in solo_s)}); each "
+        f"{fd_counts(2, 1)}")
+
+    launches = {k: 0 for k in fa.LAUNCHES}
+
+    def counted(fn):
+        before = dict(fa.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        for k in delta:
+            launches[k] += delta[k]
+        return out, delta
+
+    telemetry.REGISTRY.reset()
+    with fd_master(torch, "master", registry,
+                   {"CDT_FD_WINDOW_MS": FD_WINDOW_MS}) as (master, base, out):
+        queue = base + "/distributed/queue"
+
+        def post(i: int, **extra) -> tuple[int, dict]:
+            return http_json(queue, {
+                "prompt": fd_prompt(FD_SEEDS[i], fd_positive(i), f"fd{i}"),
+                "tenant": f"user{i}", "priority": FD_PRIORITIES[i], **extra})
+
+        # gates 1 and 2: four at once, then member 0's twin while it runs
+        def group():
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                answers = list(pool.map(post, range(4)))
+            twin = post(0)
+            entries = [wait_final(master, a["prompt_id"], f"member {i}")
+                       for i, (_, a) in enumerate(answers)]
+            twin_entry = wait_final(master, twin[1]["prompt_id"], "the twin")
+            return answers, twin, entries, twin_entry, time.perf_counter() - t0
+
+        (answers, twin, entries, twin_entry, group_s), delta = counted(group)
+        ids = []
+        for i, (status, a) in enumerate(answers):
+            require(status == 200 and a.get("batched") is True
+                    and a.get("coalesced") is False
+                    and a.get("outcome") == "admitted",
+                    f"front door: member {i} answered {status}: {a}")
+            ids.append(a["prompt_id"])
+        for i, e in enumerate(entries):
+            require(e["status"] == "success" and e.get("batch_size") == 4,
+                    f"front door: member {i}: {e}")
+            png = out / f"fd{i}_00000.png"
+            require(png.is_file() and png.read_bytes() == solo_png[i],
+                    f"front door: member {i}'s PNG is not its solo run's")
+        require(twin[0] == 200 and twin[1].get("coalesced") is True
+                and twin[1].get("batched") is True,
+                f"front door: the twin answered {twin}")
+        require(twin_entry.get("coalesced_with") == ids[0]
+                and twin_entry["status"] == "success"
+                and twin_entry.get("outputs") == entries[0].get("outputs"),
+                f"front door: the twin's history {twin_entry}")
+        # five encodes ran: four positives and the shared negative once
+        want = fd_counts(5, 4)
+        saved = {k: fd_counts(2, 1)[k] * 4 - want[k] for k in want}
+        require(delta == want,
+                f"front door: the group's launches {delta} != {want} (the "
+                f"solo runs' sum less the conditioning tier's {saved})")
+        snap = telemetry.REGISTRY.snapshot()
+        sizes = histogram(snap, "cdt_batch_size")
+        require(sizes.get(()) == (1, 4.0),
+                f"front door: cdt_batch_size observed {sizes}, not one 4")
+        waits = histogram(snap, "cdt_queue_wait_seconds")
+        say(f"  group of four (+ a coalesced twin): {group_s:.3f} s against "
+            f"{sum(solo_s):.3f} s solo ({group_s / sum(solo_s):.3f}×); "
+            f"launches {delta} = solo {fd_counts(2, 1)} × 4 less {saved}")
+        for labels, (n, total) in sorted(waits.items()):
+            say(f"  queue wait {dict(labels)['priority']}: {n} request(s), "
+                f"mean {total / n:.3f} s")
+        status, stats = http_json(base + "/distributed/cache")
+        cond = stats["conditioning"]
+        require(status == 200 and cond["hit"] >= 3 and cond["miss"] == 5,
+                f"front door: conditioning tier {cond}")
+        say(f"  conditioning tier: {cond['hit']} hits, {cond['miss']} misses "
+            f"(the shared negative encoded once)")
+
+        # gate 3: the same request again, then with cache "bypass"; each
+        # rewrites its member's PNG (same prefix: a byte-identical request)
+        def again(i: int, **extra):
+            png = out / f"fd{i}_00000.png"
+            png.unlink()
+            status, a = post(i, **extra)
+            entry = wait_final(master, a["prompt_id"], f"member {i} again")
+            hist = http_json(f"{base}/distributed/history/{a['prompt_id']}")[1]
+            require(png.is_file() and png.read_bytes() == solo_png[i],
+                    f"front door: member {i} again: the PNG is not the "
+                    f"solo run's")
+            return entry, hist
+
+        (entry, hist), delta = counted(lambda: again(1))
+        require(entry.get("cache") == "hit" and hist.get("cache") == "hit"
+                and all(v == 0 for v in delta.values()),
+                f"front door: repeat {hist}, launches {delta}")
+        (entry, hist), delta = counted(lambda: again(2, cache="bypass"))
+        require(entry["status"] == "success" and "cache" not in hist
+                and delta == fd_counts(0, 1),
+                f"front door: bypass {hist}, launches {delta}")
+        say(f"  result tier: the repeat launched {{0, 0, 0}}, history cache "
+            f"'hit', PNG bitwise; bypass launched {delta}")
+
+        # gate 6: the shipped workflow has a collector: orchestrated
+        from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+        wf = strip_meta(json.loads(
+            (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+
+        def orchestrated():
+            status, a = http_json(queue, {"prompt": wf})
+            return status, a, wait_final(master, a.get("prompt_id", ""),
+                                         "orchestrated")
+
+        (status, a, entry), delta = counted(orchestrated)
+        # its negative prompt is the members' shared one: a conditioning hit
+        require(status == 200 and a.get("batched") is False
+                and entry["status"] == "success"
+                and "batch_size" not in entry
+                and delta == fd_counts(1, 1),
+                f"front door: the collector workflow {a}, {entry}, {delta}")
+        status, fd = http_json(base + "/distributed/frontdoor")
+        require(fd["classified"].get(
+            "node_outside_allowlist:DistributedCollector") == 1,
+            f"front door: classified {fd['classified']}")
+        say(f"  the collector workflow: batched false, orchestrated, "
+            f"launches {delta}; classified {fd['classified']}")
+
+        # gate 7: the environment
+        status, info = http_json(base + "/distributed/system_info")
+        cuda_env = info.get("environment", {}).get("cuda", {})
+        require(status == 200 and cuda_env.get("device_name")
+                and cuda_env.get("driver_version"),
+                f"front door: system_info {info}")
+        say(f"  system_info environment: {info['environment']}")
+    # gate 5: a second master that sheds from the third request
+    with fd_master(torch, "shed", registry,
+                   {"CDT_FD_WINDOW_MS": FD_WINDOW_MS,
+                    "CDT_FD_SHED_DEPTH": FD_SHED_DEPTH}) as (master, base,
+                                                             out):
+        def burst():
+            answers = [http_with_headers(base + "/distributed/queue", {
+                "prompt": fd_prompt(100 + j, "a burst", f"burst{j}",
+                                    FD_BURST_HW, FD_BURST_STEPS),
+                "tenant": "burst"}) for j in range(FD_BURST)]
+            admitted = [a["prompt_id"] for status, _, a in answers
+                        if status == 200]
+            return answers, [wait_final(master, p, "burst") for p in admitted]
+
+        (answers, entries), delta = counted(burst)
+        shed = [(h, a) for status, h, a in answers if status == 429]
+        require(shed and all(
+            h.get("Retry-After") == str(int(a["retry_after_s"]) or 1)
+            and a.get("outcome") == "shed" for h, a in shed),
+            f"front door: no 429 with Retry-After in {answers}")
+        require(entries and all(e["status"] == "success" for e in entries),
+                f"front door: admitted burst requests {entries}")
+        say(f"  shedding (CDT_FD_SHED_DEPTH {FD_SHED_DEPTH}): {len(shed)} of "
+            f"{FD_BURST} answered 429 (Retry-After "
+            f"{sorted({h['Retry-After'] for h, _ in shed})} s), "
+            f"{len(entries)} admitted and done; launches {delta}")
+    gc.collect()
+    batch_invariance(torch, sdxl.bundle)
+    return launches
+
+
+def batch_invariance(torch, bundle, requests: int = 4, iters: int = 3) -> None:
+    """Printed, not gated: one UNet forward of ``requests`` stacked
+    requests (batch 2R under CFG) against R forwards at batch 2 on the same
+    inputs: the max abs difference, whether it is bitwise, the time ratio."""
+    unet = bundle.pipeline.unet
+    cfg = unet.config
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lat = 1024 // bundle.pipeline.vae.config.downscale
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    xs = [randn(2, lat, lat, cfg.in_channels) for _ in range(requests)]
+    ts = [torch.full((2,), 500.0 + 10 * r, device="cuda")
+          for r in range(requests)]
+    ctxs = [randn(2, 77, cfg.context_dim) for _ in range(requests)]
+    ys = [randn(2, cfg.adm_in_channels) for _ in range(requests)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return out, best
+
+    with torch.no_grad():
+        solo, solo_s = timed(lambda: [unet(x, t, c, y) for x, t, c, y
+                                      in zip(xs, ts, ctxs, ys)])
+        stacked, stacked_s = timed(lambda: unet(
+            torch.cat(xs), torch.cat(ts), torch.cat(ctxs), torch.cat(ys)))
+    from comfyui_distributed_tpu_torch.diffusion.pipeline import (
+        demux_microbatch)
+
+    parts = demux_microbatch(stacked, requests, 2)
+    diff = max(float((p.float() - s.float()).abs().max())
+               for p, s in zip(parts, solo))
+    scale = max(float(s.float().abs().max()) for s in solo)
+    bitwise = all(torch.equal(p, s) for p, s in zip(parts, solo))
+    say(f"  batch invariance: one UNet forward of {requests} stacked requests "
+        f"(batch {2 * requests}) vs {requests} at batch 2: max abs diff "
+        f"{diff:.6g} (max|solo| {scale:.4g}), bitwise {bitwise}; "
+        f"{stacked_s * 1e3:.2f} ms vs {solo_s * 1e3:.2f} ms "
+        f"(ratio {stacked_s / solo_s:.3f})")
+
+
 PHASE_PEAK = {"bytes": 0}
 
 
@@ -5741,6 +6213,11 @@ def main() -> int:
     # the direct paths and the comparisons build models without a
     # Controller: give them the precision a controller sets on the card
     use_full_fp32()
+    # the served phases before 14c run without the content cache (as
+    # before it existed), so that each counts every text encode it gates
+    # on; 14c and 36 run the controllers' default, and 37's file request
+    # goes through the conditioning tier
+    os.environ["CDT_CACHE"] = "0"
     t_start = time.perf_counter()
     try:
         device = device_phase(torch)
@@ -5780,6 +6257,8 @@ def main() -> int:
                                                  cn_tile, video)
         with phase(torch, "14b managed worker"):
             path_launches["managed"] = managed_phase(torch, fa, sdxl)
+        with phase(torch, "14c front door"):
+            path_launches["frontdoor"] = frontdoor_phase(torch, fa, sdxl)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "

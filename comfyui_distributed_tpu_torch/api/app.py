@@ -4,12 +4,19 @@ body; no chunked bodies; one request per connection; JSON answers, a PNG
 for the preview), with an RFC 6455 upgrade for the dispatch WebSocket
 (``utils/websocket.py``).
 
-Routes (the JAX package's ``api/app.py`` with ``CDT_FRONTDOOR=0``):
+Routes (the JAX package's ``api/app.py``, less stages, preemption and
+the fleet cache):
 
 - ``GET /distributed/health``, ``GET /distributed/system_info``
 - ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
 - ``GET /distributed/history/{prompt_id}`` (tensors summarised as shapes)
-- ``POST /distributed/queue`` (orchestrate over the configured hosts)
+- ``POST /distributed/queue`` (through the serving front door: admitted,
+  classified, coalesced or orchestrated over the configured hosts; a
+  shed request answers 429 with ``Retry-After``; with
+  ``CDT_FRONTDOOR=0`` straight to the orchestrator)
+- ``GET /distributed/frontdoor``, ``GET /distributed/cache``,
+  ``POST /distributed/cache/clear`` (the front door's and the content
+  cache's state; the clear drops both memory tiers)
 - ``POST /distributed/interrupt`` (drop pending prompts, stop the
   running one before its next node)
 - ``GET /distributed/progress/{prompt_id}``,
@@ -70,6 +77,7 @@ from ..cluster.controller import Controller
 from ..telemetry import metrics as _tm
 from ..utils import auth, constants
 from ..utils.config import peek_setting
+from ..utils.deadline import deadline_call
 from ..utils.exceptions import DistributedError, ValidationError
 from ..utils.frames import unpack_frame
 from ..utils.logging import log
@@ -84,15 +92,17 @@ from .queue_request import parse_queue_request_payload
 CLIENT_HEADER = "x-cdt-client"
 
 # The read-only probe surface a dashboard reads on other hosts (the JAX
-# package's, less the front door, cache and stages routes, not ported).
-# Mutating routes carry no CORS header: with a public tunnel up, a
-# permissive `*` there would let any web page drive the cluster.
+# package's, less the stages route, not ported). Mutating routes carry no
+# CORS header: with a public tunnel up, a permissive `*` there would let
+# any web page drive the cluster.
 _CORS_SAFE_PATHS = frozenset({
     "/distributed/health",
     "/distributed/system_info",
     "/distributed/network_info",
     "/distributed/metrics",
     "/distributed/metrics.json",
+    "/distributed/frontdoor",
+    "/distributed/cache",
     "/prompt",
 })
 WEB_DIR = Path(__file__).resolve().parent.parent / "web"
@@ -193,7 +203,13 @@ class App:
             return Response(200, c.health())
 
         async def system_info(request):
-            return Response(200, c.system_info())
+            # the census makes torch.cuda calls, which a wedged driver can
+            # hold forever: off the loop, under a deadline
+            info = await deadline_call(c.system_info, fallback=None)
+            if info is None:
+                info = c.system_info_no_devices()
+                info["devices"] = [{"error": "device backend unresponsive"}]
+            return Response(200, info)
 
         async def prompt_get(request):
             return Response(200, {"exec_info": {
@@ -222,11 +238,14 @@ class App:
             entry = c.queue.history.get(pid)
             if entry is None:
                 return json_error(f"no finished prompt {pid!r}", 404)
+            extra = {k: entry[k] for k in ("batch_size", "cache",
+                                           "coalesced_with") if k in entry}
             return Response(200, {
                 "prompt_id": pid,
                 "status": entry.get("status"),
                 "error": entry.get("error"),
                 "duration": entry.get("duration"),
+                **extra,
                 "outputs": {
                     node: [_summarize(v) for v in (
                         outs if isinstance(outs, (list, tuple)) else [outs])]
@@ -236,21 +255,61 @@ class App:
 
         async def distributed_queue(request):
             payload = parse_queue_request_payload(request.json())
-            result = await c.orchestrator.orchestrate(
-                payload.prompt,
-                client_id=payload.client_id,
-                enabled_ids=payload.enabled_worker_ids,
-                delegate_master=payload.delegate_master,
-                load_balance=payload.load_balance,
-                trace_id=payload.trace_id,
-            )
+            if c.frontdoor is None:
+                # CDT_FRONTDOOR=0: the path without the front door
+                result = await c.orchestrator.orchestrate(
+                    payload.prompt,
+                    client_id=payload.client_id,
+                    enabled_ids=payload.enabled_worker_ids,
+                    delegate_master=payload.delegate_master,
+                    load_balance=payload.load_balance,
+                    trace_id=payload.trace_id,
+                )
+                return Response(200, {
+                    "prompt_id": result.prompt_id,
+                    "number": 0,
+                    "node_errors": result.node_errors,
+                    "worker_count": result.worker_count,
+                    "trace_id": result.trace_id,
+                })
+            res = await c.frontdoor.submit(payload)
+            if res.outcome == "shed":
+                # explicit overload shedding: the client backs off
+                return Response(
+                    429, {"error": "overloaded", "outcome": "shed",
+                          "reason": res.reason,
+                          "retry_after_s": res.retry_after_s, "status": 429},
+                    headers={"Retry-After": str(int(res.retry_after_s) or 1)})
             return Response(200, {
-                "prompt_id": result.prompt_id,
+                "prompt_id": res.prompt_id,
                 "number": 0,
-                "node_errors": result.node_errors,
-                "worker_count": result.worker_count,
-                "trace_id": result.trace_id,
+                "node_errors": res.node_errors,
+                "worker_count": res.worker_count,
+                "trace_id": res.trace_id,
+                "outcome": res.outcome,
+                "batched": res.batched,
+                "coalesced": res.coalesced,
             })
+
+        async def frontdoor_stats(request):
+            if c.frontdoor is None:
+                return Response(200, {"enabled": False})
+            return Response(200, c.frontdoor.stats())
+
+        async def cache_stats(request):
+            if c.cache is None:
+                return Response(200, {"enabled": False})
+            return Response(200, c.cache.stats())
+
+        async def cache_clear(request):
+            """Drop both memory tiers; persisted entries are content-
+            addressed and stay valid (delete the cache directory to drop
+            them)."""
+            if c.cache is None:
+                return Response(200, {"enabled": False})
+            dropped = (c.cache.conditioning.clear_memory()
+                       + c.cache.results.clear_memory())
+            return Response(200, {"status": "cleared", "dropped": dropped})
 
         def require_ids(meta: Any) -> None:
             if not isinstance(meta, dict):
@@ -468,6 +527,9 @@ class App:
         self.add("POST", "/prompt", prompt_post)
         self.add("GET", "/distributed/history/{prompt_id}", history)
         self.add("POST", "/distributed/queue", distributed_queue)
+        self.add("GET", "/distributed/frontdoor", frontdoor_stats)
+        self.add("GET", "/distributed/cache", cache_stats)
+        self.add("POST", "/distributed/cache/clear", cache_clear)
         self.add("POST", "/distributed/job_complete", job_complete)
         self.add("POST", "/distributed/job_complete_frames", job_complete_frames)
         self.add("POST", "/distributed/prepare_job", prepare_job)

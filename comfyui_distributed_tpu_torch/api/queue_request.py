@@ -3,10 +3,14 @@ fields, defaults and errors (``api/queue_request.py``): ``workers`` is
 accepted as a legacy alias of ``enabled_worker_ids``.
 
 ``tenant``, ``priority``, ``deadline_ms`` and ``cache`` are validated as
-there and then, as on the JAX package's path without the front door,
-not acted on. Resuming a checkpoint (``checkpoint_id``, ``checkpoint``)
-needs preemption, which the port does not have: such a request is
-rejected, never run from scratch in silence.
+there, and the serving front door acts on them (``cluster/frontdoor``):
+admission by tenant and priority, ``expired`` history past the deadline,
+the result tier used or bypassed (``near`` reads as ``use`` until the
+near tier, A.4). With ``CDT_FRONTDOOR=0`` they are validated and not
+acted on, as on the JAX package's path without the front door. Resuming
+a checkpoint (``checkpoint_id``, ``checkpoint``) needs preemption (A.4),
+which the port does not have: such a request is rejected, never run
+from scratch in silence.
 """
 
 from __future__ import annotations

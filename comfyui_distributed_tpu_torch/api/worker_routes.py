@@ -89,7 +89,7 @@ def register(app, controller) -> None:
         hosts = {str(h.get("id")): h for h in c.load_config().get("hosts", [])}
         ids = sorted(set(managed) | {i for i, h in hosts.items()
                                      if h.get("type") == "local"})
-        sem = asyncio.Semaphore(constants.WORKER_PROBE_CONCURRENCY)
+        sem = asyncio.Semaphore(constants.worker_probe_concurrency())
 
         async def status_one(wid: str) -> tuple[str, dict]:
             entry: dict = {

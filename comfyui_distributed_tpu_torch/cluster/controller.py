@@ -9,8 +9,12 @@ startup, the sampling-progress tracker (``cluster/progress.py``) and, on
 a master, the manager of the worker processes it launches
 (``workers/process_manager.py``). A launched worker reports ready to its
 master's ``CDT_MASTER_PORT`` once its control plane is up.
-The cache, preemption, stages, the front door, warmup and the elastic
-fleet of the JAX package's controller are not ported.
+It builds the content cache (``cluster/cache``, None under
+``CDT_CACHE=0``), which its execution context carries to
+``CLIPTextEncode`` and the group executor, and the serving front door
+(``cluster/frontdoor``, None under ``CDT_FRONTDOOR=0``), started on its
+loop. Preemption, stages, warmup and the elastic fleet of the JAX
+package's controller are not ported.
 """
 
 from __future__ import annotations
@@ -30,8 +34,12 @@ from ..utils.config import ensure_config_exists, load_config, peek_setting
 from ..utils.device import DeviceLike, resolve_device, use_full_fp32
 from ..utils.logging import log, set_debug_source
 from ..utils.network import http_request_async, set_auth_config_path
-from ..workers.detection import get_machine_id
+from ..workers.detection import (detect_environment, driver_version,
+                                 get_machine_id, is_docker,
+                                 start_driver_probe)
+from .cache import build_cache_manager
 from .collector_bridge import CollectorBridge
+from .frontdoor import build_frontdoor
 from .job_store import JobStore
 from .orchestration import Orchestrator
 from .progress import ProgressTracker
@@ -51,6 +59,7 @@ class Controller:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_fp32()
+            start_driver_probe()
         ensure_config_exists(config_path)
         self.config_path = config_path
         if config_path is not None:
@@ -67,6 +76,9 @@ class Controller:
         self.orchestrator = Orchestrator(self.store, self.queue,
                                          config_loader=self.load_config,
                                          input_dir=Path(self.input_dir))
+        self.cache = build_cache_manager()
+        self.frontdoor = build_frontdoor(self.queue, self.orchestrator,
+                                         cache=self.cache)
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
@@ -116,6 +128,7 @@ class Controller:
             "worker_id": self.worker_id,
             "worker_index": self.worker_index,
             "progress_tracker": self.progress,
+            "content_cache": self.cache,
         }
         if self.bridge is not None:
             ctx["collector_bridge"] = self.bridge
@@ -131,6 +144,8 @@ class Controller:
                                       host_resolver=self.host_by_id)
         self.tile_farm = TileFarm(self.store, self.loop)
         self.queue.start()
+        if self.frontdoor is not None:
+            self.frontdoor.start()
         role = "worker" if self.is_worker else "master"
         log(f"controller up as {role} on {self.device} "
             f"(machine {get_machine_id()})")
@@ -154,6 +169,8 @@ class Controller:
             pass                      # the master is gone
 
     async def shutdown(self) -> None:
+        if self.frontdoor is not None:
+            await self.frontdoor.stop()
         await self.queue.stop()
         self.progress.close()       # release the process-wide progress sink
         # the queue's context factory, the orchestrator and the bridge hold
@@ -173,20 +190,31 @@ class Controller:
             "device": str(self.device),
         }
 
-    def system_info(self) -> dict:
-        """Host facts and a census of the CUDA devices."""
-        info = {
+    def system_info_no_devices(self) -> dict:
+        """Host facts that never touch a device: the degraded payload of
+        ``/distributed/system_info`` when the driver does not answer
+        (``utils/deadline.py``)."""
+        return {
             "machine_id": get_machine_id(),
             "platform": platform.system().lower(),
             "path_separator": os.sep,
             "python": platform.python_version(),
-            "is_docker": Path("/.dockerenv").exists(),
+            "is_docker": is_docker(),
+            "environment": detect_environment(),
             "torch": torch.__version__,
             "device": str(self.device),
-            "devices": [],
         }
+
+    def system_info(self) -> dict:
+        """Host facts and a census of the CUDA devices, which adds the
+        first card's name and the driver's version to ``environment``."""
+        info = self.system_info_no_devices()
+        info["devices"] = []
         if torch.cuda.is_available():
             info["cuda"] = torch.version.cuda
+            info["environment"]["cuda"].update(
+                device_name=torch.cuda.get_device_name(0),
+                driver_version=driver_version())
             for i in range(torch.cuda.device_count()):
                 props = torch.cuda.get_device_properties(i)
                 name = torch.cuda.get_device_name(i)

@@ -50,7 +50,7 @@ async def select_active_hosts(
     """Probe all candidate hosts concurrently (bounded) → (online,
     offline). Each online host dict gains ``_probe``, its health
     payload; a quarantined one gains ``_breaker: "open"``."""
-    sem = asyncio.Semaphore(probe_concurrency or constants.WORKER_PROBE_CONCURRENCY)
+    sem = asyncio.Semaphore(probe_concurrency or constants.worker_probe_concurrency())
 
     async def probe_one(host: dict) -> tuple[dict, Optional[dict], bool]:
         wid = str(host.get("id"))

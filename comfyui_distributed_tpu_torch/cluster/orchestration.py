@@ -101,7 +101,10 @@ class Orchestrator:
         delegate_master: Optional[bool] = None,
         load_balance: bool = False,
         trace_id: str | None = None,
+        queue_meta: Optional[dict] = None,
     ) -> OrchestrationResult:
+        """``queue_meta`` (the front door's tenant, priority and
+        ``deadline_at``) rides into the master's queue job."""
         prompt = strip_meta(prompt)
         trace_id = trace_id or new_trace_id()
         # the orchestration id is the trace id: probe and dispatch spans
@@ -109,13 +112,14 @@ class Orchestrator:
         with telemetry.span("orchestrate", trace_id=trace_id, job_id=trace_id):
             return await self._orchestrate(prompt, client_id, enabled_ids,
                                            delegate_master, load_balance,
-                                           trace_id)
+                                           trace_id, queue_meta or {})
 
     async def _orchestrate(self, prompt: dict, client_id: str,
                            enabled_ids: Optional[Sequence[str]],
                            delegate_master: Optional[bool],
                            load_balance: bool,
-                           trace_id: str) -> OrchestrationResult:
+                           trace_id: str,
+                           queue_meta: dict) -> OrchestrationResult:
         config = self.load_config()
         settings = config.get("settings", {})
         all_hosts = self._normalized_hosts(config)
@@ -128,7 +132,7 @@ class Orchestrator:
         online, _ = await select_active_hosts(
             candidates,
             probe_concurrency=settings.get("worker_probe_concurrency",
-                                           constants.WORKER_PROBE_CONCURRENCY),
+                                           constants.worker_probe_concurrency()),
             trace_id=trace_id,
         )
         if load_balance and online:
@@ -148,7 +152,7 @@ class Orchestrator:
             await self.store.prepare_collector_job(jid, worker_ids)
 
         sem = asyncio.Semaphore(settings.get("worker_prep_concurrency",
-                                             constants.WORKER_PREP_CONCURRENCY))
+                                             constants.worker_prep_concurrency()))
 
         async def prep_and_dispatch(host: dict) -> tuple[str, Optional[str]]:
             async with sem:
@@ -213,7 +217,7 @@ class Orchestrator:
             enabled_worker_ids=dispatched, delegate_only=delegate_master,
         )
         prompt_id, node_errors = self.queue.enqueue(master_prompt, client_id,
-                                                    trace_id)
+                                                    trace_id, **queue_meta)
         return OrchestrationResult(
             prompt_id=prompt_id,
             node_errors=node_errors,

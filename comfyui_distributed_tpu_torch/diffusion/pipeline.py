@@ -311,6 +311,41 @@ class Txt2ImgPipeline:
             noise, spec, context, uncond_context, y, uncond_y, progress_token,
             hint=hint, sampler_noise=step_noise(seed, self.device))
 
+    def generate_microbatch(
+        self, spec: GenerationSpec, seeds: "list[int]",
+        contexts: "list[torch.Tensor]",
+        uncond_contexts: "list[torch.Tensor]",
+        ys: "list[Optional[torch.Tensor]] | None" = None,
+        uys: "list[Optional[torch.Tensor]] | None" = None,
+    ) -> "list[torch.Tensor]":
+        """N same-shape requests as one group (the front door's
+        microbatch): one ``[per_device_batch, H, W, 3]`` tensor per
+        request, each bitwise ``generate(spec, seeds[r], contexts[r],
+        ...)``.
+
+        The JAX package unrolls R per-request subgraphs at solo shapes
+        inside one program, because stacking the requests into the
+        products' batch drifts. Eager PyTorch's faithful form of that is
+        R calls at solo shapes on one stream, which is what runs here.
+        JAX's power-of-two pad slots (request 0 repeated, outputs
+        dropped) are not run: they cost work and buy nothing eagerly.
+        Stochastic samplers and ControlNet clones raise JAX's errors."""
+        R = len(seeds)
+        if not (R == len(contexts) == len(uncond_contexts)):
+            raise ValueError("seeds/contexts/uncond_contexts length mismatch")
+        if spec.sampler not in DETERMINISTIC_SAMPLERS:
+            raise ValueError(
+                f"sampler {spec.sampler!r} is stochastic — microbatching "
+                f"requires one of {sorted(DETERMINISTIC_SAMPLERS)}")
+        if self._control is not None:
+            raise ValueError("microbatching does not support ControlNet "
+                             "pipelines (per-request hints are not stacked)")
+        ys = list(ys) if ys is not None else [None] * R
+        uys = list(uys) if uys is not None else [None] * R
+        return [self.generate(spec, int(seeds[r]), contexts[r],
+                              uncond_contexts[r], ys[r], uys[r])
+                for r in range(R)]
+
     @torch.no_grad()
     def img2img(self, spec: GenerationSpec, seed: int, images: torch.Tensor,
                 context: torch.Tensor, uncond_context: torch.Tensor,
@@ -360,3 +395,25 @@ class Txt2ImgPipeline:
             out = images * (1.0 - mask) + out * mask
         self.timings["encode_s"] = encode_s
         return out
+
+
+# samplers whose trajectory is a pure function of (noise, conditioning):
+# the JAX package replays N solo runs of these inside one microbatch; its
+# stochastic families draw batch-shaped step noise from one key and are
+# left out (the classifier sends them down the solo path)
+DETERMINISTIC_SAMPLERS = frozenset({"euler", "heun", "dpmpp_2m", "ddim"})
+
+
+def demux_microbatch(out: torch.Tensor, n_requests: int,
+                     per_device_batch: int) -> "list[torch.Tensor]":
+    """Split a stacked ``[R·B, ...]`` output into the R per-request
+    ``[B, ...]`` blocks, request-major (the JAX package's demux on one
+    device: a single shard block). Nothing on the serving path stacks
+    requests yet (``generate_microbatch`` returns one tensor a request):
+    this is for a future stacked path and the batch-invariance check."""
+    R, B = int(n_requests), int(per_device_batch)
+    if out.shape[0] != R * B:
+        raise ValueError(
+            f"microbatch output has {out.shape[0]} rows, expected "
+            f"n_dp(1) · R({R}) · B({B}) = {R * B}")
+    return [out[r * B:(r + 1) * B] for r in range(R)]

@@ -151,12 +151,22 @@ class GraphExecutor:
             raise ValidationError(
                 "; ".join(f"{e.node_id}: {e.message}" for e in errs)
             )
-        cache: dict[str, tuple] = {}
+        return self.execute_nodes(prompt, topo_order(prompt), {})
+
+    def execute_nodes(self, prompt: Prompt, node_ids: list[str],
+                      cache: dict[str, tuple]) -> dict[str, tuple]:
+        """Run ``node_ids`` in the given order into ``cache``, skipping
+        the nodes it already holds: the microbatch executor runs a
+        prompt's prefix, puts the group's sampler output in, then runs
+        the suffix through this same loop. Callers own validation and
+        order."""
         interrupt = self.context.get("interrupt_event")
-        for nid in topo_order(prompt):
+        for nid in node_ids:
             if interrupt is not None and interrupt.is_set():
                 # checked between nodes: a node already running finishes
                 raise InterruptedError(f"execution interrupted before {nid}")
+            if nid in cache:
+                continue
             cls = get_node(prompt[nid]["class_type"])
             kwargs = node_kwargs(prompt, nid, cache, self.context)
             cache[nid] = tuple(cls().execute(**kwargs))

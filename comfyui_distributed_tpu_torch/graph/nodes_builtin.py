@@ -330,11 +330,19 @@ def _shift(model, shift) -> float:
 
 @register_node("CLIPTextEncode")
 class CLIPTextEncode(NodeDef):
+    """Encodes through the controller's conditioning tier when its
+    context carries one (``cluster/cache``): the same text on the same
+    encoder encodes once. A plain encode otherwise, or for an encoder
+    the registry did not stamp."""
+
     INPUTS = {"text": "STRING", "clip": "CLIP"}
+    HIDDEN = {"content_cache": "*"}
     RETURNS = ("CONDITIONING",)
 
-    def execute(self, text: str, clip, **_):
-        ctx, pooled = clip.encode([str(text)])
+    def execute(self, text: str, clip, content_cache=None, **_):
+        from ..cluster.cache.conditioning import cached_encode
+
+        ctx, pooled = cached_encode(content_cache, clip, [str(text)])
         return ({"context": ctx, "pooled": pooled},)
 
 

@@ -110,17 +110,34 @@ def count_hash_tokenization(tower: str) -> None:
 
 
 class TextEncoder:
-    """Host-facing wrapper: strings → (context [B,N,D], pooled [B,P])."""
+    """Host-facing wrapper: strings → (context [B,N,D], pooled [B,P]).
+    Its tokens are hash tokens by design (``tokenization_mode``
+    "hash-native", which the conditioning cache does not count as the
+    degraded fallback of a real stack)."""
+
+    tokenization_mode = "hash-native"
 
     def __init__(self, module: TextTransformer):
         self.config = module.config
         self.module = module
 
-    def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
+    @property
+    def device(self) -> torch.device:
+        return self.module.tok_emb.weight.device
+
+    def _ids(self, texts: Sequence[str]) -> list[list[int]]:
         cfg = self.config
-        ids = [hash_tokenize(t, cfg.max_len, cfg.vocab_size) for t in texts]
-        return torch.tensor(ids, dtype=torch.long,
-                            device=self.module.tok_emb.weight.device)
+        return [hash_tokenize(str(t), cfg.max_len, cfg.vocab_size)
+                for t in texts]
+
+    def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
+        return torch.tensor(self._ids(texts), dtype=torch.long,
+                            device=self.device)
+
+    def token_signature(self, texts: Sequence[str]) -> tuple[list, str]:
+        """(token ids as nested lists, tokenization mode): the
+        conditioning cache's key material (``cluster/cache``)."""
+        return self._ids(texts), self.tokenization_mode
 
     @torch.no_grad()
     def encode(self, texts: Sequence[str]):

@@ -1,9 +1,8 @@
 """The metric families of the port, declared in one place (the JAX
 package's ``telemetry/metrics.py``, less the families whose
-instrumentation sites are not ported yet: warmup, residency, the front
-door, the cache, the fleet cache, preemption, stages, the autoscaler,
-drain and steal, the autotuner and the XLA compile cache; ``ROADMAP.md``
-names each under its item).
+instrumentation sites are not ported yet: warmup, residency, the fleet
+cache, preemption, stages, the autoscaler, drain and steal, the autotuner
+and the XLA compile cache; ``ROADMAP.md`` names each under its item).
 
 Instrumentation sites import these objects and guard every use with
 ``telemetry.enabled()``. Naming follows Prometheus conventions: ``cdt_``
@@ -126,12 +125,88 @@ HASH_TOKENIZATION = REGISTRY.counter(
     "conditioning does not reflect the prompt.",
     ("tower",))
 
+# --- serving front door (cluster/frontdoor) ---------------------------------
+
+ADMISSION_TOTAL = REGISTRY.counter(
+    "cdt_admission_total",
+    "Front-door admission decisions. admitted = fast path; queued = "
+    "accepted past the soft high-watermark; shed = refused with 429 + "
+    "Retry-After (overload or tenant rate).",
+    ("outcome", "priority"))   # admitted | queued | shed
+
+BATCH_SIZE = REGISTRY.histogram(
+    "cdt_batch_size",
+    "Microbatch occupancy per executed sampler program (1 = solo "
+    "pass-through). Mean > 1 means cross-user coalescing is working.",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+
+BATCH_FALLBACKS = REGISTRY.counter(
+    "cdt_batch_fallbacks_total",
+    "Microbatched programs that failed and fell back to per-member solo "
+    "execution (admitted jobs are retried solo, never dropped).")
+
+FD_QUEUE_DEPTH = REGISTRY.gauge(
+    "cdt_fd_queue_depth",
+    "Per-priority-class request depth by stage: coalescing (held in a "
+    "front-door window) or queued (in the prompt queue).",
+    ("stage", "priority"))
+
+QUEUE_WAIT_SECONDS = REGISTRY.histogram(
+    "cdt_queue_wait_seconds",
+    "Time-in-queue per request (submission to execution start, "
+    "coalescing window included), by priority class.",
+    ("priority",))
+
+# --- content cache (cluster/cache) ------------------------------------------
+
+CACHE_HITS = REGISTRY.counter(
+    "cdt_cache_hits_total",
+    "Content-cache hits by tier (conditioning = a text-encode skipped; "
+    "result = a whole sampler program skipped). Disk hits count here too "
+    "— a hit is a hit wherever the bytes came from.",
+    ("tier",))
+
+CACHE_MISSES = REGISTRY.counter(
+    "cdt_cache_misses_total",
+    "Content-cache misses by tier (the computation ran and filled the "
+    "entry).",
+    ("tier",))
+
+CACHE_BYTES = REGISTRY.gauge(
+    "cdt_cache_bytes",
+    "In-memory bytes held per cache tier (LRU under the "
+    "CDT_CACHE_*_MAX_BYTES caps).",
+    ("tier",))
+
+CACHE_ENTRIES = REGISTRY.gauge(
+    "cdt_cache_entries",
+    "In-memory entries per cache tier.",
+    ("tier",))
+
+CACHE_EVICTIONS = REGISTRY.counter(
+    "cdt_cache_evictions_total",
+    "LRU evictions per cache tier (memory budget or persisted-tier cap).",
+    ("tier",))
+
+CACHE_CORRUPT = REGISTRY.counter(
+    "cdt_cache_corrupt_total",
+    "Persisted cache entries rejected at load: checksum mismatch or "
+    "unreadable sidecar. Always followed by a recompute — corruption is "
+    "never served.",
+    ("tier",))
+
+COALESCE_WIDTH = REGISTRY.histogram(
+    "cdt_coalesce_width",
+    "Requests answered per executed fingerprint (1 = no duplicates were "
+    "in flight; N = one execution fanned out to N-1 waiters).",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+
 # --- prompt queue -----------------------------------------------------------
 
 PROMPTS_TOTAL = REGISTRY.counter(
     "cdt_prompts_total",
     "Prompt executions by terminal status.",
-    ("status",))   # success | error | interrupted
+    ("status",))   # success | error | interrupted | expired
 
 PROMPT_SECONDS = REGISTRY.histogram(
     "cdt_prompt_duration_seconds",

@@ -17,17 +17,14 @@ T = TypeVar("T")
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
 
-# request fields of the serving front door, validated as the JAX package
-# validates them (the front door itself is not ported)
+# request fields of the serving front door (``cluster/frontdoor``):
+# priority classes in strict order, the first the most latency-sensitive
+# (the last sheds first under overload); ``cache`` modes of a request
+# ("near" waits for the near tier and reads as "use" until then)
 PRIORITY_CLASSES = ("interactive", "batch")
 DEFAULT_PRIORITY = "interactive"
 DEFAULT_TENANT = "default"
 CACHE_MODES = ("use", "bypass", "near")
-
-# fallbacks of the config settings ``worker_probe_concurrency`` and
-# ``worker_prep_concurrency`` (the config's defaults hold the same values)
-WORKER_PROBE_CONCURRENCY = 10
-WORKER_PREP_CONCURRENCY = 4
 
 
 class KnobError(ValueError):
@@ -158,6 +155,19 @@ def max_audio_payload_bytes() -> int:
 # --- orchestration concurrency and timeouts ------------------------------------
 
 
+def worker_probe_concurrency() -> int:
+    """Concurrent worker probes of an orchestration fan-out and of
+    ``local-worker-status`` (fallback of the config's
+    ``settings.worker_probe_concurrency``)."""
+    return _read("CDT_PROBE_CONCURRENCY", 10, int)
+
+
+def worker_prep_concurrency() -> int:
+    """Concurrent per-worker prompt preparations (fallback of
+    ``settings.worker_prep_concurrency``)."""
+    return _read("CDT_PREP_CONCURRENCY", 4, int)
+
+
 def probe_timeout() -> float:
     return _read("CDT_PROBE_TIMEOUT", 5.0, float)
 
@@ -257,6 +267,99 @@ def faults() -> str:
 def max_tile_requeues() -> int:
     """Requeues of one tile task before it dead-letters."""
     return _read("CDT_MAX_TILE_REQUEUES", 3, int)
+
+
+# --- serving front door (cluster/frontdoor) ------------------------------------
+
+
+def frontdoor() -> bool:
+    """Kill switch: 0 restores the legacy queue route unchanged."""
+    return _read("CDT_FRONTDOOR", True, _bool)
+
+
+def fd_window_ms() -> float:
+    """Coalescing window: how long a group waits for same-shape company
+    before flushing (ms)."""
+    return _read("CDT_FD_WINDOW_MS", 25.0, float)
+
+
+def fd_max_batch() -> int:
+    """Largest group one microbatch executes."""
+    return _read("CDT_FD_MAX_BATCH", 8, int)
+
+
+def fd_inflight() -> int:
+    """Batch jobs the front door keeps in the prompt queue at once
+    (continuous batching)."""
+    return _read("CDT_FD_INFLIGHT", 2, int)
+
+
+def fd_soft_depth() -> int:
+    """Depth past which admission answers 'queued' (accepted, busy)."""
+    return _read("CDT_FD_SOFT_DEPTH", 64, int)
+
+
+def fd_shed_depth() -> int:
+    """Depth past which requests are shed with 429 + Retry-After (the
+    lowest priority sheds at half)."""
+    return _read("CDT_FD_SHED_DEPTH", 256, int)
+
+
+def fd_tenant_rate() -> float:
+    """Per-tenant token bucket: sustained requests a second."""
+    return _read("CDT_FD_TENANT_RATE", 20.0, float)
+
+
+def fd_tenant_burst() -> float:
+    """Per-tenant token bucket: burst capacity."""
+    return _read("CDT_FD_TENANT_BURST", 40.0, float)
+
+
+def fd_max_tenants() -> int:
+    """LRU cap on the per-tenant bucket map."""
+    return _read("CDT_FD_MAX_TENANTS", 1024, int)
+
+
+def fd_retry_after_s() -> float:
+    """Base Retry-After of a shed answer (scaled by the overload ratio)."""
+    return _read("CDT_FD_RETRY_AFTER_S", 2.0, float)
+
+
+def fd_max_wait_ms() -> Optional[float]:
+    """Force-flush valve: the most ms a ready group waits for capacity
+    (None: 20 × the window)."""
+    return _read("CDT_FD_MAX_WAIT_MS", None, float)
+
+
+# --- content-addressed cache (cluster/cache) ------------------------------------
+
+
+def cache() -> bool:
+    """Kill switch of the content cache."""
+    return _read("CDT_CACHE", True, _bool)
+
+
+def cache_dir() -> Optional[str]:
+    """Persisted-tier directory (None: the default under the output
+    directory); an empty value, unlike other knobs, means memory-only."""
+    raw = os.environ.get("CDT_CACHE_DIR")
+    return None if raw is None else raw.strip()
+
+
+def cache_cond_max_bytes() -> int:
+    """In-memory conditioning-tier LRU cap (bytes)."""
+    return _read("CDT_CACHE_COND_MAX_BYTES", 256 * 1024 * 1024, int)
+
+
+def cache_result_max_bytes() -> int:
+    """In-memory result-tier LRU cap (bytes): whole decoded image
+    batches."""
+    return _read("CDT_CACHE_RESULT_MAX_BYTES", 1024 * 1024 * 1024, int)
+
+
+def cache_disk_max_bytes() -> int:
+    """Persisted-tier byte cap (oldest first out)."""
+    return _read("CDT_CACHE_DISK_MAX_BYTES", 4 * 1024 * 1024 * 1024, int)
 
 
 # --- tiles ---------------------------------------------------------------------

@@ -1,5 +1,11 @@
-"""Machine identity, local/remote classification of a host, and the
-first-launch host list.
+"""Machine identity, the host's environment, local/remote classification
+of a host, and the first-launch host list.
+
+``detect_environment`` is the ``environment`` of
+``/distributed/system_info`` (the JAX package's, with the CUDA variables
+where it has the TPU's): docker (``/.dockerenv`` or process 1's cgroup),
+kubernetes and the visible-device variables, all read without a driver
+call. The device census adds the card's name and ``driver_version``.
 
 A host is local when it reports this machine's identity over
 ``/distributed/system_info``; loopback addresses need no call.
@@ -10,9 +16,14 @@ the JAX package reads the TPU slice's hosts instead.
 
 from __future__ import annotations
 
+import os
 import platform
+import shutil
+import subprocess
+import threading
 import uuid
-from typing import Optional, Sequence
+from pathlib import Path
+from typing import Any, Optional, Sequence
 
 from ..utils.network import fetch_system_info
 
@@ -20,6 +31,85 @@ from ..utils.network import fetch_system_info
 def get_machine_id() -> str:
     """Stable machine identity: hostname and MAC."""
     return f"{platform.node()}-{uuid.getnode():012x}"
+
+
+def is_docker() -> bool:
+    """``/.dockerenv``, or a docker cgroup of process 1."""
+    if Path("/.dockerenv").exists():
+        return True
+    try:
+        return "docker" in Path("/proc/1/cgroup").read_text()
+    except OSError:
+        return False
+
+
+def is_kubernetes() -> bool:
+    return bool(os.environ.get("KUBERNETES_SERVICE_HOST"))
+
+
+def cuda_environment() -> dict[str, Any]:
+    """The visible-device variables that are set. Reads the environment
+    only: the degraded ``/distributed/system_info`` serves it while the
+    driver does not answer, so nothing here may call into the driver."""
+    return {var.lower(): os.environ[var]
+            for var in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES")
+            if os.environ.get(var)}
+
+
+# nvidia-smi's answer, once start_driver_probe's thread has it
+_smi_answer: list[str] = []
+_smi_started = threading.Event()
+
+
+def driver_version() -> Optional[str]:
+    """The NVIDIA driver's version: ``/proc/driver/nvidia/version``, else
+    what ``start_driver_probe`` learnt from ``nvidia-smi``; None while
+    neither has it. Waits on nothing, so it fits under a deadline."""
+    try:
+        text = Path("/proc/driver/nvidia/version").read_text()
+    except OSError:
+        text = ""
+    for word in text.split():
+        parts = word.split(".")
+        if len(parts) >= 2 and all(p.isdigit() for p in parts):
+            return word
+    return _smi_answer[0] if _smi_answer else None
+
+
+def start_driver_probe() -> None:
+    """Ask ``nvidia-smi`` for the driver's version once a process, on a
+    daemon thread, so that no request waits on the tool (hosts whose
+    ``/proc`` does not carry the driver, such as gVisor sandboxes)."""
+    if _smi_started.is_set():
+        return
+    _smi_started.set()
+    threading.Thread(target=_ask_smi, name="cdt-driver-version",
+                     daemon=True).start()
+
+
+def _ask_smi() -> None:
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return
+    try:
+        out = subprocess.run(
+            [smi, "--query-gpu=driver_version", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return
+    lines = out.stdout.strip().splitlines()
+    if out.returncode == 0 and lines:
+        _smi_answer.append(lines[0].strip())
+
+
+def detect_environment() -> dict[str, Any]:
+    return {
+        "machine_id": get_machine_id(),
+        "platform": platform.system().lower(),
+        "docker": is_docker(),
+        "kubernetes": is_kubernetes(),
+        "cuda": cuda_environment(),
+    }
 
 
 async def fetch_remote_machine_id(host: dict) -> Optional[str]:

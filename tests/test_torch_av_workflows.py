@@ -42,6 +42,7 @@ from comfyui_distributed_tpu_torch.utils.audio_payload import (encode_audio,
 from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 from comfyui_distributed_tpu_torch.utils.multipart import Part, build_multipart
 from comfyui_distributed_tpu_torch.utils.video_io import load_video, save_video
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 120.0

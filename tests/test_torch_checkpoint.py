@@ -36,6 +36,7 @@ from comfyui_distributed_tpu_torch.models.registry import ModelRegistry  # noqa:
 from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError  # noqa: E402
 from comfyui_distributed_tpu_torch.utils.safetensors import SafetensorsError  # noqa: E402
 from torch_ckpt_fixtures import jax_bundle, port_from_jax, presets  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 NAME = "tiny-sdxl"

@@ -20,6 +20,7 @@ from comfyui_distributed_tpu_torch.models import clip as tclip  # noqa: E402
 from comfyui_distributed_tpu_torch.models import tokenizer as ttok  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import (carry_plan,  # noqa: E402
                                                            load_from_jax)
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 G_KW = dict(width=48, heads=2, act="gelu", projection_dim=48)

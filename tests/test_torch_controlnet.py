@@ -32,6 +32,7 @@ from comfyui_distributed_tpu_torch.models import unet as tunet  # noqa: E402
 from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import carry_plan, load_from_jax  # noqa: E402
 from comfyui_distributed_tpu_torch.models.registry import ModelRegistry  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 CFG = dict(dtype="float32")

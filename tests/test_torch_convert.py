@@ -43,6 +43,7 @@ from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
 from comfyui_distributed_tpu_torch.models.convert import ConversionError  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
 from torch_ckpt_fixtures import F32, jax_bundle, perturbed, port_from_jax, presets  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 

@@ -41,6 +41,7 @@ from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa:
 from comfyui_distributed_tpu_torch.models.vae import AutoencoderKL  # noqa: E402
 from comfyui_distributed_tpu_torch.utils.safetensors import save_file  # noqa: E402
 from test_torch_dit import _dit_inputs, break_zero_init  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 ROOT = __import__("pathlib").Path(__file__).resolve().parent.parent

@@ -26,6 +26,7 @@ pytest.importorskip("flax")
 from comfyui_distributed_tpu.models import dit as jdit  # noqa: E402
 from comfyui_distributed_tpu_torch.models import dit as tdit  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 

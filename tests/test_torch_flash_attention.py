@@ -19,6 +19,7 @@ import torch
 from comfyui_distributed_tpu.ops import flash_attention as jfa
 from comfyui_distributed_tpu_torch.ops import attention as tattn
 from comfyui_distributed_tpu_torch.ops import flash_attention as tfa
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-5
 

@@ -34,6 +34,7 @@ from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa:
 from comfyui_distributed_tpu_torch.models.registry import PRESETS  # noqa: E402
 
 from test_torch_dit import break_zero_init  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 WORKFLOW = Path(__file__).resolve().parents[1] / "workflows" / "flux-txt2img.json"

@@ -34,6 +34,7 @@ from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa:
 from comfyui_distributed_tpu_torch.models.registry import ModelRegistry  # noqa: E402
 from comfyui_distributed_tpu_torch.ops.resize import resize_to  # noqa: E402
 from comfyui_distributed_tpu_torch.tiles import engine as tengine  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 CFG = dict(dtype="float32")

@@ -77,7 +77,19 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.workers.lifecycle",
             "comfyui_distributed_tpu_torch.workers.worker_monitor",
             "comfyui_distributed_tpu_torch.workers.process_manager",
-            "comfyui_distributed_tpu_torch.workers.detection"} <= set(modules)
+            "comfyui_distributed_tpu_torch.workers.detection",
+            "comfyui_distributed_tpu_torch.utils.jsonio",
+            "comfyui_distributed_tpu_torch.cluster.cache",
+            "comfyui_distributed_tpu_torch.cluster.cache.keys",
+            "comfyui_distributed_tpu_torch.cluster.cache.store",
+            "comfyui_distributed_tpu_torch.cluster.cache.coalesce",
+            "comfyui_distributed_tpu_torch.cluster.cache.conditioning",
+            "comfyui_distributed_tpu_torch.cluster.frontdoor",
+            "comfyui_distributed_tpu_torch.cluster.frontdoor.classifier",
+            "comfyui_distributed_tpu_torch.cluster.frontdoor.admission",
+            "comfyui_distributed_tpu_torch.cluster.frontdoor.batcher",
+            "comfyui_distributed_tpu_torch.cluster.frontdoor.microbatch",
+            } <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"

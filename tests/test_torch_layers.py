@@ -21,6 +21,7 @@ pytest.importorskip("flax")
 from comfyui_distributed_tpu.models import layers as jl  # noqa: E402
 from comfyui_distributed_tpu_torch.models import layers as tl  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 F32 = torch.float32

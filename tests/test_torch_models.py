@@ -21,6 +21,7 @@ from comfyui_distributed_tpu_torch.models import text as ttext  # noqa: E402
 from comfyui_distributed_tpu_torch.models import unet as tunet  # noqa: E402
 from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 

@@ -47,6 +47,7 @@ from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa:
 from comfyui_distributed_tpu_torch.models.registry import ModelRegistry  # noqa: E402
 from comfyui_distributed_tpu_torch.utils.image import decode_png  # noqa: E402
 from test_torch_dit import break_zero_init  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 ROOT = Path(__file__).resolve().parents[1]

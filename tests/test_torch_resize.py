@@ -10,6 +10,7 @@ import torch
 
 from comfyui_distributed_tpu.ops import resize as jresize
 from comfyui_distributed_tpu_torch.ops import resize as tresize
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 RESIZE_TOL = 2e-5
 

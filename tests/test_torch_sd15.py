@@ -48,6 +48,7 @@ from comfyui_distributed_tpu_torch.models.from_jax import carry_plan, load_from_
 from comfyui_distributed_tpu_torch.ops import resize as tresize  # noqa: E402
 from comfyui_distributed_tpu_torch.tiles import engine as tengine  # noqa: E402
 from comfyui_distributed_tpu_torch.utils.image import encode_png  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 ROOT = Path(__file__).resolve().parents[1]

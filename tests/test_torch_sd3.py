@@ -70,6 +70,7 @@ from comfyui_distributed_tpu_torch.utils.safetensors import save_file  # noqa: E
 
 from test_torch_dit import break_zero_init  # noqa: E402
 from torch_ckpt_fixtures import perturbed  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 PREFIX = "model.diffusion_model."

@@ -25,6 +25,7 @@ from comfyui_distributed_tpu_torch.models import t5 as tt5  # noqa: E402
 from comfyui_distributed_tpu_torch.models.convert import ConversionError  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
 from torch_ckpt_fixtures import perturbed  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 MODULE_TOL, STACK_TOL = 2e-5, 2e-4
 PROMPTS = ["a photo of the cat on a red car", "lighthouse at dawn", ""]

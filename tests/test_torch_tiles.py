@@ -29,6 +29,7 @@ from comfyui_distributed_tpu_torch.tiles import grid as tgrid  # noqa: E402
 from comfyui_distributed_tpu_torch.tiles.model_upscale import (  # noqa: E402
     tiled_model_upscale)
 from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 

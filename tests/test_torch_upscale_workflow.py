@@ -29,6 +29,7 @@ from comfyui_distributed_tpu_torch.graph.node import get_node
 from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 from comfyui_distributed_tpu_torch.tiles.engine import TileUpscaler, UpscaleSpec
 from comfyui_distributed_tpu_torch.utils.image import decode_png, encode_png
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 120.0

@@ -29,6 +29,7 @@ from comfyui_distributed_tpu_torch.models import wan as twan  # noqa: E402
 from comfyui_distributed_tpu_torch.models import wan_vae as twv  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import load_from_jax  # noqa: E402
 from torch_ckpt_fixtures import perturbed  # noqa: E402
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 TOL = 2e-4
 

@@ -42,6 +42,7 @@ from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 from comfyui_distributed_tpu_torch.utils.image import encode_png, to_uint8
 from comfyui_distributed_tpu_torch.utils.safetensors import save_file
 from comfyui_distributed_tpu_torch.utils.video_io import load_video
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 120.0

@@ -28,6 +28,7 @@ from comfyui_distributed_tpu_torch.models import vae as tvae  # noqa: E402
 from comfyui_distributed_tpu_torch.models.from_jax import (CarryError,  # noqa: E402
                                                            carry_plan,
                                                            load_from_jax)
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 
 def _jax_trees(name):

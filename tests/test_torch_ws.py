@@ -27,6 +27,7 @@ from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 from comfyui_distributed_tpu_torch.utils import websocket as ws
 from comfyui_distributed_tpu_torch.utils.exceptions import WorkerError
 from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+from torch_cpu_share import cpu_share  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 60.0
