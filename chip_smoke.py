@@ -130,8 +130,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ControlNet forward at a tile's shape (104² latent, 832² hint, batch 2)
    within 5e-2·max|plain| of the plain versions.
 13a. audio — ``clip.wav`` (60 s of seeded stereo at 48 kHz, 16-bit,
-   11.5 MB) and ``input.avi`` (24 seeded frames of 960×540 at 24 fps, a
-   1 s stereo track at 48 kHz, written by the port's muxer and JPEG
+   11.5 MB) and ``input.avi`` (8 seeded frames of 960×540 at 24 fps, a
+   1/3 s stereo track at 48 kHz, written by the port's muxer and JPEG
    encoder: seconds a frame printed) are written to the upscale input
    directory; ``workflows/distributed-audio.json`` runs unchanged:
    ``chunk_a``/``chunk_b`` must be the two halves of the clip, bitwise as
@@ -142,11 +142,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    written through OpenCV, 8 K1 and 1440 K3):
    ``realesrgan-x2`` to 1920×1080, USDU at ``upscale_by`` 1.0 with 768²
    tiles and padding 24 (6 crops of 816² a frame, latents 102², 4 a
-   chunk: 48 chunks), res_2m on beta for 3 of 12 steps (denoise 0.25),
-   CFG 5: frames [24,1080,1920,3], finite, in [0,1], exactly 8 K1 and
-   144 · 30 = 4320 K3 launches, the seconds of each stage (decode,
+   chunk: 16 chunks), res_2m on beta for 3 of 12 steps (denoise 0.25),
+   CFG 5: frames [8,1080,1920,3], finite, in [0,1], exactly 8 K1 and
+   48 · 30 = 1440 K3 launches, the seconds of each stage (decode,
    ESRGAN, USDU, encode) and of JPEG a frame; ``video_up_00000.avi``
-   read back by ``load_video`` as 24 frames of 1920×1080 at 24 fps with
+   read back by ``load_video`` as 8 frames of 1920×1080 at 24 fps with
    the source's track bitwise as the muxer writes it. Then one tile
    chunk's UNet forward (batch 8 at a 102² latent) through the kernels
    and on the plain versions, within 5e-2·max|plain|.
@@ -230,10 +230,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    exit and the card's free memory comes back within 1 GiB of its value
    before the launch; last ``python -m comfyui_distributed_tpu_torch
    info`` names the card.
-14c. front door — with the defaults of the front door and the content
-   cache (the served phases before it run with ``CDT_CACHE=0``, so that
-   their launch gates count every text encode; phase 36 and the file
-   request of phase 37 run with the cache too), a master in this process (no
+14c. front door — with the defaults of the front door, the content
+   cache and the stage pools (the served phases before it run with
+   ``CDT_CACHE=0`` and ``CDT_STAGES=0``, so that their launch gates count
+   every text encode on the path they were written for; phase 36 runs the
+   defaults too, and the file request of phase 37 the cache), a master in
+   this process (no
    workers, ``CDT_FD_WINDOW_MS`` 1500, its own empty cache directory)
    takes four concurrent ``POST /distributed/queue`` requests of the
    batchable graph (``CheckpointLoader sdxl`` → positive and negative
@@ -257,10 +259,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``environment`` with the card's name and the driver's version. A second master with
    ``CDT_FD_SHED_DEPTH`` 2 takes a burst of 6 requests (512², 4 steps):
    at least one 429 with ``Retry-After``, every admitted one succeeds.
+   The group runs the staged lane (encode pool → the one denoise worker
+   → decode pool): ``GET /distributed/stages`` reports at least 1 group
+   and 4 members, 0 fallbacks and 0 re-dispatches, each member's history
+   carries ``decode_batch``, and ``cdt_decode_batch_size`` sums to 4.
    Printed: the group's seconds against the four solo runs', the queue
    wait by priority, and one SDXL UNet forward of 4 stacked requests
    (batch 8) against 4 at batch 2 (max abs difference, bitwise or not,
    the time ratio).
+14d. stages and residency — a master with ``CDT_STAGE_WIRE=1`` takes
+   two batchable SDXL requests at 512², 4 euler steps, as one group:
+   exactly 572 K1 / 560 K2 (2 × 280 UNet + 3 encodes), each PNG bitwise
+   its solo ``GraphExecutor`` run, ``cdt_latent_transfer_bytes`` two
+   handoffs of 65 536 B through the checksummed wire. ``POST
+   /distributed/stages/decode`` with one of those latents answers an
+   image bitwise that member's direct decode; one flipped bit answers
+   400. Then a ``ModelRegistry`` under ``CDT_HBM_BUDGET_GB`` with room
+   for ``sdxl`` or ``sd15`` (sized from the bundles phases 4 and 11
+   built), not both: ``get("sd15")`` evicts ``sdxl`` (one more
+   ``cdt_residency_evictions_total``, the evicted bundle ``released``),
+   the card's allocated memory falls by at least 0.9 of the SDXL
+   bundle's parameter bytes; a pin of the evicted ``sdxl`` bundle raises
+   ``ResidencyError`` (its parameters left the card); under a pin on
+   ``sd15``, ``get("sdxl")`` raises ``ResidencyError`` and its refused
+   build is freed.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -369,16 +391,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    prompt, sampling and decode seconds and the worker's prompt seconds
    (from its log), and each process's peak memory.
 
-26. wan t2v — ``workflows/wan-t2v.json`` unchanged on the ``wan`` preset
-   (WAN 14B at full width and depth, 14.3 B parameters, the WAN 3D causal
-   VAE; random init from seed 0): 33 frames of 832×480, 20 steps, CFG 5,
-   shift 3, ``dp``, through ``GraphExecutor``: exactly 4 K1, 0 K2 and
-   1600 K3 launches (800 on the streamed core at 14 040 tokens, 800 on
-   the short-key kernel over 77 keys), the collected batch [33, 480, 832,
-   3], finite, in [0, 1], ``wan_v0_00000.mp4`` and ``wan_v1_00000.mp4``
-   read back as the divider's 17 and 16 frames at 16 fps; the sampling,
-   tiled decode and request seconds and the peak memory. Then the same
-   graph at 4 steps at seeds 99 and 100 (320 K3 a request), kept as 8-bit
+26. wan t2v — ``workflows/wan-t2v.json`` on the ``wan`` preset (WAN 14B
+   at full width and depth, 14.3 B parameters, the WAN 3D causal VAE;
+   random init from seed 0), its 20 steps cut to 4 for the time limit: 33
+   frames of 832×480, CFG 5, shift 3, ``dp``, through ``GraphExecutor``:
+   exactly 4 K1, 0 K2 and 320 K3 launches (160 on the streamed core at
+   14 040 tokens, 160 on the short-key kernel over 77 keys), the collected
+   batch [33, 480, 832, 3], finite, in [0, 1], ``wan_v0_00000.mp4`` and
+   ``wan_v1_00000.mp4`` read back as the divider's 17 and 16 frames at 16
+   fps; the sampling, tiled decode and request seconds and the peak
+   memory. Then the same graph at seed 100; both videos are kept as 8-bit
    frames for phase 28.
 27. wan reference — one WanModel velocity at full width and depth at 9
    frames (3 latent frames, 4680 tokens; cut from 33 so that the plain
@@ -393,10 +415,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    frames; the master's launches 4 K1 + 320 K3, the worker's kernels
    counted from a ``torch.profiler`` trace of its request (its
    ``/distributed/profile/start|stop``): 320 K3 and 4 K1.
-29. wan i2v — ``workflows/wan-i2v.json`` unchanged on ``wan-i2v``
-   (in_channels 36) with a seeded 832×480 ``start_frame.png`` the script
-   writes: the same launch counts as phase 26, 33 frames of 480×832, the
-   start frame's VAE encode seconds.
+29. wan i2v — ``workflows/wan-i2v.json`` on ``wan-i2v`` (in_channels 36),
+   its 20 steps cut to 4 as in phase 26, with a seeded 832×480
+   ``start_frame.png`` the script writes: the same launch counts as phase
+   26, 33 frames of 480×832, the start frame's VAE encode seconds.
 30. wan 2.2 — the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts, 57.2
    GB) at 4 steps, twice: each expert's model calls equal the split (2
    high-noise steps of 4 at shift 3), 320 K3 a request, the repeat bitwise
@@ -627,7 +649,7 @@ CN_TILE_SHAPES = sd15_shapes(8, CN_TILE_LEVELS, CN_TILE_FORWARDS * (
 # at the three levels), 4 a chunk (2 chunks a frame, the second padded),
 # CFG (batch 8), res_2m (one UNet call a step) for 3 of the 12 steps
 # (denoise 0.25): 24 · 2 · 3 = 144 UNet forwards a request.
-VIDEO_FRAMES, VIDEO_FPS = 24, 24.0
+VIDEO_FRAMES, VIDEO_FPS = 8, 24.0     # cut from 24 to keep the run in its limit
 VIDEO_IN_HW, VIDEO_OUT_HW = (540, 960), (1080, 1920)
 VIDEO_TILE, VIDEO_PADDING = 768, 24
 VIDEO_TILES_A_FRAME, VIDEO_CHUNK, VIDEO_STEPS = 6, 4, 3
@@ -706,14 +728,16 @@ def k3_counts(calls: int, shapes: list, text_prompts: int = 2) -> tuple:
 # streamed core) and 40 cross-attentions over the hash encoder's 77 tokens
 # (the short-key kernel at D 128), one forward a step; the hash encoder
 # adds 4 K1 launches (one prompt).
+# The workflows' 20 steps (WAN_STEPS, the kernel table's per-request
+# launches) run as WAN_SERVED_STEPS in phases 26 and 29: a depth cut for the
+# run's time limit (PERF.md §4).
 WAN_STEPS, WAN_FRAMES, WAN_HW = 20, 33, (480, 832)
 WAN_LAYERS, WAN_HEADS = 40, 40
 WAN_TOKENS = 9 * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)              # 14040
 WAN_FORWARD_SHAPES = [((2, WAN_TOKENS, WAN_TOKENS, WAN_HEADS, 128), WAN_LAYERS),
                       ((2, WAN_TOKENS, 77, WAN_HEADS, 128), WAN_LAYERS)]
 WAN_SHAPES = [(s, WAN_STEPS * n) for s, n in WAN_FORWARD_SHAPES]   # 800 + 800
-WAN_REQUEST = k3_counts(WAN_STEPS, WAN_FORWARD_SHAPES, text_prompts=1)
-WAN_SERVED_STEPS = 4         # the served and the two-expert requests
+WAN_SERVED_STEPS = 4         # every WAN request this run makes
 WAN_SERVED = k3_counts(WAN_SERVED_STEPS, WAN_FORWARD_SHAPES, text_prompts=1)
 # phase 31: WAN and UMT5 files cut to 2 blocks and 2 layers; a request of
 # 2 steps from them: the cross-attention over UMT5's 512 tokens takes the
@@ -2232,7 +2256,7 @@ def stage_timer(torch, classes: tuple):
 
 def write_av_inputs(input_dir: Path) -> dict:
     """``clip.wav`` (60 s of seeded stereo at 48 kHz, 16-bit) and
-    ``input.avi`` (24 seeded frames of 960×540 at 24 fps with a 1 s stereo
+    ``input.avi`` (8 seeded frames of 960×540 at 24 fps with a 1/3 s stereo
     track at 48 kHz, written by the port's muxer) in the input directory;
     returns the encode's seconds a frame."""
     import numpy as np
@@ -4840,9 +4864,9 @@ class WanRun(NamedTuple):
 
 
 def wan_t2v_phase(torch, fa) -> WanRun:
-    """Phase 26: ``workflows/wan-t2v.json`` unchanged on the full-width
-    ``wan`` preset, then the same graph at 4 steps at seeds 99 and 100 (the
-    served phase's references)."""
+    """Phase 26: ``workflows/wan-t2v.json`` on the full-width ``wan``
+    preset, its 20 steps cut to 4, then the same graph at seed 100: the
+    served phase's references are this seed-99 video and that one."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
     from comfyui_distributed_tpu_torch.utils.image import to_uint8
@@ -4855,6 +4879,7 @@ def wan_t2v_phase(torch, fa) -> WanRun:
             == (WAN_FRAMES, WAN_STEPS, *WAN_HW, 5.0, 3.0, "dp", "wan",
                 WAN_SEED),
             f"{WAN_T2V} changed; update the script")
+    node["steps"] = WAN_SERVED_STEPS
     registry = ModelRegistry(DEVICE, seed=0)
     bundle = wan_bundle(torch, registry, "wan")
     out_dir = WAN_DIR / "t2v"
@@ -4863,7 +4888,7 @@ def wan_t2v_phase(torch, fa) -> WanRun:
     reset_peak(torch)
     fa.reset_launches()
     batch, secs, _ = wan_request(torch, fa, executor, prompt, "wan t2v",
-                                 WAN_REQUEST)
+                                 WAN_SERVED)
     t = bundle.pipeline.timings
     peak = torch.cuda.max_memory_allocated()
     check_mp4s(out_dir, "wan", WAN_HALVES)
@@ -4871,24 +4896,23 @@ def wan_t2v_phase(torch, fa) -> WanRun:
         f"{WAN_HW[1]}x{WAN_HW[0]}; sampling {t['sample_s']:.3f} s = "
         f"{t['sample_s'] / t['steps']:.4f} s/step over {t['steps']} steps; "
         f"tiled VAE decode {t['decode_s']:.3f} s; launches "
-        f"{WAN_REQUEST[0]}, CUDA kernels {WAN_REQUEST[1]}; batch "
+        f"{WAN_SERVED[0]}, CUDA kernels {WAN_SERVED[1]}; batch "
         f"{tuple(batch.shape)}; wan_v0/wan_v1 mp4 read back as "
         f"{WAN_HALVES[0]} and {WAN_HALVES[1]} frames at {WAN_FPS:g} fps; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB")
     launches = dict(fa.LAUNCHES)
+    frames = {WAN_SEED: to_uint8(batch)}
     del batch
-    frames = {}
-    for seed in (WAN_SEED, WAN_SEED + 1):
-        p = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
-        p["3"]["inputs"]["seed"] = seed
-        fa.reset_launches()
-        batch, s, _ = wan_request(torch, fa, executor, p,
-                                  f"wan t2v {WAN_SERVED_STEPS} steps",
-                                  WAN_SERVED)
-        frames[seed] = to_uint8(batch)
-        say(f"  direct seed {seed} at {WAN_SERVED_STEPS} steps: {s:.3f} s "
-            f"(sampling {bundle.pipeline.timings['sample_s']:.3f} s, decode "
-            f"{bundle.pipeline.timings['decode_s']:.3f} s)")
+    seed = WAN_SEED + 1
+    p = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
+    p["3"]["inputs"]["seed"] = seed
+    fa.reset_launches()
+    batch, s, _ = wan_request(torch, fa, executor, p,
+                              f"wan t2v {WAN_SERVED_STEPS} steps", WAN_SERVED)
+    frames[seed] = to_uint8(batch)
+    say(f"  direct seed {seed} at {WAN_SERVED_STEPS} steps: {s:.3f} s "
+        f"(sampling {bundle.pipeline.timings['sample_s']:.3f} s, decode "
+        f"{bundle.pipeline.timings['decode_s']:.3f} s)")
     require(not np_equal(frames[WAN_SEED], frames[WAN_SEED + 1]),
             "seeds 99 and 100 gave the same video")
     return WanRun(registry, frames, secs, launches)
@@ -4959,8 +4983,8 @@ def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
                      + kernels.get("short_kv_attention_kernel", 0)
                      - kernels.get(K1_EVENT, 0))
         say(f"  served wan-t2v.json at {WAN_SERVED_STEPS} steps: {secs:.3f} s "
-            f"(POST to final history; direct {t2v.seconds:.3f} s at "
-            f"{WAN_STEPS} steps); master launches {counts}; worker kernels "
+            f"(POST to final history; direct {t2v.seconds:.3f} s); master "
+            f"launches {counts}; worker kernels "
             f"(profiled) {kernels}; peak memory master "
             f"{master_peak / 2**30:.3f} GiB, worker {peak / 2**30:.3f} GiB")
         require(counts == WAN_SERVED[0],
@@ -5027,8 +5051,8 @@ def write_start_frame(directory: Path) -> None:
 
 
 def wan_i2v_phase(torch, fa) -> dict:
-    """Phase 29: ``workflows/wan-i2v.json`` unchanged (``wan-i2v``:
-    in_channels 36) on a seeded 832×480 start frame."""
+    """Phase 29: ``workflows/wan-i2v.json`` (``wan-i2v``: in_channels 36),
+    its 20 steps cut to 4, on a seeded 832×480 start frame."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 
@@ -5037,6 +5061,7 @@ def wan_i2v_phase(torch, fa) -> dict:
     require((node["frames"], node["steps"], prompt["1"]["inputs"]["ckpt_name"])
             == (WAN_FRAMES, WAN_STEPS, "wan-i2v"),
             f"{WAN_I2V} changed; update the script")
+    node["steps"] = WAN_SERVED_STEPS
     input_dir = WAN_DIR / "i2v_input"
     write_start_frame(input_dir)
     registry = ModelRegistry(DEVICE, seed=0)
@@ -5048,14 +5073,14 @@ def wan_i2v_phase(torch, fa) -> dict:
     reset_peak(torch)
     fa.reset_launches()
     batch, secs, _ = wan_request(torch, fa, executor, prompt, "wan i2v",
-                                 WAN_REQUEST, node="6")
+                                 WAN_SERVED, node="6")
     t = bundle.pipeline.timings
     peak = torch.cuda.max_memory_allocated()
     check_mp4s(out_dir, "wan_i2v", WAN_HALVES)
     say(f"  wan-i2v.json: {secs:.3f} s for {WAN_FRAMES} frames; start frame "
         f"VAE encode {t['encode_s']:.3f} s, sampling {t['sample_s']:.3f} s = "
         f"{t['sample_s'] / t['steps']:.4f} s/step, tiled decode "
-        f"{t['decode_s']:.3f} s; launches {WAN_REQUEST[0]}; batch "
+        f"{t['decode_s']:.3f} s; launches {WAN_SERVED[0]}; batch "
         f"{tuple(batch.shape)}; max_memory_allocated {peak / 2**30:.3f} GiB")
     return dict(fa.LAUNCHES)
 
@@ -5493,12 +5518,13 @@ def sd3_serve_phase(torch, fa, run: Sd3Run) -> dict:
     the master's launches 8 K1 + 672 K2, the worker's kernels counted from
     a ``torch.profiler`` trace of its request. Both hosts run the content
     cache's defaults: each encodes both prompts once (2 misses)."""
-    cache_off = os.environ.pop("CDT_CACHE", None)
+    off = {k: os.environ.pop(k, None) for k in ("CDT_CACHE", "CDT_STAGES")}
     try:
         return sd3_served(torch, fa, run)
     finally:
-        if cache_off is not None:
-            os.environ["CDT_CACHE"] = cache_off
+        for k, v in off.items():
+            if v is not None:
+                os.environ[k] = v
 
 
 def sd3_served(torch, fa, run: Sd3Run) -> dict:
@@ -5848,8 +5874,8 @@ def fd_counts(text_encodes: int, requests: int) -> dict:
 def fd_master(torch, name: str, registry, env: dict):
     """A master ``Controller`` on the card with no workers, behind a
     ``ServerThread``, built under ``env`` with the defaults of the front
-    door and the cache (its own cache directory, empty); yields (master,
-    base URL, output directory)."""
+    door, the cache (its own cache directory, empty) and the stage pools;
+    yields (master, base URL, output directory)."""
     from comfyui_distributed_tpu_torch.api.app import ServerThread
     from comfyui_distributed_tpu_torch.cluster.controller import Controller
 
@@ -5858,7 +5884,7 @@ def fd_master(torch, name: str, registry, env: dict):
     (home / "master.json").write_text("{}")
     full = {"CDT_OUTPUT_DIR": str(home / "out"),
             "CDT_CACHE_DIR": str(home / "cache"), "CDT_CACHE": "1",
-            "CDT_FRONTDOOR": "1", **env}
+            "CDT_FRONTDOOR": "1", "CDT_STAGES": "1", **env}
     saved = {k: os.environ.get(k) for k in full}
     os.environ.update(full)
     try:
@@ -5870,8 +5896,10 @@ def fd_master(torch, name: str, registry, env: dict):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    require(master.frontdoor is not None and master.cache is not None,
-            f"{name}: the front door or the cache is off by default")
+    require(master.frontdoor is not None and master.cache is not None
+            and master.stages is not None,
+            f"{name}: the front door, the cache or the stages are off by "
+            "default")
     server = ServerThread(master, port=free_port())
     try:
         yield master, f"http://127.0.0.1:{server.port}", home / "out"
@@ -6008,6 +6036,25 @@ def frontdoor_phase(torch, fa, sdxl: PathRun) -> dict:
         sizes = histogram(snap, "cdt_batch_size")
         require(sizes.get(()) == (1, 4.0),
                 f"front door: cdt_batch_size observed {sizes}, not one 4")
+        # the group ran the staged lane (encode, denoise, decode pools),
+        # not the fused fallback
+        status, st = http_json(base + "/distributed/stages")
+        require(status == 200 and st.get("enabled") is True
+                and st["groups"] >= 1 and st["members"] >= 4
+                and st["fallbacks"] == 0 and st["redispatched"] == 0,
+                f"front door: the stage pools answered {status}: {st}")
+        decoded = histogram(snap, "cdt_decode_batch_size").get(())
+        require(decoded is not None and decoded[0] >= 1
+                and decoded[1] == 4.0
+                and all(e.get("decode_batch") for e in entries),
+                f"front door: cdt_decode_batch_size observed {decoded}, "
+                f"entries {entries}")
+        done = {k: v["done"] for k, v in st["pools"].items()}
+        say(f"  staged: {st['groups']} group, {st['members']} members, "
+            f"fallbacks {st['fallbacks']}, redispatched "
+            f"{st['redispatched']}; {decoded[0]} decode batch(es) for 4 "
+            f"latents (history decode_batch "
+            f"{[e['decode_batch'] for e in entries]}); pools done {done}")
         waits = histogram(snap, "cdt_queue_wait_seconds")
         say(f"  group of four (+ a coalesced twin): {group_s:.3f} s against "
             f"{sum(solo_s):.3f} s solo ({group_s / sum(solo_s):.3f}×); "
@@ -6157,6 +6204,209 @@ def batch_invariance(torch, bundle, requests: int = 4, iters: int = 3) -> None:
         f"(ratio {stacked_s / solo_s:.3f})")
 
 
+# --- phase 14d: stages and residency ------------------------------------------
+
+ST_SEEDS = (51, 52)
+ST_FALL = 0.9                # of the evicted SDXL bundle's parameter bytes
+ST_REBUILD_SLACK = 1 << 27   # bytes the refused SDXL build may leave behind
+
+
+def st_counts(text_encodes: int, requests: int) -> dict:
+    """Launches of ``requests`` SDXL runs at ``FD_BURST_STEPS`` euler steps
+    and ``text_encodes`` encodes (``fd_counts`` at another step count)."""
+    return {k: v // STEPS * FD_BURST_STEPS * requests
+            + (FD_TEXT_K1 * text_encodes if k == "fused_qkv_attention" else 0)
+            for k, v in FD_UNET.items()}
+
+
+def stages_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Phase 14d: the stage split under ``CDT_STAGE_WIRE=1``, the remote
+    decode route and the residency planner's eviction on the card;
+    returns the staged group's launches."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    from comfyui_distributed_tpu_torch import telemetry
+    from comfyui_distributed_tpu_torch.cluster.residency import (
+        ResidencyError, bundle_bytes, pinned_bundle)
+    from comfyui_distributed_tpu_torch.cluster.stages.latents import (
+        LatentHandoff, decode_array_payload)
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    telemetry.set_enabled(True)
+    registry = sdxl.registry
+    solo_dir = FD_DIR / "stages-solo"
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(solo_dir)})
+    prompts = [fd_prompt(seed, fd_positive(10 + i), f"st{i}", FD_BURST_HW,
+                         FD_BURST_STEPS) for i, seed in enumerate(ST_SEEDS)]
+    solo = []
+    for i, prompt in enumerate(prompts):
+        executor.execute(prompt)
+        solo.append((solo_dir / f"st{i}_00000.png").read_bytes())
+    # every latent the decode pool decodes, and its image
+    pipeline = registry.get("sdxl").pipeline
+    decode = pipeline.decode_latents
+    decoded = []
+
+    def recording(latents):
+        images = decode(latents)
+        decoded.extend((lat.clone(), img.clone())
+                       for lat, img in zip(latents, images))
+        return images
+
+    telemetry.REGISTRY.reset()
+    # read at each handoff, so set for the master's whole life
+    os.environ["CDT_STAGE_WIRE"] = "1"
+    try:
+        with fd_master(torch, "stages-wire", registry,
+                       {"CDT_FD_WINDOW_MS": FD_WINDOW_MS,
+                        "CDT_FD_MAX_BATCH": str(len(ST_SEEDS))}) as (
+                master, base, out):
+            queue = base + "/distributed/queue"
+            torch.cuda.synchronize()
+            before = dict(fa.LAUNCHES)
+            t0 = time.perf_counter()
+            pipeline.decode_latents = recording
+            try:
+                with ThreadPoolExecutor(len(prompts)) as pool:
+                    answers = list(pool.map(
+                        lambda p: http_json(queue, {"prompt": p}), prompts))
+                entries = [wait_final(master, a.get("prompt_id", ""),
+                                      f"staged member {i}")
+                           for i, (_, a) in enumerate(answers)]
+            finally:
+                del pipeline.decode_latents
+            torch.cuda.synchronize()
+            group_s = time.perf_counter() - t0
+            launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+            want = st_counts(3, len(prompts))
+            require(launches == want,
+                    f"stages: the wire group's launches {launches} != {want}")
+            for i, (status, a) in enumerate(answers):
+                e = entries[i]
+                require(status == 200 and a.get("batched") is True
+                        and e["status"] == "success"
+                        and e.get("batch_size") == len(prompts)
+                        and e.get("decode_batch"),
+                        f"stages: member {i} answered {status} {a}: {e}")
+                png = out / f"st{i}_00000.png"
+                require(png.is_file() and png.read_bytes() == solo[i],
+                        f"stages: member {i}'s PNG is not its solo run's")
+            snap = telemetry.REGISTRY.snapshot()
+            moved = histogram(snap, "cdt_latent_transfer_bytes").get(())
+            lat_bytes = (FD_BURST_HW // 8) ** 2 * 4 * 4
+            require(moved == (len(prompts), float(len(prompts) * lat_bytes)),
+                    f"stages: cdt_latent_transfer_bytes observed {moved}")
+            status, st = http_json(base + "/distributed/stages")
+            require(st.get("wire") is True and st["fallbacks"] == 0
+                    and st["redispatched"] == 0 and len(decoded) == 2,
+                    f"stages: {st}, {len(decoded)} latents decoded")
+            say(f"  wire group of {len(prompts)} ({FD_BURST_HW}², "
+                f"{FD_BURST_STEPS} steps): {group_s:.3f} s, each PNG bitwise "
+                f"its solo run, launches {launches}, latent handoffs "
+                f"{moved[0]} of {lat_bytes} B through the checksummed wire")
+            # the remote decode route: one of those latents, by HTTP
+            lat, img = decoded[0]
+            handoff = LatentHandoff(prompt_id="st-remote",
+                                    latents=lat.cpu().numpy(),
+                                    meta={"model": "sdxl"})
+            status, body = http_json(base + "/distributed/stages/decode",
+                                     handoff.to_payload(), timeout=120)
+            require(status == 200 and body.get("prompt_id") == "st-remote",
+                    f"stages: the decode route answered {status}: {body}")
+            remote = decode_array_payload(body["images"])
+            direct = decode([lat])[0].cpu().numpy()
+            require(np_equal(remote, direct)
+                    and np_equal(direct, img.cpu().numpy()),
+                    "stages: the decode route's image is not the member's "
+                    "direct decode")
+            bad = handoff.to_payload()
+            raw = bytearray(base64.b64decode(bad["data"]))
+            raw[len(raw) // 2] ^= 0x01
+            bad["data"] = base64.b64encode(bytes(raw)).decode("ascii")
+            status, body = http_json(base + "/distributed/stages/decode", bad)
+            require(status == 400 and "CHECKSUM" in body.get("error", ""),
+                    f"stages: a flipped bit answered {status}: {body}")
+            say(f"  /distributed/stages/decode: image {remote.shape} bitwise "
+                f"the member's direct decode; one flipped bit answered 400")
+    finally:
+        os.environ.pop("CDT_STAGE_WIRE", None)
+        decoded.clear()
+
+    # the residency planner on the card: room for sdxl or sd15, not both
+    sizes = {name: bundle_bytes(registry.get(name))
+             for name in ("sdxl", "sd15")}
+    budget_gb = (sizes["sdxl"] + sizes["sd15"] // 2) / 2**30
+    saved = os.environ.get("CDT_HBM_BUDGET_GB")
+    os.environ["CDT_HBM_BUDGET_GB"] = repr(budget_gb)
+    try:
+        res_registry = ModelRegistry(DEVICE, seed=0)
+    finally:
+        if saved is None:
+            os.environ.pop("CDT_HBM_BUDGET_GB")
+        else:
+            os.environ["CDT_HBM_BUDGET_GB"] = saved
+    require(res_registry.residency is not None and min(sizes.values()) > 0,
+            f"residency: no planner under {budget_gb} GiB (sizes {sizes})")
+    planner = res_registry.residency.planner
+
+    def evictions() -> float:
+        series = telemetry.REGISTRY.snapshot()[
+            "cdt_residency_evictions_total"]["series"]
+        return sum(s["value"] for s in series)
+
+    t0 = time.perf_counter()
+    big = res_registry.get("sdxl")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    evicted0 = evictions()
+    t0 = time.perf_counter()
+    small = res_registry.get("sd15")
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    fall = held + bundle_bytes(small) - after
+    require(planner.resident() == ["sd15"] and big.released
+            and "sdxl" not in res_registry._cache
+            and evictions() == evicted0 + 1,
+            f"residency: resident {planner.resident()}, sdxl released "
+            f"{getattr(big, 'released', False)}, evictions "
+            f"{evictions() - evicted0}")
+    require(fall >= ST_FALL * sizes["sdxl"],
+            f"residency: the card's memory fell by {fall} B, under "
+            f"{ST_FALL} of the SDXL bundle's {sizes['sdxl']} B")
+    try:
+        with pinned_bundle(big):
+            require(False, "residency: the evicted sdxl bundle took a pin")
+    except ResidencyError:
+        pass
+    with pinned_bundle(small):
+        try:
+            res_registry.get("sdxl")
+            require(False, "residency: an acquire evicted a pinned bundle")
+        except ResidencyError as e:
+            refused = str(e)
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - after
+    require(planner.resident() == ["sd15"] and not small.released
+            and "sdxl" not in res_registry._cache
+            and abs(left) < ST_REBUILD_SLACK,
+            f"residency: under a pin, resident {planner.resident()}, "
+            f"{left} B left by the refused build")
+    say(f"  residency (budget {budget_gb:.3f} GiB; sdxl {sizes['sdxl']} B, "
+        f"sd15 {sizes['sd15']} B): sdxl built in {build_s:.2f} s; get(sd15) "
+        f"in {swap_s:.2f} s evicted sdxl (1 eviction), the card's memory "
+        f"fell by {fall} B ({fall / sizes['sdxl']:.4f} of sdxl's); under a "
+        f"pin get(sdxl) raised ResidencyError ({refused[:60]}...) and left "
+        f"{left} B")
+    del big, small, res_registry, planner
+    gc.collect()
+    return launches
+
+
 PHASE_PEAK = {"bytes": 0}
 
 
@@ -6196,11 +6446,24 @@ def free_card(torch) -> None:
     say(f"  {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
 
 
+def keep_bytecode() -> None:
+    """Write Python's bytecode under ``output/pycache`` for this process and
+    every process it starts, also where ``PYTHONDONTWRITEBYTECODE`` is set:
+    otherwise each worker and converter compiles torch and the port from
+    source again at its start (PERF.md §6)."""
+    prefix = str(ROOT / "output" / "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+
+
 def main() -> int:
     if not (PACKAGE / "ops" / "csrc" / "flash_attention.cu").is_file():
         print(f"chip_smoke: {PACKAGE} not found beside this script",
               file=sys.stderr)
         return 2
+    keep_bytecode()
     import torch
 
     if not torch.cuda.is_available():
@@ -6213,11 +6476,13 @@ def main() -> int:
     # the direct paths and the comparisons build models without a
     # Controller: give them the precision a controller sets on the card
     use_full_fp32()
-    # the served phases before 14c run without the content cache (as
-    # before it existed), so that each counts every text encode it gates
-    # on; 14c and 36 run the controllers' default, and 37's file request
-    # goes through the conditioning tier
+    # the served phases before 14c run without the content cache and the
+    # stage pools (as before they existed), so that each counts every text
+    # encode it gates on and keeps its path; 14c, 14d and 36 run the
+    # controllers' defaults, and 37's file request goes through the
+    # conditioning tier
     os.environ["CDT_CACHE"] = "0"
+    os.environ["CDT_STAGES"] = "0"
     t_start = time.perf_counter()
     try:
         device = device_phase(torch)
@@ -6259,6 +6524,8 @@ def main() -> int:
             path_launches["managed"] = managed_phase(torch, fa, sdxl)
         with phase(torch, "14c front door"):
             path_launches["frontdoor"] = frontdoor_phase(torch, fa, sdxl)
+        with phase(torch, "14d stages and residency"):
+            path_launches["stages"] = stages_phase(torch, fa, sdxl)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "

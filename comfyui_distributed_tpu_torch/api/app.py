@@ -4,8 +4,8 @@ body; no chunked bodies; one request per connection; JSON answers, a PNG
 for the preview), with an RFC 6455 upgrade for the dispatch WebSocket
 (``utils/websocket.py``).
 
-Routes (the JAX package's ``api/app.py``, less stages, preemption and
-the fleet cache):
+Routes (the JAX package's ``api/app.py``, less preemption and the fleet
+cache):
 
 - ``GET /distributed/health``, ``GET /distributed/system_info``
 - ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
@@ -17,6 +17,10 @@ the fleet cache):
 - ``GET /distributed/frontdoor``, ``GET /distributed/cache``,
   ``POST /distributed/cache/clear`` (the front door's and the content
   cache's state; the clear drops both memory tiers)
+- ``GET /distributed/stages`` (the stage pools; ``{"enabled": false}``
+  without them), ``POST /distributed/stages/decode`` (one checksummed
+  latent handoff decoded on this controller's VAE, answered as a
+  checksummed image; a payload that does not verify is a 400)
 - ``POST /distributed/interrupt`` (drop pending prompts, stop the
   running one before its next node)
 - ``GET /distributed/progress/{prompt_id}``,
@@ -92,9 +96,8 @@ from .queue_request import parse_queue_request_payload
 CLIENT_HEADER = "x-cdt-client"
 
 # The read-only probe surface a dashboard reads on other hosts (the JAX
-# package's, less the stages route, not ported). Mutating routes carry no
-# CORS header: with a public tunnel up, a permissive `*` there would let
-# any web page drive the cluster.
+# package's). Mutating routes carry no CORS header: with a public tunnel
+# up, a permissive `*` there would let any web page drive the cluster.
 _CORS_SAFE_PATHS = frozenset({
     "/distributed/health",
     "/distributed/system_info",
@@ -103,6 +106,7 @@ _CORS_SAFE_PATHS = frozenset({
     "/distributed/metrics.json",
     "/distributed/frontdoor",
     "/distributed/cache",
+    "/distributed/stages",
     "/prompt",
 })
 WEB_DIR = Path(__file__).resolve().parent.parent / "web"
@@ -310,6 +314,42 @@ class App:
             dropped = (c.cache.conditioning.clear_memory()
                        + c.cache.results.clear_memory())
             return Response(200, {"status": "cleared", "dropped": dropped})
+
+        async def stages_stats(request):
+            if c.stages is None:
+                return Response(200, {"enabled": False})
+            return Response(200, c.stages.stats())
+
+        async def stages_decode(request):
+            """Decode one wire-form latent handoff (its checksum verified
+            before a byte is trusted) on this controller's VAE and answer
+            the checksummed image; the work runs off the loop."""
+            from ..cluster.residency import registry_bundle
+            from ..cluster.stages.latents import (LatentHandoff,
+                                                  LatentWireError,
+                                                  encode_array_payload)
+
+            body = request.json()
+
+            def decode():
+                handoff = LatentHandoff.from_payload(body)
+                name = handoff.meta.get("model")
+                if not isinstance(name, str) or not name:
+                    raise LatentWireError(
+                        "handoff meta names no model — cannot pick a VAE")
+                with registry_bundle(c.model_registry, name) as bundle:
+                    images = bundle.pipeline.decode_latents(
+                        [handoff.latents])
+                return handoff.prompt_id, encode_array_payload(
+                    images[0].cpu().numpy())
+
+            try:
+                prompt_id, images = await asyncio.get_running_loop() \
+                    .run_in_executor(None, decode)
+            except (LatentWireError, ValueError) as e:
+                raise ValidationError(str(e), field="latents") from None
+            return Response(200, {"status": "ok", "prompt_id": prompt_id,
+                                  "images": images})
 
         def require_ids(meta: Any) -> None:
             if not isinstance(meta, dict):
@@ -530,6 +570,8 @@ class App:
         self.add("GET", "/distributed/frontdoor", frontdoor_stats)
         self.add("GET", "/distributed/cache", cache_stats)
         self.add("POST", "/distributed/cache/clear", cache_clear)
+        self.add("GET", "/distributed/stages", stages_stats)
+        self.add("POST", "/distributed/stages/decode", stages_decode)
         self.add("POST", "/distributed/job_complete", job_complete)
         self.add("POST", "/distributed/job_complete_frames", job_complete_frames)
         self.add("POST", "/distributed/prepare_job", prepare_job)

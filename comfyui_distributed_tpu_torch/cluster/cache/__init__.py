@@ -33,7 +33,7 @@ from typing import Optional
 from ...utils import constants
 from ...utils.logging import log
 from .coalesce import InflightCoalescer
-from .conditioning import cached_encode
+from .conditioning import SingleFlight, cached_encode
 from .keys import (conditioning_key, execution_signature,
                    request_fingerprint, result_key)
 from .store import CacheTier
@@ -90,6 +90,8 @@ class CacheManager:
         self.results = CacheTier(
             "result", constants.cache_result_max_bytes(),
             directory=directory, disk_max_bytes=disk)
+        # concurrent misses of one conditioning key encode once
+        self.conditioning_flights = SingleFlight()
         self.coalescer = InflightCoalescer()
         self._window = _HitRateWindow()
 

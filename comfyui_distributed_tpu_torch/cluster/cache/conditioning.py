@@ -22,11 +22,20 @@ Keys are content-addressed and tokenization-aware
 
 A hit comes back as tensors on the encoder's device in the dtypes the
 encode produced, bitwise equal to a fresh encode.
+
+The fill is single-flight per key (:class:`SingleFlight`, a departure
+from the JAX package, whose fill has none): when several threads (the
+stage pools' encode workers) miss one key at once, the first encodes and
+the others wait for it and take its bits, so a shared negative prompt is
+encoded once, not once a thread. Results are the same; only duplicate
+work goes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
+import threading
 from typing import Optional
 
 import torch
@@ -91,10 +100,49 @@ def _device_tag(device: torch.device) -> str:
     return device.type
 
 
+class SingleFlight:
+    """One computation per key at a time: the first caller of a key
+    leads, the others wait in :meth:`flight` until it is done and then
+    read what it stored (if the leader failed, each computes its own)."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._leading: set[str] = set()
+        self._waiting = 0
+
+    @contextlib.contextmanager
+    def flight(self, key: str):
+        with self._cond:
+            leader = key not in self._leading
+            if leader:
+                self._leading.add(key)
+            else:
+                self._waiting += 1
+                self._cond.notify_all()
+                self._cond.wait_for(lambda: key not in self._leading)
+                self._waiting -= 1
+        if not leader:
+            yield
+            return
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._leading.discard(key)
+                self._cond.notify_all()
+
+    def wait_for_waiters(self, n: int, timeout: Optional[float] = None
+                         ) -> bool:
+        """Block until ``n`` callers wait behind a leader (for an
+        observer that must know a flight was joined); False on timeout."""
+        with self._cond:
+            return self._cond.wait_for(lambda: self._waiting >= n, timeout)
+
+
 def cached_encode(manager, encoder, texts):
     """``encoder.encode(texts)`` through the conditioning tier; a plain
     encode without a manager, for an unstamped encoder, or one whose
-    device is unknown."""
+    device is unknown. Concurrent misses of one key encode once."""
     texts = [str(t) for t in texts]
     ident = None if manager is None else encoder_identity(encoder)
     device = None if ident is None else encoder_device(encoder)
@@ -102,6 +150,14 @@ def cached_encode(manager, encoder, texts):
         return encoder.encode(texts)
     sig, mode = token_signature(encoder, texts)
     key = _keys.conditioning_key(f"{ident}@{_device_tag(device)}", sig, mode)
+    flights = getattr(manager, "conditioning_flights", None)
+    with (flights.flight(key) if flights is not None
+          else contextlib.nullcontext()):
+        return _encode_through(manager, encoder, texts, key, mode, device)
+
+
+def _encode_through(manager, encoder, texts, key: str, mode: str,
+                    device: torch.device):
     hit = manager.conditioning.get(key)
     if hit is not None and "context" in hit and "pooled" in hit:
         return (hit["context"].to(device, copy=True),

@@ -11,9 +11,11 @@ a master, the manager of the worker processes it launches
 master's ``CDT_MASTER_PORT`` once its control plane is up.
 It builds the content cache (``cluster/cache``, None under
 ``CDT_CACHE=0``), which its execution context carries to
-``CLIPTextEncode`` and the group executor, and the serving front door
-(``cluster/frontdoor``, None under ``CDT_FRONTDOOR=0``), started on its
-loop. Preemption, stages, warmup and the elastic fleet of the JAX
+``CLIPTextEncode`` and the group executor, the stage pools
+(``cluster/stages``, None under ``CDT_STAGES=0``), attached to the
+prompt queue and the front door and stopped at shutdown, and the serving
+front door (``cluster/frontdoor``, None under ``CDT_FRONTDOOR=0``),
+started on its loop. Preemption, warmup and the elastic fleet of the JAX
 package's controller are not ported.
 """
 
@@ -44,6 +46,7 @@ from .job_store import JobStore
 from .orchestration import Orchestrator
 from .progress import ProgressTracker
 from .runtime import PromptQueue
+from .stages import build_stages
 from .tile_farm import TileFarm
 
 
@@ -77,8 +80,13 @@ class Controller:
                                          config_loader=self.load_config,
                                          input_dir=Path(self.input_dir))
         self.cache = build_cache_manager()
+        # stage-split serving: encode, denoise and decode pools for the
+        # front door's batch jobs; None under CDT_STAGES=0 (fused path)
+        self.stages = build_stages()
+        self.queue.stages = self.stages
         self.frontdoor = build_frontdoor(self.queue, self.orchestrator,
-                                         cache=self.cache)
+                                         cache=self.cache,
+                                         stages=self.stages)
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
@@ -171,6 +179,12 @@ class Controller:
     async def shutdown(self) -> None:
         if self.frontdoor is not None:
             await self.frontdoor.stop()
+        if self.stages is not None:
+            # before the queue: leftover items record their members
+            # interrupted through the queue's callbacks; the joins block,
+            # so they run off the loop
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.stages.stop)
         await self.queue.stop()
         self.progress.close()       # release the process-wide progress sink
         # the queue's context factory, the orchestrator and the bridge hold
@@ -188,6 +202,9 @@ class Controller:
             "executing": self.queue.executing,
             "machine_id": get_machine_id(),
             "device": str(self.device),
+            # each stage pool's backlog (cluster/stages)
+            "stages": (None if self.stages is None
+                       else self.stages.depths()),
         }
 
     def system_info_no_devices(self) -> dict:

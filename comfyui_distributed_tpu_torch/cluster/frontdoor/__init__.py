@@ -18,8 +18,10 @@ orchestrator.
 
 Requests that cannot be batched go through the orchestrator as before,
 carrying their tenant, priority and deadline into the queue.
-``CDT_FRONTDOOR=0`` removes the subsystem. Not ported: stage-split
-serving (A.3c) and resuming a preempted job (A.4).
+``CDT_FRONTDOOR=0`` removes the subsystem. With stage-split serving
+(``cluster/stages``) a flushed group runs through the stage pools, whose
+backlog joins admission's depth. Not ported: resuming a preempted job
+(A.4).
 """
 
 from __future__ import annotations
@@ -70,9 +72,13 @@ class FrontDoor:
     """Admission → classification → coalescing, one per controller,
     started on the controller's event loop."""
 
-    def __init__(self, queue: PromptQueue, orchestrator, cache=None):
+    def __init__(self, queue: PromptQueue, orchestrator, cache=None,
+                 stages=None):
         self.queue = queue
         self.orchestrator = orchestrator
+        # stage-split serving frees queue slots at denoise-done: its
+        # backlog must count, or overload piles up in the decode pool
+        self.stages = stages
         # in-flight coalescing happens here, before the batcher: a twin of
         # a queued request never takes a second queue slot
         self.cache = cache
@@ -121,10 +127,13 @@ class FrontDoor:
     # --- signals ------------------------------------------------------------
 
     def depth(self) -> int:
-        """What admission sheds on: queued or executing prompts plus the
-        requests coalescing here (the stage pools' backlog joins it with
-        A.3c)."""
-        return self.queue.queue_remaining + self.batcher.pending_count
+        """What admission sheds on: queued or executing prompts, the
+        requests coalescing here and the stage pools' host-side
+        backlog."""
+        depth = self.queue.queue_remaining + self.batcher.pending_count
+        if self.stages is not None:
+            depth += self.stages.depth()
+        return depth
 
     # --- the door -----------------------------------------------------------
 
@@ -230,14 +239,15 @@ class FrontDoor:
             "cache": (None if self.cache is None
                       else {"hit_rate": round(self.cache.hit_rate(), 4),
                             **self.cache.coalescer.stats()}),
-            "stages": None,
+            "stages": (None if self.stages is None
+                       else self.stages.depths()),
         }
 
 
-def build_frontdoor(queue: PromptQueue, orchestrator,
-                    cache=None) -> Optional[FrontDoor]:
+def build_frontdoor(queue: PromptQueue, orchestrator, cache=None,
+                    stages=None) -> Optional[FrontDoor]:
     """The controller's front door, or None under ``CDT_FRONTDOOR=0``."""
     if not frontdoor_enabled():
         log("front door disabled (CDT_FRONTDOOR=0) — legacy queue path")
         return None
-    return FrontDoor(queue, orchestrator, cache=cache)
+    return FrontDoor(queue, orchestrator, cache=cache, stages=stages)

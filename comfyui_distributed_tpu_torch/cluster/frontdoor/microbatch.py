@@ -20,8 +20,10 @@ A member that fails in its prefix or suffix fails alone; a failed group
 call falls every member of that sub-group back to a solo run (counted in
 ``cdt_batch_fallbacks_total``), so no admitted job is lost to batching.
 The result tier (``cluster/cache``) serves a member before any of this
-and is filled after. Not ported: the near tier (A.4), the shape
-catalog's ``observe`` and residency pinning (A.3d).
+and is filled after. The group call runs under ``pinned_bundle``, so a
+residency planner never evicts its bundle mid-call. Stage-split serving
+(``cluster/stages``) reuses these helpers across its pools. Not ported:
+the near tier (A.4) and the shape catalog's ``observe`` (A.3 d).
 """
 
 from __future__ import annotations
@@ -290,11 +292,14 @@ def _execute_group_inner(members: list, sampler_node_ids: dict,
             continue
         lead = grp[0]
         try:
-            outs = lead.pipeline.generate_microbatch(
-                lead.spec, seeds=[p.seed for p in grp],
-                contexts=[p.context for p in grp],
-                uncond_contexts=[p.uncond for p in grp],
-                ys=[p.y for p in grp], uys=[p.uy for p in grp])
+            from ..residency import pinned_bundle
+
+            with pinned_bundle(lead.model):
+                outs = lead.pipeline.generate_microbatch(
+                    lead.spec, seeds=[p.seed for p in grp],
+                    contexts=[p.context for p in grp],
+                    uncond_contexts=[p.uncond for p in grp],
+                    ys=[p.y for p in grp], uys=[p.uy for p in grp])
             if telemetry.enabled():
                 _tm.BATCH_SIZE.observe(len(grp))
         except InterruptedError:

@@ -1,14 +1,19 @@
 """The controller's prompt queue: validate, enqueue, execute one job at a
 time in one execution thread (the JAX package's ``cluster/runtime.py``
-without stages, preemption, the priority-ordered dequeue and the
-deadline sweep, which are A.3c and A.4).
+without preemption, the priority-ordered dequeue and the deadline sweep,
+which are A.4).
 
 Two job shapes ride the queue, first in first out: solo prompts, and
 batch jobs from the serving front door (``cluster/frontdoor``): N
 coalesced member prompts run as one unit through the group executor,
 each member with its own history entry (``batch_size``, and ``cache``
 when the result tier served it). A job or member whose ``deadline_at``
-passed before it started is recorded ``expired`` instead of run.
+passed before it started is recorded ``expired`` instead of run. With
+stage-split serving attached (``queue.stages``, ``cluster/stages``) a
+batch job goes through the encode, denoise and decode pools instead: the
+queue waits only for its denoise stage (span
+``prompt.execute_batch_staged``), and each member's entry lands when its
+decode is done, shaped as the fused path's (and ``decode_batch``).
 
 The graph runs in the queue's one-thread pool, never on the event loop:
 a node that talks to the control plane (the collector) hops back onto
@@ -93,6 +98,9 @@ class PromptQueue:
         self.history: dict[str, dict] = {}
         self._job_done_callbacks: list[Callable[[], None]] = []
         self._pending_by_priority: dict[str, int] = {}
+        # stage-split serving (cluster/stages), attached by the
+        # controller; None: batch jobs take the fused group path
+        self.stages = None
 
     # --- lifecycle ---------------------------------------------------------
 
@@ -231,9 +239,13 @@ class PromptQueue:
                 self._executing = None
                 self._count_pending(job, -1)
                 if telemetry.enabled():
-                    for status in statuses:
+                    # terminal statuses only: a staged member counts when
+                    # its decode is done (_record_staged_member)
+                    terminal = [s for s in statuses
+                                if s in TERMINAL_STATUSES]
+                    for status in terminal:
                         _tm.PROMPTS_TOTAL.labels(status=status).inc()
-                    if statuses:
+                    if terminal and len(terminal) == len(statuses):
                         _tm.PROMPT_SECONDS.observe(time.monotonic() - started)
                     _tm.PROMPT_QUEUE_DEPTH.set(self.queue_remaining)
                 self._job_done()
@@ -303,6 +315,10 @@ class PromptQueue:
                 live.append(m)
         if not live:
             return statuses
+        if self.stages is not None and self.stages.eligible(job):
+            staged = await self._run_group_staged(loop, job, live, started)
+            if staged is not None:
+                return statuses + staged
         try:
             # the context is built inside the barrier: its failure errors
             # the members instead of stopping the consumer loop
@@ -341,6 +357,79 @@ class PromptQueue:
                    f"batch {job.prompt_id} ({len(live)} member(s)) done "
                    f"in {duration:.2f}s")
         return statuses
+
+    async def _run_group_staged(self, loop, job: PromptJob,
+                                live: "list[PromptJob]",
+                                started: float) -> "list[str] | None":
+        """A batch job through the stage pools: encode → denoise →
+        decode. The queue waits only for the denoise stage, so its slot
+        frees when the card does and the next job's sampler overlaps
+        this one's decode. Each member's history lands from the stages
+        (``_record_staged_member``). Returns non-terminal ``"staged"``
+        markers, or None when the submission itself failed (the fused
+        path then runs the group)."""
+        try:
+            context = dict(self._context_factory())
+            context["interrupt_event"] = self._interrupt
+            denoise_done = loop.create_future()
+
+            def record(member, entry, last) -> None:
+                self._record_staged_member(member, entry, last, started)
+
+            self.stages.submit_group(
+                job, live,
+                {m.prompt_id: job.sampler_node_ids[m.prompt_id]
+                 for m in live},
+                context, loop, denoise_done, record)
+        except Exception as e:  # noqa: BLE001 — the fused path still serves
+            log(f"stages: submit of batch {job.prompt_id} failed "
+                f"({e!r}); falling back to fused execution")
+            return None
+        with telemetry.span("prompt.execute_batch_staged",
+                            trace_id=job.trace_id,
+                            prompt_id=job.prompt_id, batch=len(live)):
+            await denoise_done
+        trace_info(job.trace_id,
+                   f"batch {job.prompt_id} ({len(live)} member(s)) "
+                   f"denoise done in {time.monotonic() - started:.2f}s "
+                   "(decode in flight)")
+        return ["staged"] * len(live)
+
+    def _record_staged_member(self, member: PromptJob, entry: dict,
+                              last: bool, started: float) -> None:
+        """One staged member's terminal history (on the loop, marshalled
+        from a stage thread), shaped as the fused ``_run_group``'s, so
+        pollers, the coalescer and the job-done callbacks cannot tell the
+        paths apart."""
+        status = entry.get("status", "error")
+        record = {"status": status,
+                  "duration": time.monotonic() - started,
+                  "batch_size": entry.get("batch_size")}
+        if entry.get("decode_batch"):
+            record["decode_batch"] = entry["decode_batch"]
+        if entry.get("cache"):
+            record["cache"] = entry["cache"]
+        if entry.get("error"):
+            record["error"] = entry["error"]
+        if status == "success":
+            record["outputs"] = {
+                nid: out
+                for nid, out in (entry.get("outputs") or {}).items()
+                if _is_terminal(member.prompt, nid)}
+        self.history[member.prompt_id] = record
+        if telemetry.enabled():
+            if status in TERMINAL_STATUSES:
+                _tm.PROMPTS_TOTAL.labels(status=status).inc()
+            if last:
+                # the group's end to end, decode included: the quantity
+                # the fused path observes once a group
+                _tm.PROMPT_SECONDS.observe(record["duration"])
+        self._job_done()
+
+
+# one terminal-status vocabulary for every history observer
+TERMINAL_STATUSES = frozenset({"success", "error", "interrupted",
+                               "expired"})
 
 
 def _priority_rank(priority: str) -> int:

@@ -1,0 +1,334 @@
+"""Stage pools: bounded worker-thread pools with per-stage accounting
+(the port's ``cluster/stages/pool.py``, after the JAX package's).
+
+One :class:`StagePool` per serving stage (encode, denoise, decode). Each
+owns its queue, its threads and its telemetry
+(``cdt_stage_queue_depth``, ``cdt_stage_occupancy``,
+``cdt_stage_jobs_total``), so each pool scales on its own backlog and a
+decode pile-up never reads as denoise pressure.
+
+Two take disciplines:
+
+- FIFO (encode, denoise): one item per pickup, in arrival order.
+- bucketed (decode): items carry a ``bucket_key()``; a worker takes up
+  to ``max_batch`` items of one bucket once it is full or its oldest
+  item has waited ``window_s`` (the cross-request decode window).
+
+A runner that raises :class:`StageWorkerDeath` ends its thread, and the
+items it held go to a survivor through the manager's bounded redispatch:
+never dropped, never breaker evidence.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Callable, Optional
+
+from ... import telemetry
+from ...telemetry import metrics as _tm
+from ...utils.logging import log
+
+
+class StageWorkerDeath(Exception):
+    """Raised by a runner (or a test's death hook) for a stage worker
+    dying mid-item: the thread exits, its items re-dispatch."""
+
+
+class StagePool:
+    """Worker-thread pool for one serving stage.
+
+    ``runner(items)`` executes a picked batch (one item for FIFO pools).
+    Threads start at the first ``put`` and are daemons: a controller that
+    never serves a staged group never starts one."""
+
+    IDLE_POLL_S = 0.05
+    JOIN_S = 5.0           # how long ``stop`` waits for each thread
+
+    def __init__(self, name: str, workers: int,
+                 runner: Callable[[list], None], *,
+                 batch_key: Optional[Callable] = None,
+                 max_batch: int = 1, window_s: float = 0.0,
+                 steal: Optional[Callable[["StagePool"],
+                                          "Optional[StagePool]"]] = None,
+                 redispatch: Optional[Callable[[list], None]] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.runner = runner
+        self.redispatch = redispatch
+        self.batch_key = batch_key
+        self.max_batch = max(1, int(max_batch))
+        self.window_s = max(0.0, float(window_s))
+        self.steal = steal
+        self._clock = clock
+        self._cond = threading.Condition(threading.Lock())
+        # FIFO pools use _fifo; bucketed ones _buckets
+        # (key -> [first_enqueued_at, deque])
+        self._fifo: deque = deque()
+        self._buckets: "OrderedDict[tuple, list]" = OrderedDict()
+        self._threads: list[threading.Thread] = []
+        self._target = max(0, int(workers))
+        self._busy = 0
+        self._stop = False
+        self._seq = 0
+        self.busy_seconds = 0.0      # cumulative, the occupancy numerator
+        self.done = 0
+        self.errors = 0
+        self.started_at: Optional[float] = None
+
+    # --- producer -----------------------------------------------------------
+
+    def put(self, item) -> bool:
+        """Queue ``item``; False, and nothing queued, once the pool is
+        stopped (the caller ends the item: a stopped pool starts no
+        thread, so a queued item would never run)."""
+        with self._cond:
+            if self._stop:
+                return False
+            if self.batch_key is None:
+                self._fifo.append(item)
+            else:
+                key = self.batch_key(item)
+                bucket = self._buckets.get(key)
+                if bucket is None:
+                    bucket = self._buckets[key] = [self._clock(), deque()]
+                bucket[1].append(item)
+            self._ensure_threads_locked()
+            self._cond.notify()
+        self._export()
+        return True
+
+    def depth(self) -> int:
+        with self._cond:
+            return self._depth_locked()
+
+    def _depth_locked(self) -> int:
+        if self.batch_key is None:
+            return len(self._fifo)
+        return sum(len(b[1]) for b in self._buckets.values())
+
+    @property
+    def busy(self) -> int:
+        return self._busy
+
+    @property
+    def workers(self) -> int:
+        return self._target
+
+    # --- sizing -------------------------------------------------------------
+
+    def resize(self, n: int) -> None:
+        """Set the worker target: growth spawns at once, surplus threads
+        exit at their next pickup."""
+        with self._cond:
+            self._target = max(0, int(n))
+            self._ensure_threads_locked()
+            self._cond.notify_all()
+        self._export()
+
+    def _ensure_threads_locked(self) -> None:
+        if self._stop:
+            return
+        self._threads = [t for t in self._threads if t.is_alive()]
+        while len(self._threads) < self._target:
+            self._seq += 1
+            t = threading.Thread(target=self._worker, daemon=True,
+                                 name=f"stage-{self.name}-{self._seq}")
+            self._threads.append(t)
+            t.start()
+            if self.started_at is None:
+                self.started_at = self._clock()
+
+    def alive_workers(self) -> int:
+        with self._cond:
+            self._threads = [t for t in self._threads if t.is_alive()]
+            return len(self._threads)
+
+    def stop(self) -> list:
+        """Stop the pool and join its threads (``JOIN_S`` each: a
+        thread inside a long runner call may outlive the wait, and a
+        ``put`` it makes later is refused); returns the items still
+        queued (the manager records them interrupted)."""
+        with self._cond:
+            self._stop = True
+            leftovers = list(self._fifo)
+            self._fifo.clear()
+            for bucket in self._buckets.values():
+                leftovers.extend(bucket[1])
+            self._buckets.clear()
+            self._cond.notify_all()
+            threads = list(self._threads)
+        for t in threads:
+            if t is not threading.current_thread():
+                t.join(timeout=self.JOIN_S)
+        self._export()
+        return leftovers
+
+    # --- consumer -----------------------------------------------------------
+
+    def _take_locked(self) -> Optional[list]:
+        if self.batch_key is None:
+            if self._fifo:
+                return [self._fifo.popleft()]
+            return None
+        return self._take_bucket_locked()
+
+    def take_now(self) -> Optional[list]:
+        """Non-blocking take for a stealing sibling. A bucketed pool only
+        gives up ready buckets: stealing must not defeat its window."""
+        with self._cond:
+            batch = self._take_locked()
+        if batch:
+            self._export()
+        return batch
+
+    def _take_bucket_locked(self) -> Optional[list]:
+        now = self._clock()
+        best_key, best_age = None, -1.0
+        for key, (first_at, items) in self._buckets.items():
+            if not items:
+                continue
+            ready = (len(items) >= self.max_batch
+                     or now - first_at >= self.window_s)
+            if not ready:
+                continue
+            age = now - first_at
+            if age > best_age:
+                best_key, best_age = key, age
+        if best_key is None:
+            return None
+        first_at, items = self._buckets[best_key]
+        batch = [items.popleft()
+                 for _ in range(min(self.max_batch, len(items)))]
+        if items:
+            # the rest restart their window (they are a new batch)
+            self._buckets[best_key][0] = now
+        else:
+            del self._buckets[best_key]
+        return batch
+
+    def _wait_timeout_locked(self) -> float:
+        if self.batch_key is None or not self._buckets:
+            return self.IDLE_POLL_S
+        now = self._clock()
+        nearest = min(max(0.0, b[0] + self.window_s - now)
+                      for b in self._buckets.values() if b[1])
+        return min(self.IDLE_POLL_S, nearest) or 0.001
+
+    def _worker(self) -> None:
+        me = threading.current_thread()
+        while True:
+            with self._cond:
+                if self._stop or me not in self._threads[:self._target]:
+                    # shutdown, or a resize made this thread surplus
+                    if me in self._threads:
+                        self._threads.remove(me)
+                    return
+                batch = self._take_locked()
+                if batch is None:
+                    self._cond.wait(timeout=self._wait_timeout_locked())
+                    batch = self._take_locked()
+            src = self
+            if batch is None and self.steal is not None:
+                victim = self.steal(self)
+                if victim is not None:
+                    batch = victim.take_now()
+                    if batch:
+                        src = victim
+                        if telemetry.enabled():
+                            _tm.STAGE_STEALS.labels(
+                                src=victim.name, dst=self.name).inc()
+            if batch is None:
+                continue
+            try:
+                self._run_batch(batch, src)
+            except _WorkerExit as death:
+                # this thread is gone: its items go to the source pool's
+                # bounded redispatch, then it exits
+                if src.redispatch is not None:
+                    try:
+                        src.redispatch(death.items)
+                    except Exception as e:  # noqa: BLE001 — last resort
+                        log(f"stage {src.name}: redispatch after worker "
+                            f"death failed: {e!r}")
+                return
+            finally:
+                # an idle thread holds no item (nor a latent, nor a bundle)
+                batch = None
+
+    def _run_batch(self, batch: list, src: "StagePool") -> None:
+        me = threading.current_thread()
+        with self._cond:
+            self._busy += 1
+        self._export()
+        t0 = self._clock()
+        outcome = "ok"
+        try:
+            src.runner(batch)
+        except StageWorkerDeath as e:
+            # not an error outcome and never breaker evidence: the items
+            # re-dispatch to a survivor (bounded by the manager)
+            log(f"stage {self.name}: worker {me.name} DIED holding "
+                f"{len(batch)} item(s) ({e}) — re-dispatching")
+            outcome = "redispatch"
+            with self._cond:
+                self._busy -= 1
+                self.busy_seconds += self._clock() - t0
+                if me in self._threads:
+                    self._threads.remove(me)
+            self._count(src.name, outcome, len(batch))
+            self._export()
+            raise _WorkerExit(batch)
+        except Exception as e:  # noqa: BLE001 — runner isolation barrier
+            # runners isolate their members; an escape is a stage bug to
+            # log loudly, but one batch must not end the thread
+            log(f"stage {self.name}: runner failed on {len(batch)} "
+                f"item(s): {e!r}")
+            outcome = "error"
+            self.errors += 1
+        finally:
+            if outcome != "redispatch":
+                with self._cond:
+                    self._busy -= 1
+                    self.busy_seconds += self._clock() - t0
+                    self.done += len(batch)
+                self._count(src.name, outcome, len(batch))
+                self._export()
+
+    def _count(self, src: str, outcome: str, n: int) -> None:
+        if telemetry.enabled():
+            _tm.STAGE_JOBS.labels(stage=src, outcome=outcome).inc(n)
+
+    # --- telemetry ----------------------------------------------------------
+
+    def _export(self) -> None:
+        if not telemetry.enabled():
+            return
+        with self._cond:
+            depth, busy, target = (self._depth_locked(), self._busy,
+                                   self._target)
+        _tm.STAGE_QUEUE_DEPTH.labels(stage=self.name).set(depth)
+        _tm.STAGE_OCCUPANCY.labels(stage=self.name).set(
+            busy / max(1, target))
+
+    def stats(self) -> dict:
+        with self._cond:
+            return {
+                "workers": self._target,
+                "alive": len([t for t in self._threads if t.is_alive()]),
+                "busy": self._busy,
+                "depth": self._depth_locked(),
+                "busy_seconds": round(self.busy_seconds, 4),
+                "done": self.done,
+                "errors": self.errors,
+            }
+
+
+class _WorkerExit(BaseException):
+    """Carries a dying worker's items out of its loop. A BaseException,
+    so a runner's ``except Exception`` barrier cannot swallow it."""
+
+    def __init__(self, items: list):
+        super().__init__("stage worker death")
+        self.items = items

@@ -9,6 +9,11 @@ to [0, 1]. The noise draw (``initial_noise``) is split from the rest
 stochastic sampler's draws come from a noise source
 (``parallel/rng.step_noise`` of the run's seed, or the caller's).
 
+Stage-split serving (``cluster/stages``) runs the two halves apart:
+``generate_latents`` stops a group's requests at ``x0``, and
+``decode_latents`` finishes them later on another thread, each image
+bitwise ``generate``'s.
+
 ``img2img`` encodes a source, noises it at the head of the partial
 ladder (``spec.denoise``) and samples the tail; with a mask it inpaints
 (``inpaint_denoiser``). ``with_control`` returns a clone that runs a
@@ -254,9 +259,39 @@ class Txt2ImgPipeline:
         ``with_control`` clone's ControlNet. ``init_latent`` switches to
         img2img: the source latent is noised to the ladder's head
         instead of starting from noise alone; ``inpaint_mask``
-        ([B,h,w,1], 1 = regenerate) then applies ``inpaint_denoiser``."""
+        ([B,h,w,1], 1 = regenerate) then applies ``inpaint_denoiser``.
+        The two halves are ``_sample_latent`` (to the final ``x0``) and
+        ``_decode_latent``, which stage-split serving runs apart."""
+        label = "txt2img" if init_latent is None else "img2img"
+        timings: dict = {}
+        with pipeline_call(self, label, lambda: self.timings):
+            x0 = self._sample_latent(
+                noise, spec, context, uncond_context, y, uncond_y,
+                progress_token, hint, init_latent, inpaint_mask,
+                sampler_noise, timings)
+            t1 = time.perf_counter()
+            images = self._decode_latent(x0)
+            self._sync()
+            self.timings = {"sample_s": timings["sample_s"],
+                            "decode_s": time.perf_counter() - t1,
+                            "steps": timings["steps"]}
+        return images
+
+    def _sample_latent(self, noise: torch.Tensor, spec: GenerationSpec,
+                       context: torch.Tensor, uncond_context: torch.Tensor,
+                       y: Optional[torch.Tensor], uncond_y: Optional[torch.Tensor],
+                       progress_token: Optional[int],
+                       hint: Optional[torch.Tensor],
+                       init_latent: Optional[torch.Tensor],
+                       inpaint_mask: Optional[torch.Tensor],
+                       sampler_noise: Optional[NoiseSource],
+                       timings: dict) -> torch.Tensor:
+        """The sampling half of ``sample_and_decode``: the final ``x0``
+        [B,h,w,C] fp32, synchronised; ``timings`` gets ``sample_s`` and
+        ``steps``."""
         dev = self.device
-        sigmas = make_sigma_ladder(spec, self.schedule).to(dev)
+        ladder = make_sigma_ladder(spec, self.schedule)
+        sigmas = ladder.to(dev)
         batch = noise.shape[0]
         noise = noise.to(dev)
 
@@ -285,19 +320,18 @@ class Txt2ImgPipeline:
                                            inpaint_mask)
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
-        label = "txt2img" if init_latent is None else "img2img"
-        with pipeline_call(self, label, lambda: self.timings):
-            t0 = time.perf_counter()
-            x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise)
-            self._sync()
-            t1 = time.perf_counter()
-            images = self.vae.decode(x0)
-            images = torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
-            self._sync()
-            self.timings = {"sample_s": t1 - t0,
-                            "decode_s": time.perf_counter() - t1,
-                            "steps": len(sigmas) - 1}
-        return images
+        t0 = time.perf_counter()
+        x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise,
+                    ladder=ladder.tolist())
+        self._sync()
+        timings.update(sample_s=time.perf_counter() - t0,
+                       steps=len(sigmas) - 1)
+        return x0
+
+    def _decode_latent(self, x0: torch.Tensor) -> torch.Tensor:
+        """The decode half: VAE decode of ``x0`` and the clip to [0, 1]."""
+        images = self.vae.decode(x0)
+        return torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
 
     def generate(self, spec: GenerationSpec, seed: int,
                  context: torch.Tensor, uncond_context: torch.Tensor,
@@ -330,8 +364,19 @@ class Txt2ImgPipeline:
         JAX's power-of-two pad slots (request 0 repeated, outputs
         dropped) are not run: they cost work and buy nothing eagerly.
         Stochastic samplers and ControlNet clones raise JAX's errors."""
+        self._check_microbatch(spec, seeds, contexts, uncond_contexts)
         R = len(seeds)
-        if not (R == len(contexts) == len(uncond_contexts)):
+        ys = list(ys) if ys is not None else [None] * R
+        uys = list(uys) if uys is not None else [None] * R
+        return [self.generate(spec, int(seeds[r]), contexts[r],
+                              uncond_contexts[r], ys[r], uys[r])
+                for r in range(R)]
+
+    # --- stage-split serving (cluster/stages) --------------------------------
+
+    def _check_microbatch(self, spec: GenerationSpec, seeds, contexts,
+                          uncond_contexts) -> None:
+        if not (len(seeds) == len(contexts) == len(uncond_contexts)):
             raise ValueError("seeds/contexts/uncond_contexts length mismatch")
         if spec.sampler not in DETERMINISTIC_SAMPLERS:
             raise ValueError(
@@ -340,11 +385,67 @@ class Txt2ImgPipeline:
         if self._control is not None:
             raise ValueError("microbatching does not support ControlNet "
                              "pipelines (per-request hints are not stacked)")
+
+    @torch.no_grad()
+    def generate_latents(
+        self, spec: GenerationSpec, seeds: "list[int]",
+        contexts: "list[torch.Tensor]",
+        uncond_contexts: "list[torch.Tensor]",
+        ys: "list[Optional[torch.Tensor]] | None" = None,
+        uys: "list[Optional[torch.Tensor]] | None" = None,
+    ) -> "list[torch.Tensor]":
+        """``generate_microbatch`` stopped at ``x0``: the denoise pool's
+        call in stage-split serving. One ``[per_device_batch, h, w, C]``
+        fp32 latent a request, on the device, each the bytes that
+        ``generate`` feeds its VAE; ``decode_latents`` finishes them
+        (possibly gathered across groups), bitwise ``generate``.
+
+        The JAX package's form is one program of R solo-shaped subgraphs
+        (``latent_microbatch_fn``); eagerly it is R solo-shaped calls in
+        a row, as ``generate_microbatch`` runs. Each call carries its own
+        ``no_grad``: a pool thread does not inherit its caller's."""
+        self._check_microbatch(spec, seeds, contexts, uncond_contexts)
+        R = len(seeds)
         ys = list(ys) if ys is not None else [None] * R
         uys = list(uys) if uys is not None else [None] * R
-        return [self.generate(spec, int(seeds[r]), contexts[r],
-                              uncond_contexts[r], ys[r], uys[r])
-                for r in range(R)]
+        out = []
+        for r in range(R):
+            seed = int(seeds[r])
+            noise = self.initial_noise(spec, seed_generator(seed, self.device))
+            timings: dict = {}
+            with pipeline_call(self, "txt2img_lat", lambda: timings):
+                out.append(self._sample_latent(
+                    noise, spec, contexts[r], uncond_contexts[r], ys[r],
+                    uys[r], None, None, None, None,
+                    step_noise(seed, self.device), timings))
+        return out
+
+    @torch.no_grad()
+    def decode_latents(self, latents: "list[torch.Tensor]"
+                       ) -> "list[torch.Tensor]":
+        """Decode final latents (any mix of requests of one shape): one
+        ``[B, H, W, 3]`` image in [0, 1] a latent, bitwise the fused
+        path's decode of the same bytes. Each latent decodes alone at
+        its solo shape, in a row: stacking them into the convolutions'
+        batch would let cuDNN and cuBLAS pick other algorithms and change
+        the bits, as it reassociates JAX's reductions (JAX
+        ``pipeline.decode_fn``). JAX's power-of-two pad slots are not
+        run: eagerly they cost work and buy nothing."""
+        if not latents:
+            return []
+        first = tuple(latents[0].shape)
+        for lat in latents[1:]:
+            if tuple(lat.shape) != first:
+                raise ValueError(
+                    f"decode batch mixes latent shapes {first} and "
+                    f"{tuple(lat.shape)} — bucket by shape first")
+        out = []
+        with pipeline_call(self, "vae_decode_batch", dict):
+            for lat in latents:
+                out.append(self._decode_latent(
+                    torch.as_tensor(lat).to(self.device, torch.float32)))
+            self._sync()
+        return out
 
     @torch.no_grad()
     def img2img(self, spec: GenerationSpec, seed: int, images: torch.Tensor,

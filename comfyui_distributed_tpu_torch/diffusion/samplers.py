@@ -434,16 +434,20 @@ STOCHASTIC = frozenset({"euler_ancestral", "lcm", "dpmpp_sde", "dpmpp_2m_sde",
 
 def sample(name: str, denoise: Denoiser, x: torch.Tensor,
            sigmas: torch.Tensor, noise: Optional[NoiseSource] = None,
-           **kwargs) -> torch.Tensor:
+           *, ladder: Optional[list] = None, **kwargs) -> torch.Tensor:
     """Run sampler ``name`` from ``x`` down ``sigmas`` ([n + 1], ending at
     0). ``noise`` is required by the samplers that draw noise; unknown
-    names raise ``ValueError``, as the JAX ``sample`` does."""
+    names raise ``ValueError``, as the JAX ``sample`` does. ``ladder`` is
+    ``sigmas.tolist()`` when the caller still holds the host copy it
+    moved to the card: the samplers' host-side coefficients then need no
+    read-back (a copy and a synchronisation a request)."""
     try:
         builder = PROGRAMS[name]
     except KeyError:
         raise ValueError(f"unknown sampler {name!r}; have "
                          f"{sorted(PROGRAMS)}") from None
-    init, step, extract = builder(denoise, sigmas, sigmas.tolist(),
+    values = sigmas.tolist() if ladder is None else list(ladder)
+    init, step, extract = builder(denoise, sigmas, values,
                                   noise or _no_noise, **kwargs)
     state = init(x)
     for i in range(sigmas.shape[0] - 1):

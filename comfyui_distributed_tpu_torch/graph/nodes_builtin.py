@@ -342,7 +342,9 @@ class CLIPTextEncode(NodeDef):
     def execute(self, text: str, clip, content_cache=None, **_):
         from ..cluster.cache.conditioning import cached_encode
 
-        ctx, pooled = cached_encode(content_cache, clip, [str(text)])
+        owner = getattr(clip, "_cdt_bundle", None)
+        with _pinned(owner() if owner is not None else None):
+            ctx, pooled = cached_encode(content_cache, clip, [str(text)])
         return ({"context": ctx, "pooled": pooled},)
 
 
@@ -622,6 +624,16 @@ class _ProgressScope:
         return False
 
 
+def _pinned(model):
+    """The residency pin of one call on a bundle: with
+    ``CDT_HBM_BUDGET_GB`` set, no concurrent acquire (another model's
+    request) evicts this bundle mid-call (``cluster/residency.
+    pinned_bundle``; nothing without a planner or a bundle)."""
+    from ..cluster.residency import pinned_bundle
+
+    return pinned_bundle(model)
+
+
 @register_node("TPUTxt2Img")
 class TPUTxt2Img(NodeDef):
     """The sampler node (name kept for workflow compatibility): noise,
@@ -658,8 +670,9 @@ class TPUTxt2Img(NodeDef):
         uy = _adm_from_cond(negative, adm, device) if adm else None
         pipeline, hint = _control_from_cond(model.pipeline, positive,
                                             spec.height, spec.width)
-        with _ProgressScope(progress_tracker, prompt_id,
-                            total_calls(sampler_name, spec.steps)) as ps:
+        with _pinned(model), \
+                _ProgressScope(progress_tracker, prompt_id,
+                               total_calls(sampler_name, spec.steps)) as ps:
             images = pipeline.generate(spec, int(seed), positive["context"],
                                        negative["context"], y, uy,
                                        progress_token=ps.token, hint=hint)
@@ -807,8 +820,9 @@ class TPUFlowTxt2Img(NodeDef):
                 "with 'guidance'", field="negative")
         # as in the JAX package's dp branch, no should_stop: an interrupt
         # takes effect before the next node
-        with _ProgressScope(progress_tracker, prompt_id,
-                            total_calls(spec.sampler, spec.steps)) as ps:
+        with _pinned(model), \
+                _ProgressScope(progress_tracker, prompt_id,
+                               total_calls(spec.sampler, spec.steps)) as ps:
             images = pipeline.generate(spec, int(seed), positive["context"],
                                        pooled, progress_token=ps.token,
                                        **uncond)
@@ -876,8 +890,9 @@ class TPUTxt2Video(NodeDef):
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
         pooled = _video_pooled_default(model, positive)
-        with _ProgressScope(progress_tracker, prompt_id,
-                            total_calls(spec.sampler, spec.steps)) as ps:
+        with _pinned(model), \
+                _ProgressScope(progress_tracker, prompt_id,
+                               total_calls(spec.sampler, spec.steps)) as ps:
             videos = model.pipeline.generate(spec, int(seed),
                                              positive["context"], pooled,
                                              progress_token=ps.token)
@@ -922,8 +937,9 @@ class TPUImg2Video(NodeDef):
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
         pooled = _video_pooled_default(model, positive)
-        with _ProgressScope(progress_tracker, prompt_id,
-                            total_calls(spec.sampler, spec.steps)) as ps:
+        with _pinned(model), \
+                _ProgressScope(progress_tracker, prompt_id,
+                               total_calls(spec.sampler, spec.steps)) as ps:
             videos = model.pipeline.generate_i2v(
                 spec, int(seed), image[:1], positive["context"], pooled,
                 progress_token=ps.token)

@@ -78,6 +78,7 @@ import dataclasses
 import json
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Mapping, Optional, Union
 
@@ -296,6 +297,9 @@ class ModelBundle:
     ``empty_core=True`` allocates the denoiser without drawing it, for a
     caller about to fill every parameter from a checkpoint."""
 
+    # set by release_device: the parameters left the device
+    released = False
+
     def __init__(self, preset: ModelPreset, device: DeviceLike = None,
                  seed: int = 0, empty_core: bool = False):
         self.preset = preset
@@ -425,6 +429,37 @@ class ModelBundle:
         self.text_encoder = CLIPConditioner(self.clip_stack, kind=kind)
         self._stamp_text_encoder()
         return self.clip_stack
+
+    def device_modules(self) -> list[nn.Module]:
+        """Every module whose parameters the bundle holds on its device:
+        the denoiser (and a dual-expert bundle's low expert), the VAE and
+        the active text stack."""
+        te = self.text_encoder
+        candidates = [self.core, getattr(self.pipeline, "dit_low", None),
+                      self.pipeline.vae, self.clip_stack,
+                      te if isinstance(te, nn.Module) else None,
+                      getattr(te, "module", None)]
+        out: list[nn.Module] = []
+        for m in candidates:
+            if isinstance(m, nn.Module) and all(m is not o for o in out):
+                out.append(m)
+        return out
+
+    def release_device(self) -> None:
+        """Give the bundle's device memory back (the residency planner's
+        eviction, ``cluster/residency.py``): every parameter and buffer
+        moves to the ``meta`` device, so the memory is freed even while
+        a caller still holds this object, which cannot compute any more
+        (``released``); the registry builds the preset again on its next
+        ``get``. The JAX package keeps host copies and uploads again;
+        the port keeps none. Offload stores (JAX ``release_store``) come
+        with ROADMAP A.5."""
+        for module in self.device_modules():
+            module.to("meta")
+        clones = getattr(self.pipeline, "_control_clones", None)
+        if isinstance(clones, dict):
+            clones.clear()
+        self.released = True
 
     def _state_entries(self) -> dict[str, nn.Module]:
         """The modules a saved bundle holds, by entry name."""
@@ -679,12 +714,15 @@ class ModelRegistry:
     or random-initialised; the upscalers (``get_upscaler``) and
     ControlNets (``get_controlnet``) beside them, from a file where the
     caller found one, else drawn from the same seed, so that every
-    controller of a cluster builds the same weights."""
+    controller of a cluster builds the same weights. With a memory budget
+    (``hbm_budget_bytes``, default ``CDT_HBM_BUDGET_GB``) the residency
+    planner keeps the bundles under it, evicting by priority and LRU."""
 
     CONTROLNETS_KEPT = 4
 
     def __init__(self, device: DeviceLike = None, seed: int = 0,
-                 checkpoint_root: Union[str, Path, None] = None):
+                 checkpoint_root: Union[str, Path, None] = None,
+                 hbm_budget_bytes: Optional[int] = None):
         self.device = resolve_device(device)
         self.seed = int(seed)
         root = checkpoint_root or constants.checkpoint_root()
@@ -694,7 +732,20 @@ class ModelRegistry:
         # mtime, so a replaced file is loaded again
         self._upscalers: dict[str, tuple[tuple, UpscalerBundle]] = {}
         self._controlnets: dict[str, tuple[tuple, ControlNetBundle]] = {}
-        self._lock = threading.Lock()
+        # the stage pools' encode threads resolve bundles concurrently: a
+        # check-then-build without the lock would build a preset twice
+        self._lock = threading.RLock()
+        # the residency planner (cluster/residency.py), attached when a
+        # budget is set (default CDT_HBM_BUDGET_GB; 0 = unlimited, off)
+        self.residency = None
+        if hbm_budget_bytes is None:
+            from ..cluster.residency import hbm_budget_bytes as _budget
+
+            hbm_budget_bytes = _budget()
+        if hbm_budget_bytes and hbm_budget_bytes > 0:
+            from ..cluster.residency import BundleResidency
+
+            self.residency = BundleResidency(self, hbm_budget_bytes)
 
     def _synced(self, t0: float) -> float:
         if self.device.type == "cuda":
@@ -820,4 +871,19 @@ class ModelRegistry:
                 log(f"built {name} on {self.device} in "
                     f"{self._synced(t0):.2f} s "
                     f"({ckpt or f'random init, seed {self.seed}'})")
-            return self._cache[name]
+            bundle = self._cache[name]
+            if self.residency is not None:
+                try:
+                    self.residency.note_use(name, bundle)
+                except Exception:
+                    # a bundle the budget cannot place must not stay in
+                    # the cache, over budget and never evictable
+                    self._cache.pop(name, None)
+                    bundle.release_device()
+                    raise
+                # lets a holder pin the bundle for a call on it
+                # (cluster/residency.pinned_bundle), also through its
+                # text encoder (CLIPTextEncode)
+                bundle._residency = self.residency
+                bundle.text_encoder._cdt_bundle = weakref.ref(bundle)
+            return bundle

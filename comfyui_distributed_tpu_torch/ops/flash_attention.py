@@ -95,12 +95,22 @@ LAUNCHES = {"fused_qkv_attention": 0, "flash_attention_packed": 0,
 # is launched: which kernel each wrapper call took
 CUDA_LAUNCHES = {"qkv_projection": 0, "flash_attention_core": 0,
                  "short_kv_attention": 0}
+# several threads launch (the stage pools' encode workers run the text
+# encoder while the denoise worker runs the UNet): a bare `+= 1` is a
+# read and a write, and a lost increment would miscount a run
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counts: dict, name: str) -> None:
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CUDA_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, CUDA_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -435,7 +445,7 @@ def _launch_projection(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
             x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
             out.data_ptr(), B * N, C, HD, _stream(x))
     KERNELS.check(rc, "qkv_projection")
-    CUDA_LAUNCHES["qkv_projection"] += 1
+    _count(CUDA_LAUNCHES, "qkv_projection")
     return out
 
 
@@ -471,7 +481,8 @@ def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, H, Nq, Nk, D, *strides, D ** -0.5, _stream(q))
     KERNELS.check(rc, what)
-    CUDA_LAUNCHES["short_kv_attention" if short else "flash_attention_core"] += 1
+    _count(CUDA_LAUNCHES,
+           "short_kv_attention" if short else "flash_attention_core")
     return out
 
 
@@ -504,7 +515,7 @@ def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                          f"got D={D}")
     q, k, v = _launch_projection(x, wq, wk, wv).view(3, B, N, num_heads, D)
     out = _launch_core(q, k, v, "fused_qkv_attention")
-    LAUNCHES["fused_qkv_attention"] += 1
+    _count(LAUNCHES, "fused_qkv_attention")
     return out
 
 
@@ -534,5 +545,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"side by side; got strides {t.stride()}")
     counter = f"flash_attention_{layout}"
     out = _launch_core(q, k, v, counter)
-    LAUNCHES[counter] += 1
+    _count(LAUNCHES, counter)
     return out

@@ -1,8 +1,8 @@
 """The metric families of the port, declared in one place (the JAX
 package's ``telemetry/metrics.py``, less the families whose
-instrumentation sites are not ported yet: warmup, residency, the fleet
-cache, preemption, stages, the autoscaler, drain and steal, the autotuner
-and the XLA compile cache; ``ROADMAP.md`` names each under its item).
+instrumentation sites are not ported yet: warmup, the fleet cache,
+preemption, the autoscaler, drain and steal, the autotuner and the XLA
+compile cache; ``ROADMAP.md`` names each under its item).
 
 Instrumentation sites import these objects and guard every use with
 ``telemetry.enabled()``. Naming follows Prometheus conventions: ``cdt_``
@@ -11,7 +11,8 @@ prefix, base-unit suffixes (``_seconds``, ``_bytes``), counters end in
 
 Label conventions (kept low-cardinality):
 
-- ``pipeline``: ``txt2img``, ``img2img``, ``flow_dp``, ``tile_img2img``.
+- ``pipeline``: ``txt2img``, ``img2img``, ``flow_dp``, ``tile_img2img``;
+  the stage split's ``txt2img_lat`` and ``vae_decode_batch``.
 - ``event`` (tiles): ``seeded`` / ``assigned`` / ``completed`` /
   ``requeued`` / ``restored`` / ``dead_letter`` / ``timed_out``.
 - ``transport``: ``http`` / ``ws``; ``outcome``: ``ok`` / ``error`` (or
@@ -200,6 +201,71 @@ COALESCE_WIDTH = REGISTRY.histogram(
     "Requests answered per executed fingerprint (1 = no duplicates were "
     "in flight; N = one execution fanned out to N-1 waiters).",
     buckets=(1, 2, 4, 8, 16, 32, 64))
+
+# --- card-memory residency (cluster/residency.py) ---------------------------
+
+RESIDENCY_EVICTIONS = REGISTRY.counter(
+    "cdt_residency_evictions_total",
+    "Model bundles evicted by the HBM residency planner.",
+    ("reason",))   # budget | manual
+
+RESIDENT_MODELS = REGISTRY.gauge(
+    "cdt_resident_models",
+    "Model bundles currently resident under the HBM residency planner.")
+
+RESIDENT_BYTES = REGISTRY.gauge(
+    "cdt_resident_bytes",
+    "Estimated bytes of resident model bundles (planner accounting).")
+
+# --- stage-split serving (cluster/stages) -----------------------------------
+
+STAGE_QUEUE_DEPTH = REGISTRY.gauge(
+    "cdt_stage_queue_depth",
+    "Work items queued per serving stage pool (encode / denoise / "
+    "decode). Each pool scales on ITS OWN depth — a decode backlog must "
+    "never read as denoise pressure (docs/stages.md).",
+    ("stage",))
+
+STAGE_OCCUPANCY = REGISTRY.gauge(
+    "cdt_stage_occupancy",
+    "Fraction of a stage pool's workers currently busy (0..1). The "
+    "denoise pool's value is the number the whole refactor exists to "
+    "raise — the mesh should spend its time denoising, not encoding or "
+    "decoding.",
+    ("stage",))
+
+STAGE_JOBS = REGISTRY.counter(
+    "cdt_stage_jobs_total",
+    "Work items completed per stage pool, by outcome (ok / error / "
+    "redispatch — redispatch = a dead worker's items re-queued to a "
+    "survivor, bounded by CDT_STAGE_MAX_REDISPATCH).",
+    ("stage", "outcome"))
+
+STAGE_STEALS = REGISTRY.counter(
+    "cdt_stage_steals_total",
+    "Cross-stage steals: an idle host-side stage worker served the "
+    "deepest sibling stage's queue (the tile farm's most-starved-first "
+    "idiom generalized across stages).",
+    ("src", "dst"))
+
+DECODE_BATCH_SIZE = REGISTRY.histogram(
+    "cdt_decode_batch_size",
+    "Latents decoded per executed VAE program (cross-request decode "
+    "coalescing per shape bucket). Mean > 1 means the decode pool is "
+    "amortizing programs across concurrent requests.",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+
+LATENT_TRANSFER_BYTES = REGISTRY.histogram(
+    "cdt_latent_transfer_bytes",
+    "Bytes per denoise-to-decode latent handoff (host materialization, "
+    "plus the checksummed wire round trip under CDT_STAGE_WIRE=1).",
+    buckets=(4096, 65536, 1 << 20, 16 << 20, 256 << 20))
+
+LATENT_TRANSFER_SECONDS = REGISTRY.histogram(
+    "cdt_latent_transfer_seconds",
+    "Wall-clock per latent handoff transfer — overlapped with the "
+    "denoise pool's next program (T3-style), so this shows up in "
+    "decode-lane latency, not denoise occupancy.")
 
 # --- prompt queue -----------------------------------------------------------
 

@@ -362,6 +362,74 @@ def cache_disk_max_bytes() -> int:
     return _read("CDT_CACHE_DISK_MAX_BYTES", 4 * 1024 * 1024 * 1024, int)
 
 
+# --- stage-split serving (cluster/stages) ---------------------------------------
+
+
+def stages() -> bool:
+    """Kill switch of stage-split serving: 0 restores the fused group path
+    (encode, denoise and decode on the one graph thread)."""
+    return _read("CDT_STAGES", True, _bool)
+
+
+def stage_encode_workers() -> int:
+    """Encode-pool threads (graph prefix, text encode through the
+    conditioning tier, the result-tier probe)."""
+    return _read("CDT_STAGE_ENCODE_WORKERS", 2, int)
+
+
+def stage_decode_workers() -> int:
+    """Decode-pool threads (VAE decode and graph suffix)."""
+    return _read("CDT_STAGE_DECODE_WORKERS", 2, int)
+
+
+def stage_max_workers() -> int:
+    """Ceiling the rebalancer grows the encode and decode pools to (the
+    denoise pool is always one: it owns the card)."""
+    return _read("CDT_STAGE_MAX_WORKERS", 4, int)
+
+
+def stage_scale_depth() -> float:
+    """Queue depth per worker past which a host-side pool grows by one."""
+    return _read("CDT_STAGE_SCALE_DEPTH", 8.0, float)
+
+
+def stage_decode_batch() -> int:
+    """Most latents one decode-pool pickup takes from a shape bucket."""
+    return _read("CDT_STAGE_DECODE_BATCH", 8, int)
+
+
+def stage_decode_window_ms() -> float:
+    """How long a latent waits for same-bucket company before the decode
+    pool flushes its bucket (ms)."""
+    return _read("CDT_STAGE_DECODE_WINDOW_MS", 5.0, float)
+
+
+def stage_wire() -> bool:
+    """Send every denoise→decode handoff through the checksummed latent
+    wire format (in-process handoffs otherwise keep the card's tensor)."""
+    return _read("CDT_STAGE_WIRE", False, _bool)
+
+
+def stage_steal() -> bool:
+    """An idle encode or decode worker serves the deeper sibling queue."""
+    return _read("CDT_STAGE_STEAL", True, _bool)
+
+
+def stage_max_redispatch() -> int:
+    """Re-dispatches of an item whose stage worker died, past which its
+    member errors."""
+    return _read("CDT_STAGE_MAX_REDISPATCH", 3, int)
+
+
+# --- card-memory residency (cluster/residency.py) --------------------------------
+
+
+def hbm_budget_gb() -> float:
+    """Budget of the residency planner: GB of the card's memory for model
+    bundles (0 = unlimited, planner off). The name is the JAX package's."""
+    return _read("CDT_HBM_BUDGET_GB", 0.0, float)
+
+
 # --- tiles ---------------------------------------------------------------------
 
 
