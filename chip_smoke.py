@@ -283,6 +283,35 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``ResidencyError`` (its parameters left the card); under a pin on
    ``sd15``, ``get("sdxl")`` raises ``ResidencyError`` and its refused
    build is freed.
+14e. catalog, warmup and preemption — the shape catalog (a file of its
+   own since 14c) holds ``txt2img``/``sdxl``/1024²/30 steps/batch 1,
+   observed from the stage pools' denoise thread (14c's group); a catalog
+   seeded from ``workflows/`` holds their three keys and round-trips
+   through its file. A reference request (1024², 30 karras steps, CFG 5,
+   ``dpmpp_2m_sde``, seed 61) runs direct: exactly 2100 K2. A worker
+   subprocess boots with ``CDT_WARMUP=1``, ``CDT_WARMUP_MODELS=sdxl`` and
+   an empty catalog seeded from the workflows: ``GET
+   /distributed/warmup`` reaches ``ready`` (health says so),
+   ``cdt_warmup_programs_total{outcome="compiled"}`` ≥ 1 and no
+   ``error``; its first served request (the reference's graph) builds no
+   bundle (``bundle_builds`` unchanged), launches 2100 K2 there and its
+   PNG is bitwise the direct one. On a master with the defaults of the
+   front door, the cache and the stages: the reference's graph posted
+   ``priority: "batch"``, then, once its progress shows a step, an
+   ``interactive`` ``euler_ancestral`` request (seed 62): the batch
+   request's history counts ``preemptions`` ≥ 1,
+   ``cdt_preemptions_total{reason="priority"}`` ≥ 1, the interactive one
+   finishes first, the batch PNG is bitwise the reference's, exactly 4200
+   K2 launch over the window (2100 each: no step twice, none skipped),
+   ``cdt_jobs_preempted`` is 0 and the checkpoint store holds 0 bytes at
+   the end. Then the reference's graph in this process's executor with a
+   token that yields at step 8 (560 K2): its checkpoint posted to the
+   worker's ``/distributed/checkpoint`` and resumed there by
+   ``checkpoint_id``: the PNG bitwise the reference's, 2100 − 8·70 = 1540
+   K2 on the worker; a flipped byte and a checkpoint whose
+   ``meta.backend`` is not ``torch`` answer 400. Prints the warm pass's
+   and the warm request's seconds, the interactive request's wait from
+   its POST to its start, and the phase's seconds and peak.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -494,6 +523,7 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import gc
@@ -2552,15 +2582,18 @@ def http_json(url: str, payload=None, timeout: float = 30.0,
     return status, json.loads(body or b"{}")
 
 
-def start_worker(port: int, log_path: Path, input_dir: Path):
+def start_worker(port: int, log_path: Path, input_dir: Path,
+                 extra_env: dict | None = None):
     """``serve`` through the CLI as a worker on the card (in this process's
-    environment: a ``CDT_AUTH_TOKEN`` set here is the worker's); returns
-    the process once ``/distributed/health`` answers."""
+    environment: a ``CDT_AUTH_TOKEN`` set here is the worker's; then
+    ``extra_env``); returns the process once ``/distributed/health``
+    answers."""
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
     (SERVE_DIR / "worker.json").write_text("{}")
     env = {**os.environ, "CDT_IS_WORKER": "1", "CDT_WORKER_ID": "w0",
            "CDT_CONFIG_PATH": str(SERVE_DIR / "worker.json"),
            "CDT_OUTPUT_DIR": str(SERVE_DIR / "worker_out"),
-           "CDT_INPUT_DIR": str(input_dir)}
+           "CDT_INPUT_DIR": str(input_dir), **(extra_env or {})}
     with open(log_path, "wb") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "comfyui_distributed_tpu_torch", "serve",
@@ -3274,9 +3307,10 @@ def managed_phase(torch, fa, sdxl: PathRun) -> dict:
         (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
     prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
     # the master's sampling waits here while armed (the profile window
-    # then opens on a drained card, before its first UNet launch)
+    # then opens on a drained card, before its first UNet launch): both
+    # the uninterrupted and the preemptible lane bind their sampler here
     reached, go, armed = threading.Event(), threading.Event(), [False]
-    sample_and_decode = pipemod.Txt2ImgPipeline.sample_and_decode
+    prepare = pipemod.Txt2ImgPipeline._prepare_sampling
 
     def held(self, *args, **kwargs):
         if armed[0]:
@@ -3284,9 +3318,9 @@ def managed_phase(torch, fa, sdxl: PathRun) -> dict:
             torch.cuda.synchronize()
             reached.set()
             require(go.wait(SERVE_REQUEST_S), "the profile window never opened")
-        return sample_and_decode(self, *args, **kwargs)
+        return prepare(self, *args, **kwargs)
 
-    patch = mock.patch.object(pipemod.Txt2ImgPipeline, "sample_and_decode",
+    patch = mock.patch.object(pipemod.Txt2ImgPipeline, "_prepare_sampling",
                               held)
     master = server = monitor = None
     log_path = None
@@ -6407,6 +6441,347 @@ def stages_phase(torch, fa, sdxl: PathRun) -> dict:
     return launches
 
 
+# --- phase 14e: the shape catalog, warmup and preemption -----------------------
+
+PREEMPT_DIR = OUTPUT_DIR / "preempt"
+CATALOG_FILE = OUTPUT_DIR / "catalog" / "shape_catalog_torch.json"
+PR_SEED = 61                 # the batch request (dpmpp_2m_sde)
+PR_INTERACTIVE_SEED = 62     # the interactive one (euler_ancestral)
+PR_CUT = 8                   # the default segment: the first boundary
+PR_K2 = FD_UNET["flash_attention_packed"]                          # 2100
+PR_K2_STEP = PR_K2 // STEPS                                        # 70
+# the first served sdxl request of a cold worker, H100 80GB HBM3 at 700 W
+# (PERF.md §6, run Y): printed beside the warm worker's
+COLD_SERVED_Y_S = 11.276
+WARM_S = 300.0               # the worker's warm pass, up to ready
+
+
+class CatalogWatch:
+    """Points the process's shape catalog at a file of its own and records
+    each ``observe`` with the observing thread's name (installed before
+    14c: phase 14e reads it)."""
+
+    def __init__(self):
+        from comfyui_distributed_tpu_torch.cluster import shape_catalog
+
+        self.module = shape_catalog
+        self.calls: list[tuple[str, tuple]] = []
+        shutil.rmtree(CATALOG_FILE.parent, ignore_errors=True)
+        os.environ["CDT_SHAPE_CATALOG"] = str(CATALOG_FILE)
+        shape_catalog.reset_default_catalog()
+        self.observe = shape_catalog.observe
+
+        def observe(*args, **kwargs):
+            import threading
+
+            self.calls.append((threading.current_thread().name,
+                               args + tuple(sorted(kwargs.items()))))
+            return self.observe(*args, **kwargs)
+
+        shape_catalog.observe = observe
+
+    def close(self) -> None:
+        self.module.observe = self.observe
+        os.environ.pop("CDT_SHAPE_CATALOG", None)
+        self.module.reset_default_catalog()
+
+
+def pr_prompt(seed: int, sampler: str, prefix: str) -> dict:
+    """``fd_prompt``'s graph with another sampler (1024², 30 karras steps,
+    CFG 5): a stochastic sampler keeps it off the group lane."""
+    prompt = fd_prompt(seed, fd_positive(60 + seed % 10), prefix)
+    prompt["4"]["inputs"]["sampler_name"] = sampler
+    return prompt
+
+
+class YieldOnce:
+    """A preemption token (the hidden input ``TPUTxt2Img`` reads) that asks
+    the run to yield at its first segment boundary."""
+
+    def __init__(self):
+        self.resume, self.segment_steps = None, PR_CUT
+        self.resume_consumed, self.asked = False, 0
+
+    def should_preempt(self):
+        self.asked += 1
+        return "manual" if self.asked == 1 else None
+
+
+def worker_k2(base: str) -> int:
+    status, body = http_json(base + "/distributed/kernel_launches")
+    require(status == 200, f"kernel_launches answered {status}: {body}")
+    return body["launches"]["flash_attention_packed"]
+
+
+def catalog_gates(watch: CatalogWatch) -> None:
+    from comfyui_distributed_tpu_torch.cluster.shape_catalog import (
+        ProgramKey, ShapeCatalog, keys_from_prompt)
+
+    watch.close()
+    want = ProgramKey("txt2img", "sdxl", 1024, 1024, STEPS, batch=1)
+    cat = ShapeCatalog(CATALOG_FILE)
+    group = [name for name, args in watch.calls
+             if name.startswith("stage-denoise")
+             and args[:5] == ("txt2img", "sdxl", 1024, 1024, STEPS)]
+    require(want in cat and group,
+            f"catalog: {want} in {CATALOG_FILE}: {want in cat}; group "
+            f"observations {group} of {len(watch.calls)}")
+    seeded = ShapeCatalog(PREEMPT_DIR / "seeded.json", autoload=False)
+    added = seeded.seed_from_workflows(ROOT / "workflows")
+    expect = sorted({k for path in sorted((ROOT / "workflows").glob("*.json"))
+                     for k in keys_from_prompt(json.loads(path.read_text()))})
+    require(seeded.save() and added == len(expect)
+            and ShapeCatalog(PREEMPT_DIR / "seeded.json").entries() == expect,
+            f"catalog: the seeded catalog {seeded.entries()} != {expect}")
+    say(f"  catalog {CATALOG_FILE.name}: {len(cat)} key(s), {want} observed "
+        f"by {sorted(set(group))}; workflows seed {added} key(s), "
+        f"round-tripped")
+
+
+def warm_worker(torch, fa, ref_png: bytes):
+    """Boots the warm worker; returns (process, URL, its output
+    directory)."""
+    port = free_port()
+    out = PREEMPT_DIR / "worker_out"
+    catalog = PREEMPT_DIR / "worker_catalog.json"
+    catalog.write_text(json.dumps({"version": 1, "entries": []}))
+    reset_peak(torch)
+    worker = start_worker(port, PREEMPT_DIR / "worker.log", PREEMPT_DIR, {
+        "CDT_WARMUP": "1", "CDT_WARMUP_MODELS": "sdxl",
+        "CDT_SHAPE_CATALOG": str(catalog), "CDT_OUTPUT_DIR": str(out)})
+    base = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            status, warm = http_json(base + "/distributed/warmup")
+            if status == 200 and warm.get("state") in ("ready", "error"):
+                break
+            require(time.perf_counter() - t0 < WARM_S,
+                    f"warmup: not ready after {WARM_S} s: {warm}")
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        _, health = http_json(base + "/distributed/health")
+        samples = prometheus_samples(
+            http_raw(base + "/distributed/metrics")[1].decode())
+        compiled = samples.get('cdt_warmup_programs_total{outcome="compiled"}', 0)
+        errors = samples.get('cdt_warmup_programs_total{outcome="error"}', 0)
+        require(warm["state"] == "ready" and health.get("warmup") == "ready"
+                and compiled >= 1 and errors == 0
+                and warm["outcomes"].get("compiled", 0) >= 1,
+                f"warmup: {warm}, health {health.get('warmup')}, metrics "
+                f"compiled {compiled} error {errors}")
+        builds = warm["bundle_builds"]
+        k2 = worker_k2(base)
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue", {
+            "prompt": pr_prompt(PR_SEED, "dpmpp_2m_sde", "warm")})
+        require(status == 200, f"warm request answered {status}: {answer}")
+        entry = wait_history(base, answer["prompt_id"], t0, "warm request")
+        request_s = time.perf_counter() - t0
+        _, after = http_json(base + "/distributed/warmup")
+        k2 = worker_k2(base) - k2
+        png = out / "warm_00000.png"
+        require(entry["status"] == "success"
+                and after["bundle_builds"] == builds and k2 == PR_K2
+                and png.is_file() and png.read_bytes() == ref_png,
+                f"warm request: {entry}, bundle builds {builds} → "
+                f"{after['bundle_builds']}, {k2} K2, PNG bitwise "
+                f"{png.is_file() and png.read_bytes() == ref_png}")
+        say(f"  warm worker: ready {boot_s:.2f} s after its health answered "
+            f"(the pass {warm['seconds']:.3f} s: {warm['outcomes']}, "
+            f"{builds} bundle build(s)); its first served sdxl request "
+            f"{request_s:.3f} s (run Y's cold one {COLD_SERVED_Y_S} s), no "
+            f"bundle built, {k2} K2, PNG bitwise the direct run's")
+        return worker, base, out
+    except BaseException:
+        stop_worker(worker)
+        tail = (PREEMPT_DIR / "worker.log").read_text(
+            errors="replace").splitlines()[-40:]
+        print("chip_smoke: warm worker log tail:\n" + "\n".join(tail),
+              file=sys.stderr)
+        raise
+
+
+def priority_preemption(torch, fa, registry, ref_png: bytes) -> dict:
+    """A batch request preempted by an interactive one on a master with
+    the defaults; returns the window's launches."""
+    from comfyui_distributed_tpu_torch import telemetry
+
+    telemetry.REGISTRY.reset()
+    with fd_master(torch, "preempt", registry, {}) as (master, base, out):
+        require(master.preemption is not None,
+                "preemption: off by default on the master")
+        queue = base + "/distributed/queue"
+        torch.cuda.synchronize()
+        before = dict(fa.LAUNCHES)
+        status, b = http_json(queue, {
+            "prompt": pr_prompt(PR_SEED, "dpmpp_2m_sde", "pbatch"),
+            "priority": "batch"})
+        require(status == 200 and b.get("batched") is False,
+                f"preemption: the batch request answered {status}: {b}")
+        t0 = time.perf_counter()
+        while True:
+            status, prog = http_json(
+                f"{base}/distributed/progress/{b['prompt_id']}")
+            if status == 200 and prog.get("step", 0) >= 1:
+                break
+            require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                    f"preemption: no progress on the batch request: {prog}")
+            time.sleep(0.01)
+        t_post = time.perf_counter()
+        status, i = http_json(queue, {
+            "prompt": pr_prompt(PR_INTERACTIVE_SEED, "euler_ancestral",
+                                "pinter"),
+            "priority": "interactive"})
+        require(status == 200 and i.get("batched") is False,
+                f"preemption: the interactive request answered {status}: {i}")
+        ids = {"batch": b["prompt_id"], "interactive": i["prompt_id"]}
+        ended, started = {}, None
+        while len(ended) < 2:
+            if started is None and master.queue.executing == ids["interactive"]:
+                started = time.perf_counter()
+            for what, pid in ids.items():
+                entry = master.queue.history.get(pid, {})
+                if what not in ended and entry.get("status") in (
+                        "success", "error", "interrupted", "expired"):
+                    ended[what] = time.perf_counter()
+            require(time.perf_counter() - t_post < SERVE_REQUEST_S,
+                    f"preemption: not both final: {ended}")
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        batch = master.queue.history[ids["batch"]]
+        inter = master.queue.history[ids["interactive"]]
+        _, hist = http_json(f"{base}/distributed/history/{ids['batch']}")
+        _, stats = http_json(base + "/distributed/preemption")
+        snap = telemetry.REGISTRY.snapshot()
+        reasons = {s["labels"]["reason"]: s["value"] for s in
+                   snap.get("cdt_preemptions_total", {}).get("series", [])}
+        parked = [s["value"] for s in
+                  snap.get("cdt_jobs_preempted", {}).get("series", [])]
+        png = out / "pbatch_00000.png"
+        require(batch["status"] == inter["status"] == "success"
+                and batch.get("preemptions", 0) >= 1
+                and hist.get("preemptions", 0) >= 1,
+                f"preemption: batch {batch}, interactive {inter}")
+        require(reasons.get("priority", 0) >= 1 and parked and parked[-1] == 0
+                and stats["store"]["bytes"] == 0 and not stats["parked_jobs"],
+                f"preemption: reasons {reasons}, parked gauge {parked}, "
+                f"store {stats['store']}")
+        require(ended["interactive"] < ended["batch"],
+                "preemption: the batch request finished before the "
+                "interactive one")
+        require(png.is_file() and png.read_bytes() == ref_png,
+                "preemption: the batch PNG is not the uninterrupted run's")
+        require(launches["flash_attention_packed"] == 2 * PR_K2,
+                f"preemption: {launches['flash_attention_packed']} K2 over "
+                f"the window, not {2 * PR_K2} (a step ran twice or not at all)")
+        waits = histogram(snap, "cdt_queue_wait_seconds")
+        wait = waits.get((("priority", "interactive"),), (0, float("nan")))
+        say(f"  priority preemption: the batch request preempted "
+            f"{batch['preemptions']} time(s) ({reasons}), finished "
+            f"{ended['batch'] - ended['interactive']:.3f} s after the "
+            f"interactive one; the interactive request waited "
+            f"{started - t_post:.3f} s from its POST to its start (queue "
+            f"wait {wait[1]:.3f} s); window launches {launches}; batch PNG "
+            f"bitwise; store {stats['store']['bytes']} B, "
+            f"{stats['preempted']} preempted, {stats['resumed']} resumed")
+    return launches
+
+
+def resume_elsewhere(torch, fa, registry, worker_base: str, worker_out: Path,
+                     ref_png: bytes) -> dict:
+    """Preempted in this process at step 8, resumed on the warm worker;
+    returns this process's launches."""
+    from comfyui_distributed_tpu_torch.diffusion.checkpoint import (
+        LatentCheckpoint, PreemptedError)
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    token = YieldOnce()
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(PREEMPT_DIR / "cut"),
+                              "preemption": token})
+    before = dict(fa.LAUNCHES)
+    try:
+        executor.execute(pr_prompt(PR_SEED, "dpmpp_2m_sde", "cut"))
+        raise SmokeFailure("resume: the run did not yield at step 8")
+    except PreemptedError as e:
+        ckpt = e.checkpoint
+    torch.cuda.synchronize()
+    launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    require(ckpt.step == PR_CUT and ckpt.meta.get("backend") == "torch"
+            and launches["flash_attention_packed"] == PR_CUT * PR_K2_STEP,
+            f"resume: checkpoint at {ckpt.step}, meta {ckpt.meta}, "
+            f"launches {launches}")
+    wire = ckpt.to_payload()
+    status, parked = http_json(worker_base + "/distributed/checkpoint", wire)
+    require(status == 200 and parked.get("step") == PR_CUT,
+            f"resume: the worker parked {status}: {parked}")
+    k2 = worker_k2(worker_base)
+    t0 = time.perf_counter()
+    status, answer = http_json(worker_base + "/distributed/queue", {
+        "prompt": pr_prompt(PR_SEED, "dpmpp_2m_sde", "resumed"),
+        "checkpoint_id": parked["checkpoint_id"]})
+    require(status == 200, f"resume: queue answered {status}: {answer}")
+    entry = wait_history(worker_base, answer["prompt_id"], t0, "resume")
+    resume_s = time.perf_counter() - t0
+    k2 = worker_k2(worker_base) - k2
+    png = worker_out / "resumed_00000.png"
+    want = PR_K2 - PR_CUT * PR_K2_STEP
+    require(entry["status"] == "success" and k2 == want and png.is_file()
+            and png.read_bytes() == ref_png,
+            f"resume: {entry}, worker K2 {k2} (want {want}), PNG bitwise "
+            f"{png.is_file() and png.read_bytes() == ref_png}")
+    raw = bytearray(base64.b64decode(wire["data"]))
+    raw[len(raw) // 2] ^= 0x01
+    status, flipped = http_json(worker_base + "/distributed/checkpoint", {
+        **wire, "data": base64.b64encode(bytes(raw)).decode("ascii")})
+    require(status == 400 and "CHECKSUM" in flipped.get("error", ""),
+            f"resume: a flipped byte answered {status}: {flipped}")
+    foreign = LatentCheckpoint(ckpt.sampler, ckpt.step, ckpt.total_steps,
+                               ckpt.carry, meta={**ckpt.meta,
+                                                 "backend": "jax"})
+    status, refused = http_json(worker_base + "/distributed/checkpoint",
+                                foreign.to_payload())
+    require(status == 400 and "backend" in refused.get("error", ""),
+            f"resume: a jax-backend checkpoint answered {status}: {refused}")
+    say(f"  resume elsewhere: yielded at step {ckpt.step} here "
+        f"({len(wire['data'])} B of base64), resumed on the worker in "
+        f"{resume_s:.3f} s with {k2} K2, PNG bitwise; a flipped byte and a "
+        f"jax-backend checkpoint answered 400")
+    return launches
+
+
+def preempt_phase(torch, fa, sdxl: PathRun, watch: CatalogWatch) -> dict:
+    """Phase 14e; returns this process's launches."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    shutil.rmtree(PREEMPT_DIR, ignore_errors=True)
+    PREEMPT_DIR.mkdir(parents=True)
+    catalog_gates(watch)
+    registry = sdxl.registry
+    before = dict(fa.LAUNCHES)
+    GraphExecutor({"model_registry": registry,
+                   "output_dir": str(PREEMPT_DIR / "ref")}).execute(
+        pr_prompt(PR_SEED, "dpmpp_2m_sde", "ref"))
+    torch.cuda.synchronize()
+    launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    require(launches["flash_attention_packed"] == PR_K2,
+            f"preempt: the reference request's launches {launches}")
+    ref_png = (PREEMPT_DIR / "ref" / "ref_00000.png").read_bytes()
+    worker, base, out = warm_worker(torch, fa, ref_png)
+    try:
+        for part in (priority_preemption(torch, fa, registry, ref_png),
+                     resume_elsewhere(torch, fa, registry, base, out,
+                                      ref_png)):
+            for k in launches:
+                launches[k] += part[k]
+        PHASE_PEAK["bytes"] = max(PHASE_PEAK["bytes"], worker_peak(base))
+    finally:
+        stop_worker(worker)
+    return launches
+
+
 PHASE_PEAK = {"bytes": 0}
 
 
@@ -6522,10 +6897,15 @@ def main() -> int:
                                                  cn_tile, video)
         with phase(torch, "14b managed worker"):
             path_launches["managed"] = managed_phase(torch, fa, sdxl)
+        # the shape catalog gets a file of its own, and its observations
+        # are recorded, from 14c on (phase 14e reads them)
+        watch = CatalogWatch()
         with phase(torch, "14c front door"):
             path_launches["frontdoor"] = frontdoor_phase(torch, fa, sdxl)
         with phase(torch, "14d stages and residency"):
             path_launches["stages"] = stages_phase(torch, fa, sdxl)
+        with phase(torch, "14e catalog, warmup and preemption"):
+            path_launches["preempt"] = preempt_phase(torch, fa, sdxl, watch)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "

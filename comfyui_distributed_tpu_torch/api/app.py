@@ -4,8 +4,7 @@ body; no chunked bodies; one request per connection; JSON answers, a PNG
 for the preview), with an RFC 6455 upgrade for the dispatch WebSocket
 (``utils/websocket.py``).
 
-Routes (the JAX package's ``api/app.py``, less preemption and the fleet
-cache):
+Routes (the JAX package's ``api/app.py``, less the fleet cache):
 
 - ``GET /distributed/health``, ``GET /distributed/system_info``
 - ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
@@ -13,7 +12,15 @@ cache):
 - ``POST /distributed/queue`` (through the serving front door: admitted,
   classified, coalesced or orchestrated over the configured hosts; a
   shed request answers 429 with ``Retry-After``; with
-  ``CDT_FRONTDOOR=0`` straight to the orchestrator)
+  ``CDT_FRONTDOOR=0`` straight to the orchestrator; ``checkpoint_id`` or
+  an inline ``checkpoint`` resumes a parked run, unbatched)
+- ``GET /distributed/preemption`` (the preemption controller and its
+  checkpoint store), ``GET /distributed/checkpoint/{id}`` (a parked
+  checkpoint's wire form), ``POST /distributed/checkpoint`` (park a wire
+  form here: checksum verified, another backend's refused, 400 either
+  way; answers its local id)
+- ``GET /distributed/kernel_launches`` (the attention wrappers' and CUDA
+  kernels' launch counters of this process, ``ops/flash_attention.py``)
 - ``GET /distributed/frontdoor``, ``GET /distributed/cache``,
   ``POST /distributed/cache/clear`` (the front door's and the content
   cache's state; the clear drops both memory tiers)
@@ -242,8 +249,10 @@ class App:
             entry = c.queue.history.get(pid)
             if entry is None:
                 return json_error(f"no finished prompt {pid!r}", 404)
-            extra = {k: entry[k] for k in ("batch_size", "cache",
-                                           "coalesced_with") if k in entry}
+            extra = {k: entry[k] for k in (
+                "batch_size", "cache", "coalesced_with", "preemptions",
+                "preempted_at_step", "total_steps", "checkpoint_id",
+                "reason", "resume_ignored", "resume_lost") if k in entry}
             return Response(200, {
                 "prompt_id": pid,
                 "status": entry.get("status"),
@@ -260,7 +269,12 @@ class App:
         async def distributed_queue(request):
             payload = parse_queue_request_payload(request.json())
             if c.frontdoor is None:
-                # CDT_FRONTDOOR=0: the path without the front door
+                # CDT_FRONTDOOR=0: the path without the front door, with
+                # the resume fields (one policy with the front door's)
+                from ..cluster.preemption import resolve_resume
+
+                cid = resolve_resume(c.preemption, payload.checkpoint_id,
+                                     payload.checkpoint)
                 result = await c.orchestrator.orchestrate(
                     payload.prompt,
                     client_id=payload.client_id,
@@ -268,6 +282,7 @@ class App:
                     delegate_master=payload.delegate_master,
                     load_balance=payload.load_balance,
                     trace_id=payload.trace_id,
+                    queue_meta=({"checkpoint_id": cid} if cid else None),
                 )
                 return Response(200, {
                     "prompt_id": result.prompt_id,
@@ -314,6 +329,48 @@ class App:
             dropped = (c.cache.conditioning.clear_memory()
                        + c.cache.results.clear_memory())
             return Response(200, {"status": "cleared", "dropped": dropped})
+
+        async def preemption_stats(request):
+            if c.preemption is None:
+                return Response(200, {"enabled": False})
+            return Response(200, c.preemption.stats())
+
+        async def checkpoint_export(request):
+            """A parked checkpoint's wire form, for a resume elsewhere
+            (the base64 of a few MB is built off the loop)."""
+            if c.preemption is None:
+                return json_error("preemption disabled", 404)
+            cid = request.match["checkpoint_id"]
+            payload = await asyncio.get_running_loop().run_in_executor(
+                None, c.preemption.store.export_payload, cid)
+            if payload is None:
+                return json_error(f"unknown checkpoint {cid!r}", 404)
+            return Response(200, payload)
+
+        async def checkpoint_import(request):
+            """Park a wire-form checkpoint here (checksum verified and the
+            backend checked before a byte is trusted); answers the local
+            id a resume request names."""
+            from ..cluster.preemption import import_checkpoint
+            from ..diffusion.checkpoint import CheckpointError
+
+            if c.preemption is None:
+                return json_error("preemption disabled", 404)
+            body = request.json()
+            try:
+                cid, ckpt = await asyncio.get_running_loop().run_in_executor(
+                    None, import_checkpoint, c.preemption, body)
+            except CheckpointError as e:
+                raise ValidationError(str(e), field="checkpoint") from None
+            return Response(200, {"status": "ok", "checkpoint_id": cid,
+                                  "step": ckpt.step,
+                                  "total_steps": ckpt.total_steps})
+
+        async def kernel_launches(request):
+            from ..ops import flash_attention as fa
+
+            return Response(200, {"launches": dict(fa.LAUNCHES),
+                                  "cuda_launches": dict(fa.CUDA_LAUNCHES)})
 
         async def stages_stats(request):
             if c.stages is None:
@@ -570,6 +627,11 @@ class App:
         self.add("GET", "/distributed/frontdoor", frontdoor_stats)
         self.add("GET", "/distributed/cache", cache_stats)
         self.add("POST", "/distributed/cache/clear", cache_clear)
+        self.add("GET", "/distributed/preemption", preemption_stats)
+        self.add("GET", "/distributed/checkpoint/{checkpoint_id}",
+                 checkpoint_export)
+        self.add("POST", "/distributed/checkpoint", checkpoint_import)
+        self.add("GET", "/distributed/kernel_launches", kernel_launches)
         self.add("GET", "/distributed/stages", stages_stats)
         self.add("POST", "/distributed/stages/decode", stages_decode)
         self.add("POST", "/distributed/job_complete", job_complete)

@@ -6,11 +6,12 @@ accepted as a legacy alias of ``enabled_worker_ids``.
 there, and the serving front door acts on them (``cluster/frontdoor``):
 admission by tenant and priority, ``expired`` history past the deadline,
 the result tier used or bypassed (``near`` reads as ``use`` until the
-near tier, A.4). With ``CDT_FRONTDOOR=0`` they are validated and not
-acted on, as on the JAX package's path without the front door. Resuming
-a checkpoint (``checkpoint_id``, ``checkpoint``) needs preemption (A.4),
-which the port does not have: such a request is rejected, never run
-from scratch in silence.
+near tier, which comes with the fleet cache, A.6a). With
+``CDT_FRONTDOOR=0`` they are validated and not acted on, as on the JAX
+package's path without the front door. ``checkpoint_id`` (a checkpoint
+parked on this controller) or ``checkpoint`` (its wire form inline)
+resumes a preempted run (``cluster/preemption.resolve_resume``, on both
+paths); a bad one is rejected, never run from scratch in silence.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Any, Optional
 
 from ..utils import constants
 from ..utils.exceptions import ValidationError
-from .schemas import (validate_cache_mode, validate_deadline_ms,
+from .schemas import (validate_cache_mode, validate_checkpoint_id,
+                      validate_checkpoint_payload, validate_deadline_ms,
                       validate_priority, validate_tenant)
 
 
@@ -36,6 +38,9 @@ class QueueRequestPayload:
     priority: str = constants.DEFAULT_PRIORITY
     deadline_ms: Optional[int] = None
     cache: str = "use"
+    # step-granular preemption: a checkpoint parked here, or one inline
+    checkpoint_id: Optional[str] = None
+    checkpoint: Optional[dict] = None
 
 
 def parse_queue_request_payload(payload: Any) -> QueueRequestPayload:
@@ -75,11 +80,12 @@ def parse_queue_request_payload(payload: Any) -> QueueRequestPayload:
         deadline_ms = validate_deadline_ms(deadline_ms)
     cache = validate_cache_mode(payload.get("cache", "use"))
 
-    for field in ("checkpoint_id", "checkpoint"):
-        if payload.get(field) is not None:
-            raise ValidationError(
-                f"'{field}' resumes a preempted job; preemption is not "
-                "ported to the PyTorch package", field=field)
+    checkpoint_id = payload.get("checkpoint_id")
+    if checkpoint_id is not None:
+        checkpoint_id = validate_checkpoint_id(checkpoint_id)
+    checkpoint = payload.get("checkpoint")
+    if checkpoint is not None:
+        checkpoint = validate_checkpoint_payload(checkpoint)
 
     return QueueRequestPayload(
         prompt=prompt,
@@ -92,4 +98,6 @@ def parse_queue_request_payload(payload: Any) -> QueueRequestPayload:
         priority=priority,
         deadline_ms=deadline_ms,
         cache=cache,
+        checkpoint_id=checkpoint_id,
+        checkpoint=checkpoint,
     )

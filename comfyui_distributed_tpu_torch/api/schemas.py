@@ -58,3 +58,34 @@ def validate_deadline_ms(value: Any) -> int:
             "'deadline_ms' must be a positive integer (milliseconds)",
             field="deadline_ms")
     return value
+
+
+# --- step-granular preemption (cluster/preemption.py) -------------------------
+
+MAX_CHECKPOINT_ID_LEN = 128
+
+
+def validate_checkpoint_id(value: Any) -> str:
+    """A resume request's checkpoint id: a bounded string with no path
+    separators (it names a store key and a file of the persisted tier)."""
+    if (not isinstance(value, str) or not value
+            or len(value) > MAX_CHECKPOINT_ID_LEN
+            or any(c in value for c in "/\\\0") or ".." in value):
+        raise ValidationError(
+            "'checkpoint_id' must be a non-empty string of at most "
+            f"{MAX_CHECKPOINT_ID_LEN} characters with no path "
+            "separators", field="checkpoint_id")
+    return value
+
+
+def validate_checkpoint_payload(value: Any) -> dict:
+    """An inline checkpoint's wire form: its shape checked here, its
+    checksum when it is imported. The sha256 is required."""
+    if (not isinstance(value, dict)
+            or not isinstance(value.get("data"), str)
+            or not isinstance(value.get("sha256"), str)
+            or not value["sha256"]):
+        raise ValidationError(
+            "'checkpoint' must be an object with base64 'data' and "
+            "'sha256' fields", field="checkpoint")
+    return value

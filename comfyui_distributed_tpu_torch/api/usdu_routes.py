@@ -10,7 +10,8 @@ result ingest, status.
   arrives in byte ranges (``frame_parts``) and is joined here;
 - ``POST /distributed/submit_image``: JSON with a base64 PNG (dynamic
   mode);
-- ``GET /distributed/job_status?job_id=…``, ``GET
+- ``GET /distributed/job_status?job_id=…`` (a tile job, or a prompt of
+  the queue: its status, ``preempted@k/n`` while it is parked), ``GET
   /distributed/queue_status/{job_id}``.
 
 The elastic fleet's cross-job steal pull (``job_id="*"``) is answered
@@ -186,11 +187,20 @@ def register(app, controller) -> None:
             raise ValidationError("missing job_id query param", field="job_id")
         status = await store.job_status(job_id)
         if not status.get("exists") and not status.get("finished"):
-            # maybe a prompt of the queue
+            # maybe a prompt of the queue: a preempted one reports where
+            # it is parked, e.g. "preempted@8/30"
             entry = controller.queue.history.get(job_id)
             if entry is not None:
                 status = {"exists": True, "kind": "prompt",
                           "status": entry.get("status")}
+                if entry.get("status") == "preempted":
+                    status["preempted"] = (
+                        f"preempted@{entry.get('preempted_at_step')}"
+                        f"/{entry.get('total_steps')}")
+                    status["checkpoint_id"] = entry.get("checkpoint_id")
+                    status["reason"] = entry.get("reason")
+                elif entry.get("preemptions"):
+                    status["preemptions"] = entry["preemptions"]
         return Response(200, status)
 
     async def queue_status(request):

@@ -13,7 +13,12 @@
 - ``GET /distributed/local-worker-status``: each managed or ``local``
   host's process, launch state, breaker and probe;
 - ``GET /distributed/remote_worker_log/{worker_id}``: a host's own
-  ``/distributed/local_log``, fetched by the master.
+  ``/distributed/local_log``, fetched by the master;
+- ``POST /distributed/warmup`` ``{"models"?: [...], "wait"?: bool}``: a
+  warm pass over the shape catalog (``diffusion/warmup.py``), answered at
+  once (``wait``: when it ends, with its report);
+- ``GET /distributed/warmup``: the pass's state, outcomes, seconds,
+  report and the registry's bundle builds.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from pathlib import Path
 
 from ..cluster.resilience import BREAKERS
 from ..utils import constants
-from ..utils.exceptions import ProcessError
+from ..utils.exceptions import ProcessError, ValidationError
 from ..utils.logging import debug_log
 from ..utils.network import build_host_url, http_request_async, probe_host
 from .info_routes import tail_file
@@ -99,8 +104,9 @@ def register(app, controller) -> None:
                 "online": False,
                 "queue_remaining": None,
                 "breaker": BREAKERS.state(wid),
-                # the elastic fleet's drain state and warmup are not ported
+                # the elastic fleet's drain state is not ported
                 "drain": None,
+                # the host's warm state (diffusion/warmup.py), from its probe
                 "warmup": None,
             }
             host = hosts.get(wid)
@@ -129,6 +135,28 @@ def register(app, controller) -> None:
         except (OSError, ValueError) as e:
             return json_error(f"host {wid!r} unreachable: {e}", 502)
 
+    async def warmup_start(request):
+        body = request.json() if request.body else {}
+        if not isinstance(body, dict):
+            raise ValidationError("payload must be a JSON object")
+        models = body.get("models")
+        if models is not None and (
+                not isinstance(models, list)
+                or not all(isinstance(m, str) for m in models)):
+            raise ValidationError("'models' must be a list of strings",
+                                  field="models")
+        if body.get("wait"):
+            status = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: c.warmup.run(models=models))
+            return Response(200, status)
+        c.start_warmup(models)
+        return Response(200, {"state": c.warmup.state, "started": True})
+
+    async def warmup_status(request):
+        return Response(200, c.warmup.status())
+
+    app.add("POST", "/distributed/warmup", warmup_start)
+    app.add("GET", "/distributed/warmup", warmup_status)
     app.add("POST", "/distributed/launch_worker", launch_worker)
     app.add("POST", "/distributed/stop_worker", stop_worker)
     app.add("GET", "/distributed/managed_workers", managed_workers)

@@ -13,10 +13,14 @@ It builds the content cache (``cluster/cache``, None under
 ``CDT_CACHE=0``), which its execution context carries to
 ``CLIPTextEncode`` and the group executor, the stage pools
 (``cluster/stages``, None under ``CDT_STAGES=0``), attached to the
-prompt queue and the front door and stopped at shutdown, and the serving
+prompt queue and the front door and stopped at shutdown, the serving
 front door (``cluster/frontdoor``, None under ``CDT_FRONTDOOR=0``),
-started on its loop. Preemption, warmup and the elastic fleet of the JAX
-package's controller are not ported.
+started on its loop, step-granular preemption (``cluster/preemption.py``,
+None under ``CDT_PREEMPT=0``), attached to the prompt queue, and the
+warm-pass state machine (``diffusion/warmup.py``): with ``CDT_WARMUP=1``
+a pass over the shape catalog runs at startup in a thread off the loop,
+and ``health()`` reports its state. The elastic fleet of the JAX
+package's controller is not ported.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ import gc
 import json
 import os
 import platform
+import threading
 from pathlib import Path
 from typing import Any, Optional
 
 import torch
 
+from ..diffusion.warmup import WarmupManager
 from ..utils import constants
 from ..utils.config import ensure_config_exists, load_config, peek_setting
 from ..utils.device import DeviceLike, resolve_device, use_full_fp32
@@ -44,6 +50,7 @@ from .collector_bridge import CollectorBridge
 from .frontdoor import build_frontdoor
 from .job_store import JobStore
 from .orchestration import Orchestrator
+from .preemption import build_preemption
 from .progress import ProgressTracker
 from .runtime import PromptQueue
 from .stages import build_stages
@@ -87,10 +94,19 @@ class Controller:
         self.frontdoor = build_frontdoor(self.queue, self.orchestrator,
                                          cache=self.cache,
                                          stages=self.stages)
+        # resumable segments on the queue's solo lane; None under
+        # CDT_PREEMPT=0 (uninterrupted runs)
+        self.preemption = build_preemption(self.queue)
+        self.queue.preemption = self.preemption
+        self.warmup = WarmupManager(lambda: self.model_registry)
+        self._warmup_task: Optional[asyncio.Future] = None
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
         self._registry = model_registry
+        # the warm pass's thread, the graph thread and the warmup route
+        # may all ask for the registry first: one of them builds it
+        self._registry_lock = threading.Lock()
         self._worker_manager = None
         self._ready_task: Optional[asyncio.Future] = None
         # the config's settings.debug turns debug_log on (CDT_DEBUG too)
@@ -121,11 +137,12 @@ class Controller:
 
     @property
     def model_registry(self):
-        if self._registry is None:
-            from ..models.registry import ModelRegistry
+        with self._registry_lock:
+            if self._registry is None:
+                from ..models.registry import ModelRegistry
 
-            self._registry = ModelRegistry(self.device, seed=0)
-        return self._registry
+                self._registry = ModelRegistry(self.device, seed=0)
+            return self._registry
 
     def _execution_context(self) -> dict[str, Any]:
         ctx: dict[str, Any] = {
@@ -159,6 +176,15 @@ class Controller:
             f"(machine {get_machine_id()})")
         if self.is_worker and self.worker_id:
             self._ready_task = asyncio.ensure_future(self._report_ready())
+        if constants.warmup():
+            self.start_warmup()
+
+    def start_warmup(self, models=None) -> None:
+        """A warm pass in a thread of its own (not the graph thread: a
+        dispatched prompt must not wait behind the catalog); the health
+        probe says ``warming`` until it ends."""
+        self._warmup_task = asyncio.get_running_loop().run_in_executor(
+            None, lambda: self.warmup.run(models=models))
 
     async def _report_ready(self) -> None:
         """Tell the master that launched this worker that it is up: the
@@ -202,6 +228,9 @@ class Controller:
             "executing": self.queue.executing,
             "machine_id": get_machine_id(),
             "device": str(self.device),
+            # cold | warming | ready | error: dispatch prefers a host that
+            # is not warming (cluster/dispatch.py)
+            "warmup": self.warmup.state,
             # each stage pool's backlog (cluster/stages)
             "stages": (None if self.stages is None
                        else self.stages.depths()),

@@ -1,5 +1,5 @@
 """Host probing, selection, and prompt dispatch (the JAX package's
-``cluster/dispatch.py`` without drain states and warmup preference).
+``cluster/dispatch.py`` without drain states).
 
 - ``select_active_hosts``: probe every candidate concurrently, at most
   ``probe_concurrency`` at a time → (online, offline). A host whose
@@ -7,7 +7,8 @@
   recovery window one half-open trial probe decides re-admission.
   Probe outcomes feed the breakers (``cluster/resilience.py``).
 - ``select_least_busy_host``: round-robin among idle hosts, else the
-  smallest queue;
+  smallest queue, hosts not mid-warm-pass first (``is_hot``): the
+  orchestrator's load-balanced choice of its active host;
 - ``dispatch_prompt``: POST the prompt to the host's ``/prompt``, or
   with ``via_ws`` first over its ``/distributed/worker_ws`` WebSocket.
   Only a connection that never opened is retried (HTTP) or falls back
@@ -97,14 +98,26 @@ def queue_depth(host: dict) -> int:
     return int((host.get("_probe") or {}).get("queue_remaining", 0))
 
 
+def is_hot(host: dict) -> bool:
+    """False for a host mid-warm-pass (its probe says ``warming``): a job
+    there would wait behind the rest of its catalog. ``ready``, ``cold``
+    (no warm pass configured), ``error`` and a peer without the field
+    count as hot."""
+    return (host.get("_probe") or {}).get("warmup") != "warming"
+
+
 def select_least_busy_host(online_hosts: Sequence[dict]) -> Optional[dict]:
-    """Round-robin among idle hosts; else the smallest queue."""
+    """Round-robin among idle hosts; else the smallest queue. Hot hosts
+    (``is_hot``) are preferred at both tiers, warming ones taken only
+    when nothing else is online."""
     if not online_hosts:
         return None
     idle = [h for h in online_hosts if queue_depth(h) == 0]
     if idle:
-        return idle[next(_rr_counter) % len(idle)]
-    return min(online_hosts, key=queue_depth)
+        hot = [h for h in idle if is_hot(h)] or idle
+        return hot[next(_rr_counter) % len(hot)]
+    hot = [h for h in online_hosts if is_hot(h)] or list(online_hosts)
+    return min(hot, key=queue_depth)
 
 
 async def dispatch_prompt_ws(

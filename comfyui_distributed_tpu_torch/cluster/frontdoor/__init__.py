@@ -20,8 +20,10 @@ Requests that cannot be batched go through the orchestrator as before,
 carrying their tenant, priority and deadline into the queue.
 ``CDT_FRONTDOOR=0`` removes the subsystem. With stage-split serving
 (``cluster/stages``) a flushed group runs through the stage pools, whose
-backlog joins admission's depth. Not ported: resuming a preempted job
-(A.4).
+backlog joins admission's depth. A resume request (``checkpoint_id`` or
+an inline ``checkpoint``, ``cluster/preemption.resolve_resume``) is a
+solo trajectory by definition: it skips classification and batching and
+rides the orchestration path with its checkpoint id.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from ...utils.logging import log
 from ..runtime import PromptJob, PromptQueue
 from .admission import AdmissionController, Decision
 from .batcher import CoalescingBatcher
-from .classifier import classify
+from .classifier import Classification, classify
 from .classifier import fingerprint as classifier_fingerprint
 
 
@@ -148,10 +150,22 @@ class FrontDoor:
 
         deadline_at = (time.monotonic() + payload.deadline_ms / 1000.0
                        if payload.deadline_ms else None)
-        cls = classify(payload.prompt)
+        from ..preemption import resolve_resume
+
+        checkpoint_id = resolve_resume(self.queue.preemption,
+                                       payload.checkpoint_id,
+                                       payload.checkpoint)
+        if checkpoint_id is not None:
+            cls = Classification(batchable=False, reason="resume")
+        else:
+            cls = classify(payload.prompt)
         self._classified[cls.reason] = self._classified.get(cls.reason, 0) + 1
 
         if not cls.batchable:
+            meta = {"tenant": payload.tenant, "priority": payload.priority,
+                    "deadline_at": deadline_at}
+            if checkpoint_id is not None:
+                meta["checkpoint_id"] = checkpoint_id
             result = await self.orchestrator.orchestrate(
                 payload.prompt,
                 client_id=payload.client_id,
@@ -159,9 +173,7 @@ class FrontDoor:
                 delegate_master=payload.delegate_master,
                 load_balance=payload.load_balance,
                 trace_id=payload.trace_id,
-                queue_meta={"tenant": payload.tenant,
-                            "priority": payload.priority,
-                            "deadline_at": deadline_at},
+                queue_meta=meta,
             )
             return FrontDoorResult(
                 outcome=decision.outcome, prompt_id=result.prompt_id,

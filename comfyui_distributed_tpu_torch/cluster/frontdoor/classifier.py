@@ -16,6 +16,7 @@ import dataclasses
 from typing import Optional
 
 from ...diffusion.pipeline import DETERMINISTIC_SAMPLERS
+from ..shape_catalog import ProgramKey
 
 # The one sampler node the microbatch executor knows how to group.
 BATCHABLE_SAMPLER = "TPUTxt2Img"
@@ -40,23 +41,6 @@ BATCHABLE_NODE_ALLOWLIST = frozenset({
     "PrimitiveFloat",
     "PrimitiveString",
 })
-
-@dataclasses.dataclass(frozen=True, order=True)
-class ProgramKey:
-    """One program's identity, with the fields of the JAX package's
-    ``cluster/shape_catalog.ProgramKey`` (the catalog itself is A.3d).
-    ``mesh`` is a sorted tuple of (axis, size) pairs, () the host's
-    default; ``frames`` is 0 for image pipelines."""
-
-    pipeline: str
-    model: str
-    height: int
-    width: int
-    steps: int
-    batch: int = 1
-    frames: int = 0
-    mesh: tuple = ()
-
 
 @dataclasses.dataclass(frozen=True, order=True)
 class GroupKey:

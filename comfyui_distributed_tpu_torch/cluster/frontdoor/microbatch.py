@@ -21,9 +21,11 @@ call falls every member of that sub-group back to a solo run (counted in
 ``cdt_batch_fallbacks_total``), so no admitted job is lost to batching.
 The result tier (``cluster/cache``) serves a member before any of this
 and is filled after. The group call runs under ``pinned_bundle``, so a
-residency planner never evicts its bundle mid-call. Stage-split serving
-(``cluster/stages``) reuses these helpers across its pools. Not ported:
-the near tier (A.4) and the shape catalog's ``observe`` (A.3 d).
+residency planner never evicts its bundle mid-call. A stacked group's
+program is observed into the shape catalog (``cluster/shape_catalog``),
+so the next boot warms it. Stage-split serving (``cluster/stages``)
+reuses these helpers across its pools. Not ported: the near tier, which
+lives in the fleet cache (A.6a).
 """
 
 from __future__ import annotations
@@ -312,9 +314,25 @@ def _execute_group_inner(members: list, sampler_node_ids: dict,
             for p in grp:
                 run_solo(p)
             continue
+        _observe_group_shape(lead)
         for p, images in zip(grp, outs):
             record(p, images, len(grp))
 
     debug_log(f"front door: group of {len(members)} done in "
               f"{time.monotonic() - t0:.2f}s "
               f"({len(groups)} stack(s), {len(singles)} solo)")
+
+
+def _observe_group_shape(lead: _Prepared) -> None:
+    """Feed the shape catalog as the solo node does: a group's program is
+    one the next boot should warm. Never raises."""
+    from ..shape_catalog import observe
+
+    try:
+        name = getattr(getattr(lead.kwargs.get("model"), "preset", None),
+                       "name", None)
+        if name:
+            observe("txt2img", name, lead.spec.height, lead.spec.width,
+                    lead.spec.steps, batch=lead.spec.per_device_batch)
+    except Exception as e:  # noqa: BLE001 — observation never sinks a group
+        debug_log(f"shape catalog: group observation failed: {e}")

@@ -23,9 +23,9 @@ stays the denoise call's tensor on the card; ``CDT_STAGE_WIRE=1`` sends
 it through the checksummed wire format. Each boundary splits the fused
 path on values it has already computed, so every member's image is
 bitwise its fused and its solo run. ``CDT_STAGES=0`` removes the
-subsystem and the fused path runs as before. Not ported: the shape
-catalog's ``observe`` of a group (it comes with the catalog, ROADMAP
-A.3 d).
+subsystem and the fused path runs as before. The denoise pool observes
+each stacked group's program into the shape catalog, as the fused path
+does.
 """
 
 from __future__ import annotations
@@ -434,6 +434,9 @@ class StageManager:
                     _tm.BATCH_SIZE.observe(1)
                 self._solo_member(ticket, p, batch_size=1)
             return
+        from ..frontdoor.microbatch import _observe_group_shape
+
+        _observe_group_shape(lead)
         for p, lat in zip(grp, lats):
             self._put(self.decode, _DecodeWork(ticket, p, lat,
                                                sampler_batch=len(grp)))

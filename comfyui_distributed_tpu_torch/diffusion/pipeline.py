@@ -14,6 +14,13 @@ Stage-split serving (``cluster/stages``) runs the two halves apart:
 ``decode_latents`` finishes them later on another thread, each image
 bitwise ``generate``'s.
 
+``generate_preemptible`` is ``generate`` in resumable K-step segments
+(step-granular preemption, ``cluster/preemption.py``): between segments
+it may stop and return the sampler's whole state as a
+``diffusion/checkpoint.LatentCheckpoint``, and a later call (in this
+process or another) resumes from it; interrupted or not, its image is
+bitwise ``generate``'s.
+
 ``img2img`` encodes a source, noises it at the head of the partial
 ladder (``spec.denoise``) and samples the tail; with a mask it inpaints
 (``inpaint_denoiser``). ``with_control`` returns a clone that runs a
@@ -46,9 +53,11 @@ from ..models.unet import UNet2D
 from ..models.vae import AutoencoderKL
 from ..ops.resize import resize_to
 from ..parallel.rng import seed_generator, step_noise
+from .checkpoint import BACKEND as CHECKPOINT_BACKEND
 from .guidance import cfg_denoiser, eps_denoiser
 from .progress import wrap_denoiser
-from .samplers import Denoiser, NoiseSource, sample
+from .samplers import (Denoiser, NoiseSource, make_program,
+                       run_segment, sample)
 from .schedules import (NoiseSchedule, sigmas_beta, sigmas_exponential,
                         sigmas_karras, sigmas_linear_quadratic, sigmas_normal,
                         sigmas_sgm_uniform, vp_schedule)
@@ -289,6 +298,28 @@ class Txt2ImgPipeline:
         """The sampling half of ``sample_and_decode``: the final ``x0``
         [B,h,w,C] fp32, synchronised; ``timings`` gets ``sample_s`` and
         ``steps``."""
+        denoise, x, sigmas, ladder = self._prepare_sampling(
+            noise, spec, context, uncond_context, y, uncond_y,
+            progress_token, hint, init_latent, inpaint_mask)
+        t0 = time.perf_counter()
+        x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise,
+                    ladder=ladder)
+        self._sync()
+        timings.update(sample_s=time.perf_counter() - t0,
+                       steps=len(sigmas) - 1)
+        return x0
+
+    def _prepare_sampling(self, noise: torch.Tensor, spec: GenerationSpec,
+                          context: torch.Tensor, uncond_context: torch.Tensor,
+                          y: Optional[torch.Tensor],
+                          uncond_y: Optional[torch.Tensor],
+                          progress_token: Optional[int],
+                          hint: Optional[torch.Tensor],
+                          init_latent: Optional[torch.Tensor],
+                          inpaint_mask: Optional[torch.Tensor]) -> tuple:
+        """A run's denoiser (CFG, ControlNet, inpainting, progress), its
+        starting latent, the sigma ladder on the device and its host
+        values: what the sampler is bound to."""
         dev = self.device
         ladder = make_sigma_ladder(spec, self.schedule)
         sigmas = ladder.to(dev)
@@ -320,13 +351,7 @@ class Txt2ImgPipeline:
                                            inpaint_mask)
         if progress_token is not None:
             denoise = wrap_denoiser(denoise, progress_token)
-        t0 = time.perf_counter()
-        x0 = sample(spec.sampler, denoise, x, sigmas, sampler_noise,
-                    ladder=ladder.tolist())
-        self._sync()
-        timings.update(sample_s=time.perf_counter() - t0,
-                       steps=len(sigmas) - 1)
-        return x0
+        return denoise, x, sigmas, ladder.tolist()
 
     def _decode_latent(self, x0: torch.Tensor) -> torch.Tensor:
         """The decode half: VAE decode of ``x0`` and the clip to [0, 1]."""
@@ -344,6 +369,122 @@ class Txt2ImgPipeline:
         return self.sample_and_decode(
             noise, spec, context, uncond_context, y, uncond_y, progress_token,
             hint=hint, sampler_noise=step_noise(seed, self.device))
+
+    # --- step-granular preemption (cluster/preemption.py) ---------------------
+
+    def checkpoint_identity(self, spec: GenerationSpec, seed: int,
+                            conditioning: Optional[tuple] = None) -> dict:
+        """What a checkpoint must match to resume this exact run: the JAX
+        package's fields (one card: ``n_dp`` 1) and ``backend: "torch"``.
+        ``conditioning`` (context, uncond, y, uy) binds it to the
+        prompt's content, so another prompt of equal geometry and seed
+        cannot resume it."""
+        identity = {
+            "sampler": spec.sampler, "scheduler": spec.scheduler,
+            "steps": int(spec.steps), "height": int(spec.height),
+            "width": int(spec.width), "cfg": float(spec.guidance_scale),
+            "per_device_batch": int(spec.per_device_batch),
+            "seed": int(seed), "n_dp": 1, "backend": CHECKPOINT_BACKEND,
+        }
+        if conditioning is not None:
+            identity["conditioning"] = conditioning_digest(*conditioning)
+        return identity
+
+    @torch.no_grad()
+    def generate_preemptible(
+        self, spec: GenerationSpec, seed: int, context: torch.Tensor,
+        uncond_context: torch.Tensor, y: Optional[torch.Tensor] = None,
+        uncond_y: Optional[torch.Tensor] = None, *,
+        segment_steps: Optional[int] = None,
+        should_preempt: Optional[Callable[[], Optional[str]]] = None,
+        resume=None, progress_token: Optional[int] = None,
+    ) -> dict:
+        """``generate`` in resumable segments of ``segment_steps``
+        (``CDT_PREEMPT_SEGMENT_STEPS``) ladder steps on the device.
+
+        Each segment ends with a synchronisation: the boundary is the
+        preemption point. There ``should_preempt()`` (a reason or None) is
+        asked; on a reason the sampler's state is copied to the host and
+        ``{"checkpoint": LatentCheckpoint, "reason", "step"}`` returned,
+        nothing decoded. ``resume`` (a ``LatentCheckpoint``) continues a
+        parked run: its identity, state shapes and step are checked (a
+        mismatch raises ``CheckpointRestoreError``), its state uploaded.
+        At least one segment runs per call, so a preemption storm cannot
+        stop a job from advancing. Completion decodes and returns
+        ``{"images", "step"}``, bitwise ``generate`` for the same inputs,
+        interrupted or not."""
+        from ..utils import constants
+        from .checkpoint import (CheckpointRestoreError, LatentCheckpoint,
+                                 leaves_to_state, state_to_leaves)
+
+        seg_steps = max(1, int(segment_steps
+                               or constants.preempt_segment_steps()))
+        dev = self.device
+        identity = self.checkpoint_identity(
+            spec, seed, conditioning=(context, uncond_context, y, uncond_y))
+        # the initial noise is drawn only for a fresh run (a resumed one
+        # has its latent in the state); its shape is the spec's
+        ds = self.vae.config.downscale
+        shape = (spec.per_device_batch, spec.height // ds, spec.width // ds,
+                 self.latent_channels)
+        noise = (torch.zeros(shape, device=dev) if resume is not None else
+                 self.initial_noise(spec, seed_generator(seed, dev)))
+        timings: dict = {}
+        with pipeline_call(self, "txt2img", lambda: timings):
+            denoise, x, sigmas, ladder = self._prepare_sampling(
+                noise, spec, context, uncond_context, y, uncond_y,
+                progress_token, None, None, None)
+            program = make_program(spec.sampler, denoise, sigmas,
+                                   step_noise(seed, dev), ladder=ladder)
+            init, _, extract = program
+            n = len(ladder) - 1
+            resume_t0 = None
+            if resume is not None:
+                resume.validate_meta(identity)
+                want = tuple(tuple(v.shape) if isinstance(v, torch.Tensor)
+                             else () for v in init(x.to("meta")))
+                got = tuple(tuple(leaf.shape) for leaf in resume.carry)
+                if got != want:
+                    raise CheckpointRestoreError(
+                        f"checkpoint state shapes {got} do not match this "
+                        f"run's {want}")
+                if not 0 <= resume.step <= n:
+                    raise CheckpointRestoreError(
+                        f"checkpoint step {resume.step} outside the ladder "
+                        f"0..{n}")
+                resume_t0 = time.perf_counter()
+                state = leaves_to_state(resume.carry, dev)
+                start = int(resume.step)
+            else:
+                state = init(x)
+                start = 0
+            t0 = time.perf_counter()
+            done_here = 0
+            while start < n:
+                if done_here and should_preempt is not None:
+                    reason = should_preempt()
+                    if reason:
+                        ckpt = LatentCheckpoint(
+                            sampler=spec.sampler, step=start, total_steps=n,
+                            carry=state_to_leaves(state), meta=identity)
+                        return {"checkpoint": ckpt, "reason": reason,
+                                "step": start}
+                length = min(seg_steps, n - start)
+                state = run_segment(program, state, start, length)
+                self._sync()
+                if resume_t0 is not None and telemetry.enabled():
+                    # a restore's upload and its first segment
+                    _tm.RESUME_SECONDS.observe(time.perf_counter() - resume_t0)
+                resume_t0 = None
+                start += length
+                done_here += length
+            t1 = time.perf_counter()
+            images = self._decode_latent(extract(state))
+            self._sync()
+            timings.update(sample_s=t1 - t0, steps=done_here,
+                           decode_s=time.perf_counter() - t1)
+            self.timings = dict(timings)
+        return {"images": images, "step": n}
 
     def generate_microbatch(
         self, spec: GenerationSpec, seeds: "list[int]",
@@ -496,6 +637,24 @@ class Txt2ImgPipeline:
             out = images * (1.0 - mask) + out * mask
         self.timings["encode_s"] = encode_s
         return out
+
+
+def conditioning_digest(*tensors) -> str:
+    """Content digest of a conditioning tuple (shape, dtype and bytes of
+    each tensor; a None slot pinned), the JAX package's
+    ``_conditioning_digest`` over the port's tensors: the identity part
+    that ties a parked latent to its prompt."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is None:
+            h.update(b"|none")
+            continue
+        arr = t.detach().cpu().contiguous().numpy()
+        h.update(f"|{arr.shape}:{arr.dtype}:".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
 
 
 # samplers whose trajectory is a pure function of (noise, conditioning):

@@ -4,8 +4,13 @@ A sampler advances ``x`` down a sigma ladder with a denoiser
 ``denoise(x, sigma) -> x0_hat``. PyTorch runs eagerly, so a sampler is a
 Python loop over the ladder. Each is written as the JAX package writes
 its programs: ``init(x) -> state``, ``step(state, i) -> state`` for
-global ladder index ``i``, ``extract(state) -> x0``, so that a run can
-later be cut at any step boundary.
+global ladder index ``i``, ``extract(state) -> x0``. ``make_program``
+binds one, and ``run_segment`` advances its state over any range of
+ladder indices, so a run cut at step boundaries (preemption, the latent
+checkpoints of ``diffusion/checkpoint.py``) is bitwise the uncut run:
+``sample`` is one segment over the whole ladder. A state is a tuple of
+fp32 tensors and host scalars (a multistep solver's step sizes, flags
+and counters); ``diffusion/checkpoint.py`` round-trips both.
 
 The ladder's values are read to the host once per run (``tolist``): the
 branches (``sigma_next > 0``, the history a multistep solver has) are
@@ -432,24 +437,43 @@ STOCHASTIC = frozenset({"euler_ancestral", "lcm", "dpmpp_sde", "dpmpp_2m_sde",
                         "dpmpp_3m_sde"})
 
 
-def sample(name: str, denoise: Denoiser, x: torch.Tensor,
-           sigmas: torch.Tensor, noise: Optional[NoiseSource] = None,
-           *, ladder: Optional[list] = None, **kwargs) -> torch.Tensor:
-    """Run sampler ``name`` from ``x`` down ``sigmas`` ([n + 1], ending at
-    0). ``noise`` is required by the samplers that draw noise; unknown
-    names raise ``ValueError``, as the JAX ``sample`` does. ``ladder`` is
-    ``sigmas.tolist()`` when the caller still holds the host copy it
-    moved to the card: the samplers' host-side coefficients then need no
-    read-back (a copy and a synchronisation a request)."""
+def make_program(name: str, denoise: Denoiser, sigmas: torch.Tensor,
+                 noise: Optional[NoiseSource] = None, *,
+                 ladder: Optional[list] = None, **kwargs) -> Program:
+    """Sampler ``name`` bound to ``denoise`` over ``sigmas`` ([n + 1],
+    ending at 0): its ``(init, step, extract)``. ``noise`` is required by
+    the samplers that draw noise; unknown names raise ``ValueError``, as
+    the JAX ``make_program`` does. ``ladder`` is ``sigmas.tolist()`` when
+    the caller still holds the host copy it moved to the card: the
+    host-side coefficients then need no read-back (a copy and a
+    synchronisation a request)."""
     try:
         builder = PROGRAMS[name]
     except KeyError:
         raise ValueError(f"unknown sampler {name!r}; have "
                          f"{sorted(PROGRAMS)}") from None
     values = sigmas.tolist() if ladder is None else list(ladder)
-    init, step, extract = builder(denoise, sigmas, values,
-                                  noise or _no_noise, **kwargs)
-    state = init(x)
-    for i in range(sigmas.shape[0] - 1):
+    return builder(denoise, sigmas, values, noise or _no_noise, **kwargs)
+
+
+def run_segment(program: Program, state: State, start: int,
+                length: int) -> State:
+    """Advance ``state`` over the ladder indices ``start`` to
+    ``start + length - 1``: the steps a run from 0 would take there, with
+    the same draws (noise is keyed by the global index)."""
+    step = program[1]
+    for i in range(int(start), int(start) + int(length)):
         state = step(state, i)
-    return extract(state)
+    return state
+
+
+def sample(name: str, denoise: Denoiser, x: torch.Tensor,
+           sigmas: torch.Tensor, noise: Optional[NoiseSource] = None,
+           *, ladder: Optional[list] = None, **kwargs) -> torch.Tensor:
+    """Run sampler ``name`` from ``x`` down ``sigmas`` ([n + 1], ending at
+    0): ``make_program``'s ``init``, one segment over the whole ladder,
+    ``extract``."""
+    program = make_program(name, denoise, sigmas, noise, ladder=ladder,
+                           **kwargs)
+    init, _, extract = program
+    return extract(run_segment(program, init(x), 0, sigmas.shape[0] - 1))

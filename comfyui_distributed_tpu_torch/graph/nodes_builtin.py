@@ -634,11 +634,29 @@ def _pinned(model):
     return pinned_bundle(model)
 
 
+def _observe_shape(pipeline: str, model, height: int, width: int,
+                   steps: int, batch: int = 1, frames: int = 0) -> None:
+    """Feed the shape catalog (``cluster/shape_catalog.py``) from the
+    request path, so that the next boot warms the programs this host
+    serves. Never raises; a set lookup after a key's first sight."""
+    from ..cluster.shape_catalog import observe
+
+    name = getattr(getattr(model, "preset", None), "name", None)
+    if name:
+        observe(pipeline, name, height, width, steps, batch=batch,
+                frames=frames)
+
+
 @register_node("TPUTxt2Img")
 class TPUTxt2Img(NodeDef):
     """The sampler node (name kept for workflow compatibility): noise,
     ``sampler_name`` over the sigma ladder with CFG, VAE decode, on the
-    bundle's device."""
+    bundle's device. On the prompt queue's solo lane the context carries
+    a preemption token (``cluster/preemption.py``): without a ControlNet
+    hint the run then takes ``generate_preemptible``'s resumable
+    segments, resumes the token's checkpoint if it has one, and raises
+    ``PreemptedError`` with the parked state when the token asks it to
+    yield."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING", "negative": "CONDITIONING",
@@ -648,14 +666,15 @@ class TPUTxt2Img(NodeDef):
     OPTIONAL = {
         "sampler_name": "STRING", "scheduler": "STRING", "batch_per_device": "INT",
     }
-    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
+              "preemption": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, negative, seed: int, steps: int,
                 cfg: float, width: int, height: int,
                 sampler_name: str = "euler", scheduler: str = "karras",
                 batch_per_device: int = 1, prompt_id: str = "",
-                progress_tracker=None, **_):
+                progress_tracker=None, preemption=None, **_):
         from ..diffusion.pipeline import GenerationSpec
         from ..diffusion.progress import total_calls
 
@@ -664,12 +683,19 @@ class TPUTxt2Img(NodeDef):
             sampler=sampler_name, scheduler=scheduler,
             guidance_scale=float(cfg), per_device_batch=int(batch_per_device),
         )
+        _observe_shape("txt2img", model, spec.height, spec.width,
+                       spec.steps, batch=spec.per_device_batch)
         adm = model.pipeline.unet.config.adm_in_channels
         device = model.pipeline.device
         y = _adm_from_cond(positive, adm, device) if adm else None
         uy = _adm_from_cond(negative, adm, device) if adm else None
         pipeline, hint = _control_from_cond(model.pipeline, positive,
                                             spec.height, spec.width)
+        if preemption is not None and hint is None:
+            with _pinned(model):
+                return (self._execute_preemptible(
+                    pipeline, spec, int(seed), positive, negative, y, uy,
+                    preemption, progress_tracker, prompt_id),)
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(sampler_name, spec.steps)) as ps:
@@ -678,6 +704,31 @@ class TPUTxt2Img(NodeDef):
                                        progress_token=ps.token, hint=hint)
             ps.complete()
         return (images,)
+
+    def _execute_preemptible(self, pipeline, spec, seed, positive, negative,
+                             y, uy, token, progress_tracker, prompt_id):
+        """The serving lane: resumable segments, a yield at a boundary when
+        the token asks, the token's checkpoint resumed. The identity
+        (the conditioning's digest included) is checked inside
+        ``generate_preemptible``: a mismatch raises
+        ``CheckpointRestoreError`` toward the queue's bounded retries."""
+        from ..diffusion.checkpoint import PreemptedError
+        from ..diffusion.progress import total_calls
+
+        token.resume_consumed = token.resume is not None
+        with _ProgressScope(progress_tracker, prompt_id,
+                            total_calls(spec.sampler, spec.steps)) as ps:
+            result = pipeline.generate_preemptible(
+                spec, seed, positive["context"], negative["context"], y, uy,
+                segment_steps=token.segment_steps,
+                should_preempt=token.should_preempt, resume=token.resume,
+                progress_token=ps.token)
+            if "checkpoint" in result:
+                # the scope's exit freezes the progress where it stopped;
+                # the resumed run registers a new token for the prompt
+                raise PreemptedError(result["checkpoint"], result["reason"])
+            ps.complete()
+        return result["images"]
 
 
 def _i2i_setup(model, image, positive, negative, steps, cfg, denoise,
@@ -797,13 +848,12 @@ class TPUFlowTxt2Img(NodeDef):
         from ..diffusion.pipeline_flow import FlowSpec
         from ..diffusion.progress import total_calls
 
-        if mode != "dp":
-            raise NotImplementedError(
-                f"mode={mode!r} is not yet ported; the port runs mode='dp' "
-                "on one device")
+        _flow_mode(mode)
         spec = FlowSpec(height=int(height), width=int(width), steps=int(steps),
                         shift=_shift(model, shift), guidance=float(guidance),
                         cfg=float(cfg), per_device_batch=int(batch_per_device))
+        _observe_shape("flow_dp", model, spec.height, spec.width, spec.steps,
+                       batch=spec.per_device_batch)
         pipeline = model.pipeline
         pooled = positive.get("pooled")
         if pooled is None:
@@ -828,6 +878,22 @@ class TPUFlowTxt2Img(NodeDef):
                                        **uncond)
             ps.complete()
         return (images,)
+
+
+def _flow_mode(mode: str) -> None:
+    """The JAX flow node's modes other than ``dp`` are refused, naming
+    the ROADMAP item that ports each, as the video nodes' are."""
+    if mode in ("sp", "tp"):
+        raise ValidationError(
+            f"mode={mode!r} (one image over several cards) is not ported "
+            "yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
+    if mode == "offload":
+        raise ValidationError(
+            "mode='offload' (fp8-resident weights) is not ported yet "
+            "(ROADMAP.md, item A.5: offload, 14)", field="mode")
+    if mode != "dp":
+        raise ValidationError(f"unknown mode {mode!r}; the port runs "
+                              "mode='dp' on one device", field="mode")
 
 
 def _video_pooled_default(model, positive) -> torch.Tensor:
@@ -889,6 +955,8 @@ class TPUTxt2Video(NodeDef):
                          width=int(width), steps=int(steps),
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
+        _observe_shape("video_dp", model, spec.height, spec.width,
+                       spec.steps, frames=spec.frames)
         pooled = _video_pooled_default(model, positive)
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
@@ -936,6 +1004,8 @@ class TPUImg2Video(NodeDef):
                          width=int(image.shape[2]), steps=int(steps),
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
+        _observe_shape("video_dp", model, spec.height, spec.width,
+                       spec.steps, frames=spec.frames)
         pooled = _video_pooled_default(model, positive)
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,

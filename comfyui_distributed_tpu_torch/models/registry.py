@@ -728,6 +728,9 @@ class ModelRegistry:
         root = checkpoint_root or constants.checkpoint_root()
         self.checkpoint_root = Path(root) if root else None
         self._cache: dict[str, ModelBundle] = {}
+        # bundles built by ``get`` so far (a warm pass's outcome, and the
+        # proof that a request after it built none)
+        self.builds = 0
         # name → (weight source, bundle): a file's source is its path and
         # mtime, so a replaced file is loaded again
         self._upscalers: dict[str, tuple[tuple, UpscalerBundle]] = {}
@@ -868,6 +871,7 @@ class ModelRegistry:
                 elif ckpt is not None:
                     bundle.load_safetensors_checkpoint(ckpt)
                 self._cache[name] = bundle
+                self.builds += 1
                 log(f"built {name} on {self.device} in "
                     f"{self._synced(t0):.2f} s "
                     f"({ckpt or f'random init, seed {self.seed}'})")

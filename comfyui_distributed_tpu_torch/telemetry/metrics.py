@@ -1,8 +1,9 @@
 """The metric families of the port, declared in one place (the JAX
 package's ``telemetry/metrics.py``, less the families whose
-instrumentation sites are not ported yet: warmup, the fleet cache,
-preemption, the autoscaler, drain and steal, the autotuner and the XLA
-compile cache; ``ROADMAP.md`` names each under its item).
+instrumentation sites are not ported yet: the fleet cache, the
+autoscaler, drain and steal, the autotuner and the XLA compile cache;
+``ROADMAP.md`` names each under its item). The warmup and preemption
+families keep the JAX package's help text byte for byte.
 
 Instrumentation sites import these objects and guard every use with
 ``telemetry.enabled()``. Naming follows Prometheus conventions: ``cdt_``
@@ -202,6 +203,23 @@ COALESCE_WIDTH = REGISTRY.histogram(
     "in flight; N = one execution fanned out to N-1 waiters).",
     buckets=(1, 2, 4, 8, 16, 32, 64))
 
+# --- warmup (diffusion/warmup.py) ---------------------------------------------
+
+WARMUP_PROGRAMS = REGISTRY.counter(
+    "cdt_warmup_programs_total",
+    "AOT warmup outcomes per catalog program.",
+    ("outcome",))   # cache_hit | compiled | error | skipped
+
+WARMUP_SECONDS = REGISTRY.histogram(
+    "cdt_warmup_seconds",
+    "Per-program AOT lower+compile wall-clock during warmup (cache hits "
+    "land in the low buckets; fresh compiles in the high ones).",
+    buckets=COMPILE_BUCKETS)
+
+WARMUP_STATE = REGISTRY.gauge(
+    "cdt_warmup_state",
+    "Worker warmup state (0=cold, 1=warming, 2=ready, -1=error).")
+
 # --- card-memory residency (cluster/residency.py) ---------------------------
 
 RESIDENCY_EVICTIONS = REGISTRY.counter(
@@ -216,6 +234,37 @@ RESIDENT_MODELS = REGISTRY.gauge(
 RESIDENT_BYTES = REGISTRY.gauge(
     "cdt_resident_bytes",
     "Estimated bytes of resident model bundles (planner accounting).")
+
+# --- step-granular preemption (cluster/preemption.py) -----------------------
+
+PREEMPTIONS_TOTAL = REGISTRY.counter(
+    "cdt_preemptions_total",
+    "Jobs preempted at a denoise segment boundary, by reason "
+    "(priority = a higher class was waiting; drain = the worker is "
+    "leaving; manual = operator request). Intentional departure — never "
+    "poison or breaker evidence.",
+    ("reason",))
+
+JOBS_PREEMPTED = REGISTRY.gauge(
+    "cdt_jobs_preempted",
+    "Jobs currently parked mid-denoise (checkpoint held, waiting to "
+    "resume).")
+
+CHECKPOINT_BYTES = REGISTRY.gauge(
+    "cdt_checkpoint_bytes",
+    "Bytes of latent checkpoints held, by tier (memory / persisted).",
+    ("tier",))
+
+RESUME_SECONDS = REGISTRY.histogram(
+    "cdt_resume_seconds",
+    "Restore-to-first-segment-complete wall-clock when a preempted job "
+    "resumes from its checkpoint (device upload + one segment program).")
+
+CHECKPOINT_DEAD_LETTERS = REGISTRY.counter(
+    "cdt_checkpoint_dead_letters_total",
+    "Checkpoints dead-lettered after exhausting the resume-retry bound "
+    "(CDT_PREEMPT_RESUME_RETRIES) — the job restarts from scratch "
+    "instead of looping on a checkpoint that cannot restore.")
 
 # --- stage-split serving (cluster/stages) -----------------------------------
 

@@ -430,6 +430,86 @@ def hbm_budget_gb() -> float:
     return _read("CDT_HBM_BUDGET_GB", 0.0, float)
 
 
+# --- step-granular preemption (cluster/preemption.py) ------------------------------
+
+
+def preempt() -> bool:
+    """Step-granular preemption: the serving sampler runs in resumable
+    segments, and higher-priority work preempts the running job at the
+    next segment boundary (0 = one uninterrupted run, no preemption)."""
+    return _read("CDT_PREEMPT", True, _bool)
+
+
+def preempt_segment_steps() -> int:
+    """Denoise steps per resumable segment: the preemption granularity."""
+    return _read("CDT_PREEMPT_SEGMENT_STEPS", 8, int)
+
+
+def preempt_max() -> int:
+    """Preemptions of one job past which it runs to completion (the
+    starvation guard)."""
+    return _read("CDT_PREEMPT_MAX", 4, int)
+
+
+def preempt_resume_retries() -> int:
+    """Restore attempts before a checkpoint is dead-lettered and its job
+    restarts from scratch."""
+    return _read("CDT_PREEMPT_RESUME_RETRIES", 2, int)
+
+
+def preempt_sweep_s() -> float:
+    """Cadence of the queued-deadline sweep in seconds (0 = off): a job
+    whose deadline passes while queued goes ``expired`` within one sweep."""
+    return _read("CDT_PREEMPT_SWEEP_S", 0.5, float)
+
+
+def ckpt_mem_bytes() -> int:
+    """In-memory latent-checkpoint store cap (bytes, LRU; the entry being
+    resumed is pinned)."""
+    return _read("CDT_CKPT_MEM_BYTES", 512 * 1024 * 1024, int)
+
+
+def ckpt_dir() -> Optional[str]:
+    """Persisted checkpoint tier directory (checksummed sidecar files;
+    unset or empty: memory only)."""
+    return _read("CDT_CKPT_DIR", None, str)
+
+
+# --- the shape catalog and warmup (cluster/shape_catalog.py, diffusion/warmup.py)
+
+
+def shape_catalog() -> Optional[str]:
+    """Shape-catalog JSON path (default ``CDT_OUTPUT_DIR/
+    shape_catalog_torch.json``)."""
+    return _read("CDT_SHAPE_CATALOG", None, str)
+
+
+def shape_observe() -> bool:
+    """Record the request path's program shapes into the catalog."""
+    return _read("CDT_SHAPE_OBSERVE", True, _bool)
+
+
+def shape_catalog_max() -> int:
+    """Cap on the catalog's size under runtime observation (each entry is
+    warmed on every future boot); empty or 0 = uncapped."""
+    raw = os.environ.get("CDT_SHAPE_CATALOG_MAX")
+    if raw is not None and not raw.strip():
+        return 0
+    return _read("CDT_SHAPE_CATALOG_MAX", 128, int)
+
+
+def warmup() -> bool:
+    """Warm the shape catalog's programs when the controller boots (the
+    health probe reports cold, warming, ready or error)."""
+    return _read("CDT_WARMUP", False, _bool)
+
+
+def warmup_models() -> str:
+    """Comma list of the models a warm pass may build ('all' or '*': every
+    model of the catalog; empty: the loaded and the tiny presets)."""
+    return _read("CDT_WARMUP_MODELS", "", str)
+
+
 # --- tiles ---------------------------------------------------------------------
 
 

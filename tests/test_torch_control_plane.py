@@ -161,6 +161,8 @@ VALID_PAYLOADS = [
     {"prompt": {"1": {}}, "tenant": "team", "priority": "batch",
      "deadline_ms": 5, "cache": "bypass"},
     {"prompt": {"1": {}}, "cache": "near", "enabled_worker_ids": []},
+    {"prompt": {"1": {}}, "checkpoint_id": "ck_0008_ab12",
+     "checkpoint": {"data": "", "sha256": "x", "checkpoint_id": "c"}},
 ]
 INVALID_PAYLOADS = [
     [], "prompt", {}, {"prompt": {}}, {"prompt": []},
@@ -175,6 +177,12 @@ INVALID_PAYLOADS = [
     {"prompt": {"1": {}}, "deadline_ms": True},
     {"prompt": {"1": {}}, "deadline_ms": 1.5},
     {"prompt": {"1": {}}, "cache": "sometimes"},
+    {"prompt": {"1": {}}, "checkpoint_id": "../up"},
+    {"prompt": {"1": {}}, "checkpoint_id": ""},
+    {"prompt": {"1": {}}, "checkpoint_id": 7},
+    {"prompt": {"1": {}}, "checkpoint": {"data": 1, "sha256": "x"}},
+    {"prompt": {"1": {}}, "checkpoint": {"data": "", "sha256": ""}},
+    {"prompt": {"1": {}}, "checkpoint": "inline"},
 ]
 
 
@@ -184,7 +192,8 @@ def test_queue_payload_fields_match(payload):
     ref = jqueue.parse_queue_request_payload(payload)
     for field in dataclasses.fields(ours):
         assert getattr(ours, field.name) == getattr(ref, field.name), field.name
-    assert {f.name for f in dataclasses.fields(ours)} < \
+    # every field of the JAX payload, the resume fields included
+    assert {f.name for f in dataclasses.fields(ours)} == \
         {f.name for f in dataclasses.fields(ref)}
 
 
@@ -200,10 +209,25 @@ def test_queue_payload_rejections_match(payload):
 @pytest.mark.parametrize("field,value", [
     ("checkpoint_id", "ckpt-1"), ("checkpoint", {"data": "", "sha256": "x"})])
 def test_queue_payload_rejects_resume_naming_preemption(field, value):
+    """The resume fields parse as the JAX package parses them; a resume
+    against a controller without preemption is refused, naming it, as
+    JAX's ``resolve_resume`` refuses it."""
+    from comfyui_distributed_tpu.cluster.preemption import \
+        resolve_resume as jresolve
+    from comfyui_distributed_tpu_torch.cluster.preemption import \
+        resolve_resume as tresolve
+
     payload = {"prompt": {"1": {}}, field: value}
-    jqueue.parse_queue_request_payload(payload)      # the JAX package resumes
-    with pytest.raises(texc.ValidationError, match="preemption is not ported"):
-        tqueue.parse_queue_request_payload(payload)
+    ref = jqueue.parse_queue_request_payload(payload)
+    ours = tqueue.parse_queue_request_payload(payload)
+    assert getattr(ours, field) == getattr(ref, field) == value
+    args = (ours.checkpoint_id, ours.checkpoint)
+    with pytest.raises(jexc.ValidationError, match="preemption disabled"):
+        jresolve(None, *args)
+    with pytest.raises(texc.ValidationError,
+                       match="preemption disabled") as err:
+        tresolve(None, *args)
+    assert err.value.field == "checkpoint_id"
 
 
 # --- CDTF frames ---------------------------------------------------------------

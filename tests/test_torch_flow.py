@@ -199,11 +199,29 @@ def test_flux_workflow_runs_through_port_executor(tmp_path):
     assert not torch.equal(ex.execute(prompt)["5"][0], images)
 
 
-@pytest.mark.parametrize("mode", ["sp", "offload", "tp"])
-def test_flux_workflow_rejects_unported_modes(tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("mode,item", [("sp", "A.6"), ("offload", "A.5"),
+                                       ("tp", "A.6")])
+def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
+    """Each mode other than ``dp`` is refused as a ``ValidationError`` on
+    ``mode`` that names the ROADMAP item porting it, as the video nodes'
+    refusals do (a bare ``NotImplementedError`` named none)."""
+    from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
+
+    with pytest.raises(ValidationError, match="not ported yet") as err:
         _executor(tmp_path).execute(_workflow(width=16, height=16, steps=1,
                                               mode=mode))
+    assert err.value.field == "mode" and f"item {item}" in str(err.value)
+
+
+def test_flow_node_refuses_other_modes_before_touching_the_model():
+    """The refusal needs no bundle: it comes before the spec is built."""
+    from comfyui_distributed_tpu_torch.graph.nodes_builtin import TPUFlowTxt2Img
+    from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
+
+    for mode in ("sp", "tp", "offload", "ring"):
+        with pytest.raises(ValidationError) as err:
+            TPUFlowTxt2Img().execute(None, {}, 0, 1, 16, 16, mode=mode)
+        assert err.value.field == "mode"
 
 
 def test_flow_node_defaults_pooled_to_zeros():

@@ -608,9 +608,11 @@ def test_a_graph_that_cannot_batch_is_orchestrated(served):
             res = await post(app, "/distributed/queue",
                              {"prompt": prompt, "priority": "batch",
                               "tenant": "t1"})
-            # queued behind it with a deadline of 1 ms: expired, not run
+            # queued behind it (its class: the queue orders by priority)
+            # with a deadline of 1 ms: expired, not run
             late = await post(app, "/distributed/queue",
-                              {"prompt": prompt, "deadline_ms": 1})
+                              {"prompt": prompt, "deadline_ms": 1,
+                               "priority": "batch"})
             return (res, await final(c, res.payload["prompt_id"]),
                     await final(c, late.payload["prompt_id"]),
                     (await get(app, "/distributed/frontdoor")).payload)

@@ -231,9 +231,11 @@ def test_error_answers(cluster, monkeypatch):
     status, body = call(port, "/distributed/queue", raw=b"{}",
                         headers={"Content-Type": "text/plain"})
     assert status == 415
+    # a resume of a checkpoint this controller does not hold is refused
+    # (preemption, on by default, holds none), never run from scratch
     status, body = call(port, "/distributed/queue",
                         {"prompt": tiny_prompt(), "checkpoint_id": "c1"})
-    assert status == 400 and "preemption" in body["error"]
+    assert status == 400 and "not parked" in body["error"]
     status, body = call(port, "/distributed/job_complete",
                         {"job_id": "j", "worker_id": "w", "is_last": True,
                          "image": ""})
