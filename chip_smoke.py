@@ -47,9 +47,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    and timed beside the random-init FLUX shape (4173). Then WAN's K3 rows
    at D 128 (batch 2, 40 heads): self-attention at 14 040 tokens (the
    streamed core), cross-attention over 77 hash tokens (the short-key
-   kernel at D 128) and over UMT5's 512 (the streamed core, Nq ≠ Nk), and
-   video-mmdit's joint attention at 7877 tokens, the plain version a batch
-   row and 8 heads at a time. Then SD3's joint attention at D 64 (batch
+   kernel at D 128) and over UMT5's 512 (the streamed core, Nq ≠ Nk), the
+   same two at batch 1 (phase 38's offloaded WAN: cond and uncond as two
+   forwards), and video-mmdit's joint attention at 7877 tokens, the plain
+   version a batch row and 8 heads at a time. Then SD3's joint attention at D 64 (batch
    2): sd3-medium's on the packed layout (24 heads, H·D 1536) at 4173
    tokens and at 4685 (T5's context from files), sd35-large's on the
    one-head layout (38 heads, H·D 2432) at 4173, and at 4685 (a shape no
@@ -138,8 +139,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    the 16-bit codec writes them, and no kernel launches.
 13b. video — ``workflows/video-upscale.json`` with node 4 reading
    ``input.avi`` (whether ``import cv2`` works is printed; where it does,
-   the workflow also runs on an ``input.mp4`` of the first 8 frames
-   written through OpenCV, 8 K1 and 1440 K3):
+   the workflow also runs on an ``input.mp4`` of the first 2 frames
+   written through OpenCV, 8 K1 and 360 K3; 8 frames until PR 20):
    ``realesrgan-x2`` to 1920×1080, USDU at ``upscale_by`` 1.0 with 768²
    tiles and padding 24 (6 crops of 816² a frame, latents 102², 4 a
    chunk: 16 chunks), res_2m on beta for 3 of 12 steps (denoise 0.25),
@@ -223,7 +224,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``prompt.execute`` under the dispatch span), ``memory_stats``,
    ``step_times``, the worker's log, ``tunnel/status`` and
    ``tunnel/start`` (503: no binary, no download); one direct request
-   with telemetry on and one off, each under ``torch.profiler`` (CUDA
+   (at 8 of its 30 steps since PR 20: 568 K1, 560 K2) with telemetry on
+   and one off, each under ``torch.profiler`` (CUDA
    activity): the same count of synchronising calls
    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``, device-to-host
    copies); ``POST /distributed/stop_worker``: the monitor and the worker
@@ -326,11 +328,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 16. checkpoint sdxl: run from the file — the source released, a fresh
    ``ModelRegistry`` with ``checkpoint_root`` converts the file on its
    first ``get("sdxl")`` (seconds and peak memory printed); every
-   converted parameter bitwise equal to the source's; the workflow
-   unchanged at seeds 7, 8, 7: the seed-7 image bitwise equal to the
-   source bundle's, the repeat equal, seed 8 different, tokenizer mode
-   ``bpe``, exactly 2100 K1 and 2100 K2 launches a request (the CLIP stack
-   launches none).
+   converted parameter bitwise equal to the source's; the workflow at 8
+   of its 30 steps (a depth cut for the time limit since PR 20; the
+   source's request too) at seeds 7, 8, 7: the seed-7 image bitwise equal
+   to the source bundle's, the repeat equal, seed 8 different, tokenizer
+   mode ``bpe``, exactly 560 K1 and 560 K2 launches a request (the CLIP
+   stack launches none).
 17. LoRA — a synthetic kohya SDXL LoRA (rank 8, alpha 8) over every UNet
    attention projection, ``ff`` and ``proj_in``/``proj_out`` and every
    CLIP-L/G attention and MLP Linear (``lora_te1_``/``lora_te2_``), under
@@ -338,8 +341,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``CLIPTextEncode`` → ``TPUTxt2Img`` at 1024²: 722 UNet and 264
    text-encoder tensors merged, none unmatched; the image differs from
    the base, its repeat is equal, strength 0/0 gives the base image, the
-   base bundle's next image is the base image, 2100/2100 launches a
-   request; one merged UNet forward at a 512² latent within
+   base bundle's next image is the base image, 560/560 launches a request
+   (8 steps); one merged UNet forward at a 512² latent within
    5e-2·max|plain| of the plain attention versions.
 18. checkpoint sd15 — an ``sd15`` source bundle in the published layout
    (seed 11, CLIP-L under ``cond_stage_model.transformer.``, and the
@@ -387,15 +390,19 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    memory, ``state.pt`` bytes; the manifest's depths checked), the
    ``state.pt`` restored by a fresh ``ModelRegistry`` (every parameter's
    digest the source's, tokenization ``real``) and the workflow run once
-   from it (6 × 28 = 168 K3).
+   from it (6 × 28 = 168 K3); then the same ``state.pt`` built by an
+   offload registry (phase 38's rule): the transformer allocated and
+   loaded in host memory, the card's peak during the build within 256
+   MiB of what the bundle keeps there, its digests the source's.
 24. flux files: run — the full-depth files loaded into a ``flux``
    bundle by the calls ``convert`` makes (seconds, peak memory): every
    parameter's digest the source's, tokenization ``real``, the context,
    the pooled vector and the velocity bitwise the source's;
-   ``workflows/flux-txt2img.json`` unchanged at seeds 1234, 1235, 1234:
-   images [1,1024,1024,3], finite, in [0,1], the repeat bitwise equal,
-   the seeds different, exactly 0 K1 and 57 × 28 = 1596 K3 launches a
-   request (at [24, 4608, 128]); one DiT forward at 512² with the T5
+   ``workflows/flux-txt2img.json`` at 4 of its 28 steps (a depth cut for
+   the time limit since PR 20) at seeds 1234, 1235, 1234: images
+   [1,1024,1024,3], finite, in [0,1], the repeat bitwise equal, the seeds
+   different, exactly 0 K1 and 57 × 4 = 228 K3 launches a request (at
+   [24, 4608, 128]); one DiT forward at 512² with the T5
    context (1024 + 512 tokens) through the kernels and on the plain
    version within 5e-2·max|plain|.
 25. flux serve — the direct FLUX bundle is dropped (the card's
@@ -406,14 +413,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``dispatch@1-9:http500`` (only the first dispatch call, the
    WebSocket connect, is left unharmed, so an HTTP fallback would fail).
    A ``POST /distributed/queue`` without the token must answer 401; with
-   it, seed 1234, twice (a fresh plan each time), polled on
+   it, seed 1234 at 8 of the workflow's 28 steps (a depth cut for the
+   time limit since PR 20), twice (a fresh plan each time), polled on
    ``/distributed/progress/{id}`` every 50 ms: the step count rises
-   monotonically to 28 of 28, one
+   monotonically to 8 of 8, one
    ``/distributed/preview/{id}`` PNG decodes to 128×128×3, the plan saw
    exactly one dispatch call and injected nothing, the master's PNG is
-   bitwise equal to the direct seed-1234 image and the worker's to the
-   direct seed-1235 image, and the master ran exactly 1596 K3 and 4 K1
-   launches. Then the workflow is queued on the master alone
+   bitwise equal to the direct 8-step seed-1234 image (phase 20-21 runs
+   seeds 1234 and 1235 at 8 steps for this) and the worker's to the
+   seed-1235 one, and the master ran exactly 456 K3 and 4 K1 launches.
+   Then the workflow is queued on the master alone
    (``POST /prompt``) and ``POST /distributed/interrupt`` is sent while
    it samples: history must say ``interrupted`` and no PNG be written.
    Prints the served seconds beside the direct ones, the master's
@@ -422,10 +431,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 26. wan t2v — ``workflows/wan-t2v.json`` on the ``wan`` preset (WAN 14B
    at full width and depth, 14.3 B parameters, the WAN 3D causal VAE;
-   random init from seed 0), its 20 steps cut to 4 for the time limit: 33
-   frames of 832×480, CFG 5, shift 3, ``dp``, through ``GraphExecutor``:
-   exactly 4 K1, 0 K2 and 320 K3 launches (160 on the streamed core at
-   14 040 tokens, 160 on the short-key kernel over 77 keys), the collected
+   random init from seed 0), its 20 steps cut to 2 for the time limit (4
+   from PR 18, 2 since PR 20): 33 frames of 832×480, CFG 5, shift 3,
+   ``dp``, through ``GraphExecutor``: exactly 4 K1, 0 K2 and 160 K3
+   launches (80 on the streamed core at 14 040 tokens, 80 on the
+   short-key kernel over 77 keys), the collected
    batch [33, 480, 832, 3], finite, in [0, 1], ``wan_v0_00000.mp4`` and
    ``wan_v1_00000.mp4`` read back as the divider's 17 and 16 frames at 16
    fps; the sampling, tiled decode and request seconds and the peak
@@ -435,7 +445,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    frames (3 latent frames, 4680 tokens; cut from 33 so that the plain
    attention fits), through the kernels and with both attention sites on
    the plain version: within 5e-2·max|plain|.
-28. wan served — the t2v workflow at 4 steps through ``POST
+28. wan served — the t2v workflow at 2 steps through ``POST
    /distributed/queue`` to a master in this process (phase 26's bundle)
    and a ``remote`` worker subprocess that builds its own WAN 14B (two
    processes, 57 GB of weights on the card): the collected batch of 66
@@ -443,15 +453,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    the worker's the direct seed-100 video (8-bit frames), both mp4s 33
    frames; the master's launches 4 K1 + 320 K3, the worker's kernels
    counted from a ``torch.profiler`` trace of its request (its
-   ``/distributed/profile/start|stop``): 320 K3 and 4 K1.
+   ``/distributed/profile/start|stop``): 160 K3 and 4 K1.
 29. wan i2v — ``workflows/wan-i2v.json`` on ``wan-i2v`` (in_channels 36),
-   its 20 steps cut to 4 as in phase 26, with a seeded 832×480
+   its 20 steps cut to 2 as in phase 26, with a seeded 832×480
    ``start_frame.png`` the script writes: the same launch counts as phase
    26, 33 frames of 480×832, the start frame's VAE encode seconds.
 30. wan 2.2 — the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts, 57.2
-   GB) at 4 steps, twice: each expert's model calls equal the split (2
-   high-noise steps of 4 at shift 3), 320 K3 a request, the repeat bitwise
-   equal, the peak memory.
+   GB) at 2 steps, twice: each expert's model calls equal the split (1
+   high-noise step of 2 at shift 3), 160 K3 a request, the repeat bitwise
+   equal, the peak memory; its video, seconds and peak are kept for phase
+   38.
 31. wan files — synthetic files at full width cut in depth: a WAN 14B t2v
    file of 2 of 40 blocks under ``model.diffusion_model.``, a
    ``.high``/``.low`` pair of 2 blocks, UMT5-XXL of 2 of 24 layers in the
@@ -460,7 +471,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    wan-2.2-t2v --checkpoint … --checkpoint-low …`` (the CLI's ``main``,
    in this process), ``state.pt`` and a restore: every parameter's digest
    its source's; one 2-step request of the converted ``wan`` bundle with
-   UMT5's 512-token context: 0 K1 and 8 K3, all on the streamed core.
+   UMT5's 512-token context: 0 K1 and 8 K3, all on the streamed core;
+   the ``wan-2.2-t2v`` pair built by an offload registry as in 23: both
+   experts in host memory, the card's peak within 256 MiB of what the
+   bundle keeps, their digests the sources'.
 32. video-mmdit — at full width (hidden 5120, 40 heads of 128) cut to 1
    double + 1 single block, the t2v graph at 5 frames of 832×480 (the
    image VAE per frame: 7800 + 77 tokens) and 2 steps: 4 K1 and 4 K3.
@@ -468,19 +482,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 33. sd3-medium — the SD3 graph (no workflow file ships it):
    ``CheckpointLoader`` → positive and negative ``CLIPTextEncode`` →
    ``ModelSamplingSD3`` (shift 3.0) → ``TPUFlowTxt2Img`` (``dp``, 1024²,
-   28 euler steps, CFG 4.5 with the negative wired: cond and uncond in one
+   8 of its 28 euler steps in every SD3 request of the run (a depth cut
+   for the time limit since PR 20), CFG 4.5 with the negative wired: cond
+   and uncond in one
    DiT call of batch 2 a step) → ``DistributedCollector`` → ``SaveImage``
    on ``sd3-medium`` at full width and depth (2.0 B DiT, random init from
    seed 0, the hash encoder at 4096/2048) at seeds 31, 32, 31: images
    [1,1024,1024,3], finite, in [0,1], PNGs written, the repeat bitwise,
-   the seeds different, exactly 8 K1 and 24 × 28 = 672 K2 launches a
+   the seeds different, exactly 8 K1 and 24 × 8 = 192 K2 launches a
    request, all K2 on the streamed core at [2, 4173, 24·64], and no call
    of ``scaled_dot_product_attention``.
 34. sd3-medium reference — one DiT velocity at the path's shape (batch
    2, 4173 tokens, full depth) through the kernels and with its attention
    sites on the plain version: within 5e-2·max|plain|.
 35. sd35-large — the same graph on ``sd35-large`` (8.1 B, RMS qk-norm)
-   at seed 31 twice: exactly 8 K1 and 38 × 28 = 1064 K3 at [2·38, 4173,
+   at seed 31 twice: exactly 8 K1 and 38 × 8 = 304 K3 at [2·38, 4173,
    64] a request, the repeat bitwise; then its reference velocity as in
    phase 34 (K3's sites on the plain version).
 36. sd3 served — with the content cache's defaults, master and worker:
@@ -488,7 +504,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    master in this process (phase 33's bundle) and a ``remote`` worker
    subprocess that builds its own: the master's PNG bitwise the direct
    seed-31 image, the worker's the seed-32 one; the master's launches 8
-   K1 + 672 K2, the worker's kernels counted from a ``torch.profiler``
+   K1 + 192 K2, the worker's kernels counted from a ``torch.profiler``
    trace of its request; each host's conditioning tier 2 misses, and the
    master's 2 entries persisted.
 37. sd3 files — phase 33's DiT rounded through BF16 and made pre-only as
@@ -503,7 +519,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    as JAX's): every parameter's digest the source's; the context [1,
    589, 4096], pooled vector [1, 2048] and a velocity at 4685 tokens
    bitwise the source's; three requests from it at seed 31, each exactly
-   0 K1 and 672 K2 at [2, 4685, 24·64], through ``CLIPTextEncode``'s
+   0 K1 and 192 K2 at [2, 4685, 24·64], through ``CLIPTextEncode``'s
    conditioning tier (the ``content_cache`` a controller gives its
    executor, over a persisted directory): the first encodes both prompts
    on the three towers (2 misses, both entries persisted), the second
@@ -512,9 +528,36 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    back to the card); the second's and third's images and PNGs bitwise
    the first's.
 
+38. offload (ROADMAP A.5) — after every earlier bundle is dropped, the
+   host's memory printed: a ``ModelRegistry(offload=True)`` builds
+   ``flux`` for offload (the glue drawn on the card, each block drawn,
+   its generator state kept, dropped); its ``double_0`` drawn again and
+   quantised on the card and on the host: the fp8 bytes, the scales and
+   the native leaves equal. ``workflows/flux-txt2img.json`` with ``mode:
+   "offload"`` at seed 1234 (28 steps): the default 13 GiB plan fully
+   resident with 11e9 to 13 GiB resident, exactly 4 K1 and 1596 K3, the
+   peak at least 10 GB under phase 20-21's, and against phase 20-21's
+   bf16 image PSNR > 25 dB and max |diff| < 0.25 (JAX's fp8 trajectory
+   gates); then 4 steps on the fully resident executor and on one built
+   at half its budget (blocks streamed from pinned host memory): 228 K3,
+   bitwise equal; the bytes streamed a step and s/step. The FLUX bundle
+   dropped, ``wan-2.2-t2v`` built for offload, its ``block_0`` quantised
+   on both, phase 30's request with ``mode: "offload"`` at seeds 99 and
+   100: 4 K1 and 320 K3 (twice phase 30's: cond and uncond as two
+   forwards), the card's allocated memory after the high expert's
+   release within 1 GiB of its level before the high expert was placed,
+   the peak at most 24 GiB, seed 99's video PSNR > 25 dB against phase
+   30's. Then the shipped graph (``dp``) served by a master in this
+   process (that bundle) and a ``remote`` worker subprocess with
+   ``CDT_OFFLOAD=1`` that builds its own: each video bitwise the direct
+   offloaded one at its seed (8-bit frames), the master's launches and
+   the worker's profiled kernels exact, the two peaks together under 80
+   GB, each process's host RSS printed.
+
 Each phase prints its seconds and the card's peak allocated memory; every
 bundle is dropped before the WAN phases, each WAN bundle before the
-next is built, and every WAN bundle before the SD3 phases.
+next is built, every WAN bundle before the SD3 phases, and every SD3
+bundle before phase 38.
 
 The launch counters are set to 0 just before each path and read just
 after it. The second-to-last stdout line is the kernel table as JSON; the
@@ -759,15 +802,16 @@ def k3_counts(calls: int, shapes: list, text_prompts: int = 2) -> tuple:
 # (the short-key kernel at D 128), one forward a step; the hash encoder
 # adds 4 K1 launches (one prompt).
 # The workflows' 20 steps (WAN_STEPS, the kernel table's per-request
-# launches) run as WAN_SERVED_STEPS in phases 26 and 29: a depth cut for the
-# run's time limit (PERF.md §4).
+# launches) run as WAN_SERVED_STEPS in every WAN request: a depth cut for
+# the run's time limit (4 since PR 18, 2 since PR 20 made room for phase
+# 38; PERF.md §4). At 2 steps and shift 3 the two-expert split is 1 + 1.
 WAN_STEPS, WAN_FRAMES, WAN_HW = 20, 33, (480, 832)
 WAN_LAYERS, WAN_HEADS = 40, 40
 WAN_TOKENS = 9 * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)              # 14040
 WAN_FORWARD_SHAPES = [((2, WAN_TOKENS, WAN_TOKENS, WAN_HEADS, 128), WAN_LAYERS),
                       ((2, WAN_TOKENS, 77, WAN_HEADS, 128), WAN_LAYERS)]
 WAN_SHAPES = [(s, WAN_STEPS * n) for s, n in WAN_FORWARD_SHAPES]   # 800 + 800
-WAN_SERVED_STEPS = 4         # every WAN request this run makes
+WAN_SERVED_STEPS = 2         # every WAN request this run makes
 WAN_SERVED = k3_counts(WAN_SERVED_STEPS, WAN_FORWARD_SHAPES, text_prompts=1)
 # phase 31: WAN and UMT5 files cut to 2 blocks and 2 layers; a request of
 # 2 steps from them: the cross-attention over UMT5's 512 tokens takes the
@@ -789,8 +833,16 @@ MMDIT_TOKENS = 77 + MMDIT_FRAMES * (WAN_HW[0] // 16) * (WAN_HW[1] // 16)
 MMDIT_FORWARD_SHAPES = [((2, MMDIT_TOKENS, MMDIT_TOKENS, WAN_HEADS, 128),
                          sum(MMDIT_CUT))]
 MMDIT_COUNTS = k3_counts(MMDIT_STEPS, MMDIT_FORWARD_SHAPES, text_prompts=1)
+# phase 38: WAN offloaded runs CFG as two batch-1 forwards a step (cond,
+# then uncond): the same 40 + 40 launches a forward at batch 1, twice a step
+WAN_OFFLOAD_FORWARD_SHAPES = [((1, *s[1:]), n) for s, n in WAN_FORWARD_SHAPES]
+WAN_OFFLOAD_SHAPES = [(s, 2 * WAN_STEPS * n)
+                      for s, n in WAN_OFFLOAD_FORWARD_SHAPES]   # 1600 + 1600
+WAN_OFFLOAD = k3_counts(2 * WAN_SERVED_STEPS, WAN_OFFLOAD_FORWARD_SHAPES,
+                        text_prompts=1)
 # the kernel phase's WAN rows: (path, shape, launches per request)
 WAN_K3_ROWS = ([("wan", s, n) for s, n in WAN_SHAPES]
+               + [("wan_offload", s, n) for s, n in WAN_OFFLOAD_SHAPES]
                + [("wan_file", WAN_UMT5_SHAPE, WAN_STEPS * WAN_LAYERS),
                   ("video_mmdit", MMDIT_FORWARD_SHAPES[0][0],
                    MMDIT_STEPS * sum(MMDIT_CUT))])
@@ -811,15 +863,27 @@ SD3_K2_SHAPES = [((2, SD3_TOKENS, SD3_TOKENS, 24, 64), SD3_STEPS * 24)]
 SD35_K3_SHAPES = [((2, SD3_TOKENS, SD3_TOKENS, 38, 64), SD3_STEPS * 38)]
 SD3_FILE_SHAPES = [((2, SD3_FILE_TOKENS, SD3_FILE_TOKENS, 24, 64),
                     SD3_STEPS * 24)]
-SD3_REQUEST = ({"fused_qkv_attention": 8, "flash_attention_packed": 672,
+# every SD3 request of the run takes SD3_RUN_STEPS of the graph's 28 (a
+# depth cut for the run's time limit since PR 20; PERF.md §4); the shapes
+# above count a 28-step request for the kernel table
+SD3_RUN_STEPS = 8
+
+
+def sd3_run(shapes: list) -> list:
+    return [(s, n * SD3_RUN_STEPS // SD3_STEPS) for s, n in shapes]
+
+
+SD3_REQUEST = ({"fused_qkv_attention": 8,
+                "flash_attention_packed": 24 * SD3_RUN_STEPS,      # 192
                 "flash_attention_bh": 0},
-               cuda_counts([(TEXT_SHAPE, 8)], SD3_K2_SHAPES))
+               cuda_counts([(TEXT_SHAPE, 8)], sd3_run(SD3_K2_SHAPES)))
 SD35_REQUEST = ({"fused_qkv_attention": 8, "flash_attention_packed": 0,
-                 "flash_attention_bh": 1064},
-                cuda_counts([(TEXT_SHAPE, 8)], SD35_K3_SHAPES))
-SD3_FILE_REQUEST = ({"fused_qkv_attention": 0, "flash_attention_packed": 672,
+                 "flash_attention_bh": 38 * SD3_RUN_STEPS},        # 304
+                cuda_counts([(TEXT_SHAPE, 8)], sd3_run(SD35_K3_SHAPES)))
+SD3_FILE_REQUEST = ({"fused_qkv_attention": 0,
+                     "flash_attention_packed": 24 * SD3_RUN_STEPS,
                      "flash_attention_bh": 0},
-                    cuda_counts([], SD3_FILE_SHAPES))
+                    cuda_counts([], sd3_run(SD3_FILE_SHAPES)))
 # the kernel phase's SD3 rows: (path, layout, shape, launches per request);
 # no phase drives sd35-large from its files, so its row times the shape
 # and counts no launch (a request from files would make 38 × 28)
@@ -1310,8 +1374,8 @@ def kernel_table(rows: list[dict], errs: dict,
     sd15_file_request = [(shape, SD15_STEPS * n)
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
-              "flux_file", "wan", "wan_file", "video_mmdit", "sd3", "sd3_file",
-              "sd35", "sd35_file")
+              "flux_file", "wan", "wan_offload", "wan_file", "video_mmdit",
+              "sd3", "sd3_file", "sd35", "sd35_file")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1354,6 +1418,7 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_video_request", at(name, VIDEO_SHAPES)),
                 ("per_flux_file_request", at(name, FILE_BH_SHAPES)),
                 ("per_wan_request", at(name, WAN_SHAPES)),
+                ("per_wan_offload_request", at(name, WAN_OFFLOAD_SHAPES)),
                 ("per_sd3_request", at(name, SD3_K2_SHAPES)),
                 ("per_sd3_file_request", at(name, SD3_FILE_SHAPES)),
                 ("per_sd35_request", at(name, SD35_K3_SHAPES)))
@@ -2202,6 +2267,7 @@ VIDEO_WORKFLOW = "video-upscale.json"
 AUDIO_SECONDS, AUDIO_RATE, AUDIO_CHANNELS = 60, 48000, 2
 VIDEO_SEED = 7                          # the workflow's USDU seed
 VIDEO_SERVED_FRAMES = 8                 # frame_load_cap of the served run
+VIDEO_MP4_FRAMES = 2                    # the mp4 run's (8 until PR 20)
 CHUNK_WAVS = ("chunk_a_00000.wav", "chunk_b_00000.wav")
 VIDEO_AVI = "video_up_00000.avi"
 
@@ -2484,13 +2550,13 @@ def video_phase(torch, fa, registry, input_dir: Path, encode_540p_s: float
 
 def video_mp4_phase(torch, fa, registry, input_dir: Path) -> None:
     """Where OpenCV imports: the workflow unchanged on ``input.mp4``,
-    written through OpenCV from the AVI's first 8 frames (a shorter clip
-    than the AVI's, to keep the run's time)."""
+    written through OpenCV from the AVI's first ``VIDEO_MP4_FRAMES`` frames
+    (a shorter clip than the AVI's, to keep the run's time)."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.utils.video_io import (load_video,
                                                               save_video)
 
-    frames = VIDEO_SERVED_FRAMES
+    frames = VIDEO_MP4_FRAMES
     clip = load_video(input_dir / "input.avi", frame_load_cap=frames)
     save_video(input_dir / "input.mp4", clip["frames"], fps=clip["fps"],
                audio=clip["audio"])
@@ -2637,17 +2703,20 @@ class Served(NamedTuple):
     worker_port: int
     master_out: Path        # the master's output directory
     log_path: Path          # the worker's log
+    worker_pid: int = 0
 
 
 @contextlib.contextmanager
 def served_pair(torch, serve_dir: Path, what: str, worker_in: Path,
                 registry=None, master_env: dict | None = None,
-                worker_type: str = "remote", settings: dict | None = None):
+                worker_type: str = "remote", settings: dict | None = None,
+                worker_env: dict | None = None):
     """A worker subprocess (``start_worker``, input directory ``worker_in``,
     its ``torch.profiler`` traces under ``serve_dir / "profiles"``) and a
     master ``Controller`` in this process behind a ``ServerThread`` (its
     outputs in ``serve_dir / "master_out"``, ``master_env`` set while it
-    is built) that lists the worker as ``worker_type``; yields a
+    is built; ``worker_env`` the worker's) that lists the worker as
+    ``worker_type``; yields a
     ``Served``, then stops both and, if the block failed, prints the tail
     of the worker's log."""
     from comfyui_distributed_tpu_torch.api.app import ServerThread
@@ -2668,7 +2737,8 @@ def served_pair(torch, serve_dir: Path, what: str, worker_in: Path,
     os.environ["CDT_PROFILE_DIR"] = str(serve_dir / "profiles")
     try:
         reset_peak(torch)
-        worker = start_worker(worker_port, log_path, worker_in)
+        worker = start_worker(worker_port, log_path, worker_in,
+                              extra_env=worker_env)
         env = {"CDT_OUTPUT_DIR": str(master_out), **(master_env or {})}
         os.environ.update(env)
         try:
@@ -2680,7 +2750,7 @@ def served_pair(torch, serve_dir: Path, what: str, worker_in: Path,
         server = ServerThread(master, port=master_port)
         yield Served(master, f"http://127.0.0.1:{master_port}",
                      f"http://127.0.0.1:{worker_port}", worker_port,
-                     master_out, log_path)
+                     master_out, log_path, worker.pid)
         ok = True
     finally:
         os.environ.pop("CDT_PROFILE_DIR", None)
@@ -3246,6 +3316,15 @@ def sync_counts(prof) -> tuple[int, int]:
     return syncs, copies
 
 
+# the telemetry on/off requests run MANAGED_DIRECT_STEPS of the workflow's
+# 30 (a depth cut since PR 20; their gate is equal synchronisations):
+# 8 K1 on the text encoder and 70 K1 / 70 K2 a step
+MANAGED_DIRECT_STEPS = 8
+MANAGED_DIRECT = {"fused_qkv_attention": 8 + 70 * MANAGED_DIRECT_STEPS,
+                  "flash_attention_packed": 70 * MANAGED_DIRECT_STEPS,
+                  "flash_attention_bh": 0}
+
+
 def direct_sdxl(torch, fa, registry, seed: int) -> float:
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
@@ -3253,6 +3332,7 @@ def direct_sdxl(torch, fa, registry, seed: int) -> float:
     prompt = strip_meta(json.loads(
         (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
     prompt[SDXL_PATH.seed_node]["inputs"]["seed"] = seed
+    prompt[SDXL_PATH.sampler_node]["inputs"]["steps"] = MANAGED_DIRECT_STEPS
     before = dict(fa.LAUNCHES)
     t0 = time.perf_counter()
     GraphExecutor({"model_registry": registry,
@@ -3260,7 +3340,7 @@ def direct_sdxl(torch, fa, registry, seed: int) -> float:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
-    require(counts == SDXL_PATH.expected, f"direct request: {counts}")
+    require(counts == MANAGED_DIRECT, f"direct request: {counts}")
     return secs
 
 
@@ -3591,11 +3671,16 @@ LORA_NAME = "synthetic-sdxl"
 LORA_RANK, LORA_ALPHA = 8, 8.0
 LORA_UP_STD = 0.1 / LORA_RANK ** 0.5   # ΔW about a tenth of W
 # per SDXL request from a checkpoint: the CLIP stack launches nothing, so
-# K1 and K2 are the UNet's 70 sites × 30 calls (60 at 1024 tokens)
-CKPT_SDXL = ({"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES[:2]),
-              "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),
+# K1 and K2 are the UNet's 70 sites a call (60 at 1024 tokens); the
+# requests run CKPT_STEPS of the workflow's 30 (a depth cut for the run's
+# time limit since PR 20; PERF.md §4): 560 K1 and 560 K2
+CKPT_STEPS = 8
+CKPT_SDXL_SHAPES = [(s, n * CKPT_STEPS // STEPS) for s, n in FUSED_SHAPES[:2]]
+CKPT_SDXL_PACKED = [(s, n * CKPT_STEPS // STEPS) for s, n in PACKED_SHAPES]
+CKPT_SDXL = ({"fused_qkv_attention": sum(n for _, n in CKPT_SDXL_SHAPES),
+              "flash_attention_packed": sum(n for _, n in CKPT_SDXL_PACKED),
               "flash_attention_bh": 0},
-             cuda_counts(FUSED_SHAPES[:2], PACKED_SHAPES))
+             cuda_counts(CKPT_SDXL_SHAPES, CKPT_SDXL_PACKED))
 # 70 transformer blocks × (attn1, attn2: 4 each; ff: 2) + 11 × proj_in/out
 LORA_UNET_TENSORS = 70 * 10 + 11 * 2
 LORA_TE_TENSORS = (12 + 32) * 6      # q/k/v/out_proj, fc1, fc2 a layer
@@ -3733,6 +3818,7 @@ def ckpt_sdxl_phase(torch, fa, tmp: Path) -> CkptRun:
 
     workflow = strip_meta(json.loads(
         (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+    workflow[SDXL_PATH.sampler_node]["inputs"]["steps"] = CKPT_STEPS
     hw = (CKPT_HW, CKPT_HW)
 
     def request(executor, seed: int, what: str):
@@ -3837,7 +3923,8 @@ def write_lora(torch, bundle, path: Path) -> None:
 def lora_workflow(seed: int, strength_model: float, strength_clip: float,
                   lora: bool = True) -> dict:
     """``CheckpointLoader sdxl`` → ``LoraLoader`` → two ``CLIPTextEncode``
-    → ``TPUTxt2Img`` at 1024² (the txt2img workflow's spec)."""
+    → ``TPUTxt2Img`` at 1024² (the txt2img workflow's spec at
+    ``CKPT_STEPS``)."""
     model, clip = (["9", 0], ["9", 1]) if lora else (["1", 0], ["1", 1])
     prompt = {
         "1": {"class_type": "CheckpointLoader", "inputs": {"ckpt_name": "sdxl"}},
@@ -3848,7 +3935,7 @@ def lora_workflow(seed: int, strength_model: float, strength_clip: float,
             "text": "blurry, low quality, watermark", "clip": clip}},
         "5": {"class_type": "TPUTxt2Img", "inputs": {
             "model": model, "positive": ["2", 0], "negative": ["3", 0],
-            "seed": seed, "steps": STEPS, "cfg": 6.0, "width": CKPT_HW,
+            "seed": seed, "steps": CKPT_STEPS, "cfg": 6.0, "width": CKPT_HW,
             "height": CKPT_HW, "sampler_name": "euler", "scheduler": "karras"}},
     }
     if lora:
@@ -4041,10 +4128,15 @@ def ckpt_models_phase(torch, tmp: Path) -> None:
 T5_PIECES = 32100            # t5-v1_1: <pad> 0, </s> 1, <unk> 2, 100 <extra_id_N>
 T5_SEED = 13                 # the T5-XXL and CLIP-L drawn for the files
 FLUX_FILE_DIR = OUTPUT_DIR / "flux_file"
+# phase 24's requests run FLUX_FILE_STEPS of the workflow's 28 (a depth cut
+# for the run's time limit since PR 20; PERF.md §4): 57 × 4 = 228 K3
+FLUX_FILE_STEPS = 4
+FLUX_FILE_RUN_SHAPES = [(s, FLUX_FILE_STEPS * (19 + 38))
+                        for s, _ in FILE_BH_SHAPES]
 FLUX_FILE = ({"fused_qkv_attention": 0, "flash_attention_packed": 0,
-              "flash_attention_bh": sum(n for _, n in FILE_BH_SHAPES)},  # 1596
-             # projection 0, streamed core 1596, short-key 0
-             cuda_counts([], FILE_BH_SHAPES))
+              "flash_attention_bh": sum(n for _, n in FLUX_FILE_RUN_SHAPES)},
+             # projection 0, streamed core 228, short-key 0
+             cuda_counts([], FLUX_FILE_RUN_SHAPES))
 # The whole run keeps its disk writes (deleted files included) under
 # 45 GiB, ~13 GB of them before these phases. So the full-depth files go
 # in F8_E4M3 (11.9 + 4.9 GB) and are loaded with the calls `convert`
@@ -4357,7 +4449,13 @@ def flux_convert_phase(torch, fa, source: FluxSource, tmp: Path) -> dict:
                              (int(sampler["height"]), int(sampler["width"])))
     say(f"  one request from the restored state: {secs:.3f} s; tokenization "
         f"{mode}; launches {FLUX_CUT_COUNTS[0]}")
-    return dict(fa.LAUNCHES)
+    launches = dict(fa.LAUNCHES)
+    del registry, bundle, executor
+    core = offload_file_build(torch, out_dir.parent, "flux")["core"]
+    require_digests("offload build (cut in depth)",
+                    {f"core.{k}": v for k, v in core.items()}, source,
+                    every=False)
+    return launches
 
 
 def flux_file_phase(torch, fa, source: FluxSource, tmp: Path,
@@ -4416,6 +4514,7 @@ def flux_file_phase(torch, fa, source: FluxSource, tmp: Path,
     workflow = strip_meta(json.loads(
         (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
     sampler = workflow[FLUX_PATH.sampler_node]["inputs"]
+    sampler["steps"] = FLUX_FILE_STEPS
     hw = (int(sampler["height"]), int(sampler["width"]))
     executor = GraphExecutor({"model_registry": registry,
                               "output_dir": str(FLUX_FILE_DIR)})
@@ -4438,9 +4537,11 @@ def flux_file_phase(torch, fa, source: FluxSource, tmp: Path,
     require(torch.equal(images[0], images[2]), f"seed {a} twice differs")
     require(not torch.equal(images[0], images[1]),
             f"seeds {a} and {b} gave one image")
-    say(f"  requests {[round(s, 3) for s in seconds]} s from the files against "
+    say(f"  requests {[round(s, 3) for s in seconds]} s from the files at "
+        f"{FLUX_FILE_STEPS} steps against "
         f"{[round(s, 3) for s in random_seconds]} s at random init (77 hash "
-        f"tokens); launches {FLUX_FILE[0]} a request (CUDA {FLUX_FILE[1]}); "
+        f"tokens, 28 steps); launches {FLUX_FILE[0]} a request (CUDA "
+        f"{FLUX_FILE[1]}); "
         f"seed {a} repeatable, seed {b} differs; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     # one forward at 512² with the T5 context: 1024 + 512 tokens
@@ -4492,6 +4593,15 @@ def flux_file_phases(torch, fa, holder: dict, random_seconds: list) -> dict:
 # --- phase 25 ----------------------------------------------------------------
 
 FLUX_SERVE_DIR = OUTPUT_DIR / "serve_flux"
+# the served requests run FLUX_SERVE_STEPS of the workflow's 28 (a depth
+# cut for the run's time limit since PR 20; PERF.md §4), against direct
+# references at the same count from phase 20-21: 57 × 8 = 456 K3
+FLUX_SERVE_STEPS = 8
+FLUX_SERVED = ({"fused_qkv_attention": 4, "flash_attention_packed": 0,
+                "flash_attention_bh": FLUX_SERVE_STEPS * (19 + 38)},
+               cuda_counts([(FUSED_SHAPES[2][0], 4)],
+                           [(s, FLUX_SERVE_STEPS * (19 + 38))
+                            for s, _ in BH_SHAPES]))
 FLUX_FAULTS = "dispatch@1-9:http500"
 FLUX_PREVIEW_HW = (1024 // 8, 1024 // 8)     # the 16-channel latent's grid
 POLL_S = 0.05
@@ -4517,9 +4627,10 @@ def poll_progress(base: str, prompt_id: str, t0: float, what: str,
         status, snap = http_json(f"{base}/distributed/progress/{prompt_id}")
         if status == 200:
             steps.append(snap["step"])
-            require(snap["total"] == FLUX_STEPS,
-                    f"{what}: progress total {snap['total']} != {FLUX_STEPS}")
-            if preview is None and 0 < snap["step"] < FLUX_STEPS:
+            require(snap["total"] == FLUX_SERVE_STEPS,
+                    f"{what}: progress total {snap['total']} != "
+                    f"{FLUX_SERVE_STEPS}")
+            if preview is None and 0 < snap["step"] < FLUX_SERVE_STEPS:
                 code, body = http_raw(f"{base}/distributed/preview/{prompt_id}")
                 if code == 200:
                     preview = body
@@ -4568,16 +4679,17 @@ def serve_flux_request(torch, fa, i: int, base: str, prompt: dict, token: str,
     require(plan.calls.get("dispatch") == 1 and plan.injected == [],
             f"the fault plan saw calls {plan.calls}, injected "
             f"{plan.injected}: the prompt did not go over the WebSocket")
-    require(steps and steps == sorted(steps) and steps[-1] == FLUX_STEPS,
-            f"progress steps not rising to {FLUX_STEPS}: {steps}")
+    require(steps and steps == sorted(steps)
+            and steps[-1] == FLUX_SERVE_STEPS,
+            f"progress steps not rising to {FLUX_SERVE_STEPS}: {steps}")
     require(preview is not None, "no preview PNG while sampling")
     shape = to_uint8(decode_png(preview))[0].shape
     require(shape == (*FLUX_PREVIEW_HW, 3), f"preview shape {shape}")
-    require(served == FLUX_PATH.expected,
-            f"served flux {i}: master launches {served} != {FLUX_PATH.expected}")
-    require(served_cuda == FLUX_PATH.expected_cuda,
+    require(served == FLUX_SERVED[0],
+            f"served flux {i}: master launches {served} != {FLUX_SERVED[0]}")
+    require(served_cuda == FLUX_SERVED[1],
             f"served flux {i}: master CUDA kernel launches {served_cuda} != "
-            f"{FLUX_PATH.expected_cuda}")
+            f"{FLUX_SERVED[1]}")
     pngs = sorted(master_out.glob("*.png"))
     require(len(pngs) == 2, f"served flux {i}: {len(pngs)} PNGs, expected 2")
     got = [to_uint8(decode_png(p.read_bytes()))[0] for p in pngs]
@@ -4621,6 +4733,7 @@ def flux_serve_phase(torch, fa, images: dict, direct_seconds: list) -> dict:
     prompt = strip_meta(json.loads(
         (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
     prompt[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
+    prompt[FLUX_PATH.sampler_node]["inputs"]["steps"] = FLUX_SERVE_STEPS
     token = secrets.token_urlsafe(24)
     os.environ["CDT_AUTH_TOKEN"] = token
     try:
@@ -4668,7 +4781,7 @@ def flux_serve_phase(torch, fa, images: dict, direct_seconds: list) -> dict:
             pngs = list(master_out.glob("*.png"))
             require(not pngs, f"an interrupted prompt wrote {pngs}")
             say(f"  interrupt: POST /distributed/interrupt at step {at} of "
-                f"{FLUX_STEPS} ({answer}); history interrupted after "
+                f"{FLUX_SERVE_STEPS} ({answer}); history interrupted after "
                 f"{time.perf_counter() - t0:.3f} s, no PNG written")
         return served_counts
     finally:
@@ -4752,6 +4865,35 @@ def flux_sampler_phase(torch, fa, bundle) -> dict:
     return launches
 
 
+def flux_serve_refs(torch, fa, registry) -> tuple[dict, list]:
+    """The served FLUX phase's references: the workflow at
+    ``FLUX_SERVE_STEPS`` steps at seeds 1234 and 1235 on phase 20's
+    bundle; returns the images (on the host) and the seconds."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    sampler = workflow[FLUX_PATH.sampler_node]["inputs"]
+    sampler["steps"] = FLUX_SERVE_STEPS
+    hw = (int(sampler["height"]), int(sampler["width"]))
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OUTPUT_DIR / "flux_8")})
+    images, seconds = {}, []
+    for seed in FLUX_PATH.seeds[:2]:
+        workflow[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
+        img, secs, _ = run_counted(torch, fa, executor, workflow,
+                                   FLUX_PATH.image_node, FLUX_SERVED,
+                                   f"flux {FLUX_SERVE_STEPS} steps seed {seed}",
+                                   hw)
+        images[seed] = img.cpu()
+        seconds.append(secs)
+    say(f"flux at {FLUX_SERVE_STEPS} steps (the served phase's references): "
+        f"{[round(x, 3) for x in seconds]} s; launches {FLUX_SERVED[0]} a "
+        "request")
+    return images, seconds
+
+
 def flux_reference_phase(torch, fa, bundle) -> None:
     from unittest import mock
 
@@ -4817,7 +4959,7 @@ WAN_SERVE_DIR = OUTPUT_DIR / "serve_wan"
 WAN_T2V, WAN_I2V = "wan-t2v.json", "wan-i2v.json"
 WAN_FPS = 16.0
 WAN_SEED = 99                # the t2v workflow's seed (the worker's is 100)
-WAN_SPLIT = 2                # of WAN_SERVED_STEPS at shift 3: sigma >= 0.875
+WAN_SPLIT = 1                # of WAN_SERVED_STEPS at shift 3: sigma >= 0.875
 WAN_REF_FRAMES = 9           # phase 27: 3 latent frames, 4680 tokens
 # ImageBatchDivider(divide_by=2) of one video: 17 and 16 frames
 WAN_HALVES = ((WAN_FRAMES + 1) // 2, WAN_FRAMES // 2)
@@ -4899,8 +5041,9 @@ class WanRun(NamedTuple):
 
 def wan_t2v_phase(torch, fa) -> WanRun:
     """Phase 26: ``workflows/wan-t2v.json`` on the full-width ``wan``
-    preset, its 20 steps cut to 4, then the same graph at seed 100: the
-    served phase's references are this seed-99 video and that one."""
+    preset, its 20 steps cut to ``WAN_SERVED_STEPS``, then the same graph
+    at seed 100: the served phase's references are this seed-99 video and
+    that one."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
     from comfyui_distributed_tpu_torch.utils.image import to_uint8
@@ -4986,9 +5129,10 @@ def wan_reference_phase(torch, fa, bundle) -> None:
 
 
 def wan_serve_phase(torch, fa, t2v: WanRun) -> dict:
-    """Phase 28: ``workflows/wan-t2v.json`` at 4 steps through ``POST
-    /distributed/queue`` to a master in this process (the t2v phase's
-    bundle) and a ``remote`` worker subprocess that builds its own; the
+    """Phase 28: ``workflows/wan-t2v.json`` at ``WAN_SERVED_STEPS`` steps
+    through ``POST /distributed/queue`` to a master in this process (the
+    t2v phase's bundle) and a ``remote`` worker subprocess that builds its
+    own; the
     worker's kernels counted from a ``torch.profiler`` trace of its
     request (``/distributed/profile/start|stop`` on the worker)."""
     from unittest import mock
@@ -5086,7 +5230,8 @@ def write_start_frame(directory: Path) -> None:
 
 def wan_i2v_phase(torch, fa) -> dict:
     """Phase 29: ``workflows/wan-i2v.json`` (``wan-i2v``: in_channels 36),
-    its 20 steps cut to 4, on a seeded 832×480 start frame."""
+    its 20 steps cut to ``WAN_SERVED_STEPS``, on a seeded 832×480 start
+    frame."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 
@@ -5119,10 +5264,11 @@ def wan_i2v_phase(torch, fa) -> dict:
     return dict(fa.LAUNCHES)
 
 
-def wan22_phase(torch, fa) -> dict:
-    """Phase 30: the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts) at 4
-    steps, twice: each expert's model calls equal the split, the repeat is
-    bitwise equal."""
+def wan22_phase(torch, fa, refs: dict) -> dict:
+    """Phase 30: the t2v graph on ``wan-2.2-t2v`` (two WAN 14B experts) at
+    ``WAN_SERVED_STEPS`` steps, twice: each expert's model calls equal the
+    split, the repeat is bitwise equal. The video (on the host) and the
+    peak go to ``refs`` for phase 38."""
     from comfyui_distributed_tpu_torch.diffusion.schedules import sigmas_flow
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
@@ -5150,6 +5296,9 @@ def wan22_phase(torch, fa) -> dict:
     require(torch.equal(batches[0], batches[1]),
             "wan 2.2: the repeated request differs")
     peak = torch.cuda.max_memory_allocated()
+    refs["wan22"] = batches[0].cpu()
+    refs["wan22_peak"] = peak
+    refs["wan22_seconds"] = seconds[0]
     say(f"  wan-2.2-t2v at {WAN_SERVED_STEPS} steps: requests "
         f"{[round(s, 3) for s in seconds]} s; expert calls {calls} (split "
         f"{split}); repeat bitwise equal; launches {WAN_SERVED[0]} a request; "
@@ -5297,6 +5446,12 @@ def wan_file_phases(torch, fa) -> dict:
             "umt5, the high and the low expert)")
         registry._cache.clear()
         del pair
+        built = offload_file_build(torch, root, "wan-2.2-t2v")
+        require_digests_equal("offload build, high expert", built["core"],
+                              digests["high"])
+        require_digests_equal("offload build, low expert", built["core_low"],
+                              digests["low"])
+        say("  the offload build's experts: every digest their source's")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         os.environ.pop("CDT_T5_TOKENIZER_DIR", None)
@@ -5350,9 +5505,9 @@ def video_mmdit_phase(torch, fa) -> dict:
     return dict(fa.LAUNCHES)
 
 
-def wan_phases(torch, fa) -> dict:
+def wan_phases(torch, fa, refs: dict) -> dict:
     """Phases 26 to 32, each bundle dropped before the next is built;
-    returns their launches by path."""
+    returns their launches by path (phase 30's video into ``refs``)."""
     launches = {}
     with phase(torch, "26 wan t2v"):
         t2v = wan_t2v_phase(torch, fa)
@@ -5367,7 +5522,7 @@ def wan_phases(torch, fa) -> dict:
         launches["wan_i2v"] = wan_i2v_phase(torch, fa)
     free_card(torch)
     with phase(torch, "30 wan 2.2"):
-        launches["wan22"] = wan22_phase(torch, fa)
+        launches["wan22"] = wan22_phase(torch, fa, refs)
     free_card(torch)
     with phase(torch, "31 wan files"):
         launches.update(wan_file_phases(torch, fa))
@@ -5392,11 +5547,11 @@ SD3_NEGATIVE = "blurry, low quality, watermark"
 def sd3_workflow(ckpt: str, seed: int = SD3_SEED) -> dict:
     """The SD3 txt2img graph (no workflow file ships it): ``CheckpointLoader``
     → positive and negative ``CLIPTextEncode`` → ``ModelSamplingSD3`` (shift
-    3.0) → ``TPUFlowTxt2Img`` (``dp``, 1024², 28 euler steps, CFG 4.5, the
-    negative wired; the seed through ``DistributedSeed``) →
-    ``DistributedCollector`` → ``SaveImage``."""
+    3.0) → ``TPUFlowTxt2Img`` (``dp``, 1024², ``SD3_RUN_STEPS`` of its 28
+    euler steps, CFG 4.5, the negative wired; the seed through
+    ``DistributedSeed``) → ``DistributedCollector`` → ``SaveImage``."""
     sampler = {"model": ["4", 0], "positive": ["2", 0], "negative": ["3", 0],
-               "seed": ["5", 0], "steps": SD3_STEPS, "width": SD3_HW,
+               "seed": ["5", 0], "steps": SD3_RUN_STEPS, "width": SD3_HW,
                "height": SD3_HW, "cfg": SD3_CFG, "mode": "dp"}
     return {
         "1": {"class_type": "CheckpointLoader", "inputs": {"ckpt_name": ckpt}},
@@ -5475,7 +5630,7 @@ class Sd3Run(NamedTuple):
 def sd3_medium_phase(torch, fa) -> tuple:
     """Phase 33: the SD3 graph on ``sd3-medium`` at full width and depth
     (random init from seed 0) at seeds 31, 32, 31: 8 K1 (the hash encoder,
-    two prompts) and 24 × 28 = 672 K2 on the streamed core at [2, 4173,
+    two prompts) and 24 × 8 = 192 K2 on the streamed core at [2, 4173,
     24·64] a request; the repeat bitwise, the seeds different."""
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 
@@ -5527,7 +5682,7 @@ def sd3_reference(torch, fa, bundle, what: str, wrapper: str) -> None:
 def sd35_phase(torch, fa) -> dict:
     """Phase 35: the SD3 graph on ``sd35-large`` (38 joint blocks of 38
     heads of 64: H·D 2432, past the packed layout's widest row) at seed 31
-    twice: 8 K1 and 38 × 28 = 1064 K3 at [2·38, 4173, 64] a request, the
+    twice: 8 K1 and 38 × 8 = 304 K3 at [2·38, 4173, 64] a request, the
     repeat bitwise; then its reference forward."""
     from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
 
@@ -5549,7 +5704,7 @@ def sd3_serve_phase(torch, fa, run: Sd3Run) -> dict:
     /distributed/queue`` to a master in this process (phase 33's bundle)
     and a ``remote`` worker subprocess that builds its own: the master's
     PNG bitwise the direct seed-31 image, the worker's the seed-32 one;
-    the master's launches 8 K1 + 672 K2, the worker's kernels counted from
+    the master's launches 8 K1 + 192 K2, the worker's kernels counted from
     a ``torch.profiler`` trace of its request. Both hosts run the content
     cache's defaults: each encodes both prompts once (2 misses)."""
     off = {k: os.environ.pop(k, None) for k in ("CDT_CACHE", "CDT_STAGES")}
@@ -5629,7 +5784,7 @@ def sd3_file_phase(torch, fa, run: Sd3Run) -> dict:
     ``load_text_encoder_files`` (the CLI has no ``--clip-g``, as JAX's):
     every parameter's digest the source's, the context ([1, 589, 4096]),
     pooled vector and a velocity at 4685 tokens bitwise the source's; one
-    request from it: 0 K1 and 672 K2 at [2, 4685, 24·64]."""
+    request from it: 0 K1 and 192 K2 at [2, 4685, 24·64]."""
     import contextlib
     import io
 
@@ -5771,7 +5926,7 @@ def sd3_file_requests(torch, fa, registry, stack, cache_dir: Path) -> None:
     """Phase 37's requests from the restored files at seed 31, through
     ``CLIPTextEncode``'s conditioning tier on the three real towers:
     a miss that encodes and persists, a memory hit, and a hit from the
-    persisted tier under a new cache; each 0 K1 and 672 K2, the hits'
+    persisted tier under a new cache; each 0 K1 and 192 K2, the hits'
     images and PNGs bitwise the first's."""
     from unittest import mock
 
@@ -6782,6 +6937,402 @@ def preempt_phase(torch, fa, sdxl: PathRun, watch: CatalogWatch) -> dict:
     return launches
 
 
+# --- phase 38: offload ------------------------------------------------------
+
+OFFLOAD_DIR = OUTPUT_DIR / "offload"
+OFFLOAD_SERVE_DIR = OUTPUT_DIR / "serve_offload"
+# JAX's fp8 trajectory gates (tests/test_offload.py:274-318)
+OFFLOAD_PSNR_DB = 25.0
+OFFLOAD_MAX_DIFF = 0.25
+# the fp8 plan of FLUX.1 [dev] at the default budget, as JAX's full-scale
+# plan test asserts (tests/test_offload.py:608-618)
+OFFLOAD_FLUX_RESIDENT = (11e9, 13 * 2**30)
+OFFLOAD_FLUX_UNDER = 10e9    # its peak under phase 20-21's bf16 one
+OFFLOAD_STREAMED_STEPS = 4
+OFFLOAD_STREAMED = {"fused_qkv_attention": 0, "flash_attention_packed": 0,
+                    "flash_attention_bh": OFFLOAD_STREAMED_STEPS * (19 + 38)}
+OFFLOAD_WAN_PEAK = 24 * 2**30
+OFFLOAD_SWAP_SLACK = 2**30   # card memory at the swap against before the high
+OFFLOAD_CARD = 80e9          # master + worker peaks together
+# an offload build from files: the card's peak over what the bundle keeps
+OFFLOAD_BUILD_SLACK = 256 * 2**20
+
+
+def psnr(a, b) -> tuple[float, float]:
+    """(PSNR in dB over [0, 1] values, max |a − b|) on the host in fp64."""
+    import numpy as np
+
+    x = np.asarray(a, np.float64)
+    y = np.asarray(b, np.float64)
+    mse = float(np.mean((x - y) ** 2))
+    return 10.0 * np.log10(1.0 / max(mse, 1e-20)), float(np.abs(x - y).max())
+
+
+def host_memory() -> str:
+    """The host's memory as /proc/meminfo gives it (``free -g``'s numbers)."""
+    info = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, rest = line.partition(":")
+        info[key] = int(rest.split()[0]) * 1024
+    return (f"host memory {info['MemTotal'] / 2**30:.1f} GiB total, "
+            f"{info['MemAvailable'] / 2**30:.1f} GiB available")
+
+
+def rss(pid: int | str = "self") -> str:
+    """A process's resident set now and at its peak (VmRSS, VmHWM; the
+    peak of this process from ``getrusage`` where VmHWM is missing)."""
+    import resource
+
+    fields = {}
+    for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+        key, _, rest = line.partition(":")
+        if key in ("VmRSS", "VmHWM") and rest.split():
+            fields[key] = int(rest.split()[0]) * 1024 / 2**30
+    if not fields.get("VmHWM"):             # a sandbox's /proc may say 0
+        fields.pop("VmHWM", None)
+    if "VmHWM" not in fields and pid == "self":
+        fields["VmHWM"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024 / 2**30
+    peak = (f"{fields['VmHWM']:.2f} GiB" if "VmHWM" in fields
+            else "not reported")
+    return f"RSS {fields.get('VmRSS', 0):.2f} GiB (peak {peak})"
+
+
+def offload_file_build(torch, root: Path, name: str) -> dict:
+    """Phase 38's rule for a checkpoint-backed bundle, run where phases 23
+    and 31 hold their converted files: an offload registry builds
+    ``name`` from ``root`` with its transformer(s) allocated and loaded in
+    host memory (``models/registry.core_home``), so the card's peak
+    during the build stays within OFFLOAD_BUILD_SLACK of what the bundle
+    keeps there, far under the transformers' bytes. Returns each
+    transformer's parameter digests by entry (taken on the card after the
+    gate)."""
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak(torch)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = ModelRegistry(DEVICE, seed=0, checkpoint_root=root,
+                           offload=True).get(name)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    cores = {"core": bundle.core,
+             "core_low": getattr(bundle.pipeline, "dit_low", None)}
+    cores = {k: m for k, m in cores.items() if m is not None}
+    core_bytes = sum(p.numel() * p.element_size() for m in cores.values()
+                     for p in m.parameters())
+    on_card = [n for m in cores.values() for n, p in m.named_parameters()
+               if p.device.type != "cpu"]
+    say(f"  offload build of {root / name}: {secs:.2f} s; transformer(s) "
+        f"{core_bytes / 1e9:.3f} GB in host memory; the card holds "
+        f"{held / 2**30:.3f} GiB more, its peak {peak / 2**30:.3f} GiB over "
+        f"the level before; this process {rss()}")
+    require(bundle.offload and not on_card,
+            f"offload build of {name}: parameters on the card {on_card[:4]}")
+    require(core_bytes > 4 * OFFLOAD_BUILD_SLACK,
+            f"offload build of {name}: {core_bytes} B of transformer cannot "
+            "tell a card-side load from the slack")
+    require(peak - held <= OFFLOAD_BUILD_SLACK,
+            f"offload build of {name}: the card peaked {peak - held} B over "
+            "what the bundle keeps there")
+    dev = torch.device(DEVICE)
+    digests = {k: param_digests(torch, {n: p.to(dev)
+                                        for n, p in m.named_parameters()})
+               for k, m in cores.items()}
+    del bundle, cores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return digests
+
+
+def offload_quant_phase(torch, what: str, bundle, name: str) -> None:
+    """38a: block ``name`` of an offload bundle, drawn on the card,
+    quantised and packed on the card and on the host: the fp8 bytes, the
+    scales and every native leaf equal."""
+    from comfyui_distributed_tpu_torch.diffusion import offload
+
+    pipe = bundle.pipeline
+    source = (pipe.offload_source if what == "flux"
+              else pipe.offload_sources["high"])
+    t0 = time.perf_counter()
+    params = source.block_params(name, torch.device(DEVICE))
+    layout = offload.block_layout(getattr(source.core, name), True)
+    card = offload.pack_block(params, layout)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = offload.pack_block({k: v.cpu() for k, v in params.items()},
+                              layout)
+    host_s = time.perf_counter() - t0
+    source.done(name)
+    for key, buf in card.items():
+        require(torch.equal(buf.cpu(), host[key]),
+                f"offload quantisation: {what} {name} buffer {key} differs "
+                "between the card and the host")
+    quantised = sum(1 for leaf in layout.leaves if leaf.scale_offset >= 0)
+    say(f"  {what} {name}: {quantised} of {len(layout.leaves)} leaves "
+        f"quantised, {layout.nbytes / 1e9:.4f} GB packed; fp8 bytes, scales "
+        f"and native leaves equal on the card ({card_s:.3f} s with the "
+        f"draw) and on the host ({host_s:.3f} s)")
+
+
+def offload_flux_phase(torch, fa, registry, refs: dict) -> dict:
+    """38b and 38c: ``workflows/flux-txt2img.json`` with ``mode:
+    "offload"`` on an offload bundle (fully resident at the default
+    budget, the fp8 image against phase 20-21's bf16 one), then the same
+    executor at half the budget, streamed, bitwise its resident run."""
+    from comfyui_distributed_tpu_torch.diffusion.offload import (
+        normalize_stream_dtype, resident_budget_bytes)
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_flow import FlowSpec
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    bundle = registry.get("flux")
+    pipe = bundle.pipeline
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    sampler = workflow[FLUX_PATH.sampler_node]["inputs"]
+    require(sampler["steps"] == FLUX_STEPS and sampler["mode"] == "dp",
+            f"{FLUX_PATH.workflow} changed; update the script")
+    sampler["mode"] = "offload"
+    seed = FLUX_PATH.seeds[0]
+    workflow[FLUX_PATH.seed_node]["inputs"]["seed"] = seed
+    hw = (int(sampler["height"]), int(sampler["width"]))
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OFFLOAD_DIR)})
+    fa.reset_launches()
+    img, secs, _ = run_counted(torch, fa, executor, workflow,
+                               FLUX_PATH.image_node,
+                               (FLUX_PATH.expected, FLUX_PATH.expected_cuda),
+                               "offloaded flux", hw)
+    launches = dict(fa.LAUNCHES)
+    (off,) = pipe.offload_stores()
+    plan = off.plan
+    peak = max(PHASE_PEAK["bytes"], torch.cuda.max_memory_allocated())
+    db, diff = psnr(img.cpu(), refs["flux"][seed])
+    t = pipe.timings
+    say(f"  offloaded flux-txt2img.json seed {seed}: {secs:.3f} s (bf16 "
+        f"direct {refs['flux_seconds'][0]:.3f} s); sampling "
+        f"{t['sample_s']:.3f} s = {t['sample_s'] / t['steps']:.4f} s/step, "
+        f"decode {t['decode_s']:.3f} s; plan at "
+        f"{resident_budget_bytes() / 2**30:.1f} GiB "
+        f"({normalize_stream_dtype(None)}): "
+        f"{len(plan['resident'])} of {len(plan['order'])} blocks resident, "
+        f"{plan['resident_bytes'] / 1e9:.3f} GB with the glue, store "
+        f"{off.store_bytes() / 1e9:.3f} GB on the card; launches {launches}; "
+        f"peak {peak / 2**30:.3f} GiB against phase 20-21's "
+        f"{refs['flux_peak'] / 2**30:.3f} GiB; against the bf16 image PSNR "
+        f"{db:.2f} dB, max |diff| {diff:.4f}")
+    lo, hi = OFFLOAD_FLUX_RESIDENT
+    require(plan["fully_resident"] and lo < plan["resident_bytes"] < hi,
+            f"offloaded flux: plan {len(plan['streamed'])} streamed, "
+            f"{plan['resident_bytes']} resident bytes")
+    require(peak <= refs["flux_peak"] - OFFLOAD_FLUX_UNDER,
+            f"offloaded flux: peak {peak} not {OFFLOAD_FLUX_UNDER:.0f} B "
+            f"under the bf16 path's {refs['flux_peak']}")
+    require(db > OFFLOAD_PSNR_DB and diff < OFFLOAD_MAX_DIFF,
+            f"offloaded flux: PSNR {db:.2f} dB, max |diff| {diff:.4f}")
+
+    # 38c: the same weights streamed: half the fp8 set resident
+    spec = FlowSpec(height=hw[0], width=hw[1], steps=OFFLOAD_STREAMED_STEPS,
+                    shift=3.0, guidance=float(sampler["guidance"]))
+    ctx, pooled = bundle.text_encoder.encode([workflow["2"]["inputs"]["text"]])
+    resident = pipe.generate_offloaded(spec, seed, ctx, pooled)
+    resident_s = pipe.timings["sample_s"]
+    half = (plan["resident_bytes"] - plan["glue_bytes"]) // 2 + \
+        plan["glue_bytes"]
+    before = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    streamed = pipe.generate_offloaded(spec, seed, ctx, pooled,
+                                       resident_bytes=half)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    (off,) = pipe.offload_stores()
+    t = pipe.timings
+    say(f"  streamed flux at {OFFLOAD_STREAMED_STEPS} steps, budget "
+        f"{half / 1e9:.3f} GB: {len(off.plan['resident'])} blocks resident, "
+        f"{len(off.plan['streamed'])} streamed, {off.streamed_bytes / 1e9:.3f} "
+        f"GB from pinned host memory a step; {secs:.3f} s with the build, "
+        f"sampling {t['sample_s']:.3f} s = "
+        f"{t['sample_s'] / t['steps']:.4f} s/step (resident "
+        f"{resident_s / t['steps']:.4f} s/step); launches {counts}")
+    require(off.streamed and not off.stacked,
+            "streamed flux: the half budget streamed nothing")
+    require(counts == OFFLOAD_STREAMED,
+            f"streamed flux: launches {counts} != {OFFLOAD_STREAMED}")
+    require(torch.equal(streamed, resident),
+            "streamed flux: the image differs from the resident executor's")
+    say("  streamed image bitwise the resident executor's")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    pipe.release_offload()
+    return launches
+
+
+def offload_wan_phase(torch, fa, registry, refs: dict) -> dict:
+    """38d: phase 30's request on an offload ``wan-2.2-t2v`` bundle (mode
+    ``offload``) at seeds 99 and 100: twice phase 30's K3, the card memory
+    back at the swap, the peak, the fp8 video against phase 30's bf16
+    one."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    bundle = wan_bundle(torch, registry, "wan-2.2-t2v")
+    pipeline = bundle.pipeline
+    require(WAN_OFFLOAD[0]["flash_attention_bh"]
+            == 2 * WAN_SERVED[0]["flash_attention_bh"],
+            "the offloaded WAN counts are not twice the resident ones")
+    executor = GraphExecutor({"model_registry": registry,
+                              "output_dir": str(OFFLOAD_DIR / "wan22")})
+    frames, launches = {}, {}
+    for seed in (WAN_SEED, WAN_SEED + 1):
+        prompt = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS, mode="offload")
+        prompt["1"]["inputs"]["ckpt_name"] = "wan-2.2-t2v"
+        prompt["3"]["inputs"]["seed"] = seed
+        reset_peak(torch)
+        fa.reset_launches()
+        batch, secs, counts = wan_request(torch, fa, executor, prompt,
+                                          f"offloaded wan 2.2 seed {seed}",
+                                          WAN_OFFLOAD)
+        launches = {k: launches.get(k, 0) + n for k, n in counts.items()}
+        peak = torch.cuda.max_memory_allocated()
+        t = pipeline.timings
+        calls = t["calls"]
+        want = {"high": 2 * WAN_SPLIT,
+                "low": 2 * (WAN_SERVED_STEPS - WAN_SPLIT)}
+        require(calls == want, f"offloaded wan 2.2: calls {calls} != {want}")
+        before = t.get("allocated_before", {}).get("high", 0)
+        after = t.get("allocated_after_release", 0)
+        (low,) = [o.plan for o in pipeline.offload_stores()]
+        say(f"  offloaded wan-2.2-t2v seed {seed}: {secs:.3f} s (bf16 phase "
+            f"30: {refs['wan22_seconds']:.3f} s); sampling {t['sample_s']:.3f}"
+            f" s over {t['steps']} steps ({calls} model calls), decode "
+            f"{t['decode_s']:.3f} s; card memory before the high expert "
+            f"{before / 2**30:.3f} GiB, after its release {after / 2**30:.3f} "
+            f"GiB; the low store {low['resident_bytes'] / 1e9:.3f} "
+            f"GB resident, {len(low['streamed'])} blocks "
+            f"({low['streamed_bytes'] / 1e9:.3f} GB) streamed a "
+            f"forward; peak {peak / 2**30:.3f} GiB (bf16 phase 30 "
+            f"{refs['wan22_peak'] / 2**30:.3f} GiB); launches {counts}")
+        require(abs(after - before) <= OFFLOAD_SWAP_SLACK,
+                f"offloaded wan 2.2: card memory {after} after the high "
+                f"expert's release against {before} before it")
+        require(peak <= OFFLOAD_WAN_PEAK,
+                f"offloaded wan 2.2: peak {peak / 2**30:.3f} GiB")
+        if seed == WAN_SEED:
+            db, diff = psnr(batch.cpu(), refs["wan22"])
+            say(f"  against phase 30's bf16 video: PSNR {db:.2f} dB, max "
+                f"|diff| {diff:.4f}")
+            require(db > OFFLOAD_PSNR_DB,
+                    f"offloaded wan 2.2: PSNR {db:.2f} dB against bf16")
+        frames[seed] = to_uint8(batch)
+        del batch
+    refs["wan22_offload"] = frames
+    return launches
+
+
+def offload_serve_phase(torch, fa, registry, refs: dict) -> dict:
+    """38e: the t2v graph on ``wan-2.2-t2v`` through ``POST
+    /distributed/queue`` to a master in this process (38d's offload
+    bundle) and a ``remote`` worker subprocess with ``CDT_OFFLOAD=1`` that
+    builds its own: each video bitwise 38d's at its seed, the two peaks
+    together under the card's memory."""
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.graph import nodes_builtin
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+
+    prompt = wan_workflow(WAN_T2V, steps=WAN_SERVED_STEPS)
+    prompt["1"]["inputs"]["ckpt_name"] = "wan-2.2-t2v"
+    seen = []
+    divide = nodes_builtin.ImageBatchDivider.execute
+
+    def recording(self, images, *a, **kw):
+        seen.append(images)
+        return divide(self, images, *a, **kw)
+
+    frames = refs["wan22_offload"]
+    with served_pair(torch, OFFLOAD_SERVE_DIR, "offloaded wan",
+                     OFFLOAD_SERVE_DIR / "worker_in", registry=registry,
+                     worker_env={"CDT_OFFLOAD": "1"}) as served:
+        with mock.patch.object(nodes_builtin.ImageBatchDivider, "execute",
+                               recording):
+            secs, counts, kernels = served_request(fa, served, prompt,
+                                                   "served offloaded wan")
+        master_peak = torch.cuda.max_memory_allocated()
+        peak = worker_peak(served.worker_base)
+        want_cuda = WAN_OFFLOAD[1]
+        say(f"  served offloaded wan-2.2-t2v at {WAN_SERVED_STEPS} steps: "
+            f"{secs:.3f} s (POST to final history); master launches {counts}; "
+            f"worker kernels (profiled) {kernels}; peak memory master "
+            f"{master_peak / 2**30:.3f} GiB, worker {peak / 2**30:.3f} GiB, "
+            f"together {(master_peak + peak) / 1e9:.3f} GB; master "
+            f"{rss()}, worker {rss(served.worker_pid)}")
+        require(counts == WAN_OFFLOAD[0],
+                f"served offloaded wan: master launches {counts}")
+        require(kernels.get(K1_EVENT) == want_cuda["qkv_projection"]
+                and kernels.get("flash_attention_kernel")
+                == want_cuda["flash_attention_core"]
+                and kernels.get("short_kv_attention_kernel")
+                == want_cuda["short_kv_attention"],
+                f"served offloaded wan: the worker's kernels {kernels} != "
+                f"{want_cuda}")
+        require(peak > 0 and master_peak + peak < OFFLOAD_CARD,
+                f"served offloaded wan: peaks {master_peak} + {peak}")
+        batch = next((s for s in seen if s.shape[0] == 2 * WAN_FRAMES), None)
+        require(batch is not None,
+                "served offloaded wan: no collected batch of two videos")
+        require(np_equal(to_uint8(batch[:WAN_FRAMES]), frames[WAN_SEED]),
+                "served offloaded wan: the master's video differs from the "
+                f"direct offloaded seed-{WAN_SEED} video")
+        require(np_equal(to_uint8(batch[WAN_FRAMES:]), frames[WAN_SEED + 1]),
+                "served offloaded wan: the worker's video differs from the "
+                f"direct offloaded seed-{WAN_SEED + 1} video")
+        say(f"  wan_v0 bitwise the direct offloaded seed-{WAN_SEED} video, "
+            f"wan_v1 the seed-{WAN_SEED + 1} one (8-bit frames)")
+    return counts
+
+
+def offload_phases(torch, fa, refs: dict) -> dict:
+    """Phase 38: offload (ROADMAP A.5) on the card, after every earlier
+    bundle is dropped: FLUX, then WAN 2.2, each bundle built for offload
+    from a registry of seed 0; returns the launches by path."""
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    launches = {}
+    with phase(torch, "38 offload"):
+        say(f"offload: {host_memory()}; "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on "
+            f"the card; this process {rss()}")
+        reset_peak(torch)
+        registry = ModelRegistry(DEVICE, seed=0, offload=True)
+        t0 = time.perf_counter()
+        flux = registry.get("flux")
+        torch.cuda.synchronize()
+        say(f"  flux offload bundle built in {time.perf_counter() - t0:.2f} s "
+            f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated: "
+            "the glue, the VAE, the text encoder)")
+        offload_quant_phase(torch, "flux", flux, "double_0")
+        launches["flux_offload"] = offload_flux_phase(torch, fa, registry,
+                                                      refs)
+        flux.release_device()
+        del flux, registry
+        free_card(torch)
+        registry = ModelRegistry(DEVICE, seed=0, offload=True)
+        wan = wan_bundle(torch, registry, "wan-2.2-t2v")
+        offload_quant_phase(torch, "wan", wan, "block_0")
+        launches["wan_offload"] = offload_wan_phase(torch, fa, registry, refs)
+        launches["wan_offload_served"] = offload_serve_phase(
+            torch, fa, registry, refs)
+        wan.release_device()
+        del wan, registry
+        free_card(torch)
+    return launches
+
 PHASE_PEAK = {"bytes": 0}
 
 
@@ -6919,9 +7470,17 @@ def main() -> int:
             path_launches["flux"], timings = flux.launches, flux.timings
             path_launches["flux_dpmpp_2m"] = flux_sampler_phase(torch, fa,
                                                                 flux.bundle)
+            fa.reset_launches()
+            serve_refs, serve_seconds = flux_serve_refs(torch, fa,
+                                                        flux.registry)
+            path_launches["flux_8"] = dict(fa.LAUNCHES)
             flux_reference_phase(torch, fa, flux.bundle)
             images = {s: flux.images[s].cpu() for s in FLUX_PATH.seeds[:2]}
             seconds = flux.seconds
+            # phase 38's references: the bf16 images, seconds and peak
+            refs = {"flux": images, "flux_seconds": seconds,
+                    "flux_peak": max(PHASE_PEAK["bytes"],
+                                     torch.cuda.max_memory_allocated())}
             holder = {"bundle": flux.bundle}
             del flux
             gc.collect()
@@ -6932,11 +7491,12 @@ def main() -> int:
         say(f"flux serve: the direct bundle dropped, "
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
         with phase(torch, "25 flux serve"):
-            path_launches["serve_flux"] = flux_serve_phase(torch, fa, images,
-                                                           seconds)
+            path_launches["serve_flux"] = flux_serve_phase(
+                torch, fa, serve_refs, serve_seconds)
         free_card(torch)
-        path_launches.update(wan_phases(torch, fa))
+        path_launches.update(wan_phases(torch, fa, refs))
         path_launches.update(sd3_phases(torch, fa))
+        path_launches.update(offload_phases(torch, fa, refs))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6945,10 +7505,12 @@ def main() -> int:
     say(f"flux: K3 {k3['ms'] / 1e3:.3f} s per request of "
         f"{timings['sample_s']:.3f} s sampling "
         f"({k3['ms'] / 1e3 / timings['sample_s']:.1%})")
-    wan = k3["per_wan_request"]
-    say(f"wan: K3 {wan['ms'] / 1e3:.3f} s per t2v request (bound "
-        f"{wan['bound_ms'] / 1e3:.3f} s, library {wan['library_ms'] / 1e3:.3f} "
-        f"s, {wan['launches']} launches)")
+    for what, wan in (("wan", k3["per_wan_request"]),
+                      ("wan offloaded", k3["per_wan_offload_request"])):
+        say(f"{what}: K3 {wan['ms'] / 1e3:.3f} s per t2v request of "
+            f"{WAN_STEPS} steps (bound {wan['bound_ms'] / 1e3:.3f} s, plain "
+            f"{wan['plain_ms'] / 1e3:.3f} s, library "
+            f"{wan['library_ms'] / 1e3:.3f} s, {wan['launches']} launches)")
     k2 = next(k for k in table if k["name"] == "flash_attention_packed")
     for what, entry in (("sd3-medium: K2", k2["per_sd3_request"]),
                         ("sd3-medium from its files: K2",

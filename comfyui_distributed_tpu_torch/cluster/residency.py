@@ -20,10 +20,15 @@ of accumulating them until the card runs out:
   pools), and :func:`registry_bundle` the decode route's, so no
   concurrent acquire evicts a bundle mid-call.
 
-Bytes are the sizes of a bundle's parameters on the card; activations
-and workspace are the caller's headroom. The planner is off at 0 (the
-default). Weight sharding over several cards (``tp_shard_bytes``) waits
-for ROADMAP A.6, releasing offload stores (``release_store``) for A.5.
+Bytes are the sizes of a bundle's parameters on the card, and of its
+offload stores (``diffusion/offload.py``): an offload bundle counts its
+glue, VAE and text stack as parameters and its resident block set as
+planned at the knobs' defaults, or as held once built; activations and
+workspace are the caller's headroom. The JAX package counts an offload
+bundle's whole host tree: the port counts card bytes throughout. An
+eviction releases the stores (``ModelBundle.release_device``). The
+planner is off at 0 (the default). Weight sharding over several cards
+(``tp_shard_bytes``) waits for ROADMAP A.6.
 """
 
 from __future__ import annotations
@@ -245,10 +250,16 @@ def _tp_rules_for(bundle):
 
 
 def bundle_bytes(bundle, tp_shards: int = 1) -> int:
-    """Bytes of a loaded ``ModelBundle``'s parameters on its card: the
-    core (and the low-noise expert of a dual-expert bundle), both VAE
-    halves and the active text stack (``ModelBundle.device_modules``)."""
-    return tp_shard_bytes(bundle.device_modules(), bundle.device, tp_shards)
+    """Bytes a loaded ``ModelBundle`` holds on its card: the parameters
+    of the core (and the low-noise expert of a dual-expert bundle), both
+    VAE halves and the active text stack (``ModelBundle.device_modules``),
+    and its offload stores, as held or, before they are built, as
+    planned."""
+    held = sum(s.store_bytes() for s in
+               getattr(bundle.pipeline, "offload_stores", list)())
+    planned = getattr(bundle, "offload_planned_bytes", lambda: 0)()
+    return (tp_shard_bytes(bundle.device_modules(), bundle.device, tp_shards)
+            + max(held, planned))
 
 
 class BundleResidency:

@@ -12,6 +12,13 @@ sigma (it is 1). ``initial_noise`` is split from ``sample_and_decode`` so
 a caller can supply its own noise; a stochastic sampler draws from
 ``parallel/rng.step_noise`` of the run's seed or the caller's noise
 source.
+
+``generate_offloaded`` runs one image through an ``OffloadedFlux``
+executor (``diffusion/offload.py``): the DiT's blocks packed, fp8 by
+default, resident on the card under a budget or streamed from the host,
+cached per (resident bytes, stream dtype, block source). The noise and
+the sampler's draws are the ``dp`` run's of the seed, so an offloaded
+``native`` run is a ``dp`` run of the same weights.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..models.dit import DiT
 from ..models.vae import AutoencoderKL
 from ..parallel.rng import seed_generator, step_noise
 from .guidance import cfg_denoiser
+from .offload import ExecutorCache
 from .pipeline import pipeline_call
 from .progress import wrap_denoiser
 from .samplers import Denoiser, NoiseSource, sample
@@ -54,19 +62,26 @@ class FlowPipeline:
         self.dit = dit
         self.vae = vae
         self.timings: dict[str, float] = {}
+        # the offload executor (one at a time) and where its blocks come
+        # from: an offload bundle sets its drawn blocks here
+        self.offload_source = None
+        # the card a host-held core's executor runs on (default: the DiT's)
+        self.offload_device: Optional[torch.device] = None
+        self._offload = ExecutorCache()
 
     @property
     def device(self) -> torch.device:
-        return self.dit.img_in.weight.device
+        return self.offload_device or self.dit.img_in.weight.device
 
     def initial_noise(self, spec: FlowSpec,
                       generator: torch.Generator) -> torch.Tensor:
-        """Unit normal latent noise [B, h, w, C] in fp32 on the device."""
+        """Unit normal latent noise [B, h, w, C] in fp32 on the
+        generator's device."""
         ds = self.vae.config.downscale
         shape = (spec.per_device_batch, spec.height // ds, spec.width // ds,
                  self.dit.config.in_channels)
         return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=self.device)
+                           device=generator.device)
 
     def _denoiser(self, context: torch.Tensor, pooled: torch.Tensor,
                   guidance: float, cfg: float = 1.0,
@@ -97,9 +112,10 @@ class FlowPipeline:
         return cfg_denoiser(make, context, uncond_context, cfg, y=pooled,
                             uncond_y=uncond_pooled)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device: Optional[torch.device] = None) -> None:
+        device = device or self.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     @torch.no_grad()
     def sample_and_decode(self, noise: torch.Tensor, spec: FlowSpec,
@@ -158,3 +174,78 @@ class FlowPipeline:
                                       progress_token,
                                       step_noise(seed, self.device),
                                       uncond_context, uncond_pooled)
+
+    # --- offload (diffusion/offload.py) ---------------------------------------
+
+    def offload_executor(self, resident_bytes: Optional[int] = None,
+                         stream_dtype: Optional[str] = None):
+        """Build or fetch the ``OffloadedFlux`` executor, cached by
+        (resident bytes, stream dtype, block source). One is kept: a build
+        under another key releases the previous store first."""
+        from .offload import ModuleBlocks, OffloadedFlux, normalize_stream_dtype
+
+        sd = normalize_stream_dtype(stream_dtype)
+        source = self.offload_source or ModuleBlocks(self.dit)
+        return self._offload.get(
+            "high", (resident_bytes, sd, id(source)),
+            lambda: OffloadedFlux(self.dit, source,
+                                  resident_bytes=resident_bytes,
+                                  device=self.offload_device, stream_dtype=sd))
+
+    def release_offload(self) -> None:
+        """Free the cached executor's store, if any."""
+        self._offload.release()
+
+    def offload_stores(self) -> list:
+        return self._offload.stores()
+
+    @torch.no_grad()
+    def generate_offloaded(self, spec: FlowSpec, seed: int,
+                           context: torch.Tensor, pooled: torch.Tensor,
+                           resident_bytes: Optional[int] = None,
+                           stream_dtype: Optional[str] = None,
+                           progress_token: Optional[int] = None,
+                           should_stop=None,
+                           noise: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """One image [1,H,W,3] in [0, 1] through the offload executor,
+        any sampler a step at a time, ``should_stop`` checked before every
+        step. Refused before anything is built: batch over 1, ``cfg !=
+        1``, and JAX's euler-only rule (``offload.require_ladder``).
+        ``noise`` replaces the seed's initial noise (a test hands over
+        JAX's)."""
+        from .offload import OffloadedFlux, require_ladder, sample_ladder
+
+        if spec.per_device_batch != 1 or context.shape[0] != 1:
+            raise ValueError(
+                "offloaded generation is single-image (batch 1): the "
+                "streamed weight window serves one latent at a time")
+        if spec.cfg != 1.0:
+            raise ValueError(
+                "true CFG (spec.cfg != 1.0) is not wired through the "
+                "offload executor: use cfg=1.0 with FLUX distilled "
+                "'guidance', or the dp path")
+        require_ladder(spec.sampler, OffloadedFlux.streams(
+            self.dit, resident_bytes, stream_dtype))
+        off = self.offload_executor(resident_bytes, stream_dtype)
+        dev = off.device
+        if noise is None:
+            noise = self.initial_noise(spec, seed_generator(seed, dev))
+        sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
+        context, pooled = context.to(dev), pooled.to(dev)
+        with pipeline_call(self, "flow_offload", lambda: self.timings):
+            t0 = time.perf_counter()
+            denoise = off.denoiser(context, pooled, spec.guidance)
+            if progress_token is not None:
+                denoise = wrap_denoiser(denoise, progress_token)
+            x0 = sample_ladder(spec.sampler, denoise, noise.to(dev), sigmas,
+                               step_noise(seed, dev), should_stop)
+            self._sync(dev)
+            t1 = time.perf_counter()
+            images = torch.clamp(self.vae.decode(x0) / 2.0 + 0.5, 0.0, 1.0)
+            self._sync(dev)
+            self.timings = {"sample_s": t1 - t0,
+                            "decode_s": time.perf_counter() - t1,
+                            "steps": len(sigmas) - 1,
+                            "streamed_bytes": off.streamed_bytes}
+        return images

@@ -24,8 +24,15 @@ model input is ``concat([x, mask, y])`` (``i2v_input_concat``).
 JAX's; ``generate``/``generate_i2v`` draw it from the seed. Each call
 runs under a ``pipeline_call`` span, and the synchronised sampling time
 per step lands in ``cdt_sampler_step_seconds``, read where the call
-synchronises for its own timings. The offloaded and the ``sp``/``tp``
-programs of the JAX pipeline are not ported (ROADMAP items A.5, A.6).
+synchronises for its own timings. The ``sp``/``tp`` programs of the JAX
+pipeline are not ported (ROADMAP item A.6).
+
+``generate_offloaded``/``generate_offloaded_i2v`` run one video through
+``OffloadedWan`` executors (``diffusion/offload.py``), one expert's store
+on the card at a time: a dual-expert run samples the high segment,
+synchronises, honours an interrupt, releases the high store and builds
+(or fetches) the low one. The noise and both segments' draws are the
+``dp`` run's of the seed.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch import nn
 from ..models.video_dit import pad_frames_4n1
 from ..parallel.rng import seed_generator, step_noise, step_seed
 from ..utils import constants
+from .offload import ExecutorCache, i2v_input_concat
 from .pipeline import pipeline_call
 from .progress import wrap_denoiser
 from .samplers import Denoiser, NoiseSource, sample
@@ -63,18 +71,6 @@ class VideoSpec:
         return pad_frames_4n1(self.frames)
 
 
-def i2v_input_concat(y: torch.Tensor, mask: torch.Tensor
-                     ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The i2v model input ``concat([x, mask, y])`` over the channel
-    axis, the conditioning broadcast over ``x``'s batch."""
-    def inp_fn(x: torch.Tensor) -> torch.Tensor:
-        lead = x.shape[:4]
-        return torch.cat([x, mask.expand(*lead, mask.shape[-1]),
-                          y.expand(*lead, y.shape[-1])], dim=-1)
-
-    return inp_fn
-
-
 class VideoPipeline:
     """The video transformer (``WanModel`` or ``VideoDiT``), an optional
     low-noise expert and the VAE on the transformer's device.
@@ -91,10 +87,16 @@ class VideoPipeline:
         self.expert_boundary = expert_boundary
         self.vae = vae
         self.timings: dict = {}
+        # offload: where each expert's blocks come from (an offload
+        # bundle sets its drawn blocks), the card its executors run on
+        # (default: the transformer's), and the executors by expert
+        self.offload_sources: dict = {}
+        self.offload_device: Optional[torch.device] = None
+        self._offload = ExecutorCache()
 
     @property
     def device(self) -> torch.device:
-        return next(self.dit.parameters()).device
+        return self.offload_device or next(self.dit.parameters()).device
 
     @property
     def is_moe(self) -> bool:
@@ -194,9 +196,10 @@ class VideoPipeline:
         return sample(spec.sampler, make_den(self.dit_low), x_mid,
                       sigmas[split:], noise_low)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device: Optional[torch.device] = None) -> None:
+        device = device or self.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     @torch.no_grad()
     def sample_and_decode(self, noise: torch.Tensor, spec: VideoSpec,
@@ -281,4 +284,150 @@ class VideoPipeline:
                                         progress_token,
                                         *self._noise_sources(seed), cond=cond)
         self.timings["encode_s"] = encode_s
+        return videos
+
+    # --- offload (diffusion/offload.py) ---------------------------------------
+
+    def offload_executor(self, which: str = "high",
+                         resident_bytes: Optional[int] = None,
+                         stream_dtype: Optional[str] = None):
+        """Build or fetch expert ``which``'s ``OffloadedWan`` (``"high"``:
+        ``dit``, ``"low"``: ``dit_low``), cached by (resident bytes, stream
+        dtype, block source); a build under another key releases that
+        expert's previous store first."""
+        from .offload import ModuleBlocks, OffloadedWan, normalize_stream_dtype
+
+        model = self.dit if which == "high" else self.dit_low
+        if model is None:
+            raise ValueError(f"no weights for expert {which!r}")
+        if not hasattr(model.config, "num_layers"):
+            raise ValueError(
+                f"offload runs WAN transformers; {type(model).__name__} has "
+                "no offload executor")
+        sd = normalize_stream_dtype(stream_dtype)
+        source = self.offload_sources.get(which) or ModuleBlocks(model)
+        return self._offload.get(
+            which, (resident_bytes, sd, id(source)),
+            lambda: OffloadedWan(model, source, resident_bytes=resident_bytes,
+                                 device=self.offload_device, stream_dtype=sd))
+
+    def release_offload(self) -> None:
+        self._offload.release()
+
+    def offload_stores(self) -> list:
+        return self._offload.stores()
+
+    @torch.no_grad()
+    def generate_offloaded(self, spec: VideoSpec, seed: int,
+                           context: torch.Tensor,
+                           resident_bytes: Optional[int] = None,
+                           stream_dtype: Optional[str] = None,
+                           progress_token: Optional[int] = None,
+                           should_stop=None,
+                           noise: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """One t2v video [1, F, H, W, 3] through the offload executors."""
+        return self._offloaded_sample(spec, seed, context, None,
+                                      resident_bytes, stream_dtype,
+                                      progress_token, should_stop, noise)
+
+    @torch.no_grad()
+    def generate_offloaded_i2v(self, spec: VideoSpec, seed: int,
+                               image: torch.Tensor, context: torch.Tensor,
+                               resident_bytes: Optional[int] = None,
+                               stream_dtype: Optional[str] = None,
+                               progress_token: Optional[int] = None,
+                               should_stop=None,
+                               noise: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+        """One i2v video from the start image [1, H, W, 3]: the concat of
+        ``i2v_condition``'s latents and mask on every model call."""
+        if image.shape[0] != 1:
+            raise ValueError("offloaded generation is single-video (batch 1)")
+        t0 = time.perf_counter()
+        cond = self.i2v_condition(image, spec)
+        self._sync()
+        encode_s = time.perf_counter() - t0
+        videos = self._offloaded_sample(spec, seed, context, cond,
+                                        resident_bytes, stream_dtype,
+                                        progress_token, should_stop, noise)
+        self.timings["encode_s"] = encode_s
+        return videos
+
+    def _offloaded_sample(self, spec: VideoSpec, seed: int, context, cond,
+                          resident_bytes, stream_dtype, progress_token,
+                          should_stop, noise) -> torch.Tensor:
+        from .offload import OffloadedWan, require_ladder, sample_ladder
+
+        if context.shape[0] != 1:
+            raise ValueError("offloaded generation is single-video (batch 1)")
+        # decided from the plans, before any expert is built
+        require_ladder(spec.sampler, any(
+            OffloadedWan.streams(m, resident_bytes, stream_dtype)
+            for m in (self.dit, self.dit_low) if m is not None))
+        dev = self.offload_device or self.device
+        sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
+        if noise is None:
+            noise = torch.randn(self.latent_shape(spec),
+                                generator=seed_generator(seed, dev),
+                                dtype=torch.float32, device=dev)
+        high_noise, low_noise = (step_noise(seed, dev),
+                                 step_noise(step_seed(seed, LOW_EXPERT_FOLD),
+                                            dev))
+        context = context.to(dev)
+        inp_fn = None if cond is None else i2v_input_concat(*cond)
+        calls: dict[str, int] = {}
+        timings: dict = {"calls": calls}
+        self.timings = timings
+
+        def run(which, x, sig, draws):
+            other = "low" if which == "high" else "high"
+            if other in self._offload.experts():
+                # one expert's store on the card at a time
+                self._sync(dev)
+                self._offload.evict(other)
+            if dev.type == "cuda":
+                timings.setdefault("allocated_before", {})[which] = \
+                    torch.cuda.memory_allocated(dev)
+            off = self.offload_executor(which, resident_bytes, stream_dtype)
+
+            def count():
+                calls[which] = calls.get(which, 0) + 1
+
+            den = off.denoiser(context, spec.guidance_scale, inp_fn, count)
+            if progress_token is not None:
+                den = wrap_denoiser(den, progress_token)
+            return sample_ladder(spec.sampler, den, x, sig, draws,
+                                 should_stop)
+
+        label = "video_offload" if cond is None else "video_i2v_offload"
+        with pipeline_call(self, label, lambda: self.timings):
+            t0 = time.perf_counter()
+            x = noise.to(dev)
+            split = self._expert_split(sigmas) if self.is_moe else None
+            steps = sigmas.shape[0] - 1
+            if split is None or split >= steps:
+                x0 = run("high", x, sigmas, high_noise)
+            elif split <= 0:
+                x0 = run("low", x, sigmas, high_noise)
+            else:
+                x_mid = run("high", x, sigmas[:split + 1], high_noise)
+                self._sync(dev)
+                if should_stop is not None and should_stop():
+                    # before the low expert is built
+                    raise InterruptedError(
+                        "offloaded two-expert sampling interrupted at the "
+                        "expert boundary")
+                self._offload.evict("high")
+                if dev.type == "cuda":
+                    timings["allocated_after_release"] = \
+                        torch.cuda.memory_allocated(dev)
+                x0 = run("low", x_mid, sigmas[split:], low_noise)
+            self._sync(dev)
+            t1 = time.perf_counter()
+            videos = self.decode_frames(x0)
+            self._sync(dev)
+            timings.update(sample_s=t1 - t0,
+                           decode_s=time.perf_counter() - t1,
+                           steps=steps)
         return videos

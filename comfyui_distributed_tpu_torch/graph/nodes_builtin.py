@@ -825,8 +825,10 @@ class TPUInpaint(NodeDef):
 class TPUFlowTxt2Img(NodeDef):
     """The rectified-flow sampler node (FLUX- and SD3-class DiT bundles;
     name kept for workflow compatibility). ``mode="dp"`` runs on the
-    bundle's device; the multi-device modes are not ported yet. ``cfg !=
-    1`` (SD3's true CFG) needs the ``negative`` conditioning."""
+    bundle's device, ``mode="offload"`` (or ``dp`` under ``CDT_OFFLOAD=1``)
+    through the offload executor, checking the interrupt between steps;
+    the multi-device modes are not ported yet. ``cfg != 1`` (SD3's true
+    CFG) needs the ``negative`` conditioning."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING",
@@ -837,14 +839,15 @@ class TPUFlowTxt2Img(NodeDef):
         "guidance": "FLOAT", "shift": "FLOAT", "mode": "STRING",
         "batch_per_device": "INT",
     }
-    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
+              "interrupt_event": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, steps: int, width: int,
                 height: int, negative=None, cfg: float = 1.0,
                 guidance: float = 3.5, shift=None, mode: str = "dp",
                 batch_per_device: int = 1, prompt_id: str = "",
-                progress_tracker=None, **_):
+                progress_tracker=None, interrupt_event=None, **_):
         from ..diffusion.pipeline_flow import FlowSpec
         from ..diffusion.progress import total_calls
 
@@ -852,8 +855,9 @@ class TPUFlowTxt2Img(NodeDef):
         spec = FlowSpec(height=int(height), width=int(width), steps=int(steps),
                         shift=_shift(model, shift), guidance=float(guidance),
                         cfg=float(cfg), per_device_batch=int(batch_per_device))
-        _observe_shape("flow_dp", model, spec.height, spec.width, spec.steps,
-                       batch=spec.per_device_batch)
+        if mode == "dp":
+            _observe_shape("flow_dp", model, spec.height, spec.width,
+                           spec.steps, batch=spec.per_device_batch)
         pipeline = model.pipeline
         pooled = positive.get("pooled")
         if pooled is None:
@@ -868,32 +872,50 @@ class TPUFlowTxt2Img(NodeDef):
                 f"cfg={spec.cfg} needs the 'negative' conditioning input "
                 "(true CFG); FLUX-dev distilled guidance uses cfg=1.0 "
                 "with 'guidance'", field="negative")
-        # as in the JAX package's dp branch, no should_stop: an interrupt
-        # takes effect before the next node
+        # as in the JAX package's dp branch, no should_stop there: an
+        # interrupt takes effect before the next node; the offloaded
+        # ladder checks it between steps in either CDT_OFFLOAD_LADDER mode
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(spec.sampler, spec.steps)) as ps:
-            images = pipeline.generate(spec, int(seed), positive["context"],
-                                       pooled, progress_token=ps.token,
-                                       **uncond)
+            if _offloaded(mode, model):
+                images = pipeline.generate_offloaded(
+                    spec, int(seed), positive["context"], pooled,
+                    progress_token=ps.token,
+                    should_stop=_stop_cb(interrupt_event))
+            else:
+                images = pipeline.generate(spec, int(seed),
+                                           positive["context"], pooled,
+                                           progress_token=ps.token, **uncond)
             ps.complete()
         return (images,)
 
 
 def _flow_mode(mode: str) -> None:
-    """The JAX flow node's modes other than ``dp`` are refused, naming
-    the ROADMAP item that ports each, as the video nodes' are."""
+    """The JAX flow node's ``sp`` and ``tp`` are refused, naming the
+    ROADMAP item that ports them, as the video nodes' ``sp`` is."""
     if mode in ("sp", "tp"):
         raise ValidationError(
             f"mode={mode!r} (one image over several cards) is not ported "
             "yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
-    if mode == "offload":
-        raise ValidationError(
-            "mode='offload' (fp8-resident weights) is not ported yet "
-            "(ROADMAP.md, item A.5: offload, 14)", field="mode")
-    if mode != "dp":
+    if mode not in ("dp", "offload"):
         raise ValidationError(f"unknown mode {mode!r}; the port runs "
-                              "mode='dp' on one device", field="mode")
+                              "mode='dp' or 'offload' on one device",
+                              field="mode")
+
+
+def _offloaded(mode: str, model) -> bool:
+    """``mode="offload"``, or ``dp`` under ``CDT_OFFLOAD=1`` (JAX's rule),
+    or ``dp`` on a bundle built for offload, which cannot run resident."""
+    from ..diffusion.offload import offload_enabled
+
+    return mode == "offload" or (mode == "dp" and (
+        offload_enabled() or getattr(model, "offload", False)))
+
+
+def _stop_cb(interrupt_event):
+    """The offloaded ladders' ``should_stop``: the executor's interrupt."""
+    return interrupt_event.is_set if interrupt_event is not None else None
 
 
 def _video_pooled_default(model, positive) -> torch.Tensor:
@@ -915,24 +937,21 @@ def _flatten_video_batch(videos: torch.Tensor) -> torch.Tensor:
 
 
 def _video_mode(mode: str) -> None:
-    """The JAX node's modes other than ``dp`` are refused, naming the
-    ROADMAP item that ports each."""
+    """The JAX node's ``sp`` is refused, naming the ROADMAP item that
+    ports it."""
     if mode == "sp":
         raise ValidationError(
             "mode='sp' (one video's frame blocks over several cards) is not "
             "ported yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
-    if mode == "offload":
-        raise ValidationError(
-            "mode='offload' (fp8-resident experts) is not ported yet "
-            "(ROADMAP.md, item A.5: offload, 14)", field="mode")
 
 
 @register_node("TPUTxt2Video")
 class TPUTxt2Video(NodeDef):
     """The text→video sampler node (WAN-class bundles; name kept for
     workflow compatibility): one seeded video on the bundle's device
-    (``mode="dp"``), flattened into an IMAGE batch of its frames. The
-    frame count pads to 4n+1."""
+    (``mode="dp"``; ``offload``, or ``dp`` under ``CDT_OFFLOAD=1``, through
+    the offload executors), flattened into an IMAGE batch of its frames.
+    The frame count pads to 4n+1."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING",
@@ -940,13 +959,14 @@ class TPUTxt2Video(NodeDef):
         "width": "INT", "height": "INT",
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
-    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
+              "interrupt_event": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, frames: int, steps: int,
                 width: int, height: int, cfg: float = 1.0, shift=None,
                 mode: str = "dp", prompt_id: str = "",
-                progress_tracker=None, **_):
+                progress_tracker=None, interrupt_event=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
@@ -955,15 +975,24 @@ class TPUTxt2Video(NodeDef):
                          width=int(width), steps=int(steps),
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
-        _observe_shape("video_dp", model, spec.height, spec.width,
-                       spec.steps, frames=spec.frames)
+        if mode == "dp":
+            _observe_shape("video_dp", model, spec.height, spec.width,
+                           spec.steps, frames=spec.frames)
         pooled = _video_pooled_default(model, positive)
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(spec.sampler, spec.steps)) as ps:
-            videos = model.pipeline.generate(spec, int(seed),
-                                             positive["context"], pooled,
-                                             progress_token=ps.token)
+            if _offloaded(mode, model):
+                # fp8-resident (or streamed) experts, one on the card at a
+                # time (diffusion/offload.OffloadedWan)
+                videos = model.pipeline.generate_offloaded(
+                    spec, int(seed), positive["context"],
+                    progress_token=ps.token,
+                    should_stop=_stop_cb(interrupt_event))
+            else:
+                videos = model.pipeline.generate(spec, int(seed),
+                                                 positive["context"], pooled,
+                                                 progress_token=ps.token)
             ps.complete()
         return (_flatten_video_batch(videos),)
 
@@ -980,12 +1009,14 @@ class TPUImg2Video(NodeDef):
         "seed": "INT", "frames": "INT", "steps": "INT",
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
-    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*"}
+    HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
+              "interrupt_event": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, image, seed: int, frames: int,
                 steps: int, cfg: float = 1.0, shift=None, mode: str = "dp",
-                prompt_id: str = "", progress_tracker=None, **_):
+                prompt_id: str = "", progress_tracker=None,
+                interrupt_event=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
@@ -1004,15 +1035,22 @@ class TPUImg2Video(NodeDef):
                          width=int(image.shape[2]), steps=int(steps),
                          shift=_shift(model, shift),
                          guidance_scale=float(cfg))
-        _observe_shape("video_dp", model, spec.height, spec.width,
-                       spec.steps, frames=spec.frames)
+        if mode == "dp":
+            _observe_shape("video_dp", model, spec.height, spec.width,
+                           spec.steps, frames=spec.frames)
         pooled = _video_pooled_default(model, positive)
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(spec.sampler, spec.steps)) as ps:
-            videos = model.pipeline.generate_i2v(
-                spec, int(seed), image[:1], positive["context"], pooled,
-                progress_token=ps.token)
+            if _offloaded(mode, model):
+                videos = model.pipeline.generate_offloaded_i2v(
+                    spec, int(seed), image[:1], positive["context"],
+                    progress_token=ps.token,
+                    should_stop=_stop_cb(interrupt_event))
+            else:
+                videos = model.pipeline.generate_i2v(
+                    spec, int(seed), image[:1], positive["context"], pooled,
+                    progress_token=ps.token)
             ps.complete()
         return (_flatten_video_batch(videos),)
 

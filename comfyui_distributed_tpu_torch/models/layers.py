@@ -210,25 +210,34 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     Parameters this function does not know (e.g. ``pos_emb``) are left to
     their module's own ``reset_parameters``-style hook ``flax_init``."""
     for sub in module.modules():
-        if isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
-            fan_in = sub.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC
-            w = torch.empty(sub.weight.shape, dtype=torch.float32,
-                            device=sub.weight.device)
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            sub.weight.copy_(w)
-            if sub.bias is not None:
-                sub.bias.zero_()
-        elif isinstance(sub, nn.Embedding):
-            w = torch.empty(sub.weight.shape, dtype=torch.float32,
-                            device=sub.weight.device)
-            w.normal_(0.0, sub.embedding_dim ** -0.5, generator=generator)
-            sub.weight.copy_(w)
-        elif isinstance(sub, (nn.LayerNorm, nn.GroupNorm)):
-            sub.weight.fill_(1.0)
-            sub.bias.zero_()
-        hook = getattr(sub, "flax_init", None)
-        if hook is not None:
-            hook(generator)
+        flax_init_one(sub, generator)
     return module
+
+
+@torch.no_grad()
+def flax_init_one(sub: nn.Module, generator: torch.Generator) -> None:
+    """``flax_init_`` of ``sub``'s own parameters alone (its hook, not its
+    children's): the draws of ``flax_init_``'s visit of ``sub``, so that
+    a module initialised part by part, in ``modules()`` order, draws the
+    same numbers as one initialised whole."""
+    if isinstance(sub, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+        fan_in = sub.weight[0].numel()
+        std = math.sqrt(1.0 / fan_in) / _TRUNC
+        w = torch.empty(sub.weight.shape, dtype=torch.float32,
+                        device=sub.weight.device)
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        sub.weight.copy_(w)
+        if sub.bias is not None:
+            sub.bias.zero_()
+    elif isinstance(sub, nn.Embedding):
+        w = torch.empty(sub.weight.shape, dtype=torch.float32,
+                        device=sub.weight.device)
+        w.normal_(0.0, sub.embedding_dim ** -0.5, generator=generator)
+        sub.weight.copy_(w)
+    elif isinstance(sub, (nn.LayerNorm, nn.GroupNorm)):
+        sub.weight.fill_(1.0)
+        sub.bias.zero_()
+    hook = getattr(sub, "flax_init", None)
+    if hook is not None:
+        hook(generator)

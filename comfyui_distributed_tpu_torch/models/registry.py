@@ -70,6 +70,18 @@ lecun-normal like every other, so that a random-init FLUX image depends
 on every block and on its attention kernel. WAN zero-initialises
 nothing; a dual-expert bundle draws its low expert from a generator of
 its own (``parallel/rng.expert_seed``).
+
+A registry made with ``offload`` (default ``CDT_OFFLOAD``) builds FLUX-class
+DiT and WAN bundles for ``diffusion/offload.py``: the core is built on the
+``meta`` device, its glue (embedders, head) drawn on the card, and each
+transformer block drawn, its generator state saved (``DrawnBlocks``) and
+dropped, so the bf16 blocks are never whole on the card. The offload
+executor draws each block again from its state, quantises it and places
+it: the same numbers as the resident bundle of the same preset and seed
+(the same draws, in the same order, on the same device). A
+checkpoint-backed offload bundle allocates its transformer(s) in host
+memory and loads them there (``core_home``), to be read block by block:
+the card never holds them whole, not even while loading.
 """
 
 from __future__ import annotations
@@ -99,7 +111,7 @@ from .controlnet import ControlNetBundle, init_controlnet
 from .dit import DiT, DiTConfig
 from .from_jax import load_from_jax
 from .t5 import FluxTextStack, SD3TextStack, T5Encoder, UMT5Conditioner
-from .layers import flax_init_
+from .layers import flax_init_, flax_init_one
 from .text import TextEncoder, TextEncoderConfig, TextTransformer
 from .unet import UNet2D, UNetConfig
 from .upscaler import PRESETS as UPSCALER_PRESETS
@@ -224,6 +236,80 @@ def _random(build: Callable[[], nn.Module], device: torch.device,
     return module
 
 
+def offloadable(preset: ModelPreset) -> bool:
+    """Whether the preset's core runs through an offload executor: a
+    FLUX-class DiT (RoPE or sinusoidal positions) or a WAN transformer."""
+    if preset.kind == "dit":
+        return preset.dit.pos_embed in ("rope", "sincos")
+    return preset.kind == "video" and isinstance(preset.video, WanConfig)
+
+
+def core_home(device: torch.device, offload: bool,
+              empty_core: bool) -> torch.device:
+    """Where a bundle allocates its transformer(s): host memory for a
+    checkpoint-backed offload bundle (the offload executors read it block
+    by block; a random-init one draws its blocks with ``DrawnBlocks``),
+    else the bundle's device."""
+    return torch.device("cpu") if offload and empty_core else device
+
+
+def offload_prefixes(core: nn.Module) -> tuple:
+    return ("block",) if isinstance(core, WanModel) else ("double", "single")
+
+
+class DrawnBlocks:
+    """An offload bundle's transformer blocks (a block source of
+    ``diffusion/offload.py``). The core is built on ``meta``; its own
+    parameters and its glue are drawn on ``device`` and stay there; each
+    block is drawn there in turn, the generator's state before it saved,
+    and dropped. ``block_params`` draws a block again from its state:
+    part by part in ``modules()`` order, these are ``flax_init_``'s draws
+    of the whole core."""
+
+    def __init__(self, build: Callable[[], nn.Module], device: torch.device,
+                 generator: torch.Generator):
+        from ..diffusion.offload import block_names
+
+        with torch.device("meta"):
+            core = build()
+        core.eval().requires_grad_(False)
+        self.core, self.device = core, device
+        self.states: dict[str, torch.Tensor] = {}
+        self._lock = threading.Lock()
+        blocks = set(block_names(core, offload_prefixes(core)))
+        with torch.no_grad():
+            for pname, p in list(core._parameters.items()):
+                if p is not None:
+                    core._parameters[pname] = nn.Parameter(
+                        torch.empty_like(p, device=device),
+                        requires_grad=False)
+            flax_init_one(core, generator)
+            for name, child in core.named_children():
+                child.to_empty(device=device)
+                if name in blocks:
+                    self.states[name] = generator.get_state()
+                flax_init_(child, generator)
+                if name in blocks:
+                    child.to("meta")
+
+    def block_params(self, name: str, device) -> dict[str, torch.Tensor]:
+        """Block ``name`` drawn again on the bundle's device (held there
+        until ``done``), its parameters moved to ``device``."""
+        with self._lock:
+            child = getattr(self.core, name)
+            child.to_empty(device=self.device)
+            gen = torch.Generator(device=self.device)
+            gen.set_state(self.states[name])
+            with torch.no_grad():
+                flax_init_(child, gen)
+            return {n: p.detach().to(device)
+                    for n, p in child.named_parameters()}
+
+    def done(self, name: str) -> None:
+        with self._lock:
+            getattr(self.core, name).to("meta")
+
+
 def preset_for_checkpoint(preset: ModelPreset,
                           ckpt: Optional[Path]) -> ModelPreset:
     """``preset`` with the depths of ``ckpt``, read before anything is
@@ -301,10 +387,14 @@ class ModelBundle:
     released = False
 
     def __init__(self, preset: ModelPreset, device: DeviceLike = None,
-                 seed: int = 0, empty_core: bool = False):
+                 seed: int = 0, empty_core: bool = False,
+                 offload: bool = False):
         self.preset = preset
         self.device = resolve_device(device)
         self.seed = int(seed)
+        # built for the offload executors (module docstring)
+        self.offload = bool(offload) and offloadable(preset)
+        drawn: dict[str, DrawnBlocks] = {}
         self.clip_stack: Optional[nn.Module] = None
         self._weights_source: Optional[Path] = None
         gen = seed_generator(seed, self.device)
@@ -319,9 +409,15 @@ class ModelBundle:
                         else VideoDiT(preset.video))
             return DiT(preset.dit) if kind == "dit" else UNet2D(preset.unet)
 
-        def core_from(generator: torch.Generator) -> nn.Module:
-            return (_empty(build_core, self.device) if empty_core
-                    else _random(build_core, self.device, generator))
+        def core_from(generator: torch.Generator,
+                      which: str = "high") -> nn.Module:
+            if empty_core:
+                return _empty(build_core, core_home(self.device, self.offload,
+                                                    empty_core))
+            if self.offload:
+                drawn[which] = DrawnBlocks(build_core, self.device, generator)
+                return drawn[which].core
+            return _random(build_core, self.device, generator)
         core = core_from(gen)
         if isinstance(preset.vae, WanVAEConfig):
             vae = _random(lambda: WanVAE3D(preset.vae), self.device, gen)
@@ -333,11 +429,18 @@ class ModelBundle:
             low = None
             if preset.moe_boundary is not None:
                 low = core_from(seed_generator(expert_seed(seed, 1),
-                                               self.device))
+                                               self.device), "low")
             self.pipeline = VideoPipeline(core, vae, low, preset.moe_boundary)
+            self.pipeline.offload_sources.update(drawn)
         else:
             self.pipeline = (FlowPipeline if kind == "dit"
                              else Txt2ImgPipeline)(core, vae)
+            if drawn:
+                self.pipeline.offload_source = drawn["high"]
+        if self.offload and empty_core:
+            # the core is in host memory (core_home); the executors and
+            # the rest of the pipeline run on the bundle's device
+            self.pipeline.offload_device = self.device
         self._stamp_text_encoder()
 
     @property
@@ -430,6 +533,31 @@ class ModelBundle:
         self._stamp_text_encoder()
         return self.clip_stack
 
+    def offload_planned_bytes(self) -> int:
+        """Card bytes an offload bundle's store takes at the knobs'
+        defaults, one expert's at a time: its resident blocks and, when
+        any stream, two slots of the largest block (0 for other
+        bundles)."""
+        if not self.offload:
+            return 0
+        from ..diffusion.offload import (GLUE_KEYS, WAN_GLUE_KEYS,
+                                         block_packed_bytes, plan_offload,
+                                         resident_budget_bytes)
+
+        budget, most = resident_budget_bytes(), 0
+        for core in (self.core, getattr(self.pipeline, "dit_low", None)):
+            if core is None:
+                continue
+            prefixes = offload_prefixes(core)
+            glue = WAN_GLUE_KEYS if prefixes == ("block",) else GLUE_KEYS
+            plan = plan_offload(core, budget, None, prefixes, glue)
+            held = plan["resident_bytes"] - plan["glue_bytes"]
+            if plan["streamed"]:
+                held += 2 * max(block_packed_bytes(getattr(core, n), True)
+                                for n in plan["streamed"])
+            most = max(most, held)
+        return most
+
     def device_modules(self) -> list[nn.Module]:
         """Every module whose parameters the bundle holds on its device:
         the denoiser (and a dual-expert bundle's low expert), the VAE and
@@ -452,8 +580,11 @@ class ModelBundle:
         a caller still holds this object, which cannot compute any more
         (``released``); the registry builds the preset again on its next
         ``get``. The JAX package keeps host copies and uploads again;
-        the port keeps none. Offload stores (JAX ``release_store``) come
-        with ROADMAP A.5."""
+        the port keeps none. The pipeline's offload stores are released
+        first (JAX ``release_store``)."""
+        release = getattr(self.pipeline, "release_offload", None)
+        if release is not None:
+            release()
         for module in self.device_modules():
             module.to("meta")
         clones = getattr(self.pipeline, "_control_clones", None)
@@ -722,9 +853,16 @@ class ModelRegistry:
 
     def __init__(self, device: DeviceLike = None, seed: int = 0,
                  checkpoint_root: Union[str, Path, None] = None,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None,
+                 offload: Optional[bool] = None):
         self.device = resolve_device(device)
         self.seed = int(seed)
+        if offload is None:
+            from ..diffusion.offload import offload_enabled
+
+            offload = offload_enabled()
+        # FLUX-class and WAN bundles built for the offload executors
+        self.offload = bool(offload)
         root = checkpoint_root or constants.checkpoint_root()
         self.checkpoint_root = Path(root) if root else None
         self._cache: dict[str, ModelBundle] = {}
@@ -863,7 +1001,8 @@ class ModelRegistry:
                 preset = preset_for_checkpoint(
                     preset, pair[0] if pair else ckpt)
                 bundle = ModelBundle(preset, self.device, self.seed,
-                                     empty_core=ckpt is not None)
+                                     empty_core=ckpt is not None,
+                                     offload=self.offload)
                 if pair:
                     bundle.load_safetensors_moe(*pair)
                 elif ckpt is not None and ckpt.is_dir():
@@ -874,7 +1013,8 @@ class ModelRegistry:
                 self.builds += 1
                 log(f"built {name} on {self.device} in "
                     f"{self._synced(t0):.2f} s "
-                    f"({ckpt or f'random init, seed {self.seed}'})")
+                    f"({ckpt or f'random init, seed {self.seed}'}"
+                    f"{', for offload' if bundle.offload else ''})")
             bundle = self._cache[name]
             if self.residency is not None:
                 try:

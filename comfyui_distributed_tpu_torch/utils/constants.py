@@ -430,6 +430,62 @@ def hbm_budget_gb() -> float:
     return _read("CDT_HBM_BUDGET_GB", 0.0, float)
 
 
+# --- offload (diffusion/offload.py) ---------------------------------------------
+
+F8_NAME = "float8_e4m3fn"
+# the stream dtype's spellings, as the JAX package accepts them
+_STREAM_DTYPES = {"fp8": F8_NAME, "f8": F8_NAME, "float8": F8_NAME,
+                  F8_NAME: F8_NAME, "native": "native", "bfloat16": "native",
+                  "bf16": "native", "exact": "native"}
+
+
+def stream_dtype_name(raw: str) -> str:
+    """The canonical name of a stream dtype spelling: ``float8_e4m3fn``
+    or ``native`` (``bfloat16``/``bf16``/``exact`` leave every leaf in its
+    own dtype, they cast nothing)."""
+    try:
+        return _STREAM_DTYPES[raw]
+    except KeyError:
+        raise ValueError(f"unknown CDT_OFFLOAD_STREAM_DTYPE {raw!r} (use "
+                         f"{F8_NAME!r} or 'native')") from None
+
+
+def offload() -> Optional[bool]:
+    """Offloaded execution of FLUX- and WAN-class bundles forced on or off;
+    unset: the caller's default (off on every server path)."""
+    return _read("CDT_OFFLOAD", None, _bool)
+
+
+def offload_resident_gb() -> float:
+    """Card memory an offload executor keeps its blocks resident in (GB);
+    the blocks past it stream from the host. The default is the JAX
+    package's, sized there for a TPU chip."""
+    return _read("CDT_OFFLOAD_RESIDENT_GB", 13.0, float)
+
+
+def offload_stream_dtype() -> str:
+    """``float8_e4m3fn`` (block matrices quantised, one scale per output
+    channel) or ``native`` (every leaf as it is)."""
+    return _read("CDT_OFFLOAD_STREAM_DTYPE", F8_NAME, stream_dtype_name)
+
+
+def offload_ladder() -> str:
+    """How a fully resident offload executor runs its ladder: ``jit``
+    (any sampler, interruptible only at the expert boundary) or ``step``
+    (euler, checked for an interrupt before every step)."""
+    def parse(raw: str) -> str:
+        if raw not in ("jit", "step"):
+            raise ValueError("expected 'jit' or 'step'")
+        return raw
+
+    return _read("CDT_OFFLOAD_LADDER", "jit", parse)
+
+
+def offload_cache_dir() -> Optional[str]:
+    """Directory of the quantised-block cache (unset or empty: none)."""
+    return _read("CDT_OFFLOAD_CACHE_DIR", None, str)
+
+
 # --- step-granular preemption (cluster/preemption.py) ------------------------------
 
 

@@ -199,10 +199,9 @@ def test_flux_workflow_runs_through_port_executor(tmp_path):
     assert not torch.equal(ex.execute(prompt)["5"][0], images)
 
 
-@pytest.mark.parametrize("mode,item", [("sp", "A.6"), ("offload", "A.5"),
-                                       ("tp", "A.6")])
+@pytest.mark.parametrize("mode,item", [("sp", "A.6"), ("tp", "A.6")])
 def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
-    """Each mode other than ``dp`` is refused as a ``ValidationError`` on
+    """Each multi-card mode is refused as a ``ValidationError`` on
     ``mode`` that names the ROADMAP item porting it, as the video nodes'
     refusals do (a bare ``NotImplementedError`` named none)."""
     from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
@@ -213,12 +212,25 @@ def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
     assert err.value.field == "mode" and f"item {item}" in str(err.value)
 
 
+def test_flux_workflow_runs_offloaded(tmp_path):
+    """``mode: "offload"`` (refused until ROADMAP A.5) runs the workflow
+    through the fp8 offload executor: an image of the same shape close to
+    the ``dp`` one, and ``native`` equal to it."""
+    ex = _executor(tmp_path)
+    dp = ex.execute(_workflow(width=16, height=16, steps=2))["5"][0]
+    fp8 = ex.execute(_workflow(width=16, height=16, steps=2,
+                               mode="offload"))["5"][0]
+    assert fp8.shape == dp.shape == (1, 16, 16, 3)
+    assert torch.isfinite(fp8).all() and not torch.equal(fp8, dp)
+    assert (fp8 - dp).abs().max() < 0.25
+
+
 def test_flow_node_refuses_other_modes_before_touching_the_model():
     """The refusal needs no bundle: it comes before the spec is built."""
     from comfyui_distributed_tpu_torch.graph.nodes_builtin import TPUFlowTxt2Img
     from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 
-    for mode in ("sp", "tp", "offload", "ring"):
+    for mode in ("sp", "tp", "ring"):
         with pytest.raises(ValidationError) as err:
             TPUFlowTxt2Img().execute(None, {}, 0, 1, 16, 16, mode=mode)
         assert err.value.field == "mode"

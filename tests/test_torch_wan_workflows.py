@@ -7,8 +7,8 @@
 - both served by a master and a ``remote`` worker controller on loopback
   ports: one IMAGE batch of two videos, ``*_v0`` the master's (seed),
   ``*_v1`` the worker's (seed + 1), each equal to its direct video;
-- the nodes' refusals (``sp``, ``offload``, i2v on a t2v architecture)
-  and their defaults (shift, pooled vector);
+- the nodes' refusals (``sp``, i2v on a t2v architecture), their
+  ``offload`` runs and their defaults (shift, pooled vector);
 - weights: WAN 2.2's ``.high``/``.low`` files through ``convert
   --checkpoint-low`` and restore, loaded directly by name, the
   incomplete pair refused; a UMT5 file and a WAN file cut in depth
@@ -16,6 +16,7 @@
 
 import dataclasses
 import json
+import os
 import socket
 import time
 import urllib.error
@@ -226,8 +227,7 @@ def test_served_frames_equal_direct(cluster, direct, registry, monkeypatch):
 
 
 @pytest.mark.parametrize("node,mode,item", [
-    (TPUTxt2Video, "sp", "A.6"), (TPUTxt2Video, "offload", "A.5"),
-    (TPUImg2Video, "sp", "A.6"), (TPUImg2Video, "offload", "A.5")])
+    (TPUTxt2Video, "sp", "A.6"), (TPUImg2Video, "sp", "A.6")])
 def test_video_nodes_refuse_unported_modes(registry, node, mode, item):
     bundle = registry.get("wan-i2v-tiny")
     ctx, _ = bundle.text_encoder.encode(["a"])
@@ -238,6 +238,34 @@ def test_video_nodes_refuse_unported_modes(registry, node, mode, item):
         args.update(width=HW, height=HW)
     with pytest.raises(ValidationError, match=item):
         node().execute(bundle, {"context": ctx}, **args)
+
+
+@pytest.mark.parametrize("node", [TPUTxt2Video, TPUImg2Video])
+def test_video_nodes_run_offloaded(registry, node):
+    """``mode="offload"`` (refused until ROADMAP A.5) runs the node
+    through the offload executor: ``native`` blocks give the ``dp``
+    video."""
+    name = "wan-i2v-tiny" if node is TPUImg2Video else "wan-tiny"
+    bundle = registry.get(name)
+    ctx, _ = bundle.text_encoder.encode(["a"])
+    args = dict(seed=1, frames=FRAMES, steps=2, cfg=3.0)
+    if node is TPUImg2Video:
+        args["image"] = torch.full((1, HW, HW, 3), 0.4)
+    else:
+        args.update(width=HW, height=HW)
+    (dp,) = node().execute(bundle, {"context": ctx}, **args)
+    old = os.environ.get("CDT_OFFLOAD_STREAM_DTYPE")
+    os.environ["CDT_OFFLOAD_STREAM_DTYPE"] = "native"
+    try:
+        (off,) = node().execute(bundle, {"context": ctx}, mode="offload",
+                                **args)
+    finally:
+        if old is None:
+            os.environ.pop("CDT_OFFLOAD_STREAM_DTYPE")
+        else:
+            os.environ["CDT_OFFLOAD_STREAM_DTYPE"] = old
+    assert off.shape == dp.shape
+    torch.testing.assert_close(off, dp, atol=2e-4, rtol=2e-4)
 
 
 def test_i2v_node_refuses_a_t2v_architecture(registry):
