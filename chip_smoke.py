@@ -2799,12 +2799,15 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
     img2img + ControlNet graph, the ControlNet tile upscale, the audio
     workflow and the video upscale once each,
     through ``POST /distributed/queue`` to a master in this process and a
-    ``remote`` worker subprocess with an input directory of its own;
-    returns the master's launches in the phase."""
+    ``remote`` worker subprocess with an input directory of its own, with
+    leg A of the elastic fleet (``drain_leg``) after the upscale; returns
+    the master's launches of the phase and of the leg by path."""
     import shutil
     from unittest import mock
 
     from comfyui_distributed_tpu_torch.cluster import orchestration
+    from comfyui_distributed_tpu_torch.cluster.elastic.states import DRAIN
+    from comfyui_distributed_tpu_torch.cluster.resilience import BREAKERS
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
     from comfyui_distributed_tpu_torch.utils.frames import pack_frame
     from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
@@ -2893,6 +2896,10 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         say(f"  media sync before the served upscale: {report}; the "
             "worker's input.png byte-identical to the master's")
         launches = dict(fa.LAUNCHES)
+        try:
+            drained = drain_leg(torch, fa, served, up)
+        finally:
+            DRAIN.reset()
         fa.reset_launches()
         serve_img2img(torch, fa, base, master_out, control, reports)
         launches = {k: launches[k] + fa.LAUNCHES[k] for k in launches}
@@ -2906,10 +2913,20 @@ def serve_phase(torch, fa, sdxl: PathRun, up: UpscaleRun,
         fa.reset_launches()
         video_launches = serve_video(torch, fa, base, master_out, video,
                                      reports)
-    return {k: launches[k] + video_launches[k] for k in launches}
+        require(BREAKERS.state("w0") == "closed",
+                "the served requests after leg A's rolling restart left "
+                f"w0's breaker {BREAKERS.state('w0')}")
+    return {"serve": {k: launches[k] + video_launches[k] for k in launches},
+            "elastic_drain": drained}
 
 
 UPSCALE_HOLDBACK_S = 120.0   # the master waits this long for the worker's pull
+# leg A (the elastic fleet): w0 is drained while it holds a 4-tile chunk
+# (about 2.5 s on the card), with a deadline well below it, so the chunk
+# is handed back; an arrival in this process steals with job_id "*"
+DRAIN_DEADLINE_S = 0.5
+STEAL_ID = "w-steal"
+DRAIN_WAIT_S = 60.0          # the drain's decommission after its deadline
 
 
 def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
@@ -2974,6 +2991,218 @@ def serve_upscale(torch, fa, base: str, worker_port: int, master_out: Path,
         f"master launches {counts}; PNG bitwise equal to the direct upscale; "
         f"peak memory master {master_peak / 2**30:.3f} GiB (this request), "
         f"worker {peak / 2**30:.3f} GiB (its process)")
+
+
+class CapturedPlan:
+    """A tile farm that keeps a worker's process function and runs nothing:
+    the USDU node, run as a worker, hands it the range plan's
+    ``run_range``, as a dispatched worker's graph builds it."""
+
+    def __init__(self):
+        self.fn = None
+
+    def worker_run(self, job_id, worker_id, master_url, process_fn):
+        self.fn = process_fn
+        return 0
+
+
+def steal_plan(registry, input_dir: Path, base: str):
+    """The upscale workflow's tile process function over the in-process
+    SDXL bundle: nodes 1–5 run as the worker ``STEAL_ID`` would run them
+    (ESRGAN, the two text encodes, the range plan)."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import topo_order
+
+    prompt = upscale_workflow()
+    capture = CapturedPlan()
+    executor = GraphExecutor({
+        "model_registry": registry, "input_dir": str(input_dir),
+        "is_worker": True, "worker_id": STEAL_ID, "master_url": base,
+        "multi_job_id": "steal_plan", "tile_farm": capture})
+    order = topo_order(prompt)
+    executor.execute_nodes(prompt, order[:order.index("5") + 1], {})
+    require(capture.fn is not None, "the USDU node built no tile plan")
+    return capture.fn
+
+
+def metric(base: str, sample: str) -> float:
+    status, text = http_raw(base + "/distributed/metrics")
+    require(status == 200, f"metrics answered {status}")
+    return prometheus_samples(text.decode()).get(sample, 0.0)
+
+
+def drain_leg(torch, fa, served: Served, up: UpscaleRun) -> dict:
+    """Leg A of the elastic fleet: a second served upscale. The worker w0
+    is drained (``POST /distributed/worker/w0/drain``) while it holds a
+    chunk, with a deadline below a chunk's time, so the chunk is handed
+    back; meanwhile this process steals with ``TileFarm.worker_steal_run``
+    as the arrival ``STEAL_ID`` (``job_id="*"``), its tiles on the
+    in-process bundle. The PNG must be bitwise the direct upscale; then
+    w0 is undrained (the rolling restart) and the later served requests
+    go to it again. Returns the master's launches in the leg (the master
+    and the arrival share this process)."""
+    import asyncio
+    import threading
+
+    from comfyui_distributed_tpu_torch.cluster.elastic.states import DRAIN
+    from comfyui_distributed_tpu_torch.cluster.job_store import JobStore
+    from comfyui_distributed_tpu_torch.cluster.resilience import BREAKERS
+    from comfyui_distributed_tpu_torch.cluster.tile_farm import TileFarm
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+
+    master, base, master_out = served.master, served.base, served.master_out
+    store = master.store
+
+    def on_master(coro):
+        return asyncio.run_coroutine_threadsafe(coro, master.loop).result(30)
+
+    t_leg = time.perf_counter()
+    run_range = steal_plan(master.model_registry, up.input_dir, base)
+    plan_s = time.perf_counter() - t_leg
+    for png in master_out.glob("*.png"):
+        png.unlink()
+    # every grant of the store, in order: (worker, job, task)
+    grants = []
+    grant = store._grant_locked
+
+    def recording(job, worker_id):
+        task = grant(job, worker_id)
+        if task is not None:
+            grants.append((worker_id, job.job_id, task["task_id"]))
+        return task
+
+    steal_loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=steal_loop.run_forever, daemon=True)
+    loop_thread.start()
+    farm = TileFarm(JobStore(), steal_loop)
+    stolen: dict = {}
+    steal_thread = None
+    handbacks0 = metric(base, "cdt_drain_handbacks_total")
+    steals0 = metric(base, 'cdt_steal_assignments_total{kind="stolen"}')
+    store._grant_locked = recording
+    os.environ["CDT_TILE_MASTER_HOLDBACK_S"] = str(UPSCALE_HOLDBACK_S)
+    try:
+        fa.reset_launches()
+        before_cuda = dict(fa.CUDA_LAUNCHES)
+        t0 = time.perf_counter()
+        status, answer = http_json(base + "/distributed/queue",
+                                   {"prompt": upscale_workflow()}, timeout=120)
+        require(status == 200 and answer.get("worker_count") == 1,
+                f"leg A: queue answered {status}: {answer}")
+        job_id = f"{answer['trace_id']}_5"
+        while True:
+            held = on_master(store.worker_held_tasks("w0"))
+            if held.get(job_id):
+                break
+            require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                    "leg A: w0 never held a task of the upscale")
+            time.sleep(0.05)
+        t_drain = time.perf_counter()
+        drained_at = len(grants)
+        status, report = http_json(base + "/distributed/worker/w0/drain",
+                                   {"deadline_s": DRAIN_DEADLINE_S,
+                                    "stop_process": False})
+        require(status == 200 and report.get("status") == "draining",
+                f"leg A: drain answered {status}: {report}")
+
+        def steal():
+            stolen.update(farm.worker_steal_run(
+                STEAL_ID, base,
+                lambda jid: run_range if jid == job_id else None))
+
+        steal_thread = threading.Thread(target=steal, daemon=True)
+        steal_thread.start()
+        while True:
+            status, elastic = http_json(base + "/distributed/elastic")
+            report = elastic["drain"]["reports"].get("w0", {})
+            if report.get("phase") == "decommissioned":
+                break
+            require(time.perf_counter() - t_drain < DRAIN_WAIT_S,
+                    f"leg A: the drain did not end: {report}")
+            time.sleep(0.05)
+        decommission_s = time.perf_counter() - t_drain
+        refusal = http_json(base + "/distributed/request_image",
+                            {"job_id": "*", "worker_id": "w0"})
+        drain_gauge = metric(base, 'cdt_worker_drain_state{worker="w0"}')
+        entry = wait_history(base, answer["prompt_id"], t0, "leg A upscale")
+        secs = time.perf_counter() - t0
+        steal_thread.join(SERVE_REQUEST_S)
+        require(not steal_thread.is_alive(), "leg A: the steal loop never ended")
+    finally:
+        store._grant_locked = grant
+        del os.environ["CDT_TILE_MASTER_HOLDBACK_S"]
+        if steal_thread is not None:
+            steal_thread.join(DRAIN_WAIT_S)
+        steal_loop.call_soon_threadsafe(steal_loop.stop)
+        loop_thread.join(30)
+        steal_loop.close()
+    require(entry["status"] == "success", f"leg A upscale: {entry}")
+    counts = dict(fa.LAUNCHES)
+    kernel_counts = {k: fa.CUDA_LAUNCHES[k] - before_cuda[k]
+                     for k in fa.CUDA_LAUNCHES}
+    status, summary = http_json(f"{base}/distributed/queue_status/{job_id}")
+    require(status == 200 and summary.get("finished"),
+            f"leg A tile job status {status}: {summary}")
+    owners = summary["completed_by"]
+    held_at_start = report["held_at_start"].get(job_id, [])
+    handed = report["handed_back"].get(job_id, [])
+    mine = sum(1 for w, j, _ in grants if w == "master" and j == job_id)
+    theirs = sum(1 for w, j, _ in grants if w == STEAL_ID and j == job_id)
+    late = [g for g in grants[drained_at:] if g[0] == "w0"]
+    handbacks = metric(base, "cdt_drain_handbacks_total") - handbacks0
+    steals = metric(base, 'cdt_steal_assignments_total{kind="stolen"}') - steals0
+    require(len(owners) == UPSCALE_TILES // UPSCALE_CHUNK
+            and not summary["dead_letter"],
+            f"leg A tile tasks: {summary}")
+    require(summary["requeue_counts"] == {},
+            f"leg A: requeue counts {summary['requeue_counts']}")
+    require(STEAL_ID in owners.values(),
+            f"leg A: {STEAL_ID} completed none of the tasks: {owners}")
+    require(not late and all(int(t) in held_at_start
+                             for t, w in owners.items() if w == "w0"),
+            f"leg A: w0 was granted or completed work after its drain: "
+            f"{owners}, held at the drain {held_at_start}, late {late}")
+    require(len(handed) >= 1 and handbacks == len(handed),
+            f"leg A: handed back {handed}, cdt_drain_handbacks_total rose "
+            f"{handbacks}")
+    require(BREAKERS.state("w0") == "closed",
+            f"leg A: w0's breaker is {BREAKERS.state('w0')}")
+    require(refusal == (200, {"task": None, "draining": True}),
+            f"leg A: w0's pull after the drain: {refusal}")
+    require(drain_gauge == 2.0,
+            f"leg A: cdt_worker_drain_state of w0 {drain_gauge}, expected 2")
+    require(steals >= 1, f"leg A: {steals} stolen grants counted")
+    require(stolen.get(job_id) == theirs and sum(stolen.values()) == theirs,
+            f"leg A: the arrival ran {stolen}, granted {theirs}")
+    per_chunk = 70 * UPSCALE_STEPS
+    want = {"fused_qkv_attention": 8 + per_chunk * (mine + theirs),
+            "flash_attention_packed": per_chunk * (mine + theirs),
+            "flash_attention_bh": 0}
+    require(counts == want, f"leg A: master launches {counts} != {want}")
+    want_cuda = {"qkv_projection": 8 + per_chunk * (mine + theirs),
+                 "flash_attention_core": per_chunk * (mine + theirs),
+                 "short_kv_attention": 8 + per_chunk * (mine + theirs)}
+    require(kernel_counts == want_cuda,
+            f"leg A: master CUDA kernel launches {kernel_counts} != {want_cuda}")
+    pngs = sorted(master_out.glob("upscaled_*.png"))
+    require(len(pngs) == 1, f"leg A: {len(pngs)} PNGs, expected 1")
+    require(np_equal(to_uint8(decode_png(pngs[0].read_bytes()))[0],
+                     up.image_u8),
+            "leg A: the drained and stolen upscale differs from the direct one")
+    # the rolling restart: w0 rejoins, and phase 14's later requests go to it
+    status, body = http_json(base + "/distributed/worker/w0/undrain", {})
+    require(status == 200 and body.get("cleared") is True,
+            f"leg A: undrain answered {status}: {body}")
+    require(DRAIN.state("w0") == "active", "leg A: w0 not active again")
+    say(f"  leg A (drain, handback, steal): {secs:.3f} s (POST to final "
+        f"history; the arrival's plan built in {plan_s:.3f} s before it); "
+        f"w0 drained {t_drain - t0:.3f} s after the POST, decommissioned "
+        f"{decommission_s:.3f} s later; held {held_at_start}, handed back "
+        f"{handed}; grants {[(w, t) for w, _, t in grants]}; tasks "
+        f"{dict(sorted(owners.items()))}; master {mine}, {STEAL_ID} {theirs} "
+        f"(its stolen grants counted {steals:.0f}); master launches {counts}; "
+        f"PNG bitwise the direct upscale; w0's breaker closed; undrained")
+    return counts
 
 
 def serve_img2img(torch, fa, base: str, master_out: Path,
@@ -3659,6 +3888,217 @@ def managed_phase(torch, fa, sdxl: PathRun) -> dict:
             tail = log_path.read_text(errors="replace").splitlines()[-40:]
             print("chip_smoke: managed worker log tail:\n" + "\n".join(tail),
                   file=sys.stderr)
+
+
+# leg B (the elastic fleet): the autoscaler on 14b's managed host, each
+# knob at its quickest (one evaluation a streak, no cooldown, a fleet of
+# at most one worker); pressure 1 (one prompt queued or running with no
+# worker) launches w0, an idle queue (pressure 0) drains it
+AUTOSCALE_ENV = {"CDT_AUTOSCALE": "1", "CDT_AUTOSCALE_INTERVAL_S": "0.5",
+                 "CDT_AUTOSCALE_UP_STREAK": "1", "CDT_AUTOSCALE_DOWN_STREAK": "1",
+                 "CDT_AUTOSCALE_UP_COOLDOWN_S": "0",
+                 "CDT_AUTOSCALE_DOWN_COOLDOWN_S": "0", "CDT_AUTOSCALE_MAX": "1",
+                 "CDT_AUTOSCALE_UP_DEPTH": "1", "CDT_AUTOSCALE_DOWN_DEPTH": "0"}
+AUTOSCALE_PROMPTS = 2        # SDXL at MANAGED_DIRECT_STEPS, no collector
+AUTOSCALE_DECIDE_S = 30.0    # a decision after its condition (0.5 s ticks)
+
+
+class DecisionWatch:
+    """Polls ``GET /distributed/elastic`` every 0.1 s in a thread and keeps
+    each up or down decision it shows (the route lists the last 10, five
+    seconds of 0.5 s ticks)."""
+
+    def __init__(self, base: str):
+        import threading
+
+        self.base, self.seen, self.errors = base, [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        while not self._stop.is_set():
+            try:
+                status, elastic = http_json(self.base + "/distributed/elastic")
+                for d in elastic["autoscaler"]["recent_decisions"]:
+                    if d["direction"] != "hold" and d not in self.seen:
+                        self.seen.append(d)
+            except (OSError, KeyError, ValueError) as e:
+                self.errors.append(repr(e))
+            self._stop.wait(0.1)
+
+    def wait(self, direction: str, limit_s: float) -> dict:
+        t0 = time.perf_counter()
+        while True:
+            hits = [d for d in self.seen if d["direction"] == direction]
+            if hits:
+                return hits[0]
+            require(time.perf_counter() - t0 < limit_s,
+                    f"leg B: no {direction} decision in {limit_s} s; seen "
+                    f"{self.seen}, poll errors {self.errors[-3:]}")
+            time.sleep(0.05)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+
+
+def autoscale_leg(torch, fa, sdxl: PathRun) -> dict:
+    """Leg B of the elastic fleet: a master on 14b's config (its ``local``
+    host w0) started with ``CDT_AUTOSCALE=1``. Queued SDXL prompts press
+    it, and the autoscaler launches w0 through ``LocalProcessProvider``
+    (the master holds its first sampling until w0 reports ready); once the
+    queue is idle it drains w0, which stops its process and marks it
+    decommissioned. Returns the master's launches."""
+    import threading
+    from unittest import mock
+
+    from comfyui_distributed_tpu_torch.api.app import ServerThread
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.cluster.elastic.states import DRAIN
+    from comfyui_distributed_tpu_torch.cluster.resilience import BREAKERS
+    from comfyui_distributed_tpu_torch.diffusion import pipeline as pipemod
+
+    cfg_path = MANAGED_DIR / "master.json"
+    cfg = json.loads(cfg_path.read_text())
+    require(not cfg.get("managed_processes"),
+            f"leg B: 14b left managed processes {cfg.get('managed_processes')}")
+    master_port = cfg["master"]["port"]
+    auth = {"token": cfg["settings"]["auth_token"]}
+    env = {**AUTOSCALE_ENV, "CDT_LOG_DIR": str(MANAGED_DIR / "logs"),
+           "CDT_CLOUDFLARED_AUTO_DOWNLOAD": "0",
+           "CDT_OUTPUT_DIR": str(MANAGED_DIR / "autoscale_out")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reached, go = threading.Event(), threading.Event()
+    prepare = pipemod.Txt2ImgPipeline._prepare_sampling
+
+    def held(self, *args, **kwargs):
+        # the first sampling waits until the launched worker is ready
+        if not reached.is_set():
+            reached.set()
+            require(go.wait(SERVE_REQUEST_S), "leg B: the hold was never lifted")
+        return prepare(self, *args, **kwargs)
+
+    patch = mock.patch.object(pipemod.Txt2ImgPipeline, "_prepare_sampling",
+                              held)
+    master = server = watch = None
+    try:
+        patch.start()
+        master = Controller(cfg_path, device=DEVICE,
+                            model_registry=sdxl.registry)
+        server = ServerThread(master, port=master_port)
+        base = f"http://127.0.0.1:{master_port}"
+        watch = DecisionWatch(base)
+        status, elastic = http_json(base + "/distributed/elastic")
+        require(status == 200 and elastic["autoscaler_running"]
+                and elastic["autoscaler"]["policy"]["max_workers"] == 1,
+                f"leg B: the autoscaler is not running: {elastic}")
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info()[0]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        ids = []
+        for i in range(AUTOSCALE_PROMPTS):
+            status, answer = http_json(base + "/prompt", {"prompt": fd_prompt(
+                7 + i, fd_positive(i), f"autoscale_{i}",
+                steps=MANAGED_DIRECT_STEPS)}, **auth)
+            require(status == 200 and answer.get("prompt_id"),
+                    f"leg B: /prompt answered {status}: {answer}")
+            ids.append(answer["prompt_id"])
+        up = watch.wait("up", AUTOSCALE_DECIDE_S)
+        up_s = time.perf_counter() - t0
+        require(reached.wait(SERVE_REQUEST_S), "leg B: the master never sampled")
+        require((up["reason"], up["worker_id"]) == ("queue_pressure", "w0"),
+                f"leg B: scale-up {up}")
+        monitor = worker = None
+        while True:
+            managed = http_json(base + "/distributed/managed_workers")[1]
+            entry = managed["workers"].get("w0")
+            require(entry is not None, "leg B: the launched worker died booting")
+            if monitor is None:
+                monitor = entry["pid"]
+            if not entry["launching"]:
+                break
+            require(time.perf_counter() - t0 < SERVE_BOOT_S,
+                    f"leg B: no ready report in {SERVE_BOOT_S} s")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t0
+        (worker,) = proc_children(monitor)
+        go.set()
+        for i, pid in enumerate(ids):
+            entry = wait_history(base, pid, t0, f"leg B prompt {i}")
+            require(entry["status"] == "success", f"leg B prompt {i}: {entry}")
+        idle_s = time.perf_counter() - t0
+        counts = dict(fa.LAUNCHES)
+        want = {k: v * AUTOSCALE_PROMPTS for k, v in MANAGED_DIRECT.items()}
+        require(counts == want, f"leg B: master launches {counts} != {want}")
+        down = watch.wait("down", AUTOSCALE_DECIDE_S)
+        require((down["reason"], down["worker_id"]) == ("idle_fleet", "w0"),
+                f"leg B: scale-down {down}")
+        while True:
+            status, elastic = http_json(base + "/distributed/elastic")
+            report = elastic["drain"]["reports"].get("w0", {})
+            if report.get("phase") == "decommissioned":
+                break
+            require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                    f"leg B: the drain did not end: {report}")
+            time.sleep(0.1)
+        down_s = time.perf_counter() - t0
+        require(report.get("process_stopped") is True
+                and report.get("handed_back") == {},
+                f"leg B: drain report {report}")
+        require(DRAIN.state("w0") == "decommissioned",
+                f"leg B: w0 is {DRAIN.state('w0')}")
+        require(http_json(base + "/distributed/managed_workers")[1]
+                == {"workers": {}}, "leg B: managed_workers not empty")
+        require(not pid_alive(monitor) and not pid_alive(worker),
+                "leg B: the monitor or the worker outlived the drain")
+        while True:
+            torch.cuda.empty_cache()
+            free_after = torch.cuda.mem_get_info()[0]
+            if free_before - free_after < 2**30:
+                break
+            require(time.perf_counter() - t0 < SERVE_REQUEST_S,
+                    f"leg B: free memory {free_after / 2**30:.3f} GiB did not "
+                    f"come back to {free_before / 2**30:.3f} GiB")
+            time.sleep(0.25)
+        require(all(s == "closed" for s in BREAKERS.states().values()),
+                f"leg B: breakers {BREAKERS.states()}")
+        status, text = http_raw(base + "/distributed/metrics")
+        m = prometheus_samples(text.decode())
+        got = (m.get('cdt_autoscale_decisions_total{direction="up",'
+                     'reason="queue_pressure"}'),
+               m.get('cdt_autoscale_decisions_total{direction="down",'
+                     'reason="idle_fleet"}'),
+               m.get('cdt_worker_drain_state{worker="w0"}'))
+        require(got == (1, 1, 2), f"leg B: decisions up and down and w0's "
+                f"state {got}, expected (1, 1, 2)")
+        require([d["direction"] for d in watch.seen] == ["up", "down"],
+                f"leg B: decisions {watch.seen}")
+        say(f"  leg B (autoscaler): up/queue_pressure {up_s:.3f} s after the "
+            f"first POST (pressure {up['pressure']}), w0 ready at "
+            f"{ready_s:.3f} s, the queue idle at {idle_s:.3f} s, "
+            f"down/idle_fleet and w0 decommissioned (process stopped) at "
+            f"{down_s:.3f} s; master launches {counts}; free card memory "
+            f"{free_before / 2**30:.3f} GiB before, {free_after / 2**30:.3f} "
+            f"GiB after; no breaker opened")
+        return counts
+    finally:
+        patch.stop()
+        go.set()
+        if watch is not None:
+            watch.close()
+        if master is not None:
+            master.worker_manager.cleanup_all()
+        if server is not None:
+            server.stop()
+        DRAIN.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # --- phases 15 to 19 ---------------------------------------------------------
@@ -6021,6 +6461,9 @@ FD_SHED_DEPTH = "2"          # the second master sheds from the third request
 FD_BURST = 6
 FD_BURST_HW, FD_BURST_STEPS = 512, 4
 FD_TEXT_K1 = 4               # K1 launches of one text encode (4 layers)
+# 14c's requests run 8 of the workflow's 30 steps (a depth cut for the
+# run's time limit; PERF.md §4): 560 K1 and 560 K2 a request
+FD_STEPS = 8
 FD_UNET = {"fused_qkv_attention": sum(n for _, n in FUSED_SHAPES[:2]),  # 2100
            "flash_attention_packed": sum(n for _, n in PACKED_SHAPES),  # 2100
            "flash_attention_bh": 0}
@@ -6052,10 +6495,10 @@ def fd_positive(i: int) -> str:
 
 
 def fd_counts(text_encodes: int, requests: int) -> dict:
-    """Launches of ``requests`` SDXL UNet runs and ``text_encodes``
-    encodes of the hash text encoder."""
-    return {k: v * requests + (FD_TEXT_K1 * text_encodes
-                               if k == "fused_qkv_attention" else 0)
+    """Launches of ``requests`` SDXL UNet runs at ``FD_STEPS`` and
+    ``text_encodes`` encodes of the hash text encoder."""
+    return {k: v // STEPS * FD_STEPS * requests
+            + (FD_TEXT_K1 * text_encodes if k == "fused_qkv_attention" else 0)
             for k, v in FD_UNET.items()}
 
 
@@ -6151,7 +6594,8 @@ def frontdoor_phase(torch, fa, sdxl: PathRun) -> dict:
     for i, seed in enumerate(FD_SEEDS):
         before = dict(fa.LAUNCHES)
         t0 = time.perf_counter()
-        executor.execute(fd_prompt(seed, fd_positive(i), f"fd{i}"))
+        executor.execute(fd_prompt(seed, fd_positive(i), f"fd{i}",
+                                   steps=FD_STEPS))
         torch.cuda.synchronize()
         solo_s.append(time.perf_counter() - t0)
         counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
@@ -6180,7 +6624,8 @@ def frontdoor_phase(torch, fa, sdxl: PathRun) -> dict:
 
         def post(i: int, **extra) -> tuple[int, dict]:
             return http_json(queue, {
-                "prompt": fd_prompt(FD_SEEDS[i], fd_positive(i), f"fd{i}"),
+                "prompt": fd_prompt(FD_SEEDS[i], fd_positive(i), f"fd{i}",
+                                    steps=FD_STEPS),
                 "tenant": f"user{i}", "priority": FD_PRIORITIES[i], **extra})
 
         # gates 1 and 2: four at once, then member 0's twin while it runs
@@ -6287,6 +6732,7 @@ def frontdoor_phase(torch, fa, sdxl: PathRun) -> dict:
 
         wf = strip_meta(json.loads(
             (ROOT / "workflows" / SDXL_PATH.workflow).read_text()))
+        wf[SDXL_PATH.sampler_node]["inputs"]["steps"] = FD_STEPS
 
         def orchestrated():
             status, a = http_json(queue, {"prompt": wf})
@@ -6673,11 +7119,12 @@ def catalog_gates(watch: CatalogWatch) -> None:
         ProgramKey, ShapeCatalog, keys_from_prompt)
 
     watch.close()
-    want = ProgramKey("txt2img", "sdxl", 1024, 1024, STEPS, batch=1)
+    # 14c's staged group
+    want = ProgramKey("txt2img", "sdxl", 1024, 1024, FD_STEPS, batch=1)
     cat = ShapeCatalog(CATALOG_FILE)
     group = [name for name, args in watch.calls
              if name.startswith("stage-denoise")
-             and args[:5] == ("txt2img", "sdxl", 1024, 1024, STEPS)]
+             and args[:5] == ("txt2img", "sdxl", 1024, 1024, FD_STEPS)]
     require(want in cat and group,
             f"catalog: {want} in {CATALOG_FILE}: {want in cat}; group "
             f"observations {group} of {len(watch.calls)}")
@@ -7444,10 +7891,12 @@ def main() -> int:
                                 av["encode_540p_s"])
             path_launches["video"] = video.launches
         with phase(torch, "14 serve"):
-            path_launches["serve"] = serve_phase(torch, fa, sdxl, up, control,
-                                                 cn_tile, video)
+            path_launches.update(serve_phase(torch, fa, sdxl, up, control,
+                                             cn_tile, video))
         with phase(torch, "14b managed worker"):
             path_launches["managed"] = managed_phase(torch, fa, sdxl)
+            path_launches["elastic_autoscale"] = autoscale_leg(torch, fa,
+                                                               sdxl)
         # the shape catalog gets a file of its own, and its observations
         # are recorded, from 14c on (phase 14e reads them)
         watch = CatalogWatch()

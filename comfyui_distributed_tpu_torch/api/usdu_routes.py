@@ -3,7 +3,11 @@ port's router: heartbeats, pull-based work assignment, tile and image
 result ingest, status.
 
 - ``POST /distributed/heartbeat``, ``POST /distributed/request_image``,
-  ``POST /distributed/handback``: JSON ``{"job_id", "worker_id"}``;
+  ``POST /distributed/handback``: JSON ``{"job_id", "worker_id"}``.
+  ``request_image`` with ``job_id`` ``"*"`` is the elastic fleet's
+  cross-job steal pull (``exclude_jobs``: at most 256 job ids the puller
+  cannot serve); a worker that is leaving is answered ``{"task": null,
+  "draining": true}``;
 - ``POST /distributed/submit_tiles``: multipart, a ``tiles_metadata``
   JSON part and ``tile_<i>`` parts, CDTF frames
   (``application/x-cdt-frame``) or PNG; a frame larger than one POST
@@ -13,9 +17,6 @@ result ingest, status.
 - ``GET /distributed/job_status?job_id=…`` (a tile job, or a prompt of
   the queue: its status, ``preempted@k/n`` while it is parked), ``GET
   /distributed/queue_status/{job_id}``.
-
-The elastic fleet's cross-job steal pull (``job_id="*"``) is answered
-400: it is not ported.
 """
 
 from __future__ import annotations
@@ -27,14 +28,19 @@ from typing import Any
 
 import numpy as np
 
+from .. import telemetry
+from ..cluster.elastic.states import DRAIN
+from ..telemetry import metrics as _tm
 from ..utils import constants
 from ..utils.exceptions import ValidationError
 from ..utils.frames import unpack_frame
 from ..utils.image import decode_image_b64, decode_png
+from ..utils.logging import debug_log
 from ..utils.multipart import parse_multipart
 from .schemas import require_fields, validate_worker_id
 
 MAX_FRAME_PARTS = 64
+MAX_EXCLUDE_JOBS = 256
 
 
 def parse_index(value: Any, field: str) -> int:
@@ -75,15 +81,32 @@ def register(app, controller) -> None:
         return Response(200, {"status": "ok" if ok else "unknown_job"})
 
     async def request_image(request):
+        """A pull of one task: of the named job, or of any open job
+        (``job_id="*"``, the steal scheduler's pick; the grant carries its
+        ``job_id``). A leaving worker is refused without touching a queue:
+        it must stop pulling and flush, and the refusal is not an empty
+        queue."""
         body = request.json()
         require_fields(body, "job_id", "worker_id")
         worker_id = validate_worker_id(body["worker_id"])
-        if body["job_id"] == "*":
-            raise ValidationError(
-                "the cross-job steal pull (job_id '*') belongs to the elastic "
-                "fleet, which is not ported (ROADMAP.md, item A.12)",
-                field="job_id")
-        task = await store.request_work(body["job_id"], worker_id)
+        if DRAIN.is_leaving(worker_id):
+            debug_log(f"tile-farm: refusing work to draining worker {worker_id}")
+            return Response(200, {"task": None, "draining": True})
+        stolen = body["job_id"] == "*"
+        if stolen:
+            exclude = body.get("exclude_jobs") or []
+            if (not isinstance(exclude, list)
+                    or len(exclude) > MAX_EXCLUDE_JOBS
+                    or not all(isinstance(j, str) for j in exclude)):
+                raise ValidationError(
+                    f"'exclude_jobs' must be a list of at most "
+                    f"{MAX_EXCLUDE_JOBS} job id strings", field="exclude_jobs")
+            task = await store.request_any_work(worker_id, exclude=exclude)
+        else:
+            task = await store.request_work(body["job_id"], worker_id)
+        if task is not None and telemetry.enabled():
+            _tm.STEAL_ASSIGNMENTS.labels(
+                kind="stolen" if stolen else "own_job").inc()
         return Response(200, {"task": task})
 
     async def submit_tiles(request):
@@ -172,8 +195,9 @@ def register(app, controller) -> None:
         return Response(200, {"status": "ok", "accepted": int(ok)})
 
     async def handback(request):
-        """A worker returns work it holds on purpose: requeued without
-        counting toward the poison bound."""
+        """A worker returns work it cannot or may no longer serve (a steal
+        grant of a job it lacks, a drain's flush): requeued as a planned
+        departure, with no poison-bound count and no breaker evidence."""
         body = request.json()
         require_fields(body, "job_id", "worker_id")
         requeued = await store.requeue_worker_tasks(

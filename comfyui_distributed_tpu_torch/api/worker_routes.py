@@ -11,7 +11,15 @@
 - ``POST /distributed/worker/clear_launching`` ``{"worker_id"}``: the
   worker's ready report;
 - ``GET /distributed/local-worker-status``: each managed or ``local``
-  host's process, launch state, breaker and probe;
+  host's process, launch state, breaker, drain state and probe;
+- ``POST /distributed/worker/{worker_id}/drain`` ``{"deadline_s"?,
+  "stop_process"?}``: a graceful drain (``cluster/elastic/drain.py``):
+  no new work at once, held work finished or handed back by the
+  deadline, then the process stopped (``stop_process``, default true)
+  and the worker decommissioned; ``POST
+  /distributed/worker/{worker_id}/undrain``: cancel it or reactivate the
+  id; ``GET /distributed/elastic``: the autoscaler's signals and
+  decisions and the drains' states and reports;
 - ``GET /distributed/remote_worker_log/{worker_id}``: a host's own
   ``/distributed/local_log``, fetched by the master;
 - ``POST /distributed/warmup`` ``{"models"?: [...], "wait"?: bool}``: a
@@ -27,6 +35,7 @@ import asyncio
 import json
 from pathlib import Path
 
+from ..cluster.elastic.states import DRAIN
 from ..cluster.resilience import BREAKERS
 from ..utils import constants
 from ..utils.exceptions import ProcessError, ValidationError
@@ -104,8 +113,8 @@ def register(app, controller) -> None:
                 "online": False,
                 "queue_remaining": None,
                 "breaker": BREAKERS.state(wid),
-                # the elastic fleet's drain state is not ported
-                "drain": None,
+                # active | draining | decommissioned (cluster/elastic)
+                "drain": DRAIN.state(wid),
                 # the host's warm state (diffusion/warmup.py), from its probe
                 "warmup": None,
             }
@@ -155,6 +164,40 @@ def register(app, controller) -> None:
     async def warmup_status(request):
         return Response(200, c.warmup.status())
 
+    def elastic():
+        if c.elastic is None:
+            raise ValidationError("elastic manager not started")
+        return c.elastic
+
+    async def drain_worker(request):
+        """A planned departure, never breaker evidence."""
+        wid = validate_worker_id(request.match["worker_id"])
+        body = request.json() if request.body else {}
+        if not isinstance(body, dict):
+            raise ValidationError("payload must be a JSON object")
+        deadline_s = body.get("deadline_s")
+        if deadline_s is not None:
+            try:
+                deadline_s = float(deadline_s)
+            except (TypeError, ValueError):
+                raise ValidationError("'deadline_s' must be a number",
+                                      field="deadline_s") from None
+            if deadline_s <= 0:
+                raise ValidationError("'deadline_s' must be positive",
+                                      field="deadline_s")
+        report = elastic().coordinator.begin(
+            wid, deadline_s=deadline_s,
+            stop_process=bool(body.get("stop_process", True)))
+        return Response(200, {"status": "draining", **report})
+
+    async def undrain_worker(request):
+        wid = validate_worker_id(request.match["worker_id"])
+        cleared = elastic().coordinator.undrain(wid)
+        return Response(200, {"status": "active", "cleared": cleared})
+
+    async def elastic_status(request):
+        return Response(200, elastic().status())
+
     app.add("POST", "/distributed/warmup", warmup_start)
     app.add("GET", "/distributed/warmup", warmup_status)
     app.add("POST", "/distributed/launch_worker", launch_worker)
@@ -162,6 +205,9 @@ def register(app, controller) -> None:
     app.add("GET", "/distributed/managed_workers", managed_workers)
     app.add("GET", "/distributed/worker_log/{worker_id}", worker_log)
     app.add("POST", "/distributed/worker/clear_launching", clear_launching)
+    app.add("POST", "/distributed/worker/{worker_id}/drain", drain_worker)
+    app.add("POST", "/distributed/worker/{worker_id}/undrain", undrain_worker)
+    app.add("GET", "/distributed/elastic", elastic_status)
     app.add("GET", "/distributed/local-worker-status", local_worker_status)
     app.add("GET", "/distributed/remote_worker_log/{worker_id}",
             remote_worker_log)

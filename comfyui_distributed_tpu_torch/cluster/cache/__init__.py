@@ -20,8 +20,8 @@ Three tiers stop a controller computing what it already knows:
 Persistence follows ``utils/jsonio`` with checksummed sidecars
 (:mod:`store`): corruption is rejected and recomputed, never served.
 ``CDT_CACHE=0`` removes the subsystem; a request's ``cache: "bypass"``
-skips serving (it still fills). The fleet tier (A.6) and the near tier
-(A.4) are not ported.
+skips serving (it still fills). The fleet tier and the near tier are
+not ported (ROADMAP.md, item A.6a ii).
 """
 
 from __future__ import annotations

@@ -19,8 +19,9 @@ started on its loop, step-granular preemption (``cluster/preemption.py``,
 None under ``CDT_PREEMPT=0``), attached to the prompt queue, and the
 warm-pass state machine (``diffusion/warmup.py``): with ``CDT_WARMUP=1``
 a pass over the shape catalog runs at startup in a thread off the loop,
-and ``health()`` reports its state. The elastic fleet of the JAX
-package's controller is not ported.
+and ``health()`` reports its state. At startup it builds the elastic
+fleet's manager on its loop (``cluster/elastic``: drains always, the
+autoscaler's loop under ``CDT_AUTOSCALE=1``), stopped at shutdown.
 """
 
 from __future__ import annotations
@@ -100,6 +101,9 @@ class Controller:
         self.queue.preemption = self.preemption
         self.warmup = WarmupManager(lambda: self.model_registry)
         self._warmup_task: Optional[asyncio.Future] = None
+        # the elastic fleet (cluster/elastic): built at startup, since a
+        # drain is a task of the serving loop
+        self.elastic = None
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
@@ -171,6 +175,10 @@ class Controller:
         self.queue.start()
         if self.frontdoor is not None:
             self.frontdoor.start()
+        from .elastic import build_elastic
+
+        self.elastic = build_elastic(self)
+        self.elastic.start()
         role = "worker" if self.is_worker else "master"
         log(f"controller up as {role} on {self.device} "
             f"(machine {get_machine_id()})")
@@ -203,6 +211,8 @@ class Controller:
             pass                      # the master is gone
 
     async def shutdown(self) -> None:
+        if self.elastic is not None:
+            await self.elastic.stop()
         if self.frontdoor is not None:
             await self.frontdoor.stop()
         if self.stages is not None:

@@ -1,11 +1,15 @@
 """Host probing, selection, and prompt dispatch (the JAX package's
-``cluster/dispatch.py`` without drain states).
+``cluster/dispatch.py``).
 
 - ``select_active_hosts``: probe every candidate concurrently, at most
-  ``probe_concurrency`` at a time → (online, offline). A host whose
-  circuit breaker is open is quarantined without a probe; after the
-  recovery window one half-open trial probe decides re-admission.
-  Probe outcomes feed the breakers (``cluster/resilience.py``).
+  ``probe_concurrency`` at a time → (online, offline). A host that is
+  leaving the fleet (draining or decommissioned, ``cluster/elastic``) is
+  skipped first, without a probe and without feeding its breaker: a
+  worker asked to leave gathers no failure evidence on its way out. A
+  host whose circuit breaker is open is quarantined without a probe;
+  after the recovery window one half-open trial probe decides
+  re-admission. Probe outcomes feed the breakers
+  (``cluster/resilience.py``).
 - ``select_least_busy_host``: round-robin among idle hosts, else the
   smallest queue, hosts not mid-warm-pass first (``is_hot``): the
   orchestrator's load-balanced choice of its active host;
@@ -50,13 +54,18 @@ async def select_active_hosts(
 ) -> tuple[list[dict], list[dict]]:
     """Probe all candidate hosts concurrently (bounded) → (online,
     offline). Each online host dict gains ``_probe``, its health
-    payload; a quarantined one gains ``_breaker: "open"``."""
+    payload; a quarantined one gains ``_breaker: "open"``, a leaving one
+    ``_drain`` (its lifecycle state)."""
+    from .elastic.states import DRAIN
+
     sem = asyncio.Semaphore(probe_concurrency or constants.worker_probe_concurrency())
 
-    async def probe_one(host: dict) -> tuple[dict, Optional[dict], bool]:
+    async def probe_one(host: dict) -> tuple[dict, Optional[dict], str]:
         wid = str(host.get("id"))
+        if DRAIN.is_leaving(wid):
+            return host, None, "draining"       # leaving, not broken
         if not BREAKERS.allow(wid):
-            return host, None, True             # quarantined, not probed
+            return host, None, "quarantined"    # not probed
         health = None
         try:
             async with sem:
@@ -70,27 +79,35 @@ async def select_active_hosts(
         except Exception as e:  # noqa: BLE001 — one bad host counts as offline
             log(f"probe {wid} raised unexpectedly: {e!r}")
         BREAKERS.record(wid, health is not None)
-        return host, health, False
+        return host, health, ""
 
     results = await asyncio.gather(*(probe_one(h) for h in hosts))
     online, offline = [], []
-    for host, health, quarantined in results:
-        if quarantined:
+    quarantined = draining = 0
+    for host, health, skipped in results:
+        if skipped == "quarantined":
+            quarantined += 1
             offline.append({**host, "_breaker": "open"})
+        elif skipped == "draining":
+            draining += 1
+            offline.append({**host,
+                            "_drain": DRAIN.state(str(host.get("id")))})
         elif health is None:
             offline.append(host)
         else:
             online.append({**host, "_probe": health})
-    quarantined = sum(1 for _, _, q in results if q)
     if telemetry.enabled() and results:
         _tm.WORKER_PROBES.labels(outcome="online").inc(len(online))
         _tm.WORKER_PROBES.labels(outcome="offline").inc(
-            len(offline) - quarantined)
+            len(offline) - quarantined - draining)
         if quarantined:
             _tm.WORKER_PROBES.labels(outcome="quarantined").inc(quarantined)
+        if draining:
+            _tm.WORKER_PROBES.labels(outcome="draining").inc(draining)
     trace_info(trace_id, f"probe: {len(online)} online, "
-                         f"{len(offline) - quarantined} offline, "
-                         f"{quarantined} quarantined (breaker open)")
+                         f"{len(offline) - quarantined - draining} offline, "
+                         f"{quarantined} quarantined (breaker open), "
+                         f"{draining} draining")
     return online, offline
 
 

@@ -137,6 +137,12 @@ class FrontDoor:
             depth += self.stages.depth()
         return depth
 
+    def denoise_depth(self) -> int:
+        """The denoise-facing depth: queued or executing prompts and the
+        requests coalescing here. The autoscaler sizes the card fleet on
+        it; the stage pools' backlog wants host threads, not cards."""
+        return self.queue.queue_remaining + self.batcher.pending_count
+
     # --- the door -----------------------------------------------------------
 
     async def submit(self, payload) -> FrontDoorResult:

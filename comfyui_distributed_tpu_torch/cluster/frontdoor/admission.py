@@ -17,7 +17,8 @@ Three gates, in order, all deterministic under an injected clock:
 
 Outcomes go to ``cdt_admission_total{outcome=admitted|queued|shed}``:
 ``queued`` is accepted past the soft watermark (``CDT_FD_SOFT_DEPTH``).
-The port has no elastic fleet yet (A.6), so no worker counts as leaving.
+Workers leaving the fleet on purpose (draining or decommissioned,
+``cluster/elastic``) count on neither side of the healthy fraction.
 """
 
 from __future__ import annotations
@@ -74,10 +75,14 @@ class TokenBucket:
 
 def breaker_healthy_fraction() -> float:
     """Closed breakers over tracked ones (half open counts half); 1.0
-    when nothing is tracked (one host, or a fresh start)."""
+    when nothing is tracked (one host, or a fresh start). Workers that
+    are leaving drop from both sides: a scale-down makes the fleet
+    smaller, not sicker, and must not shed admission."""
+    from ..elastic.states import DRAIN
     from ..resilience import BREAKERS
 
-    states = BREAKERS.states()
+    states = {w: s for w, s in BREAKERS.states().items()
+              if not DRAIN.is_leaving(w)}
     if not states:
         return 1.0
     score = {"closed": 1.0, "half_open": 0.5, "open": 0.0}

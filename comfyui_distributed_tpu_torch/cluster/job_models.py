@@ -45,6 +45,9 @@ class TileJob:
     job_id: str
     total_tasks: int
     mode: str = "static"                       # "static" | "dynamic"
+    # creation order, unique in the process (given by the store): the steal
+    # scheduler's tie-break key (cluster/elastic/scheduler.py)
+    seq: int = 0
     # task_id → task, for the whole job lifetime (requeue needs ranges back)
     tasks: dict[int, TileTask] = dataclasses.field(default_factory=dict)
     pending: list[TileTask] = dataclasses.field(default_factory=list)

@@ -1,17 +1,16 @@
 """The controller's job registry (the JAX package's ``JobStore``):
 collector jobs, one result queue per distributed job id created before
 any compute is dispatched, and the pull-based tile jobs of the tile
-farm. Every mutation happens under the store's lock.
-
-Not ported: the cross-job steal pull (``request_any_work``) and the
-drain handback across jobs, which belong to the elastic fleet.
+farm, with the elastic fleet's cross-job steal pull
+(``request_any_work``) and drain handback (``handback_worker_tasks``).
+Every mutation happens under the store's lock.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 from .. import telemetry
 from ..telemetry import metrics as _tm
@@ -31,6 +30,7 @@ class JobStore:
         self.collector_jobs: dict[str, CollectorJob] = {}
         self.tile_jobs: dict[str, TileJob] = {}
         self.finished: dict[str, dict] = {}
+        self._job_seq = 0
 
     def _record_tiles(self, event: str | None = None, n: int = 1) -> None:
         """``n`` tile lifecycle ``event``s, and the pending depth across
@@ -103,7 +103,9 @@ class JobStore:
                                     job_id=job_id)
             tasks = [TileTask(tid, start, min(start + chunk, total_tasks))
                      for tid, start in enumerate(range(0, total_tasks, chunk))]
+            self._job_seq += 1
             job = TileJob(job_id, total_tasks=len(tasks), mode=mode,
+                          seq=self._job_seq,
                           tasks={t.task_id: t for t in tasks},
                           pending=list(tasks))
             self.tile_jobs[job_id] = job
@@ -118,13 +120,48 @@ class JobStore:
             if job is None:
                 return None
             job.heartbeat(worker_id)
-            if not job.pending:
+            return self._grant_locked(job, worker_id)
+
+    def _grant_locked(self, job: TileJob, worker_id: str) -> Optional[dict]:
+        """Pop and assign one pending task (call under ``self.lock``)."""
+        if not job.pending:
+            return None
+        task = job.pending.pop(0)
+        job.assigned[task.task_id] = worker_id
+        self._record_tiles("assigned")
+        return {**task.as_dict(), "job_id": job.job_id,
+                "estimated_remaining": len(job.pending)}
+
+    async def request_any_work(self, worker_id: str, policy=None,
+                               exclude: Sequence[str] = ()) -> Optional[dict]:
+        """The cross-job pull (``job_id="*"``): a task of whichever open
+        tile job the steal policy ranks first, so a worker whose own job
+        drained, or one that just arrived, serves the rest of the load.
+        The grant carries its ``job_id``, and the result goes home.
+
+        ``exclude`` lists the jobs the puller cannot serve (it lacks their
+        weights or graph): without it a top-ranked job it cannot serve
+        would bounce its grant (grant, handback, grant again) and starve
+        every job ranked below it."""
+        from .elastic.scheduler import JobView, StealPolicy
+
+        policy = policy or StealPolicy()
+        excluded = set(exclude)
+        async with self.lock:
+            views = []
+            for jid, job in self.tile_jobs.items():
+                if jid in excluded:
+                    continue
+                owners = {w for w in job.assigned.values() if w != "master"}
+                views.append(JobView(job_id=jid, seq=job.seq,
+                                     pending=len(job.pending),
+                                     active_workers=len(owners)))
+            choice = policy.pick(views, worker_id)
+            if choice is None:
                 return None
-            task = job.pending.pop(0)
-            job.assigned[task.task_id] = worker_id
-            self._record_tiles("assigned")
-            return {**task.as_dict(), "job_id": job_id,
-                    "estimated_remaining": len(job.pending)}
+            job = self.tile_jobs[choice.job_id]
+            job.heartbeat(worker_id)
+            return self._grant_locked(job, worker_id)
 
     async def submit_result(self, job_id: str, worker_id: str, task_id: int,
                             payload: Any) -> bool:
@@ -218,8 +255,11 @@ class JobStore:
         Requeues are bounded: a task requeued more than ``max_requeues``
         times (default ``CDT_MAX_TILE_REQUEUES``) dead-letters instead, so
         a tile that kills its host does not cycle through the fleet.
-        ``count_requeue=False`` (a worker handing its work back on
-        purpose) requeues without counting toward that bound."""
+        ``count_requeue=False`` is a planned departure (a drain's
+        handback, a draining worker gone silent, a grant given back): the
+        task goes back to the queue, the hop counts nothing toward that
+        bound, and the tile event is ``handed_back``. A tile is suspect
+        only when its host failed, not when its host was told to leave."""
         if max_requeues is None:
             max_requeues = constants.max_tile_requeues()
         async with self.lock:
@@ -243,12 +283,45 @@ class JobStore:
                         continue
                 requeued.append(task_id)
             job.pending[:0] = [job.tasks[tid] for tid in requeued]
-            self._record_tiles("requeued", len(requeued))
+            self._record_tiles("requeued" if count_requeue else "handed_back",
+                               len(requeued))
             if poisoned:
                 log(f"tile job {job_id}: dead-lettered poison tasks "
                     f"{poisoned} from {worker_id}")
             job.worker_status.pop(worker_id, None)
             return requeued
+
+    async def worker_held_tasks(self, worker_id: str) -> dict[str, list[int]]:
+        """{job_id: [task ids]} the worker is assigned and has not
+        completed, across every open tile job (a drain's bookkeeping)."""
+        async with self.lock:
+            held: dict[str, list[int]] = {}
+            for jid, job in self.tile_jobs.items():
+                tids = sorted(tid for tid, owner in job.assigned.items()
+                              if owner == worker_id and tid not in job.completed)
+                if tids:
+                    held[jid] = tids
+            return held
+
+    async def handback_worker_tasks(self, worker_id: str
+                                    ) -> dict[str, list[int]]:
+        """A drain's handback: every task the leaving worker still holds,
+        across every open job, goes to the front of its job's queue, with
+        no poison-bound count and no breaker evidence. Heartbeat eviction
+        clears ``assigned`` under the same lock, so a tile is handed back
+        by one of the two paths at most."""
+        held = await self.worker_held_tasks(worker_id)
+        out: dict[str, list[int]] = {}
+        total = 0
+        for jid in held:
+            requeued = await self.requeue_worker_tasks(jid, worker_id,
+                                                       count_requeue=False)
+            if requeued:
+                out[jid] = requeued
+                total += len(requeued)
+        if total and telemetry.enabled():
+            _tm.DRAIN_HANDBACKS.inc(total)
+        return out
 
     async def record_task_failure(self, job_id: str, worker_id: str,
                                   task_id: int, reason: str,
@@ -286,6 +359,10 @@ class JobStore:
                     # worker id, or "journal" for a resumed task)
                     "completed_by": {str(t): w for t, w in
                                      sorted(tile.completed_by.items())},
+                    # task id → times it went back to the queue through the
+                    # failure path (a handback counts nothing)
+                    "requeue_counts": {str(t): n for t, n in
+                                       sorted(tile.requeue_counts.items())},
                     "dead_letter": sorted(tile.dead_letter.values(),
                                           key=lambda d: d["task_id"]),
                 }

@@ -8,8 +8,9 @@ JAX package's ``cluster/job_timeout.py``), in three phases:
    queue (refresh its heartbeat), requeue everything else and trip the
    evicted worker's circuit breaker.
 
-The JAX package's branch for workers of the elastic fleet that are
-draining is not ported.
+A draining worker (``cluster/elastic``) that went silent left a little
+early, on purpose: its tasks are handed back, with no requeue count and
+no breaker trip.
 """
 
 from __future__ import annotations
@@ -69,6 +70,8 @@ async def check_and_requeue_timed_out_workers(
                 spared.add(w)
 
     # phase 3: apply
+    from .elastic.states import DRAIN
+
     evicted: dict[str, list[int]] = {}
     for w in suspects:
         if w in spared:
@@ -76,6 +79,21 @@ async def check_and_requeue_timed_out_workers(
             log(f"worker {w} silent but busy: heartbeat refreshed (grace)")
             if telemetry.enabled():
                 _tm.TILE_WORKER_EVICTIONS.labels(outcome="spared").inc()
+            continue
+        if w != "master" and DRAIN.is_leaving(w):
+            # a planned departure: the drain's handback and this path both
+            # clear ``assigned`` under the store's lock, so whichever runs
+            # first hands the tiles back and the other finds nothing
+            requeued = await store.requeue_worker_tasks(
+                job_id, w, count_requeue=False)
+            if requeued:
+                log(f"draining worker {w} went silent; handed back tasks "
+                    f"{requeued} (no breaker, no requeue count)")
+            evicted[w] = requeued
+            if telemetry.enabled():
+                _tm.TILE_WORKER_EVICTIONS.labels(outcome="draining").inc()
+                if requeued:
+                    _tm.DRAIN_HANDBACKS.inc(len(requeued))
             continue
         requeued = await store.requeue_worker_tasks(
             job_id, w, max_requeues=max_requeues)

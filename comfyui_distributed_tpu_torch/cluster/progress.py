@@ -8,8 +8,8 @@ have landed: every read of the tracker first takes the events that are
 ready, without waiting, and ``complete`` waits for the rest once, at the
 end of a run. ``sigma``, strictly decreasing over the ladder, orders the
 previews; the step count is the number of events from shard 0. Previews
-are kept per shard. The JAX package's frame strip for video latents is
-not ported (video is not).
+are kept per shard; a video latent's preview is a strip of up to four of
+its frames, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -184,11 +184,18 @@ class ProgressTracker:
 
     def preview_png(self, prompt_id: str, shard: int = 0) -> Optional[bytes]:
         """The latest preview of one shard as PNG, or None before its
-        first step."""
+        first step. A video latent [F,h,w,c] renders as a horizontal strip
+        of up to four evenly spaced frames, tiled as a latent and then
+        normalised once (per-frame normalisation would flatten the clip's
+        changes of brightness and leave seams between the frames)."""
         with self._lock:
             job = self._job_for(prompt_id)
             lat = None if job is None else job.previews.get(shard)
             if lat is None:
                 return None
             lat = np.array(lat)
+        if lat.ndim == 4 and lat.shape[0] > 1:
+            idxs = np.unique(np.linspace(0, lat.shape[0] - 1,
+                                         min(4, lat.shape[0])).astype(int))
+            lat = np.concatenate([lat[i] for i in idxs], axis=1)
         return encode_png(latent_to_rgb(lat))

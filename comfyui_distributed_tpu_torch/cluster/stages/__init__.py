@@ -227,7 +227,7 @@ class StageManager:
         """Only front-door batch jobs ride the stages: solo prompts keep
         the fused path (progress streaming, ControlNet), and so do
         ``cache: "near"`` members (the JAX package's near tier rides the
-        fused sampler; the port reads "near" as "use" until A.4)."""
+        fused sampler; the port reads "near" as "use" until A.6a ii)."""
         group = getattr(job, "group", None)
         if group is None:
             return False

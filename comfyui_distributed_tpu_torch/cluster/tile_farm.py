@@ -10,15 +10,18 @@ package's ``cluster/tile_farm.py``).
   ranges, runs them through its own copy of the plan, heartbeats after
   each task and submits results in size-capped multipart batches of
   CDTF frames (float32, crc-checked: no precision is lost), with
-  retries.
+  retries. A ``draining: true`` answer (the master drains this worker,
+  ``cluster/elastic``) ends the pulls at once; what it holds is flushed;
+- steal worker (``worker_steal_run``): the elastic fleet's arrival. It
+  pulls with ``job_id="*"`` from whichever open job the master's steal
+  scheduler picks, resolves each grant's job to a process function,
+  hands back a grant it cannot serve, sends each result to its grant's
+  job and heartbeats every job it still holds work of.
 
 Task ranges are global tile indices and each tile's noise follows its
 global index (``tiles/engine.py``), so any host can process any range
-and a requeue changes no pixel. HTTP goes through ``urllib`` in the
-loop's executor (``utils/network.py``).
-
-Not ported: the elastic fleet's steal loop (``worker_steal_run``, pulls
-with ``job_id="*"``) and its drain states.
+and a requeue, a handback or a steal changes no pixel. HTTP goes
+through ``urllib`` in the loop's executor (``utils/network.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..utils import constants
 from ..utils.async_helpers import run_in_loop
 from ..utils.exceptions import TileCollectionError, WorkerError
 from ..utils.frames import pack_frame, unpack_frame
-from ..utils.logging import log
+from ..utils.logging import debug_log, log
 from ..utils.multipart import Part, build_multipart
 from ..utils.network import http_request_async, normalize_host_url
 from .job_store import JobStore
@@ -133,6 +136,14 @@ class TileFarm:
         return run_in_loop(
             self.worker_run_async(job_id, worker_id, master_url, process_fn,
                                   **kw),
+            self.loop, timeout=None)
+
+    def worker_steal_run(self, worker_id: str, master_url: str,
+                         resolve_fn: Callable[[str], Optional[ProcessFn]],
+                         **kw) -> dict[str, int]:
+        return run_in_loop(
+            self.worker_steal_run_async(worker_id, master_url, resolve_fn,
+                                        **kw),
             self.loop, timeout=None)
 
     # --- master role -----------------------------------------------------------
@@ -271,8 +282,11 @@ class TileFarm:
         pending: list[tuple[int, dict, np.ndarray]] = []
         completed = 0
         while True:
-            task = await self._request_work(base, job_id, worker_id)
+            task, draining = await self._request_work(base, job_id, worker_id)
             if task is None:
+                if draining:
+                    log(f"tile-farm[{job_id}] worker {worker_id} is draining: "
+                        "flushing and leaving")
                 break
             arr = await asyncio.to_thread(process_fn, task["start"], task["end"])
             meta = {"task_id": task["task_id"], "start": task["start"],
@@ -287,6 +301,105 @@ class TileFarm:
             await self._flush(base, job_id, worker_id, pending)
         log(f"tile-farm[{job_id}] worker {worker_id}: {completed} tasks done")
         return completed
+
+    # --- steal worker role (cluster/elastic/scheduler.py) ----------------------
+
+    async def worker_steal_run_async(
+        self, worker_id: str, master_url: str,
+        resolve_fn: Callable[[str], Optional[ProcessFn]],
+        max_batch: int | None = None, idle_polls: int = 3,
+        idle_interval: float = 0.5,
+    ) -> dict[str, int]:
+        """Pull from any open job (``job_id="*"``), run each grant with
+        ``resolve_fn(job_id)`` (None: a job this worker cannot serve; the
+        grant goes straight back) and send its results to its own job;
+        returns {job_id: tasks completed}. This is what a worker that just
+        arrived runs: it serves whichever open job is most starved, not
+        the next dispatch. The loop ends after ``idle_polls`` empty pulls
+        in a row, or at once when the master marks it draining."""
+        with telemetry.span("tile_job.steal_worker", worker_id=worker_id):
+            return await self._worker_steal(
+                worker_id, master_url, resolve_fn,
+                constants.max_batch() if max_batch is None else max_batch,
+                idle_polls, idle_interval)
+
+    async def _worker_steal(
+        self, worker_id: str, master_url: str,
+        resolve_fn: Callable[[str], Optional[ProcessFn]], max_batch: int,
+        idle_polls: int, idle_interval: float,
+    ) -> dict[str, int]:
+        base = normalize_host_url(master_url)
+        completed: dict[str, int] = {}
+        # a flush buffer a job: results go to their own job
+        pending: dict[str, list[tuple[int, dict, np.ndarray]]] = {}
+        unservable: set[str] = set()
+
+        async def flush_all() -> None:
+            for jid, batch in pending.items():
+                if batch:
+                    await self._flush(base, jid, worker_id, batch)
+                    pending[jid] = []
+
+        idle = 0
+        while idle < idle_polls:
+            task, draining = await self._request_work(
+                base, "*", worker_id,
+                extra={"exclude_jobs": sorted(unservable)}
+                if unservable else None)
+            if draining:
+                # asked to leave: stop pulling now; what is buffered is
+                # flushed below, so a clean drain loses nothing
+                log(f"steal[{worker_id}] is draining: flushing and leaving")
+                break
+            if task is None:
+                idle += 1
+                # a buffered result is still assigned on the master and
+                # would be handed back if this worker drained while idle
+                await flush_all()
+                await asyncio.sleep(idle_interval)
+                continue
+            jid = task.get("job_id", "")
+            fn = resolve_fn(jid)
+            if fn is None:
+                # a job this worker cannot serve: give the grant back. A
+                # grant of a job known to be unservable counts as an idle
+                # poll, so the loop winds down when only such jobs are open
+                debug_log(f"steal[{worker_id}] cannot serve job {jid}; "
+                          "handing the task back")
+                await self._handback_task(base, jid, worker_id)
+                if jid in unservable:
+                    idle += 1
+                    await asyncio.sleep(idle_interval)
+                else:
+                    unservable.add(jid)
+                continue
+            idle = 0
+            arr = await asyncio.to_thread(fn, task["start"], task["end"])
+            meta = {"task_id": task["task_id"], "start": task["start"],
+                    "end": task["end"]}
+            pending.setdefault(jid, []).append((task["task_id"], meta, arr))
+            completed[jid] = completed.get(jid, 0) + 1
+            # heartbeat every job it holds unflushed work of: a job whose
+            # monitor stopped hearing from it would evict it through the
+            # failure path (breaker trip, counted requeue)
+            for held in sorted({jid, *(j for j, b in pending.items() if b)}):
+                await self._heartbeat(base, held, worker_id)
+            if len(pending[jid]) >= max_batch:
+                await self._flush(base, jid, worker_id, pending[jid])
+                pending[jid] = []
+        await flush_all()
+        log(f"steal[{worker_id}] done: {completed}")
+        return completed
+
+    async def _handback_task(self, base: str, job_id: str,
+                             worker_id: str) -> None:
+        """Give back a grant it cannot serve (a planned departure's
+        accounting: no failure evidence)."""
+        try:
+            await self._post_json(f"{base}/distributed/handback",
+                                  {"job_id": job_id, "worker_id": worker_id})
+        except OSError:
+            pass   # the heartbeat monitor requeues it in the end
 
     # --- wire helpers ----------------------------------------------------------
 
@@ -317,27 +430,33 @@ class TileFarm:
             await asyncio.sleep(READY_POLL_INTERVAL_S)
         return False
 
-    async def _request_work(self, base: str, job_id: str,
-                            worker_id: str) -> Optional[dict]:
+    async def _request_work(self, base: str, job_id: str, worker_id: str,
+                            extra: Optional[dict] = None
+                            ) -> tuple[Optional[dict], bool]:
         """A ``CDT_WORK_REQUEST_BUDGET``-bounded pull that tolerates 4xx
-        and 5xx answers (a master mid-restart, a job not seeded yet);
-        None once the queue is drained or the budget is spent."""
-        async def attempt() -> Optional[dict]:
+        and 5xx answers (a master mid-restart, a job not seeded yet).
+        Returns ``(task, draining)``: ``(None, False)`` once the queue is
+        drained or the budget is spent; ``draining`` means this worker was
+        asked to leave (a refusal, not an empty queue, and it spends no
+        retry). ``job_id`` ``"*"`` asks the steal scheduler; ``extra``
+        joins the body (the steal loop's ``exclude_jobs``)."""
+        async def attempt() -> tuple[Optional[dict], bool]:
             status, body = await self._post_json(
                 f"{base}/distributed/request_image",
-                {"job_id": job_id, "worker_id": worker_id})
+                {"job_id": job_id, "worker_id": worker_id, **(extra or {})})
             if status >= 400:
                 err = WorkerError(f"work request {status}", worker_id=worker_id)
                 err.retry_safe = True
                 raise err
-            return json.loads(body).get("task")
+            answer = json.loads(body)
+            return answer.get("task"), bool(answer.get("draining"))
 
         try:
             return await work_request_policy().run(attempt, op="request_work")
         except (OSError, asyncio.TimeoutError, WorkerError, ValueError) as e:
             log(f"tile-farm[{job_id}] work request budget exhausted ({e}); "
                 "treating the queue as drained")
-            return None
+            return None, False
 
     async def _heartbeat(self, base: str, job_id: str, worker_id: str) -> None:
         try:

@@ -1,9 +1,9 @@
 """The metric families of the port, declared in one place (the JAX
 package's ``telemetry/metrics.py``, less the families whose
 instrumentation sites are not ported yet: the fleet cache, the
-autoscaler, drain and steal, the autotuner and the XLA compile cache;
-``ROADMAP.md`` names each under its item). The warmup and preemption
-families keep the JAX package's help text byte for byte.
+autotuner and the XLA compile cache; ``ROADMAP.md`` names each under its
+item). The warmup, preemption and elastic-fleet families keep the JAX
+package's help text byte for byte.
 
 Instrumentation sites import these objects and guard every use with
 ``telemetry.enabled()``. Naming follows Prometheus conventions: ``cdt_``
@@ -15,10 +15,11 @@ Label conventions (kept low-cardinality):
 - ``pipeline``: ``txt2img``, ``img2img``, ``flow_dp``, ``tile_img2img``;
   the stage split's ``txt2img_lat`` and ``vae_decode_batch``.
 - ``event`` (tiles): ``seeded`` / ``assigned`` / ``completed`` /
-  ``requeued`` / ``restored`` / ``dead_letter`` / ``timed_out``.
+  ``requeued`` / ``handed_back`` / ``restored`` / ``dead_letter`` /
+  ``timed_out``.
 - ``transport``: ``http`` / ``ws``; ``outcome``: ``ok`` / ``error`` (or
-  probe-specific ``online`` / ``offline`` / ``quarantined``, eviction
-  ``evicted`` / ``spared``).
+  probe-specific ``online`` / ``offline`` / ``quarantined`` /
+  ``draining``, eviction ``evicted`` / ``spared`` / ``draining``).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ TILE_QUEUE_DEPTH = REGISTRY.gauge(
 TILE_WORKER_EVICTIONS = REGISTRY.counter(
     "cdt_tile_worker_evictions_total",
     "Heartbeat-timeout verdicts on tile workers.",
-    ("outcome",))   # evicted | spared
+    ("outcome",))   # evicted | spared | draining
 
 # --- cluster dispatch / probing --------------------------------------------
 
@@ -85,7 +86,7 @@ DISPATCH_PAYLOAD_BYTES = REGISTRY.histogram(
 WORKER_PROBES = REGISTRY.counter(
     "cdt_worker_probe_total",
     "Worker health-probe outcomes (orchestration fan-out).",
-    ("outcome",))   # online | offline | quarantined
+    ("outcome",))   # online | offline | quarantined | draining
 
 MEDIA_SYNC_FILES = REGISTRY.counter(
     "cdt_media_sync_files_total",
@@ -95,6 +96,38 @@ MEDIA_SYNC_FILES = REGISTRY.counter(
 MEDIA_SYNC_BYTES = REGISTRY.counter(
     "cdt_media_sync_bytes_total",
     "Bytes uploaded by media sync.")
+
+# --- elastic fleet (cluster/elastic) ----------------------------------------
+
+AUTOSCALE_DECISIONS = REGISTRY.counter(
+    "cdt_autoscale_decisions_total",
+    "Autoscaler verdicts per evaluation tick. direction=up|down|hold; "
+    "reason names the dominant signal (queue_pressure, idle_fleet, "
+    "cooldown, envelope_min, envelope_max, no_capacity, ...).",
+    ("direction", "reason"))
+
+WORKER_DRAIN_STATE = REGISTRY.gauge(
+    "cdt_worker_drain_state",
+    "Per-worker lifecycle state (0=active, 1=draining, 2=decommissioned). "
+    "Intentional departure — never failure evidence for the breaker.",
+    ("worker",))
+
+FLEET_SIZE = REGISTRY.gauge(
+    "cdt_fleet_size",
+    "Workers known to the elastic manager, by lifecycle state.",
+    ("state",))   # active | draining | decommissioned
+
+DRAIN_HANDBACKS = REGISTRY.counter(
+    "cdt_drain_handbacks_total",
+    "Tile tasks handed back to the queue by a draining worker "
+    "(deadline expiry or early exit) — requeued WITHOUT counting toward "
+    "the poison bound.")
+
+STEAL_ASSIGNMENTS = REGISTRY.counter(
+    "cdt_steal_assignments_total",
+    "Cross-job scheduler grants. kind=own_job (the job the puller named) "
+    "or stolen (work lifted from another open job).",
+    ("kind",))
 
 # --- resilience (cluster/resilience.py + cluster/faults.py) -----------------
 

@@ -566,6 +566,78 @@ def warmup_models() -> str:
     return _read("CDT_WARMUP_MODELS", "", str)
 
 
+
+# --- the elastic fleet (cluster/elastic) -------------------------------------------
+
+
+def autoscale() -> bool:
+    """The autoscaler's policy loop (off by default)."""
+    return _read("CDT_AUTOSCALE", False, _bool)
+
+
+def scale_provider() -> str:
+    """``module:factory`` of a custom ScaleProvider; empty: the local
+    process provider."""
+    return _read("CDT_SCALE_PROVIDER", "", str)
+
+
+def steal_seed() -> int:
+    """Seed of the cross-job steal scheduler's tie-breaks."""
+    return _read("CDT_STEAL_SEED", 0, int)
+
+
+def drain_deadline_s() -> float:
+    """Seconds a draining worker may keep its held work before the
+    handback."""
+    return _read("CDT_DRAIN_DEADLINE_S", 120.0, float)
+
+
+def autoscale_interval_s() -> float:
+    """Seconds between the autoscaler's evaluations."""
+    return _read("CDT_AUTOSCALE_INTERVAL_S", 5.0, float)
+
+
+def autoscale_min() -> int:
+    """The fleet envelope's floor (managed workers)."""
+    return _read("CDT_AUTOSCALE_MIN", 0, int)
+
+
+def autoscale_max() -> int:
+    """The fleet envelope's ceiling (managed workers)."""
+    return _read("CDT_AUTOSCALE_MAX", 4, int)
+
+
+def autoscale_up_depth() -> float:
+    """Pressure (work a capacity unit) at or above which the fleet scales
+    up."""
+    return _read("CDT_AUTOSCALE_UP_DEPTH", 4.0, float)
+
+
+def autoscale_down_depth() -> float:
+    """Pressure at or below which the fleet scales down."""
+    return _read("CDT_AUTOSCALE_DOWN_DEPTH", 0.5, float)
+
+
+def autoscale_up_streak() -> int:
+    """Evaluations in a row over the up depth before a scale-up."""
+    return _read("CDT_AUTOSCALE_UP_STREAK", 2, int)
+
+
+def autoscale_down_streak() -> int:
+    """Evaluations in a row under the down depth before a scale-down."""
+    return _read("CDT_AUTOSCALE_DOWN_STREAK", 4, int)
+
+
+def autoscale_up_cooldown_s() -> float:
+    """Least seconds between two scale-ups."""
+    return _read("CDT_AUTOSCALE_UP_COOLDOWN_S", 30.0, float)
+
+
+def autoscale_down_cooldown_s() -> float:
+    """Least seconds between two scale-downs (removing capacity is
+    reluctant)."""
+    return _read("CDT_AUTOSCALE_DOWN_COOLDOWN_S", 120.0, float)
+
 # --- tiles ---------------------------------------------------------------------
 
 

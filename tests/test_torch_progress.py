@@ -7,6 +7,7 @@ and preview routes of the port's control plane."""
 
 import dataclasses
 import json
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -206,6 +207,25 @@ def test_preview_png_and_eviction(tracker):
         small.close()
 
 
+def test_video_preview_is_the_jax_strip_bit_for_bit(tracker):
+    """A video latent [f, h, w, c] previews as JAX's strip of up to four
+    evenly spaced frames, tiled as a latent and normalised once."""
+    lat = np.random.default_rng(0).standard_normal((9, 8, 6, 16)).astype(
+        np.float32)
+    jt = jtracker.ProgressTracker()
+    try:
+        jtoken = jt.start("v1", 2)
+        jt.report(jtoken, 3.0, lat[None])
+        ref = decode_png(jt.preview_png("v1"))
+    finally:
+        jt.close()
+    token = tracker.start("v1", 2)
+    tracker._on_event(StepEvent(token, 0, 3.0, torch.from_numpy(lat[None])))
+    ours = decode_png(tracker.preview_png("v1"))
+    assert ref.shape == (8, 24, 3)           # frames 0, 2, 5 and 8
+    assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
+
+
 def test_two_trackers_route_by_token():
     a, b = ttracker.ProgressTracker(), ttracker.ProgressTracker()
     try:
@@ -375,6 +395,52 @@ def test_progress_and_preview_routes(tmp_path):
     finally:
         server.stop()
     assert controller.progress._sink_handle not in tevents._SINKS
+
+
+def test_served_wan_preview_is_a_strip_of_frames(tmp_path):
+    """A served ``wan-tiny`` t2v request: its preview is k frames of the
+    latent side by side, k = min(4, latent frames)."""
+    prompt = strip_meta(json.loads(
+        (ROOT / "workflows" / "wan-t2v.json").read_text()))
+    prompt["1"]["inputs"]["ckpt_name"] = "wan-tiny"
+    prompt["4"]["inputs"].update(frames=9, width=16, height=16, steps=2)
+    prompt = {k: prompt[k] for k in ("1", "2", "3", "4")}
+    prompt["7"] = {"class_type": "SaveVideo", "inputs": {
+        "images": ["4", 0], "frame_rate": 16.0, "format": "mp4",
+        "filename_prefix": "wan_v0"}}
+    (tmp_path / "config.json").write_text("{}")
+    controller = Controller(tmp_path / "config.json", device="cpu")
+    controller.output_dir = str(tmp_path / "out")
+    server = ServerThread(controller)
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        req = urllib.request.Request(
+            base + "/distributed/queue", json.dumps({"prompt": prompt}).encode(),
+            {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            prompt_id = json.loads(resp.read())["prompt_id"]
+        entry = {}
+        for _ in range(600):
+            try:
+                with urllib.request.urlopen(
+                        f"{base}/distributed/history/{prompt_id}",
+                        timeout=30) as resp:
+                    entry = json.loads(resp.read())
+            except urllib.error.HTTPError as e:      # 404 until it ends
+                e.close()
+            if entry.get("status") in ("success", "error"):
+                break
+            time.sleep(0.1)
+        assert entry.get("status") == "success", entry
+        with urllib.request.urlopen(f"{base}/distributed/preview/{prompt_id}",
+                                    timeout=30) as resp:
+            png = decode_png(resp.read())
+        lat = controller.progress._job_for(prompt_id).previews[0]
+        f, h, w = lat.shape[:3]
+        assert f > 1
+        assert png.shape == (h, min(4, f) * w, 3)
+    finally:
+        server.stop()
 
 
 def test_no_token_no_events(tiny_pair, captured):

@@ -542,9 +542,13 @@ class TestTwoControllersHTTP:
 
     def test_route_validation(self, master):
         _, server = master
+        # the steal pull: no open job, no task; a bad exclude list is a 400
+        assert _post(server.port, "/distributed/request_image",
+                     {"job_id": "*", "worker_id": "w0"}) == (200, {"task": None})
         status, body = _post(server.port, "/distributed/request_image",
-                             {"job_id": "*", "worker_id": "w0"})
-        assert status == 400 and "A.12" in body["error"]
+                             {"job_id": "*", "worker_id": "w0",
+                              "exclude_jobs": "jobA"})
+        assert status == 400 and "exclude_jobs" in body["error"]
         status, _ = _post(server.port, "/distributed/request_image",
                           {"job_id": "x"})
         assert status == 400
