@@ -314,6 +314,34 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``meta.backend`` is not ``torch`` answer 400. Prints the warm pass's
    and the warm request's seconds, the interactive request's wait from
    its POST to its start, and the phase's seconds and peak.
+14f. fleet cache — the fleet tier of the content cache and its near
+   tier. A master in this process, built as 14c's but with an empty
+   ``CDT_CACHE_DIR`` (memory only: after a clear only the ring can
+   answer) and one ``remote`` host ``w0``, a worker subprocess with its
+   own output and cache directories that builds no model, shares phase
+   4's SDXL registry; the batchable graph (14c's, 1024², 8 of 30 euler
+   karras steps, CFG 5). (a) ``GET /distributed/cache`` has
+   ``fleet.members`` ``["master", "w0"]``, ``ring_size`` 2, ``vnodes``
+   64, and ``/distributed/health`` ``cache.fleet_ring`` 2; the seed is
+   the first of 41–48 whose result key (it carries this card's name) the
+   master's ring gives to w0. (b) The first POST computes: 568 K1 and
+   560 K2, the PNG and the sampler output bitwise a solo
+   ``GraphExecutor`` run without ``content_cache``, ``remote_miss`` 1 and
+   ``fill`` 1; w0's ``GET /distributed/cache/entry/{key}`` decodes to the
+   master's entry bitwise. (c) ``POST /distributed/cache/clear``, then
+   the same POST: history ``cache`` "hit", 8 K1 (the two text encodes the
+   clear dropped) and 0 K2, the PNG and the images bitwise (b)'s,
+   ``remote_hit`` 1, ``cdt_fleet_cache_remote_total{op="get",outcome="hit"}``
+   up by 1. (d) A ``cache: "near"`` POST of a new positive: the donor
+   (564 K1, its negative a conditioning hit, 560 K2), parked at step 4,
+   bitwise its ``cache: "bypass"`` twin (560 / 560). (e) The same graph
+   under another seed, ``cache: "near"``: history ``cache`` "near",
+   exactly 280 K1 and 280 K2 (4 of 8 steps × 70), the near counters up
+   by 1 and by 4, the image finite, in [0, 1], unequal to the donor's and
+   to that seed's full run, and bitwise ``generate_near`` in this process
+   on the donor's latent and that seed; no remote error. Prints each
+   request's seconds, the entry's GET and PUT bytes and the fill's
+   landing.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -6503,17 +6531,19 @@ def fd_counts(text_encodes: int, requests: int) -> dict:
 
 
 @contextlib.contextmanager
-def fd_master(torch, name: str, registry, env: dict):
-    """A master ``Controller`` on the card with no workers, behind a
-    ``ServerThread``, built under ``env`` with the defaults of the front
-    door, the cache (its own cache directory, empty) and the stage pools;
-    yields (master, base URL, output directory)."""
+def fd_master(torch, name: str, registry, env: dict,
+              config: dict | None = None, home: Path | None = None):
+    """A master ``Controller`` on the card (no workers unless ``config``
+    lists some), behind a ``ServerThread``, built under ``env`` with the
+    defaults of the front door, the cache (its own cache directory,
+    empty), its fleet tier and the stage pools; yields (master, base URL,
+    output directory)."""
     from comfyui_distributed_tpu_torch.api.app import ServerThread
     from comfyui_distributed_tpu_torch.cluster.controller import Controller
 
-    home = FD_DIR / name
+    home = home or FD_DIR / name
     home.mkdir(parents=True)
-    (home / "master.json").write_text("{}")
+    (home / "master.json").write_text(json.dumps(config or {}))
     full = {"CDT_OUTPUT_DIR": str(home / "out"),
             "CDT_CACHE_DIR": str(home / "cache"), "CDT_CACHE": "1",
             "CDT_FRONTDOOR": "1", "CDT_STAGES": "1", **env}
@@ -7384,6 +7414,274 @@ def preempt_phase(torch, fa, sdxl: PathRun, watch: CatalogWatch) -> dict:
     return launches
 
 
+# --- phase 14f: the fleet cache and its near tier -----------------------------
+
+FLEET_DIR = OUTPUT_DIR / "fleet"
+FLEET_SEEDS = tuple(range(41, 49))     # the first whose key w0 owns
+FLEET_POSITIVE = "a harbour at dawn, watercolour, fleet cache"
+NEAR_POSITIVE = "a harbour at dawn, watercolour, near tier"
+NEAR_SEEDS = (81, 82)                  # the donor, the re-roll
+NEAR_STEPS = FD_STEPS // 2             # the re-roll's tail: 4 of 8 steps
+FILL_S = 60.0                          # the asynchronous fill, to landed
+
+
+def fleet_key(bundle, prompt: dict) -> str:
+    """The result key the group executor gives ``prompt`` on this card
+    (it carries the card's name, torch's and CUDA's versions and TF32,
+    so it is known only here)."""
+    from comfyui_distributed_tpu_torch.cluster.cache import (
+        execution_signature, request_fingerprint, result_key)
+    from comfyui_distributed_tpu_torch.cluster.cache.conditioning import \
+        encoder_mode
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+
+    return result_key(request_fingerprint(strip_meta(prompt)),
+                      execution_signature(bundle.pipeline.device),
+                      encoder_mode(bundle.text_encoder),
+                      bundle.weights_identity())
+
+
+def fleet_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Phase 14f: the fleet cache between a master in this process and a
+    worker subprocess that builds no model, then the near tier; returns
+    the master's launches of the served requests."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch import telemetry
+    from comfyui_distributed_tpu_torch.cluster.cache.fleet import (
+        decode_entry, encode_entry)
+    from comfyui_distributed_tpu_torch.cluster.frontdoor import microbatch
+    from comfyui_distributed_tpu_torch.diffusion.pipeline import \
+        GenerationSpec
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph import nodes_builtin as nb
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    (FLEET_DIR / "worker_in").mkdir(parents=True)
+    telemetry.set_enabled(True)
+    registry, bundle = sdxl.registry, sdxl.bundle
+    solo = GraphExecutor({"model_registry": registry,
+                          "output_dir": str(FLEET_DIR / "solo")})
+
+    def solo_run(seed: int, positive: str, prefix: str):
+        """The request alone, no content cache: (images, PNG bytes)."""
+        before = dict(fa.LAUNCHES)
+        images = solo.execute(fd_prompt(seed, positive, prefix,
+                                        steps=FD_STEPS))["4"][0]
+        torch.cuda.synchronize()
+        counts = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        require(counts == fd_counts(2, 1),
+                f"fleet: the solo {prefix} run's launches {counts}")
+        return images, (FLEET_DIR / "solo" / f"{prefix}_00000.png").read_bytes()
+
+    # the sampler output each served member's suffix got, and the donor
+    seen, donors = {}, []
+    real_finish = microbatch._finish
+
+    def finish(prep, images):
+        seen[prep.member.prompt_id] = images.detach().clone()
+        return real_finish(prep, images)
+
+    launches = {k: 0 for k in fa.LAUNCHES}
+    port = free_port()
+    w0 = f"http://127.0.0.1:{port}"
+    reset_peak(torch)
+    worker = start_worker(port, FLEET_DIR / "worker.log",
+                          FLEET_DIR / "worker_in", {
+                              "CDT_CACHE": "1",
+                              "CDT_CACHE_DIR": str(FLEET_DIR / "w0_cache"),
+                              "CDT_OUTPUT_DIR": str(FLEET_DIR / "w0_out")})
+    microbatch._finish = finish
+    try:
+        config = {"hosts": [{"id": "w0", "address": w0, "type": "remote",
+                             "enabled": True}]}
+        with fd_master(torch, "fleet", registry, {"CDT_CACHE_DIR": ""},
+                       config=config, home=FLEET_DIR / "master") as (
+                master, base, out):
+            fleet = master.cache.fleet
+            require(fleet is not None and master.cache.dir is None,
+                    "fleet: the tier is off by default or the master's "
+                    "cache is not memory-only")
+            real_offer = fleet.near.offer
+
+            def offer(near_k, ckpt):
+                donors.append(ckpt)
+                return real_offer(near_k, ckpt)
+
+            fleet.near.offer = offer
+            queue = base + "/distributed/queue"
+
+            def served(payload: dict, prefix: str, what: str):
+                png = out / f"{prefix}_00000.png"
+                png.unlink(missing_ok=True)
+                before = dict(fa.LAUNCHES)
+                t0 = time.perf_counter()
+                status, a = http_json(queue, payload)
+                require(status == 200 and a.get("batched") is True,
+                        f"fleet: {what} answered {status}: {a}")
+                entry = wait_final(master, a["prompt_id"], what)
+                secs = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                delta = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+                for k in delta:
+                    launches[k] += delta[k]
+                _, hist = http_json(
+                    f"{base}/distributed/history/{a['prompt_id']}")
+                require(entry["status"] == "success" and png.is_file(),
+                        f"fleet: {what}: {entry}")
+                say(f"  {what}: {secs:.3f} s, launches {delta}, history "
+                    f"cache {hist.get('cache')!r}")
+                return seen[a["prompt_id"]], hist, delta, png.read_bytes()
+
+            # gate (a): the ring over the master and w0
+            status, stats = http_json(base + "/distributed/cache")
+            ring = stats.get("fleet") or {}
+            _, health = http_json(base + "/distributed/health")
+            require(status == 200 and ring.get("members") == ["master", "w0"]
+                    and ring.get("ring_size") == 2 and ring.get("vnodes") == 64
+                    and (health.get("cache") or {}).get("fleet_ring") == 2,
+                    f"fleet: the master's ring {ring}, health {health}")
+            seed = next((s for s in FLEET_SEEDS if fleet.owner_of(fleet_key(
+                bundle, fd_prompt(s, FLEET_POSITIVE, "fleet",
+                                  steps=FD_STEPS)))[0] == "w0"), None)
+            require(seed is not None,
+                    f"fleet: w0 owns none of seeds {FLEET_SEEDS}' keys")
+            prompt = fd_prompt(seed, FLEET_POSITIVE, "fleet", steps=FD_STEPS)
+            key = fleet_key(bundle, prompt)
+            say(f"  ring {ring['members']} ({ring['vnodes']} vnodes each); "
+                f"seed {seed}'s key {key[:16]}… belongs to w0")
+
+            # gate (b): computed, then filled to w0 asynchronously
+            ref_images, ref_png = solo_run(seed, FLEET_POSITIVE, "fleet")
+            images, hist, delta, png = served({"prompt": prompt}, "fleet",
+                                              "the first request")
+            require(delta == fd_counts(2, 1) and "cache" not in hist
+                    and png == ref_png and torch.equal(images, ref_images)
+                    and master.cache.results.keys() == [key],
+                    f"fleet: the first request: launches {delta}, history "
+                    f"{hist}, PNG bitwise {png == ref_png}, keys "
+                    f"{master.cache.results.keys()} (want {key})")
+            t0 = time.perf_counter()
+            while (fleet.counts["fill"] + fleet.counts["fill_error"] < 1
+                   and time.perf_counter() - t0 < FILL_S):
+                time.sleep(0.02)
+            fill_s = time.perf_counter() - t0
+            require(fleet.counts["remote_miss"] == 1
+                    and fleet.counts["fill"] == 1,
+                    f"fleet: after the first request {fleet.counts}")
+            t0 = time.perf_counter()
+            status, body = http_raw(f"{w0}/distributed/cache/entry/{key}")
+            get_s = time.perf_counter() - t0
+            held = decode_entry(body) if status == 200 else None
+            mine = master.cache.results.peek(key)["images"]
+            require(held is not None and held["images"].dtype == np.float32
+                    and held["images"].tobytes() == mine.numpy().tobytes(),
+                    f"fleet: w0's entry answered {status}, not the master's "
+                    "bytes")
+            put_bytes = len(json.dumps(encode_entry(key, {"images": mine})))
+            say(f"  w0 holds the entry: GET {len(body)} B in {get_s:.3f} s, "
+                f"PUT {put_bytes} B (landed {fill_s:.3f} s after the "
+                f"request ended), fp32 {list(mine.shape)} bitwise")
+
+            # gate (c): the local tiers cleared, only the ring answers
+            status, _ = http_json(base + "/distributed/cache/clear", {})
+            hit_sample = 'cdt_fleet_cache_remote_total{op="get",outcome="hit"}'
+            hits = metric(base, hit_sample)
+            images, hist, delta, png = served({"prompt": prompt}, "fleet",
+                                              "the repeat after a clear")
+            require(status == 200 and hist.get("cache") == "hit"
+                    and delta == fd_counts(2, 0) and png == ref_png
+                    and torch.equal(images, ref_images)
+                    and fleet.counts["remote_hit"] == 1
+                    and metric(base, hit_sample) == hits + 1,
+                    f"fleet: the repeat: history {hist}, launches {delta}, "
+                    f"PNG bitwise {png == ref_png}, {fleet.counts}")
+
+            # gate (d): a near donor, bitwise its bypass twin
+            donor_prompt = fd_prompt(NEAR_SEEDS[0], NEAR_POSITIVE, "near",
+                                     steps=FD_STEPS)
+            donor_img, hist, delta, donor_png = served(
+                {"prompt": donor_prompt, "cache": "near"}, "near",
+                "the near donor")
+            _, stats = http_json(base + "/distributed/cache")
+            require(delta == fd_counts(1, 1) and "cache" not in hist
+                    and stats["fleet"]["near"]["donor"] == 1 and len(donors) == 1
+                    and donors[0].step == FD_STEPS // 2,
+                    f"fleet: the donor: launches {delta}, history {hist}, "
+                    f"near {stats['fleet']['near']}")
+            twin_img, hist, delta, twin_png = served(
+                {"prompt": donor_prompt, "cache": "bypass"}, "near",
+                "the donor's bypass twin")
+            require(delta == fd_counts(0, 1) and torch.equal(twin_img, donor_img)
+                    and twin_png == donor_png,
+                    f"fleet: the donor is not its bypass twin (launches "
+                    f"{delta})")
+
+            # gate (e): the re-roll runs the ladder's second half
+            reroll = fd_prompt(NEAR_SEEDS[1], NEAR_POSITIVE, "near",
+                               steps=FD_STEPS)
+            reuse0 = metric(base, "cdt_fleet_near_reuse_total")
+            saved0 = metric(base, "cdt_fleet_near_steps_saved_total")
+            img, hist, delta, _ = served({"prompt": reroll, "cache": "near"},
+                                         "near", "the near re-roll")
+            want = {k: v // STEPS * NEAR_STEPS for k, v in FD_UNET.items()}
+            require(hist.get("cache") == "near" and delta == want
+                    and metric(base, "cdt_fleet_near_reuse_total") == reuse0 + 1
+                    and metric(base, "cdt_fleet_near_steps_saved_total")
+                    == saved0 + NEAR_STEPS,
+                    f"fleet: the re-roll: history {hist}, launches {delta} "
+                    f"(want {want})")
+            require(bool(torch.isfinite(img).all()) and float(img.min()) >= 0
+                    and float(img.max()) <= 1
+                    and not torch.equal(img, donor_img),
+                    "fleet: the re-roll's image is not finite in [0, 1] or is "
+                    "the donor's")
+            full_img, _ = solo_run(NEAR_SEEDS[1], NEAR_POSITIVE, "nearfull")
+            require(not torch.equal(img, full_img),
+                    "fleet: the re-roll is its seed's full run")
+            cond = solo.execute({k: v for k, v in reroll.items()
+                                 if k in ("1", "2", "3")})
+            pos, neg = cond["2"][0], cond["3"][0]
+            pipe = bundle.pipeline
+            adm = pipe.unet.config.adm_in_channels
+            args = reroll["4"]["inputs"]
+            t0 = time.perf_counter()
+            direct = pipe.generate_near(
+                GenerationSpec(height=args["height"], width=args["width"],
+                               steps=args["steps"],
+                               sampler=args["sampler_name"],
+                               scheduler=args["scheduler"],
+                               guidance_scale=args["cfg"],
+                               denoise=NEAR_STEPS / args["steps"]),
+                NEAR_SEEDS[1], torch.from_numpy(np.array(donors[0].carry[0])),
+                pos["context"], neg["context"],
+                nb._adm_from_cond(pos, adm, pipe.device),
+                nb._adm_from_cond(neg, adm, pipe.device))
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t0
+            diff = float((img - full_img).abs().max())
+            require(torch.equal(direct, img),
+                    "fleet: the re-roll is not generate_near on the donor's "
+                    "latent")
+            require(fleet.counts["remote_error"] == 0
+                    and fleet.counts["fill_error"] == 0,
+                    f"fleet: remote errors {fleet.counts}")
+            say(f"  near: the re-roll bitwise generate_near on the donor's "
+                f"step-{donors[0].step} latent ({direct_s:.3f} s in "
+                f"process), max |re-roll − its seed's full run| {diff:.4f}; "
+                f"fleet {fleet.stats()}")
+    except BaseException:
+        tail = (FLEET_DIR / "worker.log").read_text(
+            errors="replace").splitlines()[-40:]
+        print("chip_smoke: fleet worker log tail:\n" + "\n".join(tail),
+              file=sys.stderr)
+        raise
+    finally:
+        microbatch._finish = real_finish
+        stop_worker(worker)
+    return launches
+
+
 # --- phase 38: offload ------------------------------------------------------
 
 OFFLOAD_DIR = OUTPUT_DIR / "offload"
@@ -7906,6 +8204,8 @@ def main() -> int:
             path_launches["stages"] = stages_phase(torch, fa, sdxl)
         with phase(torch, "14e catalog, warmup and preemption"):
             path_launches["preempt"] = preempt_phase(torch, fa, sdxl, watch)
+        with phase(torch, "14f fleet cache"):
+            path_launches["fleet"] = fleet_phase(torch, fa, sdxl)
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "

@@ -4,7 +4,7 @@ body; no chunked bodies; one request per connection; JSON answers, a PNG
 for the preview), with an RFC 6455 upgrade for the dispatch WebSocket
 (``utils/websocket.py``).
 
-Routes (the JAX package's ``api/app.py``, less the fleet cache):
+Routes (the JAX package's ``api/app.py``):
 
 - ``GET /distributed/health``, ``GET /distributed/system_info``
 - ``GET /prompt`` (queue depth), ``POST /prompt`` (validate and enqueue)
@@ -24,6 +24,11 @@ Routes (the JAX package's ``api/app.py``, less the fleet cache):
 - ``GET /distributed/frontdoor``, ``GET /distributed/cache``,
   ``POST /distributed/cache/clear`` (the front door's and the content
   cache's state; the clear drops both memory tiers)
+- ``GET``/``PUT /distributed/cache/entry/{key}`` (the fleet cache's
+  remote serve and fill: one result-tier entry in the checksummed array
+  wire form, from and into this host's own tiers only; the key is 64
+  lowercase hex digits, else 400; a miss is 404, a payload that does not
+  verify 400; both need the token)
 - ``GET /distributed/stages`` (the stage pools; ``{"enabled": false}``
   without them), ``POST /distributed/stages/decode`` (one checksummed
   latent handoff decoded on this controller's VAE, answered as a
@@ -330,6 +335,62 @@ class App:
                        + c.cache.results.clear_memory())
             return Response(200, {"status": "cleared", "dropped": dropped})
 
+        def entry_key(request) -> str:
+            key = request.match["key"]
+            if not re.fullmatch(r"[0-9a-f]{64}", key):
+                raise ValidationError("key must be a 64-hex content digest",
+                                      field="key")
+            return key
+
+        async def cache_entry_get(request):
+            """The fleet tier's remote serve: this host's tiers (memory,
+            then disk), never forwarded around the ring, so a stale ring
+            cannot loop; 404 is the ordinary miss. The wire form is built
+            off the loop."""
+            from ..cluster.cache.fleet import encode_entry
+
+            if c.cache is None:
+                return json_error("content cache disabled", 404)
+            key = entry_key(request)
+            arrays = c.cache.results.get(key)
+            if arrays is None:
+                return json_error("no such entry", 404)
+            body = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: json.dumps(encode_entry(key, arrays)).encode())
+            return Response(200, body)
+
+        async def cache_entry_put(request):
+            """The fleet tier's fill and handback target: each array's
+            checksum verified (off the loop) before it is stored into the
+            result tier; a payload that does not verify is a 400."""
+            import torch
+
+            from ..cluster.stages.latents import (LatentWireError,
+                                                  decode_array_payload)
+
+            if c.cache is None:
+                return json_error("content cache disabled", 404)
+            key = entry_key(request)
+            loop = asyncio.get_running_loop()
+            body = await loop.run_in_executor(None, request.json)
+            payloads = body.get("arrays") if isinstance(body, dict) else None
+            if not isinstance(payloads, dict) or not payloads:
+                raise ValidationError("missing 'arrays' object",
+                                      field="arrays")
+
+            def store():
+                arrays = {str(n): torch.from_numpy(decode_array_payload(p))
+                          for n, p in payloads.items()}
+                c.cache.results.put(key, arrays)
+                return arrays
+
+            try:
+                arrays = await loop.run_in_executor(None, store)
+            except LatentWireError as e:
+                raise ValidationError(str(e), field="arrays") from None
+            return Response(200, {"status": "stored", "key": key,
+                                  "arrays": len(arrays)})
+
         async def preemption_stats(request):
             if c.preemption is None:
                 return Response(200, {"enabled": False})
@@ -627,6 +688,8 @@ class App:
         self.add("GET", "/distributed/frontdoor", frontdoor_stats)
         self.add("GET", "/distributed/cache", cache_stats)
         self.add("POST", "/distributed/cache/clear", cache_clear)
+        self.add("GET", "/distributed/cache/entry/{key}", cache_entry_get)
+        self.add("PUT", "/distributed/cache/entry/{key}", cache_entry_put)
         self.add("GET", "/distributed/preemption", preemption_stats)
         self.add("GET", "/distributed/checkpoint/{checkpoint_id}",
                  checkpoint_export)

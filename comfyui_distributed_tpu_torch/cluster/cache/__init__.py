@@ -19,9 +19,15 @@ Three tiers stop a controller computing what it already knows:
 
 Persistence follows ``utils/jsonio`` with checksummed sidecars
 (:mod:`store`): corruption is rejected and recomputed, never served.
-``CDT_CACHE=0`` removes the subsystem; a request's ``cache: "bypass"``
-skips serving (it still fills). The fleet tier and the near tier are
-not ported (ROADMAP.md, item A.6a ii).
+- **fleet** (:mod:`fleet`, ``CacheManager.fleet``): the result keyspace
+  sharded over the configured hosts on a consistent-hash ring, a local
+  miss asked of its owner before a recompute, each fill sent to it, a
+  draining host's shard handed back; and the opt-in near tier, where a
+  ``cache: "near"`` re-roll starts from a donor's mid-trajectory latent.
+
+``CDT_CACHE=0`` removes the subsystem and ``CDT_FLEET_CACHE=0`` the
+fleet tier; a request's ``cache: "bypass"`` skips serving (it still
+fills).
 """
 
 from __future__ import annotations
@@ -34,14 +40,15 @@ from ...utils import constants
 from ...utils.logging import log
 from .coalesce import InflightCoalescer
 from .conditioning import SingleFlight, cached_encode
-from .keys import (conditioning_key, execution_signature,
-                   request_fingerprint, result_key)
+from .keys import (conditioning_key, execution_signature, near_fingerprint,
+                   near_key, request_fingerprint, result_key)
 from .store import CacheTier
 
 __all__ = [
     "CacheManager", "CacheTier", "InflightCoalescer", "build_cache_manager",
     "cache_enabled", "cached_encode", "conditioning_key",
-    "execution_signature", "request_fingerprint", "result_key",
+    "execution_signature", "near_fingerprint", "near_key",
+    "request_fingerprint", "result_key",
 ]
 
 
@@ -94,6 +101,9 @@ class CacheManager:
         self.conditioning_flights = SingleFlight()
         self.coalescer = InflightCoalescer()
         self._window = _HitRateWindow()
+        # the fleet tier (fleet.FleetCache), set by the controller; None:
+        # this host's tiers only
+        self.fleet = None
 
     def record_request(self, hit: bool) -> None:
         self._window.record(hit)
@@ -111,6 +121,7 @@ class CacheManager:
             "conditioning": self.conditioning.stats(),
             "result": self.results.stats(),
             "coalescer": self.coalescer.stats(),
+            "fleet": self.fleet.stats() if self.fleet is not None else None,
         }
 
 

@@ -12,7 +12,8 @@ inputs that determine the output, and nothing else:
 - **request fingerprint**: the whole canonical prompt graph (prompt
   text, negative prompt, seed, every literal).
 - **result**: fingerprint × execution signature × conditioning mode ×
-  weights identity. The execution signature is this package's own: the
+  weights identity; the **near** key (the fleet cache's near tier) is
+  the same over the fingerprint with its integer seeds masked. The execution signature is this package's own: the
   backend, torch and CUDA versions, the device and whether TF32 is on.
   A JAX signature never equals it, so a result computed by one package
   is never served by the other.
@@ -84,6 +85,32 @@ def result_key(fingerprint: str, execution_sig: str,
     checkpoint replaced under the same name is not served stale."""
     return digest("result", fingerprint, execution_sig, conditioning_mode,
                   weights_id)
+
+
+def near_fingerprint(prompt: dict) -> str:
+    """Identity of a request modulo its seed: the prompt graph with every
+    integer ``seed`` input zeroed. Two re-rolls of one prompt share it.
+    A seed wired from another node (a link) is graph structure and
+    stays."""
+    import copy
+
+    masked = copy.deepcopy(prompt)
+    for node in masked.values():
+        if not isinstance(node, dict):
+            continue
+        inputs = node.get("inputs")
+        if isinstance(inputs, dict) and isinstance(inputs.get("seed"), int):
+            inputs["seed"] = 0
+    return digest("near", canonical_bytes(masked))
+
+
+def near_key(fingerprint: str, execution_sig: str,
+             conditioning_mode: str = "", weights_id: str = "") -> str:
+    """The near tier's key: ``result_key``'s factors over the seedless
+    ``near_fingerprint``, so a donor of other weights or another program
+    is never reused."""
+    return digest("near-result", fingerprint, execution_sig,
+                  conditioning_mode, weights_id)
 
 
 def token_array_signature(ids) -> list:

@@ -125,6 +125,22 @@ class CacheTier:
         with self._lock:
             return list(self._entries)
 
+    def peek(self, key: str) -> Optional[dict]:
+        """Tensors for ``key`` from memory only: no disk read, no LRU
+        touch, no hit or miss counted (the fleet tier's handback reads
+        with it, so a move does not distort this host's recency order or
+        its counts)."""
+        with self._lock:
+            e = self._entries.get(key)
+            return dict(e.arrays) if e is not None else None
+
+    def drop_memory(self, key: str) -> None:
+        """Drop one entry from memory only (after a drain handback moved
+        it: the persisted sidecar stays valid)."""
+        with self._lock:
+            self._entries.pop(key, None)
+        self._export_gauges()
+
     # --- the cache ----------------------------------------------------------
 
     def get(self, key: str) -> Optional[dict]:

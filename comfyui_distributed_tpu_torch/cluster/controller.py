@@ -11,7 +11,10 @@ a master, the manager of the worker processes it launches
 master's ``CDT_MASTER_PORT`` once its control plane is up.
 It builds the content cache (``cluster/cache``, None under
 ``CDT_CACHE=0``), which its execution context carries to
-``CLIPTextEncode`` and the group executor, the stage pools
+``CLIPTextEncode`` and the group executor, with its fleet tier
+(``cluster/cache/fleet.py``, None under ``CDT_FLEET_CACHE=0``: a ring
+over this host and the configured ones, bound to the loop at startup
+and unsubscribed from the drain feed at shutdown), the stage pools
 (``cluster/stages``, None under ``CDT_STAGES=0``), attached to the
 prompt queue and the front door and stopped at shutdown, the serving
 front door (``cluster/frontdoor``, None under ``CDT_FRONTDOOR=0``),
@@ -88,6 +91,12 @@ class Controller:
                                          config_loader=self.load_config,
                                          input_dir=Path(self.input_dir))
         self.cache = build_cache_manager()
+        if self.cache is not None:
+            from .cache.fleet import build_fleet_cache
+
+            self.cache.fleet = build_fleet_cache(
+                self.cache, self.worker_id or "master",
+                self._fleet_membership)
         # stage-split serving: encode, denoise and decode pools for the
         # front door's batch jobs; None under CDT_STAGES=0 (fused path)
         self.stages = build_stages()
@@ -119,6 +128,23 @@ class Controller:
 
     def load_config(self) -> dict:
         return load_config(self.config_path)
+
+    def _fleet_membership(self) -> dict:
+        """The fleet cache's members: this host (URL None: it never asks
+        itself) and every configured host id → its URL. A worker's config
+        lists hosts, not its master, so a worker's ring lacks the master,
+        as in the JAX package. The fleet tier leaves out leaving hosts."""
+        from ..utils.network import build_host_url
+
+        members: dict = {(self.worker_id or "master"): None}
+        try:
+            for h in self.load_config().get("hosts", []):
+                hid = str(h.get("id") or "")
+                if hid and hid not in members:
+                    members[hid] = build_host_url(h) or None
+        except Exception:  # noqa: BLE001 — a bad config is an empty fleet
+            pass
+        return members
 
     def host_by_id(self, host_id: str) -> Optional[dict]:
         """Config host entry for a worker id (the busy-probe resolver)."""
@@ -172,6 +198,9 @@ class Controller:
         self.bridge = CollectorBridge(self.store, self.loop,
                                       host_resolver=self.host_by_id)
         self.tile_farm = TileFarm(self.store, self.loop)
+        if self.cache is not None and self.cache.fleet is not None:
+            # probes and fills cross from worker threads onto this loop
+            self.cache.fleet.attach_loop(self.loop)
         self.queue.start()
         if self.frontdoor is not None:
             self.frontdoor.start()
@@ -222,6 +251,8 @@ class Controller:
             await asyncio.get_running_loop().run_in_executor(
                 None, self.stages.stop)
         await self.queue.stop()
+        if self.cache is not None and self.cache.fleet is not None:
+            self.cache.fleet.close()   # off the drain feed
         self.progress.close()       # release the process-wide progress sink
         # the queue's context factory, the orchestrator and the bridge hold
         # bound methods of this controller, so it lives until the cycle
@@ -241,6 +272,18 @@ class Controller:
             # cold | warming | ready | error: dispatch prefers a host that
             # is not warming (cluster/dispatch.py)
             "warmup": self.warmup.state,
+            # what admission sheds on: queued depth and the coalescing
+            # window's members
+            "frontdoor": (None if self.frontdoor is None
+                          else {"depth": self.frontdoor.depth(),
+                                "coalescing":
+                                    self.frontdoor.batcher.pending_count}),
+            # the result tier's recent hit rate and the fleet ring's size
+            "cache": (None if self.cache is None
+                      else {"hit_rate": round(self.cache.hit_rate(), 4),
+                            "fleet_ring": (len(self.cache.fleet.ring()[0])
+                                           if self.cache.fleet is not None
+                                           else 0)}),
             # each stage pool's backlog (cluster/stages)
             "stages": (None if self.stages is None
                        else self.stages.depths()),

@@ -19,13 +19,19 @@ A flushed group runs in the prompt queue's graph thread as one unit:
 A member that fails in its prefix or suffix fails alone; a failed group
 call falls every member of that sub-group back to a solo run (counted in
 ``cdt_batch_fallbacks_total``), so no admitted job is lost to batching.
-The result tier (``cluster/cache``) serves a member before any of this
-and is filled after. The group call runs under ``pinned_bundle``, so a
-residency planner never evicts its bundle mid-call. A stacked group's
-program is observed into the shape catalog (``cluster/shape_catalog``),
-so the next boot warms it. Stage-split serving (``cluster/stages``)
-reuses these helpers across its pools. Not ported: the near tier, which
-lives in the fleet cache (A.6a).
+The result tier (``cluster/cache``) serves a member before any of this,
+its ladder local memory → local disk → the fleet ring's owner
+(``cluster/cache/fleet.py``) → recompute, and is filled after, the
+owner's copy asynchronously. A ``cache: "near"`` member that missed the
+exact tiers is served from a donor's mid-trajectory latent when the
+fleet's near tier holds one (``cache: "near"`` in its history, approximate
+by design, never filling the exact tier); otherwise it runs solo as a
+donor, preempted once at its midpoint to park that latent, then resumed
+to the end, bitwise its plain run. The group call runs under
+``pinned_bundle``, so a residency planner never evicts its bundle
+mid-call. A stacked group's program is observed into the shape catalog
+(``cluster/shape_catalog``), so the next boot warms it. Stage-split
+serving (``cluster/stages``) reuses these helpers across its pools.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ class _Prepared:
         self.stackable = False
         self.why_solo = ""
         self.result_key = None   # the result tier's key (cluster/cache)
+        self.near_key = None     # the near tier's seedless key
 
     def signature(self) -> tuple:
         return (id(self.pipeline), self.spec,
@@ -188,11 +195,19 @@ def _cache_key_for(p: _Prepared, cache) -> "str | None":
 def _serve_cached(p: _Prepared, cache, results: dict) -> bool:
     """Serve one member from the result tier. It still runs its suffix
     (``SaveImage`` writes its file); only the sampler is skipped. A
-    ``cache: "bypass"`` member never serves (it runs and refreshes)."""
+    ``cache: "bypass"`` member never serves (it runs and refreshes). The
+    ladder: local memory, local disk (both in ``results.get``), the
+    fleet ring's owner (``fleet.probe``), then a recompute."""
     p.result_key = _cache_key_for(p, cache)
     if p.result_key is None or p.member.cache_mode == "bypass":
         return False
     hit = cache.results.get(p.result_key)
+    fleet = getattr(cache, "fleet", None)
+    if hit is None and fleet is not None:
+        hit = fleet.probe(p.result_key)
+        if hit is not None and "images" in hit:
+            # memory only: the entry's durable home is its owner's shard
+            cache.results.put(p.result_key, hit, persist=False)
     if hit is None or "images" not in hit:
         return False
     try:
@@ -219,9 +234,138 @@ def _fill_cache(p: _Prepared, cache, images) -> None:
         return
     try:
         cache.results.put(p.result_key, {"images": images})
+        fleet = getattr(cache, "fleet", None)
+        if fleet is not None:
+            # to the ring's owner, asynchronously: the host copy the tier
+            # just made, so the card is read once
+            fleet.fill(p.result_key, cache.results.peek(p.result_key)
+                       or {"images": images})
     except Exception as e:  # noqa: BLE001
         debug_log(f"result cache: fill failed for "
                   f"{p.result_key[:12]}: {e}")
+
+
+def _filled_adm(p: _Prepared) -> tuple:
+    """(y, uy) with the zero ADM defaults the sampler applies: the donor
+    runs with these, so the near tier's expected identity hashes the
+    conditioning the donor's identity hashed."""
+    import torch
+
+    y, uy = p.y, p.uy
+    if y is None:
+        adm = p.pipeline.unet.config.adm_in_channels
+        y = torch.zeros((1, max(adm, 1)), dtype=torch.float32)
+    if uy is None:
+        uy = torch.zeros_like(y)
+    return y, uy
+
+
+def _near_key_for(p: _Prepared, cache) -> "str | None":
+    """The near tier's key of one member (``_cache_key_for``'s factors
+    over the seed-masked fingerprint), or None when the member did not
+    opt in with ``cache: "near"``, the fleet tier is off, or the member
+    cannot group (the donor path needs what grouping proves)."""
+    if cache is None or getattr(cache, "fleet", None) is None:
+        return None
+    if not p.stackable or p.member.cache_mode != "near":
+        return None
+    from ..cache import execution_signature, near_fingerprint, near_key
+    from ..cache.conditioning import encoder_mode
+
+    weights_fn = getattr(p.model, "weights_identity", None)
+    if weights_fn is None:
+        return None
+    mode = encoder_mode(getattr(p.model, "text_encoder", None))
+    return near_key(near_fingerprint(p.member.prompt),
+                    execution_signature(p.pipeline.device), mode,
+                    weights_fn())
+
+
+def _serve_near(p: _Prepared, cache, results: dict) -> bool:
+    """Serve one opted-in member from a donor's mid-trajectory latent:
+    the rest of the ladder under the member's own seed. Approximate by
+    design; it never fills the exact tier, and any failure falls back to
+    a full compute."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    p.near_key = _near_key_for(p, cache)
+    if p.near_key is None or not hasattr(p.pipeline, "generate_near"):
+        return False
+    fleet = cache.fleet
+    y, uy = _filled_adm(p)
+    expect = p.pipeline.checkpoint_identity(
+        p.spec, p.seed, conditioning=(p.context, p.uncond, y, uy))
+    expect.pop("seed", None)       # the same work modulo the seed
+    ckpt = fleet.near.lookup(p.near_key, expect)
+    if ckpt is None:
+        return False
+    total = int(ckpt.total_steps)
+    remaining = total - int(ckpt.step)
+    if remaining <= 0 or remaining >= total:
+        return False
+    # the sampler state's latent: its first 4-D leaf, NHWC
+    lat = next((np.asarray(leaf) for leaf in ckpt.carry
+                if np.asarray(leaf).ndim == 4), None)
+    if lat is None:
+        return False
+    try:
+        images = p.pipeline.generate_near(
+            dataclasses.replace(p.spec, denoise=remaining / total), p.seed,
+            torch.from_numpy(np.array(lat[: p.spec.per_device_batch])),
+            p.context, p.uncond, y, uy)
+        out_cache = _finish(p, images)
+    except InterruptedError:
+        raise
+    except Exception as e:  # noqa: BLE001 — member isolation
+        log(f"front door: near-tier serve failed for "
+            f"{p.member.prompt_id} ({e}); computing from scratch")
+        return False
+    results[p.member.prompt_id] = {"status": "success",
+                                   "outputs": out_cache,
+                                   "cache": "near", "batch_size": 0}
+    fleet.near.record_reuse(int(ckpt.step))
+    return True
+
+
+def _run_near_donor(p: _Prepared, cache):
+    """A near-mode miss through the preemptible sampler: preempted once
+    at its midpoint, the checkpoint parked as a donor for later re-rolls,
+    then resumed to the end, bitwise the plain run (so the caller fills
+    the exact tier as usual). Returns the images, or None for the plain
+    solo path."""
+    fleet = getattr(cache, "fleet", None)
+    if fleet is None or not hasattr(p.pipeline, "generate_preemptible"):
+        return None
+    steps = int(p.spec.steps)
+    half = steps // 2
+    if half < 1 or half >= steps:
+        return None                # a 1-step run has no midpoint
+    fired = []
+
+    def once():
+        if fired:
+            return None
+        fired.append(1)
+        return "near_donor"
+
+    y, uy = _filled_adm(p)
+    out = p.pipeline.generate_preemptible(
+        p.spec, p.seed, p.context, p.uncond, y, uy, segment_steps=half,
+        should_preempt=once)
+    if "images" in out:
+        return out["images"]
+    ckpt = out["checkpoint"]
+    try:
+        fleet.near.offer(p.near_key, ckpt)
+    except Exception as e:  # noqa: BLE001 — parking a donor is best effort
+        debug_log(f"fleet.near: donor park failed: {e}")
+    out = p.pipeline.generate_preemptible(
+        p.spec, p.seed, p.context, p.uncond, y, uy,
+        segment_steps=max(1, steps), resume=ckpt)
+    return out.get("images")
 
 
 def _execute_group_inner(members: list, sampler_node_ids: dict,
@@ -247,6 +391,16 @@ def _execute_group_inner(members: list, sampler_node_ids: dict,
         for p in prepared:
             if p.member.fingerprint is not None:
                 cache.record_request(hit=False)
+
+    # the near tier: a cache:"near" re-roll that missed the exact tiers
+    # resumes a donor's midpoint (still a miss in the window above: a
+    # reduced sampler run happens); a near miss runs solo as a donor
+    near_served = [p for p in prepared if _serve_near(p, cache, results)]
+    prepared = [p for p in prepared if p not in near_served]
+    for p in prepared:
+        if p.near_key is not None and p.stackable:
+            p.stackable = False
+            p.why_solo = "near_donor"
 
     # sub-group by runtime signature, in submission order
     groups: dict[tuple, list[_Prepared]] = {}
@@ -274,7 +428,17 @@ def _execute_group_inner(members: list, sampler_node_ids: dict,
         if telemetry.enabled():
             _tm.BATCH_SIZE.observe(1)
         try:
-            images = _solo(p)
+            images = None
+            if p.near_key is not None:
+                try:
+                    images = _run_near_donor(p, cache)
+                except InterruptedError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — plain solo next
+                    debug_log(f"front door: near donor path failed for "
+                              f"{p.member.prompt_id}: {e}")
+            if images is None:
+                images = _solo(p)
         except InterruptedError:
             raise
         except Exception as e:  # noqa: BLE001 — member isolation

@@ -226,8 +226,9 @@ class StageManager:
     def eligible(self, job) -> bool:
         """Only front-door batch jobs ride the stages: solo prompts keep
         the fused path (progress streaming, ControlNet), and so do
-        ``cache: "near"`` members (the JAX package's near tier rides the
-        fused sampler; the port reads "near" as "use" until A.6a ii)."""
+        ``cache: "near"`` members: the near tier's donor and re-roll
+        (``cluster/frontdoor/microbatch.py``) run the fused preemptible
+        sampler, which has no staged form."""
         group = getattr(job, "group", None)
         if group is None:
             return False

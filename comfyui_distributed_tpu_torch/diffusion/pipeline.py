@@ -258,8 +258,8 @@ class Txt2ImgPipeline:
                           hint: Optional[torch.Tensor] = None,
                           init_latent: Optional[torch.Tensor] = None,
                           inpaint_mask: Optional[torch.Tensor] = None,
-                          sampler_noise: Optional[NoiseSource] = None
-                          ) -> torch.Tensor:
+                          sampler_noise: Optional[NoiseSource] = None,
+                          label: Optional[str] = None) -> torch.Tensor:
         """noise [B,h,w,C] → images [B,H,W,3] in [0, 1] (fp32).
         ``sampler_noise`` is the stochastic samplers' noise source
         (``samplers.sample``).
@@ -271,7 +271,8 @@ class Txt2ImgPipeline:
         ([B,h,w,1], 1 = regenerate) then applies ``inpaint_denoiser``.
         The two halves are ``_sample_latent`` (to the final ``x0``) and
         ``_decode_latent``, which stage-split serving runs apart."""
-        label = "txt2img" if init_latent is None else "img2img"
+        if label is None:
+            label = "txt2img" if init_latent is None else "img2img"
         timings: dict = {}
         with pipeline_call(self, label, lambda: self.timings):
             x0 = self._sample_latent(
@@ -485,6 +486,38 @@ class Txt2ImgPipeline:
                            decode_s=time.perf_counter() - t1)
             self.timings = dict(timings)
         return {"images": images, "step": n}
+
+    # --- the fleet cache's near tier (cluster/cache/fleet.py) -----------------
+
+    @torch.no_grad()
+    def generate_near(
+        self, spec: GenerationSpec, seed: int, latent: torch.Tensor,
+        context: torch.Tensor, uncond_context: torch.Tensor,
+        y: Optional[torch.Tensor] = None,
+        uncond_y: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        sampler_noise: Optional[NoiseSource] = None,
+    ) -> torch.Tensor:
+        """A near-tier re-roll from a donor's mid-trajectory latent
+        [B,h,w,C]: ``img2img``'s math with the VAE encode replaced by the
+        donor latent. ``spec.denoise`` (the donor's remaining steps over
+        its total) selects the ladder's tail; the latent is noised at its
+        head with noise drawn from ``seed`` (or ``noise`` from the caller)
+        and the tail sampled and decoded. Not bitwise a run from scratch,
+        by design: the donor state stands in for a clean init and the
+        request's own seed re-rolls the rest. ``y``/``uncond_y`` default
+        to zeros where the UNet takes them."""
+        dev = self.device
+        lat = torch.as_tensor(latent).to(dev, torch.float32)
+        if noise is None:
+            noise = torch.randn(lat.shape, generator=seed_generator(seed, dev),
+                                dtype=torch.float32, device=dev)
+        if sampler_noise is None:
+            sampler_noise = step_noise(seed, dev)
+        return self.sample_and_decode(
+            noise, spec, context, uncond_context, y, uncond_y,
+            init_latent=lat, sampler_noise=sampler_noise,
+            label="txt2img_near")
 
     def generate_microbatch(
         self, spec: GenerationSpec, seeds: "list[int]",

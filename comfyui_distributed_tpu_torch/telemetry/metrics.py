@@ -1,8 +1,8 @@
 """The metric families of the port, declared in one place (the JAX
 package's ``telemetry/metrics.py``, less the families whose
-instrumentation sites are not ported yet: the fleet cache, the
-autotuner and the XLA compile cache; ``ROADMAP.md`` names each under its
-item). The warmup, preemption and elastic-fleet families keep the JAX
+instrumentation sites are not ported yet: the autotuner and the XLA
+compile cache; ``ROADMAP.md`` names each under its item). The warmup,
+preemption, elastic-fleet and fleet-cache families keep the JAX
 package's help text byte for byte.
 
 Instrumentation sites import these objects and guard every use with
@@ -13,7 +13,8 @@ prefix, base-unit suffixes (``_seconds``, ``_bytes``), counters end in
 Label conventions (kept low-cardinality):
 
 - ``pipeline``: ``txt2img``, ``img2img``, ``flow_dp``, ``tile_img2img``;
-  the stage split's ``txt2img_lat`` and ``vae_decode_batch``.
+  the stage split's ``txt2img_lat`` and ``vae_decode_batch``; the near
+  tier's ``txt2img_near``.
 - ``event`` (tiles): ``seeded`` / ``assigned`` / ``completed`` /
   ``requeued`` / ``handed_back`` / ``restored`` / ``dead_letter`` /
   ``timed_out``.
@@ -235,6 +236,33 @@ COALESCE_WIDTH = REGISTRY.histogram(
     "Requests answered per executed fingerprint (1 = no duplicates were "
     "in flight; N = one execution fanned out to N-1 waiters).",
     buckets=(1, 2, 4, 8, 16, 32, 64))
+
+# --- fleet cache tier (cluster/cache/fleet.py) ------------------------------
+
+FLEET_CACHE_REMOTE = REGISTRY.counter(
+    "cdt_fleet_cache_remote_total",
+    "Fleet-tier remote operations by op (get = probe of the ring owner; "
+    "put = async fill; handback = drain-time shard move) and outcome "
+    "(hit / miss / error / skipped). Every error degrades to a local "
+    "recompute — the ladder never turns a slow owner into a failed "
+    "request.",
+    ("op", "outcome"))
+
+FLEET_RING_SIZE = REGISTRY.gauge(
+    "cdt_fleet_ring_size",
+    "Workers currently owning arcs on the fleet-cache consistent-hash "
+    "ring (active members; draining workers leave before decommission).")
+
+FLEET_NEAR_REUSE = REGISTRY.counter(
+    "cdt_fleet_near_reuse_total",
+    "Opt-in near-tier serves: a cache:\"near\" request resumed from a "
+    "donor mid-trajectory checkpoint instead of denoising from pure "
+    "noise. Never bit-identical — see docs/caching.md.")
+
+FLEET_NEAR_STEPS_SAVED = REGISTRY.counter(
+    "cdt_fleet_near_steps_saved_total",
+    "Denoise steps the near tier skipped (donor checkpoint step count, "
+    "summed over reuses).")
 
 # --- warmup (diffusion/warmup.py) ---------------------------------------------
 

@@ -71,14 +71,16 @@ def token_matches(request_headers: Mapping[str, str], token: str) -> bool:
 
 
 # Reads that are gated when a token is set: the config holds the token
-# itself, the log surfaces can carry secrets, and the dispatch WebSocket
-# opens with a GET but enqueues prompts.
+# itself, the log surfaces can carry secrets, the dispatch WebSocket
+# opens with a GET but enqueues prompts, and a fleet-cache entry is a
+# user's result.
 _GATED_READ_PREFIXES = (
     "/distributed/config",
     "/distributed/local_log",
     "/distributed/worker_log/",
     "/distributed/remote_worker_log/",
     "/distributed/worker_ws",
+    "/distributed/cache/entry/",
 )
 
 

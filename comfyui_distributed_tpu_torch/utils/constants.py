@@ -20,7 +20,7 @@ _FALSE = ("0", "false", "no", "off")
 # request fields of the serving front door (``cluster/frontdoor``):
 # priority classes in strict order, the first the most latency-sensitive
 # (the last sheds first under overload); ``cache`` modes of a request
-# ("near" waits for the near tier and reads as "use" until then)
+# ("near" opts into the fleet cache's near tier)
 PRIORITY_CLASSES = ("interactive", "batch")
 DEFAULT_PRIORITY = "interactive"
 DEFAULT_TENANT = "default"
@@ -360,6 +360,37 @@ def cache_result_max_bytes() -> int:
 def cache_disk_max_bytes() -> int:
     """Persisted-tier byte cap (oldest first out)."""
     return _read("CDT_CACHE_DISK_MAX_BYTES", 4 * 1024 * 1024 * 1024, int)
+
+
+# --- the fleet tier of the content cache (cluster/cache/fleet.py) ----------------
+
+
+def fleet_cache() -> bool:
+    """Kill switch of the fleet tier (the hash ring, remote serves and
+    fills, the drain handback, the near tier); 0 keeps the cache per
+    host."""
+    return _read("CDT_FLEET_CACHE", True, _bool)
+
+
+def fleet_cache_vnodes() -> int:
+    """Virtual nodes a member on the consistent-hash ring."""
+    return _read("CDT_FLEET_CACHE_VNODES", 64, int)
+
+
+def fleet_cache_seed() -> str:
+    """Ring placement seed: every controller of a fleet must share it, or
+    they disagree on ownership (misses, never wrong bytes)."""
+    return _read("CDT_FLEET_CACHE_SEED", "cdt-fleet-ring-v1", str)
+
+
+def fleet_cache_timeout_s() -> float:
+    """Seconds a remote serve may take before it reads as a miss."""
+    return _read("CDT_FLEET_CACHE_TIMEOUT_S", 2.0, float)
+
+
+def fleet_cache_near_max() -> int:
+    """Donor checkpoints the near tier keeps (LRU)."""
+    return _read("CDT_FLEET_CACHE_NEAR_MAX", 64, int)
 
 
 # --- stage-split serving (cluster/stages) ---------------------------------------

@@ -79,10 +79,12 @@ def build_master_callback_url(master_cfg: dict[str, Any], for_local: bool = Fals
 
 def http_request(url: str, data: bytes | None = None,
                  headers: dict[str, str] | None = None,
-                 timeout: float | None = None) -> tuple[int, bytes]:
-    """One blocking call (POST when ``data`` is given, else GET) →
-    (status, body). A 4xx/5xx answer is returned, not raised; a transport
-    failure raises ``URLError`` or ``OSError``."""
+                 timeout: float | None = None,
+                 method: str | None = None) -> tuple[int, bytes]:
+    """One blocking call (POST when ``data`` is given, else GET, unless
+    ``method`` names another) → (status, body). A 4xx/5xx answer is
+    returned, not raised; a transport failure raises ``URLError`` or
+    ``OSError``."""
     headers = _with_token(headers)
     plan = active_plan()
     fault = plan.next_fault(op_for_url(url)) if plan is not None else None
@@ -99,7 +101,8 @@ def http_request(url: str, data: bytes | None = None,
         elif data is not None:                  # corrupt, truncate
             data = plan.mutate_body(fault, data,
                                     headers.get("Content-Type", ""))
-    req = urllib.request.Request(url, data=data, headers=headers)
+    req = urllib.request.Request(url, data=data, headers=headers,
+                                 method=method)
     try:
         with _OPENER.open(req, timeout=timeout or constants.dispatch_timeout()) as resp:
             return resp.status, resp.read()
@@ -110,10 +113,12 @@ def http_request(url: str, data: bytes | None = None,
 
 async def http_request_async(url: str, data: bytes | None = None,
                              headers: dict[str, str] | None = None,
-                             timeout: float | None = None) -> tuple[int, bytes]:
+                             timeout: float | None = None,
+                             method: str | None = None) -> tuple[int, bytes]:
     """``http_request`` in the running loop's default executor."""
     return await asyncio.get_running_loop().run_in_executor(
-        None, functools.partial(http_request, url, data, headers, timeout))
+        None, functools.partial(http_request, url, data, headers, timeout,
+                                method))
 
 
 async def ws_connect(url: str, headers: dict[str, str] | None = None

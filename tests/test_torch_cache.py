@@ -234,7 +234,9 @@ def test_manager_and_its_knobs(tmp_path, monkeypatch):
     assert mgr.hit_rate() == 0.5
     stats = mgr.stats()
     assert set(stats) == {"enabled", "dir", "hit_rate", "conditioning",
-                          "result", "coalescer"}
+                          "result", "coalescer", "fleet"}
+    # the controller sets the fleet tier; a bare manager has none
+    assert stats["fleet"] is None
     monkeypatch.setenv("CDT_CACHE_RESULT_MAX_BYTES", "lots")
     from comfyui_distributed_tpu_torch.utils.constants import KnobError
 

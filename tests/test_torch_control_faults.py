@@ -204,3 +204,44 @@ def test_the_driver_version_comes_from_a_probe_that_nobody_waits_on(
         time.sleep(0.05)
     assert detection.driver_version() == "550.54.15"
     assert detection._smi_answer == ["550.54.15"]
+
+
+def test_health_reports_the_front_door_and_the_cache_as_jax_does(
+        tmp_path, monkeypatch):
+    """``GET /distributed/health`` carries ``frontdoor`` (depth,
+    coalescing) and ``cache`` (hit rate, fleet ring size) with the value
+    types of a JAX ``Controller.health()``, each None with its subsystem
+    off."""
+    from comfyui_distributed_tpu.cluster.controller import (
+        Controller as JController)
+    from comfyui_distributed_tpu.utils import config as jconfig
+
+    monkeypatch.setenv(jconfig.CONFIG_ENV, str(tmp_path / "j.json"))
+    jconfig.invalidate_cache()
+    jc = JController()
+    try:
+        want = jc.health()
+    finally:
+        if jc.cache is not None and jc.cache.fleet is not None:
+            jc.cache.fleet.close()
+        jconfig.invalidate_cache()
+    (tmp_path / "c.json").write_text("{}")
+    c = Controller(tmp_path / "c.json", device="cpu")
+    health = get(App(c), "/distributed/health").payload
+    for part in ("frontdoor", "cache"):
+        assert sorted(health[part]) == sorted(want[part]), part
+        for key, value in health[part].items():
+            assert type(value) is type(want[part][key]), (part, key)
+    assert health["cache"] == {"hit_rate": 0.0, "fleet_ring": 1}
+    assert health["frontdoor"] == {"depth": 0, "coalescing": 0}
+    monkeypatch.setenv("CDT_FRONTDOOR", "0")
+    monkeypatch.setenv("CDT_CACHE", "0")
+    off = get(App(Controller(tmp_path / "c.json", device="cpu")),
+              "/distributed/health").payload
+    assert off["frontdoor"] is None and off["cache"] is None
+    monkeypatch.delenv("CDT_FRONTDOOR")
+    monkeypatch.delenv("CDT_CACHE")
+    monkeypatch.setenv("CDT_FLEET_CACHE", "0")
+    alone = get(App(Controller(tmp_path / "c.json", device="cpu")),
+                "/distributed/health").payload
+    assert alone["cache"] == {"hit_rate": 0.0, "fleet_ring": 0}
