@@ -728,6 +728,21 @@ SD15_MID_SHAPES = [((2, 64, 64, SD15_HEADS, 160), 1),
                    ((2, 64, 77, SD15_HEADS, 160), 1)]
 
 
+# Ulysses over the mesh's two ranks (phase 21a): each rank attends over
+# the whole [1, 4096] sequence with 12 of FLUX's 24 heads of 128, one
+# launch a rank
+ULYSSES_ROWS = [((1, 4096, 4096, 12, 128), 2)]
+
+
+def ulysses_layout() -> str:
+    """The layout the port's dispatch gives a rank's Ulysses attention
+    (12 heads of 128: H·D 1536 takes the packed layout)."""
+    from comfyui_distributed_tpu_torch.ops.attention import packed_legal
+
+    B, Nq, Nk, H, D = ULYSSES_ROWS[0][0]
+    return "packed" if packed_legal(H, D) else "bh"
+
+
 def sd15_shapes(batch: int, levels, launches_a_level: int) -> list:
     """(B, Nq, Nk, H, D) of K3's self- and cross-attention launches at an
     sd15 UNet's three attention levels, each with ``launches_a_level``."""
@@ -750,7 +765,7 @@ CN_TILE_SHAPES = sd15_shapes(8, CN_TILE_LEVELS, CN_TILE_FORWARDS * (
 # at the three levels), 4 a chunk (2 chunks a frame, the second padded),
 # CFG (batch 8), res_2m (one UNet call a step) for 3 of the 12 steps
 # (denoise 0.25): 24 · 2 · 3 = 144 UNet forwards a request.
-VIDEO_FRAMES, VIDEO_FPS = 8, 24.0     # cut from 24 to keep the run in its limit
+VIDEO_FRAMES, VIDEO_FPS = 4, 24.0     # cut from 24 to keep the run in its limit
 VIDEO_IN_HW, VIDEO_OUT_HW = (540, 960), (1080, 1920)
 VIDEO_TILE, VIDEO_PADDING = 768, 24
 VIDEO_TILES_A_FRAME, VIDEO_CHUNK, VIDEO_STEPS = 6, 4, 3
@@ -1207,7 +1222,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
         errs["fused_qkv_attention"] = max(errs["fused_qkv_attention"], err)
         del x
     core_cases = ([s for s, _ in PACKED_SHAPES + TILE_PACKED + BH_SHAPES
-                   + FILE_BH_SHAPES]
+                   + FILE_BH_SHAPES + ULYSSES_ROWS]
                   + RAGGED_CORE + EDGE_CORE + SHORT_KV_EDGES
                   + SHORT_KV_SCHEDULES)
     for shape in core_cases:
@@ -1314,7 +1329,9 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     for layout, path, shapes in (("packed", "sdxl", PACKED_SHAPES),
                                  ("packed", "upscale", TILE_PACKED),
                                  ("bh", "flux", BH_SHAPES),
-                                 ("bh", "flux_file", FILE_BH_SHAPES)):
+                                 ("bh", "flux_file", FILE_BH_SHAPES),
+                                 (ulysses_layout(), "mesh_ulysses",
+                                  ULYSSES_ROWS)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             extra = {}
@@ -1403,7 +1420,7 @@ def kernel_table(rows: list[dict], errs: dict,
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
               "flux_file", "wan", "wan_offload", "wan_file", "video_mmdit",
-              "sd3", "sd3_file", "sd35", "sd35_file")
+              "sd3", "sd3_file", "sd35", "sd35_file", "mesh_ulysses")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1436,6 +1453,10 @@ def kernel_table(rows: list[dict], errs: dict,
             "hopper_kernels": HOPPER_KERNELS[name],
             "enqueue_us": sum(r["enqueue_us"] * r["launches"] for r in mine) / n,
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+            # each mesh phase's launches on rank 0 and on rank 1 (phases
+            # 14g and 21a; rank 0's include its text encodes)
+            "mesh_launches_by_rank": {p: [r[name] for r in ranks]
+                                      for p, ranks in MESH_TOTALS.items()},
             **split, **split_upscale,
             **{key: value for key, value in (
                 ("per_img2img_controlnet_request", at(name, I2I_CN[2])),
@@ -2294,7 +2315,7 @@ AUDIO_WORKFLOW = "distributed-audio.json"
 VIDEO_WORKFLOW = "video-upscale.json"
 AUDIO_SECONDS, AUDIO_RATE, AUDIO_CHANNELS = 60, 48000, 2
 VIDEO_SEED = 7                          # the workflow's USDU seed
-VIDEO_SERVED_FRAMES = 8                 # frame_load_cap of the served run
+VIDEO_SERVED_FRAMES = 4                 # frame_load_cap of the served run
 VIDEO_MP4_FRAMES = 2                    # the mp4 run's (8 until PR 20)
 CHUNK_WAVS = ("chunk_a_00000.wav", "chunk_b_00000.wav")
 VIDEO_AVI = "video_up_00000.avi"
@@ -2315,7 +2336,9 @@ def audio_workflow() -> dict:
 
 def video_workflow(frame_cap: int = 0) -> dict:
     """``workflows/video-upscale.json`` with node 4 reading ``input.avi``
-    (and ``frame_load_cap`` when given)."""
+    (and ``frame_load_cap`` when given, with USDU's ``dynamic_threshold``
+    lowered to it, so that the capped batch is still farmed frame by
+    frame)."""
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
 
     workflow = strip_meta(json.loads(
@@ -2335,6 +2358,7 @@ def video_workflow(frame_cap: int = 0) -> dict:
     workflow["4"]["inputs"]["video"] = "input.avi"
     if frame_cap:
         workflow["4"]["inputs"]["frame_load_cap"] = frame_cap
+        workflow["5"]["inputs"]["dynamic_threshold"] = frame_cap
     return workflow
 
 
@@ -3505,7 +3529,7 @@ def serve_video(torch, fa, base: str, master_out: Path, video: VideoRun,
         f"{report}; frame tasks {dict(sorted(owners.items()))} (master {mine}, "
         f"worker {theirs}); master launches {counts}; every master frame "
         f"bitwise its own upscale at seed {VIDEO_SEED} + index; the master's "
-        f"ESRGAN frames within {esr:.3g} of the direct run's (batch 8 vs 24); "
+        f"ESRGAN frames within {esr:.3g} of the direct run's; "
         f"{VIDEO_AVI} read back as {VIDEO_SERVED_FRAMES} frames at "
         f"{back['fps']:g} fps with {span} samples of audio")
     return launches
@@ -8078,6 +8102,275 @@ def offload_phases(torch, fa, refs: dict) -> dict:
         free_card(torch)
     return launches
 
+# --- the device mesh (phases 14g and 21a) -----------------------------------
+
+MESH_DIR = OUTPUT_DIR / "mesh"
+MESH_SEED = 91
+MESH_POSITIVE = "a lighthouse on a cliff at dusk, oil painting, mesh"
+MESH_RANKS = 2
+MESH_HW = 1024                       # both mesh phases' image side
+MESH_SP_STEPS = FLUX_FILE_STEPS      # 4 of FLUX's 28, as its file requests
+MESH_PSNR_DB = 30.0
+MESH_RETURN_SLACK = 2**30            # card memory back after the followers
+MESH_CARD = 80e9                     # both ranks' peaks together
+ULYSSES_SHAPE = (1, 4096, 24, 128)   # FLUX's heads at 4096 tokens
+MESH_TOTALS = {}                     # phase → per-rank launches (kernels line)
+
+
+@contextlib.contextmanager
+def virtual_ranks(n: int):
+    """``CDT_VIRTUAL_DEVICES=n`` while a mesh is built on the one card."""
+    saved = os.environ.get("CDT_VIRTUAL_DEVICES")
+    os.environ["CDT_VIRTUAL_DEVICES"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CDT_VIRTUAL_DEVICES", None)
+        else:
+            os.environ["CDT_VIRTUAL_DEVICES"] = saved
+
+
+def rank_launches(call: dict) -> list[dict]:
+    return [dict(r["launches"]) for r in call["ranks"]]
+
+
+def mesh_dp_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Phase 14g: a master with ``mesh.shape {"dp": 2}`` over two ranks on
+    the one card (rank 1 a follower process on ``cuda:0``, gloo) serves
+    the SDXL graph at 8 of 30 steps: two images, image 0 bitwise the
+    one-device run, image 1 bitwise ``sample_and_decode`` of participant
+    1's noise, each rank's K1/K2 exact, both ranks' parameter digests
+    equal; the card's memory back after the followers stop. Returns rank
+    0's and rank 1's launches."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline import GenerationSpec
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.nodes_builtin import (
+        SaveImage, _adm_from_cond)
+    from comfyui_distributed_tpu_torch.parallel.mesh import describe_mesh
+    from comfyui_distributed_tpu_torch.parallel.programs import param_digest
+    from comfyui_distributed_tpu_torch.parallel.rng import (
+        participant_seed, seed_generator, step_noise)
+
+    free0 = torch.cuda.mem_get_info()[0]
+    prompt = fd_prompt(MESH_SEED, MESH_POSITIVE, "mesh", hw=MESH_HW,
+                       steps=FD_STEPS)
+    direct = MESH_DIR / "direct"
+    t0 = time.perf_counter()
+    out = GraphExecutor({"model_registry": sdxl.registry,
+                         "output_dir": str(direct)}).execute(prompt)
+    torch.cuda.synchronize()
+    say(f"  one-device run (seed {MESH_SEED}, {FD_STEPS} steps): "
+        f"{time.perf_counter() - t0:.3f} s")
+    # participant 1 by hand on this process's bundle, as the node builds it
+    pipe = sdxl.bundle.pipeline
+    pos, neg = out["2"][0], out["3"][0]
+    adm = pipe.unet.config.adm_in_channels
+    spec = GenerationSpec(height=MESH_HW, width=MESH_HW, steps=FD_STEPS,
+                          sampler="euler", scheduler="karras",
+                          guidance_scale=5.0)
+    s1 = participant_seed(MESH_SEED, 1)
+    img1 = pipe.sample_and_decode(
+        pipe.initial_noise(spec, seed_generator(s1, pipe.device)), spec,
+        pos["context"], neg["context"], _adm_from_cond(pos, adm, pipe.device),
+        _adm_from_cond(neg, adm, pipe.device),
+        sampler_noise=step_noise(s1, pipe.device))
+    SaveImage().execute(img1, filename_prefix="mesh_p1",
+                        output_dir=str(direct))
+    refs = [(direct / "mesh_00000.png").read_bytes(),
+            (direct / "mesh_p1_00000.png").read_bytes()]
+    del img1, out
+    with virtual_ranks(MESH_RANKS), \
+            fd_master(torch, "mesh_dp", sdxl.registry, {},
+                      config={"mesh": {"shape": {"dp": MESH_RANKS}}},
+                      home=MESH_DIR / "dp") as (master, base, out_dir):
+        mesh = master.mesh
+        described = describe_mesh(mesh)
+        say(f"  mesh: {described}")
+        require(mesh.shape == {"dp": MESH_RANKS}, f"mesh {mesh.shape}")
+        require(described["backend"] == "gloo",
+                f"ranks sharing one card must talk over gloo, not "
+                f"{described['backend']}")
+        runtime = mesh.runtime
+        before = dict(fa.LAUNCHES)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        code, _, answer = http_with_headers(f"{base}/distributed/queue",
+                                            {"prompt": prompt})
+        require(code == 200 and answer.get("prompt_id"), f"queue: {answer}")
+        entry = wait_final(master, answer["prompt_id"], "mesh dp request")
+        secs = time.perf_counter() - t0
+        require(entry["status"] == "success", f"mesh dp request: {entry}")
+        require(answer.get("batched") is False,
+                "a mesh request must take the solo lane")
+        rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        call = runtime.last_call
+        ranks = rank_launches(call)
+        pngs = sorted(out_dir.glob("mesh_*.png"))
+        say(f"  served over {MESH_RANKS} ranks: {secs:.3f} s (POST to "
+            f"history; the first call starts rank 1 and builds its sdxl); "
+            f"ranks' program seconds "
+            f"{[round(r['seconds'], 3) for r in call['ranks']]}, peaks "
+            f"{[round(r['peak_bytes'] / 2**30, 3) for r in call['ranks']]} "
+            f"GiB; rank 0 launches {rank0} (program {ranks[0]}), rank 1 "
+            f"{ranks[1]}")
+        require([p.name for p in pngs] == ["mesh_00000.png", "mesh_00001.png"],
+                f"mesh dp PNGs {[p.name for p in pngs]}")
+        require(pngs[0].read_bytes() == refs[0],
+                "image 0 is not bitwise the one-device run")
+        require(pngs[1].read_bytes() == refs[1],
+                "image 1 is not bitwise participant 1's sample_and_decode")
+        unet = fd_counts(0, 1)
+        require(ranks[0] == unet and ranks[1] == unet,
+                f"per-rank sampler launches {ranks} != {unet}")
+        require(rank0 == fd_counts(2, 1), f"rank 0 launches {rank0}")
+        t0 = time.perf_counter()
+        digests = runtime.run("param_digest", sdxl.bundle)
+        require(len(set(digests)) == 1 and digests[0] == param_digest(
+            sdxl.bundle), f"parameter digests differ: {digests}")
+        say(f"  parameter digests of both ranks equal ({digests[0][:16]}…, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        MESH_TOTALS["sdxl_dp"] = [rank0, ranks[1]]
+    require(not runtime.procs and master._mesh is None,
+            "the master's shutdown left its followers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before, "
+        f"{free1 / 2**30:.3f} GiB after the followers stopped")
+    require(free0 - free1 < MESH_RETURN_SLACK,
+            "the followers' card memory did not come back")
+    return {"rank0": rank0, "rank1": ranks[1]}
+
+
+def mesh_sp_phase(torch, fa, flux: PathRun) -> dict:
+    """Phase 21a: ``TPUFlowTxt2Img`` mode ``sp`` runs FLUX at full width,
+    1024², 4 of 28 steps, over a ``{"sp": 2}`` mesh of two ranks on the
+    card (the ring staged through host memory over gloo): PSNR > 30 dB
+    against the one-device run of the same noise, no K3 launch on the
+    ring path, both ranks' peaks under 80 GB together. Then (c) Ulysses
+    over the same ranks at [1, 4096, 24, 128] against the plain attention
+    within 1e-2·max|plain|. The card's memory comes back after the
+    followers stop."""
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.parallel.bootstrap import MeshRuntime
+    from comfyui_distributed_tpu_torch.parallel.mesh import (build_mesh,
+                                                             describe_mesh)
+
+    workflow = strip_meta(json.loads(
+        (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
+    workflow[FLUX_PATH.seed_node]["inputs"]["seed"] = FLUX_PATH.seeds[0]
+    workflow[FLUX_PATH.sampler_node]["inputs"].update(
+        steps=MESH_SP_STEPS, width=MESH_HW, height=MESH_HW)
+    t0 = time.perf_counter()
+    ref = GraphExecutor({"model_registry": flux.registry,
+                         "output_dir": str(MESH_DIR / "flux_direct")}).execute(
+        workflow)[FLUX_PATH.image_node][0]
+    torch.cuda.synchronize()
+    say(f"  one-device run ({MESH_SP_STEPS} steps): "
+        f"{time.perf_counter() - t0:.3f} s")
+    free0 = torch.cuda.mem_get_info()[0]
+    with virtual_ranks(MESH_RANKS):
+        mesh = build_mesh({"sp": MESH_RANKS}, device=torch.device(DEVICE))
+    mesh.runtime = MeshRuntime(mesh, flux.registry.seed,
+                               flux.registry.checkpoint_root)
+    described = describe_mesh(mesh)
+    say(f"  mesh: {described}")
+    require(described["backend"] == "gloo", f"backend {described['backend']}")
+    # the ring's traffic a forward, each rank: the image K/V of its 2048
+    # tokens (bf16) rotate once in each of FLUX's 57 blocks
+    hop = 2 * (4096 // MESH_RANKS) * 3072 * 2
+    say(f"  ring traffic: {MESH_RANKS - 1} hop(s) of {hop / 1e6:.1f} MB of "
+        f"K/V a block, {57 * (MESH_RANKS - 1) * hop / 1e9:.2f} GB a forward "
+        "through host memory on each rank")
+    sp = json.loads(json.dumps(workflow))
+    sp[FLUX_PATH.sampler_node]["inputs"]["mode"] = "sp"
+    try:
+        before = dict(fa.LAUNCHES)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        out = GraphExecutor({"model_registry": flux.registry, "mesh": mesh,
+                             "output_dir": str(MESH_DIR / "flux_sp")}).execute(
+            sp)[FLUX_PATH.image_node][0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        call = mesh.runtime.last_call
+        ranks = rank_launches(call)
+        free = torch.cuda.mem_get_info()[0]
+        peaks = [r["peak_bytes"] for r in call["ranks"]]
+        db, diff = psnr(out.float().cpu(), ref.float().cpu())
+        timings = flux.bundle.pipeline.timings
+        say(f"  sp over {MESH_RANKS} ranks: {secs:.3f} s (the first call "
+            f"starts rank 1 and builds its flux); rank 0 sampling "
+            f"{timings['sample_s']:.3f} s ({timings['sample_s'] / MESH_SP_STEPS:.3f}"
+            f" s/step), decode {timings['decode_s']:.3f} s; ranks' program "
+            f"seconds {[round(r['seconds'], 3) for r in call['ranks']]}; "
+            f"PSNR {db:.2f} dB against the one-device run, max |Δ| "
+            f"{diff:.5f}; peaks {[round(p / 2**30, 3) for p in peaks]} GiB, "
+            f"card free {free / 2**30:.3f} GiB; rank 0 launches {rank0}, "
+            f"rank 1 {ranks[1]}")
+        require(tuple(out.shape) == tuple(ref.shape)
+                == (1, MESH_HW, MESH_HW, 3),
+                f"sp image {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), "non-finite sp image")
+        require(db > MESH_PSNR_DB, f"sp PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
+        require(all(r["flash_attention_bh"] == 0 for r in ranks + [rank0]),
+                "K3 launched on the ring path")
+        require(rank0 == {"fused_qkv_attention": 4, "flash_attention_packed": 0,
+                          "flash_attention_bh": 0}, f"rank 0 {rank0}")
+        require(sum(peaks) < MESH_CARD,
+                f"both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+        MESH_TOTALS["flux_sp"] = [rank0, ranks[1]]
+        ulysses = ulysses_check(torch, fa, mesh)
+    finally:
+        mesh.runtime.stop()
+    require(not mesh.runtime.procs, "the followers outlived their stop")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before, "
+        f"{free1 / 2**30:.3f} GiB after the followers stopped")
+    require(free0 - free1 < MESH_RETURN_SLACK,
+            "the followers' card memory did not come back")
+    return {"flux_sp": rank0, "flux_sp_rank1": ranks[1], **ulysses}
+
+
+def ulysses_check(torch, fa, mesh) -> dict:
+    """(c): Ulysses over the mesh's two ranks at ``ULYSSES_SHAPE``: each
+    rank attends over the whole sequence with half the heads (the port's
+    kernel for that geometry), held against the plain attention."""
+    from comfyui_distributed_tpu_torch.ops.attention import select_kernel
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn(*ULYSSES_SHAPE, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    per = ULYSSES_SHAPE[1] // MESH_RANKS
+    shards = [tuple(t[:, r * per:(r + 1) * per].cpu() for t in (q, k, v))
+              for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    outs = mesh.runtime.run("apply", None, "ulysses_attention", shards,
+                            {"axis": "sp"})
+    secs = time.perf_counter() - t0
+    got = torch.cat([o.to(dev) for o in outs], dim=1)
+    ref = fa.flash_attention_plain(q, k, v)
+    err = compare(torch, f"ulysses over {MESH_RANKS} ranks {ULYSSES_SHAPE}",
+                  got, ref)
+    ranks = rank_launches(mesh.runtime.last_call)
+    tier = select_kernel(dev, False, ULYSSES_SHAPE[2] // MESH_RANKS,
+                         ULYSSES_SHAPE[3])
+    want = {name: int(name == f"flash_attention_{tier}")
+            for name in KERNEL_NAMES}
+    say(f"  ulysses: {secs:.3f} s a call; each rank [1, {ULYSSES_SHAPE[1]}, "
+        f"{ULYSSES_SHAPE[2] // MESH_RANKS}·{ULYSSES_SHAPE[3]}] on the {tier} "
+        f"layout; ranks' launches {ranks}; max_abs_err {err:.5f}")
+    require(ranks == [want] * MESH_RANKS, f"ulysses launches {ranks}")
+    MESH_TOTALS["ulysses"] = ranks
+    return {"ulysses": ranks[0], "ulysses_rank1": ranks[1]}
+
+
 PHASE_PEAK = {"bytes": 0}
 
 
@@ -8206,6 +8499,10 @@ def main() -> int:
             path_launches["preempt"] = preempt_phase(torch, fa, sdxl, watch)
         with phase(torch, "14f fleet cache"):
             path_launches["fleet"] = fleet_phase(torch, fa, sdxl)
+        with phase(torch, "14g mesh dp"):
+            mesh_dp = mesh_dp_phase(torch, fa, sdxl)
+            path_launches["mesh_dp"] = mesh_dp["rank0"]
+            path_launches["mesh_dp_rank1"] = mesh_dp["rank1"]
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
@@ -8230,6 +8527,8 @@ def main() -> int:
             refs = {"flux": images, "flux_seconds": seconds,
                     "flux_peak": max(PHASE_PEAK["bytes"],
                                      torch.cuda.max_memory_allocated())}
+        with phase(torch, "21a mesh sp and ulysses"):
+            path_launches.update(mesh_sp_phase(torch, fa, flux))
             holder = {"bundle": flux.bundle}
             del flux
             gc.collect()

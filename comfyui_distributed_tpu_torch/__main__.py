@@ -1,7 +1,8 @@
 """CLI: ``python -m comfyui_distributed_tpu_torch serve|info|convert``.
 
     python -m comfyui_distributed_tpu_torch serve [--host H] [--port P]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--coordinator HOST:PORT --num-hosts N
+        --host-index I]
 
 Runs one host controller with its HTTP control plane until SIGINT or
 SIGTERM. The role comes from the environment (``CDT_IS_WORKER``,
@@ -11,7 +12,11 @@ it is given ``--device cpu``. A master fills its host list on its first
 launch (``workers/detection.auto_populate_hosts``: one ``local`` worker
 per other card), launches the enabled ``local`` hosts when
 ``settings.auto_launch_workers`` is on, and stops the workers it
-launched when it exits.
+launched when it exits. ``CDT_VIRTUAL_DEVICES=n`` gives its device mesh
+n ranks (``parallel/``). With ``--coordinator`` (or ``CDT_COORDINATOR``,
+``CDT_NUM_HOSTS``, ``CDT_HOST_INDEX``) the hosts join one mesh, one rank
+a host: host 0 serves and drives it, every other host serves host 0's
+mesh calls as a follower rank until host 0 stops it.
 
     python -m comfyui_distributed_tpu_torch info [--device cuda|cpu]
 
@@ -62,6 +67,29 @@ def _controller(args: argparse.Namespace):
 
 def cmd_serve(args: argparse.Namespace) -> int:
     import atexit
+
+    from .parallel.bootstrap import (ensure_virtual_devices, init_multihost,
+                                     multihost, serve_follower)
+
+    ensure_virtual_devices()
+    if init_multihost(coordinator_address=args.coordinator,
+                      num_processes=args.num_hosts,
+                      process_id=args.host_index) and multihost()["rank"]:
+        import torch
+
+        from .utils.constants import checkpoint_root
+        from .utils.device import resolve_device, use_full_fp32
+
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 2
+        if device.type == "cuda":
+            torch.cuda.set_device(0)
+            use_full_fp32()
+        # a controller's registry: seed 0, CDT_CHECKPOINT_ROOT's files
+        return serve_follower(device, 0, checkpoint_root())
 
     from .api.app import run_app
     from .utils.config import update_config
@@ -174,6 +202,15 @@ def main(argv: list[str] | None = None) -> int:
                        help="listening port (default: the config's master.port)")
     serve.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                        help="where the models run (default: cuda)")
+    serve.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                       help="multi-host: host 0's rendezvous address "
+                            "(env CDT_COORDINATOR)")
+    serve.add_argument("--num-hosts", type=int, default=None,
+                       help="multi-host: total host processes "
+                            "(env CDT_NUM_HOSTS)")
+    serve.add_argument("--host-index", type=int, default=None,
+                       help="multi-host: this host's process index "
+                            "(env CDT_HOST_INDEX)")
     serve.set_defaults(fn=cmd_serve)
     info = sub.add_parser("info", help="print the host's system info")
     info.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

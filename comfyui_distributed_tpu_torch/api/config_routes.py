@@ -3,12 +3,15 @@
 routes, each one config transaction with the JAX package's validation,
 so the same request leaves the same config file in either package.
 
-``POST /distributed/config/update_mesh`` declares a device mesh, which
-the port does not have until multi-GPU (``ROADMAP.md`` item A.12): it
-answers 400 naming that item.
+``POST /distributed/config/update_mesh`` declares the device mesh: the
+shape is validated as a ``MeshSpec`` (400 otherwise), written to
+``mesh.shape``, and the controller's mesh is dropped (its followers
+stopped), so the next request builds it with the new shape.
 """
 
 from __future__ import annotations
+
+import asyncio
 
 from ..utils.config import config_transaction, normalize_host
 from ..utils.exceptions import ValidationError
@@ -103,9 +106,25 @@ def register(app, controller) -> None:
         return Response(200, {"status": "ok"})
 
     async def update_mesh(request):
-        raise ValidationError(
-            "a device mesh is not ported yet (ROADMAP.md item A.12, "
-            "multi-GPU)", field="shape")
+        body = request.json()
+        shape = body.get("shape") if isinstance(body, dict) else None
+        if not isinstance(shape, dict) or not shape:
+            raise ValidationError("'shape' must be a non-empty object",
+                                  field="shape")
+        from ..parallel.mesh import MeshSpec
+        from ..utils.exceptions import ShardingError
+
+        try:
+            MeshSpec.from_mapping(shape)
+        except (ShardingError, TypeError, ValueError) as e:
+            raise ValidationError(str(e), field="shape") from None
+        async with config_transaction(path) as cfg:
+            cfg.setdefault("mesh", {})["shape"] = shape
+        # rebuilt with the new shape at its next use; the followers'
+        # stop blocks, so it runs off the loop
+        await asyncio.get_running_loop().run_in_executor(
+            None, controller.reset_mesh)
+        return Response(200, {"status": "ok"})
 
     async def auto_populate(request):
         """The first-launch host list on demand (the dashboard's button

@@ -25,6 +25,19 @@ a pass over the shape catalog runs at startup in a thread off the loop,
 and ``health()`` reports its state. At startup it builds the elastic
 fleet's manager on its loop (``cluster/elastic``: drains always, the
 autoscaler's loop under ``CDT_AUTOSCALE=1``), stopped at shutdown.
+
+Its device mesh (``mesh``, in every execution context, the sampler
+nodes' hidden ``mesh``) comes from ``CDT_MESH_DEVICES`` (``{"dp": n}``, a
+launched worker's host entry), else the config's ``mesh.shape``, else the
+placement planner, over ``CDT_VIRTUAL_DEVICES`` ranks (else one per card,
+or the joined hosts under ``serve --coordinator``). Unless one of these,
+or a shape that names an axis of more than one rank, asks for more, the
+mesh has one rank whatever the host's card count (the default shape
+``{"dp": -1}`` too): the local workers hold the other cards. A mesh of
+more than one rank carries a ``MeshRuntime``: its followers start at the
+mesh's first call and stop when the mesh is dropped (``update_mesh``,
+``reset_mesh``) or at shutdown. The mesh is built again after a config
+change.
 """
 
 from __future__ import annotations
@@ -106,6 +119,8 @@ class Controller:
                                          stages=self.stages)
         # resumable segments on the queue's solo lane; None under
         # CDT_PREEMPT=0 (uninterrupted runs)
+        if self.frontdoor is not None:
+            self.frontdoor.mesh_ranks = lambda: self.mesh.size
         self.preemption = build_preemption(self.queue)
         self.queue.preemption = self.preemption
         self.warmup = WarmupManager(lambda: self.model_registry)
@@ -117,6 +132,8 @@ class Controller:
         self.bridge: Optional[CollectorBridge] = None
         self.tile_farm: Optional[TileFarm] = None
         self._registry = model_registry
+        self._mesh = None
+        self._mesh_lock = threading.Lock()
         # the warm pass's thread, the graph thread and the warmup route
         # may all ask for the registry first: one of them builds it
         self._registry_lock = threading.Lock()
@@ -174,8 +191,57 @@ class Controller:
                 self._registry = ModelRegistry(self.device, seed=0)
             return self._registry
 
+    @property
+    def mesh(self):
+        """This controller's device mesh (module docstring); its
+        followers start at its first call."""
+        with self._mesh_lock:
+            if self._mesh is None:
+                self._mesh = self._build_mesh()
+            return self._mesh
+
+    def _build_mesh(self):
+        from ..parallel.bootstrap import MeshRuntime, multihost
+        from ..parallel.mesh import build_mesh, local_device_count, \
+            mesh_from_config
+
+        joined = multihost()
+        pinned = constants.mesh_devices()
+        config = self.load_config()
+        shape = (config.get("mesh") or {}).get("shape") or {}
+        if joined:
+            n = joined["world"]
+        elif (pinned or constants.virtual_devices()
+              or any(int(v) > 1 for v in shape.values())):
+            n = local_device_count(self.device)
+        else:
+            # nobody asked for more than one rank (the default shape
+            # {"dp": -1} included): the master's own card, as the local
+            # workers hold the host's other cards
+            n = 1
+        if pinned:
+            mesh = build_mesh({constants.AXIS_DATA: pinned}, n, self.device)
+        else:
+            mesh = mesh_from_config(config, n, self.device)
+        if mesh.size > 1:
+            registry = self.model_registry
+            mesh.runtime = MeshRuntime(mesh, registry.seed,
+                                       registry.checkpoint_root)
+            log(f"mesh {mesh.shape} over {mesh.size} ranks "
+                f"({mesh.runtime.backend})")
+        return mesh
+
+    def reset_mesh(self) -> None:
+        """Drop the mesh (its followers stopped); the next use builds it
+        from the config again. Blocks while the followers stop."""
+        with self._mesh_lock:
+            mesh, self._mesh = self._mesh, None
+        if mesh is not None and mesh.runtime is not None:
+            mesh.runtime.stop()
+
     def _execution_context(self) -> dict[str, Any]:
         ctx: dict[str, Any] = {
+            "mesh": self.mesh,
             "model_registry": self.model_registry,
             "output_dir": self.output_dir,
             "input_dir": self.input_dir,
@@ -254,6 +320,8 @@ class Controller:
         if self.cache is not None and self.cache.fleet is not None:
             self.cache.fleet.close()   # off the drain feed
         self.progress.close()       # release the process-wide progress sink
+        await asyncio.get_running_loop().run_in_executor(None,
+                                                         self.reset_mesh)
         # the queue's context factory, the orchestrator and the bridge hold
         # bound methods of this controller, so it lives until the cycle
         # collector runs: let go of the card's bundles now
@@ -306,8 +374,20 @@ class Controller:
 
     def system_info(self) -> dict:
         """Host facts and a census of the CUDA devices, which adds the
-        first card's name and the driver's version to ``environment``."""
+        first card's name and the driver's version to ``environment``,
+        and the device mesh (``describe_mesh``, with the last mesh call's
+        per-rank launches)."""
+        from ..parallel.mesh import describe_mesh
+        from ..utils.exceptions import ShardingError
+
         info = self.system_info_no_devices()
+        try:
+            mesh = self.mesh
+            info["mesh"] = describe_mesh(mesh)
+            if mesh.runtime is not None and mesh.runtime.last_call:
+                info["mesh"]["last_call"] = mesh.runtime.last_call
+        except ShardingError as e:
+            info["mesh"] = {"error": str(e)}
         info["devices"] = []
         if torch.cuda.is_available():
             info["cuda"] = torch.version.cuda

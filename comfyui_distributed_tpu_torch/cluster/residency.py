@@ -28,7 +28,7 @@ workspace are the caller's headroom. The JAX package counts an offload
 bundle's whole host tree: the port counts card bytes throughout. An
 eviction releases the stores (``ModelBundle.release_device``). The
 planner is off at 0 (the default). Weight sharding over several cards
-(``tp_shard_bytes``) waits for ROADMAP A.6.
+(``tp_shard_bytes``) waits for ROADMAP A.6b ii.
 """
 
 from __future__ import annotations
@@ -238,14 +238,14 @@ def _param_bytes(modules, device) -> int:
 
 def tp_shard_bytes(modules, device, tp: int = 1) -> int:
     """Per-card bytes of ``modules`` under tensor-parallel sharding. The
-    port shards no weights until multi-GPU serving (ROADMAP A.6), so
+    port shards no weights until tensor parallelism (ROADMAP A.6b ii), so
     every parameter counts whole: one shard, whatever ``tp``."""
     return _param_bytes(modules, device)
 
 
 def _tp_rules_for(bundle):
     """The placement rules this bundle's core would shard by: none until
-    ROADMAP A.6 (the JAX package's Megatron tables)."""
+    ROADMAP A.6b ii (the JAX package's Megatron tables)."""
     return None
 
 

@@ -23,7 +23,7 @@ The catalog is:
   (``CDT_SHAPE_CATALOG`` overrides it).
 
 Keys with a ``mesh`` and the ``flow_sp`` / ``flow_tp`` families are kept
-and listed, never warmed: the multi-card tier is ROADMAP A.6.
+and listed, never warmed: the mesh tier's keys are ROADMAP A.6b ii.
 ``CDT_SHAPE_OBSERVE=0`` turns observation off.
 """
 

@@ -371,6 +371,31 @@ class Txt2ImgPipeline:
             noise, spec, context, uncond_context, y, uncond_y, progress_token,
             hint=hint, sampler_noise=step_noise(seed, self.device))
 
+    def generate_mesh(self, spec: GenerationSpec, seed: int,
+                      context: torch.Tensor, uncond_context: torch.Tensor,
+                      y: Optional[torch.Tensor] = None,
+                      uncond_y: Optional[torch.Tensor] = None,
+                      axis: str = "dp", noises=None,
+                      progress_token: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of the ``dp`` fan-out over ``axis`` of the
+        current mesh (JAX's ``generate_fn``): participant i (this rank's
+        coordinate) samples and decodes ``per_device_batch`` images from
+        ``participant_seed(seed, i)``, and the images come back gathered
+        in participant order, participant 0 (bitwise ``generate``'s
+        images) first. ``noises`` (one tensor per participant) replaces
+        the seeded noise (a test hands over JAX's)."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.rng import participant_seed
+
+        index = shard_index(axis)
+        pseed = participant_seed(seed, index)
+        noise = (noises[index] if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, self.device)))
+        images = self.sample_and_decode(
+            noise, spec, context, uncond_context, y, uncond_y,
+            progress_token, sampler_noise=step_noise(pseed, self.device))
+        return gather_batch(images, axis)
+
     # --- step-granular preemption (cluster/preemption.py) ---------------------
 
     def checkpoint_identity(self, spec: GenerationSpec, seed: int,

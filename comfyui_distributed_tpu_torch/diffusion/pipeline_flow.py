@@ -13,6 +13,15 @@ a caller can supply its own noise; a stochastic sampler draws from
 ``parallel/rng.step_noise`` of the run's seed or the caller's noise
 source.
 
+Over a device mesh (``parallel/``, run on every rank by
+``parallel/programs``): ``generate_mesh`` is the ``dp`` fan-out
+(participant i's noise from ``participant_seed(seed, i)``, the images
+gathered on every rank in participant order) and ``generate_sp`` one
+image's latent rows sharded over ``sp`` with joint ring attention in
+every block (JAX's ``generate_sp_fn``): the one-device run's noise
+row-sliced per rank (a stochastic sampler's draws too), true CFG as
+one doubled batch, the latents gathered, decoded on coordinate 0 only.
+
 ``generate_offloaded`` runs one image through an ``OffloadedFlux``
 executor (``diffusion/offload.py``): the DiT's blocks packed, fp8 by
 default, resident on the card under a budget or streamed from the host,
@@ -73,6 +82,17 @@ class FlowPipeline:
     def device(self) -> torch.device:
         return self.offload_device or self.dit.img_in.weight.device
 
+    def __getstate__(self) -> dict:
+        """Pickled (a mesh call carrying a pipeline whole) without its
+        offload executor, a card store behind a lock."""
+        state = dict(self.__dict__)
+        state.update(_offload=None, offload_source=None)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._offload = ExecutorCache()
+
     def initial_noise(self, spec: FlowSpec,
                       generator: torch.Generator) -> torch.Tensor:
         """Unit normal latent noise [B, h, w, C] in fp32 on the
@@ -86,15 +106,18 @@ class FlowPipeline:
     def _denoiser(self, context: torch.Tensor, pooled: torch.Tensor,
                   guidance: float, cfg: float = 1.0,
                   uncond_context: Optional[torch.Tensor] = None,
-                  uncond_pooled: Optional[torch.Tensor] = None) -> Denoiser:
+                  uncond_pooled: Optional[torch.Tensor] = None,
+                  sp_axis: Optional[str] = None) -> Denoiser:
         """``cfg != 1`` batches the cond and uncond passes into one
         doubled-batch DiT call; ``cfg == 1`` is the plain velocity
-        denoiser."""
+        denoiser. ``sp_axis``: the latent is a row shard over that mesh
+        axis."""
         def make(ctx, pl):
             def denoise(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
                 t = sigma.expand(x.shape[0])
                 g = torch.full((x.shape[0],), guidance, device=x.device)
-                return x - sigma * self.dit(x, t, ctx, pl, g)
+                return x - sigma * self.dit(x, t, ctx, pl, g,
+                                            sp_axis=sp_axis)
 
             return denoise
 
@@ -174,6 +197,93 @@ class FlowPipeline:
                                       progress_token,
                                       step_noise(seed, self.device),
                                       uncond_context, uncond_pooled)
+
+    # --- over a device mesh (parallel/) ---------------------------------------
+
+    def generate_mesh(self, spec: FlowSpec, seed: int, context: torch.Tensor,
+                      pooled: torch.Tensor,
+                      uncond_context: Optional[torch.Tensor] = None,
+                      uncond_pooled: Optional[torch.Tensor] = None,
+                      axis: str = "dp", noises=None,
+                      progress_token: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of the ``dp`` fan-out over ``axis``: participant
+        i samples and decodes from ``participant_seed(seed, i)``; the
+        images come back gathered in participant order. ``noises`` (one
+        per participant) replaces the seeded noise."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.rng import participant_seed
+
+        index = shard_index(axis)
+        pseed = participant_seed(seed, index)
+        noise = (noises[index] if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, self.device)))
+        images = self.sample_and_decode(noise, spec, context, pooled,
+                                        progress_token,
+                                        step_noise(pseed, self.device),
+                                        uncond_context, uncond_pooled)
+        return gather_batch(images, axis)
+
+    @torch.no_grad()
+    def generate_sp(self, spec: FlowSpec, seed: int, context: torch.Tensor,
+                    pooled: torch.Tensor,
+                    uncond_context: Optional[torch.Tensor] = None,
+                    uncond_pooled: Optional[torch.Tensor] = None,
+                    axis: str = "sp",
+                    noise: Optional[torch.Tensor] = None
+                    ) -> Optional[torch.Tensor]:
+        """This rank's part of one image over ``axis``: the full latent's
+        noise (the one-device run's of ``seed``, or ``noise``), this
+        rank's rows of it; every sampler draw the full draw's rows; the
+        x0 rows gathered; coordinate 0 decodes and returns the images
+        [1,H,W,3], the others None."""
+        from ..parallel.collectives import all_gather
+        from ..parallel.mesh import axis_group
+
+        if spec.per_device_batch != 1:
+            raise ValueError("sp generates one image (per_device_batch 1)")
+        g = axis_group(axis)
+        dev = self.device
+        ds = self.vae.config.downscale
+        lat_h = spec.height // ds
+        p = self.dit.config.patch_size
+        if (lat_h // p) % g.size:
+            raise ValueError(f"latent rows/patch ({lat_h}/{p}) must divide "
+                             f"over {g.size} shards")
+        rows = lat_h // g.size
+        if noise is None:
+            noise = self.initial_noise(spec, seed_generator(seed, dev))
+        x = noise.to(dev)[:, g.index * rows:(g.index + 1) * rows]
+        draws = step_noise(seed, dev)
+
+        def row_noise(j: int, shape: tuple) -> torch.Tensor:
+            full = (shape[0], shape[1] * g.size, *shape[2:])
+            return draws(j, full)[:, g.index * rows:(g.index + 1) * rows]
+
+        sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
+        if spec.cfg != 1.0 and uncond_pooled is None and pooled is not None:
+            uncond_pooled = torch.zeros_like(pooled)
+
+        def on(t):
+            return None if t is None else t.to(dev)
+
+        denoise = self._denoiser(on(context), on(pooled), spec.guidance,
+                                 spec.cfg, on(uncond_context),
+                                 on(uncond_pooled), sp_axis=axis)
+        with pipeline_call(self, "flow_sp", lambda: self.timings):
+            t0 = time.perf_counter()
+            x0 = sample(spec.sampler, denoise, x, sigmas, row_noise)
+            latents = all_gather(x0, axis, dim=1)
+            self._sync()
+            t1 = time.perf_counter()
+            images = None
+            if g.index == 0:
+                images = torch.clamp(self.vae.decode(latents) / 2.0 + 0.5,
+                                     0.0, 1.0)
+                self._sync()
+            self.timings = {"sample_s": t1 - t0,
+                            "decode_s": time.perf_counter() - t1,
+                            "steps": len(sigmas) - 1}
+        return images
 
     # --- offload (diffusion/offload.py) ---------------------------------------
 

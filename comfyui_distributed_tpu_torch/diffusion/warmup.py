@@ -21,7 +21,7 @@ off the event loop:
 4. record the outcome under the JAX package's labels: ``compiled`` when
    the bundle or the library had to be built, ``cache_hit`` when neither
    did, ``error``, or ``skipped`` (a model outside ``CDT_WARMUP_MODELS``,
-   or a multi-card key: the mesh tier is ROADMAP A.6).
+   or a multi-card key: the mesh tier's keys are ROADMAP A.6b ii).
 
 :class:`WarmupManager` owns the state the health probe reports: ``cold
 → warming → ready | error``. Unlike the JAX package, where one program's

@@ -647,6 +647,43 @@ def _observe_shape(pipeline: str, model, height: int, width: int,
                 frames=frames)
 
 
+def _multi_rank(mesh) -> bool:
+    """A mesh of more than one rank (the context's hidden ``mesh``)."""
+    return mesh is not None and mesh.size > 1
+
+
+def _refuse_mesh(mesh, what: str) -> None:
+    """The nodes that take a mesh in the JAX package but have no mesh
+    program in the port yet refuse one of more than one rank; none of
+    them runs on one rank without saying so."""
+    if _multi_rank(mesh):
+        raise ValidationError(
+            f"{what} over a mesh of {mesh.size} ranks is not ported yet "
+            "(ROADMAP.md, item A.6b ii); give the controller a one-rank "
+            "mesh (update_mesh) for it", field="mesh")
+
+
+def _mesh_runtime(mesh, model, model_registry):
+    """The mesh's runtime for a call on ``model``: every follower
+    resolves the bundle by its preset name from its own registry, so the
+    model must be the registry's bundle (a LoRA merge, for one, is
+    refused)."""
+    name = getattr(getattr(model, "preset", None), "name", None)
+    base = _registry(model_registry).get(name) if name else None
+    if base is None or base.pipeline is not model.pipeline:
+        raise ValidationError(
+            "a mesh runs a registry bundle (CheckpointLoader) that every "
+            "rank builds by name; this model is not one (a LoRA merge?)",
+            field="model")
+    return mesh.runtime
+
+
+def _mesh_layout(mesh, axis: str):
+    """``axis`` when the mesh lacks it (its ranks re-laid as one axis of
+    that name, as the JAX flow node re-lays its devices), else None."""
+    return None if axis in mesh.axes else axis
+
+
 @register_node("TPUTxt2Img")
 class TPUTxt2Img(NodeDef):
     """The sampler node (name kept for workflow compatibility): noise,
@@ -656,7 +693,14 @@ class TPUTxt2Img(NodeDef):
     hint the run then takes ``generate_preemptible``'s resumable
     segments, resumes the token's checkpoint if it has one, and raises
     ``PreemptedError`` with the parked state when the token asks it to
-    yield."""
+    yield.
+
+    On a mesh of more than one rank (the hidden ``mesh``) every rank runs
+    the ``txt2img_dp`` program: participant i samples ``batch_per_device``
+    images from ``participant_seed(seed, i)``, and the images come back
+    in participant order, participant 0's bitwise the one-rank run. Such
+    a request is not preemptible and takes no ControlNet (ROADMAP
+    A.6b ii)."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING", "negative": "CONDITIONING",
@@ -667,14 +711,15 @@ class TPUTxt2Img(NodeDef):
         "sampler_name": "STRING", "scheduler": "STRING", "batch_per_device": "INT",
     }
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "preemption": "*"}
+              "preemption": "*", "mesh": "*", "model_registry": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, negative, seed: int, steps: int,
                 cfg: float, width: int, height: int,
                 sampler_name: str = "euler", scheduler: str = "karras",
                 batch_per_device: int = 1, prompt_id: str = "",
-                progress_tracker=None, preemption=None, **_):
+                progress_tracker=None, preemption=None, mesh=None,
+                model_registry=None, **_):
         from ..diffusion.pipeline import GenerationSpec
         from ..diffusion.progress import total_calls
 
@@ -691,6 +736,20 @@ class TPUTxt2Img(NodeDef):
         uy = _adm_from_cond(negative, adm, device) if adm else None
         pipeline, hint = _control_from_cond(model.pipeline, positive,
                                             spec.height, spec.width)
+        if _multi_rank(mesh):
+            if hint is not None:
+                _refuse_mesh(mesh, "a ControlNet")
+            runtime = _mesh_runtime(mesh, model, model_registry)
+            with _pinned(model), \
+                    _ProgressScope(progress_tracker, prompt_id,
+                                   total_calls(sampler_name, spec.steps)) as ps:
+                images = runtime.run(
+                    "txt2img_dp", model, spec, int(seed), positive["context"],
+                    negative["context"], y, uy,
+                    layout=_mesh_layout(mesh, constants.AXIS_DATA),
+                    local={"progress_token": ps.token})
+                ps.complete()
+            return (images,)
         if preemption is not None and hint is None:
             with _pinned(model):
                 return (self._execute_preemptible(
@@ -765,11 +824,14 @@ class TPUImg2Img(NodeDef):
         "seed": "INT", "steps": "INT", "cfg": "FLOAT", "denoise": "FLOAT",
     }
     OPTIONAL = {"sampler_name": "STRING", "scheduler": "STRING"}
+    HIDDEN = {"mesh": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, image, positive, negative, seed: int,
                 steps: int, cfg: float, denoise: float,
-                sampler_name: str = "euler", scheduler: str = "karras", **_):
+                sampler_name: str = "euler", scheduler: str = "karras",
+                mesh=None, **_):
+        _refuse_mesh(mesh, "img2img")
         images, spec, y, uy, pipeline, hint = _i2i_setup(
             model, image, positive, negative, steps, cfg, denoise,
             sampler_name, scheduler)
@@ -792,13 +854,16 @@ class TPUInpaint(NodeDef):
         "seed": "INT", "steps": "INT", "cfg": "FLOAT", "denoise": "FLOAT",
     }
     OPTIONAL = {"sampler_name": "STRING", "scheduler": "STRING"}
+    HIDDEN = {"mesh": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, image, mask, positive, negative, seed: int,
                 steps: int, cfg: float, denoise: float,
-                sampler_name: str = "euler", scheduler: str = "karras", **_):
+                sampler_name: str = "euler", scheduler: str = "karras",
+                mesh=None, **_):
         from ..ops.resize import resize_to
 
+        _refuse_mesh(mesh, "inpainting")
         images, spec, y, uy, pipeline, hint = _i2i_setup(
             model, image, positive, negative, steps, cfg, denoise,
             sampler_name, scheduler)
@@ -825,10 +890,17 @@ class TPUInpaint(NodeDef):
 class TPUFlowTxt2Img(NodeDef):
     """The rectified-flow sampler node (FLUX- and SD3-class DiT bundles;
     name kept for workflow compatibility). ``mode="dp"`` runs on the
-    bundle's device, ``mode="offload"`` (or ``dp`` under ``CDT_OFFLOAD=1``)
-    through the offload executor, checking the interrupt between steps;
-    the multi-device modes are not ported yet. ``cfg != 1`` (SD3's true
-    CFG) needs the ``negative`` conditioning."""
+    bundle's device, or, on a mesh of more than one rank (the hidden
+    ``mesh``), as the ``flow_dp`` program: participant i from
+    ``participant_seed(seed, i)``, the images in participant order.
+    ``mode="sp"`` shards one image's latent rows over the mesh (its ranks
+    re-laid as ``{"sp": n}`` where it has no ``sp`` axis) with joint ring
+    attention (``flow_sp``); on one rank it is the ``dp`` run.
+    ``mode="offload"`` (or ``dp`` under ``CDT_OFFLOAD=1``) runs through the
+    offload executor on the bundle's device alone, as in the JAX package,
+    checking the interrupt between steps. ``mode="tp"`` is refused
+    (ROADMAP A.6b ii). ``cfg != 1`` (SD3's true CFG) needs the
+    ``negative`` conditioning."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING",
@@ -840,14 +912,15 @@ class TPUFlowTxt2Img(NodeDef):
         "batch_per_device": "INT",
     }
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "interrupt_event": "*"}
+              "interrupt_event": "*", "mesh": "*", "model_registry": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, steps: int, width: int,
                 height: int, negative=None, cfg: float = 1.0,
                 guidance: float = 3.5, shift=None, mode: str = "dp",
                 batch_per_device: int = 1, prompt_id: str = "",
-                progress_tracker=None, interrupt_event=None, **_):
+                progress_tracker=None, interrupt_event=None, mesh=None,
+                model_registry=None, **_):
         from ..diffusion.pipeline_flow import FlowSpec
         from ..diffusion.progress import total_calls
 
@@ -883,6 +956,23 @@ class TPUFlowTxt2Img(NodeDef):
                     spec, int(seed), positive["context"], pooled,
                     progress_token=ps.token,
                     should_stop=_stop_cb(interrupt_event))
+            elif _multi_rank(mesh):
+                runtime = _mesh_runtime(mesh, model, model_registry)
+                if mode == "sp":
+                    images = runtime.run(
+                        "flow_sp", model, spec, int(seed),
+                        positive["context"], pooled,
+                        uncond.get("uncond_context"),
+                        uncond.get("uncond_pooled"),
+                        layout=_mesh_layout(mesh, constants.AXIS_SEQUENCE))
+                else:
+                    images = runtime.run(
+                        "flow_dp", model, spec, int(seed),
+                        positive["context"], pooled,
+                        uncond.get("uncond_context"),
+                        uncond.get("uncond_pooled"),
+                        layout=_mesh_layout(mesh, constants.AXIS_DATA),
+                        local={"progress_token": ps.token})
             else:
                 images = pipeline.generate(spec, int(seed),
                                            positive["context"], pooled,
@@ -892,16 +982,15 @@ class TPUFlowTxt2Img(NodeDef):
 
 
 def _flow_mode(mode: str) -> None:
-    """The JAX flow node's ``sp`` and ``tp`` are refused, naming the
-    ROADMAP item that ports them, as the video nodes' ``sp`` is."""
-    if mode in ("sp", "tp"):
+    """The JAX flow node's ``tp`` is refused, naming the ROADMAP item that
+    ports it, as the video nodes' ``sp`` is."""
+    if mode == "tp":
         raise ValidationError(
-            f"mode={mode!r} (one image over several cards) is not ported "
-            "yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
-    if mode not in ("dp", "offload"):
+            "mode='tp' (one model's weights over several cards) is not "
+            "ported yet (ROADMAP.md, item A.6b ii)", field="mode")
+    if mode not in ("dp", "sp", "offload"):
         raise ValidationError(f"unknown mode {mode!r}; the port runs "
-                              "mode='dp' or 'offload' on one device",
-                              field="mode")
+                              "mode='dp', 'sp' or 'offload'", field="mode")
 
 
 def _offloaded(mode: str, model) -> bool:
@@ -936,13 +1025,16 @@ def _flatten_video_batch(videos: torch.Tensor) -> torch.Tensor:
     return videos.reshape(-1, *videos.shape[2:])
 
 
-def _video_mode(mode: str) -> None:
+def _video_mode(mode: str, model, mesh) -> None:
     """The JAX node's ``sp`` is refused, naming the ROADMAP item that
-    ports it."""
+    ports it, and so is a mesh of more than one rank unless the video is
+    offloaded (one card, as in the JAX package)."""
     if mode == "sp":
         raise ValidationError(
             "mode='sp' (one video's frame blocks over several cards) is not "
-            "ported yet (ROADMAP.md, item A.6: multi-GPU, 12)", field="mode")
+            "ported yet (ROADMAP.md, item A.6b ii)", field="mode")
+    if not _offloaded(mode, model):
+        _refuse_mesh(mesh, "video sampling")
 
 
 @register_node("TPUTxt2Video")
@@ -960,17 +1052,17 @@ class TPUTxt2Video(NodeDef):
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "interrupt_event": "*"}
+              "interrupt_event": "*", "mesh": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, frames: int, steps: int,
                 width: int, height: int, cfg: float = 1.0, shift=None,
                 mode: str = "dp", prompt_id: str = "",
-                progress_tracker=None, interrupt_event=None, **_):
+                progress_tracker=None, interrupt_event=None, mesh=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
-        _video_mode(mode)
+        _video_mode(mode, model, mesh)
         spec = VideoSpec(frames=int(frames), height=int(height),
                          width=int(width), steps=int(steps),
                          shift=_shift(model, shift),
@@ -1010,13 +1102,13 @@ class TPUImg2Video(NodeDef):
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "interrupt_event": "*"}
+              "interrupt_event": "*", "mesh": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, image, seed: int, frames: int,
                 steps: int, cfg: float = 1.0, shift=None, mode: str = "dp",
                 prompt_id: str = "", progress_tracker=None,
-                interrupt_event=None, **_):
+                interrupt_event=None, mesh=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
@@ -1030,7 +1122,7 @@ class TPUImg2Video(NodeDef):
                 f"model {model.preset.name!r} is a t2v architecture "
                 "(in_channels == out_channels): i2v needs a preset with "
                 "latent-concat conditioning channels, e.g. 'wan-i2v'")
-        _video_mode(mode)
+        _video_mode(mode, model, mesh)
         spec = VideoSpec(frames=int(frames), height=int(image.shape[1]),
                          width=int(image.shape[2]), steps=int(steps),
                          shift=_shift(model, shift),
@@ -1301,12 +1393,14 @@ class ImageUpscaleWithModel(NodeDef):
 
     INPUTS = {"upscale_model": "UPSCALE_MODEL", "image": "IMAGE"}
     OPTIONAL = {"tile": "INT", "tile_padding": "INT"}
+    HIDDEN = {"mesh": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, upscale_model, image, tile: int = 256,
-                tile_padding: int = 16, **_):
+                tile_padding: int = 16, mesh=None, **_):
         from ..tiles.model_upscale import tiled_model_upscale
 
+        _refuse_mesh(mesh, "the tiled model upscale")
         images = _image_batch(image)
         tile = min(int(tile), images.shape[1], images.shape[2])
         return (tiled_model_upscale(upscale_model, images, tile=tile,
@@ -1360,7 +1454,7 @@ class UltimateSDUpscaleDistributed(NodeDef):
         "multi_job_id": "STRING", "is_worker": "BOOLEAN",
         "worker_id": "STRING", "master_url": "STRING",
         "enabled_worker_ids": "*", "delegate_only": "BOOLEAN",
-        "tile_farm": "*",
+        "tile_farm": "*", "mesh": "*",
     }
     RETURNS = ("IMAGE",)
 
@@ -1372,11 +1466,12 @@ class UltimateSDUpscaleDistributed(NodeDef):
                 dynamic_threshold: int = 8, multi_job_id: str = "",
                 is_worker: bool = False, worker_id: str = "",
                 master_url: str = "", enabled_worker_ids=(), tile_farm=None,
-                **_):
+                mesh=None, **_):
         from ..cluster.tile_farm import assemble_tiles
         from ..ops.resize import upscale_image
         from ..tiles.engine import TileUpscaler, UpscaleSpec
 
+        _refuse_mesh(mesh, "the tiled upscale (USDU)")
         spec = UpscaleSpec(
             scale=float(upscale_by), tile_w=int(tile_width),
             tile_h=int(tile_height), padding=int(tile_padding),

@@ -24,7 +24,16 @@ statistics in fp32, output in the model dtype); tanh GELU in the MLPs;
 RMS qk-norm whose fp32 inverse root is cast to the operand dtype before
 the multiply; RoPE over interleaved pairs in fp32; the learned position
 table in fp32, cast to the model dtype where it is added; ``img_out`` in
-fp32. The sequence-parallel (ring) branches are not ported.
+fp32.
+
+Sequence parallelism (``sp_axis``, the JAX module's ring branches):
+``x`` is this shard's row block of the latent; every joint attention is
+``ops.attention.joint_ring_attention`` (the text K/V folded in once, the
+image K/V rotating over the axis); RoPE's row ids are offset by the
+shard's first patch row, the learned SD3 table is cropped at the shard's
+rows of the centred global grid, the sincos table sliced at its rows, so
+a sharded forward adds the positions of the unsharded one. The output
+stays the shard's rows.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import full_attention
+from ..ops.attention import full_attention, joint_ring_attention
 from ..utils.device import torch_dtype
 from .layers import LN_EPS, timestep_embedding
 
@@ -185,10 +194,11 @@ def apply_rope(x: torch.Tensor, pe: Rope) -> torch.Tensor:
     return out.reshape(x.shape).to(x.dtype)
 
 
-def image_ids(h: int, w: int,
-              device: Optional[torch.device] = None) -> torch.Tensor:
-    """[h·w, 3] FLUX image token ids: (0, row, col)."""
-    rows = torch.arange(h, device=device).repeat_interleave(w)
+def image_ids(h: int, w: int, device: Optional[torch.device] = None,
+              row_offset: int = 0) -> torch.Tensor:
+    """[h·w, 3] FLUX image token ids: (0, row, col); rows start at
+    ``row_offset`` (a sequence shard's first patch row)."""
+    rows = (torch.arange(h, device=device) + row_offset).repeat_interleave(w)
     cols = torch.arange(w, device=device).repeat(h)
     return torch.stack([torch.zeros_like(rows), rows, cols], dim=-1)
 
@@ -285,7 +295,8 @@ class DoubleBlock(nn.Module):
             self.add_module(f"{s}_mlp_down", nn.Linear(4 * H, H, dtype=dt))
 
     def forward(self, img, txt, vec, pe_img: Optional[Rope] = None,
-                pe_txt: Optional[Rope] = None):
+                pe_txt: Optional[Rope] = None,
+                sp_axis: Optional[str] = None):
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.img_mod(vec)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.txt_mod(vec)
         iq, ik, iv = self.img_qkv(_modulate(_layer_norm(img), i_sh1, i_sc1))
@@ -293,9 +304,12 @@ class DoubleBlock(nn.Module):
         if pe_img is not None:
             iq, ik = apply_rope(iq, pe_img), apply_rope(ik, pe_img)
             tq, tk = apply_rope(tq, pe_txt), apply_rope(tk, pe_txt)
-        out = full_attention(torch.cat([tq, iq], dim=1),
-                             torch.cat([tk, ik], dim=1),
-                             torch.cat([tv, iv], dim=1))
+        q = torch.cat([tq, iq], dim=1)
+        if sp_axis is None:
+            out = full_attention(q, torch.cat([tk, ik], dim=1),
+                                 torch.cat([tv, iv], dim=1))
+        else:
+            out = joint_ring_attention(q, tk, tv, ik, iv, sp_axis)
         B, T, C = txt.shape
         t_out = out[:, :T].reshape(B, T, C)
         i_out = out[:, T:].reshape(B, -1, C)
@@ -320,13 +334,21 @@ class SingleBlock(nn.Module):
         self.mlp_up = nn.Linear(H, 4 * H, dtype=dt)
         self.out = nn.Linear(5 * H, H, dtype=dt)
 
-    def forward(self, x, vec, pe_full: Optional[Rope] = None):
+    def forward(self, x, vec, pe_full: Optional[Rope] = None,
+                txt_len: int = 0, sp_axis: Optional[str] = None):
         sh, sc, g = self.mod(vec)
         xn = _modulate(_layer_norm(x), sh, sc)
         q, k, v = self.qkv(xn)
         if pe_full is not None:
             q, k = apply_rope(q, pe_full), apply_rope(k, pe_full)
-        out = full_attention(q, k, v).reshape(x.shape)
+        if sp_axis is None:
+            out = full_attention(q, k, v)
+        else:
+            # the text tokens lead the sequence on every shard
+            T = txt_len
+            out = joint_ring_attention(q, k[:, :T], v[:, :T], k[:, T:],
+                                       v[:, T:], sp_axis)
+        out = out.reshape(x.shape)
         fused = torch.cat([out, _gelu(self.mlp_up(xn))], dim=-1)
         return x + g * self.out(fused)
 
@@ -363,40 +385,58 @@ class DiT(nn.Module):
         if self.config.pos_embed == "learned":
             self.pos_emb.normal_(0.0, 0.01, generator=generator)
 
-    def learned_positions(self, hp: int, wp: int) -> torch.Tensor:
-        """SD3's table centre-cropped to an ``hp × wp`` patch grid:
-        [hp·wp, hidden] in fp32."""
+    def learned_positions(self, hp: int, wp: int, shards: int = 1,
+                          index: int = 0) -> torch.Tensor:
+        """SD3's table centre-cropped to the global ``(hp·shards) × wp``
+        patch grid, rows of shard ``index``: [hp·wp, hidden] in fp32."""
         m = self.config.pos_embed_max_size
-        if hp > m or wp > m:
+        gh = hp * shards
+        if gh > m or wp > m:
             raise ValueError(
-                f"sample grid {hp}×{wp} exceeds the learned position "
+                f"sample grid {gh}×{wp} exceeds the learned position "
                 f"table ({m}×{m}): SD3-family models cannot sample "
                 "beyond pos_embed_max_size patches per side")
-        top, left = (m - hp) // 2, (m - wp) // 2
+        top, left = (m - gh) // 2 + index * hp, (m - wp) // 2
         table = self.pos_emb.view(m, m, -1)
         return table[top:top + hp, left:left + wp].reshape(hp * wp, -1)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, pooled: torch.Tensor,
-                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+                guidance: Optional[torch.Tensor] = None,
+                sp_axis: Optional[str] = None) -> torch.Tensor:
+        """``sp_axis``: ``x`` is this shard's row block over that mesh
+        axis (module docstring)."""
         cfg = self.config
         dt, p = cfg.torch_dtype, cfg.patch_size
         B, H, W, C = x.shape
         dev = x.device
+        shards, index = 1, 0
+        if sp_axis is not None:
+            from ..parallel.mesh import axis_group
+
+            g = axis_group(sp_axis)
+            shards, index = g.size, g.index
         img = self.img_in(patchify(x.to(dt), p))
         pe_img = pe_txt = pe_full = None
         if cfg.pos_embed == "rope":
             ids_txt = torch.zeros((context.shape[1], 3), dtype=torch.long,
                                   device=dev)
-            pe_img = rope_freqs(image_ids(H // p, W // p, dev), cfg.axes_dim,
-                                cfg.rope_theta)
+            ids_img = image_ids(H // p, W // p, dev,
+                                row_offset=index * (H // p))
+            pe_img = rope_freqs(ids_img, cfg.axes_dim, cfg.rope_theta)
             pe_txt = rope_freqs(ids_txt, cfg.axes_dim, cfg.rope_theta)
             pe_full = (torch.cat([pe_txt[0], pe_img[0]], dim=0),
                        torch.cat([pe_txt[1], pe_img[1]], dim=0))
         elif cfg.pos_embed == "learned":
-            img = img + self.learned_positions(H // p, W // p)[None].to(dt)
-        else:
+            img = img + self.learned_positions(H // p, W // p, shards,
+                                               index)[None].to(dt)
+        elif shards == 1:
             img = img + sincos_2d(H // p, W // p, cfg.hidden, dev)[None].to(dt)
+        else:
+            # the global table, this shard's rows
+            per = (H // p) * (W // p)
+            pos = sincos_2d((H * shards) // p, W // p, cfg.hidden, dev)
+            img = img + pos[index * per:(index + 1) * per][None].to(dt)
         txt = self.txt_in(context.to(dt))
 
         vec = self.time_in(timestep_embedding(t * 1000.0, 256).to(dt))
@@ -409,11 +449,12 @@ class DiT(nn.Module):
 
         for i in range(cfg.depth_double):
             img, txt = getattr(self, f"double_{i}")(img, txt, vec, pe_img,
-                                                    pe_txt)
+                                                    pe_txt, sp_axis)
         T = txt.shape[1]
         xcat = torch.cat([txt, img], dim=1)
         for i in range(cfg.depth_single):
-            xcat = getattr(self, f"single_{i}")(xcat, vec, pe_full)
+            xcat = getattr(self, f"single_{i}")(xcat, vec, pe_full, T,
+                                                sp_axis)
         img = xcat[:, T:]
 
         sh, sc, _ = self.final_mod(vec)

@@ -27,7 +27,8 @@ Attribute names follow the JAX parameter tree (``patch_embedding``,
 ``block_{i}.modulation``, ``head_modulation``), so ``models/from_jax.py``
 carries a JAX tree. The qk-norm scales and both modulations are fp32
 parameters, cast at use as the JAX module casts its fp32 parameters; the
-head runs in fp32. The sequence-parallel (ring) branch is not ported.
+head runs in fp32. The sequence-parallel (ring) branch is not ported yet
+(ROADMAP A.6b ii).
 """
 
 from __future__ import annotations

@@ -27,6 +27,17 @@ Each tier a process selects on the card for a geometry is logged once
 and counted once in ``cdt_attn_kernel_selected{tier, geometry}``, the
 geometry keyed as the JAX package keys it (``hH.dD.qN.kvN.dtype``, the
 sequence lengths bucketed to powers of two from 128).
+
+Attention over a mesh axis (``sp``), the JAX module's ring family:
+``ring_attention`` and ``joint_ring_attention`` rotate the K/V shards
+around the ring and fold each arriving block into a streaming softmax
+(``_flash_block``, ``_hop_attend``: sub-blocks of ``CDT_RING_BLOCK`` keys,
+the remainder block last), as the JAX package computes them outside any
+Pallas kernel; ``ulysses_attention`` redistributes heads with two
+all-to-alls around ``full_attention`` (the kernels on the card). The
+next hop's transfer is started before the current hop's block is
+folded in. The ring skips JAX's last rotation, which returns every
+shard its own block and is never read.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 
 from .. import telemetry
 from ..telemetry import metrics as _tm
+from ..utils import constants
 from ..utils.logging import log
 from . import flash_attention as fa
 
@@ -164,3 +176,125 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
     if kind == "plain":
         return fa.flash_attention_plain(q, k, v)
     return fa.flash_attention(q, k, v, layout=kind)
+
+
+# --- attention over a mesh axis --------------------------------------------------
+
+
+def _flash_block(q, k, v, m, l, acc, scale):
+    """One K/V block of streaming-softmax attention, in fp32.
+
+    q [B,Nq,H,D]; k, v [B,Nk,H,D]; m, l [B,H,Nq]; acc [B,Nq,H,D]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)                       # [B,H,Nq]
+    p = torch.exp(s - m_new[..., None])               # [B,H,Nq,Nk]
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    acc_new = acc * corr.transpose(1, 2)[..., None] + pv
+    return m_new, l_new, acc_new
+
+
+def _hop_attend(qf, k_cur, v_cur, m, l, acc, scale, blk: int):
+    """Fold one hop's K/V into the running softmax state, ``blk`` keys at
+    a time (0: the whole hop), the remainder block last: the fp32 logits
+    of a hop stay bounded at [B, H, Nq, blk]."""
+    nk = k_cur.shape[1]
+    if blk <= 0 or nk <= blk:
+        return _flash_block(qf, k_cur.float(), v_cur.float(), m, l, acc,
+                            scale)
+    for start in range(0, nk, blk):
+        kb = k_cur[:, start:start + blk].float()
+        vb = v_cur[:, start:start + blk].float()
+        m, l, acc = _flash_block(qf, kb, vb, m, l, acc, scale)
+    return m, l, acc
+
+
+def _ring(qf, k, v, axis: str, state, quant: Optional[str],
+          block: Optional[int]):
+    """Rotate (k, v) around ``axis``, folding each shard's block into
+    ``state`` (m, l, acc). ``quant`` (default ``CDT_COLLECTIVE_QUANT``):
+    ``"int8"`` quantises each shard's block once and rotates the int8
+    payloads with their scales, ``"none"`` is exact; ``block`` defaults
+    to ``CDT_RING_BLOCK``."""
+    from ..parallel.collectives import (ring_start, wire_dequantize,
+                                        wire_quantize)
+    from ..parallel.mesh import axis_group
+
+    n = axis_group(axis).size
+    scale = 1.0 / (qf.shape[-1] ** 0.5)
+    quant = quant or constants.collective_quant()
+    blk = constants.ring_block() if block is None else block
+    payload = ([*wire_quantize(k), *wire_quantize(v)] if quant == "int8"
+               else [k, v])
+    m, l, acc = state
+    for hop in range(n):
+        pending = ring_start(payload, axis) if hop < n - 1 else None
+        if quant == "int8":
+            kq, ks, vq, vs = payload
+            k_cur, v_cur = wire_dequantize(kq, ks), wire_dequantize(vq, vs)
+        else:
+            k_cur, v_cur = payload
+        m, l, acc = _hop_attend(qf, k_cur, v_cur, m, l, acc, scale, blk)
+        if pending is not None:
+            payload = pending.wait()
+    return acc / l.transpose(1, 2)[..., None]
+
+
+def _empty_state(q: torch.Tensor):
+    B, Nq, H, D = q.shape
+    m = torch.full((B, H, Nq), -torch.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Nq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Nq, H, D), dtype=torch.float32, device=q.device)
+    return m, l, acc
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   axis: str = constants.AXIS_SEQUENCE,
+                   quant: Optional[str] = None,
+                   block: Optional[int] = None) -> torch.Tensor:
+    """Exact attention with K/V sharded over ``axis``: every shard holds
+    [B, N/s, H, D] of q/k/v and gets its queries' outputs. Under the
+    int8 wire (``quant``, default ``CDT_COLLECTIVE_QUANT``) every
+    contribution carries one quantisation round (``absmax/254``)."""
+    qf = q.float()
+    return _ring(qf, k, v, axis, _empty_state(q), quant, block).to(q.dtype)
+
+
+def joint_ring_attention(q: torch.Tensor, txt_k: torch.Tensor,
+                         txt_v: torch.Tensor, img_k: torch.Tensor,
+                         img_v: torch.Tensor,
+                         axis: str = constants.AXIS_SEQUENCE,
+                         quant: Optional[str] = None,
+                         block: Optional[int] = None) -> torch.Tensor:
+    """Ring attention over a joint text + image sequence (MMDiT): the
+    image K/V are sharded and rotate; the short text K/V, replicated on
+    every shard, are folded in once, first. ``q`` may mix text and image
+    queries. The int8 wire applies to the rotating image K/V only."""
+    qf = q.float()
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    state = _flash_block(qf, txt_k.float(), txt_v.float(), *_empty_state(q),
+                         scale)
+    return _ring(qf, img_k, img_v, axis, state, quant, block).to(q.dtype)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      axis: str = constants.AXIS_SEQUENCE) -> torch.Tensor:
+    """Exact attention by head redistribution: [B, N/s, H, D] shards go
+    all-to-all to [B, N, H/s, D], attend locally (``full_attention``: the
+    kernels on the card) and go back. Needs H divisible by the shards."""
+    from ..parallel.collectives import all_to_all_heads
+    from ..parallel.mesh import axis_group
+
+    n = axis_group(axis).size
+    H = q.shape[2]
+    if H % n:
+        raise ValueError(
+            f"ulysses needs heads ({H}) divisible by shards ({n})")
+
+    def to_heads(x):
+        return all_to_all_heads(x, axis, split_dim=2, concat_dim=1)
+
+    out = full_attention(to_heads(q), to_heads(k), to_heads(v))
+    return all_to_all_heads(out, axis, split_dim=1, concat_dim=2)

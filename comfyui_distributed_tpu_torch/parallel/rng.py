@@ -4,8 +4,10 @@ Counterpart of ``comfyui_distributed_tpu/parallel/rng.py``. The JAX
 package folds the participant index into a threefry key; the port draws
 with PyTorch's own generator, so the same seed gives other numbers than
 JAX (a documented divergence — tests feed both sides the same noise).
-Only participant 0 (the single-device "master") exists in this port.
-The tile engine draws each tile's noise from a generator of its own
+Participant 0 (the master, mesh coordinate 0 along ``dp``) draws from
+``seed`` itself, so a one-rank mesh is bitwise the one-device run;
+participant i > 0 draws from a hash of (seed, i) (``participant_seed``),
+the counterpart of JAX's ``fold_in(key, i)``. The tile engine draws each tile's noise from a generator of its own
 (``tile_seed``). A stochastic sampler's draw ``j`` comes from a generator
 seeded from (seed, j) alone (``step_noise``), the counterpart of JAX's
 ``normal(fold_in(key, j))``: a draw never depends on how many were made
@@ -30,6 +32,18 @@ def seed_generator(seed: int, device: torch.device) -> torch.Generator:
 def _hash_seed(kind: str, seed: int, index: int) -> int:
     digest = hashlib.sha256(f"cdt-{kind}:{int(seed)}:{int(index)}".encode()).digest()
     return int.from_bytes(digest[:8], "little")
+
+
+def participant_seed(seed: int, index: int) -> int:
+    """The seed participant ``index`` of a mesh run seeded ``seed`` draws
+    from: ``seed`` itself for participant 0, else a hash of both."""
+    return int(seed) if index == 0 else _hash_seed("participant", seed, index)
+
+
+def participant_seeds(seed: int, n: int) -> list[int]:
+    """The reference's visible seed list for UIs and logs (master =
+    seed, worker N = seed + N + 1); sampling uses ``participant_seed``."""
+    return [seed] + [seed + i + 1 for i in range(n - 1)]
 
 
 def tile_seed(seed: int, index: int) -> int:

@@ -669,6 +669,75 @@ def autoscale_down_cooldown_s() -> float:
     reluctant)."""
     return _read("CDT_AUTOSCALE_DOWN_COOLDOWN_S", 120.0, float)
 
+# --- the device mesh (parallel/) ----------------------------------------------
+
+# mesh axis names, the JAX package's
+AXIS_DATA = "dp"
+AXIS_TENSOR = "tp"
+AXIS_SEQUENCE = "sp"
+COLLECTIVE_QUANT_MODES = ("none", "int8")
+
+
+def mesh_devices() -> Optional[int]:
+    """A launched worker's mesh: this many devices over ``dp`` (set from
+    its host entry's ``mesh_devices``; wins over the config's shape)."""
+    return _read("CDT_MESH_DEVICES", None, int)
+
+
+def virtual_devices() -> Optional[int]:
+    """Mesh ranks over the devices there are: ``n`` ranks on the one
+    card (or on the CPU), the counterpart of XLA's virtual devices."""
+    return _read("CDT_VIRTUAL_DEVICES", None, int)
+
+
+def coordinator() -> Optional[str]:
+    """Multi-host: the ``HOST:PORT`` of host 0's rendezvous store."""
+    return _read("CDT_COORDINATOR", None, str)
+
+
+def num_hosts() -> Optional[int]:
+    """Multi-host: the number of host processes."""
+    return _read("CDT_NUM_HOSTS", None, int)
+
+
+def host_index() -> Optional[int]:
+    """Multi-host: this host's process index (0 serves)."""
+    return _read("CDT_HOST_INDEX", None, int)
+
+
+def mesh_secret() -> Optional[str]:
+    """The key that signs the mesh's call messages: the same on every host
+    under ``serve --coordinator``; a local mesh gives its followers a
+    fresh one of its own."""
+    return _read("CDT_MESH_SECRET", None, str)
+
+
+def mesh_tier() -> bool:
+    """The mesh placement planner (0: flat ``dp`` always)."""
+    return _read("CDT_MESH_TIER", True, _bool)
+
+
+def mesh_tp() -> int:
+    """A pinned ``tp`` degree for the placement planner (0: derive)."""
+    return _read("CDT_MESH_TP", 0, int)
+
+
+def collective_quant() -> str:
+    """Wire format of ring attention's rotating K/V: ``none`` (exact) or
+    ``int8``."""
+    def parse(raw: str) -> str:
+        if raw not in COLLECTIVE_QUANT_MODES:
+            raise ValueError(f"expected one of {COLLECTIVE_QUANT_MODES}")
+        return raw
+
+    return _read("CDT_COLLECTIVE_QUANT", "none", parse)
+
+
+def ring_block() -> int:
+    """Key sub-block of one ring-attention hop (0: the whole hop)."""
+    return _read("CDT_RING_BLOCK", 1024, int, lenient=True)
+
+
 # --- tiles ---------------------------------------------------------------------
 
 

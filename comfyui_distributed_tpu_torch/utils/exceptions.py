@@ -48,3 +48,17 @@ class ProcessError(DistributedError):
 
 class TunnelError(DistributedError):
     """The cloudflared tunnel could not be started."""
+
+
+class ShardingError(DistributedError):
+    """A mesh shape that the devices cannot take, or a missing axis."""
+
+
+class MeshError(DistributedError):
+    """A call over the device mesh failed on one of its ranks (the rank is
+    named); the mesh's followers are torn down and restart at its next
+    use."""
+
+    def __init__(self, message: str, rank: int | None = None):
+        super().__init__(message)
+        self.rank = rank

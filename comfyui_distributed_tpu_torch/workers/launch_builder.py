@@ -7,7 +7,9 @@ workers on the card, a master on the CPU (the tests) workers on the CPU.
 ``extra_args`` is split with ``shlex`` after a shell-metacharacter
 denylist. A host entry with ``cuda_device`` (written by
 ``detection.auto_populate_hosts``) pins its worker to that card with
-``CUDA_VISIBLE_DEVICES``, as the reference pins one process per GPU.
+``CUDA_VISIBLE_DEVICES``, as the reference pins one process per GPU; a
+host entry's ``mesh_devices`` (> 0) becomes ``CDT_MESH_DEVICES``, the
+worker's mesh of that many devices over ``dp`` (``cluster/controller``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ def build_launch_command(
     cuda_device = worker.get("cuda_device")
     if isinstance(cuda_device, int) and cuda_device >= 0:
         env["CUDA_VISIBLE_DEVICES"] = str(cuda_device)
+    mesh_devices = worker.get("mesh_devices", -1)
+    if isinstance(mesh_devices, int) and mesh_devices > 0:
+        env["CDT_MESH_DEVICES"] = str(mesh_devices)
     return argv, env
 
 

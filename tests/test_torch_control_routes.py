@@ -160,9 +160,17 @@ def test_get_config_and_update_mesh(tmp_path):
     assert resp.status == 200 and resp.payload["custom"] == {"kept": 1}
     assert resp.payload == jconfig._deep_merge(jconfig.DEFAULT_CONFIG, {
         **START, "hosts": [jconfig.normalize_host(h) for h in START["hosts"]]})
+    # a device mesh is ported (ROADMAP A.6b i): a good shape is written
+    # to mesh.shape, a bad one answers 400 as in the JAX package
     resp = call(app, "POST", "/distributed/config/update_mesh",
                 {"shape": {"dp": 2}})
-    assert resp.status == 400 and "A.12" in resp.payload["error"]
+    assert resp.status == 200 and resp.payload == {"status": "ok"}
+    assert call(app, "GET", "/distributed/config").payload["mesh"][
+        "shape"] == {"dp": 2}
+    for bad in ({"dp": 0}, {"dp": -1, "sp": -1}, {}, "dp"):
+        resp = call(app, "POST", "/distributed/config/update_mesh",
+                    {"shape": bad})
+        assert resp.status == 400, bad
 
 
 # --- the dashboard ------------------------------------------------------------------

@@ -201,14 +201,21 @@ def test_flux_workflow_runs_through_port_executor(tmp_path):
 
 @pytest.mark.parametrize("mode,item", [("sp", "A.6"), ("tp", "A.6")])
 def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
-    """Each multi-card mode is refused as a ``ValidationError`` on
-    ``mode`` that names the ROADMAP item porting it, as the video nodes'
-    refusals do (a bare ``NotImplementedError`` named none)."""
+    """``tp`` is refused as a ``ValidationError`` on ``mode`` that names
+    the ROADMAP item porting it (A.6b ii), as the video nodes' refusals
+    do. ``sp``, refused until the mesh was ported (A.6b i), runs: on the
+    executor's one-rank mesh it is the ``dp`` run, bitwise
+    (``tests/test_torch_mesh_flow.py`` runs it over two ranks)."""
     from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 
+    prompt = _workflow(width=16, height=16, steps=1, mode=mode)
+    if mode == "sp":
+        ex = _executor(tmp_path)
+        dp = ex.execute(_workflow(width=16, height=16, steps=1))["5"][0]
+        assert torch.equal(ex.execute(prompt)["5"][0], dp)
+        return
     with pytest.raises(ValidationError, match="not ported yet") as err:
-        _executor(tmp_path).execute(_workflow(width=16, height=16, steps=1,
-                                              mode=mode))
+        _executor(tmp_path).execute(prompt)
     assert err.value.field == "mode" and f"item {item}" in str(err.value)
 
 
@@ -230,7 +237,8 @@ def test_flow_node_refuses_other_modes_before_touching_the_model():
     from comfyui_distributed_tpu_torch.graph.nodes_builtin import TPUFlowTxt2Img
     from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 
-    for mode in ("sp", "tp", "ring"):
+    # ("sp" runs since the mesh was ported: test_torch_mesh_flow.py)
+    for mode in ("tp", "ring"):
         with pytest.raises(ValidationError) as err:
             TPUFlowTxt2Img().execute(None, {}, 0, 1, 16, 16, mode=mode)
         assert err.value.field == "mode"

@@ -89,6 +89,12 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.cluster.frontdoor.admission",
             "comfyui_distributed_tpu_torch.cluster.frontdoor.batcher",
             "comfyui_distributed_tpu_torch.cluster.frontdoor.microbatch",
+            "comfyui_distributed_tpu_torch.parallel.mesh",
+            "comfyui_distributed_tpu_torch.parallel.bootstrap",
+            "comfyui_distributed_tpu_torch.parallel.collectives",
+            "comfyui_distributed_tpu_torch.parallel.serving",
+            "comfyui_distributed_tpu_torch.parallel.programs",
+            "comfyui_distributed_tpu_torch.parallel.rng",
             } <= set(modules)
     code = (
         "import importlib, json, sys\n"
