@@ -144,10 +144,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``realesrgan-x2`` to 1920×1080, USDU at ``upscale_by`` 1.0 with 768²
    tiles and padding 24 (6 crops of 816² a frame, latents 102², 4 a
    chunk: 16 chunks), res_2m on beta for 3 of 12 steps (denoise 0.25),
-   CFG 5: frames [8,1080,1920,3], finite, in [0,1], exactly 8 K1 and
-   48 · 30 = 1440 K3 launches, the seconds of each stage (decode,
+   CFG 5, on ``VIDEO_FRAMES`` (2) frames, cut for the run's limit:
+   frames [2,1080,1920,3], finite, in [0,1], exactly 8 K1 and 180 K3
+   launches a frame, the seconds of each stage (decode,
    ESRGAN, USDU, encode) and of JPEG a frame; ``video_up_00000.avi``
-   read back by ``load_video`` as 8 frames of 1920×1080 at 24 fps with
+   read back by ``load_video`` as 2 frames of 1920×1080 at 24 fps with
    the source's track bitwise as the muxer writes it. Then one tile
    chunk's UNet forward (batch 8 at a 102² latent) through the kernels
    and on the plain versions, within 5e-2·max|plain|.
@@ -195,9 +196,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``chunk_a`` bitwise the master's clip and ``chunk_b`` the worker's;
    no launch), and again cut after the collector, whose joined AUDIO
    ``/distributed/history`` summarises as [1, 2, 5 760 000] at 48 kHz.
-   Last the video upscale is served on its first 8 frames
+   Last the video upscale is served on its first 2 frames
    (``frame_load_cap``; media sync uploads ``input.avi``; master
-   holdback): a batch of 8 is farmed frame by frame (the dynamic mode),
+   holdback): a batch of 2 is farmed frame by frame (the dynamic mode),
    the worker must have run at least one frame, the master's launches
    must be 8 K1 plus 180 K3 per frame it ran, every frame of the
    master's USDU must be bitwise that frame upscaled alone at seed 7 +
@@ -342,6 +343,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    on the donor's latent and that seed; no remote error. Prints each
    request's seconds, the entry's GET and PUT bytes and the fill's
    landing.
+14g. mesh dp — a master on ``{"dp": 2}`` over two ranks of the card
+   (gloo) serves the SDXL graph: two images, image 0 bitwise the
+   one-device run, each rank's launches exact, equal digests.
+14h. mesh tp — a master on ``{"dp": 1, "tp": 2}`` serves SDXL at 2
+   steps: a lone request solo on rank 0, bitwise; a group of two on
+   ``txt2img_tp`` (staged, no fallback), each rank's launches at the
+   per-rank geometries (``TP_SDXL_STEP``, ``TP_SDXL_TIERS``), PSNR >
+   30 dB against the one-rank runs, the shard digests the slices of
+   rank 0's parameters, each rank's card bytes within 10% of its plan,
+   a repeat a result hit under the mesh's key.
 15. checkpoint sdxl: write — a synthetic CLIP BPE vocabulary at CLIP's
    size (49 408 entries, ``<|endoftext|>`` 49 407) under
    ``CDT_TOKENIZER_DIR``; a source ``sdxl`` bundle at full width with its
@@ -397,6 +408,14 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    once through the kernels and once with its attention sites on the
    plain version; the velocities are non-zero and agree within
    5e-2·max|plain|.
+21a. mesh sp — FLUX ``sp`` at 2 steps over two ranks (a ``{"dp": 1,
+   "tp": 2}`` mesh re-laid as ``{"sp": 2}``, as the node does; > 30 dB,
+   no K3), and Ulysses against the plain attention.
+21b. mesh tp flux — on the same mesh, FLUX at full depth, 2 steps,
+   ``flow_tp`` (rank 1 slices its shard from 21a's FLUX): 57 K2 a step on
+   each rank at [1, 4173, 12·128], no K3, > 30 dB against the one-device
+   run, peaks < 80 GB together, the card's memory back after the
+   follower stops.
 22. flux files: write — a synthetic T5 ``tokenizer.json`` at t5-v1_1's
    size (32 100 pieces, a ``Precompiled`` charsmap from the port's
    encoder) under ``CDT_T5_TOKENIZER_DIR`` and the CLIP vocabulary under
@@ -732,6 +751,22 @@ SD15_MID_SHAPES = [((2, 64, 64, SD15_HEADS, 160), 1),
 # the whole [1, 4096] sequence with 12 of FLUX's 24 heads of 128, one
 # launch a rank
 ULYSSES_ROWS = [((1, 4096, 4096, 12, 128), 2)]
+# Tensor parallelism at tp 2 (phases 14h, 21b): each rank runs half the
+# heads. SDXL's 1280-wide sites at 10 of 20 heads: K1 with C 1280 != H·D
+# 640 (the fused kernel's first such launch), K2 over 77 keys at 10·64;
+# its 640-wide sites at 5 of 10 (5·64 = 320 is neither fused- nor
+# packed-legal): K3, self and over 77 keys. FLUX's joint attention at 12
+# of 24 heads of 128 (H·D 1536 is packed-legal). Launches a rank per
+# request of the workflows' own steps (30 SDXL, 28 FLUX): the kernel
+# phase's weights; the kernels line counts what 14h and 21b launched
+# (TP_MEASURED).
+TP = 2
+TP_FUSED = [((2, 1024, 1280, 10), STEPS * 60)]        # (B, N, C, H)
+TP_PACKED = [((2, 1024, 77, 10, 64), STEPS * 60)]     # (B, Nq, Nk, H, D)
+TP_BH = [((2, 4096, 4096, 5, 64), STEPS * 10),
+         ((2, 4096, 77, 5, 64), STEPS * 10)]
+TP_FLUX_PACKED = [((1, FLUX_TOKENS, FLUX_TOKENS, 12, 128),
+                   FLUX_STEPS * (19 + 38))]
 
 
 def ulysses_layout() -> str:
@@ -765,7 +800,7 @@ CN_TILE_SHAPES = sd15_shapes(8, CN_TILE_LEVELS, CN_TILE_FORWARDS * (
 # at the three levels), 4 a chunk (2 chunks a frame, the second padded),
 # CFG (batch 8), res_2m (one UNet call a step) for 3 of the 12 steps
 # (denoise 0.25): 24 · 2 · 3 = 144 UNet forwards a request.
-VIDEO_FRAMES, VIDEO_FPS = 4, 24.0     # cut from 24 to keep the run in its limit
+VIDEO_FRAMES, VIDEO_FPS = 2, 24.0     # cut from 24 (to 4, then 2) for the run's limit
 VIDEO_IN_HW, VIDEO_OUT_HW = (540, 960), (1080, 1920)
 VIDEO_TILE, VIDEO_PADDING = 768, 24
 VIDEO_TILES_A_FRAME, VIDEO_CHUNK, VIDEO_STEPS = 6, 4, 3
@@ -1207,8 +1242,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     say("kernels: correctness (bf16; tolerance max_abs_err <= "
         f"{KERNEL_TOL}*max|plain|)")
     errs = {k: 0.0 for k in KERNEL_NAMES}
-    for shape in ([s for s, _ in FUSED_SHAPES + TILE_FUSED] + RAGGED_FUSED
-                  + EDGE_FUSED):
+    for shape in ([s for s, _ in FUSED_SHAPES + TILE_FUSED + TP_FUSED]
+                  + RAGGED_FUSED + EDGE_FUSED):
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
         compare(torch, f"qkv_projection {shape}",
@@ -1238,6 +1273,18 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                           fa.flash_attention(q, k, v, layout=layout), ref)
             errs[key] = max(errs[key], err)
         del ref
+    # a tp rank's geometries, each on the layout its path takes
+    for layout, shapes in (("packed", TP_PACKED + TP_FLUX_PACKED),
+                           ("bh", TP_BH)):
+        for shape, _ in shapes:
+            q, k, v = core_inputs(*shape)
+            ref = fa.flash_attention_plain(q, k, v)
+            key = f"flash_attention_{layout}"
+            fa.flash_attention(*core_inputs(*shape), layout=layout)
+            err = compare(torch, f"{key} {shape} (a tp rank's)",
+                          fa.flash_attention(q, k, v, layout=layout), ref)
+            errs[key] = max(errs[key], err)
+            del q, k, v, ref
     # the one-head kernel at SD 1.5's head widths (the packed layout takes
     # D 64 and 128 only): the paths' shapes, then the tile edges
     for shape in ([s for s, _ in SD15_SHAPES + SD15_MID_SHAPES
@@ -1297,7 +1344,8 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                      "flops": work[0], "bytes": work[1], **extra})
 
     for path, shape, n in ([("sdxl", sh, n) for sh, n in FUSED_SHAPES]
-                           + [("upscale", sh, n) for sh, n in TILE_FUSED]):
+                           + [("upscale", sh, n) for sh, n in TILE_FUSED]
+                           + [("mesh_tp", sh, n) for sh, n in TP_FUSED]):
         B, N, C, H = shape
         x, (wq, wk, wv) = fused_inputs(*shape)
 
@@ -1331,7 +1379,10 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                                  ("bh", "flux", BH_SHAPES),
                                  ("bh", "flux_file", FILE_BH_SHAPES),
                                  (ulysses_layout(), "mesh_ulysses",
-                                  ULYSSES_ROWS)):
+                                  ULYSSES_ROWS),
+                                 ("packed", "mesh_tp", TP_PACKED),
+                                 ("bh", "mesh_tp", TP_BH),
+                                 ("packed", "flux_tp", TP_FLUX_PACKED)):
         for shape, n in shapes:
             q, k, v = core_inputs(*shape)
             extra = {}
@@ -1398,6 +1449,14 @@ def kernel_table(rows: list[dict], errs: dict,
     replaces = {"fused_qkv_attention": f"{TPU_SOURCE}:227",
                 "flash_attention_packed": f"{TPU_SOURCE}:197",
                 "flash_attention_bh": f"{TPU_SOURCE}:99"}
+    # the tp rows weighted by what 14h and 21b launched, not by the
+    # workflows' steps
+    measured = {(p, shape): n for p, pairs in TP_MEASURED.items()
+                for shape, n in pairs}
+    rows = [{**r, "launches": measured[(r["path"], r["shape"])]}
+            if (r["path"], r["shape"]) in measured else r for r in rows]
+    tp_per = (f"one request of {TP_STEPS} steps on rank 1, launches as "
+              "phases 14h and 21b counted them")
     out = []
 
     def per_request(mine):
@@ -1420,7 +1479,8 @@ def kernel_table(rows: list[dict], errs: dict,
                          for shape, n in SD15_SHAPES + SD15_MID_SHAPES]
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
               "flux_file", "wan", "wan_offload", "wan_file", "video_mmdit",
-              "sd3", "sd3_file", "sd35", "sd35_file", "mesh_ulysses")
+              "sd3", "sd3_file", "sd35", "sd35_file", "mesh_ulysses",
+              "mesh_tp", "flux_tp")
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1454,7 +1514,8 @@ def kernel_table(rows: list[dict], errs: dict,
             "enqueue_us": sum(r["enqueue_us"] * r["launches"] for r in mine) / n,
             "launches_by_path": {p: c[name] for p, c in path_launches.items()},
             # each mesh phase's launches on rank 0 and on rank 1 (phases
-            # 14g and 21a; rank 0's include its text encodes)
+            # 14g, 14h, 21a, 21b; rank 0's include its text encodes in
+            # 14g and 21a; 14h's are the group's tp programs)
             "mesh_launches_by_rank": {p: [r[name] for r in ranks]
                                       for p, ranks in MESH_TOTALS.items()},
             **split, **split_upscale,
@@ -1470,8 +1531,19 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_wan_offload_request", at(name, WAN_OFFLOAD_SHAPES)),
                 ("per_sd3_request", at(name, SD3_K2_SHAPES)),
                 ("per_sd3_file_request", at(name, SD3_FILE_SHAPES)),
-                ("per_sd35_request", at(name, SD35_K3_SHAPES)))
+                ("per_sd35_request", at(name, SD35_K3_SHAPES)),
+                # a tp rank's part of one request (phases 14h, 21b)
+                ("per_sdxl_tp_rank_request",
+                 at(name, TP_MEASURED.get("mesh_tp", []))),
+                ("per_flux_tp_rank_request",
+                 at(name, TP_MEASURED.get("flux_tp", []))))
                if value is not None},
+            "tp_per": tp_per,
+            "tp_rows": [
+                {key: r[key] for key in ("path", "shape", "launches", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+                for r in every if r["path"] in ("mesh_tp", "flux_tp")],
             **({{"flash_attention_bh": "k3_rows",
                  "flash_attention_packed": "k2_rows"}[name]: [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
@@ -2315,7 +2387,7 @@ AUDIO_WORKFLOW = "distributed-audio.json"
 VIDEO_WORKFLOW = "video-upscale.json"
 AUDIO_SECONDS, AUDIO_RATE, AUDIO_CHANNELS = 60, 48000, 2
 VIDEO_SEED = 7                          # the workflow's USDU seed
-VIDEO_SERVED_FRAMES = 4                 # frame_load_cap of the served run
+VIDEO_SERVED_FRAMES = 2                 # frame_load_cap of the served run
 VIDEO_MP4_FRAMES = 2                    # the mp4 run's (8 until PR 20)
 CHUNK_WAVS = ("chunk_a_00000.wav", "chunk_b_00000.wav")
 VIDEO_AVI = "video_up_00000.avi"
@@ -6939,8 +7011,8 @@ def stages_phase(torch, fa, sdxl: PathRun) -> dict:
     decode = pipeline.decode_latents
     decoded = []
 
-    def recording(latents):
-        images = decode(latents)
+    def recording(latents, **kw):
+        images = decode(latents, **kw)
         decoded.extend((lat.clone(), img.clone())
                        for lat, img in zip(latents, images))
         return images
@@ -8102,19 +8174,22 @@ def offload_phases(torch, fa, refs: dict) -> dict:
         free_card(torch)
     return launches
 
-# --- the device mesh (phases 14g and 21a) -----------------------------------
+# --- the device mesh I (phases 14g and 21a) ---------------------------------
 
 MESH_DIR = OUTPUT_DIR / "mesh"
 MESH_SEED = 91
 MESH_POSITIVE = "a lighthouse on a cliff at dusk, oil painting, mesh"
 MESH_RANKS = 2
 MESH_HW = 1024                       # both mesh phases' image side
-MESH_SP_STEPS = FLUX_FILE_STEPS      # 4 of FLUX's 28, as its file requests
+MESH_SP_STEPS = 2                    # 2 of FLUX's 28 (4 until the tp phases)
 MESH_PSNR_DB = 30.0
 MESH_RETURN_SLACK = 2**30            # card memory back after the followers
 MESH_CARD = 80e9                     # both ranks' peaks together
 ULYSSES_SHAPE = (1, 4096, 24, 128)   # FLUX's heads at 4096 tokens
 MESH_TOTALS = {}                     # phase → per-rank launches (kernels line)
+# path → [(shape, launches)] of one request of TP_STEPS steps on rank 1,
+# as phases 14h and 21b counted them (the kernels line's tp rows)
+TP_MEASURED = {}
 
 
 @contextlib.contextmanager
@@ -8201,8 +8276,9 @@ def mesh_dp_phase(torch, fa, sdxl: PathRun) -> dict:
         entry = wait_final(master, answer["prompt_id"], "mesh dp request")
         secs = time.perf_counter() - t0
         require(entry["status"] == "success", f"mesh dp request: {entry}")
-        require(answer.get("batched") is False,
-                "a mesh request must take the solo lane")
+        require(answer.get("batched") is True,
+                "a mesh request is classified as on one rank (a group of "
+                "one runs solo)")
         rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
         call = runtime.last_call
         ranks = rank_launches(call)
@@ -8243,20 +8319,18 @@ def mesh_dp_phase(torch, fa, sdxl: PathRun) -> dict:
     return {"rank0": rank0, "rank1": ranks[1]}
 
 
-def mesh_sp_phase(torch, fa, flux: PathRun) -> dict:
+def mesh_sp_phase(torch, fa, flux: PathRun, mesh) -> dict:
     """Phase 21a: ``TPUFlowTxt2Img`` mode ``sp`` runs FLUX at full width,
-    1024², 4 of 28 steps, over a ``{"sp": 2}`` mesh of two ranks on the
-    card (the ring staged through host memory over gloo): PSNR > 30 dB
-    against the one-device run of the same noise, no K3 launch on the
-    ring path, both ranks' peaks under 80 GB together. Then (c) Ulysses
-    over the same ranks at [1, 4096, 24, 128] against the plain attention
-    within 1e-2·max|plain|. The card's memory comes back after the
-    followers stop."""
+    1024², 2 of 28 steps, over two ranks on the card (``mesh``, the
+    ``{"dp": 1, "tp": 2}`` mesh phase 21b runs on, re-laid as ``{"sp":
+    2}`` as the node does; the ring staged through host memory over
+    gloo): PSNR > 30 dB against the one-device run of the same noise, no
+    K3 launch on the ring path, both ranks' peaks under 80 GB together.
+    Then (c) Ulysses over the same ranks at [1, 4096, 24, 128] against
+    the plain attention within 1e-2·max|plain|."""
     from comfyui_distributed_tpu_torch.graph import GraphExecutor
     from comfyui_distributed_tpu_torch.graph.executor import strip_meta
-    from comfyui_distributed_tpu_torch.parallel.bootstrap import MeshRuntime
-    from comfyui_distributed_tpu_torch.parallel.mesh import (build_mesh,
-                                                             describe_mesh)
+    from comfyui_distributed_tpu_torch.parallel.mesh import describe_mesh
 
     workflow = strip_meta(json.loads(
         (ROOT / "workflows" / FLUX_PATH.workflow).read_text()))
@@ -8270,11 +8344,6 @@ def mesh_sp_phase(torch, fa, flux: PathRun) -> dict:
     torch.cuda.synchronize()
     say(f"  one-device run ({MESH_SP_STEPS} steps): "
         f"{time.perf_counter() - t0:.3f} s")
-    free0 = torch.cuda.mem_get_info()[0]
-    with virtual_ranks(MESH_RANKS):
-        mesh = build_mesh({"sp": MESH_RANKS}, device=torch.device(DEVICE))
-    mesh.runtime = MeshRuntime(mesh, flux.registry.seed,
-                               flux.registry.checkpoint_root)
     described = describe_mesh(mesh)
     say(f"  mesh: {described}")
     require(described["backend"] == "gloo", f"backend {described['backend']}")
@@ -8286,55 +8355,78 @@ def mesh_sp_phase(torch, fa, flux: PathRun) -> dict:
         "through host memory on each rank")
     sp = json.loads(json.dumps(workflow))
     sp[FLUX_PATH.sampler_node]["inputs"]["mode"] = "sp"
-    try:
-        before = dict(fa.LAUNCHES)
-        reset_peak(torch)
-        t0 = time.perf_counter()
-        out = GraphExecutor({"model_registry": flux.registry, "mesh": mesh,
-                             "output_dir": str(MESH_DIR / "flux_sp")}).execute(
-            sp)[FLUX_PATH.image_node][0]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
-        call = mesh.runtime.last_call
-        ranks = rank_launches(call)
-        free = torch.cuda.mem_get_info()[0]
-        peaks = [r["peak_bytes"] for r in call["ranks"]]
-        db, diff = psnr(out.float().cpu(), ref.float().cpu())
-        timings = flux.bundle.pipeline.timings
-        say(f"  sp over {MESH_RANKS} ranks: {secs:.3f} s (the first call "
-            f"starts rank 1 and builds its flux); rank 0 sampling "
-            f"{timings['sample_s']:.3f} s ({timings['sample_s'] / MESH_SP_STEPS:.3f}"
-            f" s/step), decode {timings['decode_s']:.3f} s; ranks' program "
-            f"seconds {[round(r['seconds'], 3) for r in call['ranks']]}; "
-            f"PSNR {db:.2f} dB against the one-device run, max |Δ| "
-            f"{diff:.5f}; peaks {[round(p / 2**30, 3) for p in peaks]} GiB, "
-            f"card free {free / 2**30:.3f} GiB; rank 0 launches {rank0}, "
-            f"rank 1 {ranks[1]}")
-        require(tuple(out.shape) == tuple(ref.shape)
-                == (1, MESH_HW, MESH_HW, 3),
-                f"sp image {tuple(out.shape)}")
-        require(bool(torch.isfinite(out).all()), "non-finite sp image")
-        require(db > MESH_PSNR_DB, f"sp PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
-        require(all(r["flash_attention_bh"] == 0 for r in ranks + [rank0]),
-                "K3 launched on the ring path")
-        require(rank0 == {"fused_qkv_attention": 4, "flash_attention_packed": 0,
-                          "flash_attention_bh": 0}, f"rank 0 {rank0}")
-        require(sum(peaks) < MESH_CARD,
-                f"both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
-        MESH_TOTALS["flux_sp"] = [rank0, ranks[1]]
-        ulysses = ulysses_check(torch, fa, mesh)
-    finally:
-        mesh.runtime.stop()
+    before = dict(fa.LAUNCHES)
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    out = GraphExecutor({"model_registry": flux.registry, "mesh": mesh,
+                         "output_dir": str(MESH_DIR / "flux_sp")}).execute(
+        sp)[FLUX_PATH.image_node][0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    call = mesh.runtime.last_call
+    ranks = rank_launches(call)
+    free = torch.cuda.mem_get_info()[0]
+    peaks = [r["peak_bytes"] for r in call["ranks"]]
+    db, diff = psnr(out.float().cpu(), ref.float().cpu())
+    timings = flux.bundle.pipeline.timings
+    say(f"  sp over {MESH_RANKS} ranks: {secs:.3f} s (the first call "
+        f"starts rank 1 and builds its flux); rank 0 sampling "
+        f"{timings['sample_s']:.3f} s ({timings['sample_s'] / MESH_SP_STEPS:.3f}"
+        f" s/step), decode {timings['decode_s']:.3f} s; ranks' program "
+        f"seconds {[round(r['seconds'], 3) for r in call['ranks']]}; "
+        f"PSNR {db:.2f} dB against the one-device run, max |Δ| "
+        f"{diff:.5f}; peaks {[round(p / 2**30, 3) for p in peaks]} GiB, "
+        f"card free {free / 2**30:.3f} GiB; rank 0 launches {rank0}, "
+        f"rank 1 {ranks[1]}")
+    require(tuple(out.shape) == tuple(ref.shape)
+            == (1, MESH_HW, MESH_HW, 3),
+            f"sp image {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "non-finite sp image")
+    require(db > MESH_PSNR_DB, f"sp PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
+    require(all(r["flash_attention_bh"] == 0 for r in ranks + [rank0]),
+            "K3 launched on the ring path")
+    require(rank0 == {"fused_qkv_attention": 4, "flash_attention_packed": 0,
+                      "flash_attention_bh": 0}, f"rank 0 {rank0}")
+    require(sum(peaks) < MESH_CARD,
+            f"both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+    MESH_TOTALS["flux_sp"] = [rank0, ranks[1]]
+    ulysses = ulysses_check(torch, fa, mesh)
+    return {"flux_sp": rank0, "flux_sp_rank1": ranks[1], **ulysses}
+
+
+def flux_mesh(torch, flux: PathRun):
+    """Phases 21a and 21b's two ranks on the card: a ``{"dp": 1, "tp":
+    2}`` mesh (its followers start at its first call) and the card's
+    free memory before it."""
+    from comfyui_distributed_tpu_torch.parallel.bootstrap import MeshRuntime
+    from comfyui_distributed_tpu_torch.parallel.mesh import build_mesh
+
+    free0 = torch.cuda.mem_get_info()[0]
+    with virtual_ranks(MESH_RANKS):
+        mesh = build_mesh({"dp": 1, "tp": MESH_RANKS},
+                          device=torch.device(DEVICE))
+    mesh.runtime = MeshRuntime(mesh, flux.registry.seed,
+                               flux.registry.checkpoint_root)
+    return mesh, free0
+
+
+def stop_flux_mesh(torch, flux: PathRun, mesh, free0: int) -> None:
+    """The followers stopped, rank 0's shard dropped as a controller's
+    ``reset_mesh`` drops it (``ModelRegistry.drop_tp_shards``), the card's
+    memory back within ``MESH_RETURN_SLACK`` of ``free0``."""
+    mesh.runtime.stop()
+    flux.registry.drop_tp_shards()
     require(not mesh.runtime.procs, "the followers outlived their stop")
+    require("_tp_shards" not in flux.bundle.pipeline.__dict__,
+            "rank 0 kept its shard after the mesh was dropped")
     gc.collect()
     torch.cuda.empty_cache()
     free1 = torch.cuda.mem_get_info()[0]
-    say(f"  card memory free {free0 / 2**30:.3f} GiB before, "
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before the mesh, "
         f"{free1 / 2**30:.3f} GiB after the followers stopped")
     require(free0 - free1 < MESH_RETURN_SLACK,
             "the followers' card memory did not come back")
-    return {"flux_sp": rank0, "flux_sp_rank1": ranks[1], **ulysses}
 
 
 def ulysses_check(torch, fa, mesh) -> dict:
@@ -8352,7 +8444,7 @@ def ulysses_check(torch, fa, mesh) -> dict:
               for r in range(MESH_RANKS)]
     t0 = time.perf_counter()
     outs = mesh.runtime.run("apply", None, "ulysses_attention", shards,
-                            {"axis": "sp"})
+                            {"axis": "sp"}, layout="sp")
     secs = time.perf_counter() - t0
     got = torch.cat([o.to(dev) for o in outs], dim=1)
     ref = fa.flash_attention_plain(q, k, v)
@@ -8369,6 +8461,384 @@ def ulysses_check(torch, fa, mesh) -> dict:
     require(ranks == [want] * MESH_RANKS, f"ulysses launches {ranks}")
     MESH_TOTALS["ulysses"] = ranks
     return {"ulysses": ranks[0], "ulysses_rank1": ranks[1]}
+
+
+# --- the device mesh II (phases 14h and 21b): tensor parallelism --------------
+
+TP_DIR = OUTPUT_DIR / "mesh_tp"
+TP_STEPS = 2                  # 2 of SDXL's 30 and of FLUX's 28 (PERF.md §4)
+TP_LONE_SEED = 92
+TP_SEEDS = (93, 94)           # the group's two requests
+TP_BYTES_SLACK = 0.10         # a rank's card bytes against its plan
+# a tp rank's launches a euler step (ops/attention.select_kernel at half
+# the heads, TP_FUSED / TP_PACKED / TP_BH above): SDXL 60 K1 (the
+# 1280-wide self-attention), 60 K2 (its 77 keys), 20 K3 (the 640-wide
+# sites, self and 77 keys); by CUDA kernel 60 projections, 70 streamed
+# cores (K1's and K3's self) and 70 short-key cores; FLUX 57 K2
+TP_SDXL_STEP = {"fused_qkv_attention": 60, "flash_attention_packed": 60,
+                "flash_attention_bh": 20}
+TP_SDXL_CUDA_STEP = {"qkv_projection": 60, "flash_attention_core": 70,
+                     "short_kv_attention": 70}
+TP_FLUX_STEP = {"fused_qkv_attention": 0, "flash_attention_packed": 57,
+                "flash_attention_bh": 0}
+# the geometries a tp rank chooses tiers for (geometry_key = tier)
+TP_SDXL_TIERS = {"h10.d64.q1024.kv1024.bf16=fused",
+                 "h10.d64.q1024.kv128.bf16=packed",
+                 "h5.d64.q4096.kv4096.bf16=bh",
+                 "h5.d64.q4096.kv128.bf16=bh"}
+TP_FLUX_TIERS = {"h12.d128.q8192.kv8192.bf16=packed"}
+
+
+def scaled(step: dict, steps: int) -> dict:
+    return {k: v * steps for k, v in step.items()}
+
+
+def tp_tiers_check(torch) -> None:
+    """The tiers a tp rank's geometries take, from ``select_kernel``,
+    before any launch: what TP_SDXL_STEP and TP_FLUX_STEP count."""
+    from comfyui_distributed_tpu_torch.ops.attention import select_kernel
+
+    dev = torch.device(DEVICE)
+    got = (select_kernel(dev, True, 10, 64, 1280),
+           select_kernel(dev, False, 10, 64),
+           select_kernel(dev, True, 5, 64, 640),
+           select_kernel(dev, False, 5, 64),
+           select_kernel(dev, False, 12, 128))
+    require(got == ("fused", "packed", "bh", "bh", "packed"),
+            f"a tp rank's tiers {got}")
+
+
+def recording(runtime) -> list:
+    """Every call's ``last_call`` of ``runtime`` from now on, in order."""
+    calls = []
+    run = runtime.run
+
+    def rec(*args, **kwargs):
+        out = run(*args, **kwargs)
+        calls.append(runtime.last_call)
+        return out
+
+    runtime.run = rec
+    return calls
+
+
+def tp_card_gates(torch, bundle, call: dict, before0: int) -> dict:
+    """Each rank's card bytes after its shard's build: rank 1 holds its
+    shard (``tp_shard_bytes``) and the whole VAE; rank 0 holds, besides
+    what it held before the first tp call, its shard's slices that are
+    not views of its bundle (``shard_extra_bytes``)."""
+    from comfyui_distributed_tpu_torch.cluster.residency import (
+        _param_bytes, _tp_rules_for, shard_extra_bytes, tp_shard_bytes)
+
+    core = bundle.core
+    plan1 = (tp_shard_bytes(core, _tp_rules_for(bundle), TP)
+             + _param_bytes([bundle.pipeline.vae], bundle.device))
+    got1 = call["ranks"][1]["allocated_bytes"]
+    extra = shard_extra_bytes(bundle, TP)
+    got0 = torch.cuda.memory_allocated() - before0
+    say(f"  card bytes: rank 1 {got1 / 2**30:.3f} GiB against its shard "
+        f"(tp_shard_bytes) and the VAE {plan1 / 2**30:.3f} GiB; rank 0 "
+        f"{got0 / 2**30:.3f} GiB more than before its first tp call against "
+        f"its shard's slices apart from its bundle {extra / 2**30:.3f} GiB; "
+        f"shard bytes {[r['shard_bytes'] for r in call['ranks']]}")
+    require(abs(got1 - plan1) <= TP_BYTES_SLACK * plan1,
+            f"rank 1 holds {got1} bytes, planned {plan1}")
+    require(abs(got0 - extra) <= TP_BYTES_SLACK * extra + 2**26,
+            f"rank 0 grew by {got0} bytes, its shard's slices {extra}")
+    return {"rank1_bytes": got1, "rank1_plan": plan1, "rank0_extra": extra}
+
+
+def mesh_tp_phase(torch, fa, sdxl: PathRun) -> dict:
+    """Phase 14h: a master on ``{"dp": 1, "tp": 2}`` (two ranks on the one
+    card, gloo), the front door and the stage pools on by default, serves
+    SDXL at 1024², 4 of 30 steps. A lone request runs solo on rank 0
+    (rank 1 sits it out), bitwise the one-rank run, at full heads. Two
+    concurrent requests form one group that runs ``txt2img_tp`` on the
+    staged lane (latents to rank 0, which decodes) with no fallback: each
+    rank's launches as predicted at the per-rank geometries, each image
+    > 30 dB against its one-rank run, the ranks' shard digests the slices
+    of rank 0's parameters, each rank's card bytes within 10% of its
+    plan; a repeat is a result hit under the mesh's signature, whose key
+    differs from the one-rank key. Returns rank 0's and rank 1's
+    launches."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from comfyui_distributed_tpu_torch import telemetry
+    from comfyui_distributed_tpu_torch.cluster.cache import (
+        execution_signature, request_fingerprint, result_key)
+    from comfyui_distributed_tpu_torch.cluster.cache.conditioning import \
+        encoder_mode
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.executor import strip_meta
+    from comfyui_distributed_tpu_torch.parallel.mesh import describe_mesh
+    from comfyui_distributed_tpu_torch.parallel.programs import \
+        param_digest_of
+    from comfyui_distributed_tpu_torch.parallel.tensor import shard_params
+
+    tp_tiers_check(torch)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    free0 = torch.cuda.mem_get_info()[0]
+    bundle = sdxl.bundle
+    prompts = {seed: fd_prompt(seed, fd_positive(seed), f"tp{seed}",
+                               hw=MESH_HW, steps=TP_STEPS)
+               for seed in (TP_LONE_SEED,) + TP_SEEDS}
+    direct = TP_DIR / "direct"
+    executor = GraphExecutor({"model_registry": sdxl.registry,
+                              "output_dir": str(direct)})
+    refs, one_s = {}, []
+    for seed, prompt in prompts.items():
+        t0 = time.perf_counter()
+        refs[seed] = executor.execute(prompt)["4"][0].float().cpu()
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+    say(f"  one-rank runs ({TP_STEPS} steps): "
+        f"{', '.join(f'{s:.3f}' for s in one_s)} s")
+    # the lone request's UNet at full heads, TP_STEPS steps
+    full = {k: v // STEPS * TP_STEPS for k, v in FD_UNET.items()}
+    telemetry.set_enabled(True)
+    telemetry.REGISTRY.reset()
+    with virtual_ranks(TP), \
+            fd_master(torch, "mesh_tp", sdxl.registry,
+                      {"CDT_FD_WINDOW_MS": FD_WINDOW_MS},
+                      config={"mesh": {"shape": {"dp": 1, "tp": TP}}},
+                      home=TP_DIR / "served") as (master, base, out_dir):
+        mesh = master.mesh
+        described = describe_mesh(mesh)
+        say(f"  mesh: {described}")
+        require(mesh.shape == {"dp": 1, "tp": TP} and described["tp"] == TP,
+                f"mesh {mesh.shape}")
+        require(described["backend"] == "gloo",
+                f"backend {described['backend']}")
+        runtime = mesh.runtime
+        calls = recording(runtime)
+        queue = base + "/distributed/queue"
+        # the tp sums a forward, each rank: 3 a transformer block (self-
+        # and cross-attention out, the feed-forward down) over its tokens,
+        # 10 blocks at 4096 × 640 and 60 at 1024 × 1280, CFG's batch 2,
+        # bf16
+        sums = 3 * 2 * 2 * (10 * 4096 * 640 + 60 * 1024 * 1280)
+        say(f"  tp sums: 210 a forward, {sums / 1e9:.2f} GB through host "
+            "memory on each rank")
+
+        def post(seed):
+            return http_with_headers(queue, {"prompt": prompts[seed]})
+
+        # (a) a lone request: a group of one, solo, on rank 0 alone
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        code, _, answer = post(TP_LONE_SEED)
+        require(code == 200 and answer.get("batched") is True,
+                f"lone request: {answer}")
+        entry = wait_final(master, answer["prompt_id"], "tp lone request")
+        lone_s = time.perf_counter() - t0
+        rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        require(entry["status"] == "success" and entry["batch_size"] == 1,
+                f"lone request: {entry}")
+        lone = calls[-1]
+        require(lone["program"] == "txt2img_dp"
+                and lone["ranks"][1].get("idle"),
+                f"lone request ran {lone['program']}, rank 1 {lone['ranks'][1]}")
+        require((out_dir / f"tp{TP_LONE_SEED}_00000.png").read_bytes()
+                == (direct / f"tp{TP_LONE_SEED}_00000.png").read_bytes(),
+                "the lone request is not bitwise the one-rank run")
+        require(rank0 == {k: full[k] + (FD_TEXT_K1 * 2 if k ==
+                                        "fused_qkv_attention" else 0)
+                          for k in full},
+                f"lone request launches {rank0} (full heads + 2 encodes)")
+        say(f"  lone request: {lone_s:.3f} s from the POST, solo on rank 0 "
+            f"(rank 1 idle), bitwise the one-rank run; launches {rank0}")
+
+        # (b) two concurrent requests: one tp group on the staged lane
+        before0 = torch.cuda.memory_allocated()
+        n_calls = len(calls)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(TP_SEEDS)) as pool:
+            answers = list(pool.map(post, TP_SEEDS))
+        entries = [wait_final(master, a["prompt_id"], f"tp member {i}")
+                   for i, (_, _, a) in enumerate(answers)]
+        group_s = time.perf_counter() - t0
+        for i, e in enumerate(entries):
+            require(e["status"] == "success" and e.get("batch_size") == 2,
+                    f"tp member {i}: {e}")
+        group = calls[n_calls:]
+        require([c["program"] for c in group] == ["txt2img_tp"] * 2,
+                f"the group ran {[c['program'] for c in group]}")
+        status, st = http_json(base + "/distributed/stages")
+        snap = telemetry.REGISTRY.snapshot()
+        fallbacks = sum(x["value"] for x in snap.get(
+            "cdt_batch_fallbacks_total", {}).get("series", []))
+        require(status == 200 and st["fallbacks"] == 0 and fallbacks == 0
+                and st["members"] >= 2,
+                f"stages {st}, batch fallbacks {fallbacks}")
+        want = scaled(TP_SDXL_STEP, TP_STEPS)
+        want_cuda = scaled(TP_SDXL_CUDA_STEP, TP_STEPS)
+        for c in group:
+            for r, rep in enumerate(c["ranks"]):
+                require(rep["launches"] == want
+                        and rep["cuda_launches"] == want_cuda,
+                        f"rank {r} launches {rep['launches']} "
+                        f"{rep['cuda_launches']} != {want} {want_cuda}")
+        tiers = set(group[-1]["ranks"][1]["attn_kernels"].split(","))
+        require(tiers == TP_SDXL_TIERS, f"rank 1's tiers {tiers}")
+
+        def key_of(seed, m):
+            return result_key(request_fingerprint(strip_meta(prompts[seed])),
+                              execution_signature(bundle.pipeline.device, m),
+                              encoder_mode(bundle.text_encoder),
+                              bundle.weights_identity())
+
+        # each member's images as the group computed them (the result
+        # tier's host copy) against its one-rank run
+        dbs = []
+        for seed in TP_SEEDS:
+            held = master.cache.results.peek(key_of(seed, mesh))
+            require(held is not None, f"tp member {seed} left no result")
+            db, diff = psnr(torch.as_tensor(held["images"]).float(),
+                            refs[seed])
+            dbs.append((db, diff))
+            require(db > MESH_PSNR_DB,
+                    f"tp image {seed}: PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
+        secs = [[round(r["seconds"], 3) for r in c["ranks"]] for c in group]
+        peaks = [r["peak_bytes"] for r in group[0]["ranks"]]
+        say(f"  group of {len(TP_SEEDS)}: {group_s:.3f} s from the POSTs "
+            f"(the first tp call starts rank 1 and builds both shards); "
+            f"ranks' program seconds {secs}; peaks "
+            f"{[round(p / 2**30, 3) for p in peaks]} GiB; PSNR, max |Δ| "
+            f"{[(round(d, 2), round(x, 5)) for d, x in dbs]}; each rank "
+            f"{want} ({want_cuda}); rank 1's tiers {sorted(tiers)}")
+        card = tp_card_gates(torch, bundle, group[0], before0)
+        # (c) the shards are the slices of rank 0's parameters
+        t0 = time.perf_counter()
+        digests = runtime.run("shard_digest", bundle)
+        slices = [param_digest_of(shard_params(bundle.core, r, TP))
+                  for r in range(TP)]
+        require([d["digest"] for d in digests] == slices,
+                f"shard digests {digests} != the slices' {slices}")
+        say(f"  shard digests equal rank 0's slices "
+            f"({[d['digest'][:12] for d in digests]}, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        # (d) a repeat is a result hit, keyed by the mesh's signature
+        n_calls = len(calls)
+        with ThreadPoolExecutor(len(TP_SEEDS)) as pool:
+            again = list(pool.map(post, TP_SEEDS))
+        hits = [wait_final(master, a["prompt_id"], "tp repeat")
+                for _, _, a in again]
+        require(all(e.get("cache") == "hit" for e in hits)
+                and len(calls) == n_calls, f"the repeat: {hits}")
+        keys = [key_of(TP_SEEDS[0], m) for m in (mesh, None)]
+        require(keys[0] != keys[1]
+                and master.cache.results.peek(keys[0]) is not None
+                and master.cache.results.peek(keys[1]) is None,
+                "the tp result is not keyed by the mesh's signature")
+        say(f"  repeat: {len(hits)} result hits under the mesh's key "
+            f"{keys[0][:12]}…, not the one-rank key {keys[1][:12]}…")
+        # rank 1's launches a request by shape: K3's self-attention is
+        # the streamed cores past K1's, its 77-key sites the rest
+        rep = group[0]["ranks"][1]
+        k1 = rep["launches"]["fused_qkv_attention"]
+        k3_self = rep["cuda_launches"]["flash_attention_core"] - k1
+        TP_MEASURED["mesh_tp"] = [
+            (TP_FUSED[0][0], k1),
+            (TP_PACKED[0][0], rep["launches"]["flash_attention_packed"]),
+            (TP_BH[0][0], k3_self),
+            (TP_BH[1][0], rep["launches"]["flash_attention_bh"] - k3_self)]
+        MESH_TOTALS["sdxl_tp"] = [
+            {k: sum(c["ranks"][r]["launches"][k] for c in group)
+             for k in KERNEL_NAMES} for r in range(TP)]
+        rank0_total = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        free_up = torch.cuda.mem_get_info()[0]
+    require(not runtime.procs and master._mesh is None,
+            "the master's shutdown left its followers")
+    require("_tp_shards" not in bundle.pipeline.__dict__,
+            "the master's shutdown left rank 0's shard on its bundle")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before the phase, "
+        f"{free_up / 2**30:.3f} GiB with both ranks up, {free1 / 2**30:.3f} "
+        f"GiB after the follower stopped and rank 0 dropped its shard")
+    # rank 1's shard and VAE, and rank 0's slices, came back
+    require(free1 - free_up >= card["rank1_bytes"] + card["rank0_extra"],
+            "the follower's and the shard's card memory did not come back")
+    return {"rank0": rank0_total, "rank1": MESH_TOTALS["sdxl_tp"][1],
+            "card": card, "psnr": dbs}
+
+
+def mesh_flux_tp_phase(torch, fa, flux: PathRun, mesh) -> dict:
+    """Phase 21b: ``flux-txt2img.json``'s FLUX at full width and depth,
+    1024², 2 of 28 steps, through ``generate_tp`` (the ``flow_tp``
+    program) on 21a's ``{"dp": 1, "tp": 2}`` mesh, whose follower slices
+    its shard from the FLUX it built for 21a: each rank 57 K2 a step at
+    [1, 4173, 12·128] and no K3, PSNR > 30 dB against the one-device run
+    of the same seed, both ranks' peaks under 80 GB together."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_flow import FlowSpec
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+
+    workflow = json.loads((ROOT / "workflows" / FLUX_PATH.workflow).read_text())
+    inputs = workflow[FLUX_PATH.sampler_node]["inputs"]
+    text = {k: workflow[k] for k in ("1", "2")}
+    cond = GraphExecutor({"model_registry": flux.registry,
+                          "output_dir": str(TP_DIR / "flux")}).execute(
+        text)["2"][0]
+    spec = FlowSpec(height=MESH_HW, width=MESH_HW, steps=TP_STEPS,
+                    shift=float(inputs["shift"]),
+                    guidance=float(inputs["guidance"]))
+    seed = FLUX_PATH.seeds[0]
+    pipe = flux.bundle.pipeline
+    context, pooled = cond["context"], cond.get("pooled")
+    if pooled is None:                 # as the sampler node fills it
+        pooled = torch.zeros((1, pipe.dit.config.pooled_dim),
+                             device=pipe.device)
+    t0 = time.perf_counter()
+    ref = pipe.generate(spec, seed, context, pooled)
+    torch.cuda.synchronize()
+    say(f"  one-device run ({TP_STEPS} steps): "
+        f"{time.perf_counter() - t0:.3f} s")
+    require(mesh.shape == {"dp": 1, "tp": TP}, f"mesh {mesh.shape}")
+    # the tp sums a forward, each rank: 19 double blocks × 4 (each
+    # stream's projection and MLP, over its own tokens) and 38 single
+    # blocks × 1 (over all 4173), bf16
+    sums = (19 * 2 + 38) * FLUX_TOKENS * 3072 * 2
+    say(f"  tp sums: {19 * 4 + 38} a forward, {sums / 1e9:.2f} GB through "
+        "host memory on each rank")
+    before = dict(fa.LAUNCHES)
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    out = mesh.runtime.run("flow_tp", flux.bundle, spec, seed, context, pooled)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    call = mesh.runtime.last_call
+    ranks = rank_launches(call)
+    peaks = [r["peak_bytes"] for r in call["ranks"]]
+    db, diff = psnr(out.float().cpu(), ref.float().cpu())
+    timings = pipe._tp_shards[(0, TP, "tp")].timings
+    say(f"  flow_tp over {TP} ranks: {secs:.3f} s (rank 1 slices its shard "
+        f"from its flux); rank 0 sampling {timings['sample_s']:.3f} s "
+        f"({timings['sample_s'] / TP_STEPS:.3f} s/step); ranks' program "
+        f"seconds {[round(r['seconds'], 3) for r in call['ranks']]}; PSNR "
+        f"{db:.2f} dB against the one-device run, max |Δ| {diff:.5f}; peaks "
+        f"{[round(p / 2**30, 3) for p in peaks]} GiB; card bytes "
+        f"{[round(r['allocated_bytes'] / 2**30, 3) for r in call['ranks']]}"
+        f" GiB; shard bytes {[r['shard_bytes'] for r in call['ranks']]}; "
+        f"launches {ranks}")
+    want = scaled(TP_FLUX_STEP, TP_STEPS)
+    require(rank0 == want and ranks == [want] * TP,
+            f"flow_tp launches rank 0 {rank0}, ranks {ranks} != {want}")
+    tiers = set(call["ranks"][1]["attn_kernels"].split(","))
+    require(TP_FLUX_TIERS <= tiers, f"rank 1's tiers {tiers}")
+    require(tuple(out.shape) == (1, MESH_HW, MESH_HW, 3)
+            and bool(torch.isfinite(out).all()),
+            f"flow_tp image {tuple(out.shape)}")
+    require(db > MESH_PSNR_DB, f"flow_tp PSNR {db:.2f} dB")
+    require(sum(peaks) < MESH_CARD,
+            f"both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+    MESH_TOTALS["flux_tp"] = [rank0, ranks[1]]
+    TP_MEASURED["flux_tp"] = [(TP_FLUX_PACKED[0][0],
+                               ranks[1]["flash_attention_packed"])]
+    return {"flux_tp": rank0, "flux_tp_rank1": ranks[1]}
 
 
 PHASE_PEAK = {"bytes": 0}
@@ -8503,6 +8973,10 @@ def main() -> int:
             mesh_dp = mesh_dp_phase(torch, fa, sdxl)
             path_launches["mesh_dp"] = mesh_dp["rank0"]
             path_launches["mesh_dp_rank1"] = mesh_dp["rank1"]
+        with phase(torch, "14h mesh tp"):
+            mesh_tp = mesh_tp_phase(torch, fa, sdxl)
+            path_launches["mesh_tp"] = mesh_tp["rank0"]
+            path_launches["mesh_tp_rank1"] = mesh_tp["rank1"]
         del sdxl, up, control, cn_tile, video
         left = torch.cuda.memory_allocated() - allocated
         say(f"serve: {left / 2**30:.3f} GiB still allocated after the "
@@ -8527,11 +9001,20 @@ def main() -> int:
             refs = {"flux": images, "flux_seconds": seconds,
                     "flux_peak": max(PHASE_PEAK["bytes"],
                                      torch.cuda.max_memory_allocated())}
-        with phase(torch, "21a mesh sp and ulysses"):
-            path_launches.update(mesh_sp_phase(torch, fa, flux))
-            holder = {"bundle": flux.bundle}
-            del flux
-            gc.collect()
+        # 21a and 21b share two ranks (the follower's flux too)
+        mesh, free0 = flux_mesh(torch, flux)
+        try:
+            with phase(torch, "21a mesh sp and ulysses"):
+                path_launches.update(mesh_sp_phase(torch, fa, flux, mesh))
+            with phase(torch, "21b mesh tp flux"):
+                path_launches.update(mesh_flux_tp_phase(torch, fa, flux,
+                                                        mesh))
+                stop_flux_mesh(torch, flux, mesh, free0)
+        finally:
+            mesh.runtime.stop()
+        holder = {"bundle": flux.bundle}
+        del flux
+        gc.collect()
         with phase(torch, "22-24 flux files"):
             path_launches.update(flux_file_phases(torch, fa, holder, seconds))
         gc.collect()

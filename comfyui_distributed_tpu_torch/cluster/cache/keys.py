@@ -13,10 +13,13 @@ inputs that determine the output, and nothing else:
   text, negative prompt, seed, every literal).
 - **result**: fingerprint × execution signature × conditioning mode ×
   weights identity; the **near** key (the fleet cache's near tier) is
-  the same over the fingerprint with its integer seeds masked. The execution signature is this package's own: the
-  backend, torch and CUDA versions, the device and whether TF32 is on.
-  A JAX signature never equals it, so a result computed by one package
-  is never served by the other.
+  the same over the fingerprint with its integer seeds masked. The
+  execution signature is this package's own: the backend, torch and
+  CUDA versions, the device, the mesh's axes and whether TF32 is on. A
+  JAX signature never equals it, so a result computed by one package is
+  never served by the other; nor is a ``dp`` or ``tp`` group's served to
+  a one-rank host (a ``dp`` request returns more images, a ``tp`` one
+  sums its products in another order).
 """
 
 from __future__ import annotations
@@ -55,10 +58,11 @@ def request_fingerprint(prompt: dict) -> str:
     return digest("req", canonical_bytes(prompt))
 
 
-def execution_signature(device=None) -> str:
+def execution_signature(device=None, mesh=None) -> str:
     """The facts that change an output without changing the request:
-    backend, torch and CUDA versions, the device's name, one device, and
-    TF32 (on the card, a controller turns it off, ``utils/device.py``)."""
+    backend, torch and CUDA versions, the device's name, the mesh's axes
+    (``{"dp": 1}`` without a mesh, as for a one-rank one), and TF32 (on
+    the card, a controller turns it off, ``utils/device.py``)."""
     import torch
 
     dev = torch.device(device) if device is not None else None
@@ -71,7 +75,8 @@ def execution_signature(device=None) -> str:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "device": name,
-        "devices": 1,
+        "axes": ({str(k): int(v) for k, v in dict(mesh.shape).items()}
+                 if mesh is not None and mesh.size > 1 else {"dp": 1}),
         "tf32": bool(torch.backends.cuda.matmul.allow_tf32
                      or torch.backends.cudnn.allow_tf32),
     }))

@@ -119,11 +119,10 @@ class Controller:
                                          stages=self.stages)
         # resumable segments on the queue's solo lane; None under
         # CDT_PREEMPT=0 (uninterrupted runs)
-        if self.frontdoor is not None:
-            self.frontdoor.mesh_ranks = lambda: self.mesh.size
         self.preemption = build_preemption(self.queue)
         self.queue.preemption = self.preemption
-        self.warmup = WarmupManager(lambda: self.model_registry)
+        self.warmup = WarmupManager(lambda: self.model_registry,
+                                    mesh_fn=lambda: self.mesh)
         self._warmup_task: Optional[asyncio.Future] = None
         # the elastic fleet (cluster/elastic): built at startup, since a
         # drain is a task of the serving loop
@@ -189,6 +188,11 @@ class Controller:
                 from ..models.registry import ModelRegistry
 
                 self._registry = ModelRegistry(self.device, seed=0)
+            res = self._registry.residency
+            if res is not None and res.tp_shards_fn is None:
+                # plan card bytes at the mesh's tp degree (residency.py)
+                res.tp_shards_fn = lambda: self.mesh.axes.get(
+                    constants.AXIS_TENSOR, 1)
             return self._registry
 
     @property
@@ -232,12 +236,15 @@ class Controller:
         return mesh
 
     def reset_mesh(self) -> None:
-        """Drop the mesh (its followers stopped); the next use builds it
-        from the config again. Blocks while the followers stop."""
+        """Drop the mesh (its followers stopped) and the tensor-parallel
+        shards rank 0 kept for it; the next use builds it from the config
+        again. Blocks while the followers stop."""
         with self._mesh_lock:
             mesh, self._mesh = self._mesh, None
         if mesh is not None and mesh.runtime is not None:
             mesh.runtime.stop()
+        if self._registry is not None:
+            self._registry.drop_tp_shards()
 
     def _execution_context(self) -> dict[str, Any]:
         ctx: dict[str, Any] = {

@@ -32,7 +32,7 @@ import asyncio
 import dataclasses
 import secrets
 import time
-from typing import Callable, Optional
+from typing import Optional
 
 from ... import telemetry
 from ...telemetry import metrics as _tm
@@ -85,9 +85,6 @@ class FrontDoor:
         # a queued request never takes a second queue slot
         self.cache = cache
         self.admission = AdmissionController(depth_provider=self.depth)
-        # the controller's mesh ranks: with more than one, requests take
-        # the solo lane (the mesh-tier microbatch is ROADMAP A.6b ii)
-        self.mesh_ranks: Callable[[], int] = lambda: 1
         inflight = constants.fd_inflight()
         # the capacity gate is continuous batching: while this many batch
         # jobs sit in the queue, ready groups keep absorbing arrivals
@@ -166,8 +163,6 @@ class FrontDoor:
                                        payload.checkpoint)
         if checkpoint_id is not None:
             cls = Classification(batchable=False, reason="resume")
-        elif self.mesh_ranks() > 1:
-            cls = Classification(batchable=False, reason="mesh")
         else:
             cls = classify(payload.prompt)
         self._classified[cls.reason] = self._classified.get(cls.reason, 0) + 1

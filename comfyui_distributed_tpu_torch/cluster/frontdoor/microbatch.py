@@ -19,6 +19,9 @@ A flushed group runs in the prompt queue's graph thread as one unit:
 A member that fails in its prefix or suffix fails alone; a failed group
 call falls every member of that sub-group back to a solo run (counted in
 ``cdt_batch_fallbacks_total``), so no admitted job is lost to batching.
+On a controller mesh of more than one rank the group call runs the mesh
+programs (``Txt2ImgPipeline.generate_microbatch(mesh=)``), and the near
+tier stays off: a ``cache: "near"`` member runs as a plain request.
 The result tier (``cluster/cache``) serves a member before any of this,
 its ladder local memory → local disk → the fleet ring's owner
 (``cluster/cache/fleet.py``) → recompute, and is filled after, the
@@ -84,6 +87,7 @@ class _Prepared:
         self.stackable = False
         self.why_solo = ""
         self.result_key = None   # the result tier's key (cluster/cache)
+        self.mesh = None         # the controller's mesh (the context's)
         self.near_key = None     # the near tier's seedless key
 
     def signature(self) -> tuple:
@@ -109,6 +113,7 @@ def _prepare(member, sampler_id: str, base_context: dict) -> _Prepared:
 
     kwargs = node_kwargs(prompt, sampler_id, cache, context)
     prep = _Prepared(member, sampler_id, executor, cache, order, kwargs)
+    prep.mesh = base_context.get("mesh")
 
     model = kwargs["model"]
     prep.model = model
@@ -188,7 +193,7 @@ def _cache_key_for(p: _Prepared, cache) -> "str | None":
         return None
     mode = encoder_mode(getattr(p.model, "text_encoder", None))
     return result_key(p.member.fingerprint,
-                      execution_signature(p.pipeline.device), mode,
+                      execution_signature(p.pipeline.device, p.mesh), mode,
                       weights_fn())
 
 
@@ -269,6 +274,9 @@ def _near_key_for(p: _Prepared, cache) -> "str | None":
         return None
     if not p.stackable or p.member.cache_mode != "near":
         return None
+    if p.mesh is not None and p.mesh.size > 1:
+        # one-rank only: on a mesh a near request runs as a plain one
+        return None
     from ..cache import execution_signature, near_fingerprint, near_key
     from ..cache.conditioning import encoder_mode
 
@@ -277,7 +285,7 @@ def _near_key_for(p: _Prepared, cache) -> "str | None":
         return None
     mode = encoder_mode(getattr(p.model, "text_encoder", None))
     return near_key(near_fingerprint(p.member.prompt),
-                    execution_signature(p.pipeline.device), mode,
+                    execution_signature(p.pipeline.device, p.mesh), mode,
                     weights_fn())
 
 
@@ -460,12 +468,16 @@ def _execute_group_inner(members: list, sampler_node_ids: dict,
         try:
             from ..residency import pinned_bundle
 
+            # on a mesh of more than one rank the group runs the mesh
+            # programs (txt2img_tp on a tp axis under CDT_MESH_TIER, else
+            # txt2img_dp); the mesh's dp width fixes each request's count
             with pinned_bundle(lead.model):
                 outs = lead.pipeline.generate_microbatch(
                     lead.spec, seeds=[p.seed for p in grp],
                     contexts=[p.context for p in grp],
                     uncond_contexts=[p.uncond for p in grp],
-                    ys=[p.y for p in grp], uys=[p.uy for p in grp])
+                    ys=[p.y for p in grp], uys=[p.uy for p in grp],
+                    mesh=lead.mesh, bundle=lead.model)
             if telemetry.enabled():
                 _tm.BATCH_SIZE.observe(len(grp))
         except InterruptedError:

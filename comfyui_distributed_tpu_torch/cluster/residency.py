@@ -27,8 +27,18 @@ planned at the knobs' defaults, or as held once built; activations and
 workspace are the caller's headroom. The JAX package counts an offload
 bundle's whole host tree: the port counts card bytes throughout. An
 eviction releases the stores (``ModelBundle.release_device``). The
-planner is off at 0 (the default). Weight sharding over several cards
-(``tp_shard_bytes``) waits for ROADMAP A.6b ii.
+planner is off at 0 (the default).
+
+Tensor parallelism: ``tp_shard_bytes`` is JAX's per-chip arithmetic (a
+rule-matched weight costs 1/tp, everything else its whole size), and
+``bundle_bytes(tp_shards=)`` plans with it where JAX does. On the
+controller's card, though, rank 0 holds its whole bundle (the solo lane
+and the decode run on it) and its shard's split slices besides, so the
+port's planner counts those card bytes: the whole bundle plus the
+slices its shard holds apart from it (or, before the shard is built,
+1/tp of the rule-matched weights). The tp degree comes from the
+controller's mesh (``BundleResidency.tp_shards_fn``), under
+``CDT_MESH_TIER``.
 """
 
 from __future__ import annotations
@@ -236,17 +246,63 @@ def _param_bytes(modules, device) -> int:
     return total
 
 
-def tp_shard_bytes(modules, device, tp: int = 1) -> int:
-    """Per-card bytes of ``modules`` under tensor-parallel sharding. The
-    port shards no weights until tensor parallelism (ROADMAP A.6b ii), so
-    every parameter counts whole: one shard, whatever ``tp``."""
-    return _param_bytes(modules, device)
+def tp_shard_bytes(params, rules, tp: int) -> int:
+    """Per-chip bytes of ``params`` (a module, a mapping or (name, tensor)
+    pairs) under Megatron tp sharding: a parameter the rules split counts
+    ``nbytes // tp``, every other (and one whose dim does not divide) its
+    whole size (JAX's arithmetic)."""
+    from ..parallel.tensor import _named, spec_for_param
+
+    total = 0
+    for name, p in _named(params):
+        nbytes = p.numel() * p.element_size()
+        total += (nbytes // tp if spec_for_param(name, tuple(p.shape), rules,
+                                                "tp", tp) else nbytes)
+    return total
 
 
 def _tp_rules_for(bundle):
-    """The placement rules this bundle's core would shard by: none until
-    ROADMAP A.6b ii (the JAX package's Megatron tables)."""
-    return None
+    """The rule table this bundle's core shards by: the same tables the
+    shards are cut by (``parallel/tensor.rules_for``), so planning and
+    placement cannot disagree."""
+    from ..parallel.tensor import rules_for
+
+    return rules_for(bundle.core)
+
+
+def _cores(bundle) -> list:
+    low = getattr(bundle.pipeline, "dit_low", None)
+    return [bundle.core] + ([low] if low is not None else [])
+
+
+def shard_extra_bytes(bundle, tp: int) -> int:
+    """The card bytes rank 0 holds for a tp degree besides its whole
+    bundle: the tensors of its held shards that are not views of the
+    bundle's own (a contiguous slice costs nothing), or, with no shard of
+    that degree built, the split weights' 1/tp as planned; none at tp 1."""
+    from ..parallel.tensor import core_of, tp_sharding_summary
+
+    if tp <= 1:
+        return 0
+    shards = [s for (_, size, _), s in
+              getattr(bundle.pipeline, "_tp_shards", {}).items()
+              if size == tp]
+    if not shards:
+        rules = _tp_rules_for(bundle)
+        return sum(tp_sharding_summary(c, rules, tp)["sharded_bytes"]
+                   for c in _cores(bundle)) // tp
+    whole = {p.untyped_storage().data_ptr()
+             for c in _cores(bundle) for p in c.parameters()}
+    seen: set[int] = set()
+    total = 0
+    for shard in shards:
+        for p in core_of(shard).parameters():
+            ptr = p.untyped_storage().data_ptr()
+            if ptr in whole or ptr in seen:
+                continue
+            seen.add(ptr)
+            total += p.numel() * p.element_size()
+    return total
 
 
 def bundle_bytes(bundle, tp_shards: int = 1) -> int:
@@ -254,12 +310,14 @@ def bundle_bytes(bundle, tp_shards: int = 1) -> int:
     of the core (and the low-noise expert of a dual-expert bundle), both
     VAE halves and the active text stack (``ModelBundle.device_modules``),
     and its offload stores, as held or, before they are built, as
-    planned."""
+    planned; with ``tp_shards > 1``, its shard's slices besides
+    (``shard_extra_bytes``: rank 0 holds the whole bundle too)."""
     held = sum(s.store_bytes() for s in
                getattr(bundle.pipeline, "offload_stores", list)())
     planned = getattr(bundle, "offload_planned_bytes", lambda: 0)()
-    return (tp_shard_bytes(bundle.device_modules(), bundle.device, tp_shards)
-            + max(held, planned))
+    total = (_param_bytes(bundle.device_modules(), bundle.device)
+             + max(held, planned))
+    return total + shard_extra_bytes(bundle, tp_shards)
 
 
 class BundleResidency:
@@ -272,6 +330,9 @@ class BundleResidency:
         self._registry = registry
         self._estimator = estimator
         self._tp_shards = tp_shards
+        # the controller's mesh's tp degree (set by the controller), read
+        # at each acquire: the same axis that routes the tp programs
+        self.tp_shards_fn: Optional[Callable[[], int]] = None
         self.planner = ResidencyPlanner(budget_bytes,
                                         on_evict=self._evict_bundle)
 
@@ -280,9 +341,23 @@ class BundleResidency:
         if bundle is not None:
             bundle.release_device()
 
+    def _resolve_tp(self) -> int:
+        """``tp_shards`` when given, else the mesh's degree under
+        ``CDT_MESH_TIER`` (JAX's rule); 1 when unknown or failing."""
+        if self._tp_shards is not None:
+            return max(1, int(self._tp_shards))
+        from ..parallel.serving import mesh_tier_enabled
+
+        if not mesh_tier_enabled() or self.tp_shards_fn is None:
+            return 1
+        try:
+            return max(1, int(self.tp_shards_fn()))
+        except Exception:  # noqa: BLE001 — planning must not sink a build
+            return 1
+
     def measure(self, bundle) -> int:
         """The planner's bytes for one bundle."""
-        tp = max(1, int(self._tp_shards or 1))
+        tp = self._resolve_tp()
         if tp > 1:
             try:
                 return self._estimator(bundle, tp_shards=tp)

@@ -23,8 +23,9 @@ The catalog is:
   (``CDT_SHAPE_CATALOG`` overrides it).
 
 Keys with a ``mesh`` and the ``flow_sp`` / ``flow_tp`` families are kept
-and listed, never warmed: the mesh tier's keys are ROADMAP A.6b ii.
-``CDT_SHAPE_OBSERVE=0`` turns observation off.
+and listed; a controller mesh of more than one rank warms the mesh
+tier's keys (``diffusion/warmup.mesh_tier_keys``), building every rank's
+bundle or shard. ``CDT_SHAPE_OBSERVE=0`` turns observation off.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ class ProgramKey:
 
     @property
     def single_card(self) -> bool:
-        """A program of one card: the ones a warm pass here can run."""
+        """A program of one card (the mesh tier's keys need a controller
+        mesh of more than one rank: ``diffusion/warmup._runnable``)."""
         return not self.mesh and self.pipeline in ("txt2img", "flow_dp",
                                                    "video_dp")
 

@@ -403,13 +403,19 @@ class StageManager:
         from ..residency import ResidencyError, pinned_bundle
 
         lead = grp[0]
+        mesh = getattr(lead, "mesh", None)
+        if mesh is not None and mesh.size > 1 and len(grp) == 1:
+            # a group of one on a mesh runs solo, as JAX's run_solo does
+            self._solo_member(ticket, lead, batch_size=1)
+            return
         try:
             with pinned_bundle(lead.model):
                 lats = lead.pipeline.generate_latents(
                     lead.spec, seeds=[p.seed for p in grp],
                     contexts=[p.context for p in grp],
                     uncond_contexts=[p.uncond for p in grp],
-                    ys=[p.y for p in grp], uys=[p.uy for p in grp])
+                    ys=[p.y for p in grp], uys=[p.uy for p in grp],
+                    mesh=mesh, bundle=lead.model)
             if telemetry.enabled():
                 _tm.BATCH_SIZE.observe(len(grp))
         except InterruptedError:
@@ -496,7 +502,8 @@ class StageManager:
         try:
             with pinned_bundle(lead.model):
                 images = lead.pipeline.decode_latents(
-                    [w.arrived for w in ready])
+                    [w.arrived for w in ready],
+                    rows=lead.spec.per_device_batch)
             if telemetry.enabled():
                 _tm.DECODE_BATCH_SIZE.observe(len(ready))
         except StageWorkerDeath:
@@ -539,7 +546,8 @@ class StageManager:
 
         try:
             with pinned_bundle(w.p.model):
-                images = w.p.pipeline.decode_latents([w.arrived])
+                images = w.p.pipeline.decode_latents(
+                    [w.arrived], rows=w.p.spec.per_device_batch)
             if telemetry.enabled():
                 _tm.DECODE_BATCH_SIZE.observe(1)
         except Exception as e:  # noqa: BLE001 — member isolation barrier

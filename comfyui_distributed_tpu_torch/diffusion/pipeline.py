@@ -376,14 +376,17 @@ class Txt2ImgPipeline:
                       y: Optional[torch.Tensor] = None,
                       uncond_y: Optional[torch.Tensor] = None,
                       axis: str = "dp", noises=None,
-                      progress_token: Optional[int] = None) -> torch.Tensor:
+                      progress_token: Optional[int] = None,
+                      decode: bool = True) -> torch.Tensor:
         """This rank's part of the ``dp`` fan-out over ``axis`` of the
         current mesh (JAX's ``generate_fn``): participant i (this rank's
         coordinate) samples and decodes ``per_device_batch`` images from
         ``participant_seed(seed, i)``, and the images come back gathered
         in participant order, participant 0 (bitwise ``generate``'s
         images) first. ``noises`` (one tensor per participant) replaces
-        the seeded noise (a test hands over JAX's)."""
+        the seeded noise (a test hands over JAX's). ``decode=False`` is
+        the stage pools' latent form: the final latents come back
+        gathered, each bitwise what the fused form decodes."""
         from ..parallel.collectives import gather_batch, shard_index
         from ..parallel.rng import participant_seed
 
@@ -391,10 +394,95 @@ class Txt2ImgPipeline:
         pseed = participant_seed(seed, index)
         noise = (noises[index] if noises is not None else
                  self.initial_noise(spec, seed_generator(pseed, self.device)))
-        images = self.sample_and_decode(
-            noise, spec, context, uncond_context, y, uncond_y,
-            progress_token, sampler_noise=step_noise(pseed, self.device))
-        return gather_batch(images, axis)
+        if decode:
+            out = self.sample_and_decode(
+                noise, spec, context, uncond_context, y, uncond_y,
+                progress_token, sampler_noise=step_noise(pseed, self.device))
+        else:
+            out = self._latent_call(noise, spec, context, uncond_context, y,
+                                    uncond_y, step_noise(pseed, self.device),
+                                    "txt2img_lat", progress_token)
+        return gather_batch(out, axis)
+
+    # --- tensor parallelism (parallel/tensor.py) ------------------------------
+
+    @torch.no_grad()
+    def generate_tp(self, spec: GenerationSpec, seed: int,
+                    context: torch.Tensor, uncond_context: torch.Tensor,
+                    y: Optional[torch.Tensor] = None,
+                    uncond_y: Optional[torch.Tensor] = None,
+                    dp_axis: str = "dp", tp_axis: str = "tp", noises=None,
+                    progress_token: Optional[int] = None,
+                    decode: bool = True) -> Optional[torch.Tensor]:
+        """This rank's part of one request of the tensor-parallel group
+        program (JAX's ``microbatch_tp_fn`` at one request, or
+        ``latent_microbatch_tp_fn`` with ``decode=False``): ``self`` is
+        the rank's shard (``parallel/tensor.shard_pipeline``), its UNet's
+        attention and feed-forward split over ``tp_axis`` of the current
+        mesh. Participant i of ``dp_axis`` (0 without one) samples from
+        ``participant_seed(seed, i)``, as the ``dp`` program; every rank
+        of its tp group runs the same steps on its shard, and the group's
+        tp-index-0 rank decodes (``decode``) and returns the images (or
+        the final latents) gathered over ``dp_axis``; the other ranks
+        return None. Within 2e-4 of the one-rank run in fp32, not bitwise
+        (the row-parallel sums reassociate), as JAX's tp contract."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.mesh import current_mesh
+        from ..parallel.rng import participant_seed
+
+        self._check_microbatch(spec, [seed], [context], [uncond_context])
+        mesh = current_mesh()
+        index = shard_index(dp_axis) if dp_axis in mesh.axes else 0
+        pseed = participant_seed(seed, index)
+        noise = (noises[index] if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, self.device)))
+        x0 = self._latent_call(noise, spec, context, uncond_context, y,
+                               uncond_y, step_noise(pseed, self.device),
+                               "txt2img_tp", progress_token)
+        if shard_index(tp_axis) != 0:
+            return None
+        out = x0
+        if decode:
+            with pipeline_call(self, "vae_decode_batch", dict):
+                out = self._decode_latent(x0)
+                self._sync()
+        return gather_batch(out, dp_axis) if dp_axis in mesh.axes else out
+
+    @torch.no_grad()
+    def _latent_call(self, noise, spec, context, uncond_context, y, uncond_y,
+                     sampler_noise, label: str,
+                     progress_token: Optional[int] = None) -> torch.Tensor:
+        """One request's sampling half under its own ``pipeline_call``."""
+        timings: dict = {}
+        with pipeline_call(self, label, lambda: timings):
+            return self._sample_latent(noise, spec, context, uncond_context,
+                                       y, uncond_y, progress_token, None,
+                                       None, None, sampler_noise, timings)
+
+    def _mesh_group(self, mesh, bundle, spec: GenerationSpec, seeds,
+                    contexts, uncond_contexts, ys, uys, decode: bool):
+        """A group over a mesh of more than one rank, as JAX's
+        ``_microbatch_dispatch`` routes it: a ``tp`` axis with the mesh
+        tier on (``CDT_MESH_TIER``) runs the tensor-parallel program
+        ``txt2img_tp``, anything else the ``dp`` program (weights whole
+        on the tp-index-0 ranks). Each request is one mesh call at solo
+        shapes; each returns ``[n_dp · per_device_batch, ...]``."""
+        import types
+
+        from ..parallel.serving import mesh_tier_enabled
+        from ..utils import constants
+
+        tp = mesh.axes.get(constants.AXIS_TENSOR, 1) > 1
+        program = "txt2img_tp" if tp and mesh_tier_enabled() else "txt2img_dp"
+        layout = (None if program == "txt2img_tp"
+                  or constants.AXIS_DATA in mesh.axes
+                  else constants.AXIS_DATA)
+        bundle = bundle if bundle is not None else types.SimpleNamespace(
+            pipeline=self)
+        return [mesh.runtime.run(program, bundle, spec, int(seeds[r]),
+                                 contexts[r], uncond_contexts[r], ys[r],
+                                 uys[r], decode=decode, layout=layout)
+                for r in range(len(seeds))]
 
     # --- step-granular preemption (cluster/preemption.py) ---------------------
 
@@ -550,6 +638,7 @@ class Txt2ImgPipeline:
         uncond_contexts: "list[torch.Tensor]",
         ys: "list[Optional[torch.Tensor]] | None" = None,
         uys: "list[Optional[torch.Tensor]] | None" = None,
+        mesh=None, bundle=None,
     ) -> "list[torch.Tensor]":
         """N same-shape requests as one group (the front door's
         microbatch): one ``[per_device_batch, H, W, 3]`` tensor per
@@ -562,11 +651,20 @@ class Txt2ImgPipeline:
         R calls at solo shapes on one stream, which is what runs here.
         JAX's power-of-two pad slots (request 0 repeated, outputs
         dropped) are not run: they cost work and buy nothing eagerly.
-        Stochastic samplers and ControlNet clones raise JAX's errors."""
+        Stochastic samplers and ControlNet clones raise JAX's errors.
+
+        On a ``mesh`` of more than one rank the group runs over it
+        (``_mesh_group``: ``txt2img_tp`` or ``txt2img_dp``), ``bundle``
+        being what the ranks resolve (the registry bundle; default this
+        pipeline, carried whole); each request's images are
+        ``[n_dp · per_device_batch, H, W, 3]``."""
         self._check_microbatch(spec, seeds, contexts, uncond_contexts)
         R = len(seeds)
         ys = list(ys) if ys is not None else [None] * R
         uys = list(uys) if uys is not None else [None] * R
+        if mesh is not None and mesh.size > 1:
+            return self._mesh_group(mesh, bundle, spec, seeds, contexts,
+                                    uncond_contexts, ys, uys, decode=True)
         return [self.generate(spec, int(seeds[r]), contexts[r],
                               uncond_contexts[r], ys[r], uys[r])
                 for r in range(R)]
@@ -592,6 +690,7 @@ class Txt2ImgPipeline:
         uncond_contexts: "list[torch.Tensor]",
         ys: "list[Optional[torch.Tensor]] | None" = None,
         uys: "list[Optional[torch.Tensor]] | None" = None,
+        mesh=None, bundle=None,
     ) -> "list[torch.Tensor]":
         """``generate_microbatch`` stopped at ``x0``: the denoise pool's
         call in stage-split serving. One ``[per_device_batch, h, w, C]``
@@ -602,26 +701,30 @@ class Txt2ImgPipeline:
         The JAX package's form is one program of R solo-shaped subgraphs
         (``latent_microbatch_fn``); eagerly it is R solo-shaped calls in
         a row, as ``generate_microbatch`` runs. Each call carries its own
-        ``no_grad``: a pool thread does not inherit its caller's."""
+        ``no_grad``: a pool thread does not inherit its caller's. On a
+        ``mesh`` of more than one rank the latent form of the mesh
+        programs runs (``_mesh_group``), the latents gathered to rank 0,
+        which decodes them (``decode_latents``, ``rows`` a participant's
+        batch)."""
         self._check_microbatch(spec, seeds, contexts, uncond_contexts)
         R = len(seeds)
         ys = list(ys) if ys is not None else [None] * R
         uys = list(uys) if uys is not None else [None] * R
+        if mesh is not None and mesh.size > 1:
+            return self._mesh_group(mesh, bundle, spec, seeds, contexts,
+                                    uncond_contexts, ys, uys, decode=False)
         out = []
         for r in range(R):
             seed = int(seeds[r])
             noise = self.initial_noise(spec, seed_generator(seed, self.device))
-            timings: dict = {}
-            with pipeline_call(self, "txt2img_lat", lambda: timings):
-                out.append(self._sample_latent(
-                    noise, spec, contexts[r], uncond_contexts[r], ys[r],
-                    uys[r], None, None, None, None,
-                    step_noise(seed, self.device), timings))
+            out.append(self._latent_call(
+                noise, spec, contexts[r], uncond_contexts[r], ys[r], uys[r],
+                step_noise(seed, self.device), "txt2img_lat"))
         return out
 
     @torch.no_grad()
-    def decode_latents(self, latents: "list[torch.Tensor]"
-                       ) -> "list[torch.Tensor]":
+    def decode_latents(self, latents: "list[torch.Tensor]",
+                       rows: Optional[int] = None) -> "list[torch.Tensor]":
         """Decode final latents (any mix of requests of one shape): one
         ``[B, H, W, 3]`` image in [0, 1] a latent, bitwise the fused
         path's decode of the same bytes. Each latent decodes alone at
@@ -629,7 +732,9 @@ class Txt2ImgPipeline:
         batch would let cuDNN and cuBLAS pick other algorithms and change
         the bits, as it reassociates JAX's reductions (JAX
         ``pipeline.decode_fn``). JAX's power-of-two pad slots are not
-        run: eagerly they cost work and buy nothing."""
+        run: eagerly they cost work and buy nothing. ``rows`` decodes a
+        latent in blocks of that many rows (a mesh group's latent holds
+        one block a participant, each decoded at its solo shape)."""
         if not latents:
             return []
         first = tuple(latents[0].shape)
@@ -641,8 +746,10 @@ class Txt2ImgPipeline:
         out = []
         with pipeline_call(self, "vae_decode_batch", dict):
             for lat in latents:
-                out.append(self._decode_latent(
-                    torch.as_tensor(lat).to(self.device, torch.float32)))
+                lat = torch.as_tensor(lat).to(self.device, torch.float32)
+                step = rows or lat.shape[0]
+                out.append(torch.cat([self._decode_latent(lat[i:i + step])
+                                      for i in range(0, lat.shape[0], step)]))
             self._sync()
         return out
 

@@ -224,6 +224,61 @@ class FlowPipeline:
         return gather_batch(images, axis)
 
     @torch.no_grad()
+    def generate_tp(self, spec: FlowSpec, seed: int, context: torch.Tensor,
+                    pooled: torch.Tensor, dp_axis: str = "dp",
+                    tp_axis: str = "tp", noises=None,
+                    progress_token: Optional[int] = None
+                    ) -> Optional[torch.Tensor]:
+        """This rank's part of the dp×tp program (JAX's
+        ``generate_tp_fn``): ``self`` is the rank's shard
+        (``parallel/tensor.shard_pipeline``), its DiT blocks split over
+        ``tp_axis``. Participant i of ``dp_axis`` (0 without one) samples
+        from ``participant_seed(seed, i)`` (``noises``: one per
+        participant, a test's); the tp-index-0 rank of its group decodes,
+        and the images come back gathered over ``dp_axis``; the other
+        ranks return None. True CFG is refused, as in JAX."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.mesh import current_mesh
+        from ..parallel.rng import participant_seed
+
+        if spec.cfg != 1.0:
+            raise ValueError(
+                "true CFG (spec.cfg != 1.0) is not wired through tp "
+                "mode — use cfg=1.0 with FLUX distilled 'guidance', or "
+                "run the dp/sp paths")
+        mesh = current_mesh()
+        index = shard_index(dp_axis) if dp_axis in mesh.axes else 0
+        pseed = participant_seed(seed, index)
+        dev = self.device
+        noise = (noises[index].to(dev) if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, dev)))
+        sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
+        batch = noise.shape[0]
+
+        def rows(t):
+            t = t.to(dev)
+            return t.expand(batch, *t.shape[1:])
+
+        denoise = self._denoiser(rows(context), rows(pooled), spec.guidance)
+        if progress_token is not None:
+            denoise = wrap_denoiser(denoise, progress_token)
+        with pipeline_call(self, "flow_tp", lambda: self.timings):
+            t0 = time.perf_counter()
+            x0 = sample(spec.sampler, denoise, noise, sigmas,
+                        step_noise(pseed, dev))
+            self._sync()
+            t1 = time.perf_counter()
+            self.timings = {"sample_s": t1 - t0, "decode_s": 0.0,
+                            "steps": len(sigmas) - 1}
+            if tp_axis in mesh.axes and shard_index(tp_axis) != 0:
+                return None
+            images = torch.clamp(self.vae.decode(x0) / 2.0 + 0.5, 0.0, 1.0)
+            self._sync()
+            self.timings["decode_s"] = time.perf_counter() - t1
+        return (gather_batch(images, dp_axis) if dp_axis in mesh.axes
+                else images)
+
+    @torch.no_grad()
     def generate_sp(self, spec: FlowSpec, seed: int, context: torch.Tensor,
                     pooled: torch.Tensor,
                     uncond_context: Optional[torch.Tensor] = None,

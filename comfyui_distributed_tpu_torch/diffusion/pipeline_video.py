@@ -25,7 +25,7 @@ JAX's; ``generate``/``generate_i2v`` draw it from the seed. Each call
 runs under a ``pipeline_call`` span, and the synchronised sampling time
 per step lands in ``cdt_sampler_step_seconds``, read where the call
 synchronises for its own timings. The ``sp``/``tp`` programs of the JAX
-pipeline are not ported (ROADMAP item A.6b ii).
+pipeline are not ported (ROADMAP item A.6b iii).
 
 ``generate_offloaded``/``generate_offloaded_i2v`` run one video through
 ``OffloadedWan`` executors (``diffusion/offload.py``), one expert's store

@@ -17,11 +17,16 @@ off the event loop:
    outputs dropped, then a synchronisation: the first calls of cuDNN and
    cuBLAS at those shapes happen here, not in a request. ``flow_dp`` and
    ``video_dp`` keys stop after steps 1 and 2 (their context length
-   depends on the text stack a request brings);
+   depends on the text stack a request brings), and so do the mesh
+   tier's keys (``mesh_tier_keys``: ``flow_sp`` and ``flow_tp``), whose
+   recipe builds every rank's bundle, or for ``flow_tp`` every rank's
+   shard under the key's strategy mesh (the ``warm`` mesh program), on
+   a controller mesh of more than one rank;
 4. record the outcome under the JAX package's labels: ``compiled`` when
-   the bundle or the library had to be built, ``cache_hit`` when neither
-   did, ``error``, or ``skipped`` (a model outside ``CDT_WARMUP_MODELS``,
-   or a multi-card key: the mesh tier's keys are ROADMAP A.6b ii).
+   a bundle, a shard or the library had to be built, ``cache_hit`` when
+   none did, ``error``, or ``skipped`` (a model outside
+   ``CDT_WARMUP_MODELS``, or a key this host's mesh cannot run:
+   ``_mesh_matches``).
 
 :class:`WarmupManager` owns the state the health probe reports: ``cold
 → warming → ready | error``. Unlike the JAX package, where one program's
@@ -105,6 +110,67 @@ def warm_txt2img(bundle, key: ProgramKey) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _mesh_matches(key: ProgramKey, mesh) -> bool:
+    """JAX's rule: an empty ``key.mesh`` is "whatever this host runs"; a
+    concrete one must match exactly, or be a mesh-tier strategy layout
+    (``flow_sp`` / ``flow_tp``) over no more ranks than the mesh has."""
+    import math
+
+    if not key.mesh:
+        return True
+    if tuple(sorted(key.mesh)) == tuple(
+            sorted((str(a), int(n)) for a, n in mesh.axes.items())):
+        return True
+    return (key.pipeline in ("flow_sp", "flow_tp")
+            and math.prod(n for _, n in key.mesh) <= mesh.size)
+
+
+def mesh_tier_keys(keys: Iterable[ProgramKey], mesh) -> list[ProgramKey]:
+    """The mesh-tier programs a catalog implies (JAX's rule): for every
+    ``flow_dp`` key, a ``flow_sp`` key (single-image latency, when the
+    latent rows divide) and, with a tp degree (``parallel/serving.
+    derive_tp``: a pinned ``CDT_MESH_TP``), a ``flow_tp`` key over
+    ``{"dp": n/tp, "tp": tp}``. None on one rank or under
+    ``CDT_MESH_TIER=0``."""
+    from ..parallel import serving
+
+    n = int(mesh.size)
+    if n < 2 or not serving.mesh_tier_enabled():
+        return []
+    tp = serving.derive_tp(n)
+    while tp > 1 and n % tp:
+        tp //= 2
+    out: list[ProgramKey] = []
+    for key in keys:
+        if key.pipeline != "flow_dp":
+            continue
+        # sp needs the latent rows (h/8/patch, patch 2) to divide
+        sp = n
+        while sp > 1 and (key.height // 16) % sp:
+            sp //= 2
+        if sp > 1:
+            out.append(dataclasses.replace(
+                key, pipeline="flow_sp", mesh=(("sp", sp),)))
+        if tp > 1:
+            out.append(dataclasses.replace(
+                key, pipeline="flow_tp",
+                mesh=(("dp", n // tp), ("tp", tp))))
+    return out
+
+
+def _warm_mesh_tier(bundle, key: ProgramKey, mesh) -> bool:
+    """The mesh tier's recipe: every rank builds its bundle (``flow_sp``)
+    or its shard under the key's strategy mesh (``flow_tp``); True when
+    rank 0 had to build its shard."""
+    axes = dict(key.mesh) if key.pipeline == "flow_tp" else None
+    tp = (axes or {}).get("tp", 1)
+    # rank 0 is tp index 0 under any strategy mesh
+    fresh = tp > 1 and (0, tp, "tp") not in getattr(
+        bundle.pipeline, "_tp_shards", {})
+    mesh.runtime.run("warm", bundle, axes=axes)
+    return fresh
+
+
 def _allowed_models(registry, models: Optional[Iterable[str]]):
     """The models a pass may build: None for all."""
     if models is None:
@@ -122,19 +188,30 @@ def _allowed_models(registry, models: Optional[Iterable[str]]):
     return allowed
 
 
+def _runnable(key: ProgramKey, mesh) -> bool:
+    """A key this host warms: a one-card key, or a mesh-tier key that the
+    controller's mesh of more than one rank matches."""
+    if key.single_card:
+        return True
+    return (mesh is not None and mesh.size > 1
+            and key.pipeline in ("flow_sp", "flow_tp")
+            and _mesh_matches(key, mesh))
+
+
 def run_warmup(registry, keys: Iterable[ProgramKey],
                models: Optional[Iterable[str]] = None,
-               on_entry: Optional[Callable[[WarmupEntry], None]] = None
-               ) -> list[WarmupEntry]:
+               on_entry: Optional[Callable[[WarmupEntry], None]] = None,
+               mesh=None) -> list[WarmupEntry]:
     """Warm every catalog key this host can run (steps 1–4 of the module
-    docstring). A key's failure is recorded, never raised."""
+    docstring) on ``mesh`` (the controller's; None: one card). A key's
+    failure is recorded, never raised."""
     allowed = _allowed_models(registry, models)
     report: list[WarmupEntry] = []
     for key in keys:
-        if not key.single_card or (allowed is not None
-                                   and key.model not in allowed):
+        if not _runnable(key, mesh) or (allowed is not None
+                                        and key.model not in allowed):
             entry = WarmupEntry(key, "skipped",
-                                detail="model filtered or multi-card key")
+                                detail="model filtered or mesh mismatch")
         else:
             t0 = time.perf_counter()
             try:
@@ -144,6 +221,8 @@ def run_warmup(registry, keys: Iterable[ProgramKey],
                 built |= _load_kernels(registry.device)
                 if key.pipeline == "txt2img":
                     warm_txt2img(bundle, key)
+                elif not key.single_card:
+                    built |= _warm_mesh_tier(bundle, key, mesh)
                 entry = WarmupEntry(key, "compiled" if built else "cache_hit",
                                     time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — one key's failure is its own
@@ -165,8 +244,11 @@ class WarmupManager:
     controller's model registry (resolved when a pass runs)."""
 
     def __init__(self, registry_fn: Callable,
-                 catalog: Optional[ShapeCatalog] = None):
+                 catalog: Optional[ShapeCatalog] = None,
+                 mesh_fn: Optional[Callable] = None):
         self._registry_fn = registry_fn
+        # the controller's mesh (None: one card, no mesh tier)
+        self._mesh_fn = mesh_fn
         self._catalog = catalog
         self._state = COLD
         self._lock = threading.Lock()
@@ -210,10 +292,16 @@ class WarmupManager:
             keys = cat.entries()
             if extra_keys:
                 keys += [k for k in extra_keys if k not in set(keys)]
+            # the mesh tier's variants of the flow programs the catalog
+            # serves (JAX's rule), so they are hot from boot
+            mesh = self._mesh_fn() if self._mesh_fn is not None else None
+            tier = ([k for k in mesh_tier_keys(keys, mesh)
+                     if k not in set(keys)] if mesh is not None else [])
+            keys += tier
             log(f"warmup: starting a pass over {len(keys)} catalog "
-                "program(s)")
+                f"program(s) ({len(tier)} mesh-tier)")
             self._report = run_warmup(self._registry_fn(), keys,
-                                      models=models)
+                                      models=models, mesh=mesh)
             cat.save()
             errors = [e for e in self._report if e.outcome == "error"]
             self._finished_at = time.monotonic()

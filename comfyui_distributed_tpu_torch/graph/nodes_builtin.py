@@ -659,7 +659,7 @@ def _refuse_mesh(mesh, what: str) -> None:
     if _multi_rank(mesh):
         raise ValidationError(
             f"{what} over a mesh of {mesh.size} ranks is not ported yet "
-            "(ROADMAP.md, item A.6b ii); give the controller a one-rank "
+            "(ROADMAP.md, item A.6b iii); give the controller a one-rank "
             "mesh (update_mesh) for it", field="mesh")
 
 
@@ -698,9 +698,12 @@ class TPUTxt2Img(NodeDef):
     On a mesh of more than one rank (the hidden ``mesh``) every rank runs
     the ``txt2img_dp`` program: participant i samples ``batch_per_device``
     images from ``participant_seed(seed, i)``, and the images come back
-    in participant order, participant 0's bitwise the one-rank run. Such
-    a request is not preemptible and takes no ControlNet (ROADMAP
-    A.6b ii)."""
+    in participant order, participant 0's bitwise the one-rank run; on a
+    mesh with a ``tp`` axis the tp-index-0 ranks alone compute it (the
+    others would compute the same images). Such a request is not
+    preemptible and takes no ControlNet (ROADMAP A.6b iii). A group of
+    such requests runs the mesh's group program (``cluster/frontdoor``:
+    ``txt2img_tp`` on a tp axis)."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING", "negative": "CONDITIONING",
@@ -898,8 +901,11 @@ class TPUFlowTxt2Img(NodeDef):
     attention (``flow_sp``); on one rank it is the ``dp`` run.
     ``mode="offload"`` (or ``dp`` under ``CDT_OFFLOAD=1``) runs through the
     offload executor on the bundle's device alone, as in the JAX package,
-    checking the interrupt between steps. ``mode="tp"`` is refused
-    (ROADMAP A.6b ii). ``cfg != 1`` (SD3's true CFG) needs the
+    checking the interrupt between steps. ``mode="tp"`` is refused, as
+    the JAX node has none: tensor parallelism is the ``flow_tp`` mesh
+    program (``FlowPipeline.generate_tp``) on a mesh with a tp axis. On
+    such a mesh ``dp`` runs over the dp axis, weights whole on the
+    tp-index-0 ranks. ``cfg != 1`` (SD3's true CFG) needs the
     ``negative`` conditioning."""
 
     INPUTS = {
@@ -982,12 +988,13 @@ class TPUFlowTxt2Img(NodeDef):
 
 
 def _flow_mode(mode: str) -> None:
-    """The JAX flow node's ``tp`` is refused, naming the ROADMAP item that
-    ports it, as the video nodes' ``sp`` is."""
+    """``tp`` is refused: the JAX flow node has no such mode either."""
     if mode == "tp":
         raise ValidationError(
-            "mode='tp' (one model's weights over several cards) is not "
-            "ported yet (ROADMAP.md, item A.6b ii)", field="mode")
+            "mode='tp' is no mode of this node (nor of the JAX package's): "
+            "one model's weights over several cards is the flow_tp "
+            "program (FlowPipeline.generate_tp) on a controller mesh with "
+            "a tp axis", field="mode")
     if mode not in ("dp", "sp", "offload"):
         raise ValidationError(f"unknown mode {mode!r}; the port runs "
                               "mode='dp', 'sp' or 'offload'", field="mode")
@@ -1032,7 +1039,7 @@ def _video_mode(mode: str, model, mesh) -> None:
     if mode == "sp":
         raise ValidationError(
             "mode='sp' (one video's frame blocks over several cards) is not "
-            "ported yet (ROADMAP.md, item A.6b ii)", field="mode")
+            "ported yet (ROADMAP.md, item A.6b iii)", field="mode")
     if not _offloaded(mode, model):
         _refuse_mesh(mesh, "video sampling")
 

@@ -281,11 +281,18 @@ class _QKV(nn.Module):
 
 
 class DoubleBlock(nn.Module):
-    """Separate image/text streams with one joint attention (MMDiT)."""
+    """Separate image/text streams with one joint attention (MMDiT).
+
+    A tensor-parallel shard (``parallel/tensor.shard_module``) holds its
+    rank's heads of both q|k|v and its slice of both MLPs; the
+    projections and the MLPs' down halves are summed over ``tp_axis``."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, config: DiTConfig):
         super().__init__()
         dt, H = config.torch_dtype, config.hidden
+        self.heads = config.heads
         for s in ("img", "txt"):
             self.add_module(f"{s}_mod", Modulation(2, H, dt))
             self.add_module(f"{s}_qkv", _QKV(H, config.heads, dt,
@@ -310,25 +317,37 @@ class DoubleBlock(nn.Module):
                                  torch.cat([tv, iv], dim=1))
         else:
             out = joint_ring_attention(q, tk, tv, ik, iv, sp_axis)
-        B, T, C = txt.shape
-        t_out = out[:, :T].reshape(B, T, C)
-        i_out = out[:, T:].reshape(B, -1, C)
-        img = img + i_g1 * self.img_proj(i_out)
-        txt = txt + t_g1 * self.txt_proj(t_out)
+        B, T, _ = txt.shape
+        t_out = out[:, :T].reshape(B, T, -1)
+        i_out = out[:, T:].reshape(B, img.shape[1], -1)
+        row = self._row
+        img = img + i_g1 * row(self.img_proj, i_out)
+        txt = txt + t_g1 * row(self.txt_proj, t_out)
         img_m = _modulate(_layer_norm(img), i_sh2, i_sc2)
         txt_m = _modulate(_layer_norm(txt), t_sh2, t_sc2)
-        img = img + i_g2 * self.img_mlp_down(_gelu(self.img_mlp_up(img_m)))
-        txt = txt + t_g2 * self.txt_mlp_down(_gelu(self.txt_mlp_up(txt_m)))
+        img = img + i_g2 * row(self.img_mlp_down,
+                               _gelu(self.img_mlp_up(img_m)))
+        txt = txt + t_g2 * row(self.txt_mlp_down,
+                               _gelu(self.txt_mlp_up(txt_m)))
         return img, txt
+
+    def _row(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return _row_linear(linear, x, self.tp_axis)
 
 
 class SingleBlock(nn.Module):
     """Merged-stream block: attention and MLP side by side, one output
-    projection over both."""
+    projection over both. A tensor-parallel shard holds its rank's heads
+    and MLP slice, and the columns of ``out`` they feed (not contiguous:
+    its attention columns, then its MLP columns), summed over
+    ``tp_axis``."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, config: DiTConfig):
         super().__init__()
         dt, H = config.torch_dtype, config.hidden
+        self.heads = config.heads
         self.mod = Modulation(1, H, dt)
         self.qkv = _QKV(H, config.heads, dt, config.qk_norm)
         self.mlp_up = nn.Linear(H, 4 * H, dtype=dt)
@@ -348,9 +367,19 @@ class SingleBlock(nn.Module):
             T = txt_len
             out = joint_ring_attention(q, k[:, :T], v[:, :T], k[:, T:],
                                        v[:, T:], sp_axis)
-        out = out.reshape(x.shape)
+        out = out.reshape(*x.shape[:2], -1)
         fused = torch.cat([out, _gelu(self.mlp_up(xn))], dim=-1)
-        return x + g * self.out(fused)
+        return x + g * _row_linear(self.out, fused, self.tp_axis)
+
+
+def _row_linear(linear: nn.Linear, x: torch.Tensor,
+                tp_axis: Optional[str]) -> torch.Tensor:
+    """``linear(x)``, or its row-parallel form on a shard."""
+    if tp_axis is None:
+        return linear(x)
+    from ..parallel.tensor import row_parallel
+
+    return row_parallel(linear, x, tp_axis)
 
 
 class DiT(nn.Module):

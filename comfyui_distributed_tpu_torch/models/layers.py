@@ -87,7 +87,14 @@ class Attention(nn.Module):
     core over its output), as the JAX ``Attention`` does; every other site
     projects q/k/v with its own ``to_q``/``to_k``/``to_v`` and takes
     ``full_attention`` (the packed or the one-head kernel). On the CPU a
-    fusable site runs the fused tier's plain version."""
+    fusable site runs the fused tier's plain version.
+
+    A tensor-parallel shard (``parallel/tensor.shard_module``) holds its
+    rank's heads of q/k/v (``num_heads`` is the rank's count, so the
+    tiers see the shard's geometry) and its input columns of ``to_out``,
+    whose partial product is summed over ``tp_axis``."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype, context_dim: Optional[int] = None):
@@ -113,10 +120,21 @@ class Attention(nn.Module):
             out = full_attention(self.to_q(x).view(B, N, H, D),
                                  self.to_k(ctx).view(B, M, H, D),
                                  self.to_v(ctx).view(B, M, H, D))
-        return self.to_out(out.reshape(B, N, H * D))
+        out = out.reshape(B, N, H * D)
+        if self.tp_axis is not None:
+            from ..parallel.tensor import row_parallel
+
+            return row_parallel(self.to_out, out, self.tp_axis)
+        return self.to_out(out)
 
 
 class GEGLU(nn.Module):
+    """A shard holds its rank's slice of the value and of the gate half of
+    ``proj_in`` and the matching input columns of ``proj_out``, summed
+    over ``tp_axis``."""
+
+    tp_axis: Optional[str] = None
+
     def __init__(self, dim: int, dtype: torch.dtype, mult: int = 4):
         super().__init__()
         self.proj_in = nn.Linear(dim, dim * mult * 2, dtype=dtype)
@@ -124,6 +142,10 @@ class GEGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj_in(x).chunk(2, dim=-1)
+        if self.tp_axis is not None:
+            from ..parallel.tensor import row_parallel
+
+            return row_parallel(self.proj_out, h * F.gelu(gate), self.tp_axis)
         return self.proj_out(h * F.gelu(gate))
 
 

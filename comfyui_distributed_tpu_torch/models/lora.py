@@ -153,6 +153,7 @@ def apply_lora(bundle, lora_sd: Mapping[str, torch.Tensor], *,
     patched = copy.copy(bundle)
     patched.pipeline = copy.copy(bundle.pipeline)
     patched.pipeline._control_clones = {}    # never share pre-LoRA clones
+    patched.pipeline.__dict__.pop("_tp_shards", None)     # nor shards
     patched.pipeline.timings = {}
     if deltas and strength_model:
         patched.pipeline.unet = apply_deltas(bundle.pipeline.unet, deltas)

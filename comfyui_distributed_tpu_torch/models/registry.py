@@ -590,6 +590,9 @@ class ModelBundle:
         clones = getattr(self.pipeline, "_control_clones", None)
         if isinstance(clones, dict):
             clones.clear()
+        # rank 0's tensor-parallel shards: copies, and views that pin the
+        # whole weights' storage
+        self.pipeline.__dict__.pop("_tp_shards", None)
         self.released = True
 
     def _state_entries(self) -> dict[str, nn.Module]:
@@ -835,6 +838,38 @@ class ModelBundle:
         return self
 
 
+@dataclasses.dataclass
+class ShardBundle:
+    """A mesh follower's tensor-parallel shard of a bundle
+    (``ModelRegistry.get_shard``): ``pipeline`` runs the shard of the
+    core (``parallel/tensor.py``) beside the whole VAE; ``shard`` is
+    (tp index, tp size)."""
+
+    preset: ModelPreset
+    pipeline: object
+    shard: tuple
+
+
+def _drawn_shard_pipeline(preset: ModelPreset, device: torch.device,
+                          seed: int, index: int, size: int, axis: str):
+    """The pipeline of rank ``index``'s shard of a random-init bundle,
+    drawn in ``ModelBundle``'s order (text encoder, core, VAE) from the
+    same seed, the core part by part (``tensor.draw_shard``), so that it
+    never lies whole on the device; the text encoder's draws are made
+    and dropped."""
+    from ..parallel.tensor import draw_shard
+
+    gen = seed_generator(seed, device)
+    _random(lambda: TextTransformer(preset.text), device, gen)
+    kind = preset.kind
+    core = draw_shard((lambda: DiT(preset.dit)) if kind == "dit"
+                      else (lambda: UNet2D(preset.unet)),
+                      device, gen, index, size, axis)
+    vae = _random(lambda: AutoencoderKL(preset.vae, encoder=kind == "unet"),
+                  device, gen)
+    return (FlowPipeline if kind == "dit" else Txt2ImgPipeline)(core, vae)
+
+
 def _file_source(path: Path) -> tuple:
     return ("file", str(path), path.stat().st_mtime_ns)
 
@@ -866,6 +901,8 @@ class ModelRegistry:
         root = checkpoint_root or constants.checkpoint_root()
         self.checkpoint_root = Path(root) if root else None
         self._cache: dict[str, ModelBundle] = {}
+        # tensor-parallel shards a mesh follower holds (get_shard)
+        self._shards: dict[tuple, ShardBundle] = {}
         # bundles built by ``get`` so far (a warm pass's outcome, and the
         # proof that a request after it built none)
         self.builds = 0
@@ -987,6 +1024,54 @@ class ModelRegistry:
         if single.is_file():
             return single
         return None
+
+    def drop_tp_shards(self) -> None:
+        """Let go of every tensor-parallel shard, when the mesh they were
+        cut for is dropped: a follower's own (``get_shard``) and those
+        rank 0 keeps on its bundles' pipelines (``shard_pipeline``)."""
+        with self._lock:
+            self._shards.clear()
+            for bundle in self._cache.values():
+                bundle.pipeline.__dict__.pop("_tp_shards", None)
+
+    def get_shard(self, name: str, index: int, size: int,
+                  axis: str = constants.AXIS_TENSOR) -> ShardBundle:
+        """Rank ``index``'s tensor-parallel shard of the bundle ``get``
+        builds (``parallel/tensor.py``), with its VAE: the slice of each
+        of the whole bundle's split parameters. A random-init UNet or DiT
+        bundle not built here yet is drawn shard-only
+        (``_drawn_shard_pipeline``); otherwise the shard is the slices of
+        the whole bundle, which stays (a file-backed bundle is loaded
+        whole first). At most two shards are kept, one a mesh."""
+        from ..parallel.tensor import shard_pipeline
+
+        with self._lock:
+            key = (name, index, size, axis)
+            shard = self._shards.get(key)
+            if shard is not None:
+                return shard
+            preset = PRESETS.get(name)
+            if preset is None:
+                raise ValidationError(
+                    f"unknown model {name!r}; have {self.available()}")
+            t0 = time.perf_counter()
+            whole = self._cache.get(name)
+            if whole is None and (self.checkpoint_for(name) is not None
+                                  or preset.kind not in ("unet", "dit")):
+                whole = self.get(name)
+            if whole is not None:
+                pipeline = shard_pipeline(whole.pipeline, index, size, axis)
+            else:
+                pipeline = _drawn_shard_pipeline(preset, self.device,
+                                                 self.seed, index, size, axis)
+            if len(self._shards) >= 2:
+                self._shards.pop(next(iter(self._shards)))
+            shard = self._shards[key] = ShardBundle(preset, pipeline,
+                                                    (index, size))
+            log(f"built {name} shard {index}/{size} on {self.device} in "
+                f"{self._synced(t0):.2f} s "
+                f"({'sliced' if whole is not None else 'drawn'})")
+            return shard
 
     def get(self, name: str) -> ModelBundle:
         with self._lock:

@@ -28,7 +28,7 @@ Attribute names follow the JAX parameter tree (``patch_embedding``,
 carries a JAX tree. The qk-norm scales and both modulations are fp32
 parameters, cast at use as the JAX module casts its fp32 parameters; the
 head runs in fp32. The sequence-parallel (ring) branch is not ported yet
-(ROADMAP A.6b ii).
+(ROADMAP A.6b iii).
 """
 
 from __future__ import annotations

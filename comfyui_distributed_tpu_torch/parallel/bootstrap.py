@@ -16,10 +16,14 @@ port runs SPMD over processes, one rank per device slot:
   the arguments with their tensors on the host) into the rendezvous
   store. Each follower resolves the bundle from its own ``ModelRegistry``
   (the same preset, seed or files give the same weights, bit for bit),
-  says so, and all ranks run the program, which talks over the mesh's
-  process groups (``parallel/collectives.py``). Each follower then
-  returns its status, its kernel launches and seconds (and, for the
-  programs that return one, its result) through the store.
+  or, for a tensor-parallel program, its shard of it
+  (``ModelRegistry.get_shard``: the slice of rank 0's parameters), says
+  so, and all ranks run the program, which talks over the mesh's
+  process groups (``parallel/collectives.py``). A ``dp`` program on a
+  mesh with a tp axis runs on the tp-index-0 ranks alone
+  (``programs.idle``). Each follower then returns its status, its
+  kernel launches, seconds and card bytes (and, for the programs that
+  return one, its result) through the store.
 - **Each rank's device** is ``cuda:(local_rank % cards)``, or the CPU
   when the caller asks for it, as the tests do.
 - **Backend** (:func:`choose_backend`): NCCL where every rank has a card
@@ -343,6 +347,12 @@ def launch_snapshot() -> dict:
     return dict(fa.LAUNCHES)
 
 
+def cuda_snapshot() -> dict:
+    from ..ops import flash_attention as fa
+
+    return dict(fa.CUDA_LAUNCHES)
+
+
 def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
@@ -352,21 +362,41 @@ def _peak(device: torch.device) -> int:
             if device.type == "cuda" else 0)
 
 
+def _allocated(device: torch.device) -> int:
+    return (torch.cuda.memory_allocated(device)
+            if device.type == "cuda" else 0)
+
+
 def run_local(mesh: DeviceMesh, program: str, bundle, args: tuple,
               kwargs: dict) -> tuple[Any, dict]:
     """Run ``program`` on this rank under ``mesh``: its result and a
-    report (launches, seconds, peak card bytes)."""
-    from .programs import PROGRAMS
+    report (the program, launches by wrapper and by CUDA kernel, seconds,
+    peak and allocated card bytes, the attention geometries this process
+    has chosen tiers for, and the bytes of the rank's shard where the
+    program runs on one)."""
+    from ..ops.attention import selection_summary
+    from .programs import PROGRAMS, shard_coords, shard_of
+    from .tensor import core_of, shard_bytes
 
-    before = launch_snapshot()
+    before, cuda_before = launch_snapshot(), cuda_snapshot()
     t0 = time.perf_counter()
     with use_mesh(mesh):
         result = PROGRAMS[program](bundle, *args, **kwargs)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
-    return result, {"launches": _delta(launch_snapshot(), before),
-                    "seconds": time.perf_counter() - t0,
-                    "peak_bytes": _peak(mesh.device)}
+    report = {"program": program,
+              "launches": _delta(launch_snapshot(), before),
+              "cuda_launches": _delta(cuda_snapshot(), cuda_before),
+              "seconds": time.perf_counter() - t0,
+              "peak_bytes": _peak(mesh.device),
+              "allocated_bytes": _allocated(mesh.device),
+              "attn_kernels": selection_summary(),
+              "shard_bytes": None}
+    coords = shard_coords(program, mesh, kwargs)
+    if coords is not None:
+        report["shard_bytes"] = shard_bytes(core_of(shard_of(bundle,
+                                                             coords)))
+    return result, report
 
 
 def bundle_ref(bundle) -> Any:
@@ -638,7 +668,7 @@ class MeshRuntime:
 
 
 # programs whose followers send their result back with their report
-_RETURNS = {"apply", "param_digest"}
+_RETURNS = {"apply", "param_digest", "shard_digest"}
 
 
 # --- the follower ------------------------------------------------------------
@@ -647,11 +677,12 @@ _RETURNS = {"apply", "param_digest"}
 def resolver(device: torch.device, seed: int = 0,
              checkpoint_root: Optional[str] = None) -> Callable:
     """A follower's bundles: a preset name from its own registry (built at
-    the first call, kept across calls and generations), else the object
-    the call carried."""
+    the first call, kept across calls and generations), or its shard
+    ``coords`` (tp index, tp size) of it, else the object the call
+    carried."""
     registry = None
 
-    def resolve(bundle):
+    def resolve(bundle, coords: Optional[tuple] = None):
         nonlocal registry
         if not isinstance(bundle, str):
             return bundle
@@ -660,6 +691,8 @@ def resolver(device: torch.device, seed: int = 0,
 
             registry = ModelRegistry(device, seed=seed,
                                      checkpoint_root=checkpoint_root)
+        if coords is not None:
+            return registry.get_shard(bundle, *coords)
         return registry.get(bundle)
 
     return resolve
@@ -701,9 +734,24 @@ def follower_loop(channel: Channel, mesh: DeviceMesh, resolve: Callable,
         if call["program"] == "__stop__":
             return STOPPED
         try:
-            bundle = resolve(call["bundle"])
-            put(channel.store, f"resolved/{seq}/{rank}", b"1")
+            from .programs import idle, shard_coords
+
             view = relaid(mesh, call["layout"]) if call["layout"] else mesh
+            if idle(call["program"], view, call["layout"]):
+                put(channel.store, f"resolved/{seq}/{rank}", b"1")
+                channel.send(f"done/{seq}/{rank}", {
+                    "ok": True, "program": call["program"], "idle": True,
+                    "launches": dict.fromkeys(launch_snapshot(), 0),
+                    "cuda_launches": dict.fromkeys(cuda_snapshot(), 0),
+                    "seconds": 0.0,
+                    "peak_bytes": _peak(mesh.device),
+                    "allocated_bytes": _allocated(mesh.device),
+                    "shard_bytes": None})
+                seq += 1
+                continue
+            bundle = resolve(call["bundle"], shard_coords(
+                call["program"], view, call["kwargs"]))
+            put(channel.store, f"resolved/{seq}/{rank}", b"1")
             result, report = run_local(view, call["program"], bundle,
                                        call["args"], call["kwargs"])
             report["ok"] = True

@@ -15,6 +15,13 @@ rank's card. That staging lives here (``_to_wire``/``_from_wire``) and
 nowhere else. Payloads that are only moved (gathers, all-to-all, ring
 hops) travel as their raw bytes, whatever their dtype.
 
+``tp_sum`` is the tensor-parallel sum (GSPMD's all-reduce after a
+row-parallel product, ``parallel/tensor.row_parallel``): one fused
+all-reduce over the axis group, in the payload's own dtype (bf16 on the
+card: over two ranks the sum of two bf16 partials rounds once, as the
+fp32 sum cast back would; fp32 in the CPU tests). Every rank receives
+the same bits, so the replicated activations stay equal on every rank.
+
 The ring's opt-in int8 wire (``CDT_COLLECTIVE_QUANT=int8``: per-tensor
 absmax scale, EQuARX) lives here too: ``wire_quantize`` before a hop,
 ``wire_dequantize`` after it, one rounding of at most ``absmax/254`` an
@@ -122,6 +129,19 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     g.pg.allgather([outs], [w]).wait()
     parts = [_from_wire(o.view(x.dtype).view(x.shape), x) for o in outs]
     return torch.cat(parts, dim=dim)
+
+
+def tp_sum(x: torch.Tensor, axis: str = constants.AXIS_TENSOR
+           ) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axis`` (module docstring); the
+    identity on a one-rank axis. ``x`` is a fresh partial product: the
+    sum may reuse its memory."""
+    g = axis_group(axis)
+    if g.size == 1:
+        return x
+    w = _to_wire(x, g)
+    g.pg.allreduce([w]).wait()
+    return _from_wire(w, x)
 
 
 def gather_batch(x: torch.Tensor,

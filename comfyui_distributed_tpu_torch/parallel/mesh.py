@@ -14,8 +14,9 @@ axis innermost, as ``numpy.reshape`` lays out JAX's device grid.
 Rank count: ``CDT_VIRTUAL_DEVICES=n`` gives n ranks over the devices
 there are (n ranks on one card, or n CPU ranks), the counterpart of
 XLA's virtual host devices; without it one rank per card (one on the
-CPU). A ``tp`` axis over more than one rank is refused: tensor
-parallelism is ROADMAP A.6b ii.
+CPU). A ``tp`` axis is the innermost (``{"dp": n/tp, "tp": tp}``), so
+the ranks of one tensor-parallel group are neighbours; its group sums
+the row-parallel products (``parallel/tensor.py``).
 
 A program running on a rank reads the mesh through :func:`current_mesh`
 (``use_mesh`` sets it), so that the collectives take an axis name, as
@@ -35,10 +36,6 @@ import torch
 from ..utils import constants
 from ..utils.device import resolve_device
 from ..utils.exceptions import ShardingError
-
-TP_REFUSED = ("a tp axis over more than one device (tensor parallelism) is "
-              "not ported yet (ROADMAP.md, item A.6b ii)")
-
 
 def local_device_count(device: Optional[torch.device] = None) -> int:
     """Mesh ranks this host runs: ``CDT_VIRTUAL_DEVICES``, else one per
@@ -210,16 +207,16 @@ def build_mesh(spec: "MeshSpec | Mapping[str, int]",
     n = n_devices if n_devices is not None else local_device_count(dev)
     sizes = spec.resolve(n)
     axes = dict(zip(spec.axis_names, sizes))
-    if axes.get(constants.AXIS_TENSOR, 1) > 1:
-        raise ShardingError(TP_REFUSED)
     return DeviceMesh(axes, 0, rank_device(dev, 0))
 
 
 def mesh_from_config(config: dict, n_devices: Optional[int] = None,
                      device: Optional[torch.device] = None) -> DeviceMesh:
     """The mesh of the ``mesh.shape`` config section; with no shape the
-    placement planner decides (``parallel/serving.plan_placement``: the
-    flat ``dp`` fan-out unless ``CDT_MESH_TP`` is pinned)."""
+    placement planner decides (``parallel/serving.plan_placement``:
+    ``{"dp": n/tp, "tp": tp}``, tp innermost, under a pinned
+    ``CDT_MESH_TP``, else the flat ``dp`` fan-out). An explicit shape
+    always wins, as in the JAX package."""
     shape = (config.get("mesh") or {}).get("shape")
     dev = resolve_device(device)
     n = n_devices if n_devices is not None else local_device_count(dev)
@@ -240,7 +237,8 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 
 def describe_mesh(mesh: DeviceMesh) -> dict[str, Any]:
     """JSON summary for ``system_info``: the JAX package's keys, plus the
-    backend the ranks talk over and each rank's device."""
+    backend the ranks talk over, each rank's device and, on a mesh with a
+    ``tp`` axis over more than one rank, its degree (``tp``)."""
     hosts = list(range(constants.num_hosts() or 1)
                  if constants.coordinator() else [0])
     return {
@@ -252,6 +250,7 @@ def describe_mesh(mesh: DeviceMesh) -> dict[str, Any]:
                     else mesh.backend),
         "devices": [str(rank_device(mesh.device, r))
                     for r in range(mesh.size)],
+        "tp": mesh.axes.get(constants.AXIS_TENSOR, 1),
     }
 
 

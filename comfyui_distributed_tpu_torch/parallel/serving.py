@@ -11,8 +11,8 @@
 - :func:`mesh_for` — the mesh of a plan, tp the innermost axis.
 
 ``CDT_MESH_TIER=0`` collapses everything to the flat ``dp`` fan-out.
-The port plans ``dp_tp`` as JAX does, and ``build_mesh`` refuses a tp
-axis over more than one device until ROADMAP A.6b ii.
+The port plans ``dp_tp`` as JAX does; a group on such a mesh runs the
+tensor-parallel programs (``parallel/programs``).
 """
 
 from __future__ import annotations

@@ -201,11 +201,13 @@ def test_flux_workflow_runs_through_port_executor(tmp_path):
 
 @pytest.mark.parametrize("mode,item", [("sp", "A.6"), ("tp", "A.6")])
 def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
-    """``tp`` is refused as a ``ValidationError`` on ``mode`` that names
-    the ROADMAP item porting it (A.6b ii), as the video nodes' refusals
-    do. ``sp``, refused until the mesh was ported (A.6b i), runs: on the
-    executor's one-rank mesh it is the ``dp`` run, bitwise
-    (``tests/test_torch_mesh_flow.py`` runs it over two ranks)."""
+    """``tp`` is refused as a ``ValidationError`` on ``mode``: the JAX
+    node has no such mode, and the message names the tp mesh program
+    that tensor parallelism is (``flow_tp``, ``generate_tp``; it cited
+    ROADMAP A.6b ii until that item was ported). ``sp``, refused until
+    the mesh was ported (A.6b i), runs: on the executor's one-rank mesh
+    it is the ``dp`` run, bitwise (``tests/test_torch_mesh_flow.py``
+    runs it over two ranks)."""
     from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 
     prompt = _workflow(width=16, height=16, steps=1, mode=mode)
@@ -214,9 +216,10 @@ def test_flux_workflow_rejects_unported_modes(tmp_path, mode, item):
         dp = ex.execute(_workflow(width=16, height=16, steps=1))["5"][0]
         assert torch.equal(ex.execute(prompt)["5"][0], dp)
         return
-    with pytest.raises(ValidationError, match="not ported yet") as err:
+    with pytest.raises(ValidationError, match="no mode of this node") as err:
         _executor(tmp_path).execute(prompt)
-    assert err.value.field == "mode" and f"item {item}" in str(err.value)
+    assert err.value.field == "mode"
+    assert "flow_tp" in str(err.value) and "generate_tp" in str(err.value)
 
 
 def test_flux_workflow_runs_offloaded(tmp_path):

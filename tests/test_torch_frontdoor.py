@@ -433,6 +433,60 @@ def test_a_failed_group_falls_back_to_solo_and_loses_no_member(
                            ex.execute(p)["4"][0])
 
 
+class _RecordingRuntime:
+    """A mesh runtime that records its calls and answers each with the
+    images of ``n_dp`` participants (no follower process)."""
+
+    def __init__(self, n_dp: int):
+        self.n_dp, self.calls = n_dp, []
+
+    def run(self, program, bundle, spec, seed, *args, layout=None, **kw):
+        self.calls.append((program, seed, layout, kw.get("decode")))
+        ds = 1 if kw.get("decode") is False else 0
+        shape = ((self.n_dp, spec.height // 8, spec.width // 8, 4) if ds
+                 else (self.n_dp, spec.height, spec.width, 3))
+        return torch.full(shape, float(seed))
+
+
+@pytest.mark.parametrize("axes,tier,program", [
+    ({"dp": 1, "tp": 2}, "1", "txt2img_tp"),
+    ({"dp": 1, "tp": 2}, "0", "txt2img_dp"),
+    ({"dp": 2}, "1", "txt2img_dp")], ids=str)
+def test_a_group_on_a_mesh_runs_its_mesh_program(tmp_path, monkeypatch,
+                                                 axes, tier, program):
+    """On a controller mesh of more than one rank a group calls the mesh
+    program JAX's dispatch would (``txt2img_tp`` on a tp axis under
+    ``CDT_MESH_TIER``, else ``txt2img_dp``), one call a request at solo
+    shapes, each member's image its request's; a ``cache: "near"``
+    member takes no near tier there."""
+    from comfyui_distributed_tpu_torch.parallel.mesh import build_mesh
+
+    monkeypatch.setenv("CDT_MESH_TIER", tier)
+    mesh = build_mesh(axes, 2, torch.device("cpu"))
+    mesh.runtime = _RecordingRuntime(axes.get("dp", 1))
+    registry = ModelRegistry("cpu", seed=0)
+    members = [_member(batchable(seed=s, wh=HW, steps=1), f"g{s}")
+               for s in (7, 8)]
+    ctx = {"model_registry": registry, "output_dir": str(tmp_path),
+           "mesh": mesh}
+    results = tmb.execute_group(members, {m.prompt_id: "4" for m in members},
+                                ctx)
+    layout = None
+    assert mesh.runtime.calls == [(program, 7, layout, True),
+                                  (program, 8, layout, True)]
+    for s in (7, 8):
+        entry = results[f"g{s}"]
+        assert entry["status"] == "success" and entry["batch_size"] == 2
+        assert torch.equal(entry["outputs"]["4"][0],
+                           torch.full((axes.get("dp", 1), HW, HW, 3),
+                                      float(s)))
+    prep = tmb._Prepared(members[0], "4", None, {}, [], {})
+    prep.mesh, prep.stackable = mesh, True
+    prep.member = _member(batchable(), "near", cache_mode="near")
+    fleet = types.SimpleNamespace(fleet=object())
+    assert tmb._near_key_for(prep, fleet) is None
+
+
 # --- the door, served --------------------------------------------------------
 
 

@@ -95,6 +95,7 @@ def test_importing_every_port_module_loads_no_jax():
             "comfyui_distributed_tpu_torch.parallel.serving",
             "comfyui_distributed_tpu_torch.parallel.programs",
             "comfyui_distributed_tpu_torch.parallel.rng",
+            "comfyui_distributed_tpu_torch.parallel.tensor",
             } <= set(modules)
     code = (
         "import importlib, json, sys\n"

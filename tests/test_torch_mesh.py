@@ -3,8 +3,9 @@ inputs (``MeshSpec``, ``build_mesh``/``describe_mesh``, ``mesh_from_config``,
 ``plan_placement``, ``derive_tp``), the multi-host flags with an injected
 ``initialize_fn`` (the counterpart of JAX's bootstrap tests), the backend
 choice, ``CDT_VIRTUAL_DEVICES``, ``CDT_MESH_DEVICES`` into a launched
-worker's environment and into a controller's mesh, and the refusal of a
-``tp`` axis. No follower process starts here."""
+worker's environment and into a controller's mesh, and a ``tp`` axis
+(built, innermost; ``CDT_MESH_TP`` where no shape is configured). No
+follower process starts here."""
 
 import jax
 import pytest
@@ -103,12 +104,27 @@ def test_plan_placement_as_jax(plan, env, monkeypatch):
                            plan.get("budget_bytes"))
 
 
-def test_a_tp_axis_is_refused_naming_its_item():
-    with pytest.raises(ShardingError, match="A.6b ii"):
-        tmesh.build_mesh({"dp": 2, "tp": 2}, 4, CPU)
-    with pytest.raises(ShardingError, match="A.6b ii"):
-        tserving.mesh_for(tserving.PlacementPlan("dp_tp", 4, 2), device=CPU)
+def test_a_tp_axis_is_refused_naming_its_item(monkeypatch):
+    """Refused until tensor parallelism was ported (ROADMAP A.6b ii): a
+    tp axis now builds, innermost, as JAX's does; with no config shape
+    a pinned ``CDT_MESH_TP`` gives ``{"dp": n/tp, "tp": tp}``, and an
+    explicit shape (the default config's ``{"dp": -1}`` too) wins, as in
+    JAX's ``mesh_from_config``."""
+    m = tmesh.build_mesh({"dp": 2, "tp": 2}, 4, CPU)
+    j = jmesh.build_mesh({"dp": 2, "tp": 2}, jax.devices()[:4])
+    assert m.shape == dict(j.shape) == {"dp": 2, "tp": 2}
+    assert m.coords(1) == {"dp": 0, "tp": 1}
+    assert tmesh.describe_mesh(m)["tp"] == 2
+    assert tserving.mesh_for(tserving.PlacementPlan("dp_tp", 4, 2),
+                             device=CPU).shape == {"dp": 2, "tp": 2}
     assert tmesh.build_mesh({"dp": 4, "tp": 1}, 4, CPU).size == 4
+    monkeypatch.setenv("CDT_MESH_TP", "2")
+    for config, want in (({}, {"dp": 1, "tp": 2}),
+                         ({"mesh": {"shape": {"dp": -1}}}, {"dp": 2}),
+                         ({"mesh": {"shape": {"sp": 2}}}, {"sp": 2})):
+        assert tmesh.mesh_from_config(config, 2, CPU).shape == want
+        assert dict(jmesh.mesh_from_config(config, jax.devices()[:2])
+                    .shape) == want
 
 
 def test_participant_seeds():

@@ -245,8 +245,7 @@ def test_every_rank_holds_the_same_weights(mesh, name):
 
 def test_nodes_without_a_mesh_program_refuse_a_mesh():
     from comfyui_distributed_tpu_torch.graph import nodes_builtin as nb
-    from comfyui_distributed_tpu_torch.utils.exceptions import (ShardingError,
-                                                                ValidationError)
+    from comfyui_distributed_tpu_torch.utils.exceptions import ValidationError
 
     two = build_mesh({"dp": 2}, 2, torch.device("cpu"))
     cases = [
@@ -261,8 +260,9 @@ def test_nodes_without_a_mesh_program_refuse_a_mesh():
                                steps=1, width=16, height=16)),
     ]
     for node, kw in cases:
-        with pytest.raises(ValidationError, match="A.6b ii") as err:
+        with pytest.raises(ValidationError, match="A.6b iii") as err:
             node().execute(mesh=two, **kw)
         assert err.value.field == "mesh"
-    with pytest.raises(ShardingError, match="A.6b ii"):
-        build_mesh({"dp": 1, "tp": 2}, 2, torch.device("cpu"))
+    # a tp axis, refused until ROADMAP A.6b ii, builds now
+    assert build_mesh({"dp": 1, "tp": 2}, 2,
+                      torch.device("cpu")).shape == {"dp": 1, "tp": 2}

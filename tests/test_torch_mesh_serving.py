@@ -1,7 +1,8 @@
 """A controller with a ``{"dp": 2}`` mesh over ``CDT_VIRTUAL_DEVICES=2``
 CPU ranks serving over HTTP: the tiny txt2img graph through
 ``POST /distributed/queue`` comes back as two images (participant 0
-bitwise the one-rank run) on the solo lane; ``update_mesh`` answers 400 on
+bitwise the one-rank run): classified batchable, as on one rank, it
+runs as a group of one, solo; ``update_mesh`` answers 400 on
 a bad shape and 200 on a good one, and the next request runs on the new
 shape; a follower that fails mid-call fails its request naming its rank
 within the group's timeout, and the next request succeeds."""
@@ -100,7 +101,9 @@ def post(port: int, prompt: dict) -> dict:
 def test_dp_mesh_serves_two_images(served, tmp_path):
     master, port, out, registry = served
     answer = post(port, graph(31))
-    assert answer.get("batched") is False           # the solo lane
+    # classified on a mesh as on one rank (the solo lane's "mesh" reason
+    # went with ROADMAP A.6b ii); a group of one runs solo
+    assert answer.get("batched") is True
     entry = wait(port, answer["prompt_id"])
     assert entry["status"] == "success", entry
     pngs = sorted(out.glob("mesh_*.png"))
@@ -110,7 +113,7 @@ def test_dp_mesh_serves_two_images(served, tmp_path):
     call = mesh.runtime.last_call
     assert call["program"] == "txt2img_dp" and call["backend"] == "gloo"
     assert len(call["ranks"]) == 2
-    assert master.frontdoor._classified.get("mesh") == 1
+    assert master.frontdoor._classified == {"batchable": 1}
     # participant 0 is the one-rank run's image, byte for byte
     GraphExecutor({"model_registry": registry,
                    "output_dir": str(tmp_path / "direct")}).execute(

@@ -8,7 +8,10 @@ although the caller still holds it, and the next ``get`` builds it
 again; a pinned bundle is never evicted (the acquire raises); a request
 pins its bundle; the knob turns the planner on and off; an encode on
 a pool thread holds its bundle against a concurrent ``get``, and a pin
-refuses a bundle already evicted."""
+refuses a bundle already evicted. Tensor parallelism:
+``tp_shard_bytes`` equal to JAX's for the four tiny families at tp 1, 2
+and 4; rank 0's planned and held shard bytes; the degree from the
+mesh under ``CDT_MESH_TIER``."""
 
 import threading
 
@@ -178,8 +181,9 @@ def test_the_budget_knob(monkeypatch):
     assert tres.hbm_budget_bytes() == jres.hbm_budget_bytes() == 1 << 29
     r = ModelRegistry("cpu", seed=0)
     assert r.residency.planner.budget == 1 << 29
-    assert r.residency.measure(r.get("sd3-tiny")) == tres.tp_shard_bytes(
-        r.get("sd3-tiny").device_modules(), torch.device("cpu"), tp=4)
+    # no mesh: whole-bundle planning (tp 1)
+    assert r.residency.measure(r.get("sd3-tiny")) == tres.bundle_bytes(
+        r.get("sd3-tiny"))
     monkeypatch.setenv("CDT_HBM_BUDGET_GB", "0")
     assert tres.hbm_budget_bytes() == 0
     assert ModelRegistry("cpu", seed=0).residency is None
@@ -276,3 +280,96 @@ def test_a_pin_refuses_an_evicted_bundle_even_after_its_rebuild(monkeypatch):
     plain = ModelRegistry("cpu", seed=0)
     with tres.registry_bundle(plain, "flux-tiny") as b:
         assert b is plain.get("flux-tiny")
+
+
+FAMILIES = ("tiny", "flux-tiny", "sd3-tiny", "wan-tiny")
+
+
+@pytest.fixture(scope="module")
+def jax_cores():
+    from comfyui_distributed_tpu.models.registry import ModelRegistry as JReg
+
+    return {n: JReg().get(n)._core_params() for n in FAMILIES}
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_tp_shard_bytes_as_jax(jax_cores, name, tp):
+    """JAX's per-chip arithmetic, leaf for leaf (the port's core in JAX's
+    fp32); the planned rank-0 extra is the split weights' 1/tp."""
+    bundle = ModelRegistry("cpu", seed=0).get(name)
+    core = bundle.core.float()
+    rules = tres._tp_rules_for(bundle)
+    from comfyui_distributed_tpu.parallel import tensor as jt
+
+    jrules = {"tiny": jt.UNET_TP_RULES,
+              "wan-tiny": jt.WAN_TP_RULES}.get(name, jt.DIT_TP_RULES)
+    mine = tres.tp_shard_bytes(core, rules, tp)
+    assert mine == jres.tp_shard_bytes(jax_cores[name], jrules, tp)
+    whole = tres.tp_shard_bytes(core, rules, 1)
+    if tp > 1:
+        assert mine < whole
+        assert tres.shard_extra_bytes(bundle, tp) * (tp - 1) == whole - mine
+
+
+def test_rank0_counts_its_held_shard_and_the_mesh_degree(monkeypatch):
+    """Rank 0 holds its whole bundle and its shard's slices that are not
+    views of it (GEGLU's two halves: copies; to_q/to_out: views); the
+    planner reads the degree from the mesh, none under CDT_MESH_TIER=0."""
+    from comfyui_distributed_tpu_torch.parallel import tensor as ttensor
+
+    monkeypatch.setenv("CDT_HBM_BUDGET_GB", "4")
+    r = ModelRegistry("cpu", seed=0)
+    bundle = r.get("tiny")
+    whole = tres.bundle_bytes(bundle)
+    shard = ttensor.shard_pipeline(bundle.pipeline, 0, 2)
+    plan = ttensor.shard_plan(bundle.core, 2)
+    copies = sum(p.numel() * p.element_size()
+                 for n, p in ttensor.core_of(shard).named_parameters()
+                 if n in plan and ".ff.proj_in." in n)
+    assert copies > 0
+    assert tres.bundle_bytes(bundle, tp_shards=2) == whole + copies
+    res = r.residency
+    assert res.measure(bundle) == whole
+    res.tp_shards_fn = lambda: 2
+    assert res.measure(bundle) == whole + copies
+    monkeypatch.setenv("CDT_MESH_TIER", "0")
+    assert res.measure(bundle) == whole
+
+
+def test_rank0_drops_its_shards_with_the_mesh_and_on_eviction(tmp_path):
+    """Rank 0's shards go when the mesh they were cut for is dropped
+    (``update_mesh`` away from tp runs the controller's ``reset_mesh``)
+    and when the planner evicts their bundle: the pipeline keeps none,
+    and at tp 1 the planner counts the whole bundle alone again."""
+    import asyncio
+    import json
+
+    from comfyui_distributed_tpu_torch.api.app import App, Request
+    from comfyui_distributed_tpu_torch.cluster.controller import Controller
+    from comfyui_distributed_tpu_torch.parallel import tensor as ttensor
+
+    s = sizes()
+    r = ModelRegistry("cpu", seed=0,
+                      hbm_budget_bytes=s["flux-tiny"] + s["sd3-tiny"] - 1)
+    flux = r.get("flux-tiny")
+    whole = tres.bundle_bytes(flux)
+    ttensor.shard_pipeline(flux.pipeline, 0, 2)
+    assert flux.pipeline._tp_shards
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps({"mesh": {"shape": {"dp": 1, "tp": 2}}}))
+    app = App(Controller(path, device="cpu", model_registry=r))
+    body = json.dumps({"shape": {"dp": 1}}).encode()
+    resp = asyncio.run(app.dispatch(Request(
+        "POST", "/distributed/config/update_mesh",
+        {"content-type": "application/json"}, body, query={})))
+    assert resp.status == 200
+    assert "_tp_shards" not in flux.pipeline.__dict__
+    assert tres.shard_extra_bytes(flux, 1) == 0
+    r.residency.tp_shards_fn = lambda: 1
+    assert r.residency.measure(flux) == tres.bundle_bytes(flux, 2) - (
+        tres.shard_extra_bytes(flux, 2)) == whole
+    # the eviction: the next bundle over the budget releases the sharded one
+    ttensor.shard_pipeline(flux.pipeline, 0, 2)
+    r.get("sd3-tiny")
+    assert flux.released and "_tp_shards" not in flux.pipeline.__dict__

@@ -279,3 +279,46 @@ def test_the_registry_is_built_once_under_concurrent_first_use(
         t.join()
     assert len(made) == 1 and all(r is made[0] for r in got)
     assert c.warmup.status()["bundle_builds"] == 0
+
+
+MESH_KEYS = [tcat.ProgramKey("flow_dp", "flux-tiny", 32, 32, 2),
+             tcat.ProgramKey("flow_dp", "flux", 1024, 1024, 28),
+             tcat.ProgramKey("flow_dp", "flux-tiny", 48, 48, 2),
+             tcat.ProgramKey("txt2img", "tiny", 32, 32, 2)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("env", [{}, {"CDT_MESH_TP": "2"},
+                                 {"CDT_MESH_TP": "2", "CDT_MESH_TIER": "0"}],
+                         ids=str)
+def test_mesh_tier_keys_and_matches_as_jax(monkeypatch, n, env):
+    """The mesh tier a catalog implies (every flow_dp key's sp and, with
+    a tp degree, dp×tp variants) and which keys a mesh matches, as
+    JAX's."""
+    import jax
+
+    from comfyui_distributed_tpu.cluster import shape_catalog as jcat
+    from comfyui_distributed_tpu.diffusion import warmup as jwarm
+    from comfyui_distributed_tpu.parallel import build_mesh as jbuild
+    from comfyui_distributed_tpu_torch.parallel.mesh import build_mesh
+
+    import torch
+
+    for k in ("CDT_MESH_TP", "CDT_MESH_TIER"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    mine = build_mesh({"dp": n}, n, torch.device("cpu"))
+    ref = jbuild({"dp": n}, jax.devices()[:n])
+    jkeys = [jcat.ProgramKey.from_dict(k.to_dict()) for k in MESH_KEYS]
+    tier = twarm.mesh_tier_keys(MESH_KEYS, mine)
+    assert [k.to_dict() for k in tier] == [
+        k.to_dict() for k in jwarm.mesh_tier_keys(jkeys, ref)]
+    for key in MESH_KEYS + tier + [
+            tcat.ProgramKey("flow_tp", "flux", 64, 64, 2,
+                            mesh=(("dp", 2), ("tp", 4))),
+            tcat.ProgramKey("txt2img", "tiny", 32, 32, 2,
+                            mesh=(("dp", n),))]:
+        jkey = jcat.ProgramKey.from_dict(key.to_dict())
+        assert twarm._mesh_matches(key, mine) == jwarm._mesh_matches(
+            jkey, ref), key
