@@ -918,12 +918,58 @@ WAN_OFFLOAD_SHAPES = [(s, 2 * WAN_STEPS * n)
                       for s, n in WAN_OFFLOAD_FORWARD_SHAPES]   # 1600 + 1600
 WAN_OFFLOAD = k3_counts(2 * WAN_SERVED_STEPS, WAN_OFFLOAD_FORWARD_SHAPES,
                         text_prompts=1)
+# phases 28a and 31a: WAN over two ranks on the card at 5 frames of 832×480
+# (2 latent frames, 2·30·52 = 3120 tokens; the workflow's 33 frames give 9
+# latent frames, which do not divide over 2 ranks), 2 of the 20 steps, CFG
+# 5 (batch 2). A rank's launches a forward (ops/attention.select_kernel: H·D
+# 5120 and 2560 are past the packed layout's 2048, so K3): dp 40 self-
+# attentions on the streamed core and 40 over the 77 hash tokens on the
+# short-key kernel; sp the 40 over 77 tokens at the rank's 1560 (its self-
+# attention is the ring, plain fp32); tp the dp ones at 20 of the 40 heads;
+# 31a's cut pair (2 blocks an expert) 2 self-attentions and 2 over UMT5's
+# 512 tokens, both on the streamed core
+WAN_MESH_FRAMES, WAN_MESH_STEPS = 5, 2
+WAN_MESH_TOKENS = (((WAN_MESH_FRAMES - 1) // 4 + 1) * (WAN_HW[0] // 16)
+                   * (WAN_HW[1] // 16))                               # 3120
+WAN_MESH_FORWARD = {
+    "wan_mesh_dp": [((2, WAN_MESH_TOKENS, WAN_MESH_TOKENS, WAN_HEADS, 128),
+                     WAN_LAYERS),
+                    ((2, WAN_MESH_TOKENS, 77, WAN_HEADS, 128), WAN_LAYERS)],
+    "wan_mesh_sp": [((2, WAN_MESH_TOKENS // 2, 77, WAN_HEADS, 128),
+                     WAN_LAYERS)],
+    "wan_mesh_tp": [((2, WAN_MESH_TOKENS, WAN_MESH_TOKENS, WAN_HEADS // 2,
+                      128), WAN_LAYERS),
+                    ((2, WAN_MESH_TOKENS, 77, WAN_HEADS // 2, 128),
+                     WAN_LAYERS)],
+    "wan22_files_tp": [((2, WAN_MESH_TOKENS, WAN_MESH_TOKENS, WAN_HEADS // 2,
+                         128), WAN_FILE_BLOCKS),
+                       ((2, WAN_MESH_TOKENS, WAN_UMT5_TOKENS, WAN_HEADS // 2,
+                         128), WAN_FILE_BLOCKS)],
+}
+
+
+def mesh_counts(path: str, steps: int) -> tuple:
+    """(launches per wrapper, per CUDA kernel) of one rank's program over
+    ``steps`` forwards of ``WAN_MESH_FORWARD[path]``."""
+    cores = [(shape, steps * n) for shape, n in WAN_MESH_FORWARD[path]]
+    return ({"fused_qkv_attention": 0, "flash_attention_packed": 0,
+             "flash_attention_bh": sum(n for _, n in cores)},
+            cuda_counts([], cores))
+
+
 # the kernel phase's WAN rows: (path, shape, launches per request)
 WAN_K3_ROWS = ([("wan", s, n) for s, n in WAN_SHAPES]
                + [("wan_offload", s, n) for s, n in WAN_OFFLOAD_SHAPES]
                + [("wan_file", WAN_UMT5_SHAPE, WAN_STEPS * WAN_LAYERS),
                   ("video_mmdit", MMDIT_FORWARD_SHAPES[0][0],
                    MMDIT_STEPS * sum(MMDIT_CUT))])
+# a mesh rank's per-rank geometries (phases 28a, 31a), launches a rank per
+# request of the workflow's 20 steps (the kernels line counts what 28a and
+# 31a launched: TP_MEASURED)
+WAN_MESH_ROWS = [(path, shape, WAN_STEPS * n)
+                 for path, shapes in WAN_MESH_FORWARD.items()
+                 for shape, n in shapes if path != "wan22_files_tp"
+                 or shape[2] == WAN_UMT5_TOKENS]
 
 # SD3 (phases 33 to 37): the SD3 graph at 1024², 28 euler steps, true CFG
 # 4.5 (cond and uncond in one batch of 2), shift 3: 77 hash tokens + 4096
@@ -1299,9 +1345,9 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
     # WAN's shapes at D 128 (H·D 5120: one-head layout only): self-attention
     # at 14 040 tokens, cross-attention over 77 hash tokens (the short-key
     # kernel) and over UMT5's 512 (the streamed core, Nq != Nk), and
-    # video-mmdit's joint attention; the plain version a batch row and 8
-    # heads at a time
-    for _, shape, _ in WAN_K3_ROWS:
+    # video-mmdit's joint attention; a mesh rank's WAN geometries (28a,
+    # 31a); the plain version a batch row and 8 heads at a time
+    for _, shape, _ in WAN_K3_ROWS + WAN_MESH_ROWS:
         q, k, v = core_inputs(*shape)
         ref = plain_by_row(fa, q, k, v)
         fa.flash_attention(*core_inputs(*shape), layout="bh")
@@ -1409,7 +1455,7 @@ def kernel_phase(torch, fa) -> tuple[list[dict], dict]:
                      lambda: plain_by_row(fa, q, k, v),
                      lambda: sdpa(q, k, v), path)
             del q, k, v
-    for path, shape, n in WAN_K3_ROWS:
+    for path, shape, n in WAN_K3_ROWS + WAN_MESH_ROWS:
         q, k, v = core_inputs(*shape)
         time_row("flash_attention_bh", shape, n, core_work(*shape),
                  lambda: fa.flash_attention(q, k, v, layout="bh"),
@@ -1456,7 +1502,7 @@ def kernel_table(rows: list[dict], errs: dict,
     rows = [{**r, "launches": measured[(r["path"], r["shape"])]}
             if (r["path"], r["shape"]) in measured else r for r in rows]
     tp_per = (f"one request of {TP_STEPS} steps on rank 1, launches as "
-              "phases 14h and 21b counted them")
+              "phases 14h, 21b, 28a and 31a counted them")
     out = []
 
     def per_request(mine):
@@ -1480,7 +1526,7 @@ def kernel_table(rows: list[dict], errs: dict,
     others = ("upscale", "sd15", "sd15_file", "cn_upscale", "video",
               "flux_file", "wan", "wan_offload", "wan_file", "video_mmdit",
               "sd3", "sd3_file", "sd35", "sd35_file", "mesh_ulysses",
-              "mesh_tp", "flux_tp")
+              "mesh_tp", "flux_tp", *WAN_MESH_FORWARD)
     for name in KERNEL_NAMES:
         every = [r for r in rows if r["kernel"] == name]
         mine = [r for r in every if r["path"] not in others]
@@ -1536,14 +1582,19 @@ def kernel_table(rows: list[dict], errs: dict,
                 ("per_sdxl_tp_rank_request",
                  at(name, TP_MEASURED.get("mesh_tp", []))),
                 ("per_flux_tp_rank_request",
-                 at(name, TP_MEASURED.get("flux_tp", []))))
+                 at(name, TP_MEASURED.get("flux_tp", []))),
+                # a rank's part of one WAN request over the mesh (28a, 31a)
+                *((f"per_{path}_rank_request",
+                   at(name, TP_MEASURED.get(path, [])))
+                  for path in WAN_MESH_FORWARD))
                if value is not None},
             "tp_per": tp_per,
             "tp_rows": [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")}
-                for r in every if r["path"] in ("mesh_tp", "flux_tp")],
+                for r in every if r["path"] in ("mesh_tp", "flux_tp",
+                                                *WAN_MESH_FORWARD)],
             **({{"flash_attention_bh": "k3_rows",
                  "flash_attention_packed": "k2_rows"}[name]: [
                 {key: r[key] for key in ("path", "shape", "launches", "ms",
@@ -5878,13 +5929,20 @@ def as_published_wan(torch, module) -> None:
             p.copy_(p.to(torch.bfloat16))
 
 
-def wan_file_phases(torch, fa) -> dict:
+class WanFiles(NamedTuple):
+    root: Path              # the converted bundles, phase 31a's checkpoint root
+    context: object         # UMT5's [1, 512, 4096] context of the t2v prompt
+    digests: dict           # the sources' parameter digests
+
+
+def wan_file_phases(torch, fa, tmp: Path) -> tuple[dict, WanFiles]:
     """Phase 31: synthetic WAN files at full width, cut in depth (a WAN 14B
     t2v file under ``model.diffusion_model.``, a ``.high``/``.low`` pair,
-    UMT5-XXL in the HF layout, BF16, and a ``tokenizer.json``) through
-    ``convert`` (the CLI's ``main``), ``state.pt`` and a restore: every
-    parameter's digest the source's; one request from the converted
-    ``wan`` bundle with UMT5's 512-token context."""
+    UMT5-XXL in the HF layout, BF16, and a ``tokenizer.json``) in ``tmp``
+    through ``convert`` (the CLI's ``main``), ``state.pt`` and a restore:
+    every parameter's digest the source's; one request from the
+    converted ``wan`` bundle with UMT5's 512-token context, which phase
+    31a takes."""
     import contextlib
     import dataclasses
     import io
@@ -5903,7 +5961,6 @@ def wan_file_phases(torch, fa) -> dict:
     from comfyui_distributed_tpu_torch.utils.safetensors import save_file
 
     dev = torch.device(DEVICE)
-    tmp = Path(tempfile.mkdtemp(prefix="cdt_wan_"))
     launches = {}
     try:
         cfg = dataclasses.replace(WanConfig.wan_14b(),
@@ -5992,6 +6049,10 @@ def wan_file_phases(torch, fa) -> dict:
             f"{WAN_FILE_STEPS} steps; launches {WAN_FILE_COUNTS[0]}, CUDA "
             f"kernels {WAN_FILE_COUNTS[1]} (the cross-attention over "
             f"{WAN_UMT5_TOKENS} keys on the streamed core)")
+        context = executor.execute({k: prompt[k] for k in ("1", "2")})[
+            "2"][0]["context"].cpu()
+        require(tuple(context.shape) == (1, WAN_UMT5_TOKENS, 4096),
+                f"umt5 context {tuple(context.shape)}")
         registry._cache.clear()
         del bundle
         gc.collect()
@@ -6017,11 +6078,10 @@ def wan_file_phases(torch, fa) -> dict:
                               digests["low"])
         say("  the offload build's experts: every digest their source's")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
         os.environ.pop("CDT_T5_TOKENIZER_DIR", None)
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, WanFiles(root, context, digests)
 
 
 def require_digests_equal(what: str, got: dict, want: dict) -> None:
@@ -6069,6 +6129,381 @@ def video_mmdit_phase(torch, fa) -> dict:
     return dict(fa.LAUNCHES)
 
 
+WAN_MESH_DIR = OUTPUT_DIR / "wan_mesh"
+
+
+def wan_mesh_graph(mode: str, frames: int = WAN_MESH_FRAMES) -> dict:
+    """The t2v workflow's model, text, seed and sampler nodes at ``frames``
+    frames, ``WAN_MESH_STEPS`` steps and ``mode``."""
+    prompt = wan_workflow(WAN_T2V, frames=frames, steps=WAN_MESH_STEPS,
+                          mode=mode)
+    return {k: prompt[k] for k in ("1", "2", "3", "4")}
+
+
+def mesh_leg_gates(what: str, call: dict, program: str, want: tuple,
+                   per_head: int) -> list[dict]:
+    """Each rank ran ``program`` with launches ``want`` (per wrapper, per
+    CUDA kernel) and chose tiers at ``per_head`` heads; returns the
+    ranks' launches."""
+    ranks = call["ranks"]
+    require([r["program"] for r in ranks] == [program] * MESH_RANKS
+            and not any(r.get("idle") for r in ranks),
+            f"{what}: the ranks ran {[r['program'] for r in ranks]}")
+    for r, rep in enumerate(ranks):
+        require(rep["launches"] == want[0] and rep["cuda_launches"] == want[1],
+                f"{what}: rank {r} launches {rep['launches']} "
+                f"{rep['cuda_launches']} != {want[0]} {want[1]}")
+        tiers = set(rep["attn_kernels"].split(","))
+        require(any(t.startswith(f"h{per_head}.d128.") and t.endswith("=bh")
+                    for t in tiers), f"{what}: rank {r}'s tiers {tiers}")
+    return [dict(r["launches"]) for r in ranks]
+
+
+def wan_mesh_phase(torch, fa, t2v: WanRun) -> dict:
+    """Phase 28a: phase 26's ``wan`` bundle (WAN 14B) as rank 0's of a
+    ``{"dp": 2}`` mesh of two ranks on the card (gloo, host-staged); the
+    follower builds ``wan`` by name once, its parameter digest rank 0's.
+    Every leg runs ``WAN_MESH_FRAMES`` frames of 832×480, 2 steps, CFG 5,
+    shift 3, held against the one-rank run of seed 99. ``dp``:
+    ``TPUTxt2Video`` through the graph executor, two videos, video 0
+    bitwise the one-rank run, video 1 bitwise ``sample_and_decode`` at
+    ``participant_seed(99, 1)``. ``sp``: the node's ``sp`` (the ranks
+    re-laid as ``{"sp": 2}``), > 30 dB, no streamed K3 (the self-
+    attention is the ring), 33 frames refused with JAX's message.
+    ``tp``: the ``video_tp`` program on the ranks re-laid as ``{"tp": 2}``
+    (dp 1) after the follower drops its whole WAN and draws its shard:
+    > 30 dB, the shards' digests the slices of rank 0's parameters, each
+    rank's card bytes within 10% of its plan, the peaks under 80 GB
+    together, the card's memory back after the follower stops and rank 0
+    drops its shard. Each rank's launches as predicted (``mesh_counts``)."""
+    from comfyui_distributed_tpu_torch.cluster.residency import (
+        _param_bytes, _tp_rules_for, shard_extra_bytes, tp_shard_bytes)
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_video import VideoSpec
+    from comfyui_distributed_tpu_torch.graph import GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.nodes_builtin import (
+        TPUTxt2Video, _video_pooled_default)
+    from comfyui_distributed_tpu_torch.parallel.bootstrap import MeshRuntime
+    from comfyui_distributed_tpu_torch.parallel.mesh import (build_mesh,
+                                                             describe_mesh)
+    from comfyui_distributed_tpu_torch.parallel.programs import (
+        param_digest, param_digest_of)
+    from comfyui_distributed_tpu_torch.parallel.rng import (participant_seed,
+                                                            seed_generator)
+    from comfyui_distributed_tpu_torch.parallel.tensor import shard_params
+
+    registry = t2v.registry
+    bundle = registry.get("wan")
+    pipe = bundle.pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    direct = GraphExecutor({"model_registry": registry,
+                            "output_dir": str(WAN_MESH_DIR / "direct")})
+    t0 = time.perf_counter()
+    out = direct.execute(wan_mesh_graph("dp"))
+    torch.cuda.synchronize()
+    # the videos on the host: a small tensor left on the card can pin a
+    # cached segment that the memory gate would count as not returned
+    ref = out["4"][0].cpu()
+    cond = out["2"][0]
+    del out
+    pooled = _video_pooled_default(bundle, cond)
+    spec = VideoSpec(frames=WAN_MESH_FRAMES, height=WAN_HW[0],
+                     width=WAN_HW[1], steps=WAN_MESH_STEPS, shift=3.0,
+                     guidance_scale=5.0)
+    require(pipe.latent_frames(spec) == 2 and tuple(ref.shape)
+            == (WAN_MESH_FRAMES, *WAN_HW, 3), f"reference {tuple(ref.shape)}")
+    say(f"  one-rank run (seed {WAN_SEED}, {WAN_MESH_FRAMES} frames, "
+        f"{WAN_MESH_STEPS} steps; {WAN_MESH_TOKENS} tokens): "
+        f"{time.perf_counter() - t0:.3f} s (sampling "
+        f"{pipe.timings['sample_s']:.3f} s, decode "
+        f"{pipe.timings['decode_s']:.3f} s)")
+    s1 = participant_seed(WAN_SEED, 1)
+    ref1 = pipe.sample_and_decode(
+        pipe.initial_noise(spec, seed_generator(s1, pipe.device)), spec,
+        cond["context"], pooled, None, *pipe._noise_sources(s1))[0].cpu()
+    with virtual_ranks(MESH_RANKS):
+        mesh = build_mesh({"dp": MESH_RANKS}, device=torch.device(DEVICE))
+    runtime = mesh.runtime = MeshRuntime(mesh, registry.seed,
+                                         registry.checkpoint_root)
+    totals = {}
+    try:
+        described = describe_mesh(mesh)
+        say(f"  mesh: {described}")
+        require(described["backend"] == "gloo",
+                f"backend {described['backend']}")
+        executor = GraphExecutor({"model_registry": registry, "mesh": mesh,
+                                  "output_dir": str(WAN_MESH_DIR / "mesh")})
+        # (a) dp: two videos, one a rank
+        want = mesh_counts("wan_mesh_dp", WAN_MESH_STEPS)
+        before = dict(fa.LAUNCHES)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        videos = executor.execute(wan_mesh_graph("dp"))["4"][0].cpu()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rank0 = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        call = runtime.last_call
+        ranks = mesh_leg_gates("mesh dp", call, "video_dp", want, WAN_HEADS)
+        require(tuple(videos.shape) == (2 * WAN_MESH_FRAMES, *WAN_HW, 3)
+                and bool(torch.isfinite(videos).all()),
+                f"mesh dp videos {tuple(videos.shape)}")
+        require(torch.equal(videos[:WAN_MESH_FRAMES], ref),
+                "mesh dp: video 0 is not bitwise the one-rank run")
+        require(torch.equal(videos[WAN_MESH_FRAMES:], ref1),
+                "mesh dp: video 1 is not bitwise participant 1's "
+                "sample_and_decode")
+        require(rank0 == {**want[0], "fused_qkv_attention": 4},
+                f"mesh dp: rank 0's launches {rank0} (the program's and "
+                "the prompt's 4 K1)")
+        say(f"  dp: {secs:.3f} s (the first call starts rank 1, which "
+            f"builds its wan); ranks' program seconds "
+            f"{[round(r['seconds'], 3) for r in call['ranks']]}, peaks "
+            f"{[round(r['peak_bytes'] / 2**30, 3) for r in call['ranks']]}"
+            f" GiB; video 0 bitwise the one-rank run, video 1 bitwise "
+            f"participant 1's; each rank {want[0]} ({want[1]})")
+        totals["wan_mesh_dp"] = ranks
+        t0 = time.perf_counter()
+        digests = runtime.run("param_digest", bundle)
+        require(len(set(digests)) == 1 and digests[0] == param_digest(bundle),
+                f"parameter digests differ: {digests}")
+        say(f"  parameter digests of both ranks equal ({digests[0][:16]}…, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        # (b) sp: one video, its 2 latent frames one a rank
+        want = mesh_counts("wan_mesh_sp", WAN_MESH_STEPS)
+        hop = 2 * 2 * (WAN_MESH_TOKENS // MESH_RANKS) * WAN_HEADS * 128 * 2
+        say(f"  ring traffic: {MESH_RANKS - 1} hop of {hop / 1e6:.1f} MB of "
+            f"K/V a block, {WAN_LAYERS * hop / 1e9:.2f} GB a forward through "
+            "host memory on each rank")
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        video = executor.execute(wan_mesh_graph("sp"))["4"][0].cpu()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        call = runtime.last_call
+        ranks = mesh_leg_gates("mesh sp", call, "video_sp", want, WAN_HEADS)
+        db, diff = psnr(video.float().cpu(), ref.float().cpu())
+        require(tuple(video.shape) == tuple(ref.shape)
+                and bool(torch.isfinite(video).all()),
+                f"sp video {tuple(video.shape)}")
+        require(db > MESH_PSNR_DB, f"sp PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
+        peaks = [r["peak_bytes"] for r in call["ranks"]]
+        require(sum(peaks) < MESH_CARD,
+                f"sp: both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+        say(f"  sp: {secs:.3f} s; rank 0 sampling "
+            f"{pipe.timings['sample_s']:.3f} s "
+            f"({pipe.timings['sample_s'] / WAN_MESH_STEPS:.3f} s/step), "
+            f"decode {pipe.timings['decode_s']:.3f} s (rank 0, the whole "
+            f"clip); ranks' program seconds "
+            f"{[round(r['seconds'], 3) for r in call['ranks']]}, peaks "
+            f"{[round(p / 2**30, 3) for p in peaks]} GiB; PSNR {db:.2f} dB "
+            f"against the one-rank run, max |Δ| {diff:.5f}; each rank "
+            f"{want[0]} ({want[1]})")
+        totals["wan_mesh_sp"] = ranks
+        try:
+            TPUTxt2Video().execute(
+                model=bundle, positive=cond, seed=WAN_SEED, frames=WAN_FRAMES,
+                steps=WAN_MESH_STEPS, width=WAN_HW[1], height=WAN_HW[0],
+                cfg=5.0, mode="sp", mesh=mesh, model_registry=registry)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and refused.startswith(
+            "latent frame count 9 must divide over 2 shards"),
+            f"sp at {WAN_FRAMES} frames: {refused}")
+        say(f"  sp at {WAN_FRAMES} frames refused: {refused}")
+        # (c) tp: the follower drops its whole wan and draws its shard
+        want = mesh_counts("wan_mesh_tp", WAN_MESH_STEPS)
+        sums = 3 * WAN_LAYERS * 2 * WAN_MESH_TOKENS * 5120 * 2
+        say(f"  tp sums: {3 * WAN_LAYERS} a forward ({sums / 1e9:.2f} GB "
+            f"bf16) and {4 * WAN_LAYERS} fp32 qk-norm statistics, through "
+            "host memory on each rank")
+        before0 = torch.cuda.memory_allocated()
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        out = runtime.run("video_tp", bundle, spec, WAN_SEED, cond["context"],
+                          pooled, layout="tp")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        call = runtime.last_call
+        ranks = mesh_leg_gates("mesh tp", call, "video_tp", want,
+                               WAN_HEADS // 2)
+        video = out[0].cpu()
+        del out
+        db, diff = psnr(video.float().cpu(), ref.float().cpu())
+        require(tuple(video.shape) == tuple(ref.shape)
+                and bool(torch.isfinite(video).all()),
+                f"tp video {tuple(video.shape)}")
+        require(db > MESH_PSNR_DB, f"tp PSNR {db:.2f} dB <= {MESH_PSNR_DB}")
+        peaks = [r["peak_bytes"] for r in call["ranks"]]
+        require(sum(peaks) < MESH_CARD,
+                f"tp: both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+        timings = pipe._tp_shards[(0, MESH_RANKS, "tp")].timings
+        say(f"  tp: {secs:.3f} s (rank 1 drops its wan and draws its "
+            f"shard); rank 0 sampling {timings['sample_s']:.3f} s "
+            f"({timings['sample_s'] / WAN_MESH_STEPS:.3f} s/step), decode "
+            f"{timings['decode_s']:.3f} s; ranks' program seconds "
+            f"{[round(r['seconds'], 3) for r in call['ranks']]}, peaks "
+            f"{[round(p / 2**30, 3) for p in peaks]} GiB; PSNR {db:.2f} dB, "
+            f"max |Δ| {diff:.5f}; each rank {want[0]} ({want[1]}); tiers "
+            f"{call['ranks'][1]['attn_kernels']}")
+        totals["wan_mesh_tp"] = ranks
+        # each rank's card bytes against its plan
+        core = bundle.core
+        plan1 = (tp_shard_bytes(core, _tp_rules_for(bundle), MESH_RANKS)
+                 + _param_bytes([pipe.vae], bundle.device))
+        got1 = call["ranks"][1]["allocated_bytes"]
+        extra = shard_extra_bytes(bundle, MESH_RANKS)
+        got0 = torch.cuda.memory_allocated() - before0
+        say(f"  card bytes: rank 1 {got1 / 2**30:.3f} GiB against its shard "
+            f"(tp_shard_bytes) and the 3D VAE {plan1 / 2**30:.3f} GiB "
+            f"(its whole wan dropped before the draw); rank 0 "
+            f"{got0 / 2**30:.3f} GiB more than before the tp call against "
+            f"its shard's slices that are not views of its bundle "
+            f"{extra / 2**30:.3f} GiB, besides its whole bundle "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
+            f"shard bytes {[r['shard_bytes'] for r in call['ranks']]}")
+        require(abs(got1 - plan1) <= TP_BYTES_SLACK * plan1,
+                f"rank 1 holds {got1} bytes, planned {plan1}")
+        require(abs(got0 - extra) <= TP_BYTES_SLACK * extra + 2**26,
+                f"rank 0 grew by {got0} bytes, its shard's slices {extra}")
+        t0 = time.perf_counter()
+        digests = runtime.run("shard_digest", bundle, layout="tp")
+        slices = [param_digest_of(shard_params(core, r, MESH_RANKS))
+                  for r in range(MESH_RANKS)]
+        require([d["digest"] for d in digests] == slices,
+                f"shard digests {digests} != the slices' {slices}")
+        say(f"  shard digests equal rank 0's slices "
+            f"({[d['digest'][:12] for d in digests]}, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        free_up = torch.cuda.mem_get_info()[0]
+    finally:
+        runtime.stop()
+    require(not runtime.procs, "the follower outlived its stop")
+    registry.drop_tp_shards()
+    require("_tp_shards" not in pipe.__dict__,
+            "rank 0 kept its shard after the mesh was dropped")
+    del cond, pooled
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before the phase, "
+        f"{free_up / 2**30:.3f} GiB with both ranks up, {free1 / 2**30:.3f} "
+        f"GiB after the follower stopped and rank 0 dropped its shard "
+        f"(rank 0 allocated {torch.cuda.memory_allocated() / 2**30:.3f}, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB)")
+    require(free0 - free1 < MESH_RETURN_SLACK,
+            "the follower's card memory did not come back")
+    for path, ranks in totals.items():
+        MESH_TOTALS[path] = ranks
+        TP_MEASURED[path] = [
+            (shape, WAN_MESH_STEPS * n) for shape, n in WAN_MESH_FORWARD[path]]
+    return {f"{path}{suffix}": ranks[r] for path, ranks in totals.items()
+            for r, suffix in enumerate(("", "_rank1"))}
+
+
+def wan22_mesh_phase(torch, fa, files: WanFiles) -> dict:
+    """Phase 31a: phase 31's converted ``wan-2.2-t2v`` pair (full width, 2
+    blocks an expert) restored from its files, the ``video_tp`` program
+    on ``{"dp": 1, "tp": 2}`` with UMT5's 512-token context, 5 frames, 2
+    steps, CFG 5: the follower slices both experts from the files; each
+    expert's model calls the split (1 + 1) on both ranks, 8 streamed K3 a
+    rank and no K1, > 30 dB against the one-rank run of the same bundle,
+    both experts' shard digests the slices of rank 0's, peaks under 80 GB
+    together, the card's memory back."""
+    from comfyui_distributed_tpu_torch.diffusion.pipeline_video import VideoSpec
+    from comfyui_distributed_tpu_torch.parallel.bootstrap import MeshRuntime
+    from comfyui_distributed_tpu_torch.parallel.mesh import build_mesh
+    from comfyui_distributed_tpu_torch.parallel.programs import param_digest_of
+    from comfyui_distributed_tpu_torch.parallel.tensor import shard_params
+    from comfyui_distributed_tpu_torch.models.registry import ModelRegistry
+
+    dev = torch.device(DEVICE)
+    free0 = torch.cuda.mem_get_info()[0]
+    registry = ModelRegistry(DEVICE, seed=0, checkpoint_root=files.root)
+    pair = registry.get("wan-2.2-t2v")
+    pipe = pair.pipeline
+    require_digests_equal("wan 2.2 high expert", param_digests(
+        torch, dict(pair.core.named_parameters())), files.digests["high"])
+    spec = VideoSpec(frames=WAN_MESH_FRAMES, height=WAN_HW[0],
+                     width=WAN_HW[1], steps=WAN_MESH_STEPS, shift=3.0,
+                     guidance_scale=5.0)
+    context = files.context.to(dev)
+    pooled = torch.zeros((1, 768), device=dev)
+    t0 = time.perf_counter()
+    ref = pipe.generate(spec, WAN_SEED, context, pooled).cpu()
+    torch.cuda.synchronize()
+    say(f"  one-rank run ({WAN_MESH_FRAMES} frames, {WAN_MESH_STEPS} steps, "
+        f"expert calls {pipe.timings['calls']}): "
+        f"{time.perf_counter() - t0:.3f} s")
+    with virtual_ranks(MESH_RANKS):
+        mesh = build_mesh({"dp": 1, "tp": MESH_RANKS}, device=dev)
+    runtime = mesh.runtime = MeshRuntime(mesh, registry.seed, files.root)
+    try:
+        want = mesh_counts("wan22_files_tp", WAN_MESH_STEPS)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        video = runtime.run("video_tp", pair, spec, WAN_SEED, context,
+                            pooled).cpu()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        call = runtime.last_call
+        ranks = mesh_leg_gates("wan 2.2 tp", call, "video_tp", want,
+                               WAN_HEADS // 2)
+        split = {"high": WAN_SPLIT, "low": WAN_MESH_STEPS - WAN_SPLIT}
+        calls = [r["calls"] for r in call["ranks"]]
+        require(calls == [split] * MESH_RANKS,
+                f"wan 2.2 tp: expert calls {calls} != {split} a rank")
+        db, diff = psnr(video.float().cpu(), ref.float().cpu())
+        require(tuple(video.shape) == tuple(ref.shape)
+                == (1, WAN_MESH_FRAMES, *WAN_HW, 3)
+                and bool(torch.isfinite(video).all()),
+                f"wan 2.2 tp video {tuple(video.shape)}")
+        require(db > MESH_PSNR_DB, f"wan 2.2 tp PSNR {db:.2f} dB")
+        peaks = [r["peak_bytes"] for r in call["ranks"]]
+        require(sum(peaks) < MESH_CARD,
+                f"wan 2.2 tp: both ranks' peaks {sum(peaks) / 1e9:.1f} GB")
+        say(f"  video_tp on {{\"dp\": 1, \"tp\": {MESH_RANKS}}}: {secs:.3f} s "
+            f"(rank 1 loads the pair and slices both experts); ranks' "
+            f"program seconds "
+            f"{[round(r['seconds'], 3) for r in call['ranks']]}, expert "
+            f"calls {calls}, peaks {[round(p / 2**30, 3) for p in peaks]} "
+            f"GiB; PSNR {db:.2f} dB, max |Δ| {diff:.5f}; each rank "
+            f"{want[0]} ({want[1]}); shard bytes "
+            f"{[r['shard_bytes'] for r in call['ranks']]}")
+        digests = runtime.run("shard_digest", pair)
+        # by attribute name: a loop variable bound to an expert would keep
+        # it on the card past the memory gate below
+        for key, which in (("digest", "dit"), ("digest_low", "dit_low")):
+            slices = [param_digest_of(shard_params(getattr(pipe, which), r,
+                                                   MESH_RANKS))
+                      for r in range(MESH_RANKS)]
+            require([d.get(key) for d in digests] == slices,
+                    f"wan 2.2 {key}: {digests} != the slices' {slices}")
+        say("  both experts' shard digests equal rank 0's slices")
+    finally:
+        runtime.stop()
+    require(not runtime.procs, "the follower outlived its stop")
+    registry.drop_tp_shards()
+    registry._cache.clear()
+    del pair, pipe, context, pooled
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    say(f"  card memory free {free0 / 2**30:.3f} GiB before the phase, "
+        f"{free1 / 2**30:.3f} GiB after the follower stopped and the pair "
+        f"was dropped (rank 0 allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f}, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB)")
+    require(free0 - free1 < MESH_RETURN_SLACK,
+            "the follower's card memory did not come back")
+    MESH_TOTALS["wan22_files_tp"] = ranks
+    TP_MEASURED["wan22_files_tp"] = [
+        (shape, WAN_MESH_STEPS * n)
+        for shape, n in WAN_MESH_FORWARD["wan22_files_tp"]]
+    return {"wan22_files_tp": ranks[0], "wan22_files_tp_rank1": ranks[1]}
+
+
 def wan_phases(torch, fa, refs: dict) -> dict:
     """Phases 26 to 32, each bundle dropped before the next is built;
     returns their launches by path (phase 30's video into ``refs``)."""
@@ -6080,6 +6515,8 @@ def wan_phases(torch, fa, refs: dict) -> dict:
         wan_reference_phase(torch, fa, t2v.registry.get("wan"))
     with phase(torch, "28 wan served"):
         launches["wan_serve"] = wan_serve_phase(torch, fa, t2v)
+    with phase(torch, "28a mesh video"):
+        launches.update(wan_mesh_phase(torch, fa, t2v))
     del t2v
     free_card(torch)
     with phase(torch, "29 wan i2v"):
@@ -6088,8 +6525,16 @@ def wan_phases(torch, fa, refs: dict) -> dict:
     with phase(torch, "30 wan 2.2"):
         launches["wan22"] = wan22_phase(torch, fa, refs)
     free_card(torch)
-    with phase(torch, "31 wan files"):
-        launches.update(wan_file_phases(torch, fa))
+    tmp = Path(tempfile.mkdtemp(prefix="cdt_wan_"))
+    try:
+        with phase(torch, "31 wan files"):
+            file_launches, files = wan_file_phases(torch, fa, tmp)
+            launches.update(file_launches)
+        free_card(torch)
+        with phase(torch, "31a mesh tp wan 2.2"):
+            launches.update(wan22_mesh_phase(torch, fa, files))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     free_card(torch)
     with phase(torch, "32 video-mmdit"):
         launches["video_mmdit"] = video_mmdit_phase(torch, fa)

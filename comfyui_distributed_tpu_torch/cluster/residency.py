@@ -278,9 +278,11 @@ def _cores(bundle) -> list:
 def shard_extra_bytes(bundle, tp: int) -> int:
     """The card bytes rank 0 holds for a tp degree besides its whole
     bundle: the tensors of its held shards that are not views of the
-    bundle's own (a contiguous slice costs nothing), or, with no shard of
-    that degree built, the split weights' 1/tp as planned; none at tp 1."""
-    from ..parallel.tensor import core_of, tp_sharding_summary
+    bundle's own (a slice of one part is a view and costs nothing; a
+    slice of several parts, FLUX's q|k|v or GEGLU's halves, is a copy),
+    or, with no shard of that degree built, those copies as planned
+    (``parallel/tensor.shard_copy_bytes``); none at tp 1."""
+    from ..parallel.tensor import cores_of, shard_copy_bytes
 
     if tp <= 1:
         return 0
@@ -288,15 +290,13 @@ def shard_extra_bytes(bundle, tp: int) -> int:
               getattr(bundle.pipeline, "_tp_shards", {}).items()
               if size == tp]
     if not shards:
-        rules = _tp_rules_for(bundle)
-        return sum(tp_sharding_summary(c, rules, tp)["sharded_bytes"]
-                   for c in _cores(bundle)) // tp
+        return sum(shard_copy_bytes(c, tp) for c in _cores(bundle))
     whole = {p.untyped_storage().data_ptr()
              for c in _cores(bundle) for p in c.parameters()}
     seen: set[int] = set()
     total = 0
     for shard in shards:
-        for p in core_of(shard).parameters():
+        for p in (p for c in cores_of(shard) for p in c.parameters()):
             ptr = p.untyped_storage().data_ptr()
             if ptr in whole or ptr in seen:
                 continue

@@ -24,8 +24,28 @@ model input is ``concat([x, mask, y])`` (``i2v_input_concat``).
 JAX's; ``generate``/``generate_i2v`` draw it from the seed. Each call
 runs under a ``pipeline_call`` span, and the synchronised sampling time
 per step lands in ``cdt_sampler_step_seconds``, read where the call
-synchronises for its own timings. The ``sp``/``tp`` programs of the JAX
-pipeline are not ported (ROADMAP item A.6b iii).
+synchronises for its own timings.
+
+Over a mesh (``parallel/programs``: ``video_dp``, ``video_i2v_dp``,
+``video_sp``, ``video_i2v_sp``, ``video_tp``; the JAX ``generate_fn``,
+``generate_i2v_fn``, ``generate_frames_fn``, ``generate_i2v_frames_fn``
+and ``generate_tp_fn``):
+
+- ``generate_mesh``: participant i of the ``dp`` axis samples and
+  decodes one video from ``participant_seed(seed, i)``, participant 0's
+  the one-device run's; the videos come back gathered.
+- ``generate_sp``: one video whose latent frames are sharded over the
+  ``sp`` axis, ring attention in every block; the noise and every
+  sampler draw are the one-device run's, this rank's frames of them
+  (JAX folds the shard index into its sampler key instead); i2v's
+  conditioning latents and mask are sliced by frame; the latents are
+  gathered and rank 0 decodes the whole clip (the 3D VAE is causal
+  across a shard's first frame, so no shard decodes alone).
+- ``generate_tp``: ``self`` is a rank's shard (``parallel/tensor``),
+  both experts of a two-expert pipeline split over the ``tp`` axis;
+  participant i of ``dp`` samples from ``participant_seed(seed, i)``
+  with CFG as JAX's video tp allows; the tp-index-0 rank of each group
+  decodes.
 
 ``generate_offloaded``/``generate_offloaded_i2v`` run one video through
 ``OffloadedWan`` executors (``diffusion/offload.py``), one expert's store
@@ -98,6 +118,18 @@ class VideoPipeline:
     def device(self) -> torch.device:
         return self.offload_device or next(self.dit.parameters()).device
 
+    def __getstate__(self) -> dict:
+        """Pickled (a mesh call carrying a pipeline whole) without its
+        offload executors, card stores behind a lock, and their
+        sources."""
+        state = dict(self.__dict__)
+        state.update(_offload=None, offload_sources={})
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._offload = ExecutorCache()
+
     @property
     def is_moe(self) -> bool:
         return self.dit_low is not None and self.expert_boundary is not None
@@ -153,18 +185,21 @@ class VideoPipeline:
 
     def _denoiser(self, model: nn.Module, context: torch.Tensor,
                   pooled: torch.Tensor, guidance_scale: float,
-                  inp_fn: Optional[Callable] = None) -> Denoiser:
+                  inp_fn: Optional[Callable] = None,
+                  sp_axis: Optional[str] = None) -> Denoiser:
         """The velocity denoiser ``x − σ·v``; with CFG one doubled-batch
         call against a zero context and a zero pooled vector.
-        ``inp_fn`` maps the latent to the model input (i2v's concat)."""
+        ``inp_fn`` maps the latent to the model input (i2v's concat);
+        ``sp_axis``: the latent is a block of frames over that axis."""
         calls = self.timings.setdefault("calls", {})
         name = "low" if model is self.dit_low else "high"
+        kw = {} if sp_axis is None else {"sp_axis": sp_axis}
 
         def model_call(x, sigma, ctx, pl):
             calls[name] = calls.get(name, 0) + 1
             t = sigma.expand(x.shape[0])
             inp = x if inp_fn is None else inp_fn(x)
-            return x - sigma * model(inp, t, ctx, pl)
+            return x - sigma * model(inp, t, ctx, pl, **kw)
 
         if guidance_scale == 1.0:
             return lambda x, s: model_call(x, s, context, pooled)
@@ -212,6 +247,20 @@ class VideoPipeline:
         ``cond`` is i2v's ``(y, mask)``; ``progress_token`` streams each
         model call's x0; the noise sources feed stochastic samplers (the
         high segment's, the low segment's)."""
+        label = "video_dp" if cond is None else "video_i2v"
+        return self._run(label, noise, spec, context, pooled, progress_token,
+                         sampler_noise, sampler_noise_low, cond)
+
+    def _run(self, label: str, noise: torch.Tensor, spec: VideoSpec,
+             context: torch.Tensor, pooled: torch.Tensor,
+             progress_token: Optional[int],
+             sampler_noise: Optional[NoiseSource],
+             sampler_noise_low: Optional[NoiseSource],
+             cond: Optional[tuple], sp_axis: Optional[str] = None,
+             decode: Optional[Callable] = None) -> Optional[torch.Tensor]:
+        """Sample ``noise`` under a ``pipeline_call`` span named ``label``,
+        then ``decode`` the latents (default ``decode_frames``; it may
+        return None: a rank that does not decode)."""
         dev = self.device
         sigmas = sigmas_flow(spec.steps, spec.shift).to(dev)
         inp_fn = None if cond is None else i2v_input_concat(*cond)
@@ -221,19 +270,18 @@ class VideoPipeline:
 
         def make_den(model):
             den = self._denoiser(model, context, pooled, spec.guidance_scale,
-                                 inp_fn)
+                                 inp_fn, sp_axis)
             if progress_token is not None:
                 den = wrap_denoiser(den, progress_token)
             return den
 
-        label = "video_dp" if cond is None else "video_i2v"
         with pipeline_call(self, label, lambda: self.timings):
             t0 = time.perf_counter()
             x0 = self._sample_expert(spec, make_den, noise.to(dev), sigmas,
                                      sampler_noise, sampler_noise_low)
             self._sync()
             t1 = time.perf_counter()
-            videos = self.decode_frames(x0)
+            videos = (decode or self.decode_frames)(x0)
             self._sync()
             timings.update(sample_s=t1 - t0,
                            decode_s=time.perf_counter() - t1,
@@ -252,6 +300,113 @@ class VideoPipeline:
         return self.sample_and_decode(noise, spec, context, pooled,
                                       progress_token,
                                       *self._noise_sources(seed))
+
+    # --- over a mesh (module docstring) ----------------------------------------
+
+    @torch.no_grad()
+    def generate_mesh(self, spec: VideoSpec, seed: int, context: torch.Tensor,
+                      pooled: torch.Tensor, axis: str = "dp", noises=None,
+                      progress_token: Optional[int] = None,
+                      image: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This rank's part of the ``dp`` fan-out over ``axis``: one t2v
+        video (i2v from ``image`` [1, H, W, 3]) of ``participant_seed(seed,
+        i)`` (``noises``: one per participant, a test's); the videos
+        [n, F, H, W, 3] come back gathered in participant order."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.rng import participant_seed
+
+        index = shard_index(axis)
+        pseed = participant_seed(seed, index)
+        cond = None if image is None else self.i2v_condition(image, spec)
+        noise = (noises[index] if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, self.device)))
+        videos = self.sample_and_decode(noise, spec, context, pooled,
+                                        progress_token,
+                                        *self._noise_sources(pseed),
+                                        cond=cond)
+        return gather_batch(videos, axis)
+
+    def require_sp_frames(self, spec: VideoSpec, shards: int,
+                          i2v: bool = False) -> None:
+        """JAX's refusal of a latent frame count that does not divide over
+        the ``sp`` shards (its t2v and i2v messages)."""
+        F = self.latent_frames(spec)
+        if F % shards:
+            raise ValueError(
+                f"latent frame count {F} must divide over {shards} shards"
+                + ("" if i2v else
+                   " (choose frames so the compressed 4n+1 count ≡ 0 mod "
+                   "shards)"))
+
+    @torch.no_grad()
+    def generate_sp(self, spec: VideoSpec, seed: int, context: torch.Tensor,
+                    pooled: torch.Tensor, axis: str = "sp",
+                    noise: Optional[torch.Tensor] = None,
+                    image: Optional[torch.Tensor] = None
+                    ) -> Optional[torch.Tensor]:
+        """This rank's part of one video over ``axis`` (module docstring):
+        the one-device run's noise of ``seed`` (or ``noise``), its frames
+        of it; rank 0 returns the videos [1, F, H, W, 3], the others
+        None."""
+        from ..parallel.collectives import all_gather
+        from ..parallel.mesh import axis_group
+
+        g = axis_group(axis)
+        self.require_sp_frames(spec, g.size, i2v=image is not None)
+        dev = self.device
+        per = self.latent_frames(spec) // g.size
+        rows = slice(g.index * per, (g.index + 1) * per)
+        if noise is None:
+            noise = self.initial_noise(spec, seed_generator(seed, dev))
+        cond = None
+        if image is not None:
+            cond = tuple(t[:, rows] for t in self.i2v_condition(image, spec))
+
+        def frames_of(draws: NoiseSource) -> NoiseSource:
+            def draw(j: int, shape: tuple) -> torch.Tensor:
+                full = (shape[0], shape[1] * g.size, *shape[2:])
+                return draws(j, full)[:, rows]
+
+            return draw
+
+        def gather_decode(x0):
+            latents = all_gather(x0, axis, dim=1)
+            return self.decode_frames(latents) if g.index == 0 else None
+
+        label = "video_sp" if image is None else "video_i2v_sp"
+        return self._run(label, noise.to(dev)[:, rows], spec, context, pooled,
+                         None, *map(frames_of, self._noise_sources(seed)),
+                         cond, sp_axis=axis, decode=gather_decode)
+
+    @torch.no_grad()
+    def generate_tp(self, spec: VideoSpec, seed: int, context: torch.Tensor,
+                    pooled: torch.Tensor, dp_axis: str = "dp",
+                    tp_axis: str = "tp", noises=None,
+                    progress_token: Optional[int] = None
+                    ) -> Optional[torch.Tensor]:
+        """This rank's part of the dp×tp program (JAX's ``generate_tp_fn``;
+        module docstring): participant i of ``dp_axis`` (0 without one)
+        samples one t2v video from ``participant_seed(seed, i)``
+        (``noises``: one per participant); the tp-index-0 rank of its
+        group decodes, and the videos come back gathered over
+        ``dp_axis``; the other ranks return None."""
+        from ..parallel.collectives import gather_batch, shard_index
+        from ..parallel.mesh import current_mesh
+        from ..parallel.rng import participant_seed
+
+        mesh = current_mesh()
+        index = shard_index(dp_axis) if dp_axis in mesh.axes else 0
+        pseed = participant_seed(seed, index)
+        noise = (noises[index] if noises is not None else
+                 self.initial_noise(spec, seed_generator(pseed, self.device)))
+        decodes = tp_axis not in mesh.axes or shard_index(tp_axis) == 0
+        videos = self._run("video_tp", noise, spec, context, pooled,
+                           progress_token, *self._noise_sources(pseed), None,
+                           decode=None if decodes else (lambda x0: None))
+        if not decodes:
+            return None
+        return (gather_batch(videos, dp_axis) if dp_axis in mesh.axes
+                else videos)
 
     @torch.no_grad()
     def i2v_condition(self, image: torch.Tensor, spec: VideoSpec

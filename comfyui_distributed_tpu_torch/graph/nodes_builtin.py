@@ -1032,25 +1032,81 @@ def _flatten_video_batch(videos: torch.Tensor) -> torch.Tensor:
     return videos.reshape(-1, *videos.shape[2:])
 
 
-def _video_mode(mode: str, model, mesh) -> None:
-    """The JAX node's ``sp`` is refused, naming the ROADMAP item that
-    ports it, and so is a mesh of more than one rank unless the video is
-    offloaded (one card, as in the JAX package)."""
-    if mode == "sp":
+def _video_mode(mode: str, model) -> None:
+    """The video nodes' modes: ``dp``, ``sp`` and ``offload``, as the JAX
+    nodes have; ``tp`` is refused (the JAX nodes have none: tensor
+    parallelism is the ``video_tp`` program), and so is ``sp`` on a
+    bundle built for offload, which has no bf16 blocks to shard."""
+    if mode == "tp":
         raise ValidationError(
-            "mode='sp' (one video's frame blocks over several cards) is not "
-            "ported yet (ROADMAP.md, item A.6b iii)", field="mode")
-    if not _offloaded(mode, model):
-        _refuse_mesh(mesh, "video sampling")
+            "mode='tp' is no mode of this node (nor of the JAX package's): "
+            "one video model's weights over several cards is the video_tp "
+            "program (VideoPipeline.generate_tp) on a controller mesh with "
+            "a tp axis", field="mode")
+    if mode not in ("dp", "sp", "offload"):
+        raise ValidationError(f"unknown mode {mode!r}; the port runs "
+                              "mode='dp', 'sp' or 'offload'", field="mode")
+    if mode == "sp" and getattr(model, "offload", False):
+        raise ValidationError(
+            f"mode='sp' shards a bf16 transformer's frames; the bundle "
+            f"{model.preset.name!r} was built for offload (CDT_OFFLOAD=1) "
+            "and has no bf16 blocks: run it with mode='offload'",
+            field="mode")
+
+
+def _video_run(mode: str, model, spec, seed: int, positive, pooled, mesh,
+               model_registry, ps, interrupt_event, image=None):
+    """One video node's run (its class docstring): offloaded on the
+    bundle's card alone, ``dp`` or ``sp`` over a mesh of more than one
+    rank, else on the bundle's device."""
+    pipeline, context = model.pipeline, positive["context"]
+    i2v = image is not None
+    if _offloaded(mode, model):
+        # fp8-resident (or streamed) experts, one on the card at a time
+        # (diffusion/offload.OffloadedWan)
+        kw = dict(progress_token=ps.token,
+                  should_stop=_stop_cb(interrupt_event))
+        if i2v:
+            return pipeline.generate_offloaded_i2v(spec, seed, image, context,
+                                                   **kw)
+        return pipeline.generate_offloaded(spec, seed, context, **kw)
+    image_arg = (image,) if i2v else ()
+    if _multi_rank(mesh):
+        runtime = _mesh_runtime(mesh, model, model_registry)
+        prefix = "video_i2v" if i2v else "video"
+        if mode == "sp":
+            sp = constants.AXIS_SEQUENCE
+            pipeline.require_sp_frames(spec, mesh.axes.get(sp, mesh.size),
+                                       i2v=i2v)
+            return runtime.run(f"{prefix}_sp", model, spec, seed, *image_arg,
+                               context, pooled, layout=_mesh_layout(mesh, sp))
+        return runtime.run(f"{prefix}_dp", model, spec, seed, *image_arg,
+                           context, pooled,
+                           layout=_mesh_layout(mesh, constants.AXIS_DATA),
+                           local={"progress_token": ps.token})
+    if i2v:
+        return pipeline.generate_i2v(spec, seed, image, context, pooled,
+                                     progress_token=ps.token)
+    return pipeline.generate(spec, seed, context, pooled,
+                             progress_token=ps.token)
 
 
 @register_node("TPUTxt2Video")
 class TPUTxt2Video(NodeDef):
     """The text→video sampler node (WAN-class bundles; name kept for
-    workflow compatibility): one seeded video on the bundle's device
-    (``mode="dp"``; ``offload``, or ``dp`` under ``CDT_OFFLOAD=1``, through
-    the offload executors), flattened into an IMAGE batch of its frames.
-    The frame count pads to 4n+1."""
+    workflow compatibility), its videos flattened into an IMAGE batch of
+    their frames; the frame count pads to 4n+1. ``mode="dp"``: one seeded
+    video on the bundle's device, or, on a mesh of more than one rank
+    (the hidden ``mesh``), the ``video_dp`` program: participant i
+    samples one video from ``participant_seed(seed, i)``, participant
+    0's bitwise the one-rank run (on a mesh with a ``tp`` axis the
+    tp-index-0 ranks alone). ``mode="sp"``: one video whose latent frames
+    are sharded over the ranks with ring attention (``video_sp``; the
+    mesh re-laid as ``{"sp": n}`` where it has no ``sp`` axis; the latent
+    frames must divide over the ranks, JAX's ``ValueError``); on one rank
+    the ``dp`` run. ``offload`` (or ``dp`` under ``CDT_OFFLOAD=1``) runs
+    through the offload executors on the bundle's card alone. ``tp`` is
+    refused, as the JAX node has none (the ``video_tp`` program)."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING",
@@ -1059,17 +1115,18 @@ class TPUTxt2Video(NodeDef):
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "interrupt_event": "*", "mesh": "*"}
+              "interrupt_event": "*", "mesh": "*", "model_registry": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, seed: int, frames: int, steps: int,
                 width: int, height: int, cfg: float = 1.0, shift=None,
                 mode: str = "dp", prompt_id: str = "",
-                progress_tracker=None, interrupt_event=None, mesh=None, **_):
+                progress_tracker=None, interrupt_event=None, mesh=None,
+                model_registry=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
-        _video_mode(mode, model, mesh)
+        _video_mode(mode, model)
         spec = VideoSpec(frames=int(frames), height=int(height),
                          width=int(width), steps=int(steps),
                          shift=_shift(model, shift),
@@ -1081,17 +1138,9 @@ class TPUTxt2Video(NodeDef):
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(spec.sampler, spec.steps)) as ps:
-            if _offloaded(mode, model):
-                # fp8-resident (or streamed) experts, one on the card at a
-                # time (diffusion/offload.OffloadedWan)
-                videos = model.pipeline.generate_offloaded(
-                    spec, int(seed), positive["context"],
-                    progress_token=ps.token,
-                    should_stop=_stop_cb(interrupt_event))
-            else:
-                videos = model.pipeline.generate(spec, int(seed),
-                                                 positive["context"], pooled,
-                                                 progress_token=ps.token)
+            videos = _video_run(mode, model, spec, int(seed), positive,
+                                pooled, mesh, model_registry, ps,
+                                interrupt_event)
             ps.complete()
         return (_flatten_video_batch(videos),)
 
@@ -1100,8 +1149,10 @@ class TPUTxt2Video(NodeDef):
 class TPUImg2Video(NodeDef):
     """The image→video sampler node: the start image conditions every
     model call through the causal VAE's latents and a first-frame mask
-    (WAN 2.2's latent concat), one seeded video on the bundle's device. A
-    t2v architecture (in_channels == out_channels) is refused."""
+    (WAN 2.2's latent concat); the modes and the mesh programs
+    (``video_i2v_dp``, ``video_i2v_sp``: each rank's frames of the
+    conditioning) as ``TPUTxt2Video``'s. A t2v architecture (in_channels
+    == out_channels) is refused."""
 
     INPUTS = {
         "model": "MODEL", "positive": "CONDITIONING", "image": "IMAGE",
@@ -1109,13 +1160,13 @@ class TPUImg2Video(NodeDef):
     }
     OPTIONAL = {"cfg": "FLOAT", "shift": "FLOAT", "mode": "STRING"}
     HIDDEN = {"prompt_id": "STRING", "progress_tracker": "*",
-              "interrupt_event": "*", "mesh": "*"}
+              "interrupt_event": "*", "mesh": "*", "model_registry": "*"}
     RETURNS = ("IMAGE",)
 
     def execute(self, model, positive, image, seed: int, frames: int,
                 steps: int, cfg: float = 1.0, shift=None, mode: str = "dp",
                 prompt_id: str = "", progress_tracker=None,
-                interrupt_event=None, mesh=None, **_):
+                interrupt_event=None, mesh=None, model_registry=None, **_):
         from ..diffusion.pipeline_video import VideoSpec
         from ..diffusion.progress import total_calls
 
@@ -1129,7 +1180,7 @@ class TPUImg2Video(NodeDef):
                 f"model {model.preset.name!r} is a t2v architecture "
                 "(in_channels == out_channels): i2v needs a preset with "
                 "latent-concat conditioning channels, e.g. 'wan-i2v'")
-        _video_mode(mode, model, mesh)
+        _video_mode(mode, model)
         spec = VideoSpec(frames=int(frames), height=int(image.shape[1]),
                          width=int(image.shape[2]), steps=int(steps),
                          shift=_shift(model, shift),
@@ -1141,15 +1192,9 @@ class TPUImg2Video(NodeDef):
         with _pinned(model), \
                 _ProgressScope(progress_tracker, prompt_id,
                                total_calls(spec.sampler, spec.steps)) as ps:
-            if _offloaded(mode, model):
-                videos = model.pipeline.generate_offloaded_i2v(
-                    spec, int(seed), image[:1], positive["context"],
-                    progress_token=ps.token,
-                    should_stop=_stop_cb(interrupt_event))
-            else:
-                videos = model.pipeline.generate_i2v(
-                    spec, int(seed), image[:1], positive["context"], pooled,
-                    progress_token=ps.token)
+            videos = _video_run(mode, model, spec, int(seed), positive,
+                                pooled, mesh, model_registry, ps,
+                                interrupt_event, image=image[:1])
             ps.complete()
         return (_flatten_video_batch(videos),)
 

@@ -87,6 +87,7 @@ the card never holds them whole, not even while loading.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import threading
 import time
@@ -842,8 +843,8 @@ class ModelBundle:
 class ShardBundle:
     """A mesh follower's tensor-parallel shard of a bundle
     (``ModelRegistry.get_shard``): ``pipeline`` runs the shard of the
-    core (``parallel/tensor.py``) beside the whole VAE; ``shard`` is
-    (tp index, tp size)."""
+    core (``parallel/tensor.py``; of both experts of a two-expert video
+    bundle) beside the whole VAE; ``shard`` is (tp index, tp size)."""
 
     preset: ModelPreset
     pipeline: object
@@ -853,20 +854,37 @@ class ShardBundle:
 def _drawn_shard_pipeline(preset: ModelPreset, device: torch.device,
                           seed: int, index: int, size: int, axis: str):
     """The pipeline of rank ``index``'s shard of a random-init bundle,
-    drawn in ``ModelBundle``'s order (text encoder, core, VAE) from the
-    same seed, the core part by part (``tensor.draw_shard``), so that it
-    never lies whole on the device; the text encoder's draws are made
-    and dropped."""
+    drawn in ``ModelBundle``'s order (text encoder, core, VAE, a
+    two-expert bundle's low expert from its own seed) from the same
+    seed, each transformer part by part (``tensor.draw_shard``), so that
+    none lies whole on the device; the text encoder's draws are made and
+    dropped."""
     from ..parallel.tensor import draw_shard
 
     gen = seed_generator(seed, device)
     _random(lambda: TextTransformer(preset.text), device, gen)
     kind = preset.kind
-    core = draw_shard((lambda: DiT(preset.dit)) if kind == "dit"
-                      else (lambda: UNet2D(preset.unet)),
-                      device, gen, index, size, axis)
-    vae = _random(lambda: AutoencoderKL(preset.vae, encoder=kind == "unet"),
-                  device, gen)
+    if kind == "video":
+        build = ((lambda: WanModel(preset.video))
+                 if isinstance(preset.video, WanConfig)
+                 else (lambda: VideoDiT(preset.video)))
+    else:
+        build = ((lambda: DiT(preset.dit)) if kind == "dit"
+                 else (lambda: UNet2D(preset.unet)))
+    core = draw_shard(build, device, gen, index, size, axis)
+    if isinstance(preset.vae, WanVAEConfig):
+        vae = _random(lambda: WanVAE3D(preset.vae), device, gen)
+    else:
+        vae = _random(lambda: AutoencoderKL(preset.vae,
+                                            encoder=kind == "unet"),
+                      device, gen)
+    if kind == "video":
+        low = None
+        if preset.moe_boundary is not None:
+            low = draw_shard(build, device,
+                             seed_generator(expert_seed(seed, 1), device),
+                             index, size, axis)
+        return VideoPipeline(core, vae, low, preset.moe_boundary)
     return (FlowPipeline if kind == "dit" else Txt2ImgPipeline)(core, vae)
 
 
@@ -1038,11 +1056,14 @@ class ModelRegistry:
                   axis: str = constants.AXIS_TENSOR) -> ShardBundle:
         """Rank ``index``'s tensor-parallel shard of the bundle ``get``
         builds (``parallel/tensor.py``), with its VAE: the slice of each
-        of the whole bundle's split parameters. A random-init UNet or DiT
-        bundle not built here yet is drawn shard-only
-        (``_drawn_shard_pipeline``); otherwise the shard is the slices of
-        the whole bundle, which stays (a file-backed bundle is loaded
-        whole first). At most two shards are kept, one a mesh."""
+        of the whole bundle's split parameters. A random-init bundle not
+        built here yet is drawn shard-only (``_drawn_shard_pipeline``);
+        otherwise the shard is the slices of the whole bundle, which stays
+        (a file-backed bundle is loaded whole first). A random-init video
+        bundle built here (a ``dp`` or ``sp`` call's) is dropped first and
+        its shard drawn: a rank never holds a whole 14B transformer beside
+        its shard. A two-expert shard is one bundle. At most two shards
+        are kept, one a mesh."""
         from ..parallel.tensor import shard_pipeline
 
         with self._lock:
@@ -1055,9 +1076,16 @@ class ModelRegistry:
                 raise ValidationError(
                     f"unknown model {name!r}; have {self.available()}")
             t0 = time.perf_counter()
+            filed = self.checkpoint_for(name) is not None
             whole = self._cache.get(name)
-            if whole is None and (self.checkpoint_for(name) is not None
-                                  or preset.kind not in ("unet", "dit")):
+            if whole is not None and preset.kind == "video" and not filed:
+                self._cache.pop(name)
+                whole.release_device()
+                whole = None
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+            if whole is None and filed:
                 whole = self.get(name)
             if whole is not None:
                 pipeline = shard_pipeline(whole.pipeline, index, size, axis)

@@ -13,8 +13,14 @@ Attribute names follow the JAX parameter tree (``img_in``, ``txt_in``,
 ``t_in``, ``pool_in``, ``vec_mlp``, ``double_{i}``, ``single_{i}``,
 ``final_mod``, ``img_out``). As for FLUX (``models/registry.py``), the
 port's random init draws the adaLN ``mod`` kernels and ``img_out``
-lecun-normal where flax draws zeros. The sequence-parallel branch is not
-ported.
+lecun-normal where flax draws zeros.
+
+Sequence parallelism (``sp_axis``, the JAX module's branch): ``x`` is
+this shard's block of frames; the position table is built over every
+shard's frames and this shard's rows taken, and every block's joint
+attention rings the video K/V over the axis (the text K/V replicated).
+Tensor parallelism shards the blocks by the image DiT's rules
+(``parallel/tensor.DIT_TP_RULES``).
 """
 
 from __future__ import annotations
@@ -138,23 +144,36 @@ class VideoDiT(nn.Module):
                                  dtype=torch.float32)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
-                pooled: torch.Tensor) -> torch.Tensor:
+                pooled: torch.Tensor,
+                sp_axis: Optional[str] = None) -> torch.Tensor:
+        """``sp_axis``: ``x`` is this shard's block of frames over that
+        mesh axis (module docstring)."""
         cfg = self.config
         dt, p = cfg.torch_dtype, cfg.patch_size
         B, Fr, H, W, C = x.shape
         img = self.img_in(patchify_video(x.to(dt), p))
-        img = img + sincos_3d(Fr, H // p, W // p, cfg.hidden,
-                              x.device)[None].to(dt)
+        if sp_axis is None:
+            pos = sincos_3d(Fr, H // p, W // p, cfg.hidden, x.device)
+        else:
+            from ..parallel.mesh import axis_group
+
+            g = axis_group(sp_axis)
+            per = Fr * (H // p) * (W // p)
+            pos = sincos_3d(Fr * g.size, H // p, W // p, cfg.hidden,
+                            x.device)[g.index * per:(g.index + 1) * per]
+        img = img + pos[None].to(dt)
         txt = self.txt_in(context.to(dt))
         vec = self.t_in(timestep_embedding(t * 1000.0, 256).to(dt))
         vec = vec + self.pool_in(pooled.to(dt))
         vec = self.vec_mlp(F.silu(vec))
         for i in range(cfg.depth_double):
-            img, txt = getattr(self, f"double_{i}")(img, txt, vec)
+            img, txt = getattr(self, f"double_{i}")(img, txt, vec,
+                                                    sp_axis=sp_axis)
         T = txt.shape[1]
         xcat = torch.cat([txt, img], dim=1)
         for i in range(cfg.depth_single):
-            xcat = getattr(self, f"single_{i}")(xcat, vec)
+            xcat = getattr(self, f"single_{i}")(xcat, vec, txt_len=T,
+                                                sp_axis=sp_axis)
         img = xcat[:, T:]
         sh, sc, _ = self.final_mod(vec)
         img = _modulate(_layer_norm(img), sh, sc)

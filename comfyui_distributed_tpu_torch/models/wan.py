@@ -15,9 +15,10 @@ file converts by renaming (``models/convert.convert_wan``):
   unpatchify with the channel last (the published ``view(*v,
   *patch_size, c)``).
 
-Every attention site calls ``ops.attention.full_attention``: at WAN
-14B's width (40 heads of 128, H·D = 5120) the packed layout is not
-legal, so both sites take the one-head ``[B·H, N, D]`` kernel; the
+Off the ring, every attention site calls
+``ops.attention.full_attention``: at WAN 14B's width (40 heads of 128,
+H·D = 5120; 20 on a tp rank, 2560) the packed layout is not legal, so
+both sites take the one-head ``[B·H, N, D]`` kernel; the
 cross-attention over at most 128 text tokens launches its short-key
 kernel, over UMT5's 512 the streamed core. RoPE is the port's own
 ``models/dit.rope_freqs``/``apply_rope`` over (frame, row, col) ids.
@@ -27,8 +28,24 @@ Attribute names follow the JAX parameter tree (``patch_embedding``,
 ``block_{i}.modulation``, ``head_modulation``), so ``models/from_jax.py``
 carries a JAX tree. The qk-norm scales and both modulations are fp32
 parameters, cast at use as the JAX module casts its fp32 parameters; the
-head runs in fp32. The sequence-parallel (ring) branch is not ported yet
-(ROADMAP A.6b iii).
+head runs in fp32.
+
+Sequence parallelism (``sp_axis``, the JAX module's ring branch): ``x``
+is this shard's block of latent frames; the self-attention is
+``ops.attention.ring_attention`` over the axis, its RoPE ids offset by
+the shard's first frame, so a sharded forward sees the positions of the
+unsharded one; the cross-attention stays local (the context is
+replicated on every shard).
+
+Tensor parallelism (``parallel/tensor.shard_module``): a shard's
+attention sites hold its rank's heads of q/k/v (rows and biases) and of
+the qk-norm scales and its input columns of ``o``; its feed-forward its
+rows of ``ffn_0`` and columns of ``ffn_2``. ``o`` and ``ffn_2`` are
+summed over ``tp_axis``, each bias added once after the sum, the gates
+after it. The qk-norm normalises over the full width, as GSPMD's
+inserted all-reduce does in JAX: each rank sums its columns' squares in
+fp32, the sums are summed over the axis, and the mean divides by the
+whole width.
 """
 
 from __future__ import annotations
@@ -40,9 +57,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import full_attention
+from ..ops.attention import full_attention, ring_attention
 from ..utils.device import torch_dtype
-from .dit import Rope, apply_rope, rope_freqs
+from .dit import Rope, _row_linear, apply_rope, rope_freqs
 from .layers import timestep_embedding
 
 
@@ -112,11 +129,16 @@ def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
 class WanRMSNorm(nn.Module):
     """Full-width RMS norm with a learned scale (WAN's qk-norm): fp32
     statistics, the normalised value cast to the input dtype before the
-    scale."""
+    scale. On a tensor-parallel shard ``x`` and the scale are the rank's
+    columns: the fp32 sums of squares are summed over ``tp_axis`` and
+    divided by the whole ``width``."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, width: int, eps: float):
         super().__init__()
         self.eps = eps
+        self.width = width
         self.weight = nn.Parameter(torch.ones(width, dtype=torch.float32))
 
     @torch.no_grad()
@@ -124,14 +146,24 @@ class WanRMSNorm(nn.Module):
         self.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var = x.float().pow(2).mean(-1, keepdim=True)
+        if self.tp_axis is None:
+            var = x.float().pow(2).mean(-1, keepdim=True)
+        else:
+            from ..parallel.collectives import tp_sum
+
+            var = tp_sum(x.float().pow(2).sum(-1, keepdim=True),
+                         self.tp_axis) / self.width
         return ((x * torch.rsqrt(var + self.eps)).to(x.dtype)
                 * self.weight.to(x.dtype))
 
 
 class WanAttention(nn.Module):
     """q/k/v/o Linears with RMS qk-norm: the self-attention site (keys from
-    ``x`` itself, RoPE ``pe``) and the text cross-attention (no RoPE)."""
+    ``x`` itself, RoPE ``pe``; ring attention over ``sp_axis``) and the
+    text cross-attention (no RoPE). A tensor-parallel shard holds
+    ``heads`` of them (module docstring)."""
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, cfg: WanConfig):
         super().__init__()
@@ -143,18 +175,26 @@ class WanAttention(nn.Module):
         self.norm_k = WanRMSNorm(d, cfg.eps)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                pe: Optional[Rope] = None) -> torch.Tensor:
-        B, N, C = x.shape
+                pe: Optional[Rope] = None,
+                sp_axis: Optional[str] = None) -> torch.Tensor:
+        B, N, _ = x.shape
         T = context.shape[1]
         q = self.norm_q(self.q(x)).view(B, N, self.heads, self.head_dim)
         k = self.norm_k(self.k(context)).view(B, T, self.heads, self.head_dim)
         v = self.v(context).view(B, T, self.heads, self.head_dim)
         if pe is not None:
             q, k = apply_rope(q, pe), apply_rope(k, pe)
-        return self.o(full_attention(q, k, v).reshape(B, N, C))
+        out = (full_attention(q, k, v) if sp_axis is None
+               else ring_attention(q, k, v, sp_axis))
+        return _row_linear(self.o, out.reshape(B, N, -1), self.tp_axis)
 
 
 class WanBlock(nn.Module):
+    """A tensor-parallel shard's feed-forward is its rows of ``ffn_0`` and
+    columns of ``ffn_2``, summed over ``tp_axis``."""
+
+    tp_axis: Optional[str] = None
+
     def __init__(self, cfg: WanConfig):
         super().__init__()
         dt = cfg.torch_dtype
@@ -178,19 +218,20 @@ class WanBlock(nn.Module):
         self.modulation.copy_(w.normal_(0.0, 0.02, generator=generator))
 
     def forward(self, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
-                pe: Rope) -> torch.Tensor:
+                pe: Rope, sp_axis: Optional[str] = None) -> torch.Tensor:
         """x [B, N, dim]; e0 [B, 6, dim], the shared time projection."""
         m = (self.modulation + e0.float()).to(x.dtype)
         m0, m1, m2, m3, m4, m5 = (m[:, i, None, :] for i in range(6))
         y = _layer_norm(x, self.eps) * (1 + m1) + m0
-        y = self.self_attn(y, y, pe)
+        y = self.self_attn(y, y, pe, sp_axis)
         x = x + y * m2
         h = x
         if self.cross_attn_norm:
             h = self.norm3(x.float()).to(x.dtype)
         x = x + self.cross_attn(h, context)
         y = _layer_norm(x, self.eps) * (1 + m4) + m3
-        y = self.ffn_2(F.gelu(self.ffn_0(y), approximate="tanh"))
+        y = _row_linear(self.ffn_2, F.gelu(self.ffn_0(y), approximate="tanh"),
+                        self.tp_axis)
         return x + y * m5
 
 
@@ -227,7 +268,10 @@ class WanModel(nn.Module):
         self.head_modulation.copy_(w.normal_(0.0, 0.02, generator=generator))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
-                pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pooled: Optional[torch.Tensor] = None,
+                sp_axis: Optional[str] = None) -> torch.Tensor:
+        """``sp_axis``: ``x`` is this shard's block of frames over that
+        mesh axis (module docstring)."""
         cfg = self.config
         dt = cfg.torch_dtype
         B, Fr, H, W, _ = x.shape
@@ -235,8 +279,13 @@ class WanModel(nn.Module):
         f, h, w = Fr // pt, H // ph, W // pw
         tok = self.patch_embedding(x.to(dt).permute(0, 4, 1, 2, 3))
         tok = tok.flatten(2).transpose(1, 2)            # [B, f·h·w, dim]
-        pe = rope_freqs(video_ids(f, h, w, device=x.device), cfg.axes_dim,
-                        10000.0)
+        offset = 0
+        if sp_axis is not None:
+            from ..parallel.collectives import shard_index
+
+            offset = shard_index(sp_axis) * f
+        pe = rope_freqs(video_ids(f, h, w, offset, device=x.device),
+                        cfg.axes_dim, 10000.0)
 
         emb = timestep_embedding(t * 1000.0, cfg.freq_dim).to(dt)
         e = self.time_emb_2(F.silu(self.time_emb_0(emb)))
@@ -244,7 +293,7 @@ class WanModel(nn.Module):
         ctx = self.text_emb_2(F.gelu(self.text_emb_0(context.to(dt)),
                                      approximate="tanh"))
         for i in range(cfg.num_layers):
-            tok = getattr(self, f"block_{i}")(tok, e0, ctx, pe)
+            tok = getattr(self, f"block_{i}")(tok, e0, ctx, pe, sp_axis)
 
         hm = (self.head_modulation + e.float()[:, None, :]).to(dt)
         sh, sc = hm[:, 0, None, :], hm[:, 1, None, :]

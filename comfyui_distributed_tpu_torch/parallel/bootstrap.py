@@ -22,8 +22,8 @@ port runs SPMD over processes, one rank per device slot:
   process groups (``parallel/collectives.py``). A ``dp`` program on a
   mesh with a tp axis runs on the tp-index-0 ranks alone
   (``programs.idle``). Each follower then returns its status, its
-  kernel launches, seconds and card bytes (and, for the programs that
-  return one, its result) through the store.
+  kernel launches, seconds, card bytes and the call's peak (and, for the
+  programs that return one, its result) through the store.
 - **Each rank's device** is ``cuda:(local_rank % cards)``, or the CPU
   when the caller asks for it, as the tests do.
 - **Backend** (:func:`choose_backend`): NCCL where every rank has a card
@@ -372,11 +372,11 @@ def run_local(mesh: DeviceMesh, program: str, bundle, args: tuple,
     """Run ``program`` on this rank under ``mesh``: its result and a
     report (the program, launches by wrapper and by CUDA kernel, seconds,
     peak and allocated card bytes, the attention geometries this process
-    has chosen tiers for, and the bytes of the rank's shard where the
-    program runs on one)."""
+    has chosen tiers for, and, where the program runs on the rank's
+    shard, the shard's bytes and its model calls by expert)."""
     from ..ops.attention import selection_summary
     from .programs import PROGRAMS, shard_coords, shard_of
-    from .tensor import core_of, shard_bytes
+    from .tensor import cores_of, shard_bytes
 
     before, cuda_before = launch_snapshot(), cuda_snapshot()
     t0 = time.perf_counter()
@@ -394,8 +394,10 @@ def run_local(mesh: DeviceMesh, program: str, bundle, args: tuple,
               "shard_bytes": None}
     coords = shard_coords(program, mesh, kwargs)
     if coords is not None:
-        report["shard_bytes"] = shard_bytes(core_of(shard_of(bundle,
-                                                             coords)))
+        shard = shard_of(bundle, coords)
+        report["shard_bytes"] = shard_bytes(cores_of(shard))
+        report["calls"] = dict(getattr(shard, "timings", {}).get("calls")
+                               or {})
     return result, report
 
 
@@ -749,6 +751,9 @@ def follower_loop(channel: Channel, mesh: DeviceMesh, resolve: Callable,
                     "shard_bytes": None})
                 seq += 1
                 continue
+            if mesh.device.type == "cuda":
+                # the report's peak is this call's, its resolve included
+                torch.cuda.reset_peak_memory_stats(mesh.device)
             bundle = resolve(call["bundle"], shard_coords(
                 call["program"], view, call["kwargs"]))
             put(channel.store, f"resolved/{seq}/{rank}", b"1")

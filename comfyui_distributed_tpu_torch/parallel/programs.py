@@ -14,6 +14,11 @@ registry) and the call's arguments, and runs under the rank's mesh
   fan-out, its sequence-parallel single image and its tensor-parallel
   form (``FlowPipeline.generate_mesh``, ``generate_sp``,
   ``generate_tp``);
+- ``video_dp`` / ``video_i2v_dp``, ``video_sp`` / ``video_i2v_sp`` and
+  ``video_tp`` — the video pipeline's t2v and i2v ``dp`` fan-out, one
+  video's frames over ``sp`` and its tensor-parallel t2v form, both
+  experts of a two-expert bundle split (``VideoPipeline.generate_mesh``,
+  ``generate_sp``, ``generate_tp``);
 - ``param_digest`` — a digest of the bundle's parameters, computed on the
   rank's device (every rank's comes back: the ranks hold the same
   weights bit for bit); ``shard_digest`` — the same of the rank's shard,
@@ -39,9 +44,10 @@ from ..utils import constants
 
 PROGRAMS: dict[str, Callable] = {}
 # programs that run on the rank's tensor-parallel shard
-SHARDED = frozenset({"txt2img_tp", "flow_tp", "shard_digest"})
+SHARDED = frozenset({"txt2img_tp", "flow_tp", "video_tp", "shard_digest"})
 # the dp programs: on a mesh with a tp axis, the tp-index-0 ranks alone
-DP_PROGRAMS = frozenset({"txt2img_dp", "flow_dp"})
+DP_PROGRAMS = frozenset({"txt2img_dp", "flow_dp", "video_dp",
+                         "video_i2v_dp"})
 
 
 def program(fn: Callable) -> Callable:
@@ -140,6 +146,45 @@ def flow_sp(bundle, spec, seed: int, context, pooled, uncond_context=None,
         axis=axis, noise=noise)
 
 
+@program
+def video_dp(bundle, spec, seed: int, context, pooled, axis: str = "dp",
+             noises=None, progress_token: Optional[int] = None):
+    return bundle.pipeline.generate_mesh(
+        spec, seed, context, pooled, axis=axis, noises=noises,
+        progress_token=progress_token)
+
+
+@program
+def video_i2v_dp(bundle, spec, seed: int, image, context, pooled,
+                 axis: str = "dp", noises=None,
+                 progress_token: Optional[int] = None):
+    return bundle.pipeline.generate_mesh(
+        spec, seed, context, pooled, axis=axis, noises=noises,
+        progress_token=progress_token, image=image)
+
+
+@program
+def video_sp(bundle, spec, seed: int, context, pooled, axis: str = "sp",
+             noise=None):
+    return bundle.pipeline.generate_sp(spec, seed, context, pooled,
+                                       axis=axis, noise=noise)
+
+
+@program
+def video_i2v_sp(bundle, spec, seed: int, image, context, pooled,
+                 axis: str = "sp", noise=None):
+    return bundle.pipeline.generate_sp(spec, seed, context, pooled,
+                                       axis=axis, noise=noise, image=image)
+
+
+@program
+def video_tp(bundle, spec, seed: int, context, pooled, noises=None,
+             progress_token: Optional[int] = None):
+    return shard_of(bundle, _coords("video_tp")).generate_tp(
+        spec, seed, context, pooled, noises=noises,
+        progress_token=progress_token)
+
+
 def bundle_params(bundle) -> dict[str, torch.Tensor]:
     """Every parameter of a bundle's state entries, by dotted name."""
     return {f"{entry}.{name}": p
@@ -180,12 +225,16 @@ def param_digest(bundle) -> str:
 @program
 def shard_digest(bundle) -> dict:
     """The digest and bytes of this rank's shard of the bundle's core
-    (``parallel/tensor.shard_params`` names and order)."""
-    from .tensor import core_of, shard_bytes
+    (``parallel/tensor.shard_params`` names and order), and of a
+    two-expert bundle's low expert (``digest_low``)."""
+    from .tensor import cores_of, shard_bytes
 
-    core = core_of(shard_of(bundle, _coords("shard_digest")))
-    return {"digest": param_digest_of(core.named_parameters()),
-            "bytes": shard_bytes(core)}
+    cores = cores_of(shard_of(bundle, _coords("shard_digest")))
+    out = {"digest": param_digest_of(cores[0].named_parameters()),
+           "bytes": shard_bytes(cores)}
+    if len(cores) > 1:
+        out["digest_low"] = param_digest_of(cores[1].named_parameters())
+    return out
 
 
 @program

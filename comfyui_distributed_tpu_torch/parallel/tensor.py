@@ -25,8 +25,12 @@ MLP; only the order of summation changes.
 
 The same fallback as JAX: a dim that does not divide is replicated. The
 port decides it per **unit** (a UNet attention site or GEGLU, a DiT
-block), because a unit's column and row weights must split together, and
-a unit whose heads do not divide stays whole on every rank.
+block, a WAN attention site or feed-forward), because a unit's column
+and row weights must split together, and a unit whose heads do not
+divide stays whole on every rank. A WAN attention site also splits its
+qk-norm scales with its heads: JAX's rules leave them whole, and GSPMD
+all-reduces the norm's statistics; the port's shard normalises over the
+full width the same way (``models/wan.WanRMSNorm``).
 :func:`spec_for_param` and :func:`tp_sharding_summary` give JAX's
 per-parameter answer, which the residency planner counts
 (``cluster/residency.tp_shard_bytes``).
@@ -35,8 +39,8 @@ A shard is a copy of the model's structure: its replicated parameters
 are the whole model's tensors (rank 0 keeps no second copy of them), its
 split ones the rank's slices, views where the slice is contiguous
 (:func:`shard_module`); a follower draws or loads it without the whole
-model (``parallel/bootstrap``). ``WAN_TP_RULES`` plans WAN bundles only:
-video tensor parallelism is ROADMAP A.6b iii.
+model (``parallel/bootstrap``). A video pipeline's shard holds both
+experts' shards (:func:`shard_pipeline`).
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ UNET_TP_RULES: tuple[Rule, ...] = (
 )
 
 # WAN-class video DiT: q/k/v/o of the self- and cross-attention, ffn_0
-# up, ffn_2 down (planning only until ROADMAP A.6b iii)
+# up, ffn_2 down
 WAN_TP_RULES: tuple[Rule, ...] = (
     (r".*(self|cross)_attn\.[qkv]\.weight$", ("tp", None), (1,)),
     (r".*(self|cross)_attn\.o\.weight$", (None, "tp"), (1,)),
@@ -167,24 +171,31 @@ def _unit_heads(module: nn.Module) -> Optional[int]:
     -1 when ``module`` is no unit."""
     from ..models.dit import DoubleBlock, SingleBlock
     from ..models.layers import GEGLU, Attention
+    from ..models.wan import WanAttention, WanBlock
 
     if isinstance(module, Attention):
         return module.num_heads
-    if isinstance(module, (DoubleBlock, SingleBlock)):
+    if isinstance(module, (DoubleBlock, SingleBlock, WanAttention)):
         return module.heads
-    if isinstance(module, GEGLU):
+    if isinstance(module, (GEGLU, WanBlock)):
         return None
     return -1
 
 
+def _unit_params(unit: nn.Module) -> list[tuple[str, nn.Parameter]]:
+    """The parameters a unit splits or keeps: all of its own, but a WAN
+    block's feed-forward only (its attention sites are units of their
+    own)."""
+    from ..models.wan import WanBlock
+
+    params = list(unit.named_parameters())
+    if isinstance(unit, WanBlock):
+        return [(n, p) for n, p in params if n.startswith("ffn_")]
+    return params
+
+
 def tp_units(core: nn.Module) -> list[tuple[str, nn.Module]]:
     """The core's units in ``named_modules`` order (module docstring)."""
-    from ..models.wan import WanModel
-
-    if isinstance(core, WanModel):
-        raise NotImplementedError(
-            "WAN tensor parallelism is ROADMAP A.6b iii: WAN_TP_RULES "
-            "plans its bundles only")
     return [(n, m) for n, m in core.named_modules() if _unit_heads(m) != -1]
 
 
@@ -197,6 +208,8 @@ def shard_plan(core: nn.Module, size: int,
     divides, part by part, and its heads divide; nothing at size 1."""
     if size <= 1:
         return {}
+    from ..models.wan import WanAttention
+
     rules = rules_for(core) if rules is None else rules
     plan: dict[str, tuple[int, tuple]] = {}
     names = {n for n, _ in core.named_parameters()}
@@ -206,7 +219,7 @@ def shard_plan(core: nn.Module, size: int,
             continue
         mine: dict[str, tuple[int, tuple]] = {}
         ok = True
-        for pname, p in unit.named_parameters():
+        for pname, p in _unit_params(unit):
             name = f"{uname}.{pname}" if uname else pname
             rule = _match(name, rules)
             if rule is None:
@@ -223,6 +236,10 @@ def shard_plan(core: nn.Module, size: int,
                 bias = name[:-len("weight")] + "bias"
                 if bias in names:
                     mine[bias] = (0, parts)
+        if ok and mine and isinstance(unit, WanAttention):
+            # the qk-norm scales, with their heads (module docstring)
+            for norm in ("norm_q", "norm_k"):
+                mine[f"{uname}.{norm}.weight"] = (0, (1,))
         if ok and mine:
             plan.update(mine)
     return plan
@@ -239,6 +256,15 @@ def shard_tensor(t: torch.Tensor, dim: int, parts: tuple, index: int,
         pieces.append(t.narrow(dim, start + index * step, step))
         start += unit * w
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
+
+
+def shard_copy_bytes(core: nn.Module, size: int) -> int:
+    """Bytes of one rank's split tensors that :func:`shard_module` copies
+    (a slice of several parts; a slice of one is a view of ``core``'s)."""
+    return sum(core.get_parameter(name).numel()
+               * core.get_parameter(name).element_size() // size
+               for name, (_, parts) in shard_plan(core, size).items()
+               if len(parts) > 1)
 
 
 def shard_params(core: nn.Module, index: int, size: int,
@@ -261,10 +287,11 @@ def mark_tp(shard: nn.Module, plan: dict, size: int, axis: str) -> None:
     splits."""
     from ..models.dit import _QKV, DoubleBlock, SingleBlock
     from ..models.layers import Attention
+    from ..models.wan import WanAttention
 
     for uname, unit in tp_units(shard):
         prefix = f"{uname}." if uname else ""
-        if not any(n.startswith(prefix) for n in plan):
+        if not any(prefix + n in plan for n, _ in _unit_params(unit)):
             continue
         unit.tp_axis = axis
         if isinstance(unit, Attention):
@@ -274,6 +301,9 @@ def mark_tp(shard: nn.Module, plan: dict, size: int, axis: str) -> None:
             for qkv in unit.modules():
                 if isinstance(qkv, _QKV):
                     qkv.heads //= size
+        elif isinstance(unit, WanAttention):
+            unit.heads //= size
+            unit.norm_q.tp_axis = unit.norm_k.tp_axis = axis
 
 
 def shard_module(core: nn.Module, index: int, size: int, axis: str = "tp",
@@ -350,17 +380,20 @@ def row_parallel(linear: nn.Linear, x: torch.Tensor,
     return y if linear.bias is None else y + linear.bias
 
 
-def shard_bytes(module: nn.Module) -> int:
-    """Bytes of a shard's distinct parameters on its device."""
+def shard_bytes(modules) -> int:
+    """Bytes of a shard's distinct parameters on its device (a module, or
+    a list of them: a two-expert shard's)."""
     from ..cluster.residency import _param_bytes
 
-    return _param_bytes([module], next(module.parameters()).device)
+    modules = [modules] if isinstance(modules, nn.Module) else list(modules)
+    return _param_bytes(modules, next(modules[0].parameters()).device)
 
 
 def shard_pipeline(pipeline, index: int, size: int, axis: str = "tp"):
-    """``pipeline`` with its core (UNet or DiT) replaced by rank
-    ``index``'s shard of ``size``; the VAE and everything else shared.
-    Kept on the pipeline, one per (index, size, axis), at most two (JAX's
+    """``pipeline`` with its core (UNet, DiT or video transformer, and a
+    two-expert pipeline's low expert) replaced by rank ``index``'s shard
+    of ``size``; the VAE and everything else shared. Kept on the
+    pipeline, one per (index, size, axis), at most two (JAX's
     ``_tp_weights_cache``: one sharded copy per mesh)."""
     cache = pipeline.__dict__.setdefault("_tp_shards", {})
     key = (index, size, axis)
@@ -374,6 +407,9 @@ def shard_pipeline(pipeline, index: int, size: int, axis: str = "tp"):
             shard.__dict__.pop(private, None)
         shard.timings = {}
         setattr(shard, attr, shard_module(core, index, size, axis))
+        low = getattr(pipeline, "dit_low", None)
+        if low is not None:
+            shard.dit_low = shard_module(low, index, size, axis)
         if len(cache) >= 2:
             cache.pop(next(iter(cache)))
         cache[key] = shard
@@ -383,3 +419,9 @@ def shard_pipeline(pipeline, index: int, size: int, axis: str = "tp"):
 def core_of(pipeline) -> nn.Module:
     unet = getattr(pipeline, "unet", None)
     return unet if unet is not None else pipeline.dit
+
+
+def cores_of(pipeline) -> list[nn.Module]:
+    """The pipeline's core and, for two experts, the low one."""
+    low = getattr(pipeline, "dit_low", None)
+    return [core_of(pipeline)] + ([low] if low is not None else [])

@@ -256,8 +256,6 @@ def test_nodes_without_a_mesh_program_refuse_a_mesh():
                              negative=None, seed=0, steps=1, cfg=1.0,
                              denoise=0.5)),
         (nb.ImageUpscaleWithModel, dict(upscale_model=None, image=None)),
-        (nb.TPUTxt2Video, dict(model=None, positive=None, seed=0, frames=5,
-                               steps=1, width=16, height=16)),
     ]
     for node, kw in cases:
         with pytest.raises(ValidationError, match="A.6b iii") as err:

@@ -960,6 +960,6 @@ def test_video_workflows_offloaded_through_the_executor(tmp_path, monkeypatch,
     torch.testing.assert_close(out, dp, atol=TOL, rtol=TOL)
     state = tracker.snapshot("v")
     assert (state["step"], state["total"], state["done"]) == (2, 2, True)
-    with pytest.raises(ValidationError, match="A.6"):
+    with pytest.raises(ValidationError, match="no bf16 blocks"):
         prompt[sid]["inputs"]["mode"] = "sp"
         GraphExecutor(dict(base, model_registry=reg)).execute(prompt)

@@ -296,7 +296,8 @@ def jax_cores():
 @pytest.mark.parametrize("tp", [1, 2, 4])
 def test_tp_shard_bytes_as_jax(jax_cores, name, tp):
     """JAX's per-chip arithmetic, leaf for leaf (the port's core in JAX's
-    fp32); the planned rank-0 extra is the split weights' 1/tp."""
+    fp32); the planned rank-0 extra is what rank 0's shard holds besides
+    its bundle once it is cut (the slices of several parts: copies)."""
     bundle = ModelRegistry("cpu", seed=0).get(name)
     core = bundle.core.float()
     rules = tres._tp_rules_for(bundle)
@@ -308,8 +309,15 @@ def test_tp_shard_bytes_as_jax(jax_cores, name, tp):
     assert mine == jres.tp_shard_bytes(jax_cores[name], jrules, tp)
     whole = tres.tp_shard_bytes(core, rules, 1)
     if tp > 1:
+        from comfyui_distributed_tpu_torch.parallel import tensor as ttensor
+
         assert mine < whole
-        assert tres.shard_extra_bytes(bundle, tp) * (tp - 1) == whole - mine
+        planned = tres.shard_extra_bytes(bundle, tp)
+        assert planned < whole - mine
+        ttensor.shard_pipeline(bundle.pipeline, 0, tp)
+        assert tres.shard_extra_bytes(bundle, tp) == planned
+        # WAN's splits are each one part: views only
+        assert (planned > 0) == (name != "wan-tiny")
 
 
 def test_rank0_counts_its_held_shard_and_the_mesh_degree(monkeypatch):

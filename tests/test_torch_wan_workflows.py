@@ -7,8 +7,9 @@
 - both served by a master and a ``remote`` worker controller on loopback
   ports: one IMAGE batch of two videos, ``*_v0`` the master's (seed),
   ``*_v1`` the worker's (seed + 1), each equal to its direct video;
-- the nodes' refusals (``sp``, i2v on a t2v architecture), their
-  ``offload`` runs and their defaults (shift, pooled vector);
+- the nodes' refusals (``tp``, i2v on a t2v architecture), ``sp`` on
+  one rank, their ``offload`` runs and their defaults (shift, pooled
+  vector);
 - weights: WAN 2.2's ``.high``/``.low`` files through ``convert
   --checkpoint-low`` and restore, loaded directly by name, the
   incomplete pair refused; a UMT5 file and a WAN file cut in depth
@@ -227,8 +228,11 @@ def test_served_frames_equal_direct(cluster, direct, registry, monkeypatch):
 
 
 @pytest.mark.parametrize("node,mode,item", [
-    (TPUTxt2Video, "sp", "A.6"), (TPUImg2Video, "sp", "A.6")])
+    (TPUTxt2Video, "tp", "video_tp"), (TPUImg2Video, "tp", "video_tp")])
 def test_video_nodes_refuse_unported_modes(registry, node, mode, item):
+    """``tp`` is no mode of the JAX nodes: refused, naming the program
+    that runs it (``sp``, refused until ROADMAP A.6b iii, runs: below
+    and ``tests/test_torch_mesh_video.py``)."""
     bundle = registry.get("wan-i2v-tiny")
     ctx, _ = bundle.text_encoder.encode(["a"])
     args = dict(seed=1, frames=FRAMES, steps=1, mode=mode)
@@ -238,6 +242,23 @@ def test_video_nodes_refuse_unported_modes(registry, node, mode, item):
         args.update(width=HW, height=HW)
     with pytest.raises(ValidationError, match=item):
         node().execute(bundle, {"context": ctx}, **args)
+
+
+@pytest.mark.parametrize("node", [TPUTxt2Video, TPUImg2Video])
+def test_video_nodes_run_sp_on_one_rank_as_dp(registry, node):
+    """Without a mesh of more than one rank ``sp`` is the ``dp`` run (the
+    JAX node's ``{"sp": 1}`` mesh), bitwise."""
+    bundle = registry.get("wan-i2v-tiny" if node is TPUImg2Video
+                          else "wan-tiny")
+    ctx, _ = bundle.text_encoder.encode(["a"])
+    args = dict(seed=1, frames=FRAMES, steps=1)
+    if node is TPUImg2Video:
+        args["image"] = torch.zeros(1, HW, HW, 3)
+    else:
+        args.update(width=HW, height=HW)
+    sp = node().execute(bundle, {"context": ctx}, mode="sp", **args)[0]
+    dp = node().execute(bundle, {"context": ctx}, mode="dp", **args)[0]
+    assert sp.shape == (FRAMES, HW, HW, 3) and torch.equal(sp, dp)
 
 
 @pytest.mark.parametrize("node", [TPUTxt2Video, TPUImg2Video])
